@@ -1,0 +1,14 @@
+"""madsim_tpu_torch: the batched deterministic simulator on PyTorch.
+
+The port of ``madsim_tpu`` (JAX, TPU) to PyTorch and CUDA on an NVIDIA
+H100. It imports neither JAX nor anything of ``madsim_tpu``: what it
+needs of that package it keeps as its own copy, and its tests hold it
+against the JAX package bit for bit.
+
+* ``engine`` — ``SimState``, ``make_init``, the plain eager step and
+  the runners; on a CUDA state the runners launch the hand-written run
+  kernel (``engine/fused.py``, sources under ``csrc/``).
+* ``models`` — the ported workloads (``raft``) and ``BENCH_SPECS``.
+"""
+
+from . import engine, models  # noqa: F401

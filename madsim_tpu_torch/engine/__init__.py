@@ -1,0 +1,36 @@
+"""The batched simulation engine on torch (port of madsim_tpu.engine)."""
+
+from .core import (  # noqa: F401
+    FIRST_EXT_KIND,
+    FIRST_USER_KIND,
+    KIND_CLOG,
+    KIND_CLOG_NODE,
+    KIND_HALT,
+    KIND_KILL,
+    KIND_NOP,
+    KIND_PAUSE,
+    KIND_RESTART,
+    KIND_RESUME,
+    KIND_UNCLOG,
+    KIND_UNCLOG_NODE,
+    STATE_FIELDS,
+    EmitBuilder,
+    Emits,
+    EngineConfig,
+    HandlerCtx,
+    SimState,
+    Workload,
+    make_init,
+    make_run,
+    make_run_plain,
+    make_run_while,
+    make_run_while_plain,
+    make_step,
+    make_step_plain,
+    resolve_device,
+    user_kind,
+)
+from .convert import state_from_numpy, state_to_numpy  # noqa: F401
+from .fused import make_run_fused  # noqa: F401
+from .rng import Draw, threefry2x32  # noqa: F401
+from .verify import DeterminismError, compare_traces  # noqa: F401

@@ -1,0 +1,903 @@
+"""Batched discrete-event simulation core, on torch tensors.
+
+Port of ``madsim_tpu/engine/core.py`` for the main path: one
+:class:`SimState` row per seed, and one step that advances every seed
+by one event — pop the earliest valid pool slot, gate it on liveness,
+epoch, clog and pause, dispatch the engine kinds inline and the user
+handlers by kind, apply kill/restart/pause/clog/halt, place the emits
+into free slots, fold the trace hash and advance the clock.
+
+The JAX engine has several lowerings of that step (dense/scatter
+layout, rank/scatter placement, time32, the pool index); their values
+are identical by construction, so this port has one: int64 absolute
+event times, row-indexed reads and writes. It is held against the JAX
+engine built with ``layout="scatter", time32=False``.
+
+Integer representation (torch has no unsigned arithmetic past uint8):
+
+* ``step`` and ``ev_meta`` hold uint32 values in int64 tensors, masked
+  to 32 bits;
+* ``seed`` and ``trace`` hold uint64 bit patterns in int64 tensors —
+  multiply, add, xor and left shift agree with the unsigned ones;
+* ``engine/convert.py`` is the only place that converts to the JAX
+  package's numpy dtypes.
+
+Entry points run on the card unless the caller asks for the CPU:
+``make_init(..., device=None)`` means ``"cuda"`` and raises when no card
+is present. On a CUDA state, :func:`make_step`, :func:`make_run` and
+:func:`make_run_while` launch the fused run kernel (``engine/fused.py``);
+the plain eager step stays reachable on any device through
+:func:`make_step_plain`, :func:`make_run_plain` and
+:func:`make_run_while_plain`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .rng import (
+    DRAW_SPAN_MAX,
+    M32,
+    PURPOSE_LATENCY,
+    PURPOSE_LOSS,
+    PURPOSE_POLL_COST,
+    PURPOSE_USER,
+    Draw,
+    chance_threshold,
+    lane,
+)
+
+__all__ = [
+    "EngineConfig",
+    "Workload",
+    "SimState",
+    "Emits",
+    "EmitBuilder",
+    "HandlerCtx",
+    "KIND_KILL",
+    "KIND_RESTART",
+    "KIND_CLOG",
+    "KIND_UNCLOG",
+    "KIND_CLOG_NODE",
+    "KIND_UNCLOG_NODE",
+    "KIND_HALT",
+    "KIND_NOP",
+    "KIND_PAUSE",
+    "KIND_RESUME",
+    "FIRST_USER_KIND",
+    "FIRST_EXT_KIND",
+    "user_kind",
+    "resolve_device",
+    "make_init",
+    "make_step",
+    "make_step_plain",
+    "make_run",
+    "make_run_plain",
+    "make_run_while",
+    "make_run_while_plain",
+]
+
+_INF_NS = 2**62
+
+# ---------------------------------------------------------------------------
+# Event kinds. Engine kinds first, so user handler k has kind
+# FIRST_USER_KIND + k whatever the workload; handler 0 is on_init.
+# ---------------------------------------------------------------------------
+KIND_KILL = 0  # args[0]=node
+KIND_RESTART = 1  # args[0]=node
+KIND_CLOG = 2  # args[0]=a args[1]=b
+KIND_UNCLOG = 3  # args[0]=a args[1]=b
+KIND_CLOG_NODE = 4  # args[0]=node
+KIND_UNCLOG_NODE = 5  # args[0]=node
+KIND_HALT = 6  # scenario complete: freeze this seed's instance
+KIND_NOP = 7
+KIND_PAUSE = 8  # args[0]=node
+KIND_RESUME = 9  # args[0]=node
+FIRST_USER_KIND = 10
+# Kinds from FIRST_EXT_KIND up are the JAX package's extended chaos
+# kinds. They classify as engine kinds here too (no epoch/pause gate),
+# but their effects are not ported yet: none of the ported models emits
+# them.
+FIRST_EXT_KIND = 244
+
+_TRACE_PRIME = 0x100000001B3
+_TRACE_MIX = 0x9E3779B97F4A7C15 - (1 << 64)  # as an int64 bit pattern
+
+
+def user_kind(i: int) -> int:
+    """Kind id of user handler ``i`` (handler 0 = on_init)."""
+    return FIRST_USER_KIND + i
+
+
+# ---------------------------------------------------------------------------
+# ev_meta: kind | (node+1) << 8 | (src+1) << 16 | retry << 24, one uint32
+# word per slot (carried in int64). Out-of-range kinds and nodes are
+# clipped at pack time to values that match nothing downstream.
+# ---------------------------------------------------------------------------
+
+
+def _meta_pack(kind, node1, src1, retry):
+    return (
+        kind.to(torch.int64)
+        | (node1.to(torch.int64) << 8)
+        | (src1.to(torch.int64) << 16)
+        | (retry.to(torch.int64) << 24)
+    )
+
+
+def _meta_kind(meta):
+    return (meta & 0xFF).to(torch.int32)
+
+
+def _meta_node(meta):
+    return ((meta >> 8) & 0xFF).to(torch.int32) - 1
+
+
+def _meta_src(meta):
+    return ((meta >> 16) & 0xFF).to(torch.int32) - 1
+
+
+def _meta_retry(meta):
+    return ((meta >> 24) & 0xFF).to(torch.int32)
+
+
+def _check_meta_ranges(wl: "Workload") -> None:
+    if wl.n_nodes > 254:
+        raise ValueError(
+            f"n_nodes={wl.n_nodes} exceeds the meta byte range (254)"
+        )
+    if FIRST_USER_KIND + len(wl.handlers) > FIRST_EXT_KIND:
+        raise ValueError(
+            f"{len(wl.handlers)} handlers exceed the user kind range "
+            f"[{FIRST_USER_KIND}, {FIRST_EXT_KIND})"
+        )
+
+
+def _wrap64(v: int) -> int:
+    """A Python int as the int64 with the same low 64 bits."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _trace_fold(trace, now, kind, node, args, pay):
+    """Fold one dispatched event into the rolling trace hash.
+
+    uint64 arithmetic on int64 bit patterns: products and sums wrap
+    mod 2^64 alike, and a left shift by a multiply keeps the low bits.
+    """
+    h = now * _TRACE_MIX
+    h = h ^ (kind.to(torch.int64) << 32)
+    # node sign-extends like the reference's int32 -> uint64 cast;
+    # multiply instead of shifting a negative value
+    h = h ^ (node.to(torch.int64) * (1 << 40))
+    a = args.to(torch.int64) & M32
+    for j in range(args.shape[-1]):
+        h = h ^ (a[..., j] << (8 * j))
+    if pay.shape[-1] > 0:
+        p = pay.to(torch.int64) & M32
+        mix = torch.tensor(
+            [_wrap64(0x9E3779B97F4A7C15 ^ j) for j in range(pay.shape[-1])],
+            dtype=torch.int64, device=pay.device,
+        )
+        h = h ^ (p * mix).sum(-1)
+    return trace * _TRACE_PRIME + h
+
+
+# ---------------------------------------------------------------------------
+# configuration and the workload API
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static simulation parameters; ``hash()`` equals the JAX package's
+    for the same values (same fields, same order, same repr)."""
+
+    pool_size: int = 256  # E: max in-flight events per seed
+    lat_min_ns: int = 1_000_000  # network latency range, default 1-10 ms
+    lat_max_ns: int = 10_000_000
+    loss_p: float = 0.0  # packet loss rate
+    proc_min_ns: int = 50  # per-event processing cost
+    proc_max_ns: int = 100
+    clog_backoff_min_ns: int = 1_000_000  # clogged-delivery recheck backoff
+    clog_backoff_max_ns: int = 10_000_000_000
+    time_limit_ns: int = 0  # 0 = unlimited
+
+    def __post_init__(self):
+        for lo, hi, what in (
+            (self.lat_min_ns, self.lat_max_ns, "latency"),
+            (self.proc_min_ns, self.proc_max_ns, "processing-cost"),
+        ):
+            if hi < lo:
+                raise ValueError(f"{what} range [{lo}, {hi}) is empty")
+            if hi - lo > DRAW_SPAN_MAX:
+                raise ValueError(
+                    f"{what} span {hi - lo} ns does not fit uint32 "
+                    f"(max {DRAW_SPAN_MAX} ns, ~4.29 s)"
+                )
+
+    @property
+    def loss_u32(self) -> int:
+        return chance_threshold(self.loss_p)
+
+    @property
+    def time_limit(self) -> int:
+        """The absolute clock bound the step compares against."""
+        return self.time_limit_ns if self.time_limit_ns else _INF_NS
+
+    def hash(self) -> str:
+        """Stable hex hash of the config."""
+        s = repr(dataclasses.astuple(self)).encode()
+        return hashlib.sha256(s).hexdigest()[:16]
+
+
+@dataclasses.dataclass
+class Emits:
+    """A handler's events over a batch: ``(S, K)`` rows.
+
+    ``send`` rows become network deliveries (latency, loss, clog);
+    timer rows become plain future events after ``delay``.
+    """
+
+    valid: torch.Tensor  # (S,K) bool
+    send: torch.Tensor  # (S,K) bool
+    kind: torch.Tensor  # (S,K) int32
+    dst: torch.Tensor  # (S,K) int32
+    delay: torch.Tensor  # (S,K) int64 ns (timers)
+    args: torch.Tensor  # (S,K,A) int32
+    pay: torch.Tensor  # (S,K,W) int32
+
+
+class EmitBuilder:
+    """Collects a handler's emits; slot order is call order, and
+    ``when`` (a bool or an ``(S,)`` tensor) makes a row conditional."""
+
+    def __init__(self, k: int, w: int, a: int, s: int, device):
+        self._k, self._w, self._a, self._s = k, w, a, s
+        self._device = device
+        self._rows: list[tuple] = []
+
+    def _col(self, x, dtype):
+        t = torch.as_tensor(x, device=self._device).to(dtype)
+        return t.expand(self._s) if t.dim() == 0 else t
+
+    def _push(self, send, kind, dst, delay, args, when, pay=()):
+        if len(self._rows) >= self._k:
+            raise ValueError(
+                f"handler emits more than max_emits={self._k} events; "
+                f"raise Workload.max_emits"
+            )
+        if len(args) > self._a:
+            raise ValueError(
+                f"{len(args)} event args exceed Workload.args_words={self._a}"
+            )
+        if len(pay) > self._w:
+            raise ValueError(
+                f"payload of {len(pay)} words exceeds "
+                f"Workload.payload_words={self._w}"
+            )
+        a = list(args) + [0] * (self._a - len(args))
+        p = list(pay) + [0] * (self._w - len(pay))
+        self._rows.append((when, send, kind, dst, delay, a, p))
+
+    def send(self, dst, kind, args=(), when=True, pay=()):
+        """Send a network message: delivery after latency unless lost,
+        clogged or the destination is dead."""
+        self._push(True, kind, dst, 0, args, when, pay)
+
+    def after(self, delay_ns, kind, dst, args=(), when=True, pay=()):
+        """Schedule a local event ``delay_ns`` in the future (a timer)."""
+        self._push(False, kind, dst, delay_ns, args, when, pay)
+
+    def kill(self, node, when=True):
+        self.after(0, KIND_KILL, 0, (node,), when)
+
+    def restart(self, node, when=True):
+        self.after(0, KIND_RESTART, 0, (node,), when)
+
+    def restart_after(self, delay_ns, node, when=True):
+        self.after(delay_ns, KIND_RESTART, 0, (node,), when)
+
+    def pause(self, node, when=True):
+        self.after(0, KIND_PAUSE, 0, (node,), when)
+
+    def resume(self, node, when=True):
+        self.after(0, KIND_RESUME, 0, (node,), when)
+
+    def clog_link(self, a, b, when=True):
+        self.after(0, KIND_CLOG, 0, (a, b), when)
+
+    def unclog_link(self, a, b, when=True):
+        self.after(0, KIND_UNCLOG, 0, (a, b), when)
+
+    def halt(self, when=True):
+        self.after(0, KIND_HALT, 0, (), when)
+
+    def build(self) -> Emits:
+        s, k, dev = self._s, self._k, self._device
+        valid = torch.zeros((s, k), dtype=torch.bool, device=dev)
+        send = torch.zeros((s, k), dtype=torch.bool, device=dev)
+        kind = torch.zeros((s, k), dtype=torch.int32, device=dev)
+        dst = torch.zeros((s, k), dtype=torch.int32, device=dev)
+        delay = torch.zeros((s, k), dtype=torch.int64, device=dev)
+        args = torch.zeros((s, k, self._a), dtype=torch.int32, device=dev)
+        pay = torch.zeros((s, k, self._w), dtype=torch.int32, device=dev)
+        for j, (when, sd, kd, d, dl, a, p) in enumerate(self._rows):
+            valid[:, j] = self._col(when, torch.bool)
+            send[:, j] = sd
+            kind[:, j] = self._col(kd, torch.int32)
+            dst[:, j] = self._col(d, torch.int32)
+            delay[:, j] = self._col(dl, torch.int64)
+            for c, x in enumerate(a):
+                args[:, j, c] = self._col(x, torch.int32)
+            for c, x in enumerate(p):
+                pay[:, j, c] = self._col(x, torch.int32)
+        return Emits(valid, send, kind, dst, delay, args, pay)
+
+
+@dataclasses.dataclass
+class HandlerCtx:
+    """What a handler sees about the events it processes, one row per
+    seed."""
+
+    now: torch.Tensor  # (S,) int64 virtual clock (plus the node's skew)
+    node: torch.Tensor  # (S,) int32 the node the event targets
+    state: torch.Tensor  # (S,U) int32 the node's state row
+    args: torch.Tensor  # (S,A) int32 event arguments
+    src: torch.Tensor  # (S,) int32 sender node, -1 for timers
+    draw: Draw  # counter-based RNG for this event
+    max_emits: int
+    payload: torch.Tensor  # (S,W) int32
+    payload_words: int = 0
+    args_words: int = 4
+
+    def emits(self) -> EmitBuilder:
+        return EmitBuilder(
+            self.max_emits, self.payload_words, self.args_words,
+            self.state.shape[0], self.state.device,
+        )
+
+
+Handler = Callable[[HandlerCtx], tuple]
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """A batched simulation program: per-node int32 state plus handlers.
+
+    ``handler(ctx) -> (new_state (S,U), Emits)``; handler 0 is on_init,
+    run for every node at t=0 and again after a restart.
+    ``model_params`` names the factory's parameters, which a fused
+    kernel that carries the handlers as device code needs.
+    """
+
+    name: str
+    n_nodes: int
+    state_width: int
+    handlers: tuple
+    max_emits: int = 8
+    init_state: np.ndarray | None = None  # (N,U) int32; zeros if None
+    payload_words: int = 0
+    args_words: int = 4
+    durable_cols: tuple | None = None
+    # user purposes generated in the step's batched RNG block
+    draw_purposes: tuple | None = None
+    model_params: tuple = ()  # ((name, value), ...)
+
+    def __post_init__(self):
+        if not (2 <= self.args_words <= 4):
+            raise ValueError(
+                f"args_words={self.args_words} must be in [2, 4] "
+                f"(engine kinds read args[0:2])"
+            )
+        limit = PURPOSE_LOSS - PURPOSE_LATENCY - 1
+        if self.max_emits > limit:
+            raise ValueError(
+                f"max_emits={self.max_emits} exceeds the purpose-namespace "
+                f"limit of {limit}"
+            )
+        if self.durable_cols is not None:
+            bad = [c for c in self.durable_cols if not 0 <= c < self.state_width]
+            if bad:
+                raise ValueError(
+                    f"durable_cols {bad} out of range for "
+                    f"state_width={self.state_width}"
+                )
+        for p in self.draw_purposes or ():
+            if not 0 <= int(p) < lane("user").width:
+                raise ValueError(
+                    f"draw_purposes purpose {p} is outside the user lane"
+                )
+
+    def initial_state(self) -> np.ndarray:
+        if self.init_state is not None:
+            return np.asarray(self.init_state, np.int32)
+        return np.zeros((self.n_nodes, self.state_width), np.int32)
+
+    def volatile_mask(self) -> np.ndarray:
+        """(U,) bool — True where RESTART resets to the initial row."""
+        mask = np.ones((self.state_width,), bool)
+        if self.durable_cols:
+            mask[list(self.durable_cols)] = False
+        return mask
+
+
+# ---------------------------------------------------------------------------
+# state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SimState:
+    """Every seed's simulation state; the leading axis is the seed."""
+
+    seed: torch.Tensor  # (S,) int64: uint64 instance seed bits
+    now: torch.Tensor  # (S,) int64 virtual clock, ns
+    step: torch.Tensor  # (S,) int64: uint32 event sequence number
+    halted: torch.Tensor  # (S,) bool
+    halt_time: torch.Tensor  # (S,) int64 clock when halted (else 0)
+    trace: torch.Tensor  # (S,) int64: uint64 rolling hash bits
+    overflow: torch.Tensor  # (S,) int32 events dropped to pool overflow
+    msg_count: torch.Tensor  # (S,) int64 messages sent
+    ev_time: torch.Tensor  # (S,E) int64 absolute ns
+    ev_valid: torch.Tensor  # (S,E) bool
+    ev_meta: torch.Tensor  # (S,E) int64: uint32 packed kind/node/src/retry
+    ev_epoch: torch.Tensor  # (S,E) int32 target-node epoch at emit time
+    ev_args: torch.Tensor  # (S,E,A) int32
+    ev_pay: torch.Tensor  # (S,E,W) int32
+    alive: torch.Tensor  # (S,N) bool
+    paused: torch.Tensor  # (S,N) bool
+    epoch: torch.Tensor  # (S,N) int32
+    node_state: torch.Tensor  # (S,N,U) int32
+    clog: torch.Tensor  # (S,N,N) bool link-clog matrix
+    slow: torch.Tensor  # (S,N,N) int32 latency multiplier, identity 1
+    dup: torch.Tensor  # (S,) bool message duplication, identity False
+    skew: torch.Tensor  # (S,N) int32 clock skew ns, identity 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.seed.device
+
+    def to(self, device) -> "SimState":
+        return SimState(
+            **{f.name: getattr(self, f.name).to(device) for f in _FIELDS}
+        )
+
+
+_FIELDS = dataclasses.fields(SimState)
+STATE_FIELDS = tuple(f.name for f in _FIELDS)
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; raise rather than fall back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain step on the CPU"
+        )
+    return dev
+
+
+def _seeds_tensor(seeds, device) -> torch.Tensor:
+    if isinstance(seeds, torch.Tensor):
+        return seeds.to(device=device, dtype=torch.int64)
+    a = np.asarray(seeds)
+    if a.dtype.kind == "i":
+        a = a.astype(np.int64)
+    else:
+        a = a.astype(np.uint64).view(np.int64)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def make_init(wl: Workload, cfg: EngineConfig, device=None):
+    """Build ``init(seeds) -> SimState``: one on_init event per node at
+    t=0 in slots ``0..N-1``, every other slot an invalid NOP."""
+    n, u, e = wl.n_nodes, wl.state_width, cfg.pool_size
+    if e < n:
+        raise ValueError(
+            f"pool_size={e} must hold one on_init event per node ({n})"
+        )
+    _check_meta_ranges(wl)
+    dev = resolve_device(device)
+    base_state = torch.from_numpy(wl.initial_state()).to(dev)
+
+    def init(seeds) -> SimState:
+        seed = _seeds_tensor(seeds, dev)
+        s = seed.shape[0]
+        z = lambda *shape, dt: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
+        ev_valid = z(s, e, dt=torch.bool)
+        ev_valid[:, :n] = True
+        kind = torch.full((e,), KIND_NOP, dtype=torch.int32, device=dev)
+        kind[:n] = FIRST_USER_KIND
+        # slots past the on_init rows target node 0, as in the reference
+        node1 = torch.ones((e,), dtype=torch.int32, device=dev)
+        node1[:n] = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+        zero = torch.zeros((e,), dtype=torch.int32, device=dev)
+        meta = _meta_pack(kind, node1, zero, zero)
+        return SimState(
+            seed=seed,
+            now=z(s, dt=torch.int64),
+            step=z(s, dt=torch.int64),
+            halted=z(s, dt=torch.bool),
+            halt_time=z(s, dt=torch.int64),
+            trace=z(s, dt=torch.int64),
+            overflow=z(s, dt=torch.int32),
+            msg_count=z(s, dt=torch.int64),
+            ev_time=z(s, e, dt=torch.int64),
+            ev_valid=ev_valid,
+            ev_meta=meta.expand(s, e).contiguous(),
+            ev_epoch=z(s, e, dt=torch.int32),
+            ev_args=z(s, e, wl.args_words, dt=torch.int32),
+            ev_pay=z(s, e, wl.payload_words, dt=torch.int32),
+            alive=torch.ones((s, n), dtype=torch.bool, device=dev),
+            paused=z(s, n, dt=torch.bool),
+            epoch=z(s, n, dt=torch.int32),
+            node_state=base_state.expand(s, n, u).contiguous(),
+            clog=z(s, n, n, dt=torch.bool),
+            slow=torch.ones((s, n, n), dtype=torch.int32, device=dev),
+            dup=z(s, dt=torch.bool),
+            skew=z(s, n, dt=torch.int32),
+        )
+
+    return init
+
+
+# ---------------------------------------------------------------------------
+# the plain eager step
+# ---------------------------------------------------------------------------
+
+
+def _first_argmin(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise index of the FIRST minimum (jnp.argmin's tie-break),
+    pinned explicitly rather than left to the backend."""
+    idx = torch.arange(x.shape[1], device=x.device)
+    hit = x == x.min(dim=1, keepdim=True).values
+    return torch.where(hit, idx, x.shape[1]).min(dim=1).values
+
+
+def _plain_step_fn(wl: Workload, cfg: EngineConfig):
+    """The eager batched step: ``step(SimState) -> SimState``."""
+    n, k, w, aw = wl.n_nodes, wl.max_emits, wl.payload_words, wl.args_words
+    n_user = len(wl.handlers)
+    _check_meta_ranges(wl)
+    user_purposes = tuple(int(p) for p in (wl.draw_purposes or ()))
+    lane_p = [PURPOSE_POLL_COST]
+    lane_p += [PURPOSE_LATENCY + s for s in range(k + 1)]
+    i_user = len(lane_p)
+    lane_p += [PURPOSE_USER + p for p in user_purposes]
+    loss_u32 = cfg.loss_u32
+    time_limit = cfg.time_limit
+    lat_span = max(cfg.lat_max_ns - cfg.lat_min_ns, 1)
+    proc_span = max(cfg.proc_max_ns - cfg.proc_min_ns, 1)
+    init_rows_np = wl.initial_state()
+    volatile_np = wl.volatile_mask()
+
+    def step(st: SimState) -> SimState:
+        dev = st.seed.device
+        s_n, e_n = st.ev_valid.shape
+        ar = torch.arange(s_n, device=dev)
+        node_ids = torch.arange(n, dtype=torch.int32, device=dev)
+        ir = torch.from_numpy(init_rows_np).to(dev)
+        vo = torch.from_numpy(volatile_np).to(dev)
+
+        # ---- pop the earliest pending event (first minimum) ----
+        tmask = torch.where(st.ev_valid, st.ev_time, _INF_NS)
+        i = _first_argmin(tmask)
+        has_event = st.ev_valid[ar, i]
+        ev_time_i = st.ev_time[ar, i]
+        ev_t = torch.maximum(st.now, ev_time_i)
+        over_limit = ev_t > time_limit
+        active = has_event & ~st.halted & ~over_limit
+
+        meta_i = st.ev_meta[ar, i]
+        kind = _meta_kind(meta_i)
+        dst = _meta_node(meta_i)
+        src = _meta_src(meta_i)
+        args = st.ev_args[ar, i]
+        ev_epoch_i = st.ev_epoch[ar, i]
+        pay_i = st.ev_pay[ar, i]
+        is_engine = (kind < FIRST_USER_KIND) | (kind >= FIRST_EXT_KIND)
+        is_msg = src >= 0
+
+        # per-event reads; an out-of-range dst reads as a dead node with
+        # a zero state row
+        in_range = (dst >= 0) & (dst < n)
+        dst_c = dst.clamp(0, n - 1).long()
+        state_row = torch.where(in_range[:, None], st.node_state[ar, dst_c], 0)
+        alive_dst = st.alive[ar, dst_c] & in_range
+        paused_dst = st.paused[ar, dst_c] & in_range
+        epoch_dst = torch.where(in_range, st.epoch[ar, dst_c], 0)
+        skew_dst = torch.where(in_range, st.skew[ar, dst_c], 0)
+
+        # liveness/epoch gate (epoch -1 = any incarnation)
+        live = alive_dst & ((epoch_dst == ev_epoch_i) | (ev_epoch_i == -1))
+        # clogged links hold messages (backoff reschedule); the sender
+        # index clamps like the reference's gather
+        src_c = src.clamp(0, n - 1).long()
+        clogged = is_msg & st.clog[ar, src_c, dst_c] & in_range
+        # a paused node's user events are held and retried
+        held = ~is_engine & paused_dst
+        blocked = clogged | held
+        dispatch = active & ~blocked & (is_engine | live)
+
+        now = torch.where(active, ev_t, st.now)
+        draw = Draw(st.seed, st.step)
+        # the per-dispatch block: lane 0 poll cost / clog jitter, lanes
+        # 1..k+1 per-emit latency / loss, then the user lanes
+        lane0, lane1 = draw.block2(lane_p)
+        cost = cfg.proc_min_ns + lane0[:, 0] % proc_span
+        clog_jit = lane1[:, 0] % 1000
+        now_after = torch.where(dispatch, now + cost, now)
+
+        # ---- consume / reschedule the popped slot ----
+        retries = _meta_retry(meta_i)
+        shift = torch.clamp(retries, max=34).to(torch.int64)
+        backoff = torch.clamp(
+            torch.full_like(shift, cfg.clog_backoff_min_ns) << shift,
+            max=cfg.clog_backoff_max_ns,
+        ) + clog_jit
+        resched = active & blocked & (is_engine | live)
+        meta_bumped = (meta_i & 0x00FFFFFF) | (
+            torch.clamp(retries + 1, max=255).to(torch.int64) << 24
+        )
+        ev_valid = st.ev_valid.clone()
+        ev_valid[ar, i] = resched
+        ev_time = st.ev_time.clone()
+        ev_time[ar, i] = torch.where(resched, now + backoff, ev_time_i)
+        ev_meta = st.ev_meta.clone()
+        ev_meta[ar, i] = torch.where(resched, meta_bumped, meta_i)
+
+        # ---- dispatch: evaluate every handler, select by kind ----
+        user_dispatch = dispatch & ~is_engine
+        if n_user:
+            user_idx = (kind - FIRST_USER_KIND).clamp(0, n_user - 1)
+            # handler draws at the declared purposes read the block
+            draw.cache = {
+                PURPOSE_USER + p: (lane0[:, i_user + j], lane1[:, i_user + j])
+                for j, p in enumerate(user_purposes)
+            } or None
+            ctx = HandlerCtx(
+                now=now + skew_dst.to(torch.int64),
+                node=dst,
+                state=state_row,
+                args=args,
+                src=src,
+                draw=draw,
+                max_emits=k,
+                payload=pay_i,
+                payload_words=w,
+                args_words=aw,
+            )
+            outs = [h(ctx) for h in wl.handlers]
+            pick = user_idx.long()
+
+            def sel(vals):
+                return torch.stack(vals, 0)[pick, ar]
+
+            user_state = sel([torch.as_tensor(o[0]).to(torch.int32) for o in outs])
+            uem = Emits(*(
+                sel([getattr(o[1], f.name) for o in outs])
+                for f in dataclasses.fields(Emits)
+            ))
+        else:
+            user_state = state_row
+            uem = EmitBuilder(k, w, aw, s_n, dev).build()
+
+        row = torch.where(user_dispatch[:, None], user_state, state_row)
+        node_state = st.node_state.clone()
+        node_state[ar[in_range], dst_c[in_range]] = row[in_range]
+
+        # ---- engine effects: kill / restart / pause / clog / halt ----
+        a0, a1 = args[:, 0], args[:, 1]
+        kill_id = torch.where(dispatch & (kind == KIND_KILL), a0, -1)
+        restart_id = torch.where(dispatch & (kind == KIND_RESTART), a0, -1)
+        is_killed = node_ids[None, :] == kill_id[:, None]
+        is_restarted = node_ids[None, :] == restart_id[:, None]
+        alive = (st.alive & ~is_killed) | is_restarted
+        is_pause_kind = (kind == KIND_PAUSE) | (kind == KIND_RESUME)
+        pause_id = torch.where(dispatch & is_pause_kind, a0, -1)
+        paused = torch.where(
+            node_ids[None, :] == pause_id[:, None],
+            (kind == KIND_PAUSE)[:, None],
+            st.paused,
+        )
+        paused = paused & ~(is_killed | is_restarted)
+        epoch = st.epoch + is_killed.to(torch.int32) + is_restarted.to(torch.int32)
+        node_state = torch.where(
+            is_restarted[:, :, None] & vo[None, None, :], ir[None], node_state
+        )
+
+        is_clog_kind = (kind >= KIND_CLOG) & (kind <= KIND_UNCLOG_NODE)
+        clog_on = (kind == KIND_CLOG) | (kind == KIND_CLOG_NODE)
+        clog_set = torch.where(dispatch & is_clog_kind, clog_on.to(torch.int32), -1)
+        is_node_clog = (kind == KIND_CLOG_NODE) | (kind == KIND_UNCLOG_NODE)
+        ca = a0[:, None, None]
+        cb = torch.where(is_node_clog, -1, a1)[:, None, None]
+        src_ax = node_ids[None, :, None]
+        dst_ax = node_ids[None, None, :]
+        # clog_link(a, b) blocks both directions; clog_node(a) (b < 0)
+        # blocks everything in or out of a
+        sel_c = ((src_ax == ca) & (dst_ax == cb)) | ((src_ax == cb) & (dst_ax == ca))
+        sel_c = sel_c | ((cb < 0) & ((src_ax == ca) | (dst_ax == ca)))
+        cs = clog_set[:, None, None]
+        clog = torch.where(
+            sel_c & (cs == 1), True, torch.where(sel_c & (cs == 0), False, st.clog)
+        )
+
+        halted = st.halted | (dispatch & (kind == KIND_HALT)) | (has_event & over_limit)
+        halt_time = torch.where(
+            halted & ~st.halted, torch.clamp(now, max=time_limit), st.halt_time
+        )
+
+        # ---- emits: the user rows plus the restart row (the reborn
+        # node's on_init timer) ----
+        restart_row = kind == KIND_RESTART
+        ev_valid_em = torch.cat(
+            [uem.valid & ~is_engine[:, None], restart_row[:, None]], 1
+        )
+        em_send = torch.cat([uem.send, torch.zeros_like(restart_row)[:, None]], 1)
+        em_kind = torch.cat(
+            [uem.kind, torch.full_like(kind, FIRST_USER_KIND)[:, None]], 1
+        )
+        em_dst = torch.cat([uem.dst, a0[:, None]], 1)
+        em_delay = torch.cat([uem.delay, torch.zeros_like(now)[:, None]], 1)
+        em_args = torch.cat([uem.args, torch.zeros_like(args)[:, None]], 1)
+        em_pay = torch.cat([uem.pay, torch.zeros_like(pay_i)[:, None]], 1)
+
+        lat_bits = lane0[:, 1 : k + 2]
+        loss_bits = lane1[:, 1 : k + 2]
+        latency = cfg.lat_min_ns + lat_bits % lat_span
+        lost = em_send & (loss_bits < loss_u32)
+        e_valid = dispatch[:, None] & ev_valid_em & ~lost
+        # sends to dead nodes drop at send time; timers to dead nodes
+        # die at the epoch gate
+        em_in_range = (em_dst >= 0) & (em_dst < n)
+        em_dst_c = em_dst.clamp(0, n - 1).long()
+        alive_at_dst = alive[ar[:, None], em_dst_c] & em_in_range
+        e_epoch = torch.where(em_in_range, epoch[ar[:, None], em_dst_c], 0)
+        e_valid = e_valid & torch.where(em_send, alive_at_dst, True)
+        # gray-failure latency multiplier of the sending node's row
+        emit_mult = torch.where(
+            in_range[:, None] & em_in_range,
+            st.slow[ar[:, None], dst_c[:, None], em_dst_c],
+            1,
+        ).clamp(min=1)
+        latency = torch.where(emit_mult > 1, latency * emit_mult, latency)
+        e_time = now_after[:, None] + torch.where(em_send, latency, em_delay)
+        e_src = torch.where(em_send, dst[:, None], -1)
+        em_engine = (em_kind < FIRST_USER_KIND) | (em_kind >= FIRST_EXT_KIND)
+        e_epoch = torch.where(em_engine, 0, e_epoch).to(torch.int32)
+        e_meta = _meta_pack(
+            torch.where(em_kind < 0, KIND_NOP, em_kind.clamp(max=255)),
+            em_dst.clamp(-1, n) + 1,
+            e_src.clamp(-1, n) + 1,
+            torch.zeros_like(em_kind),
+        )
+        msg_count = st.msg_count + (
+            dispatch[:, None] & ev_valid_em & em_send
+        ).sum(1)
+
+        # ---- compact placement: the j-th valid emit takes the j-th
+        # free slot in pool order; a full pool drops and counts ----
+        pos = torch.cumsum(e_valid.to(torch.int64), 1) - 1
+        free = ~ev_valid
+        n_free = free.sum(1, keepdim=True)
+        dropped = e_valid & (pos >= n_free)
+        overflow = st.overflow + dropped.sum(1).to(torch.int32)
+        placed = e_valid & ~dropped
+        # free slots first, in slot order (stable sort of the 0/1 key)
+        free_order = torch.sort(
+            (~free).to(torch.int8), dim=1, stable=True
+        ).indices
+        slot = free_order.gather(1, pos.clamp(0, e_n - 1))
+        ps, pj = placed.nonzero(as_tuple=True)
+        pslot = slot[ps, pj]
+        ev_valid[ps, pslot] = True
+        ev_time[ps, pslot] = e_time[ps, pj]
+        ev_meta[ps, pslot] = e_meta[ps, pj]
+        ev_epoch = st.ev_epoch.clone()
+        ev_epoch[ps, pslot] = e_epoch[ps, pj]
+        ev_args = st.ev_args.clone()
+        ev_args[ps, pslot] = em_args[ps, pj]
+        ev_pay = st.ev_pay.clone()
+        ev_pay[ps, pslot] = em_pay[ps, pj]
+
+        # ---- trace + clock ----
+        trace = torch.where(
+            dispatch, _trace_fold(st.trace, now, kind, dst, args, pay_i), st.trace
+        )
+        return SimState(
+            seed=st.seed,
+            now=now_after,
+            step=(st.step + 1) & M32,
+            halted=halted,
+            halt_time=halt_time,
+            trace=trace,
+            overflow=overflow,
+            msg_count=msg_count,
+            ev_time=ev_time,
+            ev_valid=ev_valid,
+            ev_meta=ev_meta,
+            ev_epoch=ev_epoch,
+            ev_args=ev_args,
+            ev_pay=ev_pay,
+            alive=alive,
+            paused=paused,
+            epoch=epoch,
+            node_state=node_state,
+            clog=clog,
+            slow=st.slow,
+            dup=st.dup,
+            skew=st.skew,
+        )
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# entry points: the plain versions, and the dispatching ones that launch
+# the fused kernel on a CUDA state
+# ---------------------------------------------------------------------------
+
+
+def make_step_plain(wl: Workload, cfg: EngineConfig):
+    """The plain eager step on any device."""
+    return _plain_step_fn(wl, cfg)
+
+
+def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int):
+    """``n_steps`` of the plain eager step on any device."""
+    step = _plain_step_fn(wl, cfg)
+
+    def run(state: SimState) -> SimState:
+        for _ in range(n_steps):
+            state = step(state)
+        return state
+
+    return run
+
+
+def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int):
+    """The plain eager step until every seed has halted, at most
+    ``max_steps`` times; every seed takes the same number of steps."""
+    step = _plain_step_fn(wl, cfg)
+
+    def run(state: SimState) -> SimState:
+        i = 0
+        while i < max_steps and not bool(state.halted.all()):
+            state = step(state)
+            i += 1
+        return state
+
+    return run
+
+
+def make_step(wl: Workload, cfg: EngineConfig):
+    """One step: the plain step on a CPU state, the fused kernel with
+    ``n_steps=1`` on a CUDA state (raises for a workload the kernel
+    does not carry)."""
+    from .fused import make_run_fused
+
+    return make_run_fused(wl, cfg, 1)
+
+
+def make_run(wl: Workload, cfg: EngineConfig, n_steps: int):
+    """``n_steps`` steps: plain on a CPU state, the fused kernel on a
+    CUDA state."""
+    from .fused import make_run_fused
+
+    return make_run_fused(wl, cfg, n_steps)
+
+
+def make_run_while(wl: Workload, cfg: EngineConfig, max_steps: int):
+    """Steps until every seed has halted, at most ``max_steps``: plain
+    on a CPU state, the fused kernel on a CUDA state."""
+    from .fused import make_run_fused
+
+    return make_run_fused(wl, cfg, max_steps, until_halted=True)
