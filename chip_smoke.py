@@ -3,11 +3,14 @@
     python3 chip_smoke.py
 
 Drives the port's main path — 5-node raft leader election batched over
-seeds (``madsim_tpu_torch``) — through the hand-written CUDA run kernel
-and holds it against the plain eager step:
+seeds (``madsim_tpu_torch``) — and then every other ``BENCH_SPECS``
+model through the hand-written CUDA run kernel, and holds each against
+the plain eager step:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. builds the run kernel from ``madsim_tpu_torch/csrc`` with nvcc;
+2. builds every model's run kernel library from ``madsim_tpu_torch/csrc``
+   with nvcc, one process per model, all started together, and prints
+   each kernel's registers and stack frame;
 3. the ``entry()`` shape (pool 128, loss 0.02, 1,024 seeds):
    ``make_step`` and a 60-step ``make_run`` through the kernel, every
    field equal to the plain step on the card;
@@ -17,7 +20,15 @@ and holds it against the plain eager step:
    step on the card, and the first 256 seeds equal to the plain step on
    the CPU; no pool overflow, every seed halted; kernel and plain times
    by CUDA events;
-5. one JSON line describing each kernel, then the card's name and power
+5. one phase per model at its full-width ``BENCH_SPECS`` shape:
+   microbench, pingpong, broadcast, kvchaos, kvchaos with the payload
+   arena (the kvchaos config) and raftlog. Each drives
+   ``make_run_while`` through the kernel with the launch counts read
+   around it, checks that every seed halted with no pool overflow,
+   holds every field against the plain step on the card (run once, and
+   timed that once) and the first 256 seeds against the plain step on
+   the CPU, and times the kernel path (median of 5, min, max);
+6. one JSON line describing each kernel, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Any mismatch or exception exits non-zero. Without a card it exits
@@ -46,11 +57,27 @@ INT32_LANES = 132 * 64
 # int32 operations per threefry2x32-20 block: 20 rounds of add, rotate,
 # xor, 5 key injections of 3 adds, the parity word and the 2 key adds
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
-# threefry blocks per raft step in the step's batched lane block:
-# poll cost, K+1 = 7 per-emit latency/loss lanes, the user timeout lane
-RAFT_BLOCKS_PER_STEP = 9
 # per pool slot of the pop scan: the valid test, the compare, the select
 POP_OPS_PER_SLOT = 3
+
+
+# the models after raft, in phase order: (BENCH_SPECS name, kernel
+# model key, factory keyword arguments)
+MODEL_PHASES = (
+    ("microbench", "microbench", {}),
+    ("pingpong", "pingpong", {}),
+    ("broadcast", "broadcast", {}),
+    ("kvchaos", "kvchaos", {}),
+    ("kvchaos", "kvchaos-payload", {"payload": True}),
+    ("raftlog", "raftlog", {}),
+)
+
+
+def blocks_per_step(wl) -> int:
+    """Threefry blocks in the step's batched lane block: the poll cost,
+    K+1 per-emit latency/loss lanes and the declared user purposes (raft:
+    1 + 7 + 1 = 9)."""
+    return 1 + wl.max_emits + 1 + len(wl.draw_purposes or ())
 
 
 def log(*a) -> None:
@@ -132,7 +159,7 @@ def run_phases(device, entry_seeds: int, bench_seeds: int, cpu_sample: int,
         STATE_FIELDS, EngineConfig, make_init, make_run, make_run_plain,
         make_run_while, make_run_while_plain, make_step, make_step_plain,
     )
-    from madsim_tpu_torch.engine.fused import KERNEL, KERNEL_FIELDS, halt_counts
+    from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
     from madsim_tpu_torch.models import BENCH_SPECS, make_raft
 
     wl = make_raft()
@@ -156,11 +183,11 @@ def run_phases(device, entry_seeds: int, bench_seeds: int, cpu_sample: int,
     run = make_run_while(wl, cfg, cap)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    KERNEL.launches = 0
+    KERNEL.reset()
     out = run(st)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = KERNEL.launches
+    launches = KERNEL.counts.get("raft", 0)
     log(f"  main path: run kernel launched {launches} times")
 
     # correctness of what came out
@@ -206,22 +233,124 @@ def run_phases(device, entry_seeds: int, bench_seeds: int, cpu_sample: int,
         f"(kernel), {sim_s / (statistics.median(plain_ms) / 1e3):.1f} sim_s/s (plain)")
     log(f"  state holds {state_bytes(st)} bytes ({state_bytes(st) / bench_seeds:.1f} per seed)")
 
-    # the bound: state bytes in and out once, and the step's integer work
-    # over the seed-steps this run's seeds need to halt
+    return dict(
+        launches=launches, err=err, ms=med, ms_all=ms,
+        plain_ms=statistics.median(plain_ms),
+        **bound_terms(device, wl, cfg, cap, st, out, n_steps),
+    )
+
+
+def bound_terms(device, wl, cfg, cap: int, st, out, n_steps: int) -> dict:
+    """The bound's inputs: state bytes in and out once, and the step's
+    integer work over the seed-steps this run's seeds need to halt."""
+    from madsim_tpu_torch.engine.fused import KERNEL_FIELDS, READ_ONLY_FIELDS, halt_counts
+
     in_bytes = sum(getattr(st, f).nbytes for f in KERNEL_FIELDS)
-    written = [f for f in KERNEL_FIELDS if f not in ("seed", "slow")]
+    written = [f for f in KERNEL_FIELDS if f not in READ_ONLY_FIELDS]
     out_bytes = sum(getattr(out, f).nbytes for f in written)
     if device.type == "cuda":
         seed_steps = int(halt_counts(wl, cfg, cap, st).sum())
     else:  # rehearsal: no per-seed counts without the kernel
-        seed_steps = n_steps * bench_seeds
+        seed_steps = n_steps * st.seed.shape[0]
     e = cfg.pool_size
-    ops = seed_steps * (RAFT_BLOCKS_PER_STEP * THREEFRY_OPS + POP_OPS_PER_SLOT * e)
-    return dict(
-        launches=launches, err=err, ms=med, ms_all=ms,
-        plain_ms=statistics.median(plain_ms), in_bytes=in_bytes,
-        out_bytes=out_bytes, ops=ops, seed_steps=seed_steps,
+    ops = seed_steps * (blocks_per_step(wl) * THREEFRY_OPS + POP_OPS_PER_SLOT * e)
+    return dict(in_bytes=in_bytes, out_bytes=out_bytes, ops=ops, seed_steps=seed_steps)
+
+
+def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
+                cpu_sample: int, repeats: int, seeds_cap=None) -> dict:
+    """One model at its BENCH_SPECS shape (``seeds_cap`` cuts the seed
+    count only in a CPU rehearsal): the main path through the kernel with
+    the launch counts read around it, the checks, every field against
+    the plain step (on the device, run and timed once, and the first
+    seeds on the CPU), and the kernel's time."""
+    from madsim_tpu_torch.engine import (
+        STATE_FIELDS, EngineConfig, make_init, make_run_plain, make_run_while,
+        make_run_while_plain,
     )
+    from madsim_tpu_torch.engine.fused import KERNEL
+    from madsim_tpu_torch.models import BENCH_SPECS
+
+    factory, kw, n_seeds, cap = BENCH_SPECS[spec_name]
+    if seeds_cap is not None:
+        n_seeds = min(n_seeds, seeds_cap)
+    wl, cfg = factory(**factory_kw), EngineConfig(**kw)
+    log(f"[{idx}] {key}: {kw}, {n_seeds} seeds, make_run_while cap {cap}")
+    init = make_init(wl, cfg, device=device)
+    st = init(np.arange(n_seeds, dtype=np.uint64))
+    run = make_run_while(wl, cfg, cap)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    KERNEL.reset()
+    out = run(st)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = KERNEL.counts.get(key, 0)
+    log(f"  main path: {key} kernel launched {launches} times")
+
+    n_steps = int(out.step[0])
+    if not bool((out.step == n_steps).all()):
+        raise AssertionError(f"{key}: seeds disagree on the step count")
+    if int(out.overflow.max()) != 0:
+        raise AssertionError(f"{key}: pool overflow, {int(out.overflow.sum())} events dropped")
+    if not bool(out.halted.all()):
+        raise AssertionError(f"{key}: {int((~out.halted).sum())} seeds did not halt")
+    log(f"  {n_seeds} seeds halted after {n_steps} steps; overflow 0; "
+        f"{int(out.msg_count.sum())} messages; median halt time "
+        f"{float(out.halt_time.double().median()) / 1e6:.3f} ms")
+    # the plain step's one run: the reference, and its time
+    plain = make_run_while_plain(wl, cfg, cap)
+    refs = []
+    plain_ms = time_ms(lambda: refs.append(plain(st)), 1, device)
+    ref = refs[0]
+    assert_equal(out, ref, "make_run_while (kernel) vs plain on the card")
+    err = max_abs_err(out, ref)
+    k = min(cpu_sample, n_seeds)
+    cpu_ref = make_run_plain(wl, cfg, n_steps)(init(np.arange(k, dtype=np.uint64)).to("cpu"))
+    head = type(out)(**{f: getattr(out, f)[:k] for f in STATE_FIELDS})
+    assert_equal(head, cpu_ref, f"first {k} seeds (kernel) vs plain on the CPU")
+    err = max(err, max_abs_err(head, cpu_ref))
+
+    ms = time_ms(lambda: run(st), repeats, device)
+    med = statistics.median(ms)
+    sim_s = float(out.now.double().sum()) / 1e9
+    log(f"  kernel ms over {repeats} runs: median {med:.4f}, min {min(ms):.4f}, "
+        f"max {max(ms):.4f}, all {[round(x, 4) for x in ms]}")
+    log(f"  plain ms (the one correctness run): {plain_ms[0]:.2f}")
+    log(f"  simulated seconds {sim_s:.3f}: {sim_s / (med / 1e3):.1f} sim_s/s "
+        f"(kernel), {sim_s / (plain_ms[0] / 1e3):.1f} sim_s/s (plain)")
+    log(f"  state holds {state_bytes(st)} bytes ({state_bytes(st) / n_seeds:.1f} per seed)")
+    return dict(
+        launches=launches, err=err, ms=med, ms_min=min(ms), ms_max=max(ms),
+        ms_all=ms, plain_ms=plain_ms[0],
+        **bound_terms(device, wl, cfg, cap, st, out, n_steps),
+    )
+
+
+def kernel_line(name: str, model_source: str, r: dict, clock_hz: float) -> dict:
+    """One entry of the kernels line, with the bound computed here."""
+    bytes_ms = (r["in_bytes"] + r["out_bytes"]) / HBM_BYTES_PER_S * 1e3
+    ops_ms = r["ops"] / (INT32_LANES * clock_hz) * 1e3
+    log(f"  {name} bound: bytes {r['in_bytes']} + {r['out_bytes']} -> {bytes_ms:.5f} ms; "
+        f"{r['seed_steps']} seed-steps, {r['ops']} int32 ops -> {ops_ms:.5f} ms")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "madsim_tpu_torch/csrc/run_kernel.cu",
+        "model_source": model_source,
+        "replaces": "madsim_tpu/engine/vmem.py:110",
+        "replaces_fn": "engine/vmem.py:make_run_vmem",
+        "launches": r["launches"],
+        "max_abs_err": r["err"],
+        "max_abs_diff": r["err"],
+        "ms": r["ms"],
+        "ms_min": min(r["ms_all"]),
+        "ms_max": max(r["ms_all"]),
+        "plain_ms": r["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -229,7 +358,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    from madsim_tpu_torch.engine.fused import build_library
+    from madsim_tpu_torch.engine.fused import MODELS, build_libraries
     from madsim_tpu_torch.models import BENCH_SPECS
 
     device = torch.device("cuda")
@@ -237,37 +366,29 @@ def main() -> int:
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t = time.perf_counter()
-    path, build_log = build_library()
-    log(f"[2] run kernel built in {time.perf_counter() - t:.1f} s: {path}")
-    for line in build_log.splitlines():
-        if "registers" in line or "Function properties" in line or "bytes stack" in line:
-            log(f"  {line.strip()}")
+    libs = build_libraries()
+    log(f"[2] {len(libs)} run kernel libraries built in {time.perf_counter() - t:.1f} s "
+        f"(one nvcc per model, in parallel)")
+    for key, (path, build_log) in libs.items():
+        log(f"  {key}: {path}")
+        for line in build_log.splitlines():
+            if "registers" in line or "bytes stack" in line:
+                log(f"    {line.strip()}")
 
+    clock = max_sm_clock_hz()
     _f, _kw, bench_seeds, _cap = BENCH_SPECS["raft"]
     r = run_phases(device, ENTRY_SEEDS, bench_seeds, CPU_SAMPLE, REPEATS)
-    if r["launches"] < 1:
-        raise AssertionError("the main path never launched the run kernel")
-    if r["err"] != 0:
-        raise AssertionError(f"kernel disagrees with the plain step: {r['err']}")
-    bytes_ms = (r["in_bytes"] + r["out_bytes"]) / HBM_BYTES_PER_S * 1e3
-    ops_ms = r["ops"] / (INT32_LANES * max_sm_clock_hz()) * 1e3
-    log(f"  bound: bytes {r['in_bytes']} + {r['out_bytes']} -> {bytes_ms:.5f} ms; "
-        f"{r['seed_steps']} seed-steps, {r['ops']} int32 ops -> {ops_ms:.5f} ms")
-    kernels = {"kernels": [{
-        "name": "make_run_fused",
-        "route": "cuda",
-        "source": "madsim_tpu_torch/csrc/run_kernel.cu",
-        "replaces": "madsim_tpu/engine/vmem.py:110",
-        "replaces_fn": "engine/vmem.py:make_run_vmem",
-        "launches": r["launches"],
-        "max_abs_err": r["err"],
-        "max_abs_diff": r["err"],
-        "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-    }]}
+    results = [("make_run_fused", "madsim_tpu_torch/csrc/model_raft.cuh", r)]
+    by_key = {m.key: m for m in MODELS.values()}
+    for i, (spec_name, key, factory_kw) in enumerate(MODEL_PHASES):
+        r = model_phase(device, 5 + i, spec_name, key, factory_kw, CPU_SAMPLE, REPEATS)
+        results.append((f"make_run_fused/{key}", f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
+    for name, _src, r in results:
+        if r["launches"] < 1:
+            raise AssertionError(f"{name}: the main path never launched its run kernel")
+        if r["err"] != 0:
+            raise AssertionError(f"{name}: kernel disagrees with the plain step: {r['err']}")
+    kernels = {"kernels": [kernel_line(name, src, r, clock) for name, src, r in results]}
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

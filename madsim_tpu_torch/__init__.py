@@ -8,7 +8,7 @@ against the JAX package bit for bit.
 * ``engine`` — ``SimState``, ``make_init``, the plain eager step and
   the runners; on a CUDA state the runners launch the hand-written run
   kernel (``engine/fused.py``, sources under ``csrc/``).
-* ``models`` — the ported workloads (``raft``) and ``BENCH_SPECS``.
+* ``models`` — the ported workloads (the six ``BENCH_SPECS`` models).
 """
 
 from . import engine, models  # noqa: F401

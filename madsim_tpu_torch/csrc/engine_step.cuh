@@ -1,12 +1,13 @@
-// One seed of the batched engine running the raft election workload:
-// the per-seed step, the run loop, and the raft handlers as device code.
+// One seed of the batched engine: load, step, drain, run loop and store,
+// generic over the workload.
 //
 // This is the body of the fused run kernel (run_kernel.cu), which
 // replaces the JAX package's Pallas kernel
 // madsim_tpu/engine/vmem.py:make_run_vmem. Every function here is
 // MADSIM_HD: __host__ __device__ under nvcc, plain C++ under g++, so
 // the same code also builds on a machine without a card and is held
-// against the plain torch step there (tests/test_torch_kernel_host.py).
+// against the plain torch step there (tests/test_torch_kernel_host.py
+// and the per-model tests).
 //
 // Semantics are those of madsim_tpu_torch/engine/core.py (the port's
 // plain step, itself held bit for bit against the JAX engine): pop the
@@ -17,6 +18,18 @@
 // and then selects, this code computes only what the selected path
 // reads: a draw is a pure function of (seed, step, purpose), so the
 // values are the same.
+//
+// The workload is a model trait M (model_*.cuh) with
+//   static constexpr int N, U, A, W, K, H;  // nodes, row width, args
+//                                           // words, payload words,
+//                                           // emit slots, handlers
+//   struct Params;                          // the factory's runtime words
+//   static Params params(const int64_t* words);
+//   static void handle(int32_t h, const Ctx<M>&, const Params&,
+//                      int32_t* new_row, Emit<A, W>* emits);
+// handle() starts from new_row == the node's row and K zeroed emit rows,
+// and fills them in the order the torch handler's EmitBuilder calls
+// (the row index keys the per-emit latency draw).
 #pragma once
 
 #include <stdint.h>
@@ -25,10 +38,6 @@
 
 namespace madsim {
 
-constexpr int RAFT_N = 5;             // nodes
-constexpr int RAFT_U = 6;             // state row width
-constexpr int RAFT_A = 2;             // event args words
-constexpr int RAFT_K = RAFT_N + 1;    // emit slots per handler
 constexpr int64_t kInfNs = int64_t(1) << 62;
 
 constexpr int32_t KIND_KILL = 0;
@@ -51,10 +60,12 @@ constexpr uint32_t PURPOSE_USER = 128;
 constexpr uint64_t kTracePrime = 0x100000001B3ull;
 constexpr uint64_t kTraceMix = 0x9E3779B97F4A7C15ull;
 
-// EngineConfig plus the raft factory's timeouts, resolved on the host:
-// spans are the uint32 modulo spans (0 already mapped to 1) and
-// time_limit is 2^62 when the config has none
-struct RaftConfig {
+// the engine's words in front of the model's in the config array
+constexpr int kEngineWords = 8;
+
+// EngineConfig resolved on the host: spans are the uint32 modulo spans
+// (0 already mapped to 1) and time_limit is 2^62 when the config has none
+struct EngineConfig {
   int64_t lat_min;
   uint32_t lat_span;
   uint64_t loss_u32;  // in [0, 2^32]; 2^32 drops every send
@@ -62,14 +73,33 @@ struct RaftConfig {
   uint32_t proc_span;
   int64_t backoff_min, backoff_max;
   int64_t time_limit;
-  int64_t timeout_min;
-  uint32_t timeout_span;
 };
+
+// uint32 span of a [lo, hi) draw, as Draw._reduce: 0 draws from span 1
+MADSIM_HDI uint32_t draw_span(int64_t lo, int64_t hi) {
+  const uint32_t s = static_cast<uint32_t>(hi - lo);
+  return s == 0 ? 1u : s;
+}
+
+// c: lat_min, lat_max, loss_u32, proc_min, proc_max, backoff_min,
+//    backoff_max, time_limit_ns (0 = none)
+inline EngineConfig engine_config(const int64_t* c) {
+  EngineConfig e;
+  e.lat_min = c[0];
+  e.lat_span = draw_span(c[0], c[1]);
+  e.loss_u32 = static_cast<uint64_t>(c[2]);
+  e.proc_min = c[3];
+  e.proc_span = draw_span(c[3], c[4]);
+  e.backoff_min = c[5];
+  e.backoff_max = c[6];
+  e.time_limit = c[7] ? c[7] : kInfNs;
+  return e;
+}
 
 // The kernel's view of the batch: one pointer per SimState field (the
 // port's torch layout: seed-major, contiguous), the restart tables, the
 // per-seed step budget and the per-seed iteration count it returns.
-struct RaftArgs {
+struct RunArgs {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
   int64_t* step;       // (S,) uint32 value
@@ -83,26 +113,30 @@ struct RaftArgs {
   int64_t* ev_meta;    // (S,E) uint32 value
   int32_t* ev_epoch;   // (S,E)
   int32_t* ev_args;    // (S,E,A)
+  int32_t* ev_pay;     // (S,E,W); unused when W == 0
   uint8_t* alive;      // (S,N)
   uint8_t* paused;     // (S,N)
   int32_t* epoch;      // (S,N)
   int32_t* node_state; // (S,N,U)
   uint8_t* clog;       // (S,N,N)
-  int32_t* slow;       // (S,N,N)
+  int32_t* slow;       // (S,N,N), read only
+  int32_t* skew;       // (S,N), read only
   const int32_t* init_rows;  // (N,U)
   const uint8_t* volatile_cols;  // (U,)
   const int64_t* budget;  // (S,) steps this launch may take
   int64_t* iters;         // (S,) steps taken before a halt stopped it
   int64_t n_seeds;
   int32_t stop_at_halt;   // 1: a seed stops at its halt; 0: it drains
-  RaftConfig cfg;
+  EngineConfig cfg;
 };
 
-// p: the 23 pointers in RaftArgs order (engine/fused.py KERNEL_FIELDS,
-// then the tables, budget and iters); c: the 10 config words
-inline RaftArgs raft_args(void* const* p, const int64_t* c, int64_t n_seeds,
-                          int32_t stop_at_halt) {
-  RaftArgs a;
+constexpr int kRunPointers = 25;
+
+// p: the 25 pointers in RunArgs order (engine/fused.py KERNEL_FIELDS,
+// then the tables, budget and iters); c: the engine's config words
+inline RunArgs run_args(void* const* p, const int64_t* c, int64_t n_seeds,
+                        int32_t stop_at_halt) {
+  RunArgs a;
   a.seed = static_cast<int64_t*>(p[0]);
   a.now = static_cast<int64_t*>(p[1]);
   a.step = static_cast<int64_t*>(p[2]);
@@ -116,34 +150,21 @@ inline RaftArgs raft_args(void* const* p, const int64_t* c, int64_t n_seeds,
   a.ev_meta = static_cast<int64_t*>(p[10]);
   a.ev_epoch = static_cast<int32_t*>(p[11]);
   a.ev_args = static_cast<int32_t*>(p[12]);
-  a.alive = static_cast<uint8_t*>(p[13]);
-  a.paused = static_cast<uint8_t*>(p[14]);
-  a.epoch = static_cast<int32_t*>(p[15]);
-  a.node_state = static_cast<int32_t*>(p[16]);
-  a.clog = static_cast<uint8_t*>(p[17]);
-  a.slow = static_cast<int32_t*>(p[18]);
-  a.init_rows = static_cast<const int32_t*>(p[19]);
-  a.volatile_cols = static_cast<const uint8_t*>(p[20]);
-  a.budget = static_cast<const int64_t*>(p[21]);
-  a.iters = static_cast<int64_t*>(p[22]);
+  a.ev_pay = static_cast<int32_t*>(p[13]);
+  a.alive = static_cast<uint8_t*>(p[14]);
+  a.paused = static_cast<uint8_t*>(p[15]);
+  a.epoch = static_cast<int32_t*>(p[16]);
+  a.node_state = static_cast<int32_t*>(p[17]);
+  a.clog = static_cast<uint8_t*>(p[18]);
+  a.slow = static_cast<int32_t*>(p[19]);
+  a.skew = static_cast<int32_t*>(p[20]);
+  a.init_rows = static_cast<const int32_t*>(p[21]);
+  a.volatile_cols = static_cast<const uint8_t*>(p[22]);
+  a.budget = static_cast<const int64_t*>(p[23]);
+  a.iters = static_cast<int64_t*>(p[24]);
   a.n_seeds = n_seeds;
   a.stop_at_halt = stop_at_halt;
-  // c: lat_min, lat_max, loss_u32, proc_min, proc_max, backoff_min,
-  //    backoff_max, time_limit_ns (0 = none), timeout_min, timeout_max
-  auto span = [](int64_t lo, int64_t hi) {
-    uint32_t s = static_cast<uint32_t>(hi - lo);
-    return s == 0 ? 1u : s;
-  };
-  a.cfg.lat_min = c[0];
-  a.cfg.lat_span = span(c[0], c[1]);
-  a.cfg.loss_u32 = static_cast<uint64_t>(c[2]);
-  a.cfg.proc_min = c[3];
-  a.cfg.proc_span = span(c[3], c[4]);
-  a.cfg.backoff_min = c[5];
-  a.cfg.backoff_max = c[6];
-  a.cfg.time_limit = c[7] ? c[7] : kInfNs;
-  a.cfg.timeout_min = c[8];
-  a.cfg.timeout_span = span(c[8], c[9]);
+  a.cfg = engine_config(c);
   return a;
 }
 
@@ -151,19 +172,76 @@ MADSIM_HDI int32_t clampi(int32_t x, int32_t lo, int32_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// one emit row (the port's Emits, one seed)
+// one emit row (the port's Emits, one seed); a W == 0 row keeps a
+// one-word payload array that no loop ever reads
+template <int A, int W>
 struct Emit {
   bool valid;
   bool send;
   int32_t kind;
   int32_t dst;
   int64_t delay;
-  int32_t a0, a1;
+  int32_t args[A];
+  int32_t pay[W > 0 ? W : 1];
+
+  MADSIM_HDI void clear() {
+    valid = false;
+    send = false;
+    kind = 0;
+    dst = 0;
+    delay = 0;
+    for (int j = 0; j < A; j++) args[j] = 0;
+    for (int j = 0; j < W; j++) pay[j] = 0;
+  }
+  // EmitBuilder.send: a network message, args past a0/a1 zero
+  MADSIM_HDI void to(bool when, int32_t d, int32_t k, int32_t a0 = 0,
+                     int32_t a1 = 0) {
+    valid = when;
+    send = true;
+    kind = k;
+    dst = d;
+    delay = 0;
+    args[0] = a0;
+    args[1] = a1;
+  }
+  // EmitBuilder.after: a timer `dl` ns after the dispatch
+  MADSIM_HDI void after(bool when, int64_t dl, int32_t k, int32_t d,
+                        int32_t a0 = 0, int32_t a1 = 0) {
+    valid = when;
+    send = false;
+    kind = k;
+    dst = d;
+    delay = dl;
+    args[0] = a0;
+    args[1] = a1;
+  }
+};
+
+// What a handler sees (the port's HandlerCtx, one seed), with the
+// counter-based draws of engine/rng.py Draw.
+template <class M>
+struct Ctx {
+  const int32_t* state;  // (U,) the node's row
+  int32_t node, src;
+  const int32_t* args;   // (A,)
+  const int32_t* pay;    // (W,)
+  int64_t now;           // the clock plus the node's skew
+  uint32_t k0, k1, step;
+
+  MADSIM_HDI uint32_t user(uint32_t purpose) const {
+    uint32_t b0, b1;
+    threefry2x32(k0, k1, step, PURPOSE_USER + purpose, &b0, &b1);
+    return b0;
+  }
+  MADSIM_HDI int64_t user_int(int64_t lo, int64_t hi, uint32_t purpose) const {
+    return lo + static_cast<int64_t>(user(purpose) % draw_span(lo, hi));
+  }
 };
 
 // One seed's state, held in thread-local arrays for the whole run.
-template <int E>
-struct RaftSeed {
+template <class M, int E>
+struct Seed {
+  static constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
   uint64_t seed;
   int64_t now;
   uint32_t step;
@@ -176,17 +254,20 @@ struct RaftSeed {
   bool ev_valid[E];
   uint32_t ev_meta[E];
   int32_t ev_epoch[E];
-  int32_t ev_args[E][RAFT_A];
-  bool alive[RAFT_N];
-  bool paused[RAFT_N];
-  int32_t epoch[RAFT_N];
-  int32_t node_state[RAFT_N][RAFT_U];
-  bool clog[RAFT_N][RAFT_N];
-  int32_t slow[RAFT_N][RAFT_N];
+  int32_t ev_args[E][A];
+  int32_t ev_pay[E][W > 0 ? W : 1];
+  bool alive[N];
+  bool paused[N];
+  int32_t epoch[N];
+  int32_t skew[N];
+  int32_t node_state[N][U];
+  bool clog[N][N];
+  int32_t slow[N][N];
 };
 
-template <int E>
-MADSIM_HD void raft_load(RaftSeed<E>& s, const RaftArgs& a, int64_t i) {
+template <class M, int E>
+MADSIM_HD void seed_load(Seed<M, E>& s, const RunArgs& a, int64_t i) {
+  constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
   s.seed = static_cast<uint64_t>(a.seed[i]);
   s.now = a.now[i];
   s.step = static_cast<uint32_t>(a.step[i]);
@@ -201,25 +282,26 @@ MADSIM_HD void raft_load(RaftSeed<E>& s, const RaftArgs& a, int64_t i) {
     s.ev_valid[e] = a.ev_valid[j] != 0;
     s.ev_meta[e] = static_cast<uint32_t>(a.ev_meta[j]);
     s.ev_epoch[e] = a.ev_epoch[j];
-    s.ev_args[e][0] = a.ev_args[j * RAFT_A];
-    s.ev_args[e][1] = a.ev_args[j * RAFT_A + 1];
+    for (int w = 0; w < A; w++) s.ev_args[e][w] = a.ev_args[j * A + w];
+    for (int w = 0; w < W; w++) s.ev_pay[e][w] = a.ev_pay[j * W + w];
   }
-  for (int n = 0; n < RAFT_N; n++) {
-    const int64_t j = i * RAFT_N + n;
+  for (int n = 0; n < N; n++) {
+    const int64_t j = i * N + n;
     s.alive[n] = a.alive[j] != 0;
     s.paused[n] = a.paused[j] != 0;
     s.epoch[n] = a.epoch[j];
-    for (int u = 0; u < RAFT_U; u++)
-      s.node_state[n][u] = a.node_state[j * RAFT_U + u];
-    for (int m = 0; m < RAFT_N; m++) {
-      s.clog[n][m] = a.clog[j * RAFT_N + m] != 0;
-      s.slow[n][m] = a.slow[j * RAFT_N + m];
+    s.skew[n] = a.skew[j];
+    for (int u = 0; u < U; u++) s.node_state[n][u] = a.node_state[j * U + u];
+    for (int m = 0; m < N; m++) {
+      s.clog[n][m] = a.clog[j * N + m] != 0;
+      s.slow[n][m] = a.slow[j * N + m];
     }
   }
 }
 
-template <int E>
-MADSIM_HD void raft_store(const RaftSeed<E>& s, const RaftArgs& a, int64_t i) {
+template <class M, int E>
+MADSIM_HD void seed_store(const Seed<M, E>& s, const RunArgs& a, int64_t i) {
+  constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
   a.now[i] = s.now;
   a.step[i] = static_cast<int64_t>(s.step);
   a.halted[i] = s.halted ? 1 : 0;
@@ -233,144 +315,21 @@ MADSIM_HD void raft_store(const RaftSeed<E>& s, const RaftArgs& a, int64_t i) {
     a.ev_valid[j] = s.ev_valid[e] ? 1 : 0;
     a.ev_meta[j] = static_cast<int64_t>(s.ev_meta[e]);
     a.ev_epoch[j] = s.ev_epoch[e];
-    a.ev_args[j * RAFT_A] = s.ev_args[e][0];
-    a.ev_args[j * RAFT_A + 1] = s.ev_args[e][1];
+    for (int w = 0; w < A; w++) a.ev_args[j * A + w] = s.ev_args[e][w];
+    for (int w = 0; w < W; w++) a.ev_pay[j * W + w] = s.ev_pay[e][w];
   }
-  for (int n = 0; n < RAFT_N; n++) {
-    const int64_t j = i * RAFT_N + n;
+  for (int n = 0; n < N; n++) {
+    const int64_t j = i * N + n;
     a.alive[j] = s.alive[n] ? 1 : 0;
     a.paused[j] = s.paused[n] ? 1 : 0;
     a.epoch[j] = s.epoch[n];
-    for (int u = 0; u < RAFT_U; u++)
-      a.node_state[j * RAFT_U + u] = s.node_state[n][u];
-    for (int m = 0; m < RAFT_N; m++)
-      a.clog[j * RAFT_N + m] = s.clog[n][m] ? 1 : 0;
+    for (int u = 0; u < U; u++) a.node_state[j * U + u] = s.node_state[n][u];
+    for (int m = 0; m < N; m++) a.clog[j * N + m] = s.clog[n][m] ? 1 : 0;
   }
 }
 
-// ---- the raft handlers (madsim_tpu_torch/models/raft.py) ----------------
-
-constexpr int32_t ROLE = 0, TERM = 1, VOTED = 2, VOTES = 3, TSEQ = 4;
-constexpr int32_t FOLLOWER = 0, CANDIDATE = 1, LEADER = 2;
-constexpr int32_t K_TIMEOUT = FIRST_USER_KIND + 1;
-constexpr int32_t K_REQVOTE = FIRST_USER_KIND + 2;
-constexpr int32_t K_GRANT = FIRST_USER_KIND + 3;
-constexpr int32_t K_HEARTBEAT = FIRST_USER_KIND + 4;
-
-MADSIM_HDI void emit_send(Emit& e, bool when, int32_t dst, int32_t kind,
-                          int32_t a0, int32_t a1) {
-  e.valid = when;
-  e.send = true;
-  e.kind = kind;
-  e.dst = dst;
-  e.delay = 0;
-  e.a0 = a0;
-  e.a1 = a1;
-}
-
-MADSIM_HDI void emit_after(Emit& e, bool when, int64_t delay, int32_t kind,
-                           int32_t dst, int32_t a0) {
-  e.valid = when;
-  e.send = false;
-  e.kind = kind;
-  e.dst = dst;
-  e.delay = delay;
-  e.a0 = a0;
-  e.a1 = 0;
-}
-
-// the election timeout draw: user purpose 0, drawn only when its timer
-// row is valid (an invalid row's delay is never read)
-MADSIM_HDI int64_t raft_timeout(uint32_t k0, uint32_t k1, uint32_t step,
-                                const RaftConfig& c) {
-  uint32_t b0, b1;
-  threefry2x32(k0, k1, step, PURPOSE_USER + 0u, &b0, &b1);
-  return c.timeout_min + static_cast<int64_t>(b0 % c.timeout_span);
-}
-
-// handler h on row st of node `node`: writes the new row to ns and the
-// K emit slots in the order the torch handlers fill them
-MADSIM_HD inline void raft_handler(int32_t h, const int32_t* st, int32_t node,
-                            int32_t a0, int32_t a1, uint32_t k0, uint32_t k1,
-                            uint32_t step, const RaftConfig& c, int32_t* ns,
-                            Emit* em) {
-  constexpr int32_t majority = RAFT_N / 2 + 1;
-  switch (h) {
-    case 0: {  // on_init
-      emit_after(em[0], true, raft_timeout(k0, k1, step, c), K_TIMEOUT, node, 1);
-      ns[TSEQ] = 1;
-      break;
-    }
-    case 1: {  // on_timeout: args = (timeout_seq,)
-      const bool fire = a0 == st[TSEQ] && st[ROLE] != LEADER;
-      const int32_t term = st[TERM] + 1;
-      if (fire) {
-        ns[ROLE] = CANDIDATE;
-        ns[TERM] = term;
-        ns[VOTED] = term;
-        ns[VOTES] = 1;
-        ns[TSEQ] = st[TSEQ] + 1;
-      }
-      for (int32_t p = 0; p < RAFT_N; p++)
-        emit_send(em[p], fire && p != node, p, K_REQVOTE, term, node);
-      emit_after(em[RAFT_N], fire,
-                 fire ? raft_timeout(k0, k1, step, c) : 0, K_TIMEOUT, node,
-                 st[TSEQ] + 1);
-      break;
-    }
-    case 2: {  // on_reqvote: args = (term, candidate)
-      const int32_t term = a0, cand = a1;
-      int32_t st1[RAFT_U];
-      for (int u = 0; u < RAFT_U; u++) st1[u] = st[u];
-      if (term > st[TERM]) {  // step down on a newer term
-        st1[TERM] = term;
-        st1[ROLE] = FOLLOWER;
-        st1[VOTES] = 0;
-      }
-      const bool grant = term == st1[TERM] && st1[VOTED] < term;
-      for (int u = 0; u < RAFT_U; u++) ns[u] = st1[u];
-      if (grant) {
-        ns[VOTED] = term;
-        ns[TSEQ] = st1[TSEQ] + 1;
-      }
-      emit_send(em[0], grant, cand, K_GRANT, term, 0);
-      // granting resets the election timer (vote then wait)
-      emit_after(em[1], grant, grant ? raft_timeout(k0, k1, step, c) : 0,
-                 K_TIMEOUT, node, st1[TSEQ] + 1);
-      break;
-    }
-    case 3: {  // on_grant: args = (term,)
-      const int32_t term = a0;
-      const bool counts = st[ROLE] == CANDIDATE && term == st[TERM];
-      const int32_t votes = counts ? st[VOTES] + 1 : st[VOTES];
-      const bool wins = counts && votes >= majority;
-      ns[VOTES] = votes;
-      if (wins) ns[ROLE] = LEADER;
-      for (int32_t p = 0; p < RAFT_N; p++)
-        emit_send(em[p], wins && p != node, p, K_HEARTBEAT, term, 0);
-      // leader elected: scenario complete
-      emit_after(em[RAFT_N], wins, 0, KIND_HALT, 0, 0);
-      break;
-    }
-    default: {  // 4, on_heartbeat: args = (term,)
-      const int32_t term = a0;
-      const bool accept = term >= st[TERM];
-      if (accept) {
-        ns[TERM] = term;
-        ns[ROLE] = FOLLOWER;
-        ns[TSEQ] = st[TSEQ] + 1;
-      }
-      emit_after(em[0], accept, accept ? raft_timeout(k0, k1, step, c) : 0,
-                 K_TIMEOUT, node, st[TSEQ] + 1);
-      break;
-    }
-  }
-}
-
-// ---- the engine step (madsim_tpu_torch/engine/core.py _plain_step_fn) ---
-
-template <int E>
-MADSIM_HDI int raft_first_min(const RaftSeed<E>& s) {
+template <class M, int E>
+MADSIM_HDI int first_min(const Seed<M, E>& s) {
   int i = 0;
   int64_t best = kInfNs;
   for (int e = 0; e < E; e++) {
@@ -383,25 +342,39 @@ MADSIM_HDI int raft_first_min(const RaftSeed<E>& s) {
   return i;
 }
 
+// the port's _trace_fold: args word j shifted by 8j, and the payload
+// term sum_j p_j * (MIX ^ j) mod 2^64 (absent when W == 0)
+template <int A, int W>
 MADSIM_HDI uint64_t trace_fold(uint64_t trace, int64_t now, int32_t kind,
-                               int32_t node, int32_t a0, int32_t a1) {
+                               int32_t node, const int32_t* args,
+                               const int32_t* pay) {
   uint64_t h = static_cast<uint64_t>(now) * kTraceMix;
   h ^= static_cast<uint64_t>(static_cast<uint32_t>(kind)) << 32;
   h ^= static_cast<uint64_t>(static_cast<int64_t>(node)) << 40;
-  h ^= static_cast<uint64_t>(static_cast<uint32_t>(a0));
-  h ^= static_cast<uint64_t>(static_cast<uint32_t>(a1)) << 8;
+  for (int j = 0; j < A; j++)
+    h ^= static_cast<uint64_t>(static_cast<uint32_t>(args[j])) << (8 * j);
+  if (W > 0) {
+    uint64_t acc = 0;
+    for (int j = 0; j < W; j++)
+      acc += static_cast<uint64_t>(static_cast<uint32_t>(pay[j])) *
+             (kTraceMix ^ static_cast<uint64_t>(j));
+    h ^= acc;
+  }
   return trace * kTracePrime + h;
 }
 
 // One engine step. Returns false when the pool held no valid event:
 // such a step changes nothing but `step`, and so does every later one.
-template <int E>
-MADSIM_HD bool raft_step(RaftSeed<E>& s, const RaftConfig& c,
-                         const int32_t* init_rows,
-                         const uint8_t* volatile_cols) {
-  constexpr int N = RAFT_N, K = RAFT_K;
+template <class M, int E>
+MADSIM_HD bool engine_step(Seed<M, E>& s, const EngineConfig& c,
+                           const typename M::Params& mp,
+                           const int32_t* init_rows,
+                           const uint8_t* volatile_cols) {
+  constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K, H = M::H;
+  static_assert(A >= 2 && A <= 4, "engine kinds read args[0:2]");
+  static_assert(H >= 1, "handler 0 is on_init");
   // ---- pop the earliest pending event (first minimum) ----
-  const int i = raft_first_min(s);
+  const int i = first_min(s);
   const bool has_event = s.ev_valid[i];
   const int64_t ev_time_i = s.ev_time[i];
   const int64_t ev_t = ev_time_i > s.now ? ev_time_i : s.now;
@@ -413,7 +386,12 @@ MADSIM_HD bool raft_step(RaftSeed<E>& s, const RaftConfig& c,
   const int32_t dst = static_cast<int32_t>((meta >> 8) & 0xFFu) - 1;
   const int32_t src = static_cast<int32_t>((meta >> 16) & 0xFFu) - 1;
   const int32_t retries = static_cast<int32_t>((meta >> 24) & 0xFFu);
-  const int32_t a0 = s.ev_args[i][0], a1 = s.ev_args[i][1];
+  // the popped event's words, copied: placement may reuse its slot
+  int32_t args[A];
+  int32_t pay[W > 0 ? W : 1];
+  for (int j = 0; j < A; j++) args[j] = s.ev_args[i][j];
+  for (int j = 0; j < W; j++) pay[j] = s.ev_pay[i][j];
+  const int32_t a0 = args[0];
   const int32_t ev_epoch_i = s.ev_epoch[i];
   const bool is_engine = kind < FIRST_USER_KIND || kind >= FIRST_EXT_KIND;
   const bool is_msg = src >= 0;
@@ -455,15 +433,24 @@ MADSIM_HD bool raft_step(RaftSeed<E>& s, const RaftConfig& c,
   s.ev_valid[i] = resched;
 
   if (dispatch) {
-    Emit em[K + 1];
-    for (int j = 0; j <= K; j++) em[j].valid = false;
+    Emit<A, W> em[K + 1];
+    for (int j = 0; j <= K; j++) em[j].clear();
     if (!is_engine) {
       // user dispatch implies a live, in-range node
-      int32_t ns[RAFT_U];
-      for (int u = 0; u < RAFT_U; u++) ns[u] = s.node_state[dst_c][u];
-      const int32_t h = clampi(kind - FIRST_USER_KIND, 0, 4);
-      raft_handler(h, s.node_state[dst_c], dst, a0, a1, k0, k1, s.step, c, ns, em);
-      for (int u = 0; u < RAFT_U; u++) s.node_state[dst_c][u] = ns[u];
+      int32_t ns[U];
+      for (int u = 0; u < U; u++) ns[u] = s.node_state[dst_c][u];
+      Ctx<M> ctx;
+      ctx.state = s.node_state[dst_c];
+      ctx.node = dst;
+      ctx.src = src;
+      ctx.args = args;
+      ctx.pay = pay;
+      ctx.now = now + static_cast<int64_t>(s.skew[dst_c]);
+      ctx.k0 = k0;
+      ctx.k1 = k1;
+      ctx.step = s.step;
+      M::handle(clampi(kind - FIRST_USER_KIND, 0, H - 1), ctx, mp, ns, em);
+      for (int u = 0; u < U; u++) s.node_state[dst_c][u] = ns[u];
     } else if (kind == KIND_KILL || kind == KIND_RESTART) {
       const bool restart = kind == KIND_RESTART;
       if (a0 >= 0 && a0 < N) {
@@ -471,20 +458,19 @@ MADSIM_HD bool raft_step(RaftSeed<E>& s, const RaftConfig& c,
         s.paused[a0] = false;
         s.epoch[a0] += 1;
         if (restart) {
-          for (int u = 0; u < RAFT_U; u++)
-            if (volatile_cols[u]) s.node_state[a0][u] = init_rows[a0 * RAFT_U + u];
+          for (int u = 0; u < U; u++)
+            if (volatile_cols[u]) s.node_state[a0][u] = init_rows[a0 * U + u];
         }
       }
-      if (restart) {
-        // the reborn node re-runs on_init: a timer row after the user slots
-        emit_after(em[K], true, 0, FIRST_USER_KIND, a0, 0);
-      }
+      // the reborn node re-runs on_init: a timer row after the user
+      // slots, zero args and payload
+      if (restart) em[K].after(true, 0, FIRST_USER_KIND, a0);
     } else if (kind == KIND_PAUSE || kind == KIND_RESUME) {
       if (a0 >= 0 && a0 < N) s.paused[a0] = kind == KIND_PAUSE;
     } else if (kind >= KIND_CLOG && kind <= KIND_UNCLOG_NODE) {
       const bool on = kind == KIND_CLOG || kind == KIND_CLOG_NODE;
       const bool node_wide = kind == KIND_CLOG_NODE || kind == KIND_UNCLOG_NODE;
-      const int32_t ca = a0, cb = node_wide ? -1 : a1;
+      const int32_t ca = a0, cb = node_wide ? -1 : args[1];
       for (int x = 0; x < N; x++)
         for (int y = 0; y < N; y++) {
           const bool sel = (x == ca && y == cb) || (x == cb && y == ca) ||
@@ -497,7 +483,7 @@ MADSIM_HD bool raft_step(RaftSeed<E>& s, const RaftConfig& c,
     // placement, the j-th valid emit into the j-th free slot ----
     int cursor = 0;
     for (int j = 0; j <= K; j++) {
-      const Emit& e = em[j];
+      const Emit<A, W>& e = em[j];
       if (!e.valid) continue;
       const bool em_in_range = e.dst >= 0 && e.dst < N;
       const int em_c = clampi(e.dst, 0, N - 1);
@@ -531,8 +517,8 @@ MADSIM_HD bool raft_step(RaftSeed<E>& s, const RaftConfig& c,
                           (static_cast<uint32_t>(node1) << 8) |
                           (static_cast<uint32_t>(src1) << 16);
       s.ev_epoch[cursor] = e_epoch;
-      s.ev_args[cursor][0] = e.a0;
-      s.ev_args[cursor][1] = e.a1;
+      for (int w = 0; w < A; w++) s.ev_args[cursor][w] = e.args[w];
+      for (int w = 0; w < W; w++) s.ev_pay[cursor][w] = e.pay[w];
       cursor++;
     }
   }
@@ -542,7 +528,7 @@ MADSIM_HD bool raft_step(RaftSeed<E>& s, const RaftConfig& c,
       s.halted || (dispatch && kind == KIND_HALT) || (has_event && over_limit);
   if (halted && !s.halted) s.halt_time = now < c.time_limit ? now : c.time_limit;
   s.halted = halted;
-  if (dispatch) s.trace = trace_fold(s.trace, now, kind, dst, a0, a1);
+  if (dispatch) s.trace = trace_fold<A, W>(s.trace, now, kind, dst, args, pay);
   s.now = now_after;
   s.step += 1u;
   return has_event;
@@ -550,14 +536,14 @@ MADSIM_HD bool raft_step(RaftSeed<E>& s, const RaftConfig& c,
 
 // `r` steps of a halted seed: each consumes its earliest valid slot
 // without dispatching it, and advances `step`
-template <int E>
-MADSIM_HD void raft_drain(RaftSeed<E>& s, int64_t r) {
+template <class M, int E>
+MADSIM_HD void seed_drain(Seed<M, E>& s, int64_t r) {
   int64_t n_valid = 0;
   for (int e = 0; e < E; e++) n_valid += s.ev_valid[e] ? 1 : 0;
   if (r >= n_valid) {
     for (int e = 0; e < E; e++) s.ev_valid[e] = false;
   } else {
-    for (int64_t k = 0; k < r; k++) s.ev_valid[raft_first_min(s)] = false;
+    for (int64_t k = 0; k < r; k++) s.ev_valid[first_min(s)] = false;
   }
   s.step += static_cast<uint32_t>(r);
 }
@@ -566,8 +552,9 @@ MADSIM_HD void raft_drain(RaftSeed<E>& s, int64_t r) {
 // its halt and the return value is the steps it took; without, it takes
 // all `budget` steps (a halted seed drains). Either way each iteration
 // advances `step` exactly as the plain step would.
-template <int E>
-MADSIM_HD int64_t raft_run(RaftSeed<E>& s, const RaftConfig& c,
+template <class M, int E>
+MADSIM_HD int64_t seed_run(Seed<M, E>& s, const EngineConfig& c,
+                           const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols, int64_t budget,
                            bool stop_at_halt) {
@@ -575,10 +562,10 @@ MADSIM_HD int64_t raft_run(RaftSeed<E>& s, const RaftConfig& c,
   while (it < budget) {
     if (s.halted) {
       if (stop_at_halt) return it;
-      raft_drain(s, budget - it);
+      seed_drain(s, budget - it);
       return budget;
     }
-    const bool had_event = raft_step(s, c, init_rows, volatile_cols);
+    const bool had_event = engine_step(s, c, mp, init_rows, volatile_cols);
     it++;
     if (!had_event && !s.halted) {
       // an empty pool stays empty: the rest only counts steps
@@ -589,18 +576,19 @@ MADSIM_HD int64_t raft_run(RaftSeed<E>& s, const RaftConfig& c,
   return it;
 }
 
-template <int E>
-MADSIM_HD void raft_run_seed(const RaftArgs& a, int64_t i) {
+template <class M, int E>
+MADSIM_HD void run_seed(const RunArgs& a, const typename M::Params& mp,
+                        int64_t i) {
   const int64_t budget = a.budget[i];
   if (budget <= 0) {
     a.iters[i] = 0;
     return;
   }
-  RaftSeed<E> s;
-  raft_load(s, a, i);
-  a.iters[i] = raft_run(s, a.cfg, a.init_rows, a.volatile_cols, budget,
+  Seed<M, E> s;
+  seed_load(s, a, i);
+  a.iters[i] = seed_run(s, a.cfg, mp, a.init_rows, a.volatile_cols, budget,
                         a.stop_at_halt != 0);
-  raft_store(s, a, i);
+  seed_store(s, a, i);
 }
 
 }  // namespace madsim

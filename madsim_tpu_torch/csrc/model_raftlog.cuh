@@ -1,0 +1,219 @@
+// Raft log replication under leader-crash chaos
+// (madsim_tpu_torch/models/raftlog.py, default variant) as a model trait
+// of the run kernel (engine_step.cuh): five nodes, eight handlers, four
+// args words, and AppendEntries that carry the sender's whole four-entry
+// log in the event payload. Entries pack as value | term << 8.
+#pragma once
+
+#include "engine_step.cuh"
+
+namespace madsim {
+
+struct RaftLogModel {
+  static constexpr int N = 5;          // nodes
+  static constexpr int LOGW = 4;       // log entries (n_writes)
+  static constexpr int U = 8 + LOGW, A = 4, W = LOGW, K = N + 2, H = 8;
+  static constexpr int32_t majority = N / 2 + 1;
+
+  struct Params {
+    int64_t timeout_min;
+    uint32_t timeout_span;
+    int64_t propose_ns, retx_ns;
+  };
+  static Params params(const int64_t* w) {
+    return Params{w[0], draw_span(w[0], w[1]), w[2], w[3]};
+  }
+
+  static constexpr int32_t ROLE = 0, TERM = 1, VOTED = 2, VOTES = 3,
+                           TSEQ = 4, LOGLEN = 5, COMMIT = 6, ACKS = 7,
+                           LOG0 = 8;
+  static constexpr int32_t FOLLOWER = 0, CANDIDATE = 1, LEADER = 2;
+  static constexpr int32_t K_TIMEOUT = FIRST_USER_KIND + 1;
+  static constexpr int32_t K_REQVOTE = FIRST_USER_KIND + 2;
+  static constexpr int32_t K_GRANT = FIRST_USER_KIND + 3;
+  static constexpr int32_t K_APPEND = FIRST_USER_KIND + 4;
+  static constexpr int32_t K_ACKAPP = FIRST_USER_KIND + 5;
+  static constexpr int32_t K_PROPOSE = FIRST_USER_KIND + 6;
+  static constexpr int32_t K_RETX = FIRST_USER_KIND + 7;
+  static constexpr uint32_t P_TIMEOUT = 0, P_VALUE = 1, P_KILL_AT = 2,
+                            P_KILL_WHO = 3, P_REVIVE = 4;
+
+  using Em = Emit<A, W>;
+  using C = Ctx<RaftLogModel>;
+
+  // term of the last log entry (0 for an empty log); value = low 8 bits,
+  // term = the rest
+  static MADSIM_HDI int32_t lastterm(const int32_t* st) {
+    int32_t t = 0;
+    for (int32_t j = 0; j < LOGW; j++)
+      if (st[LOGLEN] == j + 1) t = st[LOG0 + j] >> 8;
+    return t;
+  }
+
+  // an election timer row (user purpose 0), drawn only when it is valid
+  static MADSIM_HDI void arm(Em& e, const C& c, const Params& p,
+                             int32_t seq, bool when) {
+    const int64_t d =
+        when ? p.timeout_min + static_cast<int64_t>(c.user(P_TIMEOUT) % p.timeout_span)
+             : 0;
+    e.after(when, d, K_TIMEOUT, c.node, seq);
+  }
+
+  // rows 0..N-1: AppendEntries (term, idx, commit, leader) with the
+  // sender's whole log as payload, to every peer
+  static MADSIM_HDI void send_appends(Em* em, const C& c, const int32_t* st,
+                                      int32_t term, bool when) {
+    for (int32_t q = 0; q < N; q++) {
+      em[q].to(when && q != c.node, q, K_APPEND, term, st[LOGLEN] - 1);
+      em[q].args[2] = st[COMMIT];
+      em[q].args[3] = c.node;
+      for (int j = 0; j < W; j++) em[q].pay[j] = st[LOG0 + j];
+    }
+  }
+
+  static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
+                               int32_t* ns, Em* em) {
+    const int32_t* st = c.state;
+    switch (h) {
+      case 0: {  // on_init
+        arm(em[0], c, p, 1, true);
+        // node 0's t=0 init schedules the seed's kill and restart
+        // (restarted nodes re-run on_init at now > 0)
+        if (c.node == 0 && c.now == 0) {
+          const int32_t who = static_cast<int32_t>(c.user_int(0, N, P_KILL_WHO));
+          const int64_t at = c.user_int(200000000, 500000000, P_KILL_AT);
+          const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
+          em[1].after(true, at, KIND_KILL, 0, who);
+          em[2].after(true, at + revive, KIND_RESTART, 0, who);
+        }
+        ns[TSEQ] = 1;
+        break;
+      }
+      case 1: {  // on_timeout: args = (timer_seq,)
+        const bool fire = c.args[0] == st[TSEQ] && st[ROLE] != LEADER;
+        const int32_t term = st[TERM] + 1;
+        if (fire) {
+          ns[ROLE] = CANDIDATE;
+          ns[TERM] = term;
+          ns[VOTED] = term;
+          ns[VOTES] = 1;
+          ns[TSEQ] = st[TSEQ] + 1;
+        }
+        const int32_t lt = lastterm(st);
+        for (int32_t q = 0; q < N; q++) {
+          em[q].to(fire && q != c.node, q, K_REQVOTE, term, c.node);
+          em[q].args[2] = st[LOGLEN];
+          em[q].args[3] = lt;
+        }
+        arm(em[N], c, p, st[TSEQ] + 1, fire);
+        // row N + 1: the re-arm of a timeout withheld by a failing
+        // disk, never valid without the sync discipline
+        break;
+      }
+      case 2: {  // on_reqvote: args = (term, cand, cand_loglen, cand_lastterm)
+        const int32_t term = c.args[0], cand = c.args[1];
+        const int32_t c_len = c.args[2], c_lt = c.args[3];
+        if (term > st[TERM]) {  // step down on a newer term
+          ns[TERM] = term;
+          ns[ROLE] = FOLLOWER;
+          ns[VOTES] = 0;
+        }
+        // the up-to-date rule: candidate's (last term, length) >= ours
+        const int32_t my_lt = lastterm(ns);
+        const bool up_to_date = c_lt > my_lt || (c_lt == my_lt && c_len >= ns[LOGLEN]);
+        const bool grant = term == ns[TERM] && ns[VOTED] < term && up_to_date;
+        const int32_t tseq1 = ns[TSEQ] + 1;
+        if (grant) {
+          ns[VOTED] = term;
+          ns[TSEQ] = tseq1;
+        }
+        em[0].to(grant, cand, K_GRANT, term);
+        arm(em[1], c, p, tseq1, grant);
+        break;
+      }
+      case 3: {  // on_grant: args = (term,)
+        const int32_t term = c.args[0];
+        const bool counts = st[ROLE] == CANDIDATE && term == st[TERM];
+        const int32_t votes = counts ? st[VOTES] + 1 : st[VOTES];
+        const bool wins = counts && votes >= majority;
+        ns[VOTES] = votes;
+        if (wins) {
+          ns[ROLE] = LEADER;
+          // win-time re-stamp: the uncommitted suffix takes the new term
+          for (int32_t j = 0; j < LOGW; j++)
+            if (j >= ns[COMMIT] && j < ns[LOGLEN])
+              ns[LOG0 + j] = (ns[LOG0 + j] & 0xFF) | (term << 8);
+          ns[ACKS] = ns[LOGLEN] > ns[COMMIT] ? (int32_t(1) << c.node) : 0;
+        }
+        send_appends(em, c, ns, term, wins);
+        em[N].after(wins, p.propose_ns, K_PROPOSE, c.node, term);
+        em[N + 1].after(wins, p.retx_ns, K_RETX, c.node, term);
+        break;
+      }
+      case 4: {  // on_append: args = (term, idx, leader_commit, leader)
+        const int32_t term = c.args[0], idx = c.args[1];
+        const int32_t l_commit = c.args[2], leader = c.args[3];
+        const bool ok = term >= st[TERM];
+        if (ok) {
+          ns[TERM] = term;
+          ns[ROLE] = FOLLOWER;
+          ns[TSEQ] = st[TSEQ] + 1;
+        }
+        // adopt the leader's full log prefix; a same-term append may
+        // only extend
+        const bool adopt = ok && idx >= 0 && (term > st[TERM] || idx + 1 >= st[LOGLEN]);
+        if (adopt) {
+          for (int32_t j = 0; j < LOGW; j++)
+            if (j <= idx) ns[LOG0 + j] = c.pay[j];
+          ns[LOGLEN] = idx + 1;
+        }
+        if (ok && l_commit > ns[COMMIT]) ns[COMMIT] = l_commit;
+        em[0].to(adopt, leader, K_ACKAPP, term, idx);
+        em[0].args[2] = c.node;
+        // a heartbeat resets the election timer
+        arm(em[1], c, p, st[TSEQ] + 1, ok);
+        break;
+      }
+      case 5: {  // on_ackapp: args = (term, idx, follower)
+        const int32_t term = c.args[0], idx = c.args[1], frm = c.args[2];
+        const bool counts = st[ROLE] == LEADER && term == st[TERM] &&
+                            idx == st[LOGLEN] - 1 && st[COMMIT] < st[LOGLEN];
+        const int32_t acks = counts ? (st[ACKS] | (int32_t(1) << frm)) : st[ACKS];
+        int32_t n_acks = 0;
+        for (int32_t q = 0; q < N; q++) n_acks += (acks >> q) & 1;
+        const bool commit_now = counts && n_acks >= majority;
+        ns[ACKS] = acks;
+        if (commit_now) ns[COMMIT] = idx + 1;
+        // propagate the commit index immediately
+        send_appends(em, c, ns, term, commit_now);
+        em[N].after(commit_now && ns[COMMIT] == LOGW, 0, KIND_HALT, 0);
+        break;
+      }
+      case 6: {  // on_propose: args = (term,)
+        const int32_t term = c.args[0];
+        const bool alive_leader = st[ROLE] == LEADER && term == st[TERM];
+        const bool can = alive_leader && st[COMMIT] == st[LOGLEN] && st[LOGLEN] < LOGW;
+        if (can) {
+          const int32_t value = static_cast<int32_t>(c.user(P_VALUE) & 0xFFu);
+          for (int32_t j = 0; j < LOGW; j++)
+            if (st[LOGLEN] == j) ns[LOG0 + j] = value | (st[TERM] << 8);
+          ns[LOGLEN] = st[LOGLEN] + 1;
+          ns[ACKS] = int32_t(1) << c.node;
+        }
+        send_appends(em, c, ns, term, can);
+        em[N].after(alive_leader, p.propose_ns, K_PROPOSE, c.node, term);
+        break;
+      }
+      default: {  // 7, on_retx: args = (term,)
+        const int32_t term = c.args[0];
+        const bool alive_leader = st[ROLE] == LEADER && term == st[TERM];
+        // re-replicate whatever is outstanding; doubles as the heartbeat
+        send_appends(em, c, st, term, alive_leader && st[LOGLEN] > 0);
+        em[N].after(alive_leader, p.retx_ns, K_RETX, c.node, term);
+        break;
+      }
+    }
+  }
+};
+
+}  // namespace madsim

@@ -28,6 +28,7 @@ from .core import (  # noqa: F401
     make_step,
     make_step_plain,
     resolve_device,
+    set_cols,
     user_kind,
 )
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401

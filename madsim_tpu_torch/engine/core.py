@@ -72,6 +72,7 @@ __all__ = [
     "FIRST_USER_KIND",
     "FIRST_EXT_KIND",
     "user_kind",
+    "set_cols",
     "resolve_device",
     "make_init",
     "make_step",
@@ -112,6 +113,16 @@ _TRACE_MIX = 0x9E3779B97F4A7C15 - (1 << 64)  # as an int64 bit pattern
 def user_kind(i: int) -> int:
     """Kind id of user handler ``i`` (handler 0 = on_init)."""
     return FIRST_USER_KIND + i
+
+
+def set_cols(state: torch.Tensor, cond, cols: dict) -> torch.Tensor:
+    """A copy of the ``(S, U)`` rows ``state`` with ``cols`` (``{column:
+    value}``) written where ``cond`` holds: a handler's
+    ``jnp.where(cond, st.at[c].set(v)..., st)``, batched."""
+    new = state.clone()
+    for c, v in cols.items():
+        new[:, c] = torch.where(cond, v, state[:, c])
+    return new
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,18 @@
 Port of ``madsim_tpu/engine/vmem.py:make_run_vmem``, the JAX package's
 one Pallas kernel, which runs ``n_steps`` of ``vmap(make_step)`` with
 each block of seeds' state resident on chip. On the H100 the kernel is
-hand-written CUDA C++ for ``sm_90a`` (``csrc/run_kernel.cu``): one
-thread per seed, each seed's pool, node rows and clog matrix in
-thread-local arrays for the whole loop, the raft handlers as device
-code (``csrc/step_raft.cuh``). It carries the raft election workload;
-any other workload on a CUDA state raises ``NotImplementedError``.
+hand-written CUDA C++ for ``sm_90a``: one thread per seed, each seed's
+pool, node rows and clog matrix in thread-local arrays for the whole
+loop. The engine step is generic (``csrc/engine_step.cuh``); each
+workload it carries is a model trait with its handlers as device code
+(``csrc/model_*.cuh``), listed in :data:`MODELS`. Any other workload, or
+a registered one at another shape, raises ``NotImplementedError`` on a
+CUDA state.
 
-The kernel is built with nvcc on first use into ``build/kernels/<hash>/``
-at the root of the checkout (keyed by a hash of the sources and flags)
-and loaded with ctypes. A CPU state runs the plain eager step instead
+Each model's kernel is its own library, built with nvcc on first use
+into ``build/kernels/<hash>/`` at the root of the checkout (keyed by a
+hash of the sources, the generated unit and the flags) and loaded with
+ctypes. A CPU state runs the plain eager step instead
 (``core.make_run_plain``); a CUDA state never does.
 
 ``make_run_while`` semantics: the JAX loop runs every seed for the same
@@ -26,6 +29,7 @@ remaining ``T - count`` halted steps.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -46,32 +50,121 @@ from .core import (
 
 __all__ = [
     "KERNEL",
-    "POOL_SIZES",
+    "KERNEL_FIELDS",
+    "MODELS",
     "NVCC_FLAGS",
+    "KernelModel",
     "RunKernel",
+    "build_libraries",
     "build_library",
+    "check_state",
+    "config_words",
     "halt_counts",
     "kernel_args",
+    "kernel_model",
     "make_run_fused",
+    "workload_shape",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("threefry.cuh", "step_raft.cuh", "run_kernel.cu")
+ENGINE_SOURCES = ("threefry.cuh", "engine_step.cuh", "run_kernel.cu")
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
 )
-POOL_SIZES = (40, 64, 128, 256)
 
-# the fields the kernel reads (and, but for seed and slow, writes), in
-# the pointer order of RaftArgs (csrc/step_raft.cuh)
+
+@dataclasses.dataclass(frozen=True)
+class KernelModel:
+    """One workload the run kernel carries, and how its library is built.
+
+    ``shape`` is :func:`workload_shape` of the factory's workload at the
+    compiled variant; ``words`` name the ``model_params`` passed to the
+    kernel as runtime words (the model trait's ``Params`` order);
+    ``fixed`` are ``model_params`` the library is compiled for."""
+
+    key: str  # library name, libmadsim_<key>.so
+    name: str  # Workload.name
+    header: str  # csrc/model_*.cuh
+    cxx: str  # the C++ model trait
+    shape: tuple
+    pools: tuple  # pool sizes instantiated
+    words: tuple = ()
+    fixed: tuple = ()
+
+    def unit_source(self) -> str:
+        """The translation unit nvcc compiles for this model."""
+        return (
+            f"// run kernel unit for {self.key}, written by engine/fused.py\n"
+            f'#include "{self.header}"\n'
+            f"#define MADSIM_MODEL {self.cxx}\n"
+            f"#define MADSIM_POOLS {', '.join(str(p) for p in self.pools)}\n"
+            f'#include "run_kernel.cu"\n'
+        )
+
+
+# (n_nodes, state_width, args_words, payload_words, max_emits,
+#  handlers, draw_purposes) at each factory's default variant; pools: the
+# model's BENCH_SPECS pool, and for raft also the pools of the entry
+# shape and the tests
+MODELS = {
+    m.name: m
+    for m in (
+        KernelModel(
+            "raft", "raft-election", "model_raft.cuh", "madsim::RaftModel",
+            (5, 6, 2, 0, 6, 5, (0,)), (40, 64, 128, 256),
+            ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),),
+        ),
+        KernelModel(
+            "microbench", "microbench", "model_microbench.cuh",
+            "madsim::MicrobenchModel", (1, 4, 2, 0, 2, 2, (0, 1)), (32,),
+            ("rounds", "delay_min_ns", "delay_max_ns"),
+        ),
+        KernelModel(
+            "pingpong", "pingpong", "model_pingpong.cuh",
+            "madsim::PingpongModel", (3, 4, 2, 0, 2, 4, ()), (32,),
+            ("rounds",), (("n_clients", 2),),
+        ),
+        KernelModel(
+            "broadcast", "broadcast", "model_broadcast.cuh",
+            "madsim::BroadcastModel", (5, 4, 2, 0, 7, 4, (1, 17, 2, 3)),
+            (40,), ("rounds", "retx_ns"),
+            (("n_nodes", 5), ("partition", True)),
+        ),
+        KernelModel(
+            "kvchaos", "kvchaos", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false>", (6, 4, 2, 0, 6, 12, (0, 1, 2)),
+            (40,), ("writes", "retx_ns", "client_retx_ns"),
+            (("n_replicas", 4), ("chaos", True), ("payload", False)),
+        ),
+        KernelModel(
+            "kvchaos-payload", "kvchaos-payload", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<true>",
+            (6, 6, 2, 2, 6, 12, (0, 1, 2, 8, 9)), (40,),
+            ("writes", "retx_ns", "client_retx_ns"),
+            (("n_replicas", 4), ("chaos", True), ("payload", True)),
+        ),
+        KernelModel(
+            "raftlog", "raftlog", "model_raftlog.cuh", "madsim::RaftLogModel",
+            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4)), (64,),
+            ("timeout_min_ns", "timeout_max_ns", "propose_ns", "retx_ns"),
+            (("n_nodes", 5), ("n_writes", 4), ("chaos", True)),
+        ),
+    )
+}
+
+# the fields the kernel reads (and, but for seed, slow and skew,
+# writes), in the pointer order of RunArgs (csrc/engine_step.cuh);
+# ev_pay is read and written only when the workload has payload words
 KERNEL_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
     "msg_count", "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args",
-    "alive", "paused", "epoch", "node_state", "clog", "slow",
+    "ev_pay", "alive", "paused", "epoch", "node_state", "clog", "slow",
+    "skew",
 )
+READ_ONLY_FIELDS = ("seed", "slow", "skew")
 _DTYPES = {
     "seed": torch.int64, "now": torch.int64, "step": torch.int64,
     "halted": torch.bool, "halt_time": torch.int64, "trace": torch.int64,
@@ -82,16 +175,59 @@ _DTYPES = {
     "node_state": torch.int32, "clog": torch.bool, "slow": torch.int32,
     "dup": torch.bool, "skew": torch.int32,
 }
-RAFT_NAME = "raft-election"
-RAFT_SHAPE = dict(n_nodes=5, state_width=6, args_words=2, payload_words=0,
-                  max_emits=6)
 
 
-def source_digest() -> str:
+def workload_shape(wl: Workload) -> tuple:
+    """What a model's library is compiled for: ``(n_nodes,
+    state_width, args_words, payload_words, max_emits, handlers,
+    draw_purposes)``."""
+    return (
+        wl.n_nodes, wl.state_width, wl.args_words, wl.payload_words,
+        wl.max_emits, len(wl.handlers),
+        tuple(int(p) for p in wl.draw_purposes or ()),
+    )
+
+
+def kernel_model(wl: Workload) -> KernelModel:
+    """The registered model that carries ``wl``; raise
+    ``NotImplementedError`` for any other name, shape or variant."""
+    spec = MODELS.get(wl.name)
+    if spec is None:
+        raise NotImplementedError(
+            f"the fused run kernel carries no model {wl.name!r}; it has "
+            f"device handlers for {sorted(MODELS)} (the other models: "
+            f"ROADMAP queue A9 and B1)"
+        )
+    shape = workload_shape(wl)
+    params = dict(wl.model_params)
+    fixed = {k: params.get(k) for k, _v in spec.fixed}
+    if shape != spec.shape or fixed != dict(spec.fixed):
+        raise NotImplementedError(
+            f"the fused run kernel is compiled for {wl.name!r} at shape "
+            f"{spec.shape} with {dict(spec.fixed)}; got shape {shape} with "
+            f"{fixed} (other variants: ROADMAP queue A5, A7 and A8)"
+        )
+    return spec
+
+
+def config_words(wl: Workload, cfg: EngineConfig) -> tuple:
+    """The kernel's config words: the engine's 8 (``engine_config`` in
+    csrc/engine_step.cuh), then the model's runtime words."""
+    spec = kernel_model(wl)
+    p = dict(wl.model_params)
+    return (
+        cfg.lat_min_ns, cfg.lat_max_ns, cfg.loss_u32, cfg.proc_min_ns,
+        cfg.proc_max_ns, cfg.clog_backoff_min_ns, cfg.clog_backoff_max_ns,
+        cfg.time_limit_ns, *(int(p[w]) for w in spec.words),
+    )
+
+
+def source_digest(spec: KernelModel) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in (*ENGINE_SOURCES, spec.header):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
+    h.update(spec.unit_source().encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -106,81 +242,110 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the run kernel is built with the CUDA toolkit")
 
 
-def build_library() -> tuple[Path, str]:
-    """Build the kernel library if this source hash has none yet.
+def _paths(spec: KernelModel) -> tuple:
+    out_dir = BUILD_ROOT / source_digest(spec)
+    return out_dir, out_dir / f"libmadsim_{spec.key}.so", out_dir / "build.log"
 
-    Returns ``(path, log)``; ``log`` is nvcc's output, with the
-    ``--resource-usage`` lines (registers, local memory per thread)."""
-    out_dir = BUILD_ROOT / source_digest()
-    lib = out_dir / "libmadsim_run.so"
-    log_path = out_dir / "build.log"
-    if lib.exists():
-        return lib, log_path.read_text() if log_path.exists() else ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libmadsim_run.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "run_kernel.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (
-        f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        f"# {time.perf_counter() - t0:.1f} s\n"
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building the run kernel:\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return lib, log
+
+def build_libraries(specs=None) -> dict:
+    """Build each model's kernel library that this source hash has not
+    built yet, one nvcc process per model, all started together.
+
+    Returns ``{key: (path, log)}``; ``log`` is nvcc's output, with the
+    ``--resource-usage`` lines (registers, stack frame per thread)."""
+    specs = list(MODELS.values()) if specs is None else list(specs)
+    out, running = {}, []
+    for spec in specs:
+        out_dir, lib, log_path = _paths(spec)
+        if lib.exists():
+            out[spec.key] = (lib, log_path.read_text() if log_path.exists() else "")
+            continue
+        out_dir.mkdir(parents=True, exist_ok=True)
+        unit = out_dir / f"{spec.key}.cu"
+        unit.write_text(spec.unit_source())
+        tmp = out_dir / f"libmadsim_{spec.key}.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(unit)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running.append((spec, cmd, proc, tmp, time.perf_counter()))
+    failed = []
+    for spec, cmd, proc, tmp, t0 in running:
+        text, _ = proc.communicate()
+        _out_dir, lib, log_path = _paths(spec)
+        log = f"$ {' '.join(cmd)}\n{text}# {time.perf_counter() - t0:.1f} s\n"
+        if proc.returncode != 0:
+            failed.append(f"[{spec.key}]\n{log}")
+            continue
+        log_path.write_text(log)
+        os.replace(tmp, lib)
+        out[spec.key] = (lib, log)
+    if failed:
+        raise RuntimeError("nvcc failed building the run kernel:\n" + "\n".join(failed))
+    return out
+
+
+def build_library(spec: KernelModel) -> tuple[Path, str]:
+    """Build (or find) one model's library: ``(path, log)``."""
+    return build_libraries([spec])[spec.key]
 
 
 class RunKernel:
-    """The loaded kernel library and its launch count.
+    """The loaded kernel libraries and their launch counts.
 
-    ``launches`` counts kernel launches only: a CPU state that takes
-    the plain step counts nothing."""
+    ``launches`` counts kernel launches of every model, ``counts`` per
+    model key; a CPU state that takes the plain step counts nothing."""
 
     def __init__(self):
         self.launches = 0
-        self._lib = None
+        self.counts: dict = {}
+        self._libs: dict = {}
 
-    def load(self):
-        if self._lib is None:
-            path, _log = build_library()
+    def reset(self) -> None:
+        self.launches = 0
+        self.counts = {}
+
+    def load(self, spec: KernelModel):
+        lib = self._libs.get(spec.key)
+        if lib is None:
+            path, _log = build_library(spec)
             lib = ctypes.CDLL(str(path))
-            lib.madsim_raft_run.restype = ctypes.c_int
-            lib.madsim_raft_run.argtypes = [
+            lib.madsim_run.restype = ctypes.c_int
+            lib.madsim_run.argtypes = [
                 ctypes.POINTER(ctypes.c_void_p),
                 ctypes.POINTER(ctypes.c_int64),
                 ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                 ctypes.c_int32, ctypes.c_void_p,
             ]
-            self._lib = lib
-        return self._lib
+            lib.madsim_shape.restype = None
+            lib.madsim_shape.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+            got = (ctypes.c_int64 * 7)()
+            lib.madsim_shape(got)
+            want = (*spec.shape[:6], len(KERNEL_FIELDS) + 4)
+            if tuple(got) != want:
+                raise RuntimeError(
+                    f"library {path} is built for (N, U, A, W, K, H, pointers) "
+                    f"= {tuple(got)}; model {spec.key!r} needs {want}"
+                )
+            self._libs[spec.key] = lib
+        return lib
 
-    def launch(self, state: SimState, tables, budget, iters, cfg_words,
-               stop_at_halt: bool) -> None:
-        lib = self.load()
+    def launch(self, spec: KernelModel, state: SimState, tables, budget,
+               iters, cfg_words, stop_at_halt: bool) -> None:
+        lib = self.load(spec)
         ptrs, cfg = kernel_args(state, tables, budget, iters, cfg_words)
-        rc = lib.madsim_raft_run(
+        rc = lib.madsim_run(
             ptrs, cfg, state.seed.shape[0], state.ev_valid.shape[1],
             int(stop_at_halt), state.device.index or 0,
             torch.cuda.current_stream(state.device).cuda_stream,
         )
         if rc != 0:
-            raise RuntimeError(f"run kernel launch failed: error {rc}")
+            raise RuntimeError(f"run kernel launch for {spec.key!r} failed: error {rc}")
         self.launches += 1
+        self.counts[spec.key] = self.counts.get(spec.key, 0) + 1
 
 
 KERNEL = RunKernel()
-
-
-def raft_config_words(wl: Workload, cfg: EngineConfig) -> tuple:
-    """The 10 config words of ``raft_args`` (csrc/step_raft.cuh)."""
-    p = dict(wl.model_params)
-    return (
-        cfg.lat_min_ns, cfg.lat_max_ns, cfg.loss_u32, cfg.proc_min_ns,
-        cfg.proc_max_ns, cfg.clog_backoff_min_ns, cfg.clog_backoff_max_ns,
-        cfg.time_limit_ns, p["timeout_min_ns"], p["timeout_max_ns"],
-    )
 
 
 def kernel_args(state: SimState, tables, budget, iters, cfg_words):
@@ -193,33 +358,16 @@ def kernel_args(state: SimState, tables, budget, iters, cfg_words):
     return ptrs, cfg
 
 
-def check_raft(wl: Workload) -> None:
-    """Raise unless the kernel carries this workload."""
-    if wl.name != RAFT_NAME:
-        raise NotImplementedError(
-            f"the fused run kernel carries only {RAFT_NAME!r}; workload "
-            f"{wl.name!r} has no device handlers yet (ROADMAP queue B1)"
-        )
-    p = dict(wl.model_params)
-    shape = {k: getattr(wl, k) for k in RAFT_SHAPE}
-    shape["n_nodes"] = p.get("n_nodes")
-    if shape != RAFT_SHAPE or tuple(wl.draw_purposes or ()) != (0,):
-        raise NotImplementedError(
-            f"the fused run kernel is compiled for raft at {RAFT_SHAPE}; "
-            f"got {shape}"
-        )
-
-
-def check_state(wl: Workload, state: SimState) -> None:
+def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     """Raise unless every field is a contiguous CUDA tensor of the
     port's dtype and of the workload's shape, with a pool size the
-    kernel was compiled for."""
+    model's kernel was compiled for."""
     dev = state.device
     s, e = state.ev_valid.shape
-    if e not in POOL_SIZES:
+    if e not in spec.pools:
         raise ValueError(
-            f"pool_size={e} has no kernel instantiation; supported: "
-            f"{POOL_SIZES}"
+            f"pool_size={e} has no {spec.key} kernel instantiation; "
+            f"supported: {spec.pools}"
         )
     n, u = wl.n_nodes, wl.state_width
     shapes = dict(
@@ -257,19 +405,19 @@ def _tables(wl: Workload, dev) -> tuple:
 def _first_pass(wl: Workload, cfg: EngineConfig, state: SimState,
                 n_steps: int, stop_at_halt: bool):
     """Copy ``state`` and launch the kernel once on the copy, up to
-    ``n_steps`` steps per seed. Returns the copy, the launch's inputs
-    and each seed's step count."""
-    check_raft(wl)
-    check_state(wl, state)
+    ``n_steps`` steps per seed. Returns the model, the copy, the
+    launch's inputs and each seed's step count."""
+    spec = kernel_model(wl)
+    check_state(spec, wl, state)
     dev = state.device
     out = SimState(**{f: getattr(state, f).clone() for f in STATE_FIELDS})
     tables = _tables(wl, dev)
-    words = raft_config_words(wl, cfg)
+    words = config_words(wl, cfg)
     s = state.seed.shape[0]
     budget = torch.full((s,), n_steps, dtype=torch.int64, device=dev)
     iters = torch.empty((s,), dtype=torch.int64, device=dev)
-    KERNEL.launch(out, tables, budget, iters, words, stop_at_halt)
-    return out, tables, words, iters
+    KERNEL.launch(spec, out, tables, budget, iters, words, stop_at_halt)
+    return spec, out, tables, words, iters
 
 
 def make_run_fused(
@@ -287,12 +435,12 @@ def make_run_fused(
     def run(state: SimState) -> SimState:
         if state.device.type == "cpu":
             return plain(state)
-        out, tables, words, iters = _first_pass(
+        spec, out, tables, words, iters = _first_pass(
             wl, cfg, state, n_steps, until_halted
         )
         if until_halted and iters.numel():
             # the halted seeds' remaining iterations, T = max count
-            KERNEL.launch(out, tables, iters.max() - iters,
+            KERNEL.launch(spec, out, tables, iters.max() - iters,
                           torch.empty_like(iters), words, False)
         return out
 
@@ -303,4 +451,4 @@ def halt_counts(wl: Workload, cfg: EngineConfig, cap: int, state: SimState):
     """Each seed's steps until it halts (at most ``cap``), from one
     stop-at-halt kernel pass on a copy of ``state``: the seed-steps a
     ``make_run_while`` run does real work in."""
-    return _first_pass(wl, cfg, state, cap, True)[3]
+    return _first_pass(wl, cfg, state, cap, True)[4]

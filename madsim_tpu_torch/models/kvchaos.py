@@ -1,0 +1,278 @@
+"""Replicated KV cluster under kill/restart chaos, batched over seeds.
+
+Port of ``madsim_tpu/models/kvchaos.py``: a primary-backup KV store
+(one primary, ``n_replicas`` backups, one client) where a write commits
+only after a majority of replicas ack. The seed schedules a replica
+kill and restart mid-stream; every message kind has a retry path, so
+the protocol makes progress through loss and the crash. The run halts
+when the client has seen all ``writes`` commits (it sends FIN) and the
+primary's ack mask for the final write is full. The fused kernel
+carries the same handlers as device code (``csrc/model_kvchaos.cuh``).
+
+``payload=True`` turns on the engine payload arena: each WRITE carries
+two random int32 value words drawn by the client; the primary stores
+and re-replicates them, replicas store what they receive, and the
+payload words feed the trace hash.
+
+Node layout: [primary, replicas 1..R, client R+1]
+Primary state:  [committed_seq, inflight_seq, ack_mask, fin_seen(, v0, v1)]
+Replica state:  [last_applied_seq, applies, 0, 0] or
+                [last_applied_seq, applies, v0, v1, 0, 0] with payload
+Client state:   [commits_seen, last_read_rseq, 0, 0(, 0, 0)]
+
+``record=True`` (operation histories), ``bug=True`` (its planted
+lost-write fault) and ``army=True`` (open-loop client load) wait for the
+port of ``HistorySpec`` and of the latency markers (ROADMAP queue A7 and
+A8). The ``read``/``readresp`` handlers are ported all the same: they
+are dispatch slots whatever the mode.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..engine.core import KIND_KILL, KIND_RESTART, Workload, set_cols, user_kind
+
+_H_INIT = 0
+_H_WRITE = 1  # at primary: args = (seq,)
+_H_REPL = 2  # at replica: args = (seq,)
+_H_ACK = 3  # at primary: args = (seq, replica)
+_H_COMMIT = 4  # at client: args = (seq,)
+_H_RETX = 5  # at primary: args = (seq,)
+_H_CRETX = 6  # at client: periodic progress retry
+_H_FIN = 7  # at primary: client done
+_H_JOIN = 8  # at primary: args = (replica,), a replica (re)joined
+_H_JRETX = 9  # at replica: retry JOIN until synced
+_H_READ = 10  # at primary: args = (rseq,), record mode only
+_H_READRESP = 11  # at client: args = (rseq, committed), record mode only
+
+PRIMARY = 0
+
+_P_KILL_AT = 0
+_P_KILL_WHO = 1
+_P_REVIVE = 2
+_P_VAL0 = 8
+_P_VAL1 = 9
+
+
+def make_kvchaos(
+    writes: int = 20,
+    n_replicas: int = 4,
+    retx_ns: int = 40_000_000,
+    client_retx_ns: int = 100_000_000,
+    chaos: bool = True,
+    payload: bool = False,
+    record: bool = False,
+    hist_capacity: int | None = None,
+    bug: bool = False,
+    army: bool = False,
+    army_probes: int = 1,
+) -> Workload:
+    """The replicated-KV workload; ``record``, ``bug`` and ``army`` raise
+    ``NotImplementedError`` until their engine surfaces are ported."""
+    if record or bug or army:
+        raise NotImplementedError(
+            "make_kvchaos(record=True, bug=True or army=True) needs "
+            "HistorySpec recording and the latency markers, which the "
+            "torch port does not have yet (ROADMAP queue A7 and A8)"
+        )
+    del hist_capacity, army_probes  # record and army mode only
+    n = 1 + n_replicas + 1
+    client = n - 1
+    replicas = list(range(1, 1 + n_replicas))
+    majority = n_replicas // 2 + 1
+    full_mask = (1 << n_replicas) - 1
+    width = 6 if payload else 4
+
+    def _client_value(ctx):
+        """Two fresh random words for an outgoing WRITE (payload mode)."""
+        if not payload:
+            return ()
+        v0 = ctx.draw.user(_P_VAL0).to(torch.int32)
+        v1 = ctx.draw.user(_P_VAL1).to(torch.int32)
+        return (v0, v1)
+
+    def _replicate(eb, seq, when, mask, pay=()):
+        for i, r in enumerate(replicas):
+            eb.send(
+                r, user_kind(_H_REPL), (seq,),
+                when=when & (((mask >> i) & 1) == 0),
+                pay=pay,
+            )
+
+    def on_init(ctx):
+        eb = ctx.emits()
+        is_client = ctx.node == client
+        is_replica = (ctx.node >= 1) & (ctx.node <= n_replicas)
+        # client kicks off write 1 and its progress-retry timer
+        eb.send(PRIMARY, user_kind(_H_WRITE), (1,), when=is_client,
+                pay=_client_value(ctx))
+        eb.after(client_retx_ns, user_kind(_H_CRETX), client, when=is_client)
+        # replicas announce themselves, at t=0 and again after restart;
+        # retried by a timer until the first write applies
+        eb.send(PRIMARY, user_kind(_H_JOIN), (ctx.node,), when=is_replica)
+        eb.after(retx_ns, user_kind(_H_JRETX), ctx.node, when=is_replica)
+        if chaos:
+            who = ctx.draw.user_int(1, 1 + n_replicas, _P_KILL_WHO)
+            at = ctx.draw.user_int(20_000_000, 300_000_000, _P_KILL_AT)
+            revive = ctx.draw.user_int(100_000_000, 600_000_000, _P_REVIVE)
+            eb.after(at, KIND_KILL, 0, (who,), when=is_client)
+            eb.after(at + revive, KIND_RESTART, 0, (who,), when=is_client)
+        return ctx.state, eb.build()
+
+    def on_write(ctx):
+        seq = ctx.args[:, 0]
+        st = ctx.state
+        fresh = (seq > st[:, 0]) & (seq > st[:, 1])
+        cols = {1: seq, 2: 0}
+        if payload:
+            # the first WRITE to arrive for a seq fixes its value; the
+            # primary stores it so retx re-sends the accepted value
+            cols.update({4: ctx.payload[:, 0], 5: ctx.payload[:, 1]})
+        new = set_cols(st, fresh, cols)
+        eb = ctx.emits()
+        pay = (new[:, 4], new[:, 5]) if payload else ()
+        _replicate(eb, seq, fresh, 0, pay)
+        eb.after(retx_ns, user_kind(_H_RETX), PRIMARY, (seq,), when=fresh)
+        return new, eb.build()
+
+    def on_repl(ctx):
+        seq = ctx.args[:, 0]
+        st = ctx.state
+        fresh = seq > st[:, 0]
+        new = st.clone()
+        new[:, 0] = torch.maximum(st[:, 0], seq)
+        new[:, 1] = st[:, 1] + 1
+        if payload:
+            new = set_cols(new, fresh, {2: ctx.payload[:, 0], 3: ctx.payload[:, 1]})
+        eb = ctx.emits()
+        eb.send(PRIMARY, user_kind(_H_ACK), (seq, ctx.node))
+        return new, eb.build()
+
+    def _maybe_halt(eb, committed, mask, fin):
+        eb.halt(when=(committed >= writes) & (mask == full_mask) & (fin > 0))
+
+    def on_ack(ctx):
+        seq, who = ctx.args[:, 0], ctx.args[:, 1]
+        st = ctx.state
+        bit = 1 << (who - 1)
+        current = seq == st[:, 1]
+        mask = torch.where(current, st[:, 2] | bit, st[:, 2])
+        acks = torch.zeros_like(mask)
+        for i in range(n_replicas):
+            acks = acks + ((mask >> i) & 1)
+        committed_now = current & (seq > st[:, 0]) & (acks >= majority)
+        committed = torch.where(committed_now, seq, st[:, 0])
+        new = st.clone()
+        new[:, 0] = committed
+        new[:, 2] = mask
+        eb = ctx.emits()
+        eb.send(client, user_kind(_H_COMMIT), (committed,),
+                when=current & (committed >= seq))
+        _maybe_halt(eb, committed, mask, st[:, 3])
+        return new, eb.build()
+
+    def on_commit(ctx):
+        seq = ctx.args[:, 0]
+        st = ctx.state
+        fresh = seq > st[:, 0]
+        new = set_cols(st, fresh, {0: seq})
+        done = seq >= writes
+        eb = ctx.emits()
+        eb.send(PRIMARY, user_kind(_H_WRITE), (seq + 1,), when=fresh & ~done,
+                pay=_client_value(ctx))
+        eb.send(PRIMARY, user_kind(_H_FIN), (), when=fresh & done)
+        return new, eb.build()
+
+    def on_retx(ctx):
+        seq = ctx.args[:, 0]
+        st = ctx.state
+        current = seq == st[:, 1]
+        pending_repl = current & (st[:, 2] != full_mask)
+        # committed but the client may not know (lost COMMIT): re-ack
+        pending_commit = current & (st[:, 0] >= seq)
+        eb = ctx.emits()
+        _replicate(eb, seq, pending_repl, st[:, 2],
+                   (st[:, 4], st[:, 5]) if payload else ())
+        eb.send(client, user_kind(_H_COMMIT), (st[:, 0],), when=pending_commit)
+        eb.after(retx_ns, user_kind(_H_RETX), PRIMARY, (seq,),
+                 when=pending_repl | pending_commit)
+        return ctx.state, eb.build()
+
+    def on_cretx(ctx):
+        # client progress guard: re-send the write (or FIN) it is waiting on
+        st = ctx.state
+        waiting = st[:, 0] < writes
+        eb = ctx.emits()
+        eb.send(PRIMARY, user_kind(_H_WRITE), (st[:, 0] + 1,), when=waiting,
+                pay=_client_value(ctx))
+        eb.send(PRIMARY, user_kind(_H_FIN), (), when=~waiting)
+        eb.after(client_retx_ns, user_kind(_H_CRETX), client)
+        return ctx.state, eb.build()
+
+    def on_fin(ctx):
+        st = ctx.state
+        new = st.clone()
+        new[:, 3] = 1
+        eb = ctx.emits()
+        _maybe_halt(eb, st[:, 0], st[:, 2], 1)
+        return new, eb.build()
+
+    def on_join(ctx):
+        # a replica (re)joined with empty state: clear its ack bit so the
+        # retx loop re-replicates the current write to it
+        who = ctx.args[:, 0]
+        st = ctx.state
+        bit = 1 << (who - 1)
+        new = st.clone()
+        new[:, 2] = st[:, 2] & ~bit
+        eb = ctx.emits()
+        # the retx timer may have died while the mask was full: re-arm
+        eb.after(retx_ns, user_kind(_H_RETX), PRIMARY, (st[:, 1],),
+                 when=st[:, 1] > 0)
+        return new, eb.build()
+
+    def on_jretx(ctx):
+        st = ctx.state
+        behind = st[:, 0] == 0
+        eb = ctx.emits()
+        eb.send(PRIMARY, user_kind(_H_JOIN), (ctx.node,), when=behind)
+        eb.after(retx_ns, user_kind(_H_JRETX), ctx.node, when=behind)
+        return ctx.state, eb.build()
+
+    def on_read(ctx):
+        # answer a client history probe with the current commit point
+        rseq = ctx.args[:, 0]
+        eb = ctx.emits()
+        eb.send(client, user_kind(_H_READRESP), (rseq, ctx.state[:, 0]))
+        return ctx.state, eb.build()
+
+    def on_readresp(ctx):
+        # stale-rseq gate: only in-invoke-order responses count
+        rseq = ctx.args[:, 0]
+        st = ctx.state
+        return set_cols(st, rseq > st[:, 1], {1: rseq}), ctx.emits().build()
+
+    return Workload(
+        name="kvchaos-payload" if payload else "kvchaos",
+        n_nodes=n,
+        state_width=width,
+        handlers=(
+            on_init, on_write, on_repl, on_ack, on_commit, on_retx,
+            on_cretx, on_fin, on_join, on_jretx, on_read, on_readresp,
+        ),
+        # on_init builds up to 6 rows; on_retx builds n_replicas+2
+        max_emits=max(n_replicas + 2, 6),
+        args_words=2,
+        payload_words=2 if payload else 0,
+        draw_purposes=((_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else ())
+        + ((_P_VAL0, _P_VAL1) if payload else ()),
+        model_params=(
+            ("writes", writes),
+            ("n_replicas", n_replicas),
+            ("retx_ns", retx_ns),
+            ("client_retx_ns", client_retx_ns),
+            ("chaos", chaos),
+            ("payload", payload),
+        ),
+    )

@@ -12,7 +12,7 @@ State row: [role, term, voted_term, votes, timeout_seq, 0]
 Handlers take and return whole batches: an ``(S, U)`` state row and
 ``(S, A)`` args in, the new ``(S, U)`` rows and ``(S, K)`` emits out.
 The fused kernel carries the same handlers as device code
-(``csrc/step_raft.cuh``).
+(``csrc/model_raft.cuh``).
 """
 
 from __future__ import annotations

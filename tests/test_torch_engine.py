@@ -239,17 +239,93 @@ def test_engine_kinds_match_reference_per_field(n_steps):
 
 def test_fused_wrapper_refuses_what_the_kernel_does_not_carry():
     _jwl, twl = _chaos_workloads()
-    with pytest.raises(NotImplementedError, match="raft"):
-        fused.check_raft(twl)
-    st = tcore.make_init(twl, tcore.EngineConfig(pool_size=40), device="cpu")(np.arange(2))
-    with pytest.raises(ValueError, match="CUDA"):
-        fused.check_state(twl, st)
-    # a state built for another workload or pool is refused before launch
+    with pytest.raises(NotImplementedError, match="carries no model 'chaos3'.*ROADMAP"):
+        fused.kernel_model(twl)
     raft = make_raft()
+    spec = fused.kernel_model(raft)
+    st = tcore.make_init(raft, tcore.EngineConfig(pool_size=40), device="cpu")(np.arange(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.check_state(spec, raft, st)
+    # a state built for another workload or pool is refused before launch
+    cst = tcore.make_init(twl, tcore.EngineConfig(pool_size=40), device="cpu")(np.arange(2))
     with pytest.raises(ValueError, match="the workload.s is"):
-        fused.check_state(raft, st)
+        fused.check_state(spec, raft, cst)
     with pytest.raises(ValueError, match="pool_size=24"):
-        fused.check_state(raft, tcore.make_init(raft, tcore.EngineConfig(pool_size=24), device="cpu")(np.arange(2)))
-    rst = tcore.make_init(raft, tcore.EngineConfig(pool_size=40), device="cpu")(np.arange(2))
+        fused.check_state(spec, raft, tcore.make_init(raft, tcore.EngineConfig(pool_size=24), device="cpu")(np.arange(2)))
     with pytest.raises(ValueError, match="ev_meta"):
-        fused.check_state(raft, dataclasses.replace(rst, ev_meta=rst.ev_meta.to(torch.int32)))
+        fused.check_state(spec, raft, dataclasses.replace(st, ev_meta=st.ev_meta.to(torch.int32)))
+    # a registered name at another shape or variant is refused too
+    with pytest.raises(NotImplementedError, match="compiled for 'raft-election'"):
+        fused.kernel_model(make_raft(n_nodes=4))
+
+
+# the chaos3 workload as a model trait of the run kernel, for the host
+# build: every engine kind raft and the ported models never emit
+# (pause/resume, node clogs) runs through the kernel's engine code
+CHAOS3_MODEL = r"""
+#pragma once
+#include "engine_step.cuh"
+struct Chaos3Model {
+  static constexpr int N = 3, U = 3, A = 2, W = 0, K = 12, H = 3;
+  struct Params {};
+  static Params params(const int64_t*) { return Params{}; }
+  static void handle(int32_t h, const madsim::Ctx<Chaos3Model>& c,
+                     const Params&, int32_t* ns, madsim::Emit<A, W>* em) {
+    using namespace madsim;
+    const int32_t tick = FIRST_USER_KIND + 1, ping = FIRST_USER_KIND + 2;
+    const int32_t* st = c.state;
+    if (h == 0) {
+      em[0].after(true, c.user_int(1000000, 5000000, 0), tick, c.node, 1);
+      em[1].to(true, (c.node + 1) % N, ping, c.node, 0);
+      ns[2] = st[2] + 1;
+    } else if (h == 1) {
+      const int64_t r = c.user_int(0, 8, 1);
+      const int32_t peer = (c.node + 1) % N, other = (c.node + 2) % N;
+      em[0].after(r == 0, 0, KIND_KILL, 0, peer);
+      em[1].after(r == 0 || r == 1, 2000000, KIND_RESTART, 0, peer);
+      em[2].after(r == 2, 0, KIND_PAUSE, 0, other);
+      em[3].after(r == 3, 0, KIND_RESUME, 0, other);
+      em[4].after(r == 4, 0, KIND_CLOG, 0, c.node, peer);
+      em[5].after(r == 5 || r == 2, 0, KIND_UNCLOG, 0, c.node, peer);
+      em[6].after(r == 6, 0, KIND_CLOG_NODE, 0, other);
+      em[7].after(r >= 6, 0, KIND_UNCLOG_NODE, 0, other);
+      em[8].to(r != 7, peer, ping, c.node, 0);
+      em[9].after(true, 3000000 + c.user_int(0, 2000000, 2), tick, c.node, 1);
+      em[10].after(st[0] >= 6 && c.node == 0, 0, KIND_HALT, 0);
+      ns[0] = st[0] + 1;
+    } else {
+      em[0].to(c.args[1] < 3, c.src, ping, c.node, c.args[1] + 1);
+      ns[1] = c.src + 10 * c.args[1];
+      ns[0] = st[0] + 1;
+    }
+  }
+};
+"""
+
+
+@pytest.mark.parametrize("until_halted", [False, True], ids=["fixed", "while"])
+def test_engine_kinds_in_the_kernel_code_match_plain_step(tmp_path, until_halted):
+    """The kernel's engine step (host build) on the chaos3 workload
+    equals the plain step, which the test above holds against JAX."""
+    from _torch_host import build_host_kernel, host_run
+
+    header = tmp_path / "model_chaos3.cuh"
+    header.write_text(CHAOS3_MODEL)
+    spec = fused.KernelModel("chaos3", "chaos3", str(header), "Chaos3Model",
+                             (), (CHAOS_CFG["pool_size"],))
+    lib = build_host_kernel(tmp_path, spec, spec.pools)
+    _jwl, twl = _chaos_workloads()
+    tcfg = tcore.EngineConfig(**CHAOS_CFG)
+    words = (
+        tcfg.lat_min_ns, tcfg.lat_max_ns, tcfg.loss_u32, tcfg.proc_min_ns,
+        tcfg.proc_max_ns, tcfg.clog_backoff_min_ns, tcfg.clog_backoff_max_ns,
+        tcfg.time_limit_ns,
+    )
+    seeds = np.arange(48, dtype=np.uint64) * np.uint64(0x9E3779B1)
+    st = tcore.make_init(twl, tcfg, device="cpu")(seeds)
+    run = tcore.make_run_while_plain if until_halted else tcore.make_run_plain
+    want = state_to_numpy(run(twl, tcfg, 150)(st))
+    got = state_to_numpy(host_run(lib, twl, tcfg, st, 150, until_halted, words))
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert want["paused"].any() and want["clog"].any() and (~want["alive"]).any()

@@ -1,18 +1,16 @@
 """The run kernel's step code, built for the host, against the plain step.
 
-``csrc/step_raft.cuh`` marks its functions MADSIM_HD, which is
-``__host__ __device__`` under nvcc and nothing under g++. Here g++
-builds it (no torch headers) with a small host driver into a ctypes
-library in a temporary directory, and the library runs the kernel's
-exact per-seed loop — load, step or drain, store — over the port's
-CPU tensors through the same argument packing the CUDA launch uses.
-This is the CPU evidence of the kernel's logic; the package never uses
-the host build. The last test runs the real kernel and needs a card.
+``csrc/engine_step.cuh`` and the model headers mark their functions
+MADSIM_HD, which is ``__host__ __device__`` under nvcc and nothing under
+g++. Here g++ builds them (no torch headers) with a small host entry point
+into a ctypes library in a temporary directory, and the library runs the
+kernel's exact per-seed loop — load, step or drain, store — over the
+port's CPU tensors through the same argument packing the CUDA launch
+uses (``tests/_torch_host.py``). This is the CPU evidence of the
+kernel's logic for raft; the other models' host builds sit in their own
+test files. The tests marked ``cuda`` run the real kernel of every
+registered model and need a card.
 """
-
-import ctypes
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -21,65 +19,17 @@ import torch
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
 from madsim_tpu_torch.engine.convert import state_to_numpy
-from madsim_tpu_torch.models import BENCH_SPECS, make_raft
+from madsim_tpu_torch.models import BENCH_SPECS, make_kvchaos, make_raft
 
-DRIVER = r"""
-#include "step_raft.cuh"
-extern "C" int host_raft_run(void* const* ptrs, const int64_t* cfg, int64_t n,
-                             int32_t pool, int32_t stop_at_halt) {
-  const madsim::RaftArgs a = madsim::raft_args(ptrs, cfg, n, stop_at_halt);
-  for (int64_t i = 0; i < n; i++) {
-    switch (pool) {
-      case 40: madsim::raft_run_seed<40>(a, i); break;
-      case 64: madsim::raft_run_seed<64>(a, i); break;
-      case 128: madsim::raft_run_seed<128>(a, i); break;
-      case 256: madsim::raft_run_seed<256>(a, i); break;
-      default: return -1;
-    }
-  }
-  return 0;
-}
-"""
+from _torch_host import build_host_kernel, host_launch, host_run
+
+RAFT_POOLS = (40, 64, 128, 256)
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("g++ unavailable")
-    d = tmp_path_factory.mktemp("raft_host")
-    (d / "driver.cpp").write_text(DRIVER)
-    lib = d / "libraft_host.so"
-    subprocess.run(
-        ["g++", "-std=c++17", "-O2", "-Wall", "-Wextra", "-Werror", "-shared",
-         "-fPIC", f"-I{fused.CSRC}", "-o", str(lib), str(d / "driver.cpp")],
-        check=True, capture_output=True, text=True,
-    )
-    h = ctypes.CDLL(str(lib))
-    h.host_raft_run.restype = ctypes.c_int
-    h.host_raft_run.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-    ]
-    return h
-
-
-def host_run(lib, wl, cfg, st, n_steps, until_halted):
-    """make_run_fused's two-pass protocol, with the host build."""
-    out = tcore.SimState(**{f: getattr(st, f).clone() for f in tcore.STATE_FIELDS})
-    tables = fused._tables(wl, "cpu")
-    words = fused.raft_config_words(wl, cfg)
-    s, e = st.ev_valid.shape
-
-    def launch(budget, stop):
-        iters = torch.empty((s,), dtype=torch.int64)
-        ptrs, c = fused.kernel_args(out, tables, budget, iters, words)
-        assert lib.host_raft_run(ptrs, c, s, e, int(stop)) == 0
-        return iters
-
-    iters = launch(torch.full((s,), n_steps, dtype=torch.int64), until_halted)
-    if until_halted:
-        launch(iters.max() - iters, False)
-    return out
+    spec = fused.MODELS["raft-election"]
+    return build_host_kernel(tmp_path_factory.mktemp("raft_host"), spec, RAFT_POOLS)
 
 
 @pytest.mark.parametrize(
@@ -111,12 +61,7 @@ def test_host_built_kernel_halt_counts(host_lib):
     wl, cfg = factory(), tcore.EngineConfig(**kw)
     st = tcore.make_init(wl, cfg, device="cpu")(np.arange(16, dtype=np.uint64))
     out = tcore.SimState(**{f: getattr(st, f).clone() for f in tcore.STATE_FIELDS})
-    iters = torch.empty((16,), dtype=torch.int64)
-    ptrs, c = fused.kernel_args(
-        out, fused._tables(wl, "cpu"), torch.full((16,), cap, dtype=torch.int64),
-        iters, fused.raft_config_words(wl, cfg),
-    )
-    assert host_lib.host_raft_run(ptrs, c, 16, 40, 1) == 0
+    iters = host_launch(host_lib, wl, cfg, out, torch.full((16,), cap, dtype=torch.int64), True)
     step = tcore.make_step_plain(wl, cfg)
     halted_at = np.full(16, -1)
     for i in range(int(iters.max())):
@@ -126,10 +71,49 @@ def test_host_built_kernel_halt_counts(host_lib):
     np.testing.assert_array_equal(iters.numpy(), halted_at)
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_step_on_card():
+def test_registry_shapes_equal_the_factories():
+    """Each registered model's compiled shape and variant is what the
+    port's factory builds at its defaults, and its runtime words name
+    factory parameters."""
+    made = [f() for f, *_ in BENCH_SPECS.values()] + [make_kvchaos(payload=True)]
+    assert sorted(w.name for w in made) == sorted(fused.MODELS)
+    for wl in made:
+        spec = fused.kernel_model(wl)
+        assert spec.shape == fused.workload_shape(wl)
+        assert spec.pools and all(p >= wl.n_nodes for p in spec.pools)
+        params = dict(wl.model_params)
+        assert set(spec.words) <= set(params) and all(
+            params[k] == v for k, v in spec.fixed
+        )
+        words = fused.config_words(wl, tcore.EngineConfig())
+        assert len(words) == 8 + len(spec.words)
+    bench_pools = {f().name: kw["pool_size"] for f, kw, _n, _c in BENCH_SPECS.values()}
+    for name, pool in bench_pools.items():
+        assert pool in fused.MODELS[name].pools, name
+
+
+# ---------------------------------------------------------------------------
+# the real kernel, on the card
+# ---------------------------------------------------------------------------
+
+CARD_CASES = {
+    # name -> (factory, engine kwargs, seeds, cap)
+    **{k: (f, kw, min(n, 4096), cap) for k, (f, kw, n, cap) in BENCH_SPECS.items()},
+    "kvchaos-payload": (
+        lambda: make_kvchaos(payload=True), BENCH_SPECS["kvchaos"][1], 4096,
+        BENCH_SPECS["kvchaos"][3],
+    ),
+}
+
+
+def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (run on the card with -m cuda)")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_step_on_card():
+    _needs_card()
     factory, kw, _n, cap = BENCH_SPECS["raft"]
     wl, cfg = factory(), tcore.EngineConfig(**kw)
     st = tcore.make_init(wl, cfg, device="cuda")(np.arange(4096, dtype=np.uint64))
@@ -144,3 +128,28 @@ def test_cuda_kernel_matches_plain_step_on_card():
         bad = tcore.Workload(name="other", n_nodes=5, state_width=6,
                              handlers=wl.handlers, max_emits=6, args_words=2)
         tcore.make_run(bad, cfg, 3)(st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+def test_cuda_kernel_matches_plain_step_per_model(name):
+    """Every registered model's kernel equals the plain step on the card,
+    for make_run_while at the bench config and a fixed-step run cut
+    mid-way."""
+    _needs_card()
+    factory, kw, n, cap = CARD_CASES[name]
+    wl, cfg = factory(), tcore.EngineConfig(**kw)
+    st = tcore.make_init(wl, cfg, device="cuda")(np.arange(n, dtype=np.uint64))
+    before = fused.KERNEL.counts.get(fused.kernel_model(wl).key, 0)
+    got = state_to_numpy(tcore.make_run_while(wl, cfg, cap)(st))
+    assert fused.KERNEL.counts[fused.kernel_model(wl).key] == before + 2
+    want = state_to_numpy(tcore.make_run_while_plain(wl, cfg, cap)(st))
+    for field in got:
+        np.testing.assert_array_equal(got[field], want[field], err_msg=field)
+    assert got["halted"].all() and got["overflow"].sum() == 0
+    mid = max(1, int(got["step"][0]) // 3)
+    got = state_to_numpy(tcore.make_run(wl, cfg, mid)(st))
+    want = state_to_numpy(tcore.make_run_plain(wl, cfg, mid)(st))
+    for field in got:
+        np.testing.assert_array_equal(got[field], want[field], err_msg=field)
+    assert got["ev_valid"].any(axis=1).all()

@@ -1,0 +1,110 @@
+"""kvchaos (replicated KV under kill/restart chaos), with and without
+the payload arena, in the torch port against the JAX package and the
+C++ oracle (oracle id 4), and its two device handler sets
+(csrc/model_kvchaos.cuh, KvChaosModel<false> and <true>) built for the
+host against the plain step. These runs go through the engine's kill
+and restart: the epoch bump, the volatile reset and the restart's
+re-init emit; the payload variant moves ev_pay and folds it into the
+trace. Exact equality."""
+
+import numpy as np
+import pytest
+
+from madsim_tpu.models import make_kvchaos as j_make
+from madsim_tpu_torch.engine import core as tcore
+from madsim_tpu_torch.engine import fused
+from madsim_tpu_torch.engine.convert import state_to_numpy
+from madsim_tpu_torch.models import BENCH_SPECS
+from madsim_tpu_torch.models import make_kvchaos as t_make
+
+from _torch_host import build_host_kernel, host_run
+from _torch_parity import (
+    assert_bench_spec_equal, assert_oracle_traces, assert_workload_equal,
+    needs_oracle, run_both,
+)
+
+_F, KW, _N, CAP = BENCH_SPECS["kvchaos"]
+SEEDS = np.arange(64, dtype=np.uint64) * np.uint64(7919)
+MID = 100  # fixed steps: a third of the way to the last halt
+PAYLOAD = pytest.mark.parametrize("payload", [False, True], ids=["plain", "payload"])
+
+
+def test_bench_spec_and_workload_equal_reference():
+    assert_bench_spec_equal("kvchaos")
+    for payload in (False, True):
+        assert_workload_equal(j_make(payload=payload), t_make(payload=payload))
+        wl = t_make(payload=payload)
+        assert fused.workload_shape(wl) == fused.MODELS[wl.name].shape
+
+
+@PAYLOAD
+def test_bench_run_while_matches_reference_per_field(payload):
+    t = run_both(j_make(payload=payload), t_make(payload=payload), KW, SEEDS, CAP,
+                 until_halted=True)
+    assert t["halted"].all() and t["overflow"].sum() == 0
+    # every seed killed and restarted one replica: its epoch went up by 2
+    assert (t["epoch"][:, 1:5].sum(axis=1) == 2).all()
+    assert (t["node_state"][:, 0, 0] == 20).all()
+    if payload:
+        # the final value words sit on the primary and on every replica
+        # that applied the last write
+        assert (t["node_state"][:, 0, 4:6] != 0).any()
+
+
+@PAYLOAD
+def test_fixed_steps_mid_run_matches_reference_per_field(payload):
+    t = run_both(j_make(payload=payload), t_make(payload=payload), KW, SEEDS, MID,
+                 until_halted=False)
+    assert t["ev_valid"].any(axis=1).all() and (~t["alive"]).any()
+    if payload:
+        assert t["ev_pay"].any()
+
+
+def test_runtime_words_follow_the_factory():
+    kw = dict(writes=5, retx_ns=25_000_000, client_retx_ns=70_000_000, payload=True)
+    run_both(j_make(**kw), t_make(**kw), KW, SEEDS[:32], CAP, until_halted=True)
+
+
+@needs_oracle
+@PAYLOAD
+def test_traces_match_cpp_oracle(payload):
+    t = assert_oracle_traces(j_make(payload=payload), t_make(payload=payload), KW, 400)
+    assert t["halted"].any()
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("kvchaos")
+    return {
+        name: build_host_kernel(d, fused.MODELS[name], (KW["pool_size"],))
+        for name in ("kvchaos", "kvchaos-payload")
+    }
+
+
+@PAYLOAD
+@pytest.mark.parametrize("n_steps,until_halted", [(CAP, True), (MID, False)],
+                         ids=["run_while", "fixed"])
+def test_host_built_kernel_matches_plain_step(host_libs, payload, n_steps, until_halted):
+    wl, cfg = t_make(payload=payload), tcore.EngineConfig(**KW)
+    st = tcore.make_init(wl, cfg, device="cpu")(SEEDS[:48])
+    run = tcore.make_run_while_plain if until_halted else tcore.make_run_plain
+    want = state_to_numpy(run(wl, cfg, n_steps)(st))
+    got = state_to_numpy(host_run(host_libs[wl.name], wl, cfg, st, n_steps, until_halted))
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert want["epoch"].max() >= 1
+
+
+@pytest.mark.parametrize("kw", [dict(record=True), dict(army=True),
+                                dict(record=True, bug=True)],
+                         ids=["record", "army", "bug"])
+def test_unported_modes_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A7 and A8"):
+        t_make(**kw)
+
+
+@pytest.mark.parametrize("kw", [dict(chaos=False), dict(n_replicas=3)],
+                         ids=["no_chaos", "three_replicas"])
+def test_kernel_refuses_other_variants(kw):
+    with pytest.raises(NotImplementedError, match="compiled for 'kvchaos'.*ROADMAP"):
+        fused.kernel_model(t_make(**kw))
