@@ -14,21 +14,19 @@ the plain eager step:
 3. the ``entry()`` shape (pool 128, loss 0.02, 1,024 seeds):
    ``make_step`` and a 60-step ``make_run`` through the kernel, every
    field equal to the plain step on the card;
-4. the full-width bench shape (``BENCH_SPECS["raft"]``: 65,536 seeds,
-   ``make_run_while`` capped at 600 steps): the main path, with the
-   kernel's launch count read around it; every field equal to the plain
-   step on the card, and the first 256 seeds equal to the plain step on
-   the CPU; no pool overflow, every seed halted; kernel and plain times
-   by CUDA events;
-5. one phase per model at its full-width ``BENCH_SPECS`` shape:
-   microbench, pingpong, broadcast, kvchaos, kvchaos with the payload
-   arena (the kvchaos config) and raftlog. Each drives
-   ``make_run_while`` through the kernel with the launch counts read
-   around it, checks that every seed halted with no pool overflow,
-   holds every field against the plain step on the card (run once, and
-   timed that once) and the first 256 seeds against the plain step on
-   the CPU, and times the kernel path (median of 5, min, max);
-6. one JSON line describing each kernel, then the card's name and power
+4. the main path, raft at its full-width bench shape
+   (``BENCH_SPECS["raft"]``: 65,536 seeds, ``make_run_while`` capped at
+   600 steps), then, phases 5-10, every other model at its full-width
+   ``BENCH_SPECS`` shape: microbench, pingpong, broadcast, kvchaos,
+   kvchaos with the payload arena (the kvchaos config) and raftlog.
+   Each drives ``make_run_while`` through the kernel with the launch
+   counts read around it, checks that every seed halted with no pool
+   overflow, holds every field against the plain step on the card (run
+   once, timed that once, and counting the work of the bound) and the
+   first 256 seeds against the plain step on the CPU, and times the
+   kernel path by CUDA events (median of 5, min, max). Raft also checks
+   its election latency and splits the kernel path's time;
+5. one JSON line describing each kernel, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Any mismatch or exception exits non-zero. Without a card it exits
@@ -61,9 +59,10 @@ THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 POP_OPS_PER_SLOT = 3
 
 
-# the models after raft, in phase order: (BENCH_SPECS name, kernel
-# model key, factory keyword arguments)
+# the bench phases, in order: (BENCH_SPECS name, kernel model key,
+# factory keyword arguments); raft, the main path, first
 MODEL_PHASES = (
+    ("raft", "raft", {}),
     ("microbench", "microbench", {}),
     ("pingpong", "pingpong", {}),
     ("broadcast", "broadcast", {}),
@@ -71,13 +70,6 @@ MODEL_PHASES = (
     ("kvchaos", "kvchaos-payload", {"payload": True}),
     ("raftlog", "raftlog", {}),
 )
-
-
-def blocks_per_step(wl) -> int:
-    """Threefry blocks in the step's batched lane block: the poll cost,
-    K+1 per-emit latency/loss lanes and the declared user purposes (raft:
-    1 + 7 + 1 = 9)."""
-    return 1 + wl.max_emits + 1 + len(wl.draw_purposes or ())
 
 
 def log(*a) -> None:
@@ -150,21 +142,16 @@ def state_bytes(st) -> int:
     return sum(getattr(st, f).nbytes for f in STATE_FIELDS)
 
 
-def run_phases(device, entry_seeds: int, bench_seeds: int, cpu_sample: int,
-               repeats: int) -> dict:
-    """Phases 3 and 4 on ``device``; returns the numbers of the kernel
-    line. On the CPU the runners take the plain step throughout, which
-    rehearses this script's logic without a card."""
+def entry_phase(device, entry_seeds: int) -> int:
+    """Phase 3: raft at the ``entry()`` shape, ``make_step`` and a
+    60-step ``make_run`` through the kernel against the plain step."""
     from madsim_tpu_torch.engine import (
-        STATE_FIELDS, EngineConfig, make_init, make_run, make_run_plain,
-        make_run_while, make_run_while_plain, make_step, make_step_plain,
+        EngineConfig, make_init, make_run, make_run_plain, make_step,
+        make_step_plain,
     )
-    from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
-    from madsim_tpu_torch.models import BENCH_SPECS, make_raft
+    from madsim_tpu_torch.models import make_raft
 
-    wl = make_raft()
-    # ---- 3. the entry() shape ----
-    cfg = EngineConfig(pool_size=128, loss_p=0.02)
+    wl, cfg = make_raft(), EngineConfig(pool_size=128, loss_p=0.02)
     log(f"[3] entry shape: raft, pool 128, loss 0.02, {entry_seeds} seeds")
     st = make_init(wl, cfg, device=device)(np.arange(entry_seeds, dtype=np.uint64))
     assert_equal(make_step(wl, cfg)(st), make_step_plain(wl, cfg)(st),
@@ -172,108 +159,67 @@ def run_phases(device, entry_seeds: int, bench_seeds: int, cpu_sample: int,
     entry_k = make_run(wl, cfg, 60)(st)
     entry_p = make_run_plain(wl, cfg, 60)(st)
     assert_equal(entry_k, entry_p, "make_run 60 steps (kernel) vs plain")
-    err = max_abs_err(entry_k, entry_p)
+    return max_abs_err(entry_k, entry_p)
 
-    # ---- 4. the full-width bench shape: the main path ----
-    factory, kw, _n, cap = BENCH_SPECS["raft"]
-    wl, cfg = factory(), EngineConfig(**kw)
-    log(f"[4] bench shape: raft {kw}, {bench_seeds} seeds, make_run_while cap {cap}")
-    init = make_init(wl, cfg, device=device)
-    st = init(np.arange(bench_seeds, dtype=np.uint64))
-    run = make_run_while(wl, cfg, cap)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    KERNEL.reset()
-    out = run(st)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    launches = KERNEL.counts.get("raft", 0)
-    log(f"  main path: run kernel launched {launches} times")
 
-    # correctness of what came out
-    n_steps = int(out.step[0])
-    if not bool((out.step == n_steps).all()):
-        raise AssertionError("seeds disagree on the step count")
-    if int(out.overflow.max()) != 0:
-        raise AssertionError(f"pool overflow: {int(out.overflow.sum())} events dropped")
-    if not bool(out.halted.all()):
-        raise AssertionError(f"{int((~out.halted).sum())} seeds did not halt")
+def plain_reference(wl, cfg, cap: int, st):
+    """The plain step until every seed has halted, at most ``cap``
+    times (the loop of ``make_run_while_plain``), counting on the way
+    what the bound needs: the seed-steps taken before each seed halts,
+    and those among them that drop a stale event (a dead or restarted
+    destination) and so draw no block. A dispatch folds the trace, a
+    reschedule keeps the popped slot valid; a drop does neither.
+    Returns ``(state, seed_steps, drops)``."""
+    from madsim_tpu_torch.engine import make_step_plain
+
+    step = make_step_plain(wl, cfg)
+    seed_steps = drops = 0
+    i = 0
+    while i < cap and not bool(st.halted.all()):
+        nxt = step(st)
+        live = ~st.halted
+        dropped = live & (nxt.trace == st.trace) & (
+            nxt.ev_valid.sum(1) == st.ev_valid.sum(1) - 1)
+        seed_steps = seed_steps + live.sum()
+        drops = drops + dropped.sum()
+        st, i = nxt, i + 1
+    return st, int(seed_steps), int(drops)
+
+
+def raft_extras(device, wl, cfg, cap: int, st, out, med: float) -> None:
+    """Raft's own checks and split of the kernel path's time."""
+    from madsim_tpu_torch.engine import STATE_FIELDS
+    from madsim_tpu_torch.engine.fused import halt_counts
+
     if not bool((out.halt_time > 0).all()):
         raise AssertionError("a halted seed has no election latency")
-    log(f"  {bench_seeds} seeds halted after {n_steps} steps; overflow 0; "
-        f"median election latency {float(out.halt_time.double().median()) / 1e6:.3f} ms")
-    plain = make_run_while_plain(wl, cfg, cap)
-    ref = plain(st)
-    assert_equal(out, ref, "make_run_while (kernel) vs plain on the card")
-    err = max(err, max_abs_err(out, ref))
-    cpu_st = init(np.arange(cpu_sample, dtype=np.uint64)).to("cpu")
-    cpu_ref = make_run_plain(wl, cfg, n_steps)(cpu_st)
-    head = type(out)(**{f: getattr(out, f)[:cpu_sample] for f in STATE_FIELDS})
-    assert_equal(head, cpu_ref, f"first {cpu_sample} seeds (kernel) vs plain on the CPU")
-    err = max(err, max_abs_err(head, cpu_ref))
-
-    # timing: the main path through the kernel, and the plain step
-    ms = time_ms(lambda: run(st), repeats, device)
-    plain_ms = time_ms(lambda: plain(st), 2, device)
-    med = statistics.median(ms)
-    sim_s = float(out.now.double().sum()) / 1e9
-    log(f"  kernel ms over {repeats} runs: median {med:.4f}, min {min(ms):.4f}, "
-        f"max {max(ms):.4f}, all {[round(x, 4) for x in ms]}")
-    log(f"  plain ms: {[round(x, 2) for x in plain_ms]}")
+    log(f"  median election latency {float(out.halt_time.double().median()) / 1e6:.3f} ms")
     if device.type == "cuda":
         # where the kernel path's time goes: the state copy the wrapper
         # makes, plus the run-to-halt pass; the rest is the drain pass
         copy = time_ms(lambda: type(st)(**{f: getattr(st, f).clone() for f in STATE_FIELDS}),
-                       repeats, device)
-        pass1 = time_ms(lambda: halt_counts(wl, cfg, cap, st), repeats, device)
+                       REPEATS, device)
+        pass1 = time_ms(lambda: halt_counts(wl, cfg, cap, st), REPEATS, device)
         c, p1 = statistics.median(copy), statistics.median(pass1)
         log(f"  breakdown (medians): state copy {c:.4f} ms, run-to-halt pass "
-            f"{p1 - c:.4f} ms, drain pass and the rest {statistics.median(ms) - p1:.4f} ms")
-    log(f"  simulated seconds {sim_s:.3f}: {sim_s / (med / 1e3):.1f} sim_s/s "
-        f"(kernel), {sim_s / (statistics.median(plain_ms) / 1e3):.1f} sim_s/s (plain)")
-    log(f"  state holds {state_bytes(st)} bytes ({state_bytes(st) / bench_seeds:.1f} per seed)")
-
-    return dict(
-        launches=launches, err=err, ms=med, ms_all=ms,
-        plain_ms=statistics.median(plain_ms),
-        **bound_terms(device, wl, cfg, cap, st, out, n_steps),
-    )
-
-
-def bound_terms(device, wl, cfg, cap: int, st, out, n_steps: int) -> dict:
-    """The bound's inputs: state bytes in and out once, and the step's
-    integer work over the seed-steps this run's seeds need to halt."""
-    from madsim_tpu_torch.engine.fused import KERNEL_FIELDS, READ_ONLY_FIELDS, halt_counts
-
-    in_bytes = sum(getattr(st, f).nbytes for f in KERNEL_FIELDS)
-    written = [f for f in KERNEL_FIELDS if f not in READ_ONLY_FIELDS]
-    out_bytes = sum(getattr(out, f).nbytes for f in written)
-    if device.type == "cuda":
-        seed_steps = int(halt_counts(wl, cfg, cap, st).sum())
-    else:  # rehearsal: no per-seed counts without the kernel
-        seed_steps = n_steps * st.seed.shape[0]
-    e = cfg.pool_size
-    ops = seed_steps * (blocks_per_step(wl) * THREEFRY_OPS + POP_OPS_PER_SLOT * e)
-    return dict(in_bytes=in_bytes, out_bytes=out_bytes, ops=ops, seed_steps=seed_steps)
+            f"{p1 - c:.4f} ms, drain pass and the rest {med - p1:.4f} ms")
 
 
 def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
-                cpu_sample: int, repeats: int, seeds_cap=None) -> dict:
-    """One model at its BENCH_SPECS shape (``seeds_cap`` cuts the seed
-    count only in a CPU rehearsal): the main path through the kernel with
-    the launch counts read around it, the checks, every field against
-    the plain step (on the device, run and timed once, and the first
-    seeds on the CPU), and the kernel's time."""
+                cpu_sample: int, repeats: int, extras=None) -> dict:
+    """One model at its full-width BENCH_SPECS shape: the main path
+    through the kernel with the launch counts read around it, the
+    checks, every field against the plain step (on the device, run and
+    timed once, and the first seeds on the CPU), the kernel's time and
+    the bound's inputs. ``extras(device, wl, cfg, cap, st, out, ms)``
+    adds a model's own checks and timings, given the kernel's median."""
     from madsim_tpu_torch.engine import (
         STATE_FIELDS, EngineConfig, make_init, make_run_plain, make_run_while,
-        make_run_while_plain,
     )
-    from madsim_tpu_torch.engine.fused import KERNEL
+    from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
     from madsim_tpu_torch.models import BENCH_SPECS
 
     factory, kw, n_seeds, cap = BENCH_SPECS[spec_name]
-    if seeds_cap is not None:
-        n_seeds = min(n_seeds, seeds_cap)
     wl, cfg = factory(**factory_kw), EngineConfig(**kw)
     log(f"[{idx}] {key}: {kw}, {n_seeds} seeds, make_run_while cap {cap}")
     init = make_init(wl, cfg, device=device)
@@ -295,16 +241,23 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
         raise AssertionError(f"{key}: pool overflow, {int(out.overflow.sum())} events dropped")
     if not bool(out.halted.all()):
         raise AssertionError(f"{key}: {int((~out.halted).sum())} seeds did not halt")
+    sends = int((out.msg_count - st.msg_count).sum())
     log(f"  {n_seeds} seeds halted after {n_steps} steps; overflow 0; "
-        f"{int(out.msg_count.sum())} messages; median halt time "
+        f"{sends} messages sent; median halt time "
         f"{float(out.halt_time.double().median()) / 1e6:.3f} ms")
-    # the plain step's one run: the reference, and its time
-    plain = make_run_while_plain(wl, cfg, cap)
-    refs = []
-    plain_ms = time_ms(lambda: refs.append(plain(st)), 1, device)
-    ref = refs[0]
+    # the plain step's one run: the reference, its time and the counts
+    # of the bound
+    got = []
+    plain_ms = time_ms(lambda: got.append(plain_reference(wl, cfg, cap, st)), 1, device)
+    ref, seed_steps, drops = got[0]
     assert_equal(out, ref, "make_run_while (kernel) vs plain on the card")
     err = max_abs_err(out, ref)
+    if device.type == "cuda":
+        counted = int(halt_counts(wl, cfg, cap, st).sum())
+        if counted != seed_steps:
+            raise AssertionError(
+                f"{key}: the kernel's stop-at-halt pass counts {counted} "
+                f"seed-steps, the plain run {seed_steps}")
     k = min(cpu_sample, n_seeds)
     cpu_ref = make_run_plain(wl, cfg, n_steps)(init(np.arange(k, dtype=np.uint64)).to("cpu"))
     head = type(out)(**{f: getattr(out, f)[:k] for f in STATE_FIELDS})
@@ -320,11 +273,29 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
     log(f"  simulated seconds {sim_s:.3f}: {sim_s / (med / 1e3):.1f} sim_s/s "
         f"(kernel), {sim_s / (plain_ms[0] / 1e3):.1f} sim_s/s (plain)")
     log(f"  state holds {state_bytes(st)} bytes ({state_bytes(st) / n_seeds:.1f} per seed)")
+    if extras is not None:
+        extras(device, wl, cfg, cap, st, out, med)
     return dict(
-        launches=launches, err=err, ms=med, ms_min=min(ms), ms_max=max(ms),
-        ms_all=ms, plain_ms=plain_ms[0],
-        **bound_terms(device, wl, cfg, cap, st, out, n_steps),
+        launches=launches, err=err, ms=med, ms_all=ms, plain_ms=plain_ms[0],
+        **bound_terms(st, out, cfg.pool_size, seed_steps, drops, sends),
     )
+
+
+def bound_terms(st, out, pool: int, seed_steps: int, drops: int, sends: int) -> dict:
+    """The bound's inputs: the state's bytes in and out once, and the
+    integer work this run's data needs. Every seed-step before its seed
+    halts scans the pool; each of them but a stale drop draws the poll
+    block, and every send draws its latency block. The handlers' own
+    draws are not counted, so the work term stays a lower bound."""
+    from madsim_tpu_torch.engine.fused import KERNEL_FIELDS, READ_ONLY_FIELDS
+
+    in_bytes = sum(getattr(st, f).nbytes for f in KERNEL_FIELDS)
+    written = [f for f in KERNEL_FIELDS if f not in READ_ONLY_FIELDS]
+    out_bytes = sum(getattr(out, f).nbytes for f in written)
+    blocks = seed_steps - drops + sends
+    ops = seed_steps * POP_OPS_PER_SLOT * pool + blocks * THREEFRY_OPS
+    return dict(in_bytes=in_bytes, out_bytes=out_bytes, ops=ops,
+                seed_steps=seed_steps, drops=drops, blocks=blocks)
 
 
 def kernel_line(name: str, model_source: str, r: dict, clock_hz: float) -> dict:
@@ -332,7 +303,8 @@ def kernel_line(name: str, model_source: str, r: dict, clock_hz: float) -> dict:
     bytes_ms = (r["in_bytes"] + r["out_bytes"]) / HBM_BYTES_PER_S * 1e3
     ops_ms = r["ops"] / (INT32_LANES * clock_hz) * 1e3
     log(f"  {name} bound: bytes {r['in_bytes']} + {r['out_bytes']} -> {bytes_ms:.5f} ms; "
-        f"{r['seed_steps']} seed-steps, {r['ops']} int32 ops -> {ops_ms:.5f} ms")
+        f"{r['seed_steps']} seed-steps ({r['drops']} stale drops), {r['blocks']} "
+        f"threefry blocks, {r['ops']} int32 ops -> {ops_ms:.5f} ms")
     return {
         "name": name,
         "route": "cuda",
@@ -359,7 +331,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from madsim_tpu_torch.engine.fused import MODELS, build_libraries
-    from madsim_tpu_torch.models import BENCH_SPECS
 
     device = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
@@ -376,13 +347,17 @@ def main() -> int:
                 log(f"    {line.strip()}")
 
     clock = max_sm_clock_hz()
-    _f, _kw, bench_seeds, _cap = BENCH_SPECS["raft"]
-    r = run_phases(device, ENTRY_SEEDS, bench_seeds, CPU_SAMPLE, REPEATS)
-    results = [("make_run_fused", "madsim_tpu_torch/csrc/model_raft.cuh", r)]
+    entry_err = entry_phase(device, ENTRY_SEEDS)
+    results = []
     by_key = {m.key: m for m in MODELS.values()}
     for i, (spec_name, key, factory_kw) in enumerate(MODEL_PHASES):
-        r = model_phase(device, 5 + i, spec_name, key, factory_kw, CPU_SAMPLE, REPEATS)
-        results.append((f"make_run_fused/{key}", f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
+        raft = key == "raft"
+        r = model_phase(device, 4 + i, spec_name, key, factory_kw, CPU_SAMPLE,
+                        REPEATS, extras=raft_extras if raft else None)
+        if raft:
+            r["err"] = max(r["err"], entry_err)
+        name = "make_run_fused" if raft else f"make_run_fused/{key}"
+        results.append((name, f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
     for name, _src, r in results:
         if r["launches"] < 1:
             raise AssertionError(f"{name}: the main path never launched its run kernel")

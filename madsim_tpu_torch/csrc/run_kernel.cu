@@ -26,6 +26,7 @@
 //
 // Built by engine/fused.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+//        --Werror cross-execution-space-call
 // and loaded with ctypes: the C entry point below takes the field
 // pointers, the config words, the card's index and the stream, and
 // returns the launch's cudaGetLastError().

@@ -70,9 +70,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 ENGINE_SOURCES = ("threefry.cuh", "engine_step.cuh", "run_kernel.cu")
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
+# a handler left without MADSIM_HD would build as a host function that
+# the device step cannot call: nvcc only warns, and the kernel would run
+# without it, so that warning is an error
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
+    "--Werror", "cross-execution-space-call",
 )
 
 
@@ -293,16 +297,14 @@ def build_library(spec: KernelModel) -> tuple[Path, str]:
 class RunKernel:
     """The loaded kernel libraries and their launch counts.
 
-    ``launches`` counts kernel launches of every model, ``counts`` per
-    model key; a CPU state that takes the plain step counts nothing."""
+    ``counts`` holds the kernel launches per model key; a CPU state that
+    takes the plain step counts nothing."""
 
     def __init__(self):
-        self.launches = 0
         self.counts: dict = {}
         self._libs: dict = {}
 
     def reset(self) -> None:
-        self.launches = 0
         self.counts = {}
 
     def load(self, spec: KernelModel):
@@ -341,7 +343,6 @@ class RunKernel:
         )
         if rc != 0:
             raise RuntimeError(f"run kernel launch for {spec.key!r} failed: error {rc}")
-        self.launches += 1
         self.counts[spec.key] = self.counts.get(spec.key, 0) + 1
 
 

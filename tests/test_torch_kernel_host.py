@@ -9,8 +9,10 @@ port's CPU tensors through the same argument packing the CUDA launch
 uses (``tests/_torch_host.py``). This is the CPU evidence of the
 kernel's logic for raft; the other models' host builds sit in their own
 test files. The tests marked ``cuda`` run the real kernel of every
-registered model and need a card.
+registered model, and of the chaos3 test workload, and need a card.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from madsim_tpu_torch.engine import fused
 from madsim_tpu_torch.engine.convert import state_to_numpy
 from madsim_tpu_torch.models import BENCH_SPECS, make_kvchaos, make_raft
 
+from _torch_chaos3 import CHAOS3_MODEL, CHAOS_CFG, chaos3_spec, chaos3_workload
 from _torch_host import build_host_kernel, host_launch, host_run
 
 RAFT_POOLS = (40, 64, 128, 256)
@@ -117,9 +120,9 @@ def test_cuda_kernel_matches_plain_step_on_card():
     factory, kw, _n, cap = BENCH_SPECS["raft"]
     wl, cfg = factory(), tcore.EngineConfig(**kw)
     st = tcore.make_init(wl, cfg, device="cuda")(np.arange(4096, dtype=np.uint64))
-    before = fused.KERNEL.launches
+    before = fused.KERNEL.counts.get("raft", 0)
     got = tcore.make_run_while(wl, cfg, cap)(st)
-    assert fused.KERNEL.launches == before + 2
+    assert fused.KERNEL.counts["raft"] == before + 2
     want = tcore.make_run_while_plain(wl, cfg, cap)(st)
     a, b = state_to_numpy(got), state_to_numpy(want)
     for name in a:
@@ -153,3 +156,48 @@ def test_cuda_kernel_matches_plain_step_per_model(name):
     for field in got:
         np.testing.assert_array_equal(got[field], want[field], err_msg=field)
     assert got["ev_valid"].any(axis=1).all()
+
+
+@pytest.fixture(scope="module")
+def chaos3_model(tmp_path_factory):
+    return chaos3_spec(tmp_path_factory.mktemp("chaos3"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("until_halted", [False, True], ids=["fixed", "while"])
+def test_cuda_engine_kinds_match_plain_step(chaos3_model, monkeypatch, until_halted):
+    """The engine kinds no ported model emits on the card (pause and
+    resume, node clogs, the clog-backoff reschedule with its retries
+    byte) run through the real kernel: the chaos3 model trait, built by
+    nvcc from the registry's own translation unit, equals the plain step
+    per field."""
+    _needs_card()
+    monkeypatch.setitem(fused.MODELS, chaos3_model.name, chaos3_model)
+    wl, cfg = chaos3_workload(), tcore.EngineConfig(**CHAOS_CFG)
+    seeds = np.arange(1024, dtype=np.uint64) * np.uint64(0x9E3779B1)
+    st = tcore.make_init(wl, cfg, device="cuda")(seeds)
+    if until_halted:
+        run, plain = tcore.make_run_while, tcore.make_run_while_plain
+    else:
+        run, plain = tcore.make_run, tcore.make_run_plain
+    before = fused.KERNEL.counts.get(chaos3_model.key, 0)
+    got = state_to_numpy(run(wl, cfg, 150)(st))
+    assert fused.KERNEL.counts[chaos3_model.key] == before + (2 if until_halted else 1)
+    want = state_to_numpy(plain(wl, cfg, 150)(st))
+    for field in want:
+        np.testing.assert_array_equal(got[field], want[field], err_msg=field)
+    assert want["paused"].any() and want["clog"].any() and (~want["alive"]).any()
+    assert (want["ev_meta"] >> 24).max() > 0  # clog/pause reschedules
+
+
+@pytest.mark.cuda
+def test_cuda_build_refuses_a_host_only_handler(chaos3_model, tmp_path):
+    """A model header whose handler lacks MADSIM_HD is a host function
+    the device step cannot call; nvcc would only warn and the kernel
+    would run without its handlers, so the build fails instead."""
+    _needs_card()
+    header = tmp_path / "model_hostonly.cuh"
+    header.write_text(CHAOS3_MODEL.replace("static MADSIM_HD void handle", "static void handle"))
+    spec = dataclasses.replace(chaos3_model, key="hostonly", header=str(header))
+    with pytest.raises(RuntimeError, match=r"(?s)nvcc failed.*is not allowed"):
+        fused.build_library(spec)
