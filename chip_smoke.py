@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Drives the port's main path — 5-node raft leader election batched over
-seeds (``madsim_tpu_torch``) — and then every other ``BENCH_SPECS``
-model through the hand-written CUDA run kernel, and holds each against
-the plain eager step:
+seeds (``madsim_tpu_torch``) — and then every other model family of the
+port (the ``BENCH_SPECS`` and ``SOAK_SPECS`` models) through the
+hand-written CUDA run kernel, and holds each against the plain eager
+step:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. builds every model's run kernel library from ``madsim_tpu_torch/csrc``
@@ -18,7 +19,10 @@ the plain eager step:
    (``BENCH_SPECS["raft"]``: 65,536 seeds, ``make_run_while`` capped at
    600 steps), then, phases 5-10, every other model at its full-width
    ``BENCH_SPECS`` shape: microbench, pingpong, broadcast, kvchaos,
-   kvchaos with the payload arena (the kvchaos config) and raftlog.
+   kvchaos with the payload arena (the kvchaos config) and raftlog;
+   then, phases 11-15, the five families at their full-width
+   ``SOAK_SPECS`` shape (the JAX package's soak configurations):
+   snapshot, twophase, paxos, leasekv and shardkv.
    Each drives ``make_run_while`` through the kernel with the launch
    counts read around it, checks that every seed halted with no pool
    overflow, holds every field against the plain step on the card (run
@@ -59,8 +63,8 @@ THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 POP_OPS_PER_SLOT = 3
 
 
-# the bench phases, in order: (BENCH_SPECS name, kernel model key,
-# factory keyword arguments); raft, the main path, first
+# the model phases, in order: (BENCH_SPECS or SOAK_SPECS name, kernel
+# model key, factory keyword arguments); raft, the main path, first
 MODEL_PHASES = (
     ("raft", "raft", {}),
     ("microbench", "microbench", {}),
@@ -69,6 +73,11 @@ MODEL_PHASES = (
     ("kvchaos", "kvchaos", {}),
     ("kvchaos", "kvchaos-payload", {"payload": True}),
     ("raftlog", "raftlog", {}),
+    ("snapshot", "snapshot", {}),
+    ("twophase", "twophase", {}),
+    ("paxos", "paxos", {}),
+    ("leasekv", "leasekv", {}),
+    ("shardkv", "shardkv", {}),
 )
 
 
@@ -207,19 +216,19 @@ def raft_extras(device, wl, cfg, cap: int, st, out, med: float) -> None:
 
 def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
                 cpu_sample: int, repeats: int, extras=None) -> dict:
-    """One model at its full-width BENCH_SPECS shape: the main path
-    through the kernel with the launch counts read around it, the
-    checks, every field against the plain step (on the device, run and
-    timed once, and the first seeds on the CPU), the kernel's time and
-    the bound's inputs. ``extras(device, wl, cfg, cap, st, out, ms)``
+    """One model at its full-width BENCH_SPECS (else SOAK_SPECS) shape:
+    the main path through the kernel with the launch counts read around
+    it, the checks, every field against the plain step (on the device,
+    run and timed once, and the first seeds on the CPU), the kernel's
+    time and the bound's inputs. ``extras(device, wl, cfg, cap, st, out, ms)``
     adds a model's own checks and timings, given the kernel's median."""
     from madsim_tpu_torch.engine import (
         STATE_FIELDS, EngineConfig, make_init, make_run_plain, make_run_while,
     )
     from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
-    from madsim_tpu_torch.models import BENCH_SPECS
+    from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS
 
-    factory, kw, n_seeds, cap = BENCH_SPECS[spec_name]
+    factory, kw, n_seeds, cap = {**SOAK_SPECS, **BENCH_SPECS}[spec_name]
     wl, cfg = factory(**factory_kw), EngineConfig(**kw)
     log(f"[{idx}] {key}: {kw}, {n_seeds} seeds, make_run_while cap {cap}")
     init = make_init(wl, cfg, device=device)

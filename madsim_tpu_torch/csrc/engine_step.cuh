@@ -172,6 +172,12 @@ MADSIM_HDI int32_t clampi(int32_t x, int32_t lo, int32_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// a // b rounded toward minus infinity, as jnp and torch divide ints
+MADSIM_HDI int32_t floordiv(int32_t a, int32_t b) {
+  const int32_t q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
 // one emit row (the port's Emits, one seed); a W == 0 row keeps a
 // one-word payload array that no loop ever reads
 template <int A, int W>
@@ -373,6 +379,9 @@ MADSIM_HD bool engine_step(Seed<M, E>& s, const EngineConfig& c,
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K, H = M::H;
   static_assert(A >= 2 && A <= 4, "engine kinds read args[0:2]");
   static_assert(H >= 1, "handler 0 is on_init");
+  // ev_meta packs the kind and node + 1 in one byte each
+  static_assert(FIRST_USER_KIND + H - 1 < 256, "user kinds fit a byte");
+  static_assert(N < 255, "node + 1 fits a byte");
   // ---- pop the earliest pending event (first minimum) ----
   const int i = first_min(s);
   const bool has_event = s.ev_valid[i];

@@ -1,0 +1,179 @@
+// Lease/watch KV service under chaos (madsim_tpu_torch/models/leasekv.py,
+// default variant) as a model trait of the run kernel (engine_step.cuh):
+// a lease server, three clients and a watcher, fifteen handlers. Lease
+// deadlines are int32 milliseconds of the handling node's own clock:
+// Ctx::now, which is the engine clock plus the node's skew, as in the
+// plain step's HandlerCtx.now.
+#pragma once
+
+#include "engine_step.cuh"
+
+namespace madsim {
+
+struct LeaseKvModel {
+  static constexpr int C = 3;  // clients; lease id = node id
+  static constexpr int N = C + 2, U = C + 3, A = 2, W = 0, K = 6, H = 15;
+  static constexpr int32_t SERVER = 0, WATCHER = C + 1;
+  static constexpr int32_t WSEQ = C, FIN_MASK = C + 1, EXP_CNT = C + 2;
+  static constexpr int32_t full_mask = (1 << C) - 1;
+  static constexpr int64_t HORIZON_MS = 300000;
+  static constexpr int32_t WSEQ_CAP = (1 << 16) - 1, EVT_CAP = (1 << 16) - 1;
+
+  struct Params {
+    int32_t puts, ttl_ms;
+    int64_t ka_ns, scan_ns, put_ns;
+  };
+  // words: puts, ttl_ms, ka_ms, scan_ms, put_ms
+  static Params params(const int64_t* w) {
+    return Params{static_cast<int32_t>(w[0]), static_cast<int32_t>(w[1]),
+                  w[2] * 1000000, w[3] * 1000000, w[4] * 1000000};
+  }
+
+  static constexpr int32_t K_GRANT = FIRST_USER_KIND + 1;
+  static constexpr int32_t K_GRANTED = FIRST_USER_KIND + 2;
+  static constexpr int32_t K_KA_T = FIRST_USER_KIND + 3;
+  static constexpr int32_t K_KEEPALIVE = FIRST_USER_KIND + 4;
+  static constexpr int32_t K_KA_REJ = FIRST_USER_KIND + 5;
+  static constexpr int32_t K_SCAN = FIRST_USER_KIND + 6;
+  static constexpr int32_t K_PUT_T = FIRST_USER_KIND + 7;
+  static constexpr int32_t K_PUT = FIRST_USER_KIND + 8;
+  static constexpr int32_t K_PUT_OK = FIRST_USER_KIND + 9;
+  static constexpr int32_t K_PUT_REJ = FIRST_USER_KIND + 10;
+  static constexpr int32_t K_FIN = FIRST_USER_KIND + 11;
+  static constexpr int32_t K_WEVT = FIRST_USER_KIND + 12;
+  static constexpr int32_t K_RESYNC = FIRST_USER_KIND + 13;
+  static constexpr int32_t K_RESYNC_OK = FIRST_USER_KIND + 14;
+  static constexpr uint32_t P_KILL_AT = 0, P_KILL_WHO = 1, P_REVIVE = 2;
+
+  using Em = Emit<A, W>;
+  using Cx = Ctx<LeaseKvModel>;
+
+  // the node's observed clock in ms, clamped to [0, HORIZON_MS]; a
+  // negative clock clamps to 0 under floor and truncating division alike
+  static MADSIM_HDI int32_t local_ms(int64_t now) {
+    if (now < 0) return 0;
+    const int64_t ms = now / 1000000;
+    return static_cast<int32_t>(ms < HORIZON_MS ? ms : HORIZON_MS);
+  }
+
+  static MADSIM_HDI int32_t lid_of(const Cx& c) { return clampi(c.args[0], 1, C); }
+
+  static MADSIM_HDI int32_t min32(int32_t a, int32_t b) { return a < b ? a : b; }
+
+  static MADSIM_HD void handle(int32_t h, const Cx& c, const Params& p,
+                               int32_t* ns, Em* em) {
+    const int32_t* st = c.state;
+    switch (h) {
+      case 0: {  // on_init
+        // a client (re)grants its lease and starts its timers, at t=0
+        // and again after a restart
+        const bool is_client = c.node >= 1 && c.node <= C;
+        em[0].to(is_client, SERVER, K_GRANT, c.node);
+        em[1].after(is_client, p.ka_ns, K_KA_T, c.node);
+        em[2].after(is_client, p.put_ns, K_PUT_T, c.node);
+        em[3].after(c.node == SERVER, p.scan_ns, K_SCAN, SERVER);
+        if (c.node == WATCHER) {  // the seed's chaos schedule
+          const int32_t who = static_cast<int32_t>(c.user_int(1, 1 + C, P_KILL_WHO));
+          const int64_t at = c.user_int(20000000, 300000000, P_KILL_AT);
+          const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
+          em[4].after(true, at, KIND_KILL, 0, who);
+          em[5].after(true, at + revive, KIND_RESTART, 0, who);
+        }
+        break;
+      }
+      case 1: {  // on_grant at the server: args = (lid,)
+        const int32_t lid = lid_of(c);
+        ns[lid - 1] = local_ms(c.now) + p.ttl_ms;
+        em[0].to(true, lid, K_GRANTED);
+        break;
+      }
+      case 2: {  // on_granted at a client
+        ns[0] = 1;
+        break;
+      }
+      case 3: {  // on_ka_t, the keepalive timer at a client
+        em[0].to(st[0] > 0, SERVER, K_KEEPALIVE, c.node);
+        em[1].after(true, p.ka_ns, K_KA_T, c.node);
+        break;
+      }
+      case 4: {  // on_keepalive at the server: args = (lid,)
+        const int32_t lid = lid_of(c);
+        const bool renew = st[lid - 1] > 0;
+        if (renew) ns[lid - 1] = local_ms(c.now) + p.ttl_ms;
+        em[0].to(!renew, lid, K_KA_REJ);
+        break;
+      }
+      case 5:     // on_ka_rej and
+      case 10: {  // on_put_rej at a client: the lease expired, re-grant
+        ns[0] = 0;
+        break;
+      }
+      case 6: {  // on_scan at the server: expire every passed deadline
+        const int32_t now_ms = local_ms(c.now);
+        const int32_t wseq = st[WSEQ];
+        int32_t fired = 0;
+        for (int32_t lid = 1; lid <= C; lid++) {
+          const int32_t d = st[lid - 1];
+          const bool exp = d > 0 && now_ms >= d;
+          if (exp) ns[lid - 1] = 0;
+          em[lid - 1].to(exp, WATCHER, K_WEVT, lid, min32(wseq + fired + 1, WSEQ_CAP));
+          fired += exp ? 1 : 0;
+        }
+        ns[WSEQ] = min32(wseq + fired, WSEQ_CAP);
+        ns[EXP_CNT] = min32(st[EXP_CNT] + fired, EVT_CAP);
+        em[C].after(true, p.scan_ns, K_SCAN, SERVER);
+        break;
+      }
+      case 7: {  // on_put_t, the client's progress loop
+        const bool granted = st[0] > 0;
+        const int32_t acked = st[1];
+        const bool done = acked >= p.puts;
+        em[0].to(!granted && !done, SERVER, K_GRANT, c.node);
+        em[1].to(granted && !done, SERVER, K_PUT, c.node, acked + 1);
+        em[2].to(done, SERVER, K_FIN, c.node);
+        em[3].after(true, p.put_ns, K_PUT_T, c.node);
+        break;
+      }
+      case 8: {  // on_put at the server: args = (lid, seq)
+        const int32_t lid = lid_of(c);
+        const bool live = st[lid - 1] > 0;
+        em[0].to(live, lid, K_PUT_OK, clampi(c.args[1], 0, p.puts));
+        em[1].to(!live, lid, K_PUT_REJ);
+        break;
+      }
+      case 9: {  // on_put_ok at a client: args = (seq,)
+        const int32_t seq = clampi(c.args[0], 0, p.puts);
+        if (seq > st[1]) ns[1] = seq;
+        break;
+      }
+      case 11: {  // on_fin at the server: args = (lid,)
+        const int32_t mask = st[FIN_MASK] | (int32_t(1) << (lid_of(c) - 1));
+        ns[FIN_MASK] = mask;
+        em[0].after(mask == full_mask, 0, KIND_HALT, 0);
+        break;
+      }
+      case 12: {  // on_wevt at the watcher: args = (lid, wseq)
+        const int32_t seq = clampi(c.args[1], 0, WSEQ_CAP);
+        const bool gap = seq > st[0] + 1;
+        if (seq == st[0] + 1) {  // in order: append
+          ns[0] = seq;
+          ns[1] = min32(st[1] + 1, EVT_CAP);
+        }
+        if (gap) ns[2] = min32(st[2] + 1, EVT_CAP);
+        em[0].to(gap, SERVER, K_RESYNC, st[0]);
+        break;
+      }
+      case 13: {  // on_resync at the server: send the stream head
+        em[0].to(true, WATCHER, K_RESYNC_OK, st[WSEQ]);
+        break;
+      }
+      default: {  // 14, on_resync_ok at the watcher: args = (wseq,)
+        const int32_t w = clampi(c.args[0], 0, WSEQ_CAP);
+        if (w > st[0]) ns[0] = w;
+        break;
+      }
+    }
+  }
+};
+
+}  // namespace madsim

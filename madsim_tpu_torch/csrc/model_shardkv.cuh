@@ -1,0 +1,223 @@
+// Sharded KV with key-range migration under chaos
+// (madsim_tpu_torch/models/shardkv.py, default variant) as a model trait
+// of the run kernel (engine_step.cuh): a controller, a client and four
+// groups of three replicas (N = 14), eight shards (U = 2 * 8 + 1 = 17),
+// fifteen handlers. Every column is durable, so a RESTART keeps the
+// whole row; the restart's re-init runs on_init, which leaves the row
+// alone. Shard assignments pack 4 bits per shard into two words.
+#pragma once
+
+#include "engine_step.cuh"
+
+namespace madsim {
+
+struct ShardKvModel {
+  static constexpr int G = 4, R = 3, NS = 8;  // groups, group size, shards
+  static constexpr int N = 2 + G * R, U = 2 * NS + 1, A = 3, W = 0, K = 6, H = 15;
+  static constexpr int32_t CONTROLLER = 0, CLIENT = 1, FROZEN = 2 * NS;
+  static constexpr int32_t VER_CAP = (1 << 16) - 1, EPOCH_CAP = 255;
+  static constexpr int32_t A_MASK = 0xFFFF;
+
+  struct Params {
+    int32_t writes, n_migs;
+    int64_t put_ns, mig_ns, retx_ns;
+  };
+  // words: writes, n_migs, put_ms, mig_ms, retx_ms
+  static Params params(const int64_t* w) {
+    return Params{static_cast<int32_t>(w[0]), static_cast<int32_t>(w[1]),
+                  w[2] * 1000000, w[3] * 1000000, w[4] * 1000000};
+  }
+
+  // controller columns; the client keeps its epoch in 0, its acked
+  // count in 1 and its assignment words in 4 and 5
+  static constexpr int32_t EPOCH = 0, PHASE = 1, MIG_S = 2, MIG_D = 3, A0 = 4,
+                           A1 = 5, DONE = 6, FIN = 7, ACKED = 1;
+  static constexpr int32_t K_PUT_T = FIRST_USER_KIND + 1;
+  static constexpr int32_t K_WRITE = FIRST_USER_KIND + 2;
+  static constexpr int32_t K_REPL = FIRST_USER_KIND + 3;
+  static constexpr int32_t K_WRITE_OK = FIRST_USER_KIND + 4;
+  static constexpr int32_t K_WRONG = FIRST_USER_KIND + 5;
+  static constexpr int32_t K_CFG_REQ = FIRST_USER_KIND + 6;
+  static constexpr int32_t K_CFG = FIRST_USER_KIND + 7;
+  static constexpr int32_t K_MIG_T = FIRST_USER_KIND + 8;
+  static constexpr int32_t K_MIG_RETX = FIRST_USER_KIND + 9;
+  static constexpr int32_t K_MIG_START = FIRST_USER_KIND + 10;
+  static constexpr int32_t K_HANDOFF = FIRST_USER_KIND + 11;
+  static constexpr int32_t K_INSTALL_ACK = FIRST_USER_KIND + 12;
+  static constexpr int32_t K_RELEASE = FIRST_USER_KIND + 13;
+  static constexpr int32_t K_FIN = FIRST_USER_KIND + 14;
+  static constexpr uint32_t P_KILL_AT = 0, P_KILL_WHO = 1, P_REVIVE = 2;
+
+  using Em = Emit<A, W>;
+  using C = Ctx<ShardKvModel>;
+
+  // shard -> group from the packed words
+  static MADSIM_HDI int32_t group_of(int32_t a0, int32_t a1, int32_t s) {
+    return ((s < 4 ? a0 : a1) >> ((s & 3) * 4)) & 0xF;
+  }
+  static MADSIM_HDI int32_t primary_of(int32_t g) { return 2 + g * R; }
+  static MADSIM_HDI int32_t shard_of(const C& c) { return clampi(c.args[0], 0, NS - 1); }
+  static MADSIM_HDI int32_t min32(int32_t a, int32_t b) { return a < b ? a : b; }
+
+  // (re)drive the open migration: an idempotent MIG_START to the
+  // shard's current owner
+  static MADSIM_HDI void mig_start_row(Em& e, const int32_t* st, bool when) {
+    const int32_t s = st[MIG_S];
+    e.to(when, primary_of(group_of(st[A0], st[A1], s)), K_MIG_START, s,
+         min32(st[EPOCH] + 1, EPOCH_CAP));
+    e.args[2] = st[MIG_D];
+  }
+
+  static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
+                               int32_t* ns, Em* em) {
+    const int32_t* st = c.state;
+    switch (h) {
+      case 0: {  // on_init
+        em[0].after(c.node == CONTROLLER, p.mig_ns, K_MIG_T, CONTROLLER);
+        em[1].after(c.node == CLIENT, p.put_ns, K_PUT_T, CLIENT);
+        if (c.node == CLIENT) {  // the seed's kill and restart of a primary
+          const int32_t who =
+              2 + static_cast<int32_t>(c.user_int(0, G, P_KILL_WHO)) * R;
+          const int64_t at = c.user_int(20000000, 300000000, P_KILL_AT);
+          const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
+          em[2].after(true, at, KIND_KILL, 0, who);
+          em[3].after(true, at + revive, KIND_RESTART, 0, who);
+        }
+        break;
+      }
+      case 1: {  // on_put_t at the client: one outstanding write
+        const bool done = st[ACKED] >= p.writes;
+        const int32_t seq = min32(st[ACKED] + 1, VER_CAP);
+        const int32_t s = seq % NS;  // seq >= 1
+        em[0].to(!done, primary_of(group_of(st[A0], st[A1], s)), K_WRITE, s, seq);
+        em[1].to(done, CONTROLLER, K_FIN);
+        em[2].after(true, p.put_ns, K_PUT_T, CLIENT);
+        break;
+      }
+      case 2: {  // on_write at a primary: args = (shard, seq)
+        const int32_t s = shard_of(c), seq = clampi(c.args[1], 0, VER_CAP);
+        const bool serving = st[NS + s] > 0 && ((st[FROZEN] >> s) & 1) == 0;
+        const bool fresh = serving && seq > st[s];
+        if (fresh) ns[s] = seq;
+        em[0].to(serving, CLIENT, K_WRITE_OK, s, seq);
+        em[1].to(!serving, CLIENT, K_WRONG, s);
+        // replicate the committed version inside the group
+        const int32_t base = 2 + floordiv(c.node - 2, R) * R;
+        for (int32_t i = 1; i < R; i++) em[1 + i].to(fresh, base + i, K_REPL, s, seq);
+        break;
+      }
+      case 3: {  // on_repl at a backup: args = (shard, ver)
+        const int32_t s = shard_of(c), v = clampi(c.args[1], 0, VER_CAP);
+        if (v > st[s]) ns[s] = v;
+        break;
+      }
+      case 4: {  // on_write_ok at the client: args = (shard, seq)
+        const int32_t seq = clampi(c.args[1], 0, VER_CAP);
+        if (seq > st[ACKED]) ns[ACKED] = seq;
+        break;
+      }
+      case 5: {  // on_wrong at the client: refetch the configuration
+        em[0].to(true, CONTROLLER, K_CFG_REQ);
+        break;
+      }
+      case 6: {  // on_cfg_req at the controller
+        em[0].to(true, CLIENT, K_CFG, st[EPOCH], st[A0]);
+        em[0].args[2] = st[A1];
+        break;
+      }
+      case 7: {  // on_cfg at the client: args = (epoch, assign0, assign1)
+        const int32_t e = clampi(c.args[0], 0, EPOCH_CAP);
+        if (e > st[EPOCH]) {
+          ns[EPOCH] = e;
+          ns[A0] = clampi(c.args[1], 0, A_MASK);
+          ns[A1] = clampi(c.args[2], 0, A_MASK);
+        }
+        break;
+      }
+      case 8: {  // on_mig_t, the controller's rebalance timer
+        const bool more = st[DONE] < p.n_migs;
+        const bool start = st[PHASE] == 0 && more;
+        if (start) {
+          const int32_t s = st[DONE] % NS;  // done >= 0
+          ns[PHASE] = 1;
+          ns[MIG_S] = s;
+          ns[MIG_D] = (group_of(st[A0], st[A1], s) + 1) % G;
+        }
+        mig_start_row(em[0], ns, start);
+        em[1].after(start, p.retx_ns, K_MIG_RETX, CONTROLLER);
+        em[2].after(more, p.mig_ns, K_MIG_T, CONTROLLER);
+        break;
+      }
+      case 9: {  // on_mig_retx: re-drive until the install is confirmed
+        const bool open = st[PHASE] == 1;
+        mig_start_row(em[0], st, open);
+        em[1].after(open, p.retx_ns, K_MIG_RETX, CONTROLLER);
+        break;
+      }
+      case 10: {  // on_mig_start at the source: args = (shard, epoch, dst)
+        const int32_t s = shard_of(c);
+        const bool owned = st[NS + s] > 0;
+        // freeze and hand off; keep the shard until RELEASE
+        em[0].to(owned, primary_of(clampi(c.args[2], 0, G - 1)), K_HANDOFF, s,
+                 clampi(c.args[1], 0, EPOCH_CAP));
+        em[0].args[2] = st[s];
+        if (owned) ns[FROZEN] = st[FROZEN] | (int32_t(1) << s);
+        break;
+      }
+      case 11: {  // on_handoff at the destination: args = (shard, epoch, ver)
+        const int32_t s = shard_of(c);
+        const int32_t new_ep = clampi(c.args[1], 0, EPOCH_CAP);
+        const int32_t v = clampi(c.args[2], 0, VER_CAP);
+        if (st[NS + s] < new_ep) {
+          ns[s] = st[s] > v ? st[s] : v;
+          ns[NS + s] = new_ep;
+          // installing also clears a stale frozen bit for the shard
+          ns[FROZEN] = st[FROZEN] & (A_MASK ^ (int32_t(1) << s));
+        }
+        // always ack: a lost ack must not wedge the migration
+        em[0].to(true, CONTROLLER, K_INSTALL_ACK, s, new_ep);
+        break;
+      }
+      case 12: {  // on_install_ack at the controller: args = (shard, epoch)
+        const int32_t s = shard_of(c), e = clampi(c.args[1], 0, EPOCH_CAP);
+        const bool match =
+            st[PHASE] == 1 && s == st[MIG_S] && e == min32(st[EPOCH] + 1, EPOCH_CAP);
+        if (match) {
+          // commit: shard s moves to the migration's group
+          const int32_t sh = (s & 3) * 4;
+          const int32_t g = clampi(st[MIG_D], 0, G - 1);
+          const int32_t keep = A_MASK ^ (0xF << sh);
+          if (s < 4) {
+            ns[A0] = (st[A0] & keep) | (g << sh);
+          } else {
+            ns[A1] = (st[A1] & keep) | (g << sh);
+          }
+          ns[EPOCH] = e;
+          ns[PHASE] = 0;
+          ns[DONE] = min32(st[DONE] + 1, EPOCH_CAP);
+        }
+        em[0].to(match, primary_of(group_of(st[A0], st[A1], s)), K_RELEASE, s, e);
+        em[1].to(match, CLIENT, K_CFG, ns[EPOCH], ns[A0]);
+        em[1].args[2] = ns[A1];
+        em[2].after(ns[FIN] > 0 && ns[DONE] >= p.n_migs, 0, KIND_HALT, 0);
+        break;
+      }
+      case 13: {  // on_release at the source: drop the frozen copy
+        const int32_t s = shard_of(c);
+        if ((st[FROZEN] >> s) & 1) {
+          ns[s] = 0;
+          ns[NS + s] = 0;
+          ns[FROZEN] = st[FROZEN] & (A_MASK ^ (int32_t(1) << s));
+        }
+        break;
+      }
+      default: {  // 14, on_fin at the controller: the client is done
+        ns[FIN] = 1;
+        em[0].after(st[DONE] >= p.n_migs, 0, KIND_HALT, 0);
+        break;
+      }
+    }
+  }
+};
+
+}  // namespace madsim

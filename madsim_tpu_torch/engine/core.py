@@ -72,6 +72,8 @@ __all__ = [
     "FIRST_USER_KIND",
     "FIRST_EXT_KIND",
     "user_kind",
+    "get_col",
+    "set_col",
     "set_cols",
     "resolve_device",
     "make_init",
@@ -123,6 +125,21 @@ def set_cols(state: torch.Tensor, cond, cols: dict) -> torch.Tensor:
     for c, v in cols.items():
         new[:, c] = torch.where(cond, v, state[:, c])
     return new
+
+
+def get_col(state: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """Column ``col[i]`` of each row ``i`` of the ``(S, U)`` rows
+    ``state``: a handler's ``st[c]`` with a computed ``c``, batched."""
+    return state.gather(1, col.long()[:, None])[:, 0]
+
+
+def set_col(state: torch.Tensor, col: torch.Tensor, v, cond=None) -> torch.Tensor:
+    """A copy of the ``(S, U)`` rows ``state`` with ``v`` written at
+    column ``col[i]`` of each row ``i`` (where ``cond`` holds): a
+    handler's ``st.at[c].set(v)`` with a computed ``c``, batched."""
+    if cond is not None:
+        v = torch.where(cond, v, get_col(state, col))
+    return state.scatter(1, col.long()[:, None], v.to(state.dtype)[:, None])
 
 
 # ---------------------------------------------------------------------------

@@ -111,8 +111,8 @@ class KernelModel:
 
 # (n_nodes, state_width, args_words, payload_words, max_emits,
 #  handlers, draw_purposes) at each factory's default variant; pools: the
-# model's BENCH_SPECS pool, and for raft also the pools of the entry
-# shape and the tests
+# model's BENCH_SPECS or SOAK_SPECS pool, and for raft also the pools of
+# the entry shape and the tests
 MODELS = {
     m.name: m
     for m in (
@@ -155,6 +155,41 @@ MODELS = {
             (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4)), (64,),
             ("timeout_min_ns", "timeout_max_ns", "propose_ns", "retx_ns"),
             (("n_nodes", 5), ("n_writes", 4), ("chaos", True)),
+        ),
+        KernelModel(
+            "snapshot", "snapshot", "model_snapshot.cuh",
+            "madsim::SnapshotModel", (5, 6, 2, 0, 6, 5, ()), (96,),
+            ("n_sends", "balance", "amount_max", "send_min_ns",
+             "send_max_ns", "snap_min_ns", "snap_max_ns"),
+            (("n_nodes", 5),),
+        ),
+        KernelModel(
+            "twophase", "twophase", "model_twophase.cuh",
+            "madsim::TwoPhaseModel", (5, 6, 3, 0, 10, 9, ()), (64,),
+            ("txns", "no_pct", "retx_ns", "revive_min_ns", "revive_max_ns"),
+            (("n_parts", 4), ("chaos", True)),
+        ),
+        KernelModel(
+            "paxos", "paxos", "model_paxos.cuh", "madsim::PaxosModel",
+            (8, 10, 3, 0, 7, 8, (0, 1, 2, 3, 4)), (64,),
+            ("start_min_ns", "start_max_ns", "timeout_min_ns",
+             "timeout_max_ns", "kill_min_ns", "kill_max_ns",
+             "revive_min_ns", "revive_max_ns"),
+            (("n_acceptors", 5), ("n_proposers", 3), ("chaos", True),
+             ("durable_acceptors", False)),
+        ),
+        KernelModel(
+            "leasekv", "leasekv", "model_leasekv.cuh", "madsim::LeaseKvModel",
+            (5, 6, 2, 0, 6, 15, (0, 1, 2)), (48,),
+            ("puts", "ttl_ms", "ka_ms", "scan_ms", "put_ms"),
+            (("n_clients", 3), ("chaos", True), ("ka_stop_ms", None)),
+        ),
+        KernelModel(
+            "shardkv", "shardkv", "model_shardkv.cuh", "madsim::ShardKvModel",
+            (14, 17, 3, 0, 6, 15, (0, 1, 2)), (64,),
+            ("writes", "n_migs", "put_ms", "mig_ms", "retx_ms"),
+            (("n_groups", 4), ("group_size", 3), ("n_shards", 8),
+             ("chaos", True)),
         ),
     )
 }
@@ -199,8 +234,8 @@ def kernel_model(wl: Workload) -> KernelModel:
     if spec is None:
         raise NotImplementedError(
             f"the fused run kernel carries no model {wl.name!r}; it has "
-            f"device handlers for {sorted(MODELS)} (the other models: "
-            f"ROADMAP queue A9 and B1)"
+            f"device handlers for {sorted(MODELS)} (another workload needs "
+            f"a model trait in csrc/ and an entry in MODELS: ROADMAP queue B1)"
         )
     shape = workload_shape(wl)
     params = dict(wl.model_params)

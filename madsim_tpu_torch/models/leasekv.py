@@ -1,0 +1,269 @@
+"""Lease/watch KV service under chaos (the etcd-shaped batched model).
+
+Port of ``madsim_tpu/models/leasekv.py`` at its default variant (no
+recording, no planted bug, no army): one lease server, ``n_clients``
+lease-holding clients and one watcher. Each client grants itself a TTL
+lease at the server, keeps it alive with periodic keepalives, and
+serves puts through it; the server's scan loop expires every lease
+whose deadline passed on the server's own clock (``ctx.now``, the clock
+plus the node's skew) and publishes each expiry to the watcher as a
+sequenced event. The watcher appends in-order events and resyncs
+against the server's stream head on a gap. Chaos kills a random client
+mid-run and restarts it; the reborn client re-grants. The instance
+halts when every client has finished its ``puts`` and the server has
+seen each one's FIN. The fused kernel carries the same handlers as
+device code (``csrc/model_leasekv.cuh``).
+
+``ka_stop_ms`` (client 1 stalls its keepalives) and ``chaos=False`` run
+on the CPU; the kernel carries the default variant only. ``record``,
+``bug`` and ``army`` wait for the port of ``HistorySpec`` and of the
+latency markers (ROADMAP queue A7 and A8).
+
+Node layout: [server 0, clients 1..C (lease id = node id), watcher C+1]
+Server state:  [deadline_ms(lease 1) .. deadline_ms(lease C),
+                wseq, fin_mask, expire_count]   (0 deadline = no lease)
+Client state:  [granted, acked, fin, 0...]
+Watcher state: [last_wseq, events, resyncs, 0...]
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..engine.core import (
+    KIND_KILL, KIND_RESTART, Workload, get_col, set_col, set_cols, user_kind,
+)
+
+_H_INIT = 0
+_H_GRANT = 1  # at server: args = (lid,)
+_H_GRANTED = 2  # at client
+_H_KA_T = 3  # at client: keepalive timer
+_H_KEEPALIVE = 4  # at server: args = (lid,)
+_H_KA_REJ = 5  # at client: keepalive hit an expired lease
+_H_SCAN = 6  # at server: expiry scan timer
+_H_PUT_T = 7  # at client: put/progress timer
+_H_PUT = 8  # at server: args = (lid, seq)
+_H_PUT_OK = 9  # at client: args = (seq,)
+_H_PUT_REJ = 10  # at client: put hit an expired lease
+_H_FIN = 11  # at server: args = (lid,)
+_H_WEVT = 12  # at watcher: args = (lid, wseq)
+_H_RESYNC = 13  # at server: watcher stream-head request
+_H_RESYNC_OK = 14  # at watcher: args = (wseq,)
+
+SERVER = 0
+
+_P_KILL_AT = 0
+_P_KILL_WHO = 1
+_P_REVIVE = 2
+
+# deadlines are int32 milliseconds of the node's observed clock, which
+# is clamped to this horizon (300 simulated seconds)
+HORIZON_MS = 300_000
+WSEQ_CAP = (1 << 16) - 1  # watch-stream sequence cap
+EVT_CAP = (1 << 16) - 1  # cap on the event/resync/expiry counters
+
+
+def _local_ms(now):
+    """The handling node's observed clock in clamped int32 ms."""
+    ms = torch.div(now, 1_000_000, rounding_mode="floor")
+    return ms.clamp(0, HORIZON_MS).to(torch.int32)
+
+
+def make_leasekv(
+    n_clients: int = 3,
+    puts: int = 6,
+    ttl_ms: int = 120,
+    ka_ms: int = 40,
+    scan_ms: int = 20,
+    put_ms: int = 30,
+    ka_stop_ms: int | None = None,
+    chaos: bool = True,
+    record: bool = False,
+    hist_capacity: int | None = None,
+    bug: bool = False,
+    army: bool = False,
+    army_probes: int = 1,
+) -> Workload:
+    """The lease/watch workload; ``record``, ``bug`` and ``army`` raise
+    ``NotImplementedError`` until their engine surfaces are ported."""
+    if record or bug or army:
+        raise NotImplementedError(
+            "make_leasekv(record=True, bug=True or army=True) needs "
+            "HistorySpec recording and the latency markers, which the "
+            "torch port does not have yet (ROADMAP queue A7 and A8)"
+        )
+    del hist_capacity, army_probes  # record and army mode only
+    n = n_clients + 2
+    watcher = n_clients + 1
+    width = max(n_clients + 3, 4)
+    c_wseq, c_fin_mask, c_exp_cnt = n_clients, n_clients + 1, n_clients + 2
+    full_mask = (1 << n_clients) - 1
+
+    def _lid(ctx):
+        return ctx.args[:, 0].clamp(1, n_clients)
+
+    def on_init(ctx):
+        eb = ctx.emits()
+        is_client = (ctx.node >= 1) & (ctx.node <= n_clients)
+        # a client (re)grants its lease and starts its timers, at t=0
+        # and again after a restart
+        eb.send(SERVER, user_kind(_H_GRANT), (ctx.node,), when=is_client)
+        eb.after(ka_ms * 1_000_000, user_kind(_H_KA_T), ctx.node, when=is_client)
+        eb.after(put_ms * 1_000_000, user_kind(_H_PUT_T), ctx.node, when=is_client)
+        eb.after(scan_ms * 1_000_000, user_kind(_H_SCAN), SERVER,
+                 when=ctx.node == SERVER)
+        if chaos:
+            is_watcher = ctx.node == watcher
+            who = ctx.draw.user_int(1, 1 + n_clients, _P_KILL_WHO)
+            at = ctx.draw.user_int(20_000_000, 300_000_000, _P_KILL_AT)
+            revive = ctx.draw.user_int(100_000_000, 600_000_000, _P_REVIVE)
+            eb.after(at, KIND_KILL, 0, (who,), when=is_watcher)
+            eb.after(at + revive, KIND_RESTART, 0, (who,), when=is_watcher)
+        return ctx.state, eb.build()
+
+    def on_grant(ctx):
+        lid = _lid(ctx)
+        deadline = _local_ms(ctx.now) + ttl_ms
+        new = set_col(ctx.state, lid - 1, deadline)
+        eb = ctx.emits()
+        eb.send(lid, user_kind(_H_GRANTED))
+        return new, eb.build()
+
+    def on_granted(ctx):
+        new = ctx.state.clone()
+        new[:, 0] = 1
+        return new, ctx.emits().build()
+
+    def on_ka_t(ctx):
+        send = ctx.state[:, 0] > 0
+        if ka_stop_ms is not None:
+            # client 1 stalls: its keepalives stop once its own clock
+            # passes the mark
+            stalled = (ctx.node == 1) & (_local_ms(ctx.now) >= ka_stop_ms)
+            send = send & ~stalled
+        eb = ctx.emits()
+        eb.send(SERVER, user_kind(_H_KEEPALIVE), (ctx.node,), when=send)
+        eb.after(ka_ms * 1_000_000, user_kind(_H_KA_T), ctx.node)
+        return ctx.state, eb.build()
+
+    def on_keepalive(ctx):
+        lid = _lid(ctx)
+        renew = get_col(ctx.state, lid - 1) > 0
+        new = set_col(ctx.state, lid - 1, _local_ms(ctx.now) + ttl_ms, renew)
+        eb = ctx.emits()
+        eb.send(lid, user_kind(_H_KA_REJ), when=~renew)
+        return new, eb.build()
+
+    def on_drop_lease(ctx):
+        # the lease expired server-side (on_ka_rej, on_put_rej): drop to
+        # ungranted; the put timer re-grants
+        new = ctx.state.clone()
+        new[:, 0] = 0
+        return new, ctx.emits().build()
+
+    def on_scan(ctx):
+        # every lease whose deadline passed the server's own clock
+        # expires now; each expiry publishes one sequenced event
+        st = ctx.state
+        now_ms = _local_ms(ctx.now)
+        wseq = st[:, c_wseq]
+        eb = ctx.emits()
+        new = st.clone()
+        fired = torch.zeros_like(wseq)
+        for lid in range(1, n_clients + 1):
+            d = st[:, lid - 1]
+            exp = (d > 0) & (now_ms >= d)
+            new[:, lid - 1] = torch.where(exp, 0, d)
+            seq_i = torch.clamp(wseq + fired + 1, max=WSEQ_CAP)
+            eb.send(watcher, user_kind(_H_WEVT), (lid, seq_i), when=exp)
+            fired = fired + exp.to(torch.int32)
+        new[:, c_wseq] = torch.clamp(wseq + fired, max=WSEQ_CAP)
+        new[:, c_exp_cnt] = torch.clamp(st[:, c_exp_cnt] + fired, max=EVT_CAP)
+        eb.after(scan_ms * 1_000_000, user_kind(_H_SCAN), SERVER)
+        return new, eb.build()
+
+    def on_put_t(ctx):
+        # the client progress loop: re-grant if ungranted, else push the
+        # next unacked put, else keep offering FIN
+        st = ctx.state
+        granted, acked = st[:, 0] > 0, st[:, 1]
+        done = acked >= puts
+        eb = ctx.emits()
+        eb.send(SERVER, user_kind(_H_GRANT), (ctx.node,), when=~granted & ~done)
+        eb.send(SERVER, user_kind(_H_PUT), (ctx.node, acked + 1), when=granted & ~done)
+        eb.send(SERVER, user_kind(_H_FIN), (ctx.node,), when=done)
+        eb.after(put_ms * 1_000_000, user_kind(_H_PUT_T), ctx.node)
+        return ctx.state, eb.build()
+
+    def on_put(ctx):
+        lid = _lid(ctx)
+        seq = ctx.args[:, 1].clamp(0, puts)
+        live = get_col(ctx.state, lid - 1) > 0
+        eb = ctx.emits()
+        eb.send(lid, user_kind(_H_PUT_OK), (seq,), when=live)
+        eb.send(lid, user_kind(_H_PUT_REJ), when=~live)
+        return ctx.state, eb.build()
+
+    def on_put_ok(ctx):
+        seq = ctx.args[:, 0].clamp(0, puts)
+        new = ctx.state.clone()
+        new[:, 1] = torch.maximum(ctx.state[:, 1], seq)
+        return new, ctx.emits().build()
+
+    def on_fin(ctx):
+        mask = ctx.state[:, c_fin_mask] | (1 << (_lid(ctx) - 1))
+        new = ctx.state.clone()
+        new[:, c_fin_mask] = mask
+        eb = ctx.emits()
+        eb.halt(when=mask == full_mask)
+        return new, eb.build()
+
+    def on_wevt(ctx):
+        # in-order events append; a sequence gap triggers an explicit
+        # resync against the server's stream head
+        seq = ctx.args[:, 1].clamp(0, WSEQ_CAP)
+        st = ctx.state
+        in_order = seq == st[:, 0] + 1
+        gap = seq > st[:, 0] + 1
+        new = set_cols(st, in_order, {
+            0: seq, 1: torch.clamp(st[:, 1] + 1, max=EVT_CAP),
+        })
+        new = set_cols(new, gap, {2: torch.clamp(st[:, 2] + 1, max=EVT_CAP)})
+        eb = ctx.emits()
+        eb.send(SERVER, user_kind(_H_RESYNC), (st[:, 0],), when=gap)
+        return new, eb.build()
+
+    def on_resync(ctx):
+        eb = ctx.emits()
+        eb.send(watcher, user_kind(_H_RESYNC_OK), (ctx.state[:, c_wseq],))
+        return ctx.state, eb.build()
+
+    def on_resync_ok(ctx):
+        w = ctx.args[:, 0].clamp(0, WSEQ_CAP)
+        return set_cols(ctx.state, w > ctx.state[:, 0], {0: w}), ctx.emits().build()
+
+    return Workload(
+        name="leasekv",
+        n_nodes=n,
+        state_width=width,
+        handlers=(
+            on_init, on_grant, on_granted, on_ka_t, on_keepalive,
+            on_drop_lease, on_scan, on_put_t, on_put, on_put_ok,
+            on_drop_lease, on_fin, on_wevt, on_resync, on_resync_ok,
+        ),
+        # widest: the scan sends one watch event per lease + its timer;
+        # on_init builds 3 client rows, the server's timer and 2 chaos rows
+        max_emits=max(n_clients + 1, 6),
+        args_words=2,
+        draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
+        model_params=(
+            ("n_clients", n_clients),
+            ("puts", puts),
+            ("ttl_ms", ttl_ms),
+            ("ka_ms", ka_ms),
+            ("scan_ms", scan_ms),
+            ("put_ms", put_ms),
+            ("ka_stop_ms", ka_stop_ms),
+            ("chaos", chaos),
+        ),
+    )

@@ -1,0 +1,359 @@
+"""Sharded KV with key-range migration under chaos, batched over seeds.
+
+Port of ``madsim_tpu/models/shardkv.py`` at its default variant (no
+recording, no planted bug, no army): a configuration epoch maps
+``n_shards`` key ranges onto ``n_groups`` replica groups (a primary and
+backups each); a controller rebalances by migrating one shard at a
+time: freeze the shard at its source primary, hand its version to the
+destination primary, and commit the new epoch only after the
+destination confirms the install; the source keeps its frozen copy
+until the controller's RELEASE. A stop-and-wait client writes
+round-robin over the shards, refetching the configuration when a
+primary redirects it. Chaos kills a random primary mid-run and restarts
+it. Every column is durable (disk-backed servers: a restart keeps the
+whole row), and the initial state is not zero: it holds the initial
+assignment and ownership epochs. The instance halts when the client's
+writes are done and ``n_migs`` migrations have committed. The fused
+kernel carries the same handlers as device code
+(``csrc/model_shardkv.cuh``).
+
+``record``, ``bug`` and ``army`` wait for the port of ``HistorySpec``
+and of the latency markers (ROADMAP queue A7 and A8).
+
+Node layout: [controller 0, client 1, then group g's replicas at
+2+g*R .. 2+g*R+R-1 (primary first)]
+Primary/backup state: [ver(shard 0..S-1), epoch(shard 0..S-1), frozen]
+Controller state:     [epoch, phase, mig_shard, mig_dst, assign0,
+                       assign1, migs_done, fin_seen, 0...]
+Client state:         [epoch, acked, 0, 0, assign0, assign1, 0...]
+Assignments pack 4 bits per shard: shards 0-3 in assign0, 4-7 in
+assign1.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..engine.core import (
+    KIND_KILL, KIND_RESTART, Workload, get_col, set_col, set_cols, user_kind,
+)
+
+_H_INIT = 0
+_H_PUT_T = 1  # at client: write/progress timer
+_H_WRITE = 2  # at primary: args = (shard, seq)
+_H_REPL = 3  # at backup: args = (shard, ver)
+_H_WRITE_OK = 4  # at client: args = (shard, seq)
+_H_WRONG = 5  # at client: routed to a non-owner, refetch config
+_H_CFG_REQ = 6  # at controller
+_H_CFG = 7  # at client: args = (epoch, assign0, assign1)
+_H_MIG_T = 8  # at controller: rebalance timer
+_H_MIG_RETX = 9  # at controller: re-drive the open migration
+_H_MIG_START = 10  # at src primary: args = (shard, new_epoch, dst)
+_H_HANDOFF = 11  # at dst primary: args = (shard, new_epoch, ver)
+_H_INSTALL_ACK = 12  # at controller: args = (shard, new_epoch)
+_H_RELEASE = 13  # at src primary: args = (shard, new_epoch)
+_H_FIN = 14  # at controller: client done
+
+CONTROLLER = 0
+CLIENT = 1
+
+_C_EPOCH, _C_PHASE, _C_MIG_S, _C_MIG_D = 0, 1, 2, 3
+_C_A0, _C_A1, _C_DONE, _C_FIN = 4, 5, 6, 7
+_K_EPOCH, _K_ACKED = 0, 1
+
+_P_KILL_AT = 0
+_P_KILL_WHO = 1
+_P_REVIVE = 2
+
+VER_CAP = (1 << 16) - 1
+EPOCH_CAP = 255
+_A_MASK = 0xFFFF  # packed-assignment word bound (4 shards x 4 bits)
+
+
+def _initial_assign(n_shards: int, n_groups: int) -> tuple[int, int]:
+    """Initial shard -> group map, packed: shard s starts at s % G."""
+    a0 = a1 = 0
+    for s in range(n_shards):
+        g = s % n_groups
+        if s < 4:
+            a0 |= g << (4 * s)
+        else:
+            a1 |= g << (4 * (s - 4))
+    return a0, a1
+
+
+def make_shardkv(
+    n_groups: int = 4,
+    group_size: int = 3,
+    n_shards: int = 8,
+    writes: int = 16,
+    n_migs: int = 4,
+    put_ms: int = 25,
+    mig_ms: int = 70,
+    retx_ms: int = 40,
+    chaos: bool = True,
+    record: bool = False,
+    hist_capacity: int | None = None,
+    bug: "bool | str" = False,
+    army: bool = False,
+    army_probes: int = 1,
+) -> Workload:
+    """The sharded-KV workload; ``record``, ``bug`` and ``army`` raise
+    ``NotImplementedError`` until their engine surfaces are ported."""
+    if record or bug or army:
+        raise NotImplementedError(
+            "make_shardkv(record=True, bug or army=True) needs HistorySpec "
+            "recording and the latency markers, which the torch port does "
+            "not have yet (ROADMAP queue A7 and A8)"
+        )
+    del hist_capacity, army_probes  # record and army mode only
+    G, R, S = n_groups, group_size, n_shards
+    if not 1 <= S <= 8:
+        raise ValueError(f"n_shards must be in [1, 8] (packed 4-bit "
+                         f"assignment words), got {S}")
+    if not 1 <= G <= 15:
+        raise ValueError(f"n_groups must be in [1, 15] (4-bit group "
+                         f"ids), got {G}")
+    n = 2 + G * R
+    width = max(2 * S + 1, 8)  # the controller's scalars need cols 0..7
+    c_frozen = 2 * S
+    a0_init, a1_init = _initial_assign(S, G)
+
+    def _group_of(a0, a1, s):
+        """Shard -> group from the packed words."""
+        return (torch.where(s < 4, a0, a1) >> ((s & 3) * 4)) & 0xF
+
+    def _primary_of(g):
+        return 2 + g * R
+
+    def _shard(ctx):
+        return ctx.args[:, 0].clamp(0, S - 1)
+
+    def _unfreeze(st, s):
+        return st[:, c_frozen] & (_A_MASK ^ (1 << s))
+
+    def on_init(ctx):
+        eb = ctx.emits()
+        is_client = ctx.node == CLIENT
+        eb.after(mig_ms * 1_000_000, user_kind(_H_MIG_T), CONTROLLER,
+                 when=ctx.node == CONTROLLER)
+        eb.after(put_ms * 1_000_000, user_kind(_H_PUT_T), CLIENT, when=is_client)
+        if chaos:
+            # kill a random PRIMARY mid-run
+            who = 2 + ctx.draw.user_int(0, G, _P_KILL_WHO) * R
+            at = ctx.draw.user_int(20_000_000, 300_000_000, _P_KILL_AT)
+            revive = ctx.draw.user_int(100_000_000, 600_000_000, _P_REVIVE)
+            eb.after(at, KIND_KILL, 0, (who,), when=is_client)
+            eb.after(at + revive, KIND_RESTART, 0, (who,), when=is_client)
+        return ctx.state, eb.build()
+
+    def on_put_t(ctx):
+        # stop-and-wait client: one outstanding write, retried until
+        # acked; write k targets shard k % S
+        st = ctx.state
+        done = st[:, _K_ACKED] >= writes
+        seq = torch.clamp(st[:, _K_ACKED] + 1, max=VER_CAP)
+        s = seq % S
+        g = _group_of(st[:, _C_A0], st[:, _C_A1], s)
+        eb = ctx.emits()
+        eb.send(_primary_of(g), user_kind(_H_WRITE), (s, seq), when=~done)
+        eb.send(CONTROLLER, user_kind(_H_FIN), when=done)
+        eb.after(put_ms * 1_000_000, user_kind(_H_PUT_T), CLIENT)
+        return ctx.state, eb.build()
+
+    def on_write(ctx):
+        # serve iff this group owns the shard and it is not frozen for an
+        # open migration; anything else redirects the client
+        s = _shard(ctx)
+        seq = ctx.args[:, 1].clamp(0, VER_CAP)
+        st = ctx.state
+        owned = get_col(st, S + s) > 0
+        frozen = ((st[:, c_frozen] >> s) & 1) > 0
+        serving = owned & ~frozen
+        fresh = serving & (seq > get_col(st, s))
+        eb = ctx.emits()
+        eb.send(CLIENT, user_kind(_H_WRITE_OK), (s, seq), when=serving)
+        eb.send(CLIENT, user_kind(_H_WRONG), (s,), when=~serving)
+        # replicate the committed version inside the group
+        base = 2 + torch.div(ctx.node - 2, R, rounding_mode="floor") * R
+        for i in range(1, R):
+            eb.send(base + i, user_kind(_H_REPL), (s, seq), when=fresh)
+        return set_col(st, s, seq, fresh), eb.build()
+
+    def on_repl(ctx):
+        s = _shard(ctx)
+        v = ctx.args[:, 1].clamp(0, VER_CAP)
+        st = ctx.state
+        return set_col(st, s, v, v > get_col(st, s)), ctx.emits().build()
+
+    def on_write_ok(ctx):
+        seq = ctx.args[:, 1].clamp(0, VER_CAP)
+        new = ctx.state.clone()
+        new[:, _K_ACKED] = torch.maximum(ctx.state[:, _K_ACKED], seq)
+        return new, ctx.emits().build()
+
+    def on_wrong(ctx):
+        eb = ctx.emits()
+        eb.send(CONTROLLER, user_kind(_H_CFG_REQ))
+        return ctx.state, eb.build()
+
+    def on_cfg_req(ctx):
+        st = ctx.state
+        eb = ctx.emits()
+        eb.send(CLIENT, user_kind(_H_CFG), (st[:, _C_EPOCH], st[:, _C_A0], st[:, _C_A1]))
+        return ctx.state, eb.build()
+
+    def on_cfg(ctx):
+        e = ctx.args[:, 0].clamp(0, EPOCH_CAP)
+        a0 = ctx.args[:, 1].clamp(0, _A_MASK)
+        a1 = ctx.args[:, 2].clamp(0, _A_MASK)
+        st = ctx.state
+        new = set_cols(st, e > st[:, _K_EPOCH], {_K_EPOCH: e, _C_A0: a0, _C_A1: a1})
+        return new, ctx.emits().build()
+
+    def _mig_start_row(eb, st, when):
+        """(Re)drive the open migration: an idempotent MIG_START to the
+        shard's current owner."""
+        s = st[:, _C_MIG_S]
+        src = _group_of(st[:, _C_A0], st[:, _C_A1], s)
+        new_ep = torch.clamp(st[:, _C_EPOCH] + 1, max=EPOCH_CAP)
+        eb.send(_primary_of(src), user_kind(_H_MIG_START),
+                (s, new_ep, st[:, _C_MIG_D]), when=when)
+
+    def on_mig_t(ctx):
+        st = ctx.state
+        more = st[:, _C_DONE] < n_migs
+        start = (st[:, _C_PHASE] == 0) & more
+        s = st[:, _C_DONE] % S
+        dst = (_group_of(st[:, _C_A0], st[:, _C_A1], s) + 1) % G
+        new = set_cols(st, start, {_C_PHASE: 1, _C_MIG_S: s, _C_MIG_D: dst})
+        eb = ctx.emits()
+        _mig_start_row(eb, new, start)
+        eb.after(retx_ms * 1_000_000, user_kind(_H_MIG_RETX), CONTROLLER, when=start)
+        eb.after(mig_ms * 1_000_000, user_kind(_H_MIG_T), CONTROLLER, when=more)
+        return new, eb.build()
+
+    def on_mig_retx(ctx):
+        # re-drive the migration until the install is confirmed
+        st = ctx.state
+        open_ = st[:, _C_PHASE] == 1
+        eb = ctx.emits()
+        _mig_start_row(eb, st, open_)
+        eb.after(retx_ms * 1_000_000, user_kind(_H_MIG_RETX), CONTROLLER, when=open_)
+        return ctx.state, eb.build()
+
+    def on_mig_start(ctx):
+        # freeze and hand off; keep the shard until RELEASE
+        s = _shard(ctx)
+        new_ep = ctx.args[:, 1].clamp(0, EPOCH_CAP)
+        dst = ctx.args[:, 2].clamp(0, G - 1)
+        st = ctx.state
+        owned = get_col(st, S + s) > 0
+        eb = ctx.emits()
+        eb.send(_primary_of(dst), user_kind(_H_HANDOFF), (s, new_ep, get_col(st, s)),
+                when=owned)
+        new = set_cols(st, owned, {c_frozen: st[:, c_frozen] | (1 << s)})
+        return new, eb.build()
+
+    def on_handoff(ctx):
+        s = _shard(ctx)
+        new_ep = ctx.args[:, 1].clamp(0, EPOCH_CAP)
+        v = ctx.args[:, 2].clamp(0, VER_CAP)
+        st = ctx.state
+        fresh = get_col(st, S + s) < new_ep
+        # installing also clears a stale frozen bit for the shard
+        new = set_col(st, s, torch.maximum(get_col(st, s), v), fresh)
+        new = set_col(new, S + s, new_ep, fresh)
+        new = set_cols(new, fresh, {c_frozen: _unfreeze(st, s)})
+        eb = ctx.emits()
+        # always ack (idempotent): a lost ack must not wedge the migration
+        eb.send(CONTROLLER, user_kind(_H_INSTALL_ACK), (s, new_ep))
+        return new, eb.build()
+
+    def on_install_ack(ctx):
+        s = _shard(ctx)
+        e = ctx.args[:, 1].clamp(0, EPOCH_CAP)
+        st = ctx.state
+        match = (
+            (st[:, _C_PHASE] == 1) & (s == st[:, _C_MIG_S])
+            & (e == torch.clamp(st[:, _C_EPOCH] + 1, max=EPOCH_CAP))
+        )
+        src = _group_of(st[:, _C_A0], st[:, _C_A1], s)
+        # the new assignment: shard s moves to the migration's group
+        sh = (s & 3) * 4
+        g = st[:, _C_MIG_D].clamp(0, G - 1)
+        keep = _A_MASK ^ (0xF << sh)
+        low = s < 4
+        new = set_cols(st, match, {
+            _C_A0: torch.where(low, (st[:, _C_A0] & keep) | (g << sh), st[:, _C_A0]),
+            _C_A1: torch.where(low, st[:, _C_A1], (st[:, _C_A1] & keep) | (g << sh)),
+            _C_EPOCH: e,
+            _C_PHASE: 0,
+            _C_DONE: torch.clamp(st[:, _C_DONE] + 1, max=EPOCH_CAP),
+        })
+        eb = ctx.emits()
+        eb.send(_primary_of(src), user_kind(_H_RELEASE), (s, e), when=match)
+        eb.send(CLIENT, user_kind(_H_CFG),
+                (new[:, _C_EPOCH], new[:, _C_A0], new[:, _C_A1]), when=match)
+        eb.halt(when=(new[:, _C_FIN] > 0) & (new[:, _C_DONE] >= n_migs))
+        return new, eb.build()
+
+    def on_release(ctx):
+        # drop the frozen source copy: the only place a source forgets
+        # a shard
+        s = _shard(ctx)
+        st = ctx.state
+        frozen = ((st[:, c_frozen] >> s) & 1) > 0
+        new = set_col(st, s, torch.zeros_like(s), frozen)
+        new = set_col(new, S + s, torch.zeros_like(s), frozen)
+        new = set_cols(new, frozen, {c_frozen: _unfreeze(st, s)})
+        return new, ctx.emits().build()
+
+    def on_fin(ctx):
+        st = ctx.state
+        new = st.clone()
+        new[:, _C_FIN] = 1
+        eb = ctx.emits()
+        eb.halt(when=st[:, _C_DONE] >= n_migs)
+        return new, eb.build()
+
+    init = np.zeros((n, width), np.int32)
+    init[CONTROLLER, _C_EPOCH] = 1
+    init[CONTROLLER, _C_A0] = a0_init
+    init[CONTROLLER, _C_A1] = a1_init
+    init[CLIENT, _K_EPOCH] = 1
+    init[CLIENT, _C_A0] = a0_init
+    init[CLIENT, _C_A1] = a1_init
+    for s in range(S):
+        init[2 + (s % G) * R, S + s] = 1  # initial owners at epoch 1
+
+    return Workload(
+        name="shardkv",
+        n_nodes=n,
+        state_width=width,
+        handlers=(
+            on_init, on_put_t, on_write, on_repl, on_write_ok, on_wrong,
+            on_cfg_req, on_cfg, on_mig_t, on_mig_retx, on_mig_start,
+            on_handoff, on_install_ack, on_release, on_fin,
+        ),
+        # widest: on_write = ok + wrong + (R-1) replications; on_init =
+        # the two timers + 2 chaos rows
+        max_emits=max(R + 1, 6),
+        init_state=init,
+        args_words=3,
+        # disk-backed servers: every column survives a restart
+        durable_cols=tuple(range(width)),
+        draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
+        model_params=(
+            ("n_groups", n_groups),
+            ("group_size", group_size),
+            ("n_shards", n_shards),
+            ("writes", writes),
+            ("n_migs", n_migs),
+            ("put_ms", put_ms),
+            ("mig_ms", mig_ms),
+            ("retx_ms", retx_ms),
+            ("chaos", chaos),
+        ),
+    )

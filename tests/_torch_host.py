@@ -8,6 +8,7 @@ import ctypes
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -83,3 +84,17 @@ def host_run(lib, wl, cfg, st, n_steps, until_halted, words=None):
     if until_halted:
         host_launch(lib, wl, cfg, out, iters.max() - iters, False, words)
     return out
+
+
+def assert_host_matches_plain(lib, wl, cfg, seeds, n_steps, until_halted):
+    """The host build's run (with the workload's own config words) equals
+    the plain step per field; returns the plain run as numpy."""
+    from madsim_tpu_torch.engine.convert import state_to_numpy
+
+    st = tcore.make_init(wl, cfg, device="cpu")(seeds)
+    run = tcore.make_run_while_plain if until_halted else tcore.make_run_plain
+    want = state_to_numpy(run(wl, cfg, n_steps)(st))
+    got = state_to_numpy(host_run(lib, wl, cfg, st, n_steps, until_halted))
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    return want

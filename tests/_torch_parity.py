@@ -1,7 +1,8 @@
 """Shared helper of the torch port's parity tests: per-field equality
 of a port SimState with a JAX package SimState, and the checks each
-ported model of BENCH_SPECS runs against the reference (its spec and
-workload shape, a run through both engines, the C++ oracle's traces)."""
+ported model of BENCH_SPECS or SOAK_SPECS runs against the reference
+(its spec and workload shape, a run through both engines, the C++
+oracle's traces)."""
 
 import dataclasses
 import shutil
@@ -16,6 +17,7 @@ from madsim_tpu.models import BENCH_SPECS as J_SPECS
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine.convert import state_to_numpy
 from madsim_tpu_torch.models import BENCH_SPECS as T_SPECS
+from madsim_tpu_torch.models import SOAK_SPECS as T_SOAK
 
 
 def jax_fields(st) -> dict:
@@ -37,7 +39,7 @@ def assert_same_state(jst, tst):
 
 
 # ---------------------------------------------------------------------------
-# a model of BENCH_SPECS in both frameworks
+# a model of BENCH_SPECS or SOAK_SPECS in both frameworks
 # ---------------------------------------------------------------------------
 
 ORACLE_SEEDS = [0, 1, 2, 3, 1234, 99991, 2**32 + 5, 2**63 + 11]
@@ -58,6 +60,16 @@ def assert_bench_spec_equal(name):
     tf, tkw, tn, tcap = T_SPECS[name]
     assert (tkw, tn, tcap) == (jkw, jn, jcap)
     assert tf.__name__ == jf.__name__
+
+
+def assert_soak_spec(name, factory, factory_kw, kw, n_seeds, cap):
+    """SOAK_SPECS[name] is the literal configuration of the JAX
+    package's soak: the factory (with its keyword arguments), engine
+    kwargs, seed count and step cap."""
+    tf, tkw, tn, tcap = T_SOAK[name]
+    assert (tkw, tn, tcap) == (kw, n_seeds, cap)
+    assert getattr(tf, "func", tf) is factory
+    assert getattr(tf, "keywords", {}) == factory_kw
 
 
 def assert_workload_equal(jw, tw):

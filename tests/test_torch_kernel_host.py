@@ -9,10 +9,12 @@ port's CPU tensors through the same argument packing the CUDA launch
 uses (``tests/_torch_host.py``). This is the CPU evidence of the
 kernel's logic for raft; the other models' host builds sit in their own
 test files. The tests marked ``cuda`` run the real kernel of every
-registered model, and of the chaos3 test workload, and need a card.
+registered model (the ``BENCH_SPECS`` and ``SOAK_SPECS`` models), and
+of the chaos3 test workload, and need a card.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ import torch
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
 from madsim_tpu_torch.engine.convert import state_to_numpy
-from madsim_tpu_torch.models import BENCH_SPECS, make_kvchaos, make_raft
+from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS, make_kvchaos, make_raft
 
 from _torch_chaos3 import CHAOS3_MODEL, CHAOS_CFG, chaos3_spec, chaos3_workload
 from _torch_host import build_host_kernel, host_launch, host_run
@@ -78,7 +80,8 @@ def test_registry_shapes_equal_the_factories():
     """Each registered model's compiled shape and variant is what the
     port's factory builds at its defaults, and its runtime words name
     factory parameters."""
-    made = [f() for f, *_ in BENCH_SPECS.values()] + [make_kvchaos(payload=True)]
+    specs = {**BENCH_SPECS, **SOAK_SPECS}
+    made = [f() for f, *_ in specs.values()] + [make_kvchaos(payload=True)]
     assert sorted(w.name for w in made) == sorted(fused.MODELS)
     for wl in made:
         spec = fused.kernel_model(wl)
@@ -90,9 +93,26 @@ def test_registry_shapes_equal_the_factories():
         )
         words = fused.config_words(wl, tcore.EngineConfig())
         assert len(words) == 8 + len(spec.words)
-    bench_pools = {f().name: kw["pool_size"] for f, kw, _n, _c in BENCH_SPECS.values()}
+    bench_pools = {f().name: kw["pool_size"] for f, kw, _n, _c in specs.values()}
     for name, pool in bench_pools.items():
         assert pool in fused.MODELS[name].pools, name
+
+
+def test_every_trait_dispatches_its_handlers_in_order():
+    """Each model header's ``handle`` that switches on the handler
+    names handlers 0..H-2 by ``case`` and leaves ``default`` to the last
+    one. nvcc (12.8) lowered a switch whose ``default`` stood for a
+    handler between two cases wrongly on the card (csrc/model_twophase.cuh
+    says how), which no g++ build shows."""
+    for spec in fused.MODELS.values():
+        body = (fused.CSRC / spec.header).read_text()
+        body = body[body.index("void handle("):]
+        if "switch (h)" not in body:
+            continue  # microbench: if (h == 0) ... else ...
+        labels = [int(x) for x in re.findall(r"\bcase (\d+):", body)]
+        h = spec.shape[5]
+        assert sorted(labels) == list(range(h - 1)), spec.key
+        assert body.count("default:") == 1, spec.key
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +121,10 @@ def test_registry_shapes_equal_the_factories():
 
 CARD_CASES = {
     # name -> (factory, engine kwargs, seeds, cap)
-    **{k: (f, kw, min(n, 4096), cap) for k, (f, kw, n, cap) in BENCH_SPECS.items()},
+    **{
+        k: (f, kw, min(n, 4096), cap)
+        for k, (f, kw, n, cap) in {**BENCH_SPECS, **SOAK_SPECS}.items()
+    },
     "kvchaos-payload": (
         lambda: make_kvchaos(payload=True), BENCH_SPECS["kvchaos"][1], 4096,
         BENCH_SPECS["kvchaos"][3],
@@ -138,7 +161,7 @@ def test_cuda_kernel_matches_plain_step_on_card():
 def test_cuda_kernel_matches_plain_step_per_model(name):
     """Every registered model's kernel equals the plain step on the card,
     for make_run_while at the bench config and a fixed-step run cut
-    mid-way."""
+    mid-way, before the first seed halts."""
     _needs_card()
     factory, kw, n, cap = CARD_CASES[name]
     wl, cfg = factory(), tcore.EngineConfig(**kw)
@@ -150,7 +173,8 @@ def test_cuda_kernel_matches_plain_step_per_model(name):
     for field in got:
         np.testing.assert_array_equal(got[field], want[field], err_msg=field)
     assert got["halted"].all() and got["overflow"].sum() == 0
-    mid = max(1, int(got["step"][0]) // 3)
+    first_halt = int(fused.halt_counts(wl, cfg, cap, st).min())
+    mid = max(1, min(int(got["step"][0]) // 3, first_halt - 1))
     got = state_to_numpy(tcore.make_run(wl, cfg, mid)(st))
     want = state_to_numpy(tcore.make_run_plain(wl, cfg, mid)(st))
     for field in got:

@@ -9,11 +9,10 @@ import pytest
 from madsim_tpu.models import make_pingpong as j_make
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
-from madsim_tpu_torch.engine.convert import state_to_numpy
 from madsim_tpu_torch.models import BENCH_SPECS
 from madsim_tpu_torch.models import make_pingpong as t_make
 
-from _torch_host import build_host_kernel, host_run
+from _torch_host import assert_host_matches_plain, build_host_kernel
 from _torch_parity import (
     assert_bench_spec_equal, assert_oracle_traces, assert_workload_equal,
     needs_oracle, run_both,
@@ -66,13 +65,8 @@ def host_lib(tmp_path_factory):
 @pytest.mark.parametrize("n_steps,until_halted", [(CAP, True), (MID, False)],
                          ids=["run_while", "fixed"])
 def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
-    wl, cfg = t_make(), tcore.EngineConfig(**KW)
-    st = tcore.make_init(wl, cfg, device="cpu")(np.arange(32, dtype=np.uint64))
-    run = tcore.make_run_while_plain if until_halted else tcore.make_run_plain
-    want = state_to_numpy(run(wl, cfg, n_steps)(st))
-    got = state_to_numpy(host_run(host_lib, wl, cfg, st, n_steps, until_halted))
-    for name in want:
-        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert_host_matches_plain(host_lib, t_make(), tcore.EngineConfig(**KW),
+                              np.arange(32, dtype=np.uint64), n_steps, until_halted)
 
 
 def test_kernel_refuses_another_client_count():
