@@ -1,17 +1,21 @@
 """Smoke run of the torch port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # the whole run
+    python3 chip_smoke.py --groups 4,8,32 [model keys...]
+                                               # lanes-per-seed sweep only
 
 Drives the port's main path — 5-node raft leader election batched over
 seeds (``madsim_tpu_torch``) — and then every other model family of the
 port (the ``BENCH_SPECS`` and ``SOAK_SPECS`` models) through the
-hand-written CUDA run kernel, and holds each against the plain eager
-step:
+hand-written CUDA run and drain kernels, and holds each against the
+plain eager step:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. builds every model's run kernel library from ``madsim_tpu_torch/csrc``
+2. builds every model's kernel library from ``madsim_tpu_torch/csrc``
    with nvcc, one process per model, all started together, and prints
-   each kernel's registers and stack frame;
+   each kernel's registers and stack frame, and per pool its lanes per
+   seed (G), seeds per block, shared bytes per block and resident
+   blocks per SM (the card's occupancy calculator);
 3. the ``entry()`` shape (pool 128, loss 0.02, 1,024 seeds):
    ``make_step`` and a 60-step ``make_run`` through the kernel, every
    field equal to the plain step on the card;
@@ -23,13 +27,15 @@ step:
    then, phases 11-15, the five families at their full-width
    ``SOAK_SPECS`` shape (the JAX package's soak configurations):
    snapshot, twophase, paxos, leasekv and shardkv.
-   Each drives ``make_run_while`` through the kernel with the launch
-   counts read around it, checks that every seed halted with no pool
-   overflow, holds every field against the plain step on the card (run
-   once, timed that once, and counting the work of the bound) and the
-   first 256 seeds against the plain step on the CPU, and times the
-   kernel path by CUDA events (median of 5, min, max). Raft also checks
-   its election latency and splits the kernel path's time;
+   Each drives ``make_run_while`` (a run kernel and a drain kernel
+   launch) with the launch counts read around it, checks that every
+   seed halted with no pool overflow, holds every field against the
+   plain step on the card (run once, timed that once, and counting the
+   work of the bound) and the first 256 seeds against the plain step on
+   the CPU, holds the drain kernel alone against its plain version, and
+   times the kernel path by CUDA events (median of 5, min, max). Raft
+   also checks its election latency and splits the kernel path's time
+   into the run pass, the drain kernel and the rest;
 5. one JSON line describing each kernel, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
@@ -197,21 +203,41 @@ def plain_reference(wl, cfg, cap: int, st):
 
 def raft_extras(device, wl, cfg, cap: int, st, out, med: float) -> None:
     """Raft's own checks and split of the kernel path's time."""
-    from madsim_tpu_torch.engine import STATE_FIELDS
-    from madsim_tpu_torch.engine.fused import halt_counts
+    from madsim_tpu_torch.engine.fused import KERNEL, _first_pass, kernel_model
 
     if not bool((out.halt_time > 0).all()):
         raise AssertionError("a halted seed has no election latency")
     log(f"  median election latency {float(out.halt_time.double().median()) / 1e6:.3f} ms")
     if device.type == "cuda":
-        # where the kernel path's time goes: the state copy the wrapper
-        # makes, plus the run-to-halt pass; the rest is the drain pass
-        copy = time_ms(lambda: type(st)(**{f: getattr(st, f).clone() for f in STATE_FIELDS}),
-                       REPEATS, device)
-        pass1 = time_ms(lambda: halt_counts(wl, cfg, cap, st), REPEATS, device)
-        c, p1 = statistics.median(copy), statistics.median(pass1)
-        log(f"  breakdown (medians): state copy {c:.4f} ms, run-to-halt pass "
-            f"{p1 - c:.4f} ms, drain pass and the rest {med - p1:.4f} ms")
+        # where the kernel path's time goes: the run pass (the wrapper's
+        # allocations and the run kernel), the drain kernel alone, and
+        # the rest; no state is copied
+        run_ms = time_ms(lambda: _first_pass(wl, cfg, st, cap, True), REPEATS, device)
+        spec = kernel_model(wl)
+        _spec, first, iters, tmax = _first_pass(wl, cfg, st, cap, True)
+        drain_ms = []
+        for _ in range(REPEATS):
+            x = type(first)(**{**vars(first), "step": first.step.clone(),
+                               "ev_valid": first.ev_valid.clone()})
+            drain_ms += time_ms(lambda: KERNEL.drain(spec, x, iters, tmax), 1, device)
+        r, d = statistics.median(run_ms), statistics.median(drain_ms)
+        log(f"  breakdown (medians): run pass {r:.4f} ms, drain kernel {d:.4f} ms, "
+            f"the rest {med - r - d:.4f} ms (no state copy)")
+
+
+def drain_check(wl, cfg, cap: int, st) -> None:
+    """The drain kernel alone against its plain version on the card,
+    from the run kernel's stop-at-halt outputs: every seed takes its
+    ``tmax - iters`` remaining halted steps; ``step`` and ``ev_valid``
+    must be equal."""
+    from madsim_tpu_torch.engine.fused import KERNEL, _first_pass, drain_plain
+
+    spec, first, iters, tmax = _first_pass(wl, cfg, st, cap, True)
+    want_step, want_valid = drain_plain(first.step, first.ev_valid, first.ev_time,
+                                        tmax - iters)
+    KERNEL.drain(spec, first, iters, tmax)
+    if not (torch.equal(first.step, want_step) and torch.equal(first.ev_valid, want_valid)):
+        raise AssertionError(f"{spec.key}: the drain kernel disagrees with its plain version")
 
 
 def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
@@ -241,7 +267,8 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches = KERNEL.counts.get(key, 0)
-    log(f"  main path: {key} kernel launched {launches} times")
+    drains = KERNEL.counts.get(f"{key}/drain", 0)
+    log(f"  main path: {key} run kernel launched {launches} times, drain kernel {drains}")
 
     n_steps = int(out.step[0])
     if not bool((out.step == n_steps).all()):
@@ -267,6 +294,8 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
             raise AssertionError(
                 f"{key}: the kernel's stop-at-halt pass counts {counted} "
                 f"seed-steps, the plain run {seed_steps}")
+        drain_check(wl, cfg, cap, st)
+        log("  drain kernel alone vs its plain version: step and ev_valid equal")
     k = min(cpu_sample, n_seeds)
     cpu_ref = make_run_plain(wl, cfg, n_steps)(init(np.arange(k, dtype=np.uint64)).to("cpu"))
     head = type(out)(**{f: getattr(out, f)[:k] for f in STATE_FIELDS})
@@ -285,7 +314,7 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
     if extras is not None:
         extras(device, wl, cfg, cap, st, out, med)
     return dict(
-        launches=launches, err=err, ms=med, ms_all=ms, plain_ms=plain_ms[0],
+        launches=launches, drains=drains, err=err, ms=med, ms_all=ms, plain_ms=plain_ms[0],
         **bound_terms(st, out, cfg.pool_size, seed_steps, drops, sends),
     )
 
@@ -307,6 +336,18 @@ def bound_terms(st, out, pool: int, seed_steps: int, drops: int, sends: int) -> 
                 seed_steps=seed_steps, drops=drops, blocks=blocks)
 
 
+def launch_shape(spec, pool: int) -> str:
+    """G, seeds per block, shared bytes per block and resident blocks
+    per SM of a library's run and drain kernels at ``pool``."""
+    from madsim_tpu_torch.engine.fused import KERNEL
+
+    o = KERNEL.occupancy(spec, pool)
+    return (f"G {o['group']}, {o['seeds_per_block']} seeds per block of 128 threads; "
+            f"run kernel {o['run_smem_bytes']} B shared per block, "
+            f"{o['run_blocks_per_sm']} blocks per SM; drain kernel "
+            f"{o['drain_smem_bytes']} B, {o['drain_blocks_per_sm']} blocks per SM")
+
+
 def kernel_line(name: str, model_source: str, r: dict, clock_hz: float) -> dict:
     """One entry of the kernels line, with the bound computed here."""
     bytes_ms = (r["in_bytes"] + r["out_bytes"]) / HBM_BYTES_PER_S * 1e3
@@ -321,7 +362,9 @@ def kernel_line(name: str, model_source: str, r: dict, clock_hz: float) -> dict:
         "model_source": model_source,
         "replaces": "madsim_tpu/engine/vmem.py:110",
         "replaces_fn": "engine/vmem.py:make_run_vmem",
-        "launches": r["launches"],
+        "launches": r["launches"] + r["drains"],
+        "launches_run": r["launches"],
+        "launches_drain": r["drains"],
         "max_abs_err": r["err"],
         "max_abs_diff": r["err"],
         "ms": r["ms"],
@@ -334,11 +377,78 @@ def kernel_line(name: str, model_source: str, r: dict, clock_hz: float) -> dict:
     }
 
 
+def run_variant(spec, wl, cfg, cap: int, st):
+    """make_run_while through the library ``spec`` (a registered
+    model's library built at another G): the run kernel, then the
+    drain kernel."""
+    from madsim_tpu_torch.engine.fused import (
+        KERNEL, _tables, config_words, fresh_outputs,
+    )
+
+    out = fresh_outputs(st)
+    iters = torch.empty_like(st.now)
+    tmax = torch.empty((1,), dtype=torch.int64, device=st.device)
+    KERNEL.launch(spec, st, out, _tables(wl, st.device), iters, tmax,
+                  config_words(wl, cfg), cap, True)
+    KERNEL.drain(spec, out, iters, tmax)
+    return out
+
+
+def group_sweep(device, groups: list, keys: list) -> None:
+    """Time make_run_while at each model's full-width shape with G =
+    each of ``groups`` lanes per seed, in turns (the order rotates each
+    round), every variant's output equal to the registered library's."""
+    import dataclasses
+
+    from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while
+    from madsim_tpu_torch.engine.fused import MODELS, build_libraries
+    from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS
+
+    by_key = {m.key: m for m in MODELS.values()}
+    variants = {
+        (k, g): dataclasses.replace(by_key[k], key=f"{k}-g{g}", group=g)
+        for k in keys for g in groups
+    }
+    t = time.perf_counter()
+    build_libraries(variants.values())
+    log(f"[sweep] {len(variants)} libraries built in {time.perf_counter() - t:.1f} s")
+    phases = {key: (name, kw) for name, key, kw in MODEL_PHASES}
+    for key in keys:
+        spec_name, factory_kw = phases[key]
+        factory, kw, n_seeds, cap = {**SOAK_SPECS, **BENCH_SPECS}[spec_name]
+        wl, cfg = factory(**factory_kw), EngineConfig(**kw)
+        st = make_init(wl, cfg, device=device)(np.arange(n_seeds, dtype=np.uint64))
+        ref = make_run_while(wl, cfg, cap)(st)
+        times = {g: [] for g in groups}
+        for g in groups:
+            assert_equal(run_variant(variants[key, g], wl, cfg, cap, st), ref,
+                         f"{key} G={g} vs the registered library")
+        for rnd in range(REPEATS):
+            order = groups[rnd % len(groups):] + groups[:rnd % len(groups)]
+            for g in order:
+                spec = variants[key, g]
+                times[g] += time_ms(lambda: run_variant(spec, wl, cfg, cap, st), 1, device)
+        for g in groups:
+            ms = times[g]
+            log(f"  {key} G={g}: median {statistics.median(ms):.4f} ms, min {min(ms):.4f}, "
+                f"max {max(ms):.4f}; {launch_shape(variants[key, g], cfg.pool_size)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if "--groups" in sys.argv:
+        # python3 chip_smoke.py --groups 4,8,32 [model keys...]: the
+        # lanes-per-seed sweep alone
+        device = torch.device("cuda")
+        log(f"[1] card: {nvidia_smi('name,power.limit')}; torch {torch.__version__}")
+        at = sys.argv.index("--groups")
+        groups = [int(x) for x in sys.argv[at + 1].split(",")]
+        keys = sys.argv[at + 2:] or [key for _n, key, _kw in MODEL_PHASES]
+        group_sweep(device, groups, keys)
+        return 0
     from madsim_tpu_torch.engine.fused import MODELS, build_libraries
 
     device = torch.device("cuda")
@@ -352,8 +462,11 @@ def main() -> int:
     for key, (path, build_log) in libs.items():
         log(f"  {key}: {path}")
         for line in build_log.splitlines():
-            if "registers" in line or "bytes stack" in line:
+            if "registers" in line or "bytes stack" in line or "Function properties" in line:
                 log(f"    {line.strip()}")
+        spec = next(m for m in MODELS.values() if m.key == key)
+        for pool in spec.pools:
+            log(f"    pool {pool}: {launch_shape(spec, pool)}")
 
     clock = max_sm_clock_hz()
     entry_err = entry_phase(device, ENTRY_SEEDS)
@@ -368,8 +481,8 @@ def main() -> int:
         name = "make_run_fused" if raft else f"make_run_fused/{key}"
         results.append((name, f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
     for name, _src, r in results:
-        if r["launches"] < 1:
-            raise AssertionError(f"{name}: the main path never launched its run kernel")
+        if r["launches"] < 1 or r["drains"] < 1:
+            raise AssertionError(f"{name}: the main path did not launch its run and drain kernels")
         if r["err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with the plain step: {r['err']}")
     kernels = {"kernels": [kernel_line(name, src, r, clock) for name, src, r in results]}

@@ -1,5 +1,6 @@
-// One seed of the batched engine: load, step, drain, run loop and store,
-// generic over the workload.
+// One seed of the batched engine on a lane group: step, drain and run
+// loop, and a block's load and store of its seeds' state, generic over
+// the workload.
 //
 // This is the body of the fused run kernel (run_kernel.cu), which
 // replaces the JAX package's Pallas kernel
@@ -7,17 +8,33 @@
 // MADSIM_HD: __host__ __device__ under nvcc, plain C++ under g++, so
 // the same code also builds on a machine without a card and is held
 // against the plain torch step there (tests/test_torch_kernel_host.py
-// and the per-model tests).
+// and the per-model tests); lanes.cuh says how a group of G lanes runs
+// on the host.
 //
 // Semantics are those of madsim_tpu_torch/engine/core.py (the port's
 // plain step, itself held bit for bit against the JAX engine): pop the
-// first earliest valid slot; gate on liveness, epoch, clog and pause;
-// run one handler or one engine kind; place the emits into free slots
-// in pool order; fold the trace; advance the clock by the poll cost.
-// Where the plain step evaluates every handler and every threefry lane
-// and then selects, this code computes only what the selected path
-// reads: a draw is a pure function of (seed, step, purpose), so the
-// values are the same.
+// first minimum of (valid ? time : 2^62); gate on liveness, epoch, clog
+// and pause; run one handler or one engine kind; place the emits into
+// free slots in pool order; fold the trace; advance the clock by the
+// poll cost. Where the plain step evaluates every handler and every
+// threefry lane and then selects, this code computes only what the
+// selected path reads: a draw is a pure function of (seed, step,
+// purpose), so the values are the same.
+//
+// What bounds it, and the design. A run moves each seed's state in and
+// out of device memory once, and per step does an E-wide pool scan and
+// a few threefry blocks (chip_smoke.py computes both terms of the bound)
+// — integer work on a state of 1.5-7 KB a seed. The state lives in
+// shared memory (Seed, below: ev_valid as a bitmask, ev_meta as
+// uint32), loaded and stored by the whole block with neighbouring
+// threads on neighbouring addresses, 16 bytes a thread where a seed's
+// row allows. A seed's G lanes split the pop scan (E/G slots each and a
+// shuffle reduction), the emit rows (one latency draw and one placement
+// each, the j-th surviving emit into the j-th free slot by ballot and
+// popcount) and a drain's ranking; the handler and the engine kinds run
+// on the group's leader, and every lane computes the step's gates from
+// the same shared words, so they cost no divergence. The handler's new
+// row and its emit rows are shared memory too.
 //
 // The workload is a model trait M (model_*.cuh) with
 //   static constexpr int N, U, A, W, K, H;  // nodes, row width, args
@@ -33,12 +50,12 @@
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
+#include "lanes.cuh"
 #include "threefry.cuh"
 
 namespace madsim {
-
-constexpr int64_t kInfNs = int64_t(1) << 62;
 
 constexpr int32_t KIND_KILL = 0;
 constexpr int32_t KIND_RESTART = 1;
@@ -95,11 +112,11 @@ inline EngineConfig engine_config(const int64_t* c) {
   e.time_limit = c[7] ? c[7] : kInfNs;
   return e;
 }
-
-// The kernel's view of the batch: one pointer per SimState field (the
-// port's torch layout: seed-major, contiguous), the restart tables, the
-// per-seed step budget and the per-seed iteration count it returns.
-struct RunArgs {
+// One pointer per SimState field the kernel touches (the port's torch
+// layout: seed-major, contiguous), in engine/fused.py KERNEL_FIELDS
+// order. The output side has no seed, slow or skew (the kernel never
+// writes them), and ev_pay only when W > 0.
+struct Fields {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
   int64_t* step;       // (S,) uint32 value
@@ -113,59 +130,102 @@ struct RunArgs {
   int64_t* ev_meta;    // (S,E) uint32 value
   int32_t* ev_epoch;   // (S,E)
   int32_t* ev_args;    // (S,E,A)
-  int32_t* ev_pay;     // (S,E,W); unused when W == 0
+  int32_t* ev_pay;     // (S,E,W)
   uint8_t* alive;      // (S,N)
   uint8_t* paused;     // (S,N)
   int32_t* epoch;      // (S,N)
   int32_t* node_state; // (S,N,U)
   uint8_t* clog;       // (S,N,N)
-  int32_t* slow;       // (S,N,N), read only
-  int32_t* skew;       // (S,N), read only
-  const int32_t* init_rows;  // (N,U)
+  int32_t* slow;       // (S,N,N)
+  int32_t* skew;       // (S,N)
+};
+
+constexpr int kFieldPointers = 21;
+
+inline Fields fields(void* const* p) {
+  Fields f;
+  f.seed = static_cast<int64_t*>(p[0]);
+  f.now = static_cast<int64_t*>(p[1]);
+  f.step = static_cast<int64_t*>(p[2]);
+  f.halted = static_cast<uint8_t*>(p[3]);
+  f.halt_time = static_cast<int64_t*>(p[4]);
+  f.trace = static_cast<int64_t*>(p[5]);
+  f.overflow = static_cast<int32_t*>(p[6]);
+  f.msg_count = static_cast<int64_t*>(p[7]);
+  f.ev_time = static_cast<int64_t*>(p[8]);
+  f.ev_valid = static_cast<uint8_t*>(p[9]);
+  f.ev_meta = static_cast<int64_t*>(p[10]);
+  f.ev_epoch = static_cast<int32_t*>(p[11]);
+  f.ev_args = static_cast<int32_t*>(p[12]);
+  f.ev_pay = static_cast<int32_t*>(p[13]);
+  f.alive = static_cast<uint8_t*>(p[14]);
+  f.paused = static_cast<uint8_t*>(p[15]);
+  f.epoch = static_cast<int32_t*>(p[16]);
+  f.node_state = static_cast<int32_t*>(p[17]);
+  f.clog = static_cast<uint8_t*>(p[18]);
+  f.slow = static_cast<int32_t*>(p[19]);
+  f.skew = static_cast<int32_t*>(p[20]);
+  return f;
+}
+
+// One launch of the run kernel: the input state (read only), the fresh
+// output state (written only), the restart tables, each seed's
+// iteration count and their maximum (tmax, may be null), and the step
+// budget every seed gets.
+struct RunArgs {
+  Fields in, out;
+  const int32_t* init_rows;      // (N,U)
   const uint8_t* volatile_cols;  // (U,)
-  const int64_t* budget;  // (S,) steps this launch may take
-  int64_t* iters;         // (S,) steps taken before a halt stopped it
+  int64_t* iters;                // (S,) steps taken before a halt stopped it
+  int64_t* tmax;                 // (1,) max of iters
   int64_t n_seeds;
-  int32_t stop_at_halt;   // 1: a seed stops at its halt; 0: it drains
+  int64_t budget;
+  int32_t stop_at_halt;  // 1: a seed stops at its halt; 0: it drains
   EngineConfig cfg;
 };
 
-constexpr int kRunPointers = 25;
+constexpr int kRunPointers = 2 * kFieldPointers + 4;
 
-// p: the 25 pointers in RunArgs order (engine/fused.py KERNEL_FIELDS,
-// then the tables, budget and iters); c: the engine's config words
+// p: the input fields, the output fields, the two tables, iters and
+// tmax (engine/fused.py kernel_args); c: the engine's config words
 inline RunArgs run_args(void* const* p, const int64_t* c, int64_t n_seeds,
-                        int32_t stop_at_halt) {
+                        int64_t budget, int32_t stop_at_halt) {
   RunArgs a;
-  a.seed = static_cast<int64_t*>(p[0]);
-  a.now = static_cast<int64_t*>(p[1]);
-  a.step = static_cast<int64_t*>(p[2]);
-  a.halted = static_cast<uint8_t*>(p[3]);
-  a.halt_time = static_cast<int64_t*>(p[4]);
-  a.trace = static_cast<int64_t*>(p[5]);
-  a.overflow = static_cast<int32_t*>(p[6]);
-  a.msg_count = static_cast<int64_t*>(p[7]);
-  a.ev_time = static_cast<int64_t*>(p[8]);
-  a.ev_valid = static_cast<uint8_t*>(p[9]);
-  a.ev_meta = static_cast<int64_t*>(p[10]);
-  a.ev_epoch = static_cast<int32_t*>(p[11]);
-  a.ev_args = static_cast<int32_t*>(p[12]);
-  a.ev_pay = static_cast<int32_t*>(p[13]);
-  a.alive = static_cast<uint8_t*>(p[14]);
-  a.paused = static_cast<uint8_t*>(p[15]);
-  a.epoch = static_cast<int32_t*>(p[16]);
-  a.node_state = static_cast<int32_t*>(p[17]);
-  a.clog = static_cast<uint8_t*>(p[18]);
-  a.slow = static_cast<int32_t*>(p[19]);
-  a.skew = static_cast<int32_t*>(p[20]);
-  a.init_rows = static_cast<const int32_t*>(p[21]);
-  a.volatile_cols = static_cast<const uint8_t*>(p[22]);
-  a.budget = static_cast<const int64_t*>(p[23]);
-  a.iters = static_cast<int64_t*>(p[24]);
+  a.in = fields(p);
+  a.out = fields(p + kFieldPointers);
+  a.init_rows = static_cast<const int32_t*>(p[2 * kFieldPointers]);
+  a.volatile_cols = static_cast<const uint8_t*>(p[2 * kFieldPointers + 1]);
+  a.iters = static_cast<int64_t*>(p[2 * kFieldPointers + 2]);
+  a.tmax = static_cast<int64_t*>(p[2 * kFieldPointers + 3]);
   a.n_seeds = n_seeds;
+  a.budget = budget;
   a.stop_at_halt = stop_at_halt;
   a.cfg = engine_config(c);
   return a;
+}
+
+// One launch of the drain kernel, in place on a run's output: each
+// seed takes its remaining tmax - iters halted steps.
+struct DrainArgs {
+  int64_t* step;           // (S,)
+  uint8_t* ev_valid;       // (S,E)
+  const int64_t* ev_time;  // (S,E)
+  const int64_t* iters;    // (S,)
+  const int64_t* tmax;     // (1,)
+  int64_t n_seeds;
+};
+
+constexpr int kDrainPointers = 5;
+
+inline DrainArgs drain_args(void* const* p, int64_t n_seeds) {
+  DrainArgs d;
+  d.step = static_cast<int64_t*>(p[0]);
+  d.ev_valid = static_cast<uint8_t*>(p[1]);
+  d.ev_time = static_cast<const int64_t*>(p[2]);
+  d.iters = static_cast<const int64_t*>(p[3]);
+  d.tmax = static_cast<const int64_t*>(p[4]);
+  d.n_seeds = n_seeds;
+  return d;
 }
 
 MADSIM_HDI int32_t clampi(int32_t x, int32_t lo, int32_t hi) {
@@ -223,6 +283,18 @@ struct Emit {
   }
 };
 
+// The user draw purposes a model declares (Workload.draw_purposes). A
+// seed's lanes draw them at the start of every step, beside the emit
+// rows' latency draws, so the handler reads them from shared memory
+// instead of waiting on a threefry block. The unit engine/fused.py
+// writes specializes this for its model; a purpose it does not list is
+// drawn where the handler asks for it.
+template <class M>
+struct UserDraws {
+  static constexpr int n = 0;
+  static MADSIM_HDI uint32_t purpose(int) { return 0; }
+};
+
 // What a handler sees (the port's HandlerCtx, one seed), with the
 // counter-based draws of engine/rng.py Draw.
 template <class M>
@@ -233,8 +305,11 @@ struct Ctx {
   const int32_t* pay;    // (W,)
   int64_t now;           // the clock plus the node's skew
   uint32_t k0, k1, step;
+  const uint32_t* drawn;  // (UserDraws<M>::n,) this step's declared draws
 
   MADSIM_HDI uint32_t user(uint32_t purpose) const {
+    for (int d = 0; d < UserDraws<M>::n; d++)
+      if (UserDraws<M>::purpose(d) == purpose) return drawn[d];
     uint32_t b0, b1;
     threefry2x32(k0, k1, step, PURPOSE_USER + purpose, &b0, &b1);
     return b0;
@@ -244,109 +319,6 @@ struct Ctx {
   }
 };
 
-// One seed's state, held in thread-local arrays for the whole run.
-template <class M, int E>
-struct Seed {
-  static constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
-  uint64_t seed;
-  int64_t now;
-  uint32_t step;
-  bool halted;
-  int64_t halt_time;
-  uint64_t trace;
-  int32_t overflow;
-  int64_t msg_count;
-  int64_t ev_time[E];
-  bool ev_valid[E];
-  uint32_t ev_meta[E];
-  int32_t ev_epoch[E];
-  int32_t ev_args[E][A];
-  int32_t ev_pay[E][W > 0 ? W : 1];
-  bool alive[N];
-  bool paused[N];
-  int32_t epoch[N];
-  int32_t skew[N];
-  int32_t node_state[N][U];
-  bool clog[N][N];
-  int32_t slow[N][N];
-};
-
-template <class M, int E>
-MADSIM_HD void seed_load(Seed<M, E>& s, const RunArgs& a, int64_t i) {
-  constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
-  s.seed = static_cast<uint64_t>(a.seed[i]);
-  s.now = a.now[i];
-  s.step = static_cast<uint32_t>(a.step[i]);
-  s.halted = a.halted[i] != 0;
-  s.halt_time = a.halt_time[i];
-  s.trace = static_cast<uint64_t>(a.trace[i]);
-  s.overflow = a.overflow[i];
-  s.msg_count = a.msg_count[i];
-  for (int e = 0; e < E; e++) {
-    const int64_t j = i * E + e;
-    s.ev_time[e] = a.ev_time[j];
-    s.ev_valid[e] = a.ev_valid[j] != 0;
-    s.ev_meta[e] = static_cast<uint32_t>(a.ev_meta[j]);
-    s.ev_epoch[e] = a.ev_epoch[j];
-    for (int w = 0; w < A; w++) s.ev_args[e][w] = a.ev_args[j * A + w];
-    for (int w = 0; w < W; w++) s.ev_pay[e][w] = a.ev_pay[j * W + w];
-  }
-  for (int n = 0; n < N; n++) {
-    const int64_t j = i * N + n;
-    s.alive[n] = a.alive[j] != 0;
-    s.paused[n] = a.paused[j] != 0;
-    s.epoch[n] = a.epoch[j];
-    s.skew[n] = a.skew[j];
-    for (int u = 0; u < U; u++) s.node_state[n][u] = a.node_state[j * U + u];
-    for (int m = 0; m < N; m++) {
-      s.clog[n][m] = a.clog[j * N + m] != 0;
-      s.slow[n][m] = a.slow[j * N + m];
-    }
-  }
-}
-
-template <class M, int E>
-MADSIM_HD void seed_store(const Seed<M, E>& s, const RunArgs& a, int64_t i) {
-  constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
-  a.now[i] = s.now;
-  a.step[i] = static_cast<int64_t>(s.step);
-  a.halted[i] = s.halted ? 1 : 0;
-  a.halt_time[i] = s.halt_time;
-  a.trace[i] = static_cast<int64_t>(s.trace);
-  a.overflow[i] = s.overflow;
-  a.msg_count[i] = s.msg_count;
-  for (int e = 0; e < E; e++) {
-    const int64_t j = i * E + e;
-    a.ev_time[j] = s.ev_time[e];
-    a.ev_valid[j] = s.ev_valid[e] ? 1 : 0;
-    a.ev_meta[j] = static_cast<int64_t>(s.ev_meta[e]);
-    a.ev_epoch[j] = s.ev_epoch[e];
-    for (int w = 0; w < A; w++) a.ev_args[j * A + w] = s.ev_args[e][w];
-    for (int w = 0; w < W; w++) a.ev_pay[j * W + w] = s.ev_pay[e][w];
-  }
-  for (int n = 0; n < N; n++) {
-    const int64_t j = i * N + n;
-    a.alive[j] = s.alive[n] ? 1 : 0;
-    a.paused[j] = s.paused[n] ? 1 : 0;
-    a.epoch[j] = s.epoch[n];
-    for (int u = 0; u < U; u++) a.node_state[j * U + u] = s.node_state[n][u];
-    for (int m = 0; m < N; m++) a.clog[j * N + m] = s.clog[n][m] ? 1 : 0;
-  }
-}
-
-template <class M, int E>
-MADSIM_HDI int first_min(const Seed<M, E>& s) {
-  int i = 0;
-  int64_t best = kInfNs;
-  for (int e = 0; e < E; e++) {
-    const int64_t t = s.ev_valid[e] ? s.ev_time[e] : kInfNs;
-    if (t < best) {
-      best = t;
-      i = e;
-    }
-  }
-  return i;
-}
 
 // the port's _trace_fold: args word j shifted by 8j, and the payload
 // term sum_j p_j * (MIX ^ j) mod 2^64 (absent when W == 0)
@@ -369,10 +341,286 @@ MADSIM_HDI uint64_t trace_fold(uint64_t trace, int64_t now, int32_t kind,
   return trace * kTracePrime + h;
 }
 
-// One engine step. Returns false when the pool held no valid event:
-// such a step changes nothing but `step`, and so does every later one.
+
+// One seed's state for the whole run, in the block's shared memory
+// (a plain struct on the host): the pool's valid flags as a bitmask, the
+// event meta words as uint32, the handler's new row and emit rows.
 template <class M, int E>
-MADSIM_HD bool engine_step(Seed<M, E>& s, const EngineConfig& c,
+struct Seed {
+  static constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K;
+  int64_t ev_time[E];
+  uint64_t seed;
+  int64_t now;
+  int64_t halt_time;
+  uint64_t trace;
+  int64_t msg_count;
+  Emit<A, W> em[K + 1];
+  uint32_t ev_meta[E];
+  int32_t ev_epoch[E];
+  int32_t ev_args[E * A];
+  int32_t ev_pay[W > 0 ? E * W : 1];
+  uint32_t ev_bits[PoolBits<E>::NW];
+  int32_t epoch[N];
+  int32_t skew[N];
+  int32_t node_state[N * U];
+  int32_t slow[N * N];
+  int32_t new_row[U];
+  // this step's draws: the emit rows' latency blocks and the declared
+  // user purposes' first words
+  uint32_t lat0[K + 1];
+  uint32_t lat1[K + 1];
+  uint32_t user0[UserDraws<M>::n > 0 ? UserDraws<M>::n : 1];
+  uint32_t step;
+  int32_t overflow;
+  bool alive[N];
+  bool paused[N];
+  bool clog[N * N];
+  bool halted;
+};
+
+MADSIM_HDI void block_sync() {
+#ifdef __CUDA_ARCH__
+  __syncthreads();
+#endif
+}
+
+struct alignas(16) Vec16 {
+  uint32_t w[4];
+};
+
+// The block's slice of a (S, C) field, seeds [first, first + nb): thread
+// `tid` of `nt` takes elements tid, tid + nt, ..., so neighbouring
+// threads read neighbouring addresses, 16 bytes at a time where a seed's
+// row is a whole number of 16-byte words and the slice is aligned.
+// put(b, k, v) keeps element k of the block's seed b.
+template <int C, class T, class F>
+MADSIM_HDI void rows_in(const T* g, int64_t first, int nb, int tid, int nt,
+                        F put) {
+  if constexpr (C > 0) {
+    const T* src = g + first * C;
+    const int n = nb * C;
+    if constexpr ((C * sizeof(T)) % 16 == 0) {
+      constexpr int V = 16 / sizeof(T);
+      if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+        const Vec16* v = reinterpret_cast<const Vec16*>(src);
+        for (int q = tid; q < n / V; q += nt) {
+          const Vec16 w = v[q];
+          T e[V];
+          memcpy(e, &w, 16);
+          for (int k = 0; k < V; k++) put((q * V + k) / C, (q * V + k) % C, e[k]);
+        }
+        return;
+      }
+    }
+    for (int idx = tid; idx < n; idx += nt) put(idx / C, idx % C, src[idx]);
+  }
+}
+
+// the same for a store: get(b, k) gives element k of seed b
+template <int C, class T, class F>
+MADSIM_HDI void rows_out(T* g, int64_t first, int nb, int tid, int nt, F get) {
+  if constexpr (C > 0) {
+    T* dst = g + first * C;
+    const int n = nb * C;
+    if constexpr ((C * sizeof(T)) % 16 == 0) {
+      constexpr int V = 16 / sizeof(T);
+      if ((reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+        Vec16* v = reinterpret_cast<Vec16*>(dst);
+        for (int q = tid; q < n / V; q += nt) {
+          T e[V];
+          for (int k = 0; k < V; k++) e[k] = get((q * V + k) / C, (q * V + k) % C);
+          Vec16 w;
+          memcpy(&w, e, 16);
+          v[q] = w;
+        }
+        return;
+      }
+    }
+    for (int idx = tid; idx < n; idx += nt) dst[idx] = get(idx / C, idx % C);
+  }
+}
+
+// load seeds [first, first + nb) of a.in into blk, with every thread of
+// the block; ends with a block barrier
+template <class M, int E>
+MADSIM_HD void block_load(Seed<M, E>* blk, const Fields& f, int64_t first,
+                          int nb, int tid, int nt) {
+  constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
+  constexpr int NW = PoolBits<E>::NW;
+  for (int x = tid; x < nb * NW; x += nt) blk[x / NW].ev_bits[x % NW] = 0;
+  rows_in<1>(f.seed, first, nb, tid, nt,
+             [&](int b, int, int64_t v) { blk[b].seed = static_cast<uint64_t>(v); });
+  rows_in<1>(f.now, first, nb, tid, nt, [&](int b, int, int64_t v) { blk[b].now = v; });
+  rows_in<1>(f.step, first, nb, tid, nt,
+             [&](int b, int, int64_t v) { blk[b].step = static_cast<uint32_t>(v); });
+  rows_in<1>(f.halted, first, nb, tid, nt,
+             [&](int b, int, uint8_t v) { blk[b].halted = v != 0; });
+  rows_in<1>(f.halt_time, first, nb, tid, nt,
+             [&](int b, int, int64_t v) { blk[b].halt_time = v; });
+  rows_in<1>(f.trace, first, nb, tid, nt,
+             [&](int b, int, int64_t v) { blk[b].trace = static_cast<uint64_t>(v); });
+  rows_in<1>(f.overflow, first, nb, tid, nt,
+             [&](int b, int, int32_t v) { blk[b].overflow = v; });
+  rows_in<1>(f.msg_count, first, nb, tid, nt,
+             [&](int b, int, int64_t v) { blk[b].msg_count = v; });
+  rows_in<E>(f.ev_time, first, nb, tid, nt,
+             [&](int b, int k, int64_t v) { blk[b].ev_time[k] = v; });
+  rows_in<E>(f.ev_meta, first, nb, tid, nt,
+             [&](int b, int k, int64_t v) { blk[b].ev_meta[k] = static_cast<uint32_t>(v); });
+  rows_in<E>(f.ev_epoch, first, nb, tid, nt,
+             [&](int b, int k, int32_t v) { blk[b].ev_epoch[k] = v; });
+  rows_in<E * A>(f.ev_args, first, nb, tid, nt,
+                 [&](int b, int k, int32_t v) { blk[b].ev_args[k] = v; });
+  rows_in<E * W>(f.ev_pay, first, nb, tid, nt,
+                 [&](int b, int k, int32_t v) { blk[b].ev_pay[k] = v; });
+  rows_in<N>(f.alive, first, nb, tid, nt,
+             [&](int b, int k, uint8_t v) { blk[b].alive[k] = v != 0; });
+  rows_in<N>(f.paused, first, nb, tid, nt,
+             [&](int b, int k, uint8_t v) { blk[b].paused[k] = v != 0; });
+  rows_in<N>(f.epoch, first, nb, tid, nt,
+             [&](int b, int k, int32_t v) { blk[b].epoch[k] = v; });
+  rows_in<N>(f.skew, first, nb, tid, nt,
+             [&](int b, int k, int32_t v) { blk[b].skew[k] = v; });
+  rows_in<N * U>(f.node_state, first, nb, tid, nt,
+                 [&](int b, int k, int32_t v) { blk[b].node_state[k] = v; });
+  rows_in<N * N>(f.clog, first, nb, tid, nt,
+                 [&](int b, int k, uint8_t v) { blk[b].clog[k] = v != 0; });
+  rows_in<N * N>(f.slow, first, nb, tid, nt,
+                 [&](int b, int k, int32_t v) { blk[b].slow[k] = v; });
+  block_sync();  // the bits are zero before any thread sets one
+  rows_in<E>(f.ev_valid, first, nb, tid, nt, [&](int b, int k, uint8_t v) {
+    if (v) set_bit_shared(blk[b].ev_bits, k);
+  });
+  block_sync();
+}
+
+// store blk into seeds [first, first + nb) of f, every field the kernel
+// writes; the caller has passed a block barrier
+template <class M, int E>
+MADSIM_HD void block_store(const Seed<M, E>* blk, const Fields& f,
+                           int64_t first, int nb, int tid, int nt) {
+  constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
+  rows_out<1>(f.now, first, nb, tid, nt, [&](int b, int) { return blk[b].now; });
+  rows_out<1>(f.step, first, nb, tid, nt,
+              [&](int b, int) { return static_cast<int64_t>(blk[b].step); });
+  rows_out<1>(f.halted, first, nb, tid, nt,
+              [&](int b, int) { return static_cast<uint8_t>(blk[b].halted); });
+  rows_out<1>(f.halt_time, first, nb, tid, nt,
+              [&](int b, int) { return blk[b].halt_time; });
+  rows_out<1>(f.trace, first, nb, tid, nt,
+              [&](int b, int) { return static_cast<int64_t>(blk[b].trace); });
+  rows_out<1>(f.overflow, first, nb, tid, nt, [&](int b, int) { return blk[b].overflow; });
+  rows_out<1>(f.msg_count, first, nb, tid, nt,
+              [&](int b, int) { return blk[b].msg_count; });
+  rows_out<E>(f.ev_time, first, nb, tid, nt,
+              [&](int b, int k) { return blk[b].ev_time[k]; });
+  rows_out<E>(f.ev_valid, first, nb, tid, nt, [&](int b, int k) {
+    return static_cast<uint8_t>(PoolBits<E>::get(blk[b].ev_bits, k));
+  });
+  rows_out<E>(f.ev_meta, first, nb, tid, nt,
+              [&](int b, int k) { return static_cast<int64_t>(blk[b].ev_meta[k]); });
+  rows_out<E>(f.ev_epoch, first, nb, tid, nt,
+              [&](int b, int k) { return blk[b].ev_epoch[k]; });
+  rows_out<E * A>(f.ev_args, first, nb, tid, nt,
+                  [&](int b, int k) { return blk[b].ev_args[k]; });
+  rows_out<E * W>(f.ev_pay, first, nb, tid, nt,
+                  [&](int b, int k) { return blk[b].ev_pay[k]; });
+  rows_out<N>(f.alive, first, nb, tid, nt,
+              [&](int b, int k) { return static_cast<uint8_t>(blk[b].alive[k]); });
+  rows_out<N>(f.paused, first, nb, tid, nt,
+              [&](int b, int k) { return static_cast<uint8_t>(blk[b].paused[k]); });
+  rows_out<N>(f.epoch, first, nb, tid, nt, [&](int b, int k) { return blk[b].epoch[k]; });
+  rows_out<N * U>(f.node_state, first, nb, tid, nt,
+                  [&](int b, int k) { return blk[b].node_state[k]; });
+  rows_out<N * N>(f.clog, first, nb, tid, nt,
+                  [&](int b, int k) { return static_cast<uint8_t>(blk[b].clog[k]); });
+}
+
+
+// zero the emit rows, row j by lane j mod G
+template <class M, int G>
+MADSIM_HDI void clear_rows(const Lanes<G>& g, Emit<M::A, M::W>* em) {
+  g.each([&](int l) {
+    for (int j = l; j <= M::K; j += G) em[j].clear();
+  });
+}
+
+// Place the dispatch's emit rows, lane l taking rows l, l + G, ...: loss,
+// dead destinations and latency (its draw taken at the step's start),
+// then the j-th surviving emit into the j-th free slot, its rank from a
+// ballot and its slot from the free bits. The lanes zero their rows for
+// the next dispatch; the leader marks the slots taken and counts sends
+// and overflow.
+template <class M, int E, int G>
+MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
+                           const EngineConfig& c, int64_t now_after,
+                           int32_t dst, bool in_range, int dst_c) {
+  constexpr int N = M::N, A = M::A, W = M::W, R = M::K + 1;
+  using B = PoolBits<E>;
+  int kept = 0, sends = 0;
+  for (int j0 = 0; j0 < R; j0 += G) {
+    PerLane<bool, G> keep, sent;
+    PerLane<int64_t, G> when;
+    g.each([&](int l) {
+      keep[l] = false;
+      sent[l] = false;
+      when[l] = 0;
+      const int j = j0 + l;
+      if (j >= R) return;
+      const Emit<A, W>& e = s.em[j];
+      if (!e.valid) return;
+      const bool em_in_range = e.dst >= 0 && e.dst < N;
+      const int em_c = clampi(e.dst, 0, N - 1);
+      if (e.send) {
+        sent[l] = true;
+        const uint32_t l0 = s.lat0[j], l1 = s.lat1[j];
+        if (static_cast<uint64_t>(l1) < c.loss_u32) return;  // lost
+        if (!(em_in_range && s.alive[em_c])) return;         // dead destination
+        int64_t lat = c.lat_min + static_cast<int64_t>(l0 % c.lat_span);
+        const int32_t mult = (in_range && em_in_range) ? s.slow[dst_c * N + em_c] : 1;
+        if (mult > 1) lat *= mult;
+        when[l] = now_after + lat;
+      } else {
+        when[l] = now_after + e.delay;
+      }
+      keep[l] = true;
+    });
+    const uint32_t ballot = g.ballot(keep);
+    sends += popc32(g.ballot(sent));
+    g.each([&](int l) {
+      if (!keep[l]) return;
+      const int slot = B::nth_free(s.ev_bits, kept + popc32(ballot & ((1u << l) - 1u)));
+      if (slot < 0) return;  // overflow, counted below
+      const Emit<A, W>& e = s.em[j0 + l];
+      const bool em_in_range = e.dst >= 0 && e.dst < N;
+      const bool em_engine = e.kind < FIRST_USER_KIND || e.kind >= FIRST_EXT_KIND;
+      const int32_t mk = e.kind < 0 ? KIND_NOP : (e.kind > 255 ? 255 : e.kind);
+      const int32_t node1 = clampi(e.dst, -1, N) + 1;
+      const int32_t src1 = e.send ? clampi(dst, -1, N) + 1 : 0;
+      s.ev_time[slot] = when[l];
+      s.ev_meta[slot] = static_cast<uint32_t>(mk) | (static_cast<uint32_t>(node1) << 8) |
+                        (static_cast<uint32_t>(src1) << 16);
+      s.ev_epoch[slot] =
+          (em_engine || !em_in_range) ? 0 : s.epoch[clampi(e.dst, 0, N - 1)];
+      for (int w = 0; w < A; w++) s.ev_args[slot * A + w] = e.args[w];
+      for (int w = 0; w < W; w++) s.ev_pay[slot * W + w] = e.pay[w];
+    });
+    kept += popc32(ballot);
+  }
+  clear_rows<M, G>(g, s.em);
+  g.sync();  // every lane has read the free bits
+  if (g.leader()) {
+    s.msg_count += sends;
+    s.overflow += kept - B::fill_first_free(s.ev_bits, kept);
+  }
+}
+
+// One engine step of one seed on its lane group. Returns false when the
+// pool held no valid event: such a step changes nothing but `step`, and
+// so does every later one. Every lane computes the gates from the same
+// shared words; the leader writes.
+template <class M, int E, int G>
+MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig& c,
                            const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols) {
@@ -382,13 +630,38 @@ MADSIM_HD bool engine_step(Seed<M, E>& s, const EngineConfig& c,
   // ev_meta packs the kind and node + 1 in one byte each
   static_assert(FIRST_USER_KIND + H - 1 < 256, "user kinds fit a byte");
   static_assert(N < 255, "node + 1 fits a byte");
+  constexpr int R = K + 1, D = R + UserDraws<M>::n;
+  const uint32_t k0 = static_cast<uint32_t>(s.seed);
+  const uint32_t k1 = static_cast<uint32_t>(s.seed >> 32);
+  const uint32_t step = s.step;
+  // ---- this step's draws, a few per lane, beside the pop: they depend
+  // on (seed, step) alone; a step that dispatches nothing wastes them ----
+  g.each([&](int l) {
+    for (int d = l; d < D; d += G) {
+      uint32_t x0, x1;
+      const uint32_t purpose = d < R ? PURPOSE_LATENCY + static_cast<uint32_t>(d)
+                                     : PURPOSE_USER + UserDraws<M>::purpose(d - R);
+      threefry2x32(k0, k1, step, purpose, &x0, &x1);
+      if (d < R) {
+        s.lat0[d] = x0;
+        s.lat1[d] = x1;
+      } else {
+        s.user0[d - R] = x0;
+      }
+    }
+  });
+  // poll cost (word 0) and clog-recheck jitter (word 1): one block, on
+  // every lane, so that no lane waits for it
+  uint32_t b0, b1;
+  threefry2x32(k0, k1, step, PURPOSE_POLL_COST, &b0, &b1);
   // ---- pop the earliest pending event (first minimum) ----
-  const int i = first_min(s);
-  const bool has_event = s.ev_valid[i];
+  const int i = pop_slot<E, G>(g, s.ev_bits, s.ev_time);
+  const bool has_event = PoolBits<E>::get(s.ev_bits, i);
   const int64_t ev_time_i = s.ev_time[i];
   const int64_t ev_t = ev_time_i > s.now ? ev_time_i : s.now;
   const bool over_limit = ev_t > c.time_limit;
-  const bool active = has_event && !s.halted && !over_limit;
+  const bool was_halted = s.halted;
+  const bool active = has_event && !was_halted && !over_limit;
 
   const uint32_t meta = s.ev_meta[i];
   const int32_t kind = static_cast<int32_t>(meta & 0xFFu);
@@ -398,8 +671,8 @@ MADSIM_HD bool engine_step(Seed<M, E>& s, const EngineConfig& c,
   // the popped event's words, copied: placement may reuse its slot
   int32_t args[A];
   int32_t pay[W > 0 ? W : 1];
-  for (int j = 0; j < A; j++) args[j] = s.ev_args[i][j];
-  for (int j = 0; j < W; j++) pay[j] = s.ev_pay[i][j];
+  for (int j = 0; j < A; j++) args[j] = s.ev_args[i * A + j];
+  for (int j = 0; j < W; j++) pay[j] = s.ev_pay[i * W + j];
   const int32_t a0 = args[0];
   const int32_t ev_epoch_i = s.ev_epoch[i];
   const bool is_engine = kind < FIRST_USER_KIND || kind >= FIRST_EXT_KIND;
@@ -412,21 +685,17 @@ MADSIM_HD bool engine_step(Seed<M, E>& s, const EngineConfig& c,
   const bool live =
       alive_dst && (epoch_dst == ev_epoch_i || ev_epoch_i == -1);
   const bool clogged =
-      is_msg && in_range && s.clog[clampi(src, 0, N - 1)][dst_c];
+      is_msg && in_range && s.clog[clampi(src, 0, N - 1) * N + dst_c];
   const bool held = !is_engine && paused_dst;
   const bool blocked = clogged || held;
   const bool dispatch = active && !blocked && (is_engine || live);
   const bool resched = active && blocked && (is_engine || live);
 
   const int64_t now = active ? ev_t : s.now;
-  const uint32_t k0 = static_cast<uint32_t>(s.seed);
-  const uint32_t k1 = static_cast<uint32_t>(s.seed >> 32);
-  int64_t now_after = now;
-  // poll cost (lane 0) and clog-recheck jitter (lane 1): one block
-  if (dispatch || resched) {
-    uint32_t b0, b1;
-    threefry2x32(k0, k1, s.step, PURPOSE_POLL_COST, &b0, &b1);
-    if (dispatch) now_after = now + c.proc_min + static_cast<int64_t>(b0 % c.proc_span);
+  const int64_t now_after =
+      dispatch ? now + c.proc_min + static_cast<int64_t>(b0 % c.proc_span) : now;
+  g.sync();  // every lane has read the popped slot; the draws are stored
+  if (g.leader()) {
     if (resched) {
       const int shift = retries < 34 ? retries : 34;
       int64_t backoff = static_cast<int64_t>(
@@ -436,168 +705,201 @@ MADSIM_HD bool engine_step(Seed<M, E>& s, const EngineConfig& c,
       s.ev_time[i] = now + backoff;
       const uint32_t bumped = static_cast<uint32_t>(retries + 1 < 255 ? retries + 1 : 255);
       s.ev_meta[i] = (meta & 0x00FFFFFFu) | (bumped << 24);
+    } else {
+      // consume the popped slot (a halted seed's step drains it too)
+      s.ev_bits[i >> 5] &= ~(1u << (i & 31));
     }
   }
-  // consume the popped slot (a halted seed's step drains it too)
-  s.ev_valid[i] = resched;
 
   if (dispatch) {
-    Emit<A, W> em[K + 1];
-    for (int j = 0; j <= K; j++) em[j].clear();
-    if (!is_engine) {
-      // user dispatch implies a live, in-range node
-      int32_t ns[U];
-      for (int u = 0; u < U; u++) ns[u] = s.node_state[dst_c][u];
-      Ctx<M> ctx;
-      ctx.state = s.node_state[dst_c];
-      ctx.node = dst;
-      ctx.src = src;
-      ctx.args = args;
-      ctx.pay = pay;
-      ctx.now = now + static_cast<int64_t>(s.skew[dst_c]);
-      ctx.k0 = k0;
-      ctx.k1 = k1;
-      ctx.step = s.step;
-      M::handle(clampi(kind - FIRST_USER_KIND, 0, H - 1), ctx, mp, ns, em);
-      for (int u = 0; u < U; u++) s.node_state[dst_c][u] = ns[u];
-    } else if (kind == KIND_KILL || kind == KIND_RESTART) {
-      const bool restart = kind == KIND_RESTART;
-      if (a0 >= 0 && a0 < N) {
-        s.alive[a0] = restart;
-        s.paused[a0] = false;
-        s.epoch[a0] += 1;
-        if (restart) {
-          for (int u = 0; u < U; u++)
-            if (volatile_cols[u]) s.node_state[a0][u] = init_rows[a0 * U + u];
+    if (g.leader()) {
+      if (!is_engine) {
+        // user dispatch implies a live, in-range node
+        int32_t* row = s.node_state + dst_c * U;
+        for (int u = 0; u < U; u++) s.new_row[u] = row[u];
+        Ctx<M> ctx;
+        ctx.state = row;
+        ctx.node = dst;
+        ctx.src = src;
+        ctx.args = args;
+        ctx.pay = pay;
+        ctx.now = now + static_cast<int64_t>(s.skew[dst_c]);
+        ctx.k0 = k0;
+        ctx.k1 = k1;
+        ctx.step = step;
+        ctx.drawn = s.user0;
+        M::handle(clampi(kind - FIRST_USER_KIND, 0, H - 1), ctx, mp, s.new_row, s.em);
+        for (int u = 0; u < U; u++) row[u] = s.new_row[u];
+      } else if (kind == KIND_KILL || kind == KIND_RESTART) {
+        const bool restart = kind == KIND_RESTART;
+        if (a0 >= 0 && a0 < N) {
+          s.alive[a0] = restart;
+          s.paused[a0] = false;
+          s.epoch[a0] += 1;
+          if (restart) {
+            for (int u = 0; u < U; u++)
+              if (volatile_cols[u]) s.node_state[a0 * U + u] = init_rows[a0 * U + u];
+          }
         }
+        // the reborn node re-runs on_init: a timer row after the user
+        // slots, zero args and payload
+        if (restart) s.em[K].after(true, 0, FIRST_USER_KIND, a0);
+      } else if (kind == KIND_PAUSE || kind == KIND_RESUME) {
+        if (a0 >= 0 && a0 < N) s.paused[a0] = kind == KIND_PAUSE;
+      } else if (kind >= KIND_CLOG && kind <= KIND_UNCLOG_NODE) {
+        const bool on = kind == KIND_CLOG || kind == KIND_CLOG_NODE;
+        const bool node_wide = kind == KIND_CLOG_NODE || kind == KIND_UNCLOG_NODE;
+        const int32_t ca = a0, cb = node_wide ? -1 : args[1];
+        for (int x = 0; x < N; x++)
+          for (int y = 0; y < N; y++) {
+            const bool sel = (x == ca && y == cb) || (x == cb && y == ca) ||
+                             (cb < 0 && (x == ca || y == ca));
+            if (sel) s.clog[x * N + y] = on;
+          }
       }
-      // the reborn node re-runs on_init: a timer row after the user
-      // slots, zero args and payload
-      if (restart) em[K].after(true, 0, FIRST_USER_KIND, a0);
-    } else if (kind == KIND_PAUSE || kind == KIND_RESUME) {
-      if (a0 >= 0 && a0 < N) s.paused[a0] = kind == KIND_PAUSE;
-    } else if (kind >= KIND_CLOG && kind <= KIND_UNCLOG_NODE) {
-      const bool on = kind == KIND_CLOG || kind == KIND_CLOG_NODE;
-      const bool node_wide = kind == KIND_CLOG_NODE || kind == KIND_UNCLOG_NODE;
-      const int32_t ca = a0, cb = node_wide ? -1 : args[1];
-      for (int x = 0; x < N; x++)
-        for (int y = 0; y < N; y++) {
-          const bool sel = (x == ca && y == cb) || (x == cb && y == ca) ||
-                           (cb < 0 && (x == ca || y == ca));
-          if (sel) s.clog[x][y] = on;
-        }
     }
-
-    // ---- emits: loss, dead destinations, latency; then compact
-    // placement, the j-th valid emit into the j-th free slot ----
-    int cursor = 0;
-    for (int j = 0; j <= K; j++) {
-      const Emit<A, W>& e = em[j];
-      if (!e.valid) continue;
-      const bool em_in_range = e.dst >= 0 && e.dst < N;
-      const int em_c = clampi(e.dst, 0, N - 1);
-      int64_t t;
-      if (e.send) {
-        s.msg_count += 1;
-        uint32_t l0, l1;
-        threefry2x32(k0, k1, s.step, PURPOSE_LATENCY + static_cast<uint32_t>(j), &l0, &l1);
-        if (static_cast<uint64_t>(l1) < c.loss_u32) continue;  // lost
-        if (!(em_in_range && s.alive[em_c])) continue;  // dead destination
-        int64_t lat = c.lat_min + static_cast<int64_t>(l0 % c.lat_span);
-        int32_t mult = (in_range && em_in_range) ? s.slow[dst_c][em_c] : 1;
-        if (mult > 1) lat *= mult;
-        t = now_after + lat;
-      } else {
-        t = now_after + e.delay;
-      }
-      const bool em_engine = e.kind < FIRST_USER_KIND || e.kind >= FIRST_EXT_KIND;
-      const int32_t e_epoch = (em_engine || !em_in_range) ? 0 : s.epoch[em_c];
-      const int32_t mk = e.kind < 0 ? KIND_NOP : (e.kind > 255 ? 255 : e.kind);
-      const int32_t node1 = clampi(e.dst, -1, N) + 1;
-      const int32_t src1 = e.send ? clampi(dst, -1, N) + 1 : 0;
-      while (cursor < E && s.ev_valid[cursor]) cursor++;
-      if (cursor >= E) {
-        s.overflow += 1;
-        continue;
-      }
-      s.ev_valid[cursor] = true;
-      s.ev_time[cursor] = t;
-      s.ev_meta[cursor] = static_cast<uint32_t>(mk) |
-                          (static_cast<uint32_t>(node1) << 8) |
-                          (static_cast<uint32_t>(src1) << 16);
-      s.ev_epoch[cursor] = e_epoch;
-      for (int w = 0; w < A; w++) s.ev_args[cursor][w] = e.args[w];
-      for (int w = 0; w < W; w++) s.ev_pay[cursor][w] = e.pay[w];
-      cursor++;
-    }
+    g.sync();
+    place_emits<M, E, G>(g, s, c, now_after, dst, in_range, dst_c);
   }
 
   // ---- halt, trace, clock ----
-  const bool halted =
-      s.halted || (dispatch && kind == KIND_HALT) || (has_event && over_limit);
-  if (halted && !s.halted) s.halt_time = now < c.time_limit ? now : c.time_limit;
-  s.halted = halted;
-  if (dispatch) s.trace = trace_fold<A, W>(s.trace, now, kind, dst, args, pay);
-  s.now = now_after;
-  s.step += 1u;
+  if (g.leader()) {
+    const bool halted =
+        was_halted || (dispatch && kind == KIND_HALT) || (has_event && over_limit);
+    if (halted && !was_halted) s.halt_time = now < c.time_limit ? now : c.time_limit;
+    s.halted = halted;
+    if (dispatch) s.trace = trace_fold<A, W>(s.trace, now, kind, dst, args, pay);
+    s.now = now_after;
+    s.step = step + 1u;
+  }
+  g.sync();
   return has_event;
 }
 
-// `r` steps of a halted seed: each consumes its earliest valid slot
-// without dispatching it, and advances `step`
-template <class M, int E>
-MADSIM_HD void seed_drain(Seed<M, E>& s, int64_t r) {
-  int64_t n_valid = 0;
-  for (int e = 0; e < E; e++) n_valid += s.ev_valid[e] ? 1 : 0;
-  if (r >= n_valid) {
-    for (int e = 0; e < E; e++) s.ev_valid[e] = false;
-  } else {
-    for (int64_t k = 0; k < r; k++) s.ev_valid[first_min(s)] = false;
-  }
-  s.step += static_cast<uint32_t>(r);
-}
-
-// Up to `budget` steps of one seed. With stop_at_halt the seed stops at
-// its halt and the return value is the steps it took; without, it takes
-// all `budget` steps (a halted seed drains). Either way each iteration
-// advances `step` exactly as the plain step would.
-template <class M, int E>
-MADSIM_HD int64_t seed_run(Seed<M, E>& s, const EngineConfig& c,
+// Up to `budget` steps of one seed on its group. With stop_at_halt the
+// seed stops at its halt and the return value is the steps it took;
+// without, it takes all `budget` steps (a halted seed drains). Either way
+// each iteration advances `step` exactly as the plain step would. A
+// group that returns early still reaches its block's barrier.
+template <class M, int E, int G>
+MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig& c,
                            const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols, int64_t budget,
                            bool stop_at_halt) {
+  clear_rows<M, G>(g, s.em);
+  g.sync();
   int64_t it = 0;
   while (it < budget) {
     if (s.halted) {
       if (stop_at_halt) return it;
-      seed_drain(s, budget - it);
+      drain_slots<E, G>(g, s.ev_bits, s.ev_time, budget - it);
+      if (g.leader()) s.step += static_cast<uint32_t>(budget - it);
       return budget;
     }
-    const bool had_event = engine_step(s, c, mp, init_rows, volatile_cols);
+    const bool had_event = engine_step<M, E, G>(g, s, c, mp, init_rows, volatile_cols);
     it++;
     if (!had_event && !s.halted) {
       // an empty pool stays empty: the rest only counts steps
-      s.step += static_cast<uint32_t>(budget - it);
+      if (g.leader()) s.step += static_cast<uint32_t>(budget - it);
       return budget;
     }
   }
   return it;
 }
 
-template <class M, int E>
-MADSIM_HD void run_seed(const RunArgs& a, const typename M::Params& mp,
-                        int64_t i) {
-  const int64_t budget = a.budget[i];
-  if (budget <= 0) {
-    a.iters[i] = 0;
-    return;
+// One block of the run kernel: load its seeds [first, first + nb), run
+// each on its lane group (group b of the block is threads b G .. b G +
+// G - 1), store. On the host the calling thread is the whole block and
+// plays each group in turn. Returns the largest iteration count this
+// thread saw, for tmax.
+template <class M, int E, int G>
+MADSIM_HD int64_t run_block(Seed<M, E>* blk, const RunArgs& a,
+                            const typename M::Params& mp, int64_t first,
+                            int nb, int tid, int nt) {
+  block_load<M, E>(blk, a.in, first, nb, tid, nt);
+  int64_t most = 0;
+  const bool stop = a.stop_at_halt != 0;
+#ifdef __CUDA_ARCH__
+  const int b = tid / G;
+  if (b < nb) {
+    const Lanes<G> g(tid);
+    const int64_t it = seed_run<M, E, G>(g, blk[b], a.cfg, mp, a.init_rows,
+                                         a.volatile_cols, a.budget, stop);
+    if (g.leader()) {
+      a.iters[first + b] = it;
+      most = it;
+    }
   }
-  Seed<M, E> s;
-  seed_load(s, a, i);
-  a.iters[i] = seed_run(s, a.cfg, mp, a.init_rows, a.volatile_cols, budget,
-                        a.stop_at_halt != 0);
-  seed_store(s, a, i);
+#else
+  for (int b = 0; b < nb; b++) {
+    const Lanes<G> g(0);
+    const int64_t it = seed_run<M, E, G>(g, blk[b], a.cfg, mp, a.init_rows,
+                                         a.volatile_cols, a.budget, stop);
+    a.iters[first + b] = it;
+    most = it > most ? it : most;
+  }
+#endif
+  block_sync();
+  block_store<M, E>(blk, a.out, first, nb, tid, nt);
+  return most;
+}
+
+// One seed's share of the drain kernel's shared memory: its valid bits
+// as loaded and as drained, its event times (read where valid) and its
+// remaining steps.
+template <int E>
+struct DrainSeed {
+  int64_t ev_time[E];
+  int64_t r;
+  uint32_t bits[PoolBits<E>::NW];
+  uint32_t loaded[PoolBits<E>::NW];
+};
+
+// One block of the drain kernel: seeds [first, first + nb) each take
+// their r = tmax - iters remaining halted steps (drain_slots). It reads
+// `step`, `ev_valid` and, where a slot is valid, `ev_time`; it writes the
+// slots it clears and `step`. A seed with r == 0 is not touched.
+template <int E, int G>
+MADSIM_HD void drain_block(DrainSeed<E>* blk, const DrainArgs& d, int64_t first,
+                           int nb, int tid, int nt) {
+  constexpr int NW = PoolBits<E>::NW;
+  const int64_t t = *d.tmax;
+  for (int b = tid; b < nb; b += nt) blk[b].r = t - d.iters[first + b];
+  for (int x = tid; x < nb * NW; x += nt) blk[x / NW].bits[x % NW] = 0;
+  block_sync();
+  const uint8_t* valid = d.ev_valid + first * E;
+  const int64_t* time = d.ev_time + first * E;
+  for (int x = tid; x < nb * E; x += nt) {
+    DrainSeed<E>& s = blk[x / E];
+    if (s.r <= 0 || !valid[x]) continue;
+    set_bit_shared(s.bits, x % E);
+    s.ev_time[x % E] = time[x];
+  }
+  block_sync();
+  for (int x = tid; x < nb * NW; x += nt) blk[x / NW].loaded[x % NW] = blk[x / NW].bits[x % NW];
+  block_sync();
+#ifdef __CUDA_ARCH__
+  const int b = tid / G;
+  if (b < nb && blk[b].r > 0) {
+    const Lanes<G> g(tid);
+    drain_slots<E, G>(g, blk[b].bits, blk[b].ev_time, blk[b].r);
+    if (g.leader()) d.step[first + b] += blk[b].r;
+  }
+#else
+  for (int b = 0; b < nb; b++) {
+    if (blk[b].r <= 0) continue;
+    drain_slots<E, G>(Lanes<G>(0), blk[b].bits, blk[b].ev_time, blk[b].r);
+    d.step[first + b] += blk[b].r;
+  }
+#endif
+  block_sync();
+  uint8_t* out = d.ev_valid + first * E;
+  for (int x = tid; x < nb * E; x += nt) {
+    const DrainSeed<E>& s = blk[x / E];
+    const int e = x % E;
+    if (PoolBits<E>::get(s.loaded, e) && !PoolBits<E>::get(s.bits, e)) out[x] = 0;
+  }
 }
 
 }  // namespace madsim

@@ -1,72 +1,161 @@
-// The fused run kernel on Hopper (sm_90a), for one workload.
+// The fused run kernel on Hopper (sm_90a), for one workload, and its
+// drain kernel.
 //
 // Replaces madsim_tpu/engine/vmem.py:make_run_vmem, the JAX package's
 // one Pallas kernel, which keeps each block of seeds' SimState in VMEM
-// for all n_steps of vmap(make_step). Here one CUDA thread runs one
-// seed: it loads the seed's row once, keeps its event pool, node rows
-// and clog matrix in thread-local arrays for the whole loop
-// (engine_step.cuh), and stores the row once.
+// for all n_steps of vmap(make_step). Here a block of kThreads threads
+// runs kSeeds = kThreads / G seeds: it loads their state into shared
+// memory once, with all its threads and coalesced (engine_step.cuh
+// block_load), runs each seed on a group of G lanes until it halts or
+// its budget is spent, and stores the state once, into fresh output
+// tensors. The input is never written, so the wrapper copies nothing.
+//
+// make_run_while's second launch is the drain kernel: a halted seed's
+// remaining T - count steps only clear its earliest valid slots and
+// count steps, so it reads step, ev_valid and ev_time where valid, ranks
+// the slots once (lanes.cuh drain_slots) and writes only the slots it
+// clears and step. T, the largest count, is an atomicMax into a device
+// word that the run kernel leaves behind: nothing runs between the two
+// launches.
 //
 // This file is not compiled alone. engine/fused.py writes, per model, a
 // unit that includes the model's header (model_*.cuh), defines
 //   MADSIM_MODEL  the model trait, e.g. madsim::KvChaosModel<true>
 //   MADSIM_POOLS  the pool sizes to instantiate, e.g. 40, 64
+//   MADSIM_GROUP  G, the lanes per seed
 // and includes this file; nvcc builds it into one library per model.
 //
 // What bounds it: device memory sees one load and one store of the
-// state per launch; per step a seed does a few threefry blocks (20
-// rounds of 32-bit add/rotate/xor each) and an E-wide scan of its pool
-// for the earliest event, integer work on data the thread already
-// holds (chip_smoke.py computes both terms for bound_ms). One thread per
-// seed because seeds are independent and their control flow diverges
-// per event (handlers, engine kinds, halts at different steps): SIMT
-// absorbs that divergence, and no cross-thread exchange is needed. The
-// thread-local arrays live in local memory (cached in L1/L2), since
-// their indices are dynamic.
+// state per run; per step a seed does a pool scan and a few threefry
+// blocks (chip_smoke.py computes both terms for bound_ms). The step is
+// serial per seed and its latency is what costs: shared memory keeps
+// the pool one load away instead of in local memory, G lanes cut the
+// scan and the emit work by G, and kSeeds seeds per block with several
+// blocks per SM keep enough groups in flight to hide it
+// (madsim_occupancy reports how many).
 //
 // Built by engine/fused.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 //        --Werror cross-execution-space-call
-// and loaded with ctypes: the C entry point below takes the field
-// pointers, the config words, the card's index and the stream, and
-// returns the launch's cudaGetLastError().
+// and loaded with ctypes: the C entry points below take the field
+// pointers, the card's index and the stream, and return the launch's
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "engine_step.cuh"
 
-#if !defined(MADSIM_MODEL) || !defined(MADSIM_POOLS)
-#error "define MADSIM_MODEL and MADSIM_POOLS, then include run_kernel.cu"
+#if !defined(MADSIM_MODEL) || !defined(MADSIM_POOLS) || !defined(MADSIM_GROUP)
+#error "define MADSIM_MODEL, MADSIM_POOLS and MADSIM_GROUP, then include run_kernel.cu"
 #endif
 
 namespace {
 
 using Model = MADSIM_MODEL;
+constexpr int kGroup = MADSIM_GROUP;
 constexpr int kThreads = 128;
+constexpr int kSeeds = kThreads / kGroup;
+static_assert(kThreads % 32 == 0 && kThreads % kGroup == 0, "whole warps, whole groups");
+
+template <int E>
+constexpr size_t run_smem() { return sizeof(madsim::Seed<Model, E>) * kSeeds; }
+template <int E>
+constexpr size_t drain_smem() { return sizeof(madsim::DrainSeed<E>) * kSeeds; }
 
 template <int E>
 __global__ void __launch_bounds__(kThreads)
 run_kernel(const madsim::RunArgs a, const typename Model::Params p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= a.n_seeds) return;
-  madsim::run_seed<Model, E>(a, p, i);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned long long block_max;
+  auto* blk = reinterpret_cast<madsim::Seed<Model, E>*>(smem);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kSeeds;
+  const int64_t left = a.n_seeds - first;
+  const int nb = left < kSeeds ? static_cast<int>(left) : kSeeds;
+  if (threadIdx.x == 0) block_max = 0;
+  const int64_t most = madsim::run_block<Model, E, kGroup>(
+      blk, a, p, first, nb, threadIdx.x, blockDim.x);
+  if (a.tmax != nullptr) {
+    if (most > 0) atomicMax(&block_max, static_cast<unsigned long long>(most));
+    __syncthreads();
+    if (threadIdx.x == 0 && block_max > 0)
+      atomicMax(reinterpret_cast<unsigned long long*>(a.tmax), block_max);
+  }
 }
 
 template <int E>
-int launch(const madsim::RunArgs& a, const typename Model::Params& p,
-           cudaStream_t stream) {
-  const int64_t blocks = (a.n_seeds + kThreads - 1) / kThreads;
-  run_kernel<E><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a, p);
+__global__ void __launch_bounds__(kThreads) drain_kernel(const madsim::DrainArgs d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* blk = reinterpret_cast<madsim::DrainSeed<E>*>(smem);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kSeeds;
+  const int64_t left = d.n_seeds - first;
+  const int nb = left < kSeeds ? static_cast<int>(left) : kSeeds;
+  madsim::drain_block<E, kGroup>(blk, d, first, nb, threadIdx.x, blockDim.x);
+}
+
+// a block above 48 KB of dynamic shared memory needs the attribute
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+unsigned blocks_for(int64_t n_seeds) {
+  return static_cast<unsigned>((n_seeds + kSeeds - 1) / kSeeds);
+}
+
+template <int E>
+int launch_run(const madsim::RunArgs& a, const typename Model::Params& p,
+               cudaStream_t stream) {
+  cudaError_t rc = allow_smem(run_kernel<E>, run_smem<E>());
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (a.tmax != nullptr) {
+    rc = cudaMemsetAsync(a.tmax, 0, sizeof(int64_t), stream);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  run_kernel<E><<<blocks_for(a.n_seeds), kThreads, run_smem<E>(), stream>>>(a, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instantiation for `pool`, or -1 when there is none
-template <int... Es>
-int launch_pool(int32_t pool, const madsim::RunArgs& a,
-                const typename Model::Params& p, cudaStream_t stream) {
+template <int E>
+int launch_drain(const madsim::DrainArgs& d, cudaStream_t stream) {
+  const cudaError_t rc = allow_smem(drain_kernel<E>, drain_smem<E>());
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  drain_kernel<E><<<blocks_for(d.n_seeds), kThreads, drain_smem<E>(), stream>>>(d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// G, seeds per block, then for each kernel its dynamic shared bytes per
+// block and its resident blocks per SM
+template <int E>
+int occupancy(int64_t* out) {
+  int run = 0, drain = 0;
+  cudaError_t rc = allow_smem(run_kernel<E>, run_smem<E>());
+  if (rc == cudaSuccess) rc = allow_smem(drain_kernel<E>, drain_smem<E>());
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&run, run_kernel<E>, kThreads,
+                                                       run_smem<E>());
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&drain, drain_kernel<E>, kThreads,
+                                                       drain_smem<E>());
+  out[0] = kGroup;
+  out[1] = kSeeds;
+  out[2] = static_cast<int64_t>(run_smem<E>());
+  out[3] = run;
+  out[4] = static_cast<int64_t>(drain_smem<E>());
+  out[5] = drain;
+  return static_cast<int>(rc);
+}
+
+// f(std::integral_constant<int, E>) for the instantiated pool E ==
+// pool; -1 when there is none
+template <int... Es, class F>
+int with_pool(int32_t pool, F f) {
   int rc = -1;
-  (void)((pool == Es && ((rc = launch<Es>(a, p, stream)), true)) || ...);
+  (void)((pool == Es && ((rc = f(std::integral_constant<int, Es>{})), true)) || ...);
   return rc;
 }
 
@@ -74,26 +163,44 @@ int launch_pool(int32_t pool, const madsim::RunArgs& a,
 
 extern "C" {
 
-// ptrs: the RunArgs pointers in declaration order; cfg: the engine's
+// ptrs: the RunArgs pointers (madsim::run_args); cfg: the engine's
 // config words, then the model's (Model::params). Returns a
 // cudaError_t, or -1 for a pool size without an instantiation (the
-// thread-local arrays need E at compile time; engine/fused.py lists the
+// shared layout needs E at compile time; engine/fused.py lists the
 // pools of each model).
-int madsim_run(void* const* ptrs, const int64_t* cfg, int64_t n_seeds,
-               int32_t pool, int32_t stop_at_halt, int32_t device,
-               void* stream) {
-  const madsim::RunArgs a = madsim::run_args(ptrs, cfg, n_seeds, stop_at_halt);
+int madsim_run(void* const* ptrs, const int64_t* cfg, int64_t n_seeds, int64_t budget,
+               int32_t pool, int32_t stop_at_halt, int32_t device, void* stream) {
+  const madsim::RunArgs a = madsim::run_args(ptrs, cfg, n_seeds, budget, stop_at_halt);
   const typename Model::Params p = Model::params(cfg + madsim::kEngineWords);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_seeds <= 0) return 0;
   // the stream belongs to the tensors' card
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  return launch_pool<MADSIM_POOLS>(pool, a, p, s);
+  return with_pool<MADSIM_POOLS>(pool, [&](auto e) { return launch_run<decltype(e)::value>(a, p, s); });
+}
+
+// ptrs: step, ev_valid, ev_time, iters, tmax (madsim::drain_args)
+int madsim_drain(void* const* ptrs, int64_t n_seeds, int32_t pool, int32_t device,
+                 void* stream) {
+  const madsim::DrainArgs d = madsim::drain_args(ptrs, n_seeds);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_seeds <= 0) return 0;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return with_pool<MADSIM_POOLS>(pool, [&](auto e) { return launch_drain<decltype(e)::value>(d, s); });
+}
+
+// out: G, seeds per block, run kernel shared bytes per block and blocks
+// per SM, drain kernel shared bytes and blocks per SM, for `pool`
+int madsim_occupancy(int32_t pool, int32_t device, int64_t* out) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return with_pool<MADSIM_POOLS>(pool, [&](auto e) { return occupancy<decltype(e)::value>(out); });
 }
 
 // the model's compile-time shape, for the wrapper to check against the
-// workload: N, U, A, W, K, H, then the pointer count
+// workload: N, U, A, W, K, H, then the run and drain pointer counts
 void madsim_shape(int64_t* out) {
   out[0] = Model::N;
   out[1] = Model::U;
@@ -102,6 +209,7 @@ void madsim_shape(int64_t* out) {
   out[4] = Model::K;
   out[5] = Model::H;
   out[6] = madsim::kRunPointers;
+  out[7] = madsim::kDrainPointers;
 }
 
 }  // extern "C"

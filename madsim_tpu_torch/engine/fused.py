@@ -3,13 +3,13 @@
 Port of ``madsim_tpu/engine/vmem.py:make_run_vmem``, the JAX package's
 one Pallas kernel, which runs ``n_steps`` of ``vmap(make_step)`` with
 each block of seeds' state resident on chip. On the H100 the kernel is
-hand-written CUDA C++ for ``sm_90a``: one thread per seed, each seed's
-pool, node rows and clog matrix in thread-local arrays for the whole
-loop. The engine step is generic (``csrc/engine_step.cuh``); each
-workload it carries is a model trait with its handlers as device code
-(``csrc/model_*.cuh``), listed in :data:`MODELS`. Any other workload, or
-a registered one at another shape, raises ``NotImplementedError`` on a
-CUDA state.
+hand-written CUDA C++ for ``sm_90a``: a block holds 128 / G seeds'
+state in shared memory for the whole loop, and each seed runs on a
+group of G lanes (``GROUP``). The engine step is generic
+(``csrc/engine_step.cuh``, ``csrc/lanes.cuh``); each workload it carries
+is a model trait with its handlers as device code (``csrc/model_*.cuh``),
+listed in :data:`MODELS`. Any other workload, or a registered one at
+another shape, raises ``NotImplementedError`` on a CUDA state.
 
 Each model's kernel is its own library, built with nvcc on first use
 into ``build/kernels/<hash>/`` at the root of the checkout (keyed by a
@@ -17,13 +17,19 @@ hash of the sources, the generated unit and the flags) and loaded with
 ctypes. A CPU state runs the plain eager step instead
 (``core.make_run_plain``); a CUDA state never does.
 
+The kernel reads its input state and writes fresh outputs allocated
+with ``torch.empty``; the fields it never writes (``seed``, ``slow``,
+``skew`` and ``dup``) are shared with the input, as the plain step
+shares them.
+
 ``make_run_while`` semantics: the JAX loop runs every seed for the same
 ``T = min(cap, steps until every seed has halted)`` iterations, and a
 halted seed's iteration still consumes its earliest slot and counts a
-step. The wrapper launches the kernel twice: first every seed runs
-until it halts (or the cap) and reports its count; then, with
-``T = max`` of the counts taken on the device, each seed takes its
-remaining ``T - count`` halted steps.
+step. The wrapper makes two launches: the run kernel runs every seed
+until it halts (or the cap), reports its count and leaves ``T``, the
+largest, in a device word; then the drain kernel gives each seed its
+remaining ``T - count`` halted steps, touching only ``step``,
+``ev_valid`` and ``ev_time``.
 """
 
 from __future__ import annotations
@@ -58,6 +64,8 @@ __all__ = [
     "build_libraries",
     "build_library",
     "check_state",
+    "drain_plain",
+    "fresh_outputs",
     "config_words",
     "halt_counts",
     "kernel_args",
@@ -68,7 +76,12 @@ __all__ = [
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-ENGINE_SOURCES = ("threefry.cuh", "engine_step.cuh", "run_kernel.cu")
+ENGINE_SOURCES = (
+    "threefry.cuh", "lanes.cuh", "engine_step.cuh", "run_kernel.cu",
+)
+# lanes per seed for every model; a model may set its own in MODELS (the
+# measured choice: PERF.md, section 6)
+GROUP = 8
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 # a handler left without MADSIM_HD would build as a host function that
 # the device step cannot call: nvcc only warns, and the kernel would run
@@ -97,14 +110,37 @@ class KernelModel:
     pools: tuple  # pool sizes instantiated
     words: tuple = ()
     fixed: tuple = ()
+    group: int = GROUP  # lanes per seed
+
+    def draws_source(self) -> str:
+        """C++ naming the workload's declared user draw purposes
+        (``UserDraws`` in csrc/engine_step.cuh); empty when it has
+        none."""
+        purposes = self.shape[6]
+        if not purposes:
+            return ""
+        listed = ", ".join(f"{p}u" for p in purposes)
+        return (
+            f"namespace madsim {{\n"
+            f"template <> struct UserDraws<{self.cxx}> {{\n"
+            f"  static constexpr int n = {len(purposes)};\n"
+            f"  static MADSIM_HDI uint32_t purpose(int d) {{\n"
+            f"    constexpr uint32_t p[] = {{{listed}}};\n"
+            f"    return p[d];\n"
+            f"  }}\n"
+            f"}};\n"
+            f"}}  // namespace madsim\n"
+        )
 
     def unit_source(self) -> str:
         """The translation unit nvcc compiles for this model."""
         return (
             f"// run kernel unit for {self.key}, written by engine/fused.py\n"
             f'#include "{self.header}"\n'
+            f"{self.draws_source()}"
             f"#define MADSIM_MODEL {self.cxx}\n"
             f"#define MADSIM_POOLS {', '.join(str(p) for p in self.pools)}\n"
+            f"#define MADSIM_GROUP {self.group}\n"
             f'#include "run_kernel.cu"\n'
         )
 
@@ -195,7 +231,7 @@ MODELS = {
 }
 
 # the fields the kernel reads (and, but for seed, slow and skew,
-# writes), in the pointer order of RunArgs (csrc/engine_step.cuh);
+# writes), in the pointer order of Fields (csrc/engine_step.cuh);
 # ev_pay is read and written only when the workload has payload words
 KERNEL_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
@@ -204,6 +240,8 @@ KERNEL_FIELDS = (
     "skew",
 )
 READ_ONLY_FIELDS = ("seed", "slow", "skew")
+# the run's outputs that are its inputs' tensors: never written
+SHARED_FIELDS = (*READ_ONLY_FIELDS, "dup")
 _DTYPES = {
     "seed": torch.int64, "now": torch.int64, "step": torch.int64,
     "halted": torch.bool, "halt_time": torch.int64, "trace": torch.int64,
@@ -332,8 +370,9 @@ def build_library(spec: KernelModel) -> tuple[Path, str]:
 class RunKernel:
     """The loaded kernel libraries and their launch counts.
 
-    ``counts`` holds the kernel launches per model key; a CPU state that
-    takes the plain step counts nothing."""
+    ``counts`` holds the launches per kernel: the run kernel's under the
+    model key, the drain kernel's under ``<key>/drain``. A CPU state
+    that takes the plain step counts nothing."""
 
     def __init__(self):
         self.counts: dict = {}
@@ -342,54 +381,107 @@ class RunKernel:
     def reset(self) -> None:
         self.counts = {}
 
+    def _count(self, name: str) -> None:
+        self.counts[name] = self.counts.get(name, 0) + 1
+
     def load(self, spec: KernelModel):
         lib = self._libs.get(spec.key)
         if lib is None:
             path, _log = build_library(spec)
             lib = ctypes.CDLL(str(path))
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
             lib.madsim_run.restype = ctypes.c_int
             lib.madsim_run.argtypes = [
-                ctypes.POINTER(ctypes.c_void_p),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_void_p,
+                ctypes.POINTER(ptr), ctypes.POINTER(i64), i64, i64, i32, i32,
+                i32, ptr,
             ]
+            lib.madsim_drain.restype = ctypes.c_int
+            lib.madsim_drain.argtypes = [ctypes.POINTER(ptr), i64, i32, i32, ptr]
+            lib.madsim_occupancy.restype = ctypes.c_int
+            lib.madsim_occupancy.argtypes = [i32, i32, ctypes.POINTER(i64)]
             lib.madsim_shape.restype = None
-            lib.madsim_shape.argtypes = [ctypes.POINTER(ctypes.c_int64)]
-            got = (ctypes.c_int64 * 7)()
+            lib.madsim_shape.argtypes = [ctypes.POINTER(i64)]
+            got = (i64 * 8)()
             lib.madsim_shape(got)
-            want = (*spec.shape[:6], len(KERNEL_FIELDS) + 4)
+            want = (*spec.shape[:6], 2 * len(KERNEL_FIELDS) + 4, len(DRAIN_FIELDS) + 2)
             if tuple(got) != want:
                 raise RuntimeError(
-                    f"library {path} is built for (N, U, A, W, K, H, pointers) "
-                    f"= {tuple(got)}; model {spec.key!r} needs {want}"
+                    f"library {path} is built for (N, U, A, W, K, H, run and "
+                    f"drain pointers) = {tuple(got)}; model {spec.key!r} needs {want}"
                 )
             self._libs[spec.key] = lib
         return lib
 
-    def launch(self, spec: KernelModel, state: SimState, tables, budget,
-               iters, cfg_words, stop_at_halt: bool) -> None:
+    def launch(self, spec: KernelModel, state: SimState, out: SimState, tables,
+               iters, tmax, cfg_words, budget: int, stop_at_halt: bool) -> None:
+        """The run kernel: ``budget`` steps of every seed of ``state``
+        into ``out``; each seed's count into ``iters`` and their
+        maximum into ``tmax``."""
         lib = self.load(spec)
-        ptrs, cfg = kernel_args(state, tables, budget, iters, cfg_words)
+        if state.seed.shape[0] == 0:
+            return
+        ptrs, cfg = kernel_args(state, out, tables, iters, tmax, cfg_words)
         rc = lib.madsim_run(
-            ptrs, cfg, state.seed.shape[0], state.ev_valid.shape[1],
+            ptrs, cfg, state.seed.shape[0], int(budget), state.ev_valid.shape[1],
             int(stop_at_halt), state.device.index or 0,
             torch.cuda.current_stream(state.device).cuda_stream,
         )
         if rc != 0:
             raise RuntimeError(f"run kernel launch for {spec.key!r} failed: error {rc}")
-        self.counts[spec.key] = self.counts.get(spec.key, 0) + 1
+        self._count(spec.key)
+
+    def drain(self, spec: KernelModel, out: SimState, iters, tmax) -> None:
+        """The drain kernel, in place on ``out``: each seed takes its
+        ``tmax - iters`` remaining halted steps. A CPU state takes the
+        plain version, :func:`drain_plain`."""
+        if out.device.type == "cpu":
+            step, valid = drain_plain(out.step, out.ev_valid, out.ev_time, tmax - iters)
+            out.step.copy_(step)
+            out.ev_valid.copy_(valid)
+            return
+        lib = self.load(spec)
+        if out.seed.shape[0] == 0:
+            return
+        tensors = [getattr(out, f) for f in DRAIN_FIELDS] + [iters, tmax]
+        ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+        rc = lib.madsim_drain(
+            ptrs, out.seed.shape[0], out.ev_valid.shape[1], out.device.index or 0,
+            torch.cuda.current_stream(out.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"drain kernel launch for {spec.key!r} failed: error {rc}")
+        self._count(f"{spec.key}/drain")
+
+    def occupancy(self, spec: KernelModel, pool: int, device=0) -> dict:
+        """The launch shape of ``spec``'s kernels at ``pool``, from the
+        card's occupancy calculator."""
+        out = (ctypes.c_int64 * 6)()
+        rc = self.load(spec).madsim_occupancy(int(pool), int(device), out)
+        if rc != 0:
+            raise RuntimeError(f"occupancy query for {spec.key!r} failed: error {rc}")
+        keys = ("group", "seeds_per_block", "run_smem_bytes", "run_blocks_per_sm",
+                "drain_smem_bytes", "drain_blocks_per_sm")
+        return dict(zip(keys, tuple(out)))
 
 
 KERNEL = RunKernel()
+# the fields the drain kernel reads (ev_time) and writes (step, ev_valid)
+DRAIN_FIELDS = ("step", "ev_valid", "ev_time")
 
 
-def kernel_args(state: SimState, tables, budget, iters, cfg_words):
-    """The ctypes pointer array and config words of one launch. The
-    caller keeps every tensor alive until the launch has run."""
-    tensors = [getattr(state, f) for f in KERNEL_FIELDS]
-    tensors += [tables[0], tables[1], budget, iters]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words):
+    """The ctypes pointer array and config words of one run launch: the
+    input fields, the output fields (null where the kernel writes
+    none), the tables, ``iters`` and ``tmax``. The caller keeps every
+    tensor alive until the launch has run."""
+    ins = [getattr(state, f).data_ptr() for f in KERNEL_FIELDS]
+    outs = [
+        0 if f in READ_ONLY_FIELDS else getattr(out, f).data_ptr()
+        for f in KERNEL_FIELDS
+    ]
+    rest = [t.data_ptr() for t in (*tables, iters)]
+    rest.append(0 if tmax is None else tmax.data_ptr())
+    ptrs = (ctypes.c_void_p * (len(ins) * 2 + 4))(*ins, *outs, *rest)
     cfg = (ctypes.c_int64 * len(cfg_words))(*cfg_words)
     return ptrs, cfg
 
@@ -430,30 +522,62 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
         raise ValueError(f"the run kernel needs a CUDA state, got {dev}")
 
 
+_TABLES: dict = {}
+
+
 def _tables(wl: Workload, dev) -> tuple:
-    """The restart tables as kernel inputs: (N,U) int32, (U,) uint8."""
-    return (
-        torch.from_numpy(wl.initial_state()).to(dev),
-        torch.from_numpy(wl.volatile_mask().astype("uint8")).to(dev),
-    )
+    """The restart tables as kernel inputs, (N,U) int32 and (U,) uint8,
+    copied to ``dev`` once per workload table and device."""
+    rows = wl.initial_state()
+    vol = wl.volatile_mask().astype("uint8")
+    key = (str(torch.device(dev)), rows.shape, rows.tobytes(), vol.tobytes())
+    got = _TABLES.get(key)
+    if got is None:
+        got = _TABLES[key] = (
+            torch.from_numpy(rows).to(dev), torch.from_numpy(vol).to(dev)
+        )
+    return got
+
+
+def fresh_outputs(state: SimState) -> SimState:
+    """The run kernel's outputs: ``torch.empty`` for every field it
+    writes; ``seed``, ``slow``, ``skew`` and ``dup`` are the input's."""
+    return SimState(**{
+        f: getattr(state, f) if f in SHARED_FIELDS else torch.empty_like(getattr(state, f))
+        for f in STATE_FIELDS
+    })
 
 
 def _first_pass(wl: Workload, cfg: EngineConfig, state: SimState,
                 n_steps: int, stop_at_halt: bool):
-    """Copy ``state`` and launch the kernel once on the copy, up to
-    ``n_steps`` steps per seed. Returns the model, the copy, the
-    launch's inputs and each seed's step count."""
+    """Launch the run kernel once, up to ``n_steps`` steps per seed,
+    from ``state`` into fresh outputs. Returns the model, the outputs,
+    each seed's step count and their maximum (a device word)."""
     spec = kernel_model(wl)
     check_state(spec, wl, state)
     dev = state.device
-    out = SimState(**{f: getattr(state, f).clone() for f in STATE_FIELDS})
-    tables = _tables(wl, dev)
-    words = config_words(wl, cfg)
+    out = fresh_outputs(state)
     s = state.seed.shape[0]
-    budget = torch.full((s,), n_steps, dtype=torch.int64, device=dev)
     iters = torch.empty((s,), dtype=torch.int64, device=dev)
-    KERNEL.launch(spec, out, tables, budget, iters, words, stop_at_halt)
-    return spec, out, tables, words, iters
+    tmax = torch.empty((1,), dtype=torch.int64, device=dev)
+    KERNEL.launch(spec, state, out, _tables(wl, dev), iters, tmax,
+                  config_words(wl, cfg), n_steps, stop_at_halt)
+    return spec, out, iters, tmax
+
+
+def drain_plain(step, ev_valid, ev_time, r):
+    """The drain kernel's plain version: ``r`` (per seed) steps of a
+    halted seed, each clearing the first minimum of ``ev_valid ? ev_time
+    : 2^62`` as the plain step pops it. Returns the new ``step`` and
+    ``ev_valid``."""
+    from .core import _INF_NS, _first_argmin
+
+    ev_valid = ev_valid.clone()
+    ar = torch.arange(ev_valid.shape[0], device=ev_valid.device)
+    for k in range(int(r.max()) if r.numel() else 0):
+        i = _first_argmin(torch.where(ev_valid, ev_time, _INF_NS))
+        ev_valid[ar, i] &= ~(r > k)
+    return step + r, ev_valid
 
 
 def make_run_fused(
@@ -471,13 +595,9 @@ def make_run_fused(
     def run(state: SimState) -> SimState:
         if state.device.type == "cpu":
             return plain(state)
-        spec, out, tables, words, iters = _first_pass(
-            wl, cfg, state, n_steps, until_halted
-        )
-        if until_halted and iters.numel():
-            # the halted seeds' remaining iterations, T = max count
-            KERNEL.launch(spec, out, tables, iters.max() - iters,
-                          torch.empty_like(iters), words, False)
+        spec, out, iters, tmax = _first_pass(wl, cfg, state, n_steps, until_halted)
+        if until_halted:
+            KERNEL.drain(spec, out, iters, tmax)
         return out
 
     return run
@@ -485,6 +605,6 @@ def make_run_fused(
 
 def halt_counts(wl: Workload, cfg: EngineConfig, cap: int, state: SimState):
     """Each seed's steps until it halts (at most ``cap``), from one
-    stop-at-halt kernel pass on a copy of ``state``: the seed-steps a
+    stop-at-halt run kernel launch on ``state``: the seed-steps a
     ``make_run_while`` run does real work in."""
-    return _first_pass(wl, cfg, state, cap, True)[4]
+    return _first_pass(wl, cfg, state, cap, True)[2]

@@ -1,8 +1,9 @@
 """Shared helper of the torch port's kernel tests: the run kernel's
-step code (``csrc/engine_step.cuh`` and a model header) built for the
-host with g++, and driven over CPU tensors through the same argument
-packing as the CUDA launch. Imports no JAX, so the card-only tests that
-use it run where JAX is absent."""
+step code (``csrc/engine_step.cuh``, ``csrc/lanes.cuh`` and a model
+header) built for the host with g++, and driven over CPU tensors
+through the same argument packing as the CUDA launch. On the host one
+thread plays each seed's G lanes in turn (``csrc/lanes.cuh``). Imports
+no JAX, so the card-only tests that use it run where JAX is absent."""
 
 import ctypes
 import shutil
@@ -16,73 +17,107 @@ from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
 
 HOST_UNIT = r"""
+#include <memory>
 #include "{header}"
+{draws}
 namespace {{
 using Model = {cxx};
+constexpr int G = {group};
 template <int E>
-void run_all(const madsim::RunArgs& a, const Model::Params& p, int64_t n) {{
-  for (int64_t i = 0; i < n; i++) madsim::run_seed<Model, E>(a, p, i);
+void run_all(const madsim::RunArgs& a, const Model::Params& p) {{
+  auto blk = std::make_unique<madsim::Seed<Model, E>>();
+  int64_t most = 0;
+  for (int64_t i = 0; i < a.n_seeds; i++) {{
+    const int64_t m = madsim::run_block<Model, E, G>(blk.get(), a, p, i, 1, 0, 1);
+    most = m > most ? m : most;
+  }}
+  if (a.tmax != nullptr) *a.tmax = most;
+}}
+template <int E>
+void drain_all(const madsim::DrainArgs& d) {{
+  auto blk = std::make_unique<madsim::DrainSeed<E>>();
+  for (int64_t i = 0; i < d.n_seeds; i++) madsim::drain_block<E, G>(blk.get(), d, i, 1, 0, 1);
 }}
 }}  // namespace
 extern "C" int host_run(void* const* ptrs, const int64_t* cfg, int64_t n,
-                        int32_t pool, int32_t stop_at_halt) {{
-  const madsim::RunArgs a = madsim::run_args(ptrs, cfg, n, stop_at_halt);
+                        int64_t budget, int32_t pool, int32_t stop_at_halt) {{
+  const madsim::RunArgs a = madsim::run_args(ptrs, cfg, n, budget, stop_at_halt);
   const Model::Params p = Model::params(cfg + madsim::kEngineWords);
   switch (pool) {{
-{cases}
+{run_cases}
+    default: return -1;
+  }}
+}}
+extern "C" int host_drain(void* const* ptrs, int64_t n, int32_t pool) {{
+  const madsim::DrainArgs d = madsim::drain_args(ptrs, n);
+  switch (pool) {{
+{drain_cases}
     default: return -1;
   }}
 }}
 """
 
 
-def build_host_kernel(tmp_dir, spec, pools):
-    """g++ build of ``spec``'s device code (engine_step.cuh and its model
-    header, MADSIM_HD = plain C++) with a host entry point that runs the
-    kernel's per-seed loop over CPU tensors; a ctypes library."""
+def build_host_kernel(tmp_dir, spec, pools, group=None):
+    """g++ build of ``spec``'s device code (engine_step.cuh, lanes.cuh
+    and its model header, MADSIM_HD = plain C++) with host entry points
+    that run the kernel's blocks, one seed each, over CPU tensors, with
+    ``group`` lanes per seed (the model's own by default); a ctypes
+    library."""
     if shutil.which("g++") is None:
         pytest.skip("g++ unavailable")
-    cases = "\n".join(
-        f"    case {e}: run_all<{e}>(a, p, n); return 0;" for e in pools
+    group = spec.group if group is None else group
+    run_cases = "\n".join(
+        f"    case {e}: run_all<{e}>(a, p); return 0;" for e in pools
     )
-    src = tmp_dir / f"host_{spec.key}.cpp"
-    src.write_text(HOST_UNIT.format(header=spec.header, cxx=spec.cxx, cases=cases))
-    lib = tmp_dir / f"libhost_{spec.key}.so"
+    drain_cases = "\n".join(f"    case {e}: drain_all<{e}>(d); return 0;" for e in pools)
+    src = tmp_dir / f"host_{spec.key}_g{group}.cpp"
+    src.write_text(HOST_UNIT.format(header=spec.header, draws=spec.draws_source(),
+                                    cxx=spec.cxx, group=group,
+                                    run_cases=run_cases, drain_cases=drain_cases))
+    lib = tmp_dir / f"libhost_{spec.key}_g{group}.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O2", "-Wall", "-Wextra", "-Werror", "-shared",
          "-fPIC", f"-I{fused.CSRC}", "-o", str(lib), str(src)],
         check=True, capture_output=True, text=True,
     )
     h = ctypes.CDLL(str(lib))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     h.host_run.restype = ctypes.c_int
-    h.host_run.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-    ]
+    h.host_run.argtypes = [ctypes.POINTER(ptr), ctypes.POINTER(i64), i64, i64, i32, i32]
+    h.host_drain.restype = ctypes.c_int
+    h.host_drain.argtypes = [ctypes.POINTER(ptr), i64, i32]
     return h
 
 
-def host_launch(lib, wl, cfg, out, budget, stop_at_halt, words=None):
-    """One launch of the host build on CPU state ``out`` (in place);
-    returns each seed's step count. ``words`` defaults to the
-    registered model's config words."""
-    s, e = out.ev_valid.shape
+def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None):
+    """One run launch of the host build from CPU state ``state`` into
+    fresh outputs; returns ``(out, iters, tmax)``. ``words`` defaults
+    to the registered model's config words."""
+    s, e = state.ev_valid.shape
+    out = fused.fresh_outputs(state)
     iters = torch.empty((s,), dtype=torch.int64)
+    tmax = torch.empty((1,), dtype=torch.int64)
     if words is None:
         words = fused.config_words(wl, cfg)
-    ptrs, c = fused.kernel_args(out, fused._tables(wl, "cpu"), budget, iters, words)
-    assert lib.host_run(ptrs, c, s, e, int(stop_at_halt)) == 0
-    return iters
+    ptrs, c = fused.kernel_args(state, out, fused._tables(wl, "cpu"), iters, tmax, words)
+    assert lib.host_run(ptrs, c, s, int(budget), e, int(stop_at_halt)) == 0
+    return out, iters, tmax
+
+
+def host_drain(lib, out, iters, tmax):
+    """The drain kernel's host build, in place on ``out``."""
+    tensors = [getattr(out, f) for f in fused.DRAIN_FIELDS] + [iters, tmax]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    assert lib.host_drain(ptrs, out.seed.shape[0], out.ev_valid.shape[1]) == 0
 
 
 def host_run(lib, wl, cfg, st, n_steps, until_halted, words=None):
-    """make_run_fused's two-pass protocol, with the host build."""
-    out = tcore.SimState(**{f: getattr(st, f).clone() for f in tcore.STATE_FIELDS})
-    s = st.seed.shape[0]
-    budget = torch.full((s,), n_steps, dtype=torch.int64)
-    iters = host_launch(lib, wl, cfg, out, budget, until_halted, words)
+    """make_run_fused's protocol (a run launch, then for make_run_while
+    the drain launch), with the host build."""
+    out, iters, tmax = host_launch(lib, wl, cfg, st, n_steps, until_halted, words)
     if until_halted:
-        host_launch(lib, wl, cfg, out, iters.max() - iters, False, words)
+        host_drain(lib, out, iters, tmax)
     return out
 
 

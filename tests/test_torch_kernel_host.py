@@ -26,9 +26,10 @@ from madsim_tpu_torch.engine.convert import state_to_numpy
 from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS, make_kvchaos, make_raft
 
 from _torch_chaos3 import CHAOS3_MODEL, CHAOS_CFG, chaos3_spec, chaos3_workload
-from _torch_host import build_host_kernel, host_launch, host_run
+from _torch_host import build_host_kernel, host_drain, host_launch, host_run
 
 RAFT_POOLS = (40, 64, 128, 256)
+INF = 2**62
 
 
 @pytest.fixture(scope="module")
@@ -65,8 +66,8 @@ def test_host_built_kernel_halt_counts(host_lib):
     factory, kw, _n, cap = BENCH_SPECS["raft"]
     wl, cfg = factory(), tcore.EngineConfig(**kw)
     st = tcore.make_init(wl, cfg, device="cpu")(np.arange(16, dtype=np.uint64))
-    out = tcore.SimState(**{f: getattr(st, f).clone() for f in tcore.STATE_FIELDS})
-    iters = host_launch(host_lib, wl, cfg, out, torch.full((16,), cap, dtype=torch.int64), True)
+    _out, iters, tmax = host_launch(host_lib, wl, cfg, st, cap, True)
+    assert int(tmax) == int(iters.max())
     step = tcore.make_step_plain(wl, cfg)
     halted_at = np.full(16, -1)
     for i in range(int(iters.max())):
@@ -74,6 +75,108 @@ def test_host_built_kernel_halt_counts(host_lib):
         newly = st.halted.numpy() & (halted_at < 0)
         halted_at[newly] = i + 1
     np.testing.assert_array_equal(iters.numpy(), halted_at)
+
+
+def _halted_pools(pool, kind, seed=3, n=48):
+    """A raft state of ``n`` halted seeds whose pools are made up here:
+    ``random`` times, ``ties`` (a few distinct times, so many equal),
+    ``beyond`` (some slots at exactly 2^62 and some later), ``full``
+    (every slot valid, the latest beyond 2^62)."""
+    wl, cfg = make_raft(), tcore.EngineConfig(pool_size=pool)
+    st = tcore.make_init(wl, cfg, device="cpu")(np.arange(n, dtype=np.uint64))
+    rng = np.random.default_rng(seed)
+    valid = rng.random((n, pool)) < 0.6
+    if kind == "ties":
+        time = rng.integers(0, 3, (n, pool)) * 1000
+    else:
+        time = rng.integers(0, 10**9, (n, pool))
+    if kind in ("beyond", "full"):
+        pick = rng.random((n, pool))
+        time = np.where(pick < 0.2, INF, np.where(pick < 0.4, INF + rng.integers(1, 9, (n, pool)), time))
+    if kind == "full":
+        valid[:] = True
+        valid[: n // 2, 0] = False
+    st.ev_valid = torch.from_numpy(valid)
+    st.ev_time = torch.from_numpy(time.astype(np.int64))
+    st.halted = torch.ones(n, dtype=torch.bool)
+    return wl, cfg, st, rng
+
+
+@pytest.mark.parametrize("pool", [40, 256])
+@pytest.mark.parametrize("kind", ["random", "ties", "beyond", "full"])
+def test_host_drain_matches_halted_plain_steps(host_lib, pool, kind):
+    """The drain primitive, g++-built, equals r plain steps of a halted
+    seed: r drawn from 0 to past the number of valid slots, equal times
+    (the first index wins), slots at and beyond 2^62 (which the plain
+    step's argmin pops after the empty slots tied at 2^62)."""
+    wl, cfg, st, rng = _halted_pools(pool, kind)
+    n = st.seed.shape[0]
+    n_valid = st.ev_valid.sum(1).numpy()
+    r = rng.integers(0, pool + 3, n)
+    r[::4] = n_valid[::4] + rng.integers(0, 3, n)[::4]  # r at or past the valid count
+    r[1::4] = np.maximum(n_valid[1::4] - 1, 0)
+    tmax = torch.tensor([int(r.max())], dtype=torch.int64)
+    iters = tmax - torch.from_numpy(r)
+    out = tcore.SimState(**{f: getattr(st, f).clone() for f in tcore.STATE_FIELDS})
+    host_drain(host_lib, out, iters, tmax)
+    want_step, want_valid = fused.drain_plain(st.step, st.ev_valid, st.ev_time, tmax - iters)
+    np.testing.assert_array_equal(out.step.numpy(), want_step.numpy())
+    np.testing.assert_array_equal(out.ev_valid.numpy(), want_valid.numpy())
+    # the drain wrapper takes that plain version on a CPU state
+    cpu = tcore.SimState(**{f: getattr(st, f).clone() for f in tcore.STATE_FIELDS})
+    fused.KERNEL.drain(fused.MODELS["raft-election"], cpu, iters, tmax)
+    assert torch.equal(cpu.step, want_step) and torch.equal(cpu.ev_valid, want_valid)
+    # drain_plain is r plain steps of the halted seeds
+    step, ref = tcore.make_step_plain(wl, cfg), st
+    for k in range(int(r.max())):
+        nxt = step(ref)
+        keep = torch.from_numpy(k < r)
+        ref = tcore.SimState(**{
+            f: torch.where(keep.view(-1, *[1] * (getattr(nxt, f).dim() - 1)),
+                           getattr(nxt, f), getattr(ref, f))
+            for f in tcore.STATE_FIELDS
+        })
+    np.testing.assert_array_equal(out.ev_valid.numpy(), ref.ev_valid.numpy())
+    np.testing.assert_array_equal(out.step.numpy(), ref.step.numpy())
+
+
+def test_host_step_pops_like_the_plain_step_past_2_62(host_lib):
+    """Live seeds whose pools hold slots at and beyond 2^62: the
+    g++-built step pops what the plain step's argmin pops."""
+    wl, cfg, st, _rng = _halted_pools(40, "beyond", seed=5)
+    st.halted = torch.zeros_like(st.halted)
+    st.ev_valid[:, :5] = True  # the on_init events stay
+    st.ev_time[:, :5] = 0
+    # in every other seed no slot is live, and slot 0 lies beyond 2^62:
+    # the plain step pops the first empty slot, which holds no event
+    late = torch.arange(st.seed.shape[0]) % 2 == 1
+    st.ev_valid[late] &= st.ev_time[late] >= INF
+    st.ev_valid[late, 0] = True
+    st.ev_time[late, 0] = INF + 1
+    want = state_to_numpy(tcore.make_run_plain(wl, cfg, 40)(st))
+    got = state_to_numpy(host_run(host_lib, wl, cfg, st, 40, False))
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("group", [4, 8, 32])
+@pytest.mark.parametrize("name", ["raft-election", "kvchaos-payload"])
+def test_host_lane_groups_match_plain_step(tmp_path_factory, name, group):
+    """The serial form of the lane-group primitives at G = 4, 8 and 32:
+    the pop's butterfly, the emit rows' ballot and placement, the
+    drain's ranks, held against the plain step."""
+    spec = fused.MODELS[name]
+    wl = make_raft() if name == "raft-election" else make_kvchaos(payload=True)
+    kw = BENCH_SPECS["raft" if name == "raft-election" else "kvchaos"][1]
+    lib = build_host_kernel(tmp_path_factory.mktemp(f"g{group}"), spec, (kw["pool_size"],), group)
+    cfg = tcore.EngineConfig(**kw)
+    st = tcore.make_init(wl, cfg, device="cpu")(np.arange(24, dtype=np.uint64) * np.uint64(31))
+    for n_steps, until_halted in ((40, False), (900, True)):
+        run = tcore.make_run_while_plain if until_halted else tcore.make_run_plain
+        want = state_to_numpy(run(wl, cfg, n_steps)(st))
+        got = state_to_numpy(host_run(lib, wl, cfg, st, n_steps, until_halted))
+        for field in want:
+            np.testing.assert_array_equal(got[field], want[field], err_msg=field)
 
 
 def test_registry_shapes_equal_the_factories():
@@ -137,15 +240,33 @@ def _needs_card():
         pytest.skip("needs an NVIDIA card (run on the card with -m cuda)")
 
 
+def _launches(key):
+    """(run kernel, drain kernel) launches of model ``key`` so far."""
+    c = fused.KERNEL.counts
+    return c.get(key, 0), c.get(f"{key}/drain", 0)
+
+
+def _assert_card_equals_plain(wl, cfg, st, n_steps, until_halted):
+    """The kernel's run of CPU state ``st`` on the card equals the plain
+    step's on the CPU, per field; returns the plain run as numpy."""
+    run = tcore.make_run_while if until_halted else tcore.make_run
+    plain = tcore.make_run_while_plain if until_halted else tcore.make_run_plain
+    got = state_to_numpy(run(wl, cfg, n_steps)(st.to("cuda")))
+    want = state_to_numpy(plain(wl, cfg, n_steps)(st))
+    for field in want:
+        np.testing.assert_array_equal(got[field], want[field], err_msg=field)
+    return want
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_step_on_card():
     _needs_card()
     factory, kw, _n, cap = BENCH_SPECS["raft"]
     wl, cfg = factory(), tcore.EngineConfig(**kw)
     st = tcore.make_init(wl, cfg, device="cuda")(np.arange(4096, dtype=np.uint64))
-    before = fused.KERNEL.counts.get("raft", 0)
+    before = _launches("raft")
     got = tcore.make_run_while(wl, cfg, cap)(st)
-    assert fused.KERNEL.counts["raft"] == before + 2
+    assert _launches("raft") == (before[0] + 1, before[1] + 1)
     want = tcore.make_run_while_plain(wl, cfg, cap)(st)
     a, b = state_to_numpy(got), state_to_numpy(want)
     for name in a:
@@ -166,9 +287,10 @@ def test_cuda_kernel_matches_plain_step_per_model(name):
     factory, kw, n, cap = CARD_CASES[name]
     wl, cfg = factory(), tcore.EngineConfig(**kw)
     st = tcore.make_init(wl, cfg, device="cuda")(np.arange(n, dtype=np.uint64))
-    before = fused.KERNEL.counts.get(fused.kernel_model(wl).key, 0)
+    key = fused.kernel_model(wl).key
+    before = _launches(key)
     got = state_to_numpy(tcore.make_run_while(wl, cfg, cap)(st))
-    assert fused.KERNEL.counts[fused.kernel_model(wl).key] == before + 2
+    assert _launches(key) == (before[0] + 1, before[1] + 1)
     want = state_to_numpy(tcore.make_run_while_plain(wl, cfg, cap)(st))
     for field in got:
         np.testing.assert_array_equal(got[field], want[field], err_msg=field)
@@ -204,9 +326,9 @@ def test_cuda_engine_kinds_match_plain_step(chaos3_model, monkeypatch, until_hal
         run, plain = tcore.make_run_while, tcore.make_run_while_plain
     else:
         run, plain = tcore.make_run, tcore.make_run_plain
-    before = fused.KERNEL.counts.get(chaos3_model.key, 0)
+    before = _launches(chaos3_model.key)
     got = state_to_numpy(run(wl, cfg, 150)(st))
-    assert fused.KERNEL.counts[chaos3_model.key] == before + (2 if until_halted else 1)
+    assert _launches(chaos3_model.key) == (before[0] + 1, before[1] + int(until_halted))
     want = state_to_numpy(plain(wl, cfg, 150)(st))
     for field in want:
         np.testing.assert_array_equal(got[field], want[field], err_msg=field)
@@ -225,3 +347,78 @@ def test_cuda_build_refuses_a_host_only_handler(chaos3_model, tmp_path):
     spec = dataclasses.replace(chaos3_model, key="hostonly", header=str(header))
     with pytest.raises(RuntimeError, match=r"(?s)nvcc failed.*is not allowed"):
         fused.build_library(spec)
+
+
+# ---------------------------------------------------------------------------
+# adversarial shapes for the shared-memory, lane-group kernel, on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_equal_times_across_lane_boundaries():
+    """Pools whose valid slots share one time at indices that fall to
+    different lanes of every group size: the first index must win the
+    shuffle reduction, in the step and in the drain."""
+    _needs_card()
+    wl, cfg = make_raft(), tcore.EngineConfig(pool_size=64, loss_p=0.02)
+    st = tcore.make_run_plain(wl, cfg, 12)(
+        tcore.make_init(wl, cfg, device="cpu")(np.arange(256, dtype=np.uint64)))
+    t = st.ev_time.clone()
+    for slots in ((1, 9, 33), (7, 8, 40, 63), (31, 32)):
+        col = list(slots)
+        t[:, col] = t[:, col].min(1, keepdim=True).values
+    st.ev_time = t
+    _assert_card_equals_plain(wl, cfg, st, 30, False)
+    _assert_card_equals_plain(wl, cfg, st, 600, True)
+
+
+@pytest.mark.cuda
+def test_cuda_full_pool_overflows_like_plain_step():
+    """A pool filled with far-future events: the emits find no free
+    slot and each one counts as overflow, as in the plain step."""
+    _needs_card()
+    wl, cfg = make_raft(), tcore.EngineConfig(pool_size=40, loss_p=0.02)
+    st = tcore.make_init(wl, cfg, device="cpu")(np.arange(300, dtype=np.uint64))
+    st.ev_valid[:, 8:] = True
+    st.ev_time[:, 8:] = 10**15 + torch.arange(32)
+    want = _assert_card_equals_plain(wl, cfg, st, 40, False)
+    assert want["overflow"].sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_raft_pool_256():
+    """Raft at E = 256, the largest shared layout of the registry."""
+    _needs_card()
+    _f, kw, _n, cap = BENCH_SPECS["raft"]
+    wl, cfg = make_raft(), tcore.EngineConfig(**{**kw, "pool_size": 256})
+    st = tcore.make_init(wl, cfg, device="cpu")(np.arange(1024, dtype=np.uint64))
+    _assert_card_equals_plain(wl, cfg, st, cap, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seeds", [1, 33, 1000])
+def test_cuda_ragged_last_block(n_seeds):
+    """Seed counts that leave the last block part-filled."""
+    _needs_card()
+    _f, kw, _n, cap = BENCH_SPECS["raft"]
+    wl, cfg = make_raft(), tcore.EngineConfig(**kw)
+    st = tcore.make_init(wl, cfg, device="cpu")(np.arange(n_seeds, dtype=np.uint64) + 5)
+    _assert_card_equals_plain(wl, cfg, st, cap, True)
+    _assert_card_equals_plain(wl, cfg, st, 17, False)
+
+
+@pytest.mark.cuda
+def test_cuda_budget_zero_copies_the_state():
+    """A zero-step run launches the kernel and returns the input state,
+    in fresh tensors but for the fields the kernel never writes."""
+    _needs_card()
+    wl, cfg = make_raft(), tcore.EngineConfig(pool_size=40)
+    st = tcore.make_init(wl, cfg, device="cuda")(np.arange(100, dtype=np.uint64))
+    before = _launches("raft")
+    out = tcore.make_run(wl, cfg, 0)(st)
+    assert _launches("raft") == (before[0] + 1, before[1])
+    for f in tcore.STATE_FIELDS:
+        assert torch.equal(getattr(out, f), getattr(st, f)), f
+        if getattr(st, f).numel():
+            shared = f in fused.SHARED_FIELDS
+            assert (getattr(out, f).data_ptr() == getattr(st, f).data_ptr()) == shared, f
