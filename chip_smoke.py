@@ -36,8 +36,29 @@ plain eager step:
    times the kernel path by CUDA events (median of 5, min, max). Raft
    also checks its election latency and splits the kernel path's time
    into the run pass, the drain kernel and the rest;
-5. one JSON line describing each kernel, then the card's name and power
-   limit, then ``{"ok": true, "device": ...}`` as the last line.
+16. the compacted runner (``make_run_compacted``) on raft at the bench
+   shape (65,536 seeds, ``min_size`` by bench.py's rule, shrink 4),
+   kvchaos and shardkv at theirs: one run kernel launch and no drain,
+   every banked field (``step`` included) equal to the plain phase
+   program on the card, every field but ``step`` equal to
+   ``make_run_while``; ``compute`` timed alone;
+17. seed search: raft at 65,536 seeds with the invariant "some node is
+   leader" (no violation, every seed halted); kvchaos ``writes=5`` at
+   4,096 seeds with a too-strong invariant, with ``compact`` off and
+   on (same verdicts and traces, some but not all seeds failing); the
+   first failing seed alone reproduces its trace, and its oracle
+   replay refolds to it;
+18. measurement: ``measure_throughput`` on raft at 65,536 seeds and
+   ``measure_latency`` on pingpong, each dict printed, no overflow and
+   every seed halted; ``null_dispatch_stats``;
+19. ``check_determinism`` and ``check_layouts`` on raft at 65,536 seeds
+   for 60 steps;
+20. a checkpoint of raft at 65,536 seeds after 20 steps, saved, loaded
+   and run 580 more steps, equal in every field to the 600-step run;
+21. one JSON line describing each kernel, with its launches on every
+   path above (each path driven with the counts set to 0 just before
+   it and read just after), then the card's name and power limit,
+   then ``{"ok": true, "device": ...}`` as the last line.
 
 Any mismatch or exception exits non-zero. Without a card it exits
 non-zero before printing any result. Imports nothing of JAX or of the
@@ -67,6 +88,15 @@ INT32_LANES = 132 * 64
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 # per pool slot of the pop scan: the valid test, the compare, the select
 POP_OPS_PER_SLOT = 3
+# the runner phases: raft at the bench shape and the ported models whose
+# compacted runs are held (name, kernel model key, factory kwargs)
+COMPACT_PHASES = (
+    ("raft", "raft", {}),
+    ("kvchaos", "kvchaos", {}),
+    ("shardkv", "shardkv", {}),
+)
+# kvchaos search (phase 17): writes is a runtime word of its library
+KV_WRITES = 5
 
 
 # the model phases, in order: (BENCH_SPECS or SOAK_SPECS name, kernel
@@ -348,8 +378,11 @@ def launch_shape(spec, pool: int) -> str:
             f"{o['drain_smem_bytes']} B, {o['drain_blocks_per_sm']} blocks per SM")
 
 
-def kernel_line(name: str, model_source: str, r: dict, clock_hz: float) -> dict:
-    """One entry of the kernels line, with the bound computed here."""
+def kernel_line(name: str, model_source: str, r: dict, clock_hz: float,
+                paths: dict, extra: dict) -> dict:
+    """One entry of the kernels line, with the bound computed here, the
+    model's [run, drain] launches on each path it ran (``paths``) and
+    its runner timings (``extra``)."""
     bytes_ms = (r["in_bytes"] + r["out_bytes"]) / HBM_BYTES_PER_S * 1e3
     ops_ms = r["ops"] / (INT32_LANES * clock_hz) * 1e3
     log(f"  {name} bound: bytes {r['in_bytes']} + {r['out_bytes']} -> {bytes_ms:.5f} ms; "
@@ -374,6 +407,8 @@ def kernel_line(name: str, model_source: str, r: dict, clock_hz: float) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "launches_by_path": paths,
+        **extra,
     }
 
 
@@ -434,6 +469,213 @@ def group_sweep(device, groups: list, keys: list) -> None:
                 f"max {max(ms):.4f}; {launch_shape(variants[key, g], cfg.pool_size)}")
 
 
+def path_launches(fn):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after: ``(result, {kernel: launches})``."""
+    from madsim_tpu_torch.engine.fused import KERNEL
+
+    torch.cuda.synchronize()
+    KERNEL.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(KERNEL.counts)
+
+
+def run_drain(counts: dict, key: str) -> list:
+    """[run kernel, drain kernel] launches of model ``key``."""
+    return [counts.get(key, 0), counts.get(f"{key}/drain", 0)]
+
+
+def bench_min_size(n_seeds: int) -> int:
+    """bench.py's ``_min_size`` rule for the compacted runner."""
+    return min(2048, max(n_seeds // 4, 1))
+
+
+def spec_of(spec_name: str, factory_kw: dict):
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS
+
+    factory, kw, n_seeds, cap = {**SOAK_SPECS, **BENCH_SPECS}[spec_name]
+    return factory(**factory_kw), EngineConfig(**kw), n_seeds, cap
+
+
+def compacted_phase(device, paths: dict, extra: dict) -> None:
+    """Phase 16: the compacted runner's one launch against the plain
+    phase program on the card (every banked field, step included) and
+    against make_run_while (every field but step)."""
+    from madsim_tpu_torch.engine import make_init, make_run_while
+    from madsim_tpu_torch.engine.compact import (
+        RESULT_FIELDS, make_run_compacted, make_run_compacted_plain,
+    )
+    from madsim_tpu_torch.engine.convert import state_to_numpy
+
+    for spec_name, key, factory_kw in COMPACT_PHASES:
+        wl, cfg, n_seeds, cap = spec_of(spec_name, factory_kw)
+        ms_rule = bench_min_size(n_seeds)
+        log(f"[16] compacted {key}: {n_seeds} seeds, cap {cap}, shrink 4, min_size {ms_rule}")
+        st = make_init(wl, cfg, device=device)(np.arange(n_seeds, dtype=np.uint64))
+        run = make_run_compacted(wl, cfg, cap, shrink=4, min_size=ms_rule)
+        got, counts = path_launches(lambda: run(st))
+        paths.setdefault(key, {})["compacted"] = run_drain(counts, key)
+        if run_drain(counts, key) != [1, 0] or set(counts) != {key}:
+            raise AssertionError(f"{key}: the compacted path launched {counts}, not one run kernel")
+        plain = []
+        plain_ms = time_ms(lambda: plain.append(
+            make_run_compacted_plain(wl, cfg, cap, shrink=4, min_size=ms_rule)(st)), 1, device)
+        lock = state_to_numpy(make_run_while(wl, cfg, cap)(st))
+        for f in RESULT_FIELDS:
+            a, b = getattr(got, f), getattr(plain[0], f)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{key}: compacted field {f} differs from the plain phase program")
+            if f != "step" and not np.array_equal(a, lock[f]):
+                raise AssertionError(f"{key}: compacted field {f} differs from make_run_while")
+        if not got.halted.all() or got.overflow.any():
+            raise AssertionError(f"{key}: a compacted seed did not halt or overflowed")
+        log(f"  one run kernel launch, no drain; every banked field equal to the plain "
+            f"phase program on the card (step max {int(got.step.max())}, min {int(got.step.min())}), "
+            f"every field but step equal to make_run_while")
+        ms = time_ms(lambda: run.compute(st), REPEATS, device)
+        banks = run.compute(st)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run.assemble(banks)
+        asm_ms = (time.perf_counter() - t) * 1e3
+        med = statistics.median(ms)
+        log(f"  compute ms over {REPEATS} runs: median {med:.4f}, min {min(ms):.4f}, "
+            f"max {max(ms):.4f}; assemble (host clock) {asm_ms:.3f} ms; plain phase "
+            f"program {plain_ms[0]:.2f} ms")
+        extra.setdefault(key, {}).update(
+            compacted_ms=med, compacted_ms_min=min(ms), compacted_ms_max=max(ms),
+            compacted_assemble_ms=asm_ms, compacted_plain_ms=plain_ms[0],
+        )
+
+
+def has_leader(v):
+    return (v["node_state"][:, :, 0] == 2).any(axis=1)
+
+
+def replicas_current(v):
+    # too strong on purpose: a chaos kill wipes a RAM-only replica's
+    # apply counter, and the re-sync replays only the current write
+    return (np.asarray(v["node_state"])[:, 1:5, 1] >= KV_WRITES).all(axis=1)
+
+
+def search_phase(device, paths: dict) -> None:
+    """Phase 17: seed search, compact off and on, a solo repro and the
+    oracle replay of the first failing seed."""
+    from madsim_tpu_torch.engine import refold, replay, search_seeds
+    from madsim_tpu_torch.models import make_kvchaos
+
+    wl, cfg, n_seeds, cap = spec_of("raft", {})
+    log(f"[17] search raft: {n_seeds} seeds, cap {cap}, invariant: some node is leader")
+    rep, counts = path_launches(lambda: search_seeds(
+        wl, cfg, has_leader, n_seeds=n_seeds, max_steps=cap, device=device))
+    paths["raft"]["search"] = run_drain(counts, "raft")
+    if rep.failing_seeds.size or rep.unhalted_seeds.size or run_drain(counts, "raft")[0] < 1:
+        raise AssertionError(f"raft search: {rep.banner()}; launches {counts}")
+    log(f"  {rep.banner()}; launches {counts}; build {rep.build_wall_s:.3f} s")
+
+    _wl, cfg, _n, cap = spec_of("kvchaos", {})
+    wl, n_seeds = make_kvchaos(writes=KV_WRITES), 4096
+    log(f"[17] search kvchaos writes={KV_WRITES}: {n_seeds} seeds, cap {cap}, "
+        f"a too-strong invariant")
+    full, counts = path_launches(lambda: search_seeds(
+        wl, cfg, replicas_current, n_seeds=n_seeds, max_steps=cap, device=device))
+    fast, counts_c = path_launches(lambda: search_seeds(
+        wl, cfg, replicas_current, n_seeds=n_seeds, max_steps=cap, compact=True, device=device))
+    paths["kvchaos"]["search"] = run_drain(counts, "kvchaos")
+    paths["kvchaos"]["search_compact"] = run_drain(counts_c, "kvchaos")
+    n_bad = full.failing_seeds.size
+    if not 0 < n_bad < n_seeds:
+        raise AssertionError(f"kvchaos search found {n_bad} of {n_seeds} failing seeds")
+    for attr in ("ok", "halted", "traces", "failing_seeds"):
+        if not np.array_equal(getattr(full, attr), getattr(fast, attr)):
+            raise AssertionError(f"kvchaos search: compact on and off differ in {attr}")
+    if run_drain(counts, "kvchaos") != [1, 1] or run_drain(counts_c, "kvchaos") != [1, 0]:
+        raise AssertionError(f"kvchaos search launches: {counts}, compact {counts_c}")
+    log("  " + full.banner(limit=3).replace("\n", "\n  "))
+    log(f"  compact on and off: the same verdicts and traces; launches {counts} and {counts_c}")
+    bad = int(full.failing_seeds[0])
+    want = int(full.traces[list(full.seeds).index(bad)])
+    solo = search_seeds(wl, cfg, replicas_current, n_seeds=1, max_steps=cap, seed_base=bad,
+                        device=device)
+    if solo.failing_seeds.tolist() != [bad] or int(solo.traces[0]) != want:
+        raise AssertionError(f"kvchaos seed {bad} does not reproduce alone")
+    events, res = replay(wl, cfg, bad, cap)
+    if not refold(events, wl) == res.trace == want:
+        raise AssertionError(f"kvchaos seed {bad}: the replay does not refold to the kernel's trace")
+    log(f"  seed {bad} fails alone with trace {want:#018x}; its oracle replay "
+        f"({len(events)} events) refolds to it")
+
+
+def measure_phase(device, paths: dict) -> None:
+    """Phase 18: the measurement harness on the card."""
+    from madsim_tpu_torch.engine.measure import (
+        measure_latency, measure_throughput, null_dispatch_stats,
+    )
+
+    wl, cfg, n_seeds, cap = spec_of("raft", {})
+    log(f"[18] measure_throughput raft: {n_seeds} seeds, cap {cap}, target 1.0 s, 3 dispatches")
+    thr, counts = path_launches(lambda: measure_throughput(
+        wl, cfg, cap, n_seeds, target_wall_s=1.0, n_measure=3, seed_mod=524288,
+        min_size=bench_min_size(n_seeds), device=device))
+    paths["raft"]["measure"] = run_drain(counts, "raft")
+    log(f"  {json.dumps(thr)}; launches {counts}")
+    wl, cfg, _n, cap = spec_of("pingpong", {})
+    log(f"[18] measure_latency pingpong: cap {cap}, target 0.5 s")
+    lat, counts_p = path_launches(lambda: measure_latency(
+        wl, cfg, cap, target_wall_s=0.5, seed_mod=131072, device=device))
+    paths["pingpong"]["measure"] = run_drain(counts_p, "pingpong")
+    log(f"  {json.dumps(lat)}; launches {counts_p}")
+    for name, rec, c in (("raft", thr, counts), ("pingpong", lat, counts_p)):
+        if rec["overflow"] or not rec["all_halted"] or c.get(name, 0) < 1 or len(c) != 1:
+            raise AssertionError(f"{name} measurement: {rec}; launches {c}")
+    log(f"  null dispatch: {json.dumps(null_dispatch_stats(device=device))}")
+
+
+def verify_phase(device, paths: dict) -> None:
+    """Phase 19: the determinism checks on the card."""
+    from madsim_tpu_torch.engine import check_determinism, check_layouts
+
+    wl, cfg, n_seeds, _cap = spec_of("raft", {})
+    seeds = np.arange(n_seeds, dtype=np.uint64)
+    log(f"[19] check_determinism and check_layouts raft: {n_seeds} seeds, 60 steps")
+    _, counts = path_launches(lambda: (check_determinism(wl, cfg, seeds, 60, device=device),
+                                       check_layouts(wl, cfg, seeds, 60, device=device)))
+    paths["raft"]["verify"] = run_drain(counts, "raft")
+    if run_drain(counts, "raft") != [3, 0]:
+        raise AssertionError(f"the determinism checks launched {counts}")
+    log(f"  two kernel runs agree; the kernel equals the plain step on the card and the "
+        f"first 256 seeds on the CPU; launches {counts}")
+
+
+def checkpoint_phase(device, paths: dict) -> None:
+    """Phase 20: save after 20 steps, load, 580 more steps: equal to the
+    uninterrupted 600-step run in every field."""
+    from pathlib import Path
+
+    from madsim_tpu_torch.engine import load_checkpoint, make_init, make_run, save_checkpoint
+
+    wl, cfg, n_seeds, cap = spec_of("raft", {})
+    log(f"[20] checkpoint raft: {n_seeds} seeds, 20 steps, save, load, {cap - 20} more")
+    path = Path(__file__).resolve().parent / "build" / "checkpoints" / "chip_smoke_raft.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    st = make_init(wl, cfg, device=device)(np.arange(n_seeds, dtype=np.uint64))
+
+    def resume():
+        save_checkpoint(str(path), make_run(wl, cfg, 20)(st), cfg)
+        return make_run(wl, cfg, cap - 20)(load_checkpoint(str(path), cfg, device=device))
+
+    try:
+        resumed, counts = path_launches(resume)
+        size = path.stat().st_size
+    finally:
+        path.unlink(missing_ok=True)
+    paths["raft"]["checkpoint"] = run_drain(counts, "raft")
+    assert_equal(resumed, make_run(wl, cfg, cap)(st), "resumed vs uninterrupted 600-step run")
+    log(f"  checkpoint file {size} bytes; launches {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -479,13 +721,25 @@ def main() -> int:
         if raft:
             r["err"] = max(r["err"], entry_err)
         name = "make_run_fused" if raft else f"make_run_fused/{key}"
-        results.append((name, f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
-    for name, _src, r in results:
+        results.append((key, name, f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
+    for _key, name, _src, r in results:
         if r["launches"] < 1 or r["drains"] < 1:
             raise AssertionError(f"{name}: the main path did not launch its run and drain kernels")
         if r["err"] != 0:
             raise AssertionError(f"{name}: kernel disagrees with the plain step: {r['err']}")
-    kernels = {"kernels": [kernel_line(name, src, r, clock) for name, src, r in results]}
+    # the runners, each path driven with the counts set to 0 just before
+    # it and read just after
+    paths = {key: {"run_while": [r["launches"], r["drains"]]} for key, _n, _s, r in results}
+    extra = {}
+    compacted_phase(device, paths, extra)
+    search_phase(device, paths)
+    measure_phase(device, paths)
+    verify_phase(device, paths)
+    checkpoint_phase(device, paths)
+    kernels = {"kernels": [
+        kernel_line(name, src, r, clock, paths[key], extra.get(key, {}))
+        for key, name, src, r in results
+    ]}
     print(json.dumps(kernels), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,12 @@ needs of that package it keeps as its own copy, and its tests hold it
 against the JAX package bit for bit.
 
 * ``engine`` — ``SimState``, ``make_init``, the plain eager step and
-  the runners; on a CUDA state the runners launch the hand-written run
-  kernel (``engine/fused.py``, sources under ``csrc/``).
-* ``models`` — the ported workloads (the six ``BENCH_SPECS`` models).
+  the runners (``make_run``, ``make_run_while``, seed compaction, seed
+  search, measurement, the determinism checks, checkpoints and the
+  oracle replay); on a CUDA state the runners launch the hand-written
+  run kernel (``engine/fused.py``, sources under ``csrc/``).
+* ``models`` — the ported workloads (the ``BENCH_SPECS`` and
+  ``SOAK_SPECS`` models).
 """
 
 from . import engine, models  # noqa: F401

@@ -34,4 +34,15 @@ from .core import (  # noqa: F401
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
 from .fused import make_run_fused  # noqa: F401
 from .rng import Draw, threefry2x32  # noqa: F401
-from .verify import DeterminismError, compare_traces  # noqa: F401
+from .compact import make_run_compacted, make_run_compacted_plain  # noqa: F401
+from .verify import (  # noqa: F401
+    DeterminismError,
+    check_determinism,
+    check_layouts,
+    compare_fields,
+    compare_traces,
+)
+from .checkpoint import load as load_checkpoint  # noqa: F401
+from .checkpoint import save as save_checkpoint  # noqa: F401
+from .search import SearchReport, make_sweep, search_seeds  # noqa: F401
+from .replay import ReplayEvent, format_timeline, refold, replay  # noqa: F401

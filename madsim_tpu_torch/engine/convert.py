@@ -17,7 +17,9 @@ import torch
 from .core import STATE_FIELDS, SimState, Workload
 
 __all__ = [
+    "FOREIGN_FIELDS",
     "NUMPY_DTYPES",
+    "field_to_numpy",
     "state_from_numpy",
     "state_to_numpy",
     "tables_from_numpy",
@@ -48,6 +50,57 @@ NUMPY_DTYPES = {
     "slow": np.int32,
     "dup": np.bool_,
     "skew": np.int32,
+}
+
+# The JAX package's SimState fields that the port does not carry yet:
+# ``name -> (numpy dtype, shape after the seed axis, the ROADMAP item
+# that ports them)``. In a shape, "U", "A" and "W" stand for the state,
+# args and payload widths. Every one of them is zero-size (or, for a
+# per-seed counter, zero) for the variants the port runs; the pool
+# index summaries (tile_min, tile_cnt) are derived state and travel in
+# no file.
+FOREIGN_FIELDS = {
+    **{f: (dt, shape, "A7 (histories)") for f, dt, shape in (
+        ("hist_count", np.int32, ()),
+        ("hist_drop", np.int32, ()),
+        ("hist_word", np.int32, (0, 5)),
+        ("hist_t", np.int64, (0,)),
+    )},
+    **{f: (dt, shape, "A8 (durable_sync and storage faults)") for f, dt, shape in (
+        ("disk", np.int32, (0, "U")),
+        ("wmask", np.bool_, (0, "U")),
+        ("sync_loss", np.bool_, (0,)),
+        ("sync_eio", np.bool_, (0,)),
+        ("torn", np.bool_, (0,)),
+    )},
+    **{f: (dt, (0,), "A8 (cov_words, cov_hitcount)") for f, dt in (
+        ("cov", np.uint32), ("cov_last", np.int32), ("cov_hits", np.uint8),
+    )},
+    "met": (np.int32, (0,), "A8 (metrics)"),
+    **{f: (dt, shape, "A8 (timeline_cap)") for f, dt, shape in (
+        ("tl_count", np.int32, ()),
+        ("tl_drop", np.int32, ()),
+        ("tl_t", np.int64, (0,)),
+        ("tl_meta", np.uint32, (0,)),
+        ("tl_args", np.int32, (0, "A")),
+        ("tl_pay", np.int32, (0, "W")),
+    )},
+    **{f: (dt, shape, "A8 (latency)") for f, dt, shape in (
+        ("ev_emit", np.int64, (0,)),
+        ("tl_emit", np.int64, (0,)),
+        ("lat_inv", np.int64, (0,)),
+        ("lat_resp", np.int64, (0,)),
+        ("lat_hist", np.int32, (0, 0)),
+        ("lat_count", np.int32, ()),
+        ("lat_drop", np.int32, ()),
+    )},
+    **{f: (dt, (0,), "A8 (causal)") for f, dt in (
+        ("lam", np.uint32), ("ev_parent", np.int32), ("ev_lam", np.uint32),
+        ("tl_seq", np.int32), ("tl_parent", np.int32), ("tl_lam", np.uint32),
+    )},
+    **{f: (dt, (0,), "A8 (retry)") for f, dt in (
+        ("rt_done", np.bool_), ("rt_attempt", np.int32), ("rt_deadline", np.int64),
+    )},
 }
 
 # the port's torch dtype of every core field
@@ -82,18 +135,16 @@ def state_from_numpy(fields: dict, device="cpu") -> SimState:
     return SimState(**out)
 
 
+def field_to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+    """One port field as numpy with the JAX package's dtype."""
+    a = t.detach().cpu().numpy()
+    want = NUMPY_DTYPES[name]
+    return a.view(np.uint64) if want is np.uint64 else a.astype(want)
+
+
 def state_to_numpy(state: SimState) -> dict:
     """The port's state as numpy arrays with the JAX package's dtypes."""
-    out = {}
-    for name in STATE_FIELDS:
-        a = getattr(state, name).detach().cpu().numpy()
-        want = NUMPY_DTYPES[name]
-        if want is np.uint64:
-            a = a.view(np.uint64)
-        else:
-            a = a.astype(want)
-        out[name] = a
-    return out
+    return {name: field_to_numpy(name, getattr(state, name)) for name in STATE_FIELDS}
 
 
 def tables_to_numpy(wl: Workload) -> tuple:

@@ -384,6 +384,9 @@ class RunKernel:
     def _count(self, name: str) -> None:
         self.counts[name] = self.counts.get(name, 0) + 1
 
+    def is_loaded(self, spec: KernelModel) -> bool:
+        return spec.key in self._libs
+
     def load(self, spec: KernelModel):
         lib = self._libs.get(spec.key)
         if lib is None:

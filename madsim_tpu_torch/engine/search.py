@@ -1,0 +1,289 @@
+"""Batched chaos-schedule search: hunt seeds that violate an invariant.
+
+Port of ``madsim_tpu/engine/search.py``. Sweep thousands of seeded
+chaos schedules in one batched run and report every seed whose final
+state breaks a user invariant, each with its repro recipe::
+
+    report = search_seeds(
+        wl, cfg,
+        invariant=lambda view: view["node_state"][:, 0, 0] >= 1,
+        n_seeds=4096, max_steps=900,
+    )
+    report.failing_seeds  # -> np.ndarray of violating seeds
+    report.banner()       # -> repro lines, seed + config hash each
+
+The invariant is a host-side predicate over the final batched state
+(numpy views with the JAX package's dtypes), returning a boolean array
+over the seed axis, True where the invariant holds. Re-running any
+failing seed, alone or in any batch, reproduces the identical trace.
+
+On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
+run and drain kernels), or with ``compact=True`` the compacted runner's
+one stop-at-halt launch. The reference's history, plan and
+observability options raise ``NotImplementedError`` until their engine
+axes are ported (ROADMAP items A7 and A8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Mapping
+
+import numpy as np
+
+from .compact import RESULT_FIELDS, make_run_compacted, refuse_unported
+from .convert import state_to_numpy
+from .core import STATE_FIELDS, EngineConfig, Workload, make_init, make_run_while, resolve_device
+
+__all__ = ["SearchReport", "make_sweep", "search_seeds"]
+
+# built (init, run) pairs, so that repeated searches over the same
+# workload, config, step budget and path (the repro workflow) reuse
+# them. A workload is named by its factory's name, shape and
+# parameters, as the kernel registry names it.
+_RUN_CACHE: dict = {}
+
+
+def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
+                    compact: bool, device):
+    # the one construction of a sweep's (init, run) pair, for make_sweep
+    # and search_seeds alike
+    init = make_init(wl, cfg, device=device)
+    run = (
+        make_run_compacted(wl, cfg, max_steps) if compact
+        else make_run_while(wl, cfg, max_steps)
+    )
+    return init, run
+
+
+def make_sweep(
+    wl: Workload,
+    cfg: EngineConfig,
+    max_steps: int,
+    *,
+    device=None,
+    plan_slots: int = 0,
+    dup_rows: bool = False,
+    cov_words: int = 0,
+    metrics: bool = False,
+    timeline_cap: int = 0,
+    cov_hitcount: bool = False,
+    latency=None,
+    causal: bool = False,
+    retry=None,
+):
+    """Build ``sweep(seeds) -> view``: init the seed batch, run
+    ``make_run_while`` to the step cap, and return the final state as a
+    ``{field name: device tensor}`` view, with no host transfer and no
+    invariant. The options after ``device`` raise
+    ``NotImplementedError`` until their engine axes are ported."""
+    refuse_unported(
+        plan_slots=plan_slots, dup_rows=dup_rows, cov_words=cov_words,
+        metrics=metrics, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
+        latency=latency, causal=causal, retry=retry,
+    )
+    init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device))
+
+    def sweep(seeds):
+        out = run(init(seeds))
+        return {f: getattr(out, f) for f in STATE_FIELDS}
+
+    return sweep
+
+
+def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
+                  compact: bool, dev):
+    from .fused import workload_shape
+
+    key = (wl.name, workload_shape(wl), wl.model_params, cfg.hash(),
+           max_steps, compact, str(dev))
+    if key not in _RUN_CACHE:
+        _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev)
+    return _RUN_CACHE[key]
+
+
+def _library_build_s(wl: Workload, dev) -> float:
+    """The seconds spent building and loading the workload's kernel
+    library on its first use in this process, else 0.0."""
+    if dev.type != "cuda":
+        return 0.0
+    from .fused import KERNEL, kernel_model
+
+    spec = kernel_model(wl)
+    if KERNEL.is_loaded(spec):
+        return 0.0
+    t0 = time.perf_counter()
+    KERNEL.load(spec)
+    return time.perf_counter() - t0
+
+
+@dataclasses.dataclass
+class SearchReport:
+    """Outcome of one batched invariant sweep. The reference's history,
+    coverage, observability and screen fields wait for ROADMAP items A7
+    and A8."""
+
+    workload: str
+    config_hash: str
+    seeds: np.ndarray  # every seed searched, uint64
+    ok: np.ndarray  # (S,) bool: invariant held
+    halted: np.ndarray  # (S,) bool
+    # (S,) bool: the event pool dropped events, the verdict is unreliable
+    overflowed: np.ndarray
+    traces: np.ndarray  # (S,) uint64 per-seed trace hashes
+    # the largest per-seed step coordinate; under compact=True a row's
+    # counter stops when it is banked
+    steps: int
+    # seconds this call spent building the run kernel's library: nonzero
+    # only on its first use in the process, and 0.0 on the CPU
+    build_wall_s: float = 0.0
+    # (S,) int64 per-seed halt clock (0 while running)
+    halt_times: np.ndarray | None = None
+
+    @property
+    def failing_seeds(self) -> np.ndarray:
+        """Violations on seeds whose simulation was trustworthy (no
+        pool overflow, see :attr:`overflowed_seeds`)."""
+        return self.seeds[~self.ok & ~self.overflowed]
+
+    @property
+    def unhalted_seeds(self) -> np.ndarray:
+        """Seeds still running at max_steps: schedules the step budget
+        could not finish (raise max_steps or treat as liveness bugs)."""
+        return self.seeds[~self.halted]
+
+    @property
+    def overflowed_seeds(self) -> np.ndarray:
+        """Seeds whose event pool dropped events (raise
+        ``cfg.pool_size``): their verdicts are simulator artifacts, not
+        evidence."""
+        return self.seeds[self.overflowed]
+
+    def banner(self, limit: int = 10) -> str:
+        """Repro recipe per failing seed, with the halt and overflow
+        counts; the reference's wording."""
+        bad = self.failing_seeds
+        s = len(self.seeds)
+        lines = [
+            f"chaos search over {s} seeds of "
+            f"{self.workload!r}: {len(bad)} violation(s)",
+        ]
+        n_halt = int(np.asarray(self.halted).sum())
+        if n_halt < s:
+            lines.append(
+                f"  halted {n_halt}/{s}; {s - n_halt} still running at "
+                f"the step cap (run with metrics=True for the halt-"
+                f"reason breakdown)"
+            )
+        if self.overflowed.any():
+            pool = int(self.overflowed.sum())
+            lines.append(
+                f"  WARNING: {pool} seed(s) overflowed the event pool or "
+                f"history buffer (pool {pool}, history 0); excluded (raise "
+                f"pool_size / HistorySpec capacity)"
+            )
+        for seed in bad[:limit]:
+            lines.append(
+                f"  seed {int(seed)}: rerun with seeds=[{int(seed)}] "
+                f"config_hash={self.config_hash}"
+            )
+        if len(bad) > limit:
+            lines.append(f"  ... and {len(bad) - limit} more")
+        return "\n".join(lines)
+
+
+def _state_view(out) -> Mapping[str, np.ndarray]:
+    """Host-side numpy views of every final-state field, keyed by name,
+    with the JAX package's dtypes: invariants can reach anything,
+    including the paused and clog chaos state and the raw event pool."""
+    return state_to_numpy(out)
+
+
+def search_seeds(
+    wl: Workload,
+    cfg: EngineConfig,
+    invariant: Callable[[Mapping[str, np.ndarray]], np.ndarray],
+    n_seeds: int = 4096,
+    max_steps: int = 1000,
+    seed_base: int = 0,
+    require_halt: bool = True,
+    *,
+    compact: bool = False,
+    seeds: np.ndarray | None = None,
+    device=None,
+    history_invariant: Callable | None = None,
+    plan=None,
+    plan_rows=None,
+    plan_hash: str | None = None,
+    dup_rows: bool | None = None,
+    cov_words: int = 0,
+    metrics: bool = False,
+    timeline_cap: int = 0,
+    cov_hitcount: bool = False,
+    latency=None,
+    device_check=None,
+    causal: bool = False,
+    retry=None,
+) -> SearchReport:
+    """Run ``n_seeds`` chaos schedules (``seed_base`` on, or the
+    explicit ``seeds``) and evaluate ``invariant`` on the final states.
+
+    ``require_halt=True`` (default) also counts a seed that never halts
+    within ``max_steps`` as a violation: its scenario never reached its
+    goal, the liveness bug a chaos search hunts.
+
+    ``compact=True`` runs the compacted runner (engine/compact.py):
+    per-seed values identical, but the invariant's view holds only
+    ``RESULT_FIELDS``, not the raw event pool or the clog and alive
+    arrays.
+
+    ``device`` is where the sweep runs, the card unless the caller asks
+    for the CPU. The options after it raise ``NotImplementedError``
+    until their engine axes are ported.
+    """
+    refuse_unported(
+        history_invariant=history_invariant, plan=plan, plan_rows=plan_rows,
+        plan_hash=plan_hash, dup_rows=dup_rows, cov_words=cov_words,
+        metrics=metrics, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
+        latency=latency, device_check=device_check, causal=causal, retry=retry,
+    )
+    if invariant is None:
+        raise ValueError("need an invariant")
+    if seeds is None:
+        seeds = np.arange(seed_base, seed_base + n_seeds, dtype=np.uint64)
+    else:
+        seeds = np.asarray(seeds, np.uint64)
+        if seeds.ndim != 1:
+            raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
+        n_seeds = len(seeds)
+    dev = resolve_device(device)
+    init, run = _compiled_run(wl, cfg, max_steps, compact, dev)
+    build_wall_s = _library_build_s(wl, dev)
+    out = run(init(seeds))
+    if compact:
+        view = {f: getattr(out, f) for f in RESULT_FIELDS}
+    else:
+        view = _state_view(out)
+    ok = np.asarray(invariant(view), dtype=bool)
+    if ok.shape != (n_seeds,):
+        raise ValueError(
+            f"invariant must return a ({n_seeds},) boolean array, "
+            f"got shape {ok.shape}"
+        )
+    overflowed = view["overflow"] > 0
+    halted = view["halted"]
+    if require_halt:
+        ok = ok & halted
+    return SearchReport(
+        workload=wl.name,
+        config_hash=cfg.hash(),
+        seeds=seeds,
+        ok=ok,
+        halted=halted,
+        overflowed=overflowed,
+        traces=view["trace"],
+        steps=int(view["step"].max(initial=0)),
+        build_wall_s=build_wall_s,
+        halt_times=view["halt_time"],
+    )

@@ -1,9 +1,15 @@
-"""Trace comparison: the batched determinism check.
+"""Engine determinism checks.
 
-Copy of ``compare_traces`` from ``madsim_tpu/engine/verify.py`` for the
-port's states: run the same seeds twice (or on two devices, or through
-the kernel and the plain step) and compare the per-seed trace hashes;
-any divergence names the first differing seed.
+Port of ``madsim_tpu/engine/verify.py`` for the port's states: run the
+same seeds twice, or through two lowerings, and compare the per-seed
+trace hashes (and, across lowerings, the state fields the trace does not
+see); any divergence names the first differing seed. The strongest form
+is the C++ oracle compare (``engine/oracle.py``); this is the quick
+self-check for any workload.
+
+The JAX engine has several lowerings (dense and scatter layouts, int32
+times); the port has one step program, so its "layouts" are the fused
+run kernel against the plain eager step, on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -11,7 +17,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["DeterminismError", "compare_traces"]
+from .core import (
+    STATE_FIELDS,
+    EngineConfig,
+    SimState,
+    Workload,
+    make_init,
+    make_run,
+    make_run_plain,
+    resolve_device,
+)
+
+__all__ = [
+    "LAYOUT_FIELDS",
+    "DeterminismError",
+    "check_determinism",
+    "check_layouts",
+    "compare_fields",
+    "compare_traces",
+]
+
+# the fields check_layouts holds besides the trace: the reference's list
+# without its history columns, which the port does not carry yet
+LAYOUT_FIELDS = (
+    "now", "halted", "halt_time", "msg_count", "overflow", "node_state",
+    "ev_valid",
+)
+# check_layouts holds the first this many seeds against the CPU
+CPU_SEEDS = 256
 
 
 class DeterminismError(RuntimeError):
@@ -22,6 +55,10 @@ def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _seed_of(a, s: int) -> int:
+    return int(_np(a.seed).astype(np.int64).view(np.uint64)[s])
 
 
 def compare_traces(a, b, what: str = "run") -> None:
@@ -35,9 +72,68 @@ def compare_traces(a, b, what: str = "run") -> None:
     diff = np.nonzero(ta != tb)[0]
     if diff.size:
         s = int(diff[0])
-        seed = int(_np(a.seed).astype(np.int64).view(np.uint64)[s])
         raise DeterminismError(
             f"non-determinism detected in {what}: seed index {s} "
-            f"(seed {seed}) produced trace {int(ta[s]) & (2**64 - 1):#x} "
+            f"(seed {_seed_of(a, s)}) produced trace {int(ta[s]) & (2**64 - 1):#x} "
             f"vs {int(tb[s]) & (2**64 - 1):#x}"
         )
+
+
+def compare_fields(a, b, what: str = "run", fields: tuple = LAYOUT_FIELDS) -> None:
+    """Raise :class:`DeterminismError` naming the first of ``fields``
+    that differs between ``a`` and ``b``, and its first seed."""
+    for field in fields:
+        da, db = _np(getattr(a, field)), _np(getattr(b, field))
+        if da.shape != db.shape or not np.array_equal(da, db):
+            s = 0 if da.shape != db.shape else int(
+                np.nonzero((da != db).reshape(da.shape[0], -1).any(axis=1))[0][0]
+            )
+            raise DeterminismError(
+                f"{what}: field {field!r} diverged at seed index {s} "
+                f"(seed {_seed_of(a, s)})"
+            )
+
+
+def check_determinism(
+    wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None
+) -> None:
+    """Run the workload twice over ``seeds`` on ``device`` (the card
+    unless the caller asks for the CPU); raise on any trace divergence.
+
+    Catches hidden nondeterminism in handlers, the way the reference's
+    two-run RNG-log compare catches nondeterministic user code."""
+    seeds = np.asarray(seeds, np.uint64)
+    init = make_init(wl, cfg, device=device)
+    run = make_run(wl, cfg, n_steps)
+    a = run(init(seeds))
+    b = run(init(seeds))
+    compare_traces(a, b, what=f"{wl.name} x2")
+
+
+def check_layouts(
+    wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None
+) -> None:
+    """Run ``seeds`` through the fused kernel on the card and through
+    the plain eager step on the card, and the first 256 of them through
+    the plain step on the CPU; raise on any difference of trace or of
+    :data:`LAYOUT_FIELDS`. On the CPU the port has one lowering, so a
+    CPU ``device`` raises ``ValueError``."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        raise ValueError(
+            "check_layouts compares the fused run kernel with the plain "
+            "step; on the CPU the port has one lowering, the plain step, "
+            "so there is nothing to compare (use check_determinism)"
+        )
+    seeds = np.asarray(seeds, np.uint64)
+    fused = make_run(wl, cfg, n_steps)(make_init(wl, cfg, device=dev)(seeds))
+    plain = make_run_plain(wl, cfg, n_steps)(make_init(wl, cfg, device=dev)(seeds))
+    k = min(CPU_SEEDS, len(seeds))
+    cpu = make_run_plain(wl, cfg, n_steps)(make_init(wl, cfg, device="cpu")(seeds[:k]))
+    head = SimState(**{f: getattr(fused, f)[:k] for f in STATE_FIELDS})
+    for what, a, b in (
+        (f"{wl.name} fused-vs-plain on {dev}", fused, plain),
+        (f"{wl.name} fused-vs-plain on cpu", head, cpu),
+    ):
+        compare_traces(a, b, what=what)
+        compare_fields(a, b, what=what)

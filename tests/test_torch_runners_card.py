@@ -1,0 +1,126 @@
+"""The engine runners on the card: one test per path, each marked
+``cuda`` and skipped without a card. On a CUDA state every path
+launches the run kernel, as the launch counts show, and equals the
+plain step's result. The file imports no JAX, so it runs on the card:
+``python -m pytest -m cuda --noconftest tests/test_torch_runners_card.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from madsim_tpu_torch.engine import core as tcore
+from madsim_tpu_torch.engine import fused
+from madsim_tpu_torch.engine.checkpoint import load, save
+from madsim_tpu_torch.engine.compact import RESULT_FIELDS, make_run_compacted, make_run_compacted_plain
+from madsim_tpu_torch.engine.convert import state_to_numpy
+from madsim_tpu_torch.engine.measure import measure_latency, measure_throughput
+from madsim_tpu_torch.engine.replay import refold, replay
+from madsim_tpu_torch.engine.search import search_seeds
+from madsim_tpu_torch.engine.verify import check_determinism, check_layouts
+from madsim_tpu_torch.models import BENCH_SPECS, make_kvchaos, make_pingpong, make_raft
+
+RAFT_KW, RAFT_CAP = BENCH_SPECS["raft"][1], BENCH_SPECS["raft"][3]
+KV_KW = BENCH_SPECS["kvchaos"][1]
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run on the card with -m cuda)")
+
+
+def _counts(key, fn):
+    """``fn()``, and the (run kernel, drain kernel) launches of model
+    ``key`` it made."""
+    c = fused.KERNEL.counts
+    before = c.get(key, 0), c.get(f"{key}/drain", 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (c.get(key, 0) - before[0], c.get(f"{key}/drain", 0) - before[1])
+
+
+def too_strong(v):
+    return (np.asarray(v["node_state"])[:, 1:5, 1] >= 5).all(axis=1)
+
+
+@pytest.mark.cuda
+def test_cuda_compacted_run_is_one_launch_equal_to_the_phase_program():
+    _needs_card()
+    wl, cfg = make_raft(), tcore.EngineConfig(**RAFT_KW)
+    st = tcore.make_init(wl, cfg, device="cuda")(np.arange(4096, dtype=np.uint64))
+    run = make_run_compacted(wl, cfg, RAFT_CAP, min_size=256)
+    got, launches = _counts("raft", lambda: run(st))
+    assert launches == (1, 0)
+    want = make_run_compacted_plain(wl, cfg, RAFT_CAP, min_size=256)(st)
+    lock = state_to_numpy(tcore.make_run_while(wl, cfg, RAFT_CAP)(st))
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+        if f != "step":
+            np.testing.assert_array_equal(getattr(got, f), lock[f], err_msg=f)
+
+
+@pytest.mark.cuda
+def test_cuda_search_matches_the_cpu_and_compact():
+    _needs_card()
+    wl, cfg = make_kvchaos(writes=5), tcore.EngineConfig(**KV_KW)
+    full, launches = _counts("kvchaos", lambda: search_seeds(
+        wl, cfg, too_strong, n_seeds=1024, max_steps=900, device="cuda"))
+    assert launches == (1, 1)
+    fast, launches = _counts("kvchaos", lambda: search_seeds(
+        wl, cfg, too_strong, n_seeds=1024, max_steps=900, compact=True, device="cuda"))
+    assert launches == (1, 0)
+    cpu = search_seeds(wl, cfg, too_strong, n_seeds=256, max_steps=900, device="cpu")
+    assert 0 < full.failing_seeds.size < 1024
+    np.testing.assert_array_equal(full.failing_seeds, fast.failing_seeds)
+    np.testing.assert_array_equal(full.traces, fast.traces)
+    np.testing.assert_array_equal(full.traces[:256], cpu.traces)
+    np.testing.assert_array_equal(full.ok[:256], cpu.ok)
+
+
+@pytest.mark.cuda
+def test_cuda_measurement_runs_the_kernel():
+    _needs_card()
+    wl, cfg = make_raft(), tcore.EngineConfig(**RAFT_KW)
+    rec, launches = _counts("raft", lambda: measure_throughput(
+        wl, cfg, RAFT_CAP, 4096, target_wall_s=0.2, n_measure=2, seed_mod=524288,
+        min_size=1024, device="cuda"))
+    assert launches[0] >= 2 + 2 * rec["repeats"] and launches[1] == 0
+    assert rec["overflow"] == 0 and rec["all_halted"] and len(rec["device_walls_s"]) == 2
+    lat = measure_latency(make_pingpong(rounds=5), tcore.EngineConfig(pool_size=32), 300,
+                          target_wall_s=0.2, n_measure=2, device="cuda")
+    assert lat["overflow"] == 0 and lat["all_halted"] and lat["wall_us_per_sim_median"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_determinism_checks():
+    _needs_card()
+    wl, cfg = make_raft(), tcore.EngineConfig(**RAFT_KW)
+    seeds = np.arange(4096, dtype=np.uint64)
+    _out, launches = _counts("raft", lambda: check_determinism(wl, cfg, seeds, 60, device="cuda"))
+    assert launches == (2, 0)
+    _out, launches = _counts("raft", lambda: check_layouts(wl, cfg, seeds, 60, device="cuda"))
+    assert launches == (1, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_resumes_identically(tmp_path):
+    _needs_card()
+    wl, cfg = make_raft(), tcore.EngineConfig(**RAFT_KW)
+    st = tcore.make_init(wl, cfg, device="cuda")(np.arange(4096, dtype=np.uint64))
+    path = str(tmp_path / "ck.npz")
+    save(path, tcore.make_run(wl, cfg, 20)(st), cfg)
+    resumed = tcore.make_run(wl, cfg, 80)(load(path, cfg, device="cuda"))
+    whole = tcore.make_run(wl, cfg, 100)(st)
+    for f in tcore.STATE_FIELDS:
+        assert torch.equal(getattr(resumed, f), getattr(whole, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_failing_seed_replays_to_the_kernel_trace():
+    _needs_card()
+    wl, cfg = make_kvchaos(writes=5), tcore.EngineConfig(**KV_KW)
+    report = search_seeds(wl, cfg, too_strong, n_seeds=1024, max_steps=900, device="cuda")
+    seed = int(report.failing_seeds[0])
+    events, res = replay(wl, cfg, seed, 900)
+    want = int(report.traces[list(report.seeds).index(seed)])
+    assert refold(events, wl) == res.trace == want
