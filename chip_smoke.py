@@ -55,10 +55,29 @@ plain eager step:
    for 60 steps;
 20. a checkpoint of raft at 65,536 seeds after 20 steps, saved, loaded
    and run 580 more steps, equal in every field to the 600-step run;
-21. one JSON line describing each kernel, with its launches on every
+21-30. the record libraries (``RECORD_VARIANTS``: each of the seven
+   families that records operation histories, with ``record=True``,
+   and kvchaos, leasekv and shardkv also with their planted ``bug``) at
+   their family's full-width shape, held as in phases 4-15, every
+   history row included, with ``hist_count > 0``; each one's kernel
+   time printed beside its sibling's without recording;
+31. history search on the card: kvchaos ``bug=True``, ``writes=5``,
+   pool 192, loss 0.05, 1,024 seeds, 1,500 steps, with
+   ``stale_reads & read_your_writes`` as the history invariant: some
+   seeds fail, the final-state durability invariant passes on every
+   seed, and the failing seeds equal those of the plain step's run on
+   the card, with compact off and on;
+32. a checkpoint of leasekv-record at 4,096 seeds after 150 steps,
+   saved, loaded and run 450 more, equal in every field (the history
+   rows included) to the 600-step run;
+33. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after), then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
+
+Phase 2 also holds the launch shape of each library without recording
+against the one its run kernel had before the history axis was added
+(``BASE_SHAPES``, measured on an H100 80GB HBM3).
 
 Any mismatch or exception exits non-zero. Without a card it exits
 non-zero before printing any result. Imports nothing of JAX or of the
@@ -97,6 +116,27 @@ COMPACT_PHASES = (
 )
 # kvchaos search (phase 17): writes is a runtime word of its library
 KV_WRITES = 5
+# the history search (phase 31): the JAX package's lost-write hunt
+HIST_SEARCH_KW = dict(pool_size=192, loss_p=0.05)
+HIST_SEARCH_SEEDS, HIST_SEARCH_CAP = 1024, 1500
+# the launch shapes of the libraries without recording, before the
+# history axis (NVIDIA H100 80GB HBM3): key -> pool -> (run kernel
+# shared bytes per block, blocks per SM, drain kernel's the same)
+BASE_SHAPES = {
+    "raft": {40: (26880, 8, 5504, 16), 64: (36096, 6, 8576, 16),
+             128: (60800, 3, 17024, 12), 256: (110208, 2, 33920, 6)},
+    "microbench": {32: (16384, 12, 4352, 16)},
+    "pingpong": {32: (17792, 12, 4352, 16)},
+    "broadcast": {40: (27136, 8, 5504, 16)},
+    "kvchaos": {40: (27648, 8, 5504, 16)},
+    "kvchaos-payload": {40: (33664, 6, 5504, 16)},
+    "raftlog": {64: (66048, 3, 8576, 16)},
+    "snapshot": {96: (48512, 4, 12800, 16)},
+    "twophase": {64: (43264, 5, 8576, 16)},
+    "paxos": {64: (48384, 4, 8576, 16)},
+    "leasekv": {48: (30080, 7, 6528, 16)},
+    "shardkv": {64: (69504, 3, 8576, 16)},
+}
 
 
 # the model phases, in order: (BENCH_SPECS or SOAK_SPECS name, kernel
@@ -115,6 +155,16 @@ MODEL_PHASES = (
     ("leasekv", "leasekv", {}),
     ("shardkv", "shardkv", {}),
 )
+
+
+def record_phases() -> tuple:
+    """The record phases (21-30), in the MODEL_PHASES form: (BENCH_SPECS
+    or SOAK_SPECS name, kernel model key, factory keyword arguments)."""
+    from madsim_tpu_torch.engine.fused import MODELS
+    from madsim_tpu_torch.models import RECORD_VARIANTS
+
+    return tuple((spec_name, MODELS[name].key, kw)
+                 for name, (spec_name, kw) in RECORD_VARIANTS.items())
 
 
 def log(*a) -> None:
@@ -311,6 +361,11 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
     log(f"  {n_seeds} seeds halted after {n_steps} steps; overflow 0; "
         f"{sends} messages sent; median halt time "
         f"{float(out.halt_time.double().median()) / 1e6:.3f} ms")
+    if wl.history is not None:
+        if int(out.hist_count.max()) < 1 or int(out.hist_drop.max()) != 0:
+            raise AssertionError(f"{key}: no history recorded, or records dropped")
+        log(f"  history: {int(out.hist_count.sum())} records in {out.hist_word.shape[1]} rows a "
+            f"seed (at most {int(out.hist_count.max())} a seed), none dropped")
     # the plain step's one run: the reference, its time and the counts
     # of the bound
     got = []
@@ -355,10 +410,16 @@ def bound_terms(st, out, pool: int, seed_steps: int, drops: int, sends: int) -> 
     halts scans the pool; each of them but a stale drop draws the poll
     block, and every send draws its latency block. The handlers' own
     draws are not counted, so the work term stays a lower bound."""
-    from madsim_tpu_torch.engine.fused import KERNEL_FIELDS, READ_ONLY_FIELDS
+    from madsim_tpu_torch.engine.fused import (
+        HISTORY_COLUMNS, KERNEL_FIELDS, READ_ONLY_FIELDS,
+    )
 
-    in_bytes = sum(getattr(st, f).nbytes for f in KERNEL_FIELDS)
-    written = [f for f in KERNEL_FIELDS if f not in READ_ONLY_FIELDS]
+    # a workload that records nothing leaves its history columns alone;
+    # a record run reads and writes every history row
+    read = [f for f in KERNEL_FIELDS
+            if st.hist_word.shape[1] > 0 or f not in HISTORY_COLUMNS]
+    in_bytes = sum(getattr(st, f).nbytes for f in read)
+    written = [f for f in read if f not in READ_ONLY_FIELDS]
     out_bytes = sum(getattr(out, f).nbytes for f in written)
     blocks = seed_steps - drops + sends
     ops = seed_steps * POP_OPS_PER_SLOT * pool + blocks * THREEFRY_OPS
@@ -366,12 +427,19 @@ def bound_terms(st, out, pool: int, seed_steps: int, drops: int, sends: int) -> 
                 seed_steps=seed_steps, drops=drops, blocks=blocks)
 
 
-def launch_shape(spec, pool: int) -> str:
+def launch_shape(spec, pool: int, card: str = "") -> str:
     """G, seeds per block, shared bytes per block and resident blocks
-    per SM of a library's run and drain kernels at ``pool``."""
+    per SM of a library's run and drain kernels at ``pool``; on an H100
+    80GB HBM3 a library of ``BASE_SHAPES`` must have its shape there."""
     from madsim_tpu_torch.engine.fused import KERNEL
 
     o = KERNEL.occupancy(spec, pool)
+    base = BASE_SHAPES.get(spec.key, {}).get(pool)
+    got = (o["run_smem_bytes"], o["run_blocks_per_sm"], o["drain_smem_bytes"],
+           o["drain_blocks_per_sm"])
+    if base is not None and "H100 80GB HBM3" in card and got != base:
+        raise AssertionError(f"{spec.key} at pool {pool}: launch shape {got}, "
+                             f"{base} before the history axis")
     return (f"G {o['group']}, {o['seeds_per_block']} seeds per block of 128 threads; "
             f"run kernel {o['run_smem_bytes']} B shared per block, "
             f"{o['run_blocks_per_sm']} blocks per SM; drain kernel "
@@ -676,6 +744,108 @@ def checkpoint_phase(device, paths: dict) -> None:
     log(f"  checkpoint file {size} bytes; launches {counts}")
 
 
+def history_search_phase(device, paths: dict) -> None:
+    """Phase 31: the lost-write hunt over recorded histories on the card,
+    compact off and on, against the plain step's run on the card."""
+    from madsim_tpu_torch.check import BatchHistory, check_kv, read_your_writes, stale_reads
+    from madsim_tpu_torch.engine import (
+        EngineConfig, make_init, make_run_while_plain, search_seeds,
+    )
+    from madsim_tpu_torch.engine.convert import state_to_numpy
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_kvchaos
+
+    wl, cfg = make_kvchaos(writes=KV_WRITES, record=True, bug=True), EngineConfig(**HIST_SEARCH_KW)
+    n, cap, key = HIST_SEARCH_SEEDS, HIST_SEARCH_CAP, kernel_model(wl).key
+    log(f"[31] history search {wl.name} writes={KV_WRITES}: {HIST_SEARCH_KW}, {n} seeds, "
+        f"cap {cap}, history invariant stale_reads & read_your_writes")
+    final = {}
+
+    def durability(v):
+        # the final-state invariant, kept aside: it must pass every seed
+        ns = np.asarray(v["node_state"])
+        final["ok"] = (ns[:, 5, 0] == KV_WRITES) & ((ns[:, 1:5, 0] >= KV_WRITES).sum(axis=1) >= 3)
+        return np.ones_like(final["ok"])
+
+    def lost_write(h):
+        return stale_reads(h) & read_your_writes(h)
+
+    reps = {}
+    for compact, want in ((False, [1, 1]), (True, [1, 0])):
+        rep, counts = path_launches(lambda: search_seeds(
+            wl, cfg, durability, n_seeds=n, max_steps=cap, history_invariant=lost_write,
+            compact=compact, device=device))
+        paths.setdefault(key, {})["history_search_compact" if compact else "history_search"] = \
+            run_drain(counts, key)
+        if run_drain(counts, key) != want or len(counts) != sum(want):
+            raise AssertionError(f"history search (compact {compact}) launched {counts}")
+        if not final["ok"].all():
+            raise AssertionError("the final-state durability invariant failed a seed")
+        reps[compact] = rep
+    rep = reps[False]
+    if not 0 < rep.failing_seeds.size < n or rep.overflowed.any():
+        raise AssertionError(f"history search: {rep.banner()}")
+    for attr in ("ok", "halted", "traces", "failing_seeds", "hist_dropped"):
+        if not np.array_equal(getattr(rep, attr), getattr(reps[True], attr)):
+            raise AssertionError(f"history search: compact on and off differ in {attr}")
+    # the plain step's run on the card, judged by the same rule
+    plain = []
+    plain_ms = time_ms(lambda: plain.append(state_to_numpy(make_run_while_plain(wl, cfg, cap)(
+        make_init(wl, cfg, device=device)(rep.seeds)))), 1, device)
+    view = plain[0]
+    h = BatchHistory.from_view(view)
+    if (h.drop > 0).any() or (view["overflow"] > 0).any():
+        raise AssertionError("the plain run dropped records or events")
+    bad = rep.seeds[~(lost_write(h) & view["halted"])]
+    if not np.array_equal(bad, rep.failing_seeds):
+        raise AssertionError(f"history search: the kernel flags {rep.failing_seeds.tolist()}, "
+                             f"the plain step {bad.tolist()}")
+    for s in bad[:3]:
+        if check_kv(h.ops(int(np.searchsorted(rep.seeds, s)))).ok:
+            raise AssertionError(f"seed {int(s)}: the exact checker finds it linearizable")
+    log("  " + rep.banner(limit=3).replace("\n", "\n  "))
+    log(f"  the durability invariant passes all {n} seeds; the history checkers flag "
+        f"{bad.size} ({bad[:32].tolist()}), the same seeds as the plain step's run on the "
+        f"card ({plain_ms[0]:.1f} ms) "
+        f"and the exact checker; compact on and off agree; launches {paths[key]}")
+
+
+def record_checkpoint_phase(device, paths: dict) -> None:
+    """Phase 32: leasekv-record saved after 150 steps, loaded and run
+    450 more: equal in every field, the history included, to the
+    600-step run."""
+    from pathlib import Path
+
+    from madsim_tpu_torch.engine import load_checkpoint, make_init, make_run, save_checkpoint
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    wl, cfg, n_seeds, _cap = spec_of("leasekv", {"record": True})
+    key, split, total = kernel_model(wl).key, 150, 600
+    log(f"[32] checkpoint {wl.name}: {n_seeds} seeds, {split} steps, save, load, "
+        f"{total - split} more")
+    path = Path(__file__).resolve().parent / "build" / "checkpoints" / "chip_smoke_leasekv.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    st = make_init(wl, cfg, device=device)(np.arange(n_seeds, dtype=np.uint64))
+    mid = {}
+
+    def resume():
+        mid["st"] = make_run(wl, cfg, split)(st)
+        save_checkpoint(str(path), mid["st"], cfg)
+        return make_run(wl, cfg, total - split)(load_checkpoint(str(path), cfg, device=device))
+
+    try:
+        resumed, counts = path_launches(resume)
+        size = path.stat().st_size
+    finally:
+        path.unlink(missing_ok=True)
+    paths.setdefault(key, {})["checkpoint"] = run_drain(counts, key)
+    if int(mid["st"].hist_count.min()) < 1 or run_drain(counts, key) != [2, 0]:
+        raise AssertionError(f"{key} checkpoint: no history at the split, or launches {counts}")
+    assert_equal(resumed, make_run(wl, cfg, total)(st), f"resumed vs uninterrupted {total}-step run")
+    log(f"  checkpoint file {size} bytes with {int(mid['st'].hist_count.sum())} history "
+        f"records; launches {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -708,7 +878,7 @@ def main() -> int:
                 log(f"    {line.strip()}")
         spec = next(m for m in MODELS.values() if m.key == key)
         for pool in spec.pools:
-            log(f"    pool {pool}: {launch_shape(spec, pool)}")
+            log(f"    pool {pool}: {launch_shape(spec, pool, card)}")
 
     clock = max_sm_clock_hz()
     entry_err = entry_phase(device, ENTRY_SEEDS)
@@ -736,6 +906,22 @@ def main() -> int:
     measure_phase(device, paths)
     verify_phase(device, paths)
     checkpoint_phase(device, paths)
+    # the record libraries, after the runner phases, each timed beside
+    # its family's library without recording
+    ms_of = {key: r["ms"] for key, _n, _s, r in results}
+    sibling = {spec_name: (4 + i, key)
+               for i, (spec_name, key, kw) in enumerate(MODEL_PHASES) if not kw}
+    for i, (spec_name, key, factory_kw) in enumerate(record_phases()):
+        r = model_phase(device, 21 + i, spec_name, key, factory_kw, CPU_SAMPLE, REPEATS)
+        if r["launches"] < 1 or r["drains"] < 1 or r["err"] != 0:
+            raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
+        results.append((key, f"make_run_fused/{key}", f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
+        paths[key] = {"run_while": [r["launches"], r["drains"]]}
+        phase, base = sibling[spec_name]
+        log(f"  {key} kernel median {r['ms']:.4f} ms beside {base} {ms_of[base]:.4f} ms "
+            f"(phase {phase}, this call, {card})")
+    history_search_phase(device, paths)
+    record_checkpoint_phase(device, paths)
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}))
         for key, name, src, r in results

@@ -40,13 +40,26 @@
 //   static constexpr int N, U, A, W, K, H;  // nodes, row width, args
 //                                           // words, payload words,
 //                                           // emit slots, handlers
+//   static constexpr int R;                 // history record rows per
+//                                           // call (0: no recording)
 //   struct Params;                          // the factory's runtime words
 //   static Params params(const int64_t* words);
 //   static void handle(int32_t h, const Ctx<M>&, const Params&,
-//                      int32_t* new_row, Emit<A, W>* emits);
-// handle() starts from new_row == the node's row and K zeroed emit rows,
-// and fills them in the order the torch handler's EmitBuilder calls
-// (the row index keys the per-emit latency draw).
+//                      int32_t* new_row, Emit<A, W>* emits, Rec* recs);
+// handle() starts from new_row == the node's row, K zeroed emit rows and
+// R cleared record rows (recs is null when R == 0), and fills them in
+// the order the torch handler's EmitBuilder calls (the row index keys
+// the per-emit latency draw; record rows append in row order).
+//
+// Operation histories. With R > 0 a seed carries hist_count and
+// hist_drop in shared memory (8 bytes), and the handler's record rows
+// are the leader's locals. The history rows themselves are write-once
+// and nothing reads them back during a run, so they stay in device
+// memory: the block copies the input's rows to the output once
+// (copy_history) and the leader writes each appended row, 28 bytes,
+// straight to the output. The capacity is a runtime word, so one
+// library serves every capacity. With R == 0 every history line
+// compiles away.
 #pragma once
 
 #include <stdint.h>
@@ -74,11 +87,15 @@ constexpr uint32_t PURPOSE_POLL_COST = 0;
 constexpr uint32_t PURPOSE_LATENCY = 8;
 constexpr uint32_t PURPOSE_USER = 128;
 
+// the history record convention (check/history.py)
+constexpr int32_t OK_PENDING = -1, OK_FAIL = 0, OK_OK = 1;
+constexpr int32_t OP_WRITE = 1, OP_READ = 2, OP_USER = 16;
+
 constexpr uint64_t kTracePrime = 0x100000001B3ull;
 constexpr uint64_t kTraceMix = 0x9E3779B97F4A7C15ull;
 
 // the engine's words in front of the model's in the config array
-constexpr int kEngineWords = 8;
+constexpr int kEngineWords = 9;
 
 // EngineConfig resolved on the host: spans are the uint32 modulo spans
 // (0 already mapped to 1) and time_limit is 2^62 when the config has none
@@ -90,6 +107,7 @@ struct EngineConfig {
   uint32_t proc_span;
   int64_t backoff_min, backoff_max;
   int64_t time_limit;
+  int32_t hist_cap;  // HistorySpec.capacity (0: no recording)
 };
 
 // uint32 span of a [lo, hi) draw, as Draw._reduce: 0 draws from span 1
@@ -99,7 +117,7 @@ MADSIM_HDI uint32_t draw_span(int64_t lo, int64_t hi) {
 }
 
 // c: lat_min, lat_max, loss_u32, proc_min, proc_max, backoff_min,
-//    backoff_max, time_limit_ns (0 = none)
+//    backoff_max, time_limit_ns (0 = none), history capacity
 inline EngineConfig engine_config(const int64_t* c) {
   EngineConfig e;
   e.lat_min = c[0];
@@ -110,12 +128,14 @@ inline EngineConfig engine_config(const int64_t* c) {
   e.backoff_min = c[5];
   e.backoff_max = c[6];
   e.time_limit = c[7] ? c[7] : kInfNs;
+  e.hist_cap = static_cast<int32_t>(c[8]);
   return e;
 }
 // One pointer per SimState field the kernel touches (the port's torch
 // layout: seed-major, contiguous), in engine/fused.py KERNEL_FIELDS
 // order. The output side has no seed, slow or skew (the kernel never
-// writes them), and ev_pay only when W > 0.
+// writes them), ev_pay only when W > 0 and the history columns only
+// when R > 0.
 struct Fields {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
@@ -138,9 +158,13 @@ struct Fields {
   uint8_t* clog;       // (S,N,N)
   int32_t* slow;       // (S,N,N)
   int32_t* skew;       // (S,N)
+  int32_t* hist_count; // (S,)
+  int32_t* hist_drop;  // (S,)
+  int32_t* hist_word;  // (S,Hc,5) [op, key, arg, client, ok]
+  int64_t* hist_t;     // (S,Hc)
 };
 
-constexpr int kFieldPointers = 21;
+constexpr int kFieldPointers = 25;
 
 inline Fields fields(void* const* p) {
   Fields f;
@@ -165,6 +189,10 @@ inline Fields fields(void* const* p) {
   f.clog = static_cast<uint8_t*>(p[18]);
   f.slow = static_cast<int32_t*>(p[19]);
   f.skew = static_cast<int32_t*>(p[20]);
+  f.hist_count = static_cast<int32_t*>(p[21]);
+  f.hist_drop = static_cast<int32_t*>(p[22]);
+  f.hist_word = static_cast<int32_t*>(p[23]);
+  f.hist_t = static_cast<int64_t*>(p[24]);
   return f;
 }
 
@@ -283,6 +311,45 @@ struct Emit {
   }
 };
 
+// one history record row (the port's Emits.rec_valid and rec, one seed):
+// EmitBuilder.record(op, key, arg, ok, when)
+struct Rec {
+  bool valid;
+  int32_t op, key, arg, ok;
+
+  MADSIM_HDI void clear() {
+    valid = false;
+    op = key = arg = ok = 0;
+  }
+  MADSIM_HDI void record(bool when, int32_t o, int32_t k, int32_t a, int32_t r) {
+    valid = when;
+    op = o;
+    key = k;
+    arg = a;
+    ok = r;
+  }
+};
+
+// the history counters of a seed in shared memory, present only when
+// the model records (an empty base takes no bytes)
+template <int R>
+struct SeedHistory {
+  int32_t hist_count;
+  int32_t hist_drop;
+};
+template <>
+struct SeedHistory<0> {};
+
+// where a seed's appended history rows go: its rows of the output
+template <int R>
+struct HistOut {
+  int32_t* word;  // (cap, 5)
+  int64_t* t;     // (cap,)
+  int32_t cap;
+};
+template <>
+struct HistOut<0> {};
+
 // The user draw purposes a model declares (Workload.draw_purposes). A
 // seed's lanes draw them at the start of every step, beside the emit
 // rows' latency draws, so the handler reads them from shared memory
@@ -344,9 +411,10 @@ MADSIM_HDI uint64_t trace_fold(uint64_t trace, int64_t now, int32_t kind,
 
 // One seed's state for the whole run, in the block's shared memory
 // (a plain struct on the host): the pool's valid flags as a bitmask, the
-// event meta words as uint32, the handler's new row and emit rows.
+// event meta words as uint32, the handler's new row and emit rows, and
+// with R > 0 the history counters.
 template <class M, int E>
-struct Seed {
+struct Seed : SeedHistory<M::R> {
   static constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K;
   int64_t ev_time[E];
   uint64_t seed;
@@ -487,6 +555,12 @@ MADSIM_HD void block_load(Seed<M, E>* blk, const Fields& f, int64_t first,
                  [&](int b, int k, uint8_t v) { blk[b].clog[k] = v != 0; });
   rows_in<N * N>(f.slow, first, nb, tid, nt,
                  [&](int b, int k, int32_t v) { blk[b].slow[k] = v; });
+  if constexpr (M::R > 0) {
+    rows_in<1>(f.hist_count, first, nb, tid, nt,
+               [&](int b, int, int32_t v) { blk[b].hist_count = v; });
+    rows_in<1>(f.hist_drop, first, nb, tid, nt,
+               [&](int b, int, int32_t v) { blk[b].hist_drop = v; });
+  }
   block_sync();  // the bits are zero before any thread sets one
   rows_in<E>(f.ev_valid, first, nb, tid, nt, [&](int b, int k, uint8_t v) {
     if (v) set_bit_shared(blk[b].ev_bits, k);
@@ -534,6 +608,57 @@ MADSIM_HD void block_store(const Seed<M, E>* blk, const Fields& f,
                   [&](int b, int k) { return blk[b].node_state[k]; });
   rows_out<N * N>(f.clog, first, nb, tid, nt,
                   [&](int b, int k) { return static_cast<uint8_t>(blk[b].clog[k]); });
+  if constexpr (M::R > 0) {
+    rows_out<1>(f.hist_count, first, nb, tid, nt,
+                [&](int b, int) { return blk[b].hist_count; });
+    rows_out<1>(f.hist_drop, first, nb, tid, nt,
+                [&](int b, int) { return blk[b].hist_drop; });
+  }
+}
+
+// Copy the block's history rows, seeds [first, first + nb), from the
+// input to the output, every thread of the block, neighbouring threads
+// on neighbouring words: rows past a seed's count come out as they went
+// in. The appends of the run follow a block barrier (block_load's).
+template <class M>
+MADSIM_HD void copy_history(const Fields& in, const Fields& out, int32_t cap,
+                            int64_t first, int nb, int tid, int nt) {
+  if constexpr (M::R > 0) {
+    const int64_t rows = static_cast<int64_t>(nb) * cap;
+    const int32_t* wi = in.hist_word + first * cap * 5;
+    int32_t* wo = out.hist_word + first * cap * 5;
+    for (int64_t x = tid; x < rows * 5; x += nt) wo[x] = wi[x];
+    const int64_t* ti = in.hist_t + first * cap;
+    int64_t* to = out.hist_t + first * cap;
+    for (int64_t x = tid; x < rows; x += nt) to[x] = ti[x];
+  }
+}
+
+// Append a user dispatch's valid record rows at hist_count, hist_count +
+// 1, ...: the row is [op, key, arg, client = dst, ok] and the time the
+// dispatch clock `now` (without the node's skew). Rows past the capacity
+// are dropped and counted, so the kept ones are a prefix. The leader's
+// work.
+template <class M, int E>
+MADSIM_HDI void append_history(Seed<M, E>& s, const HistOut<M::R>& ho,
+                               const Rec* recs, int32_t dst, int64_t now) {
+  for (int j = 0; j < M::R; j++) {
+    const Rec& r = recs[j];
+    if (r.valid) {
+      if (s.hist_count < ho.cap) {
+        int32_t* w = ho.word + static_cast<int64_t>(s.hist_count) * 5;
+        w[0] = r.op;
+        w[1] = r.key;
+        w[2] = r.arg;
+        w[3] = dst;
+        w[4] = r.ok;
+        ho.t[s.hist_count] = now;
+        s.hist_count += 1;
+      } else {
+        s.hist_drop += 1;
+      }
+    }
+  }
 }
 
 
@@ -555,10 +680,10 @@ template <class M, int E, int G>
 MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
                            const EngineConfig& c, int64_t now_after,
                            int32_t dst, bool in_range, int dst_c) {
-  constexpr int N = M::N, A = M::A, W = M::W, R = M::K + 1;
+  constexpr int N = M::N, A = M::A, W = M::W, KR = M::K + 1;
   using B = PoolBits<E>;
   int kept = 0, sends = 0;
-  for (int j0 = 0; j0 < R; j0 += G) {
+  for (int j0 = 0; j0 < KR; j0 += G) {
     PerLane<bool, G> keep, sent;
     PerLane<int64_t, G> when;
     g.each([&](int l) {
@@ -566,7 +691,7 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
       sent[l] = false;
       when[l] = 0;
       const int j = j0 + l;
-      if (j >= R) return;
+      if (j >= KR) return;
       const Emit<A, W>& e = s.em[j];
       if (!e.valid) return;
       const bool em_in_range = e.dst >= 0 && e.dst < N;
@@ -623,14 +748,15 @@ template <class M, int E, int G>
 MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig& c,
                            const typename M::Params& mp,
                            const int32_t* init_rows,
-                           const uint8_t* volatile_cols) {
+                           const uint8_t* volatile_cols,
+                           const HistOut<M::R>& ho) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K, H = M::H;
   static_assert(A >= 2 && A <= 4, "engine kinds read args[0:2]");
   static_assert(H >= 1, "handler 0 is on_init");
   // ev_meta packs the kind and node + 1 in one byte each
   static_assert(FIRST_USER_KIND + H - 1 < 256, "user kinds fit a byte");
   static_assert(N < 255, "node + 1 fits a byte");
-  constexpr int R = K + 1, D = R + UserDraws<M>::n;
+  constexpr int KR = K + 1, D = KR + UserDraws<M>::n;
   const uint32_t k0 = static_cast<uint32_t>(s.seed);
   const uint32_t k1 = static_cast<uint32_t>(s.seed >> 32);
   const uint32_t step = s.step;
@@ -639,14 +765,14 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
   g.each([&](int l) {
     for (int d = l; d < D; d += G) {
       uint32_t x0, x1;
-      const uint32_t purpose = d < R ? PURPOSE_LATENCY + static_cast<uint32_t>(d)
-                                     : PURPOSE_USER + UserDraws<M>::purpose(d - R);
+      const uint32_t purpose = d < KR ? PURPOSE_LATENCY + static_cast<uint32_t>(d)
+                                      : PURPOSE_USER + UserDraws<M>::purpose(d - KR);
       threefry2x32(k0, k1, step, purpose, &x0, &x1);
-      if (d < R) {
+      if (d < KR) {
         s.lat0[d] = x0;
         s.lat1[d] = x1;
       } else {
-        s.user0[d - R] = x0;
+        s.user0[d - KR] = x0;
       }
     }
   });
@@ -728,7 +854,15 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
         ctx.k1 = k1;
         ctx.step = step;
         ctx.drawn = s.user0;
-        M::handle(clampi(kind - FIRST_USER_KIND, 0, H - 1), ctx, mp, s.new_row, s.em);
+        const int32_t h = clampi(kind - FIRST_USER_KIND, 0, H - 1);
+        if constexpr (M::R > 0) {
+          Rec recs[M::R];
+          for (int j = 0; j < M::R; j++) recs[j].clear();
+          M::handle(h, ctx, mp, s.new_row, s.em, recs);
+          append_history<M, E>(s, ho, recs, dst, now);
+        } else {
+          M::handle(h, ctx, mp, s.new_row, s.em, nullptr);
+        }
         for (int u = 0; u < U; u++) row[u] = s.new_row[u];
       } else if (kind == KIND_KILL || kind == KIND_RESTART) {
         const bool restart = kind == KIND_RESTART;
@@ -786,7 +920,7 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
                            const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols, int64_t budget,
-                           bool stop_at_halt) {
+                           bool stop_at_halt, const HistOut<M::R>& ho) {
   clear_rows<M, G>(g, s.em);
   g.sync();
   int64_t it = 0;
@@ -797,7 +931,7 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
       if (g.leader()) s.step += static_cast<uint32_t>(budget - it);
       return budget;
     }
-    const bool had_event = engine_step<M, E, G>(g, s, c, mp, init_rows, volatile_cols);
+    const bool had_event = engine_step<M, E, G>(g, s, c, mp, init_rows, volatile_cols, ho);
     it++;
     if (!had_event && !s.halted) {
       // an empty pool stays empty: the rest only counts steps
@@ -813,10 +947,23 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
 // G - 1), store. On the host the calling thread is the whole block and
 // plays each group in turn. Returns the largest iteration count this
 // thread saw, for tmax.
+// seed `seed`'s rows of the run's output history (nothing when R == 0)
+template <class M>
+MADSIM_HDI HistOut<M::R> hist_out(const RunArgs& a, int64_t seed) {
+  HistOut<M::R> ho;
+  if constexpr (M::R > 0) {
+    ho.cap = a.cfg.hist_cap;
+    ho.word = a.out.hist_word + seed * a.cfg.hist_cap * 5;
+    ho.t = a.out.hist_t + seed * a.cfg.hist_cap;
+  }
+  return ho;
+}
+
 template <class M, int E, int G>
 MADSIM_HD int64_t run_block(Seed<M, E>* blk, const RunArgs& a,
                             const typename M::Params& mp, int64_t first,
                             int nb, int tid, int nt) {
+  copy_history<M>(a.in, a.out, a.cfg.hist_cap, first, nb, tid, nt);
   block_load<M, E>(blk, a.in, first, nb, tid, nt);
   int64_t most = 0;
   const bool stop = a.stop_at_halt != 0;
@@ -825,7 +972,8 @@ MADSIM_HD int64_t run_block(Seed<M, E>* blk, const RunArgs& a,
   if (b < nb) {
     const Lanes<G> g(tid);
     const int64_t it = seed_run<M, E, G>(g, blk[b], a.cfg, mp, a.init_rows,
-                                         a.volatile_cols, a.budget, stop);
+                                         a.volatile_cols, a.budget, stop,
+                                         hist_out<M>(a, first + b));
     if (g.leader()) {
       a.iters[first + b] = it;
       most = it;
@@ -835,7 +983,8 @@ MADSIM_HD int64_t run_block(Seed<M, E>* blk, const RunArgs& a,
   for (int b = 0; b < nb; b++) {
     const Lanes<G> g(0);
     const int64_t it = seed_run<M, E, G>(g, blk[b], a.cfg, mp, a.init_rows,
-                                         a.volatile_cols, a.budget, stop);
+                                         a.volatile_cols, a.budget, stop,
+                                         hist_out<M>(a, first + b));
     a.iters[first + b] = it;
     most = it > most ? it : most;
   }

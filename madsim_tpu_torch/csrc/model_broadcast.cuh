@@ -10,6 +10,7 @@ namespace madsim {
 
 struct BroadcastModel {
   static constexpr int N = 5, U = 4, A = 2, W = 0, K = 7, H = 4;
+  static constexpr int R = 0;  // records nothing
   static constexpr int32_t n_peers = N - 1;
   static constexpr int32_t full_mask = (1 << n_peers) - 1;
 
@@ -34,7 +35,7 @@ struct BroadcastModel {
 
   static MADSIM_HD void handle(int32_t h, const Ctx<BroadcastModel>& c,
                                const Params& p, int32_t* ns,
-                               Emit<A, W>* em) {
+                               Emit<A, W>* em, Rec*) {
     const int32_t* st = c.state;
     switch (h) {
       case 0: {  // on_init: the origin starts round 1 and the partition

@@ -4,20 +4,26 @@
 // handlers. KvChaosModel<true> is the payload variant (kvchaos-payload):
 // each WRITE carries two client-drawn value words in the event payload,
 // the primary stores and re-replicates them, replicas store them.
+// RECORD is the record variant (kvchaos-record): the client records its
+// writes and the reads it probes the primary with, three record rows a
+// call. BUG (kvchaos-bug, with RECORD) plants the lost-write fault: a
+// replica's join also resets the primary's commit point.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool PAYLOAD>
+template <bool PAYLOAD, bool RECORD = false, bool BUG = false>
 struct KvChaosModel {
-  static constexpr int R = 4;  // replicas
-  static constexpr int N = R + 2, U = PAYLOAD ? 6 : 4, A = 2;
+  static_assert(RECORD || !BUG, "the planted fault needs recording");
+  static constexpr int NR = 4;  // replicas
+  static constexpr int N = NR + 2, U = PAYLOAD ? 6 : 4, A = 2;
   static constexpr int W = PAYLOAD ? 2 : 0, K = 6, H = 12;
+  static constexpr int R = RECORD ? 3 : 0;  // history records per call
   static constexpr int32_t CLIENT = N - 1;
-  static constexpr int32_t majority = R / 2 + 1;
-  static constexpr int32_t full_mask = (1 << R) - 1;
+  static constexpr int32_t majority = NR / 2 + 1;
+  static constexpr int32_t full_mask = (1 << NR) - 1;
 
   struct Params {
     int32_t writes;
@@ -37,6 +43,7 @@ struct KvChaosModel {
   static constexpr int32_t K_FIN = FIRST_USER_KIND + 7;
   static constexpr int32_t K_JOIN = FIRST_USER_KIND + 8;
   static constexpr int32_t K_JRETX = FIRST_USER_KIND + 9;
+  static constexpr int32_t K_READ = FIRST_USER_KIND + 10;
   static constexpr int32_t K_READRESP = FIRST_USER_KIND + 11;
   static constexpr uint32_t P_KILL_AT = 0, P_KILL_WHO = 1, P_REVIVE = 2;
   static constexpr uint32_t P_VAL0 = 8, P_VAL1 = 9;
@@ -56,10 +63,10 @@ struct KvChaosModel {
     }
   }
 
-  // rows 0..R-1: REPL to each replica whose ack bit is clear
+  // rows 0..NR-1: REPL to each replica whose ack bit is clear
   static MADSIM_HDI void replicate(Em* em, int32_t seq, bool when,
                                    int32_t mask, const int32_t* st) {
-    for (int32_t i = 0; i < R; i++) {
+    for (int32_t i = 0; i < NR; i++) {
       em[i].to(when && ((mask >> i) & 1) == 0, i + 1, K_REPL, seq);
       for (int j = 0; j < W; j++) em[i].pay[j] = st[4 + j];
     }
@@ -72,20 +79,22 @@ struct KvChaosModel {
   }
 
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
-                               int32_t* ns, Em* em) {
+                               int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
     switch (h) {
       case 0: {  // on_init
         const bool is_client = c.node == CLIENT;
-        const bool is_replica = c.node >= 1 && c.node <= R;
+        const bool is_replica = c.node >= 1 && c.node <= NR;
         // the client kicks off write 1 and its progress-retry timer
         write(em[0], c, is_client, 1);
+        // write 1 is invoked here (retries are the same op)
+        if constexpr (RECORD) rec[0].record(is_client, OP_WRITE, 0, 1, OK_PENDING);
         em[1].after(is_client, p.client_retx_ns, K_CRETX, CLIENT);
         // replicas announce themselves, at t=0 and after a restart
         em[2].to(is_replica, PRIMARY, K_JOIN, c.node);
         em[3].after(is_replica, p.retx_ns, K_JRETX, c.node);
         if (is_client) {  // the seed's chaos schedule
-          const int32_t who = static_cast<int32_t>(c.user_int(1, 1 + R, P_KILL_WHO));
+          const int32_t who = static_cast<int32_t>(c.user_int(1, 1 + NR, P_KILL_WHO));
           const int64_t at = c.user_int(20000000, 300000000, P_KILL_AT);
           const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
           em[4].after(true, at, KIND_KILL, 0, who);
@@ -103,7 +112,7 @@ struct KvChaosModel {
           for (int j = 0; j < W; j++) ns[4 + j] = c.pay[j];
         }
         replicate(em, seq, fresh, 0, ns);
-        em[R].after(fresh, p.retx_ns, K_RETX, PRIMARY, seq);
+        em[NR].after(fresh, p.retx_ns, K_RETX, PRIMARY, seq);
         break;
       }
       case 2: {  // on_repl at a replica: args = (seq,)
@@ -120,7 +129,7 @@ struct KvChaosModel {
         const bool current = seq == st[1];
         const int32_t mask = current ? (st[2] | (int32_t(1) << (who - 1))) : st[2];
         int32_t acks = 0;
-        for (int32_t i = 0; i < R; i++) acks += (mask >> i) & 1;
+        for (int32_t i = 0; i < NR; i++) acks += (mask >> i) & 1;
         const bool committed_now = current && seq > st[0] && acks >= majority;
         const int32_t committed = committed_now ? seq : st[0];
         ns[0] = committed;
@@ -136,6 +145,14 @@ struct KvChaosModel {
         const bool done = seq >= p.writes;
         write(em[0], c, fresh && !done, seq + 1);
         em[1].to(fresh && done, PRIMARY, K_FIN);
+        if constexpr (RECORD) {
+          // close the pending write with its committed version, then
+          // probe it with a READ through the primary (rseq = seq)
+          rec[0].record(fresh, OP_WRITE, 0, seq, OK_OK);
+          rec[1].record(fresh, OP_READ, 0, 0, OK_PENDING);
+          em[2].to(fresh, PRIMARY, K_READ, seq);
+          rec[2].record(fresh && !done, OP_WRITE, 0, seq + 1, OK_PENDING);
+        }
         break;
       }
       case 5: {  // on_retx at the primary: args = (seq,)
@@ -145,9 +162,9 @@ struct KvChaosModel {
         // committed but the client may not know (lost COMMIT): re-ack
         const bool pending_commit = current && st[0] >= seq;
         replicate(em, seq, pending_repl, st[2], st);
-        em[R].to(pending_commit, CLIENT, K_COMMIT, st[0]);
-        em[R + 1].after(pending_repl || pending_commit, p.retx_ns, K_RETX,
-                        PRIMARY, seq);
+        em[NR].to(pending_commit, CLIENT, K_COMMIT, st[0]);
+        em[NR + 1].after(pending_repl || pending_commit, p.retx_ns, K_RETX,
+                         PRIMARY, seq);
         break;
       }
       case 6: {  // on_cretx at the client: re-send what it waits on
@@ -164,6 +181,9 @@ struct KvChaosModel {
       }
       case 8: {  // on_join at the primary: args = (replica,)
         ns[2] = st[2] & ~(int32_t(1) << (c.args[0] - 1));
+        // the planted lost-write fault: re-admitting a replica also
+        // forgets the commit point
+        if constexpr (BUG) ns[0] = 0;
         // the retx timer may have died while the mask was full: re-arm
         em[0].after(st[1] > 0, p.retx_ns, K_RETX, PRIMARY, st[1]);
         break;
@@ -179,7 +199,10 @@ struct KvChaosModel {
         break;
       }
       default: {  // 11, on_readresp at the client: args = (rseq, committed)
-        if (c.args[0] > st[1]) ns[1] = c.args[0];
+        // stale-rseq gate: only in-invoke-order responses count
+        const bool fresh_r = c.args[0] > st[1];
+        if (fresh_r) ns[1] = c.args[0];
+        if constexpr (RECORD) rec[0].record(fresh_r, OP_READ, 0, c.args[1], OK_OK);
         break;
       }
     }

@@ -3,16 +3,26 @@
 // a lease server, three clients and a watcher, fifteen handlers. Lease
 // deadlines are int32 milliseconds of the handling node's own clock:
 // Ctx::now, which is the engine clock plus the node's skew, as in the
-// plain step's HandlerCtx.now.
+// plain step's HandlerCtx.now. RECORD is the record variant
+// (leasekv-record): the lease lifecycle, served puts and the watch
+// stream append history records, C record rows a call (the scan records
+// one expiry per lease). BUG (leasekv-bug, with RECORD) plants
+// grant-after-expiry: a keepalive renews an expired lease too.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
+template <bool RECORD = false, bool BUG = false>
 struct LeaseKvModel {
+  static_assert(RECORD || !BUG, "the planted fault needs recording");
   static constexpr int C = 3;  // clients; lease id = node id
   static constexpr int N = C + 2, U = C + 3, A = 2, W = 0, K = 6, H = 15;
+  static constexpr int R = RECORD ? C : 0;  // history records per call
+  // history op codes (check.lease_safety)
+  static constexpr int32_t OP_PUT = OP_USER, OP_EXPIRE = OP_USER + 1,
+                           OP_WATCH_EVT = OP_USER + 2;
   static constexpr int32_t SERVER = 0, WATCHER = C + 1;
   static constexpr int32_t WSEQ = C, FIN_MASK = C + 1, EXP_CNT = C + 2;
   static constexpr int32_t full_mask = (1 << C) - 1;
@@ -61,7 +71,7 @@ struct LeaseKvModel {
   static MADSIM_HDI int32_t min32(int32_t a, int32_t b) { return a < b ? a : b; }
 
   static MADSIM_HD void handle(int32_t h, const Cx& c, const Params& p,
-                               int32_t* ns, Em* em) {
+                               int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
     switch (h) {
       case 0: {  // on_init
@@ -84,6 +94,7 @@ struct LeaseKvModel {
       case 1: {  // on_grant at the server: args = (lid,)
         const int32_t lid = lid_of(c);
         ns[lid - 1] = local_ms(c.now) + p.ttl_ms;
+        if constexpr (RECORD) rec[0].record(true, OP_EXPIRE, lid, ns[lid - 1], OK_OK);
         em[0].to(true, lid, K_GRANTED);
         break;
       }
@@ -98,7 +109,8 @@ struct LeaseKvModel {
       }
       case 4: {  // on_keepalive at the server: args = (lid,)
         const int32_t lid = lid_of(c);
-        const bool renew = st[lid - 1] > 0;
+        // the planted fault renews an expired lease, with no grant record
+        const bool renew = BUG || st[lid - 1] > 0;
         if (renew) ns[lid - 1] = local_ms(c.now) + p.ttl_ms;
         em[0].to(!renew, lid, K_KA_REJ);
         break;
@@ -117,6 +129,7 @@ struct LeaseKvModel {
           const bool exp = d > 0 && now_ms >= d;
           if (exp) ns[lid - 1] = 0;
           em[lid - 1].to(exp, WATCHER, K_WEVT, lid, min32(wseq + fired + 1, WSEQ_CAP));
+          if constexpr (RECORD) rec[lid - 1].record(exp, OP_EXPIRE, lid, now_ms, OK_FAIL);
           fired += exp ? 1 : 0;
         }
         ns[WSEQ] = min32(wseq + fired, WSEQ_CAP);
@@ -137,7 +150,9 @@ struct LeaseKvModel {
       case 8: {  // on_put at the server: args = (lid, seq)
         const int32_t lid = lid_of(c);
         const bool live = st[lid - 1] > 0;
-        em[0].to(live, lid, K_PUT_OK, clampi(c.args[1], 0, p.puts));
+        const int32_t seq = clampi(c.args[1], 0, p.puts);
+        if constexpr (RECORD) rec[0].record(live, OP_PUT, lid, seq, OK_OK);
+        em[0].to(live, lid, K_PUT_OK, seq);
         em[1].to(!live, lid, K_PUT_REJ);
         break;
       }
@@ -155,10 +170,13 @@ struct LeaseKvModel {
       case 12: {  // on_wevt at the watcher: args = (lid, wseq)
         const int32_t seq = clampi(c.args[1], 0, WSEQ_CAP);
         const bool gap = seq > st[0] + 1;
-        if (seq == st[0] + 1) {  // in order: append
+        const bool in_order = seq == st[0] + 1;
+        if (in_order) {  // append
           ns[0] = seq;
           ns[1] = min32(st[1] + 1, EVT_CAP);
         }
+        if constexpr (RECORD)
+          rec[0].record(in_order, OP_WATCH_EVT, clampi(c.args[0], 0, C), seq, OK_OK);
         if (gap) ns[2] = min32(st[2] + 1, EVT_CAP);
         em[0].to(gap, SERVER, K_RESYNC, st[0]);
         break;
@@ -168,8 +186,10 @@ struct LeaseKvModel {
         break;
       }
       default: {  // 14, on_resync_ok at the watcher: args = (wseq,)
+        // adopt the stream head and record the explicit resync marker
         const int32_t w = clampi(c.args[0], 0, WSEQ_CAP);
         if (w > st[0]) ns[0] = w;
+        if constexpr (RECORD) rec[0].record(w > st[0], OP_WATCH_EVT, 0, w, OK_FAIL);
         break;
       }
     }

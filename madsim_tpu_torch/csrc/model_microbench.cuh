@@ -9,6 +9,7 @@ namespace madsim {
 
 struct MicrobenchModel {
   static constexpr int N = 1, U = 4, A = 2, W = 0, K = 2, H = 2;
+  static constexpr int R = 0;  // records nothing
 
   struct Params {
     int32_t rounds;
@@ -23,7 +24,7 @@ struct MicrobenchModel {
 
   static MADSIM_HD void handle(int32_t h, const Ctx<MicrobenchModel>& c,
                                const Params& p, int32_t* ns,
-                               Emit<A, W>* em) {
+                               Emit<A, W>* em, Rec*) {
     if (h == 0) {  // on_init
       em[0].after(true, c.user_int(p.delay_min, p.delay_max, P_DELAY), K_TICK,
                   c.node);

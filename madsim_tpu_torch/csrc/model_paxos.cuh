@@ -3,16 +3,21 @@
 // the run kernel (engine_step.cuh): five acceptors and three proposers,
 // eight handlers, three args words. PROMISE, ACCEPTED and NACK go back to
 // the event's sender (Ctx::src); a NACK fast-forwards the proposer's
-// round to floor(ballot / P) + 1.
+// round to floor(ballot / P) + 1. PaxosModel<true> is the record
+// variant (paxos-record): a decision reached or first adopted appends an
+// OP_DECIDE history record.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
+template <bool RECORD = false>
 struct PaxosModel {
   static constexpr int NA = 5, NP = 3;  // acceptors, proposers
   static constexpr int N = NA + NP, U = 10, A = 3, W = 0, K = NA + 2, H = 8;
+  static constexpr int R = RECORD ? 1 : 0;  // history records per call
+  static constexpr int32_t OP_DECIDE = OP_USER;
   static constexpr int32_t majority = NA / 2 + 1;
 
   struct Params {
@@ -51,7 +56,7 @@ struct PaxosModel {
   }
 
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
-                               int32_t* ns, Em* em) {
+                               int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
     const bool is_prop = c.node >= NA;
     switch (h) {
@@ -146,6 +151,7 @@ struct PaxosModel {
           em[i].to(chosen && NA + i != c.node, NA + i, K_DECIDED, st[VAL]);
         // acceptor 0 is the halt witness
         em[NP].to(chosen, 0, K_DECIDED, st[VAL]);
+        if constexpr (RECORD) rec[0].record(chosen, OP_DECIDE, 0, st[VAL], OK_OK);
         break;
       }
       case 6: {  // on_decided: args = (value,)
@@ -154,6 +160,9 @@ struct PaxosModel {
           ns[PHASE] = DONE;
         }
         em[0].after(c.node == 0, 0, KIND_HALT, 0);
+        // first adoption only: what this proposer now believes
+        if constexpr (RECORD)
+          rec[0].record(is_prop && st[DEC] == 0, OP_DECIDE, 0, c.args[0], OK_OK);
         break;
       }
       default: {  // 7, on_nack at a proposer: args = (promised,)

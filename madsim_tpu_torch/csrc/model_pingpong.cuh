@@ -9,6 +9,7 @@ namespace madsim {
 
 struct PingpongModel {
   static constexpr int N = 3, U = 4, A = 2, W = 0, K = 2, H = 4;
+  static constexpr int R = 0;  // records nothing
   static constexpr int32_t n_clients = N - 1;
 
   struct Params {
@@ -25,7 +26,7 @@ struct PingpongModel {
 
   static MADSIM_HD void handle(int32_t h, const Ctx<PingpongModel>& c,
                                const Params& p, int32_t* ns,
-                               Emit<A, W>* em) {
+                               Emit<A, W>* em, Rec*) {
     const int32_t* st = c.state;
     switch (h) {
       case 0:  // on_init: each client sends its first ping

@@ -1,11 +1,14 @@
 // Raft leader election (madsim_tpu_torch/models/raft.py) as a model
 // trait of the run kernel (engine_step.cuh): five nodes, five handlers.
+// RaftModel<true> is the record variant (raft-election-record): each
+// election win appends an OP_ELECT history record.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
+template <bool RECORD>
 struct RaftModel {
   static constexpr int N = 5;      // nodes
   static constexpr int U = 6;      // state row width
@@ -13,6 +16,8 @@ struct RaftModel {
   static constexpr int W = 0;      // payload words
   static constexpr int K = N + 1;  // emit slots per handler
   static constexpr int H = 5;      // handlers
+  static constexpr int R = RECORD ? 1 : 0;  // history records per call
+  static constexpr int32_t OP_ELECT = OP_USER;
 
   // the factory's election timeout range
   struct Params {
@@ -38,7 +43,7 @@ struct RaftModel {
 
   static MADSIM_HD void handle(int32_t h, const Ctx<RaftModel>& c,
                                const Params& p, int32_t* ns,
-                               Emit<A, W>* em) {
+                               Emit<A, W>* em, [[maybe_unused]] Rec* rec) {
     constexpr int32_t majority = N / 2 + 1;
     const int32_t* st = c.state;
     const int32_t node = c.node;
@@ -96,6 +101,7 @@ struct RaftModel {
           em[q].to(wins && q != node, q, K_HEARTBEAT, term);
         // leader elected: scenario complete
         em[N].after(wins, 0, KIND_HALT, 0);
+        if constexpr (RECORD) rec[0].record(wins, OP_ELECT, term, node, OK_OK);
         break;
       }
       default: {  // 4, on_heartbeat: args = (term,)

@@ -3,16 +3,22 @@
 // of the run kernel (engine_step.cuh): five nodes, eight handlers, four
 // args words, and AppendEntries that carry the sender's whole four-entry
 // log in the event payload. Entries pack as value | term << 8.
+// RaftLogModel<true> is the record variant (raftlog-record): an election
+// win appends an OP_ELECT history record and a commit one OP_COMMIT
+// record per newly committed index, LOGW record rows a call.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
+template <bool RECORD = false>
 struct RaftLogModel {
   static constexpr int N = 5;          // nodes
   static constexpr int LOGW = 4;       // log entries (n_writes)
   static constexpr int U = 8 + LOGW, A = 4, W = LOGW, K = N + 2, H = 8;
+  static constexpr int R = RECORD ? LOGW : 0;  // history records per call
+  static constexpr int32_t OP_ELECT = OP_USER, OP_COMMIT = OP_USER + 1;
   static constexpr int32_t majority = N / 2 + 1;
 
   struct Params {
@@ -72,7 +78,7 @@ struct RaftLogModel {
   }
 
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
-                               int32_t* ns, Em* em) {
+                               int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
     switch (h) {
       case 0: {  // on_init
@@ -148,6 +154,7 @@ struct RaftLogModel {
         send_appends(em, c, ns, term, wins);
         em[N].after(wins, p.propose_ns, K_PROPOSE, c.node, term);
         em[N + 1].after(wins, p.retx_ns, K_RETX, c.node, term);
+        if constexpr (RECORD) rec[0].record(wins, OP_ELECT, term, c.node, OK_OK);
         break;
       }
       case 4: {  // on_append: args = (term, idx, leader_commit, leader)
@@ -186,6 +193,11 @@ struct RaftLogModel {
         if (commit_now) ns[COMMIT] = idx + 1;
         // propagate the commit index immediately
         send_appends(em, c, ns, term, commit_now);
+        // one event per newly committed index, with the entry's value byte
+        if constexpr (RECORD)
+          for (int32_t j = 0; j < LOGW; j++)
+            rec[j].record(commit_now && j >= st[COMMIT] && j <= idx, OP_COMMIT, j,
+                          ns[LOG0 + j] & 0xFF, OK_OK);
         em[N].after(commit_now && ns[COMMIT] == LOGW, 0, KIND_HALT, 0);
         break;
       }

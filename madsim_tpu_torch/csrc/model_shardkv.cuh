@@ -4,16 +4,29 @@
 // groups of three replicas (N = 14), eight shards (U = 2 * 8 + 1 = 17),
 // fifteen handlers. Every column is durable, so a RESTART keeps the
 // whole row; the restart's re-init runs on_init, which leaves the row
-// alone. Shard assignments pack 4 bits per shard into two words.
+// alone. Shard assignments pack 4 bits per shard into two words. RECORD
+// is the record variant (shardkv-record): committed writes and shard
+// installs append history records. BUG (shardkv-bug, with RECORD) plants
+// the lost-shard mutant: the source wipes the shard as it sends the
+// handoff, so a retried handoff installs version 0.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
+template <bool RECORD = false, bool BUG = false>
 struct ShardKvModel {
-  static constexpr int G = 4, R = 3, NS = 8;  // groups, group size, shards
-  static constexpr int N = 2 + G * R, U = 2 * NS + 1, A = 3, W = 0, K = 6, H = 15;
+  static_assert(RECORD || !BUG, "the planted fault needs recording");
+  static constexpr int G = 4, GS = 3, NS = 8;  // groups, group size, shards
+  static constexpr int N = 2 + G * GS, U = 2 * NS + 1, A = 3, W = 0, K = 6, H = 15;
+  static constexpr int R = RECORD ? 1 : 0;  // history records per call
+  // history op codes (check.shard_coverage) and the install record's
+  // packed arg (check/history.py pack_shard_own)
+  static constexpr int32_t OP_SHARD_WRITE = OP_USER, OP_SHARD_OWN = OP_USER + 1;
+  static MADSIM_HDI int32_t pack_own(int32_t epoch, int32_t group, int32_t ver) {
+    return (epoch << 20) | (group << 16) | (ver & 0xFFFF);
+  }
   static constexpr int32_t CONTROLLER = 0, CLIENT = 1, FROZEN = 2 * NS;
   static constexpr int32_t VER_CAP = (1 << 16) - 1, EPOCH_CAP = 255;
   static constexpr int32_t A_MASK = 0xFFFF;
@@ -55,7 +68,7 @@ struct ShardKvModel {
   static MADSIM_HDI int32_t group_of(int32_t a0, int32_t a1, int32_t s) {
     return ((s < 4 ? a0 : a1) >> ((s & 3) * 4)) & 0xF;
   }
-  static MADSIM_HDI int32_t primary_of(int32_t g) { return 2 + g * R; }
+  static MADSIM_HDI int32_t primary_of(int32_t g) { return 2 + g * GS; }
   static MADSIM_HDI int32_t shard_of(const C& c) { return clampi(c.args[0], 0, NS - 1); }
   static MADSIM_HDI int32_t min32(int32_t a, int32_t b) { return a < b ? a : b; }
 
@@ -69,7 +82,7 @@ struct ShardKvModel {
   }
 
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
-                               int32_t* ns, Em* em) {
+                               int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
     switch (h) {
       case 0: {  // on_init
@@ -77,7 +90,7 @@ struct ShardKvModel {
         em[1].after(c.node == CLIENT, p.put_ns, K_PUT_T, CLIENT);
         if (c.node == CLIENT) {  // the seed's kill and restart of a primary
           const int32_t who =
-              2 + static_cast<int32_t>(c.user_int(0, G, P_KILL_WHO)) * R;
+              2 + static_cast<int32_t>(c.user_int(0, G, P_KILL_WHO)) * GS;
           const int64_t at = c.user_int(20000000, 300000000, P_KILL_AT);
           const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
           em[2].after(true, at, KIND_KILL, 0, who);
@@ -99,11 +112,12 @@ struct ShardKvModel {
         const bool serving = st[NS + s] > 0 && ((st[FROZEN] >> s) & 1) == 0;
         const bool fresh = serving && seq > st[s];
         if (fresh) ns[s] = seq;
+        if constexpr (RECORD) rec[0].record(fresh, OP_SHARD_WRITE, s, seq, OK_OK);
         em[0].to(serving, CLIENT, K_WRITE_OK, s, seq);
         em[1].to(!serving, CLIENT, K_WRONG, s);
         // replicate the committed version inside the group
-        const int32_t base = 2 + floordiv(c.node - 2, R) * R;
-        for (int32_t i = 1; i < R; i++) em[1 + i].to(fresh, base + i, K_REPL, s, seq);
+        const int32_t base = 2 + floordiv(c.node - 2, GS) * GS;
+        for (int32_t i = 1; i < GS; i++) em[1 + i].to(fresh, base + i, K_REPL, s, seq);
         break;
       }
       case 3: {  // on_repl at a backup: args = (shard, ver)
@@ -157,19 +171,36 @@ struct ShardKvModel {
       case 10: {  // on_mig_start at the source: args = (shard, epoch, dst)
         const int32_t s = shard_of(c);
         const bool owned = st[NS + s] > 0;
-        // freeze and hand off; keep the shard until RELEASE
-        em[0].to(owned, primary_of(clampi(c.args[2], 0, G - 1)), K_HANDOFF, s,
-                 clampi(c.args[1], 0, EPOCH_CAP));
-        em[0].args[2] = st[s];
-        if (owned) ns[FROZEN] = st[FROZEN] | (int32_t(1) << s);
+        if constexpr (BUG) {
+          // the planted lost-shard mutant: "handoff sent" counts as
+          // "migration done", so the source wipes the shard at once
+          em[0].to(true, primary_of(clampi(c.args[2], 0, G - 1)), K_HANDOFF, s,
+                   clampi(c.args[1], 0, EPOCH_CAP));
+          em[0].args[2] = st[s];
+          if (owned) {
+            ns[s] = 0;
+            ns[NS + s] = 0;
+          }
+        } else {
+          // freeze and hand off; keep the shard until RELEASE
+          em[0].to(owned, primary_of(clampi(c.args[2], 0, G - 1)), K_HANDOFF, s,
+                   clampi(c.args[1], 0, EPOCH_CAP));
+          em[0].args[2] = st[s];
+          if (owned) ns[FROZEN] = st[FROZEN] | (int32_t(1) << s);
+        }
         break;
       }
       case 11: {  // on_handoff at the destination: args = (shard, epoch, ver)
         const int32_t s = shard_of(c);
         const int32_t new_ep = clampi(c.args[1], 0, EPOCH_CAP);
         const int32_t v = clampi(c.args[2], 0, VER_CAP);
+        const int32_t ver_new = st[s] > v ? st[s] : v;
+        if constexpr (RECORD)
+          rec[0].record(st[NS + s] < new_ep, OP_SHARD_OWN, s,
+                        pack_own(new_ep, floordiv(c.node - 2, GS), ver_new < VER_CAP ? ver_new : VER_CAP),
+                        OK_OK);
         if (st[NS + s] < new_ep) {
-          ns[s] = st[s] > v ? st[s] : v;
+          ns[s] = ver_new;
           ns[NS + s] = new_ep;
           // installing also clears a stale frozen bit for the shard
           ns[FROZEN] = st[FROZEN] & (A_MASK ^ (int32_t(1) << s));

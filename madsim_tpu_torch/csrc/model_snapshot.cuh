@@ -12,6 +12,7 @@ namespace madsim {
 
 struct SnapshotModel {
   static constexpr int N = 5, U = 6, A = 2, W = 0, K = N + 1, H = 5;
+  static constexpr int R = 0;  // records nothing
 
   struct Params {
     int32_t n_sends, balance, amount_max, total_msgs;
@@ -48,7 +49,7 @@ struct SnapshotModel {
   }
 
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
-                               int32_t* ns, Em* em) {
+                               int32_t* ns, Em* em, Rec*) {
     const int32_t* st = c.state;
     switch (h) {
       case 0: {  // on_init

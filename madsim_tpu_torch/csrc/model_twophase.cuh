@@ -8,16 +8,21 @@
 // trait, `default` is the last handler: nvcc 12.8 built a switch whose
 // `default` stood for handler 7, between the cases 6 and 8 (on_hello
 // and on_resync, sharing a body), so that handler 7 ran that body on
-// the card, where g++ ran it right.
+// the card, where g++ ran it right. TwoPhaseModel<true> is the record
+// variant (twophase-record): every decision taken or adopted appends an
+// OP_DECIDE history record.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
+template <bool RECORD = false>
 struct TwoPhaseModel {
   static constexpr int P = 4;  // participants
   static constexpr int N = 1 + P, U = 6, A = 3, W = 0, K = 2 * P + 2, H = 9;
+  static constexpr int R = RECORD ? 1 : 0;  // history records per call
+  static constexpr int32_t OP_DECIDE = OP_USER;
   static constexpr int32_t COORD = 0;
   static constexpr int32_t full_mask = (1 << P) - 1;
 
@@ -66,7 +71,7 @@ struct TwoPhaseModel {
   }
 
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
-                               int32_t* ns, Em* em) {
+                               int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
     switch (h) {
       case 0: {  // on_init
@@ -111,6 +116,8 @@ struct TwoPhaseModel {
         ns[2] = votes;
         if (decide) ns[3] = 0;
         bcast(em, K_DECISION, txn, phase == 1 ? 1 : 0, decide, 0);
+        if constexpr (RECORD)
+          rec[0].record(decide, OP_DECIDE, txn, phase == 1 ? 1 : 0, OK_OK);
         break;
       }
       case 3: {  // on_decision at a participant: args = (txn, commit)
@@ -120,6 +127,7 @@ struct TwoPhaseModel {
         ns[3] = st[3] + (fresh ? 1 : 0);
         if (fresh) ns[4] = commit;  // the decision VALUE, for agreement
         em[0].to(true, COORD, K_ACK, txn, c.node);
+        if constexpr (RECORD) rec[0].record(fresh, OP_DECIDE, txn, commit, OK_OK);
         break;
       }
       case 4: {  // on_ack at the coordinator: args = (txn, part)

@@ -18,9 +18,16 @@
 // word that the run kernel leaves behind: nothing runs between the two
 // launches.
 //
+// A record variant (a model trait with R > 0 history rows a call) also
+// carries the operation history: hist_count and hist_drop live in the
+// seed's shared state, the block copies the input's history rows to the
+// output once, and each record a user dispatch appends is written
+// straight to the output (engine_step.cuh append_history). The drain
+// kernel never touches the history.
+//
 // This file is not compiled alone. engine/fused.py writes, per model, a
 // unit that includes the model's header (model_*.cuh), defines
-//   MADSIM_MODEL  the model trait, e.g. madsim::KvChaosModel<true>
+//   MADSIM_MODEL  the model trait, e.g. madsim::KvChaosModel<false, true>
 //   MADSIM_POOLS  the pool sizes to instantiate, e.g. 40, 64
 //   MADSIM_GROUP  G, the lanes per seed
 // and includes this file; nvcc builds it into one library per model.
@@ -200,7 +207,7 @@ int madsim_occupancy(int32_t pool, int32_t device, int64_t* out) {
 }
 
 // the model's compile-time shape, for the wrapper to check against the
-// workload: N, U, A, W, K, H, then the run and drain pointer counts
+// workload: N, U, A, W, K, H, R, then the run and drain pointer counts
 void madsim_shape(int64_t* out) {
   out[0] = Model::N;
   out[1] = Model::U;
@@ -208,8 +215,9 @@ void madsim_shape(int64_t* out) {
   out[3] = Model::W;
   out[4] = Model::K;
   out[5] = Model::H;
-  out[6] = madsim::kRunPointers;
-  out[7] = madsim::kDrainPointers;
+  out[6] = Model::R;
+  out[7] = madsim::kRunPointers;
+  out[8] = madsim::kDrainPointers;
 }
 
 }  // extern "C"

@@ -18,6 +18,7 @@ from .core import (  # noqa: F401
     Emits,
     EngineConfig,
     HandlerCtx,
+    HistorySpec,
     SimState,
     Workload,
     make_init,
@@ -36,6 +37,7 @@ from .fused import make_run_fused  # noqa: F401
 from .rng import Draw, threefry2x32  # noqa: F401
 from .compact import make_run_compacted, make_run_compacted_plain  # noqa: F401
 from .verify import (  # noqa: F401
+    HISTORY_FIELDS,
     DeterminismError,
     check_determinism,
     check_layouts,

@@ -64,7 +64,8 @@ __all__ = [
 # reference's others are zero-size for every variant the port runs
 RESULT_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
-    "msg_count", "node_state",
+    "msg_count", "node_state", "hist_count", "hist_drop", "hist_word",
+    "hist_t",
 )
 
 # options of the reference's runners whose engine axes the port does not
@@ -72,7 +73,7 @@ RESULT_FIELDS = (
 UNPORTED_OPTIONS = {
     "plan": "A8", "plan_slots": "A8", "plan_rows": "A8", "plan_hash": "A8",
     "dup_rows": "A8",
-    "history_invariant": "A7", "device_check": "A7", "hist_screen": "A7",
+    "device_check": "A13", "hist_screen": "A13",
     "cov_words": "A8", "cov_hitcount": "A8", "metrics": "A8",
     "timeline_cap": "A8", "latency": "A8", "causal": "A8", "retry": "A8",
 }

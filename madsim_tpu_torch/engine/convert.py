@@ -50,6 +50,10 @@ NUMPY_DTYPES = {
     "slow": np.int32,
     "dup": np.bool_,
     "skew": np.int32,
+    "hist_count": np.int32,
+    "hist_drop": np.int32,
+    "hist_word": np.int32,
+    "hist_t": np.int64,
 }
 
 # The JAX package's SimState fields that the port does not carry yet:
@@ -60,12 +64,6 @@ NUMPY_DTYPES = {
 # index summaries (tile_min, tile_cnt) are derived state and travel in
 # no file.
 FOREIGN_FIELDS = {
-    **{f: (dt, shape, "A7 (histories)") for f, dt, shape in (
-        ("hist_count", np.int32, ()),
-        ("hist_drop", np.int32, ()),
-        ("hist_word", np.int32, (0, 5)),
-        ("hist_t", np.int64, (0,)),
-    )},
     **{f: (dt, shape, "A8 (durable_sync and storage faults)") for f, dt, shape in (
         ("disk", np.int32, (0, "U")),
         ("wmask", np.bool_, (0, "U")),

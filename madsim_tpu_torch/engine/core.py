@@ -7,6 +7,11 @@ epoch, clog and pause, dispatch the engine kinds inline and the user
 handlers by kind, apply kill/restart/pause/clog/halt, place the emits
 into free slots, fold the trace hash and advance the clock.
 
+A workload with a :class:`HistorySpec` also records operation
+histories: its handlers call :meth:`EmitBuilder.record`, and the step
+appends a user dispatch's records to the ``hist_*`` columns of the
+state, which the ``check`` package judges.
+
 The JAX engine has several lowerings of that step (dense/scatter
 layout, rank/scatter placement, time32, the pool index); their values
 are identical by construction, so this port has one: int64 absolute
@@ -59,6 +64,7 @@ __all__ = [
     "Emits",
     "EmitBuilder",
     "HandlerCtx",
+    "HistorySpec",
     "KIND_KILL",
     "KIND_RESTART",
     "KIND_CLOG",
@@ -279,16 +285,23 @@ class Emits:
     delay: torch.Tensor  # (S,K) int64 ns (timers)
     args: torch.Tensor  # (S,K,A) int32
     pay: torch.Tensor  # (S,K,W) int32
+    # operation-history records (R = HistorySpec.max_records, 0 = off):
+    # each row is (op, key, arg, ok); the engine stamps the client node
+    # and the dispatch time when it appends them to the history columns
+    rec_valid: torch.Tensor | None = None  # (S,R) bool
+    rec: torch.Tensor | None = None  # (S,R,4) int32
 
 
 class EmitBuilder:
     """Collects a handler's emits; slot order is call order, and
-    ``when`` (a bool or an ``(S,)`` tensor) makes a row conditional."""
+    ``when`` (a bool or an ``(S,)`` tensor) makes a row conditional.
+    History records (``record``) keep their own call order."""
 
-    def __init__(self, k: int, w: int, a: int, s: int, device):
-        self._k, self._w, self._a, self._s = k, w, a, s
+    def __init__(self, k: int, w: int, a: int, s: int, device, r: int = 0):
+        self._k, self._w, self._a, self._s, self._r = k, w, a, s, r
         self._device = device
         self._rows: list[tuple] = []
+        self._recs: list[tuple] = []
 
     def _col(self, x, dtype):
         t = torch.as_tensor(x, device=self._device).to(dtype)
@@ -346,6 +359,28 @@ class EmitBuilder:
     def halt(self, when=True):
         self.after(0, KIND_HALT, 0, (), when)
 
+    def record(self, op, key=0, arg=0, ok=1, when=True):
+        """Append one operation-history record.
+
+        ``op``, ``key`` and ``arg`` are workload-defined int32 words;
+        ``ok`` follows the ``check.history`` convention (-1 = invoke of
+        a pending operation, 1 = successful response, 0 = failed
+        response). The engine stamps the record with the handling node
+        (the client column) and the dispatch time. Requires
+        ``Workload.history``.
+        """
+        if self._r == 0:
+            raise ValueError(
+                "record() needs history slots; set Workload.history to a "
+                "HistorySpec (and size its max_records)"
+            )
+        if len(self._recs) >= self._r:
+            raise ValueError(
+                f"handler records more than max_records={self._r} history "
+                f"entries; raise HistorySpec.max_records"
+            )
+        self._recs.append((when, op, key, arg, ok))
+
     def build(self) -> Emits:
         s, k, dev = self._s, self._k, self._device
         valid = torch.zeros((s, k), dtype=torch.bool, device=dev)
@@ -365,7 +400,42 @@ class EmitBuilder:
                 args[:, j, c] = self._col(x, torch.int32)
             for c, x in enumerate(p):
                 pay[:, j, c] = self._col(x, torch.int32)
-        return Emits(valid, send, kind, dst, delay, args, pay)
+        rec_valid = torch.zeros((s, self._r), dtype=torch.bool, device=dev)
+        rec = torch.zeros((s, self._r, 4), dtype=torch.int32, device=dev)
+        for j, (when, *words) in enumerate(self._recs):
+            rec_valid[:, j] = self._col(when, torch.bool)
+            for c, x in enumerate(words):
+                rec[:, j, c] = self._col(x, torch.int32)
+        return Emits(valid, send, kind, dst, delay, args, pay, rec_valid, rec)
+
+
+@dataclasses.dataclass(frozen=True)
+class HistorySpec:
+    """Per-seed operation-history recording (the ``check`` package).
+
+    Histories are fixed-size columns of the state, kept like the trace
+    hash: ``capacity`` slots per seed, each one record of (op, key, arg,
+    client, ok) int32 words and an int64 sim-time. Handlers append
+    records through :meth:`EmitBuilder.record`; a full buffer never
+    drops silently: overflow is counted in ``SimState.hist_drop`` and
+    the checkers refuse such seeds.
+
+    Sizing: one *operation* costs two records (an invoke and a
+    response); an instantaneous event (an election win) costs one.
+    ``max_records`` is the per-handler-call slot count (the history
+    analog of ``max_emits``).
+    """
+
+    capacity: int
+    max_records: int = 2
+
+    def __post_init__(self):
+        if self.capacity < 1:
+            raise ValueError(f"history capacity must be >= 1, got {self.capacity}")
+        if self.max_records < 1:
+            raise ValueError(
+                f"max_records must be >= 1, got {self.max_records}"
+            )
 
 
 @dataclasses.dataclass
@@ -383,11 +453,12 @@ class HandlerCtx:
     payload: torch.Tensor  # (S,W) int32
     payload_words: int = 0
     args_words: int = 4
+    max_records: int = 0  # history record slots (Workload.history)
 
     def emits(self) -> EmitBuilder:
         return EmitBuilder(
             self.max_emits, self.payload_words, self.args_words,
-            self.state.shape[0], self.state.device,
+            self.state.shape[0], self.state.device, self.max_records,
         )
 
 
@@ -401,7 +472,8 @@ class Workload:
     ``handler(ctx) -> (new_state (S,U), Emits)``; handler 0 is on_init,
     run for every node at t=0 and again after a restart.
     ``model_params`` names the factory's parameters, which a fused
-    kernel that carries the handlers as device code needs.
+    kernel that carries the handlers as device code needs. ``history``
+    turns on operation-history recording (:class:`HistorySpec`).
     """
 
     name: str
@@ -416,6 +488,7 @@ class Workload:
     # user purposes generated in the step's batched RNG block
     draw_purposes: tuple | None = None
     model_params: tuple = ()  # ((name, value), ...)
+    history: HistorySpec | None = None
 
     def __post_init__(self):
         if not (2 <= self.args_words <= 4):
@@ -486,6 +559,14 @@ class SimState:
     slow: torch.Tensor  # (S,N,N) int32 latency multiplier, identity 1
     dup: torch.Tensor  # (S,) bool message duplication, identity False
     skew: torch.Tensor  # (S,N) int32 clock skew ns, identity 0
+    # operation history, H = HistorySpec.capacity (0 when
+    # Workload.history is None): rows in append (dispatch) order;
+    # hist_drop counts records lost to a full buffer, and a nonzero
+    # value voids the seed's history verdict
+    hist_count: torch.Tensor  # (S,) int32 records stored
+    hist_drop: torch.Tensor  # (S,) int32 records dropped at capacity
+    hist_word: torch.Tensor  # (S,H,5) int32 [op, key, arg, client, ok]
+    hist_t: torch.Tensor  # (S,H) int64 record sim-time ns (absolute)
 
     @property
     def device(self) -> torch.device:
@@ -534,6 +615,7 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None):
     _check_meta_ranges(wl)
     dev = resolve_device(device)
     base_state = torch.from_numpy(wl.initial_state()).to(dev)
+    h = wl.history.capacity if wl.history is not None else 0
 
     def init(seeds) -> SimState:
         seed = _seeds_tensor(seeds, dev)
@@ -571,6 +653,10 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None):
             slow=torch.ones((s, n, n), dtype=torch.int32, device=dev),
             dup=z(s, dt=torch.bool),
             skew=z(s, n, dt=torch.int32),
+            hist_count=z(s, dt=torch.int32),
+            hist_drop=z(s, dt=torch.int32),
+            hist_word=z(s, h, 5, dt=torch.int32),
+            hist_t=z(s, h, dt=torch.int64),
         )
 
     return init
@@ -589,6 +675,26 @@ def _first_argmin(x: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, idx, x.shape[1]).min(dim=1).values
 
 
+def _with_records(out: tuple, rr: int, s: int, dev) -> tuple:
+    """A handler's ``(state, Emits)`` with ``rr`` record rows: hand-built
+    ``Emits`` (not through ``ctx.emits()``) record nothing."""
+    state, em = out
+    rv = em.rec_valid
+    if rv is None or (rr > 0 and rv.shape[1] == 0):
+        em = dataclasses.replace(
+            em,
+            rec_valid=torch.zeros((s, rr), dtype=torch.bool, device=dev),
+            rec=torch.zeros((s, rr, 4), dtype=torch.int32, device=dev),
+        )
+    elif rv.shape[1] != rr:
+        raise ValueError(
+            f"handler returned Emits with {rv.shape[1]} history-record rows "
+            f"but the workload's HistorySpec allows {rr}; build emits via "
+            f"ctx.emits() (EmitBuilder) to get the right row count"
+        )
+    return state, em
+
+
 def _plain_step_fn(wl: Workload, cfg: EngineConfig):
     """The eager batched step: ``step(SimState) -> SimState``."""
     n, k, w, aw = wl.n_nodes, wl.max_emits, wl.payload_words, wl.args_words
@@ -605,6 +711,8 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
     proc_span = max(cfg.proc_max_ns - cfg.proc_min_ns, 1)
     init_rows_np = wl.initial_state()
     volatile_np = wl.volatile_mask()
+    hcap = wl.history.capacity if wl.history is not None else 0
+    rr = wl.history.max_records if wl.history is not None else 0
 
     def step(st: SimState) -> SimState:
         dev = st.seed.device
@@ -701,8 +809,9 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
                 payload=pay_i,
                 payload_words=w,
                 args_words=aw,
+                max_records=rr,
             )
-            outs = [h(ctx) for h in wl.handlers]
+            outs = [_with_records(h(ctx), rr, s_n, dev) for h in wl.handlers]
             pick = user_idx.long()
 
             def sel(vals):
@@ -715,7 +824,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
             ))
         else:
             user_state = state_row
-            uem = EmitBuilder(k, w, aw, s_n, dev).build()
+            uem = EmitBuilder(k, w, aw, s_n, dev, rr).build()
 
         row = torch.where(user_dispatch[:, None], user_state, state_row)
         node_state = st.node_state.clone()
@@ -836,6 +945,33 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
         ev_pay = st.ev_pay.clone()
         ev_pay[ps, pslot] = em_pay[ps, pj]
 
+        # ---- operation-history append: the j-th valid record of a user
+        # dispatch takes slot hist_count + j; records past the capacity
+        # are dropped and counted, so the kept ones are a prefix. The
+        # row is [op, key, arg, client = the handling node, ok] and the
+        # time is the dispatch clock without the node's skew. Records
+        # draw nothing and fold nothing into the trace. ----
+        if hcap > 0:
+            r_valid = user_dispatch[:, None] & uem.rec_valid
+            rpos = st.hist_count[:, None] + torch.cumsum(r_valid.to(torch.int32), 1) - 1
+            fits = rpos < hcap
+            keep = r_valid & fits
+            rec_row = torch.cat(
+                [uem.rec[:, :, :3], dst[:, None, None].expand(s_n, rr, 1),
+                 uem.rec[:, :, 3:4]], 2,
+            ).to(torch.int32)
+            ks, kj = keep.nonzero(as_tuple=True)
+            kslot = rpos[ks, kj].long()
+            hist_word = st.hist_word.clone()
+            hist_word[ks, kslot] = rec_row[ks, kj]
+            hist_t = st.hist_t.clone()
+            hist_t[ks, kslot] = now[ks]
+            hist_count = st.hist_count + keep.sum(1).to(torch.int32)
+            hist_drop = st.hist_drop + (r_valid & ~fits).sum(1).to(torch.int32)
+        else:
+            hist_count, hist_drop = st.hist_count, st.hist_drop
+            hist_word, hist_t = st.hist_word, st.hist_t
+
         # ---- trace + clock ----
         trace = torch.where(
             dispatch, _trace_fold(st.trace, now, kind, dst, args, pay_i), st.trace
@@ -863,6 +999,10 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
             slow=st.slow,
             dup=st.dup,
             skew=st.skew,
+            hist_count=hist_count,
+            hist_drop=hist_drop,
+            hist_word=hist_word,
+            hist_t=hist_t,
         )
 
     return step

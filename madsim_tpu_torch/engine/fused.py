@@ -22,6 +22,12 @@ with ``torch.empty``; the fields it never writes (``seed``, ``slow``,
 ``skew`` and ``dup``) are shared with the input, as the plain step
 shares them.
 
+A workload with a ``HistorySpec`` runs on its record library (a model
+trait with ``R > 0`` record rows a call): the kernel appends its
+history records as the plain step does, and the history columns are
+fresh outputs; a workload without one shares its zero-size history
+columns, and its ``hist_count`` and ``hist_drop``, with the input.
+
 ``make_run_while`` semantics: the JAX loop runs every seed for the same
 ``T = min(cap, steps until every seed has halted)`` iterations, and a
 halted seed's iteration still consumes its earliest slot and counts a
@@ -59,6 +65,7 @@ __all__ = [
     "KERNEL_FIELDS",
     "MODELS",
     "NVCC_FLAGS",
+    "HISTORY_COLUMNS",
     "KernelModel",
     "RunKernel",
     "build_libraries",
@@ -146,98 +153,156 @@ class KernelModel:
 
 
 # (n_nodes, state_width, args_words, payload_words, max_emits,
-#  handlers, draw_purposes) at each factory's default variant; pools: the
-# model's BENCH_SPECS or SOAK_SPECS pool, and for raft also the pools of
-# the entry shape and the tests
+#  handlers, draw_purposes, history records a call) at each factory's
+# default variant and at its record (and bug) variants; pools: the
+# model's BENCH_SPECS or SOAK_SPECS pool, for raft also the pools of the
+# entry shape and the tests, and for kvchaos's record variants also the
+# pool of the JAX package's history-search tests
+_KV_FIXED = (("n_replicas", 4), ("chaos", True), ("payload", False))
+_LEASE_FIXED = (("n_clients", 3), ("chaos", True), ("ka_stop_ms", None))
+_SHARD_FIXED = (("n_groups", 4), ("group_size", 3), ("n_shards", 8), ("chaos", True))
+_KV_WORDS = ("writes", "retx_ns", "client_retx_ns")
+_LEASE_WORDS = ("puts", "ttl_ms", "ka_ms", "scan_ms", "put_ms")
+_SHARD_WORDS = ("writes", "n_migs", "put_ms", "mig_ms", "retx_ms")
+_RAFTLOG_WORDS = ("timeout_min_ns", "timeout_max_ns", "propose_ns", "retx_ns")
+_RAFTLOG_FIXED = (("n_nodes", 5), ("n_writes", 4), ("chaos", True))
+_TWOPHASE_WORDS = ("txns", "no_pct", "retx_ns", "revive_min_ns", "revive_max_ns")
+_PAXOS_WORDS = ("start_min_ns", "start_max_ns", "timeout_min_ns",
+                "timeout_max_ns", "kill_min_ns", "kill_max_ns",
+                "revive_min_ns", "revive_max_ns")
+_PAXOS_FIXED = (("n_acceptors", 5), ("n_proposers", 3), ("chaos", True),
+                ("durable_acceptors", False))
 MODELS = {
     m.name: m
     for m in (
         KernelModel(
-            "raft", "raft-election", "model_raft.cuh", "madsim::RaftModel",
-            (5, 6, 2, 0, 6, 5, (0,)), (40, 64, 128, 256),
+            "raft", "raft-election", "model_raft.cuh", "madsim::RaftModel<false>",
+            (5, 6, 2, 0, 6, 5, (0,), 0), (40, 64, 128, 256),
+            ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),),
+        ),
+        KernelModel(
+            "raft-record", "raft-election-record", "model_raft.cuh",
+            "madsim::RaftModel<true>", (5, 6, 2, 0, 6, 5, (0,), 1), (40,),
             ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),),
         ),
         KernelModel(
             "microbench", "microbench", "model_microbench.cuh",
-            "madsim::MicrobenchModel", (1, 4, 2, 0, 2, 2, (0, 1)), (32,),
+            "madsim::MicrobenchModel", (1, 4, 2, 0, 2, 2, (0, 1), 0), (32,),
             ("rounds", "delay_min_ns", "delay_max_ns"),
         ),
         KernelModel(
             "pingpong", "pingpong", "model_pingpong.cuh",
-            "madsim::PingpongModel", (3, 4, 2, 0, 2, 4, ()), (32,),
+            "madsim::PingpongModel", (3, 4, 2, 0, 2, 4, (), 0), (32,),
             ("rounds",), (("n_clients", 2),),
         ),
         KernelModel(
             "broadcast", "broadcast", "model_broadcast.cuh",
-            "madsim::BroadcastModel", (5, 4, 2, 0, 7, 4, (1, 17, 2, 3)),
+            "madsim::BroadcastModel", (5, 4, 2, 0, 7, 4, (1, 17, 2, 3), 0),
             (40,), ("rounds", "retx_ns"),
             (("n_nodes", 5), ("partition", True)),
         ),
         KernelModel(
             "kvchaos", "kvchaos", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false>", (6, 4, 2, 0, 6, 12, (0, 1, 2)),
-            (40,), ("writes", "retx_ns", "client_retx_ns"),
-            (("n_replicas", 4), ("chaos", True), ("payload", False)),
+            "madsim::KvChaosModel<false>", (6, 4, 2, 0, 6, 12, (0, 1, 2), 0),
+            (40,), _KV_WORDS, _KV_FIXED,
         ),
         KernelModel(
             "kvchaos-payload", "kvchaos-payload", "model_kvchaos.cuh",
             "madsim::KvChaosModel<true>",
-            (6, 6, 2, 2, 6, 12, (0, 1, 2, 8, 9)), (40,),
-            ("writes", "retx_ns", "client_retx_ns"),
+            (6, 6, 2, 2, 6, 12, (0, 1, 2, 8, 9), 0), (40,), _KV_WORDS,
             (("n_replicas", 4), ("chaos", True), ("payload", True)),
         ),
         KernelModel(
-            "raftlog", "raftlog", "model_raftlog.cuh", "madsim::RaftLogModel",
-            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4)), (64,),
-            ("timeout_min_ns", "timeout_max_ns", "propose_ns", "retx_ns"),
-            (("n_nodes", 5), ("n_writes", 4), ("chaos", True)),
+            "kvchaos-record", "kvchaos-record", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, true, false>",
+            (6, 4, 2, 0, 6, 12, (0, 1, 2), 3), (40, 192), _KV_WORDS,
+            (*_KV_FIXED, ("record", True), ("bug", False)),
+        ),
+        KernelModel(
+            "kvchaos-bug", "kvchaos-bug", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, true, true>",
+            (6, 4, 2, 0, 6, 12, (0, 1, 2), 3), (40, 192), _KV_WORDS,
+            (*_KV_FIXED, ("record", True), ("bug", True)),
+        ),
+        KernelModel(
+            "raftlog", "raftlog", "model_raftlog.cuh", "madsim::RaftLogModel<false>",
+            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 0), (64,),
+            _RAFTLOG_WORDS, _RAFTLOG_FIXED,
+        ),
+        KernelModel(
+            "raftlog-record", "raftlog-record", "model_raftlog.cuh",
+            "madsim::RaftLogModel<true>",
+            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 4), (64,),
+            _RAFTLOG_WORDS, _RAFTLOG_FIXED,
         ),
         KernelModel(
             "snapshot", "snapshot", "model_snapshot.cuh",
-            "madsim::SnapshotModel", (5, 6, 2, 0, 6, 5, ()), (96,),
+            "madsim::SnapshotModel", (5, 6, 2, 0, 6, 5, (), 0), (96,),
             ("n_sends", "balance", "amount_max", "send_min_ns",
              "send_max_ns", "snap_min_ns", "snap_max_ns"),
             (("n_nodes", 5),),
         ),
         KernelModel(
             "twophase", "twophase", "model_twophase.cuh",
-            "madsim::TwoPhaseModel", (5, 6, 3, 0, 10, 9, ()), (64,),
-            ("txns", "no_pct", "retx_ns", "revive_min_ns", "revive_max_ns"),
-            (("n_parts", 4), ("chaos", True)),
+            "madsim::TwoPhaseModel<false>", (5, 6, 3, 0, 10, 9, (), 0), (64,),
+            _TWOPHASE_WORDS, (("n_parts", 4), ("chaos", True)),
         ),
         KernelModel(
-            "paxos", "paxos", "model_paxos.cuh", "madsim::PaxosModel",
-            (8, 10, 3, 0, 7, 8, (0, 1, 2, 3, 4)), (64,),
-            ("start_min_ns", "start_max_ns", "timeout_min_ns",
-             "timeout_max_ns", "kill_min_ns", "kill_max_ns",
-             "revive_min_ns", "revive_max_ns"),
-            (("n_acceptors", 5), ("n_proposers", 3), ("chaos", True),
-             ("durable_acceptors", False)),
+            "twophase-record", "twophase-record", "model_twophase.cuh",
+            "madsim::TwoPhaseModel<true>", (5, 6, 3, 0, 10, 9, (), 1), (64,),
+            _TWOPHASE_WORDS, (("n_parts", 4), ("chaos", True)),
         ),
         KernelModel(
-            "leasekv", "leasekv", "model_leasekv.cuh", "madsim::LeaseKvModel",
-            (5, 6, 2, 0, 6, 15, (0, 1, 2)), (48,),
-            ("puts", "ttl_ms", "ka_ms", "scan_ms", "put_ms"),
-            (("n_clients", 3), ("chaos", True), ("ka_stop_ms", None)),
+            "paxos", "paxos", "model_paxos.cuh", "madsim::PaxosModel<false>",
+            (8, 10, 3, 0, 7, 8, (0, 1, 2, 3, 4), 0), (64,),
+            _PAXOS_WORDS, _PAXOS_FIXED,
         ),
         KernelModel(
-            "shardkv", "shardkv", "model_shardkv.cuh", "madsim::ShardKvModel",
-            (14, 17, 3, 0, 6, 15, (0, 1, 2)), (64,),
-            ("writes", "n_migs", "put_ms", "mig_ms", "retx_ms"),
-            (("n_groups", 4), ("group_size", 3), ("n_shards", 8),
-             ("chaos", True)),
+            "paxos-record", "paxos-record", "model_paxos.cuh",
+            "madsim::PaxosModel<true>", (8, 10, 3, 0, 7, 8, (0, 1, 2, 3, 4), 1),
+            (64,), _PAXOS_WORDS, _PAXOS_FIXED,
+        ),
+        KernelModel(
+            "leasekv", "leasekv", "model_leasekv.cuh", "madsim::LeaseKvModel<false>",
+            (5, 6, 2, 0, 6, 15, (0, 1, 2), 0), (48,), _LEASE_WORDS, _LEASE_FIXED,
+        ),
+        KernelModel(
+            "leasekv-record", "leasekv-record", "model_leasekv.cuh",
+            "madsim::LeaseKvModel<true, false>", (5, 6, 2, 0, 6, 15, (0, 1, 2), 3),
+            (48,), _LEASE_WORDS, (*_LEASE_FIXED, ("record", True), ("bug", False)),
+        ),
+        KernelModel(
+            "leasekv-bug", "leasekv-bug", "model_leasekv.cuh",
+            "madsim::LeaseKvModel<true, true>", (5, 6, 2, 0, 6, 15, (0, 1, 2), 3),
+            (48,), _LEASE_WORDS, (*_LEASE_FIXED, ("record", True), ("bug", True)),
+        ),
+        KernelModel(
+            "shardkv", "shardkv", "model_shardkv.cuh", "madsim::ShardKvModel<false>",
+            (14, 17, 3, 0, 6, 15, (0, 1, 2), 0), (64,), _SHARD_WORDS, _SHARD_FIXED,
+        ),
+        KernelModel(
+            "shardkv-record", "shardkv-record", "model_shardkv.cuh",
+            "madsim::ShardKvModel<true, false>", (14, 17, 3, 0, 6, 15, (0, 1, 2), 1),
+            (64,), _SHARD_WORDS, (*_SHARD_FIXED, ("record", True), ("bug", False)),
+        ),
+        KernelModel(
+            "shardkv-bug", "shardkv-bug", "model_shardkv.cuh",
+            "madsim::ShardKvModel<true, true>", (14, 17, 3, 0, 6, 15, (0, 1, 2), 1),
+            (64,), _SHARD_WORDS, (*_SHARD_FIXED, ("record", True), ("bug", True)),
         ),
     )
 }
 
 # the fields the kernel reads (and, but for seed, slow and skew,
 # writes), in the pointer order of Fields (csrc/engine_step.cuh);
-# ev_pay is read and written only when the workload has payload words
+# ev_pay is read and written only when the workload has payload words,
+# the history columns only when it records
+HISTORY_COLUMNS = ("hist_count", "hist_drop", "hist_word", "hist_t")
 KERNEL_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
     "msg_count", "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args",
     "ev_pay", "alive", "paused", "epoch", "node_state", "clog", "slow",
-    "skew",
+    "skew", *HISTORY_COLUMNS,
 )
 READ_ONLY_FIELDS = ("seed", "slow", "skew")
 # the run's outputs that are its inputs' tensors: never written
@@ -250,18 +315,20 @@ _DTYPES = {
     "ev_epoch": torch.int32, "ev_args": torch.int32, "ev_pay": torch.int32,
     "alive": torch.bool, "paused": torch.bool, "epoch": torch.int32,
     "node_state": torch.int32, "clog": torch.bool, "slow": torch.int32,
-    "dup": torch.bool, "skew": torch.int32,
+    "dup": torch.bool, "skew": torch.int32, "hist_count": torch.int32,
+    "hist_drop": torch.int32, "hist_word": torch.int32, "hist_t": torch.int64,
 }
 
 
 def workload_shape(wl: Workload) -> tuple:
     """What a model's library is compiled for: ``(n_nodes,
     state_width, args_words, payload_words, max_emits, handlers,
-    draw_purposes)``."""
+    draw_purposes, history records a call)``."""
     return (
         wl.n_nodes, wl.state_width, wl.args_words, wl.payload_words,
         wl.max_emits, len(wl.handlers),
         tuple(int(p) for p in wl.draw_purposes or ()),
+        wl.history.max_records if wl.history is not None else 0,
     )
 
 
@@ -282,21 +349,27 @@ def kernel_model(wl: Workload) -> KernelModel:
         raise NotImplementedError(
             f"the fused run kernel is compiled for {wl.name!r} at shape "
             f"{spec.shape} with {dict(spec.fixed)}; got shape {shape} with "
-            f"{fixed} (other variants: ROADMAP queue A5, A7 and A8)"
+            f"{fixed} (other variants: ROADMAP queue B1, and A7 and A8 for "
+            f"the engine axes they need)"
         )
     return spec
 
 
 def config_words(wl: Workload, cfg: EngineConfig) -> tuple:
-    """The kernel's config words: the engine's 8 (``engine_config`` in
-    csrc/engine_step.cuh), then the model's runtime words."""
+    """The kernel's config words: the engine's 9 (``engine_config`` in
+    csrc/engine_step.cuh, the history capacity last), then the model's
+    runtime words."""
     spec = kernel_model(wl)
     p = dict(wl.model_params)
     return (
         cfg.lat_min_ns, cfg.lat_max_ns, cfg.loss_u32, cfg.proc_min_ns,
         cfg.proc_max_ns, cfg.clog_backoff_min_ns, cfg.clog_backoff_max_ns,
-        cfg.time_limit_ns, *(int(p[w]) for w in spec.words),
+        cfg.time_limit_ns, _history_capacity(wl), *(int(p[w]) for w in spec.words),
     )
+
+
+def _history_capacity(wl: Workload) -> int:
+    return wl.history.capacity if wl.history is not None else 0
 
 
 def source_digest(spec: KernelModel) -> str:
@@ -404,13 +477,15 @@ class RunKernel:
             lib.madsim_occupancy.argtypes = [i32, i32, ctypes.POINTER(i64)]
             lib.madsim_shape.restype = None
             lib.madsim_shape.argtypes = [ctypes.POINTER(i64)]
-            got = (i64 * 8)()
+            got = (i64 * 9)()
             lib.madsim_shape(got)
-            want = (*spec.shape[:6], 2 * len(KERNEL_FIELDS) + 4, len(DRAIN_FIELDS) + 2)
+            want = (*spec.shape[:6], spec.shape[7], 2 * len(KERNEL_FIELDS) + 4,
+                    len(DRAIN_FIELDS) + 2)
             if tuple(got) != want:
                 raise RuntimeError(
-                    f"library {path} is built for (N, U, A, W, K, H, run and "
-                    f"drain pointers) = {tuple(got)}; model {spec.key!r} needs {want}"
+                    f"library {path} is built for (N, U, A, W, K, H, R, run "
+                    f"and drain pointers) = {tuple(got)}; model {spec.key!r} "
+                    f"needs {want}"
                 )
             self._libs[spec.key] = lib
         return lib
@@ -478,8 +553,9 @@ def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words):
     none), the tables, ``iters`` and ``tmax``. The caller keeps every
     tensor alive until the launch has run."""
     ins = [getattr(state, f).data_ptr() for f in KERNEL_FIELDS]
+    unwritten = (*READ_ONLY_FIELDS, *_unwritten_history(state))
     outs = [
-        0 if f in READ_ONLY_FIELDS else getattr(out, f).data_ptr()
+        0 if f in unwritten else getattr(out, f).data_ptr()
         for f in KERNEL_FIELDS
     ]
     rest = [t.data_ptr() for t in (*tables, iters)]
@@ -492,7 +568,8 @@ def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words):
 def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     """Raise unless every field is a contiguous CUDA tensor of the
     port's dtype and of the workload's shape, with a pool size the
-    model's kernel was compiled for."""
+    model's kernel was compiled for; only a record library takes a
+    state with history rows."""
     dev = state.device
     s, e = state.ev_valid.shape
     if e not in spec.pools:
@@ -500,12 +577,19 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
             f"pool_size={e} has no {spec.key} kernel instantiation; "
             f"supported: {spec.pools}"
         )
+    hcap = _history_capacity(wl)
+    if (spec.shape[7] > 0) != (hcap > 0):
+        raise NotImplementedError(
+            f"library {spec.key!r} records {spec.shape[7]} history rows a "
+            f"call; workload {wl.name!r} has history capacity {hcap}"
+        )
     n, u = wl.n_nodes, wl.state_width
     shapes = dict(
         ev_time=(s, e), ev_valid=(s, e), ev_meta=(s, e), ev_epoch=(s, e),
         ev_args=(s, e, wl.args_words), ev_pay=(s, e, wl.payload_words),
         alive=(s, n), paused=(s, n), epoch=(s, n), skew=(s, n),
         node_state=(s, n, u), clog=(s, n, n), slow=(s, n, n),
+        hist_word=(s, hcap, 5), hist_t=(s, hcap),
     )
     for name in STATE_FIELDS:
         t = getattr(state, name)
@@ -542,11 +626,20 @@ def _tables(wl: Workload, dev) -> tuple:
     return got
 
 
+def _unwritten_history(state: SimState) -> tuple:
+    """The history columns a run of ``state`` leaves as they are: all
+    four when the state has no history rows (a workload that records
+    nothing), else none."""
+    return HISTORY_COLUMNS if state.hist_word.shape[1] == 0 else ()
+
+
 def fresh_outputs(state: SimState) -> SimState:
     """The run kernel's outputs: ``torch.empty`` for every field it
-    writes; ``seed``, ``slow``, ``skew`` and ``dup`` are the input's."""
+    writes; ``seed``, ``slow``, ``skew`` and ``dup``, and the history
+    columns of a state without history rows, are the input's."""
+    shared = (*SHARED_FIELDS, *_unwritten_history(state))
     return SimState(**{
-        f: getattr(state, f) if f in SHARED_FIELDS else torch.empty_like(getattr(state, f))
+        f: getattr(state, f) if f in shared else torch.empty_like(getattr(state, f))
         for f in STATE_FIELDS
     })
 

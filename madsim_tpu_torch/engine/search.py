@@ -17,11 +17,15 @@ The invariant is a host-side predicate over the final batched state
 over the seed axis, True where the invariant holds. Re-running any
 failing seed, alone or in any batch, reproduces the identical trace.
 
+A ``history_invariant`` judges the recorded operation histories
+(``check.BatchHistory``) instead of, or besides, the final state: the
+``check`` package's detectors are such predicates.
+
 On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
 run and drain kernels), or with ``compact=True`` the compacted runner's
-one stop-at-halt launch. The reference's history, plan and
+one stop-at-halt launch. The reference's device screens, plan and
 observability options raise ``NotImplementedError`` until their engine
-axes are ported (ROADMAP items A7 and A8).
+axes are ported (ROADMAP items A8 and A13).
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ __all__ = ["SearchReport", "make_sweep", "search_seeds"]
 
 # built (init, run) pairs, so that repeated searches over the same
 # workload, config, step budget and path (the repro workflow) reuse
-# them. A workload is named by its factory's name, shape and
-# parameters, as the kernel registry names it.
+# them. A workload is named by its factory's name, shape, parameters
+# and history spec, as the kernel registry names it.
 _RUN_CACHE: dict = {}
 
 
@@ -96,8 +100,8 @@ def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                   compact: bool, dev):
     from .fused import workload_shape
 
-    key = (wl.name, workload_shape(wl), wl.model_params, cfg.hash(),
-           max_steps, compact, str(dev))
+    key = (wl.name, workload_shape(wl), wl.model_params, wl.history,
+           cfg.hash(), max_steps, compact, str(dev))
     if key not in _RUN_CACHE:
         _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev)
     return _RUN_CACHE[key]
@@ -120,16 +124,17 @@ def _library_build_s(wl: Workload, dev) -> float:
 
 @dataclasses.dataclass
 class SearchReport:
-    """Outcome of one batched invariant sweep. The reference's history,
-    coverage, observability and screen fields wait for ROADMAP items A7
-    and A8."""
+    """Outcome of one batched invariant sweep. The reference's coverage,
+    observability and screen fields wait for ROADMAP items A8 and
+    A13."""
 
     workload: str
     config_hash: str
     seeds: np.ndarray  # every seed searched, uint64
     ok: np.ndarray  # (S,) bool: invariant held
     halted: np.ndarray  # (S,) bool
-    # (S,) bool: the event pool dropped events, the verdict is unreliable
+    # (S,) bool: the event pool dropped events or the history buffer
+    # dropped records, the verdict is unreliable
     overflowed: np.ndarray
     traces: np.ndarray  # (S,) uint64 per-seed trace hashes
     # the largest per-seed step coordinate; under compact=True a row's
@@ -140,11 +145,15 @@ class SearchReport:
     build_wall_s: float = 0.0
     # (S,) int64 per-seed halt clock (0 while running)
     halt_times: np.ndarray | None = None
+    # which channel voided which seeds; overflowed is their union. The
+    # history one is None when the workload records nothing
+    pool_overflowed: np.ndarray | None = None
+    hist_dropped: np.ndarray | None = None
 
     @property
     def failing_seeds(self) -> np.ndarray:
         """Violations on seeds whose simulation was trustworthy (no
-        pool overflow, see :attr:`overflowed_seeds`)."""
+        pool or history overflow, see :attr:`overflowed_seeds`)."""
         return self.seeds[~self.ok & ~self.overflowed]
 
     @property
@@ -156,7 +165,9 @@ class SearchReport:
     @property
     def overflowed_seeds(self) -> np.ndarray:
         """Seeds whose event pool dropped events (raise
-        ``cfg.pool_size``): their verdicts are simulator artifacts, not
+        ``cfg.pool_size``) or whose history buffer dropped records
+        (raise ``HistorySpec.capacity`` or the model's
+        ``hist_capacity``): their verdicts are simulator artifacts, not
         evidence."""
         return self.seeds[self.overflowed]
 
@@ -177,11 +188,19 @@ class SearchReport:
                 f"reason breakdown)"
             )
         if self.overflowed.any():
-            pool = int(self.overflowed.sum())
+            pool = (
+                int(np.asarray(self.pool_overflowed).sum())
+                if self.pool_overflowed is not None else 0
+            )
+            hist = (
+                int(np.asarray(self.hist_dropped).sum())
+                if self.hist_dropped is not None else 0
+            )
+            detail = f" (pool {pool}, history {hist})" if pool or hist else ""
             lines.append(
-                f"  WARNING: {pool} seed(s) overflowed the event pool or "
-                f"history buffer (pool {pool}, history 0); excluded (raise "
-                f"pool_size / HistorySpec capacity)"
+                f"  WARNING: {int(self.overflowed.sum())} seed(s) "
+                f"overflowed the event pool or history buffer{detail}; "
+                f"excluded (raise pool_size / HistorySpec capacity)"
             )
         for seed in bad[:limit]:
             lines.append(
@@ -227,7 +246,9 @@ def search_seeds(
     retry=None,
 ) -> SearchReport:
     """Run ``n_seeds`` chaos schedules (``seed_base`` on, or the
-    explicit ``seeds``) and evaluate ``invariant`` on the final states.
+    explicit ``seeds``) and evaluate ``invariant`` on the final states
+    and ``history_invariant`` on the recorded histories (either may be
+    None, not both).
 
     ``require_halt=True`` (default) also counts a seed that never halts
     within ``max_steps`` as a violation: its scenario never reached its
@@ -238,18 +259,28 @@ def search_seeds(
     ``RESULT_FIELDS``, not the raw event pool or the clog and alive
     arrays.
 
+    ``history_invariant`` takes a ``check.BatchHistory`` of every seed
+    and returns an ``(S,)`` boolean array, True where the history is
+    clean. A seed whose history buffer dropped records reaches it as an
+    empty history and is quarantined like a pool overflow.
+
     ``device`` is where the sweep runs, the card unless the caller asks
-    for the CPU. The options after it raise ``NotImplementedError``
-    until their engine axes are ported.
+    for the CPU. ``history_invariant`` aside, the options after it raise
+    ``NotImplementedError`` until their engine axes are ported.
     """
+    if history_invariant is not None and wl.history is None:
+        raise ValueError(
+            f"history_invariant needs operation histories, but workload "
+            f"{wl.name!r} has Workload.history=None"
+        )
     refuse_unported(
-        history_invariant=history_invariant, plan=plan, plan_rows=plan_rows,
+        plan=plan, plan_rows=plan_rows,
         plan_hash=plan_hash, dup_rows=dup_rows, cov_words=cov_words,
         metrics=metrics, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
         latency=latency, device_check=device_check, causal=causal, retry=retry,
     )
-    if invariant is None:
-        raise ValueError("need an invariant")
+    if invariant is None and history_invariant is None:
+        raise ValueError("need an invariant or a history_invariant")
     if seeds is None:
         seeds = np.arange(seed_base, seed_base + n_seeds, dtype=np.uint64)
     else:
@@ -265,13 +296,45 @@ def search_seeds(
         view = {f: getattr(out, f) for f in RESULT_FIELDS}
     else:
         view = _state_view(out)
-    ok = np.asarray(invariant(view), dtype=bool)
-    if ok.shape != (n_seeds,):
-        raise ValueError(
-            f"invariant must return a ({n_seeds},) boolean array, "
-            f"got shape {ok.shape}"
-        )
-    overflowed = view["overflow"] > 0
+    if invariant is not None:
+        ok = np.asarray(invariant(view), dtype=bool)
+        if ok.shape != (n_seeds,):
+            raise ValueError(
+                f"invariant must return a ({n_seeds},) boolean array, "
+                f"got shape {ok.shape}"
+            )
+    else:
+        ok = np.ones((n_seeds,), dtype=bool)
+    pool_overflowed = np.asarray(view["overflow"]) > 0
+    overflowed = pool_overflowed
+    if history_invariant is not None:
+        from ..check.history import BatchHistory
+
+        bh = BatchHistory.from_view(view)
+        hist_over = np.asarray(bh.drop) > 0
+        if hist_over.any():
+            # a seed that dropped records reaches the invariant as an
+            # EMPTY history: its verdict is discarded by the quarantine
+            # below, and a strict per-seed checker must not crash the
+            # sweep on a seed it will never judge
+            bh = BatchHistory(
+                word=bh.word, t=bh.t,
+                count=np.where(hist_over, 0, np.asarray(bh.count)).astype(np.int32),
+                drop=np.zeros_like(np.asarray(bh.drop)),
+            )
+        hok = np.asarray(history_invariant(bh), dtype=bool)
+        if hok.shape != (n_seeds,):
+            raise ValueError(
+                f"history_invariant must return a ({n_seeds},) boolean "
+                f"array, got shape {hok.shape}"
+            )
+        ok = ok & hok
+    hist_dropped = None
+    if wl.history is not None:
+        # dropped records void the verdict whether or not a history
+        # predicate ran
+        hist_dropped = np.asarray(view["hist_drop"]) > 0
+        overflowed = overflowed | hist_dropped
     halted = view["halted"]
     if require_halt:
         ok = ok & halted
@@ -286,4 +349,6 @@ def search_seeds(
         steps=int(view["step"].max(initial=0)),
         build_wall_s=build_wall_s,
         halt_times=view["halt_time"],
+        pool_overflowed=pool_overflowed,
+        hist_dropped=hist_dropped,
     )

@@ -29,6 +29,7 @@ from .core import (
 )
 
 __all__ = [
+    "HISTORY_FIELDS",
     "LAYOUT_FIELDS",
     "DeterminismError",
     "check_determinism",
@@ -37,11 +38,14 @@ __all__ = [
     "compare_traces",
 ]
 
+# operation-history columns: outside the trace hash (the C++ oracle
+# mirrors the hash and knows nothing of histories), so the determinism
+# checks compare them directly
+HISTORY_FIELDS = ("hist_count", "hist_drop", "hist_word", "hist_t")
 # the fields check_layouts holds besides the trace: the reference's list
-# without its history columns, which the port does not carry yet
 LAYOUT_FIELDS = (
     "now", "halted", "halt_time", "msg_count", "overflow", "node_state",
-    "ev_valid",
+    "ev_valid", *HISTORY_FIELDS,
 )
 # check_layouts holds the first this many seeds against the CPU
 CPU_SEEDS = 256
@@ -61,9 +65,13 @@ def _seed_of(a, s: int) -> int:
     return int(_np(a.seed).astype(np.int64).view(np.uint64)[s])
 
 
-def compare_traces(a, b, what: str = "run") -> None:
+def compare_traces(a, b, what: str = "run", history: bool = True) -> None:
     """Raise :class:`DeterminismError` naming the first seed whose
-    traces differ. ``a`` and ``b`` carry ``.trace`` and ``.seed``."""
+    traces differ. ``a`` and ``b`` carry ``.trace`` and ``.seed``.
+
+    With ``history=True`` the operation-history columns are compared
+    too, where both carry them: they are outside the trace hash, so a
+    divergence there would otherwise pass unseen."""
     ta, tb = _np(a.trace), _np(b.trace)
     if ta.shape != tb.shape:
         raise DeterminismError(
@@ -77,6 +85,25 @@ def compare_traces(a, b, what: str = "run") -> None:
             f"(seed {_seed_of(a, s)}) produced trace {int(ta[s]) & (2**64 - 1):#x} "
             f"vs {int(tb[s]) & (2**64 - 1):#x}"
         )
+    if not history:
+        return
+    for field in HISTORY_FIELDS:
+        da, db = getattr(a, field, None), getattr(b, field, None)
+        if da is None or db is None:
+            continue  # compacted results without banked history columns
+        da, db = _np(da), _np(db)
+        if da.shape != db.shape:
+            raise DeterminismError(
+                f"{what}: history field {field!r} shapes differ "
+                f"({da.shape} vs {db.shape}): runs used different "
+                f"HistorySpec capacities"
+            )
+        if not np.array_equal(da, db):
+            s = int(np.nonzero((da != db).reshape(da.shape[0], -1).any(axis=1))[0][0])
+            raise DeterminismError(
+                f"non-determinism detected in {what}: history field "
+                f"{field!r} diverged at seed index {s} (seed {_seed_of(a, s)})"
+            )
 
 
 def compare_fields(a, b, what: str = "run", fields: tuple = LAYOUT_FIELDS) -> None:

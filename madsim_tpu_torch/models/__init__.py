@@ -5,7 +5,9 @@ Every model family of the JAX package is ported: the six
 path), ``microbench``, ``pingpong``, ``broadcast``, ``kvchaos`` (with
 and without the payload arena) and ``raftlog`` — and the five that the
 JAX package runs in its soaks — ``snapshot``, ``twophase``, ``paxos``,
-``leasekv`` and ``shardkv`` (``SOAK_SPECS``).
+``leasekv`` and ``shardkv`` (``SOAK_SPECS``). Seven of them also record
+operation histories (``record=True``), and three carry a planted fault
+only the histories show (``bug=True``): ``RECORD_VARIANTS``.
 """
 
 import functools
@@ -49,4 +51,20 @@ SOAK_SPECS = {
     "paxos": (make_paxos, dict(pool_size=64, loss_p=0.02), 8192, 400),
     "leasekv": (make_leasekv, dict(pool_size=48, loss_p=0.02, **_B2), 4096, 4000),
     "shardkv": (make_shardkv, dict(pool_size=64, loss_p=0.02, **_B2), 4096, 6000),
+}
+
+# The record and bug variants the run kernel carries: workload name ->
+# (the BENCH_SPECS or SOAK_SPECS entry whose shape they run at, the
+# factory's extra keyword arguments)
+RECORD_VARIANTS = {
+    "raft-election-record": ("raft", {"record": True}),
+    "kvchaos-record": ("kvchaos", {"record": True}),
+    "kvchaos-bug": ("kvchaos", {"record": True, "bug": True}),
+    "raftlog-record": ("raftlog", {"record": True}),
+    "twophase-record": ("twophase", {"record": True}),
+    "paxos-record": ("paxos", {"record": True}),
+    "leasekv-record": ("leasekv", {"record": True}),
+    "leasekv-bug": ("leasekv", {"record": True, "bug": True}),
+    "shardkv-record": ("shardkv", {"record": True}),
+    "shardkv-bug": ("shardkv", {"record": True, "bug": True}),
 }

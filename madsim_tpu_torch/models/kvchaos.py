@@ -20,18 +20,25 @@ Replica state:  [last_applied_seq, applies, 0, 0] or
                 [last_applied_seq, applies, v0, v1, 0, 0] with payload
 Client state:   [commits_seen, last_read_rseq, 0, 0(, 0, 0)]
 
-``record=True`` (operation histories), ``bug=True`` (its planted
-lost-write fault) and ``army=True`` (open-loop client load) wait for the
-port of ``HistorySpec`` and of the latency markers (ROADMAP queue A7 and
-A8). The ``read``/``readresp`` handlers are ported all the same: they
-are dispatch slots whatever the mode.
+``record=True`` turns on operation histories: the client records every
+write as an invoke/response pair (version = seq) and, after each commit,
+issues a best-effort READ through the primary and records the committed
+version it returns (the ``read``/``readresp`` handlers; a stale-rseq
+gate keeps reordered responses out of the history). ``bug=True`` plants
+a lost-write fault: a replica's (re)join also makes the primary forget
+its commit point. Later acks re-commit everything, so the final state
+and the durability invariant look healthy, but a read in the regression
+window sees a committed write vanish, which only the history checkers
+(``stale_reads``, ``read_your_writes``) see. ``army=True`` (open-loop
+client load) waits for the latency markers (ROADMAP queue A8).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..engine.core import KIND_KILL, KIND_RESTART, Workload, set_cols, user_kind
+from ..check.history import OK_OK, OK_PENDING, OP_READ, OP_WRITE
+from ..engine.core import KIND_KILL, KIND_RESTART, HistorySpec, Workload, set_cols, user_kind
 
 _H_INIT = 0
 _H_WRITE = 1  # at primary: args = (seq,)
@@ -68,15 +75,23 @@ def make_kvchaos(
     army: bool = False,
     army_probes: int = 1,
 ) -> Workload:
-    """The replicated-KV workload; ``record``, ``bug`` and ``army`` raise
-    ``NotImplementedError`` until their engine surfaces are ported."""
-    if record or bug or army:
+    """The replicated-KV workload; ``record=True`` records the client's
+    write and read history (4 records a write unless ``hist_capacity``
+    says otherwise) and ``bug=True`` plants the lost-write fault.
+    ``army`` raises ``NotImplementedError`` until the latency markers
+    are ported."""
+    if army:
         raise NotImplementedError(
-            "make_kvchaos(record=True, bug=True or army=True) needs "
-            "HistorySpec recording and the latency markers, which the "
-            "torch port does not have yet (ROADMAP queue A7 and A8)"
+            "make_kvchaos(army=True) needs the latency markers and client "
+            "army plans, which the torch port does not have yet (ROADMAP "
+            "queue A8)"
         )
-    del hist_capacity, army_probes  # record and army mode only
+    del army_probes  # army mode only
+    if bug and not record:
+        raise ValueError(
+            "bug=True plants a fault only histories can see; it requires "
+            "record=True (otherwise nothing would ever detect it)"
+        )
     n = 1 + n_replicas + 1
     client = n - 1
     replicas = list(range(1, 1 + n_replicas))
@@ -107,6 +122,8 @@ def make_kvchaos(
         # client kicks off write 1 and its progress-retry timer
         eb.send(PRIMARY, user_kind(_H_WRITE), (1,), when=is_client,
                 pay=_client_value(ctx))
+        if record:  # write 1 is invoked here (retries are the same op)
+            eb.record(OP_WRITE, 0, 1, ok=OK_PENDING, when=is_client)
         eb.after(client_retx_ns, user_kind(_H_CRETX), client, when=is_client)
         # replicas announce themselves, at t=0 and again after restart;
         # retried by a timer until the first write applies
@@ -182,6 +199,15 @@ def make_kvchaos(
         eb.send(PRIMARY, user_kind(_H_WRITE), (seq + 1,), when=fresh & ~done,
                 pay=_client_value(ctx))
         eb.send(PRIMARY, user_kind(_H_FIN), (), when=fresh & done)
+        if record:
+            # close the pending write with its committed version, then
+            # probe it with a READ through the primary (rseq = seq). The
+            # write's response precedes the read's invoke, so the read's
+            # version floor includes it
+            eb.record(OP_WRITE, 0, seq, ok=OK_OK, when=fresh)
+            eb.record(OP_READ, 0, 0, ok=OK_PENDING, when=fresh)
+            eb.send(PRIMARY, user_kind(_H_READ), (seq,), when=fresh)
+            eb.record(OP_WRITE, 0, seq + 1, ok=OK_PENDING, when=fresh & ~done)
         return new, eb.build()
 
     def on_retx(ctx):
@@ -226,6 +252,10 @@ def make_kvchaos(
         bit = 1 << (who - 1)
         new = st.clone()
         new[:, 2] = st[:, 2] & ~bit
+        if bug:
+            # the planted lost-write fault: re-admitting a replica also
+            # forgets the commit point
+            new[:, 0] = 0
         eb = ctx.emits()
         # the retx timer may have died while the mask was full: re-arm
         eb.after(retx_ns, user_kind(_H_RETX), PRIMARY, (st[:, 1],),
@@ -248,13 +278,38 @@ def make_kvchaos(
         return ctx.state, eb.build()
 
     def on_readresp(ctx):
-        # stale-rseq gate: only in-invoke-order responses count
-        rseq = ctx.args[:, 0]
+        # stale-rseq gate: only in-invoke-order responses enter the
+        # history; a gated-out read stays pending, which constrains nothing
+        rseq, committed = ctx.args[:, 0], ctx.args[:, 1]
         st = ctx.state
-        return set_cols(st, rseq > st[:, 1], {1: rseq}), ctx.emits().build()
+        fresh_r = rseq > st[:, 1]
+        eb = ctx.emits()
+        if record:
+            eb.record(OP_READ, 0, committed, ok=OK_OK, when=fresh_r)
+        return set_cols(st, fresh_r, {1: rseq}), eb.build()
+
+    # per write one invoke, one response, one read invoke and at most
+    # one read response: 4 records
+    hist = None
+    if record:
+        # every write adds one write op and at most one read op on key
+        # 0, a single register whose exact check is bounded at 63 ops
+        if 2 * writes > 63:
+            raise ValueError(
+                f"record=True supports at most 31 writes: {writes} "
+                f"writes record up to {2 * writes} ops on the single "
+                f"key, past the 63-op bound of the exact checker "
+                f"(check/linearize.py); lower writes or record "
+                f"without the exact sweep"
+            )
+        cap = 4 * writes if hist_capacity is None else hist_capacity
+        hist = HistorySpec(capacity=cap, max_records=3)
+    name = "kvchaos-payload" if payload else "kvchaos"
+    if record:
+        name += "-bug" if bug else "-record"
 
     return Workload(
-        name="kvchaos-payload" if payload else "kvchaos",
+        name=name,
         n_nodes=n,
         state_width=width,
         handlers=(
@@ -267,6 +322,7 @@ def make_kvchaos(
         payload_words=2 if payload else 0,
         draw_purposes=((_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else ())
         + ((_P_VAL0, _P_VAL1) if payload else ()),
+        history=hist,
         model_params=(
             ("writes", writes),
             ("n_replicas", n_replicas),
@@ -274,5 +330,7 @@ def make_kvchaos(
             ("client_retx_ns", client_retx_ns),
             ("chaos", chaos),
             ("payload", payload),
+            ("record", record),
+            ("bug", bug),
         ),
     )

@@ -1,7 +1,6 @@
 """Lease/watch KV service under chaos (the etcd-shaped batched model).
 
-Port of ``madsim_tpu/models/leasekv.py`` at its default variant (no
-recording, no planted bug, no army): one lease server, ``n_clients``
+Port of ``madsim_tpu/models/leasekv.py`` (no army): one lease server, ``n_clients``
 lease-holding clients and one watcher. Each client grants itself a TTL
 lease at the server, keeps it alive with periodic keepalives, and
 serves puts through it; the server's scan loop expires every lease
@@ -14,10 +13,19 @@ halts when every client has finished its ``puts`` and the server has
 seen each one's FIN. The fused kernel carries the same handlers as
 device code (``csrc/model_leasekv.cuh``).
 
+``record=True`` records the lease lifecycle: the server records every
+grant (``OP_EXPIRE``/``OK_OK``, arg = the granted deadline on its own
+ms clock), every expiry (``OP_EXPIRE``/``OK_FAIL``, arg = its ms clock)
+and every served put (``OP_PUT``), and the watcher records in-order
+stream events and explicit resyncs (``OP_WATCH_EVT``);
+``check.lease_safety`` audits them. ``bug=True`` plants
+grant-after-expiry: a keepalive on an expired lease resurrects it with
+no grant record, so later puts are served through a lease the history
+says is dead.
+
 ``ka_stop_ms`` (client 1 stalls its keepalives) and ``chaos=False`` run
-on the CPU; the kernel carries the default variant only. ``record``,
-``bug`` and ``army`` wait for the port of ``HistorySpec`` and of the
-latency markers (ROADMAP queue A7 and A8).
+on the CPU; the kernel carries the default, record and bug variants.
+``army`` waits for the latency markers (ROADMAP queue A8).
 
 Node layout: [server 0, clients 1..C (lease id = node id), watcher C+1]
 Server state:  [deadline_ms(lease 1) .. deadline_ms(lease C),
@@ -30,9 +38,18 @@ from __future__ import annotations
 
 import torch
 
+from ..check.history import OK_FAIL, OK_OK, OP_USER
 from ..engine.core import (
-    KIND_KILL, KIND_RESTART, Workload, get_col, set_col, set_cols, user_kind,
+    KIND_KILL, KIND_RESTART, HistorySpec, Workload, get_col, set_col,
+    set_cols, user_kind,
 )
+
+# history op codes (check.lease_safety reads these)
+OP_PUT = OP_USER  # serve: key = lease id, arg = put seq
+OP_EXPIRE = OP_USER + 1  # lifecycle: OK_OK grant (arg = deadline_ms),
+#                          OK_FAIL expiry (arg = server local ms)
+OP_WATCH_EVT = OP_USER + 2  # stream: OK_OK in-order event (arg = wseq),
+#                             OK_FAIL explicit resync (arg = new head)
 
 _H_INIT = 0
 _H_GRANT = 1  # at server: args = (lid,)
@@ -84,15 +101,22 @@ def make_leasekv(
     army: bool = False,
     army_probes: int = 1,
 ) -> Workload:
-    """The lease/watch workload; ``record``, ``bug`` and ``army`` raise
-    ``NotImplementedError`` until their engine surfaces are ported."""
-    if record or bug or army:
+    """The lease/watch workload; ``record=True`` records the lease
+    lifecycle and ``bug=True`` plants grant-after-expiry. ``army``
+    raises ``NotImplementedError`` until the latency markers are
+    ported."""
+    if army:
         raise NotImplementedError(
-            "make_leasekv(record=True, bug=True or army=True) needs "
-            "HistorySpec recording and the latency markers, which the "
-            "torch port does not have yet (ROADMAP queue A7 and A8)"
+            "make_leasekv(army=True) needs the latency markers and client "
+            "army plans, which the torch port does not have yet (ROADMAP "
+            "queue A8)"
         )
-    del hist_capacity, army_probes  # record and army mode only
+    del army_probes  # army mode only
+    if bug and not record:
+        raise ValueError(
+            "bug=True plants a fault only histories can see; it requires "
+            "record=True (otherwise nothing would ever detect it)"
+        )
     n = n_clients + 2
     watcher = n_clients + 1
     width = max(n_clients + 3, 4)
@@ -126,6 +150,8 @@ def make_leasekv(
         deadline = _local_ms(ctx.now) + ttl_ms
         new = set_col(ctx.state, lid - 1, deadline)
         eb = ctx.emits()
+        if record:
+            eb.record(OP_EXPIRE, lid, deadline, ok=OK_OK)
         eb.send(lid, user_kind(_H_GRANTED))
         return new, eb.build()
 
@@ -149,6 +175,10 @@ def make_leasekv(
     def on_keepalive(ctx):
         lid = _lid(ctx)
         renew = get_col(ctx.state, lid - 1) > 0
+        if bug:
+            # planted grant-after-expiry: the keepalive resurrects an
+            # expired lease with no grant record
+            renew = torch.ones_like(renew)
         new = set_col(ctx.state, lid - 1, _local_ms(ctx.now) + ttl_ms, renew)
         eb = ctx.emits()
         eb.send(lid, user_kind(_H_KA_REJ), when=~renew)
@@ -176,6 +206,8 @@ def make_leasekv(
             new[:, lid - 1] = torch.where(exp, 0, d)
             seq_i = torch.clamp(wseq + fired + 1, max=WSEQ_CAP)
             eb.send(watcher, user_kind(_H_WEVT), (lid, seq_i), when=exp)
+            if record:
+                eb.record(OP_EXPIRE, lid, now_ms, ok=OK_FAIL, when=exp)
             fired = fired + exp.to(torch.int32)
         new[:, c_wseq] = torch.clamp(wseq + fired, max=WSEQ_CAP)
         new[:, c_exp_cnt] = torch.clamp(st[:, c_exp_cnt] + fired, max=EVT_CAP)
@@ -200,6 +232,8 @@ def make_leasekv(
         seq = ctx.args[:, 1].clamp(0, puts)
         live = get_col(ctx.state, lid - 1) > 0
         eb = ctx.emits()
+        if record:
+            eb.record(OP_PUT, lid, seq, ok=OK_OK, when=live)
         eb.send(lid, user_kind(_H_PUT_OK), (seq,), when=live)
         eb.send(lid, user_kind(_H_PUT_REJ), when=~live)
         return ctx.state, eb.build()
@@ -221,6 +255,7 @@ def make_leasekv(
     def on_wevt(ctx):
         # in-order events append; a sequence gap triggers an explicit
         # resync against the server's stream head
+        lid = ctx.args[:, 0].clamp(0, n_clients)
         seq = ctx.args[:, 1].clamp(0, WSEQ_CAP)
         st = ctx.state
         in_order = seq == st[:, 0] + 1
@@ -230,6 +265,8 @@ def make_leasekv(
         })
         new = set_cols(new, gap, {2: torch.clamp(st[:, 2] + 1, max=EVT_CAP)})
         eb = ctx.emits()
+        if record:
+            eb.record(OP_WATCH_EVT, lid, seq, ok=OK_OK, when=in_order)
         eb.send(SERVER, user_kind(_H_RESYNC), (st[:, 0],), when=gap)
         return new, eb.build()
 
@@ -239,11 +276,28 @@ def make_leasekv(
         return ctx.state, eb.build()
 
     def on_resync_ok(ctx):
+        # adopt the stream head and record the explicit resync marker
         w = ctx.args[:, 0].clamp(0, WSEQ_CAP)
-        return set_cols(ctx.state, w > ctx.state[:, 0], {0: w}), ctx.emits().build()
+        adv = w > ctx.state[:, 0]
+        eb = ctx.emits()
+        if record:
+            eb.record(OP_WATCH_EVT, 0, w, ok=OK_FAIL, when=adv)
+        return set_cols(ctx.state, adv, {0: w}), eb.build()
+
+    hist = None
+    if record:
+        cap = (
+            6 * n_clients * max(puts, 2) + 32
+            if hist_capacity is None else hist_capacity
+        )
+        # widest recording dispatch: the scan records one expiry per lease
+        hist = HistorySpec(capacity=cap, max_records=max(n_clients, 1))
+    name = "leasekv"
+    if record:
+        name += "-bug" if bug else "-record"
 
     return Workload(
-        name="leasekv",
+        name=name,
         n_nodes=n,
         state_width=width,
         handlers=(
@@ -256,6 +310,7 @@ def make_leasekv(
         max_emits=max(n_clients + 1, 6),
         args_words=2,
         draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
+        history=hist,
         model_params=(
             ("n_clients", n_clients),
             ("puts", puts),
@@ -265,5 +320,7 @@ def make_leasekv(
             ("put_ms", put_ms),
             ("ka_stop_ms", ka_stop_ms),
             ("chaos", chaos),
+            ("record", record),
+            ("bug", bug),
         ),
     )

@@ -15,8 +15,11 @@ device code (``csrc/model_paxos.cuh``).
 
 ``durable_acceptors=True`` (acceptor columns 0-2 survive a restart, and
 the kill aims at an acceptor) runs on the CPU; the kernel carries the
-default variant only. ``record=True`` waits for the port of
-``HistorySpec`` (ROADMAP queue A7).
+default variant and ``record=True``. ``record=True`` records an
+``OP_DECIDE`` history event (key 0, arg = the value) when a proposer
+first reaches a choosing majority and when a proposer first adopts a
+decision it hears: ``check.election_safety(h, elect_op=OP_DECIDE)`` is
+then agreement over every decision observed along the run.
 
 Acceptor state row: [promised, accepted_bal, accepted_val, 0, ...]
 Proposer state row: [phase (0 idle 1 prepare 2 accept 3 done), ballot,
@@ -28,7 +31,11 @@ from __future__ import annotations
 
 import torch
 
-from ..engine.core import KIND_KILL, KIND_RESTART, Workload, set_cols, user_kind
+from ..check.history import OP_USER
+from ..engine.core import KIND_KILL, KIND_RESTART, HistorySpec, Workload, set_cols, user_kind
+
+# history op kind (record=True): a decide event
+OP_DECIDE = OP_USER
 
 _H_INIT = 0
 _H_PROPOSE = 1  # at proposer (timer): args = (tseq,)
@@ -67,13 +74,8 @@ def make_paxos(
     durable_acceptors: bool = False,
     record: bool = False,
 ) -> Workload:
-    """The Paxos workload; ``record`` raises ``NotImplementedError``
-    until histories are ported."""
-    if record:
-        raise NotImplementedError(
-            "make_paxos(record=True) needs HistorySpec recording, which "
-            "the torch port does not have yet (ROADMAP queue A7 and A8)"
-        )
+    """The Paxos workload; ``record=True`` records every decision a
+    proposer reaches or first adopts (``OP_DECIDE``)."""
     a, p = n_acceptors, n_proposers
     if durable_acceptors and a < 2:
         raise ValueError(
@@ -182,6 +184,8 @@ def make_paxos(
                     when=chosen & (ctx.node != prop))
         # acceptor 0 is the halt witness
         eb.send(0, user_kind(_H_DECIDED), (st[:, P_VAL],), when=chosen)
+        if record:
+            eb.record(OP_DECIDE, key=0, arg=st[:, P_VAL], when=chosen)
         return new, eb.build()
 
     def on_decided(ctx):
@@ -191,6 +195,11 @@ def make_paxos(
         new = set_cols(st, ctx.node >= a, {P_DEC: dec, P_PHASE: DONE})
         eb = ctx.emits()
         eb.halt(when=ctx.node == 0)
+        if record:
+            # first adoption only (P_DEC was 0): what this proposer now
+            # believes was decided
+            eb.record(OP_DECIDE, key=0, arg=v,
+                      when=(ctx.node >= a) & (st[:, P_DEC] == 0))
         return new, eb.build()
 
     def on_nack(ctx):
@@ -206,7 +215,7 @@ def make_paxos(
         return new, ctx.emits().build()
 
     return Workload(
-        name="paxos",
+        name="paxos-record" if record else "paxos",
         n_nodes=n,
         state_width=10,
         handlers=(
@@ -218,6 +227,9 @@ def make_paxos(
         max_emits=max(a + 2, p + 1, 3),
         args_words=3,
         durable_cols=(A_PROM, A_BAL, A_VAL) if durable_acceptors else None,
+        # decide records: at most one per chosen round and one first
+        # adoption per proposer incarnation; overflow is loud (hist_drop)
+        history=HistorySpec(capacity=32, max_records=1) if record else None,
         draw_purposes=(_P_START, _P_TIMEOUT)
         + ((_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else ()),
         model_params=(

@@ -13,17 +13,21 @@ Handlers take and return whole batches: an ``(S, U)`` state row and
 ``(S, A)`` args in, the new ``(S, U)`` rows and ``(S, K)`` emits out.
 The fused kernel carries the same handlers as device code
 (``csrc/model_raft.cuh``).
+
+``record=True`` records every election win as an instantaneous
+``OP_ELECT`` history event (key = term, arg = winner):
+``check.election_safety(h, elect_op=OP_ELECT)`` is the history analog
+of the one-leader-per-term invariant.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..engine.core import Workload, user_kind
+from ..check.history import OP_USER
+from ..engine.core import HistorySpec, Workload, user_kind
 
-# history op kind of an election win, copied from the JAX package's
-# check/history.py (OP_USER) for record=True
-OP_USER = 16
+# history op kind (record=True): an election win
 OP_ELECT = OP_USER
 
 _H_INIT = 0
@@ -44,14 +48,8 @@ def make_raft(
     timeout_max_ns: int = 300_000_000,
     record: bool = False,
 ) -> Workload:
-    """The election workload. ``record=True`` (operation histories)
-    waits for the port of ``HistorySpec`` (ROADMAP queue A7)."""
-    if record:
-        raise NotImplementedError(
-            "make_raft(record=True) needs HistorySpec recording, which the "
-            "torch port does not have yet (ROADMAP queue A7, histories "
-            "and checkers)"
-        )
+    """The election workload; ``record=True`` records each election
+    win (``OP_ELECT``, key = term, arg = the winner)."""
     majority = n_nodes // 2 + 1
     nodes = list(range(n_nodes))
 
@@ -124,6 +122,8 @@ def make_raft(
             )
         # leader elected: scenario complete (halt_time = election latency)
         eb.halt(when=wins)
+        if record:
+            eb.record(OP_ELECT, key=term, arg=ctx.node, when=wins)
         return new, eb.build()
 
     def on_heartbeat(ctx):
@@ -140,13 +140,16 @@ def make_raft(
         return new, eb.build()
 
     return Workload(
-        name="raft-election",
+        name="raft-election-record" if record else "raft-election",
         n_nodes=n_nodes,
         state_width=6,
         handlers=(on_init, on_timeout, on_reqvote, on_grant, on_heartbeat),
         max_emits=n_nodes + 1,
         args_words=2,
         draw_purposes=(_P_TIMEOUT,),
+        # the run halts at the first win, so concurrent in-flight wins
+        # bound the recorded events at a handful; 8 slots is generous
+        history=HistorySpec(capacity=8, max_records=1) if record else None,
         model_params=(
             ("n_nodes", n_nodes),
             ("timeout_min_ns", timeout_min_ns),

@@ -1,7 +1,8 @@
 """Raft log replication under leader-crash chaos, batched over seeds.
 
 Port of ``madsim_tpu/models/raftlog.py`` at its default variant
-(``chaos=True``, diskless, no recording, no army, no coverage words):
+(``chaos=True``, diskless, no army, no coverage words), with or without
+recording:
 an elected leader proposes ``n_writes`` entries one at a time,
 replicates each with AppendEntries carrying its whole log prefix in the
 event payload, commits it on a majority of acks, and every seed
@@ -12,6 +13,15 @@ its own term (the figure-8 guard). Log entries pack as
 ``value | term << 8`` in one int32 state word. The fused kernel carries
 the same handlers as device code (``csrc/model_raftlog.cuh``).
 
+``record=True`` records every election win (``OP_ELECT``, key = term,
+arg = winner) and, at each leader commit, one ``OP_COMMIT`` event per
+newly committed index (key = index, arg = the entry's value byte), so
+``check.election_safety`` asserts one winner per term and log agreement
+over the whole run. The value byte, not the whole entry: the win-time
+re-stamp rewrites the term byte of the uncommitted suffix, so after a
+leader restart the same value is legitimately re-committed under a
+higher term.
+
 State row: [role, term, voted_term, votes, timer_seq, log_len,
             commit, ack_mask, log_0 .. log_{W-1}]
 """
@@ -20,7 +30,12 @@ from __future__ import annotations
 
 import torch
 
-from ..engine.core import KIND_KILL, KIND_RESTART, Workload, set_cols, user_kind
+from ..check.history import OP_USER
+from ..engine.core import KIND_KILL, KIND_RESTART, HistorySpec, Workload, set_cols, user_kind
+
+# history op kinds (record=True): an election win and a leader commit
+OP_ELECT = OP_USER
+OP_COMMIT = OP_USER + 1
 
 _H_INIT = 0
 _H_TIMEOUT = 1  # args = (timer_seq,)
@@ -56,16 +71,16 @@ def make_raftlog(
     army: bool = False,
     cov_spread: bool = False,
 ) -> Workload:
-    """The log-replication workload. ``durable``, ``record``, ``bug``,
-    ``army`` and ``cov_spread`` raise ``NotImplementedError`` until the
-    sync discipline, histories, latency markers and coverage words are
-    ported (ROADMAP queue A7 and A8)."""
-    if durable or record or bug is not None or army or cov_spread:
+    """The log-replication workload; ``record=True`` records elections
+    and commits. ``durable``, ``bug``, ``army`` and ``cov_spread`` raise
+    ``NotImplementedError`` until the sync discipline, latency markers
+    and coverage words are ported (ROADMAP queue A8)."""
+    if durable or bug is not None or army or cov_spread:
         raise NotImplementedError(
-            "make_raftlog is ported at its default variant only; durable, "
-            "record, bug, army and cov_spread need the sync discipline, "
-            "HistorySpec, the latency markers and coverage words, which "
-            "the torch port does not have yet (ROADMAP queue A7 and A8)"
+            "make_raftlog is ported diskless, with or without record; "
+            "durable, bug, army and cov_spread need the sync discipline, "
+            "the latency markers and coverage words, which the torch "
+            "port does not have yet (ROADMAP queue A8)"
         )
     majority = n_nodes // 2 + 1
     nodes = list(range(n_nodes))
@@ -173,6 +188,8 @@ def make_raftlog(
         _send_appends(ctx, eb, new, term, wins)
         eb.after(propose_ns, user_kind(_H_PROPOSE), ctx.node, (term,), when=wins)
         eb.after(retx_ns, user_kind(_H_RETX), ctx.node, (term,), when=wins)
+        if record:
+            eb.record(OP_ELECT, key=term, arg=ctx.node, when=wins)
         return new, eb.build()
 
     def on_append(ctx):
@@ -215,6 +232,14 @@ def make_raftlog(
         eb = ctx.emits()
         # propagate the commit index immediately
         _send_appends(ctx, eb, new, term, commit_now)
+        if record:
+            # one event per newly committed index (a caught-up leader
+            # may commit several at once), with the entry's value byte
+            for j in range(w):
+                eb.record(
+                    OP_COMMIT, key=j, arg=new[:, LOG0 + j] & 0xFF,
+                    when=commit_now & (j >= st[:, COMMIT]) & (j <= idx),
+                )
         eb.halt(when=commit_now & (new[:, COMMIT] == w))
         return new, eb.build()
 
@@ -247,7 +272,7 @@ def make_raftlog(
         return ctx.state, eb.build()
 
     return Workload(
-        name="raftlog",
+        name="raftlog-record" if record else "raftlog",
         n_nodes=n_nodes,
         state_width=width,
         handlers=(
@@ -258,6 +283,12 @@ def make_raftlog(
         max_emits=n_nodes + 2,
         payload_words=w,
         args_words=4,
+        # a handful of elections a run, and w commit records plus the
+        # re-commits after leader changes; overflow is loud (hist_drop)
+        history=(
+            HistorySpec(capacity=6 * w + 24, max_records=max(w, 1))
+            if record else None
+        ),
         draw_purposes=(_P_TIMEOUT, _P_VALUE)
         + ((_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else ()),
         model_params=(

@@ -1,7 +1,7 @@
 """Sharded KV with key-range migration under chaos, batched over seeds.
 
-Port of ``madsim_tpu/models/shardkv.py`` at its default variant (no
-recording, no planted bug, no army): a configuration epoch maps
+Port of ``madsim_tpu/models/shardkv.py`` (no army): a configuration
+epoch maps
 ``n_shards`` key ranges onto ``n_groups`` replica groups (a primary and
 backups each); a controller rebalances by migrating one shard at a
 time: freeze the shard at its source primary, hand its version to the
@@ -17,8 +17,16 @@ writes are done and ``n_migs`` migrations have committed. The fused
 kernel carries the same handlers as device code
 (``csrc/model_shardkv.cuh``).
 
-``record``, ``bug`` and ``army`` wait for the port of ``HistorySpec``
-and of the latency markers (ROADMAP queue A7 and A8).
+``record=True`` records every committed write (``OP_SHARD_WRITE``, key =
+shard, arg = version) and every ownership install (``OP_SHARD_OWN``,
+key = shard, arg = ``pack_shard_own(epoch, group, version)``), so
+``check.shard_coverage`` can hold both safety clauses: one owner per
+(shard, epoch), and no committed write lost across a migration.
+``bug=True`` plants the lost-shard mutant: the source releases the
+shard the moment it sends the handoff, so a retried handoff re-sends
+version 0 and the destination installs it, dropping committed writes.
+``bug="noidem"`` and ``army`` wait for the latency markers and client
+army plans (ROADMAP queue A8).
 
 Node layout: [controller 0, client 1, then group g's replicas at
 2+g*R .. 2+g*R+R-1 (primary first)]
@@ -35,9 +43,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..check.history import OK_OK, OP_USER, pack_shard_own
 from ..engine.core import (
-    KIND_KILL, KIND_RESTART, Workload, get_col, set_col, set_cols, user_kind,
+    KIND_KILL, KIND_RESTART, HistorySpec, Workload, get_col, set_col,
+    set_cols, user_kind,
 )
+
+# history op codes (check.shard_coverage reads these)
+OP_SHARD_WRITE = OP_USER  # commit: key = shard, arg = version
+OP_SHARD_OWN = OP_USER + 1  # install: key = shard, arg = packed
+#                             (epoch, group, version)
 
 _H_INIT = 0
 _H_PUT_T = 1  # at client: write/progress timer
@@ -99,15 +114,27 @@ def make_shardkv(
     army: bool = False,
     army_probes: int = 1,
 ) -> Workload:
-    """The sharded-KV workload; ``record``, ``bug`` and ``army`` raise
-    ``NotImplementedError`` until their engine surfaces are ported."""
-    if record or bug or army:
-        raise NotImplementedError(
-            "make_shardkv(record=True, bug or army=True) needs HistorySpec "
-            "recording and the latency markers, which the torch port does "
-            "not have yet (ROADMAP queue A7 and A8)"
+    """The sharded-KV workload; ``record=True`` records writes and
+    installs and ``bug=True`` plants the lost-shard mutant. ``army`` and
+    ``bug="noidem"`` raise ``NotImplementedError`` until the latency
+    markers are ported."""
+    if bug not in (False, True, "noidem"):
+        raise ValueError(
+            f"bug must be False, True (lost-shard) or 'noidem' "
+            f"(non-idempotent retried put), got {bug!r}"
         )
-    del hist_capacity, army_probes  # record and army mode only
+    if bug and not record:
+        raise ValueError(
+            "bug plants a fault only histories can see; it requires "
+            "record=True (otherwise nothing would ever detect it)"
+        )
+    if army or bug == "noidem":
+        raise NotImplementedError(
+            "make_shardkv(army=True or bug='noidem') needs the latency "
+            "markers and client army plans, which the torch port does "
+            "not have yet (ROADMAP queue A8)"
+        )
+    del army_probes  # army mode only
     G, R, S = n_groups, group_size, n_shards
     if not 1 <= S <= 8:
         raise ValueError(f"n_shards must be in [1, 8] (packed 4-bit "
@@ -173,6 +200,8 @@ def make_shardkv(
         serving = owned & ~frozen
         fresh = serving & (seq > get_col(st, s))
         eb = ctx.emits()
+        if record:
+            eb.record(OP_SHARD_WRITE, s, seq, ok=OK_OK, when=fresh)
         eb.send(CLIENT, user_kind(_H_WRITE_OK), (s, seq), when=serving)
         eb.send(CLIENT, user_kind(_H_WRONG), (s,), when=~serving)
         # replicate the committed version inside the group
@@ -244,16 +273,25 @@ def make_shardkv(
         return ctx.state, eb.build()
 
     def on_mig_start(ctx):
-        # freeze and hand off; keep the shard until RELEASE
         s = _shard(ctx)
         new_ep = ctx.args[:, 1].clamp(0, EPOCH_CAP)
         dst = ctx.args[:, 2].clamp(0, G - 1)
         st = ctx.state
         owned = get_col(st, S + s) > 0
         eb = ctx.emits()
-        eb.send(_primary_of(dst), user_kind(_H_HANDOFF), (s, new_ep, get_col(st, s)),
-                when=owned)
-        new = set_cols(st, owned, {c_frozen: st[:, c_frozen] | (1 << s)})
+        if bug:
+            # the planted lost-shard mutant: "handoff sent" counts as
+            # "migration done", so the source wipes the shard at once and
+            # answers a retried MIG_START from the wiped state
+            eb.send(_primary_of(dst), user_kind(_H_HANDOFF),
+                    (s, new_ep, get_col(st, s)))
+            new = set_col(st, s, torch.zeros_like(s), owned)
+            new = set_col(new, S + s, torch.zeros_like(s), owned)
+        else:
+            # freeze and hand off; keep the shard until RELEASE
+            eb.send(_primary_of(dst), user_kind(_H_HANDOFF),
+                    (s, new_ep, get_col(st, s)), when=owned)
+            new = set_cols(st, owned, {c_frozen: st[:, c_frozen] | (1 << s)})
         return new, eb.build()
 
     def on_handoff(ctx):
@@ -262,11 +300,19 @@ def make_shardkv(
         v = ctx.args[:, 2].clamp(0, VER_CAP)
         st = ctx.state
         fresh = get_col(st, S + s) < new_ep
+        ver_new = torch.maximum(get_col(st, s), v)
         # installing also clears a stale frozen bit for the shard
-        new = set_col(st, s, torch.maximum(get_col(st, s), v), fresh)
+        new = set_col(st, s, ver_new, fresh)
         new = set_col(new, S + s, new_ep, fresh)
         new = set_cols(new, fresh, {c_frozen: _unfreeze(st, s)})
         eb = ctx.emits()
+        if record:
+            my_group = torch.div(ctx.node - 2, R, rounding_mode="floor")
+            eb.record(
+                OP_SHARD_OWN, s,
+                pack_shard_own(new_ep, my_group, torch.clamp(ver_new, max=VER_CAP)),
+                ok=OK_OK, when=fresh,
+            )
         # always ack (idempotent): a lost ack must not wedge the migration
         eb.send(CONTROLLER, user_kind(_H_INSTALL_ACK), (s, new_ep))
         return new, eb.build()
@@ -328,8 +374,16 @@ def make_shardkv(
     for s in range(S):
         init[2 + (s % G) * R, S + s] = 1  # initial owners at epoch 1
 
+    hist = None
+    if record:
+        cap = 2 * writes + 4 * n_migs + 16 if hist_capacity is None else hist_capacity
+        hist = HistorySpec(capacity=cap, max_records=1)
+    name = "shardkv"
+    if record:
+        name += "-bug" if bug else "-record"
+
     return Workload(
-        name="shardkv",
+        name=name,
         n_nodes=n,
         state_width=width,
         handlers=(
@@ -345,6 +399,7 @@ def make_shardkv(
         # disk-backed servers: every column survives a restart
         durable_cols=tuple(range(width)),
         draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
+        history=hist,
         model_params=(
             ("n_groups", n_groups),
             ("group_size", group_size),
@@ -355,5 +410,7 @@ def make_shardkv(
             ("mig_ms", mig_ms),
             ("retx_ms", retx_ms),
             ("chaos", chaos),
+            ("record", record),
+            ("bug", bug),
         ),
     )

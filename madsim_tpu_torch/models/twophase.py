@@ -14,8 +14,10 @@ halts when the last transaction is decided and acked by every
 participant. The fused kernel carries the same handlers as device code
 (``csrc/model_twophase.cuh``).
 
-``record=True`` (the ``OP_DECIDE`` history) waits for the port of
-``HistorySpec`` (ROADMAP queue A7).
+``record=True`` records one ``OP_DECIDE`` history event (key = txn,
+arg = commit) at the coordinator when the votes resolve and one at each
+participant that adopts a decision, so ``check.election_safety(h,
+elect_op=OP_DECIDE)`` asserts atomicity over the whole run.
 
 Coordinator state: [cur_txn, phase (0 prepare, 1 commit, 2 abort),
                     votes_mask, ack_mask, n_commit, n_abort]
@@ -27,7 +29,11 @@ from __future__ import annotations
 
 import torch
 
-from ..engine.core import KIND_KILL, KIND_RESTART, Workload, set_cols, user_kind
+from ..check.history import OP_USER
+from ..engine.core import KIND_KILL, KIND_RESTART, HistorySpec, Workload, set_cols, user_kind
+
+# history op kind (record=True): a decide event per transaction
+OP_DECIDE = OP_USER
 
 COORD = 0
 
@@ -57,13 +63,8 @@ def make_twophase(
     revive_max_ns: int = 400_000_000,
     record: bool = False,
 ) -> Workload:
-    """The two-phase-commit workload; ``record`` raises
-    ``NotImplementedError`` until histories are ported."""
-    if record:
-        raise NotImplementedError(
-            "make_twophase(record=True) needs HistorySpec recording, which "
-            "the torch port does not have yet (ROADMAP queue A7 and A8)"
-        )
+    """The two-phase-commit workload; ``record=True`` records every
+    decision taken or adopted (``OP_DECIDE``)."""
     n = 1 + n_parts
     parts = range(1, n)
     full_mask = (1 << n_parts) - 1
@@ -122,6 +123,9 @@ def make_twophase(
         new[:, 3] = torch.where(decide, 0, st[:, 3])
         eb = ctx.emits()
         _bcast(eb, _H_DECISION, (txn, (phase == 1).to(torch.int32)), decide, 0)
+        if record:
+            eb.record(OP_DECIDE, key=txn, arg=(phase == 1).to(torch.int32),
+                      when=decide)
         return new, eb.build()
 
     def on_decision(ctx):
@@ -135,6 +139,8 @@ def make_twophase(
         new[:, 4] = torch.where(fresh, commit, st[:, 4])
         eb = ctx.emits()
         eb.send(COORD, user_kind(_H_ACK), (txn, ctx.node))
+        if record:
+            eb.record(OP_DECIDE, key=txn, arg=commit, when=fresh)
         return new, eb.build()
 
     def on_ack(ctx):
@@ -196,7 +202,7 @@ def make_twophase(
         return ctx.state, eb.build()
 
     return Workload(
-        name="twophase",
+        name="twophase-record" if record else "twophase",
         n_nodes=n,
         state_width=6,
         handlers=(
@@ -207,6 +213,13 @@ def make_twophase(
         # retx + hello + hretx + 3 chaos rows)
         max_emits=max(2 * n_parts + 1, n_parts + 6, 6),
         args_words=3,
+        # one coordinator decide and one adoption per participant per
+        # txn, and re-adoptions after a restart wipes a participant;
+        # overflow is loud (hist_drop)
+        history=(
+            HistorySpec(capacity=txns * (1 + n_parts) + 16, max_records=1)
+            if record else None
+        ),
         model_params=(
             ("txns", txns),
             ("n_parts", n_parts),

@@ -77,10 +77,12 @@ CHAOS3_MODEL = r"""
 #include "engine_step.cuh"
 struct Chaos3Model {
   static constexpr int N = 3, U = 3, A = 2, W = 0, K = 12, H = 3;
+  static constexpr int R = 0;
   struct Params {};
   static Params params(const int64_t*) { return Params{}; }
   static MADSIM_HD void handle(int32_t h, const madsim::Ctx<Chaos3Model>& c,
-                     const Params&, int32_t* ns, madsim::Emit<A, W>* em) {
+                     const Params&, int32_t* ns, madsim::Emit<A, W>* em,
+                     madsim::Rec*) {
     using namespace madsim;
     const int32_t tick = FIRST_USER_KIND + 1, ping = FIRST_USER_KIND + 2;
     const int32_t* st = c.state;

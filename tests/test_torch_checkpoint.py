@@ -2,7 +2,8 @@
 
 A file the JAX package saves loads into the port, and the port's resume
 equals its uninterrupted run; a file the port saves loads into the JAX
-package, and the JAX resume equals the JAX uninterrupted run. Each
+package, and the JAX resume equals the JAX uninterrupted run; a
+recording workload's history columns travel too (leasekv-record). Each
 refusal (another config, int32 event times, a non-empty entry for a
 field the port does not carry) raises with its message. Exact equality.
 """
@@ -17,12 +18,15 @@ import jax
 import madsim_tpu.engine as je
 from madsim_tpu.engine.core import POOL_INDEX_STATE_FIELDS
 from madsim_tpu.models import make_kvchaos as j_kvchaos
+from madsim_tpu.models import make_leasekv as j_leasekv
 from madsim_tpu.models import make_raft as j_raft
 from madsim_tpu.models import make_shardkv as j_shardkv
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine.checkpoint import load, save
 from madsim_tpu_torch.engine.convert import FOREIGN_FIELDS
-from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS, make_kvchaos, make_raft, make_shardkv
+from madsim_tpu_torch.models import (
+    BENCH_SPECS, SOAK_SPECS, make_kvchaos, make_leasekv, make_raft, make_shardkv,
+)
 
 from _torch_parity import assert_same_state, jax_fields
 
@@ -32,6 +36,8 @@ CASES = {
     "raft": (j_raft, make_raft, BENCH_SPECS["raft"][1]),
     "kvchaos-payload": (lambda: j_kvchaos(payload=True), lambda: make_kvchaos(payload=True),
                         BENCH_SPECS["kvchaos"][1]),
+    "leasekv-record": (lambda: j_leasekv(record=True), lambda: make_leasekv(record=True),
+                       SOAK_SPECS["leasekv"][1]),
 }
 
 
@@ -59,6 +65,8 @@ def test_reference_file_resumes_in_the_port(case, tmp_path):
     whole = tcore.make_run(wl, cfg, 2 * SPLIT)(tcore.make_init(wl, cfg, device="cpu")(_seeds()))
     for f in tcore.STATE_FIELDS:
         assert getattr(resumed, f).equal(getattr(whole, f)), f
+    if _name.endswith("-record"):
+        assert mid.hist_count.min() > 0 and resumed.hist_count.max() > mid.hist_count.max()
 
 
 def test_port_file_resumes_in_the_reference(case, tmp_path):
@@ -137,8 +145,8 @@ def test_refuses_a_time32_checkpoint(tmp_path):
 
 @pytest.mark.parametrize(
     "field,value,item",
-    [("hist_count", np.array([0, 3, 0, 0], np.int32), "A7"),
-     ("hist_word", np.zeros((4, 2, 5), np.int32), "A7"),
+    [("tl_count", np.array([0, 3, 0, 0], np.int32), "A8"),
+     ("disk", np.zeros((4, 2, 6), np.int32), "A8"),
      ("cov", np.zeros((4, 1), np.uint32), "A8"),
      ("rt_done", np.zeros((4, 1), np.bool_), "A8")],
 )

@@ -133,11 +133,13 @@ def test_arguments_are_validated():
         make_run_compacted(wl, cfg, 10, min_size=0)
     with pytest.raises(ValueError, match="unknown result field"):
         make_run_compacted(wl, cfg, 10, fields=("now", "bogus"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_run_compacted(wl, cfg, 10, fields=("hist_count",))
+    # the history columns are banked now (zero-size for raft)
+    make_run_compacted(wl, cfg, 10, fields=("hist_count",))
+    with pytest.raises(NotImplementedError, match="not in the torch port's SimState"):
+        make_run_compacted(wl, cfg, 10, fields=("cov",))
     with pytest.raises(NotImplementedError, match="A8"):
         make_run_compacted(wl, cfg, 10, cov_words=2)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A13"):
         make_run_compacted(wl, cfg, 10, hist_screen=object())
 
 

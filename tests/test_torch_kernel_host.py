@@ -23,7 +23,9 @@ import torch
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
 from madsim_tpu_torch.engine.convert import state_to_numpy
-from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS, make_kvchaos, make_raft
+from madsim_tpu_torch.models import (
+    BENCH_SPECS, RECORD_VARIANTS, SOAK_SPECS, make_kvchaos, make_raft,
+)
 
 from _torch_chaos3 import CHAOS3_MODEL, CHAOS_CFG, chaos3_spec, chaos3_workload
 from _torch_host import build_host_kernel, host_drain, host_launch, host_run
@@ -185,6 +187,7 @@ def test_registry_shapes_equal_the_factories():
     factory parameters."""
     specs = {**BENCH_SPECS, **SOAK_SPECS}
     made = [f() for f, *_ in specs.values()] + [make_kvchaos(payload=True)]
+    made += [specs[n][0](**kw) for n, kw in RECORD_VARIANTS.values()]
     assert sorted(w.name for w in made) == sorted(fused.MODELS)
     for wl in made:
         spec = fused.kernel_model(wl)
@@ -195,7 +198,8 @@ def test_registry_shapes_equal_the_factories():
             params[k] == v for k, v in spec.fixed
         )
         words = fused.config_words(wl, tcore.EngineConfig())
-        assert len(words) == 8 + len(spec.words)
+        assert len(words) == 9 + len(spec.words)
+        assert words[8] == (wl.history.capacity if wl.history else 0)
     bench_pools = {f().name: kw["pool_size"] for f, kw, _n, _c in specs.values()}
     for name, pool in bench_pools.items():
         assert pool in fused.MODELS[name].pools, name
@@ -232,6 +236,12 @@ CARD_CASES = {
         lambda: make_kvchaos(payload=True), BENCH_SPECS["kvchaos"][1], 4096,
         BENCH_SPECS["kvchaos"][3],
     ),
+    # the record and bug variants at their family's shape
+    **{
+        k: ((lambda f=f, x=x: f(**x)), kw, min(n, 4096), cap)
+        for k, (name, x) in RECORD_VARIANTS.items()
+        for f, kw, n, cap in [{**BENCH_SPECS, **SOAK_SPECS}[name]]
+    },
 }
 
 
@@ -295,6 +305,8 @@ def test_cuda_kernel_matches_plain_step_per_model(name):
     for field in got:
         np.testing.assert_array_equal(got[field], want[field], err_msg=field)
     assert got["halted"].all() and got["overflow"].sum() == 0
+    if wl.history is not None:
+        assert got["hist_count"].max() > 0 and got["hist_drop"].sum() == 0
     first_halt = int(fused.halt_counts(wl, cfg, cap, st).min())
     mid = max(1, min(int(got["step"][0]) // 3, first_halt - 1))
     got = state_to_numpy(tcore.make_run(wl, cfg, mid)(st))
@@ -420,5 +432,6 @@ def test_cuda_budget_zero_copies_the_state():
     for f in tcore.STATE_FIELDS:
         assert torch.equal(getattr(out, f), getattr(st, f)), f
         if getattr(st, f).numel():
-            shared = f in fused.SHARED_FIELDS
+            # raft records nothing: its history columns are the input's
+            shared = f in fused.SHARED_FIELDS or f in fused.HISTORY_COLUMNS
             assert (getattr(out, f).data_ptr() == getattr(st, f).data_ptr()) == shared, f

@@ -99,9 +99,12 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
                               SEEDS[:48], n_steps, until_halted)
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A7 and A8"):
-        t_make(record=True)
+def test_record_run_matches_reference_per_field():
+    """paxos-record: every decision reached or first adopted is an
+    OP_DECIDE record, all 32 history rows equal."""
+    t = run_both(j_make(record=True), t_make(record=True), KW, SEEDS[:32], CAP,
+                 until_halted=True)
+    assert t["halted"].all() and (t["hist_count"] >= 1).all()
 
 
 @pytest.mark.parametrize(

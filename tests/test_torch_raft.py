@@ -24,7 +24,7 @@ from madsim_tpu_torch.engine.convert import state_to_numpy
 from madsim_tpu_torch.models import BENCH_SPECS as T_SPECS
 from madsim_tpu_torch.models import make_raft as t_raft
 
-from _torch_parity import assert_same_state
+from _torch_parity import assert_same_state, run_both
 
 BENCH_KW = J_SPECS["raft"][1]
 ENTRY_KW = dict(pool_size=128, loss_p=0.02)
@@ -60,9 +60,14 @@ def test_bench_spec_and_workload_equal_reference():
     np.testing.assert_array_equal(tw.volatile_mask(), jw.volatile_mask())
 
 
-def test_record_waits_for_history_port():
-    with pytest.raises(NotImplementedError, match="HistorySpec"):
-        t_raft(record=True)
+def test_record_run_matches_reference_per_field():
+    """raft-election-record: every election win is an OP_ELECT record
+    (key = term, arg = the winner), all eight history rows equal."""
+    _f, _kw, _n, cap = T_SPECS["raft"]
+    t = run_both(j_raft(record=True), t_raft(record=True), BENCH_KW,
+                 np.arange(64, dtype=np.uint64), cap, until_halted=True)
+    assert t["halted"].all() and (t["hist_count"] >= 1).all()
+    assert t["hist_word"].shape == (64, 8, 5) and (t["hist_drop"] == 0).all()
 
 
 @pytest.mark.parametrize("n_steps", [1, 30])

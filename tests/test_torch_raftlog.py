@@ -79,13 +79,21 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(durable=True), dict(record=True), dict(durable=True, bug="nosync"),
-     dict(army=True), dict(cov_spread=True)],
-    ids=["durable", "record", "nosync", "army", "cov_spread"],
+    [dict(durable=True), dict(durable=True, bug="nosync"), dict(army=True),
+     dict(cov_spread=True)],
+    ids=["durable", "nosync", "army", "cov_spread"],
 )
 def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A7 and A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A8"):
         t_make(**kw)
+
+
+def test_record_run_matches_reference_per_field():
+    """raftlog-record: elections and per-index commits, all 48 history
+    rows equal."""
+    t = run_both(j_make(record=True), t_make(record=True), KW, SEEDS[:16], CAP,
+                 until_halted=True)
+    assert t["hist_word"].shape == (16, 48, 5) and (t["hist_count"] >= 1).all()
 
 
 @pytest.mark.parametrize("kw", [dict(chaos=False), dict(n_writes=3)],

@@ -131,7 +131,7 @@ def test_sweep_returns_the_final_state():
 
 @pytest.mark.parametrize(
     "option,item",
-    [("history_invariant", "A7"), ("device_check", "A7"), ("plan", "A8"),
+    [("device_check", "A13"), ("plan", "A8"),
      ("plan_rows", "A8"), ("dup_rows", "A8"), ("cov_words", "A8"), ("metrics", "A8"),
      ("timeline_cap", "A8"), ("latency", "A8"), ("causal", "A8"), ("retry", "A8")],
 )

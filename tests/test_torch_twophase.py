@@ -92,9 +92,14 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
     assert want["epoch"].max() >= 1
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A7 and A8"):
-        t_make(record=True)
+def test_record_run_matches_reference_per_field():
+    """twophase-record: every decision taken or adopted is an OP_DECIDE
+    record (key = txn), all history rows equal."""
+    t = run_both(j_make(txns=TXNS, record=True), t_make(txns=TXNS, record=True), KW,
+                 SEEDS[:32], CAP, until_halted=True)
+    _atomic(t)
+    # the coordinator and the four participants decide every txn
+    assert (t["hist_count"] >= TXNS * 5).all()
 
 
 @pytest.mark.parametrize("kw", [dict(chaos=False), dict(n_parts=3)],

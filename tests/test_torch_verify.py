@@ -18,6 +18,7 @@ from madsim_tpu.runtime.rand import DeterminismError as JDeterminismError
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine.convert import state_to_numpy
 from madsim_tpu_torch.engine.verify import (
+    HISTORY_FIELDS,
     LAYOUT_FIELDS,
     DeterminismError,
     check_determinism,
@@ -31,8 +32,8 @@ RAFT_KW = BENCH_SPECS["raft"][1]
 SEEDS = np.arange(32, dtype=np.uint64) * np.uint64(101)
 
 
-def _raft_run(n_steps=60):
-    wl, cfg = make_raft(), tcore.EngineConfig(**RAFT_KW)
+def _raft_run(n_steps=60, record=False):
+    wl, cfg = make_raft(record=record), tcore.EngineConfig(**RAFT_KW)
     return tcore.make_run(wl, cfg, n_steps)(tcore.make_init(wl, cfg, device="cpu")(SEEDS))
 
 
@@ -68,7 +69,9 @@ def test_check_determinism_catches_a_handler_with_hidden_state():
 
 @pytest.mark.parametrize("field", LAYOUT_FIELDS)
 def test_compare_fields_names_a_corrupted_field(field):
-    a = _raft_run()
+    # the history columns are corrupted in a run that records
+    history = field in HISTORY_FIELDS
+    a = _raft_run(record=history)
     b = tcore.SimState(**{f: getattr(a, f).clone() for f in tcore.STATE_FIELDS})
     col = getattr(b, field)
     col[5] = ~col[5] if col.dtype == torch.bool else col[5] + 1
@@ -76,7 +79,10 @@ def test_compare_fields_names_a_corrupted_field(field):
     with pytest.raises(DeterminismError, match=rf"x: field '{field}' diverged at seed index 5 "
                                                rf"\(seed {int(SEEDS[5])}\)"):
         compare_fields(a, b, what="x")
-    compare_traces(a, b, what="x")  # the trace does not see it
+    compare_traces(a, b, what="x", history=False)  # the trace does not see it
+    if history:
+        with pytest.raises(DeterminismError, match=rf"history field '{field}' diverged"):
+            compare_traces(a, b, what="x")
 
 
 def test_compare_traces_words_as_the_reference():
