@@ -70,7 +70,19 @@ plain eager step:
 32. a checkpoint of leasekv-record at 4,096 seeds after 150 steps,
    saved, loaded and run 450 more, equal in every field (the history
    rows included) to the 600-step run;
-33. one JSON line describing each kernel, with its launches on every
+33. (inside phases 21-30) each record library's history columns judged
+   on the card by its family's screens (``check/device.py``), the
+   verdicts equal to the numpy checkers on the host copy; the screens'
+   and the fold's times beside the run kernel's, the host path's (copy
+   and numpy) and the bytes each path moves to the host;
+34. phase 31's hunt with ``device_check`` in place of the history
+   invariant, lockstep and compacted: both flag phase 31's seeds, every
+   flagged history fails the exact checker; the screened compacted run
+   folds losslessly and keeps the flagged seeds' columns verbatim;
+35. the slice's main path: raft-record at 65,536 seeds searched with
+   ``device_check=election_safety(OP_ELECT)``, lockstep and compacted,
+   each timed, the verdicts equal to the host path's;
+36. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after), then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
@@ -167,6 +179,22 @@ def record_phases() -> tuple:
                  for name, (spec_name, kw) in RECORD_VARIANTS.items())
 
 
+def family_screens(spec_name: str) -> tuple:
+    """The history screens of a record family (phases 33-35)."""
+    from madsim_tpu_torch.check import device as dc
+    from madsim_tpu_torch.models import leasekv, paxos, raft, raftlog, shardkv, twophase
+
+    return {
+        "raft": (dc.election_safety(raft.OP_ELECT),),
+        "raftlog": (dc.election_safety(raftlog.OP_ELECT),),
+        "twophase": (dc.election_safety(twophase.OP_DECIDE),),
+        "paxos": (dc.election_safety(paxos.OP_DECIDE),),
+        "kvchaos": (dc.stale_reads(), dc.read_your_writes(), dc.monotonic_reads()),
+        "leasekv": (dc.lease_safety(leasekv.OP_PUT, leasekv.OP_EXPIRE),),
+        "shardkv": (dc.shard_coverage(shardkv.OP_SHARD_OWN, shardkv.OP_SHARD_WRITE),),
+    }[spec_name]
+
+
 def log(*a) -> None:
     print(*a, flush=True)
 
@@ -229,6 +257,23 @@ def time_ms(fn, repeats: int, device) -> list:
             fn()
             out.append((time.perf_counter() - t) * 1e3)
     return out
+
+
+def host_ms(fn, repeats: int) -> tuple:
+    """``(fn()'s last result, per-call milliseconds)`` on the host clock
+    between two synchronisations, for calls that end on the host."""
+    out, ms = None, []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return out, ms
+
+
+def spread(ms: list) -> str:
+    return f"{statistics.median(ms):.4f} [{min(ms):.4f}, {max(ms):.4f}]"
 
 
 def state_bytes(st) -> int:
@@ -744,9 +789,10 @@ def checkpoint_phase(device, paths: dict) -> None:
     log(f"  checkpoint file {size} bytes; launches {counts}")
 
 
-def history_search_phase(device, paths: dict) -> None:
+def history_search_phase(device, paths: dict) -> np.ndarray:
     """Phase 31: the lost-write hunt over recorded histories on the card,
-    compact off and on, against the plain step's run on the card."""
+    compact off and on, against the plain step's run on the card.
+    Returns the failing seeds."""
     from madsim_tpu_torch.check import BatchHistory, check_kv, read_your_writes, stale_reads
     from madsim_tpu_torch.engine import (
         EngineConfig, make_init, make_run_while_plain, search_seeds,
@@ -808,6 +854,168 @@ def history_search_phase(device, paths: dict) -> None:
         f"{bad.size} ({bad[:32].tolist()}), the same seeds as the plain step's run on the "
         f"card ({plain_ms[0]:.1f} ms) "
         f"and the exact checker; compact on and off agree; launches {paths[key]}")
+    return bad
+
+
+def screen_phase(device, key: str, screens: tuple, out, run_ms: float) -> dict:
+    """Phase 33: a record library's final history columns judged on the
+    card by ``screens``, against the numpy checkers on the host copy;
+    the screens' (to the packed verdict words) and the fold's times by
+    CUDA events beside the run kernel's, the host path's (copy the four
+    columns, then numpy) on the host clock, and the bytes each moves to
+    the host: the words and the flagged seeds' two history columns, or
+    the four columns."""
+    from madsim_tpu_torch.check import BatchHistory
+    from madsim_tpu_torch.check.device import (
+        fold_verified, pack_verdicts, screen_ok, screens_invariant, unpack_verdicts,
+    )
+
+    cols = [out.hist_word, out.hist_t, out.hist_count, out.hist_drop]
+    n, h_dim = out.hist_word.shape[:2]
+    inv = screens_invariant(screens)
+
+    def screen():
+        return pack_verdicts(screen_ok(screens, *cols))
+
+    words = screen()
+    if words.device.type != "cuda":
+        raise AssertionError(f"{key}: the screens left the card")
+    ok = unpack_verdicts(words, n)
+    host, host_path_ms = host_ms(lambda: inv(BatchHistory(*(c.cpu().numpy() for c in cols))), REPEATS)
+    if not np.array_equal(ok, host):
+        raise AssertionError(f"{key}: the screens flag {np.nonzero(~ok)[0].tolist()[:16]}, "
+                             f"the host checkers {np.nonzero(~host)[0].tolist()[:16]}")
+    screen_ms = time_ms(screen, REPEATS, device)
+    ok_t = screen_ok(screens, *cols)
+    word2, _t2, count2, fold = fold_verified(*cols, ok_t)
+    if not torch.equal(count2 + fold, out.hist_count):
+        raise AssertionError(f"{key}: the fold lost records")
+    fold_ms = time_ms(lambda: fold_verified(*cols, ok_t), REPEATS, device)
+    n_flag = int((~ok).sum())
+    row_bytes = h_dim * (5 * 4 + 8)
+    dev_bytes = words.nbytes + n_flag * row_bytes
+    host_bytes = sum(c.nbytes for c in cols)
+    log(f"  [33] {key}: screens {inv.__name__} flag {n_flag} of {n} seeds "
+        f"({np.nonzero(~ok)[0][:8].tolist()}), equal to the host checkers; "
+        f"{int(fold.sum())} records fold out of {int(out.hist_count.sum())}")
+    log(f"    screens ms {spread(screen_ms)}, fold ms {spread(fold_ms)}, beside the run "
+        f"kernel's {run_ms:.4f} ms; host path (copy + numpy) ms {spread(host_path_ms)}")
+    log(f"    bytes to the host: {dev_bytes} (verdict words + flagged rows) against "
+        f"{host_bytes} (the four history columns)")
+    return dict(
+        screen_ms=statistics.median(screen_ms), screen_ms_min=min(screen_ms),
+        screen_ms_max=max(screen_ms), fold_ms=statistics.median(fold_ms),
+        fold_ms_min=min(fold_ms), fold_ms_max=max(fold_ms),
+        host_path_ms=statistics.median(host_path_ms), host_path_ms_min=min(host_path_ms),
+        host_path_ms_max=max(host_path_ms), screen_bytes=dev_bytes, host_path_bytes=host_bytes,
+        flagged=n_flag,
+    )
+
+
+def device_check_phase(device, paths: dict, want: np.ndarray) -> None:
+    """Phase 34: phase 31's hunt with ``device_check``, lockstep and
+    compacted; both must flag phase 31's seeds ``want``."""
+    from madsim_tpu_torch.check import check_kv
+    from madsim_tpu_torch.check.device import read_your_writes, screens_invariant, stale_reads
+    from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while, search_seeds
+    from madsim_tpu_torch.engine.compact import make_run_compacted
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_kvchaos
+
+    wl, cfg = make_kvchaos(writes=KV_WRITES, record=True, bug=True), EngineConfig(**HIST_SEARCH_KW)
+    n, cap, key = HIST_SEARCH_SEEDS, HIST_SEARCH_CAP, kernel_model(wl).key
+    screens = (stale_reads(), read_your_writes())
+    log(f"[34] device-checked history search {wl.name}: {n} seeds, cap {cap}, screens "
+        f"stale_reads & read_your_writes on the card")
+    reps, times = {}, {}
+    for compact, launches in ((False, [1, 1]), (True, [1, 0])):
+        def search(compact=compact):
+            return search_seeds(wl, cfg, None, n_seeds=n, max_steps=cap, device_check=screens,
+                                compact=compact, device=device)
+
+        rep, counts = path_launches(search)
+        name = "search_device_check_compact" if compact else "search_device_check"
+        paths.setdefault(key, {})[name] = run_drain(counts, key)
+        if run_drain(counts, key) != launches or len(counts) != sum(launches):
+            raise AssertionError(f"{name} launched {counts}")
+        if not (np.array_equal(rep.failing_seeds, want)
+                and np.array_equal(rep.seeds[rep.flagged_idx], want)):
+            raise AssertionError(f"{name}: flags {rep.failing_seeds.tolist()}, phase 31 "
+                                 f"{want.tolist()}")
+        fh = rep.flagged_history
+        for i in range(len(fh)):
+            if check_kv(fh.ops(i)).ok:
+                raise AssertionError(f"{name}: flagged seed {int(rep.flagged_idx[i])} is linearizable")
+        _r, times[name] = host_ms(search, REPEATS)
+        reps[compact] = rep
+        log("  " + rep.banner(limit=2).replace("\n", "\n  "))
+        log(f"  {name}: flags phase 31's {want.size} seeds, each failing the exact checker; "
+            f"launches {counts}; ms {spread(times[name])}")
+    if not np.array_equal(reps[False].verdict_words, reps[True].verdict_words):
+        raise AssertionError("device_check: lockstep and compact verdict words differ")
+    _r, inv_ms = host_ms(lambda: search_seeds(
+        wl, cfg, None, n_seeds=n, max_steps=cap, history_invariant=screens_invariant(screens),
+        device=device), REPEATS)
+    log(f"  the same search with history_invariant (host numpy): ms {spread(inv_ms)}")
+    # the screened compacted run against the lockstep columns
+    st = make_init(wl, cfg, device=device)(np.arange(n, dtype=np.uint64))
+    lock = make_run_while(wl, cfg, cap)(st)
+    folded = make_run_compacted(wl, cfg, cap, hist_screen=screens)(st)
+    flag = ~folded.hist_ok
+    if not np.array_equal(folded.hist_count + folded.hist_fold, lock.hist_count.cpu().numpy()):
+        raise AssertionError("hist_screen: hist_count + hist_fold differs from the lockstep count")
+    for f in ("hist_word", "hist_t"):
+        if not np.array_equal(getattr(folded, f)[flag], getattr(lock, f).cpu().numpy()[flag]):
+            raise AssertionError(f"hist_screen: a flagged seed's {f} is not verbatim")
+    if not np.array_equal(np.nonzero(flag)[0], reps[False].flagged_idx):
+        raise AssertionError("hist_screen: the banked verdicts differ from the lockstep screens")
+    log(f"  hist_screen: {int(folded.hist_fold.sum())} records folded out of "
+        f"{int(lock.hist_count.sum())}, {int(folded.hist_count.max())} rows copied a seed of "
+        f"{lock.hist_word.shape[1]}; count + fold equals the lockstep count, the {int(flag.sum())} "
+        f"flagged seeds verbatim")
+
+
+def main_path_screen_phase(device, paths: dict, extra: dict) -> None:
+    """Phase 35: raft-record at 65,536 seeds, searched with its election
+    screen on the card, lockstep and compacted, each timed and held
+    against the host path's verdicts."""
+    from madsim_tpu_torch.check.device import screens_invariant
+    from madsim_tpu_torch.engine import search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    wl, cfg, n, cap = spec_of("raft", {"record": True})
+    key, screens = kernel_model(wl).key, family_screens("raft")
+    log(f"[35] main path with its screen: {wl.name}, {n} seeds, cap {cap}, "
+        f"device_check {screens_invariant(screens).__name__}")
+
+    def host_path():
+        return search_seeds(wl, cfg, None, n_seeds=n, max_steps=cap,
+                            history_invariant=screens_invariant(screens), device=device)
+
+    host, inv_ms = host_ms(host_path, REPEATS)
+    out = {"history_invariant_ms": inv_ms}
+    for compact, launches in ((False, [1, 1]), (True, [1, 0])):
+        def search(compact=compact):
+            return search_seeds(wl, cfg, None, n_seeds=n, max_steps=cap, device_check=screens,
+                                compact=compact, device=device)
+
+        rep, counts = path_launches(search)
+        name = "search_device_check_compact" if compact else "search_device_check"
+        paths.setdefault(key, {})[name] = run_drain(counts, key)
+        if run_drain(counts, key) != launches or len(counts) != sum(launches):
+            raise AssertionError(f"{name} launched {counts}")
+        for attr in ("ok", "failing_seeds", "traces", "halted"):
+            if not np.array_equal(getattr(rep, attr), getattr(host, attr)):
+                raise AssertionError(f"{name}: {attr} differs from the host path")
+        if not np.array_equal(rep.flagged_idx, np.nonzero(~host.ok & host.halted)[0]):
+            raise AssertionError(f"{name}: flagged seeds differ from the host path")
+        _r, out[f"{name}_ms"] = host_ms(search, REPEATS)
+        log("  " + rep.banner(limit=2).replace("\n", "\n  ") + f"\n  launches {counts}")
+    for name, ms in out.items():
+        log(f"  {name.removesuffix('_ms')} ms {spread(ms)}")
+    extra.setdefault(key, {}).update(
+        {k: statistics.median(v) for k, v in out.items()}
+        | {f"{k}_all": v for k, v in out.items()})
 
 
 def record_checkpoint_phase(device, paths: dict) -> None:
@@ -911,8 +1119,16 @@ def main() -> int:
     ms_of = {key: r["ms"] for key, _n, _s, r in results}
     sibling = {spec_name: (4 + i, key)
                for i, (spec_name, key, kw) in enumerate(MODEL_PHASES) if not kw}
+    def screens_of(spec_name, key):
+        # phase 33 rides on each record phase's kernel run
+        def extras(device, _wl, _cfg, _cap, _st, out, med):
+            extra.setdefault(key, {}).update(
+                screen_phase(device, key, family_screens(spec_name), out, med))
+        return extras
+
     for i, (spec_name, key, factory_kw) in enumerate(record_phases()):
-        r = model_phase(device, 21 + i, spec_name, key, factory_kw, CPU_SAMPLE, REPEATS)
+        r = model_phase(device, 21 + i, spec_name, key, factory_kw, CPU_SAMPLE, REPEATS,
+                        extras=screens_of(spec_name, key))
         if r["launches"] < 1 or r["drains"] < 1 or r["err"] != 0:
             raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
         results.append((key, f"make_run_fused/{key}", f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
@@ -920,8 +1136,10 @@ def main() -> int:
         phase, base = sibling[spec_name]
         log(f"  {key} kernel median {r['ms']:.4f} ms beside {base} {ms_of[base]:.4f} ms "
             f"(phase {phase}, this call, {card})")
-    history_search_phase(device, paths)
+    hunted = history_search_phase(device, paths)
     record_checkpoint_phase(device, paths)
+    device_check_phase(device, paths, hunted)
+    main_path_screen_phase(device, paths, extra)
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}))
         for key, name, src, r in results

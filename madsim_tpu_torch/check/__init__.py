@@ -12,14 +12,21 @@ package's ``madsim_tpu.check`` does:
   exactly-once, recovery safety), each an ``(S,)`` verdict, the
   ``search_seeds(history_invariant=...)`` contract;
 * ``linearize.py``: the exact Wing–Gong checker for register and KV
-  histories, per seed.
+  histories, per seed;
+* ``device.py``: the same detectors as batched torch ops on the
+  columns' own device (:class:`HistoryScreen`), with packed verdict
+  words and the prefix-compaction fold, for
+  ``search_seeds(device_check=...)`` and
+  ``make_run_compacted(hist_screen=...)``.
 
-The three modules are copies of the JAX package's, which the port does
-not import. Its device screens (``check/device.py``), SLO checks
-(``check/slo.py``) and asyncio ``Recorder`` are not ported yet
-(ROADMAP.md).
+The first three modules are copies of the JAX package's, which the port
+does not import; ``device.py`` ports its jnp screens to torch. Its
+``violation_cones``, SLO checks (``check/slo.py``) and asyncio
+``Recorder`` are not ported yet (ROADMAP.md).
 """
 
+from . import device  # noqa: F401
+from .device import HistoryScreen  # noqa: F401
 from .history import (  # noqa: F401
     COL_ARG,
     COL_CLIENT,
@@ -64,10 +71,12 @@ __all__ = [
     "OP_WRITE",
     "BatchHistory",
     "HistoryError",
+    "HistoryScreen",
     "LinResult",
     "Op",
     "check_kv",
     "check_register",
+    "device",
     "collapse_retries",
     "election_safety",
     "exactly_once",

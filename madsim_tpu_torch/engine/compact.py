@@ -33,6 +33,14 @@ included:
   counts with the other fields (a few numpy calls a phase, where the
   device would take some twenty small launches).
 
+With ``hist_screen`` every bank is judged by the history screens
+(``check/device.py``) on its own device before anything is copied, and
+the clean seeds' responded operations fold out of the banked history
+columns (:func:`check.device.fold_verified`): two more result fields,
+``hist_ok`` and ``hist_fold``. On the card the one bank holds every
+row's final history; a halted row records nothing more, so its verdict
+and folded columns equal the phase program's.
+
 ``run.compute(state)`` returns the banks (device tensors, each with its
 rows' original indices under ``"_idx"``); ``run.assemble(banks)``
 scatters them back to seed order as numpy arrays with the JAX package's
@@ -46,12 +54,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from ..check.device import as_screens, fold_verified, screen_ok
 from .convert import FOREIGN_FIELDS, field_to_numpy
 from .core import STATE_FIELDS, EngineConfig, SimState, Workload, make_step_plain
 from .rng import M32
 
 __all__ = [
     "RESULT_FIELDS",
+    "SCREEN_FIELDS",
     "UNPORTED_OPTIONS",
     "bank_steps",
     "make_run_compacted",
@@ -68,12 +78,16 @@ RESULT_FIELDS = (
     "hist_t",
 )
 
+# the extra banked outputs of a ``hist_screen`` run (not SimState
+# fields): each seed's verdict and the records the fold took out
+SCREEN_FIELDS = ("hist_ok", "hist_fold")
+HIST_FIELDS = ("hist_word", "hist_t", "hist_count", "hist_drop")
+
 # options of the reference's runners whose engine axes the port does not
 # have yet, and the ROADMAP queue A item that ports each
 UNPORTED_OPTIONS = {
     "plan": "A8", "plan_slots": "A8", "plan_rows": "A8", "plan_hash": "A8",
     "dup_rows": "A8",
-    "device_check": "A13", "hist_screen": "A13",
     "cov_words": "A8", "cov_hitcount": "A8", "metrics": "A8",
     "timeline_cap": "A8", "latency": "A8", "causal": "A8", "retry": "A8",
 }
@@ -151,18 +165,37 @@ def _rows(st: SimState, rows) -> SimState:
     return SimState(**{f: getattr(st, f)[rows] for f in STATE_FIELDS})
 
 
-def _runner(compute, fields, shrink: int, min_size: int, max_steps: int):
+def _to_numpy(f: str, t: torch.Tensor) -> np.ndarray:
+    # the screen outputs are no SimState fields: bool verdicts, int32 folds
+    return t.cpu().numpy() if f in SCREEN_FIELDS else field_to_numpy(f, t)
+
+
+def _runner(compute, fields, shrink: int, min_size: int, max_steps: int,
+            screened: bool = False):
+    out_fields = tuple(fields) + SCREEN_FIELDS if screened else tuple(fields)
+
     def assemble(banked) -> SimpleNamespace:
         """Device to host, and scatter back into original seed order;
-        the card's one bank gets each row's step rebuilt."""
+        the card's one bank gets each row's step rebuilt. Under a
+        ``hist_screen`` the history columns are copied only up to the
+        longest surviving ``hist_count`` (read first); the fold left the
+        rows past it zero, as the host buffer's tail is."""
         s0 = sum(b["_idx"].shape[0] for b in banked)
         idx = [b["_idx"].cpu().numpy() for b in banked]
+        kept = None
+        if screened:
+            kept = max(int(b["hist_count"].max()) if b["hist_count"].numel() else 0
+                       for b in banked)
         out = {}
-        for f in fields:
-            parts = [field_to_numpy(f, b[f]) for b in banked]
-            buf = np.zeros((s0, *parts[0].shape[1:]), parts[0].dtype)
+        for f in out_fields:
+            trim = kept if f in ("hist_word", "hist_t") else None
+            parts = [_to_numpy(f, b[f] if trim is None else b[f][:, :trim]) for b in banked]
+            buf = np.zeros((s0, *banked[0][f].shape[1:]), parts[0].dtype)
             for ix, v in zip(idx, parts):
-                buf[ix] = v
+                if trim is None:
+                    buf[ix] = v
+                else:
+                    buf[ix, :trim] = v
             out[f] = buf
         if "_iters" in banked[0]:
             sizes = _phase_sizes(s0, shrink, min_size)
@@ -178,6 +211,36 @@ def _runner(compute, fields, shrink: int, min_size: int, max_steps: int):
     run.compute = compute
     run.assemble = assemble
     return run
+
+
+def _screens(wl: Workload, hist_screen, fields):
+    """The validated screen tuple of ``hist_screen``, or None."""
+    if hist_screen is None:
+        return None
+    if wl.history is None:
+        raise ValueError(
+            f"hist_screen judges operation histories, but workload "
+            f"{wl.name!r} has Workload.history=None"
+        )
+    screens = as_screens(hist_screen)
+    missing = [f for f in HIST_FIELDS if f not in fields]
+    if missing:
+        raise ValueError(
+            f"hist_screen needs the history columns banked; fields is "
+            f"missing {missing}"
+        )
+    return screens
+
+
+def _screen_bank(bank: dict, screens) -> dict:
+    """Judge a bank's histories where they lie, then fold the clean
+    seeds' responded operations out of its columns. The verdict judges
+    the full history, as screening the uncompacted run would."""
+    cols = [bank[f] for f in HIST_FIELDS]
+    ok = screen_ok(screens, *cols)
+    word, t, count, fold = fold_verified(*cols, ok)
+    return {**bank, "hist_word": word, "hist_t": t, "hist_count": count,
+            "hist_ok": ok, "hist_fold": fold}
 
 
 def _phase_program(wl: Workload, cfg: EngineConfig, max_steps: int,
@@ -240,26 +303,42 @@ def make_run_compacted(
     n_seeds`` it is one phase, ``make_run_while`` by another name. A CPU
     state runs the phase program with the plain step; a CUDA state
     launches the run kernel once (or raises for a workload the kernel
-    does not carry). The options after ``fields`` raise
-    ``NotImplementedError`` until their engine axes are ported.
+    does not carry).
+
+    ``hist_screen`` (a ``check.device.HistoryScreen`` or a tuple of
+    them) screens every bank's histories on its device and folds the
+    clean seeds' responded operations out of the banked columns, so the
+    copy to the host carries the pending invokes and the flagged seeds'
+    full histories. It adds ``hist_ok`` (the verdict, taken before the
+    fold) and ``hist_fold`` (records folded: the original count is
+    ``hist_count + hist_fold``). Flagged and overflowed seeds keep every
+    record. It needs ``wl.history`` and the four history fields.
+
+    The other options after ``fields`` raise ``NotImplementedError``
+    until their engine axes are ported.
     """
     refuse_unported(
         dup_rows=dup_rows, cov_words=cov_words, metrics=metrics,
         timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-        latency=latency, hist_screen=hist_screen, causal=causal, retry=retry,
+        latency=latency, causal=causal, retry=retry,
     )
     _check(fields, shrink, min_size)
+    screens = _screens(wl, hist_screen, fields)
     plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields)
 
     def compute(state: SimState) -> list:
         if state.device.type == "cpu":
-            return plain(state)
-        from .fused import _first_pass
+            banks = plain(state)
+        else:
+            from .fused import _first_pass
 
-        _spec, out, iters, _tmax = _first_pass(wl, cfg, state, max_steps, True)
-        return one_launch_banks(state, out, iters, fields)
+            _spec, out, iters, _tmax = _first_pass(wl, cfg, state, max_steps, True)
+            banks = one_launch_banks(state, out, iters, fields)
+        if screens is None:
+            return banks
+        return [_screen_bank(b, screens) for b in banks]
 
-    return _runner(compute, fields, shrink, min_size, max_steps)
+    return _runner(compute, fields, shrink, min_size, max_steps, screens is not None)
 
 
 def one_launch_banks(state: SimState, out: SimState, iters: torch.Tensor, fields) -> list:

@@ -18,14 +18,17 @@ over the seed axis, True where the invariant holds. Re-running any
 failing seed, alone or in any batch, reproduces the identical trace.
 
 A ``history_invariant`` judges the recorded operation histories
-(``check.BatchHistory``) instead of, or besides, the final state: the
-``check`` package's detectors are such predicates.
+(``check.BatchHistory``) on the host, instead of, or besides, the final
+state: the ``check`` package's detectors are such predicates. A
+``device_check`` (``check.device`` screens) gives the same verdicts on
+the histories' own device: the host reads a packed verdict word per 32
+seeds and the full histories of the flagged seeds only.
 
 On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
 run and drain kernels), or with ``compact=True`` the compacted runner's
-one stop-at-halt launch. The reference's device screens, plan and
-observability options raise ``NotImplementedError`` until their engine
-axes are ported (ROADMAP items A8 and A13).
+one stop-at-halt launch. The reference's plan and observability options
+raise ``NotImplementedError`` until their engine axes are ported
+(ROADMAP item A8).
 """
 
 from __future__ import annotations
@@ -35,9 +38,15 @@ import time
 from typing import Callable, Mapping
 
 import numpy as np
+import torch
 
-from .compact import RESULT_FIELDS, make_run_compacted, refuse_unported
-from .convert import state_to_numpy
+from ..check.device import (
+    as_screens, pack_verdicts, pack_verdicts_host, screen_ok, unpack_verdicts,
+    verdict_words_to_numpy,
+)
+from ..check.history import BatchHistory
+from .compact import RESULT_FIELDS, SCREEN_FIELDS, make_run_compacted, refuse_unported
+from .convert import field_to_numpy
 from .core import STATE_FIELDS, EngineConfig, Workload, make_init, make_run_while, resolve_device
 
 __all__ = ["SearchReport", "make_sweep", "search_seeds"]
@@ -50,12 +59,12 @@ _RUN_CACHE: dict = {}
 
 
 def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
-                    compact: bool, device):
+                    compact: bool, device, hist_screen=None):
     # the one construction of a sweep's (init, run) pair, for make_sweep
-    # and search_seeds alike
+    # and search_seeds alike; only the compacted runner embeds a screen
     init = make_init(wl, cfg, device=device)
     run = (
-        make_run_compacted(wl, cfg, max_steps) if compact
+        make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen) if compact
         else make_run_while(wl, cfg, max_steps)
     )
     return init, run
@@ -97,13 +106,13 @@ def make_sweep(
 
 
 def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
-                  compact: bool, dev):
+                  compact: bool, dev, hist_screen=None):
     from .fused import workload_shape
 
     key = (wl.name, workload_shape(wl), wl.model_params, wl.history,
-           cfg.hash(), max_steps, compact, str(dev))
+           cfg.hash(), max_steps, compact, str(dev), hist_screen)
     if key not in _RUN_CACHE:
-        _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev)
+        _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen)
     return _RUN_CACHE[key]
 
 
@@ -124,9 +133,8 @@ def _library_build_s(wl: Workload, dev) -> float:
 
 @dataclasses.dataclass
 class SearchReport:
-    """Outcome of one batched invariant sweep. The reference's coverage,
-    observability and screen fields wait for ROADMAP items A8 and
-    A13."""
+    """Outcome of one batched invariant sweep. The reference's coverage
+    and observability fields wait for ROADMAP item A8."""
 
     workload: str
     config_hash: str
@@ -149,6 +157,18 @@ class SearchReport:
     # history one is None when the workload records nothing
     pool_overflowed: np.ndarray | None = None
     hist_dropped: np.ndarray | None = None
+    # device screens (device_check=...): each seed's verdict (True =
+    # clean); its packed form, ceil(S/32) uint32 words (what crossed to
+    # the host on the lockstep path); the escalation input, the full
+    # histories of exactly the flagged seeds that did not overflow, as a
+    # check.BatchHistory over the flagged_idx rows (feed them to the
+    # exact checker); and, on the compact path, the records the fold
+    # took out of each seed
+    screen_ok: np.ndarray | None = None
+    verdict_words: np.ndarray | None = None
+    flagged_idx: np.ndarray | None = None
+    flagged_history: object | None = None
+    hist_fold: np.ndarray | None = None
 
     @property
     def failing_seeds(self) -> np.ndarray:
@@ -202,6 +222,16 @@ class SearchReport:
                 f"overflowed the event pool or history buffer{detail}; "
                 f"excluded (raise pool_size / HistorySpec capacity)"
             )
+        if self.screen_ok is not None:
+            fold = (
+                f", {int(self.hist_fold.sum())} records prefix-compacted"
+                if self.hist_fold is not None else ""
+            )
+            lines.append(
+                f"  device screen: {len(self.flagged_idx)} flagged seed(s) escalated "
+                f"with full histories ({len(self.verdict_words)} verdict "
+                f"words transferred{fold})"
+            )
         for seed in bad[:limit]:
             lines.append(
                 f"  seed {int(seed)}: rerun with seeds=[{int(seed)}] "
@@ -212,11 +242,42 @@ class SearchReport:
         return "\n".join(lines)
 
 
-def _state_view(out) -> Mapping[str, np.ndarray]:
+def _state_view(out, keep_device: tuple = ()) -> Mapping[str, np.ndarray]:
     """Host-side numpy views of every final-state field, keyed by name,
     with the JAX package's dtypes: invariants can reach anything,
-    including the paused and clog chaos state and the raw event pool."""
-    return state_to_numpy(out)
+    including the paused and clog chaos state and the raw event pool.
+    The fields in ``keep_device`` stay tensors on their device (a
+    screened sweep never copies the history columns whole)."""
+    return {
+        f: getattr(out, f) if f in keep_device else field_to_numpy(f, getattr(out, f))
+        for f in STATE_FIELDS
+    }
+
+
+def _screen(screens, out, view, n_seeds: int, compact: bool):
+    """The device screens' verdicts and escalation: ``(ok, verdict
+    words, flagged_idx, flagged_history)``. On the lockstep path the
+    screens run on ``out``'s device and the host reads the packed
+    words, then the flagged rows of the two history columns gathered
+    there; on the compact path the verdicts came banked with the
+    prefix-compacted columns, whose flagged seeds are verbatim."""
+    drop = np.asarray(view["hist_drop"])
+    if compact:
+        ok = np.asarray(view["hist_ok"], bool)
+        words = pack_verdicts_host(ok)
+        flagged = np.nonzero(~ok & ~(drop > 0))[0]
+        word, t = view["hist_word"][flagged], view["hist_t"][flagged]
+    else:
+        words = verdict_words_to_numpy(pack_verdicts(screen_ok(
+            screens, out.hist_word, out.hist_t, out.hist_count, out.hist_drop)))
+        ok = unpack_verdicts(words, n_seeds)
+        flagged = np.nonzero(~ok & ~(drop > 0))[0]
+        rows = torch.as_tensor(flagged, device=out.hist_word.device)
+        word = field_to_numpy("hist_word", out.hist_word[rows])
+        t = field_to_numpy("hist_t", out.hist_t[rows])
+    history = BatchHistory(word=word, t=t, count=np.asarray(view["hist_count"])[flagged],
+                           drop=drop[flagged])
+    return ok, words, flagged, history
 
 
 def search_seeds(
@@ -264,23 +325,51 @@ def search_seeds(
     clean. A seed whose history buffer dropped records reaches it as an
     empty history and is quarantined like a pool overflow.
 
+    ``device_check`` (a ``check.device.HistoryScreen`` or a tuple of
+    them) judges the histories on the sweep's device instead: the host
+    reads ``ceil(S/32)`` packed verdict words and the full histories of
+    the flagged seeds only (``report.flagged_history``, the input of
+    the exact checker). Its verdicts equal the host path's
+    (``check.device.screens_invariant(screens)``), overflowed seeds
+    quarantined alike. With ``compact=True`` the screens run on each
+    bank and prefix-compact its columns (``report.hist_fold``; see
+    ``make_run_compacted``). It excludes ``history_invariant``.
+
     ``device`` is where the sweep runs, the card unless the caller asks
-    for the CPU. ``history_invariant`` aside, the options after it raise
-    ``NotImplementedError`` until their engine axes are ported.
+    for the CPU. Of the options after ``history_invariant``, all but
+    ``device_check`` raise ``NotImplementedError`` until their engine
+    axes are ported.
     """
     if history_invariant is not None and wl.history is None:
         raise ValueError(
             f"history_invariant needs operation histories, but workload "
             f"{wl.name!r} has Workload.history=None"
         )
+    screens = None
+    if device_check is not None:
+        screens = as_screens(device_check)
+        if wl.history is None:
+            raise ValueError(
+                f"device_check judges operation histories, but workload "
+                f"{wl.name!r} has Workload.history=None"
+            )
+        if history_invariant is not None:
+            raise ValueError(
+                "pass device_check OR history_invariant, not both: they "
+                "are the same verdict on two execution paths (compare "
+                "them via check.device.screens_invariant in a test, not "
+                "in one sweep)"
+            )
     refuse_unported(
         plan=plan, plan_rows=plan_rows,
         plan_hash=plan_hash, dup_rows=dup_rows, cov_words=cov_words,
         metrics=metrics, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-        latency=latency, device_check=device_check, causal=causal, retry=retry,
+        latency=latency, causal=causal, retry=retry,
     )
-    if invariant is None and history_invariant is None:
-        raise ValueError("need an invariant or a history_invariant")
+    if invariant is None and history_invariant is None and screens is None:
+        raise ValueError(
+            "need an invariant, a history_invariant or a device_check"
+        )
     if seeds is None:
         seeds = np.arange(seed_base, seed_base + n_seeds, dtype=np.uint64)
     else:
@@ -289,13 +378,16 @@ def search_seeds(
             raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
         n_seeds = len(seeds)
     dev = resolve_device(device)
-    init, run = _compiled_run(wl, cfg, max_steps, compact, dev)
+    init, run = _compiled_run(wl, cfg, max_steps, compact, dev,
+                              screens if compact else None)
     build_wall_s = _library_build_s(wl, dev)
     out = run(init(seeds))
     if compact:
-        view = {f: getattr(out, f) for f in RESULT_FIELDS}
+        fields = RESULT_FIELDS + SCREEN_FIELDS if screens is not None else RESULT_FIELDS
+        view = {f: getattr(out, f) for f in fields}
     else:
-        view = _state_view(out)
+        view = _state_view(
+            out, keep_device=("hist_word", "hist_t") if screens is not None else ())
     if invariant is not None:
         ok = np.asarray(invariant(view), dtype=bool)
         if ok.shape != (n_seeds,):
@@ -307,9 +399,12 @@ def search_seeds(
         ok = np.ones((n_seeds,), dtype=bool)
     pool_overflowed = np.asarray(view["overflow"]) > 0
     overflowed = pool_overflowed
+    dev_ok = verdict_words = flagged_idx = flagged_history = None
+    if screens is not None:
+        dev_ok, verdict_words, flagged_idx, flagged_history = _screen(
+            screens, out, view, n_seeds, compact)
+        ok = ok & dev_ok
     if history_invariant is not None:
-        from ..check.history import BatchHistory
-
         bh = BatchHistory.from_view(view)
         hist_over = np.asarray(bh.drop) > 0
         if hist_over.any():
@@ -351,4 +446,9 @@ def search_seeds(
         halt_times=view["halt_time"],
         pool_overflowed=pool_overflowed,
         hist_dropped=hist_dropped,
+        screen_ok=dev_ok,
+        verdict_words=verdict_words,
+        flagged_idx=flagged_idx,
+        flagged_history=flagged_history,
+        hist_fold=view["hist_fold"] if screens is not None and compact else None,
     )

@@ -22,8 +22,10 @@ from madsim_tpu.models import make_raft as j_raft
 from madsim_tpu.models import make_shardkv as j_shardkv
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
+from madsim_tpu_torch.check.device import election_safety
 from madsim_tpu_torch.engine.compact import (
     RESULT_FIELDS,
+    UNPORTED_OPTIONS,
     _phase_sizes,
     bank_steps,
     make_run_compacted,
@@ -31,6 +33,7 @@ from madsim_tpu_torch.engine.compact import (
     one_launch_banks,
 )
 from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS, make_kvchaos, make_raft, make_shardkv
+from madsim_tpu_torch.models.raft import OP_ELECT
 
 from _torch_host import build_host_kernel, host_launch
 
@@ -139,8 +142,14 @@ def test_arguments_are_validated():
         make_run_compacted(wl, cfg, 10, fields=("cov",))
     with pytest.raises(NotImplementedError, match="A8"):
         make_run_compacted(wl, cfg, 10, cov_words=2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_run_compacted(wl, cfg, 10, hist_screen=object())
+    # hist_screen is validated now, not refused: it needs histories and
+    # the four history fields banked
+    assert "hist_screen" not in UNPORTED_OPTIONS
+    with pytest.raises(ValueError, match="Workload.history=None"):
+        make_run_compacted(wl, cfg, 10, hist_screen=election_safety(OP_ELECT))
+    with pytest.raises(ValueError, match=r"missing \['hist_t'\]"):
+        make_run_compacted(make_raft(record=True), cfg, 10, hist_screen=election_safety(OP_ELECT),
+                           fields=("now", "hist_word", "hist_count", "hist_drop"))
 
 
 @pytest.fixture(scope="module")

@@ -151,7 +151,7 @@ def test_history_invariant_arguments_are_validated():
     with pytest.raises(ValueError, match="Workload.history=None"):
         search_seeds(t_kv(writes=W), cfg, None, n_seeds=4, max_steps=10, device="cpu",
                      history_invariant=lambda h: np.ones(4, bool))
-    with pytest.raises(ValueError, match="need an invariant or a history_invariant"):
+    with pytest.raises(ValueError, match="need an invariant, a history_invariant or a device_check"):
         search_seeds(t_kv(writes=W, record=True), cfg, None, n_seeds=4, max_steps=10,
                      device="cpu")
 

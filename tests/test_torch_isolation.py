@@ -28,7 +28,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import sys, madsim_tpu_torch, madsim_tpu_torch.engine.fused, "
-        "madsim_tpu_torch.models\n"
+        "madsim_tpu_torch.models, madsim_tpu_torch.check.device\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'madsim_tpu' or m.startswith('madsim_tpu.')]\n"
         "print(bad)\n"

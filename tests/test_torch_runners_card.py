@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from madsim_tpu_torch.check import BatchHistory, check_kv
+from madsim_tpu_torch.check import device as dc
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
 from madsim_tpu_torch.engine.checkpoint import load, save
@@ -22,6 +24,7 @@ from madsim_tpu_torch.models import BENCH_SPECS, make_kvchaos, make_pingpong, ma
 
 RAFT_KW, RAFT_CAP = BENCH_SPECS["raft"][1], BENCH_SPECS["raft"][3]
 KV_KW = BENCH_SPECS["kvchaos"][1]
+KV_SCREENS = (dc.stale_reads(), dc.read_your_writes())
 
 
 def _needs_card():
@@ -124,3 +127,49 @@ def test_cuda_failing_seed_replays_to_the_kernel_trace():
     events, res = replay(wl, cfg, seed, 900)
     want = int(report.traces[list(report.seeds).index(seed)])
     assert refold(events, wl) == res.trace == want
+
+
+@pytest.mark.cuda
+def test_cuda_screens_equal_the_cpu_on_record_columns():
+    """The history screens and the fold on a record library's columns on
+    the card equal the same ops on their CPU copy and the numpy
+    detectors."""
+    _needs_card()
+    wl, cfg = make_kvchaos(writes=5, record=True, bug=True), tcore.EngineConfig(**KV_KW)
+    out = tcore.make_run_while(wl, cfg, 900)(
+        tcore.make_init(wl, cfg, device="cuda")(np.arange(4096, dtype=np.uint64)))
+    cols = [out.hist_word, out.hist_t, out.hist_count, out.hist_drop]
+    ok = dc.screen_ok(KV_SCREENS, *cols)
+    assert ok.device.type == "cuda"
+    cpu = [c.cpu() for c in cols]
+    assert torch.equal(ok.cpu(), dc.screen_ok(KV_SCREENS, *cpu))
+    host = dc.screens_invariant(KV_SCREENS)(BatchHistory(*(c.numpy() for c in cpu)))
+    np.testing.assert_array_equal(ok.cpu().numpy(), host)
+    assert 0 < int((~ok).sum()) < 4096
+    np.testing.assert_array_equal(dc.unpack_verdicts(dc.pack_verdicts(ok), 4096), host)
+    for got, want in zip(dc.fold_verified(*cols, ok), dc.fold_verified(*cpu, ok.cpu())):
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_device_check_equals_history_invariant():
+    """search_seeds(device_check=...) on the card, lockstep and
+    compacted, flags the seeds that the host detectors flag."""
+    _needs_card()
+    wl, cfg = make_kvchaos(writes=5, record=True, bug=True), tcore.EngineConfig(pool_size=192, loss_p=0.05)
+    kw = dict(n_seeds=1024, max_steps=1500, device="cuda")
+    key = fused.kernel_model(wl).key
+    host = search_seeds(wl, cfg, None, history_invariant=dc.screens_invariant(KV_SCREENS), **kw)
+    lock, launches = _counts(key, lambda: search_seeds(wl, cfg, None, device_check=KV_SCREENS, **kw))
+    assert launches == (1, 1)
+    fast, launches = _counts(key, lambda: search_seeds(
+        wl, cfg, None, device_check=KV_SCREENS, compact=True, **kw))
+    assert launches == (1, 0)
+    assert 0 < host.failing_seeds.size < 1024
+    for rep in (lock, fast):
+        np.testing.assert_array_equal(rep.ok, host.ok)
+        np.testing.assert_array_equal(rep.flagged_idx, np.nonzero(~host.ok)[0])
+        np.testing.assert_array_equal(rep.verdict_words, lock.verdict_words)
+        for i in range(len(rep.flagged_history)):
+            assert not check_kv(rep.flagged_history.ops(i)).ok
+    assert fast.hist_fold.sum() > 0

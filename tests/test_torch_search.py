@@ -13,11 +13,13 @@ import pytest
 import madsim_tpu.engine as je
 from madsim_tpu.models import make_kvchaos as j_kvchaos
 from madsim_tpu.models import make_raft as j_raft
+from madsim_tpu_torch.check.device import election_safety
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import search
-from madsim_tpu_torch.engine.compact import RESULT_FIELDS
+from madsim_tpu_torch.engine.compact import RESULT_FIELDS, UNPORTED_OPTIONS
 from madsim_tpu_torch.engine.search import make_sweep, search_seeds
 from madsim_tpu_torch.models import make_kvchaos, make_microbench, make_raft
+from madsim_tpu_torch.models.raft import OP_ELECT
 
 
 def has_leader(v):
@@ -131,13 +133,22 @@ def test_sweep_returns_the_final_state():
 
 @pytest.mark.parametrize(
     "option,item",
-    [("device_check", "A13"), ("plan", "A8"),
+    [("device_check", "ported"), ("plan", "A8"),
      ("plan_rows", "A8"), ("dup_rows", "A8"), ("cov_words", "A8"), ("metrics", "A8"),
      ("timeline_cap", "A8"), ("latency", "A8"), ("causal", "A8"), ("retry", "A8")],
 )
 def test_unported_options_raise_naming_their_item(option, item):
     value = {"cov_words": 2, "timeline_cap": 8, "metrics": True, "causal": True,
              "dup_rows": True}.get(option, object())
+    if item == "ported":
+        # device_check is validated now, not refused: raft without
+        # record=True has no histories to screen
+        assert option not in UNPORTED_OPTIONS
+        with pytest.raises(ValueError, match="Workload.history=None"):
+            search_seeds(make_raft(), tcore.EngineConfig(pool_size=40), has_leader,
+                         n_seeds=4, max_steps=10, device="cpu",
+                         **{option: election_safety(OP_ELECT)})
+        return
     with pytest.raises(NotImplementedError, match=item):
         search_seeds(make_raft(), tcore.EngineConfig(pool_size=40), has_leader,
                      n_seeds=4, max_steps=10, device="cpu", **{option: value})
