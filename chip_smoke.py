@@ -82,14 +82,35 @@ plain eager step:
 35. the slice's main path: raft-record at 65,536 seeds searched with
    ``device_check=election_safety(OP_ELECT)``, lockstep and compacted,
    each timed, the verdicts equal to the host path's;
-36. one JSON line describing each kernel, with its launches on every
+36. the fault-plan libraries (the ``chaos=False`` libraries of
+   ``engine/fused.py`` ``MODELS``) at full width under the nemesis soak's plans (``tools/nemesis_soak.py``,
+   its shapes and step caps): raft-record at pool 64 and 65,536 seeds
+   under its pause-storm and gray-failure plan; kvchaos-bug and
+   kvchaos-record without their own chaos (``writes=10``, pool 192, loss
+   0.05, 8,192 seeds) under the crash storm, and kvchaos-record under a
+   plan mixing every fault spec with ``dup_rows``; paxos-record under
+   its proposer crash storm and twophase-record under crash and
+   duplication, with ``dup_rows`` and without (the flag set and stored,
+   no shadow row sent), all at pool 96 and 8,192 seeds. Each is
+   held as in phases 4-15 (every field against the plain step on the
+   card, the first 256 seeds on the CPU, the drain kernel alone) and
+   timed, beside kvchaos-bug with its own chaos at the same shape;
+37. the nemesis certificates 1-3 and 5-7 of ``tools/nemesis_soak.py``
+   at 8,192 seeds on the card, each search's seeds equal to the plain
+   step's run on the card, the counts and the shrunk seed's repro pinned
+   from the JAX package's run of the soak: amplification (the plan
+   catches the lost write on more seeds than the model's own kill), the
+   clean model clean, the first failing seed shrunk to its pinned
+   events and its replay's trace, and raft election, paxos and twophase
+   with no violation; each search's wall ms and the plan compile's
+   host ms;
+38. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after), then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
 
 Phase 2 also holds the launch shape of each library without recording
-against the one its run kernel had before the history axis was added
-(``BASE_SHAPES``, measured on an H100 80GB HBM3).
+against ``BASE_SHAPES`` (measured on an H100 80GB HBM3).
 
 Any mismatch or exception exits non-zero. Without a card it exits
 non-zero before printing any result. Imports nothing of JAX or of the
@@ -131,24 +152,120 @@ KV_WRITES = 5
 # the history search (phase 31): the JAX package's lost-write hunt
 HIST_SEARCH_KW = dict(pool_size=192, loss_p=0.05)
 HIST_SEARCH_SEEDS, HIST_SEARCH_CAP = 1024, 1500
-# the launch shapes of the libraries without recording, before the
-# history axis (NVIDIA H100 80GB HBM3): key -> pool -> (run kernel
-# shared bytes per block, blocks per SM, drain kernel's the same)
+# the launch shapes of the libraries without recording (NVIDIA H100
+# 80GB HBM3): key -> pool -> (run kernel shared bytes per block, blocks
+# per SM, drain kernel's the same). The seed's dup flag, stored since
+# the chaos write-back, crosses an 8-byte boundary of the shared seed
+# state for raft, microbench, pingpong, twophase and leasekv (+8 B a
+# seed, +128 B a block); microbench's run kernel went from at most 40 to
+# 48 registers with the extended kinds, so 10 blocks fit an SM, not 12
+# (its 1,024 seeds fill 64 blocks, one an SM)
 BASE_SHAPES = {
-    "raft": {40: (26880, 8, 5504, 16), 64: (36096, 6, 8576, 16),
-             128: (60800, 3, 17024, 12), 256: (110208, 2, 33920, 6)},
-    "microbench": {32: (16384, 12, 4352, 16)},
-    "pingpong": {32: (17792, 12, 4352, 16)},
+    "raft": {40: (27008, 8, 5504, 16), 64: (36224, 6, 8576, 16),
+             128: (60928, 3, 17024, 12), 256: (110336, 2, 33920, 6)},
+    "microbench": {32: (16512, 10, 4352, 16)},
+    "pingpong": {32: (17920, 12, 4352, 16)},
     "broadcast": {40: (27136, 8, 5504, 16)},
     "kvchaos": {40: (27648, 8, 5504, 16)},
     "kvchaos-payload": {40: (33664, 6, 5504, 16)},
     "raftlog": {64: (66048, 3, 8576, 16)},
     "snapshot": {96: (48512, 4, 12800, 16)},
-    "twophase": {64: (43264, 5, 8576, 16)},
+    "twophase": {64: (43392, 5, 8576, 16)},
     "paxos": {64: (48384, 4, 8576, 16)},
-    "leasekv": {48: (30080, 7, 6528, 16)},
+    "leasekv": {48: (30208, 7, 6528, 16)},
     "shardkv": {64: (69504, 3, 8576, 16)},
 }
+
+
+# the fault-plan phases (36-37): the nemesis soak's shapes
+# (tools/nemesis_soak.py), its plans and step caps
+NEMESIS_SEEDS = 8192
+NEMESIS_KV_WRITES = 10
+NEMESIS_KV_KW = dict(pool_size=192, loss_p=0.05)
+NEMESIS_STEPS = 4000
+# what the JAX package's run of tools/nemesis_soak.py 8192 on the CPU
+# gives: the lost-write catches of the model's own schedule and of the
+# plan; the first failing seed under the plan, its shrink (events kept
+# of 4, rounds, candidates), the shrunk plan's hash and the trace. The
+# hash hashes repr() of the plan's events: NEMESIS_r08.txt's
+# 27d022dfa91ec6e9 is the same plan from before FaultEvent had its
+# ``node`` field, which every repr now shows
+NEMESIS_BUILTIN_CATCHES = 557
+NEMESIS_PLAN_CATCHES = 1609
+NEMESIS_FIRST_FAILING = 1
+NEMESIS_SHRUNK = dict(events=((212187184, 1, 1, 0, 0),), rounds=2, tested=10,
+                      plan_hash="b326c7e871b514ce", trace=0x1A5D2F7E741270A4)
+
+
+def nemesis_plans() -> dict:
+    """tools/nemesis_soak.py's plans, in the port's classes, and a plan
+    that mixes every fault spec."""
+    from madsim_tpu_torch.chaos import (
+        ClockSkew, CrashStorm, DiskFault, Duplicate, FaultPlan, FlappingPartition,
+        GrayFailure, Partition, PauseStorm,
+    )
+
+    return {
+        "kv": FaultPlan((CrashStorm(
+            targets=(1, 2, 3, 4), n=2, t_min_ns=20_000_000, t_max_ns=400_000_000,
+            down_min_ns=50_000_000, down_max_ns=250_000_000),), name="kv-nemesis"),
+        "raft_el": FaultPlan((
+            PauseStorm(targets=(0, 1, 2, 3, 4), n=2, t_min_ns=20_000_000,
+                       t_max_ns=400_000_000, down_min_ns=50_000_000, down_max_ns=300_000_000),
+            GrayFailure(targets=(0, 1, 2, 3, 4), n_links=2, t_min_ns=20_000_000,
+                        t_max_ns=400_000_000, dur_min_ns=50_000_000, dur_max_ns=300_000_000,
+                        mult_min=4, mult_max=16),
+        ), name="raft-election-nemesis"),
+        "paxos": FaultPlan((
+            CrashStorm(targets=(5, 6, 7), n=2, t_min_ns=30_000_000, t_max_ns=200_000_000,
+                       down_min_ns=80_000_000, down_max_ns=300_000_000),
+            GrayFailure(targets=(0, 1, 2, 3, 4, 5, 6, 7), n_links=2, t_min_ns=10_000_000,
+                        t_max_ns=200_000_000, dur_min_ns=50_000_000, dur_max_ns=200_000_000,
+                        mult_min=4, mult_max=16),
+        ), name="paxos-nemesis"),
+        "twophase": FaultPlan((
+            CrashStorm(targets=(1, 2, 3, 4), n=1, t_min_ns=20_000_000, t_max_ns=250_000_000,
+                       down_min_ns=100_000_000, down_max_ns=400_000_000),
+            Duplicate(t_min_ns=10_000_000, t_max_ns=300_000_000, dur_min_ns=50_000_000,
+                      dur_max_ns=300_000_000),
+        ), name="twophase-nemesis"),
+        "mixed": FaultPlan((
+            CrashStorm(targets=(1, 2, 3, 4), n=1), PauseStorm(targets=(1, 2, 3, 4), n=1),
+            Partition(targets=(0, 1, 2, 3)),
+            Partition(targets=(0, 1, 2), asymmetric=True),
+            Partition(targets=(1, 2, 3), partial_p=0.5),
+            FlappingPartition(targets=(1, 2, 3), n_cycles=2, asymmetric=True),
+            GrayFailure(targets=(0, 1, 2, 3, 4, 5), n_links=2), Duplicate(),
+            ClockSkew(targets=(0, 1, 2, 3, 4, 5), n=2),
+            DiskFault(targets=(1, 2), n_torn=1, n_sync_loss=1, n_eio=1),
+        ), name="mixed"),
+    }
+
+
+def nemesis_cases() -> tuple:
+    """Phase 36's cases: (library key, factory, factory kwargs, engine
+    kwargs, seeds, plan name, dup_rows, step cap, every seed halts)."""
+    from madsim_tpu_torch.models import make_kvchaos, make_paxos, make_raft, make_twophase
+
+    kv = dict(writes=NEMESIS_KV_WRITES, record=True, chaos=False)
+    return (
+        ("raft-record", make_raft, dict(record=True), dict(pool_size=64, loss_p=0.02),
+         65536, "raft_el", False, 2000, True),
+        ("kvchaos-bug-nochaos", make_kvchaos, {**kv, "bug": True}, NEMESIS_KV_KW,
+         NEMESIS_SEEDS, "kv", False, NEMESIS_STEPS, True),
+        ("kvchaos-record-nochaos", make_kvchaos, kv, NEMESIS_KV_KW, NEMESIS_SEEDS, "kv",
+         False, NEMESIS_STEPS, True),
+        ("kvchaos-record-nochaos-dup", make_kvchaos, kv, NEMESIS_KV_KW, NEMESIS_SEEDS,
+         "mixed", True, NEMESIS_STEPS, False),
+        ("paxos-record-nochaos", make_paxos, dict(record=True, chaos=False),
+         dict(pool_size=96, loss_p=0.05), NEMESIS_SEEDS, "paxos", False, NEMESIS_STEPS, True),
+        ("twophase-record-nochaos", make_twophase, dict(record=True, chaos=False),
+         dict(pool_size=96, loss_p=0.05), NEMESIS_SEEDS, "twophase", False, NEMESIS_STEPS,
+         False),
+        ("twophase-record-nochaos-dup", make_twophase, dict(record=True, chaos=False),
+         dict(pool_size=96, loss_p=0.05), NEMESIS_SEEDS, "twophase", True, NEMESIS_STEPS,
+         False),
+    )
 
 
 # the model phases, in order: (BENCH_SPECS or SOAK_SPECS name, kernel
@@ -172,11 +289,12 @@ MODEL_PHASES = (
 def record_phases() -> tuple:
     """The record phases (21-30), in the MODEL_PHASES form: (BENCH_SPECS
     or SOAK_SPECS name, kernel model key, factory keyword arguments)."""
-    from madsim_tpu_torch.engine.fused import MODELS
-    from madsim_tpu_torch.models import RECORD_VARIANTS
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import BENCH_SPECS, RECORD_VARIANTS, SOAK_SPECS
 
-    return tuple((spec_name, MODELS[name].key, kw)
-                 for name, (spec_name, kw) in RECORD_VARIANTS.items())
+    specs = {**BENCH_SPECS, **SOAK_SPECS}
+    return tuple((spec_name, kernel_model(specs[spec_name][0](**kw)).key, kw)
+                 for spec_name, kw in RECORD_VARIANTS.values())
 
 
 def family_screens(spec_name: str) -> tuple:
@@ -302,7 +420,7 @@ def entry_phase(device, entry_seeds: int) -> int:
     return max_abs_err(entry_k, entry_p)
 
 
-def plain_reference(wl, cfg, cap: int, st):
+def plain_reference(wl, cfg, cap: int, st, dup_rows: bool = False):
     """The plain step until every seed has halted, at most ``cap``
     times (the loop of ``make_run_while_plain``), counting on the way
     what the bound needs: the seed-steps taken before each seed halts,
@@ -312,7 +430,7 @@ def plain_reference(wl, cfg, cap: int, st):
     Returns ``(state, seed_steps, drops)``."""
     from madsim_tpu_torch.engine import make_step_plain
 
-    step = make_step_plain(wl, cfg)
+    step = make_step_plain(wl, cfg, dup_rows)
     seed_steps = drops = 0
     i = 0
     while i < cap and not bool(st.halted.all()):
@@ -350,14 +468,14 @@ def raft_extras(device, wl, cfg, cap: int, st, out, med: float) -> None:
             f"the rest {med - r - d:.4f} ms (no state copy)")
 
 
-def drain_check(wl, cfg, cap: int, st) -> None:
+def drain_check(wl, cfg, cap: int, st, dup_rows: bool = False) -> None:
     """The drain kernel alone against its plain version on the card,
     from the run kernel's stop-at-halt outputs: every seed takes its
     ``tmax - iters`` remaining halted steps; ``step`` and ``ev_valid``
     must be equal."""
     from madsim_tpu_torch.engine.fused import KERNEL, _first_pass, drain_plain
 
-    spec, first, iters, tmax = _first_pass(wl, cfg, st, cap, True)
+    spec, first, iters, tmax = _first_pass(wl, cfg, st, cap, True, dup_rows)
     want_step, want_valid = drain_plain(first.step, first.ev_valid, first.ev_time,
                                         tmax - iters)
     KERNEL.drain(spec, first, iters, tmax)
@@ -367,24 +485,47 @@ def drain_check(wl, cfg, cap: int, st) -> None:
 
 def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
                 cpu_sample: int, repeats: int, extras=None) -> dict:
-    """One model at its full-width BENCH_SPECS (else SOAK_SPECS) shape:
-    the main path through the kernel with the launch counts read around
-    it, the checks, every field against the plain step (on the device,
-    run and timed once, and the first seeds on the CPU), the kernel's
-    time and the bound's inputs. ``extras(device, wl, cfg, cap, st, out, ms)``
-    adds a model's own checks and timings, given the kernel's median."""
-    from madsim_tpu_torch.engine import (
-        STATE_FIELDS, EngineConfig, make_init, make_run_plain, make_run_while,
-    )
-    from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
+    """One model at its full-width BENCH_SPECS (else SOAK_SPECS) shape,
+    through :func:`kernel_phase`."""
+    from madsim_tpu_torch.engine import EngineConfig
     from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS
 
     factory, kw, n_seeds, cap = {**SOAK_SPECS, **BENCH_SPECS}[spec_name]
-    wl, cfg = factory(**factory_kw), EngineConfig(**kw)
     log(f"[{idx}] {key}: {kw}, {n_seeds} seeds, make_run_while cap {cap}")
-    init = make_init(wl, cfg, device=device)
-    st = init(np.arange(n_seeds, dtype=np.uint64))
-    run = make_run_while(wl, cfg, cap)
+    return kernel_phase(device, key, factory(**factory_kw), EngineConfig(**kw), n_seeds,
+                        cap, cpu_sample, repeats, extras)
+
+
+def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: int,
+                 repeats: int, extras=None, plan=None, dup_rows: bool = False,
+                 all_halt: bool = True, refs: dict | None = None) -> dict:
+    """One library at a full-width shape: the main path through the
+    kernel with the launch counts read around it, the checks, every
+    field against the plain step (on the device, run and timed once, and
+    the first seeds on the CPU), the kernel's time and the bound's
+    inputs. ``plan`` seeds each run with its compiled rows, and
+    ``dup_rows`` runs the step with the duplication rows; ``all_halt``
+    requires every seed to halt with no pool overflow; ``refs[key]``
+    keeps the plain step's final state. ``extras(device, wl, cfg, cap,
+    st, out, ms)`` adds a model's own checks and timings, given the
+    kernel's median."""
+    from madsim_tpu_torch.engine import STATE_FIELDS, make_init, make_run_plain, make_run_while
+    from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
+
+    seeds = np.arange(n_seeds, dtype=np.uint64)
+    if plan is None:
+        init = make_init(wl, cfg, device=device)
+        st = init(seeds)
+    else:
+        t = time.perf_counter()
+        rows = plan.compile_batch(seeds, wl=wl)
+        compile_ms = (time.perf_counter() - t) * 1e3
+        init = make_init(wl, cfg, device=device, plan_slots=plan.slots)
+        st = init(seeds, rows)
+        log(f"  plan {plan.name} ({plan.hash()}): {plan.slots} slots, "
+            f"{int(rows.valid.sum())} events over {n_seeds} seeds, compiled in "
+            f"{compile_ms:.2f} ms (host); dup_rows {dup_rows}")
+    run = make_run_while(wl, cfg, cap, dup_rows=dup_rows)
     if device.type == "cuda":
         torch.cuda.synchronize()
     KERNEL.reset()
@@ -398,13 +539,14 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
     n_steps = int(out.step[0])
     if not bool((out.step == n_steps).all()):
         raise AssertionError(f"{key}: seeds disagree on the step count")
-    if int(out.overflow.max()) != 0:
+    n_over, n_run = int((out.overflow > 0).sum()), int((~out.halted).sum())
+    if all_halt and n_over:
         raise AssertionError(f"{key}: pool overflow, {int(out.overflow.sum())} events dropped")
-    if not bool(out.halted.all()):
-        raise AssertionError(f"{key}: {int((~out.halted).sum())} seeds did not halt")
+    if all_halt and n_run:
+        raise AssertionError(f"{key}: {n_run} seeds did not halt")
     sends = int((out.msg_count - st.msg_count).sum())
-    log(f"  {n_seeds} seeds halted after {n_steps} steps; overflow 0; "
-        f"{sends} messages sent; median halt time "
+    log(f"  {n_seeds - n_run} of {n_seeds} seeds halted within {n_steps} steps; "
+        f"{n_over} overflowed; {sends} messages sent; median halt time "
         f"{float(out.halt_time.double().median()) / 1e6:.3f} ms")
     if wl.history is not None:
         if int(out.hist_count.max()) < 1 or int(out.hist_drop.max()) != 0:
@@ -414,20 +556,24 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
     # the plain step's one run: the reference, its time and the counts
     # of the bound
     got = []
-    plain_ms = time_ms(lambda: got.append(plain_reference(wl, cfg, cap, st)), 1, device)
+    plain_ms = time_ms(lambda: got.append(plain_reference(wl, cfg, cap, st, dup_rows)), 1,
+                       device)
     ref, seed_steps, drops = got[0]
     assert_equal(out, ref, "make_run_while (kernel) vs plain on the card")
+    if refs is not None:
+        refs[key] = ref
     err = max_abs_err(out, ref)
     if device.type == "cuda":
-        counted = int(halt_counts(wl, cfg, cap, st).sum())
+        counted = int(halt_counts(wl, cfg, cap, st, dup_rows).sum())
         if counted != seed_steps:
             raise AssertionError(
                 f"{key}: the kernel's stop-at-halt pass counts {counted} "
                 f"seed-steps, the plain run {seed_steps}")
-        drain_check(wl, cfg, cap, st)
+        drain_check(wl, cfg, cap, st, dup_rows)
         log("  drain kernel alone vs its plain version: step and ev_valid equal")
     k = min(cpu_sample, n_seeds)
-    cpu_ref = make_run_plain(wl, cfg, n_steps)(init(np.arange(k, dtype=np.uint64)).to("cpu"))
+    head_st = type(st)(**{f: getattr(st, f)[:k] for f in STATE_FIELDS}).to("cpu")
+    cpu_ref = make_run_plain(wl, cfg, n_steps, dup_rows)(head_st)
     head = type(out)(**{f: getattr(out, f)[:k] for f in STATE_FIELDS})
     assert_equal(head, cpu_ref, f"first {k} seeds (kernel) vs plain on the CPU")
     err = max(err, max_abs_err(head, cpu_ref))
@@ -484,7 +630,9 @@ def launch_shape(spec, pool: int, card: str = "") -> str:
            o["drain_blocks_per_sm"])
     if base is not None and "H100 80GB HBM3" in card and got != base:
         raise AssertionError(f"{spec.key} at pool {pool}: launch shape {got}, "
-                             f"{base} before the history axis")
+                             f"BASE_SHAPES has {base}")
+    if o["run_blocks_per_sm"] < 1 or o["drain_blocks_per_sm"] < 1:
+        raise AssertionError(f"{spec.key} at pool {pool}: no block fits an SM: {got}")
     return (f"G {o['group']}, {o['seeds_per_block']} seeds per block of 128 threads; "
             f"run kernel {o['run_smem_bytes']} B shared per block, "
             f"{o['run_blocks_per_sm']} blocks per SM; drain kernel "
@@ -552,9 +700,8 @@ def group_sweep(device, groups: list, keys: list) -> None:
     from madsim_tpu_torch.engine.fused import MODELS, build_libraries
     from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS
 
-    by_key = {m.key: m for m in MODELS.values()}
     variants = {
-        (k, g): dataclasses.replace(by_key[k], key=f"{k}-g{g}", group=g)
+        (k, g): dataclasses.replace(MODELS[k], key=f"{k}-g{g}", group=g)
         for k in keys for g in groups
     }
     t = time.perf_counter()
@@ -1054,6 +1201,193 @@ def record_checkpoint_phase(device, paths: dict) -> None:
         f"records; launches {counts}")
 
 
+def plan_phases(device, results: list, paths: dict, extra: dict, card: str) -> dict:
+    """Phase 36: each fault-plan library at full width under its plan,
+    held as in phases 4-15; kvchaos-bug with its own chaos timed at the
+    same shape beside the plan run. Returns the plain step's final
+    states, by library key."""
+    from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_kvchaos
+
+    plans, refs = nemesis_plans(), {}
+    for i, (key, factory, fkw, kw, n, plan, dup, cap, all_halt) in enumerate(nemesis_cases()):
+        wl, cfg = factory(**fkw), EngineConfig(**kw)
+        if kernel_model(wl, dup).key != key:
+            raise AssertionError(f"{key}: the registry picks {kernel_model(wl, dup).key}")
+        log(f"[36.{i + 1}] {key}: {kw}, {n} seeds, make_run_while cap {cap}, plan {plan}")
+        r = kernel_phase(device, key, wl, cfg, n, cap, CPU_SAMPLE, REPEATS, plan=plans[plan],
+                         dup_rows=dup, all_halt=all_halt, refs=refs)
+        if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+            raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; "
+                                 f"error {r['err']}")
+        # a plan run of a library that phases 4-30 ran too is its own entry
+        results.append((key, f"make_run_fused/{key}/plan-{plan}",
+                        f"madsim_tpu_torch/csrc/{kernel_model(wl, dup).header}", r))
+        paths.setdefault(key, {})["run_while_plan"] = [r["launches"], r["drains"]]
+        extra.setdefault(key, {})["plan_hash"] = plans[plan].hash()
+    # kvchaos-bug with its own chaos, at the plan run's shape, no plan
+    wl = make_kvchaos(writes=NEMESIS_KV_WRITES, record=True, bug=True)
+    cfg = EngineConfig(**NEMESIS_KV_KW)
+    st = make_init(wl, cfg, device=device)(np.arange(NEMESIS_SEEDS, dtype=np.uint64))
+    run = make_run_while(wl, cfg, NEMESIS_STEPS)
+    ms = time_ms(lambda: run(st), REPEATS, device)
+    plan_ms = next(r["ms"] for k, _n, _s, r in results if k == "kvchaos-bug-nochaos")
+    extra["kvchaos-bug-nochaos"].update(sibling_chaos_ms=statistics.median(ms),
+                                        sibling_chaos_ms_all=ms)
+    log(f"  kvchaos-bug-nochaos under the plan {plan_ms:.4f} ms beside kvchaos-bug with its "
+        f"own chaos {spread(ms)} ms ({NEMESIS_SEEDS} seeds, pool 192, this call, {card})")
+    return refs
+
+
+def lost_write_inv(box: dict):
+    """The soak's kvchaos history invariant, keeping its verdicts."""
+    from madsim_tpu_torch.check import read_your_writes, stale_reads
+
+    def inv(h):
+        box["ok"] = stale_reads(h) & read_your_writes(h)
+        return box["ok"]
+
+    return inv
+
+
+def flagged_by_plain(ref, inv) -> np.ndarray:
+    """The seeds the soak's rule flags in a plain run's final state: the
+    history invariant fails and neither the pool nor the history
+    overflowed."""
+    from madsim_tpu_torch.check import BatchHistory
+    from madsim_tpu_torch.engine.convert import state_to_numpy
+
+    view = state_to_numpy(ref)
+    over = (view["overflow"] > 0) | (view["hist_drop"] > 0)
+    ok = np.asarray(inv(BatchHistory.from_view(view)), bool)
+    return np.nonzero(~ok & ~over)[0].astype(np.uint64)
+
+
+def nemesis_phase(device, refs: dict, paths: dict, extra: dict) -> None:
+    """Phase 37: the nemesis certificates 1-3 and 5-7 on the card, the
+    counts and the shrunk repro pinned from the JAX package's soak."""
+    from madsim_tpu_torch.chaos import shrink_plan
+    from madsim_tpu_torch.check import election_safety
+    from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while_plain, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_kvchaos, make_paxos, make_raft, make_twophase
+    from madsim_tpu_torch.models.paxos import OP_DECIDE as PX_OP_DECIDE
+    from madsim_tpu_torch.models.raft import OP_ELECT
+    from madsim_tpu_torch.models.twophase import OP_DECIDE as TP_OP_DECIDE
+
+    plans, n = nemesis_plans(), NEMESIS_SEEDS
+    kv_cfg = EngineConfig(**NEMESIS_KV_KW)
+    timing = {}
+
+    def search(name, wl, cfg, plan, cap, inv, box, **kw):
+        key = kernel_model(wl, bool(plan and plan.uses_dup())).key
+
+        def go():
+            return search_seeds(wl, cfg, None, n_seeds=n, max_steps=cap,
+                                history_invariant=inv, plan=plan, device=device, **kw)
+
+        rep, counts = path_launches(go)
+        if run_drain(counts, key) != [1, 1] or len(counts) != 2:
+            raise AssertionError(f"{name}: launched {counts}")
+        paths.setdefault(key, {})[f"nemesis_{name}"] = run_drain(counts, key)
+        verdict = box["ok"].copy()
+        _r, timing[name] = host_ms(go, 3)
+        return rep, verdict
+
+    # 1. amplification: the model's own kill against the plan
+    wl_b = make_kvchaos(writes=NEMESIS_KV_WRITES, record=True, bug=True)
+    box = {}
+    rep_b, ok_b = search("builtin", wl_b, kv_cfg, None, NEMESIS_STEPS, lost_write_inv(box), box)
+    caught_b = rep_b.seeds[~ok_b & ~rep_b.overflowed]
+    plain_b = make_run_while_plain(wl_b, kv_cfg, NEMESIS_STEPS)(
+        make_init(wl_b, kv_cfg, device=device)(rep_b.seeds))
+    if not np.array_equal(caught_b, flagged_by_plain(plain_b, lost_write_inv({}))):
+        raise AssertionError("certificate 1: the built-in run's catches differ from the plain step's")
+    wl_n = make_kvchaos(writes=NEMESIS_KV_WRITES, record=True, bug=True, chaos=False)
+    box = {}
+    rep_n, ok_n = search("plan", wl_n, kv_cfg, plans["kv"], NEMESIS_STEPS,
+                         lost_write_inv(box), box)
+    caught_n = rep_n.seeds[~ok_n & ~rep_n.overflowed]
+    if not np.array_equal(caught_n, flagged_by_plain(refs["kvchaos-bug-nochaos"],
+                                                     lost_write_inv({}))):
+        raise AssertionError("certificate 1: the plan run's catches differ from the plain step's")
+    if (caught_b.size, caught_n.size) != (NEMESIS_BUILTIN_CATCHES, NEMESIS_PLAN_CATCHES):
+        raise AssertionError(f"certificate 1: {caught_b.size} and {caught_n.size} catches, the "
+                             f"JAX package {NEMESIS_BUILTIN_CATCHES} and {NEMESIS_PLAN_CATCHES}")
+    if caught_n.size <= caught_b.size or rep_n.unhalted_seeds.size:
+        raise AssertionError("certificate 1: the plan does not amplify, or a seed did not halt")
+    log(f"[37.1] amplification: the plan ({rep_n.plan_hash}) catches the lost write on "
+        f"{caught_n.size} of {n} seeds, the model's own kill on {caught_b.size} "
+        f"({caught_n.size / caught_b.size:.2f}x), each set equal to the plain step's on the "
+        f"card and to the JAX package's counts; search ms {spread(timing['plan'])} and "
+        f"{spread(timing['builtin'])}")
+    # 2. the clean model under the same plan
+    box = {}
+    rep_c, ok_c = search("clean", make_kvchaos(writes=NEMESIS_KV_WRITES, record=True,
+                                               chaos=False),
+                         kv_cfg, plans["kv"], NEMESIS_STEPS, lost_write_inv(box), box)
+    bad = (int((~ok_c & ~rep_c.overflowed).sum()), int(rep_c.overflowed.sum()),
+           int(rep_c.unhalted_seeds.size))
+    if bad != (0, 0, 0):
+        raise AssertionError(f"certificate 2: violations, overflows, unhalted {bad}")
+    log(f"[37.2] clean model under the plan: 0 violations, 0 overflows, 0 unhalted; "
+        f"search ms {spread(timing['clean'])}")
+    # 3. shrink the first failing seed, then replay the shrunk plan
+    first = int(caught_n[0])
+    t = time.perf_counter()
+    res, counts = path_launches(lambda: shrink_plan(
+        wl_n, kv_cfg, first, plans["kv"], history_invariant=lost_write_inv({}),
+        max_steps=NEMESIS_STEPS, device=device))
+    shrink_ms = (time.perf_counter() - t) * 1e3
+    key = kernel_model(wl_n).key
+    paths[key]["shrink"] = run_drain(counts, key)
+    got = dict(events=tuple(tuple(vars(e).values()) for e in res.events), rounds=res.rounds,
+               tested=res.tested, plan_hash=res.plan.hash(), trace=res.trace)
+    if first != NEMESIS_FIRST_FAILING or got != NEMESIS_SHRUNK:
+        raise AssertionError(f"certificate 3: seed {first} shrinks to {got}; the JAX package: "
+                             f"seed {NEMESIS_FIRST_FAILING}, {NEMESIS_SHRUNK}")
+    box = {}
+    rep_r = search_seeds(wl_n, kv_cfg, None, n_seeds=1, max_steps=NEMESIS_STEPS,
+                         seed_base=first, history_invariant=lost_write_inv(box),
+                         plan=res.plan, device=device)
+    if rep_r.failing_seeds.tolist() != [first] or int(rep_r.traces[0]) != res.trace:
+        raise AssertionError("certificate 3: the shrunk plan's replay diverged")
+    log("[37.3] " + res.banner().replace("\n", "\n  "))
+    log(f"  {res.original_events} -> {len(res.events)} events in {res.rounds} rounds "
+        f"({res.tested} candidates), each round one run and one drain launch "
+        f"({paths[key]['shrink']}); {shrink_ms:.1f} ms; the replay fails with the same trace")
+    # 5-7. raft election, paxos and twophase under their plans
+    certs = (
+        ("5", "raft_election", make_raft(record=True), dict(pool_size=64, loss_p=0.02),
+         "raft_el", 2000, OP_ELECT, True),
+        ("6", "paxos", make_paxos(record=True, chaos=False), dict(pool_size=96, loss_p=0.05),
+         "paxos", NEMESIS_STEPS, PX_OP_DECIDE, True),
+        ("7", "twophase", make_twophase(record=True, chaos=False),
+         dict(pool_size=96, loss_p=0.05), "twophase", NEMESIS_STEPS, TP_OP_DECIDE, False),
+    )
+    for num, name, wl, kw, plan, cap, op, halt in certs:
+        box = {}
+
+        def inv(h, op=op, box=box):
+            box["ok"] = election_safety(h, elect_op=op)
+            return box["ok"]
+
+        rep, ok = search(name, wl, EngineConfig(**kw), plans[plan], cap, inv, box,
+                         require_halt=halt)
+        bad = (int((~ok & ~rep.overflowed).sum()), int(rep.overflowed.sum()),
+               int(rep.unhalted_seeds.size))
+        if bad[:2] != (0, 0) or (halt and bad[2]):
+            raise AssertionError(f"certificate {num} ({name}): violations, overflows, "
+                                 f"unhalted {bad}")
+        log(f"[37.{num}] {name} under {plans[plan].name} ({rep.plan_hash}): {bad[0]} "
+            f"violations, {bad[1]} overflows, {bad[2]} unhalted; search ms "
+            f"{spread(timing[name])}")
+    extra.setdefault("kvchaos-bug-nochaos", {}).update(
+        shrink_ms=shrink_ms, shrink_rounds=res.rounds,
+        **{f"nemesis_{k}_search_ms": statistics.median(v) for k, v in timing.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1084,14 +1418,12 @@ def main() -> int:
         for line in build_log.splitlines():
             if "registers" in line or "bytes stack" in line or "Function properties" in line:
                 log(f"    {line.strip()}")
-        spec = next(m for m in MODELS.values() if m.key == key)
-        for pool in spec.pools:
-            log(f"    pool {pool}: {launch_shape(spec, pool, card)}")
+        for pool in MODELS[key].pools:
+            log(f"    pool {pool}: {launch_shape(MODELS[key], pool, card)}")
 
     clock = max_sm_clock_hz()
     entry_err = entry_phase(device, ENTRY_SEEDS)
     results = []
-    by_key = {m.key: m for m in MODELS.values()}
     for i, (spec_name, key, factory_kw) in enumerate(MODEL_PHASES):
         raft = key == "raft"
         r = model_phase(device, 4 + i, spec_name, key, factory_kw, CPU_SAMPLE,
@@ -1099,7 +1431,7 @@ def main() -> int:
         if raft:
             r["err"] = max(r["err"], entry_err)
         name = "make_run_fused" if raft else f"make_run_fused/{key}"
-        results.append((key, name, f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
+        results.append((key, name, f"madsim_tpu_torch/csrc/{MODELS[key].header}", r))
     for _key, name, _src, r in results:
         if r["launches"] < 1 or r["drains"] < 1:
             raise AssertionError(f"{name}: the main path did not launch its run and drain kernels")
@@ -1131,7 +1463,7 @@ def main() -> int:
                         extras=screens_of(spec_name, key))
         if r["launches"] < 1 or r["drains"] < 1 or r["err"] != 0:
             raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
-        results.append((key, f"make_run_fused/{key}", f"madsim_tpu_torch/csrc/{by_key[key].header}", r))
+        results.append((key, f"make_run_fused/{key}", f"madsim_tpu_torch/csrc/{MODELS[key].header}", r))
         paths[key] = {"run_while": [r["launches"], r["drains"]]}
         phase, base = sibling[spec_name]
         log(f"  {key} kernel median {r['ms']:.4f} ms beside {base} {ms_of[base]:.4f} ms "
@@ -1140,6 +1472,8 @@ def main() -> int:
     record_checkpoint_phase(device, paths)
     device_check_phase(device, paths, hunted)
     main_path_screen_phase(device, paths, extra)
+    refs = plan_phases(device, results, paths, extra, card)
+    nemesis_phase(device, refs, paths, extra)
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}))
         for key, name, src, r in results

@@ -60,6 +60,21 @@
 // straight to the output. The capacity is a runtime word, so one
 // library serves every capacity. With R == 0 every history line
 // compiles away.
+//
+// Fault plans. A compiled plan's rows ride in the pool as engine
+// events, so the step dispatches the extended chaos kinds beside the
+// engine kinds: the one-way clog, the slow-link multiplier (an
+// overwrite of every selected cell of `slow`), the duplication flag and
+// a node's clock skew, which its handlers see in `now`; the disk-fault
+// kinds 251-254 change nothing without the sync discipline. `slow`,
+// `skew` and `dup` live in the seed's shared state and are stored back
+// on every run. A library built with duplication rows (DupRows<M>::n ==
+// K, written by the unit engine/fused.py makes for it) has K shadow
+// emit rows after the restart row: row K + 1 + j repeats user row j
+// when that row is a send and the seed's `dup` flag is set, with its own
+// latency and loss draw at PURPOSE_DUP + j, which comes before the user
+// purposes. A shadow row is the user row read again, so the seed's
+// emit rows stay K + 1; its draw words grow to 2K + 1.
 #pragma once
 
 #include <stdint.h>
@@ -82,9 +97,17 @@ constexpr int32_t KIND_PAUSE = 8;
 constexpr int32_t KIND_RESUME = 9;
 constexpr int32_t FIRST_USER_KIND = 10;
 constexpr int32_t FIRST_EXT_KIND = 244;
+constexpr int32_t KIND_SLOW_LINK = 244;
+constexpr int32_t KIND_UNSLOW = 245;
+constexpr int32_t KIND_DUP_ON = 246;
+constexpr int32_t KIND_DUP_OFF = 247;
+constexpr int32_t KIND_SKEW = 248;
+constexpr int32_t KIND_CLOG_1W = 249;
+constexpr int32_t KIND_UNCLOG_1W = 250;
 
 constexpr uint32_t PURPOSE_POLL_COST = 0;
 constexpr uint32_t PURPOSE_LATENCY = 8;
+constexpr uint32_t PURPOSE_DUP = 64;
 constexpr uint32_t PURPOSE_USER = 128;
 
 // the history record convention (check/history.py)
@@ -133,9 +156,8 @@ inline EngineConfig engine_config(const int64_t* c) {
 }
 // One pointer per SimState field the kernel touches (the port's torch
 // layout: seed-major, contiguous), in engine/fused.py KERNEL_FIELDS
-// order. The output side has no seed, slow or skew (the kernel never
-// writes them), ev_pay only when W > 0 and the history columns only
-// when R > 0.
+// order. The output side has no seed (the kernel never writes it),
+// ev_pay only when W > 0 and the history columns only when R > 0.
 struct Fields {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
@@ -158,13 +180,14 @@ struct Fields {
   uint8_t* clog;       // (S,N,N)
   int32_t* slow;       // (S,N,N)
   int32_t* skew;       // (S,N)
+  uint8_t* dup;        // (S,)
   int32_t* hist_count; // (S,)
   int32_t* hist_drop;  // (S,)
   int32_t* hist_word;  // (S,Hc,5) [op, key, arg, client, ok]
   int64_t* hist_t;     // (S,Hc)
 };
 
-constexpr int kFieldPointers = 25;
+constexpr int kFieldPointers = 26;
 
 inline Fields fields(void* const* p) {
   Fields f;
@@ -189,10 +212,11 @@ inline Fields fields(void* const* p) {
   f.clog = static_cast<uint8_t*>(p[18]);
   f.slow = static_cast<int32_t*>(p[19]);
   f.skew = static_cast<int32_t*>(p[20]);
-  f.hist_count = static_cast<int32_t*>(p[21]);
-  f.hist_drop = static_cast<int32_t*>(p[22]);
-  f.hist_word = static_cast<int32_t*>(p[23]);
-  f.hist_t = static_cast<int64_t*>(p[24]);
+  f.dup = static_cast<uint8_t*>(p[21]);
+  f.hist_count = static_cast<int32_t*>(p[22]);
+  f.hist_drop = static_cast<int32_t*>(p[23]);
+  f.hist_word = static_cast<int32_t*>(p[24]);
+  f.hist_t = static_cast<int64_t*>(p[25]);
   return f;
 }
 
@@ -362,6 +386,14 @@ struct UserDraws {
   static MADSIM_HDI uint32_t purpose(int) { return 0; }
 };
 
+// The duplication shadow rows of a library (make_step(dup_rows=True)):
+// n = 0 here, and K in the unit engine/fused.py writes for a library
+// built with them.
+template <class M>
+struct DupRows {
+  static constexpr int n = 0;
+};
+
 // What a handler sees (the port's HandlerCtx, one seed), with the
 // counter-based draws of engine/rng.py Draw.
 template <class M>
@@ -416,6 +448,8 @@ MADSIM_HDI uint64_t trace_fold(uint64_t trace, int64_t now, int32_t kind,
 template <class M, int E>
 struct Seed : SeedHistory<M::R> {
   static constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K;
+  // emit rows with a draw: the user rows, the restart row, the shadows
+  static constexpr int KT = K + 1 + DupRows<M>::n;
   int64_t ev_time[E];
   uint64_t seed;
   int64_t now;
@@ -433,10 +467,10 @@ struct Seed : SeedHistory<M::R> {
   int32_t node_state[N * U];
   int32_t slow[N * N];
   int32_t new_row[U];
-  // this step's draws: the emit rows' latency blocks and the declared
-  // user purposes' first words
-  uint32_t lat0[K + 1];
-  uint32_t lat1[K + 1];
+  // this step's draws: the emit rows' latency blocks (the shadow rows'
+  // too) and the declared user purposes' first words
+  uint32_t lat0[KT];
+  uint32_t lat1[KT];
   uint32_t user0[UserDraws<M>::n > 0 ? UserDraws<M>::n : 1];
   uint32_t step;
   int32_t overflow;
@@ -444,6 +478,7 @@ struct Seed : SeedHistory<M::R> {
   bool paused[N];
   bool clog[N * N];
   bool halted;
+  bool dup;
 };
 
 MADSIM_HDI void block_sync() {
@@ -531,6 +566,8 @@ MADSIM_HD void block_load(Seed<M, E>* blk, const Fields& f, int64_t first,
              [&](int b, int, int32_t v) { blk[b].overflow = v; });
   rows_in<1>(f.msg_count, first, nb, tid, nt,
              [&](int b, int, int64_t v) { blk[b].msg_count = v; });
+  rows_in<1>(f.dup, first, nb, tid, nt,
+             [&](int b, int, uint8_t v) { blk[b].dup = v != 0; });
   rows_in<E>(f.ev_time, first, nb, tid, nt,
              [&](int b, int k, int64_t v) { blk[b].ev_time[k] = v; });
   rows_in<E>(f.ev_meta, first, nb, tid, nt,
@@ -608,6 +645,10 @@ MADSIM_HD void block_store(const Seed<M, E>* blk, const Fields& f,
                   [&](int b, int k) { return blk[b].node_state[k]; });
   rows_out<N * N>(f.clog, first, nb, tid, nt,
                   [&](int b, int k) { return static_cast<uint8_t>(blk[b].clog[k]); });
+  rows_out<N * N>(f.slow, first, nb, tid, nt, [&](int b, int k) { return blk[b].slow[k]; });
+  rows_out<N>(f.skew, first, nb, tid, nt, [&](int b, int k) { return blk[b].skew[k]; });
+  rows_out<1>(f.dup, first, nb, tid, nt,
+              [&](int b, int) { return static_cast<uint8_t>(blk[b].dup); });
   if constexpr (M::R > 0) {
     rows_out<1>(f.hist_count, first, nb, tid, nt,
                 [&](int b, int) { return blk[b].hist_count; });
@@ -673,17 +714,20 @@ MADSIM_HDI void clear_rows(const Lanes<G>& g, Emit<M::A, M::W>* em) {
 // Place the dispatch's emit rows, lane l taking rows l, l + G, ...: loss,
 // dead destinations and latency (its draw taken at the step's start),
 // then the j-th surviving emit into the j-th free slot, its rank from a
-// ballot and its slot from the free bits. The lanes zero their rows for
-// the next dispatch; the leader marks the slots taken and counts sends
-// and overflow.
+// ballot and its slot from the free bits. Rows past the restart row are
+// the shadow rows: user row j - K - 1 again, while `dup` is set and it
+// is a send. The lanes zero their rows for the next dispatch; the
+// leader marks the slots taken and counts sends and overflow.
 template <class M, int E, int G>
 MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
                            const EngineConfig& c, int64_t now_after,
                            int32_t dst, bool in_range, int dst_c) {
-  constexpr int N = M::N, A = M::A, W = M::W, KR = M::K + 1;
+  constexpr int N = M::N, A = M::A, W = M::W, KR = M::K + 1, KT = Seed<M, E>::KT;
   using B = PoolBits<E>;
+  // row j's emit: a shadow row reads its user row
+  auto row = [&](int j) -> const Emit<A, W>& { return s.em[j < KR ? j : j - KR]; };
   int kept = 0, sends = 0;
-  for (int j0 = 0; j0 < KR; j0 += G) {
+  for (int j0 = 0; j0 < KT; j0 += G) {
     PerLane<bool, G> keep, sent;
     PerLane<int64_t, G> when;
     g.each([&](int l) {
@@ -691,9 +735,9 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
       sent[l] = false;
       when[l] = 0;
       const int j = j0 + l;
-      if (j >= KR) return;
-      const Emit<A, W>& e = s.em[j];
-      if (!e.valid) return;
+      if (j >= KT) return;
+      const Emit<A, W>& e = row(j);
+      if (!e.valid || (j >= KR && !(e.send && s.dup))) return;
       const bool em_in_range = e.dst >= 0 && e.dst < N;
       const int em_c = clampi(e.dst, 0, N - 1);
       if (e.send) {
@@ -716,7 +760,7 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
       if (!keep[l]) return;
       const int slot = B::nth_free(s.ev_bits, kept + popc32(ballot & ((1u << l) - 1u)));
       if (slot < 0) return;  // overflow, counted below
-      const Emit<A, W>& e = s.em[j0 + l];
+      const Emit<A, W>& e = row(j0 + l);
       const bool em_in_range = e.dst >= 0 && e.dst < N;
       const bool em_engine = e.kind < FIRST_USER_KIND || e.kind >= FIRST_EXT_KIND;
       const int32_t mk = e.kind < 0 ? KIND_NOP : (e.kind > 255 ? 255 : e.kind);
@@ -756,23 +800,26 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
   // ev_meta packs the kind and node + 1 in one byte each
   static_assert(FIRST_USER_KIND + H - 1 < 256, "user kinds fit a byte");
   static_assert(N < 255, "node + 1 fits a byte");
-  constexpr int KR = K + 1, D = KR + UserDraws<M>::n;
+  constexpr int KR = K + 1, KT = Seed<M, E>::KT, D = KT + UserDraws<M>::n;
   const uint32_t k0 = static_cast<uint32_t>(s.seed);
   const uint32_t k1 = static_cast<uint32_t>(s.seed >> 32);
   const uint32_t step = s.step;
   // ---- this step's draws, a few per lane, beside the pop: they depend
-  // on (seed, step) alone; a step that dispatches nothing wastes them ----
+  // on (seed, step) alone; a step that dispatches nothing wastes them.
+  // The emit rows' purposes, then the shadow rows', then the user's ----
   g.each([&](int l) {
     for (int d = l; d < D; d += G) {
       uint32_t x0, x1;
-      const uint32_t purpose = d < KR ? PURPOSE_LATENCY + static_cast<uint32_t>(d)
-                                      : PURPOSE_USER + UserDraws<M>::purpose(d - KR);
+      const uint32_t purpose =
+          d < KR ? PURPOSE_LATENCY + static_cast<uint32_t>(d)
+                 : (d < KT ? PURPOSE_DUP + static_cast<uint32_t>(d - KR)
+                           : PURPOSE_USER + UserDraws<M>::purpose(d - KT));
       threefry2x32(k0, k1, step, purpose, &x0, &x1);
-      if (d < KR) {
+      if (d < KT) {
         s.lat0[d] = x0;
         s.lat1[d] = x1;
       } else {
-        s.user0[d - KR] = x0;
+        s.user0[d - KT] = x0;
       }
     }
   });
@@ -799,7 +846,7 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
   int32_t pay[W > 0 ? W : 1];
   for (int j = 0; j < A; j++) args[j] = s.ev_args[i * A + j];
   for (int j = 0; j < W; j++) pay[j] = s.ev_pay[i * W + j];
-  const int32_t a0 = args[0];
+  const int32_t a0 = args[0], a1 = args[1];
   const int32_t ev_epoch_i = s.ev_epoch[i];
   const bool is_engine = kind < FIRST_USER_KIND || kind >= FIRST_EXT_KIND;
   const bool is_msg = src >= 0;
@@ -883,13 +930,33 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
       } else if (kind >= KIND_CLOG && kind <= KIND_UNCLOG_NODE) {
         const bool on = kind == KIND_CLOG || kind == KIND_CLOG_NODE;
         const bool node_wide = kind == KIND_CLOG_NODE || kind == KIND_UNCLOG_NODE;
-        const int32_t ca = a0, cb = node_wide ? -1 : args[1];
+        const int32_t ca = a0, cb = node_wide ? -1 : a1;
         for (int x = 0; x < N; x++)
           for (int y = 0; y < N; y++) {
             const bool sel = (x == ca && y == cb) || (x == cb && y == ca) ||
                              (cb < 0 && (x == ca || y == ca));
             if (sel) s.clog[x * N + y] = on;
           }
+      } else if (kind == KIND_CLOG_1W || kind == KIND_UNCLOG_1W) {
+        // one direction: src a0 -> dst a1
+        if (a0 >= 0 && a0 < N && a1 >= 0 && a1 < N)
+          s.clog[a0 * N + a1] = kind == KIND_CLOG_1W;
+      } else if (kind == KIND_SLOW_LINK || kind == KIND_UNSLOW) {
+        // the packed peer (-1: every link of a0) and multiplier; each
+        // selected cell is overwritten
+        const int32_t b = (a1 & 0xFF) - 1;
+        const int32_t shifted = a1 >> 8;  // arithmetic, as the plain step
+        const int32_t mult = kind == KIND_UNSLOW ? 1 : (shifted > 1 ? shifted : 1);
+        for (int x = 0; x < N; x++)
+          for (int y = 0; y < N; y++) {
+            const bool sel = (x == a0 && y == b) || (x == b && y == a0) ||
+                             (b < 0 && (x == a0 || y == a0));
+            if (sel) s.slow[x * N + y] = mult;
+          }
+      } else if (kind == KIND_DUP_ON || kind == KIND_DUP_OFF) {
+        s.dup = kind == KIND_DUP_ON;
+      } else if (kind == KIND_SKEW) {
+        if (a0 >= 0 && a0 < N) s.skew[a0] = a1;
       }
     }
     g.sync();

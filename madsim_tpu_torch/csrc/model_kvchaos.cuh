@@ -7,14 +7,16 @@
 // RECORD is the record variant (kvchaos-record): the client records its
 // writes and the reads it probes the primary with, three record rows a
 // call. BUG (kvchaos-bug, with RECORD) plants the lost-write fault: a
-// replica's join also resets the primary's commit point.
+// replica's join also resets the primary's commit point. CHAOS = false
+// is the variant without the model's own kill and restart (chaos=False,
+// for fault plans): on_init emits four rows, not six.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool PAYLOAD, bool RECORD = false, bool BUG = false>
+template <bool PAYLOAD, bool RECORD = false, bool BUG = false, bool CHAOS = true>
 struct KvChaosModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
   static constexpr int NR = 4;  // replicas
@@ -93,7 +95,7 @@ struct KvChaosModel {
         // replicas announce themselves, at t=0 and after a restart
         em[2].to(is_replica, PRIMARY, K_JOIN, c.node);
         em[3].after(is_replica, p.retx_ns, K_JRETX, c.node);
-        if (is_client) {  // the seed's chaos schedule
+        if (CHAOS && is_client) {  // the seed's chaos schedule
           const int32_t who = static_cast<int32_t>(c.user_int(1, 1 + NR, P_KILL_WHO));
           const int64_t at = c.user_int(20000000, 300000000, P_KILL_AT);
           const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);

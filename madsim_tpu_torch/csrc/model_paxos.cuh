@@ -5,14 +5,15 @@
 // the event's sender (Ctx::src); a NACK fast-forwards the proposer's
 // round to floor(ballot / P) + 1. PaxosModel<true> is the record
 // variant (paxos-record): a decision reached or first adopted appends an
-// OP_DECIDE history record.
+// OP_DECIDE history record. CHAOS = false (chaos=False, for fault
+// plans) drops acceptor 0's kill and restart of a proposer.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD = false>
+template <bool RECORD = false, bool CHAOS = true>
 struct PaxosModel {
   static constexpr int NA = 5, NP = 3;  // acceptors, proposers
   static constexpr int N = NA + NP, U = 10, A = 3, W = 0, K = NA + 2, H = 8;
@@ -64,7 +65,7 @@ struct PaxosModel {
         arm(em[0], c, 1, is_prop, p.start_min, p.start_max, P_START);
         // acceptor 0's t=0 init schedules the seed's kill and restart of
         // one proposer (a reborn proposer re-runs on_init at now > 0)
-        if (c.node == 0 && c.now == 0) {
+        if (CHAOS && c.node == 0 && c.now == 0) {
           const int32_t who = NA + static_cast<int32_t>(c.user_int(0, NP, P_KILL_WHO));
           const int64_t at = c.user_int(p.kill_min, p.kill_max, P_KILL_AT);
           const int64_t revive = c.user_int(p.revive_min, p.revive_max, P_REVIVE);

@@ -10,14 +10,15 @@
 // and on_resync, sharing a body), so that handler 7 ran that body on
 // the card, where g++ ran it right. TwoPhaseModel<true> is the record
 // variant (twophase-record): every decision taken or adopted appends an
-// OP_DECIDE history record.
+// OP_DECIDE history record. CHAOS = false (chaos=False, for fault
+// plans) drops the coordinator's kill, restart and resync rows.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD = false>
+template <bool RECORD = false, bool CHAOS = true>
 struct TwoPhaseModel {
   static constexpr int P = 4;  // participants
   static constexpr int N = 1 + P, U = 6, A = 3, W = 0, K = 2 * P + 2, H = 9;
@@ -81,14 +82,16 @@ struct TwoPhaseModel {
         // a (re)born participant announces itself, retried by a timer
         em[P + 1].to(!is_coord, COORD, K_HELLO, c.node);
         em[P + 2].after(!is_coord, p.retx_ns, K_HRETX, c.node);
-        if (is_coord) {  // the seed's chaos schedule
-          const int32_t who = static_cast<int32_t>(c.user_int(1, N, P_KILL_WHO));
-          const int64_t at = c.user_int(20000000, 250000000, P_KILL_AT);
-          const int64_t revive = c.user_int(p.revive_min, p.revive_max, P_REVIVE);
-          em[P + 3].after(true, at, KIND_KILL, 0, who);
-          em[P + 4].after(true, at + revive, KIND_RESTART, 0, who);
-          // the loss-free local resync at the revive time
-          em[P + 5].after(true, at + revive, K_RESYNC, COORD, who);
+        if (is_coord) {
+          if constexpr (CHAOS) {  // the seed's chaos schedule
+            const int32_t who = static_cast<int32_t>(c.user_int(1, N, P_KILL_WHO));
+            const int64_t at = c.user_int(20000000, 250000000, P_KILL_AT);
+            const int64_t revive = c.user_int(p.revive_min, p.revive_max, P_REVIVE);
+            em[P + 3].after(true, at, KIND_KILL, 0, who);
+            em[P + 4].after(true, at + revive, KIND_RESTART, 0, who);
+            // the loss-free local resync at the revive time
+            em[P + 5].after(true, at + revive, K_RESYNC, COORD, who);
+          }
           ns[0] = 1;
         }
         break;

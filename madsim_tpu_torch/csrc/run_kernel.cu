@@ -102,10 +102,12 @@ __global__ void __launch_bounds__(kThreads) drain_kernel(const madsim::DrainArgs
   madsim::drain_block<E, kGroup>(blk, d, first, nb, threadIdx.x, blockDim.x);
 }
 
-// a block above 48 KB of dynamic shared memory needs the attribute
+// a block above 48 KB of shared memory needs the attribute; the kernels'
+// static words (run_kernel's block_max) count against the 48 KB too, so
+// the attribute is set from 1 KB below it
 template <class K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes + 1024 <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
@@ -207,7 +209,8 @@ int madsim_occupancy(int32_t pool, int32_t device, int64_t* out) {
 }
 
 // the model's compile-time shape, for the wrapper to check against the
-// workload: N, U, A, W, K, H, R, then the run and drain pointer counts
+// workload: N, U, A, W, K, H, R, the run and drain pointer counts, and
+// the duplication shadow rows (0, or K for a dup_rows library)
 void madsim_shape(int64_t* out) {
   out[0] = Model::N;
   out[1] = Model::U;
@@ -218,6 +221,7 @@ void madsim_shape(int64_t* out) {
   out[6] = Model::R;
   out[7] = madsim::kRunPointers;
   out[8] = madsim::kDrainPointers;
+  out[9] = madsim::DupRows<Model>::n;
 }
 
 }  // extern "C"

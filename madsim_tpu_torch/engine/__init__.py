@@ -4,21 +4,34 @@ from .core import (  # noqa: F401
     FIRST_EXT_KIND,
     FIRST_USER_KIND,
     KIND_CLOG,
+    KIND_CLOG_1W,
     KIND_CLOG_NODE,
+    KIND_DUP_OFF,
+    KIND_DUP_ON,
     KIND_HALT,
     KIND_KILL,
     KIND_NOP,
     KIND_PAUSE,
     KIND_RESTART,
     KIND_RESUME,
+    KIND_SKEW,
+    KIND_SLOW_LINK,
+    KIND_SYNC_LOSS,
+    KIND_SYNC_OK,
+    KIND_TORN_OFF,
+    KIND_TORN_ON,
     KIND_UNCLOG,
+    KIND_UNCLOG_1W,
     KIND_UNCLOG_NODE,
+    KIND_UNSLOW,
+    SLOW_MULT_MAX,
     STATE_FIELDS,
     EmitBuilder,
     Emits,
     EngineConfig,
     HandlerCtx,
     HistorySpec,
+    PlanRows,
     SimState,
     Workload,
     make_init,
@@ -28,8 +41,10 @@ from .core import (  # noqa: F401
     make_run_while_plain,
     make_step,
     make_step_plain,
+    pack_slow_arg,
     resolve_device,
     set_cols,
+    unpack_slow_arg,
     user_kind,
 )
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401

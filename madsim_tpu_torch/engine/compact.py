@@ -86,8 +86,6 @@ HIST_FIELDS = ("hist_word", "hist_t", "hist_count", "hist_drop")
 # options of the reference's runners whose engine axes the port does not
 # have yet, and the ROADMAP queue A item that ports each
 UNPORTED_OPTIONS = {
-    "plan": "A8", "plan_slots": "A8", "plan_rows": "A8", "plan_hash": "A8",
-    "dup_rows": "A8",
     "cov_words": "A8", "cov_hitcount": "A8", "metrics": "A8",
     "timeline_cap": "A8", "latency": "A8", "causal": "A8", "retry": "A8",
 }
@@ -244,8 +242,8 @@ def _screen_bank(bank: dict, screens) -> dict:
 
 
 def _phase_program(wl: Workload, cfg: EngineConfig, max_steps: int,
-                   shrink: int, min_size: int, fields):
-    step = make_step_plain(wl, cfg)
+                   shrink: int, min_size: int, fields, dup_rows: bool = False):
+    step = make_step_plain(wl, cfg, dup_rows)
 
     def compute(state: SimState) -> list:
         s0 = state.seed.shape[0]
@@ -271,11 +269,11 @@ def _phase_program(wl: Workload, cfg: EngineConfig, max_steps: int,
 
 def make_run_compacted_plain(
     wl: Workload, cfg: EngineConfig, max_steps: int, shrink: int = 4,
-    min_size: int = 2048, fields: tuple = RESULT_FIELDS,
+    min_size: int = 2048, fields: tuple = RESULT_FIELDS, dup_rows: bool = False,
 ):
     """The phase program with the plain eager step, on any device."""
     _check(fields, shrink, min_size)
-    compute = _phase_program(wl, cfg, max_steps, shrink, min_size, fields)
+    compute = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows)
     return _runner(compute, fields, shrink, min_size, max_steps)
 
 
@@ -303,7 +301,9 @@ def make_run_compacted(
     n_seeds`` it is one phase, ``make_run_while`` by another name. A CPU
     state runs the phase program with the plain step; a CUDA state
     launches the run kernel once (or raises for a workload the kernel
-    does not carry).
+    does not carry). A fault plan's rows come in the state from
+    ``make_init(plan_slots=...)``; ``dup_rows`` runs the step with the
+    duplication rows (a plan with ``Duplicate`` needs them).
 
     ``hist_screen`` (a ``check.device.HistoryScreen`` or a tuple of
     them) screens every bank's histories on its device and folds the
@@ -318,13 +318,13 @@ def make_run_compacted(
     until their engine axes are ported.
     """
     refuse_unported(
-        dup_rows=dup_rows, cov_words=cov_words, metrics=metrics,
+        cov_words=cov_words, metrics=metrics,
         timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
         latency=latency, causal=causal, retry=retry,
     )
     _check(fields, shrink, min_size)
     screens = _screens(wl, hist_screen, fields)
-    plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields)
+    plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows)
 
     def compute(state: SimState) -> list:
         if state.device.type == "cpu":
@@ -332,7 +332,8 @@ def make_run_compacted(
         else:
             from .fused import _first_pass
 
-            _spec, out, iters, _tmax = _first_pass(wl, cfg, state, max_steps, True)
+            _spec, out, iters, _tmax = _first_pass(wl, cfg, state, max_steps, True,
+                                                   dup_rows)
             banks = one_launch_banks(state, out, iters, fields)
         if screens is None:
             return banks

@@ -7,6 +7,11 @@ epoch, clog and pause, dispatch the engine kinds inline and the user
 handlers by kind, apply kill/restart/pause/clog/halt, place the emits
 into free slots, fold the trace hash and advance the clock.
 
+A compiled fault plan (``chaos/plan.py``) rides in the pool:
+``make_init(plan_slots=P)`` seeds its rows, and the step dispatches the
+extended chaos kinds (244-254) beside the engine kinds; ``dup_rows``
+adds the message-duplication shadow rows.
+
 A workload with a :class:`HistorySpec` also records operation
 histories: its handlers call :meth:`EmitBuilder.record`, and the step
 appends a user dispatch's records to the ``hist_*`` columns of the
@@ -48,6 +53,7 @@ import torch
 from .rng import (
     DRAW_SPAN_MAX,
     M32,
+    PURPOSE_DUP,
     PURPOSE_LATENCY,
     PURPOSE_LOSS,
     PURPOSE_POLL_COST,
@@ -77,6 +83,22 @@ __all__ = [
     "KIND_RESUME",
     "FIRST_USER_KIND",
     "FIRST_EXT_KIND",
+    "KIND_SLOW_LINK",
+    "KIND_UNSLOW",
+    "KIND_DUP_ON",
+    "KIND_DUP_OFF",
+    "KIND_SKEW",
+    "KIND_CLOG_1W",
+    "KIND_UNCLOG_1W",
+    "KIND_SYNC_LOSS",
+    "KIND_SYNC_OK",
+    "KIND_TORN_ON",
+    "KIND_TORN_OFF",
+    "SLOW_MULT_MAX",
+    "POOL_TILE_CANDIDATES",
+    "PlanRows",
+    "pack_slow_arg",
+    "unpack_slow_arg",
     "user_kind",
     "get_col",
     "set_col",
@@ -108,11 +130,31 @@ KIND_NOP = 7
 KIND_PAUSE = 8  # args[0]=node
 KIND_RESUME = 9  # args[0]=node
 FIRST_USER_KIND = 10
-# Kinds from FIRST_EXT_KIND up are the JAX package's extended chaos
-# kinds. They classify as engine kinds here too (no epoch/pause gate),
-# but their effects are not ported yet: none of the ported models emits
-# them.
+# Extended chaos kinds (``chaos/plan.py``), at the top of the kind byte:
+# engine kinds again (no epoch or pause gate). The disk-fault kinds
+# 251-254 act only on a workload with the sync discipline, which the
+# port does not have yet: here they fold into the trace and change no
+# state, as in the JAX engine without ``durable_sync``.
 FIRST_EXT_KIND = 244
+KIND_SLOW_LINK = 244  # args[0]=a args[1]=pack_slow_arg(b, mult): a<->b
+#                       latency times mult (b=-1: every link of a)
+KIND_UNSLOW = 245  # args[0]=a args[1]=pack_slow_arg(b, 1): back to x1
+KIND_DUP_ON = 246  # message duplication (needs dup_rows)
+KIND_DUP_OFF = 247
+KIND_SKEW = 248  # args[0]=node args[1]=skew ns: its handlers see now+skew
+KIND_CLOG_1W = 249  # args[0]=src args[1]=dst: one direction only
+KIND_UNCLOG_1W = 250
+KIND_SYNC_LOSS = 251  # args[0]=node (-1: every node), args[1]=0 lie, 1 EIO
+KIND_SYNC_OK = 252
+KIND_TORN_ON = 253
+KIND_TORN_OFF = 254
+
+# the largest slow-link multiplier pack_slow_arg's word carries (bits
+# 8..30 of an int32)
+SLOW_MULT_MAX = (1 << 23) - 1
+# the JAX package's readiness-index tile widths; FaultPlan.min_pool_size
+# rounds a pool up to the first
+POOL_TILE_CANDIDATES = (64, 32, 16, 8)
 
 _TRACE_PRIME = 0x100000001B3
 _TRACE_MIX = 0x9E3779B97F4A7C15 - (1 << 64)  # as an int64 bit pattern
@@ -121,6 +163,25 @@ _TRACE_MIX = 0x9E3779B97F4A7C15 - (1 << 64)  # as an int64 bit pattern
 def user_kind(i: int) -> int:
     """Kind id of user handler ``i`` (handler 0 = on_init)."""
     return FIRST_USER_KIND + i
+
+
+def pack_slow_arg(b, mult):
+    """A slow-link peer and multiplier in one int32 args word: the low
+    byte is the peer + 1 (0 = node-wide), bits 8 and up the multiplier.
+    Takes Python ints, numpy arrays (the plan compiler) and tensors (a
+    handler's emits)."""
+    if isinstance(b, (int, np.integer)) and isinstance(mult, (int, np.integer)):
+        return ((int(b) + 1) & 0xFF) | (int(mult) << 8)
+    if isinstance(b, np.ndarray) or isinstance(mult, np.ndarray):
+        return ((np.asarray(b, np.int64) + 1) & 0xFF) | (np.asarray(mult, np.int64) << 8)
+    b = torch.as_tensor(b).to(torch.int32)
+    return ((b + 1) & 0xFF) | (torch.as_tensor(mult, device=b.device).to(torch.int32) << 8)
+
+
+def unpack_slow_arg(word: int) -> tuple:
+    """Inverse of :func:`pack_slow_arg` for host ints: ``(peer, mult)``,
+    peer -1 meaning node-wide."""
+    return (int(word) & 0xFF) - 1, int(word) >> 8
 
 
 def set_cols(state: torch.Tensor, cond, cols: dict) -> torch.Tensor:
@@ -355,6 +416,49 @@ class EmitBuilder:
 
     def unclog_link(self, a, b, when=True):
         self.after(0, KIND_UNCLOG, 0, (a, b), when)
+
+    def clog_link_one_way(self, src, dst, when=True):
+        """Asymmetric partition edge: block src -> dst only."""
+        self.after(0, KIND_CLOG_1W, 0, (src, dst), when)
+
+    def unclog_link_one_way(self, src, dst, when=True):
+        self.after(0, KIND_UNCLOG_1W, 0, (src, dst), when)
+
+    def slow_link(self, a, b, mult, when=True):
+        """Gray failure: a<->b latency times ``mult`` (b=-1 slows every
+        link in or out of a)."""
+        self.after(0, KIND_SLOW_LINK, 0, (a, pack_slow_arg(b, mult)), when)
+
+    def unslow_link(self, a, b, when=True):
+        self.after(0, KIND_UNSLOW, 0, (a, pack_slow_arg(b, 1)), when)
+
+    def dup_on(self, when=True):
+        """Start duplicating messages (needs ``dup_rows=True``)."""
+        self.after(0, KIND_DUP_ON, 0, (), when)
+
+    def dup_off(self, when=True):
+        self.after(0, KIND_DUP_OFF, 0, (), when)
+
+    def set_skew(self, node, skew_ns, when=True):
+        """Set the node's clock skew: its handlers observe now+skew_ns."""
+        self.after(0, KIND_SKEW, 0, (node, skew_ns), when)
+
+    # the disk-fault kinds: engine events that change no state on a
+    # workload without the sync discipline (the only kind the port has)
+    def sync_loss(self, node, when=True):
+        self.after(0, KIND_SYNC_LOSS, 0, (node,), when)
+
+    def sync_eio(self, node, when=True):
+        self.after(0, KIND_SYNC_LOSS, 0, (node, 1), when)
+
+    def sync_ok(self, node, when=True):
+        self.after(0, KIND_SYNC_OK, 0, (node,), when)
+
+    def torn_on(self, node, when=True):
+        self.after(0, KIND_TORN_ON, 0, (node,), when)
+
+    def torn_off(self, node, when=True):
+        self.after(0, KIND_TORN_OFF, 0, (node,), when)
 
     def halt(self, when=True):
         self.after(0, KIND_HALT, 0, (), when)
@@ -604,32 +708,90 @@ def _seeds_tensor(seeds, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def make_init(wl: Workload, cfg: EngineConfig, device=None):
+@dataclasses.dataclass
+class PlanRows:
+    """Per-seed fault-plan events as pre-seeded pool rows, from
+    ``chaos.FaultPlan.compile_batch``: slot ``j`` of seed ``s`` becomes
+    pool row ``n_nodes + j`` of the state ``make_init(plan_slots=P)``'s
+    ``init(seeds, plan)`` builds. Invalid rows stay empty slots. Numpy
+    arrays or tensors."""
+
+    time: object  # (S, P) int64 absolute ns
+    kind: object  # (S, P) int32 engine, extended-chaos or user kind
+    args: object  # (S, P, 2) int32: engine kinds read args[0:2]
+    valid: object  # (S, P) bool
+    # the row's target node (a user-kind row's); None: every row
+    # targets node 0, which engine kinds ignore
+    node: object = None  # (S, P) int32, or None
+
+
+def _plan_col(x, dtype, dev) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    return torch.from_numpy(np.array(x, copy=True)).to(device=dev, dtype=dtype)
+
+
+def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0):
     """Build ``init(seeds) -> SimState``: one on_init event per node at
-    t=0 in slots ``0..N-1``, every other slot an invalid NOP."""
-    n, u, e = wl.n_nodes, wl.state_width, cfg.pool_size
-    if e < n:
+    t=0 in slots ``0..N-1``, every other slot an invalid NOP.
+
+    ``plan_slots=P`` reserves pool rows ``N..N+P-1`` for a compiled
+    fault plan: ``init(seeds, plan)`` then needs a :class:`PlanRows`
+    with ``(S, P)`` events. A plan row is a timer (no source); an
+    engine or chaos row has epoch 0, a user-kind row epoch -1 (any
+    incarnation of its target)."""
+    n, u, e, p = wl.n_nodes, wl.state_width, cfg.pool_size, plan_slots
+    if e < n + p:
         raise ValueError(
-            f"pool_size={e} must hold one on_init event per node ({n})"
+            f"pool_size={e} must hold one on_init event per node ({n}) "
+            f"plus the {p} fault-plan rows"
         )
     _check_meta_ranges(wl)
     dev = resolve_device(device)
     base_state = torch.from_numpy(wl.initial_state()).to(dev)
     h = wl.history.capacity if wl.history is not None else 0
 
-    def init(seeds) -> SimState:
+    def init(seeds, plan: PlanRows | None = None) -> SimState:
         seed = _seeds_tensor(seeds, dev)
         s = seed.shape[0]
         z = lambda *shape, dt: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
         ev_valid = z(s, e, dt=torch.bool)
         ev_valid[:, :n] = True
-        kind = torch.full((e,), KIND_NOP, dtype=torch.int32, device=dev)
-        kind[:n] = FIRST_USER_KIND
+        kind = torch.full((s, e), KIND_NOP, dtype=torch.int32, device=dev)
+        kind[:, :n] = FIRST_USER_KIND
         # slots past the on_init rows target node 0, as in the reference
-        node1 = torch.ones((e,), dtype=torch.int32, device=dev)
-        node1[:n] = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
-        zero = torch.zeros((e,), dtype=torch.int32, device=dev)
-        meta = _meta_pack(kind, node1, zero, zero)
+        node1 = torch.ones((s, e), dtype=torch.int32, device=dev)
+        node1[:, :n] = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+        ev_time = z(s, e, dt=torch.int64)
+        ev_args = z(s, e, wl.args_words, dt=torch.int32)
+        ev_epoch = z(s, e, dt=torch.int32)
+        if p:
+            if plan is None:
+                raise ValueError(
+                    f"init was built with plan_slots={p}; pass the compiled "
+                    f"PlanRows"
+                )
+            pk = _plan_col(plan.kind, torch.int32, dev)
+            if tuple(pk.shape) != (s, p):
+                raise ValueError(
+                    f"the plan carries rows of shape {tuple(pk.shape)}; "
+                    f"{s} seeds and plan_slots={p} need {(s, p)}"
+                )
+            rows = slice(n, n + p)
+            ev_valid[:, rows] = _plan_col(plan.valid, torch.bool, dev)
+            kind[:, rows] = pk
+            ev_time[:, rows] = _plan_col(plan.time, torch.int64, dev)
+            ev_args[:, rows, 0:2] = _plan_col(plan.args, torch.int32, dev)
+            is_user_row = (pk >= FIRST_USER_KIND) & (pk < FIRST_EXT_KIND)
+            ev_epoch[:, rows] = torch.where(is_user_row, -1, 0).to(torch.int32)
+            # clipped to the meta byte like every emit: an out-of-range
+            # target matches nothing downstream
+            pn = (
+                torch.zeros_like(pk) if plan.node is None
+                else _plan_col(plan.node, torch.int32, dev)
+            )
+            node1[:, rows] = pn.clamp(-1, n) + 1
+        meta = _meta_pack(kind, node1, torch.zeros_like(kind), torch.zeros_like(kind))
         return SimState(
             seed=seed,
             now=z(s, dt=torch.int64),
@@ -639,11 +801,11 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None):
             trace=z(s, dt=torch.int64),
             overflow=z(s, dt=torch.int32),
             msg_count=z(s, dt=torch.int64),
-            ev_time=z(s, e, dt=torch.int64),
+            ev_time=ev_time,
             ev_valid=ev_valid,
-            ev_meta=meta.expand(s, e).contiguous(),
-            ev_epoch=z(s, e, dt=torch.int32),
-            ev_args=z(s, e, wl.args_words, dt=torch.int32),
+            ev_meta=meta,
+            ev_epoch=ev_epoch,
+            ev_args=ev_args,
             ev_pay=z(s, e, wl.payload_words, dt=torch.int32),
             alive=torch.ones((s, n), dtype=torch.bool, device=dev),
             paused=z(s, n, dt=torch.bool),
@@ -695,14 +857,23 @@ def _with_records(out: tuple, rr: int, s: int, dev) -> tuple:
     return state, em
 
 
-def _plain_step_fn(wl: Workload, cfg: EngineConfig):
-    """The eager batched step: ``step(SimState) -> SimState``."""
+def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
+    """The eager batched step: ``step(SimState) -> SimState``.
+
+    ``dup_rows`` adds the duplication shadow rows: K rows after the
+    restart row, row j a copy of user emit row j when it is a send and
+    the seed's ``dup`` flag is set, each with its own latency and loss
+    pair at purpose ``PURPOSE_DUP + j``. Their lanes sit between the
+    emit rows' and the user purposes', so the user lanes move up by K."""
     n, k, w, aw = wl.n_nodes, wl.max_emits, wl.payload_words, wl.args_words
     n_user = len(wl.handlers)
     _check_meta_ranges(wl)
     user_purposes = tuple(int(p) for p in (wl.draw_purposes or ()))
+    n_em_lanes = (k + 1) + (k if dup_rows else 0)
     lane_p = [PURPOSE_POLL_COST]
     lane_p += [PURPOSE_LATENCY + s for s in range(k + 1)]
+    if dup_rows:
+        lane_p += [PURPOSE_DUP + s for s in range(k)]
     i_user = len(lane_p)
     lane_p += [PURPOSE_USER + p for p in user_purposes]
     loss_u32 = cfg.loss_u32
@@ -866,6 +1037,33 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
         clog = torch.where(
             sel_c & (cs == 1), True, torch.where(sel_c & (cs == 0), False, st.clog)
         )
+        # the asymmetric partition edge: one direction only
+        is_c1w = (kind == KIND_CLOG_1W) | (kind == KIND_UNCLOG_1W)
+        c1w_set = torch.where(
+            dispatch & is_c1w, (kind == KIND_CLOG_1W).to(torch.int32), -1
+        )[:, None, None]
+        sel_1w = (src_ax == ca) & (dst_ax == a1[:, None, None])
+        clog = torch.where(
+            sel_1w & (c1w_set == 1), True,
+            torch.where(sel_1w & (c1w_set == 0), False, clog),
+        )
+
+        # ---- extended chaos: gray failure, duplication, skew. The
+        # identities (slow 1, dup off, skew 0) change nothing for a
+        # workload that never emits them. A slow kind OVERWRITES every
+        # cell it selects, pair or node-wide; UNSLOW writes 1 ----
+        is_slow_kind = (kind == KIND_SLOW_LINK) | (kind == KIND_UNSLOW)
+        slow_b = ((a1 & 0xFF) - 1)[:, None, None]  # packed peer; -1 node-wide
+        slow_mult = torch.clamp(a1 >> 8, min=1)  # arithmetic shift
+        slow_mult = torch.where(kind == KIND_UNSLOW, 1, slow_mult)
+        slow_set = torch.where(dispatch & is_slow_kind, slow_mult, -1)[:, None, None]
+        pair_sl = ((src_ax == ca) & (dst_ax == slow_b)) | ((src_ax == slow_b) & (dst_ax == ca))
+        node_sl = (slow_b < 0) & ((src_ax == ca) | (dst_ax == ca))
+        slow = torch.where((pair_sl | node_sl) & (slow_set > 0), slow_set, st.slow).to(torch.int32)
+        is_dup_kind = (kind == KIND_DUP_ON) | (kind == KIND_DUP_OFF)
+        dup = torch.where(dispatch & is_dup_kind, kind == KIND_DUP_ON, st.dup)
+        skew_id = torch.where(dispatch & (kind == KIND_SKEW), a0, -1)
+        skew = torch.where(node_ids[None, :] == skew_id[:, None], a1[:, None], st.skew)
 
         halted = st.halted | (dispatch & (kind == KIND_HALT)) | (has_event & over_limit)
         halt_time = torch.where(
@@ -886,9 +1084,19 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
         em_delay = torch.cat([uem.delay, torch.zeros_like(now)[:, None]], 1)
         em_args = torch.cat([uem.args, torch.zeros_like(args)[:, None]], 1)
         em_pay = torch.cat([uem.pay, torch.zeros_like(pay_i)[:, None]], 1)
+        if dup_rows:
+            # the shadow rows: each user send again while dup is on
+            dvalid = uem.valid & ~is_engine[:, None] & uem.send & st.dup[:, None]
+            ev_valid_em = torch.cat([ev_valid_em, dvalid], 1)
+            em_send = torch.cat([em_send, uem.send], 1)
+            em_kind = torch.cat([em_kind, uem.kind], 1)
+            em_dst = torch.cat([em_dst, uem.dst], 1)
+            em_delay = torch.cat([em_delay, uem.delay], 1)
+            em_args = torch.cat([em_args, uem.args], 1)
+            em_pay = torch.cat([em_pay, uem.pay], 1)
 
-        lat_bits = lane0[:, 1 : k + 2]
-        loss_bits = lane1[:, 1 : k + 2]
+        lat_bits = lane0[:, 1 : 1 + n_em_lanes]
+        loss_bits = lane1[:, 1 : 1 + n_em_lanes]
         latency = cfg.lat_min_ns + lat_bits % lat_span
         lost = em_send & (loss_bits < loss_u32)
         e_valid = dispatch[:, None] & ev_valid_em & ~lost
@@ -899,10 +1107,11 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
         alive_at_dst = alive[ar[:, None], em_dst_c] & em_in_range
         e_epoch = torch.where(em_in_range, epoch[ar[:, None], em_dst_c], 0)
         e_valid = e_valid & torch.where(em_send, alive_at_dst, True)
-        # gray-failure latency multiplier of the sending node's row
+        # gray-failure latency multiplier of the sending node's row,
+        # after this step's effects (like the alive gate)
         emit_mult = torch.where(
             in_range[:, None] & em_in_range,
-            st.slow[ar[:, None], dst_c[:, None], em_dst_c],
+            slow[ar[:, None], dst_c[:, None], em_dst_c],
             1,
         ).clamp(min=1)
         latency = torch.where(emit_mult > 1, latency * emit_mult, latency)
@@ -996,9 +1205,9 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
             epoch=epoch,
             node_state=node_state,
             clog=clog,
-            slow=st.slow,
-            dup=st.dup,
-            skew=st.skew,
+            slow=slow,
+            dup=dup,
+            skew=skew,
             hist_count=hist_count,
             hist_drop=hist_drop,
             hist_word=hist_word,
@@ -1014,14 +1223,15 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig):
 # ---------------------------------------------------------------------------
 
 
-def make_step_plain(wl: Workload, cfg: EngineConfig):
+def make_step_plain(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
     """The plain eager step on any device."""
-    return _plain_step_fn(wl, cfg)
+    return _plain_step_fn(wl, cfg, dup_rows)
 
 
-def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int):
+def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
+                   dup_rows: bool = False):
     """``n_steps`` of the plain eager step on any device."""
-    step = _plain_step_fn(wl, cfg)
+    step = _plain_step_fn(wl, cfg, dup_rows)
 
     def run(state: SimState) -> SimState:
         for _ in range(n_steps):
@@ -1031,10 +1241,11 @@ def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int):
     return run
 
 
-def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int):
+def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
+                         dup_rows: bool = False):
     """The plain eager step until every seed has halted, at most
     ``max_steps`` times; every seed takes the same number of steps."""
-    step = _plain_step_fn(wl, cfg)
+    step = _plain_step_fn(wl, cfg, dup_rows)
 
     def run(state: SimState) -> SimState:
         i = 0
@@ -1046,26 +1257,27 @@ def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int):
     return run
 
 
-def make_step(wl: Workload, cfg: EngineConfig):
+def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
     """One step: the plain step on a CPU state, the fused kernel with
-    ``n_steps=1`` on a CUDA state (raises for a workload the kernel
-    does not carry)."""
+    ``n_steps=1`` on a CUDA state (raises for a workload, or a
+    ``dup_rows`` build, the kernel does not carry)."""
     from .fused import make_run_fused
 
-    return make_run_fused(wl, cfg, 1)
+    return make_run_fused(wl, cfg, 1, dup_rows=dup_rows)
 
 
-def make_run(wl: Workload, cfg: EngineConfig, n_steps: int):
+def make_run(wl: Workload, cfg: EngineConfig, n_steps: int, dup_rows: bool = False):
     """``n_steps`` steps: plain on a CPU state, the fused kernel on a
     CUDA state."""
     from .fused import make_run_fused
 
-    return make_run_fused(wl, cfg, n_steps)
+    return make_run_fused(wl, cfg, n_steps, dup_rows=dup_rows)
 
 
-def make_run_while(wl: Workload, cfg: EngineConfig, max_steps: int):
+def make_run_while(wl: Workload, cfg: EngineConfig, max_steps: int,
+                   dup_rows: bool = False):
     """Steps until every seed has halted, at most ``max_steps``: plain
     on a CPU state, the fused kernel on a CUDA state."""
     from .fused import make_run_fused
 
-    return make_run_fused(wl, cfg, max_steps, until_halted=True)
+    return make_run_fused(wl, cfg, max_steps, until_halted=True, dup_rows=dup_rows)

@@ -8,8 +8,11 @@ state in shared memory for the whole loop, and each seed runs on a
 group of G lanes (``GROUP``). The engine step is generic
 (``csrc/engine_step.cuh``, ``csrc/lanes.cuh``); each workload it carries
 is a model trait with its handlers as device code (``csrc/model_*.cuh``),
-listed in :data:`MODELS`. Any other workload, or a registered one at
-another shape, raises ``NotImplementedError`` on a CUDA state.
+listed in :data:`MODELS` by library key (the factories' default and
+record variants, and the ``chaos=False`` variants that fault plans
+drive, some built with the duplication rows of ``dup_rows``). Any
+other workload, or a registered one at another shape, raises
+``NotImplementedError`` on a CUDA state.
 
 Each model's kernel is its own library, built with nvcc on first use
 into ``build/kernels/<hash>/`` at the root of the checkout (keyed by a
@@ -18,9 +21,9 @@ ctypes. A CPU state runs the plain eager step instead
 (``core.make_run_plain``); a CUDA state never does.
 
 The kernel reads its input state and writes fresh outputs allocated
-with ``torch.empty``; the fields it never writes (``seed``, ``slow``,
-``skew`` and ``dup``) are shared with the input, as the plain step
-shares them.
+with ``torch.empty``; ``seed``, which it never writes, is shared with
+the input, as the plain step shares it. The chaos columns ``slow``,
+``skew`` and ``dup`` are written on every run, plan or not.
 
 A workload with a ``HistorySpec`` runs on its record library (a model
 trait with ``R > 0`` record rows a call): the kernel appends its
@@ -118,6 +121,7 @@ class KernelModel:
     words: tuple = ()
     fixed: tuple = ()
     group: int = GROUP  # lanes per seed
+    dup: bool = False  # built with the duplication rows (dup_rows=True)
 
     def draws_source(self) -> str:
         """C++ naming the workload's declared user draw purposes
@@ -139,12 +143,26 @@ class KernelModel:
             f"}}  // namespace madsim\n"
         )
 
+    def traits_source(self) -> str:
+        """C++ specializing the engine's per-model traits: the declared
+        user draws and, for a ``dup`` library, ``DupRows`` (K shadow
+        rows)."""
+        if not self.dup:
+            return self.draws_source()
+        return self.draws_source() + (
+            f"namespace madsim {{\n"
+            f"template <> struct DupRows<{self.cxx}> {{\n"
+            f"  static constexpr int n = {self.cxx}::K;\n"
+            f"}};\n"
+            f"}}  // namespace madsim\n"
+        )
+
     def unit_source(self) -> str:
         """The translation unit nvcc compiles for this model."""
         return (
             f"// run kernel unit for {self.key}, written by engine/fused.py\n"
             f'#include "{self.header}"\n'
-            f"{self.draws_source()}"
+            f"{self.traits_source()}"
             f"#define MADSIM_MODEL {self.cxx}\n"
             f"#define MADSIM_POOLS {', '.join(str(p) for p in self.pools)}\n"
             f"#define MADSIM_GROUP {self.group}\n"
@@ -156,8 +174,14 @@ class KernelModel:
 #  handlers, draw_purposes, history records a call) at each factory's
 # default variant and at its record (and bug) variants; pools: the
 # model's BENCH_SPECS or SOAK_SPECS pool, for raft also the pools of the
-# entry shape and the tests, and for kvchaos's record variants also the
-# pool of the JAX package's history-search tests
+# entry shape and the tests (and raft-record's of the nemesis soak), and
+# for kvchaos's record variants also the pool of the JAX package's
+# history-search tests. Then the chaos-plan libraries: the chaos=False
+# variants that fault plans drive (tools/nemesis_soak.py's certificates,
+# the port's plan tests), at the pools of those runs (96: the JAX tests'
+# kv_cfg and the soak's paxos and twophase; 192: the soak's kvchaos), two
+# of them also built with the duplication rows. A variant may share its
+# workload name with its chaos=True sibling: MODELS is keyed by library.
 _KV_FIXED = (("n_replicas", 4), ("chaos", True), ("payload", False))
 _LEASE_FIXED = (("n_clients", 3), ("chaos", True), ("ka_stop_ms", None))
 _SHARD_FIXED = (("n_groups", 4), ("group_size", 3), ("n_shards", 8), ("chaos", True))
@@ -172,8 +196,12 @@ _PAXOS_WORDS = ("start_min_ns", "start_max_ns", "timeout_min_ns",
                 "revive_min_ns", "revive_max_ns")
 _PAXOS_FIXED = (("n_acceptors", 5), ("n_proposers", 3), ("chaos", True),
                 ("durable_acceptors", False))
+_KV_NOCHAOS = (("n_replicas", 4), ("chaos", False), ("payload", False))
+_KV_NOCHAOS_SHAPE = (6, 4, 2, 0, 6, 12, (), 3)
+_TP_NOCHAOS_SHAPE = (5, 6, 3, 0, 10, 9, (), 1)
+_TP_NOCHAOS = (("n_parts", 4), ("chaos", False))
 MODELS = {
-    m.name: m
+    m.key: m
     for m in (
         KernelModel(
             "raft", "raft-election", "model_raft.cuh", "madsim::RaftModel<false>",
@@ -182,7 +210,7 @@ MODELS = {
         ),
         KernelModel(
             "raft-record", "raft-election-record", "model_raft.cuh",
-            "madsim::RaftModel<true>", (5, 6, 2, 0, 6, 5, (0,), 1), (40,),
+            "madsim::RaftModel<true>", (5, 6, 2, 0, 6, 5, (0,), 1), (40, 64),
             ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),),
         ),
         KernelModel(
@@ -290,23 +318,55 @@ MODELS = {
             "madsim::ShardKvModel<true, true>", (14, 17, 3, 0, 6, 15, (0, 1, 2), 1),
             (64,), _SHARD_WORDS, (*_SHARD_FIXED, ("record", True), ("bug", True)),
         ),
+        KernelModel(
+            "kvchaos-record-nochaos", "kvchaos-record", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, true, false, false>", _KV_NOCHAOS_SHAPE,
+            (96, 192), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", False)),
+        ),
+        KernelModel(
+            "kvchaos-bug-nochaos", "kvchaos-bug", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, true, true, false>", _KV_NOCHAOS_SHAPE,
+            (96, 192), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", True)),
+        ),
+        KernelModel(
+            "kvchaos-record-nochaos-dup", "kvchaos-record", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, true, false, false>", _KV_NOCHAOS_SHAPE,
+            (96, 192), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", False)),
+            dup=True,
+        ),
+        KernelModel(
+            "paxos-record-nochaos", "paxos-record", "model_paxos.cuh",
+            "madsim::PaxosModel<true, false>", (8, 10, 3, 0, 7, 8, (0, 1), 1), (96,),
+            _PAXOS_WORDS, (("n_acceptors", 5), ("n_proposers", 3), ("chaos", False),
+                           ("durable_acceptors", False)),
+        ),
+        KernelModel(
+            "twophase-record-nochaos", "twophase-record", "model_twophase.cuh",
+            "madsim::TwoPhaseModel<true, false>", _TP_NOCHAOS_SHAPE, (96,),
+            _TWOPHASE_WORDS, _TP_NOCHAOS,
+        ),
+        KernelModel(
+            "twophase-record-nochaos-dup", "twophase-record", "model_twophase.cuh",
+            "madsim::TwoPhaseModel<true, false>", _TP_NOCHAOS_SHAPE, (96,),
+            _TWOPHASE_WORDS, _TP_NOCHAOS, dup=True,
+        ),
     )
 }
 
-# the fields the kernel reads (and, but for seed, slow and skew,
-# writes), in the pointer order of Fields (csrc/engine_step.cuh);
-# ev_pay is read and written only when the workload has payload words,
-# the history columns only when it records
+# the fields the kernel reads (and, but for seed, writes), in the
+# pointer order of Fields (csrc/engine_step.cuh); ev_pay is read and
+# written only when the workload has payload words, the history
+# columns only when it records
 HISTORY_COLUMNS = ("hist_count", "hist_drop", "hist_word", "hist_t")
 KERNEL_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
     "msg_count", "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args",
     "ev_pay", "alive", "paused", "epoch", "node_state", "clog", "slow",
-    "skew", *HISTORY_COLUMNS,
+    "skew", "dup", *HISTORY_COLUMNS,
 )
-READ_ONLY_FIELDS = ("seed", "slow", "skew")
+READ_ONLY_FIELDS = ("seed",)
 # the run's outputs that are its inputs' tensors: never written
-SHARED_FIELDS = (*READ_ONLY_FIELDS, "dup")
+SHARED_FIELDS = READ_ONLY_FIELDS
 _DTYPES = {
     "seed": torch.int64, "now": torch.int64, "step": torch.int64,
     "halted": torch.bool, "halt_time": torch.int64, "trace": torch.int64,
@@ -332,27 +392,41 @@ def workload_shape(wl: Workload) -> tuple:
     )
 
 
-def kernel_model(wl: Workload) -> KernelModel:
-    """The registered model that carries ``wl``; raise
-    ``NotImplementedError`` for any other name, shape or variant."""
-    spec = MODELS.get(wl.name)
-    if spec is None:
+def kernel_model(wl: Workload, dup_rows: bool = False) -> KernelModel:
+    """The registered library that carries ``wl`` (built with the
+    duplication rows when ``dup_rows``); raise ``NotImplementedError``
+    for any other name, shape, variant or build."""
+    cands = [m for m in MODELS.values() if m.name == wl.name]
+    if not cands:
         raise NotImplementedError(
-            f"the fused run kernel carries no model {wl.name!r}; it has "
-            f"device handlers for {sorted(MODELS)} (another workload needs "
-            f"a model trait in csrc/ and an entry in MODELS: ROADMAP queue B1)"
+            f"the fused run kernel carries no model {wl.name!r}; its libraries "
+            f"are {sorted(MODELS)} (another workload needs a model trait in "
+            f"csrc/ and an entry in MODELS: ROADMAP queue B1)"
         )
     shape = workload_shape(wl)
     params = dict(wl.model_params)
-    fixed = {k: params.get(k) for k, _v in spec.fixed}
-    if shape != spec.shape or fixed != dict(spec.fixed):
+
+    def carries(spec):
+        fixed = {k: params.get(k) for k, _v in spec.fixed}
+        return shape == spec.shape and fixed == dict(spec.fixed)
+
+    fits = [m for m in cands if carries(m)]
+    for spec in fits:
+        if spec.dup == bool(dup_rows):
+            return spec
+    built = ", ".join(
+        f"{m.key} ({dict(m.fixed)}{', dup_rows' if m.dup else ''})" for m in cands)
+    if fits:
         raise NotImplementedError(
-            f"the fused run kernel is compiled for {wl.name!r} at shape "
-            f"{spec.shape} with {dict(spec.fixed)}; got shape {shape} with "
-            f"{fixed} (other variants: ROADMAP queue B1, and A7 and A8 for "
-            f"the engine axes they need)"
+            f"no library of {wl.name!r} at this variant is built "
+            f"{'with' if dup_rows else 'without'} the duplication rows "
+            f"(dup_rows={bool(dup_rows)}); built: {built}; the others are "
+            f"ROADMAP queue B1"
         )
-    return spec
+    raise NotImplementedError(
+        f"the fused run kernel is compiled for {wl.name!r} as {built}; got "
+        f"shape {shape} with {params}: other variants are ROADMAP queue B1"
+    )
 
 
 def config_words(wl: Workload, cfg: EngineConfig) -> tuple:
@@ -403,7 +477,7 @@ def build_libraries(specs=None) -> dict:
 
     Returns ``{key: (path, log)}``; ``log`` is nvcc's output, with the
     ``--resource-usage`` lines (registers, stack frame per thread)."""
-    specs = list(MODELS.values()) if specs is None else list(specs)
+    specs = MODELS.values() if specs is None else specs
     out, running = {}, []
     for spec in specs:
         out_dir, lib, log_path = _paths(spec)
@@ -477,15 +551,15 @@ class RunKernel:
             lib.madsim_occupancy.argtypes = [i32, i32, ctypes.POINTER(i64)]
             lib.madsim_shape.restype = None
             lib.madsim_shape.argtypes = [ctypes.POINTER(i64)]
-            got = (i64 * 9)()
+            got = (i64 * 10)()
             lib.madsim_shape(got)
             want = (*spec.shape[:6], spec.shape[7], 2 * len(KERNEL_FIELDS) + 4,
-                    len(DRAIN_FIELDS) + 2)
+                    len(DRAIN_FIELDS) + 2, spec.shape[4] if spec.dup else 0)
             if tuple(got) != want:
                 raise RuntimeError(
                     f"library {path} is built for (N, U, A, W, K, H, R, run "
-                    f"and drain pointers) = {tuple(got)}; model {spec.key!r} "
-                    f"needs {want}"
+                    f"and drain pointers, shadow rows) = {tuple(got)}; model "
+                    f"{spec.key!r} needs {want}"
                 )
             self._libs[spec.key] = lib
         return lib
@@ -635,8 +709,8 @@ def _unwritten_history(state: SimState) -> tuple:
 
 def fresh_outputs(state: SimState) -> SimState:
     """The run kernel's outputs: ``torch.empty`` for every field it
-    writes; ``seed``, ``slow``, ``skew`` and ``dup``, and the history
-    columns of a state without history rows, are the input's."""
+    writes; ``seed``, and the history columns of a state without
+    history rows, are the input's."""
     shared = (*SHARED_FIELDS, *_unwritten_history(state))
     return SimState(**{
         f: getattr(state, f) if f in shared else torch.empty_like(getattr(state, f))
@@ -645,11 +719,11 @@ def fresh_outputs(state: SimState) -> SimState:
 
 
 def _first_pass(wl: Workload, cfg: EngineConfig, state: SimState,
-                n_steps: int, stop_at_halt: bool):
+                n_steps: int, stop_at_halt: bool, dup_rows: bool = False):
     """Launch the run kernel once, up to ``n_steps`` steps per seed,
     from ``state`` into fresh outputs. Returns the model, the outputs,
     each seed's step count and their maximum (a device word)."""
-    spec = kernel_model(wl)
+    spec = kernel_model(wl, dup_rows)
     check_state(spec, wl, state)
     dev = state.device
     out = fresh_outputs(state)
@@ -677,21 +751,24 @@ def drain_plain(step, ev_valid, ev_time, r):
 
 
 def make_run_fused(
-    wl: Workload, cfg: EngineConfig, n_steps: int, until_halted: bool = False
+    wl: Workload, cfg: EngineConfig, n_steps: int, until_halted: bool = False,
+    dup_rows: bool = False,
 ):
     """Build ``run(state) -> SimState``: ``n_steps`` steps (or, with
     ``until_halted``, steps until every seed has halted, at most
-    ``n_steps``) in the fused kernel. A CPU state takes the plain
-    step; a CUDA state launches the kernel or raises."""
+    ``n_steps``) in the fused kernel, with the duplication rows when
+    ``dup_rows``. A CPU state takes the plain step; a CUDA state
+    launches the kernel or raises."""
     plain = (
-        make_run_while_plain(wl, cfg, n_steps) if until_halted
-        else make_run_plain(wl, cfg, n_steps)
+        make_run_while_plain(wl, cfg, n_steps, dup_rows) if until_halted
+        else make_run_plain(wl, cfg, n_steps, dup_rows)
     )
 
     def run(state: SimState) -> SimState:
         if state.device.type == "cpu":
             return plain(state)
-        spec, out, iters, tmax = _first_pass(wl, cfg, state, n_steps, until_halted)
+        spec, out, iters, tmax = _first_pass(wl, cfg, state, n_steps, until_halted,
+                                             dup_rows)
         if until_halted:
             KERNEL.drain(spec, out, iters, tmax)
         return out
@@ -699,8 +776,9 @@ def make_run_fused(
     return run
 
 
-def halt_counts(wl: Workload, cfg: EngineConfig, cap: int, state: SimState):
+def halt_counts(wl: Workload, cfg: EngineConfig, cap: int, state: SimState,
+                dup_rows: bool = False):
     """Each seed's steps until it halts (at most ``cap``), from one
     stop-at-halt run kernel launch on ``state``: the seed-steps a
     ``make_run_while`` run does real work in."""
-    return _first_pass(wl, cfg, state, cap, True)[2]
+    return _first_pass(wl, cfg, state, cap, True, dup_rows)[2]

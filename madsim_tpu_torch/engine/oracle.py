@@ -30,6 +30,7 @@ __all__ = [
     "ORACLE_LOCK",
     "WORKLOAD_IDS",
     "OracleResult",
+    "assert_plan_oracle_free",
     "build",
     "load",
     "run_oracle",
@@ -201,11 +202,50 @@ def set_params(lib: ctypes.CDLL, wl: Workload, **model_kwargs) -> None:
         raise ValueError(f"oracle has no implementation of workload {wl.name!r}")
 
 
+def _plan_kinds(plan) -> set:
+    """The kinds a fault plan can inject (a FaultPlan's slot templates,
+    a LiteralPlan's events)."""
+    if hasattr(plan, "slot_templates"):
+        return {int(t.kind) for t in plan.slot_templates()}
+    if hasattr(plan, "events"):
+        return {int(e.kind) for e in plan.events}
+    raise TypeError(f"not a chaos plan: {type(plan).__name__}")
+
+
+def assert_plan_oracle_free(plan) -> None:
+    """Refuse an oracle compare against a plan-driven run: the oracle has
+    no plan channel (plans are pre-seeded pool rows) and none of the
+    extended chaos kinds. Plan-driven runs are held against the JAX
+    engine and the plain step instead."""
+    from .core import FIRST_EXT_KIND
+
+    ext = sorted(k for k in _plan_kinds(plan) if k >= FIRST_EXT_KIND)
+    if ext:
+        raise ValueError(
+            f"the C++ oracle does not implement extended chaos kinds "
+            f"{ext} (engine kinds >= {FIRST_EXT_KIND}: slow-link/dup/"
+            f"skew/one-way-clog and the SYNC_LOSS/TORN disk faults); "
+            f"plan-driven runs are verified by the two-run/two-layout "
+            f"compare instead (engine.verify.check_layouts / "
+            f"compare_traces)"
+        )
+    raise ValueError(
+        "the C++ oracle takes no fault plan (plans are pre-seeded "
+        "engine pool rows, a channel the oracle does not have); verify "
+        "plan-driven runs with the two-run/two-layout compare instead "
+        "(engine.verify.check_layouts / compare_traces)"
+    )
+
+
 def run_oracle(
-    wl: Workload, cfg: EngineConfig, seed: int, n_steps: int, **model_kwargs
+    wl: Workload, cfg: EngineConfig, seed: int, n_steps: int, plan=None,
+    **model_kwargs,
 ) -> OracleResult:
     """Run one seed through the C++ oracle. ``model_kwargs`` override
-    the workload's ``model_params``."""
+    the workload's ``model_params``. ``plan`` only raises: the oracle
+    cannot run a fault plan (:func:`assert_plan_oracle_free`)."""
+    if plan is not None:
+        assert_plan_oracle_free(plan)
     lib = load()
     with ORACLE_LOCK:
         return _run_locked(lib, wl, cfg, seed, n_steps, **model_kwargs)

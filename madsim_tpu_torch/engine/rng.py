@@ -21,11 +21,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 __all__ = [
     "M32",
     "threefry2x32",
+    "np_threefry2x32v",
     "Draw",
     "PurposeLane",
     "PURPOSE_LANES",
@@ -139,6 +141,29 @@ def threefry2x32(k0, k1, x0, x1):
             x1 = _rotl32(x1, r) ^ x0
         x0 = (x0 + ks[(chunk + 1) % 3]) & M32
         x1 = (x1 + ks[(chunk + 2) % 3] + (chunk + 1)) & M32
+    return x0, x1
+
+
+def np_threefry2x32v(k0, k1, x0, x1):
+    """:func:`threefry2x32` over numpy uint32 arrays, on the host: the
+    generator of the fault-plan compiler (``chaos/plan.py``), kept in
+    numpy so that uint64 seeds never meet torch's unsigned gaps."""
+    k0 = np.asarray(k0, np.uint32)
+    k1 = np.asarray(k1, np.uint32)
+    x0 = np.asarray(x0, np.uint32)
+    x1 = np.asarray(x1, np.uint32)
+    with np.errstate(over="ignore"):
+        ks = (k0, k1, (k0 ^ k1 ^ _PARITY).astype(np.uint32))
+        x0 = (x0 + ks[0]).astype(np.uint32)
+        x1 = (x1 + ks[1]).astype(np.uint32)
+        for chunk in range(5):
+            rots = _ROTATIONS[:4] if chunk % 2 == 0 else _ROTATIONS[4:]
+            for r in rots:
+                x0 = (x0 + x1).astype(np.uint32)
+                x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))).astype(np.uint32)
+                x1 = (x1 ^ x0).astype(np.uint32)
+            x0 = (x0 + ks[(chunk + 1) % 3]).astype(np.uint32)
+            x1 = (x1 + ks[(chunk + 2) % 3] + np.uint32(chunk + 1)).astype(np.uint32)
     return x0, x1
 
 

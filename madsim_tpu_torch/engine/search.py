@@ -24,11 +24,15 @@ state: the ``check`` package's detectors are such predicates. A
 the histories' own device: the host reads a packed verdict word per 32
 seeds and the full histories of the flagged seeds only.
 
+A fault ``plan`` (``chaos.FaultPlan`` or ``LiteralPlan``) compiles per
+seed into pre-seeded pool rows; its hash joins the repro banner, so
+``(seed, config, plan)`` is the repro key.
+
 On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
 run and drain kernels), or with ``compact=True`` the compacted runner's
-one stop-at-halt launch. The reference's plan and observability options
-raise ``NotImplementedError`` until their engine axes are ported
-(ROADMAP item A8).
+one stop-at-halt launch. The reference's observability options raise
+``NotImplementedError`` until their engine axes are ported (ROADMAP
+item A8).
 """
 
 from __future__ import annotations
@@ -59,13 +63,14 @@ _RUN_CACHE: dict = {}
 
 
 def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
-                    compact: bool, device, hist_screen=None):
+                    compact: bool, device, hist_screen=None, plan_slots: int = 0,
+                    dup_rows: bool = False):
     # the one construction of a sweep's (init, run) pair, for make_sweep
     # and search_seeds alike; only the compacted runner embeds a screen
-    init = make_init(wl, cfg, device=device)
+    init = make_init(wl, cfg, device=device, plan_slots=plan_slots)
     run = (
-        make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen) if compact
-        else make_run_while(wl, cfg, max_steps)
+        make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen, dup_rows=dup_rows)
+        if compact else make_run_while(wl, cfg, max_steps, dup_rows=dup_rows)
     )
     return init, run
 
@@ -86,44 +91,49 @@ def make_sweep(
     causal: bool = False,
     retry=None,
 ):
-    """Build ``sweep(seeds) -> view``: init the seed batch, run
+    """Build ``sweep(seeds, rows=None) -> view``: init the seed
+    batch (with ``plan_slots`` rows of a compiled plan), run
     ``make_run_while`` to the step cap, and return the final state as a
     ``{field name: device tensor}`` view, with no host transfer and no
-    invariant. The options after ``device`` raise
+    invariant. The options after ``dup_rows`` raise
     ``NotImplementedError`` until their engine axes are ported."""
     refuse_unported(
-        plan_slots=plan_slots, dup_rows=dup_rows, cov_words=cov_words,
+        cov_words=cov_words,
         metrics=metrics, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
         latency=latency, causal=causal, retry=retry,
     )
-    init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device))
+    init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device),
+                                plan_slots=plan_slots, dup_rows=dup_rows)
 
-    def sweep(seeds):
-        out = run(init(seeds))
+    def sweep(seeds, rows=None):
+        out = run(init(seeds, rows) if plan_slots else init(seeds))
         return {f: getattr(out, f) for f in STATE_FIELDS}
 
     return sweep
 
 
 def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
-                  compact: bool, dev, hist_screen=None):
+                  compact: bool, dev, hist_screen=None, plan_slots: int = 0,
+                  dup_rows: bool = False):
     from .fused import workload_shape
 
     key = (wl.name, workload_shape(wl), wl.model_params, wl.history,
-           cfg.hash(), max_steps, compact, str(dev), hist_screen)
+           cfg.hash(), max_steps, compact, str(dev), hist_screen, plan_slots,
+           dup_rows)
     if key not in _RUN_CACHE:
-        _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen)
+        _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
+                                          plan_slots, dup_rows)
     return _RUN_CACHE[key]
 
 
-def _library_build_s(wl: Workload, dev) -> float:
+def _library_build_s(wl: Workload, dev, dup_rows: bool = False) -> float:
     """The seconds spent building and loading the workload's kernel
     library on its first use in this process, else 0.0."""
     if dev.type != "cuda":
         return 0.0
     from .fused import KERNEL, kernel_model
 
-    spec = kernel_model(wl)
+    spec = kernel_model(wl, dup_rows)
     if KERNEL.is_loaded(spec):
         return 0.0
     t0 = time.perf_counter()
@@ -169,6 +179,8 @@ class SearchReport:
     flagged_idx: np.ndarray | None = None
     flagged_history: object | None = None
     hist_fold: np.ndarray | None = None
+    # the fault plan's hash, part of the repro key (None: no plan)
+    plan_hash: str | None = None
 
     @property
     def failing_seeds(self) -> np.ndarray:
@@ -232,10 +244,11 @@ class SearchReport:
                 f"with full histories ({len(self.verdict_words)} verdict "
                 f"words transferred{fold})"
             )
+        plan = f" plan_hash={self.plan_hash}" if self.plan_hash else ""
         for seed in bad[:limit]:
             lines.append(
                 f"  seed {int(seed)}: rerun with seeds=[{int(seed)}] "
-                f"config_hash={self.config_hash}"
+                f"config_hash={self.config_hash}{plan}"
             )
         if len(bad) > limit:
             lines.append(f"  ... and {len(bad) - limit} more")
@@ -335,8 +348,17 @@ def search_seeds(
     bank and prefix-compact its columns (``report.hist_fold``; see
     ``make_run_compacted``). It excludes ``history_invariant``.
 
+    ``plan`` injects a fault plan (``chaos.FaultPlan`` or
+    ``LiteralPlan``): each seed's compiled fault events become
+    pre-seeded pool rows, and the plan's hash joins the banner
+    (``report.plan_hash``). It needs ``cfg.pool_size >= n_nodes +
+    plan.slots``. ``plan_rows`` gives pre-compiled rows instead (one row
+    per seed; label them with ``plan_hash``). ``dup_rows`` runs the step
+    with the duplication rows; with a ``plan`` it defaults to
+    ``plan.uses_dup()``.
+
     ``device`` is where the sweep runs, the card unless the caller asks
-    for the CPU. Of the options after ``history_invariant``, all but
+    for the CPU. Of the options after ``dup_rows``, all but
     ``device_check`` raise ``NotImplementedError`` until their engine
     axes are ported.
     """
@@ -361,8 +383,7 @@ def search_seeds(
                 "in one sweep)"
             )
     refuse_unported(
-        plan=plan, plan_rows=plan_rows,
-        plan_hash=plan_hash, dup_rows=dup_rows, cov_words=cov_words,
+        cov_words=cov_words,
         metrics=metrics, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
         latency=latency, causal=causal, retry=retry,
     )
@@ -370,6 +391,8 @@ def search_seeds(
         raise ValueError(
             "need an invariant, a history_invariant or a device_check"
         )
+    if plan is not None and plan_rows is not None:
+        raise ValueError("pass plan OR plan_rows, not both")
     if seeds is None:
         seeds = np.arange(seed_base, seed_base + n_seeds, dtype=np.uint64)
     else:
@@ -377,11 +400,32 @@ def search_seeds(
         if seeds.ndim != 1:
             raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
         n_seeds = len(seeds)
+    if plan is not None:
+        plan_slots = int(plan.slots)
+        if dup_rows is None:
+            dup_rows = bool(plan.uses_dup())
+        if cfg.time_limit_ns and hasattr(plan, "validate_windows"):
+            # a window opening after the clock cap can never fire
+            plan.validate_windows(cfg.time_limit_ns)
+        rows = plan.compile_batch(seeds, wl=wl)
+        if plan_hash is None:
+            plan_hash = plan.hash()
+    elif plan_rows is not None:
+        rows = plan_rows
+        plan_slots = int(np.asarray(rows.time).shape[1])
+        if np.asarray(rows.time).shape[0] != n_seeds:
+            raise ValueError(
+                f"plan_rows carries {np.asarray(rows.time).shape[0]} rows "
+                f"for {n_seeds} seeds"
+            )
+    else:
+        rows, plan_slots = None, 0
+    dup_rows = bool(dup_rows)
     dev = resolve_device(device)
     init, run = _compiled_run(wl, cfg, max_steps, compact, dev,
-                              screens if compact else None)
-    build_wall_s = _library_build_s(wl, dev)
-    out = run(init(seeds))
+                              screens if compact else None, plan_slots, dup_rows)
+    build_wall_s = _library_build_s(wl, dev, dup_rows)
+    out = run(init(seeds, rows) if rows is not None else init(seeds))
     if compact:
         fields = RESULT_FIELDS + SCREEN_FIELDS if screens is not None else RESULT_FIELDS
         view = {f: getattr(out, f) for f in fields}
@@ -451,4 +495,5 @@ def search_seeds(
         flagged_idx=flagged_idx,
         flagged_history=flagged_history,
         hist_fold=view["hist_fold"] if screens is not None and compact else None,
+        plan_hash=plan_hash,
     )

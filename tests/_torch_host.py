@@ -72,7 +72,7 @@ def build_host_kernel(tmp_dir, spec, pools, group=None):
     )
     drain_cases = "\n".join(f"    case {e}: drain_all<{e}>(d); return 0;" for e in pools)
     src = tmp_dir / f"host_{spec.key}_g{group}.cpp"
-    src.write_text(HOST_UNIT.format(header=spec.header, draws=spec.draws_source(),
+    src.write_text(HOST_UNIT.format(header=spec.header, draws=spec.traits_source(),
                                     cxx=spec.cxx, group=group,
                                     run_cases=run_cases, drain_cases=drain_cases))
     lib = tmp_dir / f"libhost_{spec.key}_g{group}.so"

@@ -155,7 +155,7 @@ def test_arguments_are_validated():
 @pytest.fixture(scope="module")
 def raft_host_lib(tmp_path_factory):
     return build_host_kernel(tmp_path_factory.mktemp("raft_compact_host"),
-                             fused.MODELS["raft-election"], (RAFT_KW["pool_size"],))
+                             fused.MODELS["raft"], (RAFT_KW["pool_size"],))
 
 
 @pytest.mark.parametrize("cap,shrink,min_size", [(600, 2, 8), (600, 4, 2), (9, 2, 8)])

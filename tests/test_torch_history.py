@@ -216,8 +216,8 @@ def test_compare_traces_catches_a_flipped_history_word():
 def host_libs(tmp_path_factory):
     d = tmp_path_factory.mktemp("history_host")
     return {
-        name: build_host_kernel(d, fused.MODELS[name], fused.MODELS[name].pools)
-        for name in ("raft-election-record", "kvchaos-bug")
+        name: build_host_kernel(d, fused.MODELS[key], fused.MODELS[key].pools)
+        for name, key in (("raft-election-record", "raft-record"), ("kvchaos-bug", "kvchaos-bug"))
     }
 
 
@@ -265,7 +265,7 @@ def test_a_record_workload_needs_a_record_library():
     st = tcore.make_init(wl, cfg, device="cpu")(SEEDS[:4])
     assert fused.kernel_model(wl).key == "raft-record"
     with pytest.raises(NotImplementedError, match="records 0 history rows"):
-        fused.check_state(fused.MODELS["raft-election"], wl, st)
+        fused.check_state(fused.MODELS["raft"], wl, st)
     with pytest.raises(NotImplementedError, match="compiled for 'kvchaos-record'"):
         fused.kernel_model(dataclasses.replace(t_kv(record=True),
                                                history=tcore.HistorySpec(8, 2)))

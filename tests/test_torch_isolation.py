@@ -28,7 +28,8 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import sys, madsim_tpu_torch, madsim_tpu_torch.engine.fused, "
-        "madsim_tpu_torch.models, madsim_tpu_torch.check.device\n"
+        "madsim_tpu_torch.models, madsim_tpu_torch.check.device, "
+        "madsim_tpu_torch.chaos\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'madsim_tpu' or m.startswith('madsim_tpu.')]\n"
         "print(bad)\n"
@@ -46,6 +47,7 @@ def test_no_source_mentions_the_jax_package_or_jax():
     )
     files = sorted((ROOT / "madsim_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 9
+    assert ROOT / "madsim_tpu_torch" / "chaos" / "shrink.py" in files
     for f in files:
         assert not pat.search(f.read_text()), f
 

@@ -36,7 +36,7 @@ INF = 2**62
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    spec = fused.MODELS["raft-election"]
+    spec = fused.MODELS["raft"]
     return build_host_kernel(tmp_path_factory.mktemp("raft_host"), spec, RAFT_POOLS)
 
 
@@ -126,7 +126,7 @@ def test_host_drain_matches_halted_plain_steps(host_lib, pool, kind):
     np.testing.assert_array_equal(out.ev_valid.numpy(), want_valid.numpy())
     # the drain wrapper takes that plain version on a CPU state
     cpu = tcore.SimState(**{f: getattr(st, f).clone() for f in tcore.STATE_FIELDS})
-    fused.KERNEL.drain(fused.MODELS["raft-election"], cpu, iters, tmax)
+    fused.KERNEL.drain(fused.MODELS["raft"], cpu, iters, tmax)
     assert torch.equal(cpu.step, want_step) and torch.equal(cpu.ev_valid, want_valid)
     # drain_plain is r plain steps of the halted seeds
     step, ref = tcore.make_step_plain(wl, cfg), st
@@ -167,8 +167,8 @@ def test_host_lane_groups_match_plain_step(tmp_path_factory, name, group):
     """The serial form of the lane-group primitives at G = 4, 8 and 32:
     the pop's butterfly, the emit rows' ballot and placement, the
     drain's ranks, held against the plain step."""
-    spec = fused.MODELS[name]
     wl = make_raft() if name == "raft-election" else make_kvchaos(payload=True)
+    spec = fused.kernel_model(wl)
     kw = BENCH_SPECS["raft" if name == "raft-election" else "kvchaos"][1]
     lib = build_host_kernel(tmp_path_factory.mktemp(f"g{group}"), spec, (kw["pool_size"],), group)
     cfg = tcore.EngineConfig(**kw)
@@ -188,7 +188,8 @@ def test_registry_shapes_equal_the_factories():
     specs = {**BENCH_SPECS, **SOAK_SPECS}
     made = [f() for f, *_ in specs.values()] + [make_kvchaos(payload=True)]
     made += [specs[n][0](**kw) for n, kw in RECORD_VARIANTS.values()]
-    assert sorted(w.name for w in made) == sorted(fused.MODELS)
+    assert sorted(w.name for w in made) == sorted(
+        {m.name for m in fused.MODELS.values()})
     for wl in made:
         spec = fused.kernel_model(wl)
         assert spec.shape == fused.workload_shape(wl)
@@ -200,9 +201,8 @@ def test_registry_shapes_equal_the_factories():
         words = fused.config_words(wl, tcore.EngineConfig())
         assert len(words) == 9 + len(spec.words)
         assert words[8] == (wl.history.capacity if wl.history else 0)
-    bench_pools = {f().name: kw["pool_size"] for f, kw, _n, _c in specs.values()}
-    for name, pool in bench_pools.items():
-        assert pool in fused.MODELS[name].pools, name
+    for f, kw, _n, _c in specs.values():
+        assert kw["pool_size"] in fused.kernel_model(f()).pools, f().name
 
 
 def test_every_trait_dispatches_its_handlers_in_order():
@@ -330,7 +330,7 @@ def test_cuda_engine_kinds_match_plain_step(chaos3_model, monkeypatch, until_hal
     nvcc from the registry's own translation unit, equals the plain step
     per field."""
     _needs_card()
-    monkeypatch.setitem(fused.MODELS, chaos3_model.name, chaos3_model)
+    monkeypatch.setitem(fused.MODELS, chaos3_model.key, chaos3_model)
     wl, cfg = chaos3_workload(), tcore.EngineConfig(**CHAOS_CFG)
     seeds = np.arange(1024, dtype=np.uint64) * np.uint64(0x9E3779B1)
     st = tcore.make_init(wl, cfg, device="cuda")(seeds)

@@ -173,3 +173,46 @@ def test_cuda_device_check_equals_history_invariant():
         for i in range(len(rep.flagged_history)):
             assert not check_kv(rep.flagged_history.ops(i)).ok
     assert fast.hist_fold.sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_plan_search_matches_the_cpu():
+    """A fault plan's search on the card: the kvchaos lost-write mutant
+    without its own chaos, under the nemesis soak's crash storm, flags
+    the plain step's seeds on the CPU with its traces and plan hash,
+    compact off and on; the first failing seed's shrink replays."""
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan, shrink_plan
+
+    _needs_card()
+    plan = FaultPlan((CrashStorm(
+        targets=(1, 2, 3, 4), n=2, t_min_ns=20_000_000, t_max_ns=400_000_000,
+        down_min_ns=50_000_000, down_max_ns=250_000_000),), name="kv-nemesis")
+    wl = make_kvchaos(writes=5, record=True, bug=True, chaos=False)
+    cfg, key = tcore.EngineConfig(pool_size=192, loss_p=0.05), "kvchaos-bug-nochaos"
+    assert fused.kernel_model(wl).key == key
+
+    def lost_write(h):
+        from madsim_tpu_torch.check import read_your_writes, stale_reads
+        return stale_reads(h) & read_your_writes(h)
+
+    full, launches = _counts(key, lambda: search_seeds(
+        wl, cfg, None, n_seeds=1024, max_steps=1500, history_invariant=lost_write,
+        plan=plan, device="cuda"))
+    assert launches == (1, 1)
+    fast, launches = _counts(key, lambda: search_seeds(
+        wl, cfg, None, n_seeds=1024, max_steps=1500, history_invariant=lost_write,
+        plan=plan, compact=True, device="cuda"))
+    assert launches == (1, 0)
+    cpu = search_seeds(wl, cfg, None, n_seeds=64, max_steps=1500,
+                       history_invariant=lost_write, plan=plan, device="cpu")
+    assert 0 < full.failing_seeds.size < 1024 and full.plan_hash == plan.hash()
+    np.testing.assert_array_equal(full.failing_seeds, fast.failing_seeds)
+    np.testing.assert_array_equal(full.traces, fast.traces)
+    np.testing.assert_array_equal(full.traces[:64], cpu.traces)
+    np.testing.assert_array_equal(full.ok[:64], cpu.ok)
+    bad = int(full.failing_seeds[0])
+    res = shrink_plan(wl, cfg, bad, plan, history_invariant=lost_write, max_steps=1500,
+                      device="cuda")
+    rep = search_seeds(wl, cfg, None, n_seeds=1, max_steps=1500, seed_base=bad,
+                       history_invariant=lost_write, plan=res.plan, device="cuda")
+    assert rep.failing_seeds.tolist() == [bad] and int(rep.traces[0]) == res.trace

@@ -133,22 +133,43 @@ def test_sweep_returns_the_final_state():
 
 @pytest.mark.parametrize(
     "option,item",
-    [("device_check", "ported"), ("plan", "A8"),
-     ("plan_rows", "A8"), ("dup_rows", "A8"), ("cov_words", "A8"), ("metrics", "A8"),
+    [("device_check", "ported"), ("plan", "ported"),
+     ("plan_rows", "ported"), ("dup_rows", "ported"), ("cov_words", "A8"), ("metrics", "A8"),
      ("timeline_cap", "A8"), ("latency", "A8"), ("causal", "A8"), ("retry", "A8")],
 )
 def test_unported_options_raise_naming_their_item(option, item):
+    from madsim_tpu_torch.chaos import FaultPlan, PauseStorm
+
     value = {"cov_words": 2, "timeline_cap": 8, "metrics": True, "causal": True,
              "dup_rows": True}.get(option, object())
+    cfg = tcore.EngineConfig(pool_size=40)
     if item == "ported":
-        # device_check is validated now, not refused: raft without
-        # record=True has no histories to screen
         assert option not in UNPORTED_OPTIONS
-        with pytest.raises(ValueError, match="Workload.history=None"):
-            search_seeds(make_raft(), tcore.EngineConfig(pool_size=40), has_leader,
-                         n_seeds=4, max_steps=10, device="cpu",
-                         **{option: election_safety(OP_ELECT)})
+        plan = FaultPlan((PauseStorm(targets=(0, 1, 2)),))
+        if option == "device_check":
+            # validated, not refused: raft without record=True has no
+            # histories to screen
+            with pytest.raises(ValueError, match="Workload.history=None"):
+                search_seeds(make_raft(), cfg, has_leader,
+                             n_seeds=4, max_steps=10, device="cpu",
+                             **{option: election_safety(OP_ELECT)})
+        elif option == "plan":
+            rep = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                               device="cpu", plan=plan)
+            assert rep.plan_hash == plan.hash()
+        elif option == "plan_rows":
+            with pytest.raises(ValueError, match="plan_rows carries 4 rows for 5 seeds"):
+                search_seeds(make_raft(), cfg, has_leader, n_seeds=5, max_steps=10,
+                             device="cpu", plan_rows=plan.compile_batch(np.arange(4)))
+            with pytest.raises(ValueError, match="plan OR plan_rows"):
+                search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                             device="cpu", plan=plan, plan_rows=plan.compile_batch(np.arange(4)))
+        else:
+            # no plan duplicates anything: the shadow rows change nothing
+            on, off = (search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                                    device="cpu", dup_rows=d) for d in (True, False))
+            np.testing.assert_array_equal(on.traces, off.traces)
         return
     with pytest.raises(NotImplementedError, match=item):
-        search_seeds(make_raft(), tcore.EngineConfig(pool_size=40), has_leader,
+        search_seeds(make_raft(), cfg, has_leader,
                      n_seeds=4, max_steps=10, device="cpu", **{option: value})
