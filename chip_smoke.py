@@ -104,13 +104,43 @@ plain eager step:
    events and its replay's trace, and raft election, paxos and twophase
    with no violation; each search's wall ms and the plan compile's
    host ms;
-38. one JSON line describing each kernel, with its launches on every
+37.4. the nemesis soak's certificate 4: raftlog-durable-record (pool
+   96, loss 0.02, clog backoff at most 2 s, cap 6,000, 8,192 seeds)
+   under its crash storm and gray failure, election safety on OP_ELECT
+   and OP_COMMIT: 0 violations, 0 overflows, 0 unhalted and the trace
+   column's digest as the JAX package's run of the same search;
+38. the storage libraries and the metrics runs, each held as phases
+   4-15 (every field, the storage columns and ``met`` included):
+   38.1 raftlog-durable at the raftlog bench shape, and its seeds 0,
+   7, ..., 63 at pool 128 equal to the C++ oracle's traces; 38.2-38.4
+   raftlog-durable-record under the store soak's plan and under the
+   lying disk, and raftlog-nosync-record under the store plan (8,192
+   seeds, pool 128, cap 6,000, ``metrics=True``; the plain step on the
+   card holds the first 2,048 seeds); 38.5 the main path with
+   ``metrics=True``, every field but ``met`` equal to the run without,
+   its time beside phase 4's; 38.6 phase 36.4's run with
+   ``metrics=True``, every field but ``met`` equal to 36.4's plain run
+   on the card, every field on the first 256 seeds on the CPU, its
+   dup, pause, clog-block and crash counters summed over every seed
+   non-zero;
+39. the store soak's certificates at 8,192 seeds on the card, each
+   search's counts and trace digest pinned from the JAX package's run
+   on the CPU (``tests/_torch_store_pins.py``), its failing seeds among
+   the first 2,048 equal to phase 38's plain runs: 39.1 no disk fault
+   (the kernel, the plain step and ``make_run_compacted`` agree); 39.2
+   the store plan clean, the fleet's syncs, lied syncs, torn kills and
+   crashes summed on the card; 39.3 the lying disk flagged; 39.4 the
+   nosync mutant caught by committed-value loss, its first failing
+   seed shrunk to the pinned events and replayed; 39.5 the EIO storm
+   clean with failed syncs on most seeds;
+40. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after), then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
 
 Phase 2 also holds the launch shape of each library without recording
-against ``BASE_SHAPES`` (measured on an H100 80GB HBM3).
+against ``BASE_SHAPES`` (measured on an H100 80GB HBM3), and prints the
+shape of each library's run kernel with metrics.
 
 Any mismatch or exception exits non-zero. Without a card it exits
 non-zero before printing any result. Imports nothing of JAX or of the
@@ -195,6 +225,113 @@ NEMESIS_PLAN_CATCHES = 1609
 NEMESIS_FIRST_FAILING = 1
 NEMESIS_SHRUNK = dict(events=((212187184, 1, 1, 0, 0),), rounds=2, tested=10,
                       plan_hash="b326c7e871b514ce", trace=0x1A5D2F7E741270A4)
+
+# the storage phases (37.4, 38-39): raftlog durable=True at the store
+# soak's shape (tools/store_soak.py), at the nemesis soak's certificate 4
+# and at the raftlog bench shape
+STORE_SEEDS = 8192
+STORE_KW = dict(pool_size=128, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+STORE_STEPS, EIO_STEPS = 6000, 4000
+NEMESIS_RAFT_KW = dict(pool_size=96, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+# the plain step on the card holds the first this many seeds of the
+# store runs (38.2-38.4, 39.1); the kernel runs all 8,192
+STORE_PLAIN_SEEDS = 2048
+# what the JAX package's runs on the CPU of the same searches give
+# (seeds 0..8191, the plans, configs and caps below), printed by
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/_torch_store_pins.py 8192
+# (failing seeds, overflows, unhalted, sha256 of the trace column)
+STORE_PINS = {
+    "raft": dict(failing=0, overflowed=0, unhalted=0, traces="5fc40abc7504dff1"),
+    "off": dict(failing=0, overflowed=0, unhalted=0, traces="a5f5ff11f1fd9ffe"),
+    "store": dict(failing=0, overflowed=0, unhalted=0, traces="5fa40dc6d5b44885"),
+    "lie": dict(failing=141, overflowed=0, unhalted=0, traces="8cb5cd76ba5476d0"),
+    "nosync": dict(failing=28, overflowed=0, unhalted=0, traces="16329922b5ef438a"),
+    "eio": dict(failing=0, overflowed=0, unhalted=0, traces="271f6b0dfd97c3e8"),
+}
+# certificate 2's fleet totals of met (sync, sync_lost, torn, crash); the
+# nosync mutant's first failing seed, all 28 by committed-value loss, and
+# its shrink; the EIO storm's seeds with a failed sync
+STORE_FLEET = dict(sync=330493, sync_lost=0, torn=1165, crash=8615)
+NOSYNC_FIRST, NOSYNC_COMMIT_LOSS = 413, 28
+NOSYNC_SHRUNK = dict(
+    events=((420795719, 0, 0, 0, 0), (597604476, 1, 0, 0, 0), (177725973, 0, 2, 0, 0),
+            (333195096, 1, 2, 0, 0), (190079147, 2, 0, 3, 0), (431238660, 3, 0, 3, 0),
+            (190079147, 2, 0, 4, 0), (190079147, 2, 2, 3, 0), (190079147, 2, 2, 4, 0)),
+    rounds=13, tested=176, plan_hash="e7a3720e4586196d", trace=0x6A58EE54DE33BEB2)
+EIO_SYNC_LOST_SEEDS = 7602
+
+
+def store_plans() -> dict:
+    """tools/store_soak.py's STORE_PLAN and LIE_PLAN, the EIO storm of
+    tests/test_lint.py and tools/nemesis_soak.py's RAFT_PLAN, in the
+    port's classes."""
+    from madsim_tpu_torch.chaos import CrashStorm, DiskFault, FaultPlan, FlappingPartition, GrayFailure
+
+    nodes = (0, 1, 2, 3, 4)
+    crash = CrashStorm(targets=nodes, n=2, t_min_ns=150_000_000, t_max_ns=500_000_000,
+                       down_min_ns=100_000_000, down_max_ns=400_000_000)
+    return {
+        "store": FaultPlan((
+            crash,
+            FlappingPartition(targets=nodes, n_cycles=2, t_min_ns=50_000_000,
+                              t_max_ns=400_000_000, dur_min_ns=100_000_000,
+                              dur_max_ns=300_000_000, up_min_ns=20_000_000,
+                              up_max_ns=200_000_000),
+            DiskFault(targets=nodes, n_torn=2, t_min_ns=50_000_000, t_max_ns=500_000_000),
+        ), name="store-hunt"),
+        "lie": FaultPlan((
+            crash,
+            DiskFault(targets=nodes, n_torn=0, n_sync_loss=3, t_min_ns=10_000_000,
+                      t_max_ns=400_000_000, dur_min_ns=200_000_000, dur_max_ns=600_000_000),
+        ), name="lying-disk"),
+        "eio": FaultPlan((
+            crash,
+            DiskFault(targets=nodes, n_torn=0, n_sync_loss=0, n_eio=3, t_min_ns=10_000_000,
+                      t_max_ns=400_000_000, dur_min_ns=100_000_000, dur_max_ns=400_000_000),
+        ), name="eio-storm"),
+        "raft": FaultPlan((
+            CrashStorm(targets=nodes, n=2, t_min_ns=100_000_000, t_max_ns=600_000_000,
+                       down_min_ns=100_000_000, down_max_ns=500_000_000),
+            GrayFailure(targets=nodes, n_links=2, t_min_ns=50_000_000, t_max_ns=500_000_000,
+                        dur_min_ns=100_000_000, dur_max_ns=400_000_000, mult_min=4,
+                        mult_max=16),
+        ), name="raft-nemesis"),
+    }
+
+
+def store_inv(box: dict):
+    """The store soak's history invariant, keeping each detector's
+    verdicts in ``box``."""
+    from madsim_tpu_torch.check import election_safety, recovery_safety
+    from madsim_tpu_torch.models.raftlog import OP_COMMIT, OP_ELECT, OP_RECOVER, OP_SYNCED
+
+    def inv(h):
+        box["commit"] = election_safety(h, elect_op=OP_COMMIT)
+        box["elect"] = election_safety(h, elect_op=OP_ELECT)
+        box["recover"] = recovery_safety(h, sync_op=OP_SYNCED, recover_op=OP_RECOVER)
+        box["ok"] = box["commit"] & box["elect"] & box["recover"]
+        return box["ok"]
+
+    return inv
+
+
+def recovery_inv(box: dict):
+    from madsim_tpu_torch.check import recovery_safety
+    from madsim_tpu_torch.models.raftlog import OP_RECOVER, OP_SYNCED
+
+    def inv(h):
+        box["ok"] = recovery_safety(h, sync_op=OP_SYNCED, recover_op=OP_RECOVER)
+        return box["ok"]
+
+    return inv
+
+
+def traces_digest(traces) -> str:
+    """sha256 of the uint64 trace column, 16 hex digits (as
+    tests/_torch_store_pins.py prints it)."""
+    import hashlib
+
+    return hashlib.sha256(np.asarray(traces, np.uint64).tobytes()).hexdigest()[:16]
 
 
 def nemesis_plans() -> dict:
@@ -329,12 +466,13 @@ def max_sm_clock_hz() -> float:
     return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
 
-def max_abs_err(a, b) -> int:
-    """Largest |a - b| over every field of two states, exact in int."""
+def max_abs_err(a, b, skip: tuple = ()) -> int:
+    """Largest |a - b| over every field of two states but ``skip``,
+    exact in int."""
     from madsim_tpu_torch.engine import STATE_FIELDS
 
     worst = 0
-    for f in STATE_FIELDS:
+    for f in (f for f in STATE_FIELDS if f not in skip):
         x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
         if x.shape != y.shape:
             raise AssertionError(f"field {f}: shape {x.shape} vs {y.shape}")
@@ -346,16 +484,16 @@ def max_abs_err(a, b) -> int:
     return worst
 
 
-def assert_equal(a, b, what: str) -> None:
+def assert_equal(a, b, what: str, skip: tuple = ()) -> None:
     from madsim_tpu_torch.engine import STATE_FIELDS
 
     bad = [
         f for f in STATE_FIELDS
-        if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+        if f not in skip and not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
     ]
     if bad:
         raise AssertionError(f"{what}: fields differ: {bad}")
-    log(f"  {what}: every field equal")
+    log(f"  {what}: every field " + (f"but {', '.join(skip)} " if skip else "") + "equal")
 
 
 def time_ms(fn, repeats: int, device) -> list:
@@ -420,7 +558,7 @@ def entry_phase(device, entry_seeds: int) -> int:
     return max_abs_err(entry_k, entry_p)
 
 
-def plain_reference(wl, cfg, cap: int, st, dup_rows: bool = False):
+def plain_reference(wl, cfg, cap: int, st, dup_rows: bool = False, metrics: bool = False):
     """The plain step until every seed has halted, at most ``cap``
     times (the loop of ``make_run_while_plain``), counting on the way
     what the bound needs: the seed-steps taken before each seed halts,
@@ -430,7 +568,7 @@ def plain_reference(wl, cfg, cap: int, st, dup_rows: bool = False):
     Returns ``(state, seed_steps, drops)``."""
     from madsim_tpu_torch.engine import make_step_plain
 
-    step = make_step_plain(wl, cfg, dup_rows)
+    step = make_step_plain(wl, cfg, dup_rows, metrics)
     seed_steps = drops = 0
     i = 0
     while i < cap and not bool(st.halted.all()):
@@ -496,36 +634,67 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
                         cap, cpu_sample, repeats, extras)
 
 
+def plain_head(wl, cfg, n_steps: int, st, dup_rows: bool = False, metrics: bool = False):
+    """``make_run_plain(n_steps)`` of ``st`` by a cheaper road with the
+    same result: the plain step until every seed has halted (at most
+    ``n_steps`` times), then ``drain_plain`` for the rest, which is what
+    a halted seed's steps do. The card reference of a cut phase (38.2-38.4,
+    39.1); its CPU sample is ``make_run_plain``. Returns ``(state,
+    seed-steps, drops)`` of the stepped part, as :func:`plain_reference`."""
+    from madsim_tpu_torch.engine.fused import drain_plain
+
+    out, seed_steps, drops = plain_reference(wl, cfg, n_steps, st, dup_rows, metrics)
+    taken = int((out.step - st.step)[0]) if st.step.numel() else 0
+    if taken < n_steps:
+        step, valid = drain_plain(out.step, out.ev_valid, out.ev_time,
+                                  torch.full_like(out.step, n_steps - taken))
+        out = type(out)(**{**vars(out), "step": step, "ev_valid": valid})
+    return out, seed_steps, drops
+
+
+def head_of(st, k: int):
+    from madsim_tpu_torch.engine import STATE_FIELDS
+
+    return type(st)(**{f: getattr(st, f)[:k] for f in STATE_FIELDS})
+
+
 def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: int,
                  repeats: int, extras=None, plan=None, dup_rows: bool = False,
-                 all_halt: bool = True, refs: dict | None = None) -> dict:
+                 all_halt: bool = True, refs: dict | None = None, metrics: bool = False,
+                 plain_seeds: int | None = None, reuse: tuple | None = None) -> dict:
     """One library at a full-width shape: the main path through the
     kernel with the launch counts read around it, the checks, every
     field against the plain step (on the device, run and timed once, and
     the first seeds on the CPU), the kernel's time and the bound's
     inputs. ``plan`` seeds each run with its compiled rows, and
-    ``dup_rows`` runs the step with the duplication rows; ``all_halt``
-    requires every seed to halt with no pool overflow; ``refs[key]``
-    keeps the plain step's final state. ``extras(device, wl, cfg, cap,
-    st, out, ms)`` adds a model's own checks and timings, given the
-    kernel's median."""
-    from madsim_tpu_torch.engine import STATE_FIELDS, make_init, make_run_plain, make_run_while
+    ``dup_rows`` runs the step with the duplication rows; ``metrics``
+    folds the fleet counters; ``all_halt`` requires every seed to halt
+    with no pool overflow; ``refs[key]`` keeps the plain step's final
+    state. ``plain_seeds`` holds the plain step on the card on the first
+    that many seeds only (the kernel still runs all of them). ``reuse``
+    is ``(state, seed-steps, drops)`` of an earlier phase's plain run on
+    the card of the same seeds without metrics: every field but ``met``
+    is held against it, the plain step is not run again on the card,
+    and the CPU sample, which holds every field, gives the plain ms.
+    ``extras(device, wl, cfg, cap, st, out, ms)`` adds a model's own
+    checks and timings, given the kernel's median."""
+    from madsim_tpu_torch.engine import make_init, make_run_plain, make_run_while
     from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
 
     seeds = np.arange(n_seeds, dtype=np.uint64)
     if plan is None:
-        init = make_init(wl, cfg, device=device)
+        init = make_init(wl, cfg, device=device, metrics=metrics)
         st = init(seeds)
     else:
         t = time.perf_counter()
         rows = plan.compile_batch(seeds, wl=wl)
         compile_ms = (time.perf_counter() - t) * 1e3
-        init = make_init(wl, cfg, device=device, plan_slots=plan.slots)
+        init = make_init(wl, cfg, device=device, plan_slots=plan.slots, metrics=metrics)
         st = init(seeds, rows)
         log(f"  plan {plan.name} ({plan.hash()}): {plan.slots} slots, "
             f"{int(rows.valid.sum())} events over {n_seeds} seeds, compiled in "
             f"{compile_ms:.2f} ms (host); dup_rows {dup_rows}")
-    run = make_run_while(wl, cfg, cap, dup_rows=dup_rows)
+    run = make_run_while(wl, cfg, cap, dup_rows=dup_rows, metrics=metrics)
     if device.type == "cuda":
         torch.cuda.synchronize()
     KERNEL.reset()
@@ -554,27 +723,46 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
         log(f"  history: {int(out.hist_count.sum())} records in {out.hist_word.shape[1]} rows a "
             f"seed (at most {int(out.hist_count.max())} a seed), none dropped")
     # the plain step's one run: the reference, its time and the counts
-    # of the bound
-    got = []
-    plain_ms = time_ms(lambda: got.append(plain_reference(wl, cfg, cap, st, dup_rows)), 1,
-                       device)
-    ref, seed_steps, drops = got[0]
-    assert_equal(out, ref, "make_run_while (kernel) vs plain on the card")
+    # of the bound (on the first plain_seeds seeds when cut)
+    ks = n_seeds if plain_seeds is None else min(plain_seeds, n_seeds)
+    if reuse is None:
+        got = []
+        plain_ms = time_ms(lambda: got.append(
+            plain_reference(wl, cfg, cap, st, dup_rows, metrics) if ks == n_seeds
+            else plain_head(wl, cfg, n_steps, head_of(st, ks), dup_rows, metrics)),
+            1, device)[0]
+        ref, seed_steps, drops = got[0]
+        what = "make_run_while (kernel) vs plain on the card"
+        if ks < n_seeds:
+            what = f"first {ks} seeds of the kernel's make_run_while vs plain on the card"
+        assert_equal(out if ks == n_seeds else head_of(out, ks), ref, what)
+        err = max_abs_err(out if ks == n_seeds else head_of(out, ks), ref)
+    else:
+        (ref, seed_steps, drops), plain_ms = reuse, None
+        assert_equal(out, ref, "make_run_while (kernel) vs the earlier plain run on the card",
+                     skip=("met",))
+        err = max_abs_err(out, ref, skip=("met",))
     if refs is not None:
         refs[key] = ref
-    err = max_abs_err(out, ref)
     if device.type == "cuda":
-        counted = int(halt_counts(wl, cfg, cap, st, dup_rows).sum())
+        iters = halt_counts(wl, cfg, cap, st, dup_rows)
+        counted = int(iters[:ks].sum())
         if counted != seed_steps:
             raise AssertionError(
                 f"{key}: the kernel's stop-at-halt pass counts {counted} "
                 f"seed-steps, the plain run {seed_steps}")
+        if ks < n_seeds:
+            # the bound's work term over every seed: the kernel's own
+            # seed-steps; the seeds the plain step did not run count no
+            # poll block, so the term stays a lower bound
+            seed_steps, drops = int(iters.sum()), drops + int(iters[ks:].sum())
         drain_check(wl, cfg, cap, st, dup_rows)
         log("  drain kernel alone vs its plain version: step and ev_valid equal")
     k = min(cpu_sample, n_seeds)
-    head_st = type(st)(**{f: getattr(st, f)[:k] for f in STATE_FIELDS}).to("cpu")
-    cpu_ref = make_run_plain(wl, cfg, n_steps, dup_rows)(head_st)
-    head = type(out)(**{f: getattr(out, f)[:k] for f in STATE_FIELDS})
+    t = time.perf_counter()
+    cpu_ref = make_run_plain(wl, cfg, n_steps, dup_rows, metrics)(head_of(st, k).to("cpu"))
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    head = head_of(out, k)
     assert_equal(head, cpu_ref, f"first {k} seeds (kernel) vs plain on the CPU")
     err = max(err, max_abs_err(head, cpu_ref))
 
@@ -583,16 +771,28 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
     sim_s = float(out.now.double().sum()) / 1e9
     log(f"  kernel ms over {repeats} runs: median {med:.4f}, min {min(ms):.4f}, "
         f"max {max(ms):.4f}, all {[round(x, 4) for x in ms]}")
-    log(f"  plain ms (the one correctness run): {plain_ms[0]:.2f}")
+    if reuse is None:
+        log(f"  plain ms (the one correctness run): {plain_ms:.2f}; the CPU sample "
+            f"{cpu_ms:.2f} (host clock)")
+    else:
+        # the plain step with metrics ran only on the CPU
+        plain_ms = cpu_ms
+        log(f"  plain ms: the CPU sample {cpu_ms:.2f} (host clock; the card's plain run "
+            f"is the earlier phase's)")
     log(f"  simulated seconds {sim_s:.3f}: {sim_s / (med / 1e3):.1f} sim_s/s "
-        f"(kernel), {sim_s / (plain_ms[0] / 1e3):.1f} sim_s/s (plain)")
+        f"(kernel), {sim_s / (plain_ms / 1e3):.1f} sim_s/s (plain)")
     log(f"  state holds {state_bytes(st)} bytes ({state_bytes(st) / n_seeds:.1f} per seed)")
     if extras is not None:
         extras(device, wl, cfg, cap, st, out, med)
-    return dict(
-        launches=launches, drains=drains, err=err, ms=med, ms_all=ms, plain_ms=plain_ms[0],
+    r = dict(
+        launches=launches, drains=drains, err=err, ms=med, ms_all=ms, plain_ms=plain_ms,
         **bound_terms(st, out, cfg.pool_size, seed_steps, drops, sends),
     )
+    if reuse is not None:
+        r["plain_ms_of"] = f"make_run_plain on the CPU, first {k} seeds (host clock)"
+    if metrics:
+        r["met_total"] = out.met.to(torch.int64).sum(0).tolist()
+    return r
 
 
 def bound_terms(st, out, pool: int, seed_steps: int, drops: int, sends: int) -> dict:
@@ -631,12 +831,13 @@ def launch_shape(spec, pool: int, card: str = "") -> str:
     if base is not None and "H100 80GB HBM3" in card and got != base:
         raise AssertionError(f"{spec.key} at pool {pool}: launch shape {got}, "
                              f"BASE_SHAPES has {base}")
-    if o["run_blocks_per_sm"] < 1 or o["drain_blocks_per_sm"] < 1:
-        raise AssertionError(f"{spec.key} at pool {pool}: no block fits an SM: {got}")
+    if min(o["run_blocks_per_sm"], o["drain_blocks_per_sm"], o["met_blocks_per_sm"]) < 1:
+        raise AssertionError(f"{spec.key} at pool {pool}: no block fits an SM: {o}")
     return (f"G {o['group']}, {o['seeds_per_block']} seeds per block of 128 threads; "
             f"run kernel {o['run_smem_bytes']} B shared per block, "
             f"{o['run_blocks_per_sm']} blocks per SM; drain kernel "
-            f"{o['drain_smem_bytes']} B, {o['drain_blocks_per_sm']} blocks per SM")
+            f"{o['drain_smem_bytes']} B, {o['drain_blocks_per_sm']} blocks per SM; run kernel "
+            f"with metrics {o['met_smem_bytes']} B, {o['met_blocks_per_sm']} blocks per SM")
 
 
 def kernel_line(name: str, model_source: str, r: dict, clock_hz: float,
@@ -665,6 +866,7 @@ def kernel_line(name: str, model_source: str, r: dict, clock_hz: float,
         "ms_min": min(r["ms_all"]),
         "ms_max": max(r["ms_all"]),
         "plain_ms": r["plain_ms"],
+        **({"plain_ms_of": r["plain_ms_of"]} if "plain_ms_of" in r else {}),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
@@ -1388,6 +1590,301 @@ def nemesis_phase(device, refs: dict, paths: dict, extra: dict) -> None:
         **{f"nemesis_{k}_search_ms": statistics.median(v) for k, v in timing.items()})
 
 
+def store_search(device, paths: dict, name: str, wl, cfg, plan, cap: int, inv, n: int,
+                 pin: str, **kw):
+    """One storage search at ``n`` seeds on the card, its launches read
+    around it; the failing, overflowed and unhalted counts and the
+    digest of the trace column must be the JAX package's
+    (``STORE_PINS[pin]``). Returns the report and its host ms."""
+    from madsim_tpu_torch.engine import search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    key = kernel_model(wl).key
+
+    def go():
+        return search_seeds(wl, cfg, None, n_seeds=n, max_steps=cap, history_invariant=inv,
+                            plan=plan, device=device, **kw)
+
+    t = time.perf_counter()
+    rep, counts = path_launches(go)
+    ms = (time.perf_counter() - t) * 1e3
+    paths.setdefault(key, {})[name] = run_drain(counts, key)
+    if run_drain(counts, key) != [1, 1] or len(counts) != 2:
+        raise AssertionError(f"{name}: launched {counts}")
+    got = dict(failing=int(rep.failing_seeds.size), overflowed=int(rep.overflowed.sum()),
+               unhalted=int(rep.unhalted_seeds.size), traces=traces_digest(rep.traces))
+    if got != STORE_PINS[pin]:
+        raise AssertionError(f"{name}: {got}; the JAX package: {STORE_PINS[pin]}")
+    return rep, ms
+
+
+def raft_nemesis_phase(device, paths: dict, extra: dict) -> None:
+    """Phase 37.4: the nemesis soak's certificate 4, durable raftlog
+    under its crash storm and gray failure, pinned to the JAX package's
+    run."""
+    from madsim_tpu_torch.check import election_safety
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.models import make_raftlog
+    from madsim_tpu_torch.models.raftlog import OP_COMMIT, OP_ELECT
+
+    wl, cfg, plan = (make_raftlog(record=True, chaos=False, durable=True),
+                     EngineConfig(**NEMESIS_RAFT_KW), store_plans()["raft"])
+    box = {}
+
+    def inv(h):
+        box["ok"] = election_safety(h, elect_op=OP_ELECT) & election_safety(h, elect_op=OP_COMMIT)
+        return box["ok"]
+
+    rep, ms = store_search(device, paths, "nemesis_raftlog", wl, cfg, plan, STORE_STEPS, inv,
+                           NEMESIS_SEEDS, "raft")
+    viol = int((~box["ok"] & ~rep.overflowed).sum())
+    if viol:
+        raise AssertionError(f"certificate 4: {viol} violations")
+    extra.setdefault("raftlog-durable-record", {})["nemesis_raftlog_search_ms"] = ms
+    log(f"[37.4] durable raftlog under {plan.name} ({rep.plan_hash}), {NEMESIS_SEEDS} seeds, "
+        f"pool 96: 0 election/log-agreement violations, 0 overflows, 0 unhalted, traces "
+        f"{traces_digest(rep.traces)} as the JAX package's run; search ms {ms:.2f}; "
+        f"launches {paths['raftlog-durable-record']['nemesis_raftlog']}")
+
+
+def store_kernel_phases(device, results: list, paths: dict, extra: dict, card: str,
+                        ms_of: dict, plan_refs: dict) -> dict:
+    """Phase 38: the storage libraries and the metrics runs, each held as
+    phases 4-15; 38.6 against phase 36.4's plain run (``plan_refs``).
+    Returns the plain step's final states of 38.2-38.4 (the first
+    STORE_PLAIN_SEEDS seeds), by plan name."""
+    from madsim_tpu_torch.engine import (
+        STATE_FIELDS, EngineConfig, make_init, make_run_while, search_seeds,
+    )
+    from madsim_tpu_torch.engine.core import (
+        MET_CLOG_BLOCK, MET_CRASH, MET_DUP, MET_PAUSE, MET_SYNC, MET_SYNC_LOST, MET_TORN,
+    )
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.engine.oracle import run_oracle
+    from madsim_tpu_torch.models import BENCH_SPECS, make_kvchaos, make_raft, make_raftlog
+
+    plans, refs = store_plans(), {}
+
+    def held(label, key, wl, cfg, n, cap, plan=None, metrics=False, dup=False,
+             plain_seeds=None, all_halt=True, reuse=None):
+        if kernel_model(wl, dup).key != key:
+            raise AssertionError(f"{key}: the registry picks {kernel_model(wl, dup).key}")
+        box = {}
+        r = kernel_phase(device, key, wl, cfg, n, cap, CPU_SAMPLE, REPEATS, plan=plan,
+                         dup_rows=dup, all_halt=all_halt, refs=box, metrics=metrics,
+                         plain_seeds=plain_seeds, reuse=reuse)
+        if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+            raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; "
+                                 f"error {r['err']}")
+        name = f"make_run_fused/{key}" + (f"/plan-{label}" if plan else "") + (
+            "/metrics" if metrics else "")
+        results.append((key, name, f"madsim_tpu_torch/csrc/{kernel_model(wl, dup).header}", r))
+        paths.setdefault(key, {})[f"run_while_{label}"] = [r["launches"], r["drains"]]
+        return r, box[key]
+
+    # 38.1 raftlog-durable at the raftlog bench shape, and the store
+    # soak's oracle sample at pool 128
+    _f, kw, n, cap = BENCH_SPECS["raftlog"]
+    wl = make_raftlog(durable=True)
+    log(f"[38.1] raftlog-durable: {kw}, {n} seeds, make_run_while cap {cap}")
+    held("bench", "raftlog-durable", wl, EngineConfig(**kw), n, cap)
+    cfg = EngineConfig(**STORE_KW)
+    orc, counts = path_launches(lambda: search_seeds(
+        wl, cfg, lambda v: np.ones(64, bool), n_seeds=64, max_steps=STORE_STEPS,
+        require_halt=False, device=device))
+    paths["raftlog-durable"]["oracle_sample"] = run_drain(counts, "raftlog-durable")
+    sample = range(0, 64, 7)
+    for seed in sample:
+        o = run_oracle(wl, cfg, seed, STORE_STEPS, n_writes=4)
+        if o.trace != int(orc.traces[seed]):
+            raise AssertionError(f"raftlog-durable seed {seed}: trace {int(orc.traces[seed]):#x}, "
+                                 f"the C++ oracle {o.trace:#x}")
+    log(f"  pool 128, {STORE_STEPS} steps: seeds {list(sample)} equal the C++ oracle's traces "
+        f"(the verbatim-durable semantics); launches {counts}")
+
+    # 38.2-38.4 the store shape under the soak's plans, with metrics
+    store_wl = make_raftlog(record=True, chaos=False, durable=True)
+    bug_wl = make_raftlog(record=True, chaos=False, durable=True, bug="nosync")
+    for i, (ref, key, w, plan) in enumerate((
+            ("store", "raftlog-durable-record", store_wl, "store"),
+            ("lie", "raftlog-durable-record", store_wl, "lie"),
+            ("nosync", "raftlog-nosync-record", bug_wl, "store"))):
+        log(f"[38.{i + 2}] {key}: {STORE_KW}, {STORE_SEEDS} seeds, make_run_while cap "
+            f"{STORE_STEPS}, plan {plans[plan].name}, metrics; the plain step on the card "
+            f"holds the first {STORE_PLAIN_SEEDS} seeds")
+        r, refs[ref] = held(plan, key, w, cfg, STORE_SEEDS, STORE_STEPS, plan=plans[plan],
+                            metrics=True, plain_seeds=STORE_PLAIN_SEEDS)
+        met = refs[ref].met.to(torch.int64).sum(0).tolist()
+        log(f"  the plain step's {STORE_PLAIN_SEEDS} seeds: syncs {met[MET_SYNC]}, lied "
+            f"{met[MET_SYNC_LOST]}, torn kills {met[MET_TORN]}, crashes {met[MET_CRASH]}")
+
+    # 38.5 the main path with metrics: every field but met equals the
+    # run without them (phase 4's)
+    wl, cfg, n, cap = spec_of("raft", {})
+    log(f"[38.5] raft with metrics: {n} seeds, make_run_while cap {cap}")
+    r, _ref = held("metrics", "raft", wl, cfg, n, cap, metrics=True)
+    seeds = np.arange(n, dtype=np.uint64)
+    plain_run = make_run_while(wl, cfg, cap)(make_init(wl, cfg, device=device)(seeds))
+    met_run = make_run_while(wl, cfg, cap, metrics=True)(
+        make_init(wl, cfg, device=device, metrics=True)(seeds))
+    bad = [f for f in STATE_FIELDS
+           if f != "met" and not torch.equal(getattr(plain_run, f), getattr(met_run, f))]
+    if bad:
+        raise AssertionError(f"raft: metrics changed {bad}")
+    extra.setdefault("raft", {}).update(metrics_ms=r["ms"], metrics_ms_all=r["ms_all"])
+    log(f"  every field but met equals the run without metrics; kernel median {r['ms']:.4f} ms "
+        f"with metrics beside {ms_of['raft']:.4f} ms without (phase 4, this call, {card})")
+
+    # 38.6 phase 36.4's run with metrics: every field but met against
+    # 36.4's plain run of all its seeds on the card, every field on the
+    # CPU sample
+    key = "kvchaos-record-nochaos-dup"
+    r36 = next(r for _k, name, _s, r in results if name == f"make_run_fused/{key}/plan-mixed")
+    kv = dict(writes=NEMESIS_KV_WRITES, record=True, chaos=False)
+    log(f"[38.6] {key}: {NEMESIS_KV_KW}, {NEMESIS_SEEDS} seeds, cap {NEMESIS_STEPS}, the "
+        f"mixed plan, dup_rows, metrics; held against phase 36.4's plain run on the card")
+    r, _ref = held("mixed", key, make_kvchaos(**kv), EngineConfig(**NEMESIS_KV_KW),
+                   NEMESIS_SEEDS, NEMESIS_STEPS, metrics=True, plan=nemesis_plans()["mixed"],
+                   dup=True, all_halt=False,
+                   reuse=(plan_refs[key], r36["seed_steps"], r36["drops"]))
+    totals = r["met_total"]
+    for slot, label in ((MET_DUP, "dup"), (MET_PAUSE, "pause"),
+                        (MET_CLOG_BLOCK, "clog_block"), (MET_CRASH, "crash")):
+        if totals[slot] <= 0:
+            raise AssertionError(f"38.6: MET_{label.upper()} is 0")
+    log(f"  the kernel's counters over all {NEMESIS_SEEDS} seeds: dup {totals[MET_DUP]}, "
+        f"pause {totals[MET_PAUSE]}, clog_block {totals[MET_CLOG_BLOCK]}, crash "
+        f"{totals[MET_CRASH]}")
+    return refs
+
+
+def store_certificates(device, refs: dict, paths: dict, extra: dict) -> None:
+    """Phase 39: the store soak's certificates at 8,192 seeds on the card,
+    each count pinned to the JAX package's run; each search's failing
+    seeds among the first STORE_PLAIN_SEEDS equal those of phase 38's
+    plain runs."""
+    from madsim_tpu_torch.chaos import shrink_plan
+    from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while, search_seeds
+    from madsim_tpu_torch.engine.compact import RESULT_FIELDS, make_run_compacted
+    from madsim_tpu_torch.engine.convert import state_to_numpy
+    from madsim_tpu_torch.engine.core import MET_CRASH, MET_SYNC, MET_SYNC_LOST, MET_TORN
+    from madsim_tpu_torch.models import make_raftlog
+
+    plans, cfg, n = store_plans(), EngineConfig(**STORE_KW), STORE_SEEDS
+    wl = make_raftlog(record=True, chaos=False, durable=True)
+    wl_bug = make_raftlog(record=True, chaos=False, durable=True, bug="nosync")
+    key, bug_key = "raftlog-durable-record", "raftlog-nosync-record"
+    kw = dict(require_halt=False)
+    timing = {}
+
+    def same_as_plain(name, rep, ref, inv):
+        k = ref.seed.shape[0]
+        got = rep.failing_seeds[rep.failing_seeds < k]
+        want = flagged_by_plain(ref, inv)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: the kernel fails {got.tolist()} of the first {k} "
+                                 f"seeds, the plain step {want.tolist()}")
+        return got.size
+
+    # 39.1 certificate 1: no disk fault; the kernel, the plain step and
+    # the compacted runner agree
+    rep, timing["off"] = store_search(device, paths, "store_off", wl, cfg, None, STORE_STEPS,
+                                      store_inv({}), n, "off", **kw)
+    st = make_init(wl, cfg, device=device)(np.arange(n, dtype=np.uint64))
+    out, counts = path_launches(lambda: make_run_while(wl, cfg, STORE_STEPS)(st))
+    ref = plain_head(wl, cfg, int(out.step[0]), head_of(st, STORE_PLAIN_SEEDS))[0]
+    assert_equal(head_of(out, STORE_PLAIN_SEEDS), ref,
+                 f"39.1: the first {STORE_PLAIN_SEEDS} seeds (kernel) vs plain on the card")
+    comp, ccounts = path_launches(lambda: make_run_compacted(wl, cfg, STORE_STEPS)(st))
+    paths[key]["compacted_off"] = run_drain(ccounts, key)
+    lock = state_to_numpy(out)
+    for f in RESULT_FIELDS:
+        if f != "step" and not np.array_equal(getattr(comp, f), lock[f]):
+            raise AssertionError(f"39.1: compacted field {f} differs from make_run_while")
+    if run_drain(ccounts, key) != [1, 0]:
+        raise AssertionError(f"39.1: the compacted path launched {ccounts}")
+    log(f"[39.1] certificate 1, no disk fault: 0 violations, traces {traces_digest(rep.traces)} "
+        f"as the JAX package's; the kernel's run equals the plain step on the first "
+        f"{STORE_PLAIN_SEEDS} seeds, and make_run_compacted (launches {ccounts}) every banked "
+        f"field but step (disk included); search ms {timing['off']:.2f}")
+
+    # 39.2 certificate 2: correct placement clean under the store plan
+    box = {}
+    rep, timing["store"] = store_search(device, paths, "store_clean", wl, cfg, plans["store"],
+                                        STORE_STEPS, store_inv(box), n, "store", metrics=True,
+                                        **kw)
+    same_as_plain("39.2", rep, refs["store"], store_inv({}))
+    tot = torch.as_tensor(rep.met, device=device).to(torch.int64).sum(0)
+    fleet = dict(sync=int(tot[MET_SYNC]), sync_lost=int(tot[MET_SYNC_LOST]),
+                 torn=int(tot[MET_TORN]), crash=int(tot[MET_CRASH]))
+    if fleet != STORE_FLEET or fleet["torn"] == 0:
+        raise AssertionError(f"39.2: fleet {fleet}; the JAX package: {STORE_FLEET}")
+    log(f"[39.2] certificate 2, {plans['store'].name} ({rep.plan_hash}): 0 violations, 0 "
+        f"overflows; fleet: syncs {fleet['sync']}, lied {fleet['sync_lost']}, torn kills "
+        f"{fleet['torn']}, crashes {fleet['crash']} (summed on the card), as the JAX "
+        f"package's; search ms {timing['store']:.2f}")
+
+    # 39.3 certificate 3: the lying disk, the detector's positive control
+    rep, timing["lie"] = store_search(device, paths, "store_lie", wl, cfg, plans["lie"],
+                                      STORE_STEPS, recovery_inv({}), n, "lie", **kw)
+    head = same_as_plain("39.3", rep, refs["lie"], recovery_inv({}))
+    log(f"[39.3] certificate 3, {plans['lie'].name} ({rep.plan_hash}): recovery_safety flags "
+        f"{rep.failing_seeds.size} seeds ({head} of the first {STORE_PLAIN_SEEDS} equal to "
+        f"the plain step's), as the JAX package's; search ms {timing['lie']:.2f}")
+
+    # 39.4 the missing-sync mutant, its shrink and the shrunk replay
+    box = {}
+    rep, timing["nosync"] = store_search(device, paths, "store_nosync", wl_bug, cfg,
+                                         plans["store"], STORE_STEPS, store_inv(box), n,
+                                         "nosync", **kw)
+    same_as_plain("39.4", rep, refs["nosync"], store_inv({}))
+    loss = int((~box["commit"] & ~rep.overflowed).sum())
+    first = int(rep.failing_seeds[0])
+    if (first, loss) != (NOSYNC_FIRST, NOSYNC_COMMIT_LOSS):
+        raise AssertionError(f"39.4: first failing seed {first}, {loss} by committed-value "
+                             f"loss; the JAX package: {NOSYNC_FIRST}, {NOSYNC_COMMIT_LOSS}")
+    t = time.perf_counter()
+    res, counts = path_launches(lambda: shrink_plan(
+        wl_bug, cfg, first, plans["store"], history_invariant=store_inv({}),
+        max_steps=STORE_STEPS, device=device))
+    shrink_ms = (time.perf_counter() - t) * 1e3
+    paths[bug_key]["shrink"] = run_drain(counts, bug_key)
+    got = dict(events=tuple(tuple(vars(e).values()) for e in res.events), rounds=res.rounds,
+               tested=res.tested, plan_hash=res.plan.hash(), trace=res.trace)
+    if got != NOSYNC_SHRUNK:
+        raise AssertionError(f"39.4: seed {first} shrinks to {got}; the JAX package: "
+                             f"{NOSYNC_SHRUNK}")
+    box_r = {}
+    rep_r = search_seeds(wl_bug, cfg, None, seeds=np.asarray([first], np.uint64),
+                         max_steps=STORE_STEPS, history_invariant=store_inv(box_r),
+                         plan=res.plan, device=device, **kw)
+    if (rep_r.failing_seeds.tolist() != [first] or int(rep_r.traces[0]) != res.trace
+            or bool(box_r["commit"][0])):
+        raise AssertionError("39.4: the shrunk plan's replay diverged")
+    log(f"[39.4] the nosync mutant under {plans['store'].name}: {rep.failing_seeds.size} "
+        f"failing seeds, all {loss} by committed-value loss, as the JAX package's; search ms "
+        f"{timing['nosync']:.2f}")
+    log("  " + res.banner().replace("\n", "\n  "))
+    log(f"  {res.original_events} -> {len(res.events)} events in {res.rounds} rounds "
+        f"({res.tested} candidates), launches {paths[bug_key]['shrink']}, {shrink_ms:.1f} ms; "
+        f"the replay loses a committed value with the same trace")
+
+    # 39.5 the EIO storm: correct code reacts, nothing is lost
+    rep, timing["eio"] = store_search(device, paths, "store_eio", wl, cfg, plans["eio"],
+                                      EIO_STEPS, store_inv({}), n, "eio", metrics=True, **kw)
+    lost = int((torch.as_tensor(rep.met, device=device)[:, MET_SYNC_LOST] > 0).sum())
+    if lost != EIO_SYNC_LOST_SEEDS or 2 * lost <= n:
+        raise AssertionError(f"39.5: {lost} seeds with a failed sync; the JAX package: "
+                             f"{EIO_SYNC_LOST_SEEDS}")
+    log(f"[39.5] the EIO storm ({rep.plan_hash}), cap {EIO_STEPS}: 0 violations, 0 overflows; "
+        f"{lost} of {n} seeds saw a sync fail, as the JAX package's; search ms "
+        f"{timing['eio']:.2f}")
+    extra.setdefault(key, {}).update(
+        {f"store_{k}_search_ms": v for k, v in timing.items() if k != "nosync"})
+    extra.setdefault(bug_key, {}).update(store_nosync_search_ms=timing["nosync"],
+                                         shrink_ms=shrink_ms, shrink_rounds=res.rounds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1474,6 +1971,9 @@ def main() -> int:
     main_path_screen_phase(device, paths, extra)
     refs = plan_phases(device, results, paths, extra, card)
     nemesis_phase(device, refs, paths, extra)
+    raft_nemesis_phase(device, paths, extra)
+    store_refs = store_kernel_phases(device, results, paths, extra, card, ms_of, refs)
+    store_certificates(device, store_refs, paths, extra)
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}))
         for key, name, src, r in results

@@ -66,7 +66,7 @@
 // engine kinds: the one-way clog, the slow-link multiplier (an
 // overwrite of every selected cell of `slow`), the duplication flag and
 // a node's clock skew, which its handlers see in `now`; the disk-fault
-// kinds 251-254 change nothing without the sync discipline. `slow`,
+// kinds 251-254 open and close a node's storage windows (below). `slow`,
 // `skew` and `dup` live in the seed's shared state and are stored back
 // on every run. A library built with duplication rows (DupRows<M>::n ==
 // K, written by the unit engine/fused.py makes for it) has K shadow
@@ -75,10 +75,36 @@
 // latency and loss draw at PURPOSE_DUP + j, which comes before the user
 // purposes. A shadow row is the user row read again, so the seed's
 // emit rows stay K + 1; its draw words grow to 2K + 1.
+//
+// Storage faults. A model with SYNC = true (Workload.durable_sync) keeps
+// the two-phase sync discipline over its durable columns (the zeros of
+// the volatile-column table): each node's disk image, the columns of
+// its last uncommitted durable write and its three window flags live in
+// the seed's shared state (SeedStorage). A user dispatch replaces the
+// node's write mask with the durable columns its handler changed (read
+// before the new row is copied over the old) and, when the handler
+// called ctx.sync() and the node's disk neither lies nor fails, commits
+// them to the image. A KILL reverts the node's durable columns to the
+// image, or under an armed torn mode keeps the first keep_cnt = torn
+// word mod (dirty + 1) dirty columns in column order, the torn word the
+// first of the PURPOSE_TORN block, drawn only for such a kill; the
+// volatile reset stays at RESTART. Kinds 251-254 set and clear the
+// flags of one node or of every node (args[0] = -1); the handler sees
+// its node's EIO flag as ctx.sync_err. Without SYNC every storage line
+// compiles away.
+//
+// Fleet metrics. A run kernel instantiated with MET = true (the state's
+// met column is N_METRICS wide) keeps the seed's MET_* counters in
+// shared memory: the per-emit counts are reduced over the lane group by
+// ballots in place_emits, the rest are the leader's, and the halt code
+// records how the seed stopped (HALT_IDLE on the step that finds its
+// pool empty). Nothing in them feeds back into the trajectory.
 #pragma once
 
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "lanes.cuh"
 #include "threefry.cuh"
@@ -104,8 +130,21 @@ constexpr int32_t KIND_DUP_OFF = 247;
 constexpr int32_t KIND_SKEW = 248;
 constexpr int32_t KIND_CLOG_1W = 249;
 constexpr int32_t KIND_UNCLOG_1W = 250;
+constexpr int32_t KIND_SYNC_LOSS = 251;
+constexpr int32_t KIND_SYNC_OK = 252;
+constexpr int32_t KIND_TORN_ON = 253;
+constexpr int32_t KIND_TORN_OFF = 254;
+
+// the fleet-metric slots (engine/core.py MET_*) and halt codes
+constexpr int N_METRICS = 18;
+constexpr int MET_SENT = 0, MET_DELIVERED = 1, MET_LOST = 2, MET_DEAD_DROP = 3,
+              MET_DUP = 4, MET_CRASH = 5, MET_RESTART = 6, MET_PAUSE = 7,
+              MET_CLOG_BLOCK = 8, MET_TIMER = 9, MET_RECORD = 10, MET_RNG = 11,
+              MET_HALT_CODE = 12, MET_SYNC = 13, MET_SYNC_LOST = 14, MET_TORN = 15;
+constexpr int32_t HALT_RUNNING = 0, HALT_DONE = 1, HALT_TIME_LIMIT = 2, HALT_IDLE = 3;
 
 constexpr uint32_t PURPOSE_POLL_COST = 0;
+constexpr uint32_t PURPOSE_TORN = 2;
 constexpr uint32_t PURPOSE_LATENCY = 8;
 constexpr uint32_t PURPOSE_DUP = 64;
 constexpr uint32_t PURPOSE_USER = 128;
@@ -157,7 +196,8 @@ inline EngineConfig engine_config(const int64_t* c) {
 // One pointer per SimState field the kernel touches (the port's torch
 // layout: seed-major, contiguous), in engine/fused.py KERNEL_FIELDS
 // order. The output side has no seed (the kernel never writes it),
-// ev_pay only when W > 0 and the history columns only when R > 0.
+// ev_pay only when W > 0, the history columns only when R > 0, the
+// storage columns only for a SYNC model and met only with metrics.
 struct Fields {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
@@ -185,9 +225,15 @@ struct Fields {
   int32_t* hist_drop;  // (S,)
   int32_t* hist_word;  // (S,Hc,5) [op, key, arg, client, ok]
   int64_t* hist_t;     // (S,Hc)
+  int32_t* disk;       // (S,N,U) the synced durable image (SYNC)
+  uint8_t* wmask;      // (S,N,U) the last uncommitted write's columns
+  uint8_t* sync_loss;  // (S,N)
+  uint8_t* sync_eio;   // (S,N)
+  uint8_t* torn;       // (S,N)
+  int32_t* met;        // (S,N_METRICS) with metrics
 };
 
-constexpr int kFieldPointers = 26;
+constexpr int kFieldPointers = 32;
 
 inline Fields fields(void* const* p) {
   Fields f;
@@ -217,6 +263,12 @@ inline Fields fields(void* const* p) {
   f.hist_drop = static_cast<int32_t*>(p[23]);
   f.hist_word = static_cast<int32_t*>(p[24]);
   f.hist_t = static_cast<int64_t*>(p[25]);
+  f.disk = static_cast<int32_t*>(p[26]);
+  f.wmask = static_cast<uint8_t*>(p[27]);
+  f.sync_loss = static_cast<uint8_t*>(p[28]);
+  f.sync_eio = static_cast<uint8_t*>(p[29]);
+  f.torn = static_cast<uint8_t*>(p[30]);
+  f.met = static_cast<int32_t*>(p[31]);
   return f;
 }
 
@@ -364,6 +416,33 @@ struct SeedHistory {
 template <>
 struct SeedHistory<0> {};
 
+// Whether a model keeps the sync discipline: its trait's SYNC, false
+// where it declares none.
+template <class M, class = void>
+struct SyncOf : std::false_type {};
+template <class M>
+struct SyncOf<M, std::void_t<decltype(M::SYNC)>> : std::bool_constant<M::SYNC> {};
+
+// the storage state of a seed's N nodes, present only for a SYNC model
+template <int N, int U, bool ON>
+struct SeedStorage {
+  int32_t disk[N * U];
+  bool wmask[N * U];
+  bool sync_loss[N];
+  bool sync_eio[N];
+  bool torn[N];
+};
+template <int N, int U>
+struct SeedStorage<N, U, false> {};
+
+// the fleet counters of a seed, present only with metrics
+template <bool MET>
+struct SeedMetrics {
+  int32_t met[N_METRICS];
+};
+template <>
+struct SeedMetrics<false> {};
+
 // where a seed's appended history rows go: its rows of the output
 template <int R>
 struct HistOut {
@@ -395,7 +474,8 @@ struct DupRows {
 };
 
 // What a handler sees (the port's HandlerCtx, one seed), with the
-// counter-based draws of engine/rng.py Draw.
+// counter-based draws of engine/rng.py Draw. sync() is the port's
+// EmitBuilder.sync: the dispatch's fsync flag, the OR of its calls.
 template <class M>
 struct Ctx {
   const int32_t* state;  // (U,) the node's row
@@ -405,6 +485,12 @@ struct Ctx {
   int64_t now;           // the clock plus the node's skew
   uint32_t k0, k1, step;
   const uint32_t* drawn;  // (UserDraws<M>::n,) this step's declared draws
+  bool sync_err;          // the node's fsync-EIO flag before the dispatch
+  bool* sync_flag;        // the dispatch's fsync
+
+  MADSIM_HDI void sync(bool when) const {
+    if (when) *sync_flag = true;
+  }
 
   MADSIM_HDI uint32_t user(uint32_t purpose) const {
     for (int d = 0; d < UserDraws<M>::n; d++)
@@ -443,10 +529,11 @@ MADSIM_HDI uint64_t trace_fold(uint64_t trace, int64_t now, int32_t kind,
 
 // One seed's state for the whole run, in the block's shared memory
 // (a plain struct on the host): the pool's valid flags as a bitmask, the
-// event meta words as uint32, the handler's new row and emit rows, and
-// with R > 0 the history counters.
-template <class M, int E>
-struct Seed : SeedHistory<M::R> {
+// event meta words as uint32, the handler's new row and emit rows, with
+// R > 0 the history counters, for a SYNC model the storage state and
+// with MET the counters.
+template <class M, int E, bool MET = false>
+struct Seed : SeedHistory<M::R>, SeedStorage<M::N, M::U, SyncOf<M>::value>, SeedMetrics<MET> {
   static constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K;
   // emit rows with a draw: the user rows, the restart row, the shadows
   static constexpr int KT = K + 1 + DupRows<M>::n;
@@ -545,8 +632,8 @@ MADSIM_HDI void rows_out(T* g, int64_t first, int nb, int tid, int nt, F get) {
 
 // load seeds [first, first + nb) of a.in into blk, with every thread of
 // the block; ends with a block barrier
-template <class M, int E>
-MADSIM_HD void block_load(Seed<M, E>* blk, const Fields& f, int64_t first,
+template <class M, int E, bool MET>
+MADSIM_HD void block_load(Seed<M, E, MET>* blk, const Fields& f, int64_t first,
                           int nb, int tid, int nt) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
   constexpr int NW = PoolBits<E>::NW;
@@ -598,6 +685,22 @@ MADSIM_HD void block_load(Seed<M, E>* blk, const Fields& f, int64_t first,
     rows_in<1>(f.hist_drop, first, nb, tid, nt,
                [&](int b, int, int32_t v) { blk[b].hist_drop = v; });
   }
+  if constexpr (SyncOf<M>::value) {
+    rows_in<N * U>(f.disk, first, nb, tid, nt,
+                   [&](int b, int k, int32_t v) { blk[b].disk[k] = v; });
+    rows_in<N * U>(f.wmask, first, nb, tid, nt,
+                   [&](int b, int k, uint8_t v) { blk[b].wmask[k] = v != 0; });
+    rows_in<N>(f.sync_loss, first, nb, tid, nt,
+               [&](int b, int k, uint8_t v) { blk[b].sync_loss[k] = v != 0; });
+    rows_in<N>(f.sync_eio, first, nb, tid, nt,
+               [&](int b, int k, uint8_t v) { blk[b].sync_eio[k] = v != 0; });
+    rows_in<N>(f.torn, first, nb, tid, nt,
+               [&](int b, int k, uint8_t v) { blk[b].torn[k] = v != 0; });
+  }
+  if constexpr (MET) {
+    rows_in<N_METRICS>(f.met, first, nb, tid, nt,
+                       [&](int b, int k, int32_t v) { blk[b].met[k] = v; });
+  }
   block_sync();  // the bits are zero before any thread sets one
   rows_in<E>(f.ev_valid, first, nb, tid, nt, [&](int b, int k, uint8_t v) {
     if (v) set_bit_shared(blk[b].ev_bits, k);
@@ -607,8 +710,8 @@ MADSIM_HD void block_load(Seed<M, E>* blk, const Fields& f, int64_t first,
 
 // store blk into seeds [first, first + nb) of f, every field the kernel
 // writes; the caller has passed a block barrier
-template <class M, int E>
-MADSIM_HD void block_store(const Seed<M, E>* blk, const Fields& f,
+template <class M, int E, bool MET>
+MADSIM_HD void block_store(const Seed<M, E, MET>* blk, const Fields& f,
                            int64_t first, int nb, int tid, int nt) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
   rows_out<1>(f.now, first, nb, tid, nt, [&](int b, int) { return blk[b].now; });
@@ -655,6 +758,20 @@ MADSIM_HD void block_store(const Seed<M, E>* blk, const Fields& f,
     rows_out<1>(f.hist_drop, first, nb, tid, nt,
                 [&](int b, int) { return blk[b].hist_drop; });
   }
+  if constexpr (SyncOf<M>::value) {
+    rows_out<N * U>(f.disk, first, nb, tid, nt, [&](int b, int k) { return blk[b].disk[k]; });
+    rows_out<N * U>(f.wmask, first, nb, tid, nt,
+                    [&](int b, int k) { return static_cast<uint8_t>(blk[b].wmask[k]); });
+    rows_out<N>(f.sync_loss, first, nb, tid, nt,
+                [&](int b, int k) { return static_cast<uint8_t>(blk[b].sync_loss[k]); });
+    rows_out<N>(f.sync_eio, first, nb, tid, nt,
+                [&](int b, int k) { return static_cast<uint8_t>(blk[b].sync_eio[k]); });
+    rows_out<N>(f.torn, first, nb, tid, nt,
+                [&](int b, int k) { return static_cast<uint8_t>(blk[b].torn[k]); });
+  }
+  if constexpr (MET) {
+    rows_out<N_METRICS>(f.met, first, nb, tid, nt, [&](int b, int k) { return blk[b].met[k]; });
+  }
 }
 
 // Copy the block's history rows, seeds [first, first + nb), from the
@@ -678,11 +795,12 @@ MADSIM_HD void copy_history(const Fields& in, const Fields& out, int32_t cap,
 // Append a user dispatch's valid record rows at hist_count, hist_count +
 // 1, ...: the row is [op, key, arg, client = dst, ok] and the time the
 // dispatch clock `now` (without the node's skew). Rows past the capacity
-// are dropped and counted, so the kept ones are a prefix. The leader's
-// work.
-template <class M, int E>
-MADSIM_HDI void append_history(Seed<M, E>& s, const HistOut<M::R>& ho,
-                               const Rec* recs, int32_t dst, int64_t now) {
+// are dropped and counted, so the kept ones are a prefix. Returns the
+// rows kept. The leader's work.
+template <class M, int E, bool MET>
+MADSIM_HDI int append_history(Seed<M, E, MET>& s, const HistOut<M::R>& ho,
+                              const Rec* recs, int32_t dst, int64_t now) {
+  int kept = 0;
   for (int j = 0; j < M::R; j++) {
     const Rec& r = recs[j];
     if (r.valid) {
@@ -695,11 +813,13 @@ MADSIM_HDI void append_history(Seed<M, E>& s, const HistOut<M::R>& ho,
         w[4] = r.ok;
         ho.t[s.hist_count] = now;
         s.hist_count += 1;
+        kept++;
       } else {
         s.hist_drop += 1;
       }
     }
   }
+  return kept;
 }
 
 
@@ -718,21 +838,23 @@ MADSIM_HDI void clear_rows(const Lanes<G>& g, Emit<M::A, M::W>* em) {
 // the shadow rows: user row j - K - 1 again, while `dup` is set and it
 // is a send. The lanes zero their rows for the next dispatch; the
 // leader marks the slots taken and counts sends and overflow.
-template <class M, int E, int G>
-MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
+template <class M, int E, int G, bool MET>
+MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
                            const EngineConfig& c, int64_t now_after,
                            int32_t dst, bool in_range, int dst_c) {
-  constexpr int N = M::N, A = M::A, W = M::W, KR = M::K + 1, KT = Seed<M, E>::KT;
+  constexpr int N = M::N, A = M::A, W = M::W, KR = M::K + 1, KT = Seed<M, E, MET>::KT;
   using B = PoolBits<E>;
   // row j's emit: a shadow row reads its user row
   auto row = [&](int j) -> const Emit<A, W>& { return s.em[j < KR ? j : j - KR]; };
-  int kept = 0, sends = 0;
+  int kept = 0, sends = 0, lost_n = 0, dead_n = 0, dup_n = 0;
   for (int j0 = 0; j0 < KT; j0 += G) {
-    PerLane<bool, G> keep, sent;
+    PerLane<bool, G> keep, sent, lost, dead;
     PerLane<int64_t, G> when;
     g.each([&](int l) {
       keep[l] = false;
       sent[l] = false;
+      lost[l] = false;
+      dead[l] = false;
       when[l] = 0;
       const int j = j0 + l;
       if (j >= KT) return;
@@ -743,8 +865,9 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
       if (e.send) {
         sent[l] = true;
         const uint32_t l0 = s.lat0[j], l1 = s.lat1[j];
-        if (static_cast<uint64_t>(l1) < c.loss_u32) return;  // lost
-        if (!(em_in_range && s.alive[em_c])) return;         // dead destination
+        lost[l] = static_cast<uint64_t>(l1) < c.loss_u32;
+        dead[l] = !lost[l] && !(em_in_range && s.alive[em_c]);
+        if (lost[l] || dead[l]) return;  // lost, or a dead destination
         int64_t lat = c.lat_min + static_cast<int64_t>(l0 % c.lat_span);
         const int32_t mult = (in_range && em_in_range) ? s.slow[dst_c * N + em_c] : 1;
         if (mult > 1) lat *= mult;
@@ -756,6 +879,13 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
     });
     const uint32_t ballot = g.ballot(keep);
     sends += popc32(g.ballot(sent));
+    if constexpr (MET) {
+      lost_n += popc32(g.ballot(lost));
+      dead_n += popc32(g.ballot(dead));
+      // the lanes of this round that hold shadow rows (j >= KR)
+      const int first_dup = KR > j0 ? KR - j0 : 0;
+      if (first_dup < G) dup_n += popc32(ballot >> first_dup);
+    }
     g.each([&](int l) {
       if (!keep[l]) return;
       const int slot = B::nth_free(s.ev_bits, kept + popc32(ballot & ((1u << l) - 1u)));
@@ -781,6 +911,12 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
   if (g.leader()) {
     s.msg_count += sends;
     s.overflow += kept - B::fill_first_free(s.ev_bits, kept);
+    if constexpr (MET) {
+      s.met[MET_SENT] += sends;
+      s.met[MET_LOST] += lost_n;
+      s.met[MET_DEAD_DROP] += dead_n;
+      s.met[MET_DUP] += dup_n;
+    }
   }
 }
 
@@ -788,19 +924,20 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E>& s,
 // pool held no valid event: such a step changes nothing but `step`, and
 // so does every later one. Every lane computes the gates from the same
 // shared words; the leader writes.
-template <class M, int E, int G>
-MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig& c,
+template <class M, int E, int G, bool MET>
+MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineConfig& c,
                            const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols,
                            const HistOut<M::R>& ho) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K, H = M::H;
+  constexpr bool SYNC = SyncOf<M>::value;
   static_assert(A >= 2 && A <= 4, "engine kinds read args[0:2]");
   static_assert(H >= 1, "handler 0 is on_init");
   // ev_meta packs the kind and node + 1 in one byte each
   static_assert(FIRST_USER_KIND + H - 1 < 256, "user kinds fit a byte");
   static_assert(N < 255, "node + 1 fits a byte");
-  constexpr int KR = K + 1, KT = Seed<M, E>::KT, D = KT + UserDraws<M>::n;
+  constexpr int KR = K + 1, KT = Seed<M, E, MET>::KT, D = KT + UserDraws<M>::n;
   const uint32_t k0 = static_cast<uint32_t>(s.seed);
   const uint32_t k1 = static_cast<uint32_t>(s.seed >> 32);
   const uint32_t step = s.step;
@@ -890,6 +1027,7 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
         // user dispatch implies a live, in-range node
         int32_t* row = s.node_state + dst_c * U;
         for (int u = 0; u < U; u++) s.new_row[u] = row[u];
+        bool fsync = false;
         Ctx<M> ctx;
         ctx.state = row;
         ctx.node = dst;
@@ -901,16 +1039,47 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
         ctx.k1 = k1;
         ctx.step = step;
         ctx.drawn = s.user0;
+        ctx.sync_flag = &fsync;
+        if constexpr (SYNC) {
+          ctx.sync_err = s.sync_eio[dst_c];
+        } else {
+          ctx.sync_err = false;
+        }
         const int32_t h = clampi(kind - FIRST_USER_KIND, 0, H - 1);
         if constexpr (M::R > 0) {
           Rec recs[M::R];
           for (int j = 0; j < M::R; j++) recs[j].clear();
           M::handle(h, ctx, mp, s.new_row, s.em, recs);
-          append_history<M, E>(s, ho, recs, dst, now);
+          const int kept = append_history<M, E, MET>(s, ho, recs, dst, now);
+          if constexpr (MET) s.met[MET_RECORD] += kept;
         } else {
           M::handle(h, ctx, mp, s.new_row, s.em, nullptr);
         }
+        if constexpr (SYNC) {
+          // the changed durable columns, against the row before the
+          // dispatch, replace the node's write mask
+          bool wrote = false;
+          for (int u = 0; u < U; u++)
+            wrote = wrote || (!volatile_cols[u] && s.new_row[u] != row[u]);
+          if (wrote)
+            for (int u = 0; u < U; u++)
+              s.wmask[dst_c * U + u] = !volatile_cols[u] && s.new_row[u] != row[u];
+        }
         for (int u = 0; u < U; u++) row[u] = s.new_row[u];
+        if constexpr (SYNC) {
+          // the commit, unless the node's disk lies or fails
+          const bool lying = s.sync_loss[dst_c] || s.sync_eio[dst_c];
+          if (fsync && !lying) {
+            for (int u = 0; u < U; u++) {
+              if (!volatile_cols[u]) s.disk[dst_c * U + u] = row[u];
+              s.wmask[dst_c * U + u] = false;
+            }
+          }
+          if constexpr (MET) {
+            s.met[MET_SYNC] += fsync && !lying;
+            s.met[MET_SYNC_LOST] += fsync && lying;
+          }
+        }
       } else if (kind == KIND_KILL || kind == KIND_RESTART) {
         const bool restart = kind == KIND_RESTART;
         if (a0 >= 0 && a0 < N) {
@@ -920,6 +1089,32 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
           if (restart) {
             for (int u = 0; u < U; u++)
               if (volatile_cols[u]) s.node_state[a0 * U + u] = init_rows[a0 * U + u];
+          }
+          if constexpr (SYNC) {
+            if (!restart) {
+              // the crash: the durable columns revert to the disk image;
+              // an armed torn mode keeps the first keep_cnt dirty ones
+              uint32_t keep_cnt = 0;
+              if (s.torn[a0]) {
+                uint32_t n_dirty = 0;
+                for (int u = 0; u < U; u++) n_dirty += s.wmask[a0 * U + u];
+                uint32_t x0, x1;
+                threefry2x32(k0, k1, step, PURPOSE_TORN, &x0, &x1);
+                keep_cnt = x0 % (n_dirty + 1u);
+              }
+              uint32_t rank = 0;
+              for (int u = 0; u < U; u++) {
+                const int x = a0 * U + u;
+                const bool dirty = s.wmask[x];
+                if (!volatile_cols[u]) {
+                  if (!(dirty && rank < keep_cnt)) s.node_state[x] = s.disk[x];
+                  s.disk[x] = s.node_state[x];
+                }
+                rank += dirty;
+                s.wmask[x] = false;
+              }
+              if constexpr (MET) s.met[MET_TORN] += s.torn[a0];
+            }
           }
         }
         // the reborn node re-runs on_init: a timer row after the user
@@ -957,10 +1152,34 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
         s.dup = kind == KIND_DUP_ON;
       } else if (kind == KIND_SKEW) {
         if (a0 >= 0 && a0 < N) s.skew[a0] = a1;
+      } else if (kind >= KIND_SYNC_LOSS && kind <= KIND_TORN_OFF) {
+        // the storage windows of node a0, or of every node (a0 < 0);
+        // SYNC_LOSS with a1 == 1 opens the observable EIO window
+        if constexpr (SYNC) {
+          for (int x = 0; x < N; x++) {
+            if (!(x == a0 || a0 < 0)) continue;
+            if (kind == KIND_SYNC_LOSS) {
+              if (a1 == 1) s.sync_eio[x] = true;
+              else s.sync_loss[x] = true;
+            } else if (kind == KIND_SYNC_OK) {
+              s.sync_loss[x] = false;
+              s.sync_eio[x] = false;
+            } else {
+              s.torn[x] = kind == KIND_TORN_ON;
+            }
+          }
+        }
+      }
+      if constexpr (MET) {
+        s.met[MET_DELIVERED] += is_msg;
+        s.met[MET_CRASH] += kind == KIND_KILL;
+        s.met[MET_RESTART] += kind == KIND_RESTART;
+        s.met[MET_PAUSE] += kind == KIND_PAUSE;
+        s.met[MET_TIMER] += !is_engine && !is_msg;
       }
     }
     g.sync();
-    place_emits<M, E, G>(g, s, c, now_after, dst, in_range, dst_c);
+    place_emits<M, E, G, MET>(g, s, c, now_after, dst, in_range, dst_c);
   }
 
   // ---- halt, trace, clock ----
@@ -969,6 +1188,18 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
         was_halted || (dispatch && kind == KIND_HALT) || (has_event && over_limit);
     if (halted && !was_halted) s.halt_time = now < c.time_limit ? now : c.time_limit;
     s.halted = halted;
+    if constexpr (MET) {
+      // the step's threefry blocks: the poll block, every emit row's
+      // and, with the discipline, the torn word's
+      constexpr int blocks = 1 + KT + (SYNC ? 1 : 0);
+      if (active) s.met[MET_RNG] += blocks;
+      s.met[MET_CLOG_BLOCK] += active && clogged;
+      if (halted && !was_halted) {
+        s.met[MET_HALT_CODE] = dispatch && kind == KIND_HALT ? HALT_DONE : HALT_TIME_LIMIT;
+      } else if (!has_event && !was_halted && s.met[MET_HALT_CODE] == HALT_RUNNING) {
+        s.met[MET_HALT_CODE] = HALT_IDLE;
+      }
+    }
     if (dispatch) s.trace = trace_fold<A, W>(s.trace, now, kind, dst, args, pay);
     s.now = now_after;
     s.step = step + 1u;
@@ -982,8 +1213,8 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
 // without, it takes all `budget` steps (a halted seed drains). Either way
 // each iteration advances `step` exactly as the plain step would. A
 // group that returns early still reaches its block's barrier.
-template <class M, int E, int G>
-MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig& c,
+template <class M, int E, int G, bool MET>
+MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineConfig& c,
                            const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols, int64_t budget,
@@ -998,7 +1229,7 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E>& s, const EngineConfig&
       if (g.leader()) s.step += static_cast<uint32_t>(budget - it);
       return budget;
     }
-    const bool had_event = engine_step<M, E, G>(g, s, c, mp, init_rows, volatile_cols, ho);
+    const bool had_event = engine_step<M, E, G, MET>(g, s, c, mp, init_rows, volatile_cols, ho);
     it++;
     if (!had_event && !s.halted) {
       // an empty pool stays empty: the rest only counts steps
@@ -1026,19 +1257,19 @@ MADSIM_HDI HistOut<M::R> hist_out(const RunArgs& a, int64_t seed) {
   return ho;
 }
 
-template <class M, int E, int G>
-MADSIM_HD int64_t run_block(Seed<M, E>* blk, const RunArgs& a,
+template <class M, int E, int G, bool MET>
+MADSIM_HD int64_t run_block(Seed<M, E, MET>* blk, const RunArgs& a,
                             const typename M::Params& mp, int64_t first,
                             int nb, int tid, int nt) {
   copy_history<M>(a.in, a.out, a.cfg.hist_cap, first, nb, tid, nt);
-  block_load<M, E>(blk, a.in, first, nb, tid, nt);
+  block_load<M, E, MET>(blk, a.in, first, nb, tid, nt);
   int64_t most = 0;
   const bool stop = a.stop_at_halt != 0;
 #ifdef __CUDA_ARCH__
   const int b = tid / G;
   if (b < nb) {
     const Lanes<G> g(tid);
-    const int64_t it = seed_run<M, E, G>(g, blk[b], a.cfg, mp, a.init_rows,
+    const int64_t it = seed_run<M, E, G, MET>(g, blk[b], a.cfg, mp, a.init_rows,
                                          a.volatile_cols, a.budget, stop,
                                          hist_out<M>(a, first + b));
     if (g.leader()) {
@@ -1049,7 +1280,7 @@ MADSIM_HD int64_t run_block(Seed<M, E>* blk, const RunArgs& a,
 #else
   for (int b = 0; b < nb; b++) {
     const Lanes<G> g(0);
-    const int64_t it = seed_run<M, E, G>(g, blk[b], a.cfg, mp, a.init_rows,
+    const int64_t it = seed_run<M, E, G, MET>(g, blk[b], a.cfg, mp, a.init_rows,
                                          a.volatile_cols, a.budget, stop,
                                          hist_out<M>(a, first + b));
     a.iters[first + b] = it;
@@ -1057,7 +1288,7 @@ MADSIM_HD int64_t run_block(Seed<M, E>* blk, const RunArgs& a,
   }
 #endif
   block_sync();
-  block_store<M, E>(blk, a.out, first, nb, tid, nt);
+  block_store<M, E, MET>(blk, a.out, first, nb, tid, nt);
   return most;
 }
 

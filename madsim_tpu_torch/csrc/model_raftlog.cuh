@@ -1,24 +1,36 @@
 // Raft log replication under leader-crash chaos
-// (madsim_tpu_torch/models/raftlog.py, default variant) as a model trait
-// of the run kernel (engine_step.cuh): five nodes, eight handlers, four
-// args words, and AppendEntries that carry the sender's whole four-entry
-// log in the event payload. Entries pack as value | term << 8.
+// (madsim_tpu_torch/models/raftlog.py) as a model trait of the run
+// kernel (engine_step.cuh): five nodes, eight handlers, four args words,
+// and AppendEntries that carry the sender's whole four-entry log in the
+// event payload. Entries pack as value | term << 8.
 // RaftLogModel<true> is the record variant (raftlog-record): an election
 // win appends an OP_ELECT history record and a commit one OP_COMMIT
-// record per newly committed index, LOGW record rows a call.
+// record per newly committed index, LOGW record rows a call. CHAOS =
+// false drops the seed's own kill and restart (a fault plan brings its
+// own). DURABLE = true is durable=True: the Figure-2 columns under the
+// sync discipline (SYNC), synced by every handler that dirties them and
+// gated on ctx.sync_err; with RECORD also the OP_SYNCED and OP_RECOVER
+// records. NOSYNC is the bug="nosync" mutant: the same columns, never
+// synced.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD = false>
+template <bool RECORD = false, bool CHAOS = true, bool DURABLE = false, bool NOSYNC = false>
 struct RaftLogModel {
+  static_assert(!NOSYNC || DURABLE, "the nosync mutant needs durable=True");
   static constexpr int N = 5;          // nodes
   static constexpr int LOGW = 4;       // log entries (n_writes)
   static constexpr int U = 8 + LOGW, A = 4, W = LOGW, K = N + 2, H = 8;
   static constexpr int R = RECORD ? LOGW : 0;  // history records per call
-  static constexpr int32_t OP_ELECT = OP_USER, OP_COMMIT = OP_USER + 1;
+  static constexpr bool SYNC = DURABLE;  // the sync discipline
+  // the correct placement syncs; the mutant never does
+  static constexpr bool SYNC_EN = DURABLE && !NOSYNC;
+  static constexpr bool REC_STORE = RECORD && DURABLE;
+  static constexpr int32_t OP_ELECT = OP_USER, OP_COMMIT = OP_USER + 1,
+                           OP_SYNCED = OP_USER + 2, OP_RECOVER = OP_USER + 3;
   static constexpr int32_t majority = N / 2 + 1;
 
   struct Params {
@@ -46,6 +58,10 @@ struct RaftLogModel {
 
   using Em = Emit<A, W>;
   using C = Ctx<RaftLogModel>;
+
+  // the node's observable fsync-EIO flag; false for the diskless and
+  // nosync variants
+  static MADSIM_HDI bool eio(const C& c) { return SYNC_EN && c.sync_err; }
 
   // term of the last log entry (0 for an empty log); value = low 8 bits,
   // term = the rest
@@ -83,20 +99,27 @@ struct RaftLogModel {
     switch (h) {
       case 0: {  // on_init
         arm(em[0], c, p, 1, true);
+        // a re-init at now > 0 is a restart: the log length it recovered
+        if constexpr (REC_STORE) rec[0].record(c.now > 0, OP_RECOVER, 0, st[LOGLEN], OK_OK);
         // node 0's t=0 init schedules the seed's kill and restart
         // (restarted nodes re-run on_init at now > 0)
-        if (c.node == 0 && c.now == 0) {
-          const int32_t who = static_cast<int32_t>(c.user_int(0, N, P_KILL_WHO));
-          const int64_t at = c.user_int(200000000, 500000000, P_KILL_AT);
-          const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
-          em[1].after(true, at, KIND_KILL, 0, who);
-          em[2].after(true, at + revive, KIND_RESTART, 0, who);
+        if constexpr (CHAOS) {
+          if (c.node == 0 && c.now == 0) {
+            const int32_t who = static_cast<int32_t>(c.user_int(0, N, P_KILL_WHO));
+            const int64_t at = c.user_int(200000000, 500000000, P_KILL_AT);
+            const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
+            em[1].after(true, at, KIND_KILL, 0, who);
+            em[2].after(true, at + revive, KIND_RESTART, 0, who);
+          }
         }
         ns[TSEQ] = 1;
         break;
       }
       case 1: {  // on_timeout: args = (timer_seq,)
-        const bool fire = c.args[0] == st[TSEQ] && st[ROLE] != LEADER;
+        const bool due = c.args[0] == st[TSEQ] && st[ROLE] != LEADER;
+        // a failing disk cannot persist the candidacy: re-arm the same seq
+        const bool err = eio(c);
+        const bool fire = due && !err;
         const int32_t term = st[TERM] + 1;
         if (fire) {
           ns[ROLE] = CANDIDATE;
@@ -112,8 +135,8 @@ struct RaftLogModel {
           em[q].args[3] = lt;
         }
         arm(em[N], c, p, st[TSEQ] + 1, fire);
-        // row N + 1: the re-arm of a timeout withheld by a failing
-        // disk, never valid without the sync discipline
+        arm(em[N + 1], c, p, st[TSEQ], due && err);
+        if constexpr (SYNC_EN) c.sync(fire);
         break;
       }
       case 2: {  // on_reqvote: args = (term, cand, cand_loglen, cand_lastterm)
@@ -127,7 +150,7 @@ struct RaftLogModel {
         // the up-to-date rule: candidate's (last term, length) >= ours
         const int32_t my_lt = lastterm(ns);
         const bool up_to_date = c_lt > my_lt || (c_lt == my_lt && c_len >= ns[LOGLEN]);
-        const bool grant = term == ns[TERM] && ns[VOTED] < term && up_to_date;
+        const bool grant = term == ns[TERM] && ns[VOTED] < term && up_to_date && !eio(c);
         const int32_t tseq1 = ns[TSEQ] + 1;
         if (grant) {
           ns[VOTED] = term;
@@ -135,13 +158,14 @@ struct RaftLogModel {
         }
         em[0].to(grant, cand, K_GRANT, term);
         arm(em[1], c, p, tseq1, grant);
+        if constexpr (SYNC_EN) c.sync(term > st[TERM] || grant);
         break;
       }
       case 3: {  // on_grant: args = (term,)
         const int32_t term = c.args[0];
         const bool counts = st[ROLE] == CANDIDATE && term == st[TERM];
         const int32_t votes = counts ? st[VOTES] + 1 : st[VOTES];
-        const bool wins = counts && votes >= majority;
+        const bool wins = counts && votes >= majority && !eio(c);
         ns[VOTES] = votes;
         if (wins) {
           ns[ROLE] = LEADER;
@@ -155,6 +179,7 @@ struct RaftLogModel {
         em[N].after(wins, p.propose_ns, K_PROPOSE, c.node, term);
         em[N + 1].after(wins, p.retx_ns, K_RETX, c.node, term);
         if constexpr (RECORD) rec[0].record(wins, OP_ELECT, term, c.node, OK_OK);
+        if constexpr (SYNC_EN) c.sync(wins);
         break;
       }
       case 4: {  // on_append: args = (term, idx, leader_commit, leader)
@@ -175,10 +200,15 @@ struct RaftLogModel {
           ns[LOGLEN] = idx + 1;
         }
         if (ok && l_commit > ns[COMMIT]) ns[COMMIT] = l_commit;
-        em[0].to(adopt, leader, K_ACKAPP, term, idx);
+        // inside an EIO window the ack waits for a retransmission
+        const bool err = eio(c);
+        em[0].to(adopt && !err, leader, K_ACKAPP, term, idx);
         em[0].args[2] = c.node;
         // a heartbeat resets the election timer
         arm(em[1], c, p, st[TSEQ] + 1, ok);
+        if constexpr (SYNC_EN) c.sync(ok);
+        if constexpr (REC_STORE && SYNC_EN)
+          rec[0].record(adopt && !err && idx + 1 != st[LOGLEN], OP_SYNCED, 0, idx + 1, OK_OK);
         break;
       }
       case 5: {  // on_ackapp: args = (term, idx, follower)
@@ -204,7 +234,8 @@ struct RaftLogModel {
       case 6: {  // on_propose: args = (term,)
         const int32_t term = c.args[0];
         const bool alive_leader = st[ROLE] == LEADER && term == st[TERM];
-        const bool can = alive_leader && st[COMMIT] == st[LOGLEN] && st[LOGLEN] < LOGW;
+        const bool can =
+            alive_leader && st[COMMIT] == st[LOGLEN] && st[LOGLEN] < LOGW && !eio(c);
         if (can) {
           const int32_t value = static_cast<int32_t>(c.user(P_VALUE) & 0xFFu);
           for (int32_t j = 0; j < LOGW; j++)
@@ -214,6 +245,9 @@ struct RaftLogModel {
         }
         send_appends(em, c, ns, term, can);
         em[N].after(alive_leader, p.propose_ns, K_PROPOSE, c.node, term);
+        if constexpr (SYNC_EN) c.sync(can);
+        if constexpr (REC_STORE && SYNC_EN)
+          rec[0].record(can, OP_SYNCED, 0, st[LOGLEN] + 1, OK_OK);
         break;
       }
       default: {  // 7, on_retx: args = (term,)

@@ -25,6 +25,13 @@
 // straight to the output (engine_step.cuh append_history). The drain
 // kernel never touches the history.
 //
+// A model with the sync discipline (SYNC) carries its nodes' storage
+// state in the seed's shared state and writes it back. The fleet
+// metrics are a compile-time switch: each library holds two
+// instantiations of the run kernel, without and with the seed's MET_*
+// counters, and madsim_run picks one by its `metrics` word (the width of
+// the state's met column). The drain kernel touches neither.
+//
 // This file is not compiled alone. engine/fused.py writes, per model, a
 // unit that includes the model's header (model_*.cuh), defines
 //   MADSIM_MODEL  the model trait, e.g. madsim::KvChaosModel<false, true>
@@ -67,22 +74,22 @@ constexpr int kThreads = 128;
 constexpr int kSeeds = kThreads / kGroup;
 static_assert(kThreads % 32 == 0 && kThreads % kGroup == 0, "whole warps, whole groups");
 
-template <int E>
-constexpr size_t run_smem() { return sizeof(madsim::Seed<Model, E>) * kSeeds; }
+template <int E, bool MET>
+constexpr size_t run_smem() { return sizeof(madsim::Seed<Model, E, MET>) * kSeeds; }
 template <int E>
 constexpr size_t drain_smem() { return sizeof(madsim::DrainSeed<E>) * kSeeds; }
 
-template <int E>
+template <int E, bool MET>
 __global__ void __launch_bounds__(kThreads)
 run_kernel(const madsim::RunArgs a, const typename Model::Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned long long block_max;
-  auto* blk = reinterpret_cast<madsim::Seed<Model, E>*>(smem);
+  auto* blk = reinterpret_cast<madsim::Seed<Model, E, MET>*>(smem);
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kSeeds;
   const int64_t left = a.n_seeds - first;
   const int nb = left < kSeeds ? static_cast<int>(left) : kSeeds;
   if (threadIdx.x == 0) block_max = 0;
-  const int64_t most = madsim::run_block<Model, E, kGroup>(
+  const int64_t most = madsim::run_block<Model, E, kGroup, MET>(
       blk, a, p, first, nb, threadIdx.x, blockDim.x);
   if (a.tmax != nullptr) {
     if (most > 0) atomicMax(&block_max, static_cast<unsigned long long>(most));
@@ -116,16 +123,16 @@ unsigned blocks_for(int64_t n_seeds) {
   return static_cast<unsigned>((n_seeds + kSeeds - 1) / kSeeds);
 }
 
-template <int E>
+template <int E, bool MET>
 int launch_run(const madsim::RunArgs& a, const typename Model::Params& p,
                cudaStream_t stream) {
-  cudaError_t rc = allow_smem(run_kernel<E>, run_smem<E>());
+  cudaError_t rc = allow_smem(run_kernel<E, MET>, run_smem<E, MET>());
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (a.tmax != nullptr) {
     rc = cudaMemsetAsync(a.tmax, 0, sizeof(int64_t), stream);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  run_kernel<E><<<blocks_for(a.n_seeds), kThreads, run_smem<E>(), stream>>>(a, p);
+  run_kernel<E, MET><<<blocks_for(a.n_seeds), kThreads, run_smem<E, MET>(), stream>>>(a, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -138,24 +145,31 @@ int launch_drain(const madsim::DrainArgs& d, cudaStream_t stream) {
 }
 
 // G, seeds per block, then for each kernel its dynamic shared bytes per
-// block and its resident blocks per SM
+// block and its resident blocks per SM: the run kernel, the drain
+// kernel, the run kernel with metrics
 template <int E>
 int occupancy(int64_t* out) {
-  int run = 0, drain = 0;
-  cudaError_t rc = allow_smem(run_kernel<E>, run_smem<E>());
+  int run = 0, drain = 0, run_met = 0;
+  cudaError_t rc = allow_smem(run_kernel<E, false>, run_smem<E, false>());
   if (rc == cudaSuccess) rc = allow_smem(drain_kernel<E>, drain_smem<E>());
+  if (rc == cudaSuccess) rc = allow_smem(run_kernel<E, true>, run_smem<E, true>());
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&run, run_kernel<E>, kThreads,
-                                                       run_smem<E>());
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&run, run_kernel<E, false>, kThreads,
+                                                       run_smem<E, false>());
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&drain, drain_kernel<E>, kThreads,
                                                        drain_smem<E>());
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&run_met, run_kernel<E, true>,
+                                                       kThreads, run_smem<E, true>());
   out[0] = kGroup;
   out[1] = kSeeds;
-  out[2] = static_cast<int64_t>(run_smem<E>());
+  out[2] = static_cast<int64_t>(run_smem<E, false>());
   out[3] = run;
   out[4] = static_cast<int64_t>(drain_smem<E>());
   out[5] = drain;
+  out[6] = static_cast<int64_t>(run_smem<E, true>());
+  out[7] = run_met;
   return static_cast<int>(rc);
 }
 
@@ -173,12 +187,13 @@ int with_pool(int32_t pool, F f) {
 extern "C" {
 
 // ptrs: the RunArgs pointers (madsim::run_args); cfg: the engine's
-// config words, then the model's (Model::params). Returns a
-// cudaError_t, or -1 for a pool size without an instantiation (the
-// shared layout needs E at compile time; engine/fused.py lists the
-// pools of each model).
+// config words, then the model's (Model::params); metrics: 1 runs the
+// instantiation that folds the MET_* counters. Returns a cudaError_t, or
+// -1 for a pool size without an instantiation (the shared layout needs
+// E at compile time; engine/fused.py lists the pools of each model).
 int madsim_run(void* const* ptrs, const int64_t* cfg, int64_t n_seeds, int64_t budget,
-               int32_t pool, int32_t stop_at_halt, int32_t device, void* stream) {
+               int32_t pool, int32_t stop_at_halt, int32_t metrics, int32_t device,
+               void* stream) {
   const madsim::RunArgs a = madsim::run_args(ptrs, cfg, n_seeds, budget, stop_at_halt);
   const typename Model::Params p = Model::params(cfg + madsim::kEngineWords);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -186,7 +201,10 @@ int madsim_run(void* const* ptrs, const int64_t* cfg, int64_t n_seeds, int64_t b
   // the stream belongs to the tensors' card
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  return with_pool<MADSIM_POOLS>(pool, [&](auto e) { return launch_run<decltype(e)::value>(a, p, s); });
+  return with_pool<MADSIM_POOLS>(pool, [&](auto e) {
+    return metrics ? launch_run<decltype(e)::value, true>(a, p, s)
+                   : launch_run<decltype(e)::value, false>(a, p, s);
+  });
 }
 
 // ptrs: step, ev_valid, ev_time, iters, tmax (madsim::drain_args)
@@ -201,7 +219,8 @@ int madsim_drain(void* const* ptrs, int64_t n_seeds, int32_t pool, int32_t devic
 }
 
 // out: G, seeds per block, run kernel shared bytes per block and blocks
-// per SM, drain kernel shared bytes and blocks per SM, for `pool`
+// per SM, drain kernel shared bytes and blocks per SM, and the metrics
+// run kernel's shared bytes and blocks per SM, for `pool`
 int madsim_occupancy(int32_t pool, int32_t device, int64_t* out) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -209,8 +228,9 @@ int madsim_occupancy(int32_t pool, int32_t device, int64_t* out) {
 }
 
 // the model's compile-time shape, for the wrapper to check against the
-// workload: N, U, A, W, K, H, R, the run and drain pointer counts, and
-// the duplication shadow rows (0, or K for a dup_rows library)
+// workload: N, U, A, W, K, H, R, the run and drain pointer counts, the
+// duplication shadow rows (0, or K for a dup_rows library) and whether
+// it keeps the sync discipline
 void madsim_shape(int64_t* out) {
   out[0] = Model::N;
   out[1] = Model::U;
@@ -222,6 +242,7 @@ void madsim_shape(int64_t* out) {
   out[7] = madsim::kRunPointers;
   out[8] = madsim::kDrainPointers;
   out[9] = madsim::DupRows<Model>::n;
+  out[10] = madsim::SyncOf<Model>::value;
 }
 
 }  // extern "C"

@@ -24,8 +24,11 @@ from .core import (  # noqa: F401
     KIND_UNCLOG_1W,
     KIND_UNCLOG_NODE,
     KIND_UNSLOW,
+    METRIC_NAMES,
+    N_METRICS,
     SLOW_MULT_MAX,
     STATE_FIELDS,
+    STORAGE_FIELDS,
     EmitBuilder,
     Emits,
     EngineConfig,
@@ -52,6 +55,7 @@ from .fused import make_run_fused  # noqa: F401
 from .rng import Draw, threefry2x32  # noqa: F401
 from .compact import make_run_compacted, make_run_compacted_plain  # noqa: F401
 from .verify import (  # noqa: F401
+    DERIVED_FIELDS,
     HISTORY_FIELDS,
     DeterminismError,
     check_determinism,

@@ -74,8 +74,8 @@ __all__ = [
 # reference's others are zero-size for every variant the port runs
 RESULT_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
-    "msg_count", "node_state", "hist_count", "hist_drop", "hist_word",
-    "hist_t",
+    "msg_count", "node_state", "disk", "hist_count", "hist_drop", "hist_word",
+    "hist_t", "met",
 )
 
 # the extra banked outputs of a ``hist_screen`` run (not SimState
@@ -86,7 +86,7 @@ HIST_FIELDS = ("hist_word", "hist_t", "hist_count", "hist_drop")
 # options of the reference's runners whose engine axes the port does not
 # have yet, and the ROADMAP queue A item that ports each
 UNPORTED_OPTIONS = {
-    "cov_words": "A8", "cov_hitcount": "A8", "metrics": "A8",
+    "cov_words": "A8", "cov_hitcount": "A8",
     "timeline_cap": "A8", "latency": "A8", "causal": "A8", "retry": "A8",
 }
 
@@ -242,8 +242,9 @@ def _screen_bank(bank: dict, screens) -> dict:
 
 
 def _phase_program(wl: Workload, cfg: EngineConfig, max_steps: int,
-                   shrink: int, min_size: int, fields, dup_rows: bool = False):
-    step = make_step_plain(wl, cfg, dup_rows)
+                   shrink: int, min_size: int, fields, dup_rows: bool = False,
+                   metrics: bool = False):
+    step = make_step_plain(wl, cfg, dup_rows, metrics)
 
     def compute(state: SimState) -> list:
         s0 = state.seed.shape[0]
@@ -270,10 +271,12 @@ def _phase_program(wl: Workload, cfg: EngineConfig, max_steps: int,
 def make_run_compacted_plain(
     wl: Workload, cfg: EngineConfig, max_steps: int, shrink: int = 4,
     min_size: int = 2048, fields: tuple = RESULT_FIELDS, dup_rows: bool = False,
+    metrics: bool = False,
 ):
     """The phase program with the plain eager step, on any device."""
     _check(fields, shrink, min_size)
-    compute = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows)
+    compute = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
+                             metrics)
     return _runner(compute, fields, shrink, min_size, max_steps)
 
 
@@ -304,6 +307,9 @@ def make_run_compacted(
     does not carry). A fault plan's rows come in the state from
     ``make_init(plan_slots=...)``; ``dup_rows`` runs the step with the
     duplication rows (a plan with ``Duplicate`` needs them).
+    ``metrics`` folds the fleet counters (a state from
+    ``make_init(metrics=True)``); ``met`` is banked with the others. A
+    halted row's counters stop, so they equal the lockstep loop's.
 
     ``hist_screen`` (a ``check.device.HistoryScreen`` or a tuple of
     them) screens every bank's histories on its device and folds the
@@ -318,20 +324,22 @@ def make_run_compacted(
     until their engine axes are ported.
     """
     refuse_unported(
-        cov_words=cov_words, metrics=metrics,
+        cov_words=cov_words,
         timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
         latency=latency, causal=causal, retry=retry,
     )
     _check(fields, shrink, min_size)
     screens = _screens(wl, hist_screen, fields)
-    plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows)
+    plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
+                           metrics)
 
     def compute(state: SimState) -> list:
         if state.device.type == "cpu":
             banks = plain(state)
         else:
-            from .fused import _first_pass
+            from .fused import _check_metrics, _first_pass
 
+            _check_metrics(state, metrics)
             _spec, out, iters, _tmax = _first_pass(wl, cfg, state, max_steps, True,
                                                    dup_rows)
             banks = one_launch_banks(state, out, iters, fields)

@@ -50,10 +50,16 @@ NUMPY_DTYPES = {
     "slow": np.int32,
     "dup": np.bool_,
     "skew": np.int32,
+    "disk": np.int32,
+    "wmask": np.bool_,
+    "sync_loss": np.bool_,
+    "sync_eio": np.bool_,
+    "torn": np.bool_,
     "hist_count": np.int32,
     "hist_drop": np.int32,
     "hist_word": np.int32,
     "hist_t": np.int64,
+    "met": np.int32,
 }
 
 # The JAX package's SimState fields that the port does not carry yet:
@@ -64,17 +70,9 @@ NUMPY_DTYPES = {
 # index summaries (tile_min, tile_cnt) are derived state and travel in
 # no file.
 FOREIGN_FIELDS = {
-    **{f: (dt, shape, "A8 (durable_sync and storage faults)") for f, dt, shape in (
-        ("disk", np.int32, (0, "U")),
-        ("wmask", np.bool_, (0, "U")),
-        ("sync_loss", np.bool_, (0,)),
-        ("sync_eio", np.bool_, (0,)),
-        ("torn", np.bool_, (0,)),
-    )},
     **{f: (dt, (0,), "A8 (cov_words, cov_hitcount)") for f, dt in (
         ("cov", np.uint32), ("cov_last", np.int32), ("cov_hits", np.uint8),
     )},
-    "met": (np.int32, (0,), "A8 (metrics)"),
     **{f: (dt, shape, "A8 (timeline_cap)") for f, dt, shape in (
         ("tl_count", np.int32, ()),
         ("tl_drop", np.int32, ()),

@@ -17,6 +17,14 @@ histories: its handlers call :meth:`EmitBuilder.record`, and the step
 appends a user dispatch's records to the ``hist_*`` columns of the
 state, which the ``check`` package judges.
 
+A workload with ``durable_sync`` keeps the two-phase sync discipline
+over its durable columns: a durable write survives a kill only once a
+handler's :meth:`EmitBuilder.sync` has committed it to the node's disk
+image (``SimState.disk``), and the disk-fault kinds 251-254 make syncs
+lie or fail and kills tear the last uncommitted write. Built with
+``metrics=True``, the step also folds the fleet counters ``MET_*`` into
+``SimState.met``, which never feed back into the trajectory.
+
 The JAX engine has several lowerings of that step (dense/scatter
 layout, rank/scatter placement, time32, the pool index); their values
 are identical by construction, so this port has one: int64 absolute
@@ -57,6 +65,7 @@ from .rng import (
     PURPOSE_LATENCY,
     PURPOSE_LOSS,
     PURPOSE_POLL_COST,
+    PURPOSE_TORN,
     PURPOSE_USER,
     Draw,
     chance_threshold,
@@ -96,6 +105,31 @@ __all__ = [
     "KIND_TORN_OFF",
     "SLOW_MULT_MAX",
     "POOL_TILE_CANDIDATES",
+    "MET_SENT",
+    "MET_DELIVERED",
+    "MET_LOST",
+    "MET_DEAD_DROP",
+    "MET_DUP",
+    "MET_CRASH",
+    "MET_RESTART",
+    "MET_PAUSE",
+    "MET_CLOG_BLOCK",
+    "MET_TIMER",
+    "MET_RECORD",
+    "MET_RNG",
+    "MET_HALT_CODE",
+    "MET_SYNC",
+    "MET_SYNC_LOST",
+    "MET_TORN",
+    "MET_RETRY",
+    "MET_RETRY_GIVEUP",
+    "N_METRICS",
+    "METRIC_NAMES",
+    "HALT_RUNNING",
+    "HALT_DONE",
+    "HALT_TIME_LIMIT",
+    "HALT_IDLE",
+    "STORAGE_FIELDS",
     "PlanRows",
     "pack_slow_arg",
     "unpack_slow_arg",
@@ -132,9 +166,9 @@ KIND_RESUME = 9  # args[0]=node
 FIRST_USER_KIND = 10
 # Extended chaos kinds (``chaos/plan.py``), at the top of the kind byte:
 # engine kinds again (no epoch or pause gate). The disk-fault kinds
-# 251-254 act only on a workload with the sync discipline, which the
-# port does not have yet: here they fold into the trace and change no
-# state, as in the JAX engine without ``durable_sync``.
+# 251-254 act only on a workload with the sync discipline
+# (``Workload.durable_sync``); on any other they fold into the trace and
+# change no state.
 FIRST_EXT_KIND = 244
 KIND_SLOW_LINK = 244  # args[0]=a args[1]=pack_slow_arg(b, mult): a<->b
 #                       latency times mult (b=-1: every link of a)
@@ -144,10 +178,53 @@ KIND_DUP_OFF = 247
 KIND_SKEW = 248  # args[0]=node args[1]=skew ns: its handlers see now+skew
 KIND_CLOG_1W = 249  # args[0]=src args[1]=dst: one direction only
 KIND_UNCLOG_1W = 250
-KIND_SYNC_LOSS = 251  # args[0]=node (-1: every node), args[1]=0 lie, 1 EIO
-KIND_SYNC_OK = 252
-KIND_TORN_ON = 253
+KIND_SYNC_LOSS = 251  # args[0]=node (-1: every node), args[1]=0 lie, 1 EIO:
+#                       the node's syncs stop committing; in EIO mode its
+#                       handlers also see ctx.sync_err
+KIND_SYNC_OK = 252  # ends both windows: syncs commit again
+KIND_TORN_ON = 253  # a kill persists a drawn prefix (PURPOSE_TORN) of the
+#                     node's last uncommitted durable write
 KIND_TORN_OFF = 254
+
+# Fleet-metric slots: SimState.met is an (N_METRICS,) int32 row per seed
+# with metrics=True, else (0,). Every slot but MET_HALT_CODE is a
+# counter folded at dispatch from values the step already computes; no
+# slot feeds back into the trajectory. The slot ids are the JAX
+# package's.
+MET_SENT = 0  # valid send emits of a dispatch, lost or not
+MET_DELIVERED = 1  # message deliveries dispatched (src >= 0)
+MET_LOST = 2  # sends dropped by the loss draw
+MET_DEAD_DROP = 3  # sends dropped because the destination was dead
+MET_DUP = 4  # duplicated deliveries placed (the dup_rows shadow rows)
+MET_CRASH = 5  # KIND_KILL dispatches
+MET_RESTART = 6  # KIND_RESTART dispatches
+MET_PAUSE = 7  # KIND_PAUSE dispatches
+MET_CLOG_BLOCK = 8  # delivery attempts held by a clogged link
+MET_TIMER = 9  # user timer fires (user dispatches with no sender)
+MET_RECORD = 10  # history records appended
+MET_RNG = 11  # threefry blocks of the step's batch while the seed is active
+MET_HALT_CODE = 12  # not a counter: the HALT_* code of how the seed stopped
+MET_SYNC = 13  # sync commits honoured (durable_sync)
+MET_SYNC_LOST = 14  # syncs that did not commit inside a KIND_SYNC_LOSS window
+MET_TORN = 15  # kills of a node whose torn-write mode was armed
+MET_RETRY = 16  # client-retry slots (the JAX package's RetrySpec; 0 here)
+MET_RETRY_GIVEUP = 17
+N_METRICS = 18
+
+METRIC_NAMES = (
+    "sent", "delivered", "lost", "dead_drop", "dup", "crash", "restart",
+    "pause", "clog_block", "timer", "record", "rng_blocks", "halt_code",
+    "sync", "sync_lost", "torn", "retry", "retry_giveup",
+)
+
+# MET_HALT_CODE values
+HALT_RUNNING = 0  # still live, or stopped only by the step cap
+HALT_DONE = 1  # the workload emitted KIND_HALT
+HALT_TIME_LIMIT = 2  # cfg.time_limit_ns tripped
+HALT_IDLE = 3  # the event pool ran empty while unhalted: nothing will happen
+
+# the sync discipline's columns of SimState (zero-size without it)
+STORAGE_FIELDS = ("disk", "wmask", "sync_loss", "sync_eio", "torn")
 
 # the largest slow-link multiplier pack_slow_arg's word carries (bits
 # 8..30 of an int32)
@@ -351,6 +428,9 @@ class Emits:
     # and the dispatch time when it appends them to the history columns
     rec_valid: torch.Tensor | None = None  # (S,R) bool
     rec: torch.Tensor | None = None  # (S,R,4) int32
+    # the dispatch's fsync (Workload.durable_sync): the OR of the
+    # handler's sync() calls; ignored without the discipline
+    sync: torch.Tensor | None = None  # (S,) bool
 
 
 class EmitBuilder:
@@ -363,6 +443,7 @@ class EmitBuilder:
         self._device = device
         self._rows: list[tuple] = []
         self._recs: list[tuple] = []
+        self._syncs: list = []
 
     def _col(self, x, dtype):
         t = torch.as_tensor(x, device=self._device).to(dtype)
@@ -443,8 +524,15 @@ class EmitBuilder:
         """Set the node's clock skew: its handlers observe now+skew_ns."""
         self.after(0, KIND_SKEW, 0, (node, skew_ns), when)
 
+    def sync(self, when=True):
+        """fsync the handling node's durable columns (``Workload.durable_sync``):
+        this dispatch's durable writes are committed to the node's disk
+        image, unless a ``KIND_SYNC_LOSS`` window makes the disk lie or
+        fail. A no-op without the discipline."""
+        self._syncs.append(when)
+
     # the disk-fault kinds: engine events that change no state on a
-    # workload without the sync discipline (the only kind the port has)
+    # workload without the sync discipline
     def sync_loss(self, node, when=True):
         self.after(0, KIND_SYNC_LOSS, 0, (node,), when)
 
@@ -510,7 +598,10 @@ class EmitBuilder:
             rec_valid[:, j] = self._col(when, torch.bool)
             for c, x in enumerate(words):
                 rec[:, j, c] = self._col(x, torch.int32)
-        return Emits(valid, send, kind, dst, delay, args, pay, rec_valid, rec)
+        sync = torch.zeros((s,), dtype=torch.bool, device=dev)
+        for when in self._syncs:
+            sync = sync | self._col(when, torch.bool)
+        return Emits(valid, send, kind, dst, delay, args, pay, rec_valid, rec, sync)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -558,6 +649,10 @@ class HandlerCtx:
     payload_words: int = 0
     args_words: int = 4
     max_records: int = 0  # history record slots (Workload.history)
+    # (S,) bool: the node is inside an injected fsync-EIO window
+    # (KIND_SYNC_LOSS with args[1] = 1), the pre-dispatch flag; always
+    # False without the sync discipline
+    sync_err: torch.Tensor | None = None
 
     def emits(self) -> EmitBuilder:
         return EmitBuilder(
@@ -578,6 +673,11 @@ class Workload:
     ``model_params`` names the factory's parameters, which a fused
     kernel that carries the handlers as device code needs. ``history``
     turns on operation-history recording (:class:`HistorySpec`).
+    ``durable_sync`` puts ``durable_cols`` under the two-phase sync
+    discipline: a durable write survives a kill only up to the node's
+    last committed :meth:`EmitBuilder.sync`. A workload that syncs every
+    durable write in the dispatch that made it runs the same trajectory
+    as without the discipline, as long as no disk fault is injected.
     """
 
     name: str
@@ -593,6 +693,7 @@ class Workload:
     draw_purposes: tuple | None = None
     model_params: tuple = ()  # ((name, value), ...)
     history: HistorySpec | None = None
+    durable_sync: bool = False
 
     def __post_init__(self):
         if not (2 <= self.args_words <= 4):
@@ -613,6 +714,11 @@ class Workload:
                     f"durable_cols {bad} out of range for "
                     f"state_width={self.state_width}"
                 )
+        if self.durable_sync and not self.durable_cols:
+            raise ValueError(
+                "durable_sync needs durable_cols: the sync discipline "
+                "governs exactly the columns that survive a kill"
+            )
         for p in self.draw_purposes or ():
             if not 0 <= int(p) < lane("user").width:
                 raise ValueError(
@@ -663,6 +769,15 @@ class SimState:
     slow: torch.Tensor  # (S,N,N) int32 latency multiplier, identity 1
     dup: torch.Tensor  # (S,) bool message duplication, identity False
     skew: torch.Tensor  # (S,N) int32 clock skew ns, identity 0
+    # the two-phase sync discipline, D = N with Workload.durable_sync,
+    # else 0: each node's last synced image of its durable columns (a
+    # kill reverts them to it), the columns of its last uncommitted
+    # durable write (the one a torn kill tears), and its chaos windows
+    disk: torch.Tensor  # (S,D,U) int32
+    wmask: torch.Tensor  # (S,D,U) bool
+    sync_loss: torch.Tensor  # (S,D) bool: syncs lie (KIND_SYNC_LOSS, args[1]=0)
+    sync_eio: torch.Tensor  # (S,D) bool: syncs fail observably (args[1]=1)
+    torn: torch.Tensor  # (S,D) bool: torn-write mode armed (KIND_TORN_ON)
     # operation history, H = HistorySpec.capacity (0 when
     # Workload.history is None): rows in append (dispatch) order;
     # hist_drop counts records lost to a full buffer, and a nonzero
@@ -671,6 +786,8 @@ class SimState:
     hist_drop: torch.Tensor  # (S,) int32 records dropped at capacity
     hist_word: torch.Tensor  # (S,H,5) int32 [op, key, arg, client, ok]
     hist_t: torch.Tensor  # (S,H) int64 record sim-time ns (absolute)
+    # the fleet counters (metrics=True), the MET_* slots; (S,0) when off
+    met: torch.Tensor  # (S,N_METRICS) int32
 
     @property
     def device(self) -> torch.device:
@@ -731,7 +848,8 @@ def _plan_col(x, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device=dev, dtype=dtype)
 
 
-def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0):
+def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
+              metrics: bool = False):
     """Build ``init(seeds) -> SimState``: one on_init event per node at
     t=0 in slots ``0..N-1``, every other slot an invalid NOP.
 
@@ -739,7 +857,9 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0)
     fault plan: ``init(seeds, plan)`` then needs a :class:`PlanRows`
     with ``(S, P)`` events. A plan row is a timer (no source); an
     engine or chaos row has epoch 0, a user-kind row epoch -1 (any
-    incarnation of its target)."""
+    incarnation of its target). ``metrics=True`` gives each seed its
+    ``(N_METRICS,)`` counter row. Under the sync discipline a fresh
+    node's disk holds its initial row."""
     n, u, e, p = wl.n_nodes, wl.state_width, cfg.pool_size, plan_slots
     if e < n + p:
         raise ValueError(
@@ -750,6 +870,8 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0)
     dev = resolve_device(device)
     base_state = torch.from_numpy(wl.initial_state()).to(dev)
     h = wl.history.capacity if wl.history is not None else 0
+    d = n if wl.durable_sync else 0
+    m = N_METRICS if metrics else 0
 
     def init(seeds, plan: PlanRows | None = None) -> SimState:
         seed = _seeds_tensor(seeds, dev)
@@ -815,10 +937,16 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0)
             slow=torch.ones((s, n, n), dtype=torch.int32, device=dev),
             dup=z(s, dt=torch.bool),
             skew=z(s, n, dt=torch.int32),
+            disk=base_state[:d].expand(s, d, u).contiguous(),
+            wmask=z(s, d, u, dt=torch.bool),
+            sync_loss=z(s, d, dt=torch.bool),
+            sync_eio=z(s, d, dt=torch.bool),
+            torn=z(s, d, dt=torch.bool),
             hist_count=z(s, dt=torch.int32),
             hist_drop=z(s, dt=torch.int32),
             hist_word=z(s, h, 5, dt=torch.int32),
             hist_t=z(s, h, dt=torch.int64),
+            met=z(s, m, dt=torch.int32),
         )
 
     return init
@@ -838,9 +966,12 @@ def _first_argmin(x: torch.Tensor) -> torch.Tensor:
 
 
 def _with_records(out: tuple, rr: int, s: int, dev) -> tuple:
-    """A handler's ``(state, Emits)`` with ``rr`` record rows: hand-built
-    ``Emits`` (not through ``ctx.emits()``) record nothing."""
+    """A handler's ``(state, Emits)`` with ``rr`` record rows and a sync
+    flag: hand-built ``Emits`` (not through ``ctx.emits()``) record
+    nothing and sync nothing."""
     state, em = out
+    if em.sync is None:
+        em = dataclasses.replace(em, sync=torch.zeros((s,), dtype=torch.bool, device=dev))
     rv = em.rec_valid
     if rv is None or (rr > 0 and rv.shape[1] == 0):
         em = dataclasses.replace(
@@ -857,14 +988,19 @@ def _with_records(out: tuple, rr: int, s: int, dev) -> tuple:
     return state, em
 
 
-def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
+def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
+                   metrics: bool = False):
     """The eager batched step: ``step(SimState) -> SimState``.
 
     ``dup_rows`` adds the duplication shadow rows: K rows after the
     restart row, row j a copy of user emit row j when it is a send and
     the seed's ``dup`` flag is set, each with its own latency and loss
     pair at purpose ``PURPOSE_DUP + j``. Their lanes sit between the
-    emit rows' and the user purposes', so the user lanes move up by K."""
+    emit rows' and the user purposes', so the user lanes move up by K.
+    Under the sync discipline the torn-write lane (``PURPOSE_TORN``)
+    follows them, before the user purposes. ``metrics`` folds the fleet
+    counters into ``SimState.met`` (a state from
+    ``make_init(metrics=True)``)."""
     n, k, w, aw = wl.n_nodes, wl.max_emits, wl.payload_words, wl.args_words
     n_user = len(wl.handlers)
     _check_meta_ranges(wl)
@@ -874,8 +1010,15 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
     lane_p += [PURPOSE_LATENCY + s for s in range(k + 1)]
     if dup_rows:
         lane_p += [PURPOSE_DUP + s for s in range(k)]
+    sync_on = wl.durable_sync
+    i_torn = len(lane_p)
+    if sync_on:
+        lane_p.append(PURPOSE_TORN)
     i_user = len(lane_p)
     lane_p += [PURPOSE_USER + p for p in user_purposes]
+    # threefry blocks a step draws while its seed is active (MET_RNG):
+    # the poll block and every lane above it
+    rng_blocks = len(lane_p) - len(user_purposes)
     loss_u32 = cfg.loss_u32
     time_limit = cfg.time_limit
     lat_span = max(cfg.lat_max_ns - cfg.lat_min_ns, 1)
@@ -886,6 +1029,12 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
     rr = wl.history.max_records if wl.history is not None else 0
 
     def step(st: SimState) -> SimState:
+        if metrics and st.met.shape[1] != N_METRICS:
+            raise ValueError(
+                f"a step built with metrics=True needs a state from "
+                f"make_init(metrics=True); this one has {st.met.shape[1]} "
+                f"metric slots"
+            )
         dev = st.seed.device
         s_n, e_n = st.ev_valid.shape
         ar = torch.arange(s_n, device=dev)
@@ -921,6 +1070,11 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
         paused_dst = st.paused[ar, dst_c] & in_range
         epoch_dst = torch.where(in_range, st.epoch[ar, dst_c], 0)
         skew_dst = torch.where(in_range, st.skew[ar, dst_c], 0)
+        # the handling node's fsync-EIO flag before the dispatch
+        eio_dst = (
+            st.sync_eio[ar, dst_c] & in_range if sync_on
+            else torch.zeros_like(in_range)
+        )
 
         # liveness/epoch gate (epoch -1 = any incarnation)
         live = alive_dst & ((epoch_dst == ev_epoch_i) | (ev_epoch_i == -1))
@@ -981,6 +1135,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
                 payload_words=w,
                 args_words=aw,
                 max_records=rr,
+                sync_err=eio_dst,
             )
             outs = [_with_records(h(ctx), rr, s_n, dev) for h in wl.handlers]
             pick = user_idx.long()
@@ -1064,6 +1219,56 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
         dup = torch.where(dispatch & is_dup_kind, kind == KIND_DUP_ON, st.dup)
         skew_id = torch.where(dispatch & (kind == KIND_SKEW), a0, -1)
         skew = torch.where(node_ids[None, :] == skew_id[:, None], a1[:, None], st.skew)
+
+        # ---- the two-phase sync discipline: durable writes buffer until
+        # a sync commits them to the node's disk image; a kill reverts
+        # the durable columns to that image, or under an armed torn mode
+        # keeps a drawn prefix (column order) of the last uncommitted
+        # write on top of it ----
+        if sync_on:
+            dur_m = ~vo  # (U,) the durable columns
+            dst_oh = (node_ids[None, :] == dst[:, None])  # all False out of range
+            # the chaos windows: args[0] = node, -1 = every node
+            sel_n = (node_ids[None, :] == a0[:, None]) | (a0 < 0)[:, None]
+            is_sl = dispatch & (kind == KIND_SYNC_LOSS)
+            eio_mode = a1 == 1
+            sl_off = (dispatch & (kind == KIND_SYNC_OK))[:, None] & sel_n
+            sync_loss = torch.where((is_sl & ~eio_mode)[:, None] & sel_n, True,
+                                    torch.where(sl_off, False, st.sync_loss))
+            sync_eio = torch.where((is_sl & eio_mode)[:, None] & sel_n, True,
+                                   torch.where(sl_off, False, st.sync_eio))
+            tn_on = (dispatch & (kind == KIND_TORN_ON))[:, None] & sel_n
+            tn_off = (dispatch & (kind == KIND_TORN_OFF))[:, None] & sel_n
+            torn = torch.where(tn_on, True, torch.where(tn_off, False, st.torn))
+            # this dispatch's changed durable columns replace the node's
+            # mask: only the newest unsynced write tears
+            changed = (row != state_row) & dur_m[None, :]
+            wrote = user_dispatch & changed.any(1)
+            wmask = torch.where((dst_oh & wrote[:, None])[:, :, None], changed[:, None, :],
+                                st.wmask)
+            # the commit, unless the disk lies or fails (no commit, no
+            # mask clear either way)
+            lying = (sync_loss | sync_eio)[ar, dst_c] & in_range
+            do_sync = user_dispatch & uem.sync & ~lying
+            sync_lied = user_dispatch & uem.sync & lying
+            synced = (dst_oh & do_sync[:, None])[:, :, None]
+            disk = torch.where(synced & dur_m[None, None, :], node_state, st.disk)
+            wmask = wmask & ~synced
+            # the crash: keep_cnt is the uint32 torn word mod (dirty + 1)
+            torn_bits = lane0[:, i_torn]
+            n_dirty = wmask.sum(2)
+            rank = wmask.to(torch.int64).cumsum(2) - 1
+            keep_cnt = torn_bits[:, None] % (n_dirty + 1)
+            torn_keep = wmask & torn[:, :, None] & (rank < keep_cnt[:, :, None])
+            crash_val = torch.where(torn_keep, node_state, disk)
+            crash_sel = is_killed[:, :, None] & dur_m[None, None, :]
+            tore = (is_killed & torn).any(1)
+            node_state = torch.where(crash_sel, crash_val, node_state)
+            disk = torch.where(crash_sel, crash_val, disk)
+            wmask = wmask & ~is_killed[:, :, None]
+        else:
+            disk, wmask = st.disk, st.wmask
+            sync_loss, sync_eio, torn = st.sync_loss, st.sync_eio, st.torn
 
         halted = st.halted | (dispatch & (kind == KIND_HALT)) | (has_event & over_limit)
         halt_time = torch.where(
@@ -1181,6 +1386,44 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
             hist_count, hist_drop = st.hist_count, st.hist_drop
             hist_word, hist_t = st.hist_word, st.hist_t
 
+        # ---- the fleet counters: values the step computed anyway, and
+        # nothing here feeds back into the trajectory ----
+        if metrics:
+            sent_m = dispatch[:, None] & ev_valid_em & em_send
+            inc = [torch.zeros_like(st.overflow)] * N_METRICS
+
+            def n_of(b):
+                return b.sum(1).to(torch.int32) if b.dim() == 2 else b.to(torch.int32)
+
+            inc[MET_SENT] = n_of(sent_m)
+            inc[MET_DELIVERED] = n_of(dispatch & is_msg)
+            inc[MET_LOST] = n_of(sent_m & lost)
+            inc[MET_DEAD_DROP] = n_of(sent_m & ~lost & ~alive_at_dst)
+            if dup_rows:
+                inc[MET_DUP] = n_of(e_valid[:, k + 1 : 2 * k + 1])
+            inc[MET_CRASH] = n_of(dispatch & (kind == KIND_KILL))
+            inc[MET_RESTART] = n_of(dispatch & (kind == KIND_RESTART))
+            inc[MET_PAUSE] = n_of(dispatch & (kind == KIND_PAUSE))
+            inc[MET_CLOG_BLOCK] = n_of(active & clogged)
+            inc[MET_TIMER] = n_of(user_dispatch & ~is_msg)
+            if hcap > 0:
+                inc[MET_RECORD] = n_of(keep)
+            inc[MET_RNG] = torch.where(active, rng_blocks, 0).to(torch.int32)
+            if sync_on:
+                inc[MET_SYNC] = n_of(do_sync)
+                inc[MET_SYNC_LOST] = n_of(sync_lied)
+                inc[MET_TORN] = n_of(tore)
+            met = st.met + torch.stack(inc, 1)
+            # how the seed stopped: its halt, else the first step that
+            # finds its pool empty
+            code = torch.where(dispatch & (kind == KIND_HALT), HALT_DONE, HALT_TIME_LIMIT)
+            cur = met[:, MET_HALT_CODE]
+            idle = ~has_event & ~st.halted & (cur == HALT_RUNNING)
+            met[:, MET_HALT_CODE] = torch.where(
+                halted & ~st.halted, code, torch.where(idle, HALT_IDLE, cur))
+        else:
+            met = st.met
+
         # ---- trace + clock ----
         trace = torch.where(
             dispatch, _trace_fold(st.trace, now, kind, dst, args, pay_i), st.trace
@@ -1208,10 +1451,16 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
             slow=slow,
             dup=dup,
             skew=skew,
+            disk=disk,
+            wmask=wmask,
+            sync_loss=sync_loss,
+            sync_eio=sync_eio,
+            torn=torn,
             hist_count=hist_count,
             hist_drop=hist_drop,
             hist_word=hist_word,
             hist_t=hist_t,
+            met=met,
         )
 
     return step
@@ -1223,15 +1472,16 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def make_step_plain(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
+def make_step_plain(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
+                    metrics: bool = False):
     """The plain eager step on any device."""
-    return _plain_step_fn(wl, cfg, dup_rows)
+    return _plain_step_fn(wl, cfg, dup_rows, metrics)
 
 
 def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
-                   dup_rows: bool = False):
+                   dup_rows: bool = False, metrics: bool = False):
     """``n_steps`` of the plain eager step on any device."""
-    step = _plain_step_fn(wl, cfg, dup_rows)
+    step = _plain_step_fn(wl, cfg, dup_rows, metrics)
 
     def run(state: SimState) -> SimState:
         for _ in range(n_steps):
@@ -1242,10 +1492,10 @@ def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
 
 
 def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
-                         dup_rows: bool = False):
+                         dup_rows: bool = False, metrics: bool = False):
     """The plain eager step until every seed has halted, at most
     ``max_steps`` times; every seed takes the same number of steps."""
-    step = _plain_step_fn(wl, cfg, dup_rows)
+    step = _plain_step_fn(wl, cfg, dup_rows, metrics)
 
     def run(state: SimState) -> SimState:
         i = 0
@@ -1257,27 +1507,31 @@ def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
     return run
 
 
-def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False):
+def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
+              metrics: bool = False):
     """One step: the plain step on a CPU state, the fused kernel with
     ``n_steps=1`` on a CUDA state (raises for a workload, or a
     ``dup_rows`` build, the kernel does not carry)."""
     from .fused import make_run_fused
 
-    return make_run_fused(wl, cfg, 1, dup_rows=dup_rows)
+    return make_run_fused(wl, cfg, 1, dup_rows=dup_rows, metrics=metrics)
 
 
-def make_run(wl: Workload, cfg: EngineConfig, n_steps: int, dup_rows: bool = False):
+def make_run(wl: Workload, cfg: EngineConfig, n_steps: int, dup_rows: bool = False,
+             metrics: bool = False):
     """``n_steps`` steps: plain on a CPU state, the fused kernel on a
     CUDA state."""
     from .fused import make_run_fused
 
-    return make_run_fused(wl, cfg, n_steps, dup_rows=dup_rows)
+    return make_run_fused(wl, cfg, n_steps, dup_rows=dup_rows, metrics=metrics)
 
 
 def make_run_while(wl: Workload, cfg: EngineConfig, max_steps: int,
-                   dup_rows: bool = False):
+                   dup_rows: bool = False, metrics: bool = False):
     """Steps until every seed has halted, at most ``max_steps``: plain
-    on a CPU state, the fused kernel on a CUDA state."""
+    on a CPU state, the fused kernel on a CUDA state. ``metrics`` folds
+    the fleet counters (a state from ``make_init(metrics=True)``)."""
     from .fused import make_run_fused
 
-    return make_run_fused(wl, cfg, max_steps, until_halted=True, dup_rows=dup_rows)
+    return make_run_fused(wl, cfg, max_steps, until_halted=True, dup_rows=dup_rows,
+                          metrics=metrics)

@@ -31,6 +31,16 @@ history records as the plain step does, and the history columns are
 fresh outputs; a workload without one shares its zero-size history
 columns, and its ``hist_count`` and ``hist_drop``, with the input.
 
+A workload with the sync discipline (``Workload.durable_sync``) runs on
+a library whose trait keeps it (``SYNC``): the storage columns
+(``STORAGE_FIELDS``) are fresh outputs; any other shares its zero-size
+ones with the input. A state from ``make_init(metrics=True)`` (its
+``met`` row of ``N_METRICS`` slots, ``has_metrics``) launches each
+library's second instantiation of the run kernel, which folds the
+``MET_*`` counters into a fresh ``met``; a state without the row shares
+its zero-size ``met`` with the input. The run's ``metrics=`` must agree
+with the row, or the wrapper raises.
+
 ``make_run_while`` semantics: the JAX loop runs every seed for the same
 ``T = min(cap, steps until every seed has halted)`` iterations, and a
 halted seed's iteration still consumes its earliest slot and counts a
@@ -55,7 +65,9 @@ from pathlib import Path
 import torch
 
 from .core import (
+    N_METRICS,
     STATE_FIELDS,
+    STORAGE_FIELDS,
     EngineConfig,
     SimState,
     Workload,
@@ -122,6 +134,7 @@ class KernelModel:
     fixed: tuple = ()
     group: int = GROUP  # lanes per seed
     dup: bool = False  # built with the duplication rows (dup_rows=True)
+    sync: bool = False  # the trait keeps the sync discipline (durable_sync)
 
     def draws_source(self) -> str:
         """C++ naming the workload's declared user draw purposes
@@ -189,7 +202,9 @@ _KV_WORDS = ("writes", "retx_ns", "client_retx_ns")
 _LEASE_WORDS = ("puts", "ttl_ms", "ka_ms", "scan_ms", "put_ms")
 _SHARD_WORDS = ("writes", "n_migs", "put_ms", "mig_ms", "retx_ms")
 _RAFTLOG_WORDS = ("timeout_min_ns", "timeout_max_ns", "propose_ns", "retx_ns")
-_RAFTLOG_FIXED = (("n_nodes", 5), ("n_writes", 4), ("chaos", True))
+_RAFTLOG_FIXED = (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", False))
+_RAFTLOG_STORE_SHAPE = (5, 12, 4, 4, 7, 8, (0, 1), 4)
+_RAFTLOG_STORE = (("n_nodes", 5), ("n_writes", 4), ("chaos", False), ("durable", True))
 _TWOPHASE_WORDS = ("txns", "no_pct", "retx_ns", "revive_min_ns", "revive_max_ns")
 _PAXOS_WORDS = ("start_min_ns", "start_max_ns", "timeout_min_ns",
                 "timeout_max_ns", "kill_min_ns", "kill_max_ns",
@@ -350,19 +365,40 @@ MODELS = {
             "madsim::TwoPhaseModel<true, false>", _TP_NOCHAOS_SHAPE, (96,),
             _TWOPHASE_WORDS, _TP_NOCHAOS, dup=True,
         ),
+        # the storage libraries: raftlog durable=True with its own chaos
+        # (the raftlog bench pool and the store soak's), and the store
+        # soak's record variants without it, correct and nosync
+        KernelModel(
+            "raftlog-durable", "raftlog", "model_raftlog.cuh",
+            "madsim::RaftLogModel<false, true, true>",
+            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 0), (64, 128), _RAFTLOG_WORDS,
+            (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", True)),
+            sync=True,
+        ),
+        KernelModel(
+            "raftlog-durable-record", "raftlog-record", "model_raftlog.cuh",
+            "madsim::RaftLogModel<true, false, true>", _RAFTLOG_STORE_SHAPE, (96, 128),
+            _RAFTLOG_WORDS, _RAFTLOG_STORE, sync=True,
+        ),
+        KernelModel(
+            "raftlog-nosync-record", "raftlog-nosync-record", "model_raftlog.cuh",
+            "madsim::RaftLogModel<true, false, true, true>", _RAFTLOG_STORE_SHAPE, (128,),
+            _RAFTLOG_WORDS, (*_RAFTLOG_STORE, ("bug", "nosync")), sync=True,
+        ),
     )
 }
 
 # the fields the kernel reads (and, but for seed, writes), in the
 # pointer order of Fields (csrc/engine_step.cuh); ev_pay is read and
 # written only when the workload has payload words, the history
-# columns only when it records
+# columns only when it records, the storage columns only under the sync
+# discipline and met only with metrics
 HISTORY_COLUMNS = ("hist_count", "hist_drop", "hist_word", "hist_t")
 KERNEL_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
     "msg_count", "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args",
     "ev_pay", "alive", "paused", "epoch", "node_state", "clog", "slow",
-    "skew", "dup", *HISTORY_COLUMNS,
+    "skew", "dup", *HISTORY_COLUMNS, *STORAGE_FIELDS, "met",
 )
 READ_ONLY_FIELDS = ("seed",)
 # the run's outputs that are its inputs' tensors: never written
@@ -377,6 +413,8 @@ _DTYPES = {
     "node_state": torch.int32, "clog": torch.bool, "slow": torch.int32,
     "dup": torch.bool, "skew": torch.int32, "hist_count": torch.int32,
     "hist_drop": torch.int32, "hist_word": torch.int32, "hist_t": torch.int64,
+    "disk": torch.int32, "wmask": torch.bool, "sync_loss": torch.bool,
+    "sync_eio": torch.bool, "torn": torch.bool, "met": torch.int32,
 }
 
 
@@ -408,7 +446,8 @@ def kernel_model(wl: Workload, dup_rows: bool = False) -> KernelModel:
 
     def carries(spec):
         fixed = {k: params.get(k) for k, _v in spec.fixed}
-        return shape == spec.shape and fixed == dict(spec.fixed)
+        return (shape == spec.shape and fixed == dict(spec.fixed)
+                and spec.sync == wl.durable_sync)
 
     fits = [m for m in cands if carries(m)]
     for spec in fits:
@@ -543,7 +582,7 @@ class RunKernel:
             lib.madsim_run.restype = ctypes.c_int
             lib.madsim_run.argtypes = [
                 ctypes.POINTER(ptr), ctypes.POINTER(i64), i64, i64, i32, i32,
-                i32, ptr,
+                i32, i32, ptr,
             ]
             lib.madsim_drain.restype = ctypes.c_int
             lib.madsim_drain.argtypes = [ctypes.POINTER(ptr), i64, i32, i32, ptr]
@@ -551,15 +590,16 @@ class RunKernel:
             lib.madsim_occupancy.argtypes = [i32, i32, ctypes.POINTER(i64)]
             lib.madsim_shape.restype = None
             lib.madsim_shape.argtypes = [ctypes.POINTER(i64)]
-            got = (i64 * 10)()
+            got = (i64 * 11)()
             lib.madsim_shape(got)
             want = (*spec.shape[:6], spec.shape[7], 2 * len(KERNEL_FIELDS) + 4,
-                    len(DRAIN_FIELDS) + 2, spec.shape[4] if spec.dup else 0)
+                    len(DRAIN_FIELDS) + 2, spec.shape[4] if spec.dup else 0,
+                    int(spec.sync))
             if tuple(got) != want:
                 raise RuntimeError(
                     f"library {path} is built for (N, U, A, W, K, H, R, run "
-                    f"and drain pointers, shadow rows) = {tuple(got)}; model "
-                    f"{spec.key!r} needs {want}"
+                    f"and drain pointers, shadow rows, sync) = {tuple(got)}; "
+                    f"model {spec.key!r} needs {want}"
                 )
             self._libs[spec.key] = lib
         return lib
@@ -568,14 +608,15 @@ class RunKernel:
                iters, tmax, cfg_words, budget: int, stop_at_halt: bool) -> None:
         """The run kernel: ``budget`` steps of every seed of ``state``
         into ``out``; each seed's count into ``iters`` and their
-        maximum into ``tmax``."""
+        maximum into ``tmax``; a state with the counter row runs the
+        instantiation that folds the fleet counters into ``out.met``."""
         lib = self.load(spec)
         if state.seed.shape[0] == 0:
             return
         ptrs, cfg = kernel_args(state, out, tables, iters, tmax, cfg_words)
         rc = lib.madsim_run(
             ptrs, cfg, state.seed.shape[0], int(budget), state.ev_valid.shape[1],
-            int(stop_at_halt), state.device.index or 0,
+            int(stop_at_halt), int(has_metrics(state)), state.device.index or 0,
             torch.cuda.current_stream(state.device).cuda_stream,
         )
         if rc != 0:
@@ -606,13 +647,15 @@ class RunKernel:
 
     def occupancy(self, spec: KernelModel, pool: int, device=0) -> dict:
         """The launch shape of ``spec``'s kernels at ``pool``, from the
-        card's occupancy calculator."""
-        out = (ctypes.c_int64 * 6)()
+        card's occupancy calculator: the run kernel, the drain kernel
+        and the run kernel with metrics."""
+        out = (ctypes.c_int64 * 8)()
         rc = self.load(spec).madsim_occupancy(int(pool), int(device), out)
         if rc != 0:
             raise RuntimeError(f"occupancy query for {spec.key!r} failed: error {rc}")
         keys = ("group", "seeds_per_block", "run_smem_bytes", "run_blocks_per_sm",
-                "drain_smem_bytes", "drain_blocks_per_sm")
+                "drain_smem_bytes", "drain_blocks_per_sm", "met_smem_bytes",
+                "met_blocks_per_sm")
         return dict(zip(keys, tuple(out)))
 
 
@@ -627,7 +670,7 @@ def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words):
     none), the tables, ``iters`` and ``tmax``. The caller keeps every
     tensor alive until the launch has run."""
     ins = [getattr(state, f).data_ptr() for f in KERNEL_FIELDS]
-    unwritten = (*READ_ONLY_FIELDS, *_unwritten_history(state))
+    unwritten = (*READ_ONLY_FIELDS, *_unwritten(state))
     outs = [
         0 if f in unwritten else getattr(out, f).data_ptr()
         for f in KERNEL_FIELDS
@@ -643,7 +686,8 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     """Raise unless every field is a contiguous CUDA tensor of the
     port's dtype and of the workload's shape, with a pool size the
     model's kernel was compiled for; only a record library takes a
-    state with history rows."""
+    state with history rows, only a sync library one with storage rows;
+    ``met`` has no slot or all ``N_METRICS``."""
     dev = state.device
     s, e = state.ev_valid.shape
     if e not in spec.pools:
@@ -658,12 +702,15 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
             f"call; workload {wl.name!r} has history capacity {hcap}"
         )
     n, u = wl.n_nodes, wl.state_width
+    d = n if wl.durable_sync else 0
     shapes = dict(
         ev_time=(s, e), ev_valid=(s, e), ev_meta=(s, e), ev_epoch=(s, e),
         ev_args=(s, e, wl.args_words), ev_pay=(s, e, wl.payload_words),
         alive=(s, n), paused=(s, n), epoch=(s, n), skew=(s, n),
         node_state=(s, n, u), clog=(s, n, n), slow=(s, n, n),
         hist_word=(s, hcap, 5), hist_t=(s, hcap),
+        disk=(s, d, u), wmask=(s, d, u), sync_loss=(s, d), sync_eio=(s, d), torn=(s, d),
+        met=(s, N_METRICS if has_metrics(state) else 0),
     )
     for name in STATE_FIELDS:
         t = getattr(state, name)
@@ -700,18 +747,41 @@ def _tables(wl: Workload, dev) -> tuple:
     return got
 
 
-def _unwritten_history(state: SimState) -> tuple:
-    """The history columns a run of ``state`` leaves as they are: all
-    four when the state has no history rows (a workload that records
-    nothing), else none."""
-    return HISTORY_COLUMNS if state.hist_word.shape[1] == 0 else ()
+def has_metrics(state: SimState) -> bool:
+    """Whether ``state`` carries the fleet counters
+    (``make_init(metrics=True)``): a run of it launches the run kernel
+    that folds them."""
+    return state.met.shape[1] == N_METRICS
+
+
+def _check_metrics(state: SimState, metrics: bool) -> None:
+    """Raise unless a CUDA run's ``metrics`` agrees with ``state``'s
+    counter row, which picks the kernel."""
+    if has_metrics(state) != metrics:
+        raise ValueError(
+            f"a run with metrics={metrics} needs a state from "
+            f"make_init(metrics={metrics}); this one has {state.met.shape[1]} "
+            f"metric slots"
+        )
+
+
+def _unwritten(state: SimState) -> tuple:
+    """The columns a run of ``state`` leaves as they are: the history
+    columns when the state has no history rows (a workload that records
+    nothing), the storage columns without the sync discipline, and
+    ``met`` without metrics."""
+    return (
+        (HISTORY_COLUMNS if state.hist_word.shape[1] == 0 else ())
+        + (STORAGE_FIELDS if state.disk.shape[1] == 0 else ())
+        + (() if has_metrics(state) else ("met",))
+    )
 
 
 def fresh_outputs(state: SimState) -> SimState:
     """The run kernel's outputs: ``torch.empty`` for every field it
-    writes; ``seed``, and the history columns of a state without
-    history rows, are the input's."""
-    shared = (*SHARED_FIELDS, *_unwritten_history(state))
+    writes; ``seed``, and the columns a run leaves as they are
+    (history, storage, ``met``: ``_unwritten``), are the input's."""
+    shared = (*SHARED_FIELDS, *_unwritten(state))
     return SimState(**{
         f: getattr(state, f) if f in shared else torch.empty_like(getattr(state, f))
         for f in STATE_FIELDS
@@ -752,21 +822,22 @@ def drain_plain(step, ev_valid, ev_time, r):
 
 def make_run_fused(
     wl: Workload, cfg: EngineConfig, n_steps: int, until_halted: bool = False,
-    dup_rows: bool = False,
+    dup_rows: bool = False, metrics: bool = False,
 ):
     """Build ``run(state) -> SimState``: ``n_steps`` steps (or, with
     ``until_halted``, steps until every seed has halted, at most
     ``n_steps``) in the fused kernel, with the duplication rows when
-    ``dup_rows``. A CPU state takes the plain step; a CUDA state
-    launches the kernel or raises."""
+    ``dup_rows`` and the fleet counters when ``metrics``. A CPU state
+    takes the plain step; a CUDA state launches the kernel or raises."""
     plain = (
-        make_run_while_plain(wl, cfg, n_steps, dup_rows) if until_halted
-        else make_run_plain(wl, cfg, n_steps, dup_rows)
+        make_run_while_plain(wl, cfg, n_steps, dup_rows, metrics) if until_halted
+        else make_run_plain(wl, cfg, n_steps, dup_rows, metrics)
     )
 
     def run(state: SimState) -> SimState:
         if state.device.type == "cpu":
             return plain(state)
+        _check_metrics(state, metrics)
         spec, out, iters, tmax = _first_pass(wl, cfg, state, n_steps, until_halted,
                                              dup_rows)
         if until_halted:

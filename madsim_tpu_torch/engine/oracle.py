@@ -243,7 +243,11 @@ def run_oracle(
 ) -> OracleResult:
     """Run one seed through the C++ oracle. ``model_kwargs`` override
     the workload's ``model_params``. ``plan`` only raises: the oracle
-    cannot run a fault plan (:func:`assert_plan_oracle_free`)."""
+    cannot run a fault plan (:func:`assert_plan_oracle_free`). A
+    sync-discipline workload (``Workload.durable_sync``) compares as
+    long as it syncs every durable write in the dispatch that made it:
+    its trajectory is then the verbatim-durable one the oracle runs
+    (raftlog ``durable=True``)."""
     if plan is not None:
         assert_plan_oracle_free(plan)
     lib = load()

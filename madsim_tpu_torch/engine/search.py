@@ -28,11 +28,14 @@ A fault ``plan`` (``chaos.FaultPlan`` or ``LiteralPlan``) compiles per
 seed into pre-seeded pool rows; its hash joins the repro banner, so
 ``(seed, config, plan)`` is the repro key.
 
+``metrics=True`` folds the fleet counters (``engine.core.MET_*``) into
+``report.met``, and the banner splits the seeds by how they stopped.
+
 On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
 run and drain kernels), or with ``compact=True`` the compacted runner's
-one stop-at-halt launch. The reference's observability options raise
-``NotImplementedError`` until their engine axes are ported (ROADMAP
-item A8).
+one stop-at-halt launch. The reference's other observability options
+raise ``NotImplementedError`` until their engine axes are ported
+(ROADMAP item A8).
 """
 
 from __future__ import annotations
@@ -51,7 +54,18 @@ from ..check.device import (
 from ..check.history import BatchHistory
 from .compact import RESULT_FIELDS, SCREEN_FIELDS, make_run_compacted, refuse_unported
 from .convert import field_to_numpy
-from .core import STATE_FIELDS, EngineConfig, Workload, make_init, make_run_while, resolve_device
+from .core import (
+    HALT_DONE,
+    HALT_IDLE,
+    HALT_TIME_LIMIT,
+    MET_HALT_CODE,
+    STATE_FIELDS,
+    EngineConfig,
+    Workload,
+    make_init,
+    make_run_while,
+    resolve_device,
+)
 
 __all__ = ["SearchReport", "make_sweep", "search_seeds"]
 
@@ -64,13 +78,15 @@ _RUN_CACHE: dict = {}
 
 def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                     compact: bool, device, hist_screen=None, plan_slots: int = 0,
-                    dup_rows: bool = False):
+                    dup_rows: bool = False, metrics: bool = False):
     # the one construction of a sweep's (init, run) pair, for make_sweep
     # and search_seeds alike; only the compacted runner embeds a screen
-    init = make_init(wl, cfg, device=device, plan_slots=plan_slots)
+    init = make_init(wl, cfg, device=device, plan_slots=plan_slots, metrics=metrics)
     run = (
-        make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen, dup_rows=dup_rows)
-        if compact else make_run_while(wl, cfg, max_steps, dup_rows=dup_rows)
+        make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen, dup_rows=dup_rows,
+                           metrics=metrics)
+        if compact else make_run_while(wl, cfg, max_steps, dup_rows=dup_rows,
+                                       metrics=metrics)
     )
     return init, run
 
@@ -95,15 +111,15 @@ def make_sweep(
     batch (with ``plan_slots`` rows of a compiled plan), run
     ``make_run_while`` to the step cap, and return the final state as a
     ``{field name: device tensor}`` view, with no host transfer and no
-    invariant. The options after ``dup_rows`` raise
-    ``NotImplementedError`` until their engine axes are ported."""
+    invariant. ``metrics`` folds the fleet counters; the options after it
+    raise ``NotImplementedError`` until their engine axes are ported."""
     refuse_unported(
         cov_words=cov_words,
-        metrics=metrics, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
+        timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
         latency=latency, causal=causal, retry=retry,
     )
     init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device),
-                                plan_slots=plan_slots, dup_rows=dup_rows)
+                                plan_slots=plan_slots, dup_rows=dup_rows, metrics=metrics)
 
     def sweep(seeds, rows=None):
         out = run(init(seeds, rows) if plan_slots else init(seeds))
@@ -114,15 +130,15 @@ def make_sweep(
 
 def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                   compact: bool, dev, hist_screen=None, plan_slots: int = 0,
-                  dup_rows: bool = False):
+                  dup_rows: bool = False, metrics: bool = False):
     from .fused import workload_shape
 
-    key = (wl.name, workload_shape(wl), wl.model_params, wl.history,
-           cfg.hash(), max_steps, compact, str(dev), hist_screen, plan_slots,
-           dup_rows)
+    key = (wl.name, workload_shape(wl), wl.model_params, wl.history, wl.durable_cols,
+           wl.durable_sync, cfg.hash(), max_steps, compact, str(dev), hist_screen,
+           plan_slots, dup_rows, metrics)
     if key not in _RUN_CACHE:
         _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
-                                          plan_slots, dup_rows)
+                                          plan_slots, dup_rows, metrics)
     return _RUN_CACHE[key]
 
 
@@ -144,7 +160,8 @@ def _library_build_s(wl: Workload, dev, dup_rows: bool = False) -> float:
 @dataclasses.dataclass
 class SearchReport:
     """Outcome of one batched invariant sweep. The reference's coverage
-    and observability fields wait for ROADMAP item A8."""
+    fields and its observability fields but ``met`` wait for ROADMAP
+    item A8."""
 
     workload: str
     config_hash: str
@@ -181,6 +198,9 @@ class SearchReport:
     hist_fold: np.ndarray | None = None
     # the fault plan's hash, part of the repro key (None: no plan)
     plan_hash: str | None = None
+    # (S, N_METRICS) int32 fleet counters (metrics=True), else None; the
+    # MET_HALT_CODE column says how each seed stopped
+    met: np.ndarray | None = None
 
     @property
     def failing_seeds(self) -> np.ndarray:
@@ -213,7 +233,17 @@ class SearchReport:
             f"{self.workload!r}: {len(bad)} violation(s)",
         ]
         n_halt = int(np.asarray(self.halted).sum())
-        if n_halt < s:
+        if self.met is not None:
+            codes = np.asarray(self.met)[:, MET_HALT_CODE]
+            done = int((codes == HALT_DONE).sum())
+            tlim = int((codes == HALT_TIME_LIMIT).sum())
+            idle = int((codes == HALT_IDLE).sum())
+            lines.append(
+                f"  halted {n_halt}/{s}: {done} workload-halt, "
+                f"{tlim} time-limit; {idle} idle (empty pool), "
+                f"{s - n_halt - idle} still running at the step cap"
+            )
+        elif n_halt < s:
             lines.append(
                 f"  halted {n_halt}/{s}; {s - n_halt} still running at "
                 f"the step cap (run with metrics=True for the halt-"
@@ -357,10 +387,13 @@ def search_seeds(
     with the duplication rows; with a ``plan`` it defaults to
     ``plan.uses_dup()``.
 
+    ``metrics=True`` returns each seed's fleet counters as
+    ``report.met`` (``engine.core.MET_*``).
+
     ``device`` is where the sweep runs, the card unless the caller asks
-    for the CPU. Of the options after ``dup_rows``, all but
-    ``device_check`` raise ``NotImplementedError`` until their engine
-    axes are ported.
+    for the CPU. Of the options after ``dup_rows``, all but ``metrics``
+    and ``device_check`` raise ``NotImplementedError`` until their
+    engine axes are ported.
     """
     if history_invariant is not None and wl.history is None:
         raise ValueError(
@@ -384,7 +417,7 @@ def search_seeds(
             )
     refuse_unported(
         cov_words=cov_words,
-        metrics=metrics, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
+        timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
         latency=latency, causal=causal, retry=retry,
     )
     if invariant is None and history_invariant is None and screens is None:
@@ -423,7 +456,7 @@ def search_seeds(
     dup_rows = bool(dup_rows)
     dev = resolve_device(device)
     init, run = _compiled_run(wl, cfg, max_steps, compact, dev,
-                              screens if compact else None, plan_slots, dup_rows)
+                              screens if compact else None, plan_slots, dup_rows, metrics)
     build_wall_s = _library_build_s(wl, dev, dup_rows)
     out = run(init(seeds, rows) if rows is not None else init(seeds))
     if compact:
@@ -496,4 +529,5 @@ def search_seeds(
         flagged_history=flagged_history,
         hist_fold=view["hist_fold"] if screens is not None and compact else None,
         plan_hash=plan_hash,
+        met=np.asarray(view["met"]) if metrics else None,
     )

@@ -19,6 +19,7 @@ import torch
 
 from .core import (
     STATE_FIELDS,
+    STORAGE_FIELDS,
     EngineConfig,
     SimState,
     Workload,
@@ -29,6 +30,7 @@ from .core import (
 )
 
 __all__ = [
+    "DERIVED_FIELDS",
     "HISTORY_FIELDS",
     "LAYOUT_FIELDS",
     "DeterminismError",
@@ -42,7 +44,12 @@ __all__ = [
 # mirrors the hash and knows nothing of histories), so the determinism
 # checks compare them directly
 HISTORY_FIELDS = ("hist_count", "hist_drop", "hist_word", "hist_t")
-# the fields check_layouts holds besides the trace: the reference's list
+# the sync discipline's columns and the fleet counters: outside the
+# trace hash too (zero-size without the discipline or metrics), so both
+# checks compare them directly
+DERIVED_FIELDS = (*STORAGE_FIELDS, "met")
+# the fields check_layouts holds besides the trace and DERIVED_FIELDS:
+# the reference's list
 LAYOUT_FIELDS = (
     "now", "halted", "halt_time", "msg_count", "overflow", "node_state",
     "ev_valid", *HISTORY_FIELDS,
@@ -122,29 +129,34 @@ def compare_fields(a, b, what: str = "run", fields: tuple = LAYOUT_FIELDS) -> No
 
 
 def check_determinism(
-    wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None
+    wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None,
+    metrics: bool = False,
 ) -> None:
     """Run the workload twice over ``seeds`` on ``device`` (the card
-    unless the caller asks for the CPU); raise on any trace divergence.
+    unless the caller asks for the CPU); raise on any divergence of the
+    trace, the history, the storage columns or (with ``metrics``) the
+    fleet counters.
 
     Catches hidden nondeterminism in handlers, the way the reference's
     two-run RNG-log compare catches nondeterministic user code."""
     seeds = np.asarray(seeds, np.uint64)
-    init = make_init(wl, cfg, device=device)
-    run = make_run(wl, cfg, n_steps)
+    init = make_init(wl, cfg, device=device, metrics=metrics)
+    run = make_run(wl, cfg, n_steps, metrics=metrics)
     a = run(init(seeds))
     b = run(init(seeds))
     compare_traces(a, b, what=f"{wl.name} x2")
+    compare_fields(a, b, what=f"{wl.name} x2", fields=DERIVED_FIELDS)
 
 
 def check_layouts(
-    wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None
+    wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None,
+    metrics: bool = False,
 ) -> None:
     """Run ``seeds`` through the fused kernel on the card and through
     the plain eager step on the card, and the first 256 of them through
     the plain step on the CPU; raise on any difference of trace or of
-    :data:`LAYOUT_FIELDS`. On the CPU the port has one lowering, so a
-    CPU ``device`` raises ``ValueError``."""
+    :data:`LAYOUT_FIELDS` and :data:`DERIVED_FIELDS`. On the CPU the port
+    has one lowering, so a CPU ``device`` raises ``ValueError``."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         raise ValueError(
@@ -153,10 +165,12 @@ def check_layouts(
             "so there is nothing to compare (use check_determinism)"
         )
     seeds = np.asarray(seeds, np.uint64)
-    fused = make_run(wl, cfg, n_steps)(make_init(wl, cfg, device=dev)(seeds))
-    plain = make_run_plain(wl, cfg, n_steps)(make_init(wl, cfg, device=dev)(seeds))
+    init = make_init(wl, cfg, device=dev, metrics=metrics)
+    fused = make_run(wl, cfg, n_steps, metrics=metrics)(init(seeds))
+    plain = make_run_plain(wl, cfg, n_steps, metrics=metrics)(init(seeds))
     k = min(CPU_SEEDS, len(seeds))
-    cpu = make_run_plain(wl, cfg, n_steps)(make_init(wl, cfg, device="cpu")(seeds[:k]))
+    cpu = make_run_plain(wl, cfg, n_steps, metrics=metrics)(
+        make_init(wl, cfg, device="cpu", metrics=metrics)(seeds[:k]))
     head = SimState(**{f: getattr(fused, f)[:k] for f in STATE_FIELDS})
     for what, a, b in (
         (f"{wl.name} fused-vs-plain on {dev}", fused, plain),
@@ -164,3 +178,4 @@ def check_layouts(
     ):
         compare_traces(a, b, what=what)
         compare_fields(a, b, what=what)
+        compare_fields(a, b, what=what, fields=DERIVED_FIELDS)

@@ -1,8 +1,7 @@
 """Raft log replication under leader-crash chaos, batched over seeds.
 
-Port of ``madsim_tpu/models/raftlog.py`` at its default variant
-(``chaos=True``, diskless, no army, no coverage words), with or without
-recording:
+Port of ``madsim_tpu/models/raftlog.py`` (no army, no coverage words),
+with or without recording, diskless or durable:
 an elected leader proposes ``n_writes`` entries one at a time,
 replicates each with AppendEntries carrying its whole log prefix in the
 event payload, commits it on a majority of acks, and every seed
@@ -22,6 +21,20 @@ re-stamp rewrites the term byte of the uncommitted suffix, so after a
 leader restart the same value is legitimately re-committed under a
 higher term.
 
+``durable=True`` keeps the raft paper's Figure-2 persistent columns
+(TERM, VOTED, LOGLEN and the log) across a kill under the two-phase
+sync discipline (``Workload.durable_sync``): every handler that dirties
+them syncs in the same dispatch, before its messages go out, so with no
+injected disk fault the trajectory is that of verbatim-durable columns
+(the C++ oracle's). Inside an observable fsync-EIO window
+(``ctx.sync_err``) a node withholds candidacy, vote grants, append acks
+and proposals, and retries after it. ``bug="nosync"`` plants the
+missing-sync mutant: no handler syncs, so a kill wipes every
+"persistent" write back to the initial row. With ``record=True`` a
+durable node also records ``OP_SYNCED`` (a synced log-length change)
+and ``OP_RECOVER`` (the length a restarted node came back with), which
+``check.recovery_safety`` judges.
+
 State row: [role, term, voted_term, votes, timer_seq, log_len,
             commit, ack_mask, log_0 .. log_{W-1}]
 """
@@ -33,9 +46,12 @@ import torch
 from ..check.history import OP_USER
 from ..engine.core import KIND_KILL, KIND_RESTART, HistorySpec, Workload, set_cols, user_kind
 
-# history op kinds (record=True): an election win and a leader commit
+# history op kinds (record=True): an election win and a leader commit;
+# with durable=True also a synced log-length change and a recovery
 OP_ELECT = OP_USER
 OP_COMMIT = OP_USER + 1
+OP_SYNCED = OP_USER + 2
+OP_RECOVER = OP_USER + 3
 
 _H_INIT = 0
 _H_TIMEOUT = 1  # args = (timer_seq,)
@@ -72,20 +88,31 @@ def make_raftlog(
     cov_spread: bool = False,
 ) -> Workload:
     """The log-replication workload; ``record=True`` records elections
-    and commits. ``durable``, ``bug``, ``army`` and ``cov_spread`` raise
-    ``NotImplementedError`` until the sync discipline, latency markers
-    and coverage words are ported (ROADMAP queue A8)."""
-    if durable or bug is not None or army or cov_spread:
+    and commits, ``durable=True`` persists the Figure-2 columns under the
+    sync discipline and ``bug="nosync"`` never syncs them. ``army`` and
+    ``cov_spread`` raise ``NotImplementedError`` until the latency
+    markers and coverage words are ported (ROADMAP queue A8)."""
+    if army or cov_spread:
         raise NotImplementedError(
-            "make_raftlog is ported diskless, with or without record; "
-            "durable, bug, army and cov_spread need the sync discipline, "
-            "the latency markers and coverage words, which the torch "
-            "port does not have yet (ROADMAP queue A8)"
+            "make_raftlog's army and cov_spread need the latency markers "
+            "and coverage words, which the torch port does not have yet "
+            "(ROADMAP queue A8)"
+        )
+    if bug not in (None, "nosync"):
+        raise ValueError(f"unknown raftlog bug {bug!r} (only 'nosync')")
+    if bug and not durable:
+        raise ValueError(
+            "bug='nosync' plants a missing-sync mutant: it needs "
+            "durable=True (diskless mode has no syncs to miss)"
         )
     majority = n_nodes // 2 + 1
     nodes = list(range(n_nodes))
     w = n_writes
     width = LOG0 + w
+    # the correct placement syncs every durable write in the dispatch
+    # that made it; the planted mutant never syncs
+    sync_en = durable and bug != "nosync"
+    rec_store = record and durable
 
     def _log(st):
         return st[:, LOG0 : LOG0 + w]
@@ -112,9 +139,20 @@ def make_raftlog(
                 when=when & (ctx.node != p), pay=pay,
             )
 
+    def _eio(ctx):
+        """The node's observable fsync-EIO flag; constant False for the
+        diskless and nosync variants."""
+        if sync_en and ctx.sync_err is not None:
+            return ctx.sync_err
+        return torch.zeros_like(ctx.node, dtype=torch.bool)
+
     def on_init(ctx):
         eb = ctx.emits()
         _arm_election(ctx, eb, 1, True)
+        if rec_store:
+            # a re-init at now > 0 is a restarted node reading its disk
+            # back: the log length it recovered with
+            eb.record(OP_RECOVER, key=0, arg=ctx.state[:, LOGLEN], when=ctx.now > 0)
         if chaos:
             # node 0's t=0 init schedules the seed's chaos plan (restarted
             # nodes re-run on_init, but later re-inits see now > 0)
@@ -130,7 +168,11 @@ def make_raftlog(
 
     def on_timeout(ctx):
         st = ctx.state
-        fire = (ctx.args[:, 0] == st[:, TSEQ]) & (st[:, ROLE] != LEADER)
+        due = (ctx.args[:, 0] == st[:, TSEQ]) & (st[:, ROLE] != LEADER)
+        err = _eio(ctx)
+        # a node whose disk is failing cannot persist its candidacy: it
+        # re-arms the same timer seq and retries after the window
+        fire = due & ~err
         term = st[:, TERM] + 1
         new = set_cols(st, fire, {ROLE: CANDIDATE, TERM: term, VOTED: term,
                               VOTES: 1, TSEQ: st[:, TSEQ] + 1})
@@ -142,9 +184,10 @@ def make_raftlog(
                 when=fire & (ctx.node != p),
             )
         _arm_election(ctx, eb, st[:, TSEQ] + 1, fire)
-        # the reference's re-arm of a timeout withheld by a failing disk:
-        # a row that is never valid without the sync discipline
-        _arm_election(ctx, eb, st[:, TSEQ], False)
+        _arm_election(ctx, eb, st[:, TSEQ], due & err)
+        if sync_en:
+            # currentTerm and votedFor: fsync before the requests leave
+            eb.sync(when=fire)
         return new, eb.build()
 
     def on_reqvote(ctx):
@@ -156,11 +199,15 @@ def make_raftlog(
         # the up-to-date rule: candidate's (last term, length) >= ours
         my_lt = _lastterm(st1)
         up_to_date = (c_lt > my_lt) | ((c_lt == my_lt) & (c_len >= st1[:, LOGLEN]))
-        grant = (term == st1[:, TERM]) & (st1[:, VOTED] < term) & up_to_date
+        # a vote that cannot be persisted (an EIO window) is withheld
+        grant = (term == st1[:, TERM]) & (st1[:, VOTED] < term) & up_to_date & ~_eio(ctx)
         new = set_cols(st1, grant, {VOTED: term, TSEQ: st1[:, TSEQ] + 1})
         eb = ctx.emits()
         eb.send(cand, user_kind(_H_GRANT), (term,), when=grant)
         _arm_election(ctx, eb, st1[:, TSEQ] + 1, grant)
+        if sync_en:
+            # a granted vote, or a bare term bump, hits the disk first
+            eb.sync(when=newer | grant)
         return new, eb.build()
 
     def on_grant(ctx):
@@ -168,7 +215,9 @@ def make_raftlog(
         term = ctx.args[:, 0]
         counts = (st[:, ROLE] == CANDIDATE) & (term == st[:, TERM])
         votes = torch.where(counts, st[:, VOTES] + 1, st[:, VOTES])
-        wins = counts & (votes >= majority)
+        # a candidate whose disk is failing defers leadership: the
+        # re-stamp must be persisted before re-replication
+        wins = counts & (votes >= majority) & ~_eio(ctx)
         new = st.clone()
         new[:, VOTES] = votes
         new[:, ROLE] = torch.where(wins, LEADER, new[:, ROLE])
@@ -190,6 +239,9 @@ def make_raftlog(
         eb.after(retx_ns, user_kind(_H_RETX), ctx.node, (term,), when=wins)
         if record:
             eb.record(OP_ELECT, key=term, arg=ctx.node, when=wins)
+        if sync_en:
+            # the re-stamp rewrote log terms: persist before replicating
+            eb.sync(when=wins)
         return new, eb.build()
 
     def on_append(ctx):
@@ -209,9 +261,19 @@ def make_raftlog(
             ok, torch.maximum(new[:, COMMIT], l_commit), new[:, COMMIT]
         )
         eb = ctx.emits()
-        eb.send(leader, user_kind(_H_ACKAPP), (term, idx, ctx.node), when=adopt)
+        # inside an EIO window the adopted entries cannot be synced: the
+        # ack waits for the leader's retransmission after it
+        err = _eio(ctx)
+        eb.send(leader, user_kind(_H_ACKAPP), (term, idx, ctx.node), when=adopt & ~err)
         # a heartbeat resets the election timer
         _arm_election(ctx, eb, st[:, TSEQ] + 1, ok)
+        if sync_en:
+            # adopted entries and the term bump fsync before the ack
+            eb.sync(when=ok)
+        if rec_store and sync_en:
+            # a committed log-length change
+            eb.record(OP_SYNCED, key=0, arg=idx + 1,
+                      when=adopt & ~err & (idx + 1 != st[:, LOGLEN]))
         return new, eb.build()
 
     def on_ackapp(ctx):
@@ -247,7 +309,10 @@ def make_raftlog(
         st = ctx.state
         term = ctx.args[:, 0]
         alive_leader = (st[:, ROLE] == LEADER) & (term == st[:, TERM])
-        can = alive_leader & (st[:, COMMIT] == st[:, LOGLEN]) & (st[:, LOGLEN] < w)
+        # a leader with a failing disk does not propose (its own ack is
+        # a durability promise); the propose timer retries
+        can = (alive_leader & (st[:, COMMIT] == st[:, LOGLEN]) & (st[:, LOGLEN] < w)
+               & ~_eio(ctx))
         value = (ctx.draw.user(_P_VALUE) & 0xFF).to(torch.int32)
         entry = value | (st[:, TERM] << 8)
         ins = can[:, None] & (_jv(st) == st[:, LOGLEN : LOGLEN + 1])
@@ -258,6 +323,11 @@ def make_raftlog(
         _send_appends(ctx, eb, new, term, can)
         eb.after(propose_ns, user_kind(_H_PROPOSE), ctx.node, (term,),
                  when=alive_leader)
+        if sync_en:
+            # the leader's own append fsyncs before it counts its ack
+            eb.sync(when=can)
+        if rec_store and sync_en:
+            eb.record(OP_SYNCED, key=0, arg=st[:, LOGLEN] + 1, when=can)
         return new, eb.build()
 
     def on_retx(ctx):
@@ -272,7 +342,8 @@ def make_raftlog(
         return ctx.state, eb.build()
 
     return Workload(
-        name="raftlog-record" if record else "raftlog",
+        name="raftlog" + ("-nosync" if bug == "nosync" else "")
+        + ("-record" if record else ""),
         n_nodes=n_nodes,
         state_width=width,
         handlers=(
@@ -283,10 +354,17 @@ def make_raftlog(
         max_emits=n_nodes + 2,
         payload_words=w,
         args_words=4,
+        # the Figure-2 columns, under the sync discipline
+        durable_cols=(
+            (TERM, VOTED, LOGLEN) + tuple(LOG0 + j for j in range(w)) if durable else None
+        ),
+        durable_sync=durable,
         # a handful of elections a run, and w commit records plus the
-        # re-commits after leader changes; overflow is loud (hist_drop)
+        # re-commits after leader changes; durable mode adds the length
+        # events and recoveries; overflow is loud (hist_drop)
         history=(
-            HistorySpec(capacity=6 * w + 24, max_records=max(w, 1))
+            HistorySpec(capacity=6 * w + 24 + (n_nodes * (w + 6) if durable else 0),
+                        max_records=max(w, 1))
             if record else None
         ),
         draw_purposes=(_P_TIMEOUT, _P_VALUE)
@@ -299,5 +377,7 @@ def make_raftlog(
             ("propose_ns", propose_ns),
             ("retx_ns", retx_ns),
             ("chaos", chaos),
+            ("durable", durable),
+            ("bug", bug),
         ),
     )

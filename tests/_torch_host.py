@@ -23,12 +23,12 @@ HOST_UNIT = r"""
 namespace {{
 using Model = {cxx};
 constexpr int G = {group};
-template <int E>
+template <int E, bool MET>
 void run_all(const madsim::RunArgs& a, const Model::Params& p) {{
-  auto blk = std::make_unique<madsim::Seed<Model, E>>();
+  auto blk = std::make_unique<madsim::Seed<Model, E, MET>>();
   int64_t most = 0;
   for (int64_t i = 0; i < a.n_seeds; i++) {{
-    const int64_t m = madsim::run_block<Model, E, G>(blk.get(), a, p, i, 1, 0, 1);
+    const int64_t m = madsim::run_block<Model, E, G, MET>(blk.get(), a, p, i, 1, 0, 1);
     most = m > most ? m : most;
   }}
   if (a.tmax != nullptr) *a.tmax = most;
@@ -40,7 +40,8 @@ void drain_all(const madsim::DrainArgs& d) {{
 }}
 }}  // namespace
 extern "C" int host_run(void* const* ptrs, const int64_t* cfg, int64_t n,
-                        int64_t budget, int32_t pool, int32_t stop_at_halt) {{
+                        int64_t budget, int32_t pool, int32_t stop_at_halt,
+                        int32_t metrics) {{
   const madsim::RunArgs a = madsim::run_args(ptrs, cfg, n, budget, stop_at_halt);
   const Model::Params p = Model::params(cfg + madsim::kEngineWords);
   switch (pool) {{
@@ -68,7 +69,8 @@ def build_host_kernel(tmp_dir, spec, pools, group=None):
         pytest.skip("g++ unavailable")
     group = spec.group if group is None else group
     run_cases = "\n".join(
-        f"    case {e}: run_all<{e}>(a, p); return 0;" for e in pools
+        f"    case {e}: metrics ? run_all<{e}, true>(a, p) : run_all<{e}, false>(a, p); "
+        f"return 0;" for e in pools
     )
     drain_cases = "\n".join(f"    case {e}: drain_all<{e}>(d); return 0;" for e in pools)
     src = tmp_dir / f"host_{spec.key}_g{group}.cpp"
@@ -84,7 +86,7 @@ def build_host_kernel(tmp_dir, spec, pools, group=None):
     h = ctypes.CDLL(str(lib))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     h.host_run.restype = ctypes.c_int
-    h.host_run.argtypes = [ctypes.POINTER(ptr), ctypes.POINTER(i64), i64, i64, i32, i32]
+    h.host_run.argtypes = [ctypes.POINTER(ptr), ctypes.POINTER(i64), i64, i64, i32, i32, i32]
     h.host_drain.restype = ctypes.c_int
     h.host_drain.argtypes = [ctypes.POINTER(ptr), i64, i32]
     return h
@@ -93,7 +95,8 @@ def build_host_kernel(tmp_dir, spec, pools, group=None):
 def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None):
     """One run launch of the host build from CPU state ``state`` into
     fresh outputs; returns ``(out, iters, tmax)``. ``words`` defaults
-    to the registered model's config words."""
+    to the registered model's config words; a state with the counter
+    row runs the instantiation with the fleet counters."""
     s, e = state.ev_valid.shape
     out = fused.fresh_outputs(state)
     iters = torch.empty((s,), dtype=torch.int64)
@@ -101,7 +104,8 @@ def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None):
     if words is None:
         words = fused.config_words(wl, cfg)
     ptrs, c = fused.kernel_args(state, out, fused._tables(wl, "cpu"), iters, tmax, words)
-    assert lib.host_run(ptrs, c, s, int(budget), e, int(stop_at_halt)) == 0
+    assert lib.host_run(ptrs, c, s, int(budget), e, int(stop_at_halt),
+                        int(fused.has_metrics(state))) == 0
     return out, iters, tmax
 
 

@@ -146,7 +146,7 @@ def test_refuses_a_time32_checkpoint(tmp_path):
 @pytest.mark.parametrize(
     "field,value,item",
     [("tl_count", np.array([0, 3, 0, 0], np.int32), "A8"),
-     ("disk", np.zeros((4, 2, 6), np.int32), "A8"),
+     ("cov_last", np.zeros((4, 5), np.int32), "A8"),
      ("cov", np.zeros((4, 1), np.uint32), "A8"),
      ("rt_done", np.zeros((4, 1), np.bool_), "A8")],
 )

@@ -24,7 +24,7 @@ from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
 from madsim_tpu_torch.engine.convert import state_to_numpy
 from madsim_tpu_torch.models import (
-    BENCH_SPECS, RECORD_VARIANTS, SOAK_SPECS, make_kvchaos, make_raft,
+    BENCH_SPECS, RECORD_VARIANTS, SOAK_SPECS, make_kvchaos, make_raft, make_raftlog,
 )
 
 from _torch_chaos3 import CHAOS3_MODEL, CHAOS_CFG, chaos3_spec, chaos3_workload
@@ -188,7 +188,18 @@ def test_registry_shapes_equal_the_factories():
     specs = {**BENCH_SPECS, **SOAK_SPECS}
     made = [f() for f, *_ in specs.values()] + [make_kvchaos(payload=True)]
     made += [specs[n][0](**kw) for n, kw in RECORD_VARIANTS.values()]
-    assert sorted(w.name for w in made) == sorted(
+    assert len({w.name for w in made}) == len(made)
+    # raftlog's storage libraries: their variants share their names with
+    # its default and record variants, but for the nosync mutant's
+    store = dict(record=True, chaos=False, durable=True)
+    storage = {
+        "raftlog-durable": make_raftlog(durable=True),
+        "raftlog-durable-record": make_raftlog(**store),
+        "raftlog-nosync-record": make_raftlog(**store, bug="nosync"),
+    }
+    assert all(fused.kernel_model(w).key == key for key, w in storage.items())
+    made += storage.values()
+    assert sorted({w.name for w in made}) == sorted(
         {m.name for m in fused.MODELS.values()})
     for wl in made:
         spec = fused.kernel_model(wl)

@@ -318,10 +318,12 @@ def test_the_registry_refuses_what_it_does_not_build():
                            .make_raftlog(chaos=False))
     plan_libs = {k: m for k, m in fused.MODELS.items() if ("chaos", False) in m.fixed}
     assert sorted(plan_libs) == sorted(HOST_CASES.keys() - {"raft-record"}
-                                       | {"kvchaos-record-nochaos"})
+                                       | {"kvchaos-record-nochaos", "raftlog-durable-record",
+                                          "raftlog-nosync-record"})
     for key, spec in fused.MODELS.items():
         assert key.startswith(spec.name) or (key, spec.name) in (
-            ("raft", "raft-election"), ("raft-record", "raft-election-record"))
+            ("raft", "raft-election"), ("raft-record", "raft-election-record"),
+            ("raftlog-durable-record", "raftlog-record"))
         assert ("#define MADSIM_MODEL" in spec.unit_source()
                 and ("DupRows" in spec.unit_source()) == spec.dup)
         assert not spec.dup or key in plan_libs

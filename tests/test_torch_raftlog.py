@@ -84,8 +84,17 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
     ids=["durable", "nosync", "army", "cov_spread"],
 )
 def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A8"):
-        t_make(**kw)
+    """army and cov_spread still wait for their A8 axes; durable and
+    nosync build (the sync discipline is ported)."""
+    if "durable" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A8"):
+            t_make(**kw)
+        return
+    wl = t_make(**kw)
+    assert wl.durable_sync and wl.name == ("raftlog-nosync" if "bug" in kw else "raftlog")
+    assert wl.durable_cols == j_make(**kw).durable_cols
+    with pytest.raises(ValueError, match="needs durable=True"):
+        t_make(bug=kw.get("bug", "nosync"))
 
 
 def test_record_run_matches_reference_per_field():

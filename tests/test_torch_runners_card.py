@@ -216,3 +216,47 @@ def test_cuda_plan_search_matches_the_cpu():
     rep = search_seeds(wl, cfg, None, n_seeds=1, max_steps=1500, seed_base=bad,
                        history_invariant=lost_write, plan=res.plan, device="cuda")
     assert rep.failing_seeds.tolist() == [bad] and int(rep.traces[0]) == res.trace
+
+
+@pytest.mark.cuda
+def test_cuda_store_search_and_shrink_match_the_cpu():
+    """A storage search on the card: the raftlog nosync mutant under a
+    three-kill crash storm, with metrics, flags the plain step's seeds on
+    the CPU with its traces and counters; the first failing seed's shrink
+    equals the CPU's and replays."""
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan, shrink_plan
+    from madsim_tpu_torch.check import election_safety, recovery_safety
+    from madsim_tpu_torch.models import make_raftlog
+    from madsim_tpu_torch.models.raftlog import OP_COMMIT, OP_ELECT, OP_RECOVER, OP_SYNCED
+
+    _needs_card()
+    plan = FaultPlan((CrashStorm(
+        targets=(0, 1, 2, 3, 4), n=3, t_min_ns=150_000_000, t_max_ns=400_000_000,
+        down_min_ns=50_000_000, down_max_ns=200_000_000),), name="crash3")
+    wl = make_raftlog(record=True, chaos=False, durable=True, bug="nosync")
+    cfg = tcore.EngineConfig(pool_size=128, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    key = "raftlog-nosync-record"
+    assert fused.kernel_model(wl).key == key
+
+    def store(h):
+        return (election_safety(h, elect_op=OP_COMMIT) & election_safety(h, elect_op=OP_ELECT)
+                & recovery_safety(h, sync_op=OP_SYNCED, recover_op=OP_RECOVER))
+
+    kw = dict(max_steps=6000, history_invariant=store, plan=plan, require_halt=False,
+              metrics=True)
+    card, launches = _counts(key, lambda: search_seeds(wl, cfg, None, n_seeds=512,
+                                                       device="cuda", **kw))
+    assert launches == (1, 1)
+    cpu = search_seeds(wl, cfg, None, n_seeds=64, device="cpu", **kw)
+    assert 37 in card.failing_seeds.tolist()
+    np.testing.assert_array_equal(card.traces[:64], cpu.traces)
+    np.testing.assert_array_equal(card.ok[:64], cpu.ok)
+    np.testing.assert_array_equal(card.met[:64], cpu.met)
+    res = shrink_plan(wl, cfg, 37, plan, history_invariant=store, max_steps=6000,
+                      device="cuda")
+    want = shrink_plan(wl, cfg, 37, plan, history_invariant=store, max_steps=6000,
+                       device="cpu")
+    assert (res.events, res.rounds, res.tested, res.trace) == (
+        want.events, want.rounds, want.tested, want.trace)
+    rep = search_seeds(wl, cfg, None, seeds=np.asarray([37], np.uint64), device="cuda", **kw)
+    assert rep.failing_seeds.tolist() == [37] and int(rep.traces[0]) == res.trace

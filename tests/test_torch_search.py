@@ -134,7 +134,8 @@ def test_sweep_returns_the_final_state():
 @pytest.mark.parametrize(
     "option,item",
     [("device_check", "ported"), ("plan", "ported"),
-     ("plan_rows", "ported"), ("dup_rows", "ported"), ("cov_words", "A8"), ("metrics", "A8"),
+     ("plan_rows", "ported"), ("dup_rows", "ported"), ("cov_words", "A8"),
+     ("metrics", "ported"),
      ("timeline_cap", "A8"), ("latency", "A8"), ("causal", "A8"), ("retry", "A8")],
 )
 def test_unported_options_raise_naming_their_item(option, item):
@@ -164,6 +165,10 @@ def test_unported_options_raise_naming_their_item(option, item):
             with pytest.raises(ValueError, match="plan OR plan_rows"):
                 search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
                              device="cpu", plan=plan, plan_rows=plan.compile_batch(np.arange(4)))
+        elif option == "metrics":
+            rep = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                               device="cpu", metrics=True)
+            assert rep.met.shape == (4, tcore.N_METRICS) and (rep.met[:, tcore.MET_RNG] > 0).all()
         else:
             # no plan duplicates anything: the shadow rows change nothing
             on, off = (search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
