@@ -88,7 +88,8 @@ plain eager step:
    under its pause-storm and gray-failure plan; kvchaos-bug and
    kvchaos-record without their own chaos (``writes=10``, pool 192, loss
    0.05, 8,192 seeds) under the crash storm, and kvchaos-record under a
-   plan mixing every fault spec with ``dup_rows``; paxos-record under
+   plan mixing every fault spec with ``dup_rows`` (cap 2,000, where its
+   plain step and CPU sample stop: 3 seeds never halt); paxos-record under
    its proposer crash storm and twophase-record under crash and
    duplication, with ``dup_rows`` and without (the flag set and stored,
    no shadow row sent), all at pool 96 and 8,192 seeds. Each is
@@ -119,8 +120,8 @@ plain eager step:
    card holds the first 2,048 seeds); 38.5 the main path with
    ``metrics=True``, every field but ``met`` equal to the run without,
    its time beside phase 4's; 38.6 phase 36.4's run with
-   ``metrics=True``, every field but ``met`` equal to 36.4's plain run
-   on the card, every field on the first 256 seeds on the CPU, its
+   ``metrics=True`` (its cap), every field but ``met`` equal to 36.4's
+   plain run on the card, every field on the first 256 seeds on the CPU, its
    dup, pause, clog-block and crash counters summed over every seed
    non-zero;
 39. the store soak's certificates at 8,192 seeds on the card, each
@@ -133,10 +134,33 @@ plain eager step:
    nosync mutant caught by committed-value loss, its first failing
    seed shrunk to the pinned events and replayed; 39.5 the EIO storm
    clean with failed syncs on most seeds;
-40. one JSON line describing each kernel, with its launches on every
+40. the main path with every observability tap: raft at 65,536 seeds
+   with ``metrics=True, timeline_cap=256, cov_words=64,
+   cov_hitcount=True``, held as phase 4 (every field, the bitmap, hit
+   counters and ring included, against the plain step on the card and
+   the first 256 seeds on the CPU), every field but the tap columns and
+   ``met`` equal to phase 4's run, the kernel's ms beside phase 4's and
+   each tap alone timed with its shared bytes a block;
+41. coverage searches: the new library raftlog-durable-spread
+   (``cov_spread=True``) held as phases 4-15 at the raftlog bench shape
+   with the taps, then ``search_seeds(cov_words=64, cov_hitcount=True)``
+   at 8,192 seeds on kvchaos-bug without its own chaos under the nemesis
+   plan (phase 37.1's 1,609 catches), leasekv, shardkv and raftlog
+   ``durable`` with ``cov_spread``: each report's bitmaps and traces
+   equal the plain step's on the card for the first 2,048 seeds (a
+   halted seed's bitmap is final), its verdicts and traces those of the
+   search without taps;
+42. forensics: phase 37's first failing seed under its shrunk plan,
+   replayed on the card with ``timeline_cap=4096``: the port's
+   ``obs.decode_timeline`` reads the ring, the rows refold to the pinned
+   trace, nothing dropped, one row per dispatched step, the ring equal
+   to the plain step's on the CPU;
+43. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after), then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
+
+Each group of phases prints its wall seconds as it ends (``[time]``).
 
 Phase 2 also holds the launch shape of each library without recording
 against ``BASE_SHAPES`` (measured on an H100 80GB HBM3), and prints the
@@ -213,6 +237,11 @@ NEMESIS_SEEDS = 8192
 NEMESIS_KV_WRITES = 10
 NEMESIS_KV_KW = dict(pool_size=192, loss_p=0.05)
 NEMESIS_STEPS = 4000
+# the mixed plan's runs (36.4, 38.6) stop at this cap, not the soak's: 3
+# of their seeds never halt, so the plain step on the card and both CPU
+# samples run to the cap (109.6, 69.1 and 57.6 s at 4,000 steps on an
+# NVIDIA H100 80GB HBM3, 700.00 W, and its host: PERF.md)
+MIXED_STEPS = 2000
 # what the JAX package's run of tools/nemesis_soak.py 8192 on the CPU
 # gives: the lost-write catches of the model's own schedule and of the
 # plan; the first failing seed under the plan, its shrink (events kept
@@ -393,7 +422,7 @@ def nemesis_cases() -> tuple:
         ("kvchaos-record-nochaos", make_kvchaos, kv, NEMESIS_KV_KW, NEMESIS_SEEDS, "kv",
          False, NEMESIS_STEPS, True),
         ("kvchaos-record-nochaos-dup", make_kvchaos, kv, NEMESIS_KV_KW, NEMESIS_SEEDS,
-         "mixed", True, NEMESIS_STEPS, False),
+         "mixed", True, MIXED_STEPS, False),
         ("paxos-record-nochaos", make_paxos, dict(record=True, chaos=False),
          dict(pool_size=96, loss_p=0.05), NEMESIS_SEEDS, "paxos", False, NEMESIS_STEPS, True),
         ("twophase-record-nochaos", make_twophase, dict(record=True, chaos=False),
@@ -558,7 +587,8 @@ def entry_phase(device, entry_seeds: int) -> int:
     return max_abs_err(entry_k, entry_p)
 
 
-def plain_reference(wl, cfg, cap: int, st, dup_rows: bool = False, metrics: bool = False):
+def plain_reference(wl, cfg, cap: int, st, dup_rows: bool = False, metrics: bool = False,
+                    taps: dict | None = None):
     """The plain step until every seed has halted, at most ``cap``
     times (the loop of ``make_run_while_plain``), counting on the way
     what the bound needs: the seed-steps taken before each seed halts,
@@ -568,7 +598,7 @@ def plain_reference(wl, cfg, cap: int, st, dup_rows: bool = False, metrics: bool
     Returns ``(state, seed_steps, drops)``."""
     from madsim_tpu_torch.engine import make_step_plain
 
-    step = make_step_plain(wl, cfg, dup_rows, metrics)
+    step = make_step_plain(wl, cfg, dup_rows, metrics, **(taps or {}))
     seed_steps = drops = 0
     i = 0
     while i < cap and not bool(st.halted.all()):
@@ -622,7 +652,7 @@ def drain_check(wl, cfg, cap: int, st, dup_rows: bool = False) -> None:
 
 
 def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
-                cpu_sample: int, repeats: int, extras=None) -> dict:
+                cpu_sample: int, repeats: int, extras=None, refs: dict | None = None) -> dict:
     """One model at its full-width BENCH_SPECS (else SOAK_SPECS) shape,
     through :func:`kernel_phase`."""
     from madsim_tpu_torch.engine import EngineConfig
@@ -631,10 +661,11 @@ def model_phase(device, idx: int, spec_name: str, key: str, factory_kw: dict,
     factory, kw, n_seeds, cap = {**SOAK_SPECS, **BENCH_SPECS}[spec_name]
     log(f"[{idx}] {key}: {kw}, {n_seeds} seeds, make_run_while cap {cap}")
     return kernel_phase(device, key, factory(**factory_kw), EngineConfig(**kw), n_seeds,
-                        cap, cpu_sample, repeats, extras)
+                        cap, cpu_sample, repeats, extras, refs=refs)
 
 
-def plain_head(wl, cfg, n_steps: int, st, dup_rows: bool = False, metrics: bool = False):
+def plain_head(wl, cfg, n_steps: int, st, dup_rows: bool = False, metrics: bool = False,
+               taps: dict | None = None):
     """``make_run_plain(n_steps)`` of ``st`` by a cheaper road with the
     same result: the plain step until every seed has halted (at most
     ``n_steps`` times), then ``drain_plain`` for the rest, which is what
@@ -643,7 +674,7 @@ def plain_head(wl, cfg, n_steps: int, st, dup_rows: bool = False, metrics: bool 
     seed-steps, drops)`` of the stepped part, as :func:`plain_reference`."""
     from madsim_tpu_torch.engine.fused import drain_plain
 
-    out, seed_steps, drops = plain_reference(wl, cfg, n_steps, st, dup_rows, metrics)
+    out, seed_steps, drops = plain_reference(wl, cfg, n_steps, st, dup_rows, metrics, taps)
     taken = int((out.step - st.step)[0]) if st.step.numel() else 0
     if taken < n_steps:
         step, valid = drain_plain(out.step, out.ev_valid, out.ev_time,
@@ -661,7 +692,8 @@ def head_of(st, k: int):
 def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: int,
                  repeats: int, extras=None, plan=None, dup_rows: bool = False,
                  all_halt: bool = True, refs: dict | None = None, metrics: bool = False,
-                 plain_seeds: int | None = None, reuse: tuple | None = None) -> dict:
+                 plain_seeds: int | None = None, reuse: tuple | None = None,
+                 taps: dict | None = None) -> dict:
     """One library at a full-width shape: the main path through the
     kernel with the launch counts read around it, the checks, every
     field against the plain step (on the device, run and timed once, and
@@ -676,25 +708,29 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
     the card of the same seeds without metrics: every field but ``met``
     is held against it, the plain step is not run again on the card,
     and the CPU sample, which holds every field, gives the plain ms.
+    ``taps`` (``cov_words``, ``cov_hitcount``, ``timeline_cap``) runs the
+    coverage taps and the timeline ring on every side.
     ``extras(device, wl, cfg, cap, st, out, ms)`` adds a model's own
     checks and timings, given the kernel's median."""
     from madsim_tpu_torch.engine import make_init, make_run_plain, make_run_while
     from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
 
     seeds = np.arange(n_seeds, dtype=np.uint64)
+    taps = taps or {}
     if plan is None:
-        init = make_init(wl, cfg, device=device, metrics=metrics)
+        init = make_init(wl, cfg, device=device, metrics=metrics, **taps)
         st = init(seeds)
     else:
         t = time.perf_counter()
         rows = plan.compile_batch(seeds, wl=wl)
         compile_ms = (time.perf_counter() - t) * 1e3
-        init = make_init(wl, cfg, device=device, plan_slots=plan.slots, metrics=metrics)
+        init = make_init(wl, cfg, device=device, plan_slots=plan.slots, metrics=metrics,
+                         **taps)
         st = init(seeds, rows)
         log(f"  plan {plan.name} ({plan.hash()}): {plan.slots} slots, "
             f"{int(rows.valid.sum())} events over {n_seeds} seeds, compiled in "
             f"{compile_ms:.2f} ms (host); dup_rows {dup_rows}")
-    run = make_run_while(wl, cfg, cap, dup_rows=dup_rows, metrics=metrics)
+    run = make_run_while(wl, cfg, cap, dup_rows=dup_rows, metrics=metrics, **taps)
     if device.type == "cuda":
         torch.cuda.synchronize()
     KERNEL.reset()
@@ -728,8 +764,8 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
     if reuse is None:
         got = []
         plain_ms = time_ms(lambda: got.append(
-            plain_reference(wl, cfg, cap, st, dup_rows, metrics) if ks == n_seeds
-            else plain_head(wl, cfg, n_steps, head_of(st, ks), dup_rows, metrics)),
+            plain_reference(wl, cfg, cap, st, dup_rows, metrics, taps) if ks == n_seeds
+            else plain_head(wl, cfg, n_steps, head_of(st, ks), dup_rows, metrics, taps)),
             1, device)[0]
         ref, seed_steps, drops = got[0]
         what = "make_run_while (kernel) vs plain on the card"
@@ -760,7 +796,8 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
         log("  drain kernel alone vs its plain version: step and ev_valid equal")
     k = min(cpu_sample, n_seeds)
     t = time.perf_counter()
-    cpu_ref = make_run_plain(wl, cfg, n_steps, dup_rows, metrics)(head_of(st, k).to("cpu"))
+    cpu_ref = make_run_plain(wl, cfg, n_steps, dup_rows, metrics, **taps)(
+        head_of(st, k).to("cpu"))
     cpu_ms = (time.perf_counter() - t) * 1e3
     head = head_of(out, k)
     assert_equal(head, cpu_ref, f"first {k} seeds (kernel) vs plain on the CPU")
@@ -1466,9 +1503,11 @@ def flagged_by_plain(ref, inv) -> np.ndarray:
     return np.nonzero(~ok & ~over)[0].astype(np.uint64)
 
 
-def nemesis_phase(device, refs: dict, paths: dict, extra: dict) -> None:
+def nemesis_phase(device, refs: dict, paths: dict, extra: dict) -> tuple:
     """Phase 37: the nemesis certificates 1-3 and 5-7 on the card, the
-    counts and the shrunk repro pinned from the JAX package's soak."""
+    counts and the shrunk repro pinned from the JAX package's soak.
+    Returns ``(workload, config, first failing seed, shrunk plan, the
+    plan's catches)`` for the forensics phase."""
     from madsim_tpu_torch.chaos import shrink_plan
     from madsim_tpu_torch.check import election_safety
     from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while_plain, search_seeds
@@ -1588,6 +1627,7 @@ def nemesis_phase(device, refs: dict, paths: dict, extra: dict) -> None:
     extra.setdefault("kvchaos-bug-nochaos", {}).update(
         shrink_ms=shrink_ms, shrink_rounds=res.rounds,
         **{f"nemesis_{k}_search_ms": statistics.median(v) for k, v in timing.items()})
+    return wl_n, kv_cfg, first, res.plan, caught_n
 
 
 def store_search(device, paths: dict, name: str, wl, cfg, plan, cap: int, inv, n: int,
@@ -1741,10 +1781,10 @@ def store_kernel_phases(device, results: list, paths: dict, extra: dict, card: s
     key = "kvchaos-record-nochaos-dup"
     r36 = next(r for _k, name, _s, r in results if name == f"make_run_fused/{key}/plan-mixed")
     kv = dict(writes=NEMESIS_KV_WRITES, record=True, chaos=False)
-    log(f"[38.6] {key}: {NEMESIS_KV_KW}, {NEMESIS_SEEDS} seeds, cap {NEMESIS_STEPS}, the "
+    log(f"[38.6] {key}: {NEMESIS_KV_KW}, {NEMESIS_SEEDS} seeds, cap {MIXED_STEPS}, the "
         f"mixed plan, dup_rows, metrics; held against phase 36.4's plain run on the card")
     r, _ref = held("mixed", key, make_kvchaos(**kv), EngineConfig(**NEMESIS_KV_KW),
-                   NEMESIS_SEEDS, NEMESIS_STEPS, metrics=True, plan=nemesis_plans()["mixed"],
+                   NEMESIS_SEEDS, MIXED_STEPS, metrics=True, plan=nemesis_plans()["mixed"],
                    dup=True, all_halt=False,
                    reuse=(plan_refs[key], r36["seed_steps"], r36["drops"]))
     totals = r["met_total"]
@@ -1884,6 +1924,239 @@ def store_certificates(device, refs: dict, paths: dict, extra: dict) -> None:
     extra.setdefault(bug_key, {}).update(store_nosync_search_ms=timing["nosync"],
                                          shrink_ms=shrink_ms, shrink_rounds=res.rounds)
 
+# the observability phases (40-42): every tap on the main path, the
+# coverage searches' widths, the plain step's seeds of their card
+# references, and the forensics ring's capacity
+OBS_TAPS = dict(cov_words=64, cov_hitcount=True, timeline_cap=256)
+COV_TAPS = dict(cov_words=64, cov_hitcount=True)
+COV_SEEDS, COV_PLAIN_SEEDS = 8192, 2048
+FORENSICS_CAP = 4096
+
+
+def obs_main_path_phase(device, results: list, paths: dict, extra: dict, card: str,
+                        ms_of: dict, phase4) -> None:
+    """Phase 40: the main path with every tap (``metrics``,
+    ``timeline_cap``, ``cov_words``, ``cov_hitcount``), held as phase 4
+    (every field, the new columns included, against the plain step on
+    the card and on the CPU sample); every field but the derived ones
+    equal to phase 4's run, the kernel's ms beside phase 4's."""
+    from madsim_tpu_torch.engine import OBS_FIELDS, STATE_FIELDS, make_init, make_run_while
+    from madsim_tpu_torch.engine.convert import field_to_numpy
+    from madsim_tpu_torch.engine.fused import KERNEL, kernel_model
+
+    wl, cfg, n, cap = spec_of("raft", {})
+    log(f"[40] raft with metrics and {OBS_TAPS}: {n} seeds, make_run_while cap {cap}")
+    box = {}
+    r = kernel_phase(device, "raft", wl, cfg, n, cap, CPU_SAMPLE, REPEATS, refs=box,
+                     metrics=True, taps=OBS_TAPS)
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"raft with taps: launches {r['launches']}, {r['drains']}; "
+                             f"error {r['err']}")
+    out = box["raft"]
+    bad = [f for f in STATE_FIELDS if f not in (*OBS_FIELDS, "met")
+           and not torch.equal(getattr(out, f), getattr(phase4, f))]
+    if bad:
+        raise AssertionError(f"raft: the taps changed {bad}")
+    if int(out.tl_drop.sum()) or not bool((out.tl_count > 0).all()) or not bool(
+            out.cov.any(1).all()):
+        raise AssertionError("raft with taps: a ring dropped rows, or a seed has no coverage")
+    fleet = np.bitwise_or.reduce(field_to_numpy("cov", out.cov), axis=0)
+    results.append(("raft", "make_run_fused/obs",
+                    f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+    paths["raft"]["run_while_obs"] = [r["launches"], r["drains"]]
+    extra.setdefault("raft", {}).update(obs_ms=r["ms"], obs_ms_all=r["ms_all"])
+    log(f"  every field but the tap columns and met equals phase 4's run; rings hold "
+        f"{int(out.tl_count.sum())} rows (at most {int(out.tl_count.max())} a seed), none "
+        f"dropped; {int(out.cov_hits.to(torch.int64).sum())} tap hits, "
+        f"{int(np.unpackbits(fleet.view(np.uint8)).sum())} of {64 * 32} bits set fleet-wide")
+    log(f"  kernel median {r['ms']:.4f} ms with every tap beside {ms_of['raft']:.4f} ms "
+        f"without (phase 4, this call, {card})")
+    # each tap alone, timed only (the run above holds them together),
+    # and the shared memory a block takes with them
+    occ = KERNEL.occupancy(kernel_model(wl), cfg.pool_size)
+    seed_bytes = occ["run_smem_bytes"] // occ["seeds_per_block"]
+    seeds = np.arange(n, dtype=np.uint64)
+    for label, taps in (("cov", dict(cov_words=64)),
+                        ("cov_hits", dict(cov_words=64, cov_hitcount=True)),
+                        ("ring", dict(timeline_cap=256)), ("all", OBS_TAPS)):
+        st = make_init(wl, cfg, device=device, **taps)(seeds)
+        run = make_run_while(wl, cfg, cap, **taps)
+        ms = time_ms(lambda: run(st), REPEATS, device)
+        tail = obs_tail_bytes(wl.n_nodes, cfg.pool_size, **taps)
+        block = occ["seeds_per_block"] * ((seed_bytes + 15) // 16 * 16 + tail)
+        extra["raft"][f"obs_{label}_ms"] = statistics.median(ms)
+        log(f"  {taps}: kernel ms {spread(ms)}; {tail} B of taps a seed, {block} B shared "
+            f"a block (without: {occ['run_smem_bytes']})")
+
+
+def obs_tail_bytes(n_nodes: int, pool: int, cov_words: int = 0, cov_hitcount: bool = False,
+                   timeline_cap: int = 0) -> int:
+    """A seed's shared bytes for the taps (csrc/engine_step.cuh
+    ``obs_layout``): with the ring the pool's emit times and its two
+    counters, with coverage the bitmap, the nodes' last kinds and the hit
+    counters; rounded up to 16."""
+    b = (pool * 8 + 8 if timeline_cap else 0) + (
+        cov_words * 4 + n_nodes * 4 + (cov_words * 32 if cov_hitcount else 0)
+        if cov_words else 0)
+    return (b + 15) // 16 * 16
+
+
+def coverage_phase(device, results: list, paths: dict, extra: dict, repro: tuple) -> None:
+    """Phase 41: ``search_seeds`` with coverage (``COV_TAPS``) at 8,192
+    seeds on four libraries: kvchaos-bug without its own chaos under the
+    nemesis plan (phase 37's catches), leasekv and shardkv with their
+    hooks, raftlog ``durable=True, cov_spread=True``; each report's
+    bitmaps equal the plain step's on the card (its first 2,048 seeds,
+    which are frozen once a seed halts), its verdicts and traces those
+    of the search without the taps. The new library also runs as phases
+    4-15 at the raftlog bench shape with the taps."""
+    from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while_plain, search_seeds
+    from madsim_tpu_torch.engine.convert import field_to_numpy
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import BENCH_SPECS, SOAK_SPECS, make_leasekv, make_raftlog
+    from madsim_tpu_torch.models import make_shardkv
+
+    wl_n, kv_cfg, _first, _plan, caught = repro
+    plans = nemesis_plans()
+    _f, lease_kw, _n, lease_cap = SOAK_SPECS["leasekv"]
+    _f, shard_kw, _n, shard_cap = SOAK_SPECS["shardkv"]
+    _f, rlog_kw, rlog_n, rlog_cap = BENCH_SPECS["raftlog"]
+    spread_wl = make_raftlog(durable=True, cov_spread=True)
+    key = "raftlog-durable-spread"
+    log(f"[41.0] {key}: {rlog_kw}, {rlog_n} seeds, make_run_while cap {rlog_cap}, {COV_TAPS}")
+    r = kernel_phase(device, key, spread_wl, EngineConfig(**rlog_kw), rlog_n, rlog_cap,
+                     CPU_SAMPLE, REPEATS, taps=COV_TAPS)
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
+    results.append((key, f"make_run_fused/{key}/cov",
+                    f"madsim_tpu_torch/csrc/{kernel_model(spread_wl).header}", r))
+    paths[key] = {"run_while_cov": [r["launches"], r["drains"]]}
+    seeds = np.arange(COV_SEEDS, dtype=np.uint64)
+    cases = (
+        ("41.1", wl_n, kv_cfg, plans["kv"], NEMESIS_STEPS),
+        ("41.2", make_leasekv(), EngineConfig(**lease_kw), None, lease_cap),
+        ("41.3", make_shardkv(), EngineConfig(**shard_kw), None, shard_cap),
+        ("41.4", spread_wl, EngineConfig(**rlog_kw), None, rlog_cap),
+    )
+    for num, wl, cfg, plan, cap in cases:
+        key = kernel_model(wl).key
+        hist = lost_write_inv({}) if plan is not None else None
+        inv = None if hist is not None else (lambda v: np.ones(COV_SEEDS, bool))
+        kw = dict(n_seeds=COV_SEEDS, max_steps=cap, plan=plan, device=device,
+                  history_invariant=hist, require_halt=hist is not None)
+
+        def go(taps, kw=kw, wl=wl, cfg=cfg, inv=inv):
+            return search_seeds(wl, cfg, inv, **kw, **taps)
+
+        t = time.perf_counter()
+        rep, counts = path_launches(lambda: go(COV_TAPS))
+        ms = (time.perf_counter() - t) * 1e3
+        if run_drain(counts, key) != [1, 1] or len(counts) != 2:
+            raise AssertionError(f"{num} {key}: launched {counts}")
+        paths.setdefault(key, {})["search_cov"] = run_drain(counts, key)
+        off = go({})
+        for attr in ("ok", "overflowed", "halted", "traces"):
+            if not np.array_equal(getattr(rep, attr), getattr(off, attr)):
+                raise AssertionError(f"{num} {key}: the taps changed {attr}")
+        if plan is not None and not np.array_equal(rep.failing_seeds, caught):
+            raise AssertionError(f"{num}: {rep.failing_seeds.size} catches, phase 37.1 "
+                                 f"{caught.size}")
+        head = seeds[:COV_PLAIN_SEEDS]
+        init = make_init(wl, cfg, device=device, plan_slots=plan.slots if plan else 0,
+                         **COV_TAPS)
+        st = init(head, plan.compile_batch(head, wl=wl)) if plan else init(head)
+        t = time.perf_counter()
+        ref = make_run_while_plain(wl, cfg, cap, **COV_TAPS)(st)
+        plain_s = time.perf_counter() - t
+        want_cov = field_to_numpy("cov", ref.cov)
+        if not np.array_equal(rep.cov[:COV_PLAIN_SEEDS], want_cov):
+            raise AssertionError(f"{num} {key}: the bitmaps differ from the plain step's")
+        if not np.array_equal(rep.traces[:COV_PLAIN_SEEDS], field_to_numpy("trace", ref.trace)):
+            raise AssertionError(f"{num} {key}: the traces differ from the plain step's")
+        fleet = np.bitwise_or.reduce(rep.cov, axis=0)
+        per_seed = np.unpackbits(rep.cov.view(np.uint8), axis=1).sum(1)
+        extra.setdefault(key, {})["cov_search_ms"] = ms
+        log(f"[{num}] {key}: search_seeds({COV_TAPS}), {COV_SEEDS} seeds, cap {cap}"
+            + (f", plan {plan.name}" if plan else "") + f": launches {counts}; "
+            f"{rep.failing_seeds.size} failing, the verdicts and traces of the search "
+            f"without taps; bitmaps of the first {COV_PLAIN_SEEDS} seeds equal the plain "
+            f"step's on the card ({plain_s:.1f} s); {int(np.unpackbits(fleet.view(np.uint8)).sum())} "
+            f"of {64 * 32} bits set fleet-wide, {int(per_seed.min())}-{int(per_seed.max())} a "
+            f"seed; search {ms:.1f} ms (host clock)")
+
+
+def dispatched_run(wl, cfg, st, cap: int, timeline_cap: int) -> tuple:
+    """``make_run_while_plain`` of one seed with the timeline ring, also
+    counting the steps that dispatch an event (fold the trace): ``(final
+    state, dispatched steps)``."""
+    from madsim_tpu_torch.engine import make_step_plain
+
+    step, n, i = make_step_plain(wl, cfg, timeline_cap=timeline_cap), 0, 0
+    while i < cap and not bool(st.halted.all()):
+        nxt = step(st)
+        n += int((nxt.trace != st.trace).sum())
+        st, i = nxt, i + 1
+    return st, n
+
+
+def forensics_phase(device, paths: dict, repro: tuple) -> None:
+    """Phase 42: phase 37's first failing seed under its shrunk plan,
+    replayed on the card with the timeline ring (``FORENSICS_CAP``): the
+    port's decoder reads the ring, the rows refold to the trace, the ring
+    dropped nothing and holds one row per dispatched step, and its
+    columns equal the plain step's on the CPU."""
+    from madsim_tpu_torch.engine import TIMELINE_FIELDS, format_timeline, make_init, search_seeds
+    from madsim_tpu_torch.engine.convert import field_to_numpy
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.obs import decode_timeline, refold_timeline
+
+    wl, cfg, first, plan, _caught = repro
+    key = kernel_model(wl).key
+    rep, counts = path_launches(lambda: search_seeds(
+        wl, cfg, None, n_seeds=1, max_steps=NEMESIS_STEPS, seed_base=first,
+        history_invariant=lost_write_inv({}), plan=plan, timeline_cap=FORENSICS_CAP,
+        device=device))
+    paths[key]["forensics"] = run_drain(counts, key)
+    events = decode_timeline(rep.timeline, wl, 0)
+    trace = int(rep.traces[0])
+    if rep.failing_seeds.tolist() != [first] or trace != NEMESIS_SHRUNK["trace"]:
+        raise AssertionError(f"42: seed {first} under the shrunk plan: {rep.banner()}")
+    if refold_timeline(events, wl) != trace:
+        raise AssertionError("42: the decoded ring does not refold to the trace")
+    seeds = np.array([first], np.uint64)
+    st = make_init(wl, cfg, device="cpu", plan_slots=plan.slots, timeline_cap=FORENSICS_CAP)(
+        seeds, plan.compile_batch(seeds, wl=wl))
+    ref, n_disp = dispatched_run(wl, cfg, st, NEMESIS_STEPS, FORENSICS_CAP)
+    tl_count, tl_drop = int(rep.timeline.tl_count[0]), int(rep.timeline.tl_drop[0])
+    if tl_drop or tl_count != n_disp or len(events) != tl_count:
+        raise AssertionError(f"42: ring holds {tl_count} rows ({tl_drop} dropped), "
+                             f"decoded {len(events)}, the run dispatched {n_disp}")
+    for f in TIMELINE_FIELDS:
+        if not np.array_equal(getattr(rep.timeline, f), field_to_numpy(f, getattr(ref, f))):
+            raise AssertionError(f"42: ring column {f} differs from the plain step's")
+    msgs = [e for e in events if e.src >= 0]
+    log(f"[42] seed {first} under {plan.name} ({plan.hash()}), timeline_cap {FORENSICS_CAP}: "
+        f"launches {counts}; {tl_count} rows, one per dispatched step, none dropped; the "
+        f"ring equals the plain step's on the CPU; the decoded rows refold to the trace "
+        f"{trace:#018x}; {len(msgs)} messages, each emitted "
+        f"{statistics.median(e.time_ns - e.emit_ns for e in msgs) / 1e6:.3f} ms (median) "
+        f"before its dispatch")
+    log("  " + format_timeline(events[-4:], wl=wl).replace("\n", "\n  "))
+
+
+class Laps:
+    """Per-phase wall seconds, printed as each phase ends."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.laps = {}
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.laps[label] = now - self.last
+        log(f"[time] {label}: {now - self.last:.1f} s (run so far {now - self.start:.1f} s)")
+        self.last = now
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1903,6 +2176,10 @@ def main() -> int:
     from madsim_tpu_torch.engine.fused import MODELS, build_libraries
 
     device = torch.device("cuda")
+    # the CPU samples step small batches of a few hundred seeds, where
+    # each op is too small for the intra-op thread pool to pay
+    torch.set_num_threads(1)
+    lap = Laps()
     card = nvidia_smi("name,power.limit")
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1917,14 +2194,16 @@ def main() -> int:
                 log(f"    {line.strip()}")
         for pool in MODELS[key].pools:
             log(f"    pool {pool}: {launch_shape(MODELS[key], pool, card)}")
+    lap("phases 1-2")
 
     clock = max_sm_clock_hz()
     entry_err = entry_phase(device, ENTRY_SEEDS)
-    results = []
+    results, phase4 = [], {}
     for i, (spec_name, key, factory_kw) in enumerate(MODEL_PHASES):
         raft = key == "raft"
         r = model_phase(device, 4 + i, spec_name, key, factory_kw, CPU_SAMPLE,
-                        REPEATS, extras=raft_extras if raft else None)
+                        REPEATS, extras=raft_extras if raft else None,
+                        refs=phase4 if raft else None)
         if raft:
             r["err"] = max(r["err"], entry_err)
         name = "make_run_fused" if raft else f"make_run_fused/{key}"
@@ -1938,11 +2217,13 @@ def main() -> int:
     # it and read just after
     paths = {key: {"run_while": [r["launches"], r["drains"]]} for key, _n, _s, r in results}
     extra = {}
+    lap("phases 3-15")
     compacted_phase(device, paths, extra)
     search_phase(device, paths)
     measure_phase(device, paths)
     verify_phase(device, paths)
     checkpoint_phase(device, paths)
+    lap("phases 16-20")
     # the record libraries, after the runner phases, each timed beside
     # its family's library without recording
     ms_of = {key: r["ms"] for key, _n, _s, r in results}
@@ -1965,15 +2246,27 @@ def main() -> int:
         phase, base = sibling[spec_name]
         log(f"  {key} kernel median {r['ms']:.4f} ms beside {base} {ms_of[base]:.4f} ms "
             f"(phase {phase}, this call, {card})")
+    lap("phases 21-30, 33")
     hunted = history_search_phase(device, paths)
     record_checkpoint_phase(device, paths)
     device_check_phase(device, paths, hunted)
     main_path_screen_phase(device, paths, extra)
+    lap("phases 31-32, 34-35")
     refs = plan_phases(device, results, paths, extra, card)
-    nemesis_phase(device, refs, paths, extra)
+    lap("phase 36")
+    repro = nemesis_phase(device, refs, paths, extra)
     raft_nemesis_phase(device, paths, extra)
+    lap("phase 37")
     store_refs = store_kernel_phases(device, results, paths, extra, card, ms_of, refs)
+    lap("phase 38")
     store_certificates(device, store_refs, paths, extra)
+    lap("phase 39")
+    obs_main_path_phase(device, results, paths, extra, card, ms_of, phase4["raft"])
+    lap("phase 40")
+    coverage_phase(device, results, paths, extra, repro)
+    lap("phase 41")
+    forensics_phase(device, paths, repro)
+    lap("phase 42")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}))
         for key, name, src, r in results

@@ -12,6 +12,7 @@ against the JAX package bit for bit.
   run kernel (``engine/fused.py``, sources under ``csrc/``).
 * ``models`` — the ported workloads (the ``BENCH_SPECS`` and
   ``SOAK_SPECS`` models).
+* ``obs`` — the timeline ring's decoder.
 """
 
-from . import engine, models  # noqa: F401
+from . import engine, models, obs  # noqa: F401

@@ -99,6 +99,25 @@
 // ballots in place_emits, the rest are the leader's, and the halt code
 // records how the seed stopped (HALT_IDLE on the step that finds its
 // pool empty). Nothing in them feeds back into the trajectory.
+//
+// Coverage and the timeline ring. A run kernel instantiated with OBS =
+// true carries the observability taps, at runtime widths (engine config
+// words 9-11, from the state's columns): cov_words CW, hit counts on or
+// off, and the ring's capacity T; with OBS = false every tap line
+// compiles away. Each
+// seed's observability state sits behind its Seed in shared memory, a
+// tail sized at launch (SeedObs): with the ring, the pool rows' emit
+// times (ev_emit, written where placement fills a slot) and the ring's
+// two counters; with coverage, the CW-word bitmap, each node's last user
+// kind and, with hit counts, a saturating byte per bit position. The
+// leader folds a dispatch's features in the reference's order (the
+// kind transition or the engine kind by time phase, the message edge,
+// the user kind by phase, each history record, the model's own features
+// of a CovOf<M> trait, then the node's last kind), so a second tap on a
+// bit position sees the first one's count. The ring's rows go straight
+// to the seed's rows of the output, as history records do, after the
+// block has copied the input's rows there. With every width 0 the tail
+// is empty.
 #pragma once
 
 #include <stdint.h>
@@ -156,8 +175,9 @@ constexpr int32_t OP_WRITE = 1, OP_READ = 2, OP_USER = 16;
 constexpr uint64_t kTracePrime = 0x100000001B3ull;
 constexpr uint64_t kTraceMix = 0x9E3779B97F4A7C15ull;
 
-// the engine's words in front of the model's in the config array
-constexpr int kEngineWords = 9;
+// the engine's words in front of the model's in the config array: the
+// config's nine, then the run's three observability widths
+constexpr int kEngineWords = 12;
 
 // EngineConfig resolved on the host: spans are the uint32 modulo spans
 // (0 already mapped to 1) and time_limit is 2^62 when the config has none
@@ -170,6 +190,9 @@ struct EngineConfig {
   int64_t backoff_min, backoff_max;
   int64_t time_limit;
   int32_t hist_cap;  // HistorySpec.capacity (0: no recording)
+  int32_t cov_words;  // coverage bitmap words (0: no coverage taps)
+  bool cov_hitcount;  // the hit counters (needs cov_words > 0)
+  int32_t tl_cap;     // timeline ring rows (0: no ring)
 };
 
 // uint32 span of a [lo, hi) draw, as Draw._reduce: 0 draws from span 1
@@ -179,7 +202,8 @@ MADSIM_HDI uint32_t draw_span(int64_t lo, int64_t hi) {
 }
 
 // c: lat_min, lat_max, loss_u32, proc_min, proc_max, backoff_min,
-//    backoff_max, time_limit_ns (0 = none), history capacity
+//    backoff_max, time_limit_ns (0 = none), history capacity, then the
+//    coverage words, the hit-count flag and the ring capacity
 inline EngineConfig engine_config(const int64_t* c) {
   EngineConfig e;
   e.lat_min = c[0];
@@ -191,13 +215,18 @@ inline EngineConfig engine_config(const int64_t* c) {
   e.backoff_max = c[6];
   e.time_limit = c[7] ? c[7] : kInfNs;
   e.hist_cap = static_cast<int32_t>(c[8]);
+  e.cov_words = static_cast<int32_t>(c[9]);
+  e.cov_hitcount = c[10] != 0;
+  e.tl_cap = static_cast<int32_t>(c[11]);
   return e;
 }
 // One pointer per SimState field the kernel touches (the port's torch
 // layout: seed-major, contiguous), in engine/fused.py KERNEL_FIELDS
 // order. The output side has no seed (the kernel never writes it),
 // ev_pay only when W > 0, the history columns only when R > 0, the
-// storage columns only for a SYNC model and met only with metrics.
+// storage columns only for a SYNC model, met only with metrics, the
+// coverage columns only with coverage and the ring's (with ev_emit) only
+// with a ring.
 struct Fields {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
@@ -231,9 +260,20 @@ struct Fields {
   uint8_t* sync_eio;   // (S,N)
   uint8_t* torn;       // (S,N)
   int32_t* met;        // (S,N_METRICS) with metrics
+  int64_t* cov;        // (S,CW) uint32 values
+  int32_t* cov_last;   // (S,N) with coverage
+  uint8_t* cov_hits;   // (S,CW*32) with hit counts
+  int32_t* tl_count;   // (S,)
+  int32_t* tl_drop;    // (S,)
+  int64_t* tl_t;       // (S,T)
+  int64_t* tl_meta;    // (S,T) uint32 values
+  int32_t* tl_args;    // (S,T,A)
+  int32_t* tl_pay;     // (S,T,W)
+  int64_t* tl_emit;    // (S,T)
+  int64_t* ev_emit;    // (S,E) with a ring
 };
 
-constexpr int kFieldPointers = 32;
+constexpr int kFieldPointers = 43;
 
 inline Fields fields(void* const* p) {
   Fields f;
@@ -269,6 +309,17 @@ inline Fields fields(void* const* p) {
   f.sync_eio = static_cast<uint8_t*>(p[29]);
   f.torn = static_cast<uint8_t*>(p[30]);
   f.met = static_cast<int32_t*>(p[31]);
+  f.cov = static_cast<int64_t*>(p[32]);
+  f.cov_last = static_cast<int32_t*>(p[33]);
+  f.cov_hits = static_cast<uint8_t*>(p[34]);
+  f.tl_count = static_cast<int32_t*>(p[35]);
+  f.tl_drop = static_cast<int32_t*>(p[36]);
+  f.tl_t = static_cast<int64_t*>(p[37]);
+  f.tl_meta = static_cast<int64_t*>(p[38]);
+  f.tl_args = static_cast<int32_t*>(p[39]);
+  f.tl_pay = static_cast<int32_t*>(p[40]);
+  f.tl_emit = static_cast<int64_t*>(p[41]);
+  f.ev_emit = static_cast<int64_t*>(p[42]);
   return f;
 }
 
@@ -453,6 +504,124 @@ struct HistOut {
 template <>
 struct HistOut<0> {};
 
+// A model's own coverage features (Workload.cov_features): a trait with
+//   static constexpr int NCOV;  // features a dispatch (0: none)
+//   static void cov_features(const int32_t* node_state, uint32_t* feats);
+// reads the fleet's state after a user dispatch; the engine hashes each
+// feature's low 24 bits under tag 6. CovOf<M>::n is 0 for a model
+// without the trait.
+template <class M, class = void>
+struct CovOf {
+  static constexpr int n = 0;
+};
+template <class M>
+struct CovOf<M, std::void_t<decltype(M::NCOV)>> {
+  static constexpr int n = M::NCOV;
+};
+
+// One seed's observability state: pointers into its shared tail (null
+// where the tap is off) and to its rows of the output ring.
+struct SeedObs {
+  int64_t* ev_emit;   // (E,) each pool row's emit clock
+  int32_t* tl;        // [tl_count, tl_drop]
+  uint32_t* cov;      // (CW,) the bitmap
+  int32_t* cov_last;  // (N,) each node's last user kind
+  uint8_t* hits;      // (CW*32,) the hit counters
+  int64_t* ring_t;
+  int64_t* ring_meta;
+  int32_t* ring_args;
+  int32_t* ring_pay;
+  int64_t* ring_emit;
+  int32_t cw, tl_cap;
+  bool hc;
+};
+
+// where the pieces of the tail start, in bytes (-1: absent), and its
+// size, a multiple of 16 (0 when every tap is off)
+struct ObsLayout {
+  int32_t ev_emit, tl, cov, cov_last, hits, bytes;
+};
+
+template <int N, int E>
+MADSIM_HDI ObsLayout obs_layout(const EngineConfig& c) {
+  ObsLayout l{-1, -1, -1, -1, -1, 0};
+  int32_t b = 0;
+  if (c.tl_cap > 0) {
+    l.ev_emit = b;
+    b += E * 8;
+    l.tl = b;
+    b += 8;
+  }
+  if (c.cov_words > 0) {
+    l.cov = b;
+    b += c.cov_words * 4;
+    l.cov_last = b;
+    b += N * 4;
+    if (c.cov_hitcount) {
+      l.hits = b;
+      b += c.cov_words * 32;
+    }
+  }
+  l.bytes = (b + 15) / 16 * 16;
+  return l;
+}
+
+// A block's seeds in shared memory (or one seed's on the host): with
+// OBS, seed b's Seed at base + b * stride and its observability tail
+// `head` bytes into its slot; without, a plain array of Seed.
+template <class S, bool OBS>
+struct SeedBlock {
+  unsigned char* base;
+  size_t stride, head;
+  ObsLayout lay;
+  EngineConfig cfg;
+
+  MADSIM_HDI S& operator[](int b) const {
+    if constexpr (OBS) {
+      return *reinterpret_cast<S*>(base + static_cast<size_t>(b) * stride);
+    } else {
+      return reinterpret_cast<S*>(base)[b];
+    }
+  }
+  template <class T>
+  MADSIM_HDI T* at(int b, int32_t off) const {
+    return off < 0 ? nullptr
+                   : reinterpret_cast<T*>(base + static_cast<size_t>(b) * stride + head + off);
+  }
+  MADSIM_HDI SeedObs obs(int b) const {
+    SeedObs o{};
+    o.ev_emit = at<int64_t>(b, lay.ev_emit);
+    o.tl = at<int32_t>(b, lay.tl);
+    o.cov = at<uint32_t>(b, lay.cov);
+    o.cov_last = at<int32_t>(b, lay.cov_last);
+    o.hits = at<uint8_t>(b, lay.hits);
+    o.cw = cfg.cov_words;
+    o.tl_cap = cfg.tl_cap;
+    o.hc = cfg.cov_hitcount;
+    return o;
+  }
+};
+
+// bytes a seed takes in shared memory under the run's taps
+template <class S, int N, int E>
+MADSIM_HDI size_t seed_stride(const EngineConfig& c) {
+  const int32_t ob = obs_layout<N, E>(c).bytes;
+  return ob ? (sizeof(S) + 15) / 16 * 16 + ob : sizeof(S);
+}
+
+template <class S, int N, int E, bool OBS>
+MADSIM_HDI SeedBlock<S, OBS> seed_block(unsigned char* base, const EngineConfig& c) {
+  SeedBlock<S, OBS> blk{};
+  blk.base = base;
+  if constexpr (OBS) {
+    blk.stride = seed_stride<S, N, E>(c);
+    blk.head = (sizeof(S) + 15) / 16 * 16;
+    blk.lay = obs_layout<N, E>(c);
+    blk.cfg = c;
+  }
+  return blk;
+}
+
 // The user draw purposes a model declares (Workload.draw_purposes). A
 // seed's lanes draw them at the start of every step, beside the emit
 // rows' latency draws, so the handler reads them from shared memory
@@ -568,6 +737,14 @@ struct Seed : SeedHistory<M::R>, SeedStorage<M::N, M::U, SyncOf<M>::value>, Seed
   bool dup;
 };
 
+template <class M, int E, bool MET, bool OBS>
+using Block = SeedBlock<Seed<M, E, MET>, OBS>;
+
+template <class M, int E, bool MET, bool OBS>
+MADSIM_HDI Block<M, E, MET, OBS> make_block(unsigned char* base, const EngineConfig& c) {
+  return seed_block<Seed<M, E, MET>, M::N, E, OBS>(base, c);
+}
+
 MADSIM_HDI void block_sync() {
 #ifdef __CUDA_ARCH__
   __syncthreads();
@@ -630,10 +807,118 @@ MADSIM_HDI void rows_out(T* g, int64_t first, int nb, int tid, int nt, F get) {
   }
 }
 
+// rows_in and rows_out for a runtime row width C (the observability
+// columns), 16 bytes a thread at a time where the rows allow, as rows_in
+template <class T, class F>
+MADSIM_HDI void rows_in_n(const T* g, int64_t first, int nb, int32_t C, int tid, int nt,
+                          F put) {
+  if (C <= 0) return;
+  const T* src = g + first * C;
+  const int64_t n = static_cast<int64_t>(nb) * C;
+  constexpr int V = 16 / sizeof(T);
+  if (C % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    const Vec16* v = reinterpret_cast<const Vec16*>(src);
+    for (int64_t q = tid; q < n / V; q += nt) {
+      const Vec16 w = v[q];
+      T e[V];
+      memcpy(e, &w, 16);
+      for (int k = 0; k < V; k++)
+        put(static_cast<int>((q * V + k) / C), static_cast<int32_t>((q * V + k) % C), e[k]);
+    }
+    return;
+  }
+  for (int64_t idx = tid; idx < n; idx += nt)
+    put(static_cast<int>(idx / C), static_cast<int32_t>(idx % C), src[idx]);
+}
+template <class T, class F>
+MADSIM_HDI void rows_out_n(T* g, int64_t first, int nb, int32_t C, int tid, int nt, F get) {
+  if (C <= 0) return;
+  T* dst = g + first * C;
+  const int64_t n = static_cast<int64_t>(nb) * C;
+  constexpr int V = 16 / sizeof(T);
+  if (C % V == 0 && (reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+    Vec16* v = reinterpret_cast<Vec16*>(dst);
+    for (int64_t q = tid; q < n / V; q += nt) {
+      T e[V];
+      for (int k = 0; k < V; k++)
+        e[k] = get(static_cast<int>((q * V + k) / C), static_cast<int32_t>((q * V + k) % C));
+      Vec16 w;
+      memcpy(&w, e, 16);
+      v[q] = w;
+    }
+    return;
+  }
+  for (int64_t idx = tid; idx < n; idx += nt)
+    dst[idx] = get(static_cast<int>(idx / C), static_cast<int32_t>(idx % C));
+}
+
+// copy `bytes` bytes, 16 at a time where both ends are aligned (every
+// thread of the block, neighbouring threads on neighbouring words)
+MADSIM_HDI void copy_bytes(void* dst, const void* src, int64_t bytes, int tid, int nt) {
+  auto* d = static_cast<unsigned char*>(dst);
+  const auto* s = static_cast<const unsigned char*>(src);
+  int64_t done = 0;
+  if (((reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(s)) & 15u) == 0) {
+    Vec16* dv = reinterpret_cast<Vec16*>(d);
+    const Vec16* sv = reinterpret_cast<const Vec16*>(s);
+    for (int64_t q = tid; q < bytes / 16; q += nt) dv[q] = sv[q];
+    done = bytes / 16 * 16;
+  }
+  for (int64_t x = done + tid; x < bytes; x += nt) d[x] = s[x];
+}
+
+// load and store the observability tails of seeds [first, first + nb),
+// every thread of the block: the emit times and the ring's counters with
+// a ring, the bitmap, the last kinds and the hit counters with coverage
+template <class M, int E, class B>
+MADSIM_HD void load_obs(const B& blk, const Fields& f, int64_t first, int nb, int tid,
+                        int nt) {
+  const EngineConfig& c = blk.cfg;
+  if (c.tl_cap > 0) {
+    rows_in<E>(f.ev_emit, first, nb, tid, nt,
+               [&](int b, int k, int64_t v) { blk.obs(b).ev_emit[k] = v; });
+    rows_in<1>(f.tl_count, first, nb, tid, nt,
+               [&](int b, int, int32_t v) { blk.obs(b).tl[0] = v; });
+    rows_in<1>(f.tl_drop, first, nb, tid, nt,
+               [&](int b, int, int32_t v) { blk.obs(b).tl[1] = v; });
+  }
+  if (c.cov_words > 0) {
+    rows_in_n(f.cov, first, nb, c.cov_words, tid, nt, [&](int b, int32_t k, int64_t v) {
+      blk.obs(b).cov[k] = static_cast<uint32_t>(v);
+    });
+    rows_in<M::N>(f.cov_last, first, nb, tid, nt,
+                  [&](int b, int k, int32_t v) { blk.obs(b).cov_last[k] = v; });
+    if (c.cov_hitcount)
+      rows_in_n(f.cov_hits, first, nb, c.cov_words * 32, tid, nt,
+                [&](int b, int32_t k, uint8_t v) { blk.obs(b).hits[k] = v; });
+  }
+}
+
+template <class M, int E, class B>
+MADSIM_HD void store_obs(const B& blk, const Fields& f, int64_t first, int nb, int tid,
+                         int nt) {
+  const EngineConfig& c = blk.cfg;
+  if (c.tl_cap > 0) {
+    rows_out<E>(f.ev_emit, first, nb, tid, nt, [&](int b, int k) { return blk.obs(b).ev_emit[k]; });
+    rows_out<1>(f.tl_count, first, nb, tid, nt, [&](int b, int) { return blk.obs(b).tl[0]; });
+    rows_out<1>(f.tl_drop, first, nb, tid, nt, [&](int b, int) { return blk.obs(b).tl[1]; });
+  }
+  if (c.cov_words > 0) {
+    rows_out_n(f.cov, first, nb, c.cov_words, tid, nt, [&](int b, int32_t k) {
+      return static_cast<int64_t>(blk.obs(b).cov[k]);
+    });
+    rows_out<M::N>(f.cov_last, first, nb, tid, nt,
+                   [&](int b, int k) { return blk.obs(b).cov_last[k]; });
+    if (c.cov_hitcount)
+      rows_out_n(f.cov_hits, first, nb, c.cov_words * 32, tid, nt,
+                 [&](int b, int32_t k) { return blk.obs(b).hits[k]; });
+  }
+}
+
 // load seeds [first, first + nb) of a.in into blk, with every thread of
 // the block; ends with a block barrier
-template <class M, int E, bool MET>
-MADSIM_HD void block_load(Seed<M, E, MET>* blk, const Fields& f, int64_t first,
+template <class M, int E, bool MET, bool OBS>
+MADSIM_HD void block_load(const Block<M, E, MET, OBS>& blk, const Fields& f, int64_t first,
                           int nb, int tid, int nt) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
   constexpr int NW = PoolBits<E>::NW;
@@ -701,6 +986,7 @@ MADSIM_HD void block_load(Seed<M, E, MET>* blk, const Fields& f, int64_t first,
     rows_in<N_METRICS>(f.met, first, nb, tid, nt,
                        [&](int b, int k, int32_t v) { blk[b].met[k] = v; });
   }
+  if constexpr (OBS) load_obs<M, E>(blk, f, first, nb, tid, nt);
   block_sync();  // the bits are zero before any thread sets one
   rows_in<E>(f.ev_valid, first, nb, tid, nt, [&](int b, int k, uint8_t v) {
     if (v) set_bit_shared(blk[b].ev_bits, k);
@@ -710,8 +996,8 @@ MADSIM_HD void block_load(Seed<M, E, MET>* blk, const Fields& f, int64_t first,
 
 // store blk into seeds [first, first + nb) of f, every field the kernel
 // writes; the caller has passed a block barrier
-template <class M, int E, bool MET>
-MADSIM_HD void block_store(const Seed<M, E, MET>* blk, const Fields& f,
+template <class M, int E, bool MET, bool OBS>
+MADSIM_HD void block_store(const Block<M, E, MET, OBS>& blk, const Fields& f,
                            int64_t first, int nb, int tid, int nt) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W;
   rows_out<1>(f.now, first, nb, tid, nt, [&](int b, int) { return blk[b].now; });
@@ -772,6 +1058,7 @@ MADSIM_HD void block_store(const Seed<M, E, MET>* blk, const Fields& f,
   if constexpr (MET) {
     rows_out<N_METRICS>(f.met, first, nb, tid, nt, [&](int b, int k) { return blk[b].met[k]; });
   }
+  if constexpr (OBS) store_obs<M, E>(blk, f, first, nb, tid, nt);
 }
 
 // Copy the block's history rows, seeds [first, first + nb), from the
@@ -790,6 +1077,21 @@ MADSIM_HD void copy_history(const Fields& in, const Fields& out, int32_t cap,
     int64_t* to = out.hist_t + first * cap;
     for (int64_t x = tid; x < rows; x += nt) to[x] = ti[x];
   }
+}
+
+// Copy the block's timeline rows, seeds [first, first + nb), from the
+// input to the output, as copy_history does: rows past a seed's count
+// come out as they went in.
+template <class M>
+MADSIM_HD void copy_timeline(const Fields& in, const Fields& out, int32_t cap,
+                             int64_t first, int nb, int tid, int nt) {
+  if (cap <= 0) return;
+  const int64_t rows = static_cast<int64_t>(nb) * cap, at = first * cap;
+  copy_bytes(out.tl_t + at, in.tl_t + at, rows * 8, tid, nt);
+  copy_bytes(out.tl_meta + at, in.tl_meta + at, rows * 8, tid, nt);
+  copy_bytes(out.tl_emit + at, in.tl_emit + at, rows * 8, tid, nt);
+  copy_bytes(out.tl_args + at * M::A, in.tl_args + at * M::A, rows * M::A * 4, tid, nt);
+  copy_bytes(out.tl_pay + at * M::W, in.tl_pay + at * M::W, rows * M::W * 4, tid, nt);
 }
 
 // Append a user dispatch's valid record rows at hist_count, hist_count +
@@ -823,6 +1125,72 @@ MADSIM_HDI int append_history(Seed<M, E, MET>& s, const HistOut<M::R>& ho,
 }
 
 
+// the reference's 32-bit feature finalizer
+MADSIM_HDI uint32_t cov_mix(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// Fold one feature into the seed's bitmap; with hit counts its counter
+// counts it first (saturating at 255) and the bit set is that of the
+// feature keyed by the counter's class (edges 1, 2, 3, 4, 8, 16, 32,
+// 128). The caller has checked the feature's gate.
+MADSIM_HDI void cov_tap(const SeedObs& o, uint32_t feat) {
+  const uint32_t mask = static_cast<uint32_t>(o.cw) * 32u - 1u;
+  if (o.hc) {
+    const uint32_t ci = cov_mix(feat) & mask;
+    const uint32_t newc = o.hits[ci] < 255 ? o.hits[ci] + 1u : 255u;
+    const uint32_t cls = (newc >= 2u) + (newc >= 3u) + (newc >= 4u) + (newc >= 8u) +
+                         (newc >= 16u) + (newc >= 32u) + (newc >= 128u);
+    o.hits[ci] = static_cast<uint8_t>(newc);
+    feat ^= (cls + 1u) * 0x9E3779B9u;
+  }
+  const uint32_t bit = cov_mix(feat) & mask;
+  o.cov[bit >> 5] |= 1u << (bit & 31u);
+}
+
+// The coverage taps of one dispatch, the leader's, in the reference's
+// order: the kind transition at the node (user) or the kind by time
+// phase (engine), the message edge, the user kind by phase, each valid
+// history record, the model's own features, then the node's last kind.
+// `now` is the dispatch clock without the node's skew.
+template <class M>
+MADSIM_HDI void cov_taps(const SeedObs& o, const int32_t* node_state, int32_t kind,
+                         int32_t dst, int32_t src, bool is_engine, bool in_range,
+                         int64_t now, const Rec* recs) {
+  const uint32_t k = static_cast<uint32_t>(kind);
+  const uint32_t du = static_cast<uint32_t>(dst > 0 ? dst : 0);
+  const uint32_t su = static_cast<uint32_t>(src > 0 ? src : 0);
+  const int64_t ph = now >> 27;
+  const uint32_t phase = static_cast<uint32_t>(ph < 31 ? ph : 31);
+  if (is_engine) {
+    cov_tap(o, k | (phase << 8) | (1u << 24));
+    return;
+  }
+  const int dst_c = clampi(dst, 0, M::N - 1);
+  const uint32_t prev = static_cast<uint32_t>(in_range ? o.cov_last[dst_c] : 0);
+  cov_tap(o, k | (prev << 8) | (du << 16));
+  if (src >= 0) cov_tap(o, k | (su << 8) | (du << 16) | (3u << 24));
+  cov_tap(o, k | (phase << 8) | (4u << 24));
+  if constexpr (M::R > 0) {
+    for (int j = 0; j < M::R; j++) {
+      const Rec& r = recs[j];
+      if (!r.valid) continue;
+      cov_tap(o, (static_cast<uint32_t>(r.op) * 0x9E3779B1u) ^
+                     (static_cast<uint32_t>(r.key) * 0x85EBCA6Bu) ^
+                     (static_cast<uint32_t>(r.arg) * 0xC2B2AE35u) ^
+                     static_cast<uint32_t>(r.ok) ^ (2u << 24));
+    }
+  }
+  if constexpr (CovOf<M>::n > 0) {
+    uint32_t feats[CovOf<M>::n];
+    M::cov_features(node_state, feats);
+    for (int f = 0; f < CovOf<M>::n; f++) cov_tap(o, (feats[f] & 0xFFFFFFu) | (6u << 24));
+  }
+  if (in_range) o.cov_last[dst_c] = kind;
+}
+
 // zero the emit rows, row j by lane j mod G
 template <class M, int G>
 MADSIM_HDI void clear_rows(const Lanes<G>& g, Emit<M::A, M::W>* em) {
@@ -838,10 +1206,10 @@ MADSIM_HDI void clear_rows(const Lanes<G>& g, Emit<M::A, M::W>* em) {
 // the shadow rows: user row j - K - 1 again, while `dup` is set and it
 // is a send. The lanes zero their rows for the next dispatch; the
 // leader marks the slots taken and counts sends and overflow.
-template <class M, int E, int G, bool MET>
+template <class M, int E, int G, bool MET, bool OBS>
 MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
-                           const EngineConfig& c, int64_t now_after,
-                           int32_t dst, bool in_range, int dst_c) {
+                           const EngineConfig& c, int64_t now, int64_t now_after,
+                           int32_t dst, bool in_range, int dst_c, const SeedObs& o) {
   constexpr int N = M::N, A = M::A, W = M::W, KR = M::K + 1, KT = Seed<M, E, MET>::KT;
   using B = PoolBits<E>;
   // row j's emit: a shadow row reads its user row
@@ -903,6 +1271,10 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
           (em_engine || !em_in_range) ? 0 : s.epoch[clampi(e.dst, 0, N - 1)];
       for (int w = 0; w < A; w++) s.ev_args[slot * A + w] = e.args[w];
       for (int w = 0; w < W; w++) s.ev_pay[slot * W + w] = e.pay[w];
+      // the row was emitted at this dispatch's clock
+      if constexpr (OBS) {
+        if (o.tl_cap > 0) o.ev_emit[slot] = now;
+      }
     });
     kept += popc32(ballot);
   }
@@ -924,12 +1296,12 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
 // pool held no valid event: such a step changes nothing but `step`, and
 // so does every later one. Every lane computes the gates from the same
 // shared words; the leader writes.
-template <class M, int E, int G, bool MET>
+template <class M, int E, int G, bool MET, bool OBS>
 MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineConfig& c,
                            const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols,
-                           const HistOut<M::R>& ho) {
+                           const HistOut<M::R>& ho, const SeedObs& o) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K, H = M::H;
   constexpr bool SYNC = SyncOf<M>::value;
   static_assert(A >= 2 && A <= 4, "engine kinds read args[0:2]");
@@ -983,6 +1355,11 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
   int32_t pay[W > 0 ? W : 1];
   for (int j = 0; j < A; j++) args[j] = s.ev_args[i * A + j];
   for (int j = 0; j < W; j++) pay[j] = s.ev_pay[i * W + j];
+  // when the popped event entered the pool (the ring's emit column)
+  int64_t emit_i = 0;
+  if constexpr (OBS) {
+    if (o.tl_cap > 0) emit_i = o.ev_emit[i];
+  }
   const int32_t a0 = args[0], a1 = args[1];
   const int32_t ev_epoch_i = s.ev_epoch[i];
   const bool is_engine = kind < FIRST_USER_KIND || kind >= FIRST_EXT_KIND;
@@ -1023,6 +1400,8 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
 
   if (dispatch) {
     if (g.leader()) {
+      // the handler's history records (the coverage taps read them too)
+      Rec recs[M::R > 0 ? M::R : 1];
       if (!is_engine) {
         // user dispatch implies a live, in-range node
         int32_t* row = s.node_state + dst_c * U;
@@ -1047,7 +1426,6 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
         }
         const int32_t h = clampi(kind - FIRST_USER_KIND, 0, H - 1);
         if constexpr (M::R > 0) {
-          Rec recs[M::R];
           for (int j = 0; j < M::R; j++) recs[j].clear();
           M::handle(h, ctx, mp, s.new_row, s.em, recs);
           const int kept = append_history<M, E, MET>(s, ho, recs, dst, now);
@@ -1170,6 +1548,9 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
           }
         }
       }
+      if constexpr (OBS) {
+        if (o.cw > 0) cov_taps<M>(o, s.node_state, kind, dst, src, is_engine, in_range, now, recs);
+      }
       if constexpr (MET) {
         s.met[MET_DELIVERED] += is_msg;
         s.met[MET_CRASH] += kind == KIND_KILL;
@@ -1179,7 +1560,7 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
       }
     }
     g.sync();
-    place_emits<M, E, G, MET>(g, s, c, now_after, dst, in_range, dst_c);
+    place_emits<M, E, G, MET, OBS>(g, s, c, now, now_after, dst, in_range, dst_c, o);
   }
 
   // ---- halt, trace, clock ----
@@ -1200,6 +1581,20 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
         s.met[MET_HALT_CODE] = HALT_IDLE;
       }
     }
+    if (OBS && dispatch && o.tl_cap > 0) {
+      // the ring: this dispatch's row, the tuple the trace folds
+      const int32_t t = o.tl[0];
+      if (t < o.tl_cap) {
+        o.ring_t[t] = now;
+        o.ring_meta[t] = static_cast<int64_t>(meta);
+        for (int j = 0; j < A; j++) o.ring_args[t * A + j] = args[j];
+        for (int j = 0; j < W; j++) o.ring_pay[t * W + j] = pay[j];
+        o.ring_emit[t] = emit_i;
+        o.tl[0] = t + 1;
+      } else {
+        o.tl[1] += 1;
+      }
+    }
     if (dispatch) s.trace = trace_fold<A, W>(s.trace, now, kind, dst, args, pay);
     s.now = now_after;
     s.step = step + 1u;
@@ -1213,12 +1608,13 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
 // without, it takes all `budget` steps (a halted seed drains). Either way
 // each iteration advances `step` exactly as the plain step would. A
 // group that returns early still reaches its block's barrier.
-template <class M, int E, int G, bool MET>
+template <class M, int E, int G, bool MET, bool OBS>
 MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineConfig& c,
                            const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols, int64_t budget,
-                           bool stop_at_halt, const HistOut<M::R>& ho) {
+                           bool stop_at_halt, const HistOut<M::R>& ho,
+                           const SeedObs& o) {
   clear_rows<M, G>(g, s.em);
   g.sync();
   int64_t it = 0;
@@ -1229,7 +1625,8 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
       if (g.leader()) s.step += static_cast<uint32_t>(budget - it);
       return budget;
     }
-    const bool had_event = engine_step<M, E, G, MET>(g, s, c, mp, init_rows, volatile_cols, ho);
+    const bool had_event =
+        engine_step<M, E, G, MET, OBS>(g, s, c, mp, init_rows, volatile_cols, ho, o);
     it++;
     if (!had_event && !s.halted) {
       // an empty pool stays empty: the rest only counts steps
@@ -1257,21 +1654,43 @@ MADSIM_HDI HistOut<M::R> hist_out(const RunArgs& a, int64_t seed) {
   return ho;
 }
 
-template <class M, int E, int G, bool MET>
-MADSIM_HD int64_t run_block(Seed<M, E, MET>* blk, const RunArgs& a,
+// seed `seed`'s observability state: block seed b's shared tail and its
+// rows of the run's output ring
+template <class M, int E, bool MET, bool OBS>
+MADSIM_HDI SeedObs seed_obs(const Block<M, E, MET, OBS>& blk, int b, const RunArgs& a,
+                            int64_t seed) {
+  SeedObs o{};
+  if constexpr (OBS) {
+    o = blk.obs(b);
+    const int64_t t = a.cfg.tl_cap;
+    if (t > 0) {
+      o.ring_t = a.out.tl_t + seed * t;
+      o.ring_meta = a.out.tl_meta + seed * t;
+      o.ring_args = a.out.tl_args + seed * t * M::A;
+      o.ring_pay = a.out.tl_pay + seed * t * M::W;
+      o.ring_emit = a.out.tl_emit + seed * t;
+    }
+  }
+  return o;
+}
+
+template <class M, int E, int G, bool MET, bool OBS>
+MADSIM_HD int64_t run_block(const Block<M, E, MET, OBS>& blk, const RunArgs& a,
                             const typename M::Params& mp, int64_t first,
                             int nb, int tid, int nt) {
   copy_history<M>(a.in, a.out, a.cfg.hist_cap, first, nb, tid, nt);
-  block_load<M, E, MET>(blk, a.in, first, nb, tid, nt);
+  if constexpr (OBS) copy_timeline<M>(a.in, a.out, a.cfg.tl_cap, first, nb, tid, nt);
+  block_load<M, E, MET, OBS>(blk, a.in, first, nb, tid, nt);
   int64_t most = 0;
   const bool stop = a.stop_at_halt != 0;
 #ifdef __CUDA_ARCH__
   const int b = tid / G;
   if (b < nb) {
     const Lanes<G> g(tid);
-    const int64_t it = seed_run<M, E, G, MET>(g, blk[b], a.cfg, mp, a.init_rows,
-                                         a.volatile_cols, a.budget, stop,
-                                         hist_out<M>(a, first + b));
+    const int64_t it = seed_run<M, E, G, MET, OBS>(g, blk[b], a.cfg, mp, a.init_rows,
+                                              a.volatile_cols, a.budget, stop,
+                                              hist_out<M>(a, first + b),
+                                              seed_obs<M, E, MET, OBS>(blk, b, a, first + b));
     if (g.leader()) {
       a.iters[first + b] = it;
       most = it;
@@ -1280,15 +1699,16 @@ MADSIM_HD int64_t run_block(Seed<M, E, MET>* blk, const RunArgs& a,
 #else
   for (int b = 0; b < nb; b++) {
     const Lanes<G> g(0);
-    const int64_t it = seed_run<M, E, G, MET>(g, blk[b], a.cfg, mp, a.init_rows,
-                                         a.volatile_cols, a.budget, stop,
-                                         hist_out<M>(a, first + b));
+    const int64_t it = seed_run<M, E, G, MET, OBS>(g, blk[b], a.cfg, mp, a.init_rows,
+                                              a.volatile_cols, a.budget, stop,
+                                              hist_out<M>(a, first + b),
+                                              seed_obs<M, E, MET, OBS>(blk, b, a, first + b));
     a.iters[first + b] = it;
     most = it > most ? it : most;
   }
 #endif
   block_sync();
-  block_store<M, E, MET>(blk, a.out, first, nb, tid, nt);
+  block_store<M, E, MET, OBS>(blk, a.out, first, nb, tid, nt);
   return most;
 }
 

@@ -70,6 +70,19 @@ struct LeaseKvModel {
 
   static MADSIM_HDI int32_t min32(int32_t a, int32_t b) { return a < b ? a : b; }
 
+  // protocol coverage (Workload.cov_features, the engine's CovOf): which
+  // leases are live, the expiry count and the watcher's stream lag
+  static constexpr int NCOV = 2;
+  static MADSIM_HDI void cov_features(const int32_t* ns, uint32_t* f) {
+    const int32_t* srv = ns + SERVER * U;
+    uint32_t live = 0;
+    for (int32_t lid = 1; lid <= C; lid++) live |= static_cast<uint32_t>(srv[lid - 1] > 0) << lid;
+    const uint32_t exp = static_cast<uint32_t>(min32(srv[EXP_CNT], 15));
+    const uint32_t lag = static_cast<uint32_t>(clampi(srv[WSEQ] - ns[WATCHER * U], 0, 15));
+    f[0] = live | (exp << 8) | (1u << 16);
+    f[1] = lag | (1u << 17);
+  }
+
   static MADSIM_HD void handle(int32_t h, const Cx& c, const Params& p,
                                int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;

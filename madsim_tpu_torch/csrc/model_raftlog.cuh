@@ -11,14 +11,16 @@
 // sync discipline (SYNC), synced by every handler that dirties them and
 // gated on ctx.sync_err; with RECORD also the OP_SYNCED and OP_RECOVER
 // records. NOSYNC is the bug="nosync" mutant: the same columns, never
-// synced.
+// synced. SPREAD is cov_spread=True: the commit-index spread as the
+// model's coverage features (CovOf in engine_step.cuh).
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD = false, bool CHAOS = true, bool DURABLE = false, bool NOSYNC = false>
+template <bool RECORD = false, bool CHAOS = true, bool DURABLE = false, bool NOSYNC = false,
+          bool SPREAD = false>
 struct RaftLogModel {
   static_assert(!NOSYNC || DURABLE, "the nosync mutant needs durable=True");
   static constexpr int N = 5;          // nodes
@@ -46,6 +48,21 @@ struct RaftLogModel {
                            TSEQ = 4, LOGLEN = 5, COMMIT = 6, ACKS = 7,
                            LOG0 = 8;
   static constexpr int32_t FOLLOWER = 0, CANDIDATE = 1, LEADER = 2;
+
+  // cov_spread: the servers' commit-index spread, and the (floor, spread)
+  // pair with each field masked to its byte
+  static constexpr int NCOV = SPREAD ? 2 : 0;
+  static MADSIM_HDI void cov_features(const int32_t* ns, uint32_t* f) {
+    int32_t lo = ns[COMMIT], hi = ns[COMMIT];
+    for (int n = 1; n < N; n++) {
+      const int32_t c = ns[n * U + COMMIT];
+      lo = c < lo ? c : lo;
+      hi = c > hi ? c : hi;
+    }
+    const uint32_t spread = static_cast<uint32_t>(hi) - static_cast<uint32_t>(lo);
+    f[0] = spread;
+    f[1] = (static_cast<uint32_t>(lo) & 0xFFu) | ((spread & 0xFFu) << 8) | (1u << 16);
+  }
   static constexpr int32_t K_TIMEOUT = FIRST_USER_KIND + 1;
   static constexpr int32_t K_REQVOTE = FIRST_USER_KIND + 2;
   static constexpr int32_t K_GRANT = FIRST_USER_KIND + 3;

@@ -45,6 +45,22 @@ struct ShardKvModel {
   // count in 1 and its assignment words in 4 and 5
   static constexpr int32_t EPOCH = 0, PHASE = 1, MIG_S = 2, MIG_D = 3, A0 = 4,
                            A1 = 5, DONE = 6, FIN = 7, ACKED = 1;
+
+  // protocol coverage (Workload.cov_features, the engine's CovOf): the
+  // migration edge the controller is on and the fleet's shard ownership
+  // count
+  static constexpr int NCOV = 2;
+  static MADSIM_HDI void cov_features(const int32_t* ns, uint32_t* f) {
+    const int32_t* ctl = ns + CONTROLLER * U;
+    const uint32_t ep = static_cast<uint32_t>(ctl[EPOCH] < 255 ? ctl[EPOCH] : 255);
+    const uint32_t ph = static_cast<uint32_t>(clampi(ctl[PHASE], 0, 1));
+    const uint32_t ms = static_cast<uint32_t>(clampi(ctl[MIG_S], 0, 7));
+    f[0] = ep | (ph << 8) | (ms << 9) | (1u << 20);
+    uint32_t owned = 0;
+    for (int g = 0; g < G; g++)
+      for (int s = 0; s < NS; s++) owned += ns[(2 + g * GS) * U + NS + s] > 0;
+    f[1] = (owned < 63u ? owned : 63u) | (1u << 21);
+  }
   static constexpr int32_t K_PUT_T = FIRST_USER_KIND + 1;
   static constexpr int32_t K_WRITE = FIRST_USER_KIND + 2;
   static constexpr int32_t K_REPL = FIRST_USER_KIND + 3;

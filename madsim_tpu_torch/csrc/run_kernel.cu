@@ -32,11 +32,24 @@
 // counters, and madsim_run picks one by its `metrics` word (the width of
 // the state's met column). The drain kernel touches neither.
 //
+// The coverage taps and the timeline ring are a third compile-time
+// switch, instantiated only at the pools a library lists in
+// MADSIM_OBS_POOLS (engine/fused.py KernelModel.obs_pools), so every
+// other kernel is built as before; madsim_run picks it by its `obs` word
+// (a state with a coverage or ring column). Their widths are runtime
+// config words 9-11 (engine_step.cuh): each seed's observability state
+// follows its Seed in the block's shared memory, so that kernel's
+// dynamic shared size is kSeeds * seed_stride, set per launch. The
+// ring's rows are written straight to the output, after the block
+// copies the input's rows there.
+//
 // This file is not compiled alone. engine/fused.py writes, per model, a
 // unit that includes the model's header (model_*.cuh), defines
 //   MADSIM_MODEL  the model trait, e.g. madsim::KvChaosModel<false, true>
 //   MADSIM_POOLS  the pool sizes to instantiate, e.g. 40, 64
 //   MADSIM_GROUP  G, the lanes per seed
+//   MADSIM_OBS_POOLS  the pools with the observability kernel (may be
+//                     empty)
 // and includes this file; nvcc builds it into one library per model.
 //
 // What bounds it: device memory sees one load and one store of the
@@ -62,8 +75,9 @@
 
 #include "engine_step.cuh"
 
-#if !defined(MADSIM_MODEL) || !defined(MADSIM_POOLS) || !defined(MADSIM_GROUP)
-#error "define MADSIM_MODEL, MADSIM_POOLS and MADSIM_GROUP, then include run_kernel.cu"
+#if !defined(MADSIM_MODEL) || !defined(MADSIM_POOLS) || !defined(MADSIM_GROUP) || \
+    !defined(MADSIM_OBS_POOLS)
+#error "define MADSIM_MODEL, MADSIM_POOLS, MADSIM_GROUP and MADSIM_OBS_POOLS, then include run_kernel.cu"
 #endif
 
 namespace {
@@ -76,20 +90,29 @@ static_assert(kThreads % 32 == 0 && kThreads % kGroup == 0, "whole warps, whole 
 
 template <int E, bool MET>
 constexpr size_t run_smem() { return sizeof(madsim::Seed<Model, E, MET>) * kSeeds; }
+// the run kernel's shared bytes, with OBS under the run's taps
+template <int E, bool MET, bool OBS>
+size_t run_smem(const madsim::EngineConfig& c) {
+  if constexpr (OBS) {
+    return madsim::seed_stride<madsim::Seed<Model, E, MET>, Model::N, E>(c) * kSeeds;
+  } else {
+    return run_smem<E, MET>();
+  }
+}
 template <int E>
 constexpr size_t drain_smem() { return sizeof(madsim::DrainSeed<E>) * kSeeds; }
 
-template <int E, bool MET>
+template <int E, bool MET, bool OBS>
 __global__ void __launch_bounds__(kThreads)
 run_kernel(const madsim::RunArgs a, const typename Model::Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned long long block_max;
-  auto* blk = reinterpret_cast<madsim::Seed<Model, E, MET>*>(smem);
+  const auto blk = madsim::make_block<Model, E, MET, OBS>(smem, a.cfg);
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kSeeds;
   const int64_t left = a.n_seeds - first;
   const int nb = left < kSeeds ? static_cast<int>(left) : kSeeds;
   if (threadIdx.x == 0) block_max = 0;
-  const int64_t most = madsim::run_block<Model, E, kGroup, MET>(
+  const int64_t most = madsim::run_block<Model, E, kGroup, MET, OBS>(
       blk, a, p, first, nb, threadIdx.x, blockDim.x);
   if (a.tmax != nullptr) {
     if (most > 0) atomicMax(&block_max, static_cast<unsigned long long>(most));
@@ -123,16 +146,17 @@ unsigned blocks_for(int64_t n_seeds) {
   return static_cast<unsigned>((n_seeds + kSeeds - 1) / kSeeds);
 }
 
-template <int E, bool MET>
+template <int E, bool MET, bool OBS>
 int launch_run(const madsim::RunArgs& a, const typename Model::Params& p,
                cudaStream_t stream) {
-  cudaError_t rc = allow_smem(run_kernel<E, MET>, run_smem<E, MET>());
+  const size_t smem = run_smem<E, MET, OBS>(a.cfg);
+  cudaError_t rc = allow_smem(run_kernel<E, MET, OBS>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (a.tmax != nullptr) {
     rc = cudaMemsetAsync(a.tmax, 0, sizeof(int64_t), stream);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  run_kernel<E, MET><<<blocks_for(a.n_seeds), kThreads, run_smem<E, MET>(), stream>>>(a, p);
+  run_kernel<E, MET, OBS><<<blocks_for(a.n_seeds), kThreads, smem, stream>>>(a, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,17 +174,17 @@ int launch_drain(const madsim::DrainArgs& d, cudaStream_t stream) {
 template <int E>
 int occupancy(int64_t* out) {
   int run = 0, drain = 0, run_met = 0;
-  cudaError_t rc = allow_smem(run_kernel<E, false>, run_smem<E, false>());
+  cudaError_t rc = allow_smem(run_kernel<E, false, false>, run_smem<E, false>());
   if (rc == cudaSuccess) rc = allow_smem(drain_kernel<E>, drain_smem<E>());
-  if (rc == cudaSuccess) rc = allow_smem(run_kernel<E, true>, run_smem<E, true>());
+  if (rc == cudaSuccess) rc = allow_smem(run_kernel<E, true, false>, run_smem<E, true>());
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&run, run_kernel<E, false>, kThreads,
-                                                       run_smem<E, false>());
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&run, run_kernel<E, false, false>,
+                                                       kThreads, run_smem<E, false>());
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&drain, drain_kernel<E>, kThreads,
                                                        drain_smem<E>());
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&run_met, run_kernel<E, true>,
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&run_met, run_kernel<E, true, false>,
                                                        kThreads, run_smem<E, true>());
   out[0] = kGroup;
   out[1] = kSeeds;
@@ -182,18 +206,24 @@ int with_pool(int32_t pool, F f) {
   return rc;
 }
 
+template <int... Es>
+constexpr int64_t count_pools() {
+  return static_cast<int64_t>(sizeof...(Es));
+}
+
 }  // namespace
 
 extern "C" {
 
 // ptrs: the RunArgs pointers (madsim::run_args); cfg: the engine's
 // config words, then the model's (Model::params); metrics: 1 runs the
-// instantiation that folds the MET_* counters. Returns a cudaError_t, or
-// -1 for a pool size without an instantiation (the shared layout needs
-// E at compile time; engine/fused.py lists the pools of each model).
+// instantiation that folds the MET_* counters; obs: 1 the one with the
+// observability taps. Returns a cudaError_t, or -1 for a pool size
+// without an instantiation (the shared layout needs E at compile time;
+// engine/fused.py lists the pools of each model, and its obs pools).
 int madsim_run(void* const* ptrs, const int64_t* cfg, int64_t n_seeds, int64_t budget,
-               int32_t pool, int32_t stop_at_halt, int32_t metrics, int32_t device,
-               void* stream) {
+               int32_t pool, int32_t stop_at_halt, int32_t metrics, int32_t obs,
+               int32_t device, void* stream) {
   const madsim::RunArgs a = madsim::run_args(ptrs, cfg, n_seeds, budget, stop_at_halt);
   const typename Model::Params p = Model::params(cfg + madsim::kEngineWords);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -201,9 +231,15 @@ int madsim_run(void* const* ptrs, const int64_t* cfg, int64_t n_seeds, int64_t b
   // the stream belongs to the tensors' card
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  if (obs) {
+    return with_pool<MADSIM_OBS_POOLS>(pool, [&](auto e) {
+      return metrics ? launch_run<decltype(e)::value, true, true>(a, p, s)
+                     : launch_run<decltype(e)::value, false, true>(a, p, s);
+    });
+  }
   return with_pool<MADSIM_POOLS>(pool, [&](auto e) {
-    return metrics ? launch_run<decltype(e)::value, true>(a, p, s)
-                   : launch_run<decltype(e)::value, false>(a, p, s);
+    return metrics ? launch_run<decltype(e)::value, true, false>(a, p, s)
+                   : launch_run<decltype(e)::value, false, false>(a, p, s);
   });
 }
 
@@ -229,8 +265,9 @@ int madsim_occupancy(int32_t pool, int32_t device, int64_t* out) {
 
 // the model's compile-time shape, for the wrapper to check against the
 // workload: N, U, A, W, K, H, R, the run and drain pointer counts, the
-// duplication shadow rows (0, or K for a dup_rows library) and whether
-// it keeps the sync discipline
+// duplication shadow rows (0, or K for a dup_rows library), whether
+// it keeps the sync discipline and how many pools have the
+// observability kernel
 void madsim_shape(int64_t* out) {
   out[0] = Model::N;
   out[1] = Model::U;
@@ -243,6 +280,7 @@ void madsim_shape(int64_t* out) {
   out[8] = madsim::kDrainPointers;
   out[9] = madsim::DupRows<Model>::n;
   out[10] = madsim::SyncOf<Model>::value;
+  out[11] = count_pools<MADSIM_OBS_POOLS>();
 }
 
 }  // extern "C"

@@ -24,11 +24,14 @@ from .core import (  # noqa: F401
     KIND_UNCLOG_1W,
     KIND_UNCLOG_NODE,
     KIND_UNSLOW,
+    COVERAGE_FIELDS,
     METRIC_NAMES,
     N_METRICS,
+    OBS_FIELDS,
     SLOW_MULT_MAX,
     STATE_FIELDS,
     STORAGE_FIELDS,
+    TIMELINE_FIELDS,
     EmitBuilder,
     Emits,
     EngineConfig,

@@ -71,11 +71,14 @@ __all__ = [
 ]
 
 # the reference's RESULT_FIELDS that the port's SimState has; the
-# reference's others are zero-size for every variant the port runs
+# reference's others are zero-size for every variant the port runs.
+# cov_hits is not banked (the reference's rule: guidance reads only the
+# bitmap), nor is the pool's ev_emit
 RESULT_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
     "msg_count", "node_state", "disk", "hist_count", "hist_drop", "hist_word",
-    "hist_t", "met",
+    "hist_t", "cov", "met", "tl_count", "tl_drop", "tl_t", "tl_meta", "tl_args",
+    "tl_pay", "tl_emit",
 )
 
 # the extra banked outputs of a ``hist_screen`` run (not SimState
@@ -85,10 +88,7 @@ HIST_FIELDS = ("hist_word", "hist_t", "hist_count", "hist_drop")
 
 # options of the reference's runners whose engine axes the port does not
 # have yet, and the ROADMAP queue A item that ports each
-UNPORTED_OPTIONS = {
-    "cov_words": "A8", "cov_hitcount": "A8",
-    "timeline_cap": "A8", "latency": "A8", "causal": "A8", "retry": "A8",
-}
+UNPORTED_OPTIONS = {"latency": "A8", "causal": "A8", "retry": "A8"}
 
 
 def refuse_unported(**options) -> None:
@@ -243,8 +243,8 @@ def _screen_bank(bank: dict, screens) -> dict:
 
 def _phase_program(wl: Workload, cfg: EngineConfig, max_steps: int,
                    shrink: int, min_size: int, fields, dup_rows: bool = False,
-                   metrics: bool = False):
-    step = make_step_plain(wl, cfg, dup_rows, metrics)
+                   metrics: bool = False, **obs):
+    step = make_step_plain(wl, cfg, dup_rows, metrics, **obs)
 
     def compute(state: SimState) -> list:
         s0 = state.seed.shape[0]
@@ -271,12 +271,14 @@ def _phase_program(wl: Workload, cfg: EngineConfig, max_steps: int,
 def make_run_compacted_plain(
     wl: Workload, cfg: EngineConfig, max_steps: int, shrink: int = 4,
     min_size: int = 2048, fields: tuple = RESULT_FIELDS, dup_rows: bool = False,
-    metrics: bool = False,
+    metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
+    cov_hitcount: bool = False,
 ):
     """The phase program with the plain eager step, on any device."""
     _check(fields, shrink, min_size)
     compute = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
-                             metrics)
+                             metrics, cov_words=cov_words, timeline_cap=timeline_cap,
+                             cov_hitcount=cov_hitcount)
     return _runner(compute, fields, shrink, min_size, max_steps)
 
 
@@ -310,6 +312,11 @@ def make_run_compacted(
     ``metrics`` folds the fleet counters (a state from
     ``make_init(metrics=True)``); ``met`` is banked with the others. A
     halted row's counters stop, so they equal the lockstep loop's.
+    ``cov_words`` (with ``cov_hitcount``) and ``timeline_cap`` run the
+    coverage taps and the timeline ring (a state from ``make_init`` with
+    the same arguments); ``cov`` and the ring's ``tl_*`` columns are
+    banked, the hit counters are not. A halted row dispatches nothing, so
+    its bitmap and ring stop too.
 
     ``hist_screen`` (a ``check.device.HistoryScreen`` or a tuple of
     them) screens every bank's histories on its device and folds the
@@ -320,26 +327,23 @@ def make_run_compacted(
     ``hist_count + hist_fold``). Flagged and overflowed seeds keep every
     record. It needs ``wl.history`` and the four history fields.
 
-    The other options after ``fields`` raise ``NotImplementedError``
+    ``latency``, ``causal`` and ``retry`` raise ``NotImplementedError``
     until their engine axes are ported.
     """
-    refuse_unported(
-        cov_words=cov_words,
-        timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-        latency=latency, causal=causal, retry=retry,
-    )
+    refuse_unported(latency=latency, causal=causal, retry=retry)
     _check(fields, shrink, min_size)
     screens = _screens(wl, hist_screen, fields)
+    obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount)
     plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
-                           metrics)
+                           metrics, **obs)
 
     def compute(state: SimState) -> list:
         if state.device.type == "cpu":
             banks = plain(state)
         else:
-            from .fused import _check_metrics, _first_pass
+            from .fused import _first_pass, check_taps
 
-            _check_metrics(state, metrics)
+            check_taps(state, metrics, **obs)
             _spec, out, iters, _tmax = _first_pass(wl, cfg, state, max_steps, True,
                                                    dup_rows)
             banks = one_launch_banks(state, out, iters, fields)

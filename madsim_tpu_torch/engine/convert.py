@@ -60,6 +60,17 @@ NUMPY_DTYPES = {
     "hist_word": np.int32,
     "hist_t": np.int64,
     "met": np.int32,
+    "cov": np.uint32,
+    "cov_last": np.int32,
+    "cov_hits": np.uint8,
+    "tl_count": np.int32,
+    "tl_drop": np.int32,
+    "tl_t": np.int64,
+    "tl_meta": np.uint32,
+    "tl_args": np.int32,
+    "tl_pay": np.int32,
+    "ev_emit": np.int64,
+    "tl_emit": np.int64,
 }
 
 # The JAX package's SimState fields that the port does not carry yet:
@@ -70,20 +81,7 @@ NUMPY_DTYPES = {
 # index summaries (tile_min, tile_cnt) are derived state and travel in
 # no file.
 FOREIGN_FIELDS = {
-    **{f: (dt, (0,), "A8 (cov_words, cov_hitcount)") for f, dt in (
-        ("cov", np.uint32), ("cov_last", np.int32), ("cov_hits", np.uint8),
-    )},
-    **{f: (dt, shape, "A8 (timeline_cap)") for f, dt, shape in (
-        ("tl_count", np.int32, ()),
-        ("tl_drop", np.int32, ()),
-        ("tl_t", np.int64, (0,)),
-        ("tl_meta", np.uint32, (0,)),
-        ("tl_args", np.int32, (0, "A")),
-        ("tl_pay", np.int32, (0, "W")),
-    )},
     **{f: (dt, shape, "A8 (latency)") for f, dt, shape in (
-        ("ev_emit", np.int64, (0,)),
-        ("tl_emit", np.int64, (0,)),
         ("lat_inv", np.int64, (0,)),
         ("lat_resp", np.int64, (0,)),
         ("lat_hist", np.int32, (0, 0)),
@@ -105,6 +103,7 @@ _TORCH_DTYPES = {
     np.uint32: torch.int64,
     np.int64: torch.int64,
     np.int32: torch.int32,
+    np.uint8: torch.uint8,
     np.bool_: torch.bool,
 }
 

@@ -23,7 +23,12 @@ handler's :meth:`EmitBuilder.sync` has committed it to the node's disk
 image (``SimState.disk``), and the disk-fault kinds 251-254 make syncs
 lie or fail and kills tear the last uncommitted write. Built with
 ``metrics=True``, the step also folds the fleet counters ``MET_*`` into
-``SimState.met``, which never feed back into the trajectory.
+``SimState.met``, which never feed back into the trajectory. So do the
+other observability taps: ``cov_words`` (and ``cov_hitcount``) fold each
+dispatch's behavior features into a per-seed coverage bitmap, with
+``Workload.cov_features`` adding the workload's own, and
+``timeline_cap`` records the dispatched events in a per-seed ring that
+``obs.decode_timeline`` reads.
 
 The JAX engine has several lowerings of that step (dense/scatter
 layout, rank/scatter placement, time32, the pool index); their values
@@ -130,6 +135,9 @@ __all__ = [
     "HALT_TIME_LIMIT",
     "HALT_IDLE",
     "STORAGE_FIELDS",
+    "COVERAGE_FIELDS",
+    "TIMELINE_FIELDS",
+    "OBS_FIELDS",
     "PlanRows",
     "pack_slow_arg",
     "unpack_slow_arg",
@@ -138,6 +146,8 @@ __all__ = [
     "set_col",
     "set_cols",
     "resolve_device",
+    "obs_widths",
+    "check_obs_state",
     "make_init",
     "make_step",
     "make_step_plain",
@@ -225,6 +235,12 @@ HALT_IDLE = 3  # the event pool ran empty while unhalted: nothing will happen
 
 # the sync discipline's columns of SimState (zero-size without it)
 STORAGE_FIELDS = ("disk", "wmask", "sync_loss", "sync_eio", "torn")
+# the coverage taps' columns (zero-size with cov_words=0) and the
+# timeline ring's (zero-size with timeline_cap=0; tl_count and tl_drop
+# stay 0), with the ring's emit-time sidecar ev_emit: derived state
+COVERAGE_FIELDS = ("cov", "cov_last", "cov_hits")
+TIMELINE_FIELDS = ("tl_count", "tl_drop", "tl_t", "tl_meta", "tl_args", "tl_pay", "tl_emit")
+OBS_FIELDS = (*COVERAGE_FIELDS, *TIMELINE_FIELDS, "ev_emit")
 
 # the largest slow-link multiplier pack_slow_arg's word carries (bits
 # 8..30 of an int32)
@@ -573,35 +589,42 @@ class EmitBuilder:
             )
         self._recs.append((when, op, key, arg, ok))
 
+    def _cols(self, vals: list, dtype, width: int) -> torch.Tensor:
+        """``(S, width)`` of ``dtype``: column ``j`` holds ``vals[j]``
+        (a Python scalar or a tensor, converted as :meth:`_col` does),
+        zeros past ``len(vals)``. A few ops whatever the row count."""
+        s, dev = self._s, self._device
+        if width == 0:
+            return torch.zeros((s, 0), dtype=dtype, device=dev)
+        arrays = (torch.Tensor, np.ndarray)
+        tens = [j for j, v in enumerate(vals) if isinstance(v, arrays)]
+        if len(tens) == width:
+            return torch.stack([self._col(v, dtype) for v in vals], 1)
+        scal = [0 if isinstance(v, arrays) else v for v in vals]
+        scal += [0] * (width - len(vals))
+        out = torch.tensor(scal, dtype=torch.int64, device=dev).to(dtype).expand(s, width)
+        if tens:
+            out = out.clone()
+            out[:, tens] = torch.stack([self._col(vals[j], dtype) for j in tens], 1)
+        return out
+
     def build(self) -> Emits:
-        s, k, dev = self._s, self._k, self._device
-        valid = torch.zeros((s, k), dtype=torch.bool, device=dev)
-        send = torch.zeros((s, k), dtype=torch.bool, device=dev)
-        kind = torch.zeros((s, k), dtype=torch.int32, device=dev)
-        dst = torch.zeros((s, k), dtype=torch.int32, device=dev)
-        delay = torch.zeros((s, k), dtype=torch.int64, device=dev)
-        args = torch.zeros((s, k, self._a), dtype=torch.int32, device=dev)
-        pay = torch.zeros((s, k, self._w), dtype=torch.int32, device=dev)
-        for j, (when, sd, kd, d, dl, a, p) in enumerate(self._rows):
-            valid[:, j] = self._col(when, torch.bool)
-            send[:, j] = sd
-            kind[:, j] = self._col(kd, torch.int32)
-            dst[:, j] = self._col(d, torch.int32)
-            delay[:, j] = self._col(dl, torch.int64)
-            for c, x in enumerate(a):
-                args[:, j, c] = self._col(x, torch.int32)
-            for c, x in enumerate(p):
-                pay[:, j, c] = self._col(x, torch.int32)
-        rec_valid = torch.zeros((s, self._r), dtype=torch.bool, device=dev)
-        rec = torch.zeros((s, self._r, 4), dtype=torch.int32, device=dev)
-        for j, (when, *words) in enumerate(self._recs):
-            rec_valid[:, j] = self._col(when, torch.bool)
-            for c, x in enumerate(words):
-                rec[:, j, c] = self._col(x, torch.int32)
-        sync = torch.zeros((s,), dtype=torch.bool, device=dev)
-        for when in self._syncs:
-            sync = sync | self._col(when, torch.bool)
-        return Emits(valid, send, kind, dst, delay, args, pay, rec_valid, rec, sync)
+        s, k, a_w, w = self._s, self._k, self._a, self._w
+        rows = self._rows
+        col = lambda i, dt: self._cols([r[i] for r in rows], dt, k)  # noqa: E731
+        valid = col(0, torch.bool)
+        send = col(1, torch.bool)
+        kind = col(2, torch.int32)
+        dst = col(3, torch.int32)
+        delay = col(4, torch.int64)
+        args = self._cols([x for r in rows for x in r[5]], torch.int32, k * a_w)
+        pay = self._cols([x for r in rows for x in r[6]], torch.int32, k * w)
+        recs = self._recs
+        rec_valid = self._cols([r[0] for r in recs], torch.bool, self._r)
+        rec = self._cols([x for r in recs for x in r[1:]], torch.int32, self._r * 4)
+        sync = self._cols(list(self._syncs), torch.bool, len(self._syncs)).any(1)
+        return Emits(valid, send, kind, dst, delay, args.view(s, k, a_w), pay.view(s, k, w),
+                     rec_valid, rec.view(s, self._r, 4), sync)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -694,6 +717,13 @@ class Workload:
     model_params: tuple = ()  # ((name, value), ...)
     history: HistorySpec | None = None
     durable_sync: bool = False
+    # protocol-specific coverage features: ``cov_features(node_state
+    # (S,N,U), now (S,)) -> iterable of (feature, on)`` pairs, a feature
+    # an (S,) word (its low 24 bits are hashed under the engine's tag 6)
+    # and ``on`` an (S,) bool or a bool (ANDed with the user-dispatch
+    # gate). Evaluated once per step over the post-dispatch fleet state
+    # when the step runs the coverage taps; it changes bitmaps only.
+    cov_features: Callable | None = None
 
     def __post_init__(self):
         if not (2 <= self.args_words <= 4):
@@ -788,6 +818,27 @@ class SimState:
     hist_t: torch.Tensor  # (S,H) int64 record sim-time ns (absolute)
     # the fleet counters (metrics=True), the MET_* slots; (S,0) when off
     met: torch.Tensor  # (S,N_METRICS) int32
+    # the coverage fingerprint, CW = cov_words (0 = off, zero-size): each
+    # dispatch folds behavior features into a CW*32-bit bitmap; with
+    # cov_hitcount a saturating counter per bit position keys each
+    # feature's bit by its hit-count class. Derived state only.
+    cov: torch.Tensor  # (S,CW) int64: uint32 bitmap words
+    cov_last: torch.Tensor  # (S,N) int32 last user kind per node (CW > 0), else (S,0)
+    cov_hits: torch.Tensor  # (S,CW*32) uint8 with cov_hitcount, else (S,0)
+    # the timeline ring, T = timeline_cap (0 = off, zero-size): one row
+    # per dispatch, the tuple the trace hash folds, in dispatch order; a
+    # full ring counts its drops in tl_drop and never voids a verdict
+    tl_count: torch.Tensor  # (S,) int32 rows recorded
+    tl_drop: torch.Tensor  # (S,) int32 rows dropped at capacity
+    tl_t: torch.Tensor  # (S,T) int64 dispatch clock ns (unskewed)
+    tl_meta: torch.Tensor  # (S,T) int64: uint32 packed meta of the row
+    tl_args: torch.Tensor  # (S,T,A) int32
+    tl_pay: torch.Tensor  # (S,T,W) int32
+    # the emit-time sidecar (T > 0, else zero-size): the clock at which
+    # each pool row was inserted (0 for init and plan rows), copied into
+    # tl_emit when the row is dispatched; a clog reschedule keeps it
+    ev_emit: torch.Tensor  # (S,E) int64
+    tl_emit: torch.Tensor  # (S,T) int64
 
     @property
     def device(self) -> torch.device:
@@ -848,8 +899,46 @@ def _plan_col(x, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device=dev, dtype=dtype)
 
 
+def _check_obs(cov_words: int, cov_hitcount: bool, timeline_cap: int) -> None:
+    """The observability build parameters, checked alike by
+    :func:`make_init` and the steps."""
+    if cov_words and (cov_words < 1 or cov_words & (cov_words - 1)):
+        raise ValueError(
+            f"cov_words={cov_words} must be 0 (off) or a power of two "
+            f"(the feature hash reduces by bitmask)"
+        )
+    if cov_hitcount and not cov_words:
+        raise ValueError(
+            "cov_hitcount=True needs coverage enabled (cov_words > 0): "
+            "hit-count buckets refine the coverage bitmap"
+        )
+    if timeline_cap < 0:
+        raise ValueError(f"timeline_cap={timeline_cap} must be >= 0")
+
+
+def obs_widths(state: SimState) -> tuple:
+    """``(cov_words, cov_hitcount, timeline_cap)`` of the state's
+    observability columns (the ``make_init`` arguments that built it)."""
+    return (state.cov.shape[1], state.cov_hits.shape[1] > 0, state.tl_t.shape[1])
+
+
+def check_obs_state(state: SimState, cov_words: int, cov_hitcount: bool,
+                    timeline_cap: int) -> None:
+    """Raise unless ``state``'s coverage and ring columns are those of a
+    step built with these taps: a state from ``make_init`` with the same
+    ``cov_words``, ``cov_hitcount`` and ``timeline_cap``."""
+    want = (cov_words, bool(cov_hitcount), timeline_cap)
+    if obs_widths(state) != want:
+        raise ValueError(
+            f"a step built with (cov_words, cov_hitcount, timeline_cap) = {want} "
+            f"needs a state from make_init with the same arguments; this one has "
+            f"{obs_widths(state)}"
+        )
+
+
 def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
-              metrics: bool = False):
+              metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
+              cov_hitcount: bool = False):
     """Build ``init(seeds) -> SimState``: one on_init event per node at
     t=0 in slots ``0..N-1``, every other slot an invalid NOP.
 
@@ -859,7 +948,10 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
     engine or chaos row has epoch 0, a user-kind row epoch -1 (any
     incarnation of its target). ``metrics=True`` gives each seed its
     ``(N_METRICS,)`` counter row. Under the sync discipline a fresh
-    node's disk holds its initial row."""
+    node's disk holds its initial row. ``cov_words=CW`` (a power of
+    two) sizes the coverage bitmap, ``cov_hitcount`` adds its hit
+    counters, and ``timeline_cap=T`` the timeline ring and the emit-time
+    sidecar; each is zero-size when off."""
     n, u, e, p = wl.n_nodes, wl.state_width, cfg.pool_size, plan_slots
     if e < n + p:
         raise ValueError(
@@ -867,6 +959,8 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
             f"plus the {p} fault-plan rows"
         )
     _check_meta_ranges(wl)
+    _check_obs(cov_words, cov_hitcount, timeline_cap)
+    cw, tc = cov_words, timeline_cap
     dev = resolve_device(device)
     base_state = torch.from_numpy(wl.initial_state()).to(dev)
     h = wl.history.capacity if wl.history is not None else 0
@@ -947,6 +1041,17 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
             hist_word=z(s, h, 5, dt=torch.int32),
             hist_t=z(s, h, dt=torch.int64),
             met=z(s, m, dt=torch.int32),
+            cov=z(s, cw, dt=torch.int64),
+            cov_last=z(s, n if cw else 0, dt=torch.int32),
+            cov_hits=z(s, cw * 32 if cov_hitcount else 0, dt=torch.uint8),
+            tl_count=z(s, dt=torch.int32),
+            tl_drop=z(s, dt=torch.int32),
+            tl_t=z(s, tc, dt=torch.int64),
+            tl_meta=z(s, tc, dt=torch.int64),
+            tl_args=z(s, tc, wl.args_words, dt=torch.int32),
+            tl_pay=z(s, tc, wl.payload_words, dt=torch.int32),
+            ev_emit=z(s, e if tc else 0, dt=torch.int64),
+            tl_emit=z(s, tc, dt=torch.int64),
         )
 
     return init
@@ -988,8 +1093,56 @@ def _with_records(out: tuple, rr: int, s: int, dev) -> tuple:
     return state, em
 
 
+def _cov_mix(x: torch.Tensor) -> torch.Tensor:
+    """The reference's 32-bit feature finalizer on uint32 values held in
+    int64: each product is masked to 32 bits before the next shift (the
+    int64 product may wrap; its low 32 bits are the uint32 product)."""
+    x = x & M32
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & M32
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & M32
+    return x ^ (x >> 16)
+
+
+# the hit-count class edges: 1, 2, 3, 4-7, 8-15, 16-31, 32-127, 128+
+_COV_CLASS_EDGES = (1, 2, 3, 4, 8, 16, 32, 128)
+
+
+def _cov_tapper(cov_words: int, cov_hitcount: bool, ar: torch.Tensor):
+    """``tap(cov, cov_hits, feat, on) -> (cov, cov_hits)``: fold one
+    (S,) feature word into each seed's bitmap where ``on``. With hit
+    counts the feature's counter (a saturating byte per bit position)
+    counts it first, and the bit set is that of the feature keyed by the
+    counter's class; a later tap of the same step on the same position
+    sees the increment."""
+    mask = cov_words * 32 - 1
+
+    def set_bit(cov, feat, on):
+        bit = _cov_mix(feat) & mask
+        word = bit >> 5
+        m = torch.where(on, torch.ones_like(bit) << (bit & 31), 0)
+        cov = cov.clone()
+        cov[ar, word] = cov[ar, word] | m
+        return cov
+
+    if not cov_hitcount:
+        return lambda cov, hits, feat, on: (set_bit(cov, feat, on), hits)
+
+    def tap(cov, hits, feat, on):
+        ci = _cov_mix(feat) & mask
+        cur = hits[ar, ci].to(torch.int64)
+        newc = torch.clamp(cur + 1, max=255)
+        cls = sum((newc >= t).to(torch.int64) for t in _COV_CLASS_EDGES) - 1
+        hits = hits.clone()
+        hits[ar, ci] = torch.where(on, newc, cur).to(torch.uint8)
+        feat2 = feat ^ (((cls + 1) * 0x9E3779B9) & M32)
+        return set_bit(cov, feat2, on), hits
+
+    return tap
+
+
 def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
-                   metrics: bool = False):
+                   metrics: bool = False, cov_words: int = 0, cov_hitcount: bool = False,
+                   timeline_cap: int = 0):
     """The eager batched step: ``step(SimState) -> SimState``.
 
     ``dup_rows`` adds the duplication shadow rows: K rows after the
@@ -1000,10 +1153,14 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
     Under the sync discipline the torn-write lane (``PURPOSE_TORN``)
     follows them, before the user purposes. ``metrics`` folds the fleet
     counters into ``SimState.met`` (a state from
-    ``make_init(metrics=True)``)."""
+    ``make_init(metrics=True)``). ``cov_words``, ``cov_hitcount`` and
+    ``timeline_cap`` run the coverage taps and the timeline ring over a
+    state from ``make_init`` with the same arguments; like ``metrics``
+    they never feed back into the trajectory."""
     n, k, w, aw = wl.n_nodes, wl.max_emits, wl.payload_words, wl.args_words
     n_user = len(wl.handlers)
     _check_meta_ranges(wl)
+    _check_obs(cov_words, cov_hitcount, timeline_cap)
     user_purposes = tuple(int(p) for p in (wl.draw_purposes or ()))
     n_em_lanes = (k + 1) + (k if dup_rows else 0)
     lane_p = [PURPOSE_POLL_COST]
@@ -1027,6 +1184,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
     volatile_np = wl.volatile_mask()
     hcap = wl.history.capacity if wl.history is not None else 0
     rr = wl.history.max_records if wl.history is not None else 0
+    checked: list = []  # non-empty once every handler has run
 
     def step(st: SimState) -> SimState:
         if metrics and st.met.shape[1] != N_METRICS:
@@ -1035,6 +1193,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                 f"make_init(metrics=True); this one has {st.met.shape[1]} "
                 f"metric slots"
             )
+        check_obs_state(st, cov_words, cov_hitcount, timeline_cap)
         dev = st.seed.device
         s_n, e_n = st.ev_valid.shape
         ar = torch.arange(s_n, device=dev)
@@ -1058,6 +1217,9 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         args = st.ev_args[ar, i]
         ev_epoch_i = st.ev_epoch[ar, i]
         pay_i = st.ev_pay[ar, i]
+        # the emit-time sidecar: when this event entered the pool, read
+        # before placement can reuse its slot
+        emit_i = st.ev_emit[ar, i] if timeline_cap else None
         is_engine = (kind < FIRST_USER_KIND) | (kind >= FIRST_EXT_KIND)
         is_msg = src >= 0
 
@@ -1114,8 +1276,9 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         ev_meta = st.ev_meta.clone()
         ev_meta[ar, i] = torch.where(resched, meta_bumped, meta_i)
 
-        # ---- dispatch: evaluate every handler, select by kind ----
+        # ---- dispatch: evaluate the handlers, select by kind ----
         user_dispatch = dispatch & ~is_engine
+        outs = []
         if n_user:
             user_idx = (kind - FIRST_USER_KIND).clamp(0, n_user - 1)
             # handler draws at the declared purposes read the block
@@ -1137,12 +1300,25 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                 max_records=rr,
                 sync_err=eio_dst,
             )
-            outs = [_with_records(h(ctx), rr, s_n, dev) for h in wl.handlers]
-            pick = user_idx.long()
+            # only the handlers some seed dispatches this step: a row's
+            # handler output is read only where it user-dispatches, and
+            # handlers are pure, so the values are those of evaluating
+            # every one and selecting. The first step runs them all,
+            # which checks each one's Emits shape.
+            if checked:
+                need = torch.unique(user_idx[user_dispatch]).tolist()
+            else:
+                need = list(range(n_user))
+                checked.append(True)
+            outs = [_with_records(wl.handlers[h](ctx), rr, s_n, dev) for h in need]
+            lut = torch.zeros((n_user,), dtype=torch.int64, device=dev)
+            lut[need] = torch.arange(len(need), device=dev)
+            pick = lut[user_idx.long()]
 
-            def sel(vals):
-                return torch.stack(vals, 0)[pick, ar]
+        def sel(vals):
+            return vals[0] if len(vals) == 1 else torch.stack(vals, 0)[pick, ar]
 
+        if outs:
             user_state = sel([torch.as_tensor(o[0]).to(torch.int32) for o in outs])
             uem = Emits(*(
                 sel([getattr(o[1], f.name) for o in outs])
@@ -1358,6 +1534,13 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         ev_args[ps, pslot] = em_args[ps, pj]
         ev_pay = st.ev_pay.clone()
         ev_pay[ps, pslot] = em_pay[ps, pj]
+        if timeline_cap:
+            # every placed row was emitted at this dispatch's clock; a
+            # rescheduled (clog-held) row keeps its emit time
+            ev_emit = st.ev_emit.clone()
+            ev_emit[ps, pslot] = now[ps]
+        else:
+            ev_emit = st.ev_emit
 
         # ---- operation-history append: the j-th valid record of a user
         # dispatch takes slot hist_count + j; records past the capacity
@@ -1385,6 +1568,47 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         else:
             hist_count, hist_drop = st.hist_count, st.hist_drop
             hist_word, hist_t = st.hist_word, st.hist_t
+
+        # ---- the coverage taps: features of the dispatched event hashed
+        # into the bitmap, in the reference's order. Nothing here feeds
+        # back into the trajectory, the draws or the trace ----
+        if cov_words:
+            tap = _cov_tapper(cov_words, cov_hitcount, ar)
+            cov, cov_hits = st.cov, st.cov_hits
+            kind_w = kind.to(torch.int64)
+            dst_w = dst.clamp(min=0).to(torch.int64)
+            # the per-node kind transition (previous user kind -> kind)
+            prev_kind = torch.where(in_range, st.cov_last[ar, dst_c], 0).to(torch.int64)
+            f_user = kind_w | ((prev_kind & M32) << 8) | (dst_w << 16)
+            cov, cov_hits = tap(cov, cov_hits, f_user, user_dispatch)
+            # the coarse time phase (2^27 ns, about 134 ms, up to 31)
+            phase = torch.clamp(now >> 27, max=31)
+            f_chaos = kind_w | (phase << 8) | (1 << 24)
+            cov, cov_hits = tap(cov, cov_hits, f_chaos, dispatch & is_engine)
+            f_edge = kind_w | (src.clamp(min=0).to(torch.int64) << 8) | (dst_w << 16) | (3 << 24)
+            cov, cov_hits = tap(cov, cov_hits, f_edge, user_dispatch & is_msg)
+            f_when = kind_w | (phase << 8) | (4 << 24)
+            cov, cov_hits = tap(cov, cov_hits, f_when, user_dispatch)
+            for j in range(rr):
+                r = uem.rec[:, j].to(torch.int64) & M32
+                f_rec = (
+                    ((r[:, 0] * 0x9E3779B1) & M32) ^ ((r[:, 1] * 0x85EBCA6B) & M32)
+                    ^ ((r[:, 2] * 0xC2B2AE35) & M32) ^ r[:, 3] ^ (2 << 24)
+                )
+                cov, cov_hits = tap(cov, cov_hits, f_rec, user_dispatch & uem.rec_valid[:, j])
+            if wl.cov_features is not None:
+                # the workload's features of the post-dispatch fleet
+                # state, their low 24 bits under tag 6
+                for f_wl, on_wl in wl.cov_features(node_state, now):
+                    f_wl = (torch.as_tensor(f_wl, device=dev).to(torch.int64) & 0xFFFFFF) | (6 << 24)
+                    cov, cov_hits = tap(cov, cov_hits, f_wl.expand(s_n),
+                                        user_dispatch & torch.as_tensor(on_wl, device=dev))
+            cov_last = torch.where(
+                (node_ids[None, :] == dst[:, None]) & user_dispatch[:, None],
+                kind[:, None], st.cov_last,
+            )
+        else:
+            cov, cov_last, cov_hits = st.cov, st.cov_last, st.cov_hits
 
         # ---- the fleet counters: values the step computed anyway, and
         # nothing here feeds back into the trajectory ----
@@ -1424,6 +1648,27 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         else:
             met = st.met
 
+        # ---- the timeline ring: the dispatched row, the tuple the trace
+        # folds, at slot tl_count; a full ring counts the drop ----
+        if timeline_cap:
+            tfits = st.tl_count < timeline_cap
+            t_do = dispatch & tfits
+            ts = ar[t_do]
+            tslot = st.tl_count[t_do].long()
+            tl_t, tl_meta, tl_args, tl_pay, tl_emit = (
+                x.clone() for x in (st.tl_t, st.tl_meta, st.tl_args, st.tl_pay, st.tl_emit))
+            tl_t[ts, tslot] = now[t_do]
+            tl_meta[ts, tslot] = meta_i[t_do]
+            tl_args[ts, tslot] = args[t_do]
+            tl_pay[ts, tslot] = pay_i[t_do]
+            tl_emit[ts, tslot] = emit_i[t_do]
+            tl_count = st.tl_count + t_do.to(torch.int32)
+            tl_drop = st.tl_drop + (dispatch & ~tfits).to(torch.int32)
+        else:
+            tl_count, tl_drop = st.tl_count, st.tl_drop
+            tl_t, tl_meta, tl_args = st.tl_t, st.tl_meta, st.tl_args
+            tl_pay, tl_emit = st.tl_pay, st.tl_emit
+
         # ---- trace + clock ----
         trace = torch.where(
             dispatch, _trace_fold(st.trace, now, kind, dst, args, pay_i), st.trace
@@ -1461,6 +1706,17 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             hist_word=hist_word,
             hist_t=hist_t,
             met=met,
+            cov=cov,
+            cov_last=cov_last,
+            cov_hits=cov_hits,
+            tl_count=tl_count,
+            tl_drop=tl_drop,
+            tl_t=tl_t,
+            tl_meta=tl_meta,
+            tl_args=tl_args,
+            tl_pay=tl_pay,
+            ev_emit=ev_emit,
+            tl_emit=tl_emit,
         )
 
     return step
@@ -1473,15 +1729,17 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
 
 
 def make_step_plain(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
-                    metrics: bool = False):
+                    metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
+                    cov_hitcount: bool = False):
     """The plain eager step on any device."""
-    return _plain_step_fn(wl, cfg, dup_rows, metrics)
+    return _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap)
 
 
 def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
-                   dup_rows: bool = False, metrics: bool = False):
+                   dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
+                   timeline_cap: int = 0, cov_hitcount: bool = False):
     """``n_steps`` of the plain eager step on any device."""
-    step = _plain_step_fn(wl, cfg, dup_rows, metrics)
+    step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap)
 
     def run(state: SimState) -> SimState:
         for _ in range(n_steps):
@@ -1492,10 +1750,12 @@ def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
 
 
 def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
-                         dup_rows: bool = False, metrics: bool = False):
+                         dup_rows: bool = False, metrics: bool = False,
+                         cov_words: int = 0, timeline_cap: int = 0,
+                         cov_hitcount: bool = False):
     """The plain eager step until every seed has halted, at most
     ``max_steps`` times; every seed takes the same number of steps."""
-    step = _plain_step_fn(wl, cfg, dup_rows, metrics)
+    step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap)
 
     def run(state: SimState) -> SimState:
         i = 0
@@ -1508,30 +1768,41 @@ def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
 
 
 def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
-              metrics: bool = False):
+              metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
+              cov_hitcount: bool = False):
     """One step: the plain step on a CPU state, the fused kernel with
     ``n_steps=1`` on a CUDA state (raises for a workload, or a
     ``dup_rows`` build, the kernel does not carry)."""
     from .fused import make_run_fused
 
-    return make_run_fused(wl, cfg, 1, dup_rows=dup_rows, metrics=metrics)
+    return make_run_fused(wl, cfg, 1, dup_rows=dup_rows, metrics=metrics,
+                          cov_words=cov_words, timeline_cap=timeline_cap,
+                          cov_hitcount=cov_hitcount)
 
 
 def make_run(wl: Workload, cfg: EngineConfig, n_steps: int, dup_rows: bool = False,
-             metrics: bool = False):
+             metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
+             cov_hitcount: bool = False):
     """``n_steps`` steps: plain on a CPU state, the fused kernel on a
     CUDA state."""
     from .fused import make_run_fused
 
-    return make_run_fused(wl, cfg, n_steps, dup_rows=dup_rows, metrics=metrics)
+    return make_run_fused(wl, cfg, n_steps, dup_rows=dup_rows, metrics=metrics,
+                          cov_words=cov_words, timeline_cap=timeline_cap,
+                          cov_hitcount=cov_hitcount)
 
 
 def make_run_while(wl: Workload, cfg: EngineConfig, max_steps: int,
-                   dup_rows: bool = False, metrics: bool = False):
+                   dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
+                   timeline_cap: int = 0, cov_hitcount: bool = False):
     """Steps until every seed has halted, at most ``max_steps``: plain
     on a CPU state, the fused kernel on a CUDA state. ``metrics`` folds
-    the fleet counters (a state from ``make_init(metrics=True)``)."""
+    the fleet counters (a state from ``make_init(metrics=True)``);
+    ``cov_words``, ``cov_hitcount`` and ``timeline_cap`` run the
+    coverage taps and the timeline ring (a state from ``make_init`` with
+    the same arguments)."""
     from .fused import make_run_fused
 
     return make_run_fused(wl, cfg, max_steps, until_halted=True, dup_rows=dup_rows,
-                          metrics=metrics)
+                          metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
+                          cov_hitcount=cov_hitcount)

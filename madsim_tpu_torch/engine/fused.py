@@ -41,6 +41,21 @@ library's second instantiation of the run kernel, which folds the
 its zero-size ``met`` with the input. The run's ``metrics=`` must agree
 with the row, or the wrapper raises.
 
+The coverage taps and the timeline ring are a third instantiation of
+the run kernel, built only at a library's ``obs_pools`` (the libraries
+and pools that ``chip_smoke.py`` and the card tests drive with them), so
+every other kernel is compiled as before. A state with a coverage or
+ring column (``has_obs``) launches it, and raises
+``NotImplementedError`` at any other library or pool. Its widths are
+runtime words: the state's ``cov``, ``cov_hits`` and ``tl_t`` columns
+give the kernel ``cov_words``, the hit-count flag and ``timeline_cap``
+(config words 9-11, :func:`kernel_args`), which the run's arguments
+must match. Their columns are fresh outputs when the tap is on and the
+input's (zero-size, or for the ring's counters zero) columns when it is
+off. A model's own coverage features (``Workload.cov_features``) are
+its trait's ``cov_features``: leasekv and shardkv always, raftlog in
+the ``cov_spread`` library.
+
 ``make_run_while`` semantics: the JAX loop runs every seed for the same
 ``T = min(cap, steps until every seed has halted)`` iterations, and a
 halted seed's iteration still consumes its earliest slot and counts a
@@ -65,14 +80,18 @@ from pathlib import Path
 import torch
 
 from .core import (
+    COVERAGE_FIELDS,
     N_METRICS,
     STATE_FIELDS,
     STORAGE_FIELDS,
+    TIMELINE_FIELDS,
     EngineConfig,
     SimState,
     Workload,
+    check_obs_state,
     make_run_plain,
     make_run_while_plain,
+    obs_widths,
 )
 
 __all__ = [
@@ -92,7 +111,10 @@ __all__ = [
     "halt_counts",
     "kernel_args",
     "kernel_model",
+    "check_taps",
+    "has_obs",
     "make_run_fused",
+    "obs_words",
     "workload_shape",
 ]
 
@@ -135,6 +157,7 @@ class KernelModel:
     group: int = GROUP  # lanes per seed
     dup: bool = False  # built with the duplication rows (dup_rows=True)
     sync: bool = False  # the trait keeps the sync discipline (durable_sync)
+    obs_pools: tuple = ()  # pools with the observability kernel (the taps)
 
     def draws_source(self) -> str:
         """C++ naming the workload's declared user draw purposes
@@ -179,6 +202,7 @@ class KernelModel:
             f"#define MADSIM_MODEL {self.cxx}\n"
             f"#define MADSIM_POOLS {', '.join(str(p) for p in self.pools)}\n"
             f"#define MADSIM_GROUP {self.group}\n"
+            f"#define MADSIM_OBS_POOLS {', '.join(str(p) for p in self.obs_pools)}\n"
             f'#include "run_kernel.cu"\n'
         )
 
@@ -202,9 +226,12 @@ _KV_WORDS = ("writes", "retx_ns", "client_retx_ns")
 _LEASE_WORDS = ("puts", "ttl_ms", "ka_ms", "scan_ms", "put_ms")
 _SHARD_WORDS = ("writes", "n_migs", "put_ms", "mig_ms", "retx_ms")
 _RAFTLOG_WORDS = ("timeout_min_ns", "timeout_max_ns", "propose_ns", "retx_ns")
-_RAFTLOG_FIXED = (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", False))
+_RAFTLOG_FIXED = (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", False),
+                  ("cov_spread", False))
 _RAFTLOG_STORE_SHAPE = (5, 12, 4, 4, 7, 8, (0, 1), 4)
-_RAFTLOG_STORE = (("n_nodes", 5), ("n_writes", 4), ("chaos", False), ("durable", True))
+_RAFTLOG_STORE = (("n_nodes", 5), ("n_writes", 4), ("chaos", False), ("durable", True),
+                  ("cov_spread", False))
+_RAFTLOG_DURABLE = (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", True))
 _TWOPHASE_WORDS = ("txns", "no_pct", "retx_ns", "revive_min_ns", "revive_max_ns")
 _PAXOS_WORDS = ("start_min_ns", "start_max_ns", "timeout_min_ns",
                 "timeout_max_ns", "kill_min_ns", "kill_max_ns",
@@ -221,7 +248,7 @@ MODELS = {
         KernelModel(
             "raft", "raft-election", "model_raft.cuh", "madsim::RaftModel<false>",
             (5, 6, 2, 0, 6, 5, (0,), 0), (40, 64, 128, 256),
-            ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),),
+            ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),), obs_pools=(40,),
         ),
         KernelModel(
             "raft-record", "raft-election-record", "model_raft.cuh",
@@ -308,6 +335,7 @@ MODELS = {
         KernelModel(
             "leasekv", "leasekv", "model_leasekv.cuh", "madsim::LeaseKvModel<false>",
             (5, 6, 2, 0, 6, 15, (0, 1, 2), 0), (48,), _LEASE_WORDS, _LEASE_FIXED,
+            obs_pools=(48,),
         ),
         KernelModel(
             "leasekv-record", "leasekv-record", "model_leasekv.cuh",
@@ -322,6 +350,7 @@ MODELS = {
         KernelModel(
             "shardkv", "shardkv", "model_shardkv.cuh", "madsim::ShardKvModel<false>",
             (14, 17, 3, 0, 6, 15, (0, 1, 2), 0), (64,), _SHARD_WORDS, _SHARD_FIXED,
+            obs_pools=(64,),
         ),
         KernelModel(
             "shardkv-record", "shardkv-record", "model_shardkv.cuh",
@@ -342,6 +371,7 @@ MODELS = {
             "kvchaos-bug-nochaos", "kvchaos-bug", "model_kvchaos.cuh",
             "madsim::KvChaosModel<false, true, true, false>", _KV_NOCHAOS_SHAPE,
             (96, 192), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", True)),
+            obs_pools=(192,),
         ),
         KernelModel(
             "kvchaos-record-nochaos-dup", "kvchaos-record", "model_kvchaos.cuh",
@@ -372,8 +402,15 @@ MODELS = {
             "raftlog-durable", "raftlog", "model_raftlog.cuh",
             "madsim::RaftLogModel<false, true, true>",
             (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 0), (64, 128), _RAFTLOG_WORDS,
-            (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", True)),
-            sync=True,
+            (*_RAFTLOG_DURABLE, ("cov_spread", False)), sync=True,
+        ),
+        # raftlog durable=True with cov_spread: its coverage features are
+        # the trait's (the coverage searches of the card's smoke run)
+        KernelModel(
+            "raftlog-durable-spread", "raftlog", "model_raftlog.cuh",
+            "madsim::RaftLogModel<false, true, true, false, true>",
+            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 0), (64,), _RAFTLOG_WORDS,
+            (*_RAFTLOG_DURABLE, ("cov_spread", True)), sync=True, obs_pools=(64,),
         ),
         KernelModel(
             "raftlog-durable-record", "raftlog-record", "model_raftlog.cuh",
@@ -394,12 +431,20 @@ MODELS = {
 # columns only when it records, the storage columns only under the sync
 # discipline and met only with metrics
 HISTORY_COLUMNS = ("hist_count", "hist_drop", "hist_word", "hist_t")
+# the ring's columns, with the pool's emit-time sidecar
+RING_FIELDS = (*TIMELINE_FIELDS, "ev_emit")
 KERNEL_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
     "msg_count", "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args",
     "ev_pay", "alive", "paused", "epoch", "node_state", "clog", "slow",
-    "skew", "dup", *HISTORY_COLUMNS, *STORAGE_FIELDS, "met",
+    "skew", "dup", *HISTORY_COLUMNS, *STORAGE_FIELDS, "met", *COVERAGE_FIELDS,
+    *RING_FIELDS,
 )
+# the taps' columns come last; a launch without the taps kernel passes
+# null for them, and check_state skips them: that kernel never reads them
+OBS_KERNEL_FIELDS = (*COVERAGE_FIELDS, *RING_FIELDS)
+BASE_KERNEL_FIELDS = KERNEL_FIELDS[: -len(OBS_KERNEL_FIELDS)]
+_BASE_STATE_FIELDS = tuple(f for f in STATE_FIELDS if f not in OBS_KERNEL_FIELDS)
 READ_ONLY_FIELDS = ("seed",)
 # the run's outputs that are its inputs' tensors: never written
 SHARED_FIELDS = READ_ONLY_FIELDS
@@ -415,6 +460,10 @@ _DTYPES = {
     "hist_drop": torch.int32, "hist_word": torch.int32, "hist_t": torch.int64,
     "disk": torch.int32, "wmask": torch.bool, "sync_loss": torch.bool,
     "sync_eio": torch.bool, "torn": torch.bool, "met": torch.int32,
+    "cov": torch.int64, "cov_last": torch.int32, "cov_hits": torch.uint8,
+    "tl_count": torch.int32, "tl_drop": torch.int32, "tl_t": torch.int64,
+    "tl_meta": torch.int64, "tl_args": torch.int32, "tl_pay": torch.int32,
+    "ev_emit": torch.int64, "tl_emit": torch.int64,
 }
 
 
@@ -469,9 +518,10 @@ def kernel_model(wl: Workload, dup_rows: bool = False) -> KernelModel:
 
 
 def config_words(wl: Workload, cfg: EngineConfig) -> tuple:
-    """The kernel's config words: the engine's 9 (``engine_config`` in
-    csrc/engine_step.cuh, the history capacity last), then the model's
-    runtime words."""
+    """The kernel's config words but the observability widths: the
+    engine's 9 (``engine_config`` in csrc/engine_step.cuh, the history
+    capacity last), then the model's runtime words. :func:`kernel_args`
+    puts the state's three widths (:func:`obs_words`) between them."""
     spec = kernel_model(wl)
     p = dict(wl.model_params)
     return (
@@ -582,7 +632,7 @@ class RunKernel:
             lib.madsim_run.restype = ctypes.c_int
             lib.madsim_run.argtypes = [
                 ctypes.POINTER(ptr), ctypes.POINTER(i64), i64, i64, i32, i32,
-                i32, i32, ptr,
+                i32, i32, i32, ptr,
             ]
             lib.madsim_drain.restype = ctypes.c_int
             lib.madsim_drain.argtypes = [ctypes.POINTER(ptr), i64, i32, i32, ptr]
@@ -590,16 +640,16 @@ class RunKernel:
             lib.madsim_occupancy.argtypes = [i32, i32, ctypes.POINTER(i64)]
             lib.madsim_shape.restype = None
             lib.madsim_shape.argtypes = [ctypes.POINTER(i64)]
-            got = (i64 * 11)()
+            got = (i64 * 12)()
             lib.madsim_shape(got)
             want = (*spec.shape[:6], spec.shape[7], 2 * len(KERNEL_FIELDS) + 4,
                     len(DRAIN_FIELDS) + 2, spec.shape[4] if spec.dup else 0,
-                    int(spec.sync))
+                    int(spec.sync), len(spec.obs_pools))
             if tuple(got) != want:
                 raise RuntimeError(
                     f"library {path} is built for (N, U, A, W, K, H, R, run "
-                    f"and drain pointers, shadow rows, sync) = {tuple(got)}; "
-                    f"model {spec.key!r} needs {want}"
+                    f"and drain pointers, shadow rows, sync, obs pools) = "
+                    f"{tuple(got)}; model {spec.key!r} needs {want}"
                 )
             self._libs[spec.key] = lib
         return lib
@@ -616,8 +666,8 @@ class RunKernel:
         ptrs, cfg = kernel_args(state, out, tables, iters, tmax, cfg_words)
         rc = lib.madsim_run(
             ptrs, cfg, state.seed.shape[0], int(budget), state.ev_valid.shape[1],
-            int(stop_at_halt), int(has_metrics(state)), state.device.index or 0,
-            torch.cuda.current_stream(state.device).cuda_stream,
+            int(stop_at_halt), int(has_metrics(state)), int(has_obs(state)),
+            state.device.index or 0, torch.cuda.current_stream(state.device).cuda_stream,
         )
         if rc != 0:
             raise RuntimeError(f"run kernel launch for {spec.key!r} failed: error {rc}")
@@ -664,21 +714,37 @@ KERNEL = RunKernel()
 DRAIN_FIELDS = ("step", "ev_valid", "ev_time")
 
 
+# the engine's config words in front of the observability widths
+ENGINE_WORDS = 9
+
+
+def obs_words(state: SimState) -> tuple:
+    """The config words 9-11 of a run of ``state``: its coverage words,
+    hit-count flag and ring capacity (``core.obs_widths``)."""
+    cw, hc, tc = obs_widths(state)
+    return (cw, int(hc), tc)
+
+
 def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words):
     """The ctypes pointer array and config words of one run launch: the
     input fields, the output fields (null where the kernel writes
-    none), the tables, ``iters`` and ``tmax``. The caller keeps every
-    tensor alive until the launch has run."""
-    ins = [getattr(state, f).data_ptr() for f in KERNEL_FIELDS]
-    unwritten = (*READ_ONLY_FIELDS, *_unwritten(state))
-    outs = [
-        0 if f in unwritten else getattr(out, f).data_ptr()
-        for f in KERNEL_FIELDS
-    ]
+    none), the tables, ``iters`` and ``tmax``; ``cfg_words``
+    (:func:`config_words`) with the state's observability widths after
+    the engine's words. The caller keeps every tensor alive until the
+    launch has run."""
+    fields = KERNEL_FIELDS if has_obs(state) else BASE_KERNEL_FIELDS
+    unwritten = {*READ_ONLY_FIELDS, *_unwritten(state)}
+    ins = [getattr(state, f).data_ptr() for f in fields]
+    outs = [0 if f in unwritten else getattr(out, f).data_ptr() for f in fields]
+    pad = [0] * (len(KERNEL_FIELDS) - len(fields))
     rest = [t.data_ptr() for t in (*tables, iters)]
     rest.append(0 if tmax is None else tmax.data_ptr())
-    ptrs = (ctypes.c_void_p * (len(ins) * 2 + 4))(*ins, *outs, *rest)
-    cfg = (ctypes.c_int64 * len(cfg_words))(*cfg_words)
+    ptrs = (ctypes.c_void_p * (len(KERNEL_FIELDS) * 2 + 4))(*ins, *pad, *outs, *pad, *rest)
+    # missing engine words (a model without histories may leave out
+    # the capacity) are zero
+    engine = (*cfg_words[:ENGINE_WORDS], *(0,) * (ENGINE_WORDS - len(cfg_words)))
+    words = (*engine, *obs_words(state), *cfg_words[ENGINE_WORDS:])
+    cfg = (ctypes.c_int64 * len(words))(*words)
     return ptrs, cfg
 
 
@@ -687,13 +753,22 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     port's dtype and of the workload's shape, with a pool size the
     model's kernel was compiled for; only a record library takes a
     state with history rows, only a sync library one with storage rows;
-    ``met`` has no slot or all ``N_METRICS``."""
+    ``met`` has no slot or all ``N_METRICS``; with a coverage or ring
+    column, the taps' columns are those of ``make_init`` at the state's
+    widths (without, the kernel never reads them)."""
     dev = state.device
     s, e = state.ev_valid.shape
     if e not in spec.pools:
         raise ValueError(
             f"pool_size={e} has no {spec.key} kernel instantiation; "
             f"supported: {spec.pools}"
+        )
+    if has_obs(state) and e not in spec.obs_pools:
+        built = {m.key: m.obs_pools for m in MODELS.values() if m.obs_pools}
+        raise NotImplementedError(
+            f"library {spec.key!r} has no kernel with the coverage taps and the "
+            f"timeline ring at pool_size={e}; built: {built}; the others are "
+            f"ROADMAP queue B1"
         )
     hcap = _history_capacity(wl)
     if (spec.shape[7] > 0) != (hcap > 0):
@@ -703,6 +778,9 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
         )
     n, u = wl.n_nodes, wl.state_width
     d = n if wl.durable_sync else 0
+    cw, hc, tc = obs_widths(state)
+    if cw & (cw - 1):
+        raise ValueError(f"cov_words={cw} must be 0 (off) or a power of two")
     shapes = dict(
         ev_time=(s, e), ev_valid=(s, e), ev_meta=(s, e), ev_epoch=(s, e),
         ev_args=(s, e, wl.args_words), ev_pay=(s, e, wl.payload_words),
@@ -711,8 +789,11 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
         hist_word=(s, hcap, 5), hist_t=(s, hcap),
         disk=(s, d, u), wmask=(s, d, u), sync_loss=(s, d), sync_eio=(s, d), torn=(s, d),
         met=(s, N_METRICS if has_metrics(state) else 0),
+        cov=(s, cw), cov_last=(s, n if cw else 0), cov_hits=(s, cw * 32 if hc else 0),
+        tl_t=(s, tc), tl_meta=(s, tc), tl_args=(s, tc, wl.args_words),
+        tl_pay=(s, tc, wl.payload_words), ev_emit=(s, e if tc else 0), tl_emit=(s, tc),
     )
-    for name in STATE_FIELDS:
+    for name in STATE_FIELDS if has_obs(state) else _BASE_STATE_FIELDS:
         t = getattr(state, name)
         if t.device != dev or t.dtype != _DTYPES[name] or not t.is_contiguous():
             raise ValueError(
@@ -747,6 +828,14 @@ def _tables(wl: Workload, dev) -> tuple:
     return got
 
 
+def has_obs(state: SimState) -> bool:
+    """Whether ``state`` carries a coverage or ring column (``make_init``
+    with ``cov_words`` or ``timeline_cap``): a run of it launches the run
+    kernel with the taps."""
+    cw, _hc, tc = obs_widths(state)
+    return bool(cw or tc)
+
+
 def has_metrics(state: SimState) -> bool:
     """Whether ``state`` carries the fleet counters
     (``make_init(metrics=True)``): a run of it launches the run kernel
@@ -768,12 +857,16 @@ def _check_metrics(state: SimState, metrics: bool) -> None:
 def _unwritten(state: SimState) -> tuple:
     """The columns a run of ``state`` leaves as they are: the history
     columns when the state has no history rows (a workload that records
-    nothing), the storage columns without the sync discipline, and
-    ``met`` without metrics."""
+    nothing), the storage columns without the sync discipline, ``met``
+    without metrics, and the coverage or ring columns with their tap
+    off."""
+    cw, _hc, tc = obs_widths(state)
     return (
         (HISTORY_COLUMNS if state.hist_word.shape[1] == 0 else ())
         + (STORAGE_FIELDS if state.disk.shape[1] == 0 else ())
         + (() if has_metrics(state) else ("met",))
+        + (() if cw else COVERAGE_FIELDS)
+        + (() if tc else RING_FIELDS)
     )
 
 
@@ -781,7 +874,7 @@ def fresh_outputs(state: SimState) -> SimState:
     """The run kernel's outputs: ``torch.empty`` for every field it
     writes; ``seed``, and the columns a run leaves as they are
     (history, storage, ``met``: ``_unwritten``), are the input's."""
-    shared = (*SHARED_FIELDS, *_unwritten(state))
+    shared = {*SHARED_FIELDS, *_unwritten(state)}
     return SimState(**{
         f: getattr(state, f) if f in shared else torch.empty_like(getattr(state, f))
         for f in STATE_FIELDS
@@ -820,24 +913,35 @@ def drain_plain(step, ev_valid, ev_time, r):
     return step + r, ev_valid
 
 
+def check_taps(state: SimState, metrics: bool, cov_words: int = 0,
+               cov_hitcount: bool = False, timeline_cap: int = 0) -> None:
+    """Raise unless a CUDA run's tap arguments agree with ``state``'s
+    derived columns, which pick the kernel's instantiation and widths."""
+    _check_metrics(state, metrics)
+    check_obs_state(state, cov_words, cov_hitcount, timeline_cap)
+
+
 def make_run_fused(
     wl: Workload, cfg: EngineConfig, n_steps: int, until_halted: bool = False,
-    dup_rows: bool = False, metrics: bool = False,
+    dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
+    timeline_cap: int = 0, cov_hitcount: bool = False,
 ):
     """Build ``run(state) -> SimState``: ``n_steps`` steps (or, with
     ``until_halted``, steps until every seed has halted, at most
     ``n_steps``) in the fused kernel, with the duplication rows when
-    ``dup_rows`` and the fleet counters when ``metrics``. A CPU state
-    takes the plain step; a CUDA state launches the kernel or raises."""
+    ``dup_rows``, the fleet counters when ``metrics`` and the coverage
+    taps and the timeline ring at the given widths. A CPU state takes
+    the plain step; a CUDA state launches the kernel or raises."""
+    obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount)
     plain = (
-        make_run_while_plain(wl, cfg, n_steps, dup_rows, metrics) if until_halted
-        else make_run_plain(wl, cfg, n_steps, dup_rows, metrics)
+        make_run_while_plain(wl, cfg, n_steps, dup_rows, metrics, **obs) if until_halted
+        else make_run_plain(wl, cfg, n_steps, dup_rows, metrics, **obs)
     )
 
     def run(state: SimState) -> SimState:
         if state.device.type == "cpu":
             return plain(state)
-        _check_metrics(state, metrics)
+        check_taps(state, metrics, **obs)
         spec, out, iters, tmax = _first_pass(wl, cfg, state, n_steps, until_halted,
                                              dup_rows)
         if until_halted:

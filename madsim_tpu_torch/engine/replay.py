@@ -40,7 +40,11 @@ _M64 = (1 << 64) - 1
 
 @dataclass(frozen=True)
 class ReplayEvent:
-    """One dispatched event: the tuple the trace hash folds."""
+    """One dispatched event: the tuple the trace hash folds.
+
+    ``emit_ns`` is the clock at which the event entered the pool (for a
+    message, its sender's dispatch), as the timeline ring captures it;
+    -1 = not captured (oracle replays). It is not part of the trace."""
 
     time_ns: int
     kind: int
@@ -48,6 +52,7 @@ class ReplayEvent:
     src: int  # -1 = timer or engine event, else the sending node
     args: tuple
     pay: tuple
+    emit_ns: int = -1
 
     def kind_name(self, wl: Workload | None = None) -> str:
         # the extended chaos kinds (>= FIRST_EXT_KIND) are engine kinds too

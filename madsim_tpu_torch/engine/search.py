@@ -30,18 +30,23 @@ seed into pre-seeded pool rows; its hash joins the repro banner, so
 
 ``metrics=True`` folds the fleet counters (``engine.core.MET_*``) into
 ``report.met``, and the banner splits the seeds by how they stopped.
+``cov_words`` (with ``cov_hitcount``) returns each seed's coverage
+bitmap as ``report.cov``, and ``timeline_cap`` its timeline ring as
+``report.timeline`` (``obs.decode_timeline`` reads it); a ring that
+overflowed is named in the banner and voids no verdict.
 
 On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
 run and drain kernels), or with ``compact=True`` the compacted runner's
-one stop-at-halt launch. The reference's other observability options
-raise ``NotImplementedError`` until their engine axes are ported
-(ROADMAP item A8).
+one stop-at-halt launch. The reference's ``latency``, ``causal`` and
+``retry`` raise ``NotImplementedError`` until their engine axes are
+ported (ROADMAP item A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from types import SimpleNamespace
 from typing import Callable, Mapping
 
 import numpy as np
@@ -60,6 +65,7 @@ from .core import (
     HALT_TIME_LIMIT,
     MET_HALT_CODE,
     STATE_FIELDS,
+    TIMELINE_FIELDS,
     EngineConfig,
     Workload,
     make_init,
@@ -78,15 +84,17 @@ _RUN_CACHE: dict = {}
 
 def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                     compact: bool, device, hist_screen=None, plan_slots: int = 0,
-                    dup_rows: bool = False, metrics: bool = False):
+                    dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
+                    cov_hitcount: bool = False, timeline_cap: int = 0):
     # the one construction of a sweep's (init, run) pair, for make_sweep
     # and search_seeds alike; only the compacted runner embeds a screen
-    init = make_init(wl, cfg, device=device, plan_slots=plan_slots, metrics=metrics)
+    taps = dict(metrics=metrics, cov_words=cov_words, cov_hitcount=cov_hitcount,
+                timeline_cap=timeline_cap)
+    init = make_init(wl, cfg, device=device, plan_slots=plan_slots, **taps)
     run = (
         make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen, dup_rows=dup_rows,
-                           metrics=metrics)
-        if compact else make_run_while(wl, cfg, max_steps, dup_rows=dup_rows,
-                                       metrics=metrics)
+                           **taps)
+        if compact else make_run_while(wl, cfg, max_steps, dup_rows=dup_rows, **taps)
     )
     return init, run
 
@@ -111,15 +119,15 @@ def make_sweep(
     batch (with ``plan_slots`` rows of a compiled plan), run
     ``make_run_while`` to the step cap, and return the final state as a
     ``{field name: device tensor}`` view, with no host transfer and no
-    invariant. ``metrics`` folds the fleet counters; the options after it
-    raise ``NotImplementedError`` until their engine axes are ported."""
-    refuse_unported(
-        cov_words=cov_words,
-        timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-        latency=latency, causal=causal, retry=retry,
-    )
+    invariant. ``metrics``, ``cov_words``, ``timeline_cap`` and
+    ``cov_hitcount`` run the observability taps; ``latency``, ``causal``
+    and ``retry`` raise ``NotImplementedError`` until their engine axes
+    are ported."""
+    refuse_unported(latency=latency, causal=causal, retry=retry)
     init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device),
-                                plan_slots=plan_slots, dup_rows=dup_rows, metrics=metrics)
+                                plan_slots=plan_slots, dup_rows=dup_rows, metrics=metrics,
+                                cov_words=cov_words, cov_hitcount=cov_hitcount,
+                                timeline_cap=timeline_cap)
 
     def sweep(seeds, rows=None):
         out = run(init(seeds, rows) if plan_slots else init(seeds))
@@ -130,15 +138,18 @@ def make_sweep(
 
 def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                   compact: bool, dev, hist_screen=None, plan_slots: int = 0,
-                  dup_rows: bool = False, metrics: bool = False):
+                  dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
+                  cov_hitcount: bool = False, timeline_cap: int = 0):
     from .fused import workload_shape
 
     key = (wl.name, workload_shape(wl), wl.model_params, wl.history, wl.durable_cols,
-           wl.durable_sync, cfg.hash(), max_steps, compact, str(dev), hist_screen,
-           plan_slots, dup_rows, metrics)
+           wl.durable_sync, wl.cov_features is not None, cfg.hash(), max_steps, compact,
+           str(dev), hist_screen, plan_slots, dup_rows, metrics, cov_words, cov_hitcount,
+           timeline_cap)
     if key not in _RUN_CACHE:
         _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
-                                          plan_slots, dup_rows, metrics)
+                                          plan_slots, dup_rows, metrics, cov_words,
+                                          cov_hitcount, timeline_cap)
     return _RUN_CACHE[key]
 
 
@@ -159,9 +170,8 @@ def _library_build_s(wl: Workload, dev, dup_rows: bool = False) -> float:
 
 @dataclasses.dataclass
 class SearchReport:
-    """Outcome of one batched invariant sweep. The reference's coverage
-    fields and its observability fields but ``met`` wait for ROADMAP
-    item A8."""
+    """Outcome of one batched invariant sweep. The reference's latency
+    and causal fields wait for ROADMAP item A8."""
 
     workload: str
     config_hash: str
@@ -201,6 +211,14 @@ class SearchReport:
     # (S, N_METRICS) int32 fleet counters (metrics=True), else None; the
     # MET_HALT_CODE column says how each seed stopped
     met: np.ndarray | None = None
+    # (S, cov_words) uint32 coverage bitmaps (cov_words > 0), else None
+    cov: np.ndarray | None = None
+    # the timeline rings (timeline_cap > 0): a namespace of the seven
+    # tl_* columns, each seed-leading (obs.decode_timeline reads one
+    # seed's stream); tl_dropped marks the seeds whose ring overflowed,
+    # which voids no verdict (the timeline is forensics, not evidence)
+    timeline: object | None = None
+    tl_dropped: np.ndarray | None = None
 
     @property
     def failing_seeds(self) -> np.ndarray:
@@ -263,6 +281,12 @@ class SearchReport:
                 f"  WARNING: {int(self.overflowed.sum())} seed(s) "
                 f"overflowed the event pool or history buffer{detail}; "
                 f"excluded (raise pool_size / HistorySpec capacity)"
+            )
+        if self.tl_dropped is not None and self.tl_dropped.any():
+            lines.append(
+                f"  WARNING: {int(self.tl_dropped.sum())} seed(s) "
+                f"overflowed the timeline ring (raise timeline_cap; "
+                f"verdicts unaffected — the timeline is forensics only)"
             )
         if self.screen_ok is not None:
             fold = (
@@ -388,12 +412,16 @@ def search_seeds(
     ``plan.uses_dup()``.
 
     ``metrics=True`` returns each seed's fleet counters as
-    ``report.met`` (``engine.core.MET_*``).
+    ``report.met`` (``engine.core.MET_*``). ``cov_words=CW`` (a power of
+    two) returns each seed's coverage bitmap as ``report.cov`` (with
+    ``cov_hitcount`` keyed by hit-count classes), and ``timeline_cap=T``
+    its timeline ring as ``report.timeline``; seeds whose ring
+    overflowed are ``report.tl_dropped``, named in the banner, with
+    their verdicts unchanged.
 
     ``device`` is where the sweep runs, the card unless the caller asks
-    for the CPU. Of the options after ``dup_rows``, all but ``metrics``
-    and ``device_check`` raise ``NotImplementedError`` until their
-    engine axes are ported.
+    for the CPU. ``latency``, ``causal`` and ``retry`` raise
+    ``NotImplementedError`` until their engine axes are ported.
     """
     if history_invariant is not None and wl.history is None:
         raise ValueError(
@@ -415,11 +443,7 @@ def search_seeds(
                 "them via check.device.screens_invariant in a test, not "
                 "in one sweep)"
             )
-    refuse_unported(
-        cov_words=cov_words,
-        timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-        latency=latency, causal=causal, retry=retry,
-    )
+    refuse_unported(latency=latency, causal=causal, retry=retry)
     if invariant is None and history_invariant is None and screens is None:
         raise ValueError(
             "need an invariant, a history_invariant or a device_check"
@@ -456,7 +480,8 @@ def search_seeds(
     dup_rows = bool(dup_rows)
     dev = resolve_device(device)
     init, run = _compiled_run(wl, cfg, max_steps, compact, dev,
-                              screens if compact else None, plan_slots, dup_rows, metrics)
+                              screens if compact else None, plan_slots, dup_rows, metrics,
+                              cov_words, cov_hitcount, timeline_cap)
     build_wall_s = _library_build_s(wl, dev, dup_rows)
     out = run(init(seeds, rows) if rows is not None else init(seeds))
     if compact:
@@ -510,6 +535,10 @@ def search_seeds(
     halted = view["halted"]
     if require_halt:
         ok = ok & halted
+    tl = tl_dropped = None
+    if timeline_cap:
+        tl = SimpleNamespace(**{f: np.asarray(view[f]) for f in TIMELINE_FIELDS})
+        tl_dropped = tl.tl_drop > 0
     return SearchReport(
         workload=wl.name,
         config_hash=cfg.hash(),
@@ -530,4 +559,7 @@ def search_seeds(
         hist_fold=view["hist_fold"] if screens is not None and compact else None,
         plan_hash=plan_hash,
         met=np.asarray(view["met"]) if metrics else None,
+        cov=np.asarray(view["cov"]) if cov_words else None,
+        timeline=tl,
+        tl_dropped=tl_dropped,
     )

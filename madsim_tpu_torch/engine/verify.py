@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .core import (
+    OBS_FIELDS,
     STATE_FIELDS,
     STORAGE_FIELDS,
     EngineConfig,
@@ -44,10 +45,10 @@ __all__ = [
 # mirrors the hash and knows nothing of histories), so the determinism
 # checks compare them directly
 HISTORY_FIELDS = ("hist_count", "hist_drop", "hist_word", "hist_t")
-# the sync discipline's columns and the fleet counters: outside the
-# trace hash too (zero-size without the discipline or metrics), so both
-# checks compare them directly
-DERIVED_FIELDS = (*STORAGE_FIELDS, "met")
+# the sync discipline's columns, the fleet counters and the coverage and
+# timeline columns: outside the trace hash too (zero-size without the
+# discipline or the taps), so both checks compare them directly
+DERIVED_FIELDS = (*STORAGE_FIELDS, "met", *OBS_FIELDS)
 # the fields check_layouts holds besides the trace and DERIVED_FIELDS:
 # the reference's list
 LAYOUT_FIELDS = (
@@ -130,18 +131,22 @@ def compare_fields(a, b, what: str = "run", fields: tuple = LAYOUT_FIELDS) -> No
 
 def check_determinism(
     wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None,
-    metrics: bool = False,
+    metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
+    cov_hitcount: bool = False,
 ) -> None:
     """Run the workload twice over ``seeds`` on ``device`` (the card
     unless the caller asks for the CPU); raise on any divergence of the
-    trace, the history, the storage columns or (with ``metrics``) the
-    fleet counters.
+    trace, the history, the storage columns or the columns of the taps
+    the run carries (``metrics``, ``cov_words``, ``timeline_cap``,
+    ``cov_hitcount``).
 
     Catches hidden nondeterminism in handlers, the way the reference's
     two-run RNG-log compare catches nondeterministic user code."""
     seeds = np.asarray(seeds, np.uint64)
-    init = make_init(wl, cfg, device=device, metrics=metrics)
-    run = make_run(wl, cfg, n_steps, metrics=metrics)
+    taps = dict(metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
+                cov_hitcount=cov_hitcount)
+    init = make_init(wl, cfg, device=device, **taps)
+    run = make_run(wl, cfg, n_steps, **taps)
     a = run(init(seeds))
     b = run(init(seeds))
     compare_traces(a, b, what=f"{wl.name} x2")
@@ -150,7 +155,8 @@ def check_determinism(
 
 def check_layouts(
     wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None,
-    metrics: bool = False,
+    metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
+    cov_hitcount: bool = False,
 ) -> None:
     """Run ``seeds`` through the fused kernel on the card and through
     the plain eager step on the card, and the first 256 of them through
@@ -165,12 +171,14 @@ def check_layouts(
             "so there is nothing to compare (use check_determinism)"
         )
     seeds = np.asarray(seeds, np.uint64)
-    init = make_init(wl, cfg, device=dev, metrics=metrics)
-    fused = make_run(wl, cfg, n_steps, metrics=metrics)(init(seeds))
-    plain = make_run_plain(wl, cfg, n_steps, metrics=metrics)(init(seeds))
+    taps = dict(metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
+                cov_hitcount=cov_hitcount)
+    init = make_init(wl, cfg, device=dev, **taps)
+    fused = make_run(wl, cfg, n_steps, **taps)(init(seeds))
+    plain = make_run_plain(wl, cfg, n_steps, **taps)(init(seeds))
     k = min(CPU_SEEDS, len(seeds))
-    cpu = make_run_plain(wl, cfg, n_steps, metrics=metrics)(
-        make_init(wl, cfg, device="cpu", metrics=metrics)(seeds[:k]))
+    cpu = make_run_plain(wl, cfg, n_steps, **taps)(
+        make_init(wl, cfg, device="cpu", **taps)(seeds[:k]))
     head = SimState(**{f: getattr(fused, f)[:k] for f in STATE_FIELDS})
     for what, a, b in (
         (f"{wl.name} fused-vs-plain on {dev}", fused, plain),

@@ -43,6 +43,7 @@ from ..engine.core import (
     KIND_KILL, KIND_RESTART, HistorySpec, Workload, get_col, set_col,
     set_cols, user_kind,
 )
+from ..engine.rng import M32
 
 # history op codes (check.lease_safety reads these)
 OP_PUT = OP_USER  # serve: key = lease id, arg = put seq
@@ -296,6 +297,18 @@ def make_leasekv(
     if record:
         name += "-bug" if bug else "-record"
 
+    def _cov(ns, now):
+        """Protocol coverage (Workload.cov_features): which leases are
+        live, the expiry count and the watcher's stream lag."""
+        live_bits = torch.zeros_like(ns[:, SERVER, 0], dtype=torch.int64)
+        for lid in range(1, n_clients + 1):
+            live_bits = live_bits | ((ns[:, SERVER, lid - 1] > 0).to(torch.int64) << lid)
+        exp = torch.clamp(ns[:, SERVER, c_exp_cnt], max=15).to(torch.int64) & M32
+        lag = torch.clamp(ns[:, SERVER, c_wseq] - ns[:, watcher, 0], 0, 15).to(torch.int64)
+        f1 = live_bits | (exp << 8) | (1 << 16)
+        f2 = lag | (1 << 17)
+        return ((f1, True), (f2, True))
+
     return Workload(
         name=name,
         n_nodes=n,
@@ -311,6 +324,7 @@ def make_leasekv(
         args_words=2,
         draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
         history=hist,
+        cov_features=_cov,
         model_params=(
             ("n_clients", n_clients),
             ("puts", puts),

@@ -45,6 +45,7 @@ import torch
 
 from ..check.history import OP_USER
 from ..engine.core import KIND_KILL, KIND_RESTART, HistorySpec, Workload, set_cols, user_kind
+from ..engine.rng import M32
 
 # history op kinds (record=True): an election win and a leader commit;
 # with durable=True also a synced log-length change and a recovery
@@ -89,14 +90,15 @@ def make_raftlog(
 ) -> Workload:
     """The log-replication workload; ``record=True`` records elections
     and commits, ``durable=True`` persists the Figure-2 columns under the
-    sync discipline and ``bug="nosync"`` never syncs them. ``army`` and
-    ``cov_spread`` raise ``NotImplementedError`` until the latency
-    markers and coverage words are ported (ROADMAP queue A8)."""
-    if army or cov_spread:
+    sync discipline and ``bug="nosync"`` never syncs them.
+    ``cov_spread=True`` adds the fleet's commit-index spread to the
+    coverage features (``Workload.cov_features``). ``army`` raises
+    ``NotImplementedError`` until the latency markers are ported (ROADMAP
+    queue A8)."""
+    if army:
         raise NotImplementedError(
-            "make_raftlog's army and cov_spread need the latency markers "
-            "and coverage words, which the torch port does not have yet "
-            "(ROADMAP queue A8)"
+            "make_raftlog's army needs the latency markers, which the "
+            "torch port does not have yet (ROADMAP queue A8)"
         )
     if bug not in (None, "nosync"):
         raise ValueError(f"unknown raftlog bug {bug!r} (only 'nosync')")
@@ -341,6 +343,18 @@ def make_raftlog(
         eb.after(retx_ns, user_kind(_H_RETX), ctx.node, (term,), when=alive_leader)
         return ctx.state, eb.build()
 
+    def _commit_spread(ns, now):
+        """Protocol coverage (Workload.cov_features, ``cov_spread``): the
+        servers' commit-index spread, and the (floor, spread) pair, each
+        field masked to its byte."""
+        c = ns[:, :n_nodes, COMMIT].to(torch.int64)
+        lo = c.min(1).values & M32
+        spread = ((c.max(1).values & M32) - lo) & M32
+        return (
+            (spread, True),
+            ((lo & 0xFF) | ((spread & 0xFF) << 8) | (1 << 16), True),
+        )
+
     return Workload(
         name="raftlog" + ("-nosync" if bug == "nosync" else "")
         + ("-record" if record else ""),
@@ -369,6 +383,7 @@ def make_raftlog(
         ),
         draw_purposes=(_P_TIMEOUT, _P_VALUE)
         + ((_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else ()),
+        cov_features=_commit_spread if cov_spread else None,
         model_params=(
             ("n_nodes", n_nodes),
             ("n_writes", n_writes),
@@ -379,5 +394,6 @@ def make_raftlog(
             ("chaos", chaos),
             ("durable", durable),
             ("bug", bug),
+            ("cov_spread", cov_spread),
         ),
     )

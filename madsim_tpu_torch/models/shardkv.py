@@ -48,6 +48,7 @@ from ..engine.core import (
     KIND_KILL, KIND_RESTART, HistorySpec, Workload, get_col, set_col,
     set_cols, user_kind,
 )
+from ..engine.rng import M32
 
 # history op codes (check.shard_coverage reads these)
 OP_SHARD_WRITE = OP_USER  # commit: key = shard, arg = version
@@ -382,6 +383,18 @@ def make_shardkv(
     if record:
         name += "-bug" if bug else "-record"
 
+    def _cov(ns, now):
+        """Protocol coverage (Workload.cov_features): the migration edge
+        the controller is on and the fleet-wide shard ownership count."""
+        ctl = ns[:, CONTROLLER]
+        ep = torch.clamp(ctl[:, _C_EPOCH], max=255).to(torch.int64) & M32
+        ph = torch.clamp(ctl[:, _C_PHASE], 0, 1).to(torch.int64)
+        ms = torch.clamp(ctl[:, _C_MIG_S], 0, 7).to(torch.int64)
+        f1 = ep | (ph << 8) | (ms << 9) | (1 << 20)
+        owned = sum((ns[:, 2 + g * R, S:2 * S] > 0).sum(1) for g in range(G))
+        f2 = torch.clamp(owned.to(torch.int64), max=63) | (1 << 21)
+        return ((f1, True), (f2, True))
+
     return Workload(
         name=name,
         n_nodes=n,
@@ -400,6 +413,7 @@ def make_shardkv(
         durable_cols=tuple(range(width)),
         draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
         history=hist,
+        cov_features=_cov,
         model_params=(
             ("n_groups", n_groups),
             ("group_size", group_size),

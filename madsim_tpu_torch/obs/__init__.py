@@ -1,0 +1,11 @@
+"""Observability: reading the engine's observability columns on the host.
+
+Port of the part of ``madsim_tpu/obs`` that the ported taps feed: the
+timeline ring's decoder (:mod:`.timeline`). The fleet counters
+(``metrics=True``) and the coverage bitmap (``cov_words``) are plain
+columns of the state and of ``SearchReport``.
+"""
+
+from .timeline import decode_timeline, refold_timeline, timeline_counts
+
+__all__ = ["decode_timeline", "refold_timeline", "timeline_counts"]

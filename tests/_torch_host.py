@@ -5,6 +5,7 @@ through the same argument packing as the CUDA launch. On the host one
 thread plays each seed's G lanes in turn (``csrc/lanes.cuh``). Imports
 no JAX, so the card-only tests that use it run where JAX is absent."""
 
+import _torch_threads  # noqa: F401
 import ctypes
 import shutil
 import subprocess
@@ -23,12 +24,16 @@ HOST_UNIT = r"""
 namespace {{
 using Model = {cxx};
 constexpr int G = {group};
-template <int E, bool MET>
+template <int E, bool MET, bool OBS>
 void run_all(const madsim::RunArgs& a, const Model::Params& p) {{
-  auto blk = std::make_unique<madsim::Seed<Model, E, MET>>();
+  // one seed's Seed and, with OBS, its observability tail
+  const size_t bytes = madsim::seed_stride<madsim::Seed<Model, E, MET>, Model::N, E>(a.cfg);
+  std::unique_ptr<madsim::Vec16[]> mem(new madsim::Vec16[(bytes + 15) / 16]());
+  const auto blk = madsim::make_block<Model, E, MET, OBS>(
+      reinterpret_cast<unsigned char*>(mem.get()), a.cfg);
   int64_t most = 0;
   for (int64_t i = 0; i < a.n_seeds; i++) {{
-    const int64_t m = madsim::run_block<Model, E, G, MET>(blk.get(), a, p, i, 1, 0, 1);
+    const int64_t m = madsim::run_block<Model, E, G, MET, OBS>(blk, a, p, i, 1, 0, 1);
     most = m > most ? m : most;
   }}
   if (a.tmax != nullptr) *a.tmax = most;
@@ -41,7 +46,7 @@ void drain_all(const madsim::DrainArgs& d) {{
 }}  // namespace
 extern "C" int host_run(void* const* ptrs, const int64_t* cfg, int64_t n,
                         int64_t budget, int32_t pool, int32_t stop_at_halt,
-                        int32_t metrics) {{
+                        int32_t metrics, int32_t obs) {{
   const madsim::RunArgs a = madsim::run_args(ptrs, cfg, n, budget, stop_at_halt);
   const Model::Params p = Model::params(cfg + madsim::kEngineWords);
   switch (pool) {{
@@ -59,18 +64,23 @@ extern "C" int host_drain(void* const* ptrs, int64_t n, int32_t pool) {{
 """
 
 
-def build_host_kernel(tmp_dir, spec, pools, group=None):
+def build_host_kernel(tmp_dir, spec, pools, group=None, obs=False):
     """g++ build of ``spec``'s device code (engine_step.cuh, lanes.cuh
     and its model header, MADSIM_HD = plain C++) with host entry points
     that run the kernel's blocks, one seed each, over CPU tensors, with
-    ``group`` lanes per seed (the model's own by default); a ctypes
-    library."""
+    ``group`` lanes per seed (the model's own by default) and, with
+    ``obs``, the instantiation with the coverage taps and the timeline
+    ring; a ctypes library."""
     if shutil.which("g++") is None:
         pytest.skip("g++ unavailable")
     group = spec.group if group is None else group
+
+    def case(e, o):
+        return f"metrics ? run_all<{e}, true, {o}>(a, p) : run_all<{e}, false, {o}>(a, p)"
+
     run_cases = "\n".join(
-        f"    case {e}: metrics ? run_all<{e}, true>(a, p) : run_all<{e}, false>(a, p); "
-        f"return 0;" for e in pools
+        f"    case {e}: if (obs) {{ {case(e, 'true') if obs else 'return -2'}; }} "
+        f"else {{ {case(e, 'false')}; }} return 0;" for e in pools
     )
     drain_cases = "\n".join(f"    case {e}: drain_all<{e}>(d); return 0;" for e in pools)
     src = tmp_dir / f"host_{spec.key}_g{group}.cpp"
@@ -86,7 +96,8 @@ def build_host_kernel(tmp_dir, spec, pools, group=None):
     h = ctypes.CDLL(str(lib))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     h.host_run.restype = ctypes.c_int
-    h.host_run.argtypes = [ctypes.POINTER(ptr), ctypes.POINTER(i64), i64, i64, i32, i32, i32]
+    h.host_run.argtypes = [ctypes.POINTER(ptr), ctypes.POINTER(i64), i64, i64, i32, i32, i32,
+                           i32]
     h.host_drain.restype = ctypes.c_int
     h.host_drain.argtypes = [ctypes.POINTER(ptr), i64, i32]
     return h
@@ -96,7 +107,8 @@ def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None):
     """One run launch of the host build from CPU state ``state`` into
     fresh outputs; returns ``(out, iters, tmax)``. ``words`` defaults
     to the registered model's config words; a state with the counter
-    row runs the instantiation with the fleet counters."""
+    row runs the instantiation with the fleet counters, one with a
+    coverage or ring column the one with the taps."""
     s, e = state.ev_valid.shape
     out = fused.fresh_outputs(state)
     iters = torch.empty((s,), dtype=torch.int64)
@@ -105,7 +117,7 @@ def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None):
         words = fused.config_words(wl, cfg)
     ptrs, c = fused.kernel_args(state, out, fused._tables(wl, "cpu"), iters, tmax, words)
     assert lib.host_run(ptrs, c, s, int(budget), e, int(stop_at_halt),
-                        int(fused.has_metrics(state))) == 0
+                        int(fused.has_metrics(state)), int(fused.has_obs(state))) == 0
     return out, iters, tmax
 
 

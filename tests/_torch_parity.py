@@ -4,6 +4,7 @@ ported model of BENCH_SPECS or SOAK_SPECS runs against the reference
 (its spec and workload shape, a run through both engines, the C++
 oracle's traces)."""
 
+import _torch_threads  # noqa: F401
 import dataclasses
 import shutil
 

@@ -145,9 +145,9 @@ def test_refuses_a_time32_checkpoint(tmp_path):
 
 @pytest.mark.parametrize(
     "field,value,item",
-    [("tl_count", np.array([0, 3, 0, 0], np.int32), "A8"),
-     ("cov_last", np.zeros((4, 5), np.int32), "A8"),
-     ("cov", np.zeros((4, 1), np.uint32), "A8"),
+    [("lat_count", np.array([0, 3, 0, 0], np.int32), "A8"),
+     ("tl_seq", np.zeros((4, 5), np.int32), "A8"),
+     ("lam", np.zeros((4, 1), np.uint32), "A8"),
      ("rt_done", np.zeros((4, 1), np.bool_), "A8")],
 )
 def test_refuses_a_non_empty_foreign_field(port_file, field, value, item):

@@ -136,12 +136,13 @@ def test_arguments_are_validated():
         make_run_compacted(wl, cfg, 10, min_size=0)
     with pytest.raises(ValueError, match="unknown result field"):
         make_run_compacted(wl, cfg, 10, fields=("now", "bogus"))
-    # the history columns are banked now (zero-size for raft)
-    make_run_compacted(wl, cfg, 10, fields=("hist_count",))
+    # the history, coverage and ring columns are banked now (zero-size
+    # for raft without the taps)
+    make_run_compacted(wl, cfg, 10, fields=("hist_count", "cov", "tl_t"))
     with pytest.raises(NotImplementedError, match="not in the torch port's SimState"):
-        make_run_compacted(wl, cfg, 10, fields=("cov",))
+        make_run_compacted(wl, cfg, 10, fields=("lat_hist",))
     with pytest.raises(NotImplementedError, match="A8"):
-        make_run_compacted(wl, cfg, 10, cov_words=2)
+        make_run_compacted(wl, cfg, 10, causal=True)
     # hist_screen is validated now, not refused: it needs histories and
     # the four history fields banked
     assert "hist_screen" not in UNPORTED_OPTIONS

@@ -16,6 +16,7 @@ Inputs are made with numpy from fixed seeds; torch runs on the CPU with
 ``torch.use_deterministic_algorithms(True)``.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ equal the JAX package's). Exact equality of verdicts, traces and
 history rows.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 

@@ -443,6 +443,8 @@ def test_cuda_budget_zero_copies_the_state():
     for f in tcore.STATE_FIELDS:
         assert torch.equal(getattr(out, f), getattr(st, f)), f
         if getattr(st, f).numel():
-            # raft records nothing: its history columns are the input's
-            shared = f in fused.SHARED_FIELDS or f in fused.HISTORY_COLUMNS
+            # raft records nothing: its history columns are the input's,
+            # and so are the ring's (its two counters too) without a ring
+            shared = (f in fused.SHARED_FIELDS or f in fused.HISTORY_COLUMNS
+                      or f in fused.RING_FIELDS)
             assert (getattr(out, f).data_ptr() == getattr(st, f).data_ptr()) == shared, f

@@ -7,6 +7,7 @@ the reference's keys letter for letter, plus the port's CUDA-event
 times (``None`` on the CPU). Exact equality for the sums.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 

@@ -12,6 +12,7 @@ nemesis soak's crash-and-duplication plan banks the JAX package's
 values. All on the plain step on the CPU; exact equality.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 

@@ -10,6 +10,7 @@ time, kind, args, valid and node, exactly. ``FaultPlan.hash`` and
 ``stack_plan_rows``; the validation errors are the JAX package's.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

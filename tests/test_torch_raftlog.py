@@ -84,11 +84,17 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
     ids=["durable", "nosync", "army", "cov_spread"],
 )
 def test_unported_modes_raise(kw):
-    """army and cov_spread still wait for their A8 axes; durable and
-    nosync build (the sync discipline is ported)."""
-    if "durable" not in kw:
+    """army still waits for its A8 axis; durable and nosync build (the
+    sync discipline is ported), and so does cov_spread (the coverage
+    taps are)."""
+    if "army" in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP queue A8"):
             t_make(**kw)
+        return
+    if "cov_spread" in kw:
+        wl = t_make(**kw)
+        assert wl.cov_features is not None and t_make().cov_features is None
+        assert dict(wl.model_params)["cov_spread"] is True
         return
     wl = t_make(**kw)
     assert wl.durable_sync and wl.name == ("raftlog-nosync" if "bug" in kw else "raftlog")

@@ -7,6 +7,7 @@ the oracle bridge, built into its own directory, gives the JAX
 package's bridge's results. Exact equality.
 """
 
+import _torch_threads  # noqa: F401
 import shutil
 
 import numpy as np

@@ -5,6 +5,7 @@ C++ oracle; the purpose registry, the draw helpers and the bounded
 reductions against the JAX Draw, exactly (integer arithmetic).
 """
 
+import _torch_threads  # noqa: F401
 import dataclasses
 import shutil
 

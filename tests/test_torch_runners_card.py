@@ -260,3 +260,34 @@ def test_cuda_store_search_and_shrink_match_the_cpu():
         want.events, want.rounds, want.tested, want.trace)
     rep = search_seeds(wl, cfg, None, seeds=np.asarray([37], np.uint64), device="cuda", **kw)
     assert rep.failing_seeds.tolist() == [37] and int(rep.traces[0]) == res.trace
+
+
+@pytest.mark.cuda
+def test_cuda_taps_through_search_and_compaction_match_the_cpu():
+    """Coverage and the timeline ring on the card: a search's bitmaps
+    and rings, and the compacted runner's banks, equal the CPU plain
+    step's; the ring refolds to the trace."""
+    _needs_card()
+    from madsim_tpu_torch.obs import decode_timeline, refold_timeline
+
+    wl, cfg = make_raft(), tcore.EngineConfig(**RAFT_KW)
+    taps = dict(cov_words=64, cov_hitcount=True, timeline_cap=16)
+    kw = dict(n_seeds=512, max_steps=RAFT_CAP, **taps)
+    gpu, launches = _counts("raft", lambda: search_seeds(wl, cfg, lambda v: np.ones(512, bool),
+                                                         device="cuda", **kw))
+    assert launches == (1, 1)
+    cpu = search_seeds(wl, cfg, lambda v: np.ones(512, bool), device="cpu", **kw)
+    np.testing.assert_array_equal(gpu.cov, cpu.cov)
+    for f in tcore.TIMELINE_FIELDS:
+        np.testing.assert_array_equal(getattr(gpu.timeline, f), getattr(cpu.timeline, f),
+                                      err_msg=f)
+    assert gpu.banner() == cpu.banner() and gpu.tl_dropped.any()
+    i = int(np.nonzero(~gpu.tl_dropped)[0][0])
+    assert refold_timeline(decode_timeline(gpu.timeline, wl, i), wl) == int(gpu.traces[i])
+    st = tcore.make_init(wl, cfg, device="cuda", **taps)(np.arange(512, dtype=np.uint64))
+    run = make_run_compacted(wl, cfg, RAFT_CAP, min_size=64, **taps)
+    got, launches = _counts("raft", lambda: run(st))
+    assert launches == (1, 0)
+    want = make_run_compacted_plain(wl, cfg, RAFT_CAP, min_size=64, **taps)(st.to("cpu"))
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)

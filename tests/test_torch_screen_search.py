@@ -11,6 +11,7 @@ verdict words, flagged seeds and folded columns; every flagged history
 fails the exact checker.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

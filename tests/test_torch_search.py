@@ -7,6 +7,7 @@ on) finds the reference's failing seeds, with its traces, verdicts and
 are quarantined as in the reference. Exact equality.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 
@@ -134,9 +135,9 @@ def test_sweep_returns_the_final_state():
 @pytest.mark.parametrize(
     "option,item",
     [("device_check", "ported"), ("plan", "ported"),
-     ("plan_rows", "ported"), ("dup_rows", "ported"), ("cov_words", "A8"),
+     ("plan_rows", "ported"), ("dup_rows", "ported"), ("cov_words", "ported"),
      ("metrics", "ported"),
-     ("timeline_cap", "A8"), ("latency", "A8"), ("causal", "A8"), ("retry", "A8")],
+     ("timeline_cap", "ported"), ("latency", "A8"), ("causal", "A8"), ("retry", "A8")],
 )
 def test_unported_options_raise_naming_their_item(option, item):
     from madsim_tpu_torch.chaos import FaultPlan, PauseStorm
@@ -169,6 +170,14 @@ def test_unported_options_raise_naming_their_item(option, item):
             rep = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
                                device="cpu", metrics=True)
             assert rep.met.shape == (4, tcore.N_METRICS) and (rep.met[:, tcore.MET_RNG] > 0).all()
+        elif option in ("cov_words", "timeline_cap"):
+            rep = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                               device="cpu", **{option: value})
+            if option == "cov_words":
+                assert rep.cov.shape == (4, 2) and rep.cov.any() and rep.timeline is None
+            else:
+                assert rep.timeline.tl_t.shape == (4, 8) and rep.cov is None
+                assert (rep.timeline.tl_count > 0).all()
         else:
             # no plan duplicates anything: the shadow rows change nothing
             on, off = (search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,

@@ -7,6 +7,7 @@ reference's wording; ``check_layouts`` needs a card, where the port has
 two lowerings (the fused kernel and the plain step).
 """
 
+import _torch_threads  # noqa: F401
 from types import SimpleNamespace
 
 import numpy as np
