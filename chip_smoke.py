@@ -155,7 +155,38 @@ plain eager step:
    ``obs.decode_timeline`` reads the ring, the rows refold to the pinned
    trace, nothing dropped, one row per dispatched step, the ring equal
    to the plain step's on the CPU;
-43. one JSON line describing each kernel, with its launches on every
+43. the tail-latency tap at the latency soak's shape
+   (``tools/latency_soak.py``): kvchaos-army-nochaos (two replicas, a
+   client army of 64 three-round ops, pool 160, 700 ms clock cap) under
+   the army and GrayFailure plan at 8,192 seeds with
+   ``LatencySpec(ops=64, phases=2, phase_ns=2**28)``, held as phases
+   4-15 (the plain step on the card on the first 1,024 seeds, the five
+   ``lat_*`` columns included, and a CPU sample); the same run with the
+   tap off has every other field equal, traces included; the kernel's
+   ms with and without the tap;
+44. the latency soak's certificates 2 and 3 on the card through
+   ``obs.fleet_latency`` (reduced on the card): 4,096 seeds under the
+   gray plan, whose fleet sketch equals the exact bucketing of the
+   per-op clocks, whose sharded merge (``parallel.merge_latency`` of two
+   halves) equals the whole and whose p50, p90, p99 and p99.9 land
+   within one bucket of numpy's; 2,048 seeds clean and gray, the p99
+   blowup at least 2x; each run's completed ops, ops per window and
+   sketch digest equal the JAX package's (``LAT_PINS``);
+45. the step goldens' two army scenarios (``tools/step_goldens.py``:
+   ``raftlog/army-obs`` and ``kvchaos/army-obs``, 32 seeds, 240 steps,
+   every tap) through the run kernel, ``make_run`` and
+   ``make_run_compacted``, each digest equal to ``ARMY_GOLDENS`` (this
+   script's copy of ``tests/_step_goldens.py``); each of the two
+   libraries then held as phases 4-15 at 4,096 seeds under its
+   scenario;
+46. leasekv-army and shardkv-record-army-nochaos under their client
+   armies (a crash storm, and the retry soak's gray failure without its
+   policy) at 8,192 seeds with the tap, held as phases 4-15; then the
+   SLO screen: ``search_seeds(latency=...)`` at phase 43's shape with
+   the numpy ``check.slo_bounded`` invariant, and
+   ``check.device.slo_breaches`` on the sweep's sketches on the card,
+   flagging the same seeds;
+47. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after), then the card's name and power limit,
    then ``{"ok": true, "device": ...}`` as the last line.
@@ -173,6 +204,7 @@ JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -636,14 +668,14 @@ def raft_extras(device, wl, cfg, cap: int, st, out, med: float) -> None:
             f"the rest {med - r - d:.4f} ms (no state copy)")
 
 
-def drain_check(wl, cfg, cap: int, st, dup_rows: bool = False) -> None:
+def drain_check(wl, cfg, cap: int, st, dup_rows: bool = False, latency=None) -> None:
     """The drain kernel alone against its plain version on the card,
     from the run kernel's stop-at-halt outputs: every seed takes its
     ``tmax - iters`` remaining halted steps; ``step`` and ``ev_valid``
     must be equal."""
     from madsim_tpu_torch.engine.fused import KERNEL, _first_pass, drain_plain
 
-    spec, first, iters, tmax = _first_pass(wl, cfg, st, cap, True, dup_rows)
+    spec, first, iters, tmax = _first_pass(wl, cfg, st, cap, True, dup_rows, latency)
     want_step, want_valid = drain_plain(first.step, first.ev_valid, first.ev_time,
                                         tmax - iters)
     KERNEL.drain(spec, first, iters, tmax)
@@ -708,8 +740,9 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
     the card of the same seeds without metrics: every field but ``met``
     is held against it, the plain step is not run again on the card,
     and the CPU sample, which holds every field, gives the plain ms.
-    ``taps`` (``cov_words``, ``cov_hitcount``, ``timeline_cap``) runs the
-    coverage taps and the timeline ring on every side.
+    ``taps`` (``cov_words``, ``cov_hitcount``, ``timeline_cap``,
+    ``latency``) runs the coverage taps, the timeline ring and the
+    tail-latency tap on every side.
     ``extras(device, wl, cfg, cap, st, out, ms)`` adds a model's own
     checks and timings, given the kernel's median."""
     from madsim_tpu_torch.engine import make_init, make_run_plain, make_run_while
@@ -781,7 +814,7 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
     if refs is not None:
         refs[key] = ref
     if device.type == "cuda":
-        iters = halt_counts(wl, cfg, cap, st, dup_rows)
+        iters = halt_counts(wl, cfg, cap, st, dup_rows, taps.get("latency"))
         counted = int(iters[:ks].sum())
         if counted != seed_steps:
             raise AssertionError(
@@ -792,7 +825,7 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
             # seed-steps; the seeds the plain step did not run count no
             # poll block, so the term stays a lower bound
             seed_steps, drops = int(iters.sum()), drops + int(iters[ks:].sum())
-        drain_check(wl, cfg, cap, st, dup_rows)
+        drain_check(wl, cfg, cap, st, dup_rows, taps.get("latency"))
         log("  drain kernel alone vs its plain version: step and ev_valid equal")
     k = min(cpu_sample, n_seeds)
     t = time.perf_counter()
@@ -2158,6 +2191,361 @@ class Laps:
         self.last = now
 
 
+
+# ---------------------------------------------------------------------------
+# phases 43-46: the tail-latency tap and the client army
+# ---------------------------------------------------------------------------
+
+# tools/latency_soak.py's shape: kvchaos, two replicas and no chaos of its
+# own, under a client army of 64 three-round ops over 5-500 ms, pool 160,
+# a 700 ms clock cap, and a GrayFailure over the client<->primary path
+LAT_SEEDS = 8192
+LAT_STEPS = 4000
+LAT_PLAIN_SEEDS = 1024
+LAT_CPU_SAMPLE = 64
+LAT_KW = dict(pool_size=160, time_limit_ns=700_000_000)
+# certificates 2-3 of tools/latency_soak.py by the JAX package on the CPU:
+# seeds, completed ops, ops per window and the digest of the merged
+# (P, 64) sketch (sketch_digest); the p99s of certificate 3 in ns
+LAT_PINS = {
+    "cert2-gray": (4096, 258174, (144651, 113523), "ead622022c0e23e6"),
+    "cert3-clean": (2048, 119984, (72536, 47448), "7fb30433503c2cc4"),
+    "cert3-gray": (2048, 129163, (72371, 56792), "ae20a768b14dd65c"),
+}
+LAT_P99 = {"cert3-clean": 56431603, "cert3-gray": 451452825}
+# the SLO screen's objective: p99 at most 319.23 ms (the top of ladder
+# bucket 49) in each window of at least 8 ops; under the gray plan about
+# half the seeds breach it
+SLO_BOUND_NS = 319225354
+SLO_MIN_OPS = 8
+
+# the step goldens (tools/step_goldens.py): 32 seeds, 240 steps, every
+# observability tap; this script's copy of the digests of its two army
+# scenarios (tests/_step_goldens.py; a tier-1 test holds the copy equal)
+GOLDEN_SEEDS = 32
+GOLDEN_STEPS = 240
+GOLDEN_OBS = dict(cov_words=8, metrics=True, timeline_cap=48, cov_hitcount=True)
+ARMY_GOLDENS = {
+    "raftlog/army-obs": "36351f09d73b17f2c71ee94f0b18db5d85589688c18deb513c9a8e1f2d114176",
+    "raftlog/army-obs/compact": "f78e96071f53675c045a143229de613f0bd6303dbd0c4609b8c33a61ed53469f",
+    "kvchaos/army-obs": "90432c7f65a8f920b9b736ba005566b3d23e1549a649281d06cf7b22c7f56f8b",
+    "kvchaos/army-obs/compact": "5e5d9161e3c76e86076b03fd5a0dd39c4f8237d145a5ca1867d5afe7ed95d973",
+}
+# the JAX package's SimState fields in its order, less the ones the
+# digest skips (the pool index summaries, the causal and retry columns);
+# its met digests the slots before MET_RETRY
+GOLDEN_FIELDS = (
+    "seed", "now", "step", "halted", "halt_time", "trace", "overflow", "msg_count",
+    "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args", "ev_pay", "alive", "paused",
+    "epoch", "node_state", "clog", "slow", "dup", "skew", "disk", "wmask", "sync_loss",
+    "sync_eio", "torn", "hist_count", "hist_drop", "hist_word", "hist_t", "cov",
+    "cov_last", "cov_hits", "met", "tl_count", "tl_drop", "tl_t", "tl_meta", "tl_args",
+    "tl_pay", "ev_emit", "tl_emit", "lat_inv", "lat_resp", "lat_hist", "lat_count",
+    "lat_drop",
+)
+GOLDEN_MET_SLOTS = 16
+# phase 45 holds each golden library at this many seeds (the plain step
+# on the card on the first GOLDEN_PLAIN_SEEDS) under its scenario
+GOLDEN_HELD_SEEDS = 4096
+GOLDEN_PLAIN_SEEDS = 512
+GOLDEN_CAP = 2000
+
+
+def latency_soak():
+    """``(workload, config, spec, clean plan, gray plan)`` of
+    tools/latency_soak.py."""
+    from madsim_tpu_torch.chaos import FaultPlan, GrayFailure
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec
+    from madsim_tpu_torch.models import kvchaos
+
+    wl = kvchaos.make_kvchaos(writes=20, n_replicas=2, chaos=False, army=True, army_probes=3)
+    army = kvchaos.client_army(n_ops=64, t_min_ns=5_000_000, t_max_ns=500_000_000,
+                               n_replicas=2)
+    gray = GrayFailure(targets=(0, 3), n_links=1, mult_min=8, mult_max=16,
+                       t_min_ns=20_000_000, t_max_ns=250_000_000,
+                       dur_min_ns=250_000_000, dur_max_ns=450_000_000)
+    return (wl, EngineConfig(**LAT_KW), LatencySpec(ops=64, phases=2, phase_ns=1 << 28),
+            FaultPlan((army,), name="army-clean"), FaultPlan((army, gray), name="army-gray"))
+
+
+def sketch_digest(hist) -> str:
+    """The first 16 hex digits of the sha256 of a (P, 64) sketch as int64."""
+    a = np.ascontiguousarray(np.asarray(hist, np.int64))
+    return hashlib.sha256(a.tobytes()).hexdigest()[:16]
+
+
+def golden_digest(fields: dict, names) -> str:
+    """tools/step_goldens.py ``digest_state``: sha256 over ``names`` in
+    order, each field's name, numpy dtype, shape and bytes."""
+    h = hashlib.sha256()
+    for name in names:
+        a = np.asarray(fields[name])
+        if name == "met" and a.ndim >= 1 and a.shape[-1] > GOLDEN_MET_SLOTS:
+            a = a[..., :GOLDEN_MET_SLOTS]
+        h.update(name.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def golden_scenarios() -> dict:
+    """The two army scenarios of tools/step_goldens.py ``scenarios()``:
+    name -> (workload, config, plan, latency spec)."""
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan, GrayFailure
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec
+    from madsim_tpu_torch.models import kvchaos, raftlog
+
+    def plan(army_fn):
+        servers = tuple(range(5))
+        return FaultPlan((
+            army_fn(n_ops=10, t_min_ns=5_000_000, t_max_ns=400_000_000),
+            CrashStorm(targets=servers, n=1, t_min_ns=50_000_000, t_max_ns=200_000_000,
+                       down_min_ns=20_000_000, down_max_ns=80_000_000),
+            GrayFailure(targets=servers, n_links=1, mult_min=4, mult_max=8,
+                        t_min_ns=30_000_000, t_max_ns=150_000_000,
+                        dur_min_ns=50_000_000, dur_max_ns=150_000_000),
+        ))
+
+    kw = dict(loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    lat = LatencySpec(ops=10, phases=3, phase_ns=1 << 27)
+    return {
+        "raftlog/army-obs": (raftlog.make_raftlog(record=True, army=True),
+                             EngineConfig(pool_size=96, **kw), plan(raftlog.client_army), lat),
+        "kvchaos/army-obs": (kvchaos.make_kvchaos(record=True, army=True, army_probes=2),
+                             EngineConfig(pool_size=72, **kw), plan(kvchaos.client_army), lat),
+    }
+
+
+def latency_soak_phase(device, results: list, paths: dict, extra: dict, card: str) -> None:
+    """Phase 43: kvchaos-army-nochaos at the latency soak's shape (8,192
+    seeds, the gray plan, the tap on), held as phases 4-15 with the plain
+    step on the card on the first 1,024 seeds; the same run with the tap
+    off has every other field equal, traces included; both timed."""
+    from madsim_tpu_torch.engine import LATENCY_FIELDS, STATE_FIELDS, make_init, make_run_while
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    wl, cfg, spec, _clean, gray = latency_soak()
+    key = "kvchaos-army-nochaos"
+    log(f"[43] {key}: {LAT_KW}, {LAT_SEEDS} seeds, make_run_while cap {LAT_STEPS}, plan "
+        f"{gray.name}, {spec}; the plain step on the card holds the first "
+        f"{LAT_PLAIN_SEEDS} seeds")
+    off = {}
+
+    def extras(device, wl, cfg, cap, st, out, med):
+        if int(out.lat_count.sum()) < 1 or int(out.lat_drop.sum()):
+            raise AssertionError(f"{key}: no op completed, or markers dropped")
+        seeds = np.arange(LAT_SEEDS, dtype=np.uint64)
+        st_off = make_init(wl, cfg, device=device, plan_slots=gray.slots)(
+            seeds, gray.compile_batch(seeds, wl=wl))
+        run_off = make_run_while(wl, cfg, cap)
+        o = run_off(st_off)
+        bad = [f for f in STATE_FIELDS if f not in LATENCY_FIELDS
+               and not torch.equal(getattr(o, f), getattr(out, f))]
+        if bad or o.lat_inv.numel():
+            raise AssertionError(f"{key}: the tap changed {bad}")
+        off["ms"] = time_ms(lambda: run_off(st_off), REPEATS, device)
+        log(f"  the tap off: traces and every other field equal; {int(out.lat_count.sum())} "
+            f"ops completed, none dropped; kernel ms {spread(off['ms'])} without the tap")
+
+    r = kernel_phase(device, key, wl, cfg, LAT_SEEDS, LAT_STEPS, LAT_CPU_SAMPLE, REPEATS,
+                     extras=extras, plan=gray, all_halt=False, plain_seeds=LAT_PLAIN_SEEDS,
+                     taps=dict(latency=spec))
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
+    results.append((key, f"make_run_fused/{key}/plan-{gray.name}/latency",
+                    f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+    paths.setdefault(key, {})["run_while_latency"] = [r["launches"], r["drains"]]
+    extra.setdefault(key, {}).update(tap_off_ms=statistics.median(off["ms"]),
+                                     tap_off_ms_all=off["ms"])
+    log(f"  kernel median {r['ms']:.4f} ms with the tap, {statistics.median(off['ms']):.4f} "
+        f"without (this call, {card})")
+
+
+def latency_certificates_phase(device, paths: dict, extra: dict) -> None:
+    """Phase 44: the latency soak's certificates 2 and 3 on the card, each
+    fleet sketch's completed ops, windows and digest equal to the JAX
+    package's (LAT_PINS)."""
+    from madsim_tpu_torch.engine import N_LAT_BUCKETS, lat_bucket, make_init, make_run_while
+    from madsim_tpu_torch.obs import fleet_latency, hist_quantile_bucket
+    from madsim_tpu_torch.parallel import merge_latency
+
+    wl, cfg, spec, clean, gray = latency_soak()
+    key = "kvchaos-army-nochaos"
+    fleets, timing = {}, {}
+    for name, plan in (("cert2-gray", gray), ("cert3-clean", clean), ("cert3-gray", gray)):
+        n, ops, windows, digest = LAT_PINS[name]
+        t = time.perf_counter()
+        fl, counts = path_launches(lambda: fleet_latency(
+            wl, cfg, spec, n_seeds=n, max_steps=LAT_STEPS, plan=plan, device=device))
+        timing[name] = (time.perf_counter() - t) * 1e3
+        paths.setdefault(key, {})[f"fleet_{name}"] = run_drain(counts, key)
+        if run_drain(counts, key) != [1, 1]:
+            raise AssertionError(f"{name}: launched {counts}")
+        got = (fl.completed, tuple(int(x) for x in fl.hist.sum(1)), sketch_digest(fl.hist))
+        if got != (ops, windows, digest) or fl.dropped:
+            raise AssertionError(f"{name}: {got}, {fl.dropped} dropped; the JAX package: "
+                                 f"{(ops, windows, digest)}")
+        fleets[name] = fl
+    # certificate 2: the sketch against the exact per-op latencies
+    n = LAT_PINS["cert2-gray"][0]
+    seeds = np.arange(n, dtype=np.uint64)
+    st = make_init(wl, cfg, device=device, plan_slots=gray.slots, latency=spec)(
+        seeds, gray.compile_batch(seeds, wl=wl))
+    out = make_run_while(wl, cfg, LAT_STEPS, latency=spec)(st)
+    inv, resp = out.lat_inv.cpu().numpy(), out.lat_resp.cpu().numpy()
+    done = (inv >= 0) & (resp >= 0)
+    lats = (resp - inv)[done]
+    merged = fleets["cert2-gray"].hist.sum(0)
+    exact = np.bincount(lat_bucket(lats), minlength=N_LAT_BUCKETS)
+    whole = merge_latency(out.lat_hist)
+    halves = merge_latency(out.lat_hist[: n // 2]) + merge_latency(out.lat_hist[n // 2:])
+    if not (np.array_equal(merged, exact) and np.array_equal(whole, halves)
+            and np.array_equal(whole, fleets["cert2-gray"].hist)):
+        raise AssertionError("certificate 2: the sketch is not the exact bucketing, or the "
+                             "sharded merge is not the whole")
+    log(f"[44.2] {int(done.sum())} completed ops over {n} seeds (the JAX package "
+        f"{LAT_PINS['cert2-gray'][1]}): the fleet sketch (reduced on the card) equals the "
+        f"exact bucketing, the merge of halves the whole; fleet_latency ms "
+        f"{timing['cert2-gray']:.1f} (host clock)")
+    for q in (0.5, 0.9, 0.99, 0.999):
+        sk = int(hist_quantile_bucket(merged, q))
+        ex = int(lat_bucket(float(np.quantile(lats, q))))
+        if abs(sk - ex) > 1:
+            raise AssertionError(f"certificate 2: p{q * 100:g} bucket {sk}, exact {ex}")
+        log(f"  p{q * 100:g}: sketch bucket {sk}, exact bucket {ex}")
+    # certificate 3: the clean tail against the gray-failure blowup
+    p99c, p99g = fleets["cert3-clean"].quantile(0.99), fleets["cert3-gray"].quantile(0.99)
+    if (p99c, p99g) != (LAT_P99["cert3-clean"], LAT_P99["cert3-gray"]) or p99g < 2 * p99c:
+        raise AssertionError(f"certificate 3: p99 {p99c} and {p99g} ns")
+    for name in ("cert3-clean", "cert3-gray"):
+        log(f"[44.3] {name} ({LAT_PINS[name][0]} seeds, the JAX package's counts); "
+            f"fleet_latency ms {timing[name]:.1f} (host clock)")
+        log("  " + fleets[name].format().replace("\n", "\n  "))
+    log(f"  p99 clean {p99c / 1e6:.2f} ms, gray {p99g / 1e6:.2f} ms: blowup "
+        f"{p99g / p99c:.2f}x")
+    extra.setdefault(key, {}).update(
+        **{f"fleet_{k}_ms": v for k, v in timing.items()}, p99_blowup=p99g / p99c)
+
+
+def golden_phase(device, results: list, paths: dict, extra: dict) -> None:
+    """Phase 45: the step goldens' two army scenarios through the run
+    kernel, ``make_run`` and ``make_run_compacted``, each digest equal to
+    tests/_step_goldens.py's; then each library held as phases 4-15 at
+    4,096 seeds under its scenario."""
+    from madsim_tpu_torch.engine import make_init, make_run, make_run_compacted
+    from madsim_tpu_torch.engine.convert import state_to_numpy
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    for name, (wl, cfg, plan, lat) in golden_scenarios().items():
+        key = kernel_model(wl).key
+        seeds = np.arange(GOLDEN_SEEDS, dtype=np.uint64)
+        st = make_init(wl, cfg, device=device, plan_slots=plan.slots, latency=lat,
+                       **GOLDEN_OBS)(seeds, plan.compile_batch(seeds, wl=wl))
+        out, c_run = path_launches(
+            lambda: make_run(wl, cfg, GOLDEN_STEPS, latency=lat, **GOLDEN_OBS)(st))
+        co, c_com = path_launches(lambda: make_run_compacted(
+            wl, cfg, GOLDEN_STEPS, latency=lat, min_size=8, **GOLDEN_OBS)(st))
+        got = (golden_digest(state_to_numpy(out), GOLDEN_FIELDS),
+               golden_digest(vars(co), sorted(vars(co))))
+        if got != (ARMY_GOLDENS[name], ARMY_GOLDENS[f"{name}/compact"]):
+            raise AssertionError(f"golden {name}: {got}")
+        if run_drain(c_run, key) != [1, 0] or run_drain(c_com, key) != [1, 0]:
+            raise AssertionError(f"golden {name}: launched {c_run} and {c_com}")
+        paths.setdefault(key, {}).update(golden_run=run_drain(c_run, key),
+                                         golden_compact=run_drain(c_com, key))
+        log(f"[45] golden {name} through {key}: make_run ({GOLDEN_STEPS} steps) and "
+            f"make_run_compacted digests equal tests/_step_goldens.py "
+            f"({got[0][:16]}..., {got[1][:16]}...)")
+        n, cap = GOLDEN_HELD_SEEDS, GOLDEN_CAP
+        log(f"  {key} at {n} seeds under the scenario's plan, every tap and {lat}, "
+            f"make_run_while cap {cap}; the plain step on the card holds the first "
+            f"{GOLDEN_PLAIN_SEEDS} seeds")
+        r = kernel_phase(device, key, wl, cfg, n, cap, LAT_CPU_SAMPLE, REPEATS, plan=plan,
+                         all_halt=False, metrics=True, plain_seeds=GOLDEN_PLAIN_SEEDS,
+                         taps=dict(latency=lat, cov_words=8, cov_hitcount=True,
+                                   timeline_cap=48))
+        if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+            raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; "
+                                 f"error {r['err']}")
+        results.append((key, f"make_run_fused/{key}/plan/obs/latency",
+                        f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+        paths[key]["run_while_latency"] = [r["launches"], r["drains"]]
+
+
+def army_phase(device, results: list, paths: dict, extra: dict) -> None:
+    """Phase 46: leasekv-army and shardkv-record-army-nochaos under their
+    client armies at 8,192 seeds with the tap on, held as phases 4-15;
+    then the SLO screen: ``search_seeds(latency=...)`` at the latency
+    soak's shape with the numpy ``slo_bounded`` invariant, and
+    ``check.device.slo_breaches`` on the sweep's sketches on the card,
+    flagging the same seeds."""
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan, GrayFailure
+    from madsim_tpu_torch.check import slo_bounded
+    from madsim_tpu_torch.check.device import slo_breaches
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec, make_sweep, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import SOAK_SPECS, leasekv, shardkv
+
+    cases = (
+        ("46.1", leasekv.make_leasekv(army=True), EngineConfig(**SOAK_SPECS["leasekv"][1]),
+         FaultPlan((leasekv.client_army(n_ops=16, t_min_ns=5_000_000, t_max_ns=300_000_000),
+                    CrashStorm(targets=(1, 2, 3), n=1)), name="lease-army-crash"),
+         LatencySpec(ops=16, phases=2), 4000),
+        ("46.2", shardkv.make_shardkv(record=True, army=True, chaos=False),
+         EngineConfig(pool_size=96, time_limit_ns=600_000_000),
+         FaultPlan((shardkv.client_army(n_ops=16, t_min_ns=5_000_000, t_max_ns=280_000_000),
+                    GrayFailure(targets=(0, 1), n_links=1, mult_min=8, mult_max=16)),
+                   name="shard-army-gray"),
+         LatencySpec(ops=16), 3000),
+    )
+    for idx, wl, cfg, plan, lat, cap in cases:
+        key = kernel_model(wl).key
+        log(f"[{idx}] {key}: {cfg}, {LAT_SEEDS} seeds, make_run_while cap {cap}, plan "
+            f"{plan.name}, {lat}; the plain step on the card holds the first "
+            f"{LAT_PLAIN_SEEDS} seeds")
+        r = kernel_phase(device, key, wl, cfg, LAT_SEEDS, cap, LAT_CPU_SAMPLE, REPEATS,
+                         plan=plan, plain_seeds=LAT_PLAIN_SEEDS, taps=dict(latency=lat))
+        if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+            raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; "
+                                 f"error {r['err']}")
+        results.append((key, f"make_run_fused/{key}/plan-{plan.name}/latency",
+                        f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+        paths.setdefault(key, {})["run_while_latency"] = [r["launches"], r["drains"]]
+    # the SLO screen
+    wl, cfg, spec, _clean, gray = latency_soak()
+    key = "kvchaos-army-nochaos"
+    n = LAT_SEEDS
+    inv = slo_bounded(SLO_BOUND_NS, min_ops=SLO_MIN_OPS)
+    t = time.perf_counter()
+    rep, counts = path_launches(lambda: search_seeds(
+        wl, cfg, inv, n_seeds=n, max_steps=LAT_STEPS, plan=gray, latency=spec,
+        require_halt=False, device=device))
+    search_ms = (time.perf_counter() - t) * 1e3
+    paths[key]["slo_search"] = run_drain(counts, key)
+    seeds = np.arange(n, dtype=np.uint64)
+    view, counts = path_launches(lambda: make_sweep(
+        wl, cfg, LAT_STEPS, device=device, plan_slots=gray.slots, latency=spec)(
+            seeds, gray.compile_batch(seeds, wl=wl)))
+    paths[key]["slo_sweep"] = run_drain(counts, key)
+    got = []
+    screen_ms = time_ms(lambda: got.append(
+        slo_breaches(view["lat_hist"], SLO_BOUND_NS, min_ops=SLO_MIN_OPS)), REPEATS, device)
+    flagged = got[-1].cpu().numpy()
+    host = ~rep.ok
+    if not np.array_equal(flagged, host) or not 0 < int(host.sum()) < n or rep.overflowed.any():
+        raise AssertionError(f"SLO screen: {int(flagged.sum())} flagged on the card, "
+                             f"{int(host.sum())} by slo_bounded")
+    extra.setdefault(key, {}).update(slo_search_ms=search_ms,
+                                     slo_screen_ms=statistics.median(screen_ms))
+    log(f"[46.3] the SLO screen (p99 <= {SLO_BOUND_NS / 1e6:.2f} ms per window of at least "
+        f"{SLO_MIN_OPS} ops) at {n} seeds under {gray.name}: search_seeds with slo_bounded "
+        f"flags {int(host.sum())} seeds ({search_ms:.1f} ms, host clock); "
+        f"check.device.slo_breaches on the sweep's sketches on the card flags the same "
+        f"seeds in {spread(screen_ms)} ms; launches {paths[key]['slo_search']} and "
+        f"{paths[key]['slo_sweep']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2267,6 +2655,14 @@ def main() -> int:
     lap("phase 41")
     forensics_phase(device, paths, repro)
     lap("phase 42")
+    latency_soak_phase(device, results, paths, extra, card)
+    lap("phase 43")
+    latency_certificates_phase(device, paths, extra)
+    lap("phase 44")
+    golden_phase(device, results, paths, extra)
+    lap("phase 45")
+    army_phase(device, results, paths, extra)
+    lap("phase 46")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}))
         for key, name, src, r in results

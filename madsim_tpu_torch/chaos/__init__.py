@@ -4,7 +4,8 @@
 * **FaultPlan** (``chaos/plan.py``): composable fault specs (crash and
   pause storms, symmetric, asymmetric and partial partitions, flapping
   partitions, gray-failure slow links, message duplication, clock skew,
-  disk-fault windows), compiled per seed with counter-based threefry
+  disk-fault windows) and open-loop client load (``ClientArmy``),
+  compiled per seed with counter-based threefry
   draws keyed ``(seed, plan slot)`` into pre-seeded pool rows
   (``engine.make_init(plan_slots=...)``). ``search_seeds(plan=...)``
   sweeps a plan; ``(seed, config, plan)`` is the repro key.
@@ -12,11 +13,12 @@
   plan)`` to a locally minimal event subset, each round one batched
   run, returned as a replayable ``LiteralPlan``.
 
-Not here yet: ``ClientArmy`` and ``RetryPolicy`` (with the engine's
-latency and retry axes), and the asyncio runtime's ``Nemesis``.
+Not here yet: ``RetryPolicy`` (with the engine's retry axis; building
+one raises), and the asyncio runtime's ``Nemesis``.
 """
 
 from .plan import (  # noqa: F401
+    ClientArmy,
     ClockSkew,
     CrashStorm,
     DiskFault,
@@ -28,6 +30,7 @@ from .plan import (  # noqa: F401
     LiteralPlan,
     Partition,
     PauseStorm,
+    RetryPolicy,
     SlotTemplate,
     kind_name,
     stack_plan_rows,
@@ -35,6 +38,7 @@ from .plan import (  # noqa: F401
 from .shrink import ShrinkResult, shrink_plan  # noqa: F401
 
 __all__ = [
+    "ClientArmy",
     "ClockSkew",
     "CrashStorm",
     "DiskFault",
@@ -46,6 +50,7 @@ __all__ = [
     "LiteralPlan",
     "Partition",
     "PauseStorm",
+    "RetryPolicy",
     "ShrinkResult",
     "SlotTemplate",
     "kind_name",

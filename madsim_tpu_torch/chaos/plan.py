@@ -2,10 +2,11 @@
 
 Port of ``madsim_tpu/chaos/plan.py``: the fault specs, ``FaultPlan``
 and ``LiteralPlan``, compiled with numpy on the host into the engine's
-pre-seeded pool rows (``engine.make_init(plan_slots=...)``). Compiles
-and hashes equal the JAX package's. Not here yet: ``ClientArmy`` and
-``RetryPolicy`` (they wait for the engine's latency and retry axes)
-and ``compile_batch(device=True)`` (ROADMAP A10, explore).
+pre-seeded pool rows (``engine.make_init(plan_slots=...)``), the
+open-loop client load of a :class:`ClientArmy` among them. Compiles and
+hashes equal the JAX package's. Not here yet: ``RetryPolicy`` (it waits
+for the engine's retry axis, ROADMAP A8) and
+``compile_batch(device=True)`` (ROADMAP A10, explore).
 
 The reference ecosystem hand-rolls chaos inside each test (a kill here,
 a clog there — madsim's tests and every model in madsim_tpu/models did
@@ -67,6 +68,7 @@ from ..engine.core import (
 )
 from ..engine.rng import (
     DRAW_SPAN_MAX,
+    PURPOSE_CLIENT,
     PURPOSE_PLAN,
     chance_threshold,
     np_threefry2x32v,
@@ -85,6 +87,8 @@ __all__ = [
     "Duplicate",
     "ClockSkew",
     "DiskFault",
+    "ClientArmy",
+    "RetryPolicy",
     "kind_name",
     "stack_plan_rows",
 ]
@@ -194,10 +198,11 @@ class _Stream:
 
 
 def _pack_slots(s: int, rows):
-    """Stack per-slot ``(time, kind, a0, a1, valid)`` rows into the
-    (S, P[, 2]) column arrays ``compile_batch`` returns, with the node
-    column 0 (engine kinds ignore it). Scalars broadcast over the seed
-    axis."""
+    """Stack per-slot ``(time, kind, a0, a1, valid[, node])`` rows into
+    the (S, P[, 2]) column arrays ``compile_batch`` returns. Scalars
+    broadcast over the seed axis. The optional sixth entry is the pool
+    row's target node (a client-army op's); absent, node 0, which engine
+    kinds ignore."""
 
     def col(v, dtype):
         a = np.asarray(v, dtype)
@@ -210,7 +215,7 @@ def _pack_slots(s: int, rows):
     a0 = np.stack([col(r[2], np.int32) for r in rows], axis=1)
     a1 = np.stack([col(r[3], np.int32) for r in rows], axis=1)
     valid = np.stack([col(r[4], np.bool_) for r in rows], axis=1)
-    node = np.zeros((s, len(rows)), np.int32)
+    node = np.stack([col(r[5] if len(r) > 5 else 0, np.int32) for r in rows], axis=1)
     return time, kind, np.stack([a0, a1], axis=2), valid, node
 
 
@@ -782,6 +787,107 @@ class DiskFault:
         return tuple(out)
 
 
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """A client-side timeout and backoff retry policy for a
+    :class:`ClientArmy`: the reference's fields, so that plans hash
+    alike. The engine's retry axis is not ported yet (ROADMAP A8
+    ``retry``), so building one raises."""
+
+    timeout_ns: int
+    max_attempts: int = 3
+    backoff_base_ns: int = 0
+    backoff_mult: float = 2.0
+    jitter: float = 0.0
+
+    def __post_init__(self):
+        raise NotImplementedError(
+            "RetryPolicy needs the engine's client-retry axis, which the "
+            "torch port does not have yet (ROADMAP A8 retry)"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientArmy:
+    """Open-loop client load: ``n_ops`` user-kind pool rows delivered to
+    ``node`` at threefry-drawn arrival times.
+
+    The arrivals are compiled from ``(seed, PURPOSE_CLIENT + slot)``
+    coordinates into pre-seeded pool rows, so the offered load is a pure
+    function of the seed: the same arrival schedule hits the protocol
+    whatever the faults do to it, which makes tail latency a measurable
+    property instead of a feedback artifact. Op ``i``'s row carries
+    ``args = (op_base + i, arg word)``: the op id indexes the latency
+    columns (``LatencySpec.ops`` must cover ``op_base + n_ops``), and
+    the arg word is a uniform draw in [0, ``arg_hi``) (0 when
+    ``arg_hi`` is 0). ``kind`` is the workload's client handler; the
+    models' ``client_army`` helpers bind it. It composes into a
+    :class:`FaultPlan` like any fault spec.
+    """
+
+    node: int  # target node (the workload's client surface)
+    kind: int  # user kind of the client handler (engine user_kind)
+    n_ops: int = 256
+    t_min_ns: int = 20_000_000
+    t_max_ns: int = 400_000_000
+    arg_hi: int = 0  # args[1] drawn uniform in [0, arg_hi); 0 = constant 0
+    op_base: int = 0  # first op id (several armies share the columns)
+    retry: "RetryPolicy | None" = None  # a RetryPolicy raises until A8 retry
+
+    def __post_init__(self):
+        if self.node < 0:
+            raise ValueError(f"ClientArmy node must be >= 0, got {self.node}")
+        if not FIRST_USER_KIND <= self.kind < FIRST_EXT_KIND:
+            raise ValueError(
+                f"ClientArmy.kind={self.kind} is not a user kind "
+                f"(engine.user_kind range [{FIRST_USER_KIND}, "
+                f"{FIRST_EXT_KIND})) — pass user_kind(handler_index)"
+            )
+        if self.n_ops < 1:
+            raise ValueError(f"n_ops must be >= 1, got {self.n_ops}")
+        if self.arg_hi < 0:
+            raise ValueError(f"arg_hi must be >= 0, got {self.arg_hi}")
+        if self.op_base < 0:
+            raise ValueError(f"op_base must be >= 0, got {self.op_base}")
+        if self.retry is not None:
+            raise NotImplementedError(
+                "ClientArmy.retry needs the engine's client-retry axis, which "
+                "the torch port does not have yet (ROADMAP A8 retry)"
+            )
+        _check_window(self.t_min_ns, self.t_max_ns, "arrival")
+
+    @property
+    def targets(self) -> tuple:
+        """The node this army addresses (validated like a spec's targets)."""
+        return (self.node,)
+
+    @property
+    def slots(self) -> int:
+        return self.n_ops
+
+    def compile_batch(self, seeds, slot: int):
+        # the client stream is namespaced under PURPOSE_CLIENT: arrival
+        # draws never alias a chaos spec's, even inside one plan
+        st = _Stream(seeds, slot, purpose=PURPOSE_CLIENT)
+        rows = []
+        for i in range(self.n_ops):
+            at = st.uniform(self.t_min_ns, self.t_max_ns, 2 * i)
+            word = st.uniform(0, self.arg_hi, 2 * i + 1) if self.arg_hi else 0
+            rows.append((at, self.kind, self.op_base + i, word, True, self.node))
+        return _pack_slots(len(seeds), rows)
+
+    def slot_templates(self) -> tuple:
+        # retime within the arrival window, drop or add ops; the args
+        # stay fixed: the op id is the latency slot
+        return tuple(
+            SlotTemplate(
+                kind=self.kind, t_min_ns=self.t_min_ns,
+                t_max_ns=self.t_max_ns, arg_kind="none",
+            )
+            for _ in range(self.n_ops)
+        )
+
+
 # ---------------------------------------------------------------------------
 # plans
 # ---------------------------------------------------------------------------
@@ -800,7 +906,9 @@ def _check_user_kind(kind: int, wl, what: str) -> None:
         raise ValueError(
             f"{what} injects user kind {kind} (handler index "
             f"{kind - FIRST_USER_KIND}), but workload {wl.name!r} has "
-            f"only {n_handlers} handlers"
+            f"only {n_handlers} handlers — a client army needs the "
+            f"workload built with its client surface enabled "
+            f"(e.g. make_kvchaos(army=True))"
         )
 
 

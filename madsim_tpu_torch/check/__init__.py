@@ -20,12 +20,15 @@ package's ``madsim_tpu.check`` does:
   ``make_run_compacted(hist_screen=...)``.
 
 The first three modules are copies of the JAX package's, which the port
-does not import; ``device.py`` ports its jnp screens to torch. Its
-``violation_cones``, SLO checks (``check/slo.py``) and asyncio
-``Recorder`` are not ported yet (ROADMAP.md).
+does not import; ``device.py`` ports its jnp screens to torch. The SLO
+checks (``slo.py``: ``slo_breaches`` and ``slo_bounded``) judge the
+latency sketches on numpy, ``device.slo_breaches`` as torch ops. Its
+``violation_cones`` and asyncio ``Recorder`` are not ported yet
+(ROADMAP.md).
 """
 
 from . import device  # noqa: F401
+from .slo import slo_bounded, slo_breaches  # noqa: F401
 from .device import HistoryScreen  # noqa: F401
 from .history import (  # noqa: F401
     COL_ARG,
@@ -86,5 +89,7 @@ __all__ = [
     "read_your_writes",
     "recovery_safety",
     "shard_coverage",
+    "slo_bounded",
+    "slo_breaches",
     "stale_reads",
 ]

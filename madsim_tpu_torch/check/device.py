@@ -27,8 +27,9 @@ every record through the fold.
 
 These are torch ops, not hand kernels: a CUDA tensor is screened on the
 card by PyTorch's own kernels, a CPU tensor on the CPU. Nothing moves
-between devices here. Not ported yet: ``violation_cones`` (needs
-``causal``) and ``slo_breaches`` (needs ``latency``), ROADMAP item A8.
+between devices here. :func:`slo_breaches` is the latency detector of
+``check/slo.py`` restated the same way. Not ported yet:
+``violation_cones`` (needs ``causal``), ROADMAP item A8.
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ __all__ = [
     "screen_ok",
     "screens_invariant",
     "shard_coverage",
+    "slo_breaches",
     "stale_reads",
     "unpack_verdicts",
     "verdict_words_to_numpy",
@@ -590,3 +592,39 @@ def fold_verified(word, t, count, drop, ok):
         return w2, t2, n_keep, c - n_keep
 
     return _chunked_seed_map(per_chunk, word, t, count, drop, ok)
+
+
+# ---------------------------------------------------------------------------
+# the latency detector
+# ---------------------------------------------------------------------------
+
+
+def slo_breaches(lat_hist, bound_ns: int, q: float = 0.99, min_ops: int = 16):
+    """``check.slo.slo_breaches`` as torch ops on the sketches' device:
+    (S, P, B) per-seed latency sketches -> (S,) bool, True where some
+    window provably breaches (its quantile bucket's lower edge exceeds
+    the bound), with the rank convention of
+    ``obs.hist_quantile_bucket``."""
+    from ..engine.core import LAT_EDGES_NS, N_LAT_BUCKETS
+
+    if not 0.0 < q < 1.0:
+        raise ValueError(f"q must be in (0, 1), got {q}")
+    if min_ops < 1:
+        raise ValueError(f"min_ops must be >= 1, got {min_ops}")
+    h = torch.as_tensor(lat_hist).to(torch.int64)
+    if h.dim() != 3 or h.shape[2] != N_LAT_BUCKETS:
+        raise ValueError(
+            f"lat_hist must be (S, P, {N_LAT_BUCKETS}), got shape {tuple(h.shape)}"
+        )
+    total = h.sum(-1)  # (S, P)
+    # ceil(q * total) in float64, as numpy computes it
+    rank = torch.ceil(q * total.to(torch.float64)).to(torch.int64).clamp(min=1)
+    cum = h.cumsum(-1)
+    # the first bucket whose cumulative count reaches the rank
+    bucket = (cum < rank[..., None]).sum(-1)
+    bucket = torch.where(total > 0, bucket, -1)
+    edges = torch.from_numpy(LAT_EDGES_NS).to(h.device)
+    bc = bucket.clamp(min=0)
+    lo = torch.where(bc <= 0, 0, edges[(bc - 1).clamp(0, N_LAT_BUCKETS - 2)])
+    breach = (total >= min_ops) & (bucket >= 0) & (lo > int(bound_ns))
+    return breach.any(-1)

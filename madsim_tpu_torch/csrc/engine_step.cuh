@@ -118,6 +118,23 @@
 // to the seed's rows of the output, as history records do, after the
 // block has copied the input's rows there. With every width 0 the tail
 // is empty.
+//
+// Tail latency. A model with L = LatOf<M>::n > 0 latency-marker rows a
+// call (its trait's L, Workload.lat_markers; 1 for the army variants)
+// marks client ops' invokes and responses through Ctx::lat_start and
+// lat_end. The tap's widths are runtime words (engine config words
+// 12-14): the op columns C (0: the tap off), the measurement windows P
+// and the window width. Its columns stay in device memory: a seed's op
+// clocks and sketch take 16 C + 256 P bytes, and only a dispatch that
+// carries a marker touches them, so the block copies the input's rows
+// to the output (copy_latency) and the leader folds each user
+// dispatch's markers, in order, straight into the seed's output rows
+// (lat_fold): the first start wins, the first response wins, an end
+// without a start is ignored and an out-of-range op id counts only in
+// lat_drop. A completed op adds one to the (window of its invoke,
+// ladder bucket of its latency) cell and, with the coverage taps, that
+// pair is a feature under tag 5, after the record taps. With L == 0
+// every latency line compiles away.
 #pragma once
 
 #include <stdint.h>
@@ -176,8 +193,25 @@ constexpr uint64_t kTracePrime = 0x100000001B3ull;
 constexpr uint64_t kTraceMix = 0x9E3779B97F4A7C15ull;
 
 // the engine's words in front of the model's in the config array: the
-// config's nine, then the run's three observability widths
-constexpr int kEngineWords = 12;
+// config's nine, the run's three observability widths, then the latency
+// tap's three
+constexpr int kEngineWords = 15;
+
+// the latency ladder (engine/core.py LAT_EDGES_NS): bucket b of a
+// latency d is the count of these edges at or below d, 0..63
+constexpr int kLatBuckets = 64;
+#define MADSIM_LAT_EDGES \
+    65536ll, 77936ll, 92682ll, 110218ll, 131072ll, 155872ll, 185364ll, \
+    220436ll, 262144ll, 311744ll, 370728ll, 440872ll, 524288ll, 623487ll, \
+    741455ll, 881744ll, 1048576ll, 1246974ll, 1482910ll, 1763488ll, 2097152ll, \
+    2493948ll, 2965821ll, 3526975ll, 4194304ll, 4987896ll, 5931642ll, \
+    7053950ll, 8388608ll, 9975792ll, 11863283ll, 14107901ll, 16777216ll, \
+    19951585ll, 23726566ll, 28215802ll, 33554432ll, 39903169ll, 47453133ll, \
+    56431603ll, 67108864ll, 79806339ll, 94906266ll, 112863206ll, 134217728ll, \
+    159612677ll, 189812531ll, 225726413ll, 268435456ll, 319225354ll, \
+    379625062ll, 451452825ll, 536870912ll, 638450708ll, 759250125ll, \
+    902905651ll, 1073741824ll, 1276901417ll, 1518500250ll, 1805811301ll, \
+    2147483648ll, 2553802834ll, 3037000500ll
 
 // EngineConfig resolved on the host: spans are the uint32 modulo spans
 // (0 already mapped to 1) and time_limit is 2^62 when the config has none
@@ -193,6 +227,9 @@ struct EngineConfig {
   int32_t cov_words;  // coverage bitmap words (0: no coverage taps)
   bool cov_hitcount;  // the hit counters (needs cov_words > 0)
   int32_t tl_cap;     // timeline ring rows (0: no ring)
+  int32_t lat_c;      // latency op columns (0: the tap off)
+  int32_t lat_p;      // latency measurement windows
+  int64_t lat_phase_ns;  // their width
 };
 
 // uint32 span of a [lo, hi) draw, as Draw._reduce: 0 draws from span 1
@@ -203,7 +240,8 @@ MADSIM_HDI uint32_t draw_span(int64_t lo, int64_t hi) {
 
 // c: lat_min, lat_max, loss_u32, proc_min, proc_max, backoff_min,
 //    backoff_max, time_limit_ns (0 = none), history capacity, then the
-//    coverage words, the hit-count flag and the ring capacity
+//    coverage words, the hit-count flag and the ring capacity, then the
+//    latency ops, windows and window width
 inline EngineConfig engine_config(const int64_t* c) {
   EngineConfig e;
   e.lat_min = c[0];
@@ -218,6 +256,9 @@ inline EngineConfig engine_config(const int64_t* c) {
   e.cov_words = static_cast<int32_t>(c[9]);
   e.cov_hitcount = c[10] != 0;
   e.tl_cap = static_cast<int32_t>(c[11]);
+  e.lat_c = static_cast<int32_t>(c[12]);
+  e.lat_p = static_cast<int32_t>(c[13]);
+  e.lat_phase_ns = c[14] > 0 ? c[14] : 1;
   return e;
 }
 // One pointer per SimState field the kernel touches (the port's torch
@@ -225,8 +266,9 @@ inline EngineConfig engine_config(const int64_t* c) {
 // order. The output side has no seed (the kernel never writes it),
 // ev_pay only when W > 0, the history columns only when R > 0, the
 // storage columns only for a SYNC model, met only with metrics, the
-// coverage columns only with coverage and the ring's (with ev_emit) only
-// with a ring.
+// coverage columns only with coverage, the ring's (with ev_emit) only
+// with a ring and the latency columns only with the tap on a model with
+// markers.
 struct Fields {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
@@ -271,9 +313,14 @@ struct Fields {
   int32_t* tl_pay;     // (S,T,W)
   int64_t* tl_emit;    // (S,T)
   int64_t* ev_emit;    // (S,E) with a ring
+  int64_t* lat_inv;    // (S,C) each op's invoke clock, -1 = not yet
+  int64_t* lat_resp;   // (S,C) its response clock, -1 = not yet
+  int32_t* lat_hist;   // (S,P,64) the ladder sketch
+  int32_t* lat_count;  // (S,)
+  int32_t* lat_drop;   // (S,)
 };
 
-constexpr int kFieldPointers = 43;
+constexpr int kFieldPointers = 48;
 
 inline Fields fields(void* const* p) {
   Fields f;
@@ -320,6 +367,11 @@ inline Fields fields(void* const* p) {
   f.tl_pay = static_cast<int32_t*>(p[40]);
   f.tl_emit = static_cast<int64_t*>(p[41]);
   f.ev_emit = static_cast<int64_t*>(p[42]);
+  f.lat_inv = static_cast<int64_t*>(p[43]);
+  f.lat_resp = static_cast<int64_t*>(p[44]);
+  f.lat_hist = static_cast<int32_t*>(p[45]);
+  f.lat_count = static_cast<int32_t*>(p[46]);
+  f.lat_drop = static_cast<int32_t*>(p[47]);
   return f;
 }
 
@@ -456,6 +508,82 @@ struct Rec {
     ok = r;
   }
 };
+
+// one latency-marker row (the port's Emits.lat_valid and lat, one seed):
+// EmitBuilder.lat_start (phase 0) and lat_end (phase 1)
+struct Lat {
+  bool valid;
+  int32_t op, phase;
+};
+
+// A model's latency-marker rows a call: its trait's L, 0 where it
+// declares none (every latency line then compiles away).
+template <class M, class = void>
+struct LatOf {
+  static constexpr int n = 0;
+};
+template <class M>
+struct LatOf<M, std::void_t<decltype(M::L)>> {
+  static constexpr int n = M::L;
+};
+
+// where a seed's latency columns are: its rows of the output, and the
+// tap's widths (c == 0: off); nothing when the model has no markers
+template <int L>
+struct LatOut {
+  int64_t* inv;   // (C,)
+  int64_t* resp;  // (C,)
+  int32_t* hist;  // (P, 64)
+  int32_t* count;
+  int32_t* drop;
+  int32_t c, p;
+  int64_t phase_ns;
+};
+template <>
+struct LatOut<0> {};
+
+// the ladder bucket of a latency: the count of edges at or below it
+MADSIM_HDI int32_t lat_bucket(int64_t d) {
+  const int64_t edges[kLatBuckets - 1] = {MADSIM_LAT_EDGES};
+  int32_t b = 0;
+  for (int k = 0; k < kLatBuckets - 1; k++) b += d >= edges[k];
+  return b;
+}
+
+// Fold a user dispatch's L marker rows into the seed's latency columns,
+// in order, each seeing the last one's writes; `now` is the dispatch
+// clock without the node's skew. feat[j] and on[j] are row j's coverage
+// feature (window, bucket, tag 5) and whether it completed an op. The
+// leader's work.
+template <int L>
+MADSIM_HDI void lat_fold(const LatOut<L>& lo, const Lat* m, int64_t now, uint32_t* feat,
+                         bool* on) {
+  for (int j = 0; j < L; j++) {
+    on[j] = false;
+    if (!m[j].valid) continue;
+    const int32_t oid = m[j].op;
+    if (oid < 0 || oid >= lo.c) {
+      *lo.drop += 1;
+      continue;
+    }
+    const int64_t inv = lo.inv[oid];
+    if (m[j].phase != 1) {  // a start: the first one wins
+      if (inv < 0) lo.inv[oid] = now;
+      continue;
+    }
+    // a response: needs a start, and the first one wins
+    if (inv < 0 || lo.resp[oid] >= 0) continue;
+    lo.resp[oid] = now;
+    const int32_t bkt = lat_bucket(now - inv);
+    // the invoke's window, cast to int32 before the clip as the
+    // reference does (inv >= 0 here, so / is floor division)
+    const int32_t ph = clampi(static_cast<int32_t>(inv / lo.phase_ns), 0, lo.p - 1);
+    lo.hist[ph * kLatBuckets + bkt] += 1;
+    *lo.count += 1;
+    feat[j] = static_cast<uint32_t>(bkt) | (static_cast<uint32_t>(ph) << 8) | (5u << 24);
+    on[j] = true;
+  }
+}
 
 // the history counters of a seed in shared memory, present only when
 // the model records (an empty base takes no bytes)
@@ -656,9 +784,20 @@ struct Ctx {
   const uint32_t* drawn;  // (UserDraws<M>::n,) this step's declared draws
   bool sync_err;          // the node's fsync-EIO flag before the dispatch
   bool* sync_flag;        // the dispatch's fsync
+  Lat* lats;              // (LatOf<M>::n,) the dispatch's latency markers
+  int32_t* n_lat;         // the markers made so far
 
   MADSIM_HDI void sync(bool when) const {
     if (when) *sync_flag = true;
+  }
+  // EmitBuilder.lat_start and lat_end: the next marker row, in call order
+  MADSIM_HDI void lat_start(bool when, int32_t op) const { lat_mark(when, op, 0); }
+  MADSIM_HDI void lat_end(bool when, int32_t op) const { lat_mark(when, op, 1); }
+  MADSIM_HDI void lat_mark(bool when, int32_t op, int32_t phase) const {
+    Lat& m = lats[(*n_lat)++];
+    m.valid = when;
+    m.op = op;
+    m.phase = phase;
   }
 
   MADSIM_HDI uint32_t user(uint32_t purpose) const {
@@ -1094,6 +1233,27 @@ MADSIM_HD void copy_timeline(const Fields& in, const Fields& out, int32_t cap,
   copy_bytes(out.tl_pay + at * M::W, in.tl_pay + at * M::W, rows * M::W * 4, tid, nt);
 }
 
+// Copy the block's latency rows, seeds [first, first + nb), from the
+// input to the output, as copy_history does; the leader's folds then
+// update the output in place. Nothing with the tap off or without
+// markers (the output columns are then the input's).
+template <class M>
+MADSIM_HD void copy_latency(const Fields& in, const Fields& out, const EngineConfig& c,
+                            int64_t first, int nb, int tid, int nt) {
+  if constexpr (LatOf<M>::n > 0) {
+    if (c.lat_c <= 0) return;
+    const int64_t ops = static_cast<int64_t>(nb) * c.lat_c, at = first * c.lat_c;
+    copy_bytes(out.lat_inv + at, in.lat_inv + at, ops * 8, tid, nt);
+    copy_bytes(out.lat_resp + at, in.lat_resp + at, ops * 8, tid, nt);
+    const int64_t hw = static_cast<int64_t>(c.lat_p) * kLatBuckets;
+    copy_bytes(out.lat_hist + first * hw, in.lat_hist + first * hw, nb * hw * 4, tid, nt);
+    copy_bytes(out.lat_count + first, in.lat_count + first, static_cast<int64_t>(nb) * 4,
+               tid, nt);
+    copy_bytes(out.lat_drop + first, in.lat_drop + first, static_cast<int64_t>(nb) * 4,
+               tid, nt);
+  }
+}
+
 // Append a user dispatch's valid record rows at hist_count, hist_count +
 // 1, ...: the row is [op, key, arg, client = dst, ok] and the time the
 // dispatch clock `now` (without the node's skew). Rows past the capacity
@@ -1153,12 +1313,14 @@ MADSIM_HDI void cov_tap(const SeedObs& o, uint32_t feat) {
 // The coverage taps of one dispatch, the leader's, in the reference's
 // order: the kind transition at the node (user) or the kind by time
 // phase (engine), the message edge, the user kind by phase, each valid
-// history record, the model's own features, then the node's last kind.
-// `now` is the dispatch clock without the node's skew.
+// history record, each op the latency markers completed, the model's own
+// features, then the node's last kind. `now` is the dispatch clock
+// without the node's skew.
 template <class M>
 MADSIM_HDI void cov_taps(const SeedObs& o, const int32_t* node_state, int32_t kind,
                          int32_t dst, int32_t src, bool is_engine, bool in_range,
-                         int64_t now, const Rec* recs) {
+                         int64_t now, const Rec* recs, [[maybe_unused]] const uint32_t* lat_f,
+                         [[maybe_unused]] const bool* lat_on) {
   const uint32_t k = static_cast<uint32_t>(kind);
   const uint32_t du = static_cast<uint32_t>(dst > 0 ? dst : 0);
   const uint32_t su = static_cast<uint32_t>(src > 0 ? src : 0);
@@ -1182,6 +1344,10 @@ MADSIM_HDI void cov_taps(const SeedObs& o, const int32_t* node_state, int32_t ki
                      (static_cast<uint32_t>(r.arg) * 0xC2B2AE35u) ^
                      static_cast<uint32_t>(r.ok) ^ (2u << 24));
     }
+  }
+  if constexpr (LatOf<M>::n > 0) {
+    for (int j = 0; j < LatOf<M>::n; j++)
+      if (lat_on[j]) cov_tap(o, lat_f[j]);
   }
   if constexpr (CovOf<M>::n > 0) {
     uint32_t feats[CovOf<M>::n];
@@ -1301,8 +1467,10 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
                            const typename M::Params& mp,
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols,
-                           const HistOut<M::R>& ho, const SeedObs& o) {
+                           const HistOut<M::R>& ho, const SeedObs& o,
+                           [[maybe_unused]] const LatOut<LatOf<M>::n>& lo) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K, H = M::H;
+  constexpr int L = LatOf<M>::n;
   constexpr bool SYNC = SyncOf<M>::value;
   static_assert(A >= 2 && A <= 4, "engine kinds read args[0:2]");
   static_assert(H >= 1, "handler 0 is on_init");
@@ -1400,8 +1568,19 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
 
   if (dispatch) {
     if (g.leader()) {
-      // the handler's history records (the coverage taps read them too)
+      // the handler's history records and latency markers, and the ops
+      // the markers completed (the coverage taps read them too)
       Rec recs[M::R > 0 ? M::R : 1];
+      [[maybe_unused]] Lat lats[L > 0 ? L : 1];
+      [[maybe_unused]] uint32_t lat_f[L > 0 ? L : 1];
+      [[maybe_unused]] bool lat_on[L > 0 ? L : 1];
+      if constexpr (L > 0) {
+        for (int j = 0; j < L; j++) {
+          lats[j].valid = false;
+          lats[j].op = lats[j].phase = 0;
+          lat_on[j] = false;
+        }
+      }
       if (!is_engine) {
         // user dispatch implies a live, in-range node
         int32_t* row = s.node_state + dst_c * U;
@@ -1419,6 +1598,9 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
         ctx.step = step;
         ctx.drawn = s.user0;
         ctx.sync_flag = &fsync;
+        int32_t n_lat = 0;
+        ctx.lats = L > 0 ? lats : nullptr;
+        ctx.n_lat = &n_lat;
         if constexpr (SYNC) {
           ctx.sync_err = s.sync_eio[dst_c];
         } else {
@@ -1432,6 +1614,9 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
           if constexpr (MET) s.met[MET_RECORD] += kept;
         } else {
           M::handle(h, ctx, mp, s.new_row, s.em, nullptr);
+        }
+        if constexpr (L > 0) {
+          if (lo.c > 0) lat_fold<L>(lo, lats, now, lat_f, lat_on);
         }
         if constexpr (SYNC) {
           // the changed durable columns, against the row before the
@@ -1549,7 +1734,9 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
         }
       }
       if constexpr (OBS) {
-        if (o.cw > 0) cov_taps<M>(o, s.node_state, kind, dst, src, is_engine, in_range, now, recs);
+        if (o.cw > 0)
+          cov_taps<M>(o, s.node_state, kind, dst, src, is_engine, in_range, now, recs, lat_f,
+                      lat_on);
       }
       if constexpr (MET) {
         s.met[MET_DELIVERED] += is_msg;
@@ -1614,7 +1801,7 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols, int64_t budget,
                            bool stop_at_halt, const HistOut<M::R>& ho,
-                           const SeedObs& o) {
+                           const SeedObs& o, const LatOut<LatOf<M>::n>& lo) {
   clear_rows<M, G>(g, s.em);
   g.sync();
   int64_t it = 0;
@@ -1626,7 +1813,7 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
       return budget;
     }
     const bool had_event =
-        engine_step<M, E, G, MET, OBS>(g, s, c, mp, init_rows, volatile_cols, ho, o);
+        engine_step<M, E, G, MET, OBS>(g, s, c, mp, init_rows, volatile_cols, ho, o, lo);
     it++;
     if (!had_event && !s.halted) {
       // an empty pool stays empty: the rest only counts steps
@@ -1654,6 +1841,25 @@ MADSIM_HDI HistOut<M::R> hist_out(const RunArgs& a, int64_t seed) {
   return ho;
 }
 
+// seed `seed`'s latency columns: its rows of the run's output (nothing
+// when the model has no markers)
+template <class M>
+MADSIM_HDI LatOut<LatOf<M>::n> lat_out(const RunArgs& a, int64_t seed) {
+  LatOut<LatOf<M>::n> lo;
+  if constexpr (LatOf<M>::n > 0) {
+    const EngineConfig& c = a.cfg;
+    lo.c = c.lat_c;
+    lo.p = c.lat_p;
+    lo.phase_ns = c.lat_phase_ns;
+    lo.inv = a.out.lat_inv + seed * c.lat_c;
+    lo.resp = a.out.lat_resp + seed * c.lat_c;
+    lo.hist = a.out.lat_hist + seed * c.lat_p * kLatBuckets;
+    lo.count = a.out.lat_count + seed;
+    lo.drop = a.out.lat_drop + seed;
+  }
+  return lo;
+}
+
 // seed `seed`'s observability state: block seed b's shared tail and its
 // rows of the run's output ring
 template <class M, int E, bool MET, bool OBS>
@@ -1679,6 +1885,7 @@ MADSIM_HD int64_t run_block(const Block<M, E, MET, OBS>& blk, const RunArgs& a,
                             const typename M::Params& mp, int64_t first,
                             int nb, int tid, int nt) {
   copy_history<M>(a.in, a.out, a.cfg.hist_cap, first, nb, tid, nt);
+  copy_latency<M>(a.in, a.out, a.cfg, first, nb, tid, nt);
   if constexpr (OBS) copy_timeline<M>(a.in, a.out, a.cfg.tl_cap, first, nb, tid, nt);
   block_load<M, E, MET, OBS>(blk, a.in, first, nb, tid, nt);
   int64_t most = 0;
@@ -1690,7 +1897,8 @@ MADSIM_HD int64_t run_block(const Block<M, E, MET, OBS>& blk, const RunArgs& a,
     const int64_t it = seed_run<M, E, G, MET, OBS>(g, blk[b], a.cfg, mp, a.init_rows,
                                               a.volatile_cols, a.budget, stop,
                                               hist_out<M>(a, first + b),
-                                              seed_obs<M, E, MET, OBS>(blk, b, a, first + b));
+                                              seed_obs<M, E, MET, OBS>(blk, b, a, first + b),
+                                              lat_out<M>(a, first + b));
     if (g.leader()) {
       a.iters[first + b] = it;
       most = it;
@@ -1702,7 +1910,8 @@ MADSIM_HD int64_t run_block(const Block<M, E, MET, OBS>& blk, const RunArgs& a,
     const int64_t it = seed_run<M, E, G, MET, OBS>(g, blk[b], a.cfg, mp, a.init_rows,
                                               a.volatile_cols, a.budget, stop,
                                               hist_out<M>(a, first + b),
-                                              seed_obs<M, E, MET, OBS>(blk, b, a, first + b));
+                                              seed_obs<M, E, MET, OBS>(blk, b, a, first + b),
+                                              lat_out<M>(a, first + b));
     a.iters[first + b] = it;
     most = it > most ? it : most;
   }

@@ -9,20 +9,28 @@
 // call. BUG (kvchaos-bug, with RECORD) plants the lost-write fault: a
 // replica's join also resets the primary's commit point. CHAOS = false
 // is the variant without the model's own kill and restart (chaos=False,
-// for fault plans): on_init emits four rows, not six.
+// for fault plans): on_init emits four rows, not six. ARMY is the
+// army=True variant with NR replicas: three more handlers open the
+// client surface to a chaos.ClientArmy, each op a PROBES-round session
+// of read-only probes through the primary, its invoke and completion
+// marked for the latency tap (L = 1 marker row a call).
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool PAYLOAD, bool RECORD = false, bool BUG = false, bool CHAOS = true>
+template <bool PAYLOAD, bool RECORD = false, bool BUG = false, bool CHAOS = true,
+          bool ARMY = false, int NR_ = 4, int PROBES = 1>
 struct KvChaosModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
-  static constexpr int NR = 4;  // replicas
+  static_assert(NR_ >= 1 && NR_ <= 4, "max_emits is 6 for up to four replicas");
+  static_assert(PROBES >= 1, "an op takes at least one probe round");
+  static constexpr int NR = NR_;  // replicas
   static constexpr int N = NR + 2, U = PAYLOAD ? 6 : 4, A = 2;
-  static constexpr int W = PAYLOAD ? 2 : 0, K = 6, H = 12;
+  static constexpr int W = PAYLOAD ? 2 : 0, K = 6, H = ARMY ? 15 : 12;
   static constexpr int R = RECORD ? 3 : 0;  // history records per call
+  static constexpr int L = ARMY ? 1 : 0;    // latency markers per call
   static constexpr int32_t CLIENT = N - 1;
   static constexpr int32_t majority = NR / 2 + 1;
   static constexpr int32_t full_mask = (1 << NR) - 1;
@@ -47,6 +55,8 @@ struct KvChaosModel {
   static constexpr int32_t K_JRETX = FIRST_USER_KIND + 9;
   static constexpr int32_t K_READ = FIRST_USER_KIND + 10;
   static constexpr int32_t K_READRESP = FIRST_USER_KIND + 11;
+  static constexpr int32_t K_APROBE = FIRST_USER_KIND + 13;
+  static constexpr int32_t K_ARESP = FIRST_USER_KIND + 14;
   static constexpr uint32_t P_KILL_AT = 0, P_KILL_WHO = 1, P_REVIVE = 2;
   static constexpr uint32_t P_VAL0 = 8, P_VAL1 = 9;
 
@@ -80,9 +90,33 @@ struct KvChaosModel {
             KIND_HALT, 0);
   }
 
+  // the army handlers, 12..14: an op arrives at the client (its token's
+  // op id is stripped of retry bits, the identity without retries) and
+  // opens a session; the primary echoes each probe; the client chains
+  // the next round, and the last response completes the op
+  static MADSIM_HDI void army(int32_t h, const C& c, Em* em) {
+    if (h == 12) {
+      const int32_t op = c.args[0] & ((int32_t(1) << 26) - 1);
+      c.lat_start(true, op);
+      em[0].to(true, PRIMARY, K_APROBE, op, PROBES - 1);
+    } else if (h == 13) {
+      em[0].to(true, CLIENT, K_ARESP, c.args[0], c.args[1]);
+    } else {
+      const int32_t op = c.args[0], left = c.args[1];
+      em[0].to(left > 0, PRIMARY, K_APROBE, op, left - 1);
+      c.lat_end(left == 0, op);
+    }
+  }
+
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
                                int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
+    if constexpr (ARMY) {
+      if (h >= 12) {
+        army(h, c, em);
+        return;
+      }
+    }
     switch (h) {
       case 0: {  // on_init
         const bool is_client = c.node == CLIENT;

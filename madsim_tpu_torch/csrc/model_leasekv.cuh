@@ -7,19 +7,25 @@
 // (leasekv-record): the lease lifecycle, served puts and the watch
 // stream append history records, C record rows a call (the scan records
 // one expiry per lease). BUG (leasekv-bug, with RECORD) plants
-// grant-after-expiry: a keepalive renews an expired lease too.
+// grant-after-expiry: a keepalive renews an expired lease too. ARMY is
+// the army=True variant: three more handlers open the watcher to a
+// chaos.ClientArmy, each op a PROBES-round session of read-only probes
+// against the server, its invoke and completion marked for the latency
+// tap (L = 1 marker row a call).
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD = false, bool BUG = false>
+template <bool RECORD = false, bool BUG = false, bool ARMY = false, int PROBES = 1>
 struct LeaseKvModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
+  static_assert(PROBES >= 1, "an op takes at least one probe round");
   static constexpr int C = 3;  // clients; lease id = node id
-  static constexpr int N = C + 2, U = C + 3, A = 2, W = 0, K = 6, H = 15;
+  static constexpr int N = C + 2, U = C + 3, A = 2, W = 0, K = 6, H = ARMY ? 18 : 15;
   static constexpr int R = RECORD ? C : 0;  // history records per call
+  static constexpr int L = ARMY ? 1 : 0;    // latency markers per call
   // history op codes (check.lease_safety)
   static constexpr int32_t OP_PUT = OP_USER, OP_EXPIRE = OP_USER + 1,
                            OP_WATCH_EVT = OP_USER + 2;
@@ -53,6 +59,8 @@ struct LeaseKvModel {
   static constexpr int32_t K_WEVT = FIRST_USER_KIND + 12;
   static constexpr int32_t K_RESYNC = FIRST_USER_KIND + 13;
   static constexpr int32_t K_RESYNC_OK = FIRST_USER_KIND + 14;
+  static constexpr int32_t K_APROBE = FIRST_USER_KIND + 16;
+  static constexpr int32_t K_ARESP = FIRST_USER_KIND + 17;
   static constexpr uint32_t P_KILL_AT = 0, P_KILL_WHO = 1, P_REVIVE = 2;
 
   using Em = Emit<A, W>;
@@ -83,9 +91,31 @@ struct LeaseKvModel {
     f[1] = lag | (1u << 17);
   }
 
+  // the army handlers, 15..17: an op arrives at the watcher and opens a
+  // session; the server echoes each probe; the watcher chains the next
+  // round, and the last response completes the op
+  static MADSIM_HDI void army(int32_t h, const Cx& c, Em* em) {
+    if (h == 15) {
+      c.lat_start(true, c.args[0]);
+      em[0].to(true, SERVER, K_APROBE, c.args[0], PROBES - 1);
+    } else if (h == 16) {
+      em[0].to(true, WATCHER, K_ARESP, c.args[0], c.args[1]);
+    } else {
+      const int32_t op = c.args[0], left = c.args[1];
+      em[0].to(left > 0, SERVER, K_APROBE, op, left - 1);
+      c.lat_end(left == 0, op);
+    }
+  }
+
   static MADSIM_HD void handle(int32_t h, const Cx& c, const Params& p,
                                int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
+    if constexpr (ARMY) {
+      if (h >= 15) {
+        army(h, c, em);
+        return;
+      }
+    }
     switch (h) {
       case 0: {  // on_init
         // a client (re)grants its lease and starts its timers, at t=0

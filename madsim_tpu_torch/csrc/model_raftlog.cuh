@@ -12,7 +12,12 @@
 // gated on ctx.sync_err; with RECORD also the OP_SYNCED and OP_RECOVER
 // records. NOSYNC is the bug="nosync" mutant: the same columns, never
 // synced. SPREAD is cov_spread=True: the commit-index spread as the
-// model's coverage features (CovOf in engine_step.cuh).
+// model's coverage features (CovOf in engine_step.cuh). ARMY is the
+// army=True variant: a sixth node, the client, runs no raft (no
+// election timer, no records); three more handlers take a
+// chaos.ClientArmy's ops there, each a dirty read of server op % 5's
+// commit index, its invoke and completion marked for the latency tap
+// (L = 1 marker row a call). NS is the servers, N every node.
 #pragma once
 
 #include "engine_step.cuh"
@@ -20,12 +25,13 @@
 namespace madsim {
 
 template <bool RECORD = false, bool CHAOS = true, bool DURABLE = false, bool NOSYNC = false,
-          bool SPREAD = false>
+          bool SPREAD = false, bool ARMY = false>
 struct RaftLogModel {
   static_assert(!NOSYNC || DURABLE, "the nosync mutant needs durable=True");
-  static constexpr int N = 5;          // nodes
+  static constexpr int NS = 5;                // servers
+  static constexpr int N = NS + (ARMY ? 1 : 0);  // nodes: the army's client last
   static constexpr int LOGW = 4;       // log entries (n_writes)
-  static constexpr int U = 8 + LOGW, A = 4, W = LOGW, K = N + 2, H = 8;
+  static constexpr int U = 8 + LOGW, A = 4, W = LOGW, K = NS + 2, H = ARMY ? 11 : 8;
   static constexpr int R = RECORD ? LOGW : 0;  // history records per call
   static constexpr bool SYNC = DURABLE;  // the sync discipline
   // the correct placement syncs; the mutant never does
@@ -33,7 +39,9 @@ struct RaftLogModel {
   static constexpr bool REC_STORE = RECORD && DURABLE;
   static constexpr int32_t OP_ELECT = OP_USER, OP_COMMIT = OP_USER + 1,
                            OP_SYNCED = OP_USER + 2, OP_RECOVER = OP_USER + 3;
-  static constexpr int32_t majority = N / 2 + 1;
+  static constexpr int32_t majority = NS / 2 + 1;
+  static constexpr int L = ARMY ? 1 : 0;  // latency markers per call
+  static constexpr int32_t CLIENT = NS;
 
   struct Params {
     int64_t timeout_min;
@@ -54,7 +62,7 @@ struct RaftLogModel {
   static constexpr int NCOV = SPREAD ? 2 : 0;
   static MADSIM_HDI void cov_features(const int32_t* ns, uint32_t* f) {
     int32_t lo = ns[COMMIT], hi = ns[COMMIT];
-    for (int n = 1; n < N; n++) {
+    for (int n = 1; n < NS; n++) {
       const int32_t c = ns[n * U + COMMIT];
       lo = c < lo ? c : lo;
       hi = c > hi ? c : hi;
@@ -70,6 +78,8 @@ struct RaftLogModel {
   static constexpr int32_t K_ACKAPP = FIRST_USER_KIND + 5;
   static constexpr int32_t K_PROPOSE = FIRST_USER_KIND + 6;
   static constexpr int32_t K_RETX = FIRST_USER_KIND + 7;
+  static constexpr int32_t K_APROBE = FIRST_USER_KIND + 9;
+  static constexpr int32_t K_ARESP = FIRST_USER_KIND + 10;
   static constexpr uint32_t P_TIMEOUT = 0, P_VALUE = 1, P_KILL_AT = 2,
                             P_KILL_WHO = 3, P_REVIVE = 4;
 
@@ -98,11 +108,11 @@ struct RaftLogModel {
     e.after(when, d, K_TIMEOUT, c.node, seq);
   }
 
-  // rows 0..N-1: AppendEntries (term, idx, commit, leader) with the
+  // rows 0..NS-1: AppendEntries (term, idx, commit, leader) with the
   // sender's whole log as payload, to every peer
   static MADSIM_HDI void send_appends(Em* em, const C& c, const int32_t* st,
                                       int32_t term, bool when) {
-    for (int32_t q = 0; q < N; q++) {
+    for (int32_t q = 0; q < NS; q++) {
       em[q].to(when && q != c.node, q, K_APPEND, term, st[LOGLEN] - 1);
       em[q].args[2] = st[COMMIT];
       em[q].args[3] = c.node;
@@ -110,19 +120,43 @@ struct RaftLogModel {
     }
   }
 
+  // the army handlers, 8..10: an op arrives at the client and probes
+  // server op % NS; the server answers with its commit index (read
+  // only); the response completes the op
+  static MADSIM_HDI void army(int32_t h, const C& c, Em* em) {
+    const int32_t op = c.args[0];
+    if (h == 8) {
+      c.lat_start(true, op);
+      em[0].to(true, (op % NS + NS) % NS, K_APROBE, op);  // floor mod
+    } else if (h == 9) {
+      em[0].to(true, CLIENT, K_ARESP, op, c.state[COMMIT]);
+    } else {
+      c.lat_end(true, op);
+    }
+  }
+
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
                                int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
+    if constexpr (ARMY) {
+      if (h >= 8) {
+        army(h, c, em);
+        return;
+      }
+    }
     switch (h) {
       case 0: {  // on_init
-        arm(em[0], c, p, 1, true);
+        // the army's client runs no raft
+        const bool is_server = !ARMY || c.node < NS;
+        arm(em[0], c, p, 1, is_server);
         // a re-init at now > 0 is a restart: the log length it recovered
-        if constexpr (REC_STORE) rec[0].record(c.now > 0, OP_RECOVER, 0, st[LOGLEN], OK_OK);
+        if constexpr (REC_STORE)
+          rec[0].record(c.now > 0 && is_server, OP_RECOVER, 0, st[LOGLEN], OK_OK);
         // node 0's t=0 init schedules the seed's kill and restart
         // (restarted nodes re-run on_init at now > 0)
         if constexpr (CHAOS) {
           if (c.node == 0 && c.now == 0) {
-            const int32_t who = static_cast<int32_t>(c.user_int(0, N, P_KILL_WHO));
+            const int32_t who = static_cast<int32_t>(c.user_int(0, NS, P_KILL_WHO));
             const int64_t at = c.user_int(200000000, 500000000, P_KILL_AT);
             const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
             em[1].after(true, at, KIND_KILL, 0, who);
@@ -146,13 +180,13 @@ struct RaftLogModel {
           ns[TSEQ] = st[TSEQ] + 1;
         }
         const int32_t lt = lastterm(st);
-        for (int32_t q = 0; q < N; q++) {
+        for (int32_t q = 0; q < NS; q++) {
           em[q].to(fire && q != c.node, q, K_REQVOTE, term, c.node);
           em[q].args[2] = st[LOGLEN];
           em[q].args[3] = lt;
         }
-        arm(em[N], c, p, st[TSEQ] + 1, fire);
-        arm(em[N + 1], c, p, st[TSEQ], due && err);
+        arm(em[NS], c, p, st[TSEQ] + 1, fire);
+        arm(em[NS + 1], c, p, st[TSEQ], due && err);
         if constexpr (SYNC_EN) c.sync(fire);
         break;
       }
@@ -193,8 +227,8 @@ struct RaftLogModel {
           ns[ACKS] = ns[LOGLEN] > ns[COMMIT] ? (int32_t(1) << c.node) : 0;
         }
         send_appends(em, c, ns, term, wins);
-        em[N].after(wins, p.propose_ns, K_PROPOSE, c.node, term);
-        em[N + 1].after(wins, p.retx_ns, K_RETX, c.node, term);
+        em[NS].after(wins, p.propose_ns, K_PROPOSE, c.node, term);
+        em[NS + 1].after(wins, p.retx_ns, K_RETX, c.node, term);
         if constexpr (RECORD) rec[0].record(wins, OP_ELECT, term, c.node, OK_OK);
         if constexpr (SYNC_EN) c.sync(wins);
         break;
@@ -234,7 +268,7 @@ struct RaftLogModel {
                             idx == st[LOGLEN] - 1 && st[COMMIT] < st[LOGLEN];
         const int32_t acks = counts ? (st[ACKS] | (int32_t(1) << frm)) : st[ACKS];
         int32_t n_acks = 0;
-        for (int32_t q = 0; q < N; q++) n_acks += (acks >> q) & 1;
+        for (int32_t q = 0; q < NS; q++) n_acks += (acks >> q) & 1;
         const bool commit_now = counts && n_acks >= majority;
         ns[ACKS] = acks;
         if (commit_now) ns[COMMIT] = idx + 1;
@@ -245,7 +279,7 @@ struct RaftLogModel {
           for (int32_t j = 0; j < LOGW; j++)
             rec[j].record(commit_now && j >= st[COMMIT] && j <= idx, OP_COMMIT, j,
                           ns[LOG0 + j] & 0xFF, OK_OK);
-        em[N].after(commit_now && ns[COMMIT] == LOGW, 0, KIND_HALT, 0);
+        em[NS].after(commit_now && ns[COMMIT] == LOGW, 0, KIND_HALT, 0);
         break;
       }
       case 6: {  // on_propose: args = (term,)
@@ -261,7 +295,7 @@ struct RaftLogModel {
           ns[ACKS] = int32_t(1) << c.node;
         }
         send_appends(em, c, ns, term, can);
-        em[N].after(alive_leader, p.propose_ns, K_PROPOSE, c.node, term);
+        em[NS].after(alive_leader, p.propose_ns, K_PROPOSE, c.node, term);
         if constexpr (SYNC_EN) c.sync(can);
         if constexpr (REC_STORE && SYNC_EN)
           rec[0].record(can, OP_SYNCED, 0, st[LOGLEN] + 1, OK_OK);
@@ -272,7 +306,7 @@ struct RaftLogModel {
         const bool alive_leader = st[ROLE] == LEADER && term == st[TERM];
         // re-replicate whatever is outstanding; doubles as the heartbeat
         send_appends(em, c, st, term, alive_leader && st[LOGLEN] > 0);
-        em[N].after(alive_leader, p.retx_ns, K_RETX, c.node, term);
+        em[NS].after(alive_leader, p.retx_ns, K_RETX, c.node, term);
         break;
       }
     }

@@ -8,22 +8,33 @@
 // is the record variant (shardkv-record): committed writes and shard
 // installs append history records. BUG (shardkv-bug, with RECORD) plants
 // the lost-shard mutant: the source wipes the shard as it sends the
-// handoff, so a retried handoff installs version 0.
+// handoff, so a retried handoff installs version 0. CHAOS = false drops
+// the seed's own kill and restart (a fault plan brings its own). ARMY is
+// the army=True variant: three more handlers take a chaos.ClientArmy's
+// ops at the client, each an exactly-once put (a dedup floor in client
+// column 3, an OP_ARMY_PUT record with RECORD) and a PROBES-round
+// session of probes to the controller, its invoke and completion marked
+// for the latency tap (L = 1 marker row a call).
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD = false, bool BUG = false>
+template <bool RECORD = false, bool BUG = false, bool CHAOS = true, bool ARMY = false,
+          int PROBES = 1>
 struct ShardKvModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
+  static_assert(PROBES >= 1, "an op takes at least one probe round");
   static constexpr int G = 4, GS = 3, NS = 8;  // groups, group size, shards
-  static constexpr int N = 2 + G * GS, U = 2 * NS + 1, A = 3, W = 0, K = 6, H = 15;
+  static constexpr int N = 2 + G * GS, U = 2 * NS + 1, A = 3, W = 0, K = 6;
+  static constexpr int H = ARMY ? 18 : 15;
   static constexpr int R = RECORD ? 1 : 0;  // history records per call
+  static constexpr int L = ARMY ? 1 : 0;    // latency markers per call
   // history op codes (check.shard_coverage) and the install record's
   // packed arg (check/history.py pack_shard_own)
-  static constexpr int32_t OP_SHARD_WRITE = OP_USER, OP_SHARD_OWN = OP_USER + 1;
+  static constexpr int32_t OP_SHARD_WRITE = OP_USER, OP_SHARD_OWN = OP_USER + 1,
+                           OP_ARMY_PUT = OP_USER + 2;
   static MADSIM_HDI int32_t pack_own(int32_t epoch, int32_t group, int32_t ver) {
     return (epoch << 20) | (group << 16) | (ver & 0xFFFF);
   }
@@ -45,6 +56,8 @@ struct ShardKvModel {
   // count in 1 and its assignment words in 4 and 5
   static constexpr int32_t EPOCH = 0, PHASE = 1, MIG_S = 2, MIG_D = 3, A0 = 4,
                            A1 = 5, DONE = 6, FIN = 7, ACKED = 1;
+  // the client's last army op applied plus one: the exactly-once floor
+  static constexpr int32_t APPLIED = 3;
 
   // protocol coverage (Workload.cov_features, the engine's CovOf): the
   // migration edge the controller is on and the fleet's shard ownership
@@ -75,6 +88,8 @@ struct ShardKvModel {
   static constexpr int32_t K_INSTALL_ACK = FIRST_USER_KIND + 12;
   static constexpr int32_t K_RELEASE = FIRST_USER_KIND + 13;
   static constexpr int32_t K_FIN = FIRST_USER_KIND + 14;
+  static constexpr int32_t K_APROBE = FIRST_USER_KIND + 16;
+  static constexpr int32_t K_ARESP = FIRST_USER_KIND + 17;
   static constexpr uint32_t P_KILL_AT = 0, P_KILL_WHO = 1, P_REVIVE = 2;
 
   using Em = Emit<A, W>;
@@ -97,14 +112,45 @@ struct ShardKvModel {
     e.args[2] = st[MIG_D];
   }
 
+  // the army handlers, 15..17: an op arrives at the client, applies an
+  // exactly-once put (ops come in increasing id order, so op >= floor
+  // admits each once) and opens a session; the controller echoes each
+  // probe; the client chains the next round, and the last response
+  // completes the op. The token's op id and attempt are unpacked (the
+  // attempt is 0 without retries).
+  static MADSIM_HDI void army(int32_t h, const C& c, int32_t* ns, Em* em,
+                              [[maybe_unused]] Rec* rec) {
+    if (h == 15) {
+      const int32_t op = c.args[0] & ((int32_t(1) << 26) - 1);
+      const int32_t att = (c.args[0] >> 26) & 15;
+      const bool applied = op >= c.state[APPLIED];
+      if (applied) ns[APPLIED] = clampi(op + 1, 0, VER_CAP);
+      if constexpr (RECORD) rec[0].record(applied, OP_ARMY_PUT, op, att, OK_OK);
+      c.lat_start(true, op);
+      em[0].to(true, CONTROLLER, K_APROBE, op, PROBES - 1);
+    } else if (h == 16) {
+      em[0].to(true, CLIENT, K_ARESP, c.args[0], c.args[1]);
+    } else {
+      const int32_t op = c.args[0], left = c.args[1];
+      em[0].to(left > 0, CONTROLLER, K_APROBE, op, left - 1);
+      c.lat_end(left == 0, op);
+    }
+  }
+
   static MADSIM_HD void handle(int32_t h, const C& c, const Params& p,
                                int32_t* ns, Em* em, [[maybe_unused]] Rec* rec) {
     const int32_t* st = c.state;
+    if constexpr (ARMY) {
+      if (h >= 15) {
+        army(h, c, ns, em, rec);
+        return;
+      }
+    }
     switch (h) {
       case 0: {  // on_init
         em[0].after(c.node == CONTROLLER, p.mig_ns, K_MIG_T, CONTROLLER);
         em[1].after(c.node == CLIENT, p.put_ns, K_PUT_T, CLIENT);
-        if (c.node == CLIENT) {  // the seed's kill and restart of a primary
+        if (CHAOS && c.node == CLIENT) {  // the seed's kill and restart of a primary
           const int32_t who =
               2 + static_cast<int32_t>(c.user_int(0, G, P_KILL_WHO)) * GS;
           const int64_t at = c.user_int(20000000, 300000000, P_KILL_AT);

@@ -43,6 +43,12 @@
 // ring's rows are written straight to the output, after the block
 // copies the input's rows there.
 //
+// The tail-latency tap needs no switch: it compiles in only for a model
+// with latency markers (its trait's L, engine_step.cuh LatOf), and its
+// widths are runtime config words 12-14. Its columns stay in device
+// memory: the block copies the input's rows to the output and the
+// leader folds each marker there.
+//
 // This file is not compiled alone. engine/fused.py writes, per model, a
 // unit that includes the model's header (model_*.cuh), defines
 //   MADSIM_MODEL  the model trait, e.g. madsim::KvChaosModel<false, true>
@@ -266,8 +272,8 @@ int madsim_occupancy(int32_t pool, int32_t device, int64_t* out) {
 // the model's compile-time shape, for the wrapper to check against the
 // workload: N, U, A, W, K, H, R, the run and drain pointer counts, the
 // duplication shadow rows (0, or K for a dup_rows library), whether
-// it keeps the sync discipline and how many pools have the
-// observability kernel
+// it keeps the sync discipline, how many pools have the observability
+// kernel and its latency-marker rows a call
 void madsim_shape(int64_t* out) {
   out[0] = Model::N;
   out[1] = Model::U;
@@ -281,6 +287,7 @@ void madsim_shape(int64_t* out) {
   out[9] = madsim::DupRows<Model>::n;
   out[10] = madsim::SyncOf<Model>::value;
   out[11] = count_pools<MADSIM_OBS_POOLS>();
+  out[12] = madsim::LatOf<Model>::n;
 }
 
 }  // extern "C"

@@ -73,12 +73,14 @@ __all__ = [
 # the reference's RESULT_FIELDS that the port's SimState has; the
 # reference's others are zero-size for every variant the port runs.
 # cov_hits is not banked (the reference's rule: guidance reads only the
-# bitmap), nor is the pool's ev_emit
+# bitmap), nor is the pool's ev_emit; of the latency tap the sketch and
+# its counters are, the per-op clocks are not (banked sweeps read only
+# the sketch)
 RESULT_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
     "msg_count", "node_state", "disk", "hist_count", "hist_drop", "hist_word",
     "hist_t", "cov", "met", "tl_count", "tl_drop", "tl_t", "tl_meta", "tl_args",
-    "tl_pay", "tl_emit",
+    "tl_pay", "tl_emit", "lat_hist", "lat_count", "lat_drop",
 )
 
 # the extra banked outputs of a ``hist_screen`` run (not SimState
@@ -88,7 +90,7 @@ HIST_FIELDS = ("hist_word", "hist_t", "hist_count", "hist_drop")
 
 # options of the reference's runners whose engine axes the port does not
 # have yet, and the ROADMAP queue A item that ports each
-UNPORTED_OPTIONS = {"latency": "A8", "causal": "A8", "retry": "A8"}
+UNPORTED_OPTIONS = {"causal": "A8", "retry": "A8"}
 
 
 def refuse_unported(**options) -> None:
@@ -272,13 +274,13 @@ def make_run_compacted_plain(
     wl: Workload, cfg: EngineConfig, max_steps: int, shrink: int = 4,
     min_size: int = 2048, fields: tuple = RESULT_FIELDS, dup_rows: bool = False,
     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-    cov_hitcount: bool = False,
+    cov_hitcount: bool = False, latency=None,
 ):
     """The phase program with the plain eager step, on any device."""
     _check(fields, shrink, min_size)
     compute = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
                              metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                             cov_hitcount=cov_hitcount)
+                             cov_hitcount=cov_hitcount, latency=latency)
     return _runner(compute, fields, shrink, min_size, max_steps)
 
 
@@ -316,7 +318,9 @@ def make_run_compacted(
     coverage taps and the timeline ring (a state from ``make_init`` with
     the same arguments); ``cov`` and the ring's ``tl_*`` columns are
     banked, the hit counters are not. A halted row dispatches nothing, so
-    its bitmap and ring stop too.
+    its bitmap and ring stop too. ``latency`` runs the tail-latency tap
+    (a state from ``make_init(latency=...)``); ``lat_hist``,
+    ``lat_count`` and ``lat_drop`` are banked, the per-op clocks are not.
 
     ``hist_screen`` (a ``check.device.HistoryScreen`` or a tuple of
     them) screens every bank's histories on its device and folds the
@@ -327,13 +331,14 @@ def make_run_compacted(
     ``hist_count + hist_fold``). Flagged and overflowed seeds keep every
     record. It needs ``wl.history`` and the four history fields.
 
-    ``latency``, ``causal`` and ``retry`` raise ``NotImplementedError``
-    until their engine axes are ported.
+    ``causal`` and ``retry`` raise ``NotImplementedError`` until their
+    engine axes are ported.
     """
-    refuse_unported(latency=latency, causal=causal, retry=retry)
+    refuse_unported(causal=causal, retry=retry)
     _check(fields, shrink, min_size)
     screens = _screens(wl, hist_screen, fields)
-    obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount)
+    obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
+               latency=latency)
     plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
                            metrics, **obs)
 
@@ -345,7 +350,7 @@ def make_run_compacted(
 
             check_taps(state, metrics, **obs)
             _spec, out, iters, _tmax = _first_pass(wl, cfg, state, max_steps, True,
-                                                   dup_rows)
+                                                   dup_rows, latency)
             banks = one_launch_banks(state, out, iters, fields)
         if screens is None:
             return banks

@@ -71,6 +71,11 @@ NUMPY_DTYPES = {
     "tl_pay": np.int32,
     "ev_emit": np.int64,
     "tl_emit": np.int64,
+    "lat_inv": np.int64,
+    "lat_resp": np.int64,
+    "lat_hist": np.int32,
+    "lat_count": np.int32,
+    "lat_drop": np.int32,
 }
 
 # The JAX package's SimState fields that the port does not carry yet:
@@ -81,13 +86,6 @@ NUMPY_DTYPES = {
 # index summaries (tile_min, tile_cnt) are derived state and travel in
 # no file.
 FOREIGN_FIELDS = {
-    **{f: (dt, shape, "A8 (latency)") for f, dt, shape in (
-        ("lat_inv", np.int64, (0,)),
-        ("lat_resp", np.int64, (0,)),
-        ("lat_hist", np.int32, (0, 0)),
-        ("lat_count", np.int32, ()),
-        ("lat_drop", np.int32, ()),
-    )},
     **{f: (dt, (0,), "A8 (causal)") for f, dt in (
         ("lam", np.uint32), ("ev_parent", np.int32), ("ev_lam", np.uint32),
         ("tl_seq", np.int32), ("tl_parent", np.int32), ("tl_lam", np.uint32),

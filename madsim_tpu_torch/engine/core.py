@@ -28,7 +28,11 @@ other observability taps: ``cov_words`` (and ``cov_hitcount``) fold each
 dispatch's behavior features into a per-seed coverage bitmap, with
 ``Workload.cov_features`` adding the workload's own, and
 ``timeline_cap`` records the dispatched events in a per-seed ring that
-``obs.decode_timeline`` reads.
+``obs.decode_timeline`` reads. ``latency=LatencySpec(...)`` runs the
+tail-latency tap: handlers mark client ops' invokes and responses
+(:meth:`EmitBuilder.lat_start`, :meth:`EmitBuilder.lat_end`), and the
+step stamps per-op clocks and folds each completed op into a per-seed
+log-linear sketch (``lat_hist``), also derived state only.
 
 The JAX engine has several lowerings of that step (dense/scatter
 layout, rank/scatter placement, time32, the pool index); their values
@@ -138,6 +142,19 @@ __all__ = [
     "COVERAGE_FIELDS",
     "TIMELINE_FIELDS",
     "OBS_FIELDS",
+    "LATENCY_FIELDS",
+    "N_LAT_BUCKETS",
+    "LAT_EDGES_NS",
+    "lat_bucket",
+    "lat_bucket_lo",
+    "lat_bucket_hi",
+    "LatencySpec",
+    "RETRY_ATTEMPT_SHIFT",
+    "RETRY_ATTEMPT_MAX",
+    "RETRY_OP_MASK",
+    "retry_token",
+    "retry_token_op",
+    "retry_token_attempt",
     "PlanRows",
     "pack_slow_arg",
     "unpack_slow_arg",
@@ -148,6 +165,8 @@ __all__ = [
     "resolve_device",
     "obs_widths",
     "check_obs_state",
+    "lat_widths",
+    "check_lat_state",
     "make_init",
     "make_step",
     "make_step_plain",
@@ -241,6 +260,9 @@ STORAGE_FIELDS = ("disk", "wmask", "sync_loss", "sync_eio", "torn")
 COVERAGE_FIELDS = ("cov", "cov_last", "cov_hits")
 TIMELINE_FIELDS = ("tl_count", "tl_drop", "tl_t", "tl_meta", "tl_args", "tl_pay", "tl_emit")
 OBS_FIELDS = (*COVERAGE_FIELDS, *TIMELINE_FIELDS, "ev_emit")
+# the tail-latency tap's columns (zero-size, and the counters 0, without
+# a LatencySpec): derived state
+LATENCY_FIELDS = ("lat_inv", "lat_resp", "lat_hist", "lat_count", "lat_drop")
 
 # the largest slow-link multiplier pack_slow_arg's word carries (bits
 # 8..30 of an int32)
@@ -248,6 +270,90 @@ SLOW_MULT_MAX = (1 << 23) - 1
 # the JAX package's readiness-index tile widths; FaultPlan.min_pool_size
 # rounds a pool up to the first
 POOL_TILE_CANDIDATES = (64, 32, 16, 8)
+
+# ---------------------------------------------------------------------------
+# The tail-latency sketch ladder. Each completed client op's latency
+# folds into a per-seed histogram over a fixed ladder, so sketches merge
+# exactly (the sketch of a union is the sum of the sketches) in integer
+# arithmetic. Bucket 0 holds [0, 64 us); buckets 1..62 are
+# quarter-octaves (edge ratio 2^(1/4)) from 64 us up to about 3.0 s;
+# bucket 63 saturates above that. The 63 edges are rounded to int64 once
+# on the host, and the kernel's copy (csrc/engine_step.cuh kLatEdges)
+# is these literals.
+# ---------------------------------------------------------------------------
+N_LAT_BUCKETS = 64
+_LAT_EDGE0_NS = 1 << 16  # 65.536 us
+LAT_EDGES_NS = np.asarray(
+    [int(round(_LAT_EDGE0_NS * 2.0 ** (b / 4.0))) for b in range(N_LAT_BUCKETS - 1)],
+    np.int64,
+)
+
+
+def lat_bucket(v_ns) -> np.ndarray:
+    """Host-side ladder lookup: the bucket of a latency, the count of
+    edges at or below it (vectorized)."""
+    return np.searchsorted(LAT_EDGES_NS, np.asarray(v_ns, np.int64), side="right")
+
+
+def lat_bucket_lo(b) -> np.ndarray:
+    """Inclusive lower edge of bucket ``b`` (0 for bucket 0)."""
+    b = np.asarray(b, np.int64)
+    return np.where(b <= 0, 0, LAT_EDGES_NS[np.clip(b - 1, 0, N_LAT_BUCKETS - 2)])
+
+
+def lat_bucket_hi(b) -> np.ndarray:
+    """Exclusive upper edge of bucket ``b``; the top bucket reports the
+    last edge (its values lie above it)."""
+    b = np.asarray(b, np.int64)
+    return LAT_EDGES_NS[np.clip(b, 0, N_LAT_BUCKETS - 2)]
+
+
+@dataclasses.dataclass(frozen=True)
+class LatencySpec:
+    """Build parameters of the tail-latency tap.
+
+    ``ops`` sizes the per-seed op columns: every client op id lies in
+    [0, ops). ``phases`` and ``phase_ns`` cut the run into measurement
+    windows: an op belongs to the window its invoke fell in, and the
+    last window is open-ended, so a p99 blowup inside one fault window
+    is that window's histogram. Hashable, like every build flag."""
+
+    ops: int
+    phases: int = 1
+    phase_ns: int = 1 << 27  # about 134 ms
+
+    def __post_init__(self):
+        if self.ops < 1:
+            raise ValueError(f"LatencySpec.ops must be >= 1, got {self.ops}")
+        if self.phases < 1:
+            raise ValueError(f"LatencySpec.phases must be >= 1, got {self.phases}")
+        if self.phase_ns < 1:
+            raise ValueError(f"LatencySpec.phase_ns must be >= 1, got {self.phase_ns}")
+
+
+# Client-retry op tokens: a retried op rides the same user kind with the
+# attempt id in the token's high bits. Without a retry policy every
+# attempt is 0, so every token is its plain op id; the army handlers
+# strip tokens all the same.
+RETRY_ATTEMPT_SHIFT = 26
+RETRY_ATTEMPT_MAX = 15  # attempt ids 0..15 in bits 26..29
+RETRY_OP_MASK = (1 << RETRY_ATTEMPT_SHIFT) - 1
+
+
+def retry_token(op, attempt):
+    """Pack (op id, attempt id) into an op token."""
+    return op | (attempt << RETRY_ATTEMPT_SHIFT)
+
+
+def retry_token_op(token):
+    """The plain op id of a token (the identity on attempt-0 tokens)."""
+    return token & RETRY_OP_MASK
+
+
+def retry_token_attempt(token):
+    """The attempt id of a token (0 for a plain op id)."""
+    return (token >> RETRY_ATTEMPT_SHIFT) & RETRY_ATTEMPT_MAX
+
 
 _TRACE_PRIME = 0x100000001B3
 _TRACE_MIX = 0x9E3779B97F4A7C15 - (1 << 64)  # as an int64 bit pattern
@@ -447,19 +553,27 @@ class Emits:
     # the dispatch's fsync (Workload.durable_sync): the OR of the
     # handler's sync() calls; ignored without the discipline
     sync: torch.Tensor | None = None  # (S,) bool
+    # latency markers (L = Workload.lat_markers, 0 = off): each row is
+    # (op id, phase), phase 0 an invoke (EmitBuilder.lat_start) and 1 a
+    # response (lat_end); the step stamps the dispatch clock into the
+    # latency columns, and ignores the rows with the tap off
+    lat_valid: torch.Tensor | None = None  # (S,L) bool
+    lat: torch.Tensor | None = None  # (S,L,2) int32
 
 
 class EmitBuilder:
     """Collects a handler's emits; slot order is call order, and
     ``when`` (a bool or an ``(S,)`` tensor) makes a row conditional.
-    History records (``record``) keep their own call order."""
+    History records (``record``) and latency markers (``lat_start``,
+    ``lat_end``) keep their own call orders."""
 
-    def __init__(self, k: int, w: int, a: int, s: int, device, r: int = 0):
-        self._k, self._w, self._a, self._s, self._r = k, w, a, s, r
+    def __init__(self, k: int, w: int, a: int, s: int, device, r: int = 0, l: int = 0):
+        self._k, self._w, self._a, self._s, self._r, self._l = k, w, a, s, r, l
         self._device = device
         self._rows: list[tuple] = []
         self._recs: list[tuple] = []
         self._syncs: list = []
+        self._lats: list[tuple] = []
 
     def _col(self, x, dtype):
         t = torch.as_tensor(x, device=self._device).to(dtype)
@@ -589,6 +703,33 @@ class EmitBuilder:
             )
         self._recs.append((when, op, key, arg, ok))
 
+    def _lat_mark(self, op_id, phase: int, when) -> None:
+        if self._l == 0:
+            raise ValueError(
+                "lat_start/lat_end need latency marker slots; set "
+                "Workload.lat_markers (the per-invocation marker count)"
+            )
+        if len(self._lats) >= self._l:
+            raise ValueError(
+                f"handler marks more than lat_markers={self._l} latency "
+                f"ops; raise Workload.lat_markers"
+            )
+        self._lats.append((when, op_id, phase))
+
+    def lat_start(self, op_id, when=True):
+        """Mark the invoke of client op ``op_id``: the step stamps this
+        dispatch's clock into ``lat_inv[op_id]``. The first start wins.
+        Derived state only: with the latency tap off the marker changes
+        nothing."""
+        self._lat_mark(op_id, 0, when)
+
+    def lat_end(self, op_id, when=True):
+        """Mark the response of client op ``op_id``: the step stamps
+        ``lat_resp[op_id]`` and folds the op's latency into the seed's
+        sketch (``lat_hist``). The first response wins (a duplicated
+        delivery counts once); an end without a start is ignored."""
+        self._lat_mark(op_id, 1, when)
+
     def _cols(self, vals: list, dtype, width: int) -> torch.Tensor:
         """``(S, width)`` of ``dtype``: column ``j`` holds ``vals[j]``
         (a Python scalar or a tensor, converted as :meth:`_col` does),
@@ -623,8 +764,12 @@ class EmitBuilder:
         rec_valid = self._cols([r[0] for r in recs], torch.bool, self._r)
         rec = self._cols([x for r in recs for x in r[1:]], torch.int32, self._r * 4)
         sync = self._cols(list(self._syncs), torch.bool, len(self._syncs)).any(1)
+        lats = self._lats
+        lat_valid = self._cols([r[0] for r in lats], torch.bool, self._l)
+        lat = self._cols([x for r in lats for x in r[1:]], torch.int32, self._l * 2)
         return Emits(valid, send, kind, dst, delay, args.view(s, k, a_w), pay.view(s, k, w),
-                     rec_valid, rec.view(s, self._r, 4), sync)
+                     rec_valid, rec.view(s, self._r, 4), sync, lat_valid,
+                     lat.view(s, self._l, 2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -672,6 +817,7 @@ class HandlerCtx:
     payload_words: int = 0
     args_words: int = 4
     max_records: int = 0  # history record slots (Workload.history)
+    lat_markers: int = 0  # latency marker slots (Workload.lat_markers)
     # (S,) bool: the node is inside an injected fsync-EIO window
     # (KIND_SYNC_LOSS with args[1] = 1), the pre-dispatch flag; always
     # False without the sync discipline
@@ -681,6 +827,7 @@ class HandlerCtx:
         return EmitBuilder(
             self.max_emits, self.payload_words, self.args_words,
             self.state.shape[0], self.state.device, self.max_records,
+            self.lat_markers,
         )
 
 
@@ -724,6 +871,10 @@ class Workload:
     # gate). Evaluated once per step over the post-dispatch fleet state
     # when the step runs the coverage taps; it changes bitmaps only.
     cov_features: Callable | None = None
+    # latency marker slots per handler call (EmitBuilder.lat_start and
+    # lat_end); 0 keeps the Emits free of marker rows. The markers
+    # change nothing unless the step is built with a LatencySpec.
+    lat_markers: int = 0
 
     def __post_init__(self):
         if not (2 <= self.args_words <= 4):
@@ -749,6 +900,8 @@ class Workload:
                 "durable_sync needs durable_cols: the sync discipline "
                 "governs exactly the columns that survive a kill"
             )
+        if self.lat_markers < 0:
+            raise ValueError(f"lat_markers must be >= 0, got {self.lat_markers}")
         for p in self.draw_purposes or ():
             if not 0 <= int(p) < lane("user").width:
                 raise ValueError(
@@ -839,6 +992,15 @@ class SimState:
     # tl_emit when the row is dispatched; a clog reschedule keeps it
     ev_emit: torch.Tensor  # (S,E) int64
     tl_emit: torch.Tensor  # (S,T) int64
+    # the tail-latency tap, C = LatencySpec.ops and P = its phases (both
+    # 0 when off, zero-size): each op's invoke and response clock (-1 =
+    # not yet), the per-window ladder sketch of completed ops, their
+    # count, and the markers whose op id lay outside [0, C)
+    lat_inv: torch.Tensor  # (S,C) int64
+    lat_resp: torch.Tensor  # (S,C) int64
+    lat_hist: torch.Tensor  # (S,P,N_LAT_BUCKETS) int32, (S,0,0) when off
+    lat_count: torch.Tensor  # (S,) int32
+    lat_drop: torch.Tensor  # (S,) int32
 
     @property
     def device(self) -> torch.device:
@@ -899,9 +1061,14 @@ def _plan_col(x, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device=dev, dtype=dtype)
 
 
-def _check_obs(cov_words: int, cov_hitcount: bool, timeline_cap: int) -> None:
+def _check_obs(cov_words: int, cov_hitcount: bool, timeline_cap: int,
+               latency: "LatencySpec | None" = None) -> None:
     """The observability build parameters, checked alike by
     :func:`make_init` and the steps."""
+    if latency is not None and not isinstance(latency, LatencySpec):
+        raise TypeError(
+            f"latency must be a LatencySpec or None, got {type(latency).__name__}"
+        )
     if cov_words and (cov_words < 1 or cov_words & (cov_words - 1)):
         raise ValueError(
             f"cov_words={cov_words} must be 0 (off) or a power of two "
@@ -936,9 +1103,27 @@ def check_obs_state(state: SimState, cov_words: int, cov_hitcount: bool,
         )
 
 
+def lat_widths(state: SimState) -> tuple:
+    """``(ops, phases)`` of the state's latency columns: the
+    ``LatencySpec`` that built it, ``(0, 0)`` with the tap off."""
+    return (state.lat_inv.shape[1], state.lat_hist.shape[1])
+
+
+def check_lat_state(state: SimState, latency: "LatencySpec | None") -> None:
+    """Raise unless ``state``'s latency columns are those of a step
+    built with ``latency`` (a state from ``make_init`` with the same
+    spec's ``ops`` and ``phases``, or none)."""
+    want = (latency.ops, latency.phases) if latency is not None else (0, 0)
+    if lat_widths(state) != want:
+        raise ValueError(
+            f"a step built with latency={latency} needs a state from make_init "
+            f"with the same spec; this one has (ops, phases) = {lat_widths(state)}"
+        )
+
+
 def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
               metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-              cov_hitcount: bool = False):
+              cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
     """Build ``init(seeds) -> SimState``: one on_init event per node at
     t=0 in slots ``0..N-1``, every other slot an invalid NOP.
 
@@ -951,7 +1136,9 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
     node's disk holds its initial row. ``cov_words=CW`` (a power of
     two) sizes the coverage bitmap, ``cov_hitcount`` adds its hit
     counters, and ``timeline_cap=T`` the timeline ring and the emit-time
-    sidecar; each is zero-size when off."""
+    sidecar; ``latency=LatencySpec(ops=C, phases=P)`` the per-op clocks
+    (-1 until stamped) and the ``(P, N_LAT_BUCKETS)`` sketch. Each is
+    zero-size when off."""
     n, u, e, p = wl.n_nodes, wl.state_width, cfg.pool_size, plan_slots
     if e < n + p:
         raise ValueError(
@@ -959,8 +1146,10 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
             f"plus the {p} fault-plan rows"
         )
     _check_meta_ranges(wl)
-    _check_obs(cov_words, cov_hitcount, timeline_cap)
+    _check_obs(cov_words, cov_hitcount, timeline_cap, latency)
     cw, tc = cov_words, timeline_cap
+    lat_c = latency.ops if latency is not None else 0
+    lat_p = latency.phases if latency is not None else 0
     dev = resolve_device(device)
     base_state = torch.from_numpy(wl.initial_state()).to(dev)
     h = wl.history.capacity if wl.history is not None else 0
@@ -1052,6 +1241,11 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
             tl_pay=z(s, tc, wl.payload_words, dt=torch.int32),
             ev_emit=z(s, e if tc else 0, dt=torch.int64),
             tl_emit=z(s, tc, dt=torch.int64),
+            lat_inv=torch.full((s, lat_c), -1, dtype=torch.int64, device=dev),
+            lat_resp=torch.full((s, lat_c), -1, dtype=torch.int64, device=dev),
+            lat_hist=z(s, lat_p, N_LAT_BUCKETS if lat_c else 0, dt=torch.int32),
+            lat_count=z(s, dt=torch.int32),
+            lat_drop=z(s, dt=torch.int32),
         )
 
     return init
@@ -1070,11 +1264,24 @@ def _first_argmin(x: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, idx, x.shape[1]).min(dim=1).values
 
 
-def _with_records(out: tuple, rr: int, s: int, dev) -> tuple:
-    """A handler's ``(state, Emits)`` with ``rr`` record rows and a sync
-    flag: hand-built ``Emits`` (not through ``ctx.emits()``) record
-    nothing and sync nothing."""
+def _with_records(out: tuple, rr: int, s: int, dev, ll: int = 0) -> tuple:
+    """A handler's ``(state, Emits)`` with ``rr`` record rows, a sync
+    flag and ``ll`` latency-marker rows: hand-built ``Emits`` (not
+    through ``ctx.emits()``) record, sync and mark nothing."""
     state, em = out
+    lv = em.lat_valid
+    if lv is None or (ll > 0 and lv.shape[1] == 0):
+        em = dataclasses.replace(
+            em,
+            lat_valid=torch.zeros((s, ll), dtype=torch.bool, device=dev),
+            lat=torch.zeros((s, ll, 2), dtype=torch.int32, device=dev),
+        )
+    elif lv.shape[1] != ll:
+        raise ValueError(
+            f"handler returned Emits with {lv.shape[1]} latency-marker rows but "
+            f"Workload.lat_markers={ll}; build emits via ctx.emits() (EmitBuilder) "
+            f"to get the right row count"
+        )
     if em.sync is None:
         em = dataclasses.replace(em, sync=torch.zeros((s,), dtype=torch.bool, device=dev))
     rv = em.rec_valid
@@ -1142,7 +1349,7 @@ def _cov_tapper(cov_words: int, cov_hitcount: bool, ar: torch.Tensor):
 
 def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                    metrics: bool = False, cov_words: int = 0, cov_hitcount: bool = False,
-                   timeline_cap: int = 0):
+                   timeline_cap: int = 0, latency: "LatencySpec | None" = None):
     """The eager batched step: ``step(SimState) -> SimState``.
 
     ``dup_rows`` adds the duplication shadow rows: K rows after the
@@ -1156,11 +1363,18 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
     ``make_init(metrics=True)``). ``cov_words``, ``cov_hitcount`` and
     ``timeline_cap`` run the coverage taps and the timeline ring over a
     state from ``make_init`` with the same arguments; like ``metrics``
-    they never feed back into the trajectory."""
+    they never feed back into the trajectory. So does ``latency``: the
+    handlers' latency markers stamp the per-op clocks and fold completed
+    ops into the sketch (a state from ``make_init(latency=...)``)."""
     n, k, w, aw = wl.n_nodes, wl.max_emits, wl.payload_words, wl.args_words
     n_user = len(wl.handlers)
     _check_meta_ranges(wl)
-    _check_obs(cov_words, cov_hitcount, timeline_cap)
+    _check_obs(cov_words, cov_hitcount, timeline_cap, latency)
+    ll = wl.lat_markers
+    lat_c = latency.ops if latency is not None else 0
+    lat_p = latency.phases if latency is not None else 0
+    lat_phase_ns = latency.phase_ns if latency is not None else 1
+    lat_spec = latency  # the step's own `latency` is the emit rows' draw
     user_purposes = tuple(int(p) for p in (wl.draw_purposes or ()))
     n_em_lanes = (k + 1) + (k if dup_rows else 0)
     lane_p = [PURPOSE_POLL_COST]
@@ -1194,6 +1408,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                 f"metric slots"
             )
         check_obs_state(st, cov_words, cov_hitcount, timeline_cap)
+        check_lat_state(st, lat_spec)
         dev = st.seed.device
         s_n, e_n = st.ev_valid.shape
         ar = torch.arange(s_n, device=dev)
@@ -1299,6 +1514,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                 args_words=aw,
                 max_records=rr,
                 sync_err=eio_dst,
+                lat_markers=ll,
             )
             # only the handlers some seed dispatches this step: a row's
             # handler output is read only where it user-dispatches, and
@@ -1310,7 +1526,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             else:
                 need = list(range(n_user))
                 checked.append(True)
-            outs = [_with_records(wl.handlers[h](ctx), rr, s_n, dev) for h in need]
+            outs = [_with_records(wl.handlers[h](ctx), rr, s_n, dev, ll) for h in need]
             lut = torch.zeros((n_user,), dtype=torch.int64, device=dev)
             lut[need] = torch.arange(len(need), device=dev)
             pick = lut[user_idx.long()]
@@ -1326,7 +1542,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             ))
         else:
             user_state = state_row
-            uem = EmitBuilder(k, w, aw, s_n, dev, rr).build()
+            uem = EmitBuilder(k, w, aw, s_n, dev, rr, ll).build()
 
         row = torch.where(user_dispatch[:, None], user_state, state_row)
         node_state = st.node_state.clone()
@@ -1569,6 +1785,40 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             hist_count, hist_drop = st.hist_count, st.hist_drop
             hist_word, hist_t = st.hist_word, st.hist_t
 
+        # ---- the tail-latency tap: a user dispatch's markers, in order
+        # j = 0..L-1, each seeing the last one's writes. The first start
+        # and the first response win; an end without a start is ignored;
+        # an out-of-range op id counts only in lat_drop. A completed op
+        # adds one to its (window of the invoke, ladder bucket of the
+        # latency) cell. Nothing here feeds back into the trajectory ----
+        lat_feats = []  # (feature, on) pairs for the coverage fold
+        lat_inv, lat_resp, lat_hist = st.lat_inv, st.lat_resp, st.lat_hist
+        lat_count, lat_drop = st.lat_count, st.lat_drop
+        if lat_c and ll:
+            lat_inv, lat_resp, lat_hist = lat_inv.clone(), lat_resp.clone(), lat_hist.clone()
+            edges = torch.from_numpy(LAT_EDGES_NS).to(dev)
+            for j in range(ll):
+                mv = user_dispatch & uem.lat_valid[:, j]
+                oid = uem.lat[:, j, 0]
+                is_end = uem.lat[:, j, 1] == 1
+                in_r = (oid >= 0) & (oid < lat_c)
+                lat_drop = lat_drop + (mv & ~in_r).to(torch.int32)
+                act = mv & in_r
+                oc = oid.clamp(0, lat_c - 1).long()
+                inv_o = torch.where(in_r, lat_inv[ar, oc], -1)
+                resp_o = torch.where(in_r, lat_resp[ar, oc], -1)
+                do_start = act & ~is_end & (inv_o < 0)
+                do_end = act & is_end & (inv_o >= 0) & (resp_o < 0)
+                bkt = ((now - inv_o)[:, None] >= edges[None, :]).sum(1)
+                ph = torch.div(inv_o, lat_phase_ns, rounding_mode="floor")
+                ph = ph.to(torch.int32).clamp(0, lat_p - 1).to(torch.int64)
+                lat_inv[ar[do_start], oc[do_start]] = now[do_start]
+                lat_resp[ar[do_end], oc[do_end]] = now[do_end]
+                lat_hist[ar[do_end], ph[do_end], bkt[do_end]] += 1
+                lat_count = lat_count + do_end.to(torch.int32)
+                # the (window, bucket) coverage feature under tag 5
+                lat_feats.append((bkt | (ph << 8) | (5 << 24), do_end))
+
         # ---- the coverage taps: features of the dispatched event hashed
         # into the bitmap, in the reference's order. Nothing here feeds
         # back into the trajectory, the draws or the trace ----
@@ -1596,6 +1846,9 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                     ^ ((r[:, 2] * 0xC2B2AE35) & M32) ^ r[:, 3] ^ (2 << 24)
                 )
                 cov, cov_hits = tap(cov, cov_hits, f_rec, user_dispatch & uem.rec_valid[:, j])
+            # completed client ops: the latency block's features
+            for f_lat, on_lat in lat_feats:
+                cov, cov_hits = tap(cov, cov_hits, f_lat, on_lat)
             if wl.cov_features is not None:
                 # the workload's features of the post-dispatch fleet
                 # state, their low 24 bits under tag 6
@@ -1717,6 +1970,11 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             tl_pay=tl_pay,
             ev_emit=ev_emit,
             tl_emit=tl_emit,
+            lat_inv=lat_inv,
+            lat_resp=lat_resp,
+            lat_hist=lat_hist,
+            lat_count=lat_count,
+            lat_drop=lat_drop,
         )
 
     return step
@@ -1730,16 +1988,19 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
 
 def make_step_plain(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-                    cov_hitcount: bool = False):
+                    cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
     """The plain eager step on any device."""
-    return _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap)
+    return _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
+                          latency)
 
 
 def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
                    dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
-                   timeline_cap: int = 0, cov_hitcount: bool = False):
+                   timeline_cap: int = 0, cov_hitcount: bool = False,
+                   latency: "LatencySpec | None" = None):
     """``n_steps`` of the plain eager step on any device."""
-    step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap)
+    step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
+                          latency)
 
     def run(state: SimState) -> SimState:
         for _ in range(n_steps):
@@ -1752,10 +2013,11 @@ def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
 def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
                          dup_rows: bool = False, metrics: bool = False,
                          cov_words: int = 0, timeline_cap: int = 0,
-                         cov_hitcount: bool = False):
+                         cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
     """The plain eager step until every seed has halted, at most
     ``max_steps`` times; every seed takes the same number of steps."""
-    step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap)
+    step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
+                          latency)
 
     def run(state: SimState) -> SimState:
         i = 0
@@ -1769,7 +2031,7 @@ def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
 
 def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
               metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-              cov_hitcount: bool = False):
+              cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
     """One step: the plain step on a CPU state, the fused kernel with
     ``n_steps=1`` on a CUDA state (raises for a workload, or a
     ``dup_rows`` build, the kernel does not carry)."""
@@ -1777,32 +2039,34 @@ def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
 
     return make_run_fused(wl, cfg, 1, dup_rows=dup_rows, metrics=metrics,
                           cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount)
+                          cov_hitcount=cov_hitcount, latency=latency)
 
 
 def make_run(wl: Workload, cfg: EngineConfig, n_steps: int, dup_rows: bool = False,
              metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-             cov_hitcount: bool = False):
+             cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
     """``n_steps`` steps: plain on a CPU state, the fused kernel on a
     CUDA state."""
     from .fused import make_run_fused
 
     return make_run_fused(wl, cfg, n_steps, dup_rows=dup_rows, metrics=metrics,
                           cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount)
+                          cov_hitcount=cov_hitcount, latency=latency)
 
 
 def make_run_while(wl: Workload, cfg: EngineConfig, max_steps: int,
                    dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
-                   timeline_cap: int = 0, cov_hitcount: bool = False):
+                   timeline_cap: int = 0, cov_hitcount: bool = False,
+                   latency: "LatencySpec | None" = None):
     """Steps until every seed has halted, at most ``max_steps``: plain
     on a CPU state, the fused kernel on a CUDA state. ``metrics`` folds
     the fleet counters (a state from ``make_init(metrics=True)``);
     ``cov_words``, ``cov_hitcount`` and ``timeline_cap`` run the
-    coverage taps and the timeline ring (a state from ``make_init`` with
-    the same arguments)."""
+    coverage taps and the timeline ring, and ``latency`` the
+    tail-latency tap (a state from ``make_init`` with the same
+    arguments)."""
     from .fused import make_run_fused
 
     return make_run_fused(wl, cfg, max_steps, until_halted=True, dup_rows=dup_rows,
                           metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount)
+                          cov_hitcount=cov_hitcount, latency=latency)

@@ -56,6 +56,15 @@ off. A model's own coverage features (``Workload.cov_features``) are
 its trait's ``cov_features``: leasekv and shardkv always, raftlog in
 the ``cov_spread`` library.
 
+The tail-latency tap needs no instantiation of its own: it compiles
+into the libraries whose workload marks ops (``Workload.lat_markers``,
+the trait's ``L``: the army libraries), and every other library is built
+as before. Its widths are runtime words 12-14 (the state's ``lat_inv``
+and ``lat_hist`` widths and the run's ``LatencySpec.phase_ns``). On a
+library with markers and the tap on, the five ``lat_*`` columns are
+fresh outputs; otherwise they are the input's, which a run cannot
+change (a workload without markers folds nothing).
+
 ``make_run_while`` semantics: the JAX loop runs every seed for the same
 ``T = min(cap, steps until every seed has halted)`` iterations, and a
 halted seed's iteration still consumes its earliest slot and counts a
@@ -81,6 +90,8 @@ import torch
 
 from .core import (
     COVERAGE_FIELDS,
+    LATENCY_FIELDS,
+    N_LAT_BUCKETS,
     N_METRICS,
     STATE_FIELDS,
     STORAGE_FIELDS,
@@ -88,7 +99,9 @@ from .core import (
     EngineConfig,
     SimState,
     Workload,
+    check_lat_state,
     check_obs_state,
+    lat_widths,
     make_run_plain,
     make_run_while_plain,
     obs_widths,
@@ -158,6 +171,7 @@ class KernelModel:
     dup: bool = False  # built with the duplication rows (dup_rows=True)
     sync: bool = False  # the trait keeps the sync discipline (durable_sync)
     obs_pools: tuple = ()  # pools with the observability kernel (the taps)
+    lat: int = 0  # latency-marker rows a call (the trait's L, Workload.lat_markers)
 
     def draws_source(self) -> str:
         """C++ naming the workload's declared user draw purposes
@@ -242,6 +256,17 @@ _KV_NOCHAOS = (("n_replicas", 4), ("chaos", False), ("payload", False))
 _KV_NOCHAOS_SHAPE = (6, 4, 2, 0, 6, 12, (), 3)
 _TP_NOCHAOS_SHAPE = (5, 6, 3, 0, 10, 9, (), 1)
 _TP_NOCHAOS = (("n_parts", 4), ("chaos", False))
+# the client-army libraries (make_*(army=True)), each with one latency
+# marker a call: the latency soak's kvchaos at pool 160, the step
+# goldens' kvchaos and raftlog army scenarios with the taps, leasekv
+# with its family's fixed words, and shardkv-record without its own chaos
+_KV_ARMY_SOAK = (("n_replicas", 2), ("chaos", False), ("payload", False), ("record", False),
+                 ("army", True), ("army_probes", 3))
+_KV_ARMY_GOLDEN = (*_KV_FIXED, ("record", True), ("bug", False), ("army", True),
+                   ("army_probes", 2))
+_LEASE_ARMY = (*_LEASE_FIXED, ("record", False), ("army", True), ("army_probes", 1))
+_SHARD_ARMY = (("n_groups", 4), ("group_size", 3), ("n_shards", 8), ("chaos", False),
+               ("record", True), ("bug", False), ("army", True), ("army_probes", 1))
 MODELS = {
     m.key: m
     for m in (
@@ -422,6 +447,33 @@ MODELS = {
             "madsim::RaftLogModel<true, false, true, true>", _RAFTLOG_STORE_SHAPE, (128,),
             _RAFTLOG_WORDS, (*_RAFTLOG_STORE, ("bug", "nosync")), sync=True,
         ),
+        KernelModel(
+            "kvchaos-army-nochaos", "kvchaos-army", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, false, false, false, true, 2, 3>",
+            (4, 4, 2, 0, 6, 15, (), 0), (160,), _KV_WORDS, _KV_ARMY_SOAK, lat=1,
+        ),
+        KernelModel(
+            "kvchaos-record-army", "kvchaos-record-army", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, true, false, true, true, 4, 2>",
+            (6, 4, 2, 0, 6, 15, (0, 1, 2), 3), (72,), _KV_WORDS, _KV_ARMY_GOLDEN,
+            obs_pools=(72,), lat=1,
+        ),
+        KernelModel(
+            "raftlog-record-army", "raftlog-record-army", "model_raftlog.cuh",
+            "madsim::RaftLogModel<true, true, false, false, false, true>",
+            (6, 12, 4, 4, 7, 11, (0, 1, 2, 3, 4), 4), (96,), _RAFTLOG_WORDS,
+            (*_RAFTLOG_FIXED, ("army", True)), obs_pools=(96,), lat=1,
+        ),
+        KernelModel(
+            "leasekv-army", "leasekv-army", "model_leasekv.cuh",
+            "madsim::LeaseKvModel<false, false, true, 1>", (5, 6, 2, 0, 6, 18, (0, 1, 2), 0),
+            (48,), _LEASE_WORDS, _LEASE_ARMY, lat=1,
+        ),
+        KernelModel(
+            "shardkv-record-army-nochaos", "shardkv-record-army", "model_shardkv.cuh",
+            "madsim::ShardKvModel<true, false, false, true, 1>",
+            (14, 17, 3, 0, 6, 18, (), 1), (96,), _SHARD_WORDS, _SHARD_ARMY, lat=1,
+        ),
     )
 }
 
@@ -438,13 +490,12 @@ KERNEL_FIELDS = (
     "msg_count", "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args",
     "ev_pay", "alive", "paused", "epoch", "node_state", "clog", "slow",
     "skew", "dup", *HISTORY_COLUMNS, *STORAGE_FIELDS, "met", *COVERAGE_FIELDS,
-    *RING_FIELDS,
+    *RING_FIELDS, *LATENCY_FIELDS,
 )
-# the taps' columns come last; a launch without the taps kernel passes
-# null for them, and check_state skips them: that kernel never reads them
+# the taps' columns, then the latency tap's; a launch without the taps
+# kernel passes null for the first, one without a latency fold for the
+# second, and check_state skips them: the kernel never reads them
 OBS_KERNEL_FIELDS = (*COVERAGE_FIELDS, *RING_FIELDS)
-BASE_KERNEL_FIELDS = KERNEL_FIELDS[: -len(OBS_KERNEL_FIELDS)]
-_BASE_STATE_FIELDS = tuple(f for f in STATE_FIELDS if f not in OBS_KERNEL_FIELDS)
 READ_ONLY_FIELDS = ("seed",)
 # the run's outputs that are its inputs' tensors: never written
 SHARED_FIELDS = READ_ONLY_FIELDS
@@ -463,7 +514,9 @@ _DTYPES = {
     "cov": torch.int64, "cov_last": torch.int32, "cov_hits": torch.uint8,
     "tl_count": torch.int32, "tl_drop": torch.int32, "tl_t": torch.int64,
     "tl_meta": torch.int64, "tl_args": torch.int32, "tl_pay": torch.int32,
-    "ev_emit": torch.int64, "tl_emit": torch.int64,
+    "ev_emit": torch.int64, "tl_emit": torch.int64, "lat_inv": torch.int64,
+    "lat_resp": torch.int64, "lat_hist": torch.int32, "lat_count": torch.int32,
+    "lat_drop": torch.int32,
 }
 
 
@@ -496,7 +549,7 @@ def kernel_model(wl: Workload, dup_rows: bool = False) -> KernelModel:
     def carries(spec):
         fixed = {k: params.get(k) for k, _v in spec.fixed}
         return (shape == spec.shape and fixed == dict(spec.fixed)
-                and spec.sync == wl.durable_sync)
+                and spec.sync == wl.durable_sync and spec.lat == wl.lat_markers)
 
     fits = [m for m in cands if carries(m)]
     for spec in fits:
@@ -640,30 +693,34 @@ class RunKernel:
             lib.madsim_occupancy.argtypes = [i32, i32, ctypes.POINTER(i64)]
             lib.madsim_shape.restype = None
             lib.madsim_shape.argtypes = [ctypes.POINTER(i64)]
-            got = (i64 * 12)()
+            got = (i64 * 13)()
             lib.madsim_shape(got)
             want = (*spec.shape[:6], spec.shape[7], 2 * len(KERNEL_FIELDS) + 4,
                     len(DRAIN_FIELDS) + 2, spec.shape[4] if spec.dup else 0,
-                    int(spec.sync), len(spec.obs_pools))
+                    int(spec.sync), len(spec.obs_pools), spec.lat)
             if tuple(got) != want:
                 raise RuntimeError(
                     f"library {path} is built for (N, U, A, W, K, H, R, run "
-                    f"and drain pointers, shadow rows, sync, obs pools) = "
-                    f"{tuple(got)}; model {spec.key!r} needs {want}"
+                    f"and drain pointers, shadow rows, sync, obs pools, latency "
+                    f"markers) = {tuple(got)}; model {spec.key!r} needs {want}"
                 )
             self._libs[spec.key] = lib
         return lib
 
     def launch(self, spec: KernelModel, state: SimState, out: SimState, tables,
-               iters, tmax, cfg_words, budget: int, stop_at_halt: bool) -> None:
+               iters, tmax, cfg_words, budget: int, stop_at_halt: bool,
+               latency=None) -> None:
         """The run kernel: ``budget`` steps of every seed of ``state``
         into ``out``; each seed's count into ``iters`` and their
         maximum into ``tmax``; a state with the counter row runs the
-        instantiation that folds the fleet counters into ``out.met``."""
+        instantiation that folds the fleet counters into ``out.met``,
+        and one with latency columns folds the markers under
+        ``latency`` (its ``LatencySpec``)."""
         lib = self.load(spec)
         if state.seed.shape[0] == 0:
             return
-        ptrs, cfg = kernel_args(state, out, tables, iters, tmax, cfg_words)
+        ptrs, cfg = kernel_args(state, out, tables, iters, tmax, cfg_words, latency,
+                                spec.lat > 0)
         rc = lib.madsim_run(
             ptrs, cfg, state.seed.shape[0], int(budget), state.ev_valid.shape[1],
             int(stop_at_halt), int(has_metrics(state)), int(has_obs(state)),
@@ -714,7 +771,8 @@ KERNEL = RunKernel()
 DRAIN_FIELDS = ("step", "ev_valid", "ev_time")
 
 
-# the engine's config words in front of the observability widths
+# the engine's config words in front of the observability widths, and
+# the latency tap's three words after those
 ENGINE_WORDS = 9
 
 
@@ -725,25 +783,47 @@ def obs_words(state: SimState) -> tuple:
     return (cw, int(hc), tc)
 
 
-def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words):
+def lat_words(state: SimState, latency, markers: bool = True) -> tuple:
+    """The config words 12-14 of a run of ``state``: its latency ops and
+    windows and the window width of ``latency``, the run's
+    ``LatencySpec``; zeros when the tap is off or the library has no
+    markers to fold."""
+    c, p = lat_widths(state)
+    if not (c and markers):
+        return (0, 0, 0)
+    if latency is None:
+        raise ValueError(
+            "a state with latency columns runs with its LatencySpec: pass latency="
+        )
+    return (c, p, latency.phase_ns)
+
+
+def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words,
+                latency=None, markers: bool = True):
     """The ctypes pointer array and config words of one run launch: the
     input fields, the output fields (null where the kernel writes
     none), the tables, ``iters`` and ``tmax``; ``cfg_words``
-    (:func:`config_words`) with the state's observability widths after
-    the engine's words. The caller keeps every tensor alive until the
-    launch has run."""
-    fields = KERNEL_FIELDS if has_obs(state) else BASE_KERNEL_FIELDS
-    unwritten = {*READ_ONLY_FIELDS, *_unwritten(state)}
-    ins = [getattr(state, f).data_ptr() for f in fields]
-    outs = [0 if f in unwritten else getattr(out, f).data_ptr() for f in fields]
-    pad = [0] * (len(KERNEL_FIELDS) - len(fields))
+    (:func:`config_words`) with the state's observability widths and the
+    latency tap's words (:func:`lat_words`, ``markers``: the library
+    folds latency markers) after the engine's words. The caller keeps
+    every tensor alive until the launch has run."""
+    lw = lat_words(state, latency, markers)
+    skip = set()
+    if not has_obs(state):
+        skip.update(OBS_KERNEL_FIELDS)
+    if not lw[0]:
+        skip.update(LATENCY_FIELDS)
+    unwritten = {*READ_ONLY_FIELDS, *_unwritten(state, markers)}
+    ins = [0 if f in skip else getattr(state, f).data_ptr() for f in KERNEL_FIELDS]
+    outs = [0 if f in skip or f in unwritten else getattr(out, f).data_ptr()
+            for f in KERNEL_FIELDS]
     rest = [t.data_ptr() for t in (*tables, iters)]
     rest.append(0 if tmax is None else tmax.data_ptr())
-    ptrs = (ctypes.c_void_p * (len(KERNEL_FIELDS) * 2 + 4))(*ins, *pad, *outs, *pad, *rest)
+    ptrs = (ctypes.c_void_p * (len(KERNEL_FIELDS) * 2 + 4))(*ins, *outs, *rest)
     # missing engine words (a model without histories may leave out
     # the capacity) are zero
     engine = (*cfg_words[:ENGINE_WORDS], *(0,) * (ENGINE_WORDS - len(cfg_words)))
-    words = (*engine, *obs_words(state), *cfg_words[ENGINE_WORDS:])
+    words = (*engine, *obs_words(state), *lw, *cfg_words[ENGINE_WORDS:])
     cfg = (ctypes.c_int64 * len(words))(*words)
     return ptrs, cfg
 
@@ -779,6 +859,7 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     n, u = wl.n_nodes, wl.state_width
     d = n if wl.durable_sync else 0
     cw, hc, tc = obs_widths(state)
+    lc, lp = lat_widths(state)
     if cw & (cw - 1):
         raise ValueError(f"cov_words={cw} must be 0 (off) or a power of two")
     shapes = dict(
@@ -792,8 +873,14 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
         cov=(s, cw), cov_last=(s, n if cw else 0), cov_hits=(s, cw * 32 if hc else 0),
         tl_t=(s, tc), tl_meta=(s, tc), tl_args=(s, tc, wl.args_words),
         tl_pay=(s, tc, wl.payload_words), ev_emit=(s, e if tc else 0), tl_emit=(s, tc),
+        lat_inv=(s, lc), lat_resp=(s, lc), lat_hist=(s, lp, N_LAT_BUCKETS if lc else 0),
     )
-    for name in STATE_FIELDS if has_obs(state) else _BASE_STATE_FIELDS:
+    skip = set() if has_obs(state) else set(OBS_KERNEL_FIELDS)
+    if not (lc and spec.lat):
+        skip.update(LATENCY_FIELDS)
+    for name in STATE_FIELDS:
+        if name in skip:
+            continue
         t = getattr(state, name)
         if t.device != dev or t.dtype != _DTYPES[name] or not t.is_contiguous():
             raise ValueError(
@@ -854,12 +941,13 @@ def _check_metrics(state: SimState, metrics: bool) -> None:
         )
 
 
-def _unwritten(state: SimState) -> tuple:
+def _unwritten(state: SimState, markers: bool = True) -> tuple:
     """The columns a run of ``state`` leaves as they are: the history
     columns when the state has no history rows (a workload that records
     nothing), the storage columns without the sync discipline, ``met``
-    without metrics, and the coverage or ring columns with their tap
-    off."""
+    without metrics, the coverage or ring columns with their tap off,
+    and the latency columns with the tap off or on a library without
+    ``markers`` (nothing marks an op)."""
     cw, _hc, tc = obs_widths(state)
     return (
         (HISTORY_COLUMNS if state.hist_word.shape[1] == 0 else ())
@@ -867,14 +955,17 @@ def _unwritten(state: SimState) -> tuple:
         + (() if has_metrics(state) else ("met",))
         + (() if cw else COVERAGE_FIELDS)
         + (() if tc else RING_FIELDS)
+        + (() if markers and lat_widths(state)[0] else LATENCY_FIELDS)
     )
 
 
-def fresh_outputs(state: SimState) -> SimState:
+def fresh_outputs(state: SimState, markers: bool = True) -> SimState:
     """The run kernel's outputs: ``torch.empty`` for every field it
     writes; ``seed``, and the columns a run leaves as they are
-    (history, storage, ``met``: ``_unwritten``), are the input's."""
-    shared = {*SHARED_FIELDS, *_unwritten(state)}
+    (history, storage, ``met``, the taps off: ``_unwritten``, with
+    ``markers`` whether the library folds latency markers), are the
+    input's."""
+    shared = {*SHARED_FIELDS, *_unwritten(state, markers)}
     return SimState(**{
         f: getattr(state, f) if f in shared else torch.empty_like(getattr(state, f))
         for f in STATE_FIELDS
@@ -882,19 +973,20 @@ def fresh_outputs(state: SimState) -> SimState:
 
 
 def _first_pass(wl: Workload, cfg: EngineConfig, state: SimState,
-                n_steps: int, stop_at_halt: bool, dup_rows: bool = False):
+                n_steps: int, stop_at_halt: bool, dup_rows: bool = False, latency=None):
     """Launch the run kernel once, up to ``n_steps`` steps per seed,
-    from ``state`` into fresh outputs. Returns the model, the outputs,
-    each seed's step count and their maximum (a device word)."""
+    from ``state`` into fresh outputs, folding latency markers under
+    ``latency``. Returns the model, the outputs, each seed's step count
+    and their maximum (a device word)."""
     spec = kernel_model(wl, dup_rows)
     check_state(spec, wl, state)
     dev = state.device
-    out = fresh_outputs(state)
+    out = fresh_outputs(state, spec.lat > 0)
     s = state.seed.shape[0]
     iters = torch.empty((s,), dtype=torch.int64, device=dev)
     tmax = torch.empty((1,), dtype=torch.int64, device=dev)
     KERNEL.launch(spec, state, out, _tables(wl, dev), iters, tmax,
-                  config_words(wl, cfg), n_steps, stop_at_halt)
+                  config_words(wl, cfg), n_steps, stop_at_halt, latency)
     return spec, out, iters, tmax
 
 
@@ -914,25 +1006,28 @@ def drain_plain(step, ev_valid, ev_time, r):
 
 
 def check_taps(state: SimState, metrics: bool, cov_words: int = 0,
-               cov_hitcount: bool = False, timeline_cap: int = 0) -> None:
+               cov_hitcount: bool = False, timeline_cap: int = 0, latency=None) -> None:
     """Raise unless a CUDA run's tap arguments agree with ``state``'s
     derived columns, which pick the kernel's instantiation and widths."""
     _check_metrics(state, metrics)
     check_obs_state(state, cov_words, cov_hitcount, timeline_cap)
+    check_lat_state(state, latency)
 
 
 def make_run_fused(
     wl: Workload, cfg: EngineConfig, n_steps: int, until_halted: bool = False,
     dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
-    timeline_cap: int = 0, cov_hitcount: bool = False,
+    timeline_cap: int = 0, cov_hitcount: bool = False, latency=None,
 ):
     """Build ``run(state) -> SimState``: ``n_steps`` steps (or, with
     ``until_halted``, steps until every seed has halted, at most
     ``n_steps``) in the fused kernel, with the duplication rows when
-    ``dup_rows``, the fleet counters when ``metrics`` and the coverage
-    taps and the timeline ring at the given widths. A CPU state takes
-    the plain step; a CUDA state launches the kernel or raises."""
-    obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount)
+    ``dup_rows``, the fleet counters when ``metrics``, the coverage
+    taps and the timeline ring at the given widths and the tail-latency
+    tap under ``latency``. A CPU state takes the plain step; a CUDA
+    state launches the kernel or raises."""
+    obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
+               latency=latency)
     plain = (
         make_run_while_plain(wl, cfg, n_steps, dup_rows, metrics, **obs) if until_halted
         else make_run_plain(wl, cfg, n_steps, dup_rows, metrics, **obs)
@@ -943,7 +1038,7 @@ def make_run_fused(
             return plain(state)
         check_taps(state, metrics, **obs)
         spec, out, iters, tmax = _first_pass(wl, cfg, state, n_steps, until_halted,
-                                             dup_rows)
+                                             dup_rows, latency)
         if until_halted:
             KERNEL.drain(spec, out, iters, tmax)
         return out
@@ -952,8 +1047,8 @@ def make_run_fused(
 
 
 def halt_counts(wl: Workload, cfg: EngineConfig, cap: int, state: SimState,
-                dup_rows: bool = False):
+                dup_rows: bool = False, latency=None):
     """Each seed's steps until it halts (at most ``cap``), from one
     stop-at-halt run kernel launch on ``state``: the seed-steps a
     ``make_run_while`` run does real work in."""
-    return _first_pass(wl, cfg, state, cap, True, dup_rows)[2]
+    return _first_pass(wl, cfg, state, cap, True, dup_rows, latency)[2]

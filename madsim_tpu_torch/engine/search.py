@@ -34,12 +34,16 @@ seed into pre-seeded pool rows; its hash joins the repro banner, so
 bitmap as ``report.cov``, and ``timeline_cap`` its timeline ring as
 ``report.timeline`` (``obs.decode_timeline`` reads it); a ring that
 overflowed is named in the banner and voids no verdict.
+``latency=LatencySpec(...)`` runs the tail-latency tap: each seed's
+sketch and its counts come back as ``report.lat_hist`` and
+``lat_count`` (reduce them with ``obs.latency_reduce``, judge them with
+``check.slo_bounded`` as the invariant).
 
 On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
 run and drain kernels), or with ``compact=True`` the compacted runner's
-one stop-at-halt launch. The reference's ``latency``, ``causal`` and
-``retry`` raise ``NotImplementedError`` until their engine axes are
-ported (ROADMAP item A8).
+one stop-at-halt launch. The reference's ``causal`` and ``retry`` raise
+``NotImplementedError`` until their engine axes are ported (ROADMAP item
+A8).
 """
 
 from __future__ import annotations
@@ -85,11 +89,11 @@ _RUN_CACHE: dict = {}
 def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                     compact: bool, device, hist_screen=None, plan_slots: int = 0,
                     dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
-                    cov_hitcount: bool = False, timeline_cap: int = 0):
+                    cov_hitcount: bool = False, timeline_cap: int = 0, latency=None):
     # the one construction of a sweep's (init, run) pair, for make_sweep
     # and search_seeds alike; only the compacted runner embeds a screen
     taps = dict(metrics=metrics, cov_words=cov_words, cov_hitcount=cov_hitcount,
-                timeline_cap=timeline_cap)
+                timeline_cap=timeline_cap, latency=latency)
     init = make_init(wl, cfg, device=device, plan_slots=plan_slots, **taps)
     run = (
         make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen, dup_rows=dup_rows,
@@ -119,15 +123,15 @@ def make_sweep(
     batch (with ``plan_slots`` rows of a compiled plan), run
     ``make_run_while`` to the step cap, and return the final state as a
     ``{field name: device tensor}`` view, with no host transfer and no
-    invariant. ``metrics``, ``cov_words``, ``timeline_cap`` and
-    ``cov_hitcount`` run the observability taps; ``latency``, ``causal``
-    and ``retry`` raise ``NotImplementedError`` until their engine axes
-    are ported."""
-    refuse_unported(latency=latency, causal=causal, retry=retry)
+    invariant. ``metrics``, ``cov_words``, ``timeline_cap``,
+    ``cov_hitcount`` and ``latency`` run the observability taps;
+    ``causal`` and ``retry`` raise ``NotImplementedError`` until their
+    engine axes are ported."""
+    refuse_unported(causal=causal, retry=retry)
     init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device),
                                 plan_slots=plan_slots, dup_rows=dup_rows, metrics=metrics,
                                 cov_words=cov_words, cov_hitcount=cov_hitcount,
-                                timeline_cap=timeline_cap)
+                                timeline_cap=timeline_cap, latency=latency)
 
     def sweep(seeds, rows=None):
         out = run(init(seeds, rows) if plan_slots else init(seeds))
@@ -139,17 +143,17 @@ def make_sweep(
 def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                   compact: bool, dev, hist_screen=None, plan_slots: int = 0,
                   dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
-                  cov_hitcount: bool = False, timeline_cap: int = 0):
+                  cov_hitcount: bool = False, timeline_cap: int = 0, latency=None):
     from .fused import workload_shape
 
     key = (wl.name, workload_shape(wl), wl.model_params, wl.history, wl.durable_cols,
-           wl.durable_sync, wl.cov_features is not None, cfg.hash(), max_steps, compact,
-           str(dev), hist_screen, plan_slots, dup_rows, metrics, cov_words, cov_hitcount,
-           timeline_cap)
+           wl.durable_sync, wl.cov_features is not None, wl.lat_markers, cfg.hash(),
+           max_steps, compact, str(dev), hist_screen, plan_slots, dup_rows, metrics,
+           cov_words, cov_hitcount, timeline_cap, latency)
     if key not in _RUN_CACHE:
         _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
                                           plan_slots, dup_rows, metrics, cov_words,
-                                          cov_hitcount, timeline_cap)
+                                          cov_hitcount, timeline_cap, latency)
     return _RUN_CACHE[key]
 
 
@@ -170,8 +174,8 @@ def _library_build_s(wl: Workload, dev, dup_rows: bool = False) -> float:
 
 @dataclasses.dataclass
 class SearchReport:
-    """Outcome of one batched invariant sweep. The reference's latency
-    and causal fields wait for ROADMAP item A8."""
+    """Outcome of one batched invariant sweep. The reference's causal
+    fields wait for ROADMAP item A8."""
 
     workload: str
     config_hash: str
@@ -219,6 +223,13 @@ class SearchReport:
     # which voids no verdict (the timeline is forensics, not evidence)
     timeline: object | None = None
     tl_dropped: np.ndarray | None = None
+    # the tail-latency tap (latency=LatencySpec(...)): each seed's
+    # (P, N_LAT_BUCKETS) sketch and its completed-op count, else None;
+    # lat_dropped marks the seeds whose markers named op ids outside
+    # LatencySpec.ops (their sketches undercount)
+    lat_hist: np.ndarray | None = None
+    lat_count: np.ndarray | None = None
+    lat_dropped: np.ndarray | None = None
 
     @property
     def failing_seeds(self) -> np.ndarray:
@@ -287,6 +298,13 @@ class SearchReport:
                 f"  WARNING: {int(self.tl_dropped.sum())} seed(s) "
                 f"overflowed the timeline ring (raise timeline_cap; "
                 f"verdicts unaffected — the timeline is forensics only)"
+            )
+        if self.lat_dropped is not None and self.lat_dropped.any():
+            lines.append(
+                f"  WARNING: {int(self.lat_dropped.sum())} seed(s) "
+                f"dropped latency markers (op ids outside "
+                f"LatencySpec.ops) — their sketches undercount; size "
+                f"LatencySpec.ops to cover every army op id"
             )
         if self.screen_ok is not None:
             fold = (
@@ -417,11 +435,15 @@ def search_seeds(
     ``cov_hitcount`` keyed by hit-count classes), and ``timeline_cap=T``
     its timeline ring as ``report.timeline``; seeds whose ring
     overflowed are ``report.tl_dropped``, named in the banner, with
-    their verdicts unchanged.
+    their verdicts unchanged. ``latency=LatencySpec(...)`` returns each
+    seed's latency sketch and completed-op count (``report.lat_hist``,
+    ``lat_count``; ``lat_dropped`` the seeds with out-of-range markers,
+    named in the banner); a plan whose client army's op ids exceed
+    ``LatencySpec.ops`` is refused.
 
     ``device`` is where the sweep runs, the card unless the caller asks
-    for the CPU. ``latency``, ``causal`` and ``retry`` raise
-    ``NotImplementedError`` until their engine axes are ported.
+    for the CPU. ``causal`` and ``retry`` raise ``NotImplementedError``
+    until their engine axes are ported.
     """
     if history_invariant is not None and wl.history is None:
         raise ValueError(
@@ -443,7 +465,7 @@ def search_seeds(
                 "them via check.device.screens_invariant in a test, not "
                 "in one sweep)"
             )
-    refuse_unported(latency=latency, causal=causal, retry=retry)
+    refuse_unported(causal=causal, retry=retry)
     if invariant is None and history_invariant is None and screens is None:
         raise ValueError(
             "need an invariant, a history_invariant or a device_check"
@@ -461,6 +483,18 @@ def search_seeds(
         plan_slots = int(plan.slots)
         if dup_rows is None:
             dup_rows = bool(plan.uses_dup())
+        if latency is not None:
+            # a client army whose op ids exceed the latency columns would
+            # drop every out-of-range marker: a build error, not a count
+            for spec in getattr(plan, "specs", ()):
+                ob = getattr(spec, "op_base", None)
+                no = getattr(spec, "n_ops", None)
+                if ob is not None and no is not None and ob + no > latency.ops:
+                    raise ValueError(
+                        f"{type(spec).__name__} op ids [{ob}, {ob + no}) exceed "
+                        f"LatencySpec.ops={latency.ops}; size the spec to cover "
+                        f"every army op id"
+                    )
         if cfg.time_limit_ns and hasattr(plan, "validate_windows"):
             # a window opening after the clock cap can never fire
             plan.validate_windows(cfg.time_limit_ns)
@@ -481,7 +515,7 @@ def search_seeds(
     dev = resolve_device(device)
     init, run = _compiled_run(wl, cfg, max_steps, compact, dev,
                               screens if compact else None, plan_slots, dup_rows, metrics,
-                              cov_words, cov_hitcount, timeline_cap)
+                              cov_words, cov_hitcount, timeline_cap, latency)
     build_wall_s = _library_build_s(wl, dev, dup_rows)
     out = run(init(seeds, rows) if rows is not None else init(seeds))
     if compact:
@@ -562,4 +596,7 @@ def search_seeds(
         cov=np.asarray(view["cov"]) if cov_words else None,
         timeline=tl,
         tl_dropped=tl_dropped,
+        lat_hist=np.asarray(view["lat_hist"]) if latency is not None else None,
+        lat_count=np.asarray(view["lat_count"]) if latency is not None else None,
+        lat_dropped=np.asarray(view["lat_drop"]) > 0 if latency is not None else None,
     )

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .core import (
+    LATENCY_FIELDS,
     OBS_FIELDS,
     STATE_FIELDS,
     STORAGE_FIELDS,
@@ -45,10 +46,11 @@ __all__ = [
 # mirrors the hash and knows nothing of histories), so the determinism
 # checks compare them directly
 HISTORY_FIELDS = ("hist_count", "hist_drop", "hist_word", "hist_t")
-# the sync discipline's columns, the fleet counters and the coverage and
-# timeline columns: outside the trace hash too (zero-size without the
-# discipline or the taps), so both checks compare them directly
-DERIVED_FIELDS = (*STORAGE_FIELDS, "met", *OBS_FIELDS)
+# the sync discipline's columns, the fleet counters, the coverage and
+# timeline columns and the latency tap's: outside the trace hash too
+# (zero-size without the discipline or the taps), so both checks compare
+# them directly
+DERIVED_FIELDS = (*STORAGE_FIELDS, "met", *OBS_FIELDS, *LATENCY_FIELDS)
 # the fields check_layouts holds besides the trace and DERIVED_FIELDS:
 # the reference's list
 LAYOUT_FIELDS = (
@@ -129,23 +131,32 @@ def compare_fields(a, b, what: str = "run", fields: tuple = LAYOUT_FIELDS) -> No
             )
 
 
+def _plan_init(wl: Workload, cfg: EngineConfig, device, plan, taps: dict):
+    """``init(seeds)``, with ``plan``'s compiled rows when there is one."""
+    if plan is None:
+        return make_init(wl, cfg, device=device, **taps)
+    init = make_init(wl, cfg, device=device, plan_slots=plan.slots, **taps)
+    return lambda seeds: init(seeds, plan.compile_batch(seeds, wl=wl))
+
+
 def check_determinism(
     wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None,
     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-    cov_hitcount: bool = False,
+    cov_hitcount: bool = False, latency=None, plan=None,
 ) -> None:
     """Run the workload twice over ``seeds`` on ``device`` (the card
     unless the caller asks for the CPU); raise on any divergence of the
     trace, the history, the storage columns or the columns of the taps
     the run carries (``metrics``, ``cov_words``, ``timeline_cap``,
-    ``cov_hitcount``).
+    ``cov_hitcount``, ``latency``). A fault ``plan`` (``chaos.FaultPlan``,
+    a client army among its specs) seeds both runs' pools.
 
     Catches hidden nondeterminism in handlers, the way the reference's
     two-run RNG-log compare catches nondeterministic user code."""
     seeds = np.asarray(seeds, np.uint64)
     taps = dict(metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                cov_hitcount=cov_hitcount)
-    init = make_init(wl, cfg, device=device, **taps)
+                cov_hitcount=cov_hitcount, latency=latency)
+    init = _plan_init(wl, cfg, device, plan, taps)
     run = make_run(wl, cfg, n_steps, **taps)
     a = run(init(seeds))
     b = run(init(seeds))
@@ -156,13 +167,14 @@ def check_determinism(
 def check_layouts(
     wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None,
     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-    cov_hitcount: bool = False,
+    cov_hitcount: bool = False, latency=None, plan=None,
 ) -> None:
     """Run ``seeds`` through the fused kernel on the card and through
     the plain eager step on the card, and the first 256 of them through
     the plain step on the CPU; raise on any difference of trace or of
-    :data:`LAYOUT_FIELDS` and :data:`DERIVED_FIELDS`. On the CPU the port
-    has one lowering, so a CPU ``device`` raises ``ValueError``."""
+    :data:`LAYOUT_FIELDS` and :data:`DERIVED_FIELDS`, under an optional
+    fault ``plan``. On the CPU the port has one lowering, so a CPU
+    ``device`` raises ``ValueError``."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         raise ValueError(
@@ -172,13 +184,13 @@ def check_layouts(
         )
     seeds = np.asarray(seeds, np.uint64)
     taps = dict(metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                cov_hitcount=cov_hitcount)
-    init = make_init(wl, cfg, device=dev, **taps)
+                cov_hitcount=cov_hitcount, latency=latency)
+    init = _plan_init(wl, cfg, dev, plan, taps)
     fused = make_run(wl, cfg, n_steps, **taps)(init(seeds))
     plain = make_run_plain(wl, cfg, n_steps, **taps)(init(seeds))
     k = min(CPU_SEEDS, len(seeds))
     cpu = make_run_plain(wl, cfg, n_steps, **taps)(
-        make_init(wl, cfg, device="cpu", **taps)(seeds[:k]))
+        _plan_init(wl, cfg, "cpu", plan, taps)(seeds[:k]))
     head = SimState(**{f: getattr(fused, f)[:k] for f in STATE_FIELDS})
     for what, a, b in (
         (f"{wl.name} fused-vs-plain on {dev}", fused, plain),

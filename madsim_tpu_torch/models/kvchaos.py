@@ -29,8 +29,15 @@ a lost-write fault: a replica's (re)join also makes the primary forget
 its commit point. Later acks re-commit everything, so the final state
 and the durability invariant look healthy, but a read in the regression
 window sees a committed write vanish, which only the history checkers
-(``stale_reads``, ``read_your_writes``) see. ``army=True`` (open-loop
-client load) waits for the latency markers (ROADMAP queue A8).
+(``stale_reads``, ``read_your_writes``) see.
+
+``army=True`` opens the client surface for open-loop load: a
+``chaos.ClientArmy`` row arriving at the client node (``client_army``
+builds the spec) marks the op's invoke and probes the primary, and the
+final response marks its completion, so the latency tap measures the
+client-observed latency through the authority. ``army_probes=k`` makes
+each op a k-round session of chained probes, complete on the k-th
+response. The probe path reads protocol state but never writes it.
 """
 
 from __future__ import annotations
@@ -38,7 +45,15 @@ from __future__ import annotations
 import torch
 
 from ..check.history import OK_OK, OK_PENDING, OP_READ, OP_WRITE
-from ..engine.core import KIND_KILL, KIND_RESTART, HistorySpec, Workload, set_cols, user_kind
+from ..engine.core import (
+    KIND_KILL,
+    KIND_RESTART,
+    HistorySpec,
+    Workload,
+    retry_token_op,
+    set_cols,
+    user_kind,
+)
 
 _H_INIT = 0
 _H_WRITE = 1  # at primary: args = (seq,)
@@ -52,6 +67,9 @@ _H_JOIN = 8  # at primary: args = (replica,), a replica (re)joined
 _H_JRETX = 9  # at replica: retry JOIN until synced
 _H_READ = 10  # at primary: args = (rseq,), record mode only
 _H_READRESP = 11  # at client: args = (rseq, committed), record mode only
+_H_AREQ = 12  # at client: army op arrival, args = (op_id, word), army mode
+_H_APROBE = 13  # at primary: army probe, args = (op_id, rounds left)
+_H_ARESP = 14  # at client: army response, args = (op_id, rounds left)
 
 PRIMARY = 0
 
@@ -77,16 +95,9 @@ def make_kvchaos(
 ) -> Workload:
     """The replicated-KV workload; ``record=True`` records the client's
     write and read history (4 records a write unless ``hist_capacity``
-    says otherwise) and ``bug=True`` plants the lost-write fault.
-    ``army`` raises ``NotImplementedError`` until the latency markers
-    are ported."""
-    if army:
-        raise NotImplementedError(
-            "make_kvchaos(army=True) needs the latency markers and client "
-            "army plans, which the torch port does not have yet (ROADMAP "
-            "queue A8)"
-        )
-    del army_probes  # army mode only
+    says otherwise), ``bug=True`` plants the lost-write fault and
+    ``army=True`` adds the client-army handlers (``army_probes`` rounds
+    an op)."""
     if bug and not record:
         raise ValueError(
             "bug=True plants a fault only histories can see; it requires "
@@ -288,6 +299,33 @@ def make_kvchaos(
             eb.record(OP_READ, 0, committed, ok=OK_OK, when=fresh_r)
         return set_cols(st, fresh_r, {1: rseq}), eb.build()
 
+    if army_probes < 1:
+        raise ValueError(f"army_probes must be >= 1, got {army_probes}")
+
+    def on_areq(ctx):
+        # an army op arrives at the client: mark its invoke and open the
+        # session; args[1] of the probe is the rounds owed after it. The
+        # token's op id is stripped (the identity without retries)
+        op_id = retry_token_op(ctx.args[:, 0])
+        eb = ctx.emits()
+        eb.lat_start(op_id)
+        eb.send(PRIMARY, user_kind(_H_APROBE), (op_id, army_probes - 1))
+        return ctx.state, eb.build()
+
+    def on_aprobe(ctx):
+        # the authority echoes the rounds left: a read-only probe
+        eb = ctx.emits()
+        eb.send(client, user_kind(_H_ARESP), (ctx.args[:, 0], ctx.args[:, 1]))
+        return ctx.state, eb.build()
+
+    def on_aresp(ctx):
+        op_id, left = ctx.args[:, 0], ctx.args[:, 1]
+        eb = ctx.emits()
+        # chain the next round; 0 left completes the op
+        eb.send(PRIMARY, user_kind(_H_APROBE), (op_id, left - 1), when=left > 0)
+        eb.lat_end(op_id, when=left == 0)
+        return ctx.state, eb.build()
+
     # per write one invoke, one response, one read invoke and at most
     # one read response: 4 records
     hist = None
@@ -307,15 +345,19 @@ def make_kvchaos(
     name = "kvchaos-payload" if payload else "kvchaos"
     if record:
         name += "-bug" if bug else "-record"
+    handlers = (
+        on_init, on_write, on_repl, on_ack, on_commit, on_retx,
+        on_cretx, on_fin, on_join, on_jretx, on_read, on_readresp,
+    )
+    if army:
+        name += "-army"
+        handlers += (on_areq, on_aprobe, on_aresp)
 
     return Workload(
         name=name,
         n_nodes=n,
         state_width=width,
-        handlers=(
-            on_init, on_write, on_repl, on_ack, on_commit, on_retx,
-            on_cretx, on_fin, on_join, on_jretx, on_read, on_readresp,
-        ),
+        handlers=handlers,
         # on_init builds up to 6 rows; on_retx builds n_replicas+2
         max_emits=max(n_replicas + 2, 6),
         args_words=2,
@@ -323,6 +365,8 @@ def make_kvchaos(
         draw_purposes=((_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else ())
         + ((_P_VAL0, _P_VAL1) if payload else ()),
         history=hist,
+        # army mode: one lat_start or lat_end a call
+        lat_markers=1 if army else 0,
         model_params=(
             ("writes", writes),
             ("n_replicas", n_replicas),
@@ -332,5 +376,34 @@ def make_kvchaos(
             ("payload", payload),
             ("record", record),
             ("bug", bug),
+            ("army", army),
+            ("army_probes", army_probes),
         ),
+    )
+
+
+def client_army(
+    n_ops: int = 256,
+    t_min_ns: int = 20_000_000,
+    t_max_ns: int = 400_000_000,
+    n_replicas: int = 4,
+    op_base: int = 0,
+    retry=None,
+):
+    """A :class:`chaos.ClientArmy` bound to kvchaos's client surface
+    (``make_kvchaos(army=True)`` with the same ``n_replicas``): ops
+    arrive at the client node and probe the primary. Compose it into a
+    ``FaultPlan`` beside the chaos specs and run with
+    ``latency=LatencySpec(ops >= op_base + n_ops)``. ``retry`` raises
+    until the engine's retry axis is ported (ROADMAP A8)."""
+    from ..chaos.plan import ClientArmy
+
+    return ClientArmy(
+        node=1 + n_replicas,  # [primary, replicas 1..R, client R+1]
+        kind=user_kind(_H_AREQ),
+        n_ops=n_ops,
+        t_min_ns=t_min_ns,
+        t_max_ns=t_max_ns,
+        op_base=op_base,
+        retry=retry,
     )

@@ -1,6 +1,6 @@
 """Lease/watch KV service under chaos (the etcd-shaped batched model).
 
-Port of ``madsim_tpu/models/leasekv.py`` (no army): one lease server, ``n_clients``
+Port of ``madsim_tpu/models/leasekv.py``: one lease server, ``n_clients``
 lease-holding clients and one watcher. Each client grants itself a TTL
 lease at the server, keeps it alive with periodic keepalives, and
 serves puts through it; the server's scan loop expires every lease
@@ -25,7 +25,9 @@ says is dead.
 
 ``ka_stop_ms`` (client 1 stalls its keepalives) and ``chaos=False`` run
 on the CPU; the kernel carries the default, record and bug variants.
-``army`` waits for the latency markers (ROADMAP queue A8).
+``army=True`` opens the watcher as an open-loop client surface
+(``client_army``): each op marks its invoke, runs ``army_probes``
+read-only probe rounds against the server and marks its completion.
 
 Node layout: [server 0, clients 1..C (lease id = node id), watcher C+1]
 Server state:  [deadline_ms(lease 1) .. deadline_ms(lease C),
@@ -67,6 +69,9 @@ _H_FIN = 11  # at server: args = (lid,)
 _H_WEVT = 12  # at watcher: args = (lid, wseq)
 _H_RESYNC = 13  # at server: watcher stream-head request
 _H_RESYNC_OK = 14  # at watcher: args = (wseq,)
+_H_AREQ = 15  # at watcher: army op arrival, army mode
+_H_APROBE = 16  # at server: army probe
+_H_ARESP = 17  # at watcher: army response
 
 SERVER = 0
 
@@ -103,21 +108,15 @@ def make_leasekv(
     army_probes: int = 1,
 ) -> Workload:
     """The lease/watch workload; ``record=True`` records the lease
-    lifecycle and ``bug=True`` plants grant-after-expiry. ``army``
-    raises ``NotImplementedError`` until the latency markers are
-    ported."""
-    if army:
-        raise NotImplementedError(
-            "make_leasekv(army=True) needs the latency markers and client "
-            "army plans, which the torch port does not have yet (ROADMAP "
-            "queue A8)"
-        )
-    del army_probes  # army mode only
+    lifecycle, ``bug=True`` plants grant-after-expiry and ``army=True``
+    adds the client-army handlers at the watcher."""
     if bug and not record:
         raise ValueError(
             "bug=True plants a fault only histories can see; it requires "
             "record=True (otherwise nothing would ever detect it)"
         )
+    if army_probes < 1:
+        raise ValueError(f"army_probes must be >= 1, got {army_probes}")
     n = n_clients + 2
     watcher = n_clients + 1
     width = max(n_clients + 3, 4)
@@ -285,6 +284,27 @@ def make_leasekv(
             eb.record(OP_WATCH_EVT, 0, w, ok=OK_FAIL, when=adv)
         return set_cols(ctx.state, adv, {0: w}), eb.build()
 
+    def on_areq(ctx):
+        # an army op arrives at the watcher: mark its invoke and open a
+        # session of probes against the server's stream head
+        op_id = ctx.args[:, 0]
+        eb = ctx.emits()
+        eb.lat_start(op_id)
+        eb.send(SERVER, user_kind(_H_APROBE), (op_id, army_probes - 1))
+        return ctx.state, eb.build()
+
+    def on_aprobe(ctx):
+        eb = ctx.emits()
+        eb.send(watcher, user_kind(_H_ARESP), (ctx.args[:, 0], ctx.args[:, 1]))
+        return ctx.state, eb.build()
+
+    def on_aresp(ctx):
+        op_id, left = ctx.args[:, 0], ctx.args[:, 1]
+        eb = ctx.emits()
+        eb.send(SERVER, user_kind(_H_APROBE), (op_id, left - 1), when=left > 0)
+        eb.lat_end(op_id, when=left == 0)
+        return ctx.state, eb.build()
+
     hist = None
     if record:
         cap = (
@@ -296,6 +316,14 @@ def make_leasekv(
     name = "leasekv"
     if record:
         name += "-bug" if bug else "-record"
+    handlers = (
+        on_init, on_grant, on_granted, on_ka_t, on_keepalive,
+        on_drop_lease, on_scan, on_put_t, on_put, on_put_ok,
+        on_drop_lease, on_fin, on_wevt, on_resync, on_resync_ok,
+    )
+    if army:
+        name += "-army"
+        handlers += (on_areq, on_aprobe, on_aresp)
 
     def _cov(ns, now):
         """Protocol coverage (Workload.cov_features): which leases are
@@ -313,11 +341,7 @@ def make_leasekv(
         name=name,
         n_nodes=n,
         state_width=width,
-        handlers=(
-            on_init, on_grant, on_granted, on_ka_t, on_keepalive,
-            on_drop_lease, on_scan, on_put_t, on_put, on_put_ok,
-            on_drop_lease, on_fin, on_wevt, on_resync, on_resync_ok,
-        ),
+        handlers=handlers,
         # widest: the scan sends one watch event per lease + its timer;
         # on_init builds 3 client rows, the server's timer and 2 chaos rows
         max_emits=max(n_clients + 1, 6),
@@ -325,6 +349,7 @@ def make_leasekv(
         draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
         history=hist,
         cov_features=_cov,
+        lat_markers=1 if army else 0,
         model_params=(
             ("n_clients", n_clients),
             ("puts", puts),
@@ -336,5 +361,29 @@ def make_leasekv(
             ("chaos", chaos),
             ("record", record),
             ("bug", bug),
+            ("army", army),
+            ("army_probes", army_probes),
         ),
+    )
+
+
+def client_army(
+    n_ops: int = 256,
+    t_min_ns: int = 20_000_000,
+    t_max_ns: int = 400_000_000,
+    n_clients: int = 3,
+    op_base: int = 0,
+):
+    """A :class:`chaos.ClientArmy` bound to leasekv's watcher
+    (``make_leasekv(army=True)`` with the same ``n_clients``): ops arrive
+    at the watcher and probe the server's stream head."""
+    from ..chaos.plan import ClientArmy
+
+    return ClientArmy(
+        node=n_clients + 1,  # [server, clients 1..C, watcher C+1]
+        kind=user_kind(_H_AREQ),
+        n_ops=n_ops,
+        t_min_ns=t_min_ns,
+        t_max_ns=t_max_ns,
+        op_base=op_base,
     )

@@ -1,7 +1,7 @@
 """Raft log replication under leader-crash chaos, batched over seeds.
 
-Port of ``madsim_tpu/models/raftlog.py`` (no army, no coverage words),
-with or without recording, diskless or durable:
+Port of ``madsim_tpu/models/raftlog.py``, with or without recording,
+diskless or durable, with or without the client army:
 an elected leader proposes ``n_writes`` entries one at a time,
 replicates each with AppendEntries carrying its whole log prefix in the
 event payload, commits it on a majority of acks, and every seed
@@ -35,6 +35,12 @@ durable node also records ``OP_SYNCED`` (a synced log-length change)
 and ``OP_RECOVER`` (the length a restarted node came back with), which
 ``check.recovery_safety`` judges.
 
+``army=True`` appends one client node (index ``n_nodes``) that runs no
+raft: a ``chaos.ClientArmy`` op (``client_army``) arriving there marks
+its invoke and probes server ``op_id % n_nodes``, which answers with its
+commit index (a read-only dirty read), and the response marks the op's
+completion for the latency tap.
+
 State row: [role, term, voted_term, votes, timer_seq, log_len,
             commit, ack_mask, log_0 .. log_{W-1}]
 """
@@ -62,6 +68,9 @@ _H_APPEND = 4  # args = (term, idx, leader_commit, leader); pay = full log
 _H_ACKAPP = 5  # args = (term, idx, follower)
 _H_PROPOSE = 6  # leader propose timer; args = (term,)
 _H_RETX = 7  # leader retransmit timer; args = (term,)
+_H_AREQ = 8  # at client: army op arrival, args = (op_id, word), army mode
+_H_APROBE = 9  # at server: army probe, args = (op_id,)
+_H_ARESP = 10  # at client: army response, args = (op_id, commit)
 
 ROLE, TERM, VOTED, VOTES, TSEQ, LOGLEN, COMMIT, ACKS = range(8)
 LOG0 = 8
@@ -92,14 +101,8 @@ def make_raftlog(
     and commits, ``durable=True`` persists the Figure-2 columns under the
     sync discipline and ``bug="nosync"`` never syncs them.
     ``cov_spread=True`` adds the fleet's commit-index spread to the
-    coverage features (``Workload.cov_features``). ``army`` raises
-    ``NotImplementedError`` until the latency markers are ported (ROADMAP
-    queue A8)."""
-    if army:
-        raise NotImplementedError(
-            "make_raftlog's army needs the latency markers, which the "
-            "torch port does not have yet (ROADMAP queue A8)"
-        )
+    coverage features (``Workload.cov_features``). ``army=True`` appends
+    the client node of the client army."""
     if bug not in (None, "nosync"):
         raise ValueError(f"unknown raftlog bug {bug!r} (only 'nosync')")
     if bug and not durable:
@@ -109,6 +112,10 @@ def make_raftlog(
         )
     majority = n_nodes // 2 + 1
     nodes = list(range(n_nodes))
+    # the army's client node comes after the servers: the raft loops run
+    # over `nodes`, so no protocol traffic or chaos draw touches it
+    n_total = n_nodes + (1 if army else 0)
+    client = n_nodes
     w = n_writes
     width = LOG0 + w
     # the correct placement syncs every durable write in the dispatch
@@ -150,11 +157,14 @@ def make_raftlog(
 
     def on_init(ctx):
         eb = ctx.emits()
-        _arm_election(ctx, eb, 1, True)
+        # the army's client runs no raft: no election timer, no records
+        is_server = ctx.node < n_nodes if army else True
+        _arm_election(ctx, eb, 1, is_server)
         if rec_store:
             # a re-init at now > 0 is a restarted node reading its disk
             # back: the log length it recovered with
-            eb.record(OP_RECOVER, key=0, arg=ctx.state[:, LOGLEN], when=ctx.now > 0)
+            eb.record(OP_RECOVER, key=0, arg=ctx.state[:, LOGLEN],
+                      when=(ctx.now > 0) & is_server)
         if chaos:
             # node 0's t=0 init schedules the seed's chaos plan (restarted
             # nodes re-run on_init, but later re-inits see now > 0)
@@ -343,6 +353,33 @@ def make_raftlog(
         eb.after(retx_ns, user_kind(_H_RETX), ctx.node, (term,), when=alive_leader)
         return ctx.state, eb.build()
 
+    def on_areq(ctx):
+        # an army op arrives at the client: mark its invoke and probe one
+        # server, round-robin by op id; an open-loop client never retries
+        op_id = ctx.args[:, 0]
+        eb = ctx.emits()
+        eb.lat_start(op_id)
+        eb.send(op_id % n_nodes, user_kind(_H_APROBE), (op_id,))
+        return ctx.state, eb.build()
+
+    def on_aprobe(ctx):
+        # a dirty read: any live server answers with its commit index
+        eb = ctx.emits()
+        eb.send(client, user_kind(_H_ARESP), (ctx.args[:, 0], ctx.state[:, COMMIT]))
+        return ctx.state, eb.build()
+
+    def on_aresp(ctx):
+        eb = ctx.emits()
+        eb.lat_end(ctx.args[:, 0])
+        return ctx.state, eb.build()
+
+    handlers = (
+        on_init, on_timeout, on_reqvote, on_grant, on_append,
+        on_ackapp, on_propose, on_retx,
+    )
+    if army:
+        handlers += (on_areq, on_aprobe, on_aresp)
+
     def _commit_spread(ns, now):
         """Protocol coverage (Workload.cov_features, ``cov_spread``): the
         servers' commit-index spread, and the (floor, spread) pair, each
@@ -357,13 +394,10 @@ def make_raftlog(
 
     return Workload(
         name="raftlog" + ("-nosync" if bug == "nosync" else "")
-        + ("-record" if record else ""),
-        n_nodes=n_nodes,
+        + ("-record" if record else "") + ("-army" if army else ""),
+        n_nodes=n_total,
         state_width=width,
-        handlers=(
-            on_init, on_timeout, on_reqvote, on_grant, on_append,
-            on_ackapp, on_propose, on_retx,
-        ),
+        handlers=handlers,
         # widest: on_timeout and on_grant, N rows plus two timers
         max_emits=n_nodes + 2,
         payload_words=w,
@@ -384,6 +418,8 @@ def make_raftlog(
         draw_purposes=(_P_TIMEOUT, _P_VALUE)
         + ((_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else ()),
         cov_features=_commit_spread if cov_spread else None,
+        # army mode: one lat_start or lat_end a call
+        lat_markers=1 if army else 0,
         model_params=(
             ("n_nodes", n_nodes),
             ("n_writes", n_writes),
@@ -395,5 +431,29 @@ def make_raftlog(
             ("durable", durable),
             ("bug", bug),
             ("cov_spread", cov_spread),
+            ("army", army),
         ),
+    )
+
+
+def client_army(
+    n_ops: int = 256,
+    t_min_ns: int = 20_000_000,
+    t_max_ns: int = 400_000_000,
+    n_nodes: int = 5,
+    op_base: int = 0,
+):
+    """A :class:`chaos.ClientArmy` bound to raftlog's client surface
+    (``make_raftlog(army=True)`` with the same ``n_nodes``): ops arrive
+    at the appended client node and probe server ``op_id % n_nodes``.
+    Run with ``latency=LatencySpec(ops >= op_base + n_ops)``."""
+    from ..chaos.plan import ClientArmy
+
+    return ClientArmy(
+        node=n_nodes,  # the appended client node
+        kind=user_kind(_H_AREQ),
+        n_ops=n_ops,
+        t_min_ns=t_min_ns,
+        t_max_ns=t_max_ns,
+        op_base=op_base,
     )

@@ -1,7 +1,6 @@
 """Sharded KV with key-range migration under chaos, batched over seeds.
 
-Port of ``madsim_tpu/models/shardkv.py`` (no army): a configuration
-epoch maps
+Port of ``madsim_tpu/models/shardkv.py``: a configuration epoch maps
 ``n_shards`` key ranges onto ``n_groups`` replica groups (a primary and
 backups each); a controller rebalances by migrating one shard at a
 time: freeze the shard at its source primary, hand its version to the
@@ -25,8 +24,12 @@ key = shard, arg = ``pack_shard_own(epoch, group, version)``), so
 ``bug=True`` plants the lost-shard mutant: the source releases the
 shard the moment it sends the handoff, so a retried handoff re-sends
 version 0 and the destination installs it, dropping committed writes.
-``bug="noidem"`` and ``army`` wait for the latency markers and client
-army plans (ROADMAP queue A8).
+``army=True`` opens the client node as an open-loop surface
+(``client_army``): each op applies an exactly-once put (a dedup floor in
+client column 3, recorded as ``OP_ARMY_PUT`` with ``record=True``), marks
+its invoke and probes the controller for ``army_probes`` rounds before
+marking its completion. ``bug="noidem"`` (the non-idempotent retried
+put) waits for the engine's retry axis (ROADMAP A8 retry).
 
 Node layout: [controller 0, client 1, then group g's replicas at
 2+g*R .. 2+g*R+R-1 (primary first)]
@@ -45,8 +48,8 @@ import torch
 
 from ..check.history import OK_OK, OP_USER, pack_shard_own
 from ..engine.core import (
-    KIND_KILL, KIND_RESTART, HistorySpec, Workload, get_col, set_col,
-    set_cols, user_kind,
+    KIND_KILL, KIND_RESTART, HistorySpec, Workload, get_col, retry_token_attempt,
+    retry_token_op, set_col, set_cols, user_kind,
 )
 from ..engine.rng import M32
 
@@ -54,6 +57,7 @@ from ..engine.rng import M32
 OP_SHARD_WRITE = OP_USER  # commit: key = shard, arg = version
 OP_SHARD_OWN = OP_USER + 1  # install: key = shard, arg = packed
 #                             (epoch, group, version)
+OP_ARMY_PUT = OP_USER + 2  # army apply: key = op id, arg = attempt
 
 _H_INIT = 0
 _H_PUT_T = 1  # at client: write/progress timer
@@ -70,13 +74,18 @@ _H_HANDOFF = 11  # at dst primary: args = (shard, new_epoch, ver)
 _H_INSTALL_ACK = 12  # at controller: args = (shard, new_epoch)
 _H_RELEASE = 13  # at src primary: args = (shard, new_epoch)
 _H_FIN = 14  # at controller: client done
+_H_AREQ = 15  # at client: army op arrival, army mode
+_H_APROBE = 16  # at controller: army probe
+_H_ARESP = 17  # at client: army response
 
 CONTROLLER = 0
 CLIENT = 1
 
 _C_EPOCH, _C_PHASE, _C_MIG_S, _C_MIG_D = 0, 1, 2, 3
 _C_A0, _C_A1, _C_DONE, _C_FIN = 4, 5, 6, 7
-_K_EPOCH, _K_ACKED = 0, 1
+# client columns; column 3 is the last army op applied plus one, the
+# exactly-once dedup floor
+_K_EPOCH, _K_ACKED, _K_APPLIED = 0, 1, 3
 
 _P_KILL_AT = 0
 _P_KILL_WHO = 1
@@ -116,9 +125,9 @@ def make_shardkv(
     army_probes: int = 1,
 ) -> Workload:
     """The sharded-KV workload; ``record=True`` records writes and
-    installs and ``bug=True`` plants the lost-shard mutant. ``army`` and
-    ``bug="noidem"`` raise ``NotImplementedError`` until the latency
-    markers are ported."""
+    installs, ``bug=True`` plants the lost-shard mutant and ``army=True``
+    adds the client-army handlers. ``bug="noidem"`` raises
+    ``NotImplementedError`` until the retry axis is ported."""
     if bug not in (False, True, "noidem"):
         raise ValueError(
             f"bug must be False, True (lost-shard) or 'noidem' "
@@ -129,13 +138,19 @@ def make_shardkv(
             "bug plants a fault only histories can see; it requires "
             "record=True (otherwise nothing would ever detect it)"
         )
-    if army or bug == "noidem":
-        raise NotImplementedError(
-            "make_shardkv(army=True or bug='noidem') needs the latency "
-            "markers and client army plans, which the torch port does "
-            "not have yet (ROADMAP queue A8)"
+    if bug == "noidem" and not army:
+        raise ValueError(
+            "bug='noidem' lives in the army apply path; it requires "
+            "army=True"
         )
-    del army_probes  # army mode only
+    if army_probes < 1:
+        raise ValueError(f"army_probes must be >= 1, got {army_probes}")
+    if bug == "noidem":
+        raise NotImplementedError(
+            "make_shardkv(bug='noidem') plants a fault that only retried "
+            "deliveries show, and needs the engine's client-retry axis, which "
+            "the torch port does not have yet (ROADMAP A8 retry)"
+        )
     G, R, S = n_groups, group_size, n_shards
     if not 1 <= S <= 8:
         raise ValueError(f"n_shards must be in [1, 8] (packed 4-bit "
@@ -377,11 +392,53 @@ def make_shardkv(
 
     hist = None
     if record:
-        cap = 2 * writes + 4 * n_migs + 16 if hist_capacity is None else hist_capacity
+        # the army term covers the default client_army (256 ops) at 4
+        # deliveries each
+        cap = (
+            2 * writes + 4 * n_migs + 16 + (1024 if army else 0)
+            if hist_capacity is None else hist_capacity
+        )
         hist = HistorySpec(capacity=cap, max_records=1)
     name = "shardkv"
     if record:
         name += "-bug" if bug else "-record"
+
+    def on_areq(ctx):
+        # an army op arrives at the client: an exactly-once put. Ops are
+        # offered in increasing id order, so `op >= floor` admits each
+        # once and swallows repeated and reordered older deliveries
+        op_id = retry_token_op(ctx.args[:, 0])
+        att = retry_token_attempt(ctx.args[:, 0])
+        st = ctx.state
+        applied = op_id >= st[:, _K_APPLIED]
+        new = set_cols(st, applied, {_K_APPLIED: torch.clamp(op_id + 1, 0, VER_CAP)})
+        eb = ctx.emits()
+        if record:
+            eb.record(OP_ARMY_PUT, op_id, att, ok=OK_OK, when=applied)
+        eb.lat_start(op_id)
+        eb.send(CONTROLLER, user_kind(_H_APROBE), (op_id, army_probes - 1))
+        return new, eb.build()
+
+    def on_aprobe(ctx):
+        eb = ctx.emits()
+        eb.send(CLIENT, user_kind(_H_ARESP), (ctx.args[:, 0], ctx.args[:, 1]))
+        return ctx.state, eb.build()
+
+    def on_aresp(ctx):
+        op_id, left = ctx.args[:, 0], ctx.args[:, 1]
+        eb = ctx.emits()
+        eb.send(CONTROLLER, user_kind(_H_APROBE), (op_id, left - 1), when=left > 0)
+        eb.lat_end(op_id, when=left == 0)
+        return ctx.state, eb.build()
+
+    handlers = (
+        on_init, on_put_t, on_write, on_repl, on_write_ok, on_wrong,
+        on_cfg_req, on_cfg, on_mig_t, on_mig_retx, on_mig_start,
+        on_handoff, on_install_ack, on_release, on_fin,
+    )
+    if army:
+        name += "-army"
+        handlers += (on_areq, on_aprobe, on_aresp)
 
     def _cov(ns, now):
         """Protocol coverage (Workload.cov_features): the migration edge
@@ -399,11 +456,7 @@ def make_shardkv(
         name=name,
         n_nodes=n,
         state_width=width,
-        handlers=(
-            on_init, on_put_t, on_write, on_repl, on_write_ok, on_wrong,
-            on_cfg_req, on_cfg, on_mig_t, on_mig_retx, on_mig_start,
-            on_handoff, on_install_ack, on_release, on_fin,
-        ),
+        handlers=handlers,
         # widest: on_write = ok + wrong + (R-1) replications; on_init =
         # the two timers + 2 chaos rows
         max_emits=max(R + 1, 6),
@@ -414,6 +467,7 @@ def make_shardkv(
         draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
         history=hist,
         cov_features=_cov,
+        lat_markers=1 if army else 0,
         model_params=(
             ("n_groups", n_groups),
             ("group_size", group_size),
@@ -426,5 +480,31 @@ def make_shardkv(
             ("chaos", chaos),
             ("record", record),
             ("bug", bug),
+            ("army", army),
+            ("army_probes", army_probes),
         ),
+    )
+
+
+def client_army(
+    n_ops: int = 256,
+    t_min_ns: int = 20_000_000,
+    t_max_ns: int = 400_000_000,
+    op_base: int = 0,
+    retry=None,
+):
+    """A :class:`chaos.ClientArmy` bound to shardkv's client surface
+    (``make_shardkv(army=True)``): ops arrive at the client node, apply
+    an exactly-once put and probe the controller. ``retry`` raises until
+    the engine's retry axis is ported (ROADMAP A8)."""
+    from ..chaos.plan import ClientArmy
+
+    return ClientArmy(
+        node=CLIENT,
+        kind=user_kind(_H_AREQ),
+        n_ops=n_ops,
+        t_min_ns=t_min_ns,
+        t_max_ns=t_max_ns,
+        op_base=op_base,
+        retry=retry,
     )

@@ -103,19 +103,22 @@ def build_host_kernel(tmp_dir, spec, pools, group=None, obs=False):
     return h
 
 
-def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None):
+def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None, latency=None):
     """One run launch of the host build from CPU state ``state`` into
     fresh outputs; returns ``(out, iters, tmax)``. ``words`` defaults
     to the registered model's config words; a state with the counter
     row runs the instantiation with the fleet counters, one with a
-    coverage or ring column the one with the taps."""
+    coverage or ring column the one with the taps, and one with latency
+    columns folds the markers under ``latency``."""
     s, e = state.ev_valid.shape
-    out = fused.fresh_outputs(state)
+    markers = wl.lat_markers > 0
+    out = fused.fresh_outputs(state, markers)
     iters = torch.empty((s,), dtype=torch.int64)
     tmax = torch.empty((1,), dtype=torch.int64)
     if words is None:
         words = fused.config_words(wl, cfg)
-    ptrs, c = fused.kernel_args(state, out, fused._tables(wl, "cpu"), iters, tmax, words)
+    ptrs, c = fused.kernel_args(state, out, fused._tables(wl, "cpu"), iters, tmax, words,
+                                latency, markers)
     assert lib.host_run(ptrs, c, s, int(budget), e, int(stop_at_halt),
                         int(fused.has_metrics(state)), int(fused.has_obs(state))) == 0
     return out, iters, tmax
@@ -128,10 +131,10 @@ def host_drain(lib, out, iters, tmax):
     assert lib.host_drain(ptrs, out.seed.shape[0], out.ev_valid.shape[1]) == 0
 
 
-def host_run(lib, wl, cfg, st, n_steps, until_halted, words=None):
+def host_run(lib, wl, cfg, st, n_steps, until_halted, words=None, latency=None):
     """make_run_fused's protocol (a run launch, then for make_run_while
     the drain launch), with the host build."""
-    out, iters, tmax = host_launch(lib, wl, cfg, st, n_steps, until_halted, words)
+    out, iters, tmax = host_launch(lib, wl, cfg, st, n_steps, until_halted, words, latency)
     if until_halted:
         host_drain(lib, out, iters, tmax)
     return out

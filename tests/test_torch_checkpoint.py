@@ -151,8 +151,15 @@ def test_refuses_a_time32_checkpoint(tmp_path):
      ("rt_done", np.zeros((4, 1), np.bool_), "A8")],
 )
 def test_refuses_a_non_empty_foreign_field(port_file, field, value, item):
+    """A non-empty entry of a field the port does not carry is refused;
+    the latency columns are the port's own since the latency tap was
+    ported, so their entries load as they are."""
     path, cfg = port_file
     _rewrite(path, **{field: value})
+    if field in tcore.STATE_FIELDS:
+        np.testing.assert_array_equal(getattr(load(path, cfg, device="cpu"), field).numpy(),
+                                      value)
+        return
     with pytest.raises(ValueError, match=f"'{field}' is not empty.*{item}"):
         load(path, cfg, device="cpu")
 

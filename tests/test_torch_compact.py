@@ -139,8 +139,10 @@ def test_arguments_are_validated():
     # the history, coverage and ring columns are banked now (zero-size
     # for raft without the taps)
     make_run_compacted(wl, cfg, 10, fields=("hist_count", "cov", "tl_t"))
-    with pytest.raises(NotImplementedError, match="not in the torch port's SimState"):
-        make_run_compacted(wl, cfg, 10, fields=("lat_hist",))
+    # so are the latency sketch and its counters; the per-op clocks are not
+    make_run_compacted(wl, cfg, 10, fields=("lat_hist", "lat_count", "lat_drop"))
+    with pytest.raises(ValueError, match="unknown result field"):
+        make_run_compacted(wl, cfg, 10, fields=("lat_inv",))
     with pytest.raises(NotImplementedError, match="A8"):
         make_run_compacted(wl, cfg, 10, causal=True)
     # hist_screen is validated now, not refused: it needs histories and

@@ -199,6 +199,19 @@ def test_registry_shapes_equal_the_factories():
     }
     assert all(fused.kernel_model(w).key == key for key, w in storage.items())
     made += storage.values()
+    # the client-army libraries, each at the shape its first run needs
+    army = {
+        "kvchaos-army-nochaos": make_kvchaos(n_replicas=2, chaos=False, army=True,
+                                             army_probes=3),
+        "kvchaos-record-army": make_kvchaos(record=True, army=True, army_probes=2),
+        "raftlog-record-army": make_raftlog(record=True, army=True),
+        "leasekv-army": SOAK_SPECS["leasekv"][0](army=True),
+        "shardkv-record-army-nochaos": SOAK_SPECS["shardkv"][0](record=True, army=True,
+                                                                chaos=False),
+    }
+    assert all(fused.kernel_model(w).key == key and fused.MODELS[key].lat == w.lat_markers == 1
+               for key, w in army.items())
+    made += army.values()
     assert sorted({w.name for w in made}) == sorted(
         {m.name for m in fused.MODELS.values()})
     for wl in made:
@@ -219,16 +232,17 @@ def test_registry_shapes_equal_the_factories():
 def test_every_trait_dispatches_its_handlers_in_order():
     """Each model header's ``handle`` that switches on the handler
     names handlers 0..H-2 by ``case`` and leaves ``default`` to the last
-    one. nvcc (12.8) lowered a switch whose ``default`` stood for a
-    handler between two cases wrongly on the card (csrc/model_twophase.cuh
-    says how), which no g++ build shows."""
+    one (an army library's three client-army handlers come after them and
+    are dispatched before the switch). nvcc (12.8) lowered a switch whose
+    ``default`` stood for a handler between two cases wrongly on the card
+    (csrc/model_twophase.cuh says how), which no g++ build shows."""
     for spec in fused.MODELS.values():
         body = (fused.CSRC / spec.header).read_text()
         body = body[body.index("void handle("):]
         if "switch (h)" not in body:
             continue  # microbench: if (h == 0) ... else ...
         labels = [int(x) for x in re.findall(r"\bcase (\d+):", body)]
-        h = spec.shape[5]
+        h = spec.shape[5] - (3 if spec.lat else 0)
         assert sorted(labels) == list(range(h - 1)), spec.key
         assert body.count("default:") == 1, spec.key
 
@@ -445,6 +459,7 @@ def test_cuda_budget_zero_copies_the_state():
         if getattr(st, f).numel():
             # raft records nothing: its history columns are the input's,
             # and so are the ring's (its two counters too) without a ring
+            # and the latency tap's (its two counters too) without the tap
             shared = (f in fused.SHARED_FIELDS or f in fused.HISTORY_COLUMNS
-                      or f in fused.RING_FIELDS)
+                      or f in fused.RING_FIELDS or f in tcore.LATENCY_FIELDS)
             assert (getattr(out, f).data_ptr() == getattr(st, f).data_ptr()) == shared, f

@@ -319,7 +319,8 @@ def test_the_registry_refuses_what_it_does_not_build():
     plan_libs = {k: m for k, m in fused.MODELS.items() if ("chaos", False) in m.fixed}
     assert sorted(plan_libs) == sorted(HOST_CASES.keys() - {"raft-record"}
                                        | {"kvchaos-record-nochaos", "raftlog-durable-record",
-                                          "raftlog-nosync-record"})
+                                          "raftlog-nosync-record", "kvchaos-army-nochaos",
+                                          "shardkv-record-army-nochaos"})
     for key, spec in fused.MODELS.items():
         assert key.startswith(spec.name) or (key, spec.name) in (
             ("raft", "raft-election"), ("raft-record", "raft-election-record"),

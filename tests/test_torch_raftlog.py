@@ -84,12 +84,15 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
     ids=["durable", "nosync", "army", "cov_spread"],
 )
 def test_unported_modes_raise(kw):
-    """army still waits for its A8 axis; durable and nosync build (the
-    sync discipline is ported), and so does cov_spread (the coverage
-    taps are)."""
+    """Each mode builds now: durable and nosync (the sync discipline is
+    ported), cov_spread (the coverage taps are) and army (the latency
+    markers are: under its client army with the latency tap it equals
+    the reference per field, its client node appended)."""
     if "army" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A8"):
-            t_make(**kw)
+        from _torch_army import army_only_both
+
+        t = army_only_both("raftlog", kw, 12, 64, 300, SEEDS[:16])
+        assert t["lat_count"].sum() > 0 and t["node_state"].shape[1] == 6
         return
     if "cov_spread" in kw:
         wl = t_make(**kw)

@@ -291,3 +291,62 @@ def test_cuda_taps_through_search_and_compaction_match_the_cpu():
     want = make_run_compacted_plain(wl, cfg, RAFT_CAP, min_size=64, **taps)(st.to("cpu"))
     for f in RESULT_FIELDS:
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["kvchaos-army-nochaos", "kvchaos-record-army",
+                                 "raftlog-record-army", "leasekv-army",
+                                 "shardkv-record-army-nochaos"])
+def test_cuda_army_libraries_with_the_latency_tap_match_the_cpu(key):
+    """Each client-army library under its client army and a crash storm,
+    with the latency tap (and, where the library has them, every
+    observability tap): one run and one drain launch, every field equal
+    to the plain step on the CPU; with the tap off, every other field
+    the same but the bitmap and hit counters, which the latency features
+    feed."""
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan
+    from madsim_tpu_torch.models import kvchaos, leasekv, raftlog, shardkv
+
+    _needs_card()
+    cases = {
+        "kvchaos-army-nochaos": (
+            kvchaos.make_kvchaos(n_replicas=2, chaos=False, army=True, army_probes=3), 160,
+            kvchaos.client_army(n_ops=32, n_replicas=2), (1, 2)),
+        "kvchaos-record-army": (
+            kvchaos.make_kvchaos(record=True, army=True, army_probes=2), 72,
+            kvchaos.client_army(n_ops=10), (1, 2, 3, 4)),
+        "raftlog-record-army": (raftlog.make_raftlog(record=True, army=True), 96,
+                                raftlog.client_army(n_ops=10), (0, 1, 2, 3, 4)),
+        "leasekv-army": (leasekv.make_leasekv(army=True), 48, leasekv.client_army(n_ops=16),
+                         (1, 2, 3)),
+        "shardkv-record-army-nochaos": (
+            shardkv.make_shardkv(record=True, army=True, chaos=False), 96,
+            shardkv.client_army(n_ops=16), (2, 5, 8, 11)),
+    }
+    wl, pool, army, targets = cases[key]
+    assert fused.kernel_model(wl).key == key
+    cfg = tcore.EngineConfig(pool_size=pool, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    plan = FaultPlan((army, CrashStorm(targets=targets, n=1)))
+    lat = tcore.LatencySpec(ops=army.n_ops, phases=2)
+    taps = (dict(cov_words=8, cov_hitcount=True, timeline_cap=48)
+            if pool in fused.MODELS[key].obs_pools else {})
+    seeds = np.arange(512, dtype=np.uint64)
+    rows = plan.compile_batch(seeds, wl=wl)
+    st = tcore.make_init(wl, cfg, device="cpu", plan_slots=plan.slots, latency=lat,
+                         **taps)(seeds, rows)
+    got, launches = _counts(key, lambda: tcore.make_run_while(wl, cfg, 4000, latency=lat, **taps)(
+        st.to("cuda")))
+    assert launches == (1, 1)
+    want = state_to_numpy(tcore.make_run_while_plain(wl, cfg, 4000, latency=lat, **taps)(st))
+    got = state_to_numpy(got)
+    for f in want:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert want["lat_count"].sum() > 0 and not want["lat_drop"].any()
+    off = state_to_numpy(tcore.make_run_while(wl, cfg, 4000, **taps)(
+        tcore.make_init(wl, cfg, device="cuda", plan_slots=plan.slots, **taps)(seeds, rows)))
+    fed = ("cov", "cov_hits") if taps else ()
+    for f in off:
+        if f not in (*tcore.LATENCY_FIELDS, *fed):
+            np.testing.assert_array_equal(off[f], want[f], err_msg=f)
+    if taps:
+        assert (off["cov"] != want["cov"]).any()

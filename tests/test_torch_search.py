@@ -145,6 +145,19 @@ def test_unported_options_raise_naming_their_item(option, item):
     value = {"cov_words": 2, "timeline_cap": 8, "metrics": True, "causal": True,
              "dup_rows": True}.get(option, object())
     cfg = tcore.EngineConfig(pool_size=40)
+    if option == "latency":
+        # A8 ported it: raft marks no op, so its sketches stay empty and
+        # its traces are those of the sweep without the tap
+        assert option not in UNPORTED_OPTIONS
+        on = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                          device="cpu", latency=tcore.LatencySpec(ops=4, phases=2))
+        off = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                           device="cpu")
+        np.testing.assert_array_equal(on.traces, off.traces)
+        assert on.lat_hist.shape == (4, 2, tcore.N_LAT_BUCKETS) and not on.lat_hist.any()
+        assert not on.lat_count.any() and not on.lat_dropped.any()
+        assert off.lat_hist is None and off.lat_count is None
+        return
     if item == "ported":
         assert option not in UNPORTED_OPTIONS
         plan = FaultPlan((PauseStorm(targets=(0, 1, 2)),))
