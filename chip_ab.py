@@ -1,6 +1,6 @@
 """Time ``chip_smoke.py`` of another checkout and of this one in one call.
 
-    python3 chip_ab.py OTHER_DIR [--pairs N KEYS] [CARD_TESTS ...]
+    python3 chip_ab.py OTHER_DIR [--pairs N KEYS] [--obs-pairs N] [CARD_TESTS ...]
 
 Runs ``python3 chip_smoke.py`` from the root of ``OTHER_DIR`` (for
 example the parent commit unpacked by ``git archive`` into a directory
@@ -11,8 +11,16 @@ call. ``--pairs N KEYS`` (KEYS comma-separated model keys, e.g.
 ``raft,kvchaos,raftlog``) then times those libraries' kernels in
 alternating pairs, N runs of ``chip_smoke.py --groups 8 KEYS`` on each
 side in the order other, this, this, other, ..., and prints each side's
-per-run medians and their spread per library. With test files after
-it, it then runs them with ``python3 -m pytest -m cuda --noconftest``
+per-run medians and their spread per library. ``--obs-pairs N`` times
+raft at its bench shape with every observability tap on (metrics,
+coverage with hit counts, a 256-row ring) and the causal axis off, N
+runs a side in the same alternating order, each in its own process
+importing that side's package, and prints each side's medians. After
+the two ``chip_smoke.py`` runs it holds this side's kernels without the
+taps to the other's: each library both sides build must have the same
+registers for its run kernels without the taps and its drain kernel,
+and the same launch shape (shared bytes and blocks per SM) at every
+pool. With test files after it, it then runs them with ``python3 -m pytest -m cuda --noconftest``
 (the card tests). The full outputs go to ``build/ab/other.log``,
 ``build/ab/this.log``, ``build/ab/pair_<side>_<i>.log`` and
 ``build/ab/card_tests.log``; the summary is the last lines. Exits
@@ -32,6 +40,37 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "ab"
 # a line of chip_smoke.py --groups: "  <key> G=<g>: median <ms> ms, ..."
 SWEEP_LINE = re.compile(r"^\s+(\S+) G=\d+: median ([0-9.]+) ms")
+# chip_smoke.py phase 2: a library's line, its kernels' resource lines
+# and its launch shape at each pool
+LIB_LINE = re.compile(r"^  (\S+): \S*libmadsim_\S+\.so$")
+FN_LINE = re.compile(r"Function properties for \S*?((?:run|drain)_kernel\S*)")
+REG_LINE = re.compile(r"Used (\d+) registers")
+POOL_LINE = re.compile(r"^    (pool \d+: .*)$")
+# raft at its bench shape with every tap and the causal axis off, timed
+# by CUDA events in a process that imports the side's package
+OBS_SCRIPT = r"""
+import statistics, sys
+import numpy as np, torch
+sys.path.insert(0, ".")
+from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while
+from madsim_tpu_torch.models import BENCH_SPECS
+factory, kw, n, cap = BENCH_SPECS["raft"]
+wl, cfg = factory(), EngineConfig(**kw)
+taps = dict(metrics=True, cov_words=64, cov_hitcount=True, timeline_cap=256)
+st = make_init(wl, cfg, device="cuda", **taps)(np.arange(n, dtype=np.uint64))
+run = make_run_while(wl, cfg, cap, **taps)
+run(st)
+ms = []
+for _ in range(7):
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    run(st)
+    b.record()
+    torch.cuda.synchronize()
+    ms.append(a.elapsed_time(b))
+print(f"obs raft: median {statistics.median(ms):.4f} ms, all {[round(x, 4) for x in ms]}")
+"""
+OBS_LINE = re.compile(r"^obs raft: median ([0-9.]+) ms")
 
 
 def run(name: str, cmd: list, cwd: Path) -> int:
@@ -69,20 +108,91 @@ def pairs(other: Path, n: int, keys: str) -> list:
     return rcs
 
 
+def obs_pairs(other: Path, n: int) -> list:
+    """``n`` alternating timing runs a side of raft with every tap and the
+    axis off; prints each side's medians. Returns the exit codes."""
+    sides = {"other": other, "this": ROOT}
+    medians = {side: [] for side in sides}
+    rcs = []
+    for i in range(n):
+        for side in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            name = f"obs_{side}_{i}"
+            rcs.append(run(name, [sys.executable, "-c", OBS_SCRIPT], sides[side]))
+            for line in (OUT / f"{name}.log").read_text().splitlines():
+                m = OBS_LINE.match(line)
+                if m:
+                    medians[side].append(float(m.group(1)))
+    for side, ms in medians.items():
+        if ms:
+            print(f"obs-pairs raft {side}: medians {ms}; median {statistics.median(ms):.4f} ms, "
+                  f"spread {min(ms):.4f}..{max(ms):.4f}", flush=True)
+    return rcs
+
+
+def base_kernels(log: Path) -> dict:
+    """Phase 2 of a chip_smoke.py log: ``{(library, kernel): registers}``
+    for the kernels without the taps, and ``{(library, pool line): text}``
+    for the launch shapes."""
+    out, lib, fn = {}, None, None
+    for line in log.read_text().splitlines():
+        m = LIB_LINE.match(line)
+        if m:
+            lib, fn = m.group(1), None
+            continue
+        if lib is None:
+            continue
+        m = FN_LINE.search(line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = REG_LINE.search(line)
+        if m and fn is not None:
+            # the taps' kernels are run_kernel<E, MET, true>: ...ELb1EEEv
+            if not re.match(r"run_kernelILi\d+ELb\dELb1E", fn):
+                out[lib, fn] = int(m.group(1))
+            fn = None
+            continue
+        m = POOL_LINE.match(line)
+        if m:
+            out[lib, m.group(1).split(":")[0]] = m.group(1)
+        elif line.startswith("["):
+            lib = None
+    return out
+
+
+def compare_base_kernels() -> int:
+    """0 when every library both logs built has this side's kernels
+    without the taps equal to the other's (registers, launch shape)."""
+    other, this = base_kernels(OUT / "other.log"), base_kernels(OUT / "this.log")
+    both = sorted(set(other) & set(this))
+    bad = [k for k in both if other[k] != this[k]]
+    libs = sorted({k[0] for k in both})
+    print(f"kernels without the taps: {len(both)} registers and launch shapes of {len(libs)} "
+          f"libraries compared, {len(bad)} differ" + (f": {bad}" if bad else ""), flush=True)
+    for k in bad:
+        print(f"  {k}: other {other[k]}, this {this[k]}", flush=True)
+    return 1 if bad or not both else 0
+
+
 def main() -> int:
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     other, rest = Path(sys.argv[1]).resolve(), sys.argv[2:]
-    n_pairs, keys = 0, ""
+    n_pairs, keys, n_obs = 0, "", 0
     if rest[:1] == ["--pairs"]:
         n_pairs, keys, rest = int(rest[1]), rest[2], rest[3:]
+    if rest[:1] == ["--obs-pairs"]:
+        n_obs, rest = int(rest[1]), rest[2:]
     tests = rest
     OUT.mkdir(parents=True, exist_ok=True)
     rcs = [run("other", [sys.executable, "chip_smoke.py"], other),
            run("this", [sys.executable, "chip_smoke.py"], ROOT)]
+    rcs.append(compare_base_kernels())
     if n_pairs:
         rcs += pairs(other, n_pairs, keys)
+    if n_obs:
+        rcs += obs_pairs(other, n_obs)
     if tests:
         rcs.append(run("card_tests", [sys.executable, "-m", "pytest", "-m", "cuda",
                                       "--noconftest", "-q", "-p", "no:cacheprovider", *tests],

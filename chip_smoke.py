@@ -186,10 +186,40 @@ plain eager step:
    the numpy ``check.slo_bounded`` invariant, and
    ``check.device.slo_breaches`` on the sweep's sketches on the card,
    flagging the same seeds;
-47. one JSON line describing each kernel, with its launches on every
+47. causal provenance (``tools/causal_soak.py`` on the card), its
+   certificate 1: kvchaos-bug-nochaos at the soak's shape (pool 192,
+   loss 0.05, its crash storm, 4,096 seeds, cap 4,000) with metrics, a
+   128-row ring and ``causal=True``, held as phases 4-15 (the six
+   causal columns against the plain step on the card on the first 512
+   seeds and a CPU sample); without the axis every other field, the
+   traces and the screens' verdicts are equal, and so are the searches
+   with ``device_check``, lockstep and compacted (the JAX package's 781
+   flagged seeds and trace digest); the kernel's ms with and without;
+48. certificate 2: ``obs.fleet_reduce(met, lam=)`` of that run on the
+   card gives the JAX package's causal depth and width; seeds 1000-1005
+   with a 256-row ring: ``obs.rederive`` equals the device fold and the
+   seqs strictly increase;
+49. cones: the screen sweep with a 512-row causal ring, its flagged
+   seeds the plain step's, each ``check.device.violation_cones`` cone
+   closed; then certificate 3's hunt shape on the new library
+   raftlog-record-w16-nochaos (16 writes, pool 192, 2,048 seeds, cap
+   20,000, an 8,192-row ring; G = 32), held as phases 4-15 on the first
+   128 seeds, searched with election safety on OP_COMMIT and OP_ELECT:
+   the JAX package's 43 flagged seeds, and each of the first 8 seeds'
+   cone cut at its conflicting COMMIT, the best (seed 137, 142 of 589
+   rows) at or under 0.25 of its ring;
+50. certificate 4: the new library kvchaos-bug-nochaos-dup under the
+   soak's duplication and gray-failure plan, held as phases 4-15 at
+   1,024 seeds with a 512-row causal ring; seeds 77-84 decoded, the
+   exact and the stripped Perfetto documents differ on 1,050 arrow
+   anchors and all 1,291 exact arrows match the parent column (the JAX
+   package's counts);
+51. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
-   it and read just after), then the card's name and power limit,
-   then ``{"ok": true, "device": ...}`` as the last line.
+   it and read just after) and its library's launch shape (the
+   occupancy calculator's numbers and the registers of the kernels
+   without the taps), then the card's name and power limit, then
+   ``{"ok": true, "device": ...}`` as the last line.
 
 Each group of phases prints its wall seconds as it ends (``[time]``).
 
@@ -856,6 +886,7 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
         extras(device, wl, cfg, cap, st, out, med)
     r = dict(
         launches=launches, drains=drains, err=err, ms=med, ms_all=ms, plain_ms=plain_ms,
+        pool=cfg.pool_size,
         **bound_terms(st, out, cfg.pool_size, seed_steps, drops, sends),
     )
     if reuse is not None:
@@ -911,10 +942,12 @@ def launch_shape(spec, pool: int, card: str = "") -> str:
 
 
 def kernel_line(name: str, model_source: str, r: dict, clock_hz: float,
-                paths: dict, extra: dict) -> dict:
+                paths: dict, extra: dict, shape: dict | None = None) -> dict:
     """One entry of the kernels line, with the bound computed here, the
-    model's [run, drain] launches on each path it ran (``paths``) and
-    its runner timings (``extra``)."""
+    model's [run, drain] launches on each path it ran (``paths``), its
+    runner timings (``extra``) and its library's launch shape at the
+    phase's pool (``shape``: the occupancy calculator's numbers and the
+    registers of the kernels without the taps)."""
     bytes_ms = (r["in_bytes"] + r["out_bytes"]) / HBM_BYTES_PER_S * 1e3
     ops_ms = r["ops"] / (INT32_LANES * clock_hz) * 1e3
     log(f"  {name} bound: bytes {r['in_bytes']} + {r['out_bytes']} -> {bytes_ms:.5f} ms; "
@@ -941,8 +974,32 @@ def kernel_line(name: str, model_source: str, r: dict, clock_hz: float,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
         "launches_by_path": paths,
+        **({"launch_shape": shape} if shape else {}),
         **extra,
     }
+
+
+def base_registers(build_log: str, pool: int) -> dict:
+    """The registers of a library's kernels without the taps at ``pool``
+    (the run kernel with and without metrics, the drain kernel), from
+    nvcc's ``--resource-usage`` lines: ``{kernel: registers}``."""
+    import re
+
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for \S*?((?:run|drain)_kernel\S*)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            short = re.match(r"(run|drain)_kernelILi(\d+)E(?:Lb(\d)ELb(\d)E)?", fn)
+            if short and int(short.group(2)) == pool and short.group(4) != "1":
+                name = (f"run(metrics={short.group(3) == '1'})" if short.group(1) == "run"
+                        else "drain")
+                out[name] = int(m.group(1))
+            fn = None
+    return out
 
 
 def run_variant(spec, wl, cfg, cap: int, st):
@@ -2023,12 +2080,13 @@ def obs_main_path_phase(device, results: list, paths: dict, extra: dict, card: s
 
 
 def obs_tail_bytes(n_nodes: int, pool: int, cov_words: int = 0, cov_hitcount: bool = False,
-                   timeline_cap: int = 0) -> int:
+                   timeline_cap: int = 0, causal: bool = False) -> int:
     """A seed's shared bytes for the taps (csrc/engine_step.cuh
     ``obs_layout``): with the ring the pool's emit times and its two
-    counters, with coverage the bitmap, the nodes' last kinds and the hit
-    counters; rounded up to 16."""
-    b = (pool * 8 + 8 if timeline_cap else 0) + (
+    counters, with the causal axis the pool's parent seqs and clocks and
+    the nodes' clocks, with coverage the bitmap, the nodes' last kinds
+    and the hit counters; rounded up to 16."""
+    b = (pool * 8 + 8 if timeline_cap else 0) + (pool * 8 + n_nodes * 4 if causal else 0) + (
         cov_words * 4 + n_nodes * 4 + (cov_words * 32 if cov_hitcount else 0)
         if cov_words else 0)
     return (b + 15) // 16 * 16
@@ -2244,6 +2302,9 @@ GOLDEN_FIELDS = (
     "lat_drop",
 )
 GOLDEN_MET_SLOTS = 16
+# the banked fields the digest of a compacted run skips by name: the
+# causal columns (the port carries no pool index or retry columns)
+GOLDEN_SKIP = ("lam", "ev_parent", "ev_lam", "tl_seq", "tl_parent", "tl_lam")
 # phase 45 holds each golden library at this many seeds (the plain step
 # on the card on the first GOLDEN_PLAIN_SEEDS) under its scenario
 GOLDEN_HELD_SEEDS = 4096
@@ -2447,7 +2508,7 @@ def golden_phase(device, results: list, paths: dict, extra: dict) -> None:
         co, c_com = path_launches(lambda: make_run_compacted(
             wl, cfg, GOLDEN_STEPS, latency=lat, min_size=8, **GOLDEN_OBS)(st))
         got = (golden_digest(state_to_numpy(out), GOLDEN_FIELDS),
-               golden_digest(vars(co), sorted(vars(co))))
+               golden_digest(vars(co), [f for f in sorted(vars(co)) if f not in GOLDEN_SKIP]))
         if got != (ARMY_GOLDENS[name], ARMY_GOLDENS[f"{name}/compact"]):
             raise AssertionError(f"golden {name}: {got}")
         if run_drain(c_run, key) != [1, 0] or run_drain(c_com, key) != [1, 0]:
@@ -2546,6 +2607,419 @@ def army_phase(device, results: list, paths: dict, extra: dict) -> None:
         f"{paths[key]['slo_sweep']}")
 
 
+# ---------------------------------------------------------------------------
+# phases 47-50: causal provenance (tools/causal_soak.py on the card)
+# ---------------------------------------------------------------------------
+
+# the soak's kvchaos shape: kvchaos bug=True without its own chaos,
+# writes=10, pool 192, loss 0.05, 4,000 steps, its crash storm
+CAUSAL_SEEDS = 4096
+CAUSAL_KV_W = 10
+CAUSAL_KV_KW = dict(pool_size=192, loss_p=0.05)
+CAUSAL_STEPS = 4000
+CAUSAL_PLAIN_SEEDS = 512
+CAUSAL_CPU_SAMPLE = 64
+# certificate 2's sampled seeds and ring; certificate 4's seeds and ring
+FOLD_SEEDS, FOLD_CAP = tuple(range(1000, 1006)), 256
+ARROW_SEEDS, ARROW_CAP = tuple(range(77, 85)), 512
+ARROW_HELD_SEEDS = 1024
+# certificate 3's hunt shape: the 16-write diskless raftlog-record, pool
+# 192, loss 0.02, clog backoff at most 2 s, 20,000 steps, an 8,192-row
+# ring, 2,048 seeds of the fixed hunt plan (the JAX tool mutates it with
+# explore, which the port has not yet: ROADMAP A10); the plain step on
+# the card holds the first 128 seeds
+HUNT_SEEDS, HUNT_PLAIN_SEEDS, HUNT_CPU_SAMPLE = 2048, 128, 8
+HUNT_KW = dict(pool_size=192, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+HUNT_STEPS, HUNT_CAP, CONE_BAR = 20000, 8192, 0.25
+HUNT_CONES = 8  # flagged seeds whose cone is cut at a conflicting COMMIT
+# what the JAX package gives on the CPU for the same runs: the causal
+# soak (tools/causal_soak.py 4096, today's run equal to CAUSAL_r13.txt)
+# certificate 2's fleet shape over the 4,096-seed search (depth min and
+# max, the mean concurrency width) and certificate 4's arrow-anchor
+# difference and exact arrows over seeds 77-84; the JAX package's
+# search_seeds of the hunt shape: the flagged seeds and the best cone
+# (seed, cone rows, ring rows) among the first HUNT_CONES of them
+CAUSAL_FLEET = (77, 142, 5.524386402978896)
+# the JAX package's search_seeds of phase 47's shape (device_check, no
+# ring, 4,096 seeds): its flagged seeds and the digest of its traces
+CAUSAL_KV_PINS = (781, "e3b96b998f59e415")
+ARROW_PINS = (1050, 1291)
+HUNT_FLAGGED = (96, 137, 181, 242, 245, 248, 293, 352, 413, 448, 481, 573, 587, 616, 655, 674,
+                765, 768, 841, 964, 991, 1077, 1190, 1213, 1265, 1293, 1305, 1309, 1318, 1482,
+                1554, 1555, 1578, 1590, 1682, 1698, 1701, 1734, 1772, 1839, 1851, 1863, 1940)
+HUNT_BEST_CONE = (137, 142, 589)
+
+
+def causal_plans() -> dict:
+    """tools/causal_soak.py's three plans: ``kv`` (its crash storm),
+    ``hunt`` (crash storm and flapping partition over raftlog's servers)
+    and ``arrow`` (duplication and slowed links)."""
+    from madsim_tpu_torch.chaos import CrashStorm, Duplicate, FaultPlan, FlappingPartition
+    from madsim_tpu_torch.chaos import GrayFailure
+
+    nodes = (0, 1, 2, 3, 4)
+    return {
+        "kv": FaultPlan((CrashStorm(targets=(1, 2, 3, 4), n=2, t_min_ns=20_000_000,
+                                    t_max_ns=400_000_000, down_min_ns=50_000_000,
+                                    down_max_ns=250_000_000),), name="kv-nemesis"),
+        "hunt": FaultPlan((
+            CrashStorm(targets=nodes, n=2, t_min_ns=150_000_000, t_max_ns=500_000_000,
+                       down_min_ns=100_000_000, down_max_ns=400_000_000),
+            FlappingPartition(targets=nodes, n_cycles=2, t_min_ns=50_000_000,
+                              t_max_ns=400_000_000, dur_min_ns=100_000_000,
+                              dur_max_ns=300_000_000, up_min_ns=20_000_000,
+                              up_max_ns=200_000_000),
+        ), name="raftlog-cone-hunt"),
+        "arrow": FaultPlan((
+            Duplicate(t_min_ns=20_000_000, t_max_ns=600_000_000, dur_min_ns=100_000_000,
+                      dur_max_ns=500_000_000),
+            GrayFailure(targets=nodes, n_links=2, t_min_ns=20_000_000, t_max_ns=600_000_000,
+                        dur_min_ns=100_000_000, dur_max_ns=500_000_000, mult_min=8,
+                        mult_max=32),
+        ), name="dup-slowlink"),
+    }
+
+
+def kv_screens() -> tuple:
+    from madsim_tpu_torch.check.device import read_your_writes, stale_reads
+
+    return (stale_reads(), read_your_writes())
+
+
+def screened(screens, st) -> np.ndarray:
+    """The screens' verdict on a state's history columns, on its device."""
+    from madsim_tpu_torch.check.device import screen_ok
+
+    return screen_ok(screens, st.hist_word, st.hist_t, st.hist_count, st.hist_drop).cpu().numpy()
+
+
+def causal_kv_phase(device, results: list, paths: dict, extra: dict, card: str) -> dict:
+    """Phase 47 (certificate 1): kvchaos-bug-nochaos at the soak's shape
+    with metrics, a 128-row ring and the causal axis, held as phases 4-15
+    (the six columns against the plain step on the card on the first 512
+    seeds and on a CPU sample); the same run without the axis has every
+    other field equal (traces and the screens' verdicts too), and so do
+    the search and the compacted run; the kernel's ms with and without.
+    Phase 48 (certificate 2) rides it: the fleet's causal shape of the
+    kernel run, reduced on the card. Returns the plain reference and the
+    search report."""
+    from madsim_tpu_torch.engine import (
+        CAUSAL_STATE_FIELDS, STATE_FIELDS, EngineConfig, make_init, make_run_while, search_seeds,
+    )
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_kvchaos
+    from madsim_tpu_torch.obs import fleet_reduce
+
+    wl = make_kvchaos(writes=CAUSAL_KV_W, record=True, bug=True, chaos=False)
+    cfg, plan, key = EngineConfig(**CAUSAL_KV_KW), causal_plans()["kv"], "kvchaos-bug-nochaos"
+    taps = dict(timeline_cap=128, causal=True)
+    log(f"[47] {key}: {CAUSAL_KV_KW}, {CAUSAL_SEEDS} seeds, make_run_while cap "
+        f"{CAUSAL_STEPS}, plan {plan.name}, metrics and {taps}; the plain step on the card "
+        f"holds the first {CAUSAL_PLAIN_SEEDS} seeds")
+    box, off, fleet = {}, {}, {}
+
+    def extras(device, wl, cfg, cap, st, out, med):
+        seeds = np.arange(CAUSAL_SEEDS, dtype=np.uint64)
+        st_off = make_init(wl, cfg, device=device, plan_slots=plan.slots, metrics=True,
+                           timeline_cap=128)(seeds, plan.compile_batch(seeds, wl=wl))
+        run_off = make_run_while(wl, cfg, cap, metrics=True, timeline_cap=128)
+        o = run_off(st_off)
+        bad = [f for f in STATE_FIELDS if f not in CAUSAL_STATE_FIELDS
+               and not torch.equal(getattr(o, f), getattr(out, f))]
+        if bad or any(getattr(o, f).numel() for f in CAUSAL_STATE_FIELDS):
+            raise AssertionError(f"{key}: the causal axis changed {bad}")
+        if not np.array_equal(screened(kv_screens(), o), screened(kv_screens(), out)):
+            raise AssertionError(f"{key}: the causal axis changed a verdict")
+        off["ms"] = time_ms(lambda: run_off(st_off), REPEATS, device)
+        fleet["fm"] = fleet_reduce(out.met, overflow=out.overflow, lam=out.lam)
+        log(f"  the axis off: traces, verdicts and every other field equal, the causal "
+            f"columns zero-size; kernel ms {spread(off['ms'])} without the axis")
+
+    r = kernel_phase(device, key, wl, cfg, CAUSAL_SEEDS, CAUSAL_STEPS, CAUSAL_CPU_SAMPLE,
+                     REPEATS, extras=extras, plan=plan, all_halt=False, refs=box, metrics=True,
+                     plain_seeds=CAUSAL_PLAIN_SEEDS, taps=taps)
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
+    results.append((key, f"make_run_fused/{key}/plan-{plan.name}/causal",
+                    f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+    paths[key]["run_while_causal"] = [r["launches"], r["drains"]]
+    extra.setdefault(key, {}).update(causal_off_ms=statistics.median(off["ms"]),
+                                     causal_off_ms_all=off["ms"])
+    tail = {c: obs_tail_bytes(wl.n_nodes, cfg.pool_size, timeline_cap=128, causal=c)
+            for c in (False, True)}
+    extra[key].update(causal_tail_bytes=tail[True] - tail[False])
+    log(f"  kernel median {r['ms']:.4f} ms with the axis, {statistics.median(off['ms']):.4f} "
+        f"without (this call, {card}); the axis adds {tail[True] - tail[False]} B of shared "
+        f"memory a seed ({tail[False]} -> {tail[True]} B of taps)")
+    # the runners: the search (lockstep and compacted) against the one
+    # without the axis
+    reports = {}
+    for compact in (False, True):
+        for causal in (False, True):
+            rep, counts = path_launches(lambda: search_seeds(
+                wl, cfg, None, n_seeds=CAUSAL_SEEDS, max_steps=CAUSAL_STEPS, plan=plan,
+                device_check=kv_screens(), metrics=True, require_halt=False, compact=compact,
+                device=device, **({"timeline_cap": 128, "causal": True} if causal else {})))
+            reports[compact, causal] = rep
+            if run_drain(counts, key) != [1, 0 if compact else 1]:
+                raise AssertionError(f"{key} search: launched {counts}")
+            if causal:
+                paths[key][f"search_causal{'_compact' if compact else ''}"] = run_drain(
+                    counts, key)
+    base = reports[False, False]
+    for (compact, causal), rep in reports.items():
+        for attr in ("ok", "traces", "flagged_idx", "overflowed", "halted"):
+            if not np.array_equal(getattr(rep, attr), getattr(base, attr)):
+                raise AssertionError(f"{key} search compact={compact} causal={causal}: "
+                                     f"{attr} differs")
+        if causal != (rep.lam is not None):
+            raise AssertionError(f"{key} search: report.lam with causal={causal}")
+    on = reports[False, True]
+    for f in ("lam", "tl_seq", "tl_parent", "tl_lam"):
+        a = on.lam if f == "lam" else getattr(on.timeline, f)
+        b = reports[True, True].lam if f == "lam" else getattr(reports[True, True].timeline, f)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{key}: the compacted search banks another {f}")
+    if (len(base.flagged_idx), traces_digest(base.traces)) != CAUSAL_KV_PINS:
+        raise AssertionError(f"47: {len(base.flagged_idx)} flagged, traces "
+                             f"{traces_digest(base.traces)}; the JAX package's {CAUSAL_KV_PINS}")
+    log(f"[47] search_seeds with device_check, lockstep and compacted, with and without the "
+        f"axis: verdicts, traces and {len(base.flagged_idx)} flagged seeds identical; the "
+        f"compacted search banks the lockstep one's lam and ring columns")
+    # phase 48's fleet shape: the kernel run's, reduced on the card, and
+    # the search report's host copy, against the JAX package's
+    fm = fleet["fm"]
+    host = fleet_reduce(on.met, lam=on.lam)
+    want_min, want_max, want_width = CAUSAL_FLEET
+    # the width is a float64 mean: the card sums in another order than
+    # the JAX package on the CPU, so it is held to 1e-12 relative
+    if ((fm.depth_min, fm.depth_max) != (want_min, want_max)
+            or abs(fm.width_mean - want_width) > 1e-12 * want_width
+            or host.format() != fm.format()):
+        raise AssertionError(f"48: fleet causal shape {fm.depth_min}, {fm.depth_max}, "
+                             f"{fm.width_mean}; the JAX package's {CAUSAL_FLEET}")
+    log(f"[48] fleet_reduce(met, lam=) over {CAUSAL_SEEDS} seeds, on the card: depth min "
+        f"{fm.depth_min} max {fm.depth_max}, mean concurrency width {fm.width_mean!r} (the "
+        f"JAX package's {CAUSAL_FLEET}); the search report's host copy reduces alike; "
+        f"{CAUSAL_KV_PINS[0]} flagged and the traces the JAX package's")
+    return {"ref": box[key], "report": on, "wl": wl, "cfg": cfg, "plan": plan}
+
+
+def capture(wl, cfg, plan, seeds, cap: int, steps: int, device, dup_rows: bool = False):
+    """The soak's ``obs.telemetry._capture`` for a few seeds: metrics, a
+    ``cap``-row ring and the causal axis, through the kernel."""
+    from madsim_tpu_torch.engine import make_init, make_run_while
+
+    seeds = np.asarray(seeds, np.uint64)
+    taps = dict(metrics=True, timeline_cap=cap, causal=True)
+    st = make_init(wl, cfg, device=device, plan_slots=plan.slots, **taps)(
+        seeds, plan.compile_batch(seeds, wl=wl))
+    return make_run_while(wl, cfg, steps, dup_rows=dup_rows, **taps)(st)
+
+
+def causal_fold_phase(device, paths: dict, kv: dict) -> None:
+    """Phase 48 (certificate 2, the rest): seeds 1000-1005 through the
+    kernel with a 256-row ring; the host's re-derivation of the Lamport
+    clocks from the decoded rows equals the device fold, and the
+    dispatch seqs strictly increase."""
+    from madsim_tpu_torch.obs import decode_timeline, rederive
+
+    key = "kvchaos-bug-nochaos"
+    out, counts = path_launches(lambda: capture(kv["wl"], kv["cfg"], kv["plan"], FOLD_SEEDS,
+                                                FOLD_CAP, CAUSAL_STEPS, device))
+    paths[key]["causal_fold"] = run_drain(counts, key)
+    rows = 0
+    for s in range(len(FOLD_SEEDS)):
+        ev = decode_timeline(out, None, s)
+        seqs = [e.seq for e in ev]
+        if rederive(ev) != [e.lam for e in ev] or not all(a < b for a, b in zip(seqs, seqs[1:])):
+            raise AssertionError(f"48: seed {FOLD_SEEDS[s]}: the device fold is not the DAG's")
+        rows += len(ev)
+    log(f"[48] seeds {FOLD_SEEDS[0]}-{FOLD_SEEDS[-1]}, ring {FOLD_CAP}: launches {counts}; "
+        f"rederive equals the device fold on all {rows} rows, seqs strictly increase")
+
+
+def closed(cone) -> bool:
+    """Every cone member's causes (its parent, its node's previous
+    dispatch) are members: the backward closure."""
+    from madsim_tpu_torch.obs import derive_parents
+
+    ev, member = cone.events, set(cone.indices)
+    parents, last, pred = derive_parents(ev), {}, []
+    for i, e in enumerate(ev):
+        pred.append(last.get(e.node))
+        last[e.node] = i
+    return cone.anchor in member and all(
+        j is None or j in member for i in member for j in (parents[i], pred[i]))
+
+
+def cones_phase(device, results: list, paths: dict, extra: dict, kv: dict) -> None:
+    """Phase 49: cones on the card. The kvchaos screen sweep with a
+    512-row causal ring: its flagged seeds among the first 512 are the
+    plain step's (phase 47's reference, screened on the card), and each
+    seed's ``violation_cones`` cone is closed and holds its anchor. Then
+    the hunt shape on raftlog-record-w16-nochaos, held as phases 4-15 on
+    the first 128 seeds, searched with election safety on OP_COMMIT and
+    OP_ELECT: the flagged seeds are the JAX package's, and the cones cut
+    at each of the first flagged seeds' conflicting COMMIT, the best at
+    or under CONE_BAR of its ring."""
+    from madsim_tpu_torch.check.device import election_safety, violation_cones
+    from madsim_tpu_torch.engine import EngineConfig, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_raftlog
+    from madsim_tpu_torch.models.raftlog import OP_COMMIT, OP_ELECT
+    from madsim_tpu_torch.obs import causal_slice, decode_timeline
+
+    key = "kvchaos-bug-nochaos"
+    rep, counts = path_launches(lambda: search_seeds(
+        kv["wl"], kv["cfg"], None, n_seeds=CAUSAL_SEEDS, max_steps=CAUSAL_STEPS, plan=kv["plan"],
+        device_check=kv_screens(), require_halt=False, timeline_cap=512, causal=True,
+        device=device))
+    paths[key]["search_cones"] = run_drain(counts, key)
+    head = rep.flagged_idx[rep.flagged_idx < CAUSAL_PLAIN_SEEDS]
+    ref = kv["ref"]
+    plain = np.nonzero(~screened(kv_screens(), ref) & ~(ref.hist_drop.cpu().numpy() > 0))[0]
+    if not np.array_equal(head, plain) or not np.array_equal(
+            rep.flagged_idx, kv["report"].flagged_idx):
+        raise AssertionError(f"49: flagged {head.tolist()}, the plain step's {plain.tolist()}")
+    t = time.perf_counter()
+    cones = violation_cones(rep, kv["wl"])
+    cone_ms = (time.perf_counter() - t) * 1e3
+    if list(cones) != [int(i) for i in rep.flagged_idx] or not all(map(closed, cones.values())):
+        raise AssertionError("49: a violation cone is not closed or misses its anchor")
+    frac = [c.fraction for c in cones.values()]
+    log(f"[49.1] search_seeds(device_check, timeline_cap=512, causal=True), {CAUSAL_SEEDS} "
+        f"seeds: launches {counts}; {len(rep.flagged_idx)} flagged, those among the first "
+        f"{CAUSAL_PLAIN_SEEDS} the plain step's; violation_cones in {cone_ms:.1f} ms (host): "
+        f"every cone closed with its anchor, fraction of the ring min {min(frac):.3f}, median "
+        f"{statistics.median(frac):.3f}, max {max(frac):.3f}")
+    extra.setdefault(key, {}).update(violation_cones_ms=cone_ms)
+    # the hunt shape
+    wl = make_raftlog(record=True, chaos=False, durable=False, n_writes=16)
+    cfg, plan = EngineConfig(**HUNT_KW), causal_plans()["hunt"]
+    key = kernel_model(wl).key
+    taps = dict(timeline_cap=HUNT_CAP, causal=True)
+    log(f"[49.2] {key}: {HUNT_KW}, {HUNT_SEEDS} seeds, make_run_while cap {HUNT_STEPS}, plan "
+        f"{plan.name}, {taps}; the plain step on the card holds the first {HUNT_PLAIN_SEEDS}")
+    box = {}
+    r = kernel_phase(device, key, wl, cfg, HUNT_SEEDS, HUNT_STEPS, HUNT_CPU_SAMPLE, REPEATS,
+                     plan=plan, all_halt=False, refs=box, plain_seeds=HUNT_PLAIN_SEEDS, taps=taps)
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
+    results.append((key, f"make_run_fused/{key}/plan-{plan.name}/causal",
+                    f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+    paths[key] = {"run_while_causal": [r["launches"], r["drains"]]}
+    screens = (election_safety(OP_COMMIT), election_safety(OP_ELECT))
+    t = time.perf_counter()
+    rep, counts = path_launches(lambda: search_seeds(
+        wl, cfg, None, n_seeds=HUNT_SEEDS, max_steps=HUNT_STEPS, plan=plan,
+        device_check=screens, require_halt=False, device=device, **taps))
+    search_ms = (time.perf_counter() - t) * 1e3
+    paths[key]["search_cones"] = run_drain(counts, key)
+    ref = box[key]
+    plain = np.nonzero(~screened(screens, ref))[0]
+    if (tuple(int(i) for i in rep.flagged_idx) != HUNT_FLAGGED
+            or not np.array_equal(rep.flagged_idx[rep.flagged_idx < HUNT_PLAIN_SEEDS], plain)):
+        raise AssertionError(f"49.2: flagged {rep.flagged_idx.tolist()}; the JAX package's "
+                             f"{HUNT_FLAGGED}, the plain step's {plain.tolist()}")
+    best, h = None, rep.flagged_history
+    for j, row in enumerate(rep.flagged_idx[:HUNT_CONES]):
+        ev = decode_timeline(rep.timeline, wl, int(row))
+        seen, anchor = {}, None
+        for i in range(int(h.count[j])):
+            w = tuple(int(x) for x in h.word[j, i])
+            if w[0] != OP_COMMIT:
+                continue
+            if w[1] in seen and seen[w[1]] != w[2]:
+                anchor = (int(h.t[j, i]), w)
+                break
+            seen.setdefault(w[1], w[2])
+        if anchor is None:
+            log(f"  seed {int(row)}: NEGATIVE, no conflicting COMMIT pair in its history")
+            continue
+        cone = causal_slice(ev, anchor=(anchor[0], anchor[1][3]))
+        if not closed(cone):
+            raise AssertionError(f"49.2: seed {int(row)}'s cone is not closed")
+        log(f"  seed {int(row)}: conflicting COMMIT key={anchor[1][1]} args "
+            f"{seen[anchor[1][1]]} vs {anchor[1][2]} at t={anchor[0]} ns; cone "
+            f"{len(cone.indices)}/{len(ev)} = {cone.fraction:.3f} of the ring (depth "
+            f"{cone.depth}, {len(cone.chaos_indices)} fault dispatches inside)")
+        if best is None or cone.fraction < best[1].fraction:
+            best = (int(row), cone)
+    if best is None:
+        log("  NEGATIVE: flagged seeds but none witnessed by a conflicting COMMIT pair")
+    else:
+        row, cone = best
+        got = (row, len(cone.indices), len(cone.events))
+        if got != HUNT_BEST_CONE or cone.fraction > CONE_BAR:
+            raise AssertionError(f"49.2: best cone {got}, the JAX package's {HUNT_BEST_CONE}")
+        log(f"  best cone: seed {row}, {cone.fraction:.3f} <= {CONE_BAR} of its ring (the JAX "
+            f"package's {HUNT_BEST_CONE})")
+    extra.setdefault(key, {})["search_ms"] = search_ms
+    log(f"[49.2] search_seeds(device_check, timeline_cap={HUNT_CAP}, causal=True): launches "
+        f"{counts}; {len(rep.flagged_idx)} flagged, the JAX package's seeds, those among the "
+        f"first {HUNT_PLAIN_SEEDS} the plain step's; {search_ms:.1f} ms (host clock, the "
+        f"{HUNT_SEEDS * HUNT_CAP} ring rows copied to the host)")
+
+
+def arrow_endpoints(doc) -> dict:
+    """Multiset of flow-arrow start anchors (pid, ts) of a Perfetto doc."""
+    out: dict = {}
+    for row in doc["traceEvents"]:
+        if row.get("cat") == "flow" and row.get("ph") == "s":
+            out[row["pid"], row["ts"]] = out.get((row["pid"], row["ts"]), 0) + 1
+    return out
+
+
+def arrows_phase(device, results: list, paths: dict, kv: dict) -> None:
+    """Phase 50 (certificate 4): kvchaos-bug-nochaos-dup under the soak's
+    duplication and gray-failure plan, held as phases 4-15 at 1,024 seeds
+    with a 512-row causal ring; seeds 77-84 decoded: the exact and the
+    stripped Perfetto documents differ on arrow anchors, every exact
+    arrow matches its parent column, and the counts are the JAX
+    package's."""
+    import dataclasses
+
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.obs import decode_timeline, to_perfetto
+
+    wl, cfg, plan = kv["wl"], kv["cfg"], causal_plans()["arrow"]
+    key = kernel_model(wl, dup_rows=True).key
+    taps = dict(timeline_cap=ARROW_CAP, causal=True)
+    log(f"[50] {key}: {CAUSAL_KV_KW}, {ARROW_HELD_SEEDS} seeds, make_run_while cap "
+        f"{CAUSAL_STEPS}, plan {plan.name} with dup_rows, metrics and {taps}")
+    r = kernel_phase(device, key, wl, cfg, ARROW_HELD_SEEDS, CAUSAL_STEPS, CAUSAL_CPU_SAMPLE,
+                     REPEATS, plan=plan, dup_rows=True, all_halt=False, metrics=True, taps=taps)
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
+    results.append((key, f"make_run_fused/{key}/plan-{plan.name}/causal",
+                    f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+    paths[key] = {"run_while_causal": [r["launches"], r["drains"]]}
+    out, counts = path_launches(lambda: capture(wl, cfg, plan, ARROW_SEEDS, ARROW_CAP,
+                                                CAUSAL_STEPS, device, dup_rows=True))
+    paths[key]["arrows"] = run_drain(counts, key)
+    diff = exact = 0
+    for s, seed in enumerate(ARROW_SEEDS):
+        ev = decode_timeline(out, wl, s)
+        a_exact = arrow_endpoints(to_perfetto(ev, wl, seed=seed))
+        a_heur = arrow_endpoints(to_perfetto(
+            [dataclasses.replace(x, seq=-1, parent=-1, emit_ns=-1) for x in ev], wl, seed=seed))
+        diff += sum(abs(a_exact.get(k, 0) - a_heur.get(k, 0)) for k in set(a_exact) | set(a_heur))
+        by_seq = {x.seq: x for x in ev}
+        for x in ev:
+            if x.src >= 0 and x.parent >= 0 and x.parent in by_seq:
+                p = by_seq[x.parent]
+                if (p.node, (x.emit_ns if x.emit_ns >= 0 else p.time_ns) / 1e3) not in a_exact:
+                    raise AssertionError(f"50: seed {seed}: an exact arrow misses its parent")
+                exact += 1
+    if (diff, exact) != ARROW_PINS:
+        raise AssertionError(f"50: {diff} anchors differ, {exact} exact arrows; the JAX "
+                             f"package's {ARROW_PINS}")
+    log(f"[50] seeds {ARROW_SEEDS[0]}-{ARROW_SEEDS[-1]}, ring {ARROW_CAP}: launches {counts}; "
+        f"the exact and the stripped Perfetto documents differ on {diff} arrow anchors, all "
+        f"{exact} exact arrows match the parent column (the JAX package's {ARROW_PINS})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2561,7 +3035,7 @@ def main() -> int:
         keys = sys.argv[at + 2:] or [key for _n, key, _kw in MODEL_PHASES]
         group_sweep(device, groups, keys)
         return 0
-    from madsim_tpu_torch.engine.fused import MODELS, build_libraries
+    from madsim_tpu_torch.engine.fused import KERNEL, MODELS, build_libraries
 
     device = torch.device("cuda")
     # the CPU samples step small batches of a few hundred seeds, where
@@ -2573,6 +3047,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t = time.perf_counter()
     libs = build_libraries()
+    shapes = {}
     log(f"[2] {len(libs)} run kernel libraries built in {time.perf_counter() - t:.1f} s "
         f"(one nvcc per model, in parallel)")
     for key, (path, build_log) in libs.items():
@@ -2582,6 +3057,8 @@ def main() -> int:
                 log(f"    {line.strip()}")
         for pool in MODELS[key].pools:
             log(f"    pool {pool}: {launch_shape(MODELS[key], pool, card)}")
+            shapes[key, pool] = {**KERNEL.occupancy(MODELS[key], pool),
+                                 "registers": base_registers(build_log, pool)}
     lap("phases 1-2")
 
     clock = max_sm_clock_hz()
@@ -2663,8 +3140,16 @@ def main() -> int:
     lap("phase 45")
     army_phase(device, results, paths, extra)
     lap("phase 46")
+    kv = causal_kv_phase(device, results, paths, extra, card)
+    causal_fold_phase(device, paths, kv)
+    lap("phases 47-48")
+    cones_phase(device, results, paths, extra, kv)
+    lap("phase 49")
+    arrows_phase(device, results, paths, kv)
+    lap("phase 50")
     kernels = {"kernels": [
-        kernel_line(name, src, r, clock, paths[key], extra.get(key, {}))
+        kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
+                    shapes.get((key, r["pool"])))
         for key, name, src, r in results
     ]}
     print(json.dumps(kernels), flush=True)

@@ -28,8 +28,9 @@ every record through the fold.
 These are torch ops, not hand kernels: a CUDA tensor is screened on the
 card by PyTorch's own kernels, a CPU tensor on the CPU. Nothing moves
 between devices here. :func:`slo_breaches` is the latency detector of
-``check/slo.py`` restated the same way. Not ported yet:
-``violation_cones`` (needs ``causal``), ROADMAP item A8.
+``check/slo.py`` restated the same way. :func:`violation_cones` runs on
+the host: it cuts each flagged seed's backward happens-before cone out
+of a ``causal=True`` sweep's captured ring.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ __all__ = [
     "stale_reads",
     "unpack_verdicts",
     "verdict_words_to_numpy",
+    "violation_cones",
 ]
 
 _MIN = -(2**62)  # "no prior write" floor sentinel (vectorized._MIN), int64
@@ -592,6 +594,44 @@ def fold_verified(word, t, count, drop, ok):
         return w2, t2, n_keep, c - n_keep
 
     return _chunked_seed_map(per_chunk, word, t, count, drop, ok)
+
+
+def violation_cones(report, wl=None) -> dict:
+    """Causal forensics over a device-screened search's escalation set.
+
+    For every flagged seed in ``report.flagged_idx`` (the escalation of
+    ``search_seeds(device_check=...)``), the backward happens-before cone
+    (``obs.causal.causal_slice``) anchored at the seed's last completed
+    history record, where the screen's verdict crystallized. The sweep
+    must have run with ``causal=True`` and ``timeline_cap > 0``: the
+    cone then rides the escalation for free, and the host confirmer
+    narrates a small causal slice instead of the whole captured stream.
+
+    Returns ``{seed_row: CausalCone}`` in flagged order. A flagged seed
+    with no completed record anchors at its final dispatch.
+    """
+    from ..obs.causal import causal_slice
+
+    if report.flagged_idx is None:
+        raise ValueError(
+            "report carries no escalation set — run the sweep with "
+            "device_check=... so flagged seeds are identified"
+        )
+    if report.timeline is None:
+        raise ValueError(
+            "violation cones need the captured ring — run the sweep "
+            "with timeline_cap > 0 (and causal=True)"
+        )
+    h = report.flagged_history
+    cones = {}
+    for j, row in enumerate(np.asarray(report.flagged_idx)):
+        anchor = None
+        for i in range(int(h.count[j]) - 1, -1, -1):
+            if int(h.word[j, i, COL_OK]) != OK_PENDING:
+                anchor = (int(h.t[j, i]), int(h.word[j, i, COL_CLIENT]))
+                break
+        cones[int(row)] = causal_slice(report.timeline, seed=int(row), anchor=anchor, wl=wl)
+    return cones
 
 
 # ---------------------------------------------------------------------------

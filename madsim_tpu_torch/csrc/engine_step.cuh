@@ -135,6 +135,21 @@
 // ladder bucket of its latency) cell and, with the coverage taps, that
 // pair is a feature under tag 5, after the record taps. With L == 0
 // every latency line compiles away.
+//
+// Causal provenance. The OBS instantiation also carries the causal axis,
+// a runtime word (engine config word 15), so the OBS = false kernels do
+// not change. With it on, the seed's tail holds each node's Lamport
+// clock (lam) and each pool row's emitting dispatch seq and folded clock
+// (ev_parent, ev_lam), read at the pop before placement can reuse the
+// slot, as ev_emit is. A dispatch's seq is min(step, 2^31 - 1); a
+// dispatch to a node in range folds lam[dst] = max(lam[dst], the popped
+// row's clock) + 1 in uint32; every row placement fills takes the
+// dispatch's seq and folded clock, ring or no ring (a clog reschedule
+// keeps its row's). The ring banks the dispatch's seq, its parent's seq
+// and the folded clock beside the other columns, and with coverage each
+// dispatch, engine kinds too, taps the (depth, jump) feature under tag 7
+// right after the kind-by-phase tap. Nothing here feeds back into the
+// trajectory.
 #pragma once
 
 #include <stdint.h>
@@ -185,6 +200,11 @@ constexpr uint32_t PURPOSE_LATENCY = 8;
 constexpr uint32_t PURPOSE_DUP = 64;
 constexpr uint32_t PURPOSE_USER = 128;
 
+// ev_parent of a row no dispatch emitted (engine/core.py PARENT_NONE)
+constexpr int32_t PARENT_NONE = -1;
+// a dispatch's seq is min(step, kSeqMax), an int32
+constexpr uint32_t kSeqMax = 0x7FFFFFFFu;
+
 // the history record convention (check/history.py)
 constexpr int32_t OK_PENDING = -1, OK_FAIL = 0, OK_OK = 1;
 constexpr int32_t OP_WRITE = 1, OP_READ = 2, OP_USER = 16;
@@ -193,9 +213,9 @@ constexpr uint64_t kTracePrime = 0x100000001B3ull;
 constexpr uint64_t kTraceMix = 0x9E3779B97F4A7C15ull;
 
 // the engine's words in front of the model's in the config array: the
-// config's nine, the run's three observability widths, then the latency
-// tap's three
-constexpr int kEngineWords = 15;
+// config's nine, the run's three observability widths, the latency
+// tap's three, then the causal axis
+constexpr int kEngineWords = 16;
 
 // the latency ladder (engine/core.py LAT_EDGES_NS): bucket b of a
 // latency d is the count of these edges at or below d, 0..63
@@ -230,6 +250,7 @@ struct EngineConfig {
   int32_t lat_c;      // latency op columns (0: the tap off)
   int32_t lat_p;      // latency measurement windows
   int64_t lat_phase_ns;  // their width
+  bool causal;           // the causal columns (OBS kernels only)
 };
 
 // uint32 span of a [lo, hi) draw, as Draw._reduce: 0 draws from span 1
@@ -241,7 +262,7 @@ MADSIM_HDI uint32_t draw_span(int64_t lo, int64_t hi) {
 // c: lat_min, lat_max, loss_u32, proc_min, proc_max, backoff_min,
 //    backoff_max, time_limit_ns (0 = none), history capacity, then the
 //    coverage words, the hit-count flag and the ring capacity, then the
-//    latency ops, windows and window width
+//    latency ops, windows and window width, then the causal flag
 inline EngineConfig engine_config(const int64_t* c) {
   EngineConfig e;
   e.lat_min = c[0];
@@ -259,6 +280,7 @@ inline EngineConfig engine_config(const int64_t* c) {
   e.lat_c = static_cast<int32_t>(c[12]);
   e.lat_p = static_cast<int32_t>(c[13]);
   e.lat_phase_ns = c[14] > 0 ? c[14] : 1;
+  e.causal = c[15] != 0;
   return e;
 }
 // One pointer per SimState field the kernel touches (the port's torch
@@ -267,8 +289,8 @@ inline EngineConfig engine_config(const int64_t* c) {
 // ev_pay only when W > 0, the history columns only when R > 0, the
 // storage columns only for a SYNC model, met only with metrics, the
 // coverage columns only with coverage, the ring's (with ev_emit) only
-// with a ring and the latency columns only with the tap on a model with
-// markers.
+// with a ring, the latency columns only with the tap on a model with
+// markers and the causal columns only with the axis on.
 struct Fields {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
@@ -318,9 +340,15 @@ struct Fields {
   int32_t* lat_hist;   // (S,P,64) the ladder sketch
   int32_t* lat_count;  // (S,)
   int32_t* lat_drop;   // (S,)
+  int64_t* lam;        // (S,N) uint32 values: each node's Lamport clock
+  int32_t* ev_parent;  // (S,E) each pool row's emitting dispatch seq
+  int64_t* ev_lam;     // (S,E) uint32 values: that dispatch's clock
+  int32_t* tl_seq;     // (S,T) the captured dispatch's seq
+  int32_t* tl_parent;  // (S,T) its parent's seq
+  int64_t* tl_lam;     // (S,T) uint32 values: its folded clock
 };
 
-constexpr int kFieldPointers = 48;
+constexpr int kFieldPointers = 54;
 
 inline Fields fields(void* const* p) {
   Fields f;
@@ -372,6 +400,12 @@ inline Fields fields(void* const* p) {
   f.lat_hist = static_cast<int32_t*>(p[45]);
   f.lat_count = static_cast<int32_t*>(p[46]);
   f.lat_drop = static_cast<int32_t*>(p[47]);
+  f.lam = static_cast<int64_t*>(p[48]);
+  f.ev_parent = static_cast<int32_t*>(p[49]);
+  f.ev_lam = static_cast<int64_t*>(p[50]);
+  f.tl_seq = static_cast<int32_t*>(p[51]);
+  f.tl_parent = static_cast<int32_t*>(p[52]);
+  f.tl_lam = static_cast<int64_t*>(p[53]);
   return f;
 }
 
@@ -660,25 +694,39 @@ struct SeedObs {
   int32_t* ring_args;
   int32_t* ring_pay;
   int64_t* ring_emit;
+  uint32_t* lam;       // (N,) each node's Lamport clock, with the causal axis
+  int32_t* ev_parent;  // (E,) each pool row's emitting dispatch seq
+  uint32_t* ev_lam;    // (E,) that dispatch's folded clock
+  int32_t* ring_seq;
+  int32_t* ring_parent;
+  int64_t* ring_lam;
   int32_t cw, tl_cap;
-  bool hc;
+  bool hc, causal;
 };
 
 // where the pieces of the tail start, in bytes (-1: absent), and its
 // size, a multiple of 16 (0 when every tap is off)
 struct ObsLayout {
-  int32_t ev_emit, tl, cov, cov_last, hits, bytes;
+  int32_t ev_emit, tl, ev_parent, ev_lam, lam, cov, cov_last, hits, bytes;
 };
 
 template <int N, int E>
 MADSIM_HDI ObsLayout obs_layout(const EngineConfig& c) {
-  ObsLayout l{-1, -1, -1, -1, -1, 0};
+  ObsLayout l{-1, -1, -1, -1, -1, -1, -1, -1, 0};
   int32_t b = 0;
   if (c.tl_cap > 0) {
     l.ev_emit = b;
     b += E * 8;
     l.tl = b;
     b += 8;
+  }
+  if (c.causal) {
+    l.ev_parent = b;
+    b += E * 4;
+    l.ev_lam = b;
+    b += E * 4;
+    l.lam = b;
+    b += N * 4;
   }
   if (c.cov_words > 0) {
     l.cov = b;
@@ -723,9 +771,13 @@ struct SeedBlock {
     o.cov = at<uint32_t>(b, lay.cov);
     o.cov_last = at<int32_t>(b, lay.cov_last);
     o.hits = at<uint8_t>(b, lay.hits);
+    o.ev_parent = at<int32_t>(b, lay.ev_parent);
+    o.ev_lam = at<uint32_t>(b, lay.ev_lam);
+    o.lam = at<uint32_t>(b, lay.lam);
     o.cw = cfg.cov_words;
     o.tl_cap = cfg.tl_cap;
     o.hc = cfg.cov_hitcount;
+    o.causal = cfg.causal;
     return o;
   }
 };
@@ -1008,7 +1060,8 @@ MADSIM_HDI void copy_bytes(void* dst, const void* src, int64_t bytes, int tid, i
 
 // load and store the observability tails of seeds [first, first + nb),
 // every thread of the block: the emit times and the ring's counters with
-// a ring, the bitmap, the last kinds and the hit counters with coverage
+// a ring, the pool's causal sidecars and the clocks with the causal axis,
+// the bitmap, the last kinds and the hit counters with coverage
 template <class M, int E, class B>
 MADSIM_HD void load_obs(const B& blk, const Fields& f, int64_t first, int nb, int tid,
                         int nt) {
@@ -1020,6 +1073,16 @@ MADSIM_HD void load_obs(const B& blk, const Fields& f, int64_t first, int nb, in
                [&](int b, int, int32_t v) { blk.obs(b).tl[0] = v; });
     rows_in<1>(f.tl_drop, first, nb, tid, nt,
                [&](int b, int, int32_t v) { blk.obs(b).tl[1] = v; });
+  }
+  if (c.causal) {
+    rows_in<E>(f.ev_parent, first, nb, tid, nt,
+               [&](int b, int k, int32_t v) { blk.obs(b).ev_parent[k] = v; });
+    rows_in<E>(f.ev_lam, first, nb, tid, nt, [&](int b, int k, int64_t v) {
+      blk.obs(b).ev_lam[k] = static_cast<uint32_t>(v);
+    });
+    rows_in<M::N>(f.lam, first, nb, tid, nt, [&](int b, int k, int64_t v) {
+      blk.obs(b).lam[k] = static_cast<uint32_t>(v);
+    });
   }
   if (c.cov_words > 0) {
     rows_in_n(f.cov, first, nb, c.cov_words, tid, nt, [&](int b, int32_t k, int64_t v) {
@@ -1041,6 +1104,14 @@ MADSIM_HD void store_obs(const B& blk, const Fields& f, int64_t first, int nb, i
     rows_out<E>(f.ev_emit, first, nb, tid, nt, [&](int b, int k) { return blk.obs(b).ev_emit[k]; });
     rows_out<1>(f.tl_count, first, nb, tid, nt, [&](int b, int) { return blk.obs(b).tl[0]; });
     rows_out<1>(f.tl_drop, first, nb, tid, nt, [&](int b, int) { return blk.obs(b).tl[1]; });
+  }
+  if (c.causal) {
+    rows_out<E>(f.ev_parent, first, nb, tid, nt,
+                [&](int b, int k) { return blk.obs(b).ev_parent[k]; });
+    rows_out<E>(f.ev_lam, first, nb, tid, nt,
+                [&](int b, int k) { return static_cast<int64_t>(blk.obs(b).ev_lam[k]); });
+    rows_out<M::N>(f.lam, first, nb, tid, nt,
+                   [&](int b, int k) { return static_cast<int64_t>(blk.obs(b).lam[k]); });
   }
   if (c.cov_words > 0) {
     rows_out_n(f.cov, first, nb, c.cov_words, tid, nt, [&](int b, int32_t k) {
@@ -1220,10 +1291,11 @@ MADSIM_HD void copy_history(const Fields& in, const Fields& out, int32_t cap,
 
 // Copy the block's timeline rows, seeds [first, first + nb), from the
 // input to the output, as copy_history does: rows past a seed's count
-// come out as they went in.
+// come out as they went in; with the causal axis its three columns too.
 template <class M>
-MADSIM_HD void copy_timeline(const Fields& in, const Fields& out, int32_t cap,
+MADSIM_HD void copy_timeline(const Fields& in, const Fields& out, const EngineConfig& c,
                              int64_t first, int nb, int tid, int nt) {
+  const int32_t cap = c.tl_cap;
   if (cap <= 0) return;
   const int64_t rows = static_cast<int64_t>(nb) * cap, at = first * cap;
   copy_bytes(out.tl_t + at, in.tl_t + at, rows * 8, tid, nt);
@@ -1231,6 +1303,11 @@ MADSIM_HD void copy_timeline(const Fields& in, const Fields& out, int32_t cap,
   copy_bytes(out.tl_emit + at, in.tl_emit + at, rows * 8, tid, nt);
   copy_bytes(out.tl_args + at * M::A, in.tl_args + at * M::A, rows * M::A * 4, tid, nt);
   copy_bytes(out.tl_pay + at * M::W, in.tl_pay + at * M::W, rows * M::W * 4, tid, nt);
+  if (c.causal) {
+    copy_bytes(out.tl_seq + at, in.tl_seq + at, rows * 4, tid, nt);
+    copy_bytes(out.tl_parent + at, in.tl_parent + at, rows * 4, tid, nt);
+    copy_bytes(out.tl_lam + at, in.tl_lam + at, rows * 8, tid, nt);
+  }
 }
 
 // Copy the block's latency rows, seeds [first, first + nb), from the
@@ -1310,16 +1387,37 @@ MADSIM_HDI void cov_tap(const SeedObs& o, uint32_t feat) {
   o.cov[bit >> 5] |= 1u << (bit & 31u);
 }
 
+// floor(log2(x)) for x >= 2, else 0: the count of i in 1..31 with
+// x >= 2^i, the reference's bucket of the causal feature
+MADSIM_HDI uint32_t log2_bucket(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return x < 2u ? 0u : 31u - static_cast<uint32_t>(__clz(static_cast<int>(x)));
+#else
+  return x < 2u ? 0u : 31u - static_cast<uint32_t>(__builtin_clz(x));
+#endif
+}
+
+// The causal feature (tag 7): the bucket of the folded clock and of the
+// jump, how far the arriving event's clock was ahead of the node's
+// (a difference in int64, clipped at 0: the same-node case is negative)
+MADSIM_HDI uint32_t causal_feature(uint32_t lam_prev, uint32_t lam_new, uint32_t evlam) {
+  const int64_t d = static_cast<int64_t>(evlam) - static_cast<int64_t>(lam_prev);
+  const uint32_t jump = d > 0 ? static_cast<uint32_t>(d) : 0u;
+  return log2_bucket(lam_new) | (log2_bucket(jump) << 8) | (7u << 24);
+}
+
 // The coverage taps of one dispatch, the leader's, in the reference's
 // order: the kind transition at the node (user) or the kind by time
-// phase (engine), the message edge, the user kind by phase, each valid
-// history record, each op the latency markers completed, the model's own
+// phase (engine), the message edge, the user kind by phase, with the
+// causal axis the causal feature (engine kinds too), each valid history
+// record, each op the latency markers completed, the model's own
 // features, then the node's last kind. `now` is the dispatch clock
 // without the node's skew.
 template <class M>
 MADSIM_HDI void cov_taps(const SeedObs& o, const int32_t* node_state, int32_t kind,
                          int32_t dst, int32_t src, bool is_engine, bool in_range,
-                         int64_t now, const Rec* recs, [[maybe_unused]] const uint32_t* lat_f,
+                         int64_t now, uint32_t causal_f, const Rec* recs,
+                         [[maybe_unused]] const uint32_t* lat_f,
                          [[maybe_unused]] const bool* lat_on) {
   const uint32_t k = static_cast<uint32_t>(kind);
   const uint32_t du = static_cast<uint32_t>(dst > 0 ? dst : 0);
@@ -1328,6 +1426,7 @@ MADSIM_HDI void cov_taps(const SeedObs& o, const int32_t* node_state, int32_t ki
   const uint32_t phase = static_cast<uint32_t>(ph < 31 ? ph : 31);
   if (is_engine) {
     cov_tap(o, k | (phase << 8) | (1u << 24));
+    if (o.causal) cov_tap(o, causal_f);
     return;
   }
   const int dst_c = clampi(dst, 0, M::N - 1);
@@ -1335,6 +1434,7 @@ MADSIM_HDI void cov_taps(const SeedObs& o, const int32_t* node_state, int32_t ki
   cov_tap(o, k | (prev << 8) | (du << 16));
   if (src >= 0) cov_tap(o, k | (su << 8) | (du << 16) | (3u << 24));
   cov_tap(o, k | (phase << 8) | (4u << 24));
+  if (o.causal) cov_tap(o, causal_f);
   if constexpr (M::R > 0) {
     for (int j = 0; j < M::R; j++) {
       const Rec& r = recs[j];
@@ -1371,11 +1471,14 @@ MADSIM_HDI void clear_rows(const Lanes<G>& g, Emit<M::A, M::W>* em) {
 // ballot and its slot from the free bits. Rows past the restart row are
 // the shadow rows: user row j - K - 1 again, while `dup` is set and it
 // is a send. The lanes zero their rows for the next dispatch; the
-// leader marks the slots taken and counts sends and overflow.
+// leader marks the slots taken and counts sends and overflow. With the
+// causal axis every placed row's parent is the dispatch `seq` and its
+// clock `lam_new`.
 template <class M, int E, int G, bool MET, bool OBS>
 MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
                            const EngineConfig& c, int64_t now, int64_t now_after,
-                           int32_t dst, bool in_range, int dst_c, const SeedObs& o) {
+                           int32_t dst, bool in_range, int dst_c, const SeedObs& o,
+                           [[maybe_unused]] int32_t seq, [[maybe_unused]] uint32_t lam_new) {
   constexpr int N = M::N, A = M::A, W = M::W, KR = M::K + 1, KT = Seed<M, E, MET>::KT;
   using B = PoolBits<E>;
   // row j's emit: a shadow row reads its user row
@@ -1437,9 +1540,13 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
           (em_engine || !em_in_range) ? 0 : s.epoch[clampi(e.dst, 0, N - 1)];
       for (int w = 0; w < A; w++) s.ev_args[slot * A + w] = e.args[w];
       for (int w = 0; w < W; w++) s.ev_pay[slot * W + w] = e.pay[w];
-      // the row was emitted at this dispatch's clock
+      // the row was emitted at this dispatch's clock, by this dispatch
       if constexpr (OBS) {
         if (o.tl_cap > 0) o.ev_emit[slot] = now;
+        if (o.causal) {
+          o.ev_parent[slot] = seq;
+          o.ev_lam[slot] = lam_new;
+        }
       }
     });
     kept += popc32(ballot);
@@ -1525,8 +1632,15 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
   for (int j = 0; j < W; j++) pay[j] = s.ev_pay[i * W + j];
   // when the popped event entered the pool (the ring's emit column)
   int64_t emit_i = 0;
+  // and, with the causal axis, the dispatch that emitted it and its clock
+  int32_t parent_i = PARENT_NONE;
+  uint32_t evlam_i = 0;
   if constexpr (OBS) {
     if (o.tl_cap > 0) emit_i = o.ev_emit[i];
+    if (o.causal) {
+      parent_i = o.ev_parent[i];
+      evlam_i = o.ev_lam[i];
+    }
   }
   const int32_t a0 = args[0], a1 = args[1];
   const int32_t ev_epoch_i = s.ev_epoch[i];
@@ -1549,6 +1663,17 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
   const int64_t now = active ? ev_t : s.now;
   const int64_t now_after =
       dispatch ? now + c.proc_min + static_cast<int64_t>(b0 % c.proc_span) : now;
+  // the causal fold's values: the dispatch's seq and the node's clock
+  // after the Lamport receive, read before the leader writes it
+  const int32_t seq = static_cast<int32_t>(step < kSeqMax ? step : kSeqMax);
+  [[maybe_unused]] uint32_t lam_prev = 0;
+  uint32_t lam_new = 0;
+  if constexpr (OBS) {
+    if (o.causal) {
+      lam_prev = in_range ? o.lam[dst_c] : 0u;
+      lam_new = (lam_prev > evlam_i ? lam_prev : evlam_i) + 1u;
+    }
+  }
   g.sync();  // every lane has read the popped slot; the draws are stored
   if (g.leader()) {
     if (resched) {
@@ -1734,9 +1859,11 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
         }
       }
       if constexpr (OBS) {
+        if (o.causal && in_range) o.lam[dst_c] = lam_new;
         if (o.cw > 0)
-          cov_taps<M>(o, s.node_state, kind, dst, src, is_engine, in_range, now, recs, lat_f,
-                      lat_on);
+          cov_taps<M>(o, s.node_state, kind, dst, src, is_engine, in_range, now,
+                      o.causal ? causal_feature(lam_prev, lam_new, evlam_i) : 0u, recs,
+                      lat_f, lat_on);
       }
       if constexpr (MET) {
         s.met[MET_DELIVERED] += is_msg;
@@ -1747,7 +1874,8 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
       }
     }
     g.sync();
-    place_emits<M, E, G, MET, OBS>(g, s, c, now, now_after, dst, in_range, dst_c, o);
+    place_emits<M, E, G, MET, OBS>(g, s, c, now, now_after, dst, in_range, dst_c, o, seq,
+                                   lam_new);
   }
 
   // ---- halt, trace, clock ----
@@ -1777,6 +1905,11 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
         for (int j = 0; j < A; j++) o.ring_args[t * A + j] = args[j];
         for (int j = 0; j < W; j++) o.ring_pay[t * W + j] = pay[j];
         o.ring_emit[t] = emit_i;
+        if (o.causal) {
+          o.ring_seq[t] = seq;
+          o.ring_parent[t] = parent_i;
+          o.ring_lam[t] = static_cast<int64_t>(lam_new);
+        }
         o.tl[0] = t + 1;
       } else {
         o.tl[1] += 1;
@@ -1875,6 +2008,11 @@ MADSIM_HDI SeedObs seed_obs(const Block<M, E, MET, OBS>& blk, int b, const RunAr
       o.ring_args = a.out.tl_args + seed * t * M::A;
       o.ring_pay = a.out.tl_pay + seed * t * M::W;
       o.ring_emit = a.out.tl_emit + seed * t;
+      if (a.cfg.causal) {
+        o.ring_seq = a.out.tl_seq + seed * t;
+        o.ring_parent = a.out.tl_parent + seed * t;
+        o.ring_lam = a.out.tl_lam + seed * t;
+      }
     }
   }
   return o;
@@ -1886,7 +2024,7 @@ MADSIM_HD int64_t run_block(const Block<M, E, MET, OBS>& blk, const RunArgs& a,
                             int nb, int tid, int nt) {
   copy_history<M>(a.in, a.out, a.cfg.hist_cap, first, nb, tid, nt);
   copy_latency<M>(a.in, a.out, a.cfg, first, nb, tid, nt);
-  if constexpr (OBS) copy_timeline<M>(a.in, a.out, a.cfg.tl_cap, first, nb, tid, nt);
+  if constexpr (OBS) copy_timeline<M>(a.in, a.out, a.cfg, first, nb, tid, nt);
   block_load<M, E, MET, OBS>(blk, a.in, first, nb, tid, nt);
   int64_t most = 0;
   const bool stop = a.stop_at_halt != 0;

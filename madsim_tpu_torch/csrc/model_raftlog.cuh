@@ -1,8 +1,8 @@
 // Raft log replication under leader-crash chaos
 // (madsim_tpu_torch/models/raftlog.py) as a model trait of the run
 // kernel (engine_step.cuh): five nodes, eight handlers, four args words,
-// and AppendEntries that carry the sender's whole four-entry log in the
-// event payload. Entries pack as value | term << 8.
+// and AppendEntries that carry the sender's whole log (four entries by
+// default) in the event payload. Entries pack as value | term << 8.
 // RaftLogModel<true> is the record variant (raftlog-record): an election
 // win appends an OP_ELECT history record and a commit one OP_COMMIT
 // record per newly committed index, LOGW record rows a call. CHAOS =
@@ -17,7 +17,9 @@
 // election timer, no records); three more handlers take a
 // chaos.ClientArmy's ops there, each a dirty read of server op % 5's
 // commit index, its invoke and completion marked for the latency tap
-// (L = 1 marker row a call). NS is the servers, N every node.
+// (L = 1 marker row a call). NS is the servers, N every node. NWRITES is
+// n_writes, the log's entries (LOGW): 4 by default, 16 in the causal
+// soak's cone hunt.
 #pragma once
 
 #include "engine_step.cuh"
@@ -25,12 +27,12 @@
 namespace madsim {
 
 template <bool RECORD = false, bool CHAOS = true, bool DURABLE = false, bool NOSYNC = false,
-          bool SPREAD = false, bool ARMY = false>
+          bool SPREAD = false, bool ARMY = false, int NWRITES = 4>
 struct RaftLogModel {
   static_assert(!NOSYNC || DURABLE, "the nosync mutant needs durable=True");
   static constexpr int NS = 5;                // servers
   static constexpr int N = NS + (ARMY ? 1 : 0);  // nodes: the army's client last
-  static constexpr int LOGW = 4;       // log entries (n_writes)
+  static constexpr int LOGW = NWRITES;  // log entries (n_writes)
   static constexpr int U = 8 + LOGW, A = 4, W = LOGW, K = NS + 2, H = ARMY ? 11 : 8;
   static constexpr int R = RECORD ? LOGW : 0;  // history records per call
   static constexpr bool SYNC = DURABLE;  // the sync discipline

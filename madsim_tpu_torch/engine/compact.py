@@ -75,12 +75,15 @@ __all__ = [
 # cov_hits is not banked (the reference's rule: guidance reads only the
 # bitmap), nor is the pool's ev_emit; of the latency tap the sketch and
 # its counters are, the per-op clocks are not (banked sweeps read only
-# the sketch)
+# the sketch); of the causal columns the final clocks and the ring's
+# three are, the pool's sidecars are not (they read only against a pool
+# the bank drops)
 RESULT_FIELDS = (
     "seed", "now", "step", "halted", "halt_time", "trace", "overflow",
     "msg_count", "node_state", "disk", "hist_count", "hist_drop", "hist_word",
     "hist_t", "cov", "met", "tl_count", "tl_drop", "tl_t", "tl_meta", "tl_args",
-    "tl_pay", "tl_emit", "lat_hist", "lat_count", "lat_drop",
+    "tl_pay", "tl_emit", "lam", "tl_seq", "tl_parent", "tl_lam", "lat_hist", "lat_count",
+    "lat_drop",
 )
 
 # the extra banked outputs of a ``hist_screen`` run (not SimState
@@ -90,7 +93,7 @@ HIST_FIELDS = ("hist_word", "hist_t", "hist_count", "hist_drop")
 
 # options of the reference's runners whose engine axes the port does not
 # have yet, and the ROADMAP queue A item that ports each
-UNPORTED_OPTIONS = {"causal": "A8", "retry": "A8"}
+UNPORTED_OPTIONS = {"retry": "A8"}
 
 
 def refuse_unported(**options) -> None:
@@ -274,13 +277,13 @@ def make_run_compacted_plain(
     wl: Workload, cfg: EngineConfig, max_steps: int, shrink: int = 4,
     min_size: int = 2048, fields: tuple = RESULT_FIELDS, dup_rows: bool = False,
     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-    cov_hitcount: bool = False, latency=None,
+    cov_hitcount: bool = False, latency=None, causal: bool = False,
 ):
     """The phase program with the plain eager step, on any device."""
     _check(fields, shrink, min_size)
     compute = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
                              metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                             cov_hitcount=cov_hitcount, latency=latency)
+                             cov_hitcount=cov_hitcount, latency=latency, causal=causal)
     return _runner(compute, fields, shrink, min_size, max_steps)
 
 
@@ -321,6 +324,9 @@ def make_run_compacted(
     its bitmap and ring stop too. ``latency`` runs the tail-latency tap
     (a state from ``make_init(latency=...)``); ``lat_hist``,
     ``lat_count`` and ``lat_drop`` are banked, the per-op clocks are not.
+    ``causal`` runs the causal fold (a state from ``make_init(causal=
+    True)``); the final clocks ``lam`` and the ring's ``tl_seq``,
+    ``tl_parent`` and ``tl_lam`` are banked, the pool's sidecars are not.
 
     ``hist_screen`` (a ``check.device.HistoryScreen`` or a tuple of
     them) screens every bank's histories on its device and folds the
@@ -331,14 +337,14 @@ def make_run_compacted(
     ``hist_count + hist_fold``). Flagged and overflowed seeds keep every
     record. It needs ``wl.history`` and the four history fields.
 
-    ``causal`` and ``retry`` raise ``NotImplementedError`` until their
-    engine axes are ported.
+    ``retry`` raises ``NotImplementedError`` until its engine axis is
+    ported.
     """
-    refuse_unported(causal=causal, retry=retry)
+    refuse_unported(retry=retry)
     _check(fields, shrink, min_size)
     screens = _screens(wl, hist_screen, fields)
     obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-               latency=latency)
+               latency=latency, causal=causal)
     plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
                            metrics, **obs)
 

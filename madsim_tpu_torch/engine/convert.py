@@ -71,6 +71,12 @@ NUMPY_DTYPES = {
     "tl_pay": np.int32,
     "ev_emit": np.int64,
     "tl_emit": np.int64,
+    "lam": np.uint32,
+    "ev_parent": np.int32,
+    "ev_lam": np.uint32,
+    "tl_seq": np.int32,
+    "tl_parent": np.int32,
+    "tl_lam": np.uint32,
     "lat_inv": np.int64,
     "lat_resp": np.int64,
     "lat_hist": np.int32,
@@ -86,10 +92,6 @@ NUMPY_DTYPES = {
 # index summaries (tile_min, tile_cnt) are derived state and travel in
 # no file.
 FOREIGN_FIELDS = {
-    **{f: (dt, (0,), "A8 (causal)") for f, dt in (
-        ("lam", np.uint32), ("ev_parent", np.int32), ("ev_lam", np.uint32),
-        ("tl_seq", np.int32), ("tl_parent", np.int32), ("tl_lam", np.uint32),
-    )},
     **{f: (dt, (0,), "A8 (retry)") for f, dt in (
         ("rt_done", np.bool_), ("rt_attempt", np.int32), ("rt_deadline", np.int64),
     )},

@@ -33,6 +33,12 @@ tail-latency tap: handlers mark client ops' invokes and responses
 (:meth:`EmitBuilder.lat_start`, :meth:`EmitBuilder.lat_end`), and the
 step stamps per-op clocks and folds each completed op into a per-seed
 log-linear sketch (``lat_hist``), also derived state only.
+``causal=True`` folds causal provenance beside them: each node's Lamport
+clock (``lam``), each pool row's emitting dispatch and the clock it
+folded (``ev_parent``, ``ev_lam``) and, with the ring, each captured
+row's dispatch seq, parent seq and folded clock (``tl_seq``,
+``tl_parent``, ``tl_lam``), the event-derivation DAG that
+``obs.causal`` reads.
 
 The JAX engine has several lowerings of that step (dense/scatter
 layout, rank/scatter placement, time32, the pool index); their values
@@ -143,6 +149,11 @@ __all__ = [
     "TIMELINE_FIELDS",
     "OBS_FIELDS",
     "LATENCY_FIELDS",
+    "CAUSAL_STATE_FIELDS",
+    "PARENT_NONE",
+    "PARENT_PLAN",
+    "PARENT_ARMY",
+    "ABSINT_STEP_MAX",
     "N_LAT_BUCKETS",
     "LAT_EDGES_NS",
     "lat_bucket",
@@ -167,6 +178,8 @@ __all__ = [
     "check_obs_state",
     "lat_widths",
     "check_lat_state",
+    "causal_on",
+    "check_causal_state",
     "make_init",
     "make_step",
     "make_step_plain",
@@ -263,6 +276,17 @@ OBS_FIELDS = (*COVERAGE_FIELDS, *TIMELINE_FIELDS, "ev_emit")
 # the tail-latency tap's columns (zero-size, and the counters 0, without
 # a LatencySpec): derived state
 LATENCY_FIELDS = ("lat_inv", "lat_resp", "lat_hist", "lat_count", "lat_drop")
+# the causal-provenance columns (zero-size with causal=False): derived
+# state, read only into more causal columns and the ring
+CAUSAL_STATE_FIELDS = ("lam", "ev_parent", "ev_lam", "tl_seq", "tl_parent", "tl_lam")
+# ev_parent's sentinel classes: a pool row whose value is below zero has
+# no emitting dispatch; obs.causal treats such rows as roots of the DAG
+PARENT_NONE = -1  # on_init rows and never-written slots
+PARENT_PLAN = -2  # compiled fault-plan rows (engine and extended chaos kinds)
+PARENT_ARMY = -3  # client-army plan rows (open-loop user-kind arrivals)
+# the certified run length: a dispatch's seq is min(step, this - 1), so
+# it fits an int32
+ABSINT_STEP_MAX = 1 << 31
 
 # the largest slow-link multiplier pack_slow_arg's word carries (bits
 # 8..30 of an int32)
@@ -992,6 +1016,18 @@ class SimState:
     # tl_emit when the row is dispatched; a clog reschedule keeps it
     ev_emit: torch.Tensor  # (S,E) int64
     tl_emit: torch.Tensor  # (S,T) int64
+    # causal provenance (causal=True, else zero-size): each node's Lamport
+    # clock, folded at dispatch lam[dst] = max(lam[dst], lam at emit) + 1;
+    # each pool row's emitting dispatch seq (or a PARENT_* class) and that
+    # dispatch's folded clock, read at the pop as ev_emit is; and, with
+    # the ring, each captured row's own seq, its parent's seq and its
+    # folded clock. uint32 clocks in int64, masked to 32 bits
+    lam: torch.Tensor  # (S,N) int64
+    ev_parent: torch.Tensor  # (S,E) int32
+    ev_lam: torch.Tensor  # (S,E) int64
+    tl_seq: torch.Tensor  # (S,T) int32
+    tl_parent: torch.Tensor  # (S,T) int32
+    tl_lam: torch.Tensor  # (S,T) int64
     # the tail-latency tap, C = LatencySpec.ops and P = its phases (both
     # 0 when off, zero-size): each op's invoke and response clock (-1 =
     # not yet), the per-window ladder sketch of completed ops, their
@@ -1121,9 +1157,27 @@ def check_lat_state(state: SimState, latency: "LatencySpec | None") -> None:
         )
 
 
+def causal_on(state: SimState) -> bool:
+    """Whether ``state`` carries the causal columns (``make_init(causal=
+    True)``): its ``lam`` has a column per node."""
+    return state.lam.shape[1] > 0
+
+
+def check_causal_state(state: SimState, causal: bool, n: int) -> None:
+    """Raise unless a step built with ``causal=True`` gets a state whose
+    ``lam`` is ``(S, n)`` (the JAX package's shape guard)."""
+    if causal and state.lam.shape[1] != n:
+        raise ValueError(
+            f"SimState.lam has shape {tuple(state.lam.shape[1:])} but this step "
+            f"was built with causal=True (expects ({n},)); build "
+            f"init/step with matching causal= values"
+        )
+
+
 def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
               metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-              cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
+              cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
+              causal: bool = False):
     """Build ``init(seeds) -> SimState``: one on_init event per node at
     t=0 in slots ``0..N-1``, every other slot an invalid NOP.
 
@@ -1137,8 +1191,12 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
     two) sizes the coverage bitmap, ``cov_hitcount`` adds its hit
     counters, and ``timeline_cap=T`` the timeline ring and the emit-time
     sidecar; ``latency=LatencySpec(ops=C, phases=P)`` the per-op clocks
-    (-1 until stamped) and the ``(P, N_LAT_BUCKETS)`` sketch. Each is
-    zero-size when off."""
+    (-1 until stamped) and the ``(P, N_LAT_BUCKETS)`` sketch.
+    ``causal=True`` sizes the causal columns: ``lam`` and ``ev_lam`` start
+    at 0, ``ev_parent`` at ``PARENT_NONE`` but for the plan rows, which
+    take ``PARENT_ARMY`` where the row is a user kind (a client army's
+    op) and ``PARENT_PLAN`` elsewhere; the ring's three causal columns
+    get ``timeline_cap`` rows. Each is zero-size when off."""
     n, u, e, p = wl.n_nodes, wl.state_width, cfg.pool_size, plan_slots
     if e < n + p:
         raise ValueError(
@@ -1148,6 +1206,7 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
     _check_meta_ranges(wl)
     _check_obs(cov_words, cov_hitcount, timeline_cap, latency)
     cw, tc = cov_words, timeline_cap
+    tc_c = tc if causal else 0
     lat_c = latency.ops if latency is not None else 0
     lat_p = latency.phases if latency is not None else 0
     dev = resolve_device(device)
@@ -1170,6 +1229,8 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
         ev_time = z(s, e, dt=torch.int64)
         ev_args = z(s, e, wl.args_words, dt=torch.int32)
         ev_epoch = z(s, e, dt=torch.int32)
+        ev_parent = torch.full((s, e if causal else 0), PARENT_NONE, dtype=torch.int32,
+                               device=dev)
         if p:
             if plan is None:
                 raise ValueError(
@@ -1189,6 +1250,9 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
             ev_args[:, rows, 0:2] = _plan_col(plan.args, torch.int32, dev)
             is_user_row = (pk >= FIRST_USER_KIND) & (pk < FIRST_EXT_KIND)
             ev_epoch[:, rows] = torch.where(is_user_row, -1, 0).to(torch.int32)
+            if causal:
+                ev_parent[:, rows] = torch.where(is_user_row, PARENT_ARMY,
+                                                 PARENT_PLAN).to(torch.int32)
             # clipped to the meta byte like every emit: an out-of-range
             # target matches nothing downstream
             pn = (
@@ -1241,6 +1305,12 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
             tl_pay=z(s, tc, wl.payload_words, dt=torch.int32),
             ev_emit=z(s, e if tc else 0, dt=torch.int64),
             tl_emit=z(s, tc, dt=torch.int64),
+            lam=z(s, n if causal else 0, dt=torch.int64),
+            ev_parent=ev_parent,
+            ev_lam=z(s, e if causal else 0, dt=torch.int64),
+            tl_seq=z(s, tc_c, dt=torch.int32),
+            tl_parent=z(s, tc_c, dt=torch.int32),
+            tl_lam=z(s, tc_c, dt=torch.int64),
             lat_inv=torch.full((s, lat_c), -1, dtype=torch.int64, device=dev),
             lat_resp=torch.full((s, lat_c), -1, dtype=torch.int64, device=dev),
             lat_hist=z(s, lat_p, N_LAT_BUCKETS if lat_c else 0, dt=torch.int32),
@@ -1349,7 +1419,8 @@ def _cov_tapper(cov_words: int, cov_hitcount: bool, ar: torch.Tensor):
 
 def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                    metrics: bool = False, cov_words: int = 0, cov_hitcount: bool = False,
-                   timeline_cap: int = 0, latency: "LatencySpec | None" = None):
+                   timeline_cap: int = 0, latency: "LatencySpec | None" = None,
+                   causal: bool = False):
     """The eager batched step: ``step(SimState) -> SimState``.
 
     ``dup_rows`` adds the duplication shadow rows: K rows after the
@@ -1365,7 +1436,10 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
     state from ``make_init`` with the same arguments; like ``metrics``
     they never feed back into the trajectory. So does ``latency``: the
     handlers' latency markers stamp the per-op clocks and fold completed
-    ops into the sketch (a state from ``make_init(latency=...)``)."""
+    ops into the sketch (a state from ``make_init(latency=...)``), and
+    ``causal``: the Lamport fold, each placed row's parent seq and clock,
+    the ring's causal columns and, with coverage, the (depth, jump)
+    feature under tag 7 (a state from ``make_init(causal=True)``)."""
     n, k, w, aw = wl.n_nodes, wl.max_emits, wl.payload_words, wl.args_words
     n_user = len(wl.handlers)
     _check_meta_ranges(wl)
@@ -1409,6 +1483,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             )
         check_obs_state(st, cov_words, cov_hitcount, timeline_cap)
         check_lat_state(st, lat_spec)
+        check_causal_state(st, causal, n)
         dev = st.seed.device
         s_n, e_n = st.ev_valid.shape
         ar = torch.arange(s_n, device=dev)
@@ -1435,6 +1510,10 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         # the emit-time sidecar: when this event entered the pool, read
         # before placement can reuse its slot
         emit_i = st.ev_emit[ar, i] if timeline_cap else None
+        # the causal sidecars: the popped row's emitting dispatch seq and
+        # the clock it folded, read by the same rule
+        if causal:
+            parent_i, evlam_i = st.ev_parent[ar, i], st.ev_lam[ar, i]
         is_engine = (kind < FIRST_USER_KIND) | (kind >= FIRST_EXT_KIND)
         is_msg = src >= 0
 
@@ -1463,6 +1542,20 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         held = ~is_engine & paused_dst
         blocked = clogged | held
         dispatch = active & ~blocked & (is_engine | live)
+
+        # ---- the causal fold: the dispatch's seq (int32, clamped below
+        # 2^31), and the Lamport receive max(own, sender's) + 1 in uint32,
+        # written only where the step dispatches to a node in range.
+        # Derived state: read only into more causal columns ----
+        if causal:
+            seq = torch.clamp(st.step, max=ABSINT_STEP_MAX - 1).to(torch.int32)
+            lam_prev = torch.where(in_range, st.lam[ar, dst_c], 0)
+            lam_new = (torch.maximum(lam_prev, evlam_i) + 1) & M32
+            lam = st.lam.clone()
+            fold = dispatch & in_range
+            lam[ar[fold], dst_c[fold]] = lam_new[fold]
+        else:
+            lam = st.lam
 
         now = torch.where(active, ev_t, st.now)
         draw = Draw(st.seed, st.step)
@@ -1757,6 +1850,14 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             ev_emit[ps, pslot] = now[ps]
         else:
             ev_emit = st.ev_emit
+        if causal:
+            # every placed row's parent is this dispatch, ring or no ring;
+            # a rescheduled row keeps its parent (a retry is no new send)
+            ev_parent, ev_lam = st.ev_parent.clone(), st.ev_lam.clone()
+            ev_parent[ps, pslot] = seq[ps]
+            ev_lam[ps, pslot] = lam_new[ps]
+        else:
+            ev_parent, ev_lam = st.ev_parent, st.ev_lam
 
         # ---- operation-history append: the j-th valid record of a user
         # dispatch takes slot hist_count + j; records past the capacity
@@ -1839,6 +1940,17 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             cov, cov_hits = tap(cov, cov_hits, f_edge, user_dispatch & is_msg)
             f_when = kind_w | (phase << 8) | (4 << 24)
             cov, cov_hits = tap(cov, cov_hits, f_when, user_dispatch)
+            if causal:
+                # causal depth and jump (tag 7): the log2 buckets of the
+                # folded clock and of how far the arriving event's clock
+                # was ahead of the node's (int64, clipped at 0), on every
+                # dispatch
+                pow2 = torch.tensor([1 << b for b in range(1, 32)], device=dev)
+                depth_b = (lam_new[:, None] >= pow2).sum(1)
+                jump = torch.clamp(evlam_i - lam_prev, min=0)
+                jump_b = (jump[:, None] >= pow2).sum(1)
+                cov, cov_hits = tap(cov, cov_hits, depth_b | (jump_b << 8) | (7 << 24),
+                                    dispatch)
             for j in range(rr):
                 r = uem.rec[:, j].to(torch.int64) & M32
                 f_rec = (
@@ -1915,12 +2027,20 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             tl_args[ts, tslot] = args[t_do]
             tl_pay[ts, tslot] = pay_i[t_do]
             tl_emit[ts, tslot] = emit_i[t_do]
+            if causal:
+                tl_seq, tl_parent, tl_lam = (
+                    x.clone() for x in (st.tl_seq, st.tl_parent, st.tl_lam))
+                tl_seq[ts, tslot] = seq[t_do]
+                tl_parent[ts, tslot] = parent_i[t_do]
+                tl_lam[ts, tslot] = lam_new[t_do]
             tl_count = st.tl_count + t_do.to(torch.int32)
             tl_drop = st.tl_drop + (dispatch & ~tfits).to(torch.int32)
         else:
             tl_count, tl_drop = st.tl_count, st.tl_drop
             tl_t, tl_meta, tl_args = st.tl_t, st.tl_meta, st.tl_args
             tl_pay, tl_emit = st.tl_pay, st.tl_emit
+        if not (timeline_cap and causal):
+            tl_seq, tl_parent, tl_lam = st.tl_seq, st.tl_parent, st.tl_lam
 
         # ---- trace + clock ----
         trace = torch.where(
@@ -1970,6 +2090,12 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             tl_pay=tl_pay,
             ev_emit=ev_emit,
             tl_emit=tl_emit,
+            lam=lam,
+            ev_parent=ev_parent,
+            ev_lam=ev_lam,
+            tl_seq=tl_seq,
+            tl_parent=tl_parent,
+            tl_lam=tl_lam,
             lat_inv=lat_inv,
             lat_resp=lat_resp,
             lat_hist=lat_hist,
@@ -1988,19 +2114,20 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
 
 def make_step_plain(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-                    cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
+                    cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
+              causal: bool = False):
     """The plain eager step on any device."""
     return _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
-                          latency)
+                          latency, causal)
 
 
 def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
                    dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
                    timeline_cap: int = 0, cov_hitcount: bool = False,
-                   latency: "LatencySpec | None" = None):
+                   latency: "LatencySpec | None" = None, causal: bool = False):
     """``n_steps`` of the plain eager step on any device."""
     step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
-                          latency)
+                          latency, causal)
 
     def run(state: SimState) -> SimState:
         for _ in range(n_steps):
@@ -2013,11 +2140,12 @@ def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
 def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
                          dup_rows: bool = False, metrics: bool = False,
                          cov_words: int = 0, timeline_cap: int = 0,
-                         cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
+                         cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
+                         causal: bool = False):
     """The plain eager step until every seed has halted, at most
     ``max_steps`` times; every seed takes the same number of steps."""
     step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
-                          latency)
+                          latency, causal)
 
     def run(state: SimState) -> SimState:
         i = 0
@@ -2031,7 +2159,8 @@ def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
 
 def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
               metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-              cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
+              cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
+              causal: bool = False):
     """One step: the plain step on a CPU state, the fused kernel with
     ``n_steps=1`` on a CUDA state (raises for a workload, or a
     ``dup_rows`` build, the kernel does not carry)."""
@@ -2039,34 +2168,35 @@ def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
 
     return make_run_fused(wl, cfg, 1, dup_rows=dup_rows, metrics=metrics,
                           cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount, latency=latency)
+                          cov_hitcount=cov_hitcount, latency=latency, causal=causal)
 
 
 def make_run(wl: Workload, cfg: EngineConfig, n_steps: int, dup_rows: bool = False,
              metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-             cov_hitcount: bool = False, latency: "LatencySpec | None" = None):
+             cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
+             causal: bool = False):
     """``n_steps`` steps: plain on a CPU state, the fused kernel on a
     CUDA state."""
     from .fused import make_run_fused
 
     return make_run_fused(wl, cfg, n_steps, dup_rows=dup_rows, metrics=metrics,
                           cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount, latency=latency)
+                          cov_hitcount=cov_hitcount, latency=latency, causal=causal)
 
 
 def make_run_while(wl: Workload, cfg: EngineConfig, max_steps: int,
                    dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
                    timeline_cap: int = 0, cov_hitcount: bool = False,
-                   latency: "LatencySpec | None" = None):
+                   latency: "LatencySpec | None" = None, causal: bool = False):
     """Steps until every seed has halted, at most ``max_steps``: plain
     on a CPU state, the fused kernel on a CUDA state. ``metrics`` folds
     the fleet counters (a state from ``make_init(metrics=True)``);
     ``cov_words``, ``cov_hitcount`` and ``timeline_cap`` run the
-    coverage taps and the timeline ring, and ``latency`` the
-    tail-latency tap (a state from ``make_init`` with the same
-    arguments)."""
+    coverage taps and the timeline ring, ``latency`` the tail-latency
+    tap and ``causal`` the causal fold (a state from ``make_init`` with
+    the same arguments)."""
     from .fused import make_run_fused
 
     return make_run_fused(wl, cfg, max_steps, until_halted=True, dup_rows=dup_rows,
                           metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount, latency=latency)
+                          cov_hitcount=cov_hitcount, latency=latency, causal=causal)

@@ -56,6 +56,18 @@ off. A model's own coverage features (``Workload.cov_features``) are
 its trait's ``cov_features``: leasekv and shardkv always, raftlog in
 the ``cov_spread`` library.
 
+Causal provenance rides the same instantiation as a runtime word
+(config word 15): a state from ``make_init(causal=True)`` (its ``lam``
+has a column per node, ``core.causal_on``) launches the taps kernel,
+and so raises at a library or pool without one. The kernel keeps
+``lam`` and the pool's ``ev_parent`` and ``ev_lam`` in the seed's
+shared tail, writes the sidecars wherever placement fills a slot (ring
+or no ring), folds the Lamport clock on every dispatch to a node in
+range, taps the (depth, jump) feature under tag 7 with coverage on, and
+writes the ring's ``tl_seq``, ``tl_parent`` and ``tl_lam`` straight to
+the output. The six columns are fresh outputs with the axis on and the
+input's zero-size ones with it off.
+
 The tail-latency tap needs no instantiation of its own: it compiles
 into the libraries whose workload marks ops (``Workload.lat_markers``,
 the trait's ``L``: the army libraries), and every other library is built
@@ -89,6 +101,7 @@ from pathlib import Path
 import torch
 
 from .core import (
+    CAUSAL_STATE_FIELDS,
     COVERAGE_FIELDS,
     LATENCY_FIELDS,
     N_LAT_BUCKETS,
@@ -99,6 +112,8 @@ from .core import (
     EngineConfig,
     SimState,
     Workload,
+    causal_on,
+    check_causal_state,
     check_lat_state,
     check_obs_state,
     lat_widths,
@@ -265,6 +280,9 @@ _KV_ARMY_SOAK = (("n_replicas", 2), ("chaos", False), ("payload", False), ("reco
 _KV_ARMY_GOLDEN = (*_KV_FIXED, ("record", True), ("bug", False), ("army", True),
                    ("army_probes", 2))
 _LEASE_ARMY = (*_LEASE_FIXED, ("record", False), ("army", True), ("army_probes", 1))
+_RAFTLOG_W16_SHAPE = (5, 24, 4, 16, 7, 8, (0, 1), 16)
+_RAFTLOG_W16 = (("n_nodes", 5), ("n_writes", 16), ("chaos", False), ("durable", False),
+                ("cov_spread", False))
 _SHARD_ARMY = (("n_groups", 4), ("group_size", 3), ("n_shards", 8), ("chaos", False),
                ("record", True), ("bug", False), ("army", True), ("army_probes", 1))
 MODELS = {
@@ -474,6 +492,24 @@ MODELS = {
             "madsim::ShardKvModel<true, false, false, true, 1>",
             (14, 17, 3, 0, 6, 18, (), 1), (96,), _SHARD_WORDS, _SHARD_ARMY, lat=1,
         ),
+        # the causal soak's libraries (tools/causal_soak.py): kvchaos-bug
+        # without its own chaos with the duplication rows (the Duplicate
+        # and GrayFailure plan of its exact-arrow certificate), and the
+        # 16-write diskless raftlog-record of its cone hunt. That one's
+        # pool rows carry 16 payload words, some 21 KB of shared memory a
+        # seed with the causal tail, so a block holds 4 seeds of 32 lanes
+        KernelModel(
+            "kvchaos-bug-nochaos-dup", "kvchaos-bug", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, true, true, false>", _KV_NOCHAOS_SHAPE,
+            (192,), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", True)),
+            dup=True, obs_pools=(192,),
+        ),
+        KernelModel(
+            "raftlog-record-w16-nochaos", "raftlog-record", "model_raftlog.cuh",
+            "madsim::RaftLogModel<true, false, false, false, false, false, 16>",
+            _RAFTLOG_W16_SHAPE, (192,), _RAFTLOG_WORDS, _RAFTLOG_W16, group=32,
+            obs_pools=(192,),
+        ),
     )
 }
 
@@ -490,12 +526,13 @@ KERNEL_FIELDS = (
     "msg_count", "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args",
     "ev_pay", "alive", "paused", "epoch", "node_state", "clog", "slow",
     "skew", "dup", *HISTORY_COLUMNS, *STORAGE_FIELDS, "met", *COVERAGE_FIELDS,
-    *RING_FIELDS, *LATENCY_FIELDS,
+    *RING_FIELDS, *LATENCY_FIELDS, *CAUSAL_STATE_FIELDS,
 )
-# the taps' columns, then the latency tap's; a launch without the taps
-# kernel passes null for the first, one without a latency fold for the
-# second, and check_state skips them: the kernel never reads them
-OBS_KERNEL_FIELDS = (*COVERAGE_FIELDS, *RING_FIELDS)
+# the taps' columns (the causal ones ride that kernel too), then the
+# latency tap's; a launch without the taps kernel passes null for the
+# first, one without a latency fold for the second, and check_state
+# skips them: the kernel never reads them
+OBS_KERNEL_FIELDS = (*COVERAGE_FIELDS, *RING_FIELDS, *CAUSAL_STATE_FIELDS)
 READ_ONLY_FIELDS = ("seed",)
 # the run's outputs that are its inputs' tensors: never written
 SHARED_FIELDS = READ_ONLY_FIELDS
@@ -516,7 +553,9 @@ _DTYPES = {
     "tl_meta": torch.int64, "tl_args": torch.int32, "tl_pay": torch.int32,
     "ev_emit": torch.int64, "tl_emit": torch.int64, "lat_inv": torch.int64,
     "lat_resp": torch.int64, "lat_hist": torch.int32, "lat_count": torch.int32,
-    "lat_drop": torch.int32,
+    "lat_drop": torch.int32, "lam": torch.int64, "ev_parent": torch.int32,
+    "ev_lam": torch.int64, "tl_seq": torch.int32, "tl_parent": torch.int32,
+    "tl_lam": torch.int64,
 }
 
 
@@ -771,8 +810,8 @@ KERNEL = RunKernel()
 DRAIN_FIELDS = ("step", "ev_valid", "ev_time")
 
 
-# the engine's config words in front of the observability widths, and
-# the latency tap's three words after those
+# the engine's config words in front of the observability widths; the
+# latency tap's three words and the causal word follow those
 ENGINE_WORDS = 9
 
 
@@ -803,10 +842,11 @@ def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words,
     """The ctypes pointer array and config words of one run launch: the
     input fields, the output fields (null where the kernel writes
     none), the tables, ``iters`` and ``tmax``; ``cfg_words``
-    (:func:`config_words`) with the state's observability widths and the
+    (:func:`config_words`) with the state's observability widths, the
     latency tap's words (:func:`lat_words`, ``markers``: the library
-    folds latency markers) after the engine's words. The caller keeps
-    every tensor alive until the launch has run."""
+    folds latency markers) and the causal word (config word 15: the
+    state carries the causal columns) after the engine's words. The
+    caller keeps every tensor alive until the launch has run."""
     lw = lat_words(state, latency, markers)
     skip = set()
     if not has_obs(state):
@@ -823,7 +863,8 @@ def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words,
     # missing engine words (a model without histories may leave out
     # the capacity) are zero
     engine = (*cfg_words[:ENGINE_WORDS], *(0,) * (ENGINE_WORDS - len(cfg_words)))
-    words = (*engine, *obs_words(state), *lw, *cfg_words[ENGINE_WORDS:])
+    words = (*engine, *obs_words(state), *lw, int(causal_on(state)),
+             *cfg_words[ENGINE_WORDS:])
     cfg = (ctypes.c_int64 * len(words))(*words)
     return ptrs, cfg
 
@@ -833,9 +874,9 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     port's dtype and of the workload's shape, with a pool size the
     model's kernel was compiled for; only a record library takes a
     state with history rows, only a sync library one with storage rows;
-    ``met`` has no slot or all ``N_METRICS``; with a coverage or ring
-    column, the taps' columns are those of ``make_init`` at the state's
-    widths (without, the kernel never reads them)."""
+    ``met`` has no slot or all ``N_METRICS``; with a coverage, ring or
+    causal column, the taps' columns are those of ``make_init`` at the
+    state's widths (without, the kernel never reads them)."""
     dev = state.device
     s, e = state.ev_valid.shape
     if e not in spec.pools:
@@ -846,9 +887,9 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     if has_obs(state) and e not in spec.obs_pools:
         built = {m.key: m.obs_pools for m in MODELS.values() if m.obs_pools}
         raise NotImplementedError(
-            f"library {spec.key!r} has no kernel with the coverage taps and the "
-            f"timeline ring at pool_size={e}; built: {built}; the others are "
-            f"ROADMAP queue B1"
+            f"library {spec.key!r} has no kernel with the coverage taps, the "
+            f"timeline ring and the causal columns at pool_size={e}; built: "
+            f"{built}; the others are ROADMAP queue B1"
         )
     hcap = _history_capacity(wl)
     if (spec.shape[7] > 0) != (hcap > 0):
@@ -860,6 +901,7 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     d = n if wl.durable_sync else 0
     cw, hc, tc = obs_widths(state)
     lc, lp = lat_widths(state)
+    ca = causal_on(state)
     if cw & (cw - 1):
         raise ValueError(f"cov_words={cw} must be 0 (off) or a power of two")
     shapes = dict(
@@ -874,6 +916,9 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
         tl_t=(s, tc), tl_meta=(s, tc), tl_args=(s, tc, wl.args_words),
         tl_pay=(s, tc, wl.payload_words), ev_emit=(s, e if tc else 0), tl_emit=(s, tc),
         lat_inv=(s, lc), lat_resp=(s, lc), lat_hist=(s, lp, N_LAT_BUCKETS if lc else 0),
+        lam=(s, n if ca else 0), ev_parent=(s, e if ca else 0), ev_lam=(s, e if ca else 0),
+        tl_seq=(s, tc if ca else 0), tl_parent=(s, tc if ca else 0),
+        tl_lam=(s, tc if ca else 0),
     )
     skip = set() if has_obs(state) else set(OBS_KERNEL_FIELDS)
     if not (lc and spec.lat):
@@ -916,11 +961,11 @@ def _tables(wl: Workload, dev) -> tuple:
 
 
 def has_obs(state: SimState) -> bool:
-    """Whether ``state`` carries a coverage or ring column (``make_init``
-    with ``cov_words`` or ``timeline_cap``): a run of it launches the run
-    kernel with the taps."""
+    """Whether ``state`` carries a coverage, ring or causal column
+    (``make_init`` with ``cov_words``, ``timeline_cap`` or ``causal``): a
+    run of it launches the run kernel with the taps."""
     cw, _hc, tc = obs_widths(state)
-    return bool(cw or tc)
+    return bool(cw or tc or causal_on(state))
 
 
 def has_metrics(state: SimState) -> bool:
@@ -946,8 +991,9 @@ def _unwritten(state: SimState, markers: bool = True) -> tuple:
     columns when the state has no history rows (a workload that records
     nothing), the storage columns without the sync discipline, ``met``
     without metrics, the coverage or ring columns with their tap off,
-    and the latency columns with the tap off or on a library without
-    ``markers`` (nothing marks an op)."""
+    the latency columns with the tap off or on a library without
+    ``markers`` (nothing marks an op), and the causal columns with the
+    axis off."""
     cw, _hc, tc = obs_widths(state)
     return (
         (HISTORY_COLUMNS if state.hist_word.shape[1] == 0 else ())
@@ -956,6 +1002,7 @@ def _unwritten(state: SimState, markers: bool = True) -> tuple:
         + (() if cw else COVERAGE_FIELDS)
         + (() if tc else RING_FIELDS)
         + (() if markers and lat_widths(state)[0] else LATENCY_FIELDS)
+        + (() if causal_on(state) else CAUSAL_STATE_FIELDS)
     )
 
 
@@ -1006,28 +1053,37 @@ def drain_plain(step, ev_valid, ev_time, r):
 
 
 def check_taps(state: SimState, metrics: bool, cov_words: int = 0,
-               cov_hitcount: bool = False, timeline_cap: int = 0, latency=None) -> None:
+               cov_hitcount: bool = False, timeline_cap: int = 0, latency=None,
+               causal: bool = False) -> None:
     """Raise unless a CUDA run's tap arguments agree with ``state``'s
     derived columns, which pick the kernel's instantiation and widths."""
     _check_metrics(state, metrics)
     check_obs_state(state, cov_words, cov_hitcount, timeline_cap)
     check_lat_state(state, latency)
+    check_causal_state(state, causal, state.alive.shape[1])
+    if causal_on(state) and not causal:
+        raise ValueError(
+            "a run with causal=False needs a state from make_init(causal=False); "
+            "this one carries the causal columns, which the kernel would fold"
+        )
 
 
 def make_run_fused(
     wl: Workload, cfg: EngineConfig, n_steps: int, until_halted: bool = False,
     dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
     timeline_cap: int = 0, cov_hitcount: bool = False, latency=None,
+    causal: bool = False,
 ):
     """Build ``run(state) -> SimState``: ``n_steps`` steps (or, with
     ``until_halted``, steps until every seed has halted, at most
     ``n_steps``) in the fused kernel, with the duplication rows when
     ``dup_rows``, the fleet counters when ``metrics``, the coverage
-    taps and the timeline ring at the given widths and the tail-latency
-    tap under ``latency``. A CPU state takes the plain step; a CUDA
-    state launches the kernel or raises."""
+    taps and the timeline ring at the given widths, the tail-latency
+    tap under ``latency`` and the causal fold when ``causal``. A CPU
+    state takes the plain step; a CUDA state launches the kernel or
+    raises."""
     obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-               latency=latency)
+               latency=latency, causal=causal)
     plain = (
         make_run_while_plain(wl, cfg, n_steps, dup_rows, metrics, **obs) if until_halted
         else make_run_plain(wl, cfg, n_steps, dup_rows, metrics, **obs)

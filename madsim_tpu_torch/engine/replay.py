@@ -44,7 +44,12 @@ class ReplayEvent:
 
     ``emit_ns`` is the clock at which the event entered the pool (for a
     message, its sender's dispatch), as the timeline ring captures it;
-    -1 = not captured (oracle replays). It is not part of the trace."""
+    -1 = not captured (oracle replays). ``seq``, ``parent`` and ``lam``
+    are the causal columns of a ring captured with ``causal=True``: the
+    dispatch's sequence number, the seq of the dispatch that emitted the
+    event (or a ``PARENT_*`` class below zero) and the node's Lamport
+    clock after the dispatch; -1, -1 and 0 when not captured. None of
+    them is part of the trace."""
 
     time_ns: int
     kind: int
@@ -53,6 +58,9 @@ class ReplayEvent:
     args: tuple
     pay: tuple
     emit_ns: int = -1
+    seq: int = -1
+    parent: int = -1
+    lam: int = 0
 
     def kind_name(self, wl: Workload | None = None) -> str:
         # the extended chaos kinds (>= FIRST_EXT_KIND) are engine kinds too

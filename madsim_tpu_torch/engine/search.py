@@ -37,12 +37,18 @@ overflowed is named in the banner and voids no verdict.
 ``latency=LatencySpec(...)`` runs the tail-latency tap: each seed's
 sketch and its counts come back as ``report.lat_hist`` and
 ``lat_count`` (reduce them with ``obs.latency_reduce``, judge them with
-``check.slo_bounded`` as the invariant).
+``check.slo_bounded`` as the invariant). ``causal=True`` folds causal
+provenance: each seed's final Lamport clocks come back as ``report.lam``
+(``obs.fleet_reduce(met, lam=)`` folds the fleet's causal depth and
+width), and with ``timeline_cap`` the ring's ``tl_seq``, ``tl_parent``
+and ``tl_lam`` ride ``report.timeline``, from which
+``obs.causal.causal_slice`` and ``check.device.violation_cones`` cut a
+violation's backward cone.
 
 On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
 run and drain kernels), or with ``compact=True`` the compacted runner's
-one stop-at-halt launch. The reference's ``causal`` and ``retry`` raise
-``NotImplementedError`` until their engine axes are ported (ROADMAP item
+one stop-at-halt launch. The reference's ``retry`` raises
+``NotImplementedError`` until its engine axis is ported (ROADMAP item
 A8).
 """
 
@@ -89,11 +95,12 @@ _RUN_CACHE: dict = {}
 def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                     compact: bool, device, hist_screen=None, plan_slots: int = 0,
                     dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
-                    cov_hitcount: bool = False, timeline_cap: int = 0, latency=None):
+                    cov_hitcount: bool = False, timeline_cap: int = 0, latency=None,
+                    causal: bool = False):
     # the one construction of a sweep's (init, run) pair, for make_sweep
     # and search_seeds alike; only the compacted runner embeds a screen
     taps = dict(metrics=metrics, cov_words=cov_words, cov_hitcount=cov_hitcount,
-                timeline_cap=timeline_cap, latency=latency)
+                timeline_cap=timeline_cap, latency=latency, causal=causal)
     init = make_init(wl, cfg, device=device, plan_slots=plan_slots, **taps)
     run = (
         make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen, dup_rows=dup_rows,
@@ -124,14 +131,14 @@ def make_sweep(
     ``make_run_while`` to the step cap, and return the final state as a
     ``{field name: device tensor}`` view, with no host transfer and no
     invariant. ``metrics``, ``cov_words``, ``timeline_cap``,
-    ``cov_hitcount`` and ``latency`` run the observability taps;
-    ``causal`` and ``retry`` raise ``NotImplementedError`` until their
-    engine axes are ported."""
-    refuse_unported(causal=causal, retry=retry)
+    ``cov_hitcount``, ``latency`` and ``causal`` run the observability
+    taps; ``retry`` raises ``NotImplementedError`` until its engine axis
+    is ported."""
+    refuse_unported(retry=retry)
     init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device),
                                 plan_slots=plan_slots, dup_rows=dup_rows, metrics=metrics,
                                 cov_words=cov_words, cov_hitcount=cov_hitcount,
-                                timeline_cap=timeline_cap, latency=latency)
+                                timeline_cap=timeline_cap, latency=latency, causal=causal)
 
     def sweep(seeds, rows=None):
         out = run(init(seeds, rows) if plan_slots else init(seeds))
@@ -143,17 +150,18 @@ def make_sweep(
 def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                   compact: bool, dev, hist_screen=None, plan_slots: int = 0,
                   dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
-                  cov_hitcount: bool = False, timeline_cap: int = 0, latency=None):
+                  cov_hitcount: bool = False, timeline_cap: int = 0, latency=None,
+                  causal: bool = False):
     from .fused import workload_shape
 
     key = (wl.name, workload_shape(wl), wl.model_params, wl.history, wl.durable_cols,
            wl.durable_sync, wl.cov_features is not None, wl.lat_markers, cfg.hash(),
            max_steps, compact, str(dev), hist_screen, plan_slots, dup_rows, metrics,
-           cov_words, cov_hitcount, timeline_cap, latency)
+           cov_words, cov_hitcount, timeline_cap, latency, causal)
     if key not in _RUN_CACHE:
         _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
                                           plan_slots, dup_rows, metrics, cov_words,
-                                          cov_hitcount, timeline_cap, latency)
+                                          cov_hitcount, timeline_cap, latency, causal)
     return _RUN_CACHE[key]
 
 
@@ -174,8 +182,7 @@ def _library_build_s(wl: Workload, dev, dup_rows: bool = False) -> float:
 
 @dataclasses.dataclass
 class SearchReport:
-    """Outcome of one batched invariant sweep. The reference's causal
-    fields wait for ROADMAP item A8."""
+    """Outcome of one batched invariant sweep."""
 
     workload: str
     config_hash: str
@@ -218,9 +225,10 @@ class SearchReport:
     # (S, cov_words) uint32 coverage bitmaps (cov_words > 0), else None
     cov: np.ndarray | None = None
     # the timeline rings (timeline_cap > 0): a namespace of the seven
-    # tl_* columns, each seed-leading (obs.decode_timeline reads one
-    # seed's stream); tl_dropped marks the seeds whose ring overflowed,
-    # which voids no verdict (the timeline is forensics, not evidence)
+    # tl_* columns (ten with causal=True), each seed-leading
+    # (obs.decode_timeline reads one seed's stream); tl_dropped marks the
+    # seeds whose ring overflowed, which voids no verdict (the timeline
+    # is forensics, not evidence)
     timeline: object | None = None
     tl_dropped: np.ndarray | None = None
     # the tail-latency tap (latency=LatencySpec(...)): each seed's
@@ -230,6 +238,10 @@ class SearchReport:
     lat_hist: np.ndarray | None = None
     lat_count: np.ndarray | None = None
     lat_dropped: np.ndarray | None = None
+    # causal provenance (causal=True): the final per-node Lamport clocks,
+    # (S, N) uint32, for obs.fleet_reduce(met, lam=); the ring's causal
+    # columns ride report.timeline
+    lam: np.ndarray | None = None
 
     @property
     def failing_seeds(self) -> np.ndarray:
@@ -442,8 +454,12 @@ def search_seeds(
     ``LatencySpec.ops`` is refused.
 
     ``device`` is where the sweep runs, the card unless the caller asks
-    for the CPU. ``causal`` and ``retry`` raise ``NotImplementedError``
-    until their engine axes are ported.
+    for the CPU. ``causal=True`` folds causal provenance: the final
+    per-node Lamport clocks return as ``report.lam``, and with
+    ``timeline_cap`` the ring's ``tl_seq``, ``tl_parent`` and ``tl_lam``
+    ride ``report.timeline`` (``check.device.violation_cones`` cuts each
+    flagged seed's cone from them). ``retry`` raises
+    ``NotImplementedError`` until its engine axis is ported.
     """
     if history_invariant is not None and wl.history is None:
         raise ValueError(
@@ -465,7 +481,7 @@ def search_seeds(
                 "them via check.device.screens_invariant in a test, not "
                 "in one sweep)"
             )
-    refuse_unported(causal=causal, retry=retry)
+    refuse_unported(retry=retry)
     if invariant is None and history_invariant is None and screens is None:
         raise ValueError(
             "need an invariant, a history_invariant or a device_check"
@@ -515,7 +531,7 @@ def search_seeds(
     dev = resolve_device(device)
     init, run = _compiled_run(wl, cfg, max_steps, compact, dev,
                               screens if compact else None, plan_slots, dup_rows, metrics,
-                              cov_words, cov_hitcount, timeline_cap, latency)
+                              cov_words, cov_hitcount, timeline_cap, latency, causal)
     build_wall_s = _library_build_s(wl, dev, dup_rows)
     out = run(init(seeds, rows) if rows is not None else init(seeds))
     if compact:
@@ -571,7 +587,8 @@ def search_seeds(
         ok = ok & halted
     tl = tl_dropped = None
     if timeline_cap:
-        tl = SimpleNamespace(**{f: np.asarray(view[f]) for f in TIMELINE_FIELDS})
+        cols = TIMELINE_FIELDS + (("tl_seq", "tl_parent", "tl_lam") if causal else ())
+        tl = SimpleNamespace(**{f: np.asarray(view[f]) for f in cols})
         tl_dropped = tl.tl_drop > 0
     return SearchReport(
         workload=wl.name,
@@ -599,4 +616,5 @@ def search_seeds(
         lat_hist=np.asarray(view["lat_hist"]) if latency is not None else None,
         lat_count=np.asarray(view["lat_count"]) if latency is not None else None,
         lat_dropped=np.asarray(view["lat_drop"]) > 0 if latency is not None else None,
+        lam=np.asarray(view["lam"]) if causal else None,
     )

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .core import (
+    CAUSAL_STATE_FIELDS,
     LATENCY_FIELDS,
     OBS_FIELDS,
     STATE_FIELDS,
@@ -47,10 +48,10 @@ __all__ = [
 # checks compare them directly
 HISTORY_FIELDS = ("hist_count", "hist_drop", "hist_word", "hist_t")
 # the sync discipline's columns, the fleet counters, the coverage and
-# timeline columns and the latency tap's: outside the trace hash too
-# (zero-size without the discipline or the taps), so both checks compare
-# them directly
-DERIVED_FIELDS = (*STORAGE_FIELDS, "met", *OBS_FIELDS, *LATENCY_FIELDS)
+# timeline columns, the latency tap's and the causal columns: outside the
+# trace hash too (zero-size without the discipline or the taps), so both
+# checks compare them directly
+DERIVED_FIELDS = (*STORAGE_FIELDS, "met", *OBS_FIELDS, *LATENCY_FIELDS, *CAUSAL_STATE_FIELDS)
 # the fields check_layouts holds besides the trace and DERIVED_FIELDS:
 # the reference's list
 LAYOUT_FIELDS = (
@@ -142,20 +143,21 @@ def _plan_init(wl: Workload, cfg: EngineConfig, device, plan, taps: dict):
 def check_determinism(
     wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None,
     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-    cov_hitcount: bool = False, latency=None, plan=None,
+    cov_hitcount: bool = False, latency=None, plan=None, causal: bool = False,
 ) -> None:
     """Run the workload twice over ``seeds`` on ``device`` (the card
     unless the caller asks for the CPU); raise on any divergence of the
     trace, the history, the storage columns or the columns of the taps
     the run carries (``metrics``, ``cov_words``, ``timeline_cap``,
-    ``cov_hitcount``, ``latency``). A fault ``plan`` (``chaos.FaultPlan``,
-    a client army among its specs) seeds both runs' pools.
+    ``cov_hitcount``, ``latency``, ``causal``). A fault ``plan``
+    (``chaos.FaultPlan``, a client army among its specs) seeds both
+    runs' pools.
 
     Catches hidden nondeterminism in handlers, the way the reference's
     two-run RNG-log compare catches nondeterministic user code."""
     seeds = np.asarray(seeds, np.uint64)
     taps = dict(metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                cov_hitcount=cov_hitcount, latency=latency)
+                cov_hitcount=cov_hitcount, latency=latency, causal=causal)
     init = _plan_init(wl, cfg, device, plan, taps)
     run = make_run(wl, cfg, n_steps, **taps)
     a = run(init(seeds))
@@ -167,7 +169,7 @@ def check_determinism(
 def check_layouts(
     wl: Workload, cfg: EngineConfig, seeds, n_steps: int, device=None,
     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-    cov_hitcount: bool = False, latency=None, plan=None,
+    cov_hitcount: bool = False, latency=None, plan=None, causal: bool = False,
 ) -> None:
     """Run ``seeds`` through the fused kernel on the card and through
     the plain eager step on the card, and the first 256 of them through
@@ -184,7 +186,7 @@ def check_layouts(
         )
     seeds = np.asarray(seeds, np.uint64)
     taps = dict(metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                cov_hitcount=cov_hitcount, latency=latency)
+                cov_hitcount=cov_hitcount, latency=latency, causal=causal)
     init = _plan_init(wl, cfg, dev, plan, taps)
     fused = make_run(wl, cfg, n_steps, **taps)(init(seeds))
     plain = make_run_plain(wl, cfg, n_steps, **taps)(init(seeds))

@@ -64,6 +64,14 @@ def decode_timeline(view, wl: Workload | None = None, seed: int = 0) -> list:
             emit = None
     except (KeyError, AttributeError):
         emit = None
+    # the causal columns (causal=True rings); a ring without them decodes
+    # with the "not captured" defaults
+    try:
+        seq, parent, lam = (_get(view, f)[seed] for f in ("tl_seq", "tl_parent", "tl_lam"))
+        if seq.shape[0] == 0:
+            seq = parent = lam = None
+    except (KeyError, AttributeError):
+        seq = parent = lam = None
     events = []
     for i in range(count):
         m = int(meta[i])
@@ -76,6 +84,9 @@ def decode_timeline(view, wl: Workload | None = None, seed: int = 0) -> list:
                 args=tuple(int(x) for x in args[i]),
                 pay=tuple(int(x) for x in pay[i]),
                 emit_ns=int(emit[i]) if emit is not None else -1,
+                seq=int(seq[i]) if seq is not None else -1,
+                parent=int(parent[i]) if parent is not None else -1,
+                lam=int(lam[i]) if lam is not None else 0,
             )
         )
     return events

@@ -152,8 +152,8 @@ def test_refuses_a_time32_checkpoint(tmp_path):
 )
 def test_refuses_a_non_empty_foreign_field(port_file, field, value, item):
     """A non-empty entry of a field the port does not carry is refused;
-    the latency columns are the port's own since the latency tap was
-    ported, so their entries load as they are."""
+    the latency and causal columns are the port's own since their axes
+    were ported, so their entries load as they are."""
     path, cfg = port_file
     _rewrite(path, **{field: value})
     if field in tcore.STATE_FIELDS:

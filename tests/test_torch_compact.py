@@ -143,8 +143,13 @@ def test_arguments_are_validated():
     make_run_compacted(wl, cfg, 10, fields=("lat_hist", "lat_count", "lat_drop"))
     with pytest.raises(ValueError, match="unknown result field"):
         make_run_compacted(wl, cfg, 10, fields=("lat_inv",))
+    # causal is ported: the final clocks and the ring's causal columns
+    # are banked; retry is still refused
+    got = make_run_compacted(wl, cfg, 10, causal=True, timeline_cap=8)(
+        tcore.make_init(wl, cfg, device="cpu", causal=True, timeline_cap=8)(np.arange(2)))
+    assert got.lam.shape == (2, 5) and got.lam.any() and got.tl_seq.shape == (2, 8)
     with pytest.raises(NotImplementedError, match="A8"):
-        make_run_compacted(wl, cfg, 10, causal=True)
+        make_run_compacted(wl, cfg, 10, retry=object())
     # hist_screen is validated now, not refused: it needs histories and
     # the four history fields banked
     assert "hist_screen" not in UNPORTED_OPTIONS

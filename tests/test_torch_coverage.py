@@ -228,7 +228,8 @@ def test_the_hooks_are_the_reference_workloads():
     assert {k: m.obs_pools for k, m in fused.MODELS.items() if m.obs_pools} == {
         "raft": (40,), "leasekv": (48,), "shardkv": (64,), "kvchaos-bug-nochaos": (192,),
         "raftlog-durable-spread": (64,), "kvchaos-record-army": (72,),
-        "raftlog-record-army": (96,)}
+        "raftlog-record-army": (96,), "kvchaos-bug-nochaos-dup": (192,),
+        "raftlog-record-w16-nochaos": (192,)}
     raft = tm.make_raft()
     for pool, taps in ((64, dict(cov_words=2)), (40, {})):
         st = tcore.make_init(raft, tcore.EngineConfig(pool_size=pool), device="cpu", **taps)(

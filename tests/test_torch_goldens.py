@@ -122,6 +122,7 @@ def test_chip_smoke_holds_the_army_goldens_the_same_way(digests):
     assert chip_smoke.GOLDEN_FIELDS == tuple(
         f.name for f in dataclasses.fields(je.SimState) if f.name not in skip)
     assert chip_smoke.GOLDEN_MET_SLOTS == je.MET_RETRY
+    assert set(chip_smoke.GOLDEN_SKIP) == skip & set(tcore.STATE_FIELDS)
     assert (chip_smoke.GOLDEN_SEEDS, chip_smoke.GOLDEN_STEPS, chip_smoke.GOLDEN_OBS) == (
         step_goldens.N_SEEDS, step_goldens.N_STEPS, step_goldens.OBS)
     want = step_goldens.scenarios()
@@ -136,3 +137,8 @@ def test_chip_smoke_holds_the_army_goldens_the_same_way(digests):
         fields = state_to_numpy(out)
         assert chip_smoke.golden_digest(fields, chip_smoke.GOLDEN_FIELDS) == \
             step_goldens.digest_state(jax_order(fields))
+        # and a compacted run's banks, as phase 45 digests them
+        co = make_run_compacted(wl, cfg, 3, latency=lat, min_size=8,
+                                **chip_smoke.GOLDEN_OBS)(st)
+        names = [f for f in sorted(vars(co)) if f not in chip_smoke.GOLDEN_SKIP]
+        assert chip_smoke.golden_digest(vars(co), names) == step_goldens.digest_state(co)

@@ -320,7 +320,8 @@ def test_the_registry_refuses_what_it_does_not_build():
     assert sorted(plan_libs) == sorted(HOST_CASES.keys() - {"raft-record"}
                                        | {"kvchaos-record-nochaos", "raftlog-durable-record",
                                           "raftlog-nosync-record", "kvchaos-army-nochaos",
-                                          "shardkv-record-army-nochaos"})
+                                          "shardkv-record-army-nochaos", "kvchaos-bug-nochaos-dup",
+                                          "raftlog-record-w16-nochaos"})
     for key, spec in fused.MODELS.items():
         assert key.startswith(spec.name) or (key, spec.name) in (
             ("raft", "raft-election"), ("raft-record", "raft-election-record"),

@@ -145,6 +145,17 @@ def test_unported_options_raise_naming_their_item(option, item):
     value = {"cov_words": 2, "timeline_cap": 8, "metrics": True, "causal": True,
              "dup_rows": True}.get(option, object())
     cfg = tcore.EngineConfig(pool_size=40)
+    if option == "causal":
+        # A8 ported it: the final clocks come back and nothing else moves
+        assert option not in UNPORTED_OPTIONS
+        on = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                          device="cpu", causal=True, timeline_cap=8)
+        off = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
+                           device="cpu", timeline_cap=8)
+        np.testing.assert_array_equal(on.traces, off.traces)
+        assert on.lam.shape == (4, 5) and on.lam.any() and off.lam is None
+        assert on.timeline.tl_seq.shape == (4, 8) and not hasattr(off.timeline, "tl_seq")
+        return
     if option == "latency":
         # A8 ported it: raft marks no op, so its sketches stay empty and
         # its traces are those of the sweep without the tap
