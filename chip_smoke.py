@@ -214,7 +214,32 @@ plain eager step:
    exact and the stripped Perfetto documents differ on 1,050 arrow
    anchors and all 1,291 exact arrows match the parent column (the JAX
    package's counts);
-51. one JSON line describing each kernel, with its launches on every
+51. client retries (``tools/retry_soak.py`` on the card), its
+   certificate 1: the new library kvchaos-record-army-r2-nochaos (two
+   replicas, pool 96, 450 ms clock cap) under the soak's gray plan and
+   kvchaos policy, and shardkv-record-army-nochaos (pool 96) under its
+   policied plan, 2,048 seeds, cap 3,000, each held as phases 4-15 (the
+   three retry columns against the plain step on the card on the first
+   256 seeds and a CPU sample) with its kernel ms beside the same plan's
+   without the policy, then searched with its history invariant: 0
+   violations, the re-sends, give-ups and traces of the JAX package's
+   runs (``RETRY_PINS``, from ``tests/_torch_retry_pins.py 2048``);
+52. certificate 2: 512 seeds of the quiet plan against the gray one,
+   the re-sends the JAX package's and the gray failure's at least twice
+   the quiet plan's;
+53. certificate 3 on the fixed hunt plan: the new library
+   shardkv-noidem-army-nochaos held as phases 4-15 on the first 128 of
+   1,024 seeds, swept with exactly_once (the JAX package's flagged
+   seeds and traces); each of the first 8 flagged seeds alone caught by
+   exactly_once and by no shard_coverage; the first shrunk under the
+   plan's policy to the JAX package's events, rounds, probes and trace,
+   and the shrunk plan replayed twice to that trace and the violation;
+54. the policy with every tap and the causal axis on the OBS build of
+   kvchaos-record-army (pool 72): the step goldens' army scenario with
+   the soak's kvchaos policy, 4,096 seeds, cap 2,000, held as phases
+   4-15 on the first 512 seeds; seeds 0-7 decoded, their Perfetto try
+   arrows and re-sent army rows the JAX package's counts;
+55. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after) and its library's launch shape (the
    occupancy calculator's numbers and the registers of the kernels
@@ -698,14 +723,15 @@ def raft_extras(device, wl, cfg, cap: int, st, out, med: float) -> None:
             f"the rest {med - r - d:.4f} ms (no state copy)")
 
 
-def drain_check(wl, cfg, cap: int, st, dup_rows: bool = False, latency=None) -> None:
+def drain_check(wl, cfg, cap: int, st, dup_rows: bool = False, latency=None,
+                retry=None) -> None:
     """The drain kernel alone against its plain version on the card,
     from the run kernel's stop-at-halt outputs: every seed takes its
     ``tmax - iters`` remaining halted steps; ``step`` and ``ev_valid``
     must be equal."""
     from madsim_tpu_torch.engine.fused import KERNEL, _first_pass, drain_plain
 
-    spec, first, iters, tmax = _first_pass(wl, cfg, st, cap, True, dup_rows, latency)
+    spec, first, iters, tmax = _first_pass(wl, cfg, st, cap, True, dup_rows, latency, retry)
     want_step, want_valid = drain_plain(first.step, first.ev_valid, first.ev_time,
                                         tmax - iters)
     KERNEL.drain(spec, first, iters, tmax)
@@ -771,8 +797,9 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
     is held against it, the plain step is not run again on the card,
     and the CPU sample, which holds every field, gives the plain ms.
     ``taps`` (``cov_words``, ``cov_hitcount``, ``timeline_cap``,
-    ``latency``) runs the coverage taps, the timeline ring and the
-    tail-latency tap on every side.
+    ``latency``, ``causal``, ``retry``) runs the coverage taps, the
+    timeline ring, the tail-latency tap, the causal fold and the
+    client-retry timers on every side.
     ``extras(device, wl, cfg, cap, st, out, ms)`` adds a model's own
     checks and timings, given the kernel's median."""
     from madsim_tpu_torch.engine import make_init, make_run_plain, make_run_while
@@ -844,7 +871,7 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
     if refs is not None:
         refs[key] = ref
     if device.type == "cuda":
-        iters = halt_counts(wl, cfg, cap, st, dup_rows, taps.get("latency"))
+        iters = halt_counts(wl, cfg, cap, st, dup_rows, taps.get("latency"), taps.get("retry"))
         counted = int(iters[:ks].sum())
         if counted != seed_steps:
             raise AssertionError(
@@ -855,7 +882,7 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
             # seed-steps; the seeds the plain step did not run count no
             # poll block, so the term stays a lower bound
             seed_steps, drops = int(iters.sum()), drops + int(iters[ks:].sum())
-        drain_check(wl, cfg, cap, st, dup_rows, taps.get("latency"))
+        drain_check(wl, cfg, cap, st, dup_rows, taps.get("latency"), taps.get("retry"))
         log("  drain kernel alone vs its plain version: step and ev_valid equal")
     k = min(cpu_sample, n_seeds)
     t = time.perf_counter()
@@ -2302,9 +2329,10 @@ GOLDEN_FIELDS = (
     "lat_drop",
 )
 GOLDEN_MET_SLOTS = 16
-# the banked fields the digest of a compacted run skips by name: the
-# causal columns (the port carries no pool index or retry columns)
-GOLDEN_SKIP = ("lam", "ev_parent", "ev_lam", "tl_seq", "tl_parent", "tl_lam")
+# the fields the digest skips by name that the port carries: the causal
+# and the retry columns (the port carries no pool index)
+GOLDEN_SKIP = ("lam", "ev_parent", "ev_lam", "tl_seq", "tl_parent", "tl_lam",
+               "rt_done", "rt_attempt", "rt_deadline")
 # phase 45 holds each golden library at this many seeds (the plain step
 # on the card on the first GOLDEN_PLAIN_SEEDS) under its scenario
 GOLDEN_HELD_SEEDS = 4096
@@ -3020,6 +3048,341 @@ def arrows_phase(device, results: list, paths: dict, kv: dict) -> None:
         f"{exact} exact arrows match the parent column (the JAX package's {ARROW_PINS})")
 
 
+# ---------------------------------------------------------------------------
+# phases 51-54: client retries (tools/retry_soak.py on the card)
+# ---------------------------------------------------------------------------
+
+# the soak's shapes: kvchaos-record army with two replicas and shardkv
+# army, both without their own chaos, pool 96, 3,000 steps, 16 ops; the
+# plain step on the card holds the first 256 seeds
+RETRY_N_OPS = 16
+RETRY_SEEDS, RETRY_PLAIN_SEEDS, RETRY_CPU_SAMPLE = 2048, 256, 8
+RETRY_STEPS = 3000
+RETRY_KV_KW = dict(pool_size=96, time_limit_ns=450_000_000, clog_backoff_max_ns=2_000_000_000)
+RETRY_SK_KW = dict(pool_size=96, time_limit_ns=600_000_000)
+RETRY_KV_LAT = dict(ops=RETRY_N_OPS, phases=3, phase_ns=1 << 27)
+RETRY_SK_LAT = dict(ops=RETRY_N_OPS)
+# certificate 2's seeds; certificate 3's sweep on the fixed hunt plan
+# (the JAX tool mutates it with explore, which the port has not yet:
+# ROADMAP A10), its plain seeds and the flagged seeds checked alone
+RETRY_AMP_SEEDS = 512
+NOIDEM_SEEDS, NOIDEM_PLAIN_SEEDS, NOIDEM_CHECKED = 1024, 128, 8
+# phase 54: the step goldens' kvchaos army scenario (pool 72) with the
+# soak's kvchaos policy on its army, every tap and the causal axis
+RETRY_OBS_KW = dict(pool_size=72, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+RETRY_OBS_LAT = dict(ops=10, phases=3, phase_ns=1 << 27)
+RETRY_OBS_SEEDS, RETRY_OBS_PLAIN_SEEDS, RETRY_OBS_STEPS = 4096, 512, 2000
+RETRY_OBS_TAPS = dict(causal=True, timeline_cap=256, cov_words=64, cov_hitcount=True)
+RETRY_OBS_DECODED = 8
+# what the JAX package gives on the CPU for the same runs
+# (tests/_torch_retry_pins.py 2048; its certificates 1 and 2 equal
+# tools/retry_soak.py's run and RETRY_r14.txt): per search (failing,
+# re-sends, give-ups, trace digest); phase 53's flagged count and trace
+# digest and first flagged seeds, its exclusivity counts, the shrunk
+# events, rounds, probes and trace; phase 54's try arrows, re-sent army
+# rows, trace digest and ring drops over seeds 0-7
+RETRY_PINS = {
+    "kv": (0, 8319, 0, "e6c48bc4b1211d6e"),
+    "sk": (0, 27281, 8234, "e7b7e2e0e232d323"),
+    "kv-quiet": (0, 0, 0, "b5ea70111c89e3eb"),
+    "kv-gray": (0, 2049, 0, "d699e350cdc34072"),
+    "noidem": (1024, "0d1c0472f2ac532e", [0, 1, 2, 3, 4, 5, 6, 7]),
+    "exclusive": (8, 0),
+    "shrink": ([(149768918, 25, 0, 0, 1), (122549377, 25, 1, 0, 1)], 4, 18,
+               "0x845cf52ef4d73a92"),
+    # the army's probes carry the plain op id, so no message arrow names
+    # an attempt (0); the re-sent army rows are timers in the rings
+    "obs": (0, 86, "e58659fb82771811", 827),
+}
+
+
+def retry_plans() -> dict:
+    """tools/retry_soak.py's plans (its kvchaos army quiet and under the
+    gray failure, its shardkv army plan) and phase 54's, with the port's
+    classes (tests/_torch_retry_pins.py ``retry_plans``)."""
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan, GrayFailure, RetryPolicy
+    from madsim_tpu_torch.models import kvchaos, shardkv
+
+    kv_pol = RetryPolicy(timeout_ns=50_000_000, max_attempts=3, backoff_base_ns=10_000_000,
+                         backoff_mult=2.0, jitter=0.5)
+    sk_pol = RetryPolicy(timeout_ns=8_000_000, max_attempts=3, backoff_base_ns=4_000_000,
+                         backoff_mult=2.0, jitter=0.25)
+    kv_army = kvchaos.client_army(n_ops=RETRY_N_OPS, t_min_ns=5_000_000, t_max_ns=280_000_000,
+                                  n_replicas=2, retry=kv_pol)
+    gray = GrayFailure(targets=(0, 3), n_links=1, mult_min=6, mult_max=12)
+
+    def sk(name):
+        return FaultPlan((shardkv.client_army(n_ops=RETRY_N_OPS, t_min_ns=5_000_000,
+                                              t_max_ns=280_000_000, retry=sk_pol),
+                          GrayFailure(targets=(0, 1), n_links=1, mult_min=8, mult_max=16)),
+                         name=name)
+
+    servers = tuple(range(5))
+    return {
+        "kv-quiet": FaultPlan((kv_army,), name="kv-retry-quiet"),
+        "kv-gray": FaultPlan((kv_army, gray), name="kv-retry-gray"),
+        "sk-clean": sk("sk-retry-clean"),
+        "sk-hunt": sk("sk-noidem-hunt"),
+        "kv-obs": FaultPlan((
+            kvchaos.client_army(n_ops=10, t_min_ns=5_000_000, t_max_ns=400_000_000,
+                                retry=kv_pol),
+            CrashStorm(targets=servers, n=1, t_min_ns=50_000_000, t_max_ns=200_000_000,
+                       down_min_ns=20_000_000, down_max_ns=80_000_000),
+            GrayFailure(targets=servers, n_links=1, mult_min=4, mult_max=8,
+                        t_min_ns=30_000_000, t_max_ns=150_000_000, dur_min_ns=50_000_000,
+                        dur_max_ns=150_000_000),
+        )),
+    }
+
+
+def retry_workloads() -> dict:
+    """The soak's workloads: kvchaos-record army (two replicas), shardkv
+    army clean and noidem, and phase 54's golden kvchaos army."""
+    from madsim_tpu_torch.models import make_kvchaos, make_shardkv
+
+    return {
+        "kv": make_kvchaos(writes=12, n_replicas=2, chaos=False, army=True, record=True),
+        "sk": make_shardkv(record=True, chaos=False, army=True),
+        "noidem": make_shardkv(record=True, chaos=False, army=True, bug="noidem"),
+        "obs": make_kvchaos(record=True, army=True, army_probes=2),
+    }
+
+
+def retry_invariants() -> dict:
+    """The soak's history invariants: the kvchaos floors, the shardkv
+    pair and the noidem hunt's exactly_once."""
+    from madsim_tpu_torch.check import exactly_once, read_your_writes, shard_coverage
+    from madsim_tpu_torch.check import stale_reads
+    from madsim_tpu_torch.models import shardkv
+
+    return {
+        "kv": lambda h: stale_reads(h) & read_your_writes(h),
+        "sk": lambda h: (exactly_once(h, shardkv.OP_ARMY_PUT)
+                         & shard_coverage(h, shardkv.OP_SHARD_OWN, shardkv.OP_SHARD_WRITE)),
+        "noidem": lambda h: exactly_once(h, shardkv.OP_ARMY_PUT),
+    }
+
+
+def retry_counts(rep) -> tuple:
+    """(failing, re-sends, give-ups, trace digest) of a search report."""
+    from madsim_tpu_torch.engine import MET_RETRY, MET_RETRY_GIVEUP
+
+    met = rep.met.astype(np.int64)
+    return (int(rep.failing_seeds.size), int(met[:, MET_RETRY].sum()),
+            int(met[:, MET_RETRY_GIVEUP].sum()), traces_digest(rep.traces))
+
+
+def retry_kernel(device, idx: str, key: str, wl, cfg, plan, lat, n_seeds: int, steps: int,
+                 plain_seeds: int, metrics: bool, results: list, paths: dict, extra: dict,
+                 card: str, taps: dict | None = None) -> dict:
+    """One retry library held as phases 4-15 under ``plan``'s policy
+    (the three columns against the plain step on the card on the first
+    ``plain_seeds`` seeds and a CPU sample), the kernel's ms beside the
+    same plan's without the policy (the compiled rows are the same)."""
+    from madsim_tpu_torch.engine import make_init, make_run_while
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    rt = plan.retry_spec()
+    taps = dict(taps or {}, latency=lat)
+    log(f"[{idx}] {key}: {cfg}, {n_seeds} seeds, make_run_while cap {steps}, plan "
+        f"{plan.name} ({plan.hash()}) with {rt}; metrics {metrics}, {taps}; the plain step "
+        f"on the card holds the first {plain_seeds} seeds")
+    off = {}
+
+    def extras(device, wl, cfg, cap, st, out, med):
+        seeds = np.arange(n_seeds, dtype=np.uint64)
+        st_off = make_init(wl, cfg, device=device, plan_slots=plan.slots, metrics=metrics,
+                           **taps)(seeds, plan.compile_batch(seeds, wl=wl))
+        run_off = make_run_while(wl, cfg, cap, metrics=metrics, **taps)
+        off["ms"] = time_ms(lambda: run_off(st_off), REPEATS, device)
+        if not out.rt_done.any() or out.rt_attempt.shape != (n_seeds, rt.n_ops):
+            raise AssertionError(f"{key}: no op saw its response under the policy")
+
+    r = kernel_phase(device, key, wl, cfg, n_seeds, steps, RETRY_CPU_SAMPLE, REPEATS,
+                     extras=extras, plan=plan, metrics=metrics, plain_seeds=plain_seeds,
+                     taps=dict(taps, retry=rt))
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"{key}: launches {r['launches']}, {r['drains']}; error {r['err']}")
+    results.append((key, f"make_run_fused/{key}/plan-{plan.name}/retry",
+                    f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+    paths.setdefault(key, {})[f"run_while_retry_{idx}"] = [r["launches"], r["drains"]]
+    extra.setdefault(key, {}).update({f"retry_off_ms_{idx}": statistics.median(off["ms"])})
+    log(f"  kernel median {r['ms']:.4f} ms with the policy, {statistics.median(off['ms']):.4f} "
+        f"without ({spread(off['ms'])}; this call, {card})")
+    return r
+
+
+def retry_clean_phase(device, results: list, paths: dict, extra: dict, card: str) -> None:
+    """Phase 51 (certificate 1): the clean models under retries, each held
+    as phases 4-15 and searched at the soak's shape with its history
+    invariant; the counts are the JAX package's."""
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    plans, wls, invs = retry_plans(), retry_workloads(), retry_invariants()
+    for idx, pin, cfg_kw, lat_kw, plan in (
+            ("51.1", "kv", RETRY_KV_KW, RETRY_KV_LAT, plans["kv-gray"]),
+            ("51.2", "sk", RETRY_SK_KW, RETRY_SK_LAT, plans["sk-clean"])):
+        wl, cfg, lat = wls[pin], EngineConfig(**cfg_kw), LatencySpec(**lat_kw)
+        key = kernel_model(wl).key
+        retry_kernel(device, idx, key, wl, cfg, plan, lat, RETRY_SEEDS, RETRY_STEPS,
+                     RETRY_PLAIN_SEEDS, True, results, paths, extra, card)
+        t = time.perf_counter()
+        rep, counts = path_launches(lambda: search_seeds(
+            wl, cfg, None, n_seeds=RETRY_SEEDS, max_steps=RETRY_STEPS, plan=plan, latency=lat,
+            metrics=True, require_halt=False, history_invariant=invs[pin], device=device))
+        search_ms = (time.perf_counter() - t) * 1e3
+        paths[key][f"search_retry_{idx}"] = run_drain(counts, key)
+        got = retry_counts(rep)
+        if got != RETRY_PINS[pin] or rep.overflowed.any() or rep.unhalted_seeds.size:
+            raise AssertionError(f"{idx}: (failing, re-sends, give-ups, traces) {got}, "
+                                 f"{int(rep.overflowed.sum())} overflowed; the JAX package's "
+                                 f"{RETRY_PINS[pin]}")
+        extra[key][f"retry_search_ms_{idx}"] = search_ms
+        log(f"[{idx}] search_seeds with the history invariant, {RETRY_SEEDS} seeds: launches "
+            f"{counts}; {got[0]} violations, {got[1]} re-sent attempts, {got[2]} give-ups, "
+            f"traces {got[3]} (the JAX package's); {search_ms:.1f} ms (host clock)")
+
+
+def retry_amplification_phase(device, paths: dict) -> None:
+    """Phase 52 (certificate 2): the kvchaos army quiet and under the gray
+    failure, 512 seeds each: the re-sends are the JAX package's and the
+    slow link at least doubles them."""
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    plans, wl = retry_plans(), retry_workloads()["kv"]
+    cfg, lat, key = EngineConfig(**RETRY_KV_KW), LatencySpec(**RETRY_KV_LAT), kernel_model(wl).key
+    ones = lambda v: np.ones(v["halted"].shape[0], bool)  # noqa: E731
+    got = {}
+    for name in ("kv-quiet", "kv-gray"):
+        rep, counts = path_launches(lambda: search_seeds(
+            wl, cfg, ones, n_seeds=RETRY_AMP_SEEDS, max_steps=RETRY_STEPS, plan=plans[name],
+            latency=lat, metrics=True, require_halt=False, device=device))
+        paths[key][f"amplification_{name}"] = run_drain(counts, key)
+        got[name] = retry_counts(rep)
+        if got[name] != RETRY_PINS[name]:
+            raise AssertionError(f"52 {name}: {got[name]}; the JAX package's {RETRY_PINS[name]}")
+    quiet, gray = got["kv-quiet"][1], got["kv-gray"][1]
+    if gray == 0 or gray < 2 * quiet:
+        raise AssertionError(f"52: gray failure {gray} re-sends against quiet {quiet}")
+    log(f"[52] retry amplification over {RETRY_AMP_SEEDS} seeds: quiet {quiet} re-sends, gray "
+        f"failure {gray} (the JAX package's); launches "
+        f"{paths[key]['amplification_kv-quiet']}, {paths[key]['amplification_kv-gray']}")
+
+
+def noidem_phase(device, results: list, paths: dict, extra: dict, card: str) -> None:
+    """Phase 53 (certificate 3 on the fixed hunt plan): the new library
+    shardkv-noidem-army-nochaos held as phases 4-15 on the first 128 of
+    1,024 seeds, then swept with exactly_once: the flagged seeds and
+    traces are the JAX package's; exactly_once catches each of the first
+    8 flagged seeds alone and shard_coverage none; the first shrinks
+    under the plan's policy to the JAX package's events, rounds, probes
+    and trace, and the shrunk plan replays twice to that trace and the
+    violation."""
+    from madsim_tpu_torch.chaos import shrink_plan
+    from madsim_tpu_torch.check import shard_coverage
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import shardkv
+
+    plan, wl = retry_plans()["sk-hunt"], retry_workloads()["noidem"]
+    inv = retry_invariants()["noidem"]
+    cfg, lat, key = EngineConfig(**RETRY_SK_KW), LatencySpec(**RETRY_SK_LAT), kernel_model(wl).key
+    rt = plan.retry_spec()
+    retry_kernel(device, "53", key, wl, cfg, plan, lat, NOIDEM_SEEDS, RETRY_STEPS,
+                 NOIDEM_PLAIN_SEEDS, False, results, paths, extra, card)
+    rep, counts = path_launches(lambda: search_seeds(
+        wl, cfg, None, n_seeds=NOIDEM_SEEDS, max_steps=RETRY_STEPS, plan=plan, latency=lat,
+        require_halt=False, history_invariant=inv, device=device))
+    paths[key]["sweep"] = run_drain(counts, key)
+    first = [int(x) for x in rep.failing_seeds[:NOIDEM_CHECKED]]
+    got = (int(rep.failing_seeds.size), traces_digest(rep.traces), first)
+    if got != RETRY_PINS["noidem"]:
+        raise AssertionError(f"53: (flagged, traces, first) {got}; the JAX package's "
+                             f"{RETRY_PINS['noidem']}")
+    box = {}
+
+    def both(h):
+        box["cov"] = shard_coverage(h, shardkv.OP_SHARD_OWN, shardkv.OP_SHARD_WRITE)
+        return inv(h)
+
+    eo = cov = 0
+    for seed in first:
+        one = search_seeds(wl, cfg, None, seeds=np.asarray([seed], np.uint64),
+                           max_steps=RETRY_STEPS, plan=plan, history_invariant=both, latency=lat,
+                           require_halt=False, retry=rt, device=device)
+        eo += int(not bool(one.ok[0]))
+        cov += int(not bool(box["cov"][0]))
+    if (eo, cov) != RETRY_PINS["exclusive"]:
+        raise AssertionError(f"53: exactly_once catches {eo}, shard_coverage {cov}")
+    log(f"[53] sweep of {NOIDEM_SEEDS} seeds: launches {counts}; {got[0]} flagged, traces "
+        f"{got[1]}, the first {first} (the JAX package's); alone, exactly_once catches {eo} "
+        f"of them and shard_coverage {cov}")
+    t = time.perf_counter()
+    res, counts = path_launches(lambda: shrink_plan(
+        wl, cfg, first[0], plan, history_invariant=inv, max_steps=RETRY_STEPS, latency=lat,
+        device=device))
+    shrink_ms = (time.perf_counter() - t) * 1e3
+    paths[key]["shrink"] = run_drain(counts, key)
+    shrunk = ([tuple(vars(e).values()) for e in res.events], res.rounds, res.tested,
+              f"{res.trace:#x}")
+    if shrunk != RETRY_PINS["shrink"]:
+        raise AssertionError(f"53: shrunk to {shrunk}; the JAX package's {RETRY_PINS['shrink']}")
+    for _ in range(2):
+        one = search_seeds(wl, cfg, None, seeds=np.asarray([first[0]], np.uint64),
+                           max_steps=RETRY_STEPS, plan=res.plan, history_invariant=inv,
+                           latency=lat, require_halt=False, retry=rt, device=device)
+        if bool(one.ok[0]) or int(one.traces[0]) != res.trace:
+            raise AssertionError("53: the shrunk plan does not replay its violation and trace")
+    extra[key].update(shrink_ms=shrink_ms)
+    log(f"[53] shrink_plan of seed {first[0]} under the plan's policy: {len(res.events)} of "
+        f"{len(plan.compile(first[0]))} events in {res.rounds} rounds, {res.tested} probes "
+        f"(launches {counts}, {shrink_ms:.1f} ms host clock), trace {res.trace:#x} (the JAX "
+        f"package's); replayed twice with the spec: the same trace and the violation")
+
+
+def retry_obs_phase(device, results: list, paths: dict, extra: dict, card: str) -> None:
+    """Phase 54: the policy with every tap and the causal axis on the OBS
+    build of kvchaos-record-army (pool 72): the step goldens' army
+    scenario with the soak's kvchaos policy, held as phases 4-15 on the
+    first 512 seeds (every column: the bitmap, hit counts, ring, causal
+    and retry columns); seeds 0-7 decoded, their Perfetto documents'
+    try arrows and re-sent army rows the JAX package's counts."""
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec, make_init, make_run_while
+    from madsim_tpu_torch.engine import retry_token_attempt
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.obs import decode_timeline, to_perfetto
+
+    plan, wl = retry_plans()["kv-obs"], retry_workloads()["obs"]
+    cfg, lat, key = EngineConfig(**RETRY_OBS_KW), LatencySpec(**RETRY_OBS_LAT), kernel_model(wl).key
+    rt = plan.retry_spec()
+    retry_kernel(device, "54", key, wl, cfg, plan, lat, RETRY_OBS_SEEDS, RETRY_OBS_STEPS,
+                 RETRY_OBS_PLAIN_SEEDS, True, results, paths, extra, card, taps=RETRY_OBS_TAPS)
+    seeds = np.arange(RETRY_OBS_DECODED, dtype=np.uint64)
+    taps = dict(RETRY_OBS_TAPS, metrics=True, latency=lat, retry=rt)
+    out, counts = path_launches(lambda: make_run_while(wl, cfg, RETRY_OBS_STEPS, **taps)(
+        make_init(wl, cfg, device=device, plan_slots=plan.slots, **taps)(
+            seeds, plan.compile_batch(seeds, wl=wl))))
+    paths[key]["retry_capture"] = run_drain(counts, key)
+    arrows = retried = 0
+    for s in range(RETRY_OBS_DECODED):
+        ev = decode_timeline(out, wl, s)
+        doc = to_perfetto(ev, name=wl.name, seed=s)
+        arrows += sum(1 for row in doc["traceEvents"] if row.get("cat") == "flow"
+                      and row.get("ph") == "s" and " try" in row["name"])
+        retried += sum(1 for e in ev if e.kind == rt.kind and e.node == rt.node
+                       and retry_token_attempt(int(e.args[0])) > 0)
+    got = (arrows, retried, traces_digest(out.trace.cpu().numpy().view(np.uint64)),
+           int(out.tl_drop.sum()))
+    if got != RETRY_PINS["obs"]:
+        raise AssertionError(f"54: (try arrows, re-sent rows, traces, ring drops) {got}; the "
+                             f"JAX package's {RETRY_PINS['obs']}")
+    log(f"[54] seeds 0-{RETRY_OBS_DECODED - 1} captured with {taps}: launches {counts}; "
+        f"{arrows} try arrows and {retried} re-sent army rows in the Perfetto documents and "
+        f"rings ({got[3]} rows past the rings), traces {got[2]} (the JAX package's)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3147,6 +3510,14 @@ def main() -> int:
     lap("phase 49")
     arrows_phase(device, results, paths, kv)
     lap("phase 50")
+    retry_clean_phase(device, results, paths, extra, card)
+    lap("phase 51")
+    retry_amplification_phase(device, paths)
+    lap("phase 52")
+    noidem_phase(device, results, paths, extra, card)
+    lap("phase 53")
+    retry_obs_phase(device, results, paths, extra, card)
+    lap("phase 54")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
                     shapes.get((key, r["pool"])))

@@ -13,8 +13,10 @@
   plan)`` to a locally minimal event subset, each round one batched
   run, returned as a replayable ``LiteralPlan``.
 
-Not here yet: ``RetryPolicy`` (with the engine's retry axis; building
-one raises), and the asyncio runtime's ``Nemesis``.
+A ``ClientArmy`` may carry a ``RetryPolicy``: the engine then runs its
+timeout and backoff re-sends (``FaultPlan.retry_spec()`` is the build
+parameter, which ``search_seeds`` and ``shrink_plan`` derive from the
+plan). Not here yet: the asyncio runtime's ``Nemesis``.
 """
 
 from .plan import (  # noqa: F401

@@ -3,10 +3,10 @@
 Port of ``madsim_tpu/chaos/plan.py``: the fault specs, ``FaultPlan``
 and ``LiteralPlan``, compiled with numpy on the host into the engine's
 pre-seeded pool rows (``engine.make_init(plan_slots=...)``), the
-open-loop client load of a :class:`ClientArmy` among them. Compiles and
-hashes equal the JAX package's. Not here yet: ``RetryPolicy`` (it waits
-for the engine's retry axis, ROADMAP A8) and
-``compile_batch(device=True)`` (ROADMAP A10, explore).
+open-loop client load of a :class:`ClientArmy` among them, with its
+optional :class:`RetryPolicy`. Compiles and hashes equal the JAX
+package's. Not here yet: ``compile_batch(device=True)`` (ROADMAP A10,
+explore).
 
 The reference ecosystem hand-rolls chaos inside each test (a kill here,
 a clog there — madsim's tests and every model in madsim_tpu/models did
@@ -63,6 +63,7 @@ from ..engine.core import (
     POOL_TILE_CANDIDATES,
     SLOW_MULT_MAX,
     PlanRows,
+    RetrySpec,
     pack_slow_arg,
     unpack_slow_arg,
 )
@@ -790,9 +791,19 @@ class DiskFault:
 @dataclasses.dataclass(frozen=True)
 class RetryPolicy:
     """A client-side timeout and backoff retry policy for a
-    :class:`ClientArmy`: the reference's fields, so that plans hash
-    alike. The engine's retry axis is not ported yet (ROADMAP A8
-    ``retry``), so building one raises."""
+    :class:`ClientArmy`, which the engine itself runs: each delivered op
+    arms a response-deadline timer in the pool, and when it expires the
+    op is offered again with the next attempt id (packed into the op
+    token) unless a response was recorded meanwhile. ``max_attempts``
+    counts deliveries; the backoff before attempt ``a >= 1`` is
+    ``backoff_base_ns * backoff_mult**(a-1)``, jittered by a
+    ``PURPOSE_RETRY`` draw scaled to ``[0, jitter]`` of the backoff, so
+    every re-send time is a function of the seed.
+
+    Attach with ``ClientArmy(..., retry=RetryPolicy(timeout_ns=...))``
+    (the models' ``client_army`` helpers forward ``retry=``), then build
+    the engine with ``retry=plan.retry_spec()``.
+    """
 
     timeout_ns: int
     max_attempts: int = 3
@@ -801,9 +812,13 @@ class RetryPolicy:
     jitter: float = 0.0
 
     def __post_init__(self):
-        raise NotImplementedError(
-            "RetryPolicy needs the engine's client-retry axis, which the "
-            "torch port does not have yet (ROADMAP A8 retry)"
+        # the engine spec holds the validation; the army's fields are
+        # stubbed with valid values so a bad policy fails here
+        RetrySpec(
+            kind=FIRST_USER_KIND, node=0, op_base=0, n_ops=1,
+            timeout_ns=self.timeout_ns, max_attempts=self.max_attempts,
+            backoff_base_ns=self.backoff_base_ns,
+            backoff_mult=self.backoff_mult, jitter=self.jitter,
         )
 
 
@@ -832,7 +847,10 @@ class ClientArmy:
     t_max_ns: int = 400_000_000
     arg_hi: int = 0  # args[1] drawn uniform in [0, arg_hi); 0 = constant 0
     op_base: int = 0  # first op id (several armies share the columns)
-    retry: "RetryPolicy | None" = None  # a RetryPolicy raises until A8 retry
+    # the timeout and backoff retry policy; None is the fire-and-forget
+    # army. The compiled rows are the same either way (attempt-0 tokens
+    # are plain op ids): the policy changes only the engine build
+    retry: "RetryPolicy | None" = None
 
     def __post_init__(self):
         if self.node < 0:
@@ -850,11 +868,30 @@ class ClientArmy:
         if self.op_base < 0:
             raise ValueError(f"op_base must be >= 0, got {self.op_base}")
         if self.retry is not None:
-            raise NotImplementedError(
-                "ClientArmy.retry needs the engine's client-retry axis, which "
-                "the torch port does not have yet (ROADMAP A8 retry)"
-            )
+            if not isinstance(self.retry, RetryPolicy):
+                raise TypeError(
+                    f"ClientArmy.retry must be a RetryPolicy or None, "
+                    f"got {type(self.retry).__name__}"
+                )
+            # the engine spec's validations (the op range against the
+            # token's op field) fail at plan time
+            self.retry_spec()
         _check_window(self.t_min_ns, self.t_max_ns, "arrival")
+
+    def retry_spec(self) -> "RetrySpec":
+        """The engine-side spec of this army's retry policy
+        (``engine.make_run_while(retry=...)``). Raises when no policy is
+        attached; :meth:`FaultPlan.retry_spec` maps such a plan to None."""
+        if self.retry is None:
+            raise ValueError("this ClientArmy has no RetryPolicy attached")
+        r = self.retry
+        return RetrySpec(
+            kind=self.kind, node=self.node, op_base=self.op_base,
+            n_ops=self.n_ops, timeout_ns=r.timeout_ns,
+            max_attempts=r.max_attempts,
+            backoff_base_ns=r.backoff_base_ns,
+            backoff_mult=r.backoff_mult, jitter=r.jitter,
+        )
 
     @property
     def targets(self) -> tuple:
@@ -993,6 +1030,25 @@ class FaultPlan(_PlanBase):
 
     def uses_dup(self) -> bool:
         return any(isinstance(s, Duplicate) for s in self.specs)
+
+    def retry_spec(self) -> "RetrySpec | None":
+        """The engine retry build parameter this plan implies: the
+        policied ClientArmy's :class:`RetrySpec`, or None when no army
+        carries a policy. The engine tracks one op range, so two
+        policied armies in one plan are refused."""
+        specs = [
+            s for s in self.specs
+            if isinstance(s, ClientArmy) and s.retry is not None
+        ]
+        if not specs:
+            return None
+        if len(specs) > 1:
+            raise ValueError(
+                f"plan {self.name!r} attaches RetryPolicy to "
+                f"{len(specs)} client armies; the engine tracks one "
+                f"retried op range per build"
+            )
+        return specs[0].retry_spec()
 
     def hash(self) -> str:
         """Stable hex id of the plan (EngineConfig.hash analog): the

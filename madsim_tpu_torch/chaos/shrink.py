@@ -92,6 +92,8 @@ def shrink_plan(
     max_steps: int = 1000,
     require_halt: bool = False,
     device=None,
+    latency=None,
+    retry=None,
 ) -> ShrinkResult:
     """ddmin a failing ``(seed, plan)`` to a minimal fault-event subset.
 
@@ -107,6 +109,13 @@ def shrink_plan(
 
     ``device`` is where the runs go, the card unless the caller asks
     for the CPU. A plan with duplication runs with ``dup_rows``.
+    ``latency`` (an ``engine.LatencySpec``) runs the tail-latency tap,
+    for an invariant that judges the sketch. ``retry`` (an
+    ``engine.RetrySpec``) runs the client-retry timers; when None it is
+    the plan's own ``retry_spec()``, derived once, so every probe and
+    the replay of the shrunk ``LiteralPlan`` (which carries no policy:
+    pass the spec to the replay) run under the policy that found the
+    violation.
 
     Raises ValueError if the full plan does not fail on ``seed`` (a
     shrink needs a failing input).
@@ -130,8 +139,11 @@ def shrink_plan(
         np.full((b,), seed, np.uint64)
     )
     dup = plan.uses_dup()
-    init = make_init(wl, cfg, device=resolve_device(device), plan_slots=p)
-    run = make_run_while(wl, cfg, max_steps, dup_rows=dup)
+    if retry is None and hasattr(plan, "retry_spec"):
+        retry = plan.retry_spec()
+    init = make_init(wl, cfg, device=resolve_device(device), plan_slots=p, latency=latency,
+                     retry=retry)
+    run = make_run_while(wl, cfg, max_steps, dup_rows=dup, latency=latency, retry=retry)
     seeds_b = np.full((b,), seed, np.uint64)
     tested = 0
 

@@ -150,6 +150,25 @@
 // dispatch, engine kinds too, taps the (depth, jump) feature under tag 7
 // right after the kind-by-phase tap. Nothing here feeds back into the
 // trajectory.
+//
+// Client retries. A model with latency markers (L > 0) also carries the
+// client-retry timers of a RetrySpec, switched on by a runtime word (the
+// policy's op count, engine config word 16; its fields and its two
+// backoff tables follow) and compiled out of every L == 0 kernel. An
+// army row, a user dispatch of the policy's kind at its node whose token
+// names one of its ops, is suppressed when its op already has its
+// response (rt_done, read before this dispatch's markers) or when it
+// carries the give-up attempt: it still folds the trace, the clock, the
+// Lamport clock, the ring and the tag-7 tap, but its handler does not
+// run, so it writes no state, emits, records, marks or syncs and taps
+// no user feature. A delivered army row arms one re-send: a timer row
+// placed after every emit row that has a draw (Seed::KT), the next
+// attempt's token at timeout + backoff + jitter, the jitter a
+// PURPOSE_RETRY draw taken only for such a row. A user dispatch's
+// lat_end markers set rt_done. The three per-op columns stay in device
+// memory, in the seed's rows of the output, which the block copies from
+// the input once (copy_retry), as the latency columns are; the leader
+// touches them once per army dispatch.
 #pragma once
 
 #include <stdint.h>
@@ -191,11 +210,13 @@ constexpr int N_METRICS = 18;
 constexpr int MET_SENT = 0, MET_DELIVERED = 1, MET_LOST = 2, MET_DEAD_DROP = 3,
               MET_DUP = 4, MET_CRASH = 5, MET_RESTART = 6, MET_PAUSE = 7,
               MET_CLOG_BLOCK = 8, MET_TIMER = 9, MET_RECORD = 10, MET_RNG = 11,
-              MET_HALT_CODE = 12, MET_SYNC = 13, MET_SYNC_LOST = 14, MET_TORN = 15;
+              MET_HALT_CODE = 12, MET_SYNC = 13, MET_SYNC_LOST = 14, MET_TORN = 15,
+              MET_RETRY = 16, MET_RETRY_GIVEUP = 17;
 constexpr int32_t HALT_RUNNING = 0, HALT_DONE = 1, HALT_TIME_LIMIT = 2, HALT_IDLE = 3;
 
 constexpr uint32_t PURPOSE_POLL_COST = 0;
 constexpr uint32_t PURPOSE_TORN = 2;
+constexpr uint32_t PURPOSE_RETRY = 3;
 constexpr uint32_t PURPOSE_LATENCY = 8;
 constexpr uint32_t PURPOSE_DUP = 64;
 constexpr uint32_t PURPOSE_USER = 128;
@@ -212,10 +233,18 @@ constexpr int32_t OP_WRITE = 1, OP_READ = 2, OP_USER = 16;
 constexpr uint64_t kTracePrime = 0x100000001B3ull;
 constexpr uint64_t kTraceMix = 0x9E3779B97F4A7C15ull;
 
+// client-retry op tokens (engine/core.py retry_token): the attempt id in
+// bits 26..29 of args[0], the op id below
+constexpr int32_t kRetryShift = 26;
+constexpr int32_t kRetryAttemptMax = 15;
+constexpr int32_t kRetryOpMask = (int32_t(1) << kRetryShift) - 1;
+
 // the engine's words in front of the model's in the config array: the
 // config's nine, the run's three observability widths, the latency
-// tap's three, then the causal axis
-constexpr int kEngineWords = 16;
+// tap's three, the causal axis, then the retry policy's six words and
+// its two tables of kRetryAttemptMax + 1 entries
+constexpr int kRetryWord = 16;
+constexpr int kEngineWords = kRetryWord + 6 + 2 * (kRetryAttemptMax + 1);
 
 // the latency ladder (engine/core.py LAT_EDGES_NS): bucket b of a
 // latency d is the count of these edges at or below d, 0..63
@@ -252,6 +281,32 @@ struct EngineConfig {
   int64_t lat_phase_ns;  // their width
   bool causal;           // the causal columns (OBS kernels only)
 };
+
+// A RetrySpec resolved on the host (engine/fused.py retry_words): n_ops
+// == 0 switches the timers off. boff[a] is the backoff before delivering
+// attempt a, bjit[a] the largest jitter addend (both at most 2^31 - 1, so
+// bjit * a uint32 draw fits an int64), zero past max_attempts.
+struct RetryCfg {
+  int32_t n_ops, kind, node, op_base, max_attempts;
+  int64_t timeout_ns;
+  int64_t boff[kRetryAttemptMax + 1];
+  int64_t bjit[kRetryAttemptMax + 1];
+};
+
+inline RetryCfg retry_config(const int64_t* c) {
+  RetryCfg r;
+  r.n_ops = static_cast<int32_t>(c[0]);
+  r.kind = static_cast<int32_t>(c[1]);
+  r.node = static_cast<int32_t>(c[2]);
+  r.op_base = static_cast<int32_t>(c[3]);
+  r.max_attempts = static_cast<int32_t>(c[4]);
+  r.timeout_ns = c[5];
+  for (int a = 0; a <= kRetryAttemptMax; a++) {
+    r.boff[a] = c[6 + a];
+    r.bjit[a] = c[6 + kRetryAttemptMax + 1 + a];
+  }
+  return r;
+}
 
 // uint32 span of a [lo, hi) draw, as Draw._reduce: 0 draws from span 1
 MADSIM_HDI uint32_t draw_span(int64_t lo, int64_t hi) {
@@ -290,7 +345,8 @@ inline EngineConfig engine_config(const int64_t* c) {
 // storage columns only for a SYNC model, met only with metrics, the
 // coverage columns only with coverage, the ring's (with ev_emit) only
 // with a ring, the latency columns only with the tap on a model with
-// markers and the causal columns only with the axis on.
+// markers, the causal columns only with the axis on and the retry
+// columns only with a policy on a model with markers.
 struct Fields {
   int64_t* seed;       // (S,) uint64 bits
   int64_t* now;        // (S,)
@@ -346,9 +402,12 @@ struct Fields {
   int32_t* tl_seq;     // (S,T) the captured dispatch's seq
   int32_t* tl_parent;  // (S,T) its parent's seq
   int64_t* tl_lam;     // (S,T) uint32 values: its folded clock
+  uint8_t* rt_done;    // (S,CR) each op's response seen
+  int32_t* rt_attempt; // (S,CR) its last delivered attempt
+  int64_t* rt_deadline;  // (S,CR) its armed deadline
 };
 
-constexpr int kFieldPointers = 54;
+constexpr int kFieldPointers = 57;
 
 inline Fields fields(void* const* p) {
   Fields f;
@@ -406,6 +465,9 @@ inline Fields fields(void* const* p) {
   f.tl_seq = static_cast<int32_t*>(p[51]);
   f.tl_parent = static_cast<int32_t*>(p[52]);
   f.tl_lam = static_cast<int64_t*>(p[53]);
+  f.rt_done = static_cast<uint8_t*>(p[54]);
+  f.rt_attempt = static_cast<int32_t*>(p[55]);
+  f.rt_deadline = static_cast<int64_t*>(p[56]);
   return f;
 }
 
@@ -423,6 +485,7 @@ struct RunArgs {
   int64_t budget;
   int32_t stop_at_halt;  // 1: a seed stops at its halt; 0: it drains
   EngineConfig cfg;
+  RetryCfg rt;  // read only by the kernels of a model with markers
 };
 
 constexpr int kRunPointers = 2 * kFieldPointers + 4;
@@ -442,6 +505,7 @@ inline RunArgs run_args(void* const* p, const int64_t* c, int64_t n_seeds,
   a.budget = budget;
   a.stop_at_halt = stop_at_halt;
   a.cfg = engine_config(c);
+  a.rt = retry_config(c + kRetryWord);
   return a;
 }
 
@@ -575,6 +639,18 @@ struct LatOut {
 };
 template <>
 struct LatOut<0> {};
+
+// where a seed's retry books are: its rows of the output, and the run's
+// policy (n_ops == 0: off); nothing when the model has no markers
+template <int L>
+struct RetryOut {
+  uint8_t* done;      // (CR,)
+  int32_t* attempt;   // (CR,)
+  int64_t* deadline;  // (CR,)
+  const RetryCfg* cfg;
+};
+template <>
+struct RetryOut<0> {};
 
 // the ladder bucket of a latency: the count of edges at or below it
 MADSIM_HDI int32_t lat_bucket(int64_t d) {
@@ -897,13 +973,15 @@ struct Seed : SeedHistory<M::R>, SeedStorage<M::N, M::U, SyncOf<M>::value>, Seed
   static constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K;
   // emit rows with a draw: the user rows, the restart row, the shadows
   static constexpr int KT = K + 1 + DupRows<M>::n;
+  // the re-send row a model with markers may place after them (no draw)
+  static constexpr int RT = LatOf<M>::n > 0 ? 1 : 0;
   int64_t ev_time[E];
   uint64_t seed;
   int64_t now;
   int64_t halt_time;
   uint64_t trace;
   int64_t msg_count;
-  Emit<A, W> em[K + 1];
+  Emit<A, W> em[K + 1 + RT];
   uint32_t ev_meta[E];
   int32_t ev_epoch[E];
   int32_t ev_args[E * A];
@@ -1331,6 +1409,21 @@ MADSIM_HD void copy_latency(const Fields& in, const Fields& out, const EngineCon
   }
 }
 
+// Copy the block's retry books, seeds [first, first + nb), from the input
+// to the output, as copy_latency does; the leader then updates the output
+// in place. Nothing without a policy or without markers.
+template <class M>
+MADSIM_HD void copy_retry(const Fields& in, const Fields& out, const RetryCfg& r,
+                          int64_t first, int nb, int tid, int nt) {
+  if constexpr (LatOf<M>::n > 0) {
+    if (r.n_ops <= 0) return;
+    const int64_t ops = static_cast<int64_t>(nb) * r.n_ops, at = first * r.n_ops;
+    copy_bytes(out.rt_done + at, in.rt_done + at, ops, tid, nt);
+    copy_bytes(out.rt_attempt + at, in.rt_attempt + at, ops * 4, tid, nt);
+    copy_bytes(out.rt_deadline + at, in.rt_deadline + at, ops * 8, tid, nt);
+  }
+}
+
 // Append a user dispatch's valid record rows at hist_count, hist_count +
 // 1, ...: the row is [op, key, arg, client = dst, ok] and the time the
 // dispatch clock `now` (without the node's skew). Rows past the capacity
@@ -1457,11 +1550,12 @@ MADSIM_HDI void cov_taps(const SeedObs& o, const int32_t* node_state, int32_t ki
   if (in_range) o.cov_last[dst_c] = kind;
 }
 
-// zero the emit rows, row j by lane j mod G
+// zero the emit rows (the re-send row too), row j by lane j mod G
 template <class M, int G>
 MADSIM_HDI void clear_rows(const Lanes<G>& g, Emit<M::A, M::W>* em) {
+  constexpr int rows = M::K + 1 + (LatOf<M>::n > 0 ? 1 : 0);
   g.each([&](int l) {
-    for (int j = l; j <= M::K; j += G) em[j].clear();
+    for (int j = l; j < rows; j += G) em[j].clear();
   });
 }
 
@@ -1470,21 +1564,28 @@ MADSIM_HDI void clear_rows(const Lanes<G>& g, Emit<M::A, M::W>* em) {
 // then the j-th surviving emit into the j-th free slot, its rank from a
 // ballot and its slot from the free bits. Rows past the restart row are
 // the shadow rows: user row j - K - 1 again, while `dup` is set and it
-// is a send. The lanes zero their rows for the next dispatch; the
-// leader marks the slots taken and counts sends and overflow. With the
-// causal axis every placed row's parent is the dispatch `seq` and its
-// clock `lam_new`.
+// is a send; after those, a model with markers has the re-send row (a
+// timer, so it reads no draw). The lanes zero their rows for the next
+// dispatch; the leader marks the slots taken and counts sends and
+// overflow. With the causal axis every placed row's parent is the
+// dispatch `seq` and its clock `lam_new`.
 template <class M, int E, int G, bool MET, bool OBS>
 MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
                            const EngineConfig& c, int64_t now, int64_t now_after,
                            int32_t dst, bool in_range, int dst_c, const SeedObs& o,
                            [[maybe_unused]] int32_t seq, [[maybe_unused]] uint32_t lam_new) {
   constexpr int N = M::N, A = M::A, W = M::W, KR = M::K + 1, KT = Seed<M, E, MET>::KT;
+  constexpr int RT = Seed<M, E, MET>::RT, KE = KT + RT;
   using B = PoolBits<E>;
-  // row j's emit: a shadow row reads its user row
-  auto row = [&](int j) -> const Emit<A, W>& { return s.em[j < KR ? j : j - KR]; };
+  // row j's emit: a shadow row reads its user row, the re-send row its own
+  auto row = [&](int j) -> const Emit<A, W>& {
+    if constexpr (RT > 0) {
+      if (j == KT) return s.em[KR];
+    }
+    return s.em[j < KR ? j : j - KR];
+  };
   int kept = 0, sends = 0, lost_n = 0, dead_n = 0, dup_n = 0;
-  for (int j0 = 0; j0 < KT; j0 += G) {
+  for (int j0 = 0; j0 < KE; j0 += G) {
     PerLane<bool, G> keep, sent, lost, dead;
     PerLane<int64_t, G> when;
     g.each([&](int l) {
@@ -1494,9 +1595,11 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
       dead[l] = false;
       when[l] = 0;
       const int j = j0 + l;
-      if (j >= KT) return;
+      if (j >= KE) return;
       const Emit<A, W>& e = row(j);
-      if (!e.valid || (j >= KR && !(e.send && s.dup))) return;
+      bool shadow = j >= KR;
+      if constexpr (RT > 0) shadow = shadow && j < KT;
+      if (!e.valid || (shadow && !(e.send && s.dup))) return;
       const bool em_in_range = e.dst >= 0 && e.dst < N;
       const int em_c = clampi(e.dst, 0, N - 1);
       if (e.send) {
@@ -1519,9 +1622,16 @@ MADSIM_HD void place_emits(const Lanes<G>& g, Seed<M, E, MET>& s,
     if constexpr (MET) {
       lost_n += popc32(g.ballot(lost));
       dead_n += popc32(g.ballot(dead));
-      // the lanes of this round that hold shadow rows (j >= KR)
+      // the lanes of this round that hold shadow rows (KR <= j < KT)
       const int first_dup = KR > j0 ? KR - j0 : 0;
-      if (first_dup < G) dup_n += popc32(ballot >> first_dup);
+      if (first_dup < G) {
+        uint32_t dups = ballot >> first_dup;
+        if constexpr (RT > 0) {
+          const int rt_lane = KT - j0;  // the re-send row's lane, if this round's
+          if (rt_lane >= first_dup && rt_lane < G) dups &= ~(1u << (rt_lane - first_dup));
+        }
+        dup_n += popc32(dups);
+      }
     }
     g.each([&](int l) {
       if (!keep[l]) return;
@@ -1575,7 +1685,8 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols,
                            const HistOut<M::R>& ho, const SeedObs& o,
-                           [[maybe_unused]] const LatOut<LatOf<M>::n>& lo) {
+                           [[maybe_unused]] const LatOut<LatOf<M>::n>& lo,
+                           [[maybe_unused]] const RetryOut<LatOf<M>::n>& ro) {
   constexpr int N = M::N, U = M::U, A = M::A, W = M::W, K = M::K, H = M::H;
   constexpr int L = LatOf<M>::n;
   constexpr bool SYNC = SyncOf<M>::value;
@@ -1693,6 +1804,26 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
 
   if (dispatch) {
     if (g.leader()) {
+      // the client-retry decode, with a policy on: an army row delivers
+      // unless its op has its response (read before this dispatch's
+      // markers) or it carries the give-up attempt; a suppressed row
+      // runs no handler. Always false for a model without markers
+      bool suppress = false;
+      [[maybe_unused]] bool is_army = false, arm = false, done_i = false;
+      [[maybe_unused]] int32_t rt_idx = 0, rt_att = 0;
+      if constexpr (L > 0) {
+        const RetryCfg& rc = *ro.cfg;
+        if (rc.n_ops > 0 && !is_engine) {
+          rt_idx = (a0 & kRetryOpMask) - rc.op_base;
+          rt_att = (a0 >> kRetryShift) & kRetryAttemptMax;
+          is_army = kind == rc.kind && dst == rc.node && rt_idx >= 0 && rt_idx < rc.n_ops;
+          if (is_army) {
+            done_i = ro.done[rt_idx] != 0;
+            arm = !done_i && rt_att < rc.max_attempts;
+            suppress = !arm;
+          }
+        }
+      }
       // the handler's history records and latency markers, and the ops
       // the markers completed (the coverage taps read them too)
       Rec recs[M::R > 0 ? M::R : 1];
@@ -1706,7 +1837,7 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
           lat_on[j] = false;
         }
       }
-      if (!is_engine) {
+      if (!is_engine && !suppress) {
         // user dispatch implies a live, in-range node
         int32_t* row = s.node_state + dst_c * U;
         for (int u = 0; u < U; u++) s.new_row[u] = row[u];
@@ -1858,19 +1989,66 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
           }
         }
       }
+      if constexpr (L > 0) {
+        const RetryCfg& rc = *ro.cfg;
+        if (rc.n_ops > 0) {
+          // the books: an op this user dispatch marked responded (a
+          // lat_end marker) is done
+          if (!is_engine && !suppress) {
+            for (int j = 0; j < L; j++) {
+              const int32_t x = lats[j].op - rc.op_base;
+              if (lats[j].valid && lats[j].phase == 1 && x >= 0 && x < rc.n_ops) ro.done[x] = 1;
+            }
+          }
+          if (arm) {
+            // the re-send: the next attempt's token, a timer at timeout
+            // + backoff + jitter (int64: bjit < 2^31, the draw < 2^32),
+            // and the armed op's attempt and deadline
+            const int32_t next = rt_att + 1;
+            int64_t boff = 0, bjit = 0;
+            for (int a = 1; a <= kRetryAttemptMax; a++) {
+              if (next == a) {
+                boff = rc.boff[a];
+                bjit = rc.bjit[a];
+              }
+            }
+            uint32_t x0, x1;
+            threefry2x32(k0, k1, step, PURPOSE_RETRY, &x0, &x1);
+            const int64_t delay = rc.timeout_ns + boff + ((bjit * static_cast<int64_t>(x0)) >> 32);
+            ro.attempt[rt_idx] = rt_att;
+            ro.deadline[rt_idx] = now_after + delay;
+            Emit<A, W>& e = s.em[K + 1];
+            e.after(true, delay, rc.kind, rc.node, (a0 & kRetryOpMask) | (next << kRetryShift),
+                    a1);
+            for (int j = 2; j < A; j++) e.args[j] = args[j];
+          }
+        }
+      }
       if constexpr (OBS) {
         if (o.causal && in_range) o.lam[dst_c] = lam_new;
-        if (o.cw > 0)
-          cov_taps<M>(o, s.node_state, kind, dst, src, is_engine, in_range, now,
-                      o.causal ? causal_feature(lam_prev, lam_new, evlam_i) : 0u, recs,
-                      lat_f, lat_on);
+        if (o.cw > 0) {
+          const uint32_t causal_f = o.causal ? causal_feature(lam_prev, lam_new, evlam_i) : 0u;
+          if (suppress) {
+            // a suppressed row taps no user feature, only the causal one
+            if (o.causal) cov_tap(o, causal_f);
+          } else {
+            cov_taps<M>(o, s.node_state, kind, dst, src, is_engine, in_range, now, causal_f,
+                        recs, lat_f, lat_on);
+          }
+        }
       }
       if constexpr (MET) {
         s.met[MET_DELIVERED] += is_msg;
         s.met[MET_CRASH] += kind == KIND_KILL;
         s.met[MET_RESTART] += kind == KIND_RESTART;
         s.met[MET_PAUSE] += kind == KIND_PAUSE;
-        s.met[MET_TIMER] += !is_engine && !is_msg;
+        s.met[MET_TIMER] += !is_engine && !is_msg && !suppress;
+        if constexpr (L > 0) {
+          // a re-delivery is a delivered army row past attempt 0; a
+          // give-up the sentinel popping with its op unanswered
+          s.met[MET_RETRY] += arm && rt_att > 0;
+          s.met[MET_RETRY_GIVEUP] += is_army && !done_i && rt_att == ro.cfg->max_attempts;
+        }
       }
     }
     g.sync();
@@ -1885,10 +2063,13 @@ MADSIM_HD bool engine_step(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
     if (halted && !was_halted) s.halt_time = now < c.time_limit ? now : c.time_limit;
     s.halted = halted;
     if constexpr (MET) {
-      // the step's threefry blocks: the poll block, every emit row's
-      // and, with the discipline, the torn word's
+      // the step's threefry blocks: the poll block, every emit row's,
+      // with the discipline the torn word's and with a retry policy the
+      // jitter's
       constexpr int blocks = 1 + KT + (SYNC ? 1 : 0);
-      if (active) s.met[MET_RNG] += blocks;
+      int rt_blocks = 0;
+      if constexpr (L > 0) rt_blocks = ro.cfg->n_ops > 0 ? 1 : 0;
+      if (active) s.met[MET_RNG] += blocks + rt_blocks;
       s.met[MET_CLOG_BLOCK] += active && clogged;
       if (halted && !was_halted) {
         s.met[MET_HALT_CODE] = dispatch && kind == KIND_HALT ? HALT_DONE : HALT_TIME_LIMIT;
@@ -1934,7 +2115,8 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
                            const int32_t* init_rows,
                            const uint8_t* volatile_cols, int64_t budget,
                            bool stop_at_halt, const HistOut<M::R>& ho,
-                           const SeedObs& o, const LatOut<LatOf<M>::n>& lo) {
+                           const SeedObs& o, const LatOut<LatOf<M>::n>& lo,
+                           const RetryOut<LatOf<M>::n>& ro) {
   clear_rows<M, G>(g, s.em);
   g.sync();
   int64_t it = 0;
@@ -1946,7 +2128,7 @@ MADSIM_HD int64_t seed_run(const Lanes<G>& g, Seed<M, E, MET>& s, const EngineCo
       return budget;
     }
     const bool had_event =
-        engine_step<M, E, G, MET, OBS>(g, s, c, mp, init_rows, volatile_cols, ho, o, lo);
+        engine_step<M, E, G, MET, OBS>(g, s, c, mp, init_rows, volatile_cols, ho, o, lo, ro);
     it++;
     if (!had_event && !s.halted) {
       // an empty pool stays empty: the rest only counts steps
@@ -1993,6 +2175,21 @@ MADSIM_HDI LatOut<LatOf<M>::n> lat_out(const RunArgs& a, int64_t seed) {
   return lo;
 }
 
+// seed `seed`'s retry books: its rows of the run's output, and the run's
+// policy (nothing when the model has no markers)
+template <class M>
+MADSIM_HDI RetryOut<LatOf<M>::n> retry_out(const RunArgs& a, int64_t seed) {
+  RetryOut<LatOf<M>::n> ro;
+  if constexpr (LatOf<M>::n > 0) {
+    const int64_t n = a.rt.n_ops;
+    ro.cfg = &a.rt;
+    ro.done = a.out.rt_done + seed * n;
+    ro.attempt = a.out.rt_attempt + seed * n;
+    ro.deadline = a.out.rt_deadline + seed * n;
+  }
+  return ro;
+}
+
 // seed `seed`'s observability state: block seed b's shared tail and its
 // rows of the run's output ring
 template <class M, int E, bool MET, bool OBS>
@@ -2024,6 +2221,7 @@ MADSIM_HD int64_t run_block(const Block<M, E, MET, OBS>& blk, const RunArgs& a,
                             int nb, int tid, int nt) {
   copy_history<M>(a.in, a.out, a.cfg.hist_cap, first, nb, tid, nt);
   copy_latency<M>(a.in, a.out, a.cfg, first, nb, tid, nt);
+  copy_retry<M>(a.in, a.out, a.rt, first, nb, tid, nt);
   if constexpr (OBS) copy_timeline<M>(a.in, a.out, a.cfg, first, nb, tid, nt);
   block_load<M, E, MET, OBS>(blk, a.in, first, nb, tid, nt);
   int64_t most = 0;
@@ -2036,7 +2234,8 @@ MADSIM_HD int64_t run_block(const Block<M, E, MET, OBS>& blk, const RunArgs& a,
                                               a.volatile_cols, a.budget, stop,
                                               hist_out<M>(a, first + b),
                                               seed_obs<M, E, MET, OBS>(blk, b, a, first + b),
-                                              lat_out<M>(a, first + b));
+                                              lat_out<M>(a, first + b),
+                                              retry_out<M>(a, first + b));
     if (g.leader()) {
       a.iters[first + b] = it;
       most = it;
@@ -2049,7 +2248,8 @@ MADSIM_HD int64_t run_block(const Block<M, E, MET, OBS>& blk, const RunArgs& a,
                                               a.volatile_cols, a.budget, stop,
                                               hist_out<M>(a, first + b),
                                               seed_obs<M, E, MET, OBS>(blk, b, a, first + b),
-                                              lat_out<M>(a, first + b));
+                                              lat_out<M>(a, first + b),
+                                              retry_out<M>(a, first + b));
     a.iters[first + b] = it;
     most = it > most ? it : most;
   }

@@ -14,7 +14,9 @@
 // ops at the client, each an exactly-once put (a dedup floor in client
 // column 3, an OP_ARMY_PUT record with RECORD) and a PROBES-round
 // session of probes to the controller, its invoke and completion marked
-// for the latency tap (L = 1 marker row a call).
+// for the latency tap (L = 1 marker row a call). NOIDEM (with RECORD and
+// ARMY) is bug="noidem", the non-idempotent retried put: the apply skips
+// the floor, so every delivered attempt applies and records.
 #pragma once
 
 #include "engine_step.cuh"
@@ -22,9 +24,11 @@
 namespace madsim {
 
 template <bool RECORD = false, bool BUG = false, bool CHAOS = true, bool ARMY = false,
-          int PROBES = 1>
+          int PROBES = 1, bool NOIDEM = false>
 struct ShardKvModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
+  static_assert(!NOIDEM || (RECORD && ARMY && !BUG),
+                "noidem lives in the recorded army apply, apart from the lost shard");
   static_assert(PROBES >= 1, "an op takes at least one probe round");
   static constexpr int G = 4, GS = 3, NS = 8;  // groups, group size, shards
   static constexpr int N = 2 + G * GS, U = 2 * NS + 1, A = 3, W = 0, K = 6;
@@ -123,7 +127,7 @@ struct ShardKvModel {
     if (h == 15) {
       const int32_t op = c.args[0] & ((int32_t(1) << 26) - 1);
       const int32_t att = (c.args[0] >> 26) & 15;
-      const bool applied = op >= c.state[APPLIED];
+      const bool applied = NOIDEM || op >= c.state[APPLIED];
       if (applied) ns[APPLIED] = clampi(op + 1, 0, VER_CAP);
       if constexpr (RECORD) rec[0].record(applied, OP_ARMY_PUT, op, att, OK_OK);
       c.lat_start(true, op);

@@ -47,7 +47,11 @@
 // with latency markers (its trait's L, engine_step.cuh LatOf), and its
 // widths are runtime config words 12-14. Its columns stay in device
 // memory: the block copies the input's rows to the output and the
-// leader folds each marker there.
+// leader folds each marker there. The client-retry timers compile into
+// the same kernels, and only those: a runtime word (config word 16, the
+// policy's op count) switches them on, the policy's fields and backoff
+// tables follow it in RunArgs::rt, and the three per-op books stay in
+// device memory as the latency columns do.
 //
 // This file is not compiled alone. engine/fused.py writes, per model, a
 // unit that includes the model's header (model_*.cuh), defines

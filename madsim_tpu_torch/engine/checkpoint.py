@@ -7,13 +7,11 @@ dtypes, and a manifest entry recording the format, the config hash
 and the event-time dtype. A checkpoint plus its (workload, config)
 resumes to the same trajectory as the uninterrupted run.
 
-The files cross both ways. :func:`save` writes the port's fields and,
-for each field of the JAX package's ``SimState`` that the port does
-not carry (``convert.FOREIGN_FIELDS``), an empty entry of the
-reference's dtype and shape, so the JAX package's ``load`` reads it.
-:func:`load` reads the JAX package's files: it takes the port's fields
-and refuses a file that holds anything the port cannot carry, a
-non-empty foreign entry or int32 event times (a time32 checkpoint).
+The files cross both ways: the port's ``SimState`` has every field of
+the JAX package's but the pool-index summaries, which are derived and
+travel in no file. :func:`load` refuses a file with int32 event times
+(a time32 checkpoint) and one whose retry columns do not match the
+resumed run's policy.
 """
 
 from __future__ import annotations
@@ -22,8 +20,8 @@ import json
 
 import numpy as np
 
-from .convert import FOREIGN_FIELDS, state_from_numpy, state_to_numpy
-from .core import EngineConfig, SimState, resolve_device
+from .convert import state_from_numpy, state_to_numpy
+from .core import EngineConfig, SimState, resolve_device, retry_width
 
 __all__ = ["save", "load"]
 
@@ -34,14 +32,6 @@ _FORMAT = 11
 def save(path: str, state: SimState, cfg: EngineConfig) -> None:
     """Write a batched SimState to ``path`` (.npz)."""
     arrays = state_to_numpy(state)
-    widths = {
-        "U": state.node_state.shape[2],
-        "A": state.ev_args.shape[2],
-        "W": state.ev_pay.shape[2],
-    }
-    n_seeds = state.seed.shape[0]
-    for name, (dtype, shape, _item) in FOREIGN_FIELDS.items():
-        arrays[name] = np.zeros((n_seeds, *(widths.get(d, d) for d in shape)), dtype)
     manifest = json.dumps(
         {
             "format": _FORMAT,
@@ -56,11 +46,15 @@ def save(path: str, state: SimState, cfg: EngineConfig) -> None:
         np.savez(fh, **arrays)
 
 
-def load(path: str, cfg: EngineConfig, device=None) -> SimState:
+def load(path: str, cfg: EngineConfig, device=None, retry=None) -> SimState:
     """Load a SimState onto ``device`` (the card unless the caller asks
-    for the CPU); refuse a checkpoint taken under another config, one
-    with int32 event times, and one with a non-empty entry for a field
-    the port does not carry."""
+    for the CPU); refuse a checkpoint taken under another config and one
+    with int32 event times.
+
+    ``retry``: the ``RetrySpec`` the resumed run will use, or None for a
+    run without a policy. The retry columns are core state (an armed
+    deadline is history), so a checkpoint whose saved ``rt_done`` width
+    differs from ``retry.n_ops`` is refused, either way round."""
     dev = resolve_device(device)
     with np.load(path) as data:
         manifest = json.loads(bytes(data[_MANIFEST_KEY]).decode())
@@ -79,16 +73,17 @@ def load(path: str, cfg: EngineConfig, device=None) -> SimState:
                 "the torch port carries int64 absolute event times only: "
                 "save it from a run built with time32=False"
             )
-        for name, (_dtype, shape, item) in FOREIGN_FIELDS.items():
-            if name not in data.files:
-                continue
-            a = data[name]
-            # a per-seed counter is empty when zero, a column when it
-            # has no entry past the seed axis
-            if (a.size != 0) if shape else a.any():
-                raise ValueError(
-                    f"checkpoint field {name!r} is not empty (shape "
-                    f"{a.shape}): the torch port does not carry it until "
-                    f"ROADMAP item {item}"
-                )
-        return state_from_numpy(data, device=dev)
+        state = state_from_numpy(data, device=dev)
+    saved_ops = retry_width(state)
+    want_ops = 0 if retry is None else int(retry.n_ops)
+    if saved_ops != want_ops:
+        raise ValueError(
+            f"checkpoint carries retry columns for {saved_ops} ops but the "
+            f"resumed run declared "
+            f"{'no retry policy' if retry is None else f'retry.n_ops={want_ops}'}"
+            "; armed retry deadlines are core state, so resume with the "
+            "checkpoint's own RetrySpec (or an off-policy checkpoint "
+            "off-policy) — pass the matching retry= here and to "
+            "make_run/make_run_while/make_run_compacted"
+        )
+    return state

@@ -55,24 +55,20 @@ import numpy as np
 import torch
 
 from ..check.device import as_screens, fold_verified, screen_ok
-from .convert import FOREIGN_FIELDS, field_to_numpy
+from .convert import field_to_numpy
 from .core import STATE_FIELDS, EngineConfig, SimState, Workload, make_step_plain
 from .rng import M32
 
 __all__ = [
     "RESULT_FIELDS",
     "SCREEN_FIELDS",
-    "UNPORTED_OPTIONS",
     "bank_steps",
     "make_run_compacted",
     "make_run_compacted_plain",
     "one_launch_banks",
-    "refuse_unported",
 ]
 
-# the reference's RESULT_FIELDS that the port's SimState has; the
-# reference's others are zero-size for every variant the port runs.
-# cov_hits is not banked (the reference's rule: guidance reads only the
+# the reference's RESULT_FIELDS. cov_hits is not banked (the reference's rule: guidance reads only the
 # bitmap), nor is the pool's ev_emit; of the latency tap the sketch and
 # its counters are, the per-op clocks are not (banked sweeps read only
 # the sketch); of the causal columns the final clocks and the ring's
@@ -91,23 +87,6 @@ RESULT_FIELDS = (
 SCREEN_FIELDS = ("hist_ok", "hist_fold")
 HIST_FIELDS = ("hist_word", "hist_t", "hist_count", "hist_drop")
 
-# options of the reference's runners whose engine axes the port does not
-# have yet, and the ROADMAP queue A item that ports each
-UNPORTED_OPTIONS = {"retry": "A8"}
-
-
-def refuse_unported(**options) -> None:
-    """Raise ``NotImplementedError`` for any option of
-    :data:`UNPORTED_OPTIONS` given a value other than its off value."""
-    for name, value in options.items():
-        if value is None or (isinstance(value, (int, str)) and not value):
-            continue
-        raise NotImplementedError(
-            f"{name}= needs an engine axis the torch port does not have "
-            f"yet, until ROADMAP item {UNPORTED_OPTIONS[name]}"
-        )
-
-
 def _phase_sizes(s0: int, shrink: int, min_size: int) -> list[int]:
     sizes = [s0]
     while sizes[-1] // shrink >= min_size:
@@ -117,11 +96,6 @@ def _phase_sizes(s0: int, shrink: int, min_size: int) -> list[int]:
 
 def _check(fields, shrink: int, min_size: int) -> None:
     for f in fields:
-        if f in FOREIGN_FIELDS:
-            raise NotImplementedError(
-                f"result field {f!r} is not in the torch port's SimState "
-                f"until ROADMAP item {FOREIGN_FIELDS[f][2]}"
-            )
         if f not in RESULT_FIELDS:
             raise ValueError(
                 f"unknown result field {f!r}; the compacted runner banks "
@@ -277,13 +251,14 @@ def make_run_compacted_plain(
     wl: Workload, cfg: EngineConfig, max_steps: int, shrink: int = 4,
     min_size: int = 2048, fields: tuple = RESULT_FIELDS, dup_rows: bool = False,
     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
-    cov_hitcount: bool = False, latency=None, causal: bool = False,
+    cov_hitcount: bool = False, latency=None, causal: bool = False, retry=None,
 ):
     """The phase program with the plain eager step, on any device."""
     _check(fields, shrink, min_size)
     compute = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
                              metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                             cov_hitcount=cov_hitcount, latency=latency, causal=causal)
+                             cov_hitcount=cov_hitcount, latency=latency, causal=causal,
+                             retry=retry)
     return _runner(compute, fields, shrink, min_size, max_steps)
 
 
@@ -337,14 +312,14 @@ def make_run_compacted(
     ``hist_count + hist_fold``). Flagged and overflowed seeds keep every
     record. It needs ``wl.history`` and the four history fields.
 
-    ``retry`` raises ``NotImplementedError`` until its engine axis is
-    ported.
+    ``retry`` (a ``RetrySpec``) runs the client-retry timers (a state
+    from ``make_init(retry=...)``); as in the reference, their columns
+    are not banked (``met`` carries the retry counters).
     """
-    refuse_unported(retry=retry)
     _check(fields, shrink, min_size)
     screens = _screens(wl, hist_screen, fields)
     obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-               latency=latency, causal=causal)
+               latency=latency, causal=causal, retry=retry)
     plain = _phase_program(wl, cfg, max_steps, shrink, min_size, fields, dup_rows,
                            metrics, **obs)
 
@@ -356,7 +331,7 @@ def make_run_compacted(
 
             check_taps(state, metrics, **obs)
             _spec, out, iters, _tmax = _first_pass(wl, cfg, state, max_steps, True,
-                                                   dup_rows, latency)
+                                                   dup_rows, latency, retry)
             banks = one_launch_banks(state, out, iters, fields)
         if screens is None:
             return banks

@@ -5,8 +5,9 @@ The engine's state is its "weights": these two functions move a
 the numpy side (uint64 seed and trace, uint32 step and meta), so a JAX
 state can be stepped by the port and the port's output can be handed
 to the JAX package's own checkers (``compare_traces``, ``np.array_equal``
-per field). Only the core fields travel; the JAX state's other fields
-are empty or zero for the ported workloads.
+per field). Every field of the JAX package's ``SimState`` travels but
+the pool-index summaries (``tile_min``, ``tile_cnt``), which are derived
+state and travel in no file.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ import torch
 from .core import STATE_FIELDS, SimState, Workload
 
 __all__ = [
-    "FOREIGN_FIELDS",
     "NUMPY_DTYPES",
     "field_to_numpy",
     "state_from_numpy",
@@ -82,19 +82,9 @@ NUMPY_DTYPES = {
     "lat_hist": np.int32,
     "lat_count": np.int32,
     "lat_drop": np.int32,
-}
-
-# The JAX package's SimState fields that the port does not carry yet:
-# ``name -> (numpy dtype, shape after the seed axis, the ROADMAP item
-# that ports them)``. In a shape, "U", "A" and "W" stand for the state,
-# args and payload widths. Every one of them is zero-size (or, for a
-# per-seed counter, zero) for the variants the port runs; the pool
-# index summaries (tile_min, tile_cnt) are derived state and travel in
-# no file.
-FOREIGN_FIELDS = {
-    **{f: (dt, (0,), "A8 (retry)") for f, dt in (
-        ("rt_done", np.bool_), ("rt_attempt", np.int32), ("rt_deadline", np.int64),
-    )},
+    "rt_done": np.bool_,
+    "rt_attempt": np.int32,
+    "rt_deadline": np.int64,
 }
 
 # the port's torch dtype of every core field

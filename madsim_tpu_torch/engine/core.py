@@ -38,7 +38,12 @@ clock (``lam``), each pool row's emitting dispatch and the clock it
 folded (``ev_parent``, ``ev_lam``) and, with the ring, each captured
 row's dispatch seq, parent seq and folded clock (``tl_seq``,
 ``tl_parent``, ``tl_lam``), the event-derivation DAG that
-``obs.causal`` reads.
+``obs.causal`` reads. ``retry=RetrySpec(...)`` (a client army's
+``chaos.RetryPolicy``) runs client retries as simulator state: each
+delivered army op arms a re-send timer row, the op's ``lat_end`` marker
+disarms it, and the books ``rt_done``, ``rt_attempt`` and
+``rt_deadline`` are core state, since ``rt_done`` decides whether a
+re-sent row delivers.
 
 The JAX engine has several lowerings of that step (dense/scatter
 layout, rank/scatter placement, time32, the pool index); their values
@@ -80,6 +85,7 @@ from .rng import (
     PURPOSE_LATENCY,
     PURPOSE_LOSS,
     PURPOSE_POLL_COST,
+    PURPOSE_RETRY,
     PURPOSE_TORN,
     PURPOSE_USER,
     Draw,
@@ -150,6 +156,7 @@ __all__ = [
     "OBS_FIELDS",
     "LATENCY_FIELDS",
     "CAUSAL_STATE_FIELDS",
+    "RETRY_STATE_FIELDS",
     "PARENT_NONE",
     "PARENT_PLAN",
     "PARENT_ARMY",
@@ -166,6 +173,7 @@ __all__ = [
     "retry_token",
     "retry_token_op",
     "retry_token_attempt",
+    "RetrySpec",
     "PlanRows",
     "pack_slow_arg",
     "unpack_slow_arg",
@@ -180,6 +188,8 @@ __all__ = [
     "check_lat_state",
     "causal_on",
     "check_causal_state",
+    "retry_width",
+    "check_retry_state",
     "make_init",
     "make_step",
     "make_step_plain",
@@ -249,8 +259,8 @@ MET_HALT_CODE = 12  # not a counter: the HALT_* code of how the seed stopped
 MET_SYNC = 13  # sync commits honoured (durable_sync)
 MET_SYNC_LOST = 14  # syncs that did not commit inside a KIND_SYNC_LOSS window
 MET_TORN = 15  # kills of a node whose torn-write mode was armed
-MET_RETRY = 16  # client-retry slots (the JAX package's RetrySpec; 0 here)
-MET_RETRY_GIVEUP = 17
+MET_RETRY = 16  # army re-deliveries dispatched (attempt > 0 that ran)
+MET_RETRY_GIVEUP = 17  # ops abandoned: the max_attempts-th timer fired
 N_METRICS = 18
 
 METRIC_NAMES = (
@@ -279,6 +289,9 @@ LATENCY_FIELDS = ("lat_inv", "lat_resp", "lat_hist", "lat_count", "lat_drop")
 # the causal-provenance columns (zero-size with causal=False): derived
 # state, read only into more causal columns and the ring
 CAUSAL_STATE_FIELDS = ("lam", "ev_parent", "ev_lam", "tl_seq", "tl_parent", "tl_lam")
+# the client-retry columns (zero-size without a RetrySpec): core state,
+# since rt_done gates the re-delivery of an op
+RETRY_STATE_FIELDS = ("rt_done", "rt_attempt", "rt_deadline")
 # ev_parent's sentinel classes: a pool row whose value is below zero has
 # no emitting dispatch; obs.causal treats such rows as roots of the DAG
 PARENT_NONE = -1  # on_init rows and never-written slots
@@ -377,6 +390,117 @@ def retry_token_op(token):
 def retry_token_attempt(token):
     """The attempt id of a token (0 for a plain op id)."""
     return (token >> RETRY_ATTEMPT_SHIFT) & RETRY_ATTEMPT_MAX
+
+
+# backoff entries are clipped on the host so that the jitter product
+# (entry * uint32 draw) stays inside int64: cap * 2^32 < 2^63
+_RETRY_BACKOFF_CAP = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrySpec:
+    """Build parameters of the engine's client-retry timer mechanism.
+
+    The compiled form of ``chaos.RetryPolicy`` attached to a
+    ``ClientArmy``: ``kind``/``node``/``op_base``/``n_ops`` identify the
+    army's offered ops (one retry-state slot per op), the policy fields
+    drive the timers. Each delivered army attempt arms one follow-up
+    pool row at ``now + timeout_ns + backoff + jitter`` with the attempt
+    id incremented; when it pops, the op is delivered again unless a
+    response was recorded meanwhile (the op's ``lat_end`` marker, which
+    is why a retry build needs ``Workload.lat_markers``).
+    ``max_attempts`` counts deliveries: the row carrying attempt id
+    ``max_attempts`` is the give-up sentinel, which never delivers and
+    only closes the books (``MET_RETRY_GIVEUP``). The backoff before
+    attempt ``a >= 1`` is ``backoff_base_ns * backoff_mult**(a-1)``,
+    jittered by a ``PURPOSE_RETRY`` draw scaled to ``[0, jitter]`` of
+    the backoff, per (seed, step). Hashable, like every build flag."""
+
+    kind: int
+    node: int
+    op_base: int
+    n_ops: int
+    timeout_ns: int
+    max_attempts: int = 3
+    backoff_base_ns: int = 0
+    backoff_mult: float = 2.0
+    jitter: float = 0.0
+
+    def __post_init__(self):
+        if self.n_ops < 1:
+            raise ValueError(f"RetrySpec.n_ops must be >= 1, got {self.n_ops}")
+        if self.timeout_ns < 1:
+            raise ValueError(
+                f"RetrySpec.timeout_ns must be >= 1, got {self.timeout_ns}"
+            )
+        if not (1 <= self.max_attempts <= RETRY_ATTEMPT_MAX):
+            raise ValueError(
+                f"RetrySpec.max_attempts must be in 1..{RETRY_ATTEMPT_MAX} "
+                f"(the token packs attempts into 4 bits), got "
+                f"{self.max_attempts}"
+            )
+        if self.op_base < 0:
+            raise ValueError(
+                f"RetrySpec.op_base must be >= 0, got {self.op_base}"
+            )
+        if self.op_base + self.n_ops - 1 > RETRY_OP_MASK:
+            raise ValueError(
+                f"RetrySpec op ids reach {self.op_base + self.n_ops - 1}, "
+                f"past the {RETRY_ATTEMPT_SHIFT}-bit token op field "
+                f"(max {RETRY_OP_MASK})"
+            )
+        if not (FIRST_USER_KIND <= self.kind < FIRST_EXT_KIND):
+            raise ValueError(
+                f"RetrySpec.kind={self.kind} must be a user kind "
+                f"(in [{FIRST_USER_KIND}, {FIRST_EXT_KIND}))"
+            )
+        if self.backoff_base_ns < 0:
+            raise ValueError(
+                f"RetrySpec.backoff_base_ns must be >= 0, got "
+                f"{self.backoff_base_ns}"
+            )
+        if self.backoff_mult < 1.0:
+            raise ValueError(
+                f"RetrySpec.backoff_mult must be >= 1, got "
+                f"{self.backoff_mult}"
+            )
+        if not (0.0 <= self.jitter <= 1.0):
+            raise ValueError(
+                f"RetrySpec.jitter must be in [0, 1], got {self.jitter}"
+            )
+
+
+def _retry_backoff_tables(rt: RetrySpec):
+    """The backoff tables, indexed by the next attempt id: entry ``a`` is
+    the backoff before delivering attempt ``a`` and the jitter table the
+    largest jitter addend (``backoff * jitter``), both clipped to the
+    int64-safe cap. Python float arithmetic, as the reference's, so the
+    integers are the same."""
+    boff = [0]
+    for a in range(1, rt.max_attempts + 1):
+        b = rt.backoff_base_ns * rt.backoff_mult ** (a - 1)
+        boff.append(min(int(b), _RETRY_BACKOFF_CAP))
+    bjit = [min(int(b * rt.jitter), _RETRY_BACKOFF_CAP) for b in boff]
+    return tuple(boff), tuple(bjit)
+
+
+def _check_retry(wl: "Workload", retry: "RetrySpec | None") -> int:
+    """Validate a retry build parameter; returns n_ops (0 = off). Shared
+    by :func:`make_init` and the steps."""
+    if retry is None:
+        return 0
+    if not isinstance(retry, RetrySpec):
+        raise TypeError(
+            f"retry must be a RetrySpec or None, got {type(retry).__name__}"
+        )
+    if wl.lat_markers == 0:
+        raise ValueError(
+            "retry needs a workload with latency markers "
+            "(Workload.lat_markers > 0): the response-deadline timer is "
+            "disarmed by the op's lat_end marker, so a model that never "
+            "marks responses would retry forever"
+        )
+    return retry.n_ops
 
 
 _TRACE_PRIME = 0x100000001B3
@@ -1037,6 +1161,12 @@ class SimState:
     lat_hist: torch.Tensor  # (S,P,N_LAT_BUCKETS) int32, (S,0,0) when off
     lat_count: torch.Tensor  # (S,) int32
     lat_drop: torch.Tensor  # (S,) int32
+    # the client-retry books, CR = RetrySpec.n_ops (0 without a policy,
+    # zero-size): whether each op saw its response, its last delivered
+    # attempt and its armed deadline (absolute ns)
+    rt_done: torch.Tensor  # (S,CR) bool
+    rt_attempt: torch.Tensor  # (S,CR) int32
+    rt_deadline: torch.Tensor  # (S,CR) int64
 
     @property
     def device(self) -> torch.device:
@@ -1174,10 +1304,29 @@ def check_causal_state(state: SimState, causal: bool, n: int) -> None:
         )
 
 
+def retry_width(state: SimState) -> int:
+    """The op columns of ``state``'s retry books: the ``RetrySpec.n_ops``
+    of the ``make_init`` that built it, 0 without a policy."""
+    return state.rt_done.shape[1]
+
+
+def check_retry_state(state: SimState, retry: "RetrySpec | None") -> None:
+    """Raise unless ``state``'s retry columns are those of a step built
+    with ``retry`` (a state from ``make_init`` with the same spec's
+    ``n_ops``, or none)."""
+    want = retry.n_ops if retry is not None else 0
+    if retry_width(state) != want:
+        raise ValueError(
+            f"a step built with retry={retry} needs a state from make_init with "
+            f"retry.n_ops={want}; this one has retry columns for "
+            f"{retry_width(state)} ops"
+        )
+
+
 def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
               metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
               cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
-              causal: bool = False):
+              causal: bool = False, retry: "RetrySpec | None" = None):
     """Build ``init(seeds) -> SimState``: one on_init event per node at
     t=0 in slots ``0..N-1``, every other slot an invalid NOP.
 
@@ -1196,7 +1345,10 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
     at 0, ``ev_parent`` at ``PARENT_NONE`` but for the plan rows, which
     take ``PARENT_ARMY`` where the row is a user kind (a client army's
     op) and ``PARENT_PLAN`` elsewhere; the ring's three causal columns
-    get ``timeline_cap`` rows. Each is zero-size when off."""
+    get ``timeline_cap`` rows. ``retry=RetrySpec(...)`` sizes the retry
+    books (``RETRY_STATE_FIELDS``, ``n_ops`` columns at False, 0 and 0);
+    the plan rows do not change, an attempt-0 token being a plain op id.
+    Each is zero-size when off."""
     n, u, e, p = wl.n_nodes, wl.state_width, cfg.pool_size, plan_slots
     if e < n + p:
         raise ValueError(
@@ -1205,6 +1357,7 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
         )
     _check_meta_ranges(wl)
     _check_obs(cov_words, cov_hitcount, timeline_cap, latency)
+    rt_c = _check_retry(wl, retry)
     cw, tc = cov_words, timeline_cap
     tc_c = tc if causal else 0
     lat_c = latency.ops if latency is not None else 0
@@ -1316,6 +1469,9 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
             lat_hist=z(s, lat_p, N_LAT_BUCKETS if lat_c else 0, dt=torch.int32),
             lat_count=z(s, dt=torch.int32),
             lat_drop=z(s, dt=torch.int32),
+            rt_done=z(s, rt_c, dt=torch.bool),
+            rt_attempt=z(s, rt_c, dt=torch.int32),
+            rt_deadline=z(s, rt_c, dt=torch.int64),
         )
 
     return init
@@ -1420,7 +1576,7 @@ def _cov_tapper(cov_words: int, cov_hitcount: bool, ar: torch.Tensor):
 def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                    metrics: bool = False, cov_words: int = 0, cov_hitcount: bool = False,
                    timeline_cap: int = 0, latency: "LatencySpec | None" = None,
-                   causal: bool = False):
+                   causal: bool = False, retry: "RetrySpec | None" = None):
     """The eager batched step: ``step(SimState) -> SimState``.
 
     ``dup_rows`` adds the duplication shadow rows: K rows after the
@@ -1439,11 +1595,24 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
     ops into the sketch (a state from ``make_init(latency=...)``), and
     ``causal``: the Lamport fold, each placed row's parent seq and clock,
     the ring's causal columns and, with coverage, the (depth, jump)
-    feature under tag 7 (a state from ``make_init(causal=True)``)."""
+    feature under tag 7 (a state from ``make_init(causal=True)``).
+
+    ``retry=RetrySpec(...)`` runs the client-retry timers (a state from
+    ``make_init(retry=...)``): an army row, a dispatch of the policy's
+    kind at its node whose token names one of its ops, is suppressed
+    once its op has its response or when it carries the give-up
+    attempt, and otherwise delivered and arms one re-send timer row
+    after every other emit row. A suppressed row dispatches with none of
+    its handler's effects: it folds the trace, the clock, the causal
+    columns and the ring, and counts in the retry books. Its jitter lane
+    (``PURPOSE_RETRY``) follows the torn lane, before the user lanes."""
     n, k, w, aw = wl.n_nodes, wl.max_emits, wl.payload_words, wl.args_words
     n_user = len(wl.handlers)
     _check_meta_ranges(wl)
     _check_obs(cov_words, cov_hitcount, timeline_cap, latency)
+    rt_c = _check_retry(wl, retry)
+    if rt_c:
+        rt_boff, rt_bjit = _retry_backoff_tables(retry)
     ll = wl.lat_markers
     lat_c = latency.ops if latency is not None else 0
     lat_p = latency.phases if latency is not None else 0
@@ -1459,6 +1628,10 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
     i_torn = len(lane_p)
     if sync_on:
         lane_p.append(PURPOSE_TORN)
+    # the re-send jitter: one lane a dispatch, keyed by the arming step
+    i_retry = len(lane_p)
+    if rt_c:
+        lane_p.append(PURPOSE_RETRY)
     i_user = len(lane_p)
     lane_p += [PURPOSE_USER + p for p in user_purposes]
     # threefry blocks a step draws while its seed is active (MET_RNG):
@@ -1484,6 +1657,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         check_obs_state(st, cov_words, cov_hitcount, timeline_cap)
         check_lat_state(st, lat_spec)
         check_causal_state(st, causal, n)
+        check_retry_state(st, retry)
         dev = st.seed.device
         s_n, e_n = st.ev_valid.shape
         ar = torch.arange(s_n, device=dev)
@@ -1543,6 +1717,23 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         blocked = clogged | held
         dispatch = active & ~blocked & (is_engine | live)
 
+        # ---- the client-retry decode: an army row is a user dispatch of
+        # the policy's kind at its node whose token names one of its ops;
+        # it delivers unless its op has had its response (rt_done before
+        # this dispatch) or it carries the give-up attempt ----
+        if rt_c:
+            rt_tok = args[:, 0]
+            rt_idx = (rt_tok & RETRY_OP_MASK) - retry.op_base
+            rt_att = (rt_tok >> RETRY_ATTEMPT_SHIFT) & RETRY_ATTEMPT_MAX
+            rt_in_r = (rt_idx >= 0) & (rt_idx < rt_c)
+            is_army = (dispatch & ~is_engine & (kind == retry.kind) & (dst == retry.node)
+                       & rt_in_r)
+            rt_ix = rt_idx.clamp(0, rt_c - 1).long()
+            rt_done_i = st.rt_done[ar, rt_ix] & rt_in_r
+            rt_deliver = ~rt_done_i & (rt_att < retry.max_attempts)
+            rt_suppress = is_army & ~rt_deliver
+            rt_arm = is_army & rt_deliver
+
         # ---- the causal fold: the dispatch's seq (int32, clamped below
         # 2^31), and the Lamport receive max(own, sender's) + 1 in uint32,
         # written only where the step dispatches to a node in range.
@@ -1584,8 +1775,10 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         ev_meta = st.ev_meta.clone()
         ev_meta[ar, i] = torch.where(resched, meta_bumped, meta_i)
 
-        # ---- dispatch: evaluate the handlers, select by kind ----
-        user_dispatch = dispatch & ~is_engine
+        # ---- dispatch: evaluate the handlers, select by kind; a
+        # suppressed army row applies none of its handler's effects ----
+        user_row_ok = ~is_engine & ~rt_suppress if rt_c else ~is_engine
+        user_dispatch = dispatch & user_row_ok
         outs = []
         if n_user:
             user_idx = (kind - FIRST_USER_KIND).clamp(0, n_user - 1)
@@ -1764,7 +1957,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         # node's on_init timer) ----
         restart_row = kind == KIND_RESTART
         ev_valid_em = torch.cat(
-            [uem.valid & ~is_engine[:, None], restart_row[:, None]], 1
+            [uem.valid & user_row_ok[:, None], restart_row[:, None]], 1
         )
         em_send = torch.cat([uem.send, torch.zeros_like(restart_row)[:, None]], 1)
         em_kind = torch.cat(
@@ -1776,7 +1969,7 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
         em_pay = torch.cat([uem.pay, torch.zeros_like(pay_i)[:, None]], 1)
         if dup_rows:
             # the shadow rows: each user send again while dup is on
-            dvalid = uem.valid & ~is_engine[:, None] & uem.send & st.dup[:, None]
+            dvalid = uem.valid & user_row_ok[:, None] & uem.send & st.dup[:, None]
             ev_valid_em = torch.cat([ev_valid_em, dvalid], 1)
             em_send = torch.cat([em_send, uem.send], 1)
             em_kind = torch.cat([em_kind, uem.kind], 1)
@@ -1787,6 +1980,31 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
 
         lat_bits = lane0[:, 1 : 1 + n_em_lanes]
         loss_bits = lane1[:, 1 : 1 + n_em_lanes]
+        if rt_c:
+            # the armed re-send, last: a timer of the policy's kind to its
+            # node carrying the next attempt's token, at timeout + backoff
+            # + jitter (int64: the jitter table's cap keeps the product
+            # under 2^63). A timer reads no latency or loss lane
+            rt_next = rt_att + 1
+            rt_boff_t = torch.zeros_like(now)
+            rt_bjit_t = torch.zeros_like(now)
+            for a in range(1, retry.max_attempts + 1):
+                rt_boff_t = torch.where(rt_next == a, rt_boff[a], rt_boff_t)
+                rt_bjit_t = torch.where(rt_next == a, rt_bjit[a], rt_bjit_t)
+            rt_jit = (rt_bjit_t * lane0[:, i_retry].to(torch.int64)) >> 32
+            rt_delay = retry.timeout_ns + rt_boff_t + rt_jit
+            rt_args = args.clone()
+            rt_args[:, 0] = (rt_tok & RETRY_OP_MASK) | (rt_next << RETRY_ATTEMPT_SHIFT)
+            ev_valid_em = torch.cat([ev_valid_em, rt_arm[:, None]], 1)
+            em_send = torch.cat([em_send, torch.zeros_like(rt_arm)[:, None]], 1)
+            em_kind = torch.cat([em_kind, torch.full_like(kind, retry.kind)[:, None]], 1)
+            em_dst = torch.cat([em_dst, torch.full_like(dst, retry.node)[:, None]], 1)
+            em_delay = torch.cat([em_delay, rt_delay[:, None]], 1)
+            em_args = torch.cat([em_args, rt_args[:, None]], 1)
+            em_pay = torch.cat([em_pay, torch.zeros_like(pay_i)[:, None]], 1)
+            zl = torch.zeros_like(lat_bits[:, :1])
+            lat_bits = torch.cat([lat_bits, zl], 1)
+            loss_bits = torch.cat([loss_bits, zl], 1)
         latency = cfg.lat_min_ns + lat_bits % lat_span
         lost = em_send & (loss_bits < loss_u32)
         e_valid = dispatch[:, None] & ev_valid_em & ~lost
@@ -1920,6 +2138,23 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                 # the (window, bucket) coverage feature under tag 5
                 lat_feats.append((bkt | (ph << 8) | (5 << 24), do_end))
 
+        # ---- the client-retry books: each op whose lat_end marker (phase
+        # 1) this user dispatch emits has its response; an armed op
+        # records its delivered attempt and its deadline, from the clock
+        # after the dispatch ----
+        if rt_c:
+            rt_done = st.rt_done.clone()
+            rt_ids = torch.arange(rt_c, device=dev)
+            for j in range(ll):
+                mv = user_dispatch & uem.lat_valid[:, j] & (uem.lat[:, j, 1] == 1)
+                hit = rt_ids[None, :] == (uem.lat[:, j, 0] - retry.op_base)[:, None]
+                rt_done = rt_done | (hit & mv[:, None])
+            rt_oh = (rt_ids[None, :] == rt_idx[:, None]) & rt_arm[:, None]
+            rt_attempt = torch.where(rt_oh, rt_att[:, None], st.rt_attempt)
+            rt_deadline = torch.where(rt_oh, (now_after + rt_delay)[:, None], st.rt_deadline)
+        else:
+            rt_done, rt_attempt, rt_deadline = st.rt_done, st.rt_attempt, st.rt_deadline
+
         # ---- the coverage taps: features of the dispatched event hashed
         # into the bitmap, in the reference's order. Nothing here feeds
         # back into the trajectory, the draws or the trace ----
@@ -2002,6 +2237,14 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                 inc[MET_SYNC] = n_of(do_sync)
                 inc[MET_SYNC_LOST] = n_of(sync_lied)
                 inc[MET_TORN] = n_of(tore)
+            if rt_c:
+                # a re-delivery is a delivered army row past attempt 0; a
+                # give-up the sentinel popping with its op unanswered (a
+                # sentinel that dies with a killed client is dropped by
+                # the epoch gate first, an undercount the reference keeps)
+                inc[MET_RETRY] = n_of(rt_arm & (rt_att > 0))
+                inc[MET_RETRY_GIVEUP] = n_of(
+                    is_army & ~rt_done_i & (rt_att == retry.max_attempts))
             met = st.met + torch.stack(inc, 1)
             # how the seed stopped: its halt, else the first step that
             # finds its pool empty
@@ -2101,6 +2344,9 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
             lat_hist=lat_hist,
             lat_count=lat_count,
             lat_drop=lat_drop,
+            rt_done=rt_done,
+            rt_attempt=rt_attempt,
+            rt_deadline=rt_deadline,
         )
 
     return step
@@ -2115,19 +2361,20 @@ def _plain_step_fn(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
 def make_step_plain(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
                     metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
                     cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
-              causal: bool = False):
+                    causal: bool = False, retry: "RetrySpec | None" = None):
     """The plain eager step on any device."""
     return _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
-                          latency, causal)
+                          latency, causal, retry)
 
 
 def make_run_plain(wl: Workload, cfg: EngineConfig, n_steps: int,
                    dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
                    timeline_cap: int = 0, cov_hitcount: bool = False,
-                   latency: "LatencySpec | None" = None, causal: bool = False):
+                   latency: "LatencySpec | None" = None, causal: bool = False,
+                   retry: "RetrySpec | None" = None):
     """``n_steps`` of the plain eager step on any device."""
     step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
-                          latency, causal)
+                          latency, causal, retry)
 
     def run(state: SimState) -> SimState:
         for _ in range(n_steps):
@@ -2141,11 +2388,11 @@ def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
                          dup_rows: bool = False, metrics: bool = False,
                          cov_words: int = 0, timeline_cap: int = 0,
                          cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
-                         causal: bool = False):
+                         causal: bool = False, retry: "RetrySpec | None" = None):
     """The plain eager step until every seed has halted, at most
     ``max_steps`` times; every seed takes the same number of steps."""
     step = _plain_step_fn(wl, cfg, dup_rows, metrics, cov_words, cov_hitcount, timeline_cap,
-                          latency, causal)
+                          latency, causal, retry)
 
     def run(state: SimState) -> SimState:
         i = 0
@@ -2160,7 +2407,7 @@ def make_run_while_plain(wl: Workload, cfg: EngineConfig, max_steps: int,
 def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
               metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
               cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
-              causal: bool = False):
+              causal: bool = False, retry: "RetrySpec | None" = None):
     """One step: the plain step on a CPU state, the fused kernel with
     ``n_steps=1`` on a CUDA state (raises for a workload, or a
     ``dup_rows`` build, the kernel does not carry)."""
@@ -2168,35 +2415,39 @@ def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
 
     return make_run_fused(wl, cfg, 1, dup_rows=dup_rows, metrics=metrics,
                           cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount, latency=latency, causal=causal)
+                          cov_hitcount=cov_hitcount, latency=latency, causal=causal,
+                          retry=retry)
 
 
 def make_run(wl: Workload, cfg: EngineConfig, n_steps: int, dup_rows: bool = False,
              metrics: bool = False, cov_words: int = 0, timeline_cap: int = 0,
              cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
-             causal: bool = False):
+             causal: bool = False, retry: "RetrySpec | None" = None):
     """``n_steps`` steps: plain on a CPU state, the fused kernel on a
     CUDA state."""
     from .fused import make_run_fused
 
     return make_run_fused(wl, cfg, n_steps, dup_rows=dup_rows, metrics=metrics,
                           cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount, latency=latency, causal=causal)
+                          cov_hitcount=cov_hitcount, latency=latency, causal=causal,
+                          retry=retry)
 
 
 def make_run_while(wl: Workload, cfg: EngineConfig, max_steps: int,
                    dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
                    timeline_cap: int = 0, cov_hitcount: bool = False,
-                   latency: "LatencySpec | None" = None, causal: bool = False):
+                   latency: "LatencySpec | None" = None, causal: bool = False,
+                   retry: "RetrySpec | None" = None):
     """Steps until every seed has halted, at most ``max_steps``: plain
     on a CPU state, the fused kernel on a CUDA state. ``metrics`` folds
     the fleet counters (a state from ``make_init(metrics=True)``);
     ``cov_words``, ``cov_hitcount`` and ``timeline_cap`` run the
     coverage taps and the timeline ring, ``latency`` the tail-latency
-    tap and ``causal`` the causal fold (a state from ``make_init`` with
-    the same arguments)."""
+    tap, ``causal`` the causal fold and ``retry`` the client-retry
+    timers (a state from ``make_init`` with the same arguments)."""
     from .fused import make_run_fused
 
     return make_run_fused(wl, cfg, max_steps, until_halted=True, dup_rows=dup_rows,
                           metrics=metrics, cov_words=cov_words, timeline_cap=timeline_cap,
-                          cov_hitcount=cov_hitcount, latency=latency, causal=causal)
+                          cov_hitcount=cov_hitcount, latency=latency, causal=causal,
+                          retry=retry)

@@ -77,6 +77,14 @@ library with markers and the tap on, the five ``lat_*`` columns are
 fresh outputs; otherwise they are the input's, which a run cannot
 change (a workload without markers folds nothing).
 
+The client-retry timers compile into the same libraries, those with
+markers, and only those: a state from ``make_init(retry=...)`` carries
+the three retry columns, the run's ``RetrySpec`` rides the config words
+after the causal word (:func:`retry_words`, zeros without a policy), and
+the columns are fresh outputs with a policy and the input's zero-size
+ones without. A retry state on a library without markers, or at a shape
+or pool without a library, raises; it never runs the plain step.
+
 ``make_run_while`` semantics: the JAX loop runs every seed for the same
 ``T = min(cap, steps until every seed has halted)`` iterations, and a
 halted seed's iteration still consumes its earliest slot and counts a
@@ -106,6 +114,8 @@ from .core import (
     LATENCY_FIELDS,
     N_LAT_BUCKETS,
     N_METRICS,
+    RETRY_ATTEMPT_MAX,
+    RETRY_STATE_FIELDS,
     STATE_FIELDS,
     STORAGE_FIELDS,
     TIMELINE_FIELDS,
@@ -116,10 +126,13 @@ from .core import (
     check_causal_state,
     check_lat_state,
     check_obs_state,
+    check_retry_state,
     lat_widths,
     make_run_plain,
     make_run_while_plain,
     obs_widths,
+    retry_width,
+    _retry_backoff_tables,
 )
 
 __all__ = [
@@ -285,6 +298,12 @@ _RAFTLOG_W16 = (("n_nodes", 5), ("n_writes", 16), ("chaos", False), ("durable", 
                 ("cov_spread", False))
 _SHARD_ARMY = (("n_groups", 4), ("group_size", 3), ("n_shards", 8), ("chaos", False),
                ("record", True), ("bug", False), ("army", True), ("army_probes", 1))
+# the retry soak's (tools/retry_soak.py): kvchaos-record army with two
+# replicas and one probe, without its own chaos, and the noidem mutant of
+# its shardkv army
+_KV_ARMY_RETRY = (("n_replicas", 2), ("chaos", False), ("payload", False), ("record", True),
+                  ("bug", False), ("army", True), ("army_probes", 1))
+_SHARD_NOIDEM = (*_SHARD_ARMY[:5], ("bug", "noidem"), *_SHARD_ARMY[6:])
 MODELS = {
     m.key: m
     for m in (
@@ -510,6 +529,19 @@ MODELS = {
             _RAFTLOG_W16_SHAPE, (192,), _RAFTLOG_WORDS, _RAFTLOG_W16, group=32,
             obs_pools=(192,),
         ),
+        # the retry soak's libraries: every army library runs the retry
+        # timers (they compile into each trait with latency markers);
+        # these two carry the soak's kvchaos shape and its noidem hunt
+        KernelModel(
+            "kvchaos-record-army-r2-nochaos", "kvchaos-record-army", "model_kvchaos.cuh",
+            "madsim::KvChaosModel<false, true, false, false, true, 2, 1>",
+            (4, 4, 2, 0, 6, 15, (), 3), (96,), _KV_WORDS, _KV_ARMY_RETRY, lat=1,
+        ),
+        KernelModel(
+            "shardkv-noidem-army-nochaos", "shardkv-noidem-army", "model_shardkv.cuh",
+            "madsim::ShardKvModel<true, false, false, true, 1, true>",
+            (14, 17, 3, 0, 6, 18, (), 1), (96,), _SHARD_WORDS, _SHARD_NOIDEM, lat=1,
+        ),
     )
 }
 
@@ -526,7 +558,7 @@ KERNEL_FIELDS = (
     "msg_count", "ev_time", "ev_valid", "ev_meta", "ev_epoch", "ev_args",
     "ev_pay", "alive", "paused", "epoch", "node_state", "clog", "slow",
     "skew", "dup", *HISTORY_COLUMNS, *STORAGE_FIELDS, "met", *COVERAGE_FIELDS,
-    *RING_FIELDS, *LATENCY_FIELDS, *CAUSAL_STATE_FIELDS,
+    *RING_FIELDS, *LATENCY_FIELDS, *CAUSAL_STATE_FIELDS, *RETRY_STATE_FIELDS,
 )
 # the taps' columns (the causal ones ride that kernel too), then the
 # latency tap's; a launch without the taps kernel passes null for the
@@ -555,7 +587,8 @@ _DTYPES = {
     "lat_resp": torch.int64, "lat_hist": torch.int32, "lat_count": torch.int32,
     "lat_drop": torch.int32, "lam": torch.int64, "ev_parent": torch.int32,
     "ev_lam": torch.int64, "tl_seq": torch.int32, "tl_parent": torch.int32,
-    "tl_lam": torch.int64,
+    "tl_lam": torch.int64, "rt_done": torch.bool, "rt_attempt": torch.int32,
+    "rt_deadline": torch.int64,
 }
 
 
@@ -748,18 +781,19 @@ class RunKernel:
 
     def launch(self, spec: KernelModel, state: SimState, out: SimState, tables,
                iters, tmax, cfg_words, budget: int, stop_at_halt: bool,
-               latency=None) -> None:
+               latency=None, retry=None) -> None:
         """The run kernel: ``budget`` steps of every seed of ``state``
         into ``out``; each seed's count into ``iters`` and their
         maximum into ``tmax``; a state with the counter row runs the
         instantiation that folds the fleet counters into ``out.met``,
-        and one with latency columns folds the markers under
-        ``latency`` (its ``LatencySpec``)."""
+        one with latency columns folds the markers under ``latency``
+        (its ``LatencySpec``) and one with retry columns runs the timers
+        of ``retry`` (its ``RetrySpec``)."""
         lib = self.load(spec)
         if state.seed.shape[0] == 0:
             return
         ptrs, cfg = kernel_args(state, out, tables, iters, tmax, cfg_words, latency,
-                                spec.lat > 0)
+                                spec.lat > 0, retry)
         rc = lib.madsim_run(
             ptrs, cfg, state.seed.shape[0], int(budget), state.ev_valid.shape[1],
             int(stop_at_halt), int(has_metrics(state)), int(has_obs(state)),
@@ -811,8 +845,13 @@ DRAIN_FIELDS = ("step", "ev_valid", "ev_time")
 
 
 # the engine's config words in front of the observability widths; the
-# latency tap's three words and the causal word follow those
+# latency tap's three words, the causal word and the retry words follow
+# those
 ENGINE_WORDS = 9
+# the retry words: n_ops (0: off), kind, node, op_base, max_attempts,
+# timeout_ns, then the backoff and jitter tables of RETRY_ATTEMPT_MAX + 1
+# entries each (indexed by the next attempt id, zero past max_attempts)
+RETRY_WORDS = 6 + 2 * (RETRY_ATTEMPT_MAX + 1)
 
 
 def obs_words(state: SimState) -> tuple:
@@ -837,22 +876,40 @@ def lat_words(state: SimState, latency, markers: bool = True) -> tuple:
     return (c, p, latency.phase_ns)
 
 
+def retry_words(state: SimState, retry, markers: bool = True) -> tuple:
+    """The config words 16 and up of a run of ``state`` (``RETRY_WORDS``
+    of them): its policy ``retry`` (a ``RetrySpec`` of the state's retry
+    width) as the kernel reads it; zeros when the state has no retry
+    columns or the library folds no markers."""
+    if not (retry_width(state) and markers):
+        return (0,) * RETRY_WORDS
+    check_retry_state(state, retry)
+    boff, bjit = _retry_backoff_tables(retry)
+    pad = (0,) * (RETRY_ATTEMPT_MAX + 1 - len(boff))
+    return (retry.n_ops, retry.kind, retry.node, retry.op_base, retry.max_attempts,
+            retry.timeout_ns, *boff, *pad, *bjit, *pad)
+
+
 def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words,
-                latency=None, markers: bool = True):
+                latency=None, markers: bool = True, retry=None):
     """The ctypes pointer array and config words of one run launch: the
     input fields, the output fields (null where the kernel writes
     none), the tables, ``iters`` and ``tmax``; ``cfg_words``
     (:func:`config_words`) with the state's observability widths, the
     latency tap's words (:func:`lat_words`, ``markers``: the library
-    folds latency markers) and the causal word (config word 15: the
-    state carries the causal columns) after the engine's words. The
-    caller keeps every tensor alive until the launch has run."""
+    folds latency markers), the causal word (config word 15: the state
+    carries the causal columns) and the retry words (:func:`retry_words`)
+    after the engine's words. The caller keeps every tensor alive until
+    the launch has run."""
     lw = lat_words(state, latency, markers)
+    rw = retry_words(state, retry, markers)
     skip = set()
     if not has_obs(state):
         skip.update(OBS_KERNEL_FIELDS)
     if not lw[0]:
         skip.update(LATENCY_FIELDS)
+    if not rw[0]:
+        skip.update(RETRY_STATE_FIELDS)
     unwritten = {*READ_ONLY_FIELDS, *_unwritten(state, markers)}
     ins = [0 if f in skip else getattr(state, f).data_ptr() for f in KERNEL_FIELDS]
     outs = [0 if f in skip or f in unwritten else getattr(out, f).data_ptr()
@@ -863,7 +920,7 @@ def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words,
     # missing engine words (a model without histories may leave out
     # the capacity) are zero
     engine = (*cfg_words[:ENGINE_WORDS], *(0,) * (ENGINE_WORDS - len(cfg_words)))
-    words = (*engine, *obs_words(state), *lw, int(causal_on(state)),
+    words = (*engine, *obs_words(state), *lw, int(causal_on(state)), *rw,
              *cfg_words[ENGINE_WORDS:])
     cfg = (ctypes.c_int64 * len(words))(*words)
     return ptrs, cfg
@@ -902,6 +959,12 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     cw, hc, tc = obs_widths(state)
     lc, lp = lat_widths(state)
     ca = causal_on(state)
+    cr = retry_width(state)
+    if cr and not spec.lat:
+        raise NotImplementedError(
+            f"library {spec.key!r} folds no latency markers, so it runs no "
+            f"client-retry timers; a state with retry columns needs an army library"
+        )
     if cw & (cw - 1):
         raise ValueError(f"cov_words={cw} must be 0 (off) or a power of two")
     shapes = dict(
@@ -919,10 +982,13 @@ def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
         lam=(s, n if ca else 0), ev_parent=(s, e if ca else 0), ev_lam=(s, e if ca else 0),
         tl_seq=(s, tc if ca else 0), tl_parent=(s, tc if ca else 0),
         tl_lam=(s, tc if ca else 0),
+        rt_done=(s, cr), rt_attempt=(s, cr), rt_deadline=(s, cr),
     )
     skip = set() if has_obs(state) else set(OBS_KERNEL_FIELDS)
     if not (lc and spec.lat):
         skip.update(LATENCY_FIELDS)
+    if not (cr and spec.lat):
+        skip.update(RETRY_STATE_FIELDS)
     for name in STATE_FIELDS:
         if name in skip:
             continue
@@ -992,8 +1058,8 @@ def _unwritten(state: SimState, markers: bool = True) -> tuple:
     nothing), the storage columns without the sync discipline, ``met``
     without metrics, the coverage or ring columns with their tap off,
     the latency columns with the tap off or on a library without
-    ``markers`` (nothing marks an op), and the causal columns with the
-    axis off."""
+    ``markers`` (nothing marks an op), the causal columns with the axis
+    off and the retry columns without a policy."""
     cw, _hc, tc = obs_widths(state)
     return (
         (HISTORY_COLUMNS if state.hist_word.shape[1] == 0 else ())
@@ -1003,6 +1069,7 @@ def _unwritten(state: SimState, markers: bool = True) -> tuple:
         + (() if tc else RING_FIELDS)
         + (() if markers and lat_widths(state)[0] else LATENCY_FIELDS)
         + (() if causal_on(state) else CAUSAL_STATE_FIELDS)
+        + (() if markers and retry_width(state) else RETRY_STATE_FIELDS)
     )
 
 
@@ -1020,11 +1087,13 @@ def fresh_outputs(state: SimState, markers: bool = True) -> SimState:
 
 
 def _first_pass(wl: Workload, cfg: EngineConfig, state: SimState,
-                n_steps: int, stop_at_halt: bool, dup_rows: bool = False, latency=None):
+                n_steps: int, stop_at_halt: bool, dup_rows: bool = False, latency=None,
+                retry=None):
     """Launch the run kernel once, up to ``n_steps`` steps per seed,
     from ``state`` into fresh outputs, folding latency markers under
-    ``latency``. Returns the model, the outputs, each seed's step count
-    and their maximum (a device word)."""
+    ``latency`` and running the retry timers of ``retry``. Returns the
+    model, the outputs, each seed's step count and their maximum (a
+    device word)."""
     spec = kernel_model(wl, dup_rows)
     check_state(spec, wl, state)
     dev = state.device
@@ -1033,7 +1102,7 @@ def _first_pass(wl: Workload, cfg: EngineConfig, state: SimState,
     iters = torch.empty((s,), dtype=torch.int64, device=dev)
     tmax = torch.empty((1,), dtype=torch.int64, device=dev)
     KERNEL.launch(spec, state, out, _tables(wl, dev), iters, tmax,
-                  config_words(wl, cfg), n_steps, stop_at_halt, latency)
+                  config_words(wl, cfg), n_steps, stop_at_halt, latency, retry)
     return spec, out, iters, tmax
 
 
@@ -1054,12 +1123,14 @@ def drain_plain(step, ev_valid, ev_time, r):
 
 def check_taps(state: SimState, metrics: bool, cov_words: int = 0,
                cov_hitcount: bool = False, timeline_cap: int = 0, latency=None,
-               causal: bool = False) -> None:
-    """Raise unless a CUDA run's tap arguments agree with ``state``'s
-    derived columns, which pick the kernel's instantiation and widths."""
+               causal: bool = False, retry=None) -> None:
+    """Raise unless a CUDA run's tap and retry arguments agree with
+    ``state``'s columns, which pick the kernel's instantiation and
+    widths."""
     _check_metrics(state, metrics)
     check_obs_state(state, cov_words, cov_hitcount, timeline_cap)
     check_lat_state(state, latency)
+    check_retry_state(state, retry)
     check_causal_state(state, causal, state.alive.shape[1])
     if causal_on(state) and not causal:
         raise ValueError(
@@ -1072,18 +1143,18 @@ def make_run_fused(
     wl: Workload, cfg: EngineConfig, n_steps: int, until_halted: bool = False,
     dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
     timeline_cap: int = 0, cov_hitcount: bool = False, latency=None,
-    causal: bool = False,
+    causal: bool = False, retry=None,
 ):
     """Build ``run(state) -> SimState``: ``n_steps`` steps (or, with
     ``until_halted``, steps until every seed has halted, at most
     ``n_steps``) in the fused kernel, with the duplication rows when
     ``dup_rows``, the fleet counters when ``metrics``, the coverage
     taps and the timeline ring at the given widths, the tail-latency
-    tap under ``latency`` and the causal fold when ``causal``. A CPU
-    state takes the plain step; a CUDA state launches the kernel or
-    raises."""
+    tap under ``latency``, the causal fold when ``causal`` and the
+    client-retry timers of ``retry``. A CPU state takes the plain step;
+    a CUDA state launches the kernel or raises."""
     obs = dict(cov_words=cov_words, timeline_cap=timeline_cap, cov_hitcount=cov_hitcount,
-               latency=latency, causal=causal)
+               latency=latency, causal=causal, retry=retry)
     plain = (
         make_run_while_plain(wl, cfg, n_steps, dup_rows, metrics, **obs) if until_halted
         else make_run_plain(wl, cfg, n_steps, dup_rows, metrics, **obs)
@@ -1094,7 +1165,7 @@ def make_run_fused(
             return plain(state)
         check_taps(state, metrics, **obs)
         spec, out, iters, tmax = _first_pass(wl, cfg, state, n_steps, until_halted,
-                                             dup_rows, latency)
+                                             dup_rows, latency, retry)
         if until_halted:
             KERNEL.drain(spec, out, iters, tmax)
         return out
@@ -1103,8 +1174,8 @@ def make_run_fused(
 
 
 def halt_counts(wl: Workload, cfg: EngineConfig, cap: int, state: SimState,
-                dup_rows: bool = False, latency=None):
+                dup_rows: bool = False, latency=None, retry=None):
     """Each seed's steps until it halts (at most ``cap``), from one
     stop-at-halt run kernel launch on ``state``: the seed-steps a
     ``make_run_while`` run does real work in."""
-    return _first_pass(wl, cfg, state, cap, True, dup_rows, latency)[2]
+    return _first_pass(wl, cfg, state, cap, True, dup_rows, latency, retry)[2]

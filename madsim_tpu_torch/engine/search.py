@@ -45,11 +45,13 @@ and ``tl_lam`` ride ``report.timeline``, from which
 ``obs.causal.causal_slice`` and ``check.device.violation_cones`` cut a
 violation's backward cone.
 
+A plan whose client army carries a ``chaos.RetryPolicy`` runs the
+engine's retry timers (``retry=plan.retry_spec()`` unless ``retry`` is
+given); ``met`` counts the re-sends and give-ups.
+
 On a CUDA state the sweep runs the run kernel: ``make_run_while`` (the
 run and drain kernels), or with ``compact=True`` the compacted runner's
-one stop-at-halt launch. The reference's ``retry`` raises
-``NotImplementedError`` until its engine axis is ported (ROADMAP item
-A8).
+one stop-at-halt launch.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ from ..check.device import (
     verdict_words_to_numpy,
 )
 from ..check.history import BatchHistory
-from .compact import RESULT_FIELDS, SCREEN_FIELDS, make_run_compacted, refuse_unported
+from .compact import RESULT_FIELDS, SCREEN_FIELDS, make_run_compacted
 from .convert import field_to_numpy
 from .core import (
     HALT_DONE,
@@ -96,11 +98,11 @@ def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                     compact: bool, device, hist_screen=None, plan_slots: int = 0,
                     dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
                     cov_hitcount: bool = False, timeline_cap: int = 0, latency=None,
-                    causal: bool = False):
+                    causal: bool = False, retry=None):
     # the one construction of a sweep's (init, run) pair, for make_sweep
     # and search_seeds alike; only the compacted runner embeds a screen
     taps = dict(metrics=metrics, cov_words=cov_words, cov_hitcount=cov_hitcount,
-                timeline_cap=timeline_cap, latency=latency, causal=causal)
+                timeline_cap=timeline_cap, latency=latency, causal=causal, retry=retry)
     init = make_init(wl, cfg, device=device, plan_slots=plan_slots, **taps)
     run = (
         make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen, dup_rows=dup_rows,
@@ -132,13 +134,12 @@ def make_sweep(
     ``{field name: device tensor}`` view, with no host transfer and no
     invariant. ``metrics``, ``cov_words``, ``timeline_cap``,
     ``cov_hitcount``, ``latency`` and ``causal`` run the observability
-    taps; ``retry`` raises ``NotImplementedError`` until its engine axis
-    is ported."""
-    refuse_unported(retry=retry)
+    taps, ``retry`` (a ``RetrySpec``) the client-retry timers."""
     init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device),
                                 plan_slots=plan_slots, dup_rows=dup_rows, metrics=metrics,
                                 cov_words=cov_words, cov_hitcount=cov_hitcount,
-                                timeline_cap=timeline_cap, latency=latency, causal=causal)
+                                timeline_cap=timeline_cap, latency=latency, causal=causal,
+                                retry=retry)
 
     def sweep(seeds, rows=None):
         out = run(init(seeds, rows) if plan_slots else init(seeds))
@@ -151,17 +152,18 @@ def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                   compact: bool, dev, hist_screen=None, plan_slots: int = 0,
                   dup_rows: bool = False, metrics: bool = False, cov_words: int = 0,
                   cov_hitcount: bool = False, timeline_cap: int = 0, latency=None,
-                  causal: bool = False):
+                  causal: bool = False, retry=None):
     from .fused import workload_shape
 
     key = (wl.name, workload_shape(wl), wl.model_params, wl.history, wl.durable_cols,
            wl.durable_sync, wl.cov_features is not None, wl.lat_markers, cfg.hash(),
            max_steps, compact, str(dev), hist_screen, plan_slots, dup_rows, metrics,
-           cov_words, cov_hitcount, timeline_cap, latency, causal)
+           cov_words, cov_hitcount, timeline_cap, latency, causal, retry)
     if key not in _RUN_CACHE:
         _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
                                           plan_slots, dup_rows, metrics, cov_words,
-                                          cov_hitcount, timeline_cap, latency, causal)
+                                          cov_hitcount, timeline_cap, latency, causal,
+                                          retry)
     return _RUN_CACHE[key]
 
 
@@ -458,8 +460,12 @@ def search_seeds(
     per-node Lamport clocks return as ``report.lam``, and with
     ``timeline_cap`` the ring's ``tl_seq``, ``tl_parent`` and ``tl_lam``
     ride ``report.timeline`` (``check.device.violation_cones`` cuts each
-    flagged seed's cone from them). ``retry`` raises
-    ``NotImplementedError`` until its engine axis is ported.
+    flagged seed's cone from them).
+
+    ``retry`` (an ``engine.RetrySpec``) runs the client-retry timers;
+    with a ``plan`` it defaults to ``plan.retry_spec()``, the policy of
+    its client army, if one carries a policy. Pass it explicitly with
+    ``plan_rows`` or a ``LiteralPlan``, which carry no policy.
     """
     if history_invariant is not None and wl.history is None:
         raise ValueError(
@@ -481,7 +487,6 @@ def search_seeds(
                 "them via check.device.screens_invariant in a test, not "
                 "in one sweep)"
             )
-    refuse_unported(retry=retry)
     if invariant is None and history_invariant is None and screens is None:
         raise ValueError(
             "need an invariant, a history_invariant or a device_check"
@@ -517,6 +522,8 @@ def search_seeds(
         rows = plan.compile_batch(seeds, wl=wl)
         if plan_hash is None:
             plan_hash = plan.hash()
+        if retry is None and hasattr(plan, "retry_spec"):
+            retry = plan.retry_spec()
     elif plan_rows is not None:
         rows = plan_rows
         plan_slots = int(np.asarray(rows.time).shape[1])
@@ -531,7 +538,7 @@ def search_seeds(
     dev = resolve_device(device)
     init, run = _compiled_run(wl, cfg, max_steps, compact, dev,
                               screens if compact else None, plan_slots, dup_rows, metrics,
-                              cov_words, cov_hitcount, timeline_cap, latency, causal)
+                              cov_words, cov_hitcount, timeline_cap, latency, causal, retry)
     build_wall_s = _library_build_s(wl, dev, dup_rows)
     out = run(init(seeds, rows) if rows is not None else init(seeds))
     if compact:

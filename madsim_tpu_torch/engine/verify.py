@@ -21,6 +21,7 @@ from .core import (
     CAUSAL_STATE_FIELDS,
     LATENCY_FIELDS,
     OBS_FIELDS,
+    RETRY_STATE_FIELDS,
     STATE_FIELDS,
     STORAGE_FIELDS,
     EngineConfig,
@@ -48,10 +49,11 @@ __all__ = [
 # checks compare them directly
 HISTORY_FIELDS = ("hist_count", "hist_drop", "hist_word", "hist_t")
 # the sync discipline's columns, the fleet counters, the coverage and
-# timeline columns, the latency tap's and the causal columns: outside the
-# trace hash too (zero-size without the discipline or the taps), so both
-# checks compare them directly
-DERIVED_FIELDS = (*STORAGE_FIELDS, "met", *OBS_FIELDS, *LATENCY_FIELDS, *CAUSAL_STATE_FIELDS)
+# timeline columns, the latency tap's, the causal and the retry columns:
+# outside the trace hash too (zero-size without the discipline, the taps
+# or a policy), so both checks compare them directly
+DERIVED_FIELDS = (*STORAGE_FIELDS, "met", *OBS_FIELDS, *LATENCY_FIELDS, *CAUSAL_STATE_FIELDS,
+                  *RETRY_STATE_FIELDS)
 # the fields check_layouts holds besides the trace and DERIVED_FIELDS:
 # the reference's list
 LAYOUT_FIELDS = (

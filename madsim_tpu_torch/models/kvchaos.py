@@ -394,8 +394,9 @@ def client_army(
     (``make_kvchaos(army=True)`` with the same ``n_replicas``): ops
     arrive at the client node and probe the primary. Compose it into a
     ``FaultPlan`` beside the chaos specs and run with
-    ``latency=LatencySpec(ops >= op_base + n_ops)``. ``retry`` raises
-    until the engine's retry axis is ported (ROADMAP A8)."""
+    ``latency=LatencySpec(ops >= op_base + n_ops)``. ``retry`` (a
+    ``chaos.RetryPolicy``) makes the engine re-send ops that see no
+    response in time (``plan.retry_spec()``)."""
     from ..chaos.plan import ClientArmy
 
     return ClientArmy(

@@ -28,8 +28,9 @@ version 0 and the destination installs it, dropping committed writes.
 (``client_army``): each op applies an exactly-once put (a dedup floor in
 client column 3, recorded as ``OP_ARMY_PUT`` with ``record=True``), marks
 its invoke and probes the controller for ``army_probes`` rounds before
-marking its completion. ``bug="noidem"`` (the non-idempotent retried
-put) waits for the engine's retry axis (ROADMAP A8 retry).
+marking its completion. ``bug="noidem"`` plants the non-idempotent
+retried put: the apply skips the floor, so an op that a client retry
+delivers twice applies twice, which only ``check.exactly_once`` sees.
 
 Node layout: [controller 0, client 1, then group g's replicas at
 2+g*R .. 2+g*R+R-1 (primary first)]
@@ -126,8 +127,11 @@ def make_shardkv(
 ) -> Workload:
     """The sharded-KV workload; ``record=True`` records writes and
     installs, ``bug=True`` plants the lost-shard mutant and ``army=True``
-    adds the client-army handlers. ``bug="noidem"`` raises
-    ``NotImplementedError`` until the retry axis is ported."""
+    adds the client-army handlers. ``bug="noidem"`` plants the
+    non-idempotent retried-put mutant instead: the army apply skips its
+    exactly-once floor, so every delivered attempt applies and records
+    (``check.exactly_once`` sees it, ``shard_coverage`` does not). It
+    needs ``record=True`` and ``army=True``."""
     if bug not in (False, True, "noidem"):
         raise ValueError(
             f"bug must be False, True (lost-shard) or 'noidem' "
@@ -145,12 +149,6 @@ def make_shardkv(
         )
     if army_probes < 1:
         raise ValueError(f"army_probes must be >= 1, got {army_probes}")
-    if bug == "noidem":
-        raise NotImplementedError(
-            "make_shardkv(bug='noidem') plants a fault that only retried "
-            "deliveries show, and needs the engine's client-retry axis, which "
-            "the torch port does not have yet (ROADMAP A8 retry)"
-        )
     G, R, S = n_groups, group_size, n_shards
     if not 1 <= S <= 8:
         raise ValueError(f"n_shards must be in [1, 8] (packed 4-bit "
@@ -295,7 +293,7 @@ def make_shardkv(
         st = ctx.state
         owned = get_col(st, S + s) > 0
         eb = ctx.emits()
-        if bug:
+        if bug is True:
             # the planted lost-shard mutant: "handoff sent" counts as
             # "migration done", so the source wipes the shard at once and
             # answers a retried MIG_START from the wiped state
@@ -401,7 +399,10 @@ def make_shardkv(
         hist = HistorySpec(capacity=cap, max_records=1)
     name = "shardkv"
     if record:
-        name += "-bug" if bug else "-record"
+        if bug == "noidem":
+            name += "-noidem"
+        else:
+            name += "-bug" if bug else "-record"
 
     def on_areq(ctx):
         # an army op arrives at the client: an exactly-once put. Ops are
@@ -410,7 +411,12 @@ def make_shardkv(
         op_id = retry_token_op(ctx.args[:, 0])
         att = retry_token_attempt(ctx.args[:, 0])
         st = ctx.state
-        applied = op_id >= st[:, _K_APPLIED]
+        if bug == "noidem":
+            # the planted mutant: every delivery applies and records, so
+            # a retry whose first attempt did land applies the op twice
+            applied = torch.ones_like(op_id, dtype=torch.bool)
+        else:
+            applied = op_id >= st[:, _K_APPLIED]
         new = set_cols(st, applied, {_K_APPLIED: torch.clamp(op_id + 1, 0, VER_CAP)})
         eb = ctx.emits()
         if record:
@@ -495,8 +501,9 @@ def client_army(
 ):
     """A :class:`chaos.ClientArmy` bound to shardkv's client surface
     (``make_shardkv(army=True)``): ops arrive at the client node, apply
-    an exactly-once put and probe the controller. ``retry`` raises until
-    the engine's retry axis is ported (ROADMAP A8)."""
+    an exactly-once put and probe the controller. ``retry`` (a
+    ``chaos.RetryPolicy``) makes the engine re-send ops that see no
+    response in time (``plan.retry_spec()``)."""
     from ..chaos.plan import ClientArmy
 
     return ClientArmy(

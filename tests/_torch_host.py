@@ -103,13 +103,15 @@ def build_host_kernel(tmp_dir, spec, pools, group=None, obs=False):
     return h
 
 
-def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None, latency=None):
+def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None, latency=None,
+                retry=None):
     """One run launch of the host build from CPU state ``state`` into
     fresh outputs; returns ``(out, iters, tmax)``. ``words`` defaults
     to the registered model's config words; a state with the counter
     row runs the instantiation with the fleet counters, one with a
-    coverage or ring column the one with the taps, and one with latency
-    columns folds the markers under ``latency``."""
+    coverage or ring column the one with the taps, one with latency
+    columns folds the markers under ``latency`` and one with retry
+    columns runs the timers of ``retry``."""
     s, e = state.ev_valid.shape
     markers = wl.lat_markers > 0
     out = fused.fresh_outputs(state, markers)
@@ -118,7 +120,7 @@ def host_launch(lib, wl, cfg, state, budget, stop_at_halt, words=None, latency=N
     if words is None:
         words = fused.config_words(wl, cfg)
     ptrs, c = fused.kernel_args(state, out, fused._tables(wl, "cpu"), iters, tmax, words,
-                                latency, markers)
+                                latency, markers, retry)
     assert lib.host_run(ptrs, c, s, int(budget), e, int(stop_at_halt),
                         int(fused.has_metrics(state)), int(fused.has_obs(state))) == 0
     return out, iters, tmax
@@ -131,10 +133,11 @@ def host_drain(lib, out, iters, tmax):
     assert lib.host_drain(ptrs, out.seed.shape[0], out.ev_valid.shape[1]) == 0
 
 
-def host_run(lib, wl, cfg, st, n_steps, until_halted, words=None, latency=None):
+def host_run(lib, wl, cfg, st, n_steps, until_halted, words=None, latency=None, retry=None):
     """make_run_fused's protocol (a run launch, then for make_run_while
     the drain launch), with the host build."""
-    out, iters, tmax = host_launch(lib, wl, cfg, st, n_steps, until_halted, words, latency)
+    out, iters, tmax = host_launch(lib, wl, cfg, st, n_steps, until_halted, words, latency,
+                                   retry)
     if until_halted:
         host_drain(lib, out, iters, tmax)
     return out

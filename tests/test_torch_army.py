@@ -140,11 +140,37 @@ def test_an_army_needs_the_client_surface():
         tplan.literalize(0, wl=twl).compile_batch(np.arange(2, dtype=np.uint64), wl=no_army)
 
 
+def _error(fn):
+    try:
+        fn()
+    except (ValueError, TypeError) as exc:
+        return type(exc).__name__, str(exc)
+    return None
+
+
 def test_retries_wait_for_the_retry_axis():
-    with pytest.raises(NotImplementedError, match="A8 retry"):
-        tchaos.RetryPolicy(timeout_ns=10_000_000)
-    with pytest.raises(NotImplementedError, match="A8 retry"):
-        tchaos.ClientArmy(node=1, kind=tcore.user_kind(15), retry=object())
+    """The retry axis is ported: a policy builds and validates as the JAX
+    package's, a client army carries it and compiles it into the engine's
+    spec, and the errors are the reference's word for word."""
+    pol = dict(timeout_ns=10_000_000, max_attempts=4, backoff_base_ns=1_000_000, jitter=0.5)
+    t_army = tchaos.ClientArmy(node=1, kind=tcore.user_kind(15), n_ops=8, op_base=3,
+                               retry=tchaos.RetryPolicy(**pol))
+    j_army = jchaos.ClientArmy(node=1, kind=je.user_kind(15), n_ops=8, op_base=3,
+                               retry=jchaos.RetryPolicy(**pol))
+    assert repr(t_army.retry_spec()) == repr(j_army.retry_spec())
+    assert repr(t_army) == repr(j_army)
+    for bad in (dict(timeout_ns=0), dict(timeout_ns=1, max_attempts=0),
+                dict(timeout_ns=1, jitter=-0.1), dict(timeout_ns=1, backoff_mult=0.9)):
+        got = _error(lambda: tchaos.RetryPolicy(**bad))
+        assert got is not None and got == _error(lambda: jchaos.RetryPolicy(**bad))
+    for kw in (dict(retry=object()), dict(op_base=(1 << 26) - 2, n_ops=4,
+                                          retry=tchaos.RetryPolicy(timeout_ns=1))):
+        got = _error(lambda: tchaos.ClientArmy(node=1, kind=tcore.user_kind(15), **kw))
+        jkw = {**kw, "retry": jchaos.RetryPolicy(timeout_ns=1)} if "n_ops" in kw else kw
+        assert got is not None and got == _error(
+            lambda: jchaos.ClientArmy(node=1, kind=je.user_kind(15), **jkw))
+    with pytest.raises(ValueError, match="no RetryPolicy"):
+        tchaos.ClientArmy(node=1, kind=tcore.user_kind(15)).retry_spec()
     with pytest.raises(ValueError, match="army_probes"):
         tmodels.make_kvchaos(army=True, army_probes=0)
 

@@ -23,7 +23,6 @@ from madsim_tpu.models import make_raft as j_raft
 from madsim_tpu.models import make_shardkv as j_shardkv
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine.checkpoint import load, save
-from madsim_tpu_torch.engine.convert import FOREIGN_FIELDS
 from madsim_tpu_torch.models import (
     BENCH_SPECS, SOAK_SPECS, make_kvchaos, make_leasekv, make_raft, make_shardkv,
 )
@@ -95,8 +94,9 @@ def test_port_file_resumes_in_the_reference(case, tmp_path):
     ids=["raft", "kvchaos-payload", "shardkv"],
 )
 def test_foreign_entries_are_the_reference_fields(jf, tf, kw, tmp_path):
-    """The port's table names every field of the reference's SimState
-    it does not carry, with the reference's dtype and shape."""
+    """The port's SimState has every field of the reference's but the
+    pool-index summaries, and its file holds each with the reference's
+    dtype and shape."""
     jcfg = je.EngineConfig(**kw)
     jst = je.make_init(jf(), jcfg, time32=False)(np.arange(3, dtype=np.uint64))
     want = {f: v for f, v in jax_fields(jst).items() if f not in POOL_INDEX_STATE_FIELDS}
@@ -105,9 +105,8 @@ def test_foreign_entries_are_the_reference_fields(jf, tf, kw, tmp_path):
          tcore.EngineConfig(**kw))
     with np.load(path) as data:
         got = {f: data[f] for f in data.files if f != "__madsim_manifest__"}
-    assert set(got) == set(want)
-    assert set(FOREIGN_FIELDS) == set(want) - set(tcore.STATE_FIELDS)
-    for f in FOREIGN_FIELDS:
+    assert set(got) == set(want) == set(tcore.STATE_FIELDS)
+    for f in tcore.STATE_FIELDS:
         assert (got[f].dtype, got[f].shape) == (want[f].dtype, want[f].shape), f
 
 
@@ -151,17 +150,20 @@ def test_refuses_a_time32_checkpoint(tmp_path):
      ("rt_done", np.zeros((4, 1), np.bool_), "A8")],
 )
 def test_refuses_a_non_empty_foreign_field(port_file, field, value, item):
-    """A non-empty entry of a field the port does not carry is refused;
-    the latency and causal columns are the port's own since their axes
-    were ported, so their entries load as they are."""
+    """No field of the reference is foreign to the port since the retry
+    axis: the latency, causal and retry columns load as they are (a
+    retry column under the spec of its width)."""
     path, cfg = port_file
     _rewrite(path, **{field: value})
-    if field in tcore.STATE_FIELDS:
-        np.testing.assert_array_equal(getattr(load(path, cfg, device="cpu"), field).numpy(),
-                                      value)
-        return
-    with pytest.raises(ValueError, match=f"'{field}' is not empty.*{item}"):
-        load(path, cfg, device="cpu")
+    assert field in tcore.STATE_FIELDS and item == "A8"
+    retry = None
+    if field == "rt_done":
+        retry = tcore.RetrySpec(kind=tcore.FIRST_USER_KIND, node=0, op_base=0, n_ops=1,
+                                timeout_ns=1)
+        with pytest.raises(ValueError, match="retry columns for 1 ops"):
+            load(path, cfg, device="cpu")
+    np.testing.assert_array_equal(
+        getattr(load(path, cfg, device="cpu", retry=retry), field).numpy(), value)
 
 
 def test_refuses_an_unknown_format(port_file):

@@ -22,10 +22,10 @@ from madsim_tpu.models import make_raft as j_raft
 from madsim_tpu.models import make_shardkv as j_shardkv
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import fused
+from madsim_tpu_torch.engine.convert import state_to_numpy
 from madsim_tpu_torch.check.device import election_safety
 from madsim_tpu_torch.engine.compact import (
     RESULT_FIELDS,
-    UNPORTED_OPTIONS,
     _phase_sizes,
     bank_steps,
     make_run_compacted,
@@ -144,15 +144,32 @@ def test_arguments_are_validated():
     with pytest.raises(ValueError, match="unknown result field"):
         make_run_compacted(wl, cfg, 10, fields=("lat_inv",))
     # causal is ported: the final clocks and the ring's causal columns
-    # are banked; retry is still refused
+    # are banked
     got = make_run_compacted(wl, cfg, 10, causal=True, timeline_cap=8)(
         tcore.make_init(wl, cfg, device="cpu", causal=True, timeline_cap=8)(np.arange(2)))
     assert got.lam.shape == (2, 5) and got.lam.any() and got.tl_seq.shape == (2, 8)
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_run_compacted(wl, cfg, 10, retry=object())
-    # hist_screen is validated now, not refused: it needs histories and
-    # the four history fields banked
-    assert "hist_screen" not in UNPORTED_OPTIONS
+    # so is retry: a compacted run under a client army's policy banks the
+    # plain step's results (no retry columns: met carries the counters),
+    # and a state built for another policy is refused
+    from madsim_tpu_torch.chaos import FaultPlan, RetryPolicy
+    from madsim_tpu_torch.models import kvchaos
+
+    kwl = make_kvchaos(writes=4, n_replicas=2, chaos=False, army=True)
+    plan = FaultPlan((kvchaos.client_army(n_ops=4, t_min_ns=5_000_000, t_max_ns=80_000_000,
+                                          n_replicas=2, retry=RetryPolicy(timeout_ns=5_000_000)),))
+    rt, kcfg = plan.retry_spec(), tcore.EngineConfig(pool_size=48)
+    seeds = np.arange(3, dtype=np.uint64)
+    st = tcore.make_init(kwl, kcfg, device="cpu", plan_slots=plan.slots, metrics=True,
+                         retry=rt)(seeds, plan.compile_batch(seeds, wl=kwl))
+    got = make_run_compacted(kwl, kcfg, 400, min_size=2, metrics=True, retry=rt)(st)
+    want = state_to_numpy(tcore.make_run_while(kwl, kcfg, 400, metrics=True, retry=rt)(st))
+    assert want["met"][:, tcore.MET_RETRY].sum() > 0
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), want[f], err_msg=f)
+    with pytest.raises(ValueError, match="retry columns for 4 ops"):
+        make_run_compacted(kwl, kcfg, 400, metrics=True)(st)
+    # hist_screen is validated, not refused: it needs histories and the
+    # four history fields banked
     with pytest.raises(ValueError, match="Workload.history=None"):
         make_run_compacted(wl, cfg, 10, hist_screen=election_safety(OP_ELECT))
     with pytest.raises(ValueError, match=r"missing \['hist_t'\]"):

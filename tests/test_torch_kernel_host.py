@@ -208,6 +208,11 @@ def test_registry_shapes_equal_the_factories():
         "leasekv-army": SOAK_SPECS["leasekv"][0](army=True),
         "shardkv-record-army-nochaos": SOAK_SPECS["shardkv"][0](record=True, army=True,
                                                                 chaos=False),
+        # the retry soak's (tools/retry_soak.py)
+        "kvchaos-record-army-r2-nochaos": make_kvchaos(writes=12, n_replicas=2, chaos=False,
+                                                       army=True, record=True),
+        "shardkv-noidem-army-nochaos": SOAK_SPECS["shardkv"][0](record=True, army=True,
+                                                                chaos=False, bug="noidem"),
     }
     assert all(fused.kernel_model(w).key == key and fused.MODELS[key].lat == w.lat_markers == 1
                for key, w in army.items())

@@ -17,7 +17,7 @@ from madsim_tpu.models import make_raft as j_raft
 from madsim_tpu_torch.check.device import election_safety
 from madsim_tpu_torch.engine import core as tcore
 from madsim_tpu_torch.engine import search
-from madsim_tpu_torch.engine.compact import RESULT_FIELDS, UNPORTED_OPTIONS
+from madsim_tpu_torch.engine.compact import RESULT_FIELDS
 from madsim_tpu_torch.engine.search import make_sweep, search_seeds
 from madsim_tpu_torch.models import make_kvchaos, make_microbench, make_raft
 from madsim_tpu_torch.models.raft import OP_ELECT
@@ -145,9 +145,34 @@ def test_unported_options_raise_naming_their_item(option, item):
     value = {"cov_words": 2, "timeline_cap": 8, "metrics": True, "causal": True,
              "dup_rows": True}.get(option, object())
     cfg = tcore.EngineConfig(pool_size=40)
+    if option == "retry":
+        # A8 ported it: a client army's policy arms the engine's timers,
+        # derived from the plan or given with its rows; a sweep takes it
+        from madsim_tpu_torch.chaos import RetryPolicy
+        from madsim_tpu_torch.models import kvchaos
+
+        wl = make_kvchaos(writes=4, n_replicas=2, chaos=False, army=True)
+        plan = FaultPlan((kvchaos.client_army(n_ops=4, t_min_ns=5_000_000, t_max_ns=80_000_000,
+                                              n_replicas=2,
+                                              retry=RetryPolicy(timeout_ns=5_000_000)),))
+        kcfg, rt = tcore.EngineConfig(pool_size=48), plan.retry_spec()
+        rows = plan.compile_batch(np.arange(4, dtype=np.uint64), wl=wl)
+        ones = lambda v: np.ones(v["halted"].shape[0], bool)  # noqa: E731
+        kw = dict(n_seeds=4, max_steps=400, metrics=True, require_halt=False, device="cpu")
+        derived = search_seeds(wl, kcfg, ones, plan=plan, **kw)
+        given = search_seeds(wl, kcfg, ones, plan_rows=rows, retry=rt, **kw)
+        off = search_seeds(wl, kcfg, ones, plan_rows=rows, **kw)
+        np.testing.assert_array_equal(derived.met, given.met)
+        np.testing.assert_array_equal(derived.traces, given.traces)
+        assert derived.met[:, tcore.MET_RETRY].sum() > 0 and not off.met[:, tcore.MET_RETRY:].any()
+        view = make_sweep(wl, kcfg, 400, device="cpu", plan_slots=plan.slots, metrics=True,
+                          retry=rt)(np.arange(4, dtype=np.uint64), rows)
+        np.testing.assert_array_equal(view["trace"].numpy().view(np.uint64), given.traces)
+        with pytest.raises(TypeError, match="RetrySpec or None"):
+            search_seeds(wl, kcfg, ones, plan_rows=rows, retry=object(), **kw)
+        return
     if option == "causal":
         # A8 ported it: the final clocks come back and nothing else moves
-        assert option not in UNPORTED_OPTIONS
         on = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
                           device="cpu", causal=True, timeline_cap=8)
         off = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
@@ -159,7 +184,6 @@ def test_unported_options_raise_naming_their_item(option, item):
     if option == "latency":
         # A8 ported it: raft marks no op, so its sketches stay empty and
         # its traces are those of the sweep without the tap
-        assert option not in UNPORTED_OPTIONS
         on = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
                           device="cpu", latency=tcore.LatencySpec(ops=4, phases=2))
         off = search_seeds(make_raft(), cfg, has_leader, n_seeds=4, max_steps=10,
@@ -170,7 +194,6 @@ def test_unported_options_raise_naming_their_item(option, item):
         assert off.lat_hist is None and off.lat_count is None
         return
     if item == "ported":
-        assert option not in UNPORTED_OPTIONS
         plan = FaultPlan((PauseStorm(targets=(0, 1, 2)),))
         if option == "device_check":
             # validated, not refused: raft without record=True has no

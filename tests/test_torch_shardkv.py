@@ -92,17 +92,16 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
 @pytest.mark.parametrize("kw", [dict(army=True), dict(record=True, bug="noidem", army=True)],
                          ids=["army", "noidem"])
 def test_unported_modes_raise(kw):
-    """army waited for the latency markers and builds now: under its
-    client army with the latency tap it equals the reference per field.
-    bug="noidem" still waits, for the retry axis."""
-    if kw.get("bug") == "noidem":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8 retry"):
-            t_make(**kw)
-        return
+    """army waited for the latency markers and bug="noidem" for the retry
+    axis; both build now and, under the client army with the latency tap,
+    equal the reference per field (noidem's fault needs a retry policy to
+    show: without one every op is delivered once)."""
     from _torch_army import army_only_both
 
     t = army_only_both("shardkv", kw, 16, 96, 300, SEEDS[:16])
     assert t["lat_count"].sum() > 0
+    if kw.get("bug") == "noidem":
+        assert t_make(**kw).name == "shardkv-noidem-army"
 
 
 @pytest.mark.parametrize("kw", [dict(record=True), dict(record=True, bug=True)],
