@@ -31,7 +31,7 @@ plain eager step:
    launch) with the launch counts read around it, checks that every
    seed halted with no pool overflow, holds every field against the
    plain step on the card (run once, timed that once, and counting the
-   work of the bound) and the first 256 seeds against the plain step on
+   work of the bound) and the first 64 seeds against the plain step on
    the CPU, holds the drain kernel alone against its plain version, and
    times the kernel path by CUDA events (median of 5, min, max). Raft
    also checks its election latency and splits the kernel path's time
@@ -94,7 +94,7 @@ plain eager step:
    duplication, with ``dup_rows`` and without (the flag set and stored,
    no shadow row sent), all at pool 96 and 8,192 seeds. Each is
    held as in phases 4-15 (every field against the plain step on the
-   card, the first 256 seeds on the CPU, the drain kernel alone) and
+   card, the first 64 seeds on the CPU, the drain kernel alone) and
    timed, beside kvchaos-bug with its own chaos at the same shape;
 37. the nemesis certificates 1-3 and 5-7 of ``tools/nemesis_soak.py``
    at 8,192 seeds on the card, each search's seeds equal to the plain
@@ -121,7 +121,7 @@ plain eager step:
    ``metrics=True``, every field but ``met`` equal to the run without,
    its time beside phase 4's; 38.6 phase 36.4's run with
    ``metrics=True`` (its cap), every field but ``met`` equal to 36.4's
-   plain run on the card, every field on the first 256 seeds on the CPU, its
+   plain run on the card, every field on the first 64 seeds on the CPU, its
    dup, pause, clog-block and crash counters summed over every seed
    non-zero;
 39. the store soak's certificates at 8,192 seeds on the card, each
@@ -138,7 +138,7 @@ plain eager step:
    with ``metrics=True, timeline_cap=256, cov_words=64,
    cov_hitcount=True``, held as phase 4 (every field, the bitmap, hit
    counters and ring included, against the plain step on the card and
-   the first 256 seeds on the CPU), every field but the tap columns and
+   the first 64 seeds on the CPU), every field but the tap columns and
    ``met`` equal to phase 4's run, the kernel's ms beside phase 4's and
    each tap alone timed with its shared bytes a block;
 41. coverage searches: the new library raftlog-durable-spread
@@ -239,7 +239,44 @@ plain eager step:
    the soak's kvchaos policy, 4,096 seeds, cap 2,000, held as phases
    4-15 on the first 512 seeds; seeds 0-7 decoded, their Perfetto try
    arrows and re-sent army rows the JAX package's counts;
-55. one JSON line describing each kernel, with its launches on every
+55. coverage-guided exploration (``tools/explore_soak.py`` on the card),
+   its certificate 1: kvchaos-bug-nochaos (writes=10, pool 192, loss
+   0.05, cap 4,000, 64 coverage words) under the soak's crash storm, a
+   uniform sweep of 2,048 seeds and the guided host campaign
+   (``explore.run``, 8 generations of 256, root 7) judged by
+   ``stale_reads & read_your_writes``: violations, coverage bits, both
+   curves and the campaign's digest the JAX package's
+   (``EXPLORE_PINS``, from ``tests/_torch_explore_pins.py``); then
+   ``explore.run_device`` with the two screens as ``history_check``:
+   the host campaign's digest, one host sync a generation; each
+   generation's dispatch and sync ms and its parts' CUDA-event ms;
+56. certificate 2: the 3 x 64 campaign twice, identical and pinned; its
+   first violation replayed, shrunk to the pinned events, rounds,
+   probes and trace, and the shrunk plan replayed;
+57. certificates 3-4, the diskless-raftlog hunt on the new library
+   raftlog-record-nochaos (pool 128, loss 0.02, clog backoff at most
+   2 s, cap 6,000, the taps kernel): 8 generations of 256, root 2024,
+   election safety on OP_COMMIT and OP_ELECT; violations, curves,
+   digest and first find pinned; the find replayed, shrunk to the
+   pinned events, rounds, probes and trace (its wall seconds printed),
+   the shrunk plan replayed to the violation;
+58. the retry soak's noidem hunt (shardkv-noidem-army-nochaos, its new
+   taps kernel at pool 96, 32 coverage words, the latency tap, 3 x 128,
+   root 14) and the causal soak's cone hunt (raftlog-record-w16-nochaos,
+   pool 192, cap 20,000, 2 x 256, root 2024) as campaigns, each
+   campaign's violations, digest and first find pinned;
+59. ``explore.run_device`` on raft at pool 64 (its new taps kernel) under
+   the JAX package's device-test plan, 8 generations of 4,096, cap 600,
+   16 coverage words; a second campaign with another root builds
+   nothing (``compile_wall_s`` 0.0 each generation); every generation's
+   parts (mutate, compile, sweep, judge, admit) by CUDA events; the
+   mutator's first-maximum pick on the card.
+   In each of 55-59 the first 128 children of a bred generation (their
+   seeds and plan rows, the bitmap on) run through the kernel, every
+   field against the plain step on the card, timed (55's and 56's, 128
+   and 64 children, in one batch: the plain step's cost on the card is
+   its step count);
+60. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after) and its library's launch shape (the
    occupancy calculator's numbers and the registers of the kernels
@@ -270,7 +307,9 @@ import numpy as np
 import torch
 
 ENTRY_SEEDS = 1024
-CPU_SAMPLE = 256
+# the CPU sample of phases 4-15, 21-30, 36, 38, 40 and 41 (256 until PR
+# 14, which cut it to make room for phases 55-59)
+CPU_SAMPLE = 64
 REPEATS = 5
 # Bound terms (NVIDIA H100 SXM data sheet): 3.35 TB/s of HBM; integer
 # issue of 132 SMs x 64 int32 lanes per clock at the card's max clock
@@ -781,7 +820,7 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
                  repeats: int, extras=None, plan=None, dup_rows: bool = False,
                  all_halt: bool = True, refs: dict | None = None, metrics: bool = False,
                  plain_seeds: int | None = None, reuse: tuple | None = None,
-                 taps: dict | None = None) -> dict:
+                 taps: dict | None = None, seeds=None, rows=None) -> dict:
     """One library at a full-width shape: the main path through the
     kernel with the launch counts read around it, the checks, every
     field against the plain step (on the device, run and timed once, and
@@ -799,15 +838,25 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
     ``taps`` (``cov_words``, ``cov_hitcount``, ``timeline_cap``,
     ``latency``, ``causal``, ``retry``) runs the coverage taps, the
     timeline ring, the tail-latency tap, the causal fold and the
-    client-retry timers on every side.
+    client-retry timers on every side. ``seeds`` and ``rows`` (a
+    ``PlanRows``) run those seeds with those plan rows instead of seeds
+    0..n-1 and ``plan``'s compile: an explore generation's children.
+    ``cpu_sample=0`` holds no CPU sample (the card's plain run holds
+    every seed).
     ``extras(device, wl, cfg, cap, st, out, ms)`` adds a model's own
     checks and timings, given the kernel's median."""
     from madsim_tpu_torch.engine import make_init, make_run_plain, make_run_while
     from madsim_tpu_torch.engine.fused import KERNEL, halt_counts
 
-    seeds = np.arange(n_seeds, dtype=np.uint64)
+    seeds = np.arange(n_seeds, dtype=np.uint64) if seeds is None else seeds
     taps = taps or {}
-    if plan is None:
+    if rows is not None:
+        slots = int(rows.time.shape[1])
+        init = make_init(wl, cfg, device=device, plan_slots=slots, metrics=metrics, **taps)
+        st = init(seeds, rows)
+        log(f"  {n_seeds} children of an explore generation: {slots} plan slots, "
+            f"{int(rows.valid.sum())} events; dup_rows {dup_rows}")
+    elif plan is None:
         init = make_init(wl, cfg, device=device, metrics=metrics, **taps)
         st = init(seeds)
     else:
@@ -886,12 +935,13 @@ def kernel_phase(device, key: str, wl, cfg, n_seeds: int, cap: int, cpu_sample: 
         log("  drain kernel alone vs its plain version: step and ev_valid equal")
     k = min(cpu_sample, n_seeds)
     t = time.perf_counter()
-    cpu_ref = make_run_plain(wl, cfg, n_steps, dup_rows, metrics, **taps)(
-        head_of(st, k).to("cpu"))
+    if k:
+        cpu_ref = make_run_plain(wl, cfg, n_steps, dup_rows, metrics, **taps)(
+            head_of(st, k).to("cpu"))
+        head = head_of(out, k)
+        assert_equal(head, cpu_ref, f"first {k} seeds (kernel) vs plain on the CPU")
+        err = max(err, max_abs_err(head, cpu_ref))
     cpu_ms = (time.perf_counter() - t) * 1e3
-    head = head_of(out, k)
-    assert_equal(head, cpu_ref, f"first {k} seeds (kernel) vs plain on the CPU")
-    err = max(err, max_abs_err(head, cpu_ref))
 
     ms = time_ms(lambda: run(st), repeats, device)
     med = statistics.median(ms)
@@ -1006,10 +1056,12 @@ def kernel_line(name: str, model_source: str, r: dict, clock_hz: float,
     }
 
 
-def base_registers(build_log: str, pool: int) -> dict:
+def base_registers(build_log: str, pool: int, taps: bool = False) -> dict:
     """The registers of a library's kernels without the taps at ``pool``
     (the run kernel with and without metrics, the drain kernel), from
-    nvcc's ``--resource-usage`` lines: ``{kernel: registers}``."""
+    nvcc's ``--resource-usage`` lines: ``{kernel: registers}``. With
+    ``taps``, those of its taps kernel (``run_kernel<E, MET, true>``)
+    with and without metrics instead."""
     import re
 
     out, fn = {}, None
@@ -1021,7 +1073,7 @@ def base_registers(build_log: str, pool: int) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
             short = re.match(r"(run|drain)_kernelILi(\d+)E(?:Lb(\d)ELb(\d)E)?", fn)
-            if short and int(short.group(2)) == pool and short.group(4) != "1":
+            if short and int(short.group(2)) == pool and (short.group(4) == "1") == taps:
                 name = (f"run(metrics={short.group(3) == '1'})" if short.group(1) == "run"
                         else "drain")
                 out[name] = int(m.group(1))
@@ -2653,9 +2705,8 @@ ARROW_SEEDS, ARROW_CAP = tuple(range(77, 85)), 512
 ARROW_HELD_SEEDS = 1024
 # certificate 3's hunt shape: the 16-write diskless raftlog-record, pool
 # 192, loss 0.02, clog backoff at most 2 s, 20,000 steps, an 8,192-row
-# ring, 2,048 seeds of the fixed hunt plan (the JAX tool mutates it with
-# explore, which the port has not yet: ROADMAP A10); the plain step on
-# the card holds the first 128 seeds
+# ring, 2,048 seeds of the fixed hunt plan (phase 58 runs the JAX tool's
+# campaign over it); the plain step on the card holds the first 128 seeds
 HUNT_SEEDS, HUNT_PLAIN_SEEDS, HUNT_CPU_SAMPLE = 2048, 128, 8
 HUNT_KW = dict(pool_size=192, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
 HUNT_STEPS, HUNT_CAP, CONE_BAR = 20000, 8192, 0.25
@@ -3063,8 +3114,8 @@ RETRY_SK_KW = dict(pool_size=96, time_limit_ns=600_000_000)
 RETRY_KV_LAT = dict(ops=RETRY_N_OPS, phases=3, phase_ns=1 << 27)
 RETRY_SK_LAT = dict(ops=RETRY_N_OPS)
 # certificate 2's seeds; certificate 3's sweep on the fixed hunt plan
-# (the JAX tool mutates it with explore, which the port has not yet:
-# ROADMAP A10), its plain seeds and the flagged seeds checked alone
+# (phase 58 runs the JAX tool's campaign over it), its plain seeds and
+# the flagged seeds checked alone
 RETRY_AMP_SEEDS = 512
 NOIDEM_SEEDS, NOIDEM_PLAIN_SEEDS, NOIDEM_CHECKED = 1024, 128, 8
 # phase 54: the step goldens' kvchaos army scenario (pool 72) with the
@@ -3383,6 +3434,516 @@ def retry_obs_phase(device, results: list, paths: dict, extra: dict, card: str) 
         f"rings ({got[3]} rows past the rings), traces {got[2]} (the JAX package's)")
 
 
+# ---------------------------------------------------------------------------
+# phases 55-59: coverage-guided exploration on the card
+# ---------------------------------------------------------------------------
+
+# the explore soak's shapes (tools/explore_soak.py): kvchaos-bug without
+# its own chaos (writes=10, pool 192, loss 0.05, 4,000 steps, 64
+# coverage words) under its crash storm, 8 generations of 256 against a
+# uniform sweep of 2,048; the 3 x 64 determinism campaign; the
+# diskless-raftlog hunt (pool 128, loss 0.02, clog backoff at most 2 s,
+# 6,000 steps) under the crash storm and flapping partition. Each
+# phase holds the first EXPLORE_HELD children of a bred generation (its
+# seeds and plan rows, the bitmap on) against the plain step on the card
+EXPLORE_KV_W, EXPLORE_KV_STEPS, EXPLORE_CW = 10, 4000, 64
+EXPLORE_KV_KW = dict(pool_size=192, loss_p=0.05)
+EXPLORE_RL_KW = dict(pool_size=128, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+EXPLORE_RL_STEPS = 6000
+EXPLORE_HELD = 128
+EXPLORE_KV_RUN = dict(generations=8, batch=256, root_seed=7, max_steps=EXPLORE_KV_STEPS,
+                      cov_words=EXPLORE_CW, max_ops=1, inherit_seed_p=0.9)
+EXPLORE_SMALL_RUN = dict(EXPLORE_KV_RUN, generations=3, batch=64)
+EXPLORE_HUNT_RUN = dict(generations=8, batch=256, root_seed=2024, max_steps=EXPLORE_RL_STEPS,
+                        cov_words=EXPLORE_CW, select_top=24, max_ops=2, inherit_seed_p=0.85,
+                        require_halt=False)
+# the retry soak's noidem hunt (tools/retry_soak.py: shardkv-noidem-army
+# at pool 96 with the latency tap, 32 coverage words) and the causal
+# soak's cone hunt (tools/causal_soak.py: the 16-write diskless
+# raftlog-record at pool 192, 20,000 steps), as campaigns
+EXPLORE_RETRY_RUN = dict(generations=3, batch=128, root_seed=14, max_steps=RETRY_STEPS,
+                         cov_words=32, select_top=16, max_ops=2)
+EXPLORE_CONE_RUN = dict(generations=2, batch=256, root_seed=2024, max_steps=HUNT_STEPS,
+                        cov_words=EXPLORE_CW, select_top=24, max_ops=2, inherit_seed_p=0.85,
+                        require_halt=False)
+# phase 59: run_device on raft at pool 64 (the JAX package's device
+# test plan), 8 generations of 4,096, 600 steps, 16 coverage words
+DEVICE_KW = dict(pool_size=64, loss_p=0.02)
+DEVICE_RUN = dict(generations=8, batch=4096, root_seed=11, max_steps=600, cov_words=16)
+# what the JAX package gives on the CPU for the same campaigns
+# (tests/_torch_explore_pins.py; its 55-57 equal tools/explore_soak.py
+# 2048's counts, curves and traces): the uniform sweep's violations and
+# bits; each campaign's violations, bits, curves, its digest (corpus,
+# coverage map, violations, curves: explore_digest) and first find's
+# (generation, id, seed, trace); each shrink's events, original count,
+# rounds, probes and trace
+EXPLORE_PINS = {'uniform': (409, 207),
+ 'guided': {'viol': 1052,
+            'bits': 330,
+            'curve': [201, 300, 326, 329, 329, 330, 330, 330],
+            'viol_curve': [41, 129, 257, 417, 586, 740, 891, 1052],
+            'digest': 'b2155b2eb632e6f9'},
+ 'small': {'viol': 52,
+           'digest': 'ba1359b5534f4cb5',
+           'first': (0, 13, 13757108714105341989, '0xf9bcc89d446e5bb6'),
+           'shrink': {'events': [(147059402, 1, 2, 0, 0)],
+                      'original': 4,
+                      'rounds': 2,
+                      'tested': 14,
+                      'trace': '0x5d0276f6da658715'}},
+ 'hunt': {'viol': 896,
+          'bits': 1122,
+          'curve': [850, 938, 1001, 1040, 1076, 1088, 1111, 1122],
+          'viol_curve': [2, 9, 58, 209, 383, 543, 722, 896],
+          'digest': 'd14b2a65699daf1d',
+          'first': (0, 56, 11941286033598001408, '0x75017e711dd009ad'),
+          'shrink': {'events': [(277209742, 0, 2, 0, 0), (608581647, 1, 4, 0, 0),
+                                (171632634, 2, 0, 3, 0), (171632634, 2, 1, 2, 0),
+                                (171632634, 2, 2, 3, 0)],
+                     'original': 24,
+                     'rounds': 22,
+                     'tested': 514,
+                     'trace': '0x2418867612c8a9c'}},
+ 'retry': {'viol': 382,
+           'sims': 384,
+           'digest': 'b4478789dc553da1',
+           'first': (0, 0, 11260745734605262195, '0xca0bef9ff84c765c')},
+ 'cone': {'viol': 20,
+          'sims': 512,
+          'digest': 'a992608c560ae165',
+          'first': (0, 56, 11941286033598001408, '0x1959c2b405347ec0')}}
+
+
+def explore_digest(rep) -> str:
+    """sha256 of a campaign's corpus (ids, generations, parents, seeds,
+    plan names and hashes, traces, new bits, verdicts, halt clocks),
+    coverage map, violations and curves, 16 hex digits (the pins
+    script's ``campaign_digest``)."""
+    fp = (
+        [(e.id, e.generation, e.parent, int(e.seed), e.plan.name, e.plan.hash(),
+          int(e.trace), int(e.new_bits), bool(e.violating), int(e.halt_t))
+         for e in rep.corpus],
+        [int(w) for w in np.asarray(rep.cov_map, np.uint32)],
+        [(int(e.seed), int(e.trace)) for e in rep.violations],
+        [int(x) for x in rep.curve],
+        [int(x) for x in rep.viol_curve],
+    )
+    return hashlib.sha256(repr(fp).encode()).hexdigest()[:16]
+
+
+def first_key(rep):
+    """The first violation's repro key (generation, id, seed, trace)."""
+    if not rep.violations:
+        return None
+    e = rep.violations[0]
+    return (e.generation, e.id, int(e.seed), f"{int(e.trace):#x}")
+
+
+def shrunk_pins(res) -> dict:
+    return dict(events=[tuple(int(x) for x in vars(e).values()) for e in res.events],
+                original=res.original_events, rounds=res.rounds, tested=res.tested,
+                trace=f"{res.trace:#x}")
+
+
+def check_pins(idx: str, got: dict, want: dict) -> None:
+    bad = {k: (got[k], want[k]) for k in want if got.get(k) != want[k]}
+    if bad:
+        raise AssertionError(f"{idx}: (got, the JAX package's) differ: {bad}")
+
+
+class RecordedSweeps:
+    """Records the (seeds, plan rows) of every generation an explore
+    campaign sends through the kernel: the host driver's ``search_seeds``
+    calls, or the device campaign's sweeps (``make_sweep``), patched for
+    the campaign and restored after."""
+
+    def __init__(self, device_side: bool):
+        from madsim_tpu_torch.explore import device as xdev
+        from madsim_tpu_torch.explore import driver as xdrv
+
+        self.mod, self.name = (xdev, "make_sweep") if device_side else (xdrv, "search_seeds")
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = getattr(self.mod, self.name)
+        calls = self.calls
+        if self.name == "search_seeds":
+            def rec(*a, **kw):
+                calls.append((np.asarray(kw["seeds"], np.uint64).copy(), kw["plan_rows"]))
+                return real(*a, **kw)
+        else:
+            def rec(*a, **kw):
+                sweep = real(*a, **kw)
+
+                def recorded(seeds, rows=None):
+                    calls.append((seeds, rows))
+                    return sweep(seeds, rows)
+                return recorded
+        setattr(self.mod, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+    def head(self, g: int, k: int):
+        """The first ``k`` children of generation ``g``: numpy seeds and
+        numpy ``PlanRows``."""
+        from madsim_tpu_torch.engine import PlanRows
+
+        seeds, rows = self.calls[g]
+        if isinstance(seeds, torch.Tensor):
+            seeds = seeds.cpu().numpy().view(np.uint64)
+        cols = {f: getattr(rows, f) for f in ("time", "kind", "args", "valid", "node")}
+        cols = {f: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))[:k]
+                for f, v in cols.items()}
+        return np.asarray(seeds, np.uint64)[:k].copy(), PlanRows(**cols)
+
+
+def held_generation(device, idx: str, key: str, wl, cfg, sweeps, g: int, cap: int, taps: dict,
+                    results: list, paths: dict, dup_rows: bool = False) -> dict:
+    """The first EXPLORE_HELD children of generation ``g`` (its seeds and
+    plan rows) through the kernel, every field (the bitmap included)
+    against the plain step on the card, timed; into the kernels line.
+    A tuple of recorders holds each one's children in one batch."""
+    from madsim_tpu_torch.engine import PlanRows
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    heads = [r.head(g, EXPLORE_HELD) for r in (sweeps if isinstance(sweeps, tuple)
+                                                else (sweeps,))]
+    seeds = np.concatenate([h[0] for h in heads])
+    rows = PlanRows(**{f: np.concatenate([getattr(h[1], f) for h in heads])
+                       for f in ("time", "kind", "args", "valid", "node")})
+    log(f"[{idx}] {key}: the first {len(seeds)} children of generation {g} held against "
+        f"the plain step on the card, {taps}")
+    r = kernel_phase(device, key, wl, cfg, len(seeds), cap, 0, REPEATS, seeds=seeds,
+                     rows=rows, dup_rows=dup_rows, all_halt=False, taps=taps)
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"{idx}: launches {r['launches']}, {r['drains']}; error {r['err']}")
+    results.append((key, f"make_run_fused/{key}/explore-{idx}",
+                    f"madsim_tpu_torch/csrc/{kernel_model(wl).header}", r))
+    paths.setdefault(key, {})[f"run_while_explore_{idx}"] = [r["launches"], r["drains"]]
+    return r
+
+
+def walls(records: list) -> str:
+    """Each generation's wall split from a campaign's telemetry."""
+    out = []
+    for r in records:
+        if r.get("event") != "generation":
+            continue
+        part = f"g{r['generation']} dispatch {r['dispatch_wall_s'] * 1e3:.1f}"
+        if "sync_wall_s" in r:
+            part += f" sync {r['sync_wall_s'] * 1e3:.1f}"
+            part += " parts " + "/".join(f"{v:.1f}" for v in r["parts_ms"].values())
+        else:
+            part += f" host {r['host_wall_s'] * 1e3:.1f}"
+        out.append(part)
+    return "; ".join(out)
+
+
+def kv_explore_plan():
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan
+
+    return FaultPlan((CrashStorm(targets=(1, 2, 3, 4), n=2, t_min_ns=20_000_000,
+                                 t_max_ns=400_000_000, down_min_ns=50_000_000,
+                                 down_max_ns=250_000_000),), name="kv-nemesis")
+
+
+def hunt_explore_plan(name: str = "raftlog-hunt"):
+    plan = causal_plans()["hunt"]
+    return type(plan)(plan.specs, name=name)
+
+
+def explore_guided_phase(device, results: list, paths: dict, extra: dict) -> dict:
+    """Phase 55 (the explore soak's certificate 1): the uniform sweep
+    and the guided host campaign at 2,048 simulations a side on
+    kvchaos-bug-nochaos, their counts, curves and digests the JAX
+    package's; the device campaign with the two screens equal to the
+    host campaign with one host sync a generation; a bred generation's
+    first 128 children held against the plain step."""
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch.check import read_your_writes, stale_reads
+    from madsim_tpu_torch.engine import EngineConfig, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_kvchaos
+
+    pins = EXPLORE_PINS
+    wl = make_kvchaos(writes=EXPLORE_KV_W, record=True, bug=True, chaos=False)
+    cfg, plan, key = EngineConfig(**EXPLORE_KV_KW), kv_explore_plan(), kernel_model(wl).key
+    box = {}
+
+    def hinv(h):
+        box["ok"] = stale_reads(h) & read_your_writes(h)
+        return box["ok"]
+
+    budget = EXPLORE_KV_RUN["generations"] * EXPLORE_KV_RUN["batch"]
+    t = time.perf_counter()
+    rep, counts = path_launches(lambda: search_seeds(
+        wl, cfg, None, n_seeds=budget, max_steps=EXPLORE_KV_STEPS, history_invariant=hinv,
+        plan=plan, cov_words=EXPLORE_CW, device=device))
+    u_ms = (time.perf_counter() - t) * 1e3
+    paths.setdefault(key, {})["explore_uniform"] = run_drain(counts, key)
+    u_viol = int((~box["ok"] & ~rep.overflowed).sum())
+    u_bits = explore.popcount(explore.merge(np.where(rep.overflowed[:, None], 0, rep.cov)))
+    if (u_viol, u_bits) != tuple(pins["uniform"]):
+        raise AssertionError(f"55: uniform {u_viol} violations, {u_bits} bits; the JAX "
+                             f"package's {pins['uniform']}")
+    log(f"[55] uniform sweep of {budget} on {key}: launches {counts}, {u_viol} violations, "
+        f"{u_bits} coverage bits ({u_ms:.1f} ms host clock; the JAX package's)")
+    records = []
+    t = time.perf_counter()
+    with RecordedSweeps(False) as sweeps:
+        guided, counts = path_launches(lambda: explore.run(
+            wl, cfg, plan, history_invariant=hinv, telemetry=records.append, device=device,
+            **EXPLORE_KV_RUN))
+    g_ms = (time.perf_counter() - t) * 1e3
+    paths[key]["explore_run"] = run_drain(counts, key)
+    got = dict(viol=len(guided.violations), bits=guided.coverage_bits, curve=guided.curve,
+               viol_curve=guided.viol_curve, digest=explore_digest(guided))
+    check_pins("55 guided", got, pins["guided"])
+    log(f"[55] guided campaign {EXPLORE_KV_RUN}: launches {counts}; {got} (the JAX "
+        f"package's); {g_ms:.1f} ms host clock; guided/uniform "
+        f"{got['viol'] / max(u_viol, 1):.2f}x violations, +{got['bits'] - u_bits} bits")
+    log(f"  host driver walls (ms): {walls(records)}")
+    records = []
+    t = time.perf_counter()
+    dev, counts = path_launches(lambda: explore.run_device(
+        wl, cfg, plan, invariant=None, history_check=kv_screens(), telemetry=records.append,
+        device=device, **EXPLORE_KV_RUN))
+    d_ms = (time.perf_counter() - t) * 1e3
+    paths[key]["explore_device"] = run_drain(counts, key)
+    if explore_digest(dev) != got["digest"] or dev.host_syncs != EXPLORE_KV_RUN["generations"]:
+        raise AssertionError(f"55: run_device digest {explore_digest(dev)}, host syncs "
+                             f"{dev.host_syncs}; the host campaign's {got['digest']}")
+    log(f"[55] run_device with the screens: launches {counts}; the host campaign's corpus, "
+        f"map, violations and curves, {dev.host_syncs} host syncs; {d_ms:.1f} ms host clock")
+    log(f"  device walls (ms; parts {'/'.join(('mutate', 'compile', 'sweep', 'judge', 'admit'))}"
+        f" by CUDA events): {walls(records)}")
+    extra.setdefault(key, {}).update(explore_run_ms=g_ms, explore_device_ms=d_ms)
+    # the bred generation is held with phase 56's (one plain run on the
+    # card for both: its cost is the step count, not the seeds)
+    return dict(wl=wl, cfg=cfg, plan=plan, hinv=hinv, box=box, sweeps=sweeps)
+
+
+def explore_determinism_phase(device, results: list, paths: dict, kv: dict) -> None:
+    """Phase 56 (certificate 2): the 3 x 64 campaign twice, identical and
+    the JAX package's; its first violation replays to its trace and
+    verdict; its shrink gives the JAX package's events and trace, and
+    the shrunk plan replays to that trace. Phase 55's and this phase's
+    bred generations (128 and 64 children) are held in one batch."""
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch.chaos import shrink_plan
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    pins = EXPLORE_PINS["small"]
+    wl, cfg, plan, hinv, box = kv["wl"], kv["cfg"], kv["plan"], kv["hinv"], kv["box"]
+    key = kernel_model(wl).key
+    with RecordedSweeps(False) as sweeps:
+        a = explore.run(wl, cfg, plan, history_invariant=hinv, device=device,
+                        **EXPLORE_SMALL_RUN)
+    b = explore.run(wl, cfg, plan, history_invariant=hinv, device=device, **EXPLORE_SMALL_RUN)
+    if explore_digest(a) != explore_digest(b):
+        raise AssertionError("56: the same root gave two campaigns")
+    e = a.violations[0]
+    r = explore.replay_entry(wl, cfg, e, history_invariant=hinv,
+                             max_steps=EXPLORE_KV_STEPS, device=device)
+    if int(r.traces[0]) != e.trace or bool(box["ok"][0]):
+        raise AssertionError("56: the first violation does not replay")
+    t = time.perf_counter()
+    res, counts = path_launches(lambda: shrink_plan(
+        wl, cfg, e.seed, e.plan, history_invariant=hinv, max_steps=EXPLORE_KV_STEPS,
+        device=device))
+    s_ms = (time.perf_counter() - t) * 1e3
+    paths[key]["explore_shrink"] = run_drain(counts, key)
+    got = dict(viol=len(a.violations), digest=explore_digest(a), first=first_key(a),
+               shrink=shrunk_pins(res))
+    check_pins("56", got, pins)
+    again = explore.replay_entry(wl, cfg, explore.CorpusEntry(
+        id=-1, generation=-1, parent=-1, seed=e.seed, plan=res.plan, trace=res.trace,
+        cov=e.cov, new_bits=0, violating=True), history_invariant=hinv,
+        max_steps=EXPLORE_KV_STEPS, device=device)
+    if int(again.traces[0]) != res.trace:
+        raise AssertionError("56: the shrunk plan does not replay its trace")
+    log(f"[56] two {EXPLORE_SMALL_RUN} campaigns identical, {got['viol']} violations, "
+        f"digest {got['digest']}; g{e.generation} id{e.id} replays; shrink {res.original_events}"
+        f" -> {len(res.events)} events in {res.rounds} rounds, {res.tested} probes (launches "
+        f"{counts}, {s_ms:.1f} ms host clock), trace {res.trace:#x}: the JAX package's; the "
+        f"shrunk plan replays")
+    held_generation(device, "55-56", key, wl, cfg, (kv["sweeps"], sweeps), 1,
+                    EXPLORE_KV_STEPS, dict(cov_words=EXPLORE_CW), results, paths)
+
+
+def explore_hunt_phase(device, results: list, paths: dict, extra: dict) -> None:
+    """Phase 57 (certificates 3-4): the diskless-raftlog hunt on the new
+    library raftlog-record-nochaos (pool 128, the taps kernel): its
+    violations, curves, digest and first find the JAX package's; the
+    find replays; its shrink gives the JAX package's events, rounds,
+    probes and trace, and the shrunk plan replays to the violation."""
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch.chaos import shrink_plan
+    from madsim_tpu_torch.check import election_safety
+    from madsim_tpu_torch.engine import EngineConfig, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_raftlog, raftlog
+
+    pins = EXPLORE_PINS["hunt"]
+    wl = make_raftlog(record=True, chaos=False, durable=False)
+    cfg, plan, key = EngineConfig(**EXPLORE_RL_KW), hunt_explore_plan(), kernel_model(wl).key
+
+    def inv(h):
+        return (election_safety(h, elect_op=raftlog.OP_COMMIT)
+                & election_safety(h, elect_op=raftlog.OP_ELECT))
+
+    t = time.perf_counter()
+    with RecordedSweeps(False) as sweeps:
+        hunt, counts = path_launches(lambda: explore.run(
+            wl, cfg, plan, history_invariant=inv, device=device, **EXPLORE_HUNT_RUN))
+    h_ms = (time.perf_counter() - t) * 1e3
+    paths.setdefault(key, {})["explore_run"] = run_drain(counts, key)
+    e = hunt.violations[0]
+    r = explore.replay_entry(wl, cfg, e, history_invariant=inv, max_steps=EXPLORE_RL_STEPS,
+                             device=device)
+    if int(r.traces[0]) != e.trace or bool(r.ok[0]):
+        raise AssertionError("57: the first find does not replay")
+    t = time.perf_counter()
+    res, s_counts = path_launches(lambda: shrink_plan(
+        wl, cfg, e.seed, e.plan, history_invariant=inv, max_steps=EXPLORE_RL_STEPS,
+        device=device))
+    s_s = time.perf_counter() - t
+    paths[key]["explore_shrink"] = run_drain(s_counts, key)
+    got = dict(viol=len(hunt.violations), bits=hunt.coverage_bits, curve=hunt.curve,
+               viol_curve=hunt.viol_curve, digest=explore_digest(hunt), first=first_key(hunt),
+               shrink=shrunk_pins(res))
+    check_pins("57", got, pins)
+    rs = search_seeds(wl, cfg, None, seeds=np.asarray([e.seed], np.uint64),
+                      max_steps=EXPLORE_RL_STEPS, history_invariant=inv, plan=res.plan,
+                      require_halt=False, device=device)
+    if int(rs.traces[0]) != res.trace or bool(rs.ok[0]):
+        raise AssertionError("57: the shrunk plan does not replay its violation and trace")
+    extra.setdefault(key, {}).update(explore_run_ms=h_ms, shrink_s=s_s)
+    log(f"[57] diskless-raftlog hunt on {key} {EXPLORE_HUNT_RUN}: launches {counts}; "
+        f"{got['viol']} violations, {got['bits']} bits, curves {got['curve']} "
+        f"{got['viol_curve']}, first find {got['first']} ({h_ms:.1f} ms host clock); shrink "
+        f"{res.original_events} -> {len(res.events)} events in {res.rounds} rounds, "
+        f"{res.tested} probes (launches {s_counts}) in {s_s:.2f} s wall, trace "
+        f"{res.trace:#x}: the JAX package's; the shrunk plan replays the violation")
+    held_generation(device, "57", key, wl, cfg, sweeps, 1, EXPLORE_RL_STEPS,
+                    dict(cov_words=EXPLORE_CW), results, paths)
+
+
+def explore_soak_hunts_phase(device, results: list, paths: dict) -> None:
+    """Phase 58: the retry soak's noidem hunt and the causal soak's cone
+    hunt as the campaigns those tools run: each campaign's violations,
+    digest and first find the JAX package's, a bred generation held
+    against the plain step."""
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch.check import election_safety
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_raftlog, raftlog
+
+    plan, wl = retry_plans()["sk-hunt"], retry_workloads()["noidem"]
+    cfg, lat, key = EngineConfig(**RETRY_SK_KW), LatencySpec(**RETRY_SK_LAT), kernel_model(wl).key
+    t = time.perf_counter()
+    with RecordedSweeps(False) as sweeps:
+        rep, counts = path_launches(lambda: explore.run(
+            wl, cfg, plan, history_invariant=retry_invariants()["noidem"], latency=lat,
+            device=device, **EXPLORE_RETRY_RUN))
+    ms = (time.perf_counter() - t) * 1e3
+    paths.setdefault(key, {})["explore_run"] = run_drain(counts, key)
+    got = dict(viol=len(rep.violations), sims=rep.sims, digest=explore_digest(rep),
+               first=first_key(rep))
+    check_pins("58 retry hunt", got, EXPLORE_PINS["retry"])
+    log(f"[58] the noidem hunt on {key} {EXPLORE_RETRY_RUN}: launches {counts}; {got} (the "
+        f"JAX package's; {ms:.1f} ms host clock)")
+    held_generation(device, "58", key, wl, cfg, sweeps, 1, RETRY_STEPS,
+                    dict(cov_words=EXPLORE_RETRY_RUN["cov_words"], latency=lat,
+                         retry=plan.retry_spec()), results, paths)
+
+    wl = make_raftlog(record=True, chaos=False, durable=False, n_writes=16)
+    cfg, plan, key = EngineConfig(**HUNT_KW), causal_plans()["hunt"], kernel_model(wl).key
+
+    def inv(h):
+        return (election_safety(h, elect_op=raftlog.OP_COMMIT)
+                & election_safety(h, elect_op=raftlog.OP_ELECT))
+
+    t = time.perf_counter()
+    with RecordedSweeps(False) as sweeps:
+        rep, counts = path_launches(lambda: explore.run(
+            wl, cfg, plan, history_invariant=inv, device=device, **EXPLORE_CONE_RUN))
+    ms = (time.perf_counter() - t) * 1e3
+    paths.setdefault(key, {})["explore_run"] = run_drain(counts, key)
+    got = dict(viol=len(rep.violations), sims=rep.sims, digest=explore_digest(rep),
+               first=first_key(rep))
+    check_pins("58 cone hunt", got, EXPLORE_PINS["cone"])
+    log(f"[58] the cone hunt on {key} {EXPLORE_CONE_RUN}: launches {counts}; {got} (the JAX "
+        f"package's; {ms:.1f} ms host clock)")
+    held_generation(device, "58", key, wl, cfg, sweeps, 1, HUNT_STEPS,
+                    dict(cov_words=EXPLORE_CW), results, paths)
+
+
+def explore_device_phase(device, results: list, paths: dict, extra: dict) -> None:
+    """Phase 59: run_device on raft at pool 64 (the taps kernel built
+    there), 8 generations of 4,096: the first 128 children of a bred
+    generation held against the plain step (the bitmap included); a
+    second campaign with a new root seed builds nothing
+    (``compile_wall_s`` 0.0 in every generation); each generation's
+    parts timed by CUDA events; the mutator's first-maximum pick on the
+    card."""
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch.chaos import FaultPlan, GrayFailure, PauseStorm
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.explore import device as xdev
+    from madsim_tpu_torch.models import make_raft
+
+    mask = torch.tensor([[False, True, True, False, True], [True] * 5, [False] * 5],
+                        device=device)
+    picks = xdev._kth_true(mask, torch.tensor([1, 4, 0], device=device)).tolist()
+    if picks != [2, 4, 0]:
+        raise AssertionError(f"59: the device pick takes {picks}, not the first maximum")
+    nodes = (0, 1, 2, 3, 4)
+    plan = FaultPlan((
+        PauseStorm(targets=nodes, n=1, t_min_ns=20_000_000, t_max_ns=300_000_000,
+                   down_min_ns=50_000_000, down_max_ns=200_000_000),
+        GrayFailure(targets=nodes, n_links=1),
+    ), name="device-explore-test")
+    wl, cfg = make_raft(), EngineConfig(**DEVICE_KW)
+    key = kernel_model(wl).key
+
+    def inv(view):
+        return view["halted"]
+
+    runs = []
+    for root in (DEVICE_RUN["root_seed"], DEVICE_RUN["root_seed"] + 1):
+        records = []
+        t = time.perf_counter()
+        with RecordedSweeps(True) as sweeps:
+            rep, counts = path_launches(lambda: explore.run_device(
+                wl, cfg, plan, invariant=inv, telemetry=records.append, device=device,
+                **dict(DEVICE_RUN, root_seed=root)))
+        ms = (time.perf_counter() - t) * 1e3
+        runs.append((rep, counts, records, sweeps, ms))
+    (rep, counts, records, sweeps, ms), second = runs[0], runs[1]
+    paths.setdefault(key, {})["explore_device"] = run_drain(counts, key)
+    if rep.host_syncs != DEVICE_RUN["generations"] or not rep.corpus:
+        raise AssertionError(f"59: {rep.host_syncs} host syncs, {len(rep.corpus)} entries")
+    cold = [r["compile_wall_s"] for r in second[2] if r["event"] == "generation"]
+    if any(cold) or second[0].host_syncs != DEVICE_RUN["generations"]:
+        raise AssertionError(f"59: the second campaign's compile_wall_s {cold}")
+    log(f"[59] run_device on {key} {DEVICE_RUN}: launches {counts}; corpus "
+        f"{len(rep.corpus)}, {rep.coverage_bits} bits, {len(rep.violations)} violations, "
+        f"curve {rep.curve}, {rep.host_syncs} host syncs, {ms:.1f} ms host clock; the second "
+        f"campaign (root {DEVICE_RUN['root_seed'] + 1}): compile_wall_s {cold}, "
+        f"{second[4]:.1f} ms host clock")
+    log(f"  walls (ms; parts mutate/compile/sweep/judge/admit by CUDA events): "
+        f"{walls(records)}")
+    log(f"  second campaign walls: {walls(second[2])}")
+    extra.setdefault(key, {}).update(explore_device_ms=ms, explore_device_second_ms=second[4])
+    held_generation(device, "59", key, wl, cfg, sweeps, 1, DEVICE_RUN["max_steps"],
+                    dict(cov_words=DEVICE_RUN["cov_words"]), results, paths)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3422,6 +3983,8 @@ def main() -> int:
             log(f"    pool {pool}: {launch_shape(MODELS[key], pool, card)}")
             shapes[key, pool] = {**KERNEL.occupancy(MODELS[key], pool),
                                  "registers": base_registers(build_log, pool)}
+            if pool in MODELS[key].obs_pools:
+                shapes[key, pool]["taps_registers"] = base_registers(build_log, pool, True)
     lap("phases 1-2")
 
     clock = max_sm_clock_hz()
@@ -3518,6 +4081,16 @@ def main() -> int:
     lap("phase 53")
     retry_obs_phase(device, results, paths, extra, card)
     lap("phase 54")
+    kv = explore_guided_phase(device, results, paths, extra)
+    lap("phase 55")
+    explore_determinism_phase(device, results, paths, kv)
+    lap("phase 56")
+    explore_hunt_phase(device, results, paths, extra)
+    lap("phase 57")
+    explore_soak_hunts_phase(device, results, paths)
+    lap("phase 58")
+    explore_device_phase(device, results, paths, extra)
+    lap("phase 59")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
                     shapes.get((key, r["pool"])))

@@ -11,8 +11,20 @@ against the JAX package bit for bit.
   oracle replay); on a CUDA state the runners launch the hand-written
   run kernel (``engine/fused.py``, sources under ``csrc/``).
 * ``models`` — the ported workloads (the ``BENCH_SPECS`` and
-  ``SOAK_SPECS`` models).
-* ``obs`` — the timeline ring's decoder.
+  ``SOAK_SPECS`` models, their record, bug, chaos-free and army
+  variants).
+* ``chaos`` — declarative fault plans (``FaultPlan``, ``LiteralPlan``,
+  the client army and its retry policy), compiled with numpy or, with
+  ``compile_batch(device=True)``, with torch ops on the seeds' device;
+  ``shrink_plan``.
+* ``check`` — the history checkers and their device screens.
+* ``explore`` — coverage-guided exploration: the host driver ``run``,
+  the device campaign ``run_device``, mutation, admission and campaign
+  checkpoints.
+* ``obs`` — the timeline ring's decoder, the latency sketch, causal
+  provenance, fleet metrics and Perfetto documents.
+* ``parallel`` — fleet reductions on one device (``merge_metrics``,
+  ``merge_latency``).
 """
 
-from . import engine, models, obs  # noqa: F401
+from . import chaos, check, engine, explore, models, obs, parallel  # noqa: F401

@@ -5,8 +5,9 @@ and ``LiteralPlan``, compiled with numpy on the host into the engine's
 pre-seeded pool rows (``engine.make_init(plan_slots=...)``), the
 open-loop client load of a :class:`ClientArmy` among them, with its
 optional :class:`RetryPolicy`. Compiles and hashes equal the JAX
-package's. Not here yet: ``compile_batch(device=True)`` (ROADMAP A10,
-explore).
+package's. ``compile_batch(device=True)`` compiles the same rows with
+torch ops on the seeds' device (the device campaigns of
+``explore.run_device``), bit-identical to the numpy path.
 
 The reference ecosystem hand-rolls chaos inside each test (a kill here,
 a clog there — madsim's tests and every model in madsim_tpu/models did
@@ -39,6 +40,7 @@ import hashlib
 import warnings
 
 import numpy as np
+import torch
 
 from ..engine.core import (
     FIRST_EXT_KIND,
@@ -64,15 +66,18 @@ from ..engine.core import (
     SLOW_MULT_MAX,
     PlanRows,
     RetrySpec,
+    _seeds_tensor,
     pack_slow_arg,
     unpack_slow_arg,
 )
 from ..engine.rng import (
     DRAW_SPAN_MAX,
+    M32,
     PURPOSE_CLIENT,
     PURPOSE_PLAN,
     chance_threshold,
     np_threefry2x32v,
+    threefry2x32,
 )
 
 __all__ = [
@@ -157,40 +162,78 @@ class FaultEvent:
 
 
 # ---------------------------------------------------------------------------
-# counter-based plan randomness, on the host with numpy (the JAX
-# package's default path; its device path waits for ROADMAP A10)
+# counter-based plan randomness. One implementation, two array backends:
+# numpy seeds compile on the host (the default path), a torch tensor of
+# seeds compiles with torch ops on its own device (the device path of
+# the explore campaigns). Both run the identical threefry and reduction
+# arithmetic, so the two paths are bit-identical (tests pin it).
 # ---------------------------------------------------------------------------
 
 
 class _Stream:
     """The (seed, plan-slot) draw stream: ``bits(j)`` is draw j of this
     slot for every seed at once — order-independent coordinates, same
-    discipline as the engine's per-event draws."""
+    discipline as the engine's per-event draws.
+
+    Seeds are numpy uint64 (draws are uint32 arrays) or an int64 tensor
+    of uint64 bit patterns (draws are uint32 words in int64 tensors on
+    the seeds' device: the high word is masked after the arithmetic
+    shift)."""
 
     def __init__(self, seeds, slot: int, purpose: int = PURPOSE_PLAN):
+        self.dev = seeds.device if isinstance(seeds, torch.Tensor) else None
+        if self.dev is not None:
+            seeds = seeds.to(torch.int64)
+            self._k0 = seeds & M32
+            self._k1 = (seeds >> 32) & M32
+            self._x1 = (purpose + slot) & M32
+            return
         seeds = np.asarray(seeds, np.uint64)
         self._k0 = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
         self._k1 = (seeds >> np.uint64(32)).astype(np.uint32)
         self._x1 = np.uint32((purpose + slot) & 0xFFFFFFFF)
 
     def bits(self, j: int):
+        if self.dev is not None:
+            return threefry2x32(self._k0, self._k1, j, self._x1)[0]
         a, _ = np_threefry2x32v(self._k0, self._k1, np.uint32(j), self._x1)
         return a
 
+    def mod(self, j: int, n: int):
+        """Draw j reduced modulo ``n`` (< 2**32), as int64."""
+        if self.dev is not None:
+            return self.bits(j) % int(n)
+        return (self.bits(j) % np.uint32(n)).astype(np.int64)
+
     def uniform(self, lo: int, hi: int, j: int):
         """Uniform int64 in [lo, hi) — the engine's modulo reduction."""
-        span = np.uint32(max(int(hi) - int(lo), 1))
-        return np.int64(lo) + (self.bits(j) % span).astype(np.int64)
+        span = max(int(hi) - int(lo), 1)
+        if self.dev is not None:
+            return int(lo) + self.mod(j, span)
+        return np.int64(lo) + self.mod(j, span)
+
+    def options(self, options):
+        """A target tuple as an int64 array on the stream's backend."""
+        if self.dev is not None:
+            return torch.tensor(options, dtype=torch.int64, device=self.dev)
+        return np.asarray(options, np.int64)
 
     def pick(self, options, j: int):
-        opts = np.asarray(options, np.int64)
-        return opts[self.bits(j) % np.uint32(len(opts))]
+        return self.options(options)[self.mod(j, len(options))]
+
+    def where(self, cond, a, b):
+        """``where(cond, a, b)`` as int64 on the stream's backend."""
+        if self.dev is not None:
+            return torch.where(cond, a, b).to(torch.int64)
+        return np.where(cond, a, b).astype(np.int64)
 
     def chance(self, p: float, j: int):
         thresh = chance_threshold(p)
         if thresh >= (1 << 32):
+            if self.dev is not None:
+                return torch.ones(self._k0.shape, dtype=torch.bool, device=self.dev)
             return np.ones(self._k0.shape, bool)
-        return self.bits(j) < np.uint32(thresh)
+        return self.bits(j) < thresh
 
 
 # ---------------------------------------------------------------------------
@@ -198,12 +241,15 @@ class _Stream:
 # ---------------------------------------------------------------------------
 
 
-def _pack_slots(s: int, rows):
+def _pack_slots(s: int, rows, dev=None):
     """Stack per-slot ``(time, kind, a0, a1, valid[, node])`` rows into
     the (S, P[, 2]) column arrays ``compile_batch`` returns. Scalars
     broadcast over the seed axis. The optional sixth entry is the pool
     row's target node (a client-army op's); absent, node 0, which engine
-    kinds ignore."""
+    kinds ignore. With ``dev`` (a torch device) the columns are tensors
+    there."""
+    if dev is not None:
+        return _pack_slots_torch(s, rows, dev)
 
     def col(v, dtype):
         a = np.asarray(v, dtype)
@@ -218,6 +264,21 @@ def _pack_slots(s: int, rows):
     valid = np.stack([col(r[4], np.bool_) for r in rows], axis=1)
     node = np.stack([col(r[5] if len(r) > 5 else 0, np.int32) for r in rows], axis=1)
     return time, kind, np.stack([a0, a1], axis=2), valid, node
+
+
+def _pack_slots_torch(s: int, rows, dev):
+    def col(v, dtype):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype).expand(s) if v.dim() == 0 else v.to(dtype)
+        return torch.full((s,), int(v), dtype=dtype, device=dev)
+
+    time = torch.stack([col(r[0], torch.int64) for r in rows], dim=1)
+    kind = torch.stack([col(r[1], torch.int32) for r in rows], dim=1)
+    a0 = torch.stack([col(r[2], torch.int32) for r in rows], dim=1)
+    a1 = torch.stack([col(r[3], torch.int32) for r in rows], dim=1)
+    valid = torch.stack([col(r[4], torch.bool) for r in rows], dim=1)
+    node = torch.stack([col(r[5] if len(r) > 5 else 0, torch.int32) for r in rows], dim=1)
+    return time, kind, torch.stack([a0, a1], dim=2), valid, node
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,7 +358,7 @@ class CrashStorm:
             down = st.uniform(self.down_min_ns, self.down_max_ns, 3 * i + 2)
             rows.append((at, self._KIND_ON, who, 0, True))
             rows.append((at + down, self._KIND_OFF, who, 0, True))
-        return _pack_slots(len(seeds), rows)
+        return _pack_slots(len(seeds), rows, st.dev)
 
     def slot_templates(self) -> tuple:
         out = []
@@ -366,14 +427,14 @@ class Partition:
         t = len(self.targets)
         full = (1 << t) - 1
         # nonempty proper subset: remap 32 uniform bits into [1, full-1]
-        side = 1 + (st.bits(0) % np.uint32(full - 1)).astype(np.int64)
+        side = 1 + st.mod(0, full - 1)
         at = st.uniform(self.t_min_ns, self.t_max_ns, 1)
         dur = st.uniform(self.dur_min_ns, self.dur_max_ns, 2)
         rows = _partition_edge_rows(
             st, self.targets, self.asymmetric, self.partial_p,
             side, at, dur, 3,
         )
-        return _pack_slots(len(seeds), rows)
+        return _pack_slots(len(seeds), rows, st.dev)
 
     def slot_templates(self) -> tuple:
         return _partition_slot_templates(
@@ -399,16 +460,13 @@ def _partition_edge_rows(st, targets, asymmetric, partial_p,
             crosses = ((side >> i) & 1) != ((side >> j) & 1)
             keep = crosses
             if partial_p < 1.0:
-                keep = keep & (
-                    (word & np.uint32(0xFFFF))
-                    < np.uint32(int(partial_p * 0x10000))
-                )
+                keep = keep & ((word & 0xFFFF) < int(partial_p * 0x10000))
             # asymmetric: bit 16 of the edge word picks the blocked
             # direction (independent of the partial-keep low bits)
-            fwd = ((word >> np.uint32(16)) & 1).astype(np.bool_)
+            fwd = ((word >> 16) & 1) != 0
             pick_fwd = fwd | (not asymmetric)
-            a = np.where(pick_fwd, targets[i], targets[j]).astype(np.int64)
-            b = np.where(pick_fwd, targets[j], targets[i]).astype(np.int64)
+            a = st.where(pick_fwd, targets[i], targets[j])
+            b = st.where(pick_fwd, targets[j], targets[i])
             rows.append((at, clog_k, a, b, keep))
             rows.append((at + dur, unclog_k, a, b, keep))
             q += 1
@@ -493,7 +551,7 @@ class FlappingPartition:
         block = 3 + self._edges
         for c in range(self.n_cycles):
             base = c * block
-            side = 1 + (st.bits(base) % np.uint32(full - 1)).astype(np.int64)
+            side = 1 + st.mod(base, full - 1)
             dur = st.uniform(self.dur_min_ns, self.dur_max_ns, base + 1)
             if c == 0:
                 at = st.uniform(self.t_min_ns, self.t_max_ns, base + 2)
@@ -504,7 +562,7 @@ class FlappingPartition:
                 side, at, dur, base + 3,
             )
             heal = at + dur
-        return _pack_slots(len(seeds), rows)
+        return _pack_slots(len(seeds), rows, st.dev)
 
     def slot_templates(self) -> tuple:
         out = []
@@ -562,21 +620,20 @@ class GrayFailure:
     def compile_batch(self, seeds, slot: int):
         st = _Stream(seeds, slot)
         t = len(self.targets)
-        opts = np.asarray(self.targets, np.int64)
-        one = np.int64(1)
+        opts = st.options(self.targets)
         rows = []
         for i in range(self.n_links):
-            ai = st.bits(5 * i) % np.uint32(t)
+            ai = st.mod(5 * i, t)
             # peer drawn from the other t-1 targets: a != b always
-            bi = (ai + 1 + st.bits(5 * i + 1) % np.uint32(t - 1)) % np.uint32(t)
+            bi = (ai + 1 + st.mod(5 * i + 1, t - 1)) % t
             a = opts[ai]
             b = opts[bi]
             at = st.uniform(self.t_min_ns, self.t_max_ns, 5 * i + 2)
             dur = st.uniform(self.dur_min_ns, self.dur_max_ns, 5 * i + 3)
             mult = st.uniform(self.mult_min, self.mult_max + 1, 5 * i + 4)
             rows.append((at, KIND_SLOW_LINK, a, pack_slow_arg(b, mult), True))
-            rows.append((at + dur, KIND_UNSLOW, a, pack_slow_arg(b, one), True))
-        return _pack_slots(len(seeds), rows)
+            rows.append((at + dur, KIND_UNSLOW, a, pack_slow_arg(b, 1), True))
+        return _pack_slots(len(seeds), rows, st.dev)
 
     def slot_templates(self) -> tuple:
         out = []
@@ -625,7 +682,7 @@ class Duplicate:
             (at, KIND_DUP_ON, 0, 0, True),
             (at + dur, KIND_DUP_OFF, 0, 0, True),
         ]
-        return _pack_slots(len(seeds), rows)
+        return _pack_slots(len(seeds), rows, st.dev)
 
     def slot_templates(self) -> tuple:
         return (
@@ -685,7 +742,7 @@ class ClockSkew:
             at = st.uniform(self.t_min_ns, self.t_max_ns, 3 * i + 1)
             skew = st.uniform(self.skew_min_ns, self.skew_max_ns + 1, 3 * i + 2)
             rows.append((at, KIND_SKEW, who, skew, True))
-        return _pack_slots(len(seeds), rows)
+        return _pack_slots(len(seeds), rows, st.dev)
 
     def slot_templates(self) -> tuple:
         return tuple(
@@ -770,7 +827,7 @@ class DiskFault:
             dur = st.uniform(self.dur_min_ns, self.dur_max_ns, 3 * i + 2)
             rows.append((at, k_on, who, mode, True))
             rows.append((at + dur, k_off, who, 0, True))
-        return _pack_slots(len(seeds), rows)
+        return _pack_slots(len(seeds), rows, st.dev)
 
     def slot_templates(self) -> tuple:
         out = []
@@ -911,7 +968,7 @@ class ClientArmy:
             at = st.uniform(self.t_min_ns, self.t_max_ns, 2 * i)
             word = st.uniform(0, self.arg_hi, 2 * i + 1) if self.arg_hi else 0
             rows.append((at, self.kind, self.op_base + i, word, True, self.node))
-        return _pack_slots(len(seeds), rows)
+        return _pack_slots(len(seeds), rows, st.dev)
 
     def slot_templates(self) -> tuple:
         # retime within the arrival window, drop or add ops; the args
@@ -949,13 +1006,10 @@ def _check_user_kind(kind: int, wl, what: str) -> None:
         )
 
 
-def _refuse_device(device: bool) -> None:
-    if device:
-        raise NotImplementedError(
-            "compile_batch(device=True) compiles the plan on the device; "
-            "the torch port compiles it with numpy until ROADMAP item A10 "
-            "(explore's device campaigns, its one user)"
-        )
+def _device_seeds(seeds) -> torch.Tensor:
+    """Seeds for the device compile, as uint64 bit patterns in int64: a
+    tensor stays on its device, numpy seeds land on the CPU."""
+    return _seeds_tensor(seeds, seeds.device if isinstance(seeds, torch.Tensor) else "cpu")
 
 
 def _validate_targets(specs, wl) -> None:
@@ -1141,24 +1195,28 @@ class FaultPlan(_PlanBase):
         spec.slots)``, so adding a spec never re-randomizes the ones
         before it.
 
-        ``device=True`` (the plan compiled on the device) raises until
-        ROADMAP A10.
+        ``device=True`` compiles with torch ops where the seeds live (a
+        tensor's device; numpy seeds compile on the CPU) and returns
+        tensors there: a device campaign never ships (S, P) rows from
+        the host. Bit-identical to the numpy path (the parity test pins
+        it).
         """
-        _refuse_device(device)
         if wl is not None:
             _validate_targets(self.specs, wl)
-        seeds = np.asarray(seeds, np.uint64)
+        seeds = _device_seeds(seeds) if device else np.asarray(seeds, np.uint64)
         parts = []
         off = 0
         for spec in self.specs:
             parts.append(spec.compile_batch(seeds, off))
             off += spec.slots
+        cat = (lambda xs: torch.cat(xs, dim=1)) if device else (
+            lambda xs: np.concatenate(xs, axis=1))
         return PlanRows(
-            time=np.concatenate([p[0] for p in parts], axis=1),
-            kind=np.concatenate([p[1] for p in parts], axis=1),
-            args=np.concatenate([p[2] for p in parts], axis=1),
-            valid=np.concatenate([p[3] for p in parts], axis=1),
-            node=np.concatenate([p[4] for p in parts], axis=1),
+            time=cat([p[0] for p in parts]),
+            kind=cat([p[1] for p in parts]),
+            args=cat([p[2] for p in parts]),
+            valid=cat([p[3] for p in parts]),
+            node=cat([p[4] for p in parts]),
         )
 
     def slot_templates(self) -> tuple:
@@ -1234,11 +1292,28 @@ class LiteralPlan(_PlanBase):
 
 
     def compile_batch(self, seeds, wl=None, device: bool = False) -> PlanRows:
-        _refuse_device(device)
+        """This plan's rows for every seed (the same events each time).
+        ``device=True`` returns them as tensors on the seeds' device
+        (numpy seeds: the CPU), as :meth:`FaultPlan.compile_batch`."""
         if wl is not None:
             for e, on in zip(self.events, self._mask()):
                 if on:
                     _check_user_kind(e.kind, wl, "LiteralPlan event")
+        if device:
+            seeds = _device_seeds(seeds)
+            s, p, dev = seeds.shape[0], len(self.events), seeds.device
+
+            def col(vals, dtype, shape):
+                t = torch.tensor(vals, dtype=dtype, device=dev).reshape(shape)
+                return t.expand((s, *shape))
+
+            return PlanRows(
+                time=col([e.t for e in self.events], torch.int64, (p,)),
+                kind=col([e.kind for e in self.events], torch.int32, (p,)),
+                args=col([(e.a0, e.a1) for e in self.events], torch.int32, (p, 2)),
+                valid=col(self._mask().tolist(), torch.bool, (p,)),
+                node=col([e.node for e in self.events], torch.int32, (p,)),
+            )
         seeds = np.asarray(seeds, np.uint64)
         s, p = len(seeds), len(self.events)
         time = np.asarray([e.t for e in self.events], np.int64)

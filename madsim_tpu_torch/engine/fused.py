@@ -274,6 +274,8 @@ _RAFTLOG_STORE_SHAPE = (5, 12, 4, 4, 7, 8, (0, 1), 4)
 _RAFTLOG_STORE = (("n_nodes", 5), ("n_writes", 4), ("chaos", False), ("durable", True),
                   ("cov_spread", False))
 _RAFTLOG_DURABLE = (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", True))
+_RAFTLOG_NOCHAOS = (("n_nodes", 5), ("n_writes", 4), ("chaos", False), ("durable", False),
+                    ("cov_spread", False))
 _TWOPHASE_WORDS = ("txns", "no_pct", "retx_ns", "revive_min_ns", "revive_max_ns")
 _PAXOS_WORDS = ("start_min_ns", "start_max_ns", "timeout_min_ns",
                 "timeout_max_ns", "kill_min_ns", "kill_max_ns",
@@ -310,7 +312,7 @@ MODELS = {
         KernelModel(
             "raft", "raft-election", "model_raft.cuh", "madsim::RaftModel<false>",
             (5, 6, 2, 0, 6, 5, (0,), 0), (40, 64, 128, 256),
-            ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),), obs_pools=(40,),
+            ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),), obs_pools=(40, 64),
         ),
         KernelModel(
             "raft-record", "raft-election-record", "model_raft.cuh",
@@ -541,6 +543,15 @@ MODELS = {
             "shardkv-noidem-army-nochaos", "shardkv-noidem-army", "model_shardkv.cuh",
             "madsim::ShardKvModel<true, false, false, true, 1, true>",
             (14, 17, 3, 0, 6, 18, (), 1), (96,), _SHARD_WORDS, _SHARD_NOIDEM, lat=1,
+            obs_pools=(96,),
+        ),
+        # the explore soak's diskless-raftlog hunt (tools/explore_soak.py):
+        # raftlog-record without its own chaos or a disk, driven by the
+        # hunt's crash storm and flapping partition with coverage on
+        KernelModel(
+            "raftlog-record-nochaos", "raftlog-record", "model_raftlog.cuh",
+            "madsim::RaftLogModel<true, false>", _RAFTLOG_STORE_SHAPE, (128,),
+            _RAFTLOG_WORDS, _RAFTLOG_NOCHAOS, obs_pools=(128,),
         ),
     )
 }

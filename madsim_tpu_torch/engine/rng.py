@@ -27,6 +27,7 @@ import torch
 __all__ = [
     "M32",
     "threefry2x32",
+    "np_threefry2x32",
     "np_threefry2x32v",
     "Draw",
     "PurposeLane",
@@ -141,6 +142,29 @@ def threefry2x32(k0, k1, x0, x1):
             x1 = _rotl32(x1, r) ^ x0
         x0 = (x0 + ks[(chunk + 1) % 3]) & M32
         x1 = (x1 + ks[(chunk + 2) % 3] + (chunk + 1)) & M32
+    return x0, x1
+
+
+def np_threefry2x32(k0, k1, x0, x1):
+    """:func:`threefry2x32` on four numpy uint32 scalars: the host
+    generator of the explore mutators' scalar draws
+    (``explore.mutate.HostStream``)."""
+    k0 = np.uint32(k0)
+    k1 = np.uint32(k1)
+    x0 = np.uint32(x0)
+    x1 = np.uint32(x1)
+    with np.errstate(over="ignore"):
+        ks = (k0, k1, np.uint32(k0 ^ k1 ^ _PARITY))
+        x0 = np.uint32(x0 + ks[0])
+        x1 = np.uint32(x1 + ks[1])
+        for chunk in range(5):
+            rots = _ROTATIONS[:4] if chunk % 2 == 0 else _ROTATIONS[4:]
+            for r in rots:
+                x0 = np.uint32(x0 + x1)
+                x1 = np.uint32((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r)))
+                x1 = np.uint32(x1 ^ x0)
+            x0 = np.uint32(x0 + ks[(chunk + 1) % 3])
+            x1 = np.uint32(x1 + ks[(chunk + 2) % 3] + np.uint32(chunk + 1))
     return x0, x1
 
 

@@ -1,7 +1,9 @@
 """Fleet reductions over seed batches (part of ``madsim_tpu.parallel``).
 
-Only :func:`merge_latency` is here; the seed sharding and the other
-merges over ``torch.distributed`` are ROADMAP item A10.
+:func:`merge_metrics` and :func:`merge_latency` fold per-seed columns
+into fleet totals on one device; the seed sharding (``make_mesh``,
+``shard_map``) and the merges across devices over
+``torch.distributed`` are ROADMAP item A10 ("parallel").
 """
 
 from __future__ import annotations
@@ -9,7 +11,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["merge_latency"]
+__all__ = ["merge_latency", "merge_metrics"]
+
+
+def merge_metrics(met) -> np.ndarray:
+    """Sum per-seed fleet-metric columns (S, M) into (M,) int64 totals.
+
+    int64 accumulation, so 32-bit per-seed counters cannot overflow the
+    fleet sum. The ``MET_HALT_CODE`` slot is summed like any other
+    (meaningless as a total; ``obs.fleet_reduce`` gives the halt-code
+    split). A tensor is summed on its own device and only the (M,)
+    totals reach the host."""
+    if isinstance(met, torch.Tensor):
+        if met.dim() != 2:
+            raise ValueError(f"met must be (S, M), got shape {tuple(met.shape)}")
+        return met.to(torch.int64).sum(0).cpu().numpy()
+    m = np.asarray(met)
+    if m.ndim != 2:
+        raise ValueError(f"met must be (S, M), got shape {m.shape}")
+    return m.astype(np.int64).sum(axis=0)
 
 
 def merge_latency(lat_hist) -> np.ndarray:

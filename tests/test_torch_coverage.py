@@ -226,12 +226,13 @@ def test_the_hooks_are_the_reference_workloads():
         fused.kernel_model(tm.make_raftlog(cov_spread=True))
     # the kernel with the taps is built at the listed pools only
     assert {k: m.obs_pools for k, m in fused.MODELS.items() if m.obs_pools} == {
-        "raft": (40,), "leasekv": (48,), "shardkv": (64,), "kvchaos-bug-nochaos": (192,),
+        "raft": (40, 64), "leasekv": (48,), "shardkv": (64,), "kvchaos-bug-nochaos": (192,),
         "raftlog-durable-spread": (64,), "kvchaos-record-army": (72,),
         "raftlog-record-army": (96,), "kvchaos-bug-nochaos-dup": (192,),
-        "raftlog-record-w16-nochaos": (192,)}
+        "raftlog-record-w16-nochaos": (192,), "shardkv-noidem-army-nochaos": (96,),
+        "raftlog-record-nochaos": (128,)}
     raft = tm.make_raft()
-    for pool, taps in ((64, dict(cov_words=2)), (40, {})):
+    for pool, taps in ((128, dict(cov_words=2)), (40, {})):
         st = tcore.make_init(raft, tcore.EngineConfig(pool_size=pool), device="cpu", **taps)(
             SEEDS[:2])
         with pytest.raises((NotImplementedError, ValueError),

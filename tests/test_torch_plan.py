@@ -153,11 +153,38 @@ def test_validation_errors_are_the_reference():
 
 
 def test_the_device_compile_waits_for_explore():
-    plan = plans(tp)["crash"]
-    with pytest.raises(NotImplementedError, match="A10"):
-        plan.compile_batch(SEEDS, device=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        plan.literalize(0).compile_batch(SEEDS, device=True)
+    """``compile_batch(device=True)``, the plan compile explore's device
+    campaigns run on every uniform generation: for every spec kind, the
+    mixed plan, a client army and a ``LiteralPlan``, the rows are torch
+    tensors on the seeds' device, equal in value and dtype to the numpy
+    path and to the JAX package's jnp path."""
+    seeds_t = torch.from_numpy(SEEDS.view(np.int64).copy())
+    army = {m: m.FaultPlan((m.ClientArmy(node=2, kind=11, n_ops=6, arg_hi=9, op_base=3),
+                            m.CrashStorm(targets=(1, 2))), name="army")
+            for m in (jp, tp)}
+    cases = {**{k: (v, plans(jp)[k]) for k, v in plans(tp).items()},
+             "army": (army[tp], army[jp])}
+    for name, (plan, jplan) in cases.items():
+        host = plan.compile_batch(SEEDS)
+        for seeds in (seeds_t, SEEDS):
+            dev = plan.compile_batch(seeds, device=True)
+            for f in ROWS:
+                got = getattr(dev, f)
+                assert isinstance(got, torch.Tensor) and got.device.type == "cpu", (name, f)
+                assert got.numpy().dtype == getattr(host, f).dtype, (name, f)
+                np.testing.assert_array_equal(got.numpy(), getattr(host, f),
+                                              err_msg=f"{name} {f}")
+        if name in ("mixed", "army"):
+            _same_rows(_as_numpy(plan.compile_batch(seeds_t, device=True)),
+                       jplan.compile_batch(SEEDS, device=True))
+    lit, jlit = plans(tp)["mixed"].literalize(7), plans(jp)["mixed"].literalize(7)
+    dev = lit.compile_batch(seeds_t[:5], device=True)
+    _same_rows(_as_numpy(dev), lit.compile_batch(SEEDS[:5]))
+    _same_rows(_as_numpy(dev), jlit.compile_batch(SEEDS[:5], device=True))
+
+
+def _as_numpy(rows):
+    return tcore.PlanRows(**{f: getattr(rows, f).numpy() for f in ROWS})
 
 
 def test_plan_threefry_is_the_engine_generator():

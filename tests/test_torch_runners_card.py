@@ -350,3 +350,38 @@ def test_cuda_army_libraries_with_the_latency_tap_match_the_cpu(key):
             np.testing.assert_array_equal(off[f], want[f], err_msg=f)
     if taps:
         assert (off["cov"] != want["cov"]).any()
+
+
+@pytest.mark.cuda
+def test_cuda_explore_campaigns_match_the_cpu():
+    """Exploration on the card: the host campaign (``explore.run``, its
+    generations through the run kernel) and the device campaign
+    (``explore.run_device``: the mutator, the plan compile and the
+    admission as torch ops on the card) over raft at pool 64 with the
+    taps kernel equal the same campaigns on the CPU entry for entry,
+    with one run and one drain launch a generation."""
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch.chaos import FaultPlan, GrayFailure, PauseStorm
+
+    _needs_card()
+    nodes = (0, 1, 2, 3, 4)
+    plan = FaultPlan((
+        PauseStorm(targets=nodes, n=1, t_min_ns=20_000_000, t_max_ns=300_000_000,
+                   down_min_ns=50_000_000, down_max_ns=200_000_000),
+        GrayFailure(targets=nodes, n_links=1),
+    ), name="device-explore-test")
+    wl, cfg = make_raft(), tcore.EngineConfig(pool_size=64, loss_p=0.02)
+    kw = dict(generations=3, batch=64, root_seed=11, max_steps=600, cov_words=16,
+              invariant=lambda v: (v["trace"] & 7) != 0)
+
+    def fp(rep):
+        return ([(e.id, e.generation, e.parent, e.seed, e.plan.hash(), e.trace, e.new_bits,
+                  e.violating, e.halt_t) for e in rep.corpus], rep.cov_map.tolist(),
+                [(e.seed, e.trace) for e in rep.violations], rep.curve, rep.viol_curve)
+
+    want = fp(explore.run(wl, cfg, plan, device="cpu", **kw))
+    for campaign in (explore.run, explore.run_device):
+        rep, launches = _counts("raft", lambda: campaign(wl, cfg, plan, device="cuda", **kw))
+        assert launches == (3, 3)
+        assert fp(rep) == want
+    assert fp(explore.run_device(wl, cfg, plan, device="cpu", **kw)) == want
