@@ -271,12 +271,52 @@ plain eager step:
    nothing (``compile_wall_s`` 0.0 each generation); every generation's
    parts (mutate, compile, sweep, judge, admit) by CUDA events; the
    mutator's first-maximum pick on the card.
-   In each of 55-59 the first 128 children of a bred generation (their
+   In each of 55-59 the first 64 children of a bred generation (their
    seeds and plan rows, the bitmap on) run through the kernel, every
-   field against the plain step on the card, timed (55's and 56's, 128
-   and 64 children, in one batch: the plain step's cost on the card is
-   its step count);
-60. one JSON line describing each kernel, with its launches on every
+   field against the plain step on the card, timed (55's and 56's, 64
+   each, in one batch: the plain step's cost on the card is its step
+   count);
+60. the flight soak's certificates (``tools/flight_soak.py`` at its
+   defaults: raft at pool 64 under its plan, batches of 4,096, 4
+   generations, 64 steps, 32 coverage words): three ``run_device``
+   campaigns under one ``obs.prof`` profiler build each generation
+   program once and campaigns 2-3 nothing (``compile_wall_s`` 0), each
+   campaign the JAX package's (``OBS_PINS``); the cache A/B printed; the
+   flight recorder on and off gives the same halt hunt (3 x 4,096, 96
+   steps) on both drivers, with the wall-split schema and one host sync
+   a device generation (the device driver under
+   ``explore.device.strict_syncs``, where any other wait for the card
+   raises); that hunt's ``campaign_perfetto`` has one span a
+   generation, monotone counter tracks and compile instants;
+61. the farm soak's certificate 1 at its shape (raft 64, 1,024 a
+   generation, 6 generations, 256 steps, 3 interleaved rounds, organic
+   and with an emulated slow collector): ``farm.run_pipelined`` and
+   ``run_device``, each checkpointing every generation and writing a
+   flight log, are bit-identical (the JAX package's digest), their
+   checkpoint files byte-equal, one host sync a generation (both under
+   ``strict_syncs``: the checkpoint reads its generation's pinned host
+   copy); the ratios and the queue/idle split printed, not gated;
+62. certificate 2: three tenants in one-generation quanta through
+   ``farm.run_farm``: each equals its standalone campaign and the JAX
+   package's, one build per program key, no eviction, tenant-tagged
+   generation records;
+63. certificates 3-4: adaptive energy against uniform on
+   kvchaos-bug-nochaos 192 (loss 0.02, 800 steps, 8 x 256, roots 7, 13
+   and 29) on the host driver, every count the JAX package's
+   (``FARM_PINS``); energy absent, ``None`` and ``mode="uniform"`` one
+   campaign;
+64. ``tools/obs_soak.py`` certificates 3 and 5: the diskless-raftlog hunt
+   (raftlog-record-nochaos 128, 2 x 256, root 2024) with a ``JsonlSink``
+   and a checkpoint; its first violation shrunk, replayed with a
+   4,096-row ring and metrics and refolded; ``write_perfetto``,
+   ``obs.explain`` and ``explain(causal=True)`` equal the JAX package's
+   (sha256 pinned); the checkpoint reloads to the identical corpus;
+65. ``parallel`` on a world of one card (NCCL, a ``file://`` store):
+   ``shard_run_compacted`` with ``hist_screen`` on kvchaos-bug (1,024
+   seeds, pool 192) equals ``make_run_compacted`` in every field; the
+   four merges equal one device's; ``run_device(mesh=)`` equals phase
+   60's campaign;
+66. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after) and its library's launch shape (the
    occupancy calculator's numbers and the registers of the kernels
@@ -1061,24 +1101,10 @@ def base_registers(build_log: str, pool: int, taps: bool = False) -> dict:
     (the run kernel with and without metrics, the drain kernel), from
     nvcc's ``--resource-usage`` lines: ``{kernel: registers}``. With
     ``taps``, those of its taps kernel (``run_kernel<E, MET, true>``)
-    with and without metrics instead."""
-    import re
+    with and without metrics instead (``engine.fused.kernel_registers``)."""
+    from madsim_tpu_torch.engine.fused import kernel_registers
 
-    out, fn = {}, None
-    for line in build_log.splitlines():
-        m = re.search(r"Function properties for \S*?((?:run|drain)_kernel\S*)", line)
-        if m:
-            fn = m.group(1)
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn is not None:
-            short = re.match(r"(run|drain)_kernelILi(\d+)E(?:Lb(\d)ELb(\d)E)?", fn)
-            if short and int(short.group(2)) == pool and (short.group(4) == "1") == taps:
-                name = (f"run(metrics={short.group(3) == '1'})" if short.group(1) == "run"
-                        else "drain")
-                out[name] = int(m.group(1))
-            fn = None
-    return out
+    return kernel_registers(build_log, pool, taps)
 
 
 def run_variant(spec, wl, cfg, cap: int, st):
@@ -3450,7 +3476,7 @@ EXPLORE_KV_W, EXPLORE_KV_STEPS, EXPLORE_CW = 10, 4000, 64
 EXPLORE_KV_KW = dict(pool_size=192, loss_p=0.05)
 EXPLORE_RL_KW = dict(pool_size=128, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
 EXPLORE_RL_STEPS = 6000
-EXPLORE_HELD = 128
+EXPLORE_HELD = 64
 EXPLORE_KV_RUN = dict(generations=8, batch=256, root_seed=7, max_steps=EXPLORE_KV_STEPS,
                       cov_words=EXPLORE_CW, max_ops=1, inherit_seed_p=0.9)
 EXPLORE_SMALL_RUN = dict(EXPLORE_KV_RUN, generations=3, batch=64)
@@ -3660,7 +3686,7 @@ def explore_guided_phase(device, results: list, paths: dict, extra: dict) -> dic
     kvchaos-bug-nochaos, their counts, curves and digests the JAX
     package's; the device campaign with the two screens equal to the
     host campaign with one host sync a generation; a bred generation's
-    first 128 children held against the plain step."""
+    first 64 children held against the plain step."""
     from madsim_tpu_torch import explore
     from madsim_tpu_torch.check import read_your_writes, stale_reads
     from madsim_tpu_torch.engine import EngineConfig, search_seeds
@@ -3730,7 +3756,7 @@ def explore_determinism_phase(device, results: list, paths: dict, kv: dict) -> N
     the JAX package's; its first violation replays to its trace and
     verdict; its shrink gives the JAX package's events and trace, and
     the shrunk plan replays to that trace. Phase 55's and this phase's
-    bred generations (128 and 64 children) are held in one batch."""
+    bred generations (64 children each) are held in one batch."""
     from madsim_tpu_torch import explore
     from madsim_tpu_torch.chaos import shrink_plan
     from madsim_tpu_torch.engine.fused import kernel_model
@@ -3884,7 +3910,7 @@ def explore_soak_hunts_phase(device, results: list, paths: dict) -> None:
 
 def explore_device_phase(device, results: list, paths: dict, extra: dict) -> None:
     """Phase 59: run_device on raft at pool 64 (the taps kernel built
-    there), 8 generations of 4,096: the first 128 children of a bred
+    there), 8 generations of 4,096: the first 64 children of a bred
     generation held against the plain step (the bitmap included); a
     second campaign with a new root seed builds nothing
     (``compile_wall_s`` 0.0 in every generation); each generation's
@@ -3942,6 +3968,560 @@ def explore_device_phase(device, results: list, paths: dict, extra: dict) -> Non
     extra.setdefault(key, {}).update(explore_device_ms=ms, explore_device_second_ms=second[4])
     held_generation(device, "59", key, wl, cfg, sweeps, 1, DEVICE_RUN["max_steps"],
                     dict(cov_words=DEVICE_RUN["cov_words"]), results, paths)
+
+
+# ---------------------------------------------------------------------------
+# phases 60-65: the campaign observability, the farm and seed sharding
+# ---------------------------------------------------------------------------
+
+# tools/flight_soak.py at its defaults: raft at pool 64 under its plan,
+# three campaigns of 4 x 4,096 (64 steps, 32 coverage words, roots 7-9)
+# and the halt-invariant hunt (3 x 4,096, 96 steps, root 7)
+SOAK_RAFT_KW = dict(pool_size=64, loss_p=0.02)
+FLIGHT_RUN = dict(generations=4, batch=4096, max_steps=64, cov_words=32)
+FLIGHT_ROOTS = (7, 8, 9)
+FLIGHT_HALT = dict(generations=3, batch=4096, root_seed=7, max_steps=96, cov_words=32)
+# tools/farm_soak.py at its defaults: certificate 1's raft campaign (1,024
+# a generation, 6 generations, 256 steps, 3 interleaved rounds, organic
+# and loaded), certificate 2's three tenants, certificates 3-4 on the
+# kvchaos lost-write mutant (pool 192, loss 0.02, 800 steps, 8 x 256)
+FARM_RUN = dict(generations=6, batch=1024, root_seed=7, max_steps=256, cov_words=32)
+FARM_ROUNDS = 3
+FARM_TENANTS = {
+    "halt": dict(batch=256, root_seed=11, max_steps=256, cov_words=32),
+    "biased": dict(batch=272, root_seed=5, max_steps=256, cov_words=32),
+    "wide": dict(batch=256, root_seed=2, max_steps=384, cov_words=64),
+}
+FARM_TENANT_INV = {"halt": "halt", "biased": "biased", "wide": "halt"}
+FARM_KV_KW = dict(pool_size=192, loss_p=0.02)
+FARM_KV_RUN = dict(generations=8, batch=256, max_steps=800, cov_words=64, max_ops=1,
+                   inherit_seed_p=0.9)
+FARM_KV_ROOTS = (7, 13, 29)
+# tools/obs_soak.py certificates 3 and 5: the diskless-raftlog hunt
+# (raftlog-record-nochaos, pool 128), 2 x 256, root 2024
+OBS_RL_RUN = dict(generations=2, batch=256, root_seed=2024, max_steps=EXPLORE_RL_STEPS,
+                  cov_words=EXPLORE_CW, select_top=24, max_ops=2, inherit_seed_p=0.85,
+                  require_halt=False)
+OBS_RING = 4096
+# phase 65: the compacted runner sharded over a world of one card, at
+# phase 31's hunt shape (kvchaos bug=True, writes 5, pool 192, loss 0.05)
+SHARD_SEEDS = 1024
+SHARD_STEPS = 1500
+# what the JAX package gives on the CPU for the same campaigns: the
+# corpus, bits, violations and digests (explore_digest) of each,
+# tests/_torch_farm_pins.py and tests/_torch_obs_pins.py (the energy
+# pins are (uniform violations, bits, adaptive violations, bits) per
+# root; the forensics pins are sha256 prefixes of the Perfetto document
+# and of the two explain texts)
+FARM_PINS = {'blocking': {'corpus': 52, 'bits': 204, 'viol': 0, 'digest': '3f1061e9bb7cde8b'},
+ 'tenants': {'halt': {'corpus': 109, 'bits': 201, 'viol': 64, 'digest': '2c5a11e8689617a4'},
+             'biased': {'corpus': 229, 'bits': 191, 'viol': 191, 'digest': 'bb272d60b7bed63b'},
+             'wide': {'corpus': 50, 'bits': 218, 'viol': 4, 'digest': 'ed77cfbfe2d8c7e9'}},
+ 'energy': {7: (931, 325, 1039, 324), 13: (904, 325, 1000, 325), 29: (986, 328, 974, 323)},
+ 'inert': {'corpus': 273, 'viol': 249, 'digest': '1f845d46e16f30a4'}}
+OBS_PINS = {'flight': {7: {'corpus': 41, 'bits': 154, 'digest': '7fafab498658fdfa'},
+                       8: {'corpus': 46, 'bits': 172, 'digest': 'b693ece38b05c9ec'},
+                       9: {'corpus': 57, 'bits': 165, 'digest': '2bfe7c35ffb55328'}},
+ 'halt': {'corpus': 180, 'viol': 139, 'digest': '361f13d697e7810f'},
+ 'hunt': {'viol': 9, 'bits': 938, 'digest': '85e7455227fd3f4b'},
+ 'forensics': {'events': 120, 'refold': True, 'trace': '0x2418867612c8a9c',
+               'perfetto': 'ae0b20fb38e2dd0b', 'explain': 'e9a751e45b2bb9b2',
+               'explain_causal': '72d716b64f872846', 'shrunk': 5}}
+
+
+def soak_plan(name: str):
+    """The flight and farm soaks' raft plan: a crash storm, a pause storm
+    and a gray failure."""
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan, GrayFailure, PauseStorm
+
+    nodes = (0, 1, 2, 3, 4)
+    return FaultPlan((
+        CrashStorm(targets=(1, 2, 3), n=2, t_min_ns=20_000_000, t_max_ns=400_000_000,
+                   down_min_ns=50_000_000, down_max_ns=250_000_000),
+        PauseStorm(targets=nodes, n=1, t_min_ns=20_000_000, t_max_ns=300_000_000,
+                   down_min_ns=50_000_000, down_max_ns=200_000_000),
+        GrayFailure(targets=nodes, n_links=1),
+    ), name=name)
+
+
+def soak_invariants() -> dict:
+    """The soaks' final-state invariants over the tensor view."""
+    return {
+        "cov": lambda view: view["halted"] | True,
+        "halt": lambda view: view["halted"],
+        "biased": lambda view: (view["trace"] & 7) != 0,
+    }
+
+
+def campaign_pins(rep, *keys) -> dict:
+    got = dict(corpus=len(rep.corpus), bits=rep.coverage_bits, viol=len(rep.violations),
+               digest=explore_digest(rep))
+    return {k: got[k] for k in keys}
+
+
+def scratch_dir(fresh: bool = False):
+    """The phases' files (flight logs, checkpoints, a store), under
+    ``build/checkpoints/`` (``.gitignore``); ``fresh`` empties it first:
+    a flight log appends."""
+    import shutil
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "build" / "checkpoints" / "phases_60_65"
+    if fresh:
+        shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def jsonl(path) -> list:
+    return [json.loads(line) for line in open(path)]
+
+
+def flight_phase(device, paths: dict, extra: dict) -> dict:
+    """Phase 60 (tools/flight_soak.py at its defaults): three run_device
+    campaigns under one profiler build each program once and campaigns
+    2-3 nothing; the recorder on and off gives the same campaigns on
+    both drivers with the wall-split schema and one host sync a device
+    generation (``strict_syncs``); the halt hunt's campaign Perfetto; the cache A/B
+    printed. Returns the halt hunt's device campaign (phase 65's
+    unsharded reference)."""
+    from madsim_tpu_torch import explore, obs
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.explore import device as xdev
+    from madsim_tpu_torch.models import make_raft
+    from madsim_tpu_torch.obs import prof
+
+    wl, cfg, plan, inv = make_raft(), EngineConfig(**SOAK_RAFT_KW), soak_plan("flight-soak"), \
+        soak_invariants()
+    tmp = scratch_dir()
+    xdev._GEN_CACHE.clear()
+    walls_c, got = [], {}
+    with prof.profiled() as p:
+        for root in FLIGHT_ROOTS:
+            t = time.perf_counter()
+            rep, counts = path_launches(lambda: explore.run_device(
+                wl, cfg, plan, invariant=inv["cov"], root_seed=root, device=device,
+                **FLIGHT_RUN))
+            walls_c.append((rep.wall_compile_s, time.perf_counter() - t))
+            got[root] = campaign_pins(rep, "corpus", "bits", "digest")
+            paths["raft"][f"flight_campaign_{root}"] = run_drain(counts, "raft")
+        retr = p.retraces("explore.device")
+        table = p.report()
+    if not retr or any(v != 1 for v in retr.values()) or walls_c[1][0] or walls_c[2][0]:
+        raise AssertionError(f"60: retraces {retr}, compile walls {walls_c}")
+    check_pins("60 flight campaigns", got, OBS_PINS["flight"])
+    log(f"[60] three run_device campaigns {FLIGHT_RUN} on raft 64 (roots {FLIGHT_ROOTS}): "
+        f"retraces {sorted(set(retr.values()))} over {len(retr)} keys, compile_wall_s "
+        f"{[round(c, 3) for c, _w in walls_c]}, wall {[round(w, 2) for _c, w in walls_c]} s; "
+        f"corpus, bits and digests the JAX package's")
+    for line in table.splitlines():
+        log(f"    {line}")
+    # the cache A/B: a fresh workload and invariant identity builds again
+    ab = {}
+    for tag, w, i in (("cached", wl, inv["cov"]), ("uncached", make_raft(),
+                                                   lambda v: v["halted"] | True)):
+        t = time.perf_counter()
+        rep = explore.run_device(w, cfg, plan, invariant=i, root_seed=20, device=device,
+                                 **FLIGHT_RUN)
+        ab[tag] = (time.perf_counter() - t, rep.wall_compile_s)
+    log(f"  cache A/B (printed, not gated): cached {ab['cached'][0]:.2f} s (compile "
+        f"{ab['cached'][1]:.3f}), uncached {ab['uncached'][0]:.2f} s (compile "
+        f"{ab['uncached'][1]:.3f})")
+    # the recorder on and off, both drivers
+    halt = {}
+    for tag, runner in (("device", explore.run_device), ("host", explore.run)):
+        off, counts = path_launches(lambda: runner(wl, cfg, plan, invariant=inv["halt"],
+                                                   device=device, **FLIGHT_HALT))
+        paths["raft"][f"flight_{tag}"] = run_drain(counts, "raft")
+        path = tmp / f"{tag}.jsonl"
+        # strict_syncs holds the device driver to its one sync a
+        # generation (the host driver has no device session)
+        with xdev.strict_syncs(), obs.FlightRecorder(str(path), heartbeat_s=0.0) as fr:
+            on = runner(wl, cfg, plan, invariant=inv["halt"], telemetry=fr, device=device,
+                        **FLIGHT_HALT)
+        recs = jsonl(path)
+        gens = [r for r in recs if r["event"] == "generation"]
+        want = (("dispatch_wall_s", "compile_wall_s", "sync_wall_s") if tag == "device" else
+                ("dispatch_wall_s", "compile_wall_s", "mutate_wall_s", "admit_wall_s",
+                 "host_wall_s"))
+        hbs = [r["generations_done"] for r in recs if r["event"] == "heartbeat"]
+        ok = (explore_digest(on) == explore_digest(off)
+              and len(gens) == FLIGHT_HALT["generations"]
+              and all(all(k in g for k in want) for g in gens)
+              and (tag == "host" or all(g["host_syncs"] == 1 for g in gens))
+              and [r["seq"] for r in recs] == list(range(len(recs)))
+              and hbs == list(range(1, len(gens) + 1)))
+        if not ok:
+            raise AssertionError(f"60: recorder on/off on the {tag} driver: {walls(recs)}")
+        halt[tag] = off
+        log(f"  {tag} driver {FLIGHT_HALT}: recorder on == off, schema, one sync a "
+            f"generation, heartbeats {hbs}; walls (ms) {walls(recs)}")
+    check_pins("60 halt hunt", campaign_pins(halt["device"], "corpus", "viol", "digest"),
+               OBS_PINS["halt"])
+    if explore_digest(halt["host"]) != explore_digest(halt["device"]):
+        raise AssertionError("60: the halt hunt's host and device campaigns differ")
+    # the campaign Perfetto of a cold halt hunt
+    path = tmp / "hunt.jsonl"
+    xdev._GEN_CACHE.clear()
+    with obs.FlightRecorder(str(path), heartbeat_s=0.0) as fr:
+        rep = explore.run_device(wl, cfg, plan, invariant=inv["halt"], telemetry=fr,
+                                 device=device, **FLIGHT_HALT)
+    doc = obs.write_campaign_perfetto(str(tmp / "campaign_trace.json"), str(path))
+    spans = [e for e in doc["traceEvents"] if e.get("cat") == "generation"]
+    compiles = [e for e in doc["traceEvents"] if e.get("cat") == "compile"]
+
+    def track(name):
+        return [e["args"][name] for e in doc["traceEvents"]
+                if e.get("ph") == "C" and e.get("name") == name]
+
+    cov, vio = track("cov_bits"), track("violations")
+    if (len(spans) != FLIGHT_HALT["generations"] or not rep.violations or cov != sorted(cov)
+            or vio != sorted(vio) or not compiles):
+        raise AssertionError(f"60: campaign Perfetto: {len(spans)} spans, {len(compiles)} "
+                             f"compiles, tracks {cov} {vio}")
+    summary = jsonl(path)[-1]
+    log(f"  campaign Perfetto: {len(spans)} generation spans, cov track {cov}, violation "
+        f"track {vio}, {len(compiles)} compile instants "
+        f"({[e['args'].get('compile_s') for e in compiles]} s), {len(doc['traceEvents'])} "
+        f"events; flight_summary memory {summary.get('memory')}, gen_cache "
+        f"{summary.get('gen_cache')}")
+    extra.setdefault("raft", {}).update(flight_campaign_s=[round(w, 3) for _c, w in walls_c],
+                                        flight_cache_ab_s=[round(ab["cached"][0], 3),
+                                                           round(ab["uncached"][0], 3)])
+    return halt["device"]
+
+
+class SlowSink:
+    """The farm soak's emulated slow collector: each generation record
+    costs ``delay`` seconds before it reaches the inner sink."""
+
+    def __init__(self, inner, delay: float):
+        self.inner, self.delay = inner, delay
+
+    def __call__(self, rec):
+        if rec.get("event") == "generation":
+            time.sleep(self.delay)
+        self.inner(rec)
+
+
+def farm_pipeline_phase(device, paths: dict, extra: dict) -> None:
+    """Phase 61 (the farm soak's certificate 1 at its shape): the
+    pipelined and blocking campaigns, checkpointing every generation and
+    recording to a JSONL flight log, 3 interleaved rounds, organic and
+    loaded: bit-identical campaigns (the JAX package's digest), byte-equal
+    checkpoint files, one host sync a generation (gates: both drivers run
+    under ``strict_syncs``, where any other wait for the card raises);
+    the ratios and the queue/idle split printed."""
+    from madsim_tpu_torch import explore, farm, obs
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.explore import device as xdev
+    from madsim_tpu_torch.models import make_raft
+
+    wl, cfg, plan = make_raft(), EngineConfig(**SOAK_RAFT_KW), soak_plan("farm-soak")
+    kw = dict(FARM_RUN, invariant=soak_invariants()["cov"], device=device)
+    tmp = scratch_dir()
+    explore.run_device(wl, cfg, plan, **dict(kw, generations=2))  # build both programs
+    t = time.perf_counter()
+    explore.run_device(wl, cfg, plan, **kw)
+    gen_wall = (time.perf_counter() - t) / FARM_RUN["generations"]
+    drain = 0.6 * gen_wall
+
+    def campaign(runner, tag, r, delay):
+        ck, jl = tmp / f"{tag}{r}.ckpt", tmp / f"{tag}{r}.jsonl"
+        t = time.perf_counter()
+        with xdev.strict_syncs(), obs.FlightRecorder(str(jl), heartbeat_s=0.0,
+                                                      profile=False) as fr:
+            sink = SlowSink(fr, delay) if delay else fr
+            rep, counts = path_launches(lambda: runner(wl, cfg, plan, telemetry=sink,
+                                                       checkpoint_path=str(ck), **kw))
+        return rep, time.perf_counter() - t, ck.read_bytes(), jsonl(jl), counts
+
+    ratios = {}
+    for regime, delay in (("organic", 0.0), ("loaded", drain)):
+        wb, wp = [], []
+        for r in range(FARM_ROUNDS):
+            rb, tb, cb, recb, counts_b = campaign(explore.run_device, f"blk-{regime}", r, delay)
+            rp, tp, cp, recp, counts_p = campaign(farm.run_pipelined, f"pipe-{regime}", r, delay)
+            wb.append(tb)
+            wp.append(tp)
+            syncs = all(len([g for g in recs if g["event"] == "generation"])
+                        == FARM_RUN["generations"] and all(
+                            g["host_syncs"] == 1 for g in recs if g["event"] == "generation")
+                        for recs in (recb, recp))
+            if explore_digest(rb) != explore_digest(rp) or cb != cp or not syncs:
+                raise AssertionError(f"61: {regime} round {r}: pipelined != blocking "
+                                     f"(checkpoints equal {cb == cp}, syncs {syncs})")
+            check_pins("61", campaign_pins(rp, "corpus", "bits", "viol", "digest"),
+                       FARM_PINS["blocking"])
+            end = next(x for x in recp if x["event"] == "campaign_end")
+            end_b = next(x for x in recb if x["event"] == "campaign_end")
+            log(f"[61] {regime:7} round {r}: blocking {tb:.3f} s (sync "
+                f"{end_b['wall_sync_s']:.3f} s) | pipelined {tp:.3f} s ({tb / tp:.2f}x) | "
+                f"queue {end['wall_queue_s']:.3f} s idle {end['wall_idle_s']:.3f} s respec "
+                f"{end['respeculations']}")
+        paths["raft"]["farm_blocking"] = run_drain(counts_b, "raft")
+        paths["raft"]["farm_pipelined"] = run_drain(counts_p, "raft")
+        ratios[regime] = statistics.median(wb) / statistics.median(wp)
+        extra.setdefault("raft", {})[f"farm_{regime}_s"] = dict(
+            blocking=[round(x, 3) for x in wb], pipelined=[round(x, 3) for x in wp])
+    log(f"  generation wall {gen_wall * 1e3:.1f} ms, loaded drain {drain * 1e3:.1f} ms a "
+        f"generation; median ratios (printed, not gated): organic {ratios['organic']:.3f}x, "
+        f"loaded {ratios['loaded']:.3f}x; every round bit-identical with byte-equal "
+        f"checkpoints and one host sync a generation; the JAX package's digest")
+    for p in tmp.glob("*.ckpt"):
+        p.unlink()
+
+
+def farm_session_phase(device, paths: dict) -> None:
+    """Phase 62 (certificate 2): three tenants in one-generation quanta:
+    each tenant's scheduled campaign equals its standalone run (and the
+    JAX package's digest), one build per program key, no eviction, every
+    generation record tenant-tagged."""
+    from madsim_tpu_torch import explore, farm, obs
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.explore import device as xdev
+    from madsim_tpu_torch.models import make_raft
+    from madsim_tpu_torch.obs import prof
+
+    wl, cfg, plan, inv = make_raft(), EngineConfig(**SOAK_RAFT_KW), soak_plan("farm-soak"), \
+        soak_invariants()
+    gens = FARM_RUN["generations"]
+    kws = {n: dict(k, invariant=inv[FARM_TENANT_INV[n]], device=device)
+           for n, k in FARM_TENANTS.items()}
+    xdev._GEN_CACHE.clear()
+    ev0 = xdev.gen_cache_stats()["evictions"]
+    path = scratch_dir() / "farm.jsonl"
+    with prof.profiled() as p:
+        refs = {n: explore.run_device(wl, cfg, plan, generations=gens, **k)
+                for n, k in kws.items()}
+        t = time.perf_counter()
+        with obs.FlightRecorder(str(path), heartbeat_s=0.0, profile=False) as fr:
+            rep, counts = path_launches(lambda: farm.run_farm(
+                [farm.Tenant(n, wl, cfg, plan, generations=gens, kwargs=k)
+                 for n, k in kws.items()], quantum=1, telemetry=fr))
+        fw = time.perf_counter() - t
+        retr = p.retraces("explore.device")
+    paths["raft"]["farm_session"] = run_drain(counts, "raft")
+    evictions = xdev.gen_cache_stats()["evictions"] - ev0
+    tags = [x["tenant"] for x in jsonl(path) if x["event"] == "generation"]
+    same = all(explore_digest(rep.reports[n]) == explore_digest(refs[n]) for n in kws)
+    if (not same or not retr or any(v != 1 for v in retr.values()) or evictions
+            or sorted(tags) != sorted(list(kws) * gens)):
+        raise AssertionError(f"62: scheduled == standalone {same}, retraces {retr}, "
+                             f"evictions {evictions}, tags {tags}")
+    check_pins("62", {n: campaign_pins(rep.reports[n], "corpus", "bits", "viol", "digest")
+                      for n in kws}, FARM_PINS["tenants"])
+    log(f"[62] three tenants, one-generation quanta: {rep.slices} slices in {fw:.2f} s, "
+        f"preemptions {rep.preemptions}, launches {counts}; scheduled == standalone == the "
+        f"JAX package's digests; retraces {sorted(set(retr.values()))} over {len(retr)} "
+        f"keys, {evictions} evictions; {len(tags)} tenant-tagged generation records")
+    for line in rep.banner().splitlines():
+        log(f"  {line}")
+
+
+def energy_phase(device, paths: dict) -> None:
+    """Phase 63 (certificates 3-4): adaptive energy against uniform on the
+    kvchaos mutant, 8 x 256 at roots 7, 13 and 29 on the host driver:
+    each campaign's violations and bits the JAX package's; energy absent,
+    None and mode="uniform" one campaign (the JAX package's digest)."""
+    from madsim_tpu_torch import explore, farm
+    from madsim_tpu_torch.check import read_your_writes, stale_reads
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_kvchaos
+
+    wl = make_kvchaos(writes=10, record=True, bug=True, chaos=False)
+    cfg, plan, key = EngineConfig(**FARM_KV_KW), kv_explore_plan(), kernel_model(wl).key
+
+    def hinv(h):
+        return stale_reads(h) & read_your_writes(h)
+
+    got, tot = {}, [0, 0]
+    t = time.perf_counter()
+    for rs in FARM_KV_ROOTS:
+        u = explore.run(wl, cfg, plan, root_seed=rs, history_invariant=hinv, device=device,
+                        **FARM_KV_RUN)
+        a, counts = path_launches(lambda: explore.run(
+            wl, cfg, plan, root_seed=rs, history_invariant=hinv, energy=farm.EnergySchedule(),
+            device=device, **FARM_KV_RUN))
+        got[rs] = (len(u.violations), u.coverage_bits, len(a.violations), a.coverage_bits)
+        tot[0] += got[rs][0]
+        tot[1] += got[rs][2]
+    e_s = time.perf_counter() - t
+    paths.setdefault(key, {})["explore_energy"] = run_drain(counts, key)
+    check_pins("63 energy", got, FARM_PINS["energy"])
+    ikw = dict(FARM_KV_RUN, generations=3, root_seed=7)
+    base = explore.run(wl, cfg, plan, history_invariant=hinv, device=device, **ikw)
+    for off in (None, farm.EnergySchedule(mode="uniform")):
+        if explore_digest(explore.run(wl, cfg, plan, history_invariant=hinv, energy=off,
+                                      device=device, **ikw)) != explore_digest(base):
+            raise AssertionError(f"63: energy={off!r} is not the uniform campaign")
+    check_pins("63 inert", {"corpus": len(base.corpus), "viol": len(base.violations),
+                            "digest": explore_digest(base)}, FARM_PINS["inert"])
+    log(f"[63] adaptive energy vs uniform on {key} {FARM_KV_RUN}: per root (uniform "
+        f"violations, bits, adaptive violations, bits) {got}, aggregate uniform {tot[0]} | "
+        f"adaptive {tot[1]} ({e_s:.1f} s for the six campaigns); the JAX package's; energy "
+        f"absent == None == uniform ({len(base.corpus)} corpus entries, "
+        f"{len(base.violations)} violations)")
+
+
+def obs_forensics_phase(device, paths: dict) -> None:
+    """Phase 64 (tools/obs_soak.py certificates 3 and 5): the
+    diskless-raftlog hunt with a JsonlSink and a checkpoint; its first
+    violation shrunk, replayed with a 4,096-row ring and metrics and
+    refolded; the Perfetto document, explain and explain(causal=True)
+    the JAX package's (sha256 pinned); the checkpoint reloads to the
+    identical corpus."""
+    from madsim_tpu_torch import explore, obs
+    from madsim_tpu_torch.chaos import shrink_plan
+    from madsim_tpu_torch.check import election_safety
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_raftlog, raftlog
+
+    wl = make_raftlog(record=True, chaos=False, durable=False)
+    cfg, plan, key = EngineConfig(**EXPLORE_RL_KW), hunt_explore_plan(), kernel_model(wl).key
+    tmp = scratch_dir()
+    tel, ck = tmp / "obs_soak_telemetry.jsonl", tmp / "obs_soak_campaign.json"
+
+    def inv(h):
+        return (election_safety(h, elect_op=raftlog.OP_COMMIT)
+                & election_safety(h, elect_op=raftlog.OP_ELECT))
+
+    def sha(text):
+        return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    t = time.perf_counter()
+    with obs.JsonlSink(str(tel)) as sink:
+        hunt, counts = path_launches(lambda: explore.run(
+            wl, cfg, plan, history_invariant=inv, telemetry=sink, checkpoint_path=str(ck),
+            device=device, **OBS_RL_RUN))
+    h_s = time.perf_counter() - t
+    paths.setdefault(key, {})["obs_hunt"] = run_drain(counts, key)
+    check_pins("64 hunt", campaign_pins(hunt, "viol", "bits", "digest"), OBS_PINS["hunt"])
+    e = hunt.violations[0]
+    res = shrink_plan(wl, cfg, e.seed, e.plan, history_invariant=inv,
+                      max_steps=EXPLORE_RL_STEPS, device=device)
+    entry = explore.CorpusEntry(id=-1, generation=-1, parent=-1, seed=e.seed, plan=res.plan,
+                                trace=res.trace, cov=e.cov, new_bits=0, violating=True)
+    r, counts = path_launches(lambda: explore.replay_entry(
+        wl, cfg, entry, history_invariant=inv, max_steps=EXPLORE_RL_STEPS,
+        timeline_cap=OBS_RING, metrics=True, device=device))
+    paths[key]["obs_replay"] = run_drain(counts, key)
+    events = obs.decode_timeline(r.timeline, wl, 0)
+    doc = obs.write_perfetto(str(tmp / "raftlog_trace.json"), events, wl, seed=e.seed)
+    texts, counts = path_launches(lambda: [obs.explain(
+        wl, cfg, seed=e.seed, plan=res.plan, history_invariant=inv,
+        max_steps=EXPLORE_RL_STEPS, timeline_cap=OBS_RING, max_events=40, causal=c,
+        device=device) for c in (False, True)])
+    paths[key]["explain"] = run_drain(counts, key)
+    got = dict(events=len(events), refold=obs.refold_timeline(events, wl) == int(r.traces[0]),
+               trace=f"{int(r.traces[0]):#x}",
+               perfetto=sha(json.dumps(doc, sort_keys=True)), explain=sha(texts[0]),
+               explain_causal=sha(texts[1]), shrunk=len(res.events))
+    check_pins("64 forensics", got, OBS_PINS["forensics"])
+    n_disp = sum(1 for x in doc["traceEvents"] if x.get("cat") == "dispatch")
+    recs = jsonl(tel)
+    st = explore.load_campaign(str(ck))
+    if (n_disp != len(events) or len([x for x in recs if x["event"] == "generation"]) != 2
+            or st.generations_done != 2 or [x.id for x in st.corpus] != [x.id for x in hunt.corpus]
+            or not np.array_equal(st.cov_map, hunt.cov_map)):
+        raise AssertionError("64: the Perfetto rows, the telemetry or the checkpoint")
+    log(f"[64] the diskless-raftlog hunt on {key} {OBS_RL_RUN}: {got} ({h_s:.1f} s for the "
+        f"hunt); the JAX package's texts and document; {len(recs)} JSONL records; the "
+        f"checkpoint reloads to the identical corpus. explain (tail):")
+    for line in texts[0].splitlines()[-12:]:
+        log(f"    {line}")
+    for p in (tel, ck):
+        p.unlink()
+
+
+def parallel_phase(device, paths: dict, halt_ref) -> None:
+    """Phase 65: parallel on a world of one card (NCCL, a file:// store):
+    shard_run_compacted with hist_screen equals make_run_compacted per
+    field; the four merges equal the one-device ones; run_device(mesh=)
+    equals phase 60's run_device()."""
+    import torch.distributed as dist
+
+    from madsim_tpu_torch import explore, parallel
+    from madsim_tpu_torch.check import device as dc
+    from madsim_tpu_torch.engine import EngineConfig, make_init
+    from madsim_tpu_torch.engine.compact import RESULT_FIELDS, SCREEN_FIELDS, make_run_compacted
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_kvchaos, make_raft
+
+    store = scratch_dir() / "world_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh()
+        wl = make_kvchaos(writes=KV_WRITES, record=True, bug=True)
+        cfg, key = EngineConfig(**HIST_SEARCH_KW), kernel_model(wl).key
+        screens = (dc.stale_reads(), dc.read_your_writes())
+        st = make_init(wl, cfg, device=device)(np.arange(SHARD_SEEDS, dtype=np.uint64))
+        kw = dict(min_size=256, hist_screen=screens)
+        sharded, counts = path_launches(lambda: parallel.shard_run_compacted(
+            wl, cfg, SHARD_STEPS, mesh, **kw)(st))
+        paths.setdefault(key, {})["parallel_compacted"] = run_drain(counts, key)
+        solo = make_run_compacted(wl, cfg, SHARD_STEPS, **kw)(st)
+        bad = [f for f in RESULT_FIELDS + SCREEN_FIELDS
+               if not np.array_equal(getattr(sharded, f), getattr(solo, f))]
+        if bad or sharded.hist_ok.all() or not sharded.hist_fold.any():
+            raise AssertionError(f"65: sharded compacted run differs in {bad}")
+        rng = np.random.default_rng(5)
+        inputs = dict(
+            merge_coverage=torch.from_numpy(rng.integers(0, 2**32, size=(4096, 32),
+                                                         dtype=np.uint64).view(np.int64)
+                                            & 0xFFFFFFFF).to(device),
+            merge_metrics=torch.from_numpy(rng.integers(0, 2**31 - 1, size=(4096, 16))
+                                           .astype(np.int32)).to(device),
+            merge_latency=torch.from_numpy(rng.integers(0, 1000, size=(4096, 2, 12))
+                                           .astype(np.int32)).to(device),
+            merge_verdicts=torch.from_numpy(rng.random(4096) < 0.7).to(device),
+        )
+        for name, x in inputs.items():
+            a, b = getattr(parallel, name)(x, mesh), getattr(parallel, name)(x)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"65: {name} over the world differs from one device")
+        wl_r, cfg_r = make_raft(), EngineConfig(**SOAK_RAFT_KW)
+        records = []
+        rep, counts = path_launches(lambda: explore.run_device(
+            wl_r, cfg_r, soak_plan("flight-soak"), invariant=soak_invariants()["halt"],
+            mesh=mesh, telemetry=records.append, **FLIGHT_HALT))
+        paths["raft"]["parallel_run_device"] = run_drain(counts, "raft")
+        if (explore_digest(rep) != explore_digest(halt_ref) or records[0]["mesh_devices"] != 1
+                or rep.host_syncs != FLIGHT_HALT["generations"]):
+            raise AssertionError("65: run_device(mesh=) differs from run_device()")
+        log(f"[65] a world of one card (NCCL, file:// store): shard_run_compacted with "
+            f"hist_screen on {key} ({SHARD_SEEDS} seeds, {SHARD_STEPS} steps) equals "
+            f"make_run_compacted in every field ({int((~sharded.hist_ok).sum())} flagged, "
+            f"{int(sharded.hist_fold.sum())} records folded); the four merges equal one "
+            f"device's; run_device(mesh=) {FLIGHT_HALT} equals phase 60's campaign "
+            f"(mesh_devices {records[0]['mesh_devices']})")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def farm_phases(device, paths: dict, extra: dict, lap) -> None:
+    """Phases 60-65, each timed; their files are removed at the end."""
+    import shutil
+
+    tmp = scratch_dir(fresh=True)
+    halt_ref = flight_phase(device, paths, extra)
+    lap("phase 60")
+    farm_pipeline_phase(device, paths, extra)
+    lap("phase 61")
+    farm_session_phase(device, paths)
+    lap("phase 62")
+    energy_phase(device, paths)
+    lap("phase 63")
+    obs_forensics_phase(device, paths)
+    lap("phase 64")
+    parallel_phase(device, paths, halt_ref)
+    lap("phase 65")
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -4091,6 +4671,7 @@ def main() -> int:
     lap("phase 58")
     explore_device_phase(device, results, paths, extra)
     lap("phase 59")
+    farm_phases(device, paths, extra, lap)
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
                     shapes.get((key, r["pool"])))

@@ -22,9 +22,14 @@ against the JAX package bit for bit.
   the device campaign ``run_device``, mutation, admission and campaign
   checkpoints.
 * ``obs`` — the timeline ring's decoder, the latency sketch, causal
-  provenance, fleet metrics and Perfetto documents.
-* ``parallel`` — fleet reductions on one device (``merge_metrics``,
-  ``merge_latency``).
+  provenance, fleet metrics and Perfetto documents; campaign telemetry
+  and ``explain``, the program profiler and the flight recorder.
+* ``farm`` — power schedules (``EnergySchedule``, ``FarmEnergy``), the
+  pipelined device campaign (``run_pipelined``) and the multi-tenant
+  scheduler (``run_farm``).
+* ``parallel`` — seed sharding over a ``torch.distributed`` world
+  (``make_mesh``, ``shard_state``, ``shard_run_compacted``) and the
+  fleet merges, on one device or across the world.
 """
 
-from . import chaos, check, engine, explore, models, obs, parallel  # noqa: F401
+from . import chaos, check, engine, explore, farm, models, obs, parallel  # noqa: F401

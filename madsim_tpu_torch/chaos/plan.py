@@ -213,9 +213,14 @@ class _Stream:
         return np.int64(lo) + self.mod(j, span)
 
     def options(self, options):
-        """A target tuple as an int64 array on the stream's backend."""
+        """A target tuple as an int64 array on the stream's backend. On
+        the card it crosses from pinned memory without a wait, so a
+        compile enqueued behind running work does not wait for it."""
         if self.dev is not None:
-            return torch.tensor(options, dtype=torch.int64, device=self.dev)
+            host = torch.tensor(options, dtype=torch.int64)
+            if self.dev.type == "cuda":
+                host = host.pin_memory()
+            return host.to(self.dev, non_blocking=True)
         return np.asarray(options, np.int64)
 
     def pick(self, options, j: int):

@@ -44,7 +44,10 @@ and folded columns equal the phase program's.
 ``run.compute(state)`` returns the banks (device tensors, each with its
 rows' original indices under ``"_idx"``); ``run.assemble(banks)``
 scatters them back to seed order as numpy arrays with the JAX package's
-dtypes; ``run(state)`` is both.
+dtypes; ``run(state)`` is both. ``run.phases`` is ``run.compute`` under
+the name of the JAX package's phase-program seam (``compiled``); the
+same program serves a whole batch or one rank's shard
+(``parallel.shard_run_compacted``).
 """
 
 from __future__ import annotations
@@ -337,7 +340,9 @@ def make_run_compacted(
             return banks
         return [_screen_bank(b, screens) for b in banks]
 
-    return _runner(compute, fields, shrink, min_size, max_steps, screens is not None)
+    run = _runner(compute, fields, shrink, min_size, max_steps, screens is not None)
+    run.phases = compute
+    return run
 
 
 def one_launch_banks(state: SimState, out: SimState, iters: torch.Tensor, fields) -> list:

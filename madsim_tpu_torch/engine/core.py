@@ -522,6 +522,9 @@ def pack_slow_arg(b, mult):
     if isinstance(b, np.ndarray) or isinstance(mult, np.ndarray):
         return ((np.asarray(b, np.int64) + 1) & 0xFF) | (np.asarray(mult, np.int64) << 8)
     b = torch.as_tensor(b).to(torch.int32)
+    if isinstance(mult, (int, np.integer)):
+        # a host multiplier stays a scalar operand: no copy to the device
+        return ((b + 1) & 0xFF) | (int(mult) << 8)
     return ((b + 1) & 0xFF) | (torch.as_tensor(mult, device=b.device).to(torch.int32) << 8)
 
 
@@ -1023,8 +1026,18 @@ class Workload:
     # lat_end); 0 keeps the Emits free of marker rows. The markers
     # change nothing unless the step is built with a LatencySpec.
     lat_markers: int = 0
+    # optional human names for the user handlers (len == len(handlers)),
+    # read only by timelines, Perfetto documents and ``obs.explain``: no
+    # effect on execution
+    handler_names: tuple | None = None
 
     def __post_init__(self):
+        if self.handler_names is not None and len(self.handler_names) != len(self.handlers):
+            raise ValueError(
+                f"handler_names has {len(self.handler_names)} entries for "
+                f"{len(self.handlers)} handlers — replay timelines would "
+                f"label the wrong handlers"
+            )
         if not (2 <= self.args_words <= 4):
             raise ValueError(
                 f"args_words={self.args_words} must be in [2, 4] "

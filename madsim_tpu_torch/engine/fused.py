@@ -101,6 +101,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -731,6 +732,29 @@ def build_libraries(specs=None) -> dict:
         out[spec.key] = (lib, log)
     if failed:
         raise RuntimeError("nvcc failed building the run kernel:\n" + "\n".join(failed))
+    return out
+
+
+def kernel_registers(build_log: str, pool: int, taps: bool = False) -> dict:
+    """The registers nvcc reports (``--resource-usage``) for a library's
+    kernels at ``pool``: ``{kernel: registers}`` for the run kernel with
+    and without metrics and the drain kernel, without the taps; with
+    ``taps``, the taps kernel (``run_kernel<E, MET, true>``) with and
+    without metrics instead."""
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for \S*?((?:run|drain)_kernel\S*)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            short = re.match(r"(run|drain)_kernelILi(\d+)E(?:Lb(\d)ELb(\d)E)?", fn)
+            if short and int(short.group(2)) == pool and (short.group(4) == "1") == taps:
+                name = (f"run(metrics={short.group(3) == '1'})" if short.group(1) == "run"
+                        else "drain")
+                out[name] = int(m.group(1))
+            fn = None
     return out
 
 

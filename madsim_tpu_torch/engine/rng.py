@@ -122,16 +122,24 @@ def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & M32
 
 
+def _word(x, device) -> torch.Tensor:
+    """``x`` as int64 on ``device`` (None: where it is, the CPU for a host
+    value). A Python or numpy integer becomes a filled scalar on the
+    device, not a copy from host memory, which would wait for the
+    device's queued work."""
+    if isinstance(x, (int, np.integer)):
+        return torch.full((), int(x), dtype=torch.int64, device=device)
+    return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32, 20 rounds, over broadcastable int64 tensors.
 
     Inputs are uint32 words carried in int64 (values in ``[0, 2**32)``);
     so are the two outputs.
     """
-    k0 = torch.as_tensor(k0, dtype=torch.int64)
-    k1 = torch.as_tensor(k1, dtype=torch.int64, device=k0.device)
-    x0 = torch.as_tensor(x0, dtype=torch.int64, device=k0.device)
-    x1 = torch.as_tensor(x1, dtype=torch.int64, device=k0.device)
+    k0 = _word(k0, None)
+    k1, x0, x1 = (_word(x, k0.device) for x in (k1, x0, x1))
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32

@@ -90,7 +90,11 @@ __all__ = ["SearchReport", "make_sweep", "search_seeds"]
 # built (init, run) pairs, so that repeated searches over the same
 # workload, config, step budget and path (the repro workflow) reuse
 # them. A workload is named by its factory's name, shape, parameters
-# and history spec, as the kernel registry names it.
+# and history spec, as the kernel registry names it. The run is an
+# obs.prof.AotProgram, so its build (the run's construction and the
+# kernel library's build or load) is timed and retrace-counted, and the
+# library's share of a dispatch is separable from execution
+# (SearchReport.build_wall_s).
 _RUN_CACHE: dict = {}
 
 
@@ -100,16 +104,19 @@ def _build_init_run(wl: Workload, cfg: EngineConfig, max_steps: int,
                     cov_hitcount: bool = False, timeline_cap: int = 0, latency=None,
                     causal: bool = False, retry=None):
     # the one construction of a sweep's (init, run) pair, for make_sweep
-    # and search_seeds alike; only the compacted runner embeds a screen
+    # and search_seeds alike; only the compacted runner embeds a screen.
+    # The run comes back unbuilt: a function that makes it
     taps = dict(metrics=metrics, cov_words=cov_words, cov_hitcount=cov_hitcount,
                 timeline_cap=timeline_cap, latency=latency, causal=causal, retry=retry)
     init = make_init(wl, cfg, device=device, plan_slots=plan_slots, **taps)
-    run = (
-        make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen, dup_rows=dup_rows,
-                           **taps)
-        if compact else make_run_while(wl, cfg, max_steps, dup_rows=dup_rows, **taps)
-    )
-    return init, run
+
+    def build():
+        if compact:
+            return make_run_compacted(wl, cfg, max_steps, hist_screen=hist_screen,
+                                      dup_rows=dup_rows, **taps)
+        return make_run_while(wl, cfg, max_steps, dup_rows=dup_rows, **taps)
+
+    return init, build
 
 
 def make_sweep(
@@ -135,11 +142,12 @@ def make_sweep(
     invariant. ``metrics``, ``cov_words``, ``timeline_cap``,
     ``cov_hitcount``, ``latency`` and ``causal`` run the observability
     taps, ``retry`` (a ``RetrySpec``) the client-retry timers."""
-    init, run = _build_init_run(wl, cfg, max_steps, False, resolve_device(device),
-                                plan_slots=plan_slots, dup_rows=dup_rows, metrics=metrics,
-                                cov_words=cov_words, cov_hitcount=cov_hitcount,
-                                timeline_cap=timeline_cap, latency=latency, causal=causal,
-                                retry=retry)
+    init, build = _build_init_run(wl, cfg, max_steps, False, resolve_device(device),
+                                  plan_slots=plan_slots, dup_rows=dup_rows, metrics=metrics,
+                                  cov_words=cov_words, cov_hitcount=cov_hitcount,
+                                  timeline_cap=timeline_cap, latency=latency, causal=causal,
+                                  retry=retry)
+    run = build()
 
     def sweep(seeds, rows=None):
         out = run(init(seeds, rows) if plan_slots else init(seeds))
@@ -160,11 +168,30 @@ def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
            max_steps, compact, str(dev), hist_screen, plan_slots, dup_rows, metrics,
            cov_words, cov_hitcount, timeline_cap, latency, causal, retry)
     if key not in _RUN_CACHE:
-        _RUN_CACHE[key] = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
-                                          plan_slots, dup_rows, metrics, cov_words,
-                                          cov_hitcount, timeline_cap, latency, causal,
-                                          retry)
+        from ..obs.prof import AotProgram
+
+        init, build = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
+                                      plan_slots, dup_rows, metrics, cov_words,
+                                      cov_hitcount, timeline_cap, latency, causal, retry)
+        _RUN_CACHE[key] = (init, AotProgram(
+            "engine.search.run", key, build,
+            library=lambda: _library_build_s(wl, dev, dup_rows),
+            cost=lambda: launch_cost(wl, cfg, dev, dup_rows),
+        ))
     return _RUN_CACHE[key]
+
+
+def launch_cost(wl: Workload, cfg: EngineConfig, dev, dup_rows: bool = False) -> dict:
+    """The launch shape of the workload's run kernel at the config's
+    pool (``obs.prof.program_cost``) on the card; {} on the CPU or at a
+    pool the library has no build for."""
+    if dev.type != "cuda":
+        return {}
+    from ..obs.prof import program_cost
+    from .fused import kernel_model
+
+    spec = kernel_model(wl, dup_rows)
+    return program_cost(spec, cfg.pool_size) if cfg.pool_size in spec.pools else {}
 
 
 def _library_build_s(wl: Workload, dev, dup_rows: bool = False) -> float:
@@ -539,8 +566,8 @@ def search_seeds(
     init, run = _compiled_run(wl, cfg, max_steps, compact, dev,
                               screens if compact else None, plan_slots, dup_rows, metrics,
                               cov_words, cov_hitcount, timeline_cap, latency, causal, retry)
-    build_wall_s = _library_build_s(wl, dev, dup_rows)
     out = run(init(seeds, rows) if rows is not None else init(seeds))
+    build_wall_s = run.last_compile_s
     if compact:
         fields = RESULT_FIELDS + SCREEN_FIELDS if screens is not None else RESULT_FIELDS
         view = {f: getattr(out, f) for f in fields}

@@ -54,14 +54,21 @@ predicate over the tensor view (``{field: tensor} -> (S,) bool``, torch
 ops on the sweep's device); arbitrary host ``history_invariant``
 callables beyond the screen set need the host driver, and
 ``compact=True`` has no device equivalent (the sweep runs
-``make_run_while``). The seed sharding across cards (``mesh=``) waits
-for ROADMAP A10 "parallel".
+``make_run_while``).
+
+With a ``mesh`` (``parallel.make_mesh``: a ``torch.distributed`` world)
+each rank simulates its shard of every generation's children and the
+per-child admission inputs are all-gathered, so every rank's corpus,
+coverage map, stores and report equal the unsharded campaign's. The
+pipelined schedule of the same session is ``farm.run_pipelined``.
 """
 
 from __future__ import annotations
 
+import functools
 import os as _os
 import time as _time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -69,7 +76,7 @@ import torch
 from ..chaos.plan import FaultEvent, FaultPlan, LiteralPlan, stack_plan_rows
 from ..engine.core import PlanRows, resolve_device
 from ..engine.rng import M32, PURPOSE_EXPLORE, threefry2x32
-from ..engine.search import _library_build_s, make_sweep
+from ..engine.search import _library_build_s, launch_cost, make_sweep
 from .coverage import popcount32, prefix_or
 from .driver import CorpusEntry, ExploreReport, _pad_literal
 from .mutate import (
@@ -83,7 +90,7 @@ from .mutate import (
     mutation_table,
 )
 
-__all__ = ["gen_cache_stats", "run_device"]
+__all__ = ["gen_cache_stats", "run_device", "strict_syncs"]
 
 _I64 = torch.int64
 # the parts of a generation, timed into every telemetry record
@@ -346,12 +353,15 @@ def _store_entry(st_np, i, name) -> CorpusEntry:
 # campaign scope: a session of campaigns over fresh root seeds builds
 # its sweep, mutator tables and closures once per campaign shape. Keyed
 # on (workload identity, config, space hash, batch, build flags,
-# invariant identity, seed-corpus literals, device) — everything the
-# built generation closes over. The ROOT SEED is deliberately NOT in the
-# key: it enters the programs as a runtime argument. Bounded LRU;
-# MADSIM_GEN_CACHE_MAX overrides the bound, evictions are counted
-# (gen_cache_stats). Hold ONE workload/invariant object across campaigns
-# to hit the cache, exactly like engine.search.
+# invariant identity, seed-corpus literals, mesh, device) — everything
+# the built generation closes over. The ROOT SEED is deliberately NOT in
+# the key: it enters the programs as a runtime argument. Entries hold
+# obs.prof.AotProgram pairs (uniform and breed), so every build is
+# timed and retrace-counted (profiler-certified: retraces == 1 per
+# key). Bounded LRU; MADSIM_GEN_CACHE_MAX overrides the bound,
+# evictions are counted (gen_cache_stats -> flight_summary). Hold ONE
+# workload/invariant object across campaigns to hit the cache, exactly
+# like engine.search.
 _GEN_CACHE: dict = {}
 _GEN_CACHE_MAX = 8
 _GEN_CACHE_EVICTIONS = 0
@@ -381,20 +391,40 @@ def gen_cache_stats() -> dict:
     }
 
 
-def _gen_program(key, builder):
+def _gen_programs(key, make, library, cost, refs):
+    """The (uniform, breed) AotProgram pair of a campaign shape: both
+    run one ``_Generation`` that ``make()`` returns on the first build;
+    ``library`` builds or loads the run kernel's library and ``cost``
+    reads its launch shape. ``refs`` (the objects whose identities are
+    in ``key``) live as long as the entry, so no id is reused."""
     global _GEN_CACHE_EVICTIONS
-    prog = _GEN_CACHE.get(key)
-    if prog is None:
+    from ..obs.prof import AotProgram
+
+    progs = _GEN_CACHE.get(key)
+    if progs is None:
         cap = _gen_cache_max()
         while len(_GEN_CACHE) >= cap:
             _GEN_CACHE.pop(next(iter(_GEN_CACHE)))
             _GEN_CACHE_EVICTIONS += 1
-        prog = _GEN_CACHE[key] = builder()
+        box: list = []
+
+        def program(breed: bool):
+            if not box:
+                box.append(make())
+            return functools.partial(box[0], breed=breed)
+
+        progs = _GEN_CACHE[key] = (
+            AotProgram("explore.device.uniform", (key, "uniform"),
+                       lambda: program(False), library=library, cost=cost),
+            AotProgram("explore.device.breed", (key, "breed"),
+                       lambda: program(True), library=library, cost=cost),
+            refs,
+        )
     else:
         # LRU touch: re-insertion moves the entry to the back of the
         # eviction order (dicts iterate in insertion order)
         _GEN_CACHE[key] = _GEN_CACHE.pop(key)
-    return prog
+    return progs[:2]
 
 
 def _chunked_any(n: int, width: int, block):
@@ -408,15 +438,23 @@ class _Generation:
     """One campaign shape's generation, built once: the uniform and the
     breeding children, the sweep, the judge and the admission. Every
     part runs on the campaign's device; ``mark(part)``, when given, is
-    called after each part (the timing hook of :func:`run_device`)."""
+    called after each part (the timing hook of :func:`run_device`).
+    With a ``mesh`` this rank makes, simulates and judges its shard of
+    the children (global batch slots ``rank * local ..``); the admission
+    inputs are all-gathered, so the admission runs on the whole batch,
+    identically on every rank."""
 
     def __init__(self, wl, cfg, space, *, invariant, batch, max_steps, cov_words,
                  require_halt, select_top, max_corpus, vcap, max_ops, inherit_seed_p,
                  cov_hitcount, metrics, latency, seed_corpus, history_check, causal,
-                 retry, dev):
-        self.wl, self.space, self.dev = wl, space, dev
+                 retry, dev, mesh=None):
+        self.wl, self.space, self.dev, self.mesh = wl, space, dev, mesh
         self.invariant, self.history_check = invariant, history_check
-        self.batch, self.max_corpus, self.vcap = batch, max_corpus, vcap
+        self.max_corpus, self.vcap = max_corpus, vcap
+        n_dev, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+        # this rank's children: global batch slots [lo, lo + batch)
+        self.batch = batch // n_dev
+        self.lo = rank * self.batch
         self.select_top, self.require_halt = select_top, require_halt
         self.metrics, self.latency = metrics, latency
         self.dup = space.uses_dup()
@@ -433,7 +471,7 @@ class _Generation:
             ov = stack_plan_rows([_pad_literal(lp, space.slots) for lp in seed_corpus])
             self.ov = {f: torch.from_numpy(np.asarray(getattr(ov, f))).to(
                 device=dev, dtype=_ROW_DTYPES[f]) for f in _ROW_KEYS}
-        self.jglob = torch.arange(batch, device=dev)
+        self.jglob = self.lo + torch.arange(self.batch, device=dev)
 
     def keys(self, g: int, rk0, rk1):
         # driver._derive_keys: x0 = generation, x1 = PURPOSE_EXPLORE+slot
@@ -445,11 +483,13 @@ class _Generation:
         mark("mutate")
         rows = self.space.plan.compile_batch(seeds, device=True)
         row_d = {f: getattr(rows, f).to(_ROW_DTYPES[f]) for f in _ROW_KEYS}
-        if self.k_ov and g == 0:
+        n_ov = min(self.k_ov - self.lo, self.batch)
+        if n_ov > 0 and g == 0:
             # the seed-corpus literals replace the first generation-0 rows
+            # (those of them in this rank's slots)
             for f in _ROW_KEYS:
                 row_d[f] = row_d[f].clone()
-                row_d[f][: self.k_ov] = self.ov[f]
+                row_d[f][:n_ov] = self.ov[f][self.lo:self.lo + n_ov]
         mark("compile")
         parent = torch.full((self.batch,), -1, dtype=_I64, device=self.dev)
         return dict(seed=seeds, parent=parent, bslot=self.jglob, **row_d)
@@ -465,7 +505,9 @@ class _Generation:
         key = torch.where(slot < cr["count"], nv * (2 * cmax1) + (cr["count"] - slot),
                           1 << 60)
         order = torch.argsort(key, stable=True)
-        olen = torch.clamp(cr["count"], max=self.select_top)
+        # at least 1: a pipelined breed speculated onto an empty corpus
+        # runs (and is discarded) without a division by zero
+        olen = torch.clamp(cr["count"], min=1, max=self.select_top)
         ch = self.mutator(k0s, k1s, fresh, order, olen, cr["c"])
         mark("mutate")
         mark("compile")
@@ -578,6 +620,12 @@ class _Generation:
         mark("sweep")
         out = dict(kids, **self.judge(view))
         mark("judge")
+        if self.mesh is not None:
+            from ..parallel import gather_rows
+
+            # every rank admits the whole batch, in global slot order
+            out = {k: (v if k in ("met", "lat_hist") else gather_rows(v, self.mesh))
+                   for k, v in out.items()}
         cr2, summary = self.admit(cr, g, out)
         mark("admit")
         extras = {k: out[k] for k in ("met", "lat_hist") if k in out}
@@ -590,13 +638,77 @@ class _Generation:
 
 _SUMMARY = ("count", "next_id", "vcount", "admitted", "cov_bits", "over")
 
+_STRICT = False
+
+
+@contextmanager
+def strict_syncs():
+    """Hold a campaign to one host sync a generation on the card: inside,
+    each device campaign's generation loop, from its first dispatch to its
+    last consume, runs under ``torch.cuda.set_sync_debug_mode("error")``
+    with the consume point's event wait alone exempt, so any other wait
+    for the card (an ``.item()``, a pageable copy, a boolean-mask index,
+    a checkpoint read from the card) raises. The session's set-up and the
+    final report, which move data both ways, lie outside. Without a card
+    it changes nothing."""
+    global _STRICT
+    prev, _STRICT = _STRICT, True
+    try:
+        yield
+    finally:
+        _sync_guard(False)  # a campaign that raised left it on
+        _STRICT = prev
+
+
+def _sync_guard(on: bool) -> None:
+    if _STRICT and torch.cuda.is_available():
+        torch.cuda.set_sync_debug_mode("error" if on else "default")
+
+
+class _HostCopy:
+    """A dispatched generation's host view: its admission summary, its
+    fleet totals and, when the campaign checkpoints, what the checkpoint
+    reads (:meth:`_CampaignSession.stage`), copied to pinned host buffers
+    behind the generation's work on the card, with the event the consume
+    point waits on. On one CUDA stream a plain ``.tolist()`` or ``.cpu()``
+    of generation g would also wait for g+1, already queued behind it;
+    these copies wait for nothing. On the CPU the values are final when
+    the dispatch returns."""
+
+    def __init__(self, summary, totals: dict, staged: dict | None = None):
+        cuda = summary.is_cuda
+
+        def host(t):
+            if isinstance(t, dict):
+                return {k: host(v) for k, v in t.items()}
+            if not cuda:
+                return t
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            out.copy_(t, non_blocking=True)
+            return out
+
+        self.summary = host(summary)
+        self.totals = host(totals)
+        self.staged = host(staged) if staged is not None else None
+        self.event = None
+        if cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def wait(self) -> None:
+        """THE consume-point sync: the generation and its copies are done."""
+        if self.event is not None:
+            _sync_guard(False)
+            self.event.synchronize()
+            _sync_guard(True)
+
 
 class _CampaignSession:
     """Everything a device campaign threads between generations:
     argument validation, checkpoint resume, the device carry, the
-    cached generation, host mirrors, telemetry and report assembly
-    (the JAX package's session, which its pipelined farm driver shares;
-    the port has the blocking schedule only)."""
+    cached generation programs, host mirrors, telemetry and report
+    assembly — shared by the blocking driver (:func:`run_device`) and
+    the pipelined one (``farm.run_pipelined``)."""
 
     def __init__(
         self, wl, cfg, space, *, invariant, generations, batch, root_seed,
@@ -606,12 +718,6 @@ class _CampaignSession:
         pool_index, history_check, causal=False, device=None,
     ):
         del layout, pool_index  # one lowering of the step: no effect
-        if mesh is not None:
-            raise NotImplementedError(
-                "run_device(mesh=...) shards the campaign across cards, which "
-                "the torch port does not do yet (ROADMAP A10 \"parallel\"); "
-                "pass mesh=None"
-            )
         if isinstance(space, FaultPlan):
             space = PlanSpace(space)
         if history_check is not None:
@@ -640,6 +746,11 @@ class _CampaignSession:
             raise ValueError(
                 f"{len(seed_corpus)} seed-corpus plans exceed batch={batch}"
             )
+        n_dev = mesh.size if mesh is not None else 1
+        if batch % n_dev:
+            raise ValueError(
+                f"batch={batch} does not split over {n_dev} mesh devices"
+            )
         vcap = int(viol_cap) if viol_cap is not None else int(max_corpus)
         # derive the engine retry build flag from the space plan's
         # ClientArmy policy (the host driver's rule; LiteralPlan spaces
@@ -648,7 +759,7 @@ class _CampaignSession:
             space.plan.retry_spec() if hasattr(space.plan, "retry_spec")
             else None
         )
-        dev = resolve_device(device)
+        dev = mesh.device if mesh is not None else resolve_device(device)
         p_slots = space.slots
         cmax1 = int(max_corpus) + 1
         vcap1 = vcap + 1
@@ -720,20 +831,30 @@ class _CampaignSession:
             # screens are value-hashable literals, so equal screen sets
             # share a generation across campaigns
             history_check, str(dev),
+            (mesh.size, mesh.rank) if mesh is not None else None,
         )
-        self.program = _gen_program(key, lambda: (_Generation(
-            wl, cfg, space, invariant=invariant, batch=batch, max_steps=max_steps,
-            cov_words=cov_words, require_halt=require_halt, select_top=select_top,
-            max_corpus=int(max_corpus), vcap=vcap, max_ops=max_ops,
-            inherit_seed_p=inherit_seed_p, cov_hitcount=cov_hitcount, metrics=metrics,
-            latency=latency, seed_corpus=seed_corpus, history_check=history_check,
-            causal=causal, retry=retry, dev=dev,
-        ), (wl, invariant, latency, space)))[0]
+        self.prog_uniform, self.prog_breed = _gen_programs(
+            key,
+            lambda: _Generation(
+                wl, cfg, space, invariant=invariant, batch=batch, max_steps=max_steps,
+                cov_words=cov_words, require_halt=require_halt, select_top=select_top,
+                max_corpus=int(max_corpus), vcap=vcap, max_ops=max_ops,
+                inherit_seed_p=inherit_seed_p, cov_hitcount=cov_hitcount,
+                metrics=metrics, latency=latency, seed_corpus=seed_corpus,
+                history_check=history_check, causal=causal, retry=retry, dev=dev,
+                mesh=mesh,
+            ),
+            lambda: _library_build_s(wl, dev, space.uses_dup()),
+            lambda: launch_cost(wl, cfg, dev, space.uses_dup()),
+            (wl, invariant, latency, space),
+        )
 
         self.wl = wl
         self.cfg = cfg
         self.space = space
         self.dev = dev
+        self.mesh = mesh
+        self.n_dev = n_dev
         self.generations = generations
         self.batch = batch
         self.root_seed = int(root_seed)
@@ -744,6 +865,7 @@ class _CampaignSession:
         self.telemetry = telemetry
         self.checkpoint_path = checkpoint_path
         self.vcap = vcap
+        self.max_corpus = int(max_corpus)
         self.seed_corpus = seed_corpus
         self.k_ov = len(seed_corpus)
         self.next_id = next_id0  # host mirror for snapshots
@@ -756,23 +878,61 @@ class _CampaignSession:
         self.rk1 = scalar((self.root_seed >> 32) & M32)
 
     # ---- scheduling primitives -----------------------------------------
-    def fleet(self, extras) -> dict:
-        """Fold a generation's tap columns into fleet totals."""
-        fleet: dict = {}
-        if extras:
-            from .. import parallel as _par
+    def runner(self, breed: bool):
+        return self.prog_breed if breed else self.prog_uniform
 
-            if "met" in extras:
-                fleet["met_total"] = [int(x) for x in _par.merge_metrics(extras["met"])]
-            if "lat_hist" in extras:
-                fleet["lat_total_ops"] = int(_par.merge_latency(extras["lat_hist"]).sum())
+    def fleet_totals(self, extras) -> dict:
+        """A generation's tap columns folded into fleet totals on the
+        device (summed over the mesh's ranks too): tensors, so that a
+        pipelined dispatch can copy them to the host without a wait."""
+        from .. import parallel as _par
+
+        out = {}
+        if "met" in extras:
+            out["met_total"] = _par.fold_rows(extras["met"], self.mesh)
+        if "lat_hist" in extras:
+            out["lat_total_ops"] = _par.fold_rows(extras["lat_hist"], self.mesh).sum()
+        return out
+
+    def stage(self, before, after) -> dict | None:
+        """What the checkpoint after the generation that took carry
+        ``before`` to ``after`` reads, as device tensors for
+        :class:`_HostCopy`: the coverage map, the stores' counts before
+        the generation and ``batch`` rows of each store from there (a
+        generation admits at most ``batch`` rows, at consecutive slots
+        from the count). None when this rank writes no checkpoint."""
+        if self.checkpoint_path is None or (self.mesh is not None and self.mesh.rank != 0):
+            return None
+        span = torch.arange(self.batch, device=self.dev)
+
+        def rows(store, n0, cap):
+            at = torch.clamp(n0 + span, max=cap)
+            return {f: v.index_select(0, at) for f, v in store.items()}
+
+        return dict(gmap=after["gmap"], c0=before["count"], v0=before["vcount"],
+                    c=rows(after["c"], before["count"], self.max_corpus),
+                    v=rows(after["v"], before["vcount"], self.vcap))
+
+    def host_copy(self, before, after, summary, extras) -> _HostCopy:
+        """Queue generation's host view behind it (:class:`_HostCopy`)."""
+        return _HostCopy(summary, self.fleet_totals(extras), self.stage(before, after))
+
+    @staticmethod
+    def fleet(totals) -> dict:
+        """The telemetry form of :meth:`fleet_totals` (host values)."""
+        fleet: dict = {}
+        if "met_total" in totals:
+            fleet["met_total"] = [int(x) for x in totals["met_total"].tolist()]
+        if "lat_total_ops" in totals:
+            fleet["lat_total_ops"] = int(totals["lat_total_ops"])
         return fleet
 
-    def consume(self, g: int, s, fleet: dict, walls: dict, carry=None) -> None:
+    def consume(self, g: int, s, fleet: dict, walls: dict, copy: _HostCopy) -> None:
         """Fold generation ``g``'s admission summary into the host
         mirrors: curve/corpus-count/violation bookkeeping, the
         generation telemetry record (``walls`` carries the driver's
-        wall split), the log line, and the per-generation checkpoint."""
+        wall split), the log line, and the per-generation checkpoint,
+        read from the generation's host ``copy`` alone."""
         if bool(s["over"]):
             raise RuntimeError(
                 f"device violation store overflowed (viol_cap={self.vcap}) "
@@ -798,8 +958,9 @@ class _CampaignSession:
             "corpus_size": self.count, "violations": self.vcount_host,
             "new_violations": new_viol, **walls, "host_syncs": 1, **fleet,
         })
-        if self.checkpoint_path is not None:
-            self.snapshot(g + 1, carry=carry).save(self.checkpoint_path)
+        if self.checkpoint_path is not None and (self.mesh is None or self.mesh.rank == 0):
+            # one writer: every rank holds the same campaign
+            self.snapshot(g + 1, s, copy).save(self.checkpoint_path)
 
     # ---- materialization ------------------------------------------------
     def _entry_name(self, gen, parent, bslot, seed):
@@ -809,17 +970,15 @@ class _CampaignSession:
             return self.seed_corpus[bslot].name
         return f"{self.space.plan.name}@{seed}"
 
-    def _materialize(self, carry):
-        n_c = int(carry["count"])
-        n_v = int(carry["vcount"])
+    def _materialize(self, n_c: int, n_v: int, gmap, read):
+        """The first ``n_c`` corpus and ``n_v`` violation entries and the
+        coverage map on the host; ``read(store, lo, hi)`` gives a store's
+        rows ``lo..hi`` as numpy columns."""
         c_cache, v_cache = self._c_cache, self._v_cache
-
-        def host(store, lo, hi):
-            return {k: v[lo:hi].cpu().numpy() for k, v in store.items()}
 
         # only the rows not materialized yet cross to the host
         c_lo = len(c_cache)
-        cn = host(carry["c"], c_lo, n_c)
+        cn = read("c", c_lo, n_c)
         for i in range(c_lo, n_c):
             k = i - c_lo
             c_cache[i] = _store_entry(
@@ -831,7 +990,7 @@ class _CampaignSession:
         corpus = [c_cache[i] for i in range(n_c)]
         by_id = {e.id: e for e in corpus}
         v_lo, v_hi = len(v_cache), min(n_v, self.vcap)
-        vn = host(carry["v"], v_lo, v_hi)
+        vn = read("v", v_lo, v_hi)
         for i in range(v_lo, v_hi):
             k = i - v_lo
             eid = int(vn["id"][k])
@@ -844,14 +1003,26 @@ class _CampaignSession:
                                  int(vn["seed"][k].view(np.uint64))),
             )
         violations = [v_cache[i] for i in range(v_hi)]
-        return corpus, violations, carry["gmap"].cpu().numpy().astype(np.uint32)
+        return corpus, violations, np.asarray(gmap).astype(np.uint32)
 
-    def snapshot(self, gens_done: int, carry=None):
+    def snapshot(self, gens_done: int, s, copy: _HostCopy):
+        """The campaign after the generation of summary ``s``, from that
+        generation's host ``copy``: nothing here waits for the card."""
         from .persist import CampaignState
 
+        st = copy.staged
+
+        def read(store, lo, hi):
+            base = int(st[store + "0"])
+            if lo < base:
+                raise RuntimeError(
+                    f"checkpoint needs {store!r} rows from {lo}, but the "
+                    f"generation staged them from {base}"
+                )
+            return {k: v[lo - base:hi - base].numpy() for k, v in st[store].items()}
+
         corpus, violations, gm = self._materialize(
-            self.carry if carry is None else carry
-        )
+            int(s["count"]), int(s["vcount"]), st["gmap"].numpy(), read)
         return CampaignState(
             workload=self.wl.name, config_hash=self.cfg.hash(),
             plan_hash=self.space.hash(), root_seed=self.root_seed,
@@ -868,6 +1039,8 @@ class _CampaignSession:
             self.telemetry(record)
 
     def start(self, driver: str, **extra) -> None:
+        """The campaign_start record; the generation loop follows (under
+        :func:`strict_syncs`, the sync guard goes on here)."""
         self.emit({
             "event": "campaign_start", "workload": self.wl.name,
             "config_hash": self.cfg.hash(), "plan_hash": self.space.hash(),
@@ -875,12 +1048,18 @@ class _CampaignSession:
             "generations": self.generations, "cov_words": self.cov_words,
             "cov_hitcount": self.cov_hitcount,
             "resumed_at_generation": self.g_start,
-            "driver": driver, "mesh_devices": 1, **extra,
+            "driver": driver, "mesh_devices": self.n_dev, **extra,
         })
+        _sync_guard(True)
 
     def report(self, *, wall_dispatch, wall_sync, wall_compile, host_syncs,
                wall_queue=0.0, wall_idle=0.0) -> ExploreReport:
-        corpus, violations, gm = self._materialize(self.carry)
+        _sync_guard(False)
+        carry = self.carry
+        corpus, violations, gm = self._materialize(
+            int(carry["count"]), int(carry["vcount"]), carry["gmap"].cpu().numpy(),
+            lambda store, lo, hi: {k: v[lo:hi].cpu().numpy()
+                                   for k, v in carry[store].items()})
         return ExploreReport(
             workload=self.wl.name,
             config_hash=self.cfg.hash(),
@@ -981,8 +1160,12 @@ def run_device(
       on the host driver through that same invariant. At least one of
       the two must be given; arbitrary host-side ``history_invariant``
       callables still need the host driver.
-    * ``mesh`` shards the campaign across cards in the JAX package; the
-      port raises ``NotImplementedError`` (ROADMAP A10 "parallel").
+    * ``mesh`` (a ``parallel.make_mesh`` value over a
+      ``torch.distributed`` world) shards every generation's children
+      over the ranks: each rank simulates ``batch / world size`` of them
+      on its own device and the admission inputs are all-gathered, so
+      every rank returns the unsharded campaign's report (``batch`` must
+      split over the world; one rank writes the checkpoint).
       ``layout`` and ``pool_index`` change nothing (one lowering).
     * ``metrics=True`` folds per-generation fleet-metric totals into the
       telemetry records (``parallel.merge_metrics``); ``latency``
@@ -996,8 +1179,10 @@ def run_device(
       ``max_corpus``); a campaign that finds more raises instead of
       silently breaking the (seed, trace) dedup.
     * ``checkpoint_path`` materializes the corpus to the host after
-      every generation (that is what a checkpoint IS) — set it only
-      when resumability is worth the extra transfer.
+      every generation (that is what a checkpoint IS): each generation
+      also copies the coverage map and ``batch`` rows of each store to
+      pinned host memory behind its work — set it only when
+      resumability is worth the extra transfer.
     * ``device`` is where the campaign runs: the card unless the caller
       asks for the CPU.
 
@@ -1006,9 +1191,10 @@ def run_device(
     ``host_syncs: 1`` and ``parts_ms`` (the device ms of the
     generation's parts: mutate, compile, sweep, judge, admit; CUDA
     events on the card, read after the sync), so the claim is checkable
-    from the artifact. ``compile_wall_s`` is the seconds spent building
-    and loading the kernel library in that generation: nonzero only on
-    the library's first use in the process.
+    from the artifact. ``compile_wall_s`` is the build share of that
+    generation (``obs.prof.AotProgram``: the generation program's build
+    and the kernel library's build or load): nonzero only when the
+    campaign shape's program is built, 0.0 on a warm cache.
     """
     sess = _CampaignSession(
         wl, cfg, space, invariant=invariant, generations=generations,
@@ -1032,20 +1218,25 @@ def run_device(
     for g in range(sess.g_start, sess.g_start + generations):
         t0 = _time.monotonic()  # lint: allow(wall-clock)
         breed = g > 0 and sess.count > 0
-        # the library build and load share of this generation (0.0 once
-        # the library is loaded), split out of dispatch so warm-vs-cold
-        # comparisons compare like with like
-        compile_wall = _library_build_s(wl, sess.dev, sess.program.dup)
+        runner = sess.runner(breed)
+        # the build share of this generation (0.0 on a warm cache), split
+        # out of dispatch so warm-vs-cold comparisons compare like with
+        # like; built before the part clock starts
+        runner.build()
         clock = _PartClock(sess.dev)
-        sess.carry, summary, extras = sess.program(
-            sess.carry, g, sess.rk0, sess.rk1, breed, clock.mark
+        before = sess.carry
+        sess.carry, summary, extras = runner(
+            before, g, sess.rk0, sess.rk1, mark=clock.mark
         )
+        copy = sess.host_copy(before, sess.carry, summary, extras)
         t1 = _time.monotonic()  # lint: allow(wall-clock)
-        # THE host sync: the admission summary only — per-seed state
-        # stays on the device
-        s = dict(zip(_SUMMARY, summary.tolist()))
+        compile_wall = runner.last_build_s
+        # THE host sync: the admission summary, the fleet totals and
+        # what a checkpoint reads — per-seed state stays on the device
+        copy.wait()
+        s = dict(zip(_SUMMARY, copy.summary.tolist()))
         host_syncs += 1
-        fleet = sess.fleet(extras)
+        fleet = sess.fleet(copy.totals)
         t2 = _time.monotonic()  # lint: allow(wall-clock)
         wall_dispatch += (t1 - t0) - compile_wall
         wall_sync += t2 - t1
@@ -1059,7 +1250,7 @@ def run_device(
             "queue_wall_s": 0.0,
             "idle_wall_s": 0.0,
             "parts_ms": clock.parts_ms(),
-        })
+        }, copy)
 
     sess.emit({
         "event": "campaign_end", "generations": sess.g_start + generations,

@@ -125,8 +125,7 @@ class ExploreReport:
     # ``generations`` counts from generation 0 — the banner pairs
     # syncs against this, not the absolute total
     wall_gens: int = 0
-    # pipelined-schedule wall split (the JAX package's farm pipeline,
-    # ROADMAP A10 "farm" in the port): queue =
+    # pipelined-schedule wall split (farm.run_pipelined): queue =
     # host time spent ENQUEUEING dispatches ahead of the consume point,
     # idle = host time blocked waiting for a generation the device had
     # not finished. Both 0.0 on the blocking drivers — a nonzero split
@@ -384,11 +383,14 @@ def run(
     that move the tail, and p99 breaches are violations like any other
     (dedup, shrink, replay all apply).
 
-    ``energy`` (the JAX package's ``farm.EnergySchedule``, an
-    AFLFast-style power schedule over parent picks) belongs to ``farm``,
-    which the port does not have yet (ROADMAP A10 "farm"): a schedule
-    raises ``NotImplementedError``. ``energy=None`` is the uniform
-    parent pick, bit-identical to the JAX package's default.
+    ``energy`` (a ``farm.EnergySchedule``, an AFLFast-style power
+    schedule) replaces the uniform frontier pick of each child's parent
+    with a weighted draw on the farm lane: the entry's admission score,
+    violation and rare-bit bonuses, decayed by its times picked, with
+    per-parent seed inheritance. Draw 0 of the explore stream is still
+    consumed, so the mutation draws stay at their counters. ``None`` or
+    ``EnergySchedule(mode="uniform")`` is the historical uniform
+    schedule, bit-identical.
 
     ``layout`` and ``pool_index`` are accepted for the JAX package's
     signature and change nothing: the port has one lowering of the
@@ -407,12 +409,6 @@ def run(
     import time as _time
 
     del layout, pool_index
-    if energy is not None:
-        raise NotImplementedError(
-            "explore.run(energy=...) is the farm power schedule, which the "
-            "torch port does not have yet (ROADMAP A10 \"farm\"); pass "
-            "energy=None for the uniform parent pick"
-        )
     if isinstance(space, FaultPlan):
         space = PlanSpace(space)
     # the army's retry policy is an ENGINE build flag, not plan rows:
@@ -432,6 +428,9 @@ def run(
             f"{len(seed_corpus)} seed-corpus plans exceed batch={batch}"
         )
     dup = space.uses_dup()
+    # per-campaign mutable energy state (times-picked counters); None
+    # means the uniform schedule — the historical, bit-pinned path
+    est = energy.state() if energy is not None and energy.active else None
     if resume is not None:
         from .persist import resolve_resume
 
@@ -529,13 +528,21 @@ def run(
             plans = []
             parents = []
             seeds = seeds.copy()
-            thresh = inherit_threshold(inherit_seed_p)
+            if est is not None:
+                pool, cum = est.pool(corpus, select_top)
             for j in range(batch):
                 st = HostStream(int(k0s[j]), int(k1s[j]), PURPOSE_EXPLORE)
-                # draw 0 picks the parent, draw 1 the seed inheritance;
-                # the mutation draws follow from j = 2
+                # draw 0 of the explore stream is ALWAYS consumed: under
+                # an energy schedule the parent pick moves to the farm
+                # lane, but the mutation draws that follow (j >= 2) must
+                # stay at the same counters either way
                 w0 = st.bits()
-                pid = order[w0 % len(order)]
+                if est is None:
+                    pid = order[w0 % len(order)]
+                    thresh = inherit_threshold(inherit_seed_p)
+                else:
+                    pid = est.choose(int(k0s[j]), int(k1s[j]), pool, cum)
+                    thresh = est.inherit_threshold(by_id[pid], inherit_seed_p)
                 parents.append(pid)
                 # inheriting children keep the parent's engine seed:
                 # protocol timing stays fixed while the plan mutates,

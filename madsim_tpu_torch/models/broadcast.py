@@ -108,6 +108,7 @@ def make_broadcast(
         n_nodes=n_nodes,
         state_width=4,
         handlers=(on_init, on_msg, on_ack, on_retx),
+        handler_names=("init", "msg", "ack", "retx"),
         max_emits=max(len(peers) + 3, 6),
         args_words=2,
         draw_purposes=(

@@ -358,6 +358,10 @@ def make_kvchaos(
         n_nodes=n,
         state_width=width,
         handlers=handlers,
+        handler_names=(
+            "init", "write", "repl", "ack", "commit", "retx", "cretx",
+            "fin", "join", "jretx", "read", "readresp",
+        ) + (("areq", "aprobe", "aresp") if army else ()),
         # on_init builds up to 6 rows; on_retx builds n_replicas+2
         max_emits=max(n_replicas + 2, 6),
         args_words=2,

@@ -342,6 +342,11 @@ def make_leasekv(
         n_nodes=n,
         state_width=width,
         handlers=handlers,
+        handler_names=(
+            "init", "grant", "granted", "ka_t", "keepalive", "ka_rej",
+            "scan", "put_t", "put", "put_ok", "put_rej", "fin", "wevt",
+            "resync", "resync_ok",
+        ) + (("areq", "aprobe", "aresp") if army else ()),
         # widest: the scan sends one watch event per lease + its timer;
         # on_init builds 3 client rows, the server's timer and 2 chaos rows
         max_emits=max(n_clients + 1, 6),

@@ -51,6 +51,7 @@ def make_microbench(
         n_nodes=1,
         state_width=4,
         handlers=(on_init, on_tick),
+        handler_names=("init", "tick"),
         max_emits=2,
         args_words=2,
         draw_purposes=(_P_DELAY, _P_VALUE),

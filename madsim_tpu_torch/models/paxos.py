@@ -222,6 +222,10 @@ def make_paxos(
             on_init, on_propose, on_prepare, on_promise, on_accept,
             on_accepted, on_decided, on_nack,
         ),
+        handler_names=(
+            "init", "propose", "prepare", "promise", "accept", "accepted",
+            "decided", "nack",
+        ),
         # widest: on_propose (1 DECIDED redelivery + A prepares + 1
         # timer); on_accepted sends P DECIDEDs; on_init 1 timer + 2 chaos
         max_emits=max(a + 2, p + 1, 3),

@@ -63,6 +63,7 @@ def make_pingpong(rounds: int = 10, n_clients: int = 2) -> Workload:
         n_nodes=n,
         state_width=4,
         handlers=(on_init, on_ping, on_pong, on_done),
+        handler_names=("init", "ping", "pong", "done"),
         max_emits=2,
         args_words=2,
         model_params=(("rounds", rounds), ("n_clients", n_clients)),

@@ -144,6 +144,7 @@ def make_raft(
         n_nodes=n_nodes,
         state_width=6,
         handlers=(on_init, on_timeout, on_reqvote, on_grant, on_heartbeat),
+        handler_names=("init", "timeout", "reqvote", "grant", "heartbeat"),
         max_emits=n_nodes + 1,
         args_words=2,
         draw_purposes=(_P_TIMEOUT,),

@@ -398,6 +398,10 @@ def make_raftlog(
         n_nodes=n_total,
         state_width=width,
         handlers=handlers,
+        handler_names=(
+            "init", "timeout", "reqvote", "grant", "append", "ackapp",
+            "propose", "retx",
+        ) + (("areq", "aprobe", "aresp") if army else ()),
         # widest: on_timeout and on_grant, N rows plus two timers
         max_emits=n_nodes + 2,
         payload_words=w,

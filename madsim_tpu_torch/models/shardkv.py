@@ -463,6 +463,11 @@ def make_shardkv(
         n_nodes=n,
         state_width=width,
         handlers=handlers,
+        handler_names=(
+            "init", "put_t", "write", "repl", "write_ok", "wrong",
+            "cfg_req", "cfg", "mig_t", "mig_retx", "mig_start", "handoff",
+            "install_ack", "release", "fin",
+        ) + (("areq", "aprobe", "aresp") if army else ()),
         # widest: on_write = ok + wrong + (R-1) replications; on_init =
         # the two timers + 2 chaos rows
         max_emits=max(R + 1, 6),

@@ -121,6 +121,7 @@ def make_snapshot(
         n_nodes=n,
         state_width=6,
         handlers=(on_init, on_send, on_transfer, on_snap, on_recvd),
+        handler_names=("init", "send", "transfer", "snap", "recvd"),
         # transfer: n paint rows (the self row never valid) + 1 notice
         max_emits=max(n + 1, 2),
         args_words=2,

@@ -209,6 +209,10 @@ def make_twophase(
             on_init, on_prepare, on_vote, on_decision, on_ack, on_retx,
             on_clear_bit, on_hretx, on_clear_bit,
         ),
+        handler_names=(
+            "init", "prepare", "vote", "decision", "ack", "retx", "hello",
+            "hretx", "resync",
+        ),
         # widest: on_retx (2P sends + 1 timer) and on_init (P prepares +
         # retx + hello + hretx + 3 chaos rows)
         max_emits=max(2 * n_parts + 1, n_parts + 6, 6),

@@ -234,22 +234,13 @@ def causal_slice(view, seed: int = 0, anchor=None, wl=None) -> CausalCone:
     )
 
 
-def _fmt_event(e, wl) -> str:
-    """One event as the JAX package's ``obs.telemetry`` prints it (the
-    port has no telemetry module yet, ROADMAP item A10)."""
-    origin = "timer" if e.src < 0 else f"node{e.src}"
-    argstr = ",".join(str(a) for a in e.args)
-    return (
-        f"[{e.time_ns / 1e6:>10.3f}ms] node{e.node} <- "
-        f"{e.kind_name(wl)}({argstr}) from {origin}"
-    )
-
-
 def format_cone(
     cone: CausalCone, wl: Workload | None = None, max_events: int = 200
 ) -> str:
-    """Narrate a cone: the lineage story the JAX package's
-    ``obs.explain(causal=True)`` prints instead of the whole stream."""
+    """Narrate a cone: the lineage story ``obs.explain(causal=True)``
+    prints instead of the whole stream."""
+    from .telemetry import _fmt_event  # avoid a cycle at import time
+
     n, total = len(cone.indices), len(cone.events)
     lines = [
         f"--- causal cone: {n} of {total} captured events "

@@ -348,7 +348,10 @@ def test_cones_are_closed_and_hold_their_anchor(kv_runs):
         for j in (parents[i], pred[i]):
             assert j is None or j in member, (i, j)
     assert cone.depth == ev[cone.anchor].lam and 0 < cone.fraction <= 1.0
-    assert "causal cone:" in tobs.format_cone(cone, kv_bug(tm))
+    from madsim_tpu.obs import causal as jcausal
+
+    text = tobs.format_cone(cone, kv_bug(tm))
+    assert "causal cone:" in text and text == jcausal.format_cone(cone, kv_bug(jm))
 
 
 def test_the_pinned_pingpong_cone_and_the_anchor_forms(pingpong):
@@ -367,7 +370,7 @@ def test_the_pinned_pingpong_cone_and_the_anchor_forms(pingpong):
     from madsim_tpu.obs import causal as jcausal
 
     assert jcausal.causal_slice(ev, anchor=5).indices == cone.indices
-    assert tobs.format_cone(cone, wl) == jcausal.format_cone(cone, wl)
+    assert tobs.format_cone(cone, wl) == jcausal.format_cone(cone, jm.make_pingpong(rounds=4))
 
 
 def test_a_ring_without_the_columns_refuses_lineage():

@@ -255,9 +255,16 @@ def test_different_root_differs(port_campaign):
     assert fingerprint(_port(root_seed=12)) != fingerprint(port_campaign)
 
 
-def test_energy_waits_for_farm():
-    with pytest.raises(NotImplementedError, match="farm"):
-        _port(energy=object())
+def test_energy_waits_for_farm(port_campaign):
+    """The farm's power schedule is wired: ``energy=None`` and
+    ``EnergySchedule(mode="uniform")`` are the uniform campaign bit for
+    bit, an unknown mode raises the JAX package's error."""
+    from madsim_tpu_torch.farm import EnergySchedule
+
+    assert fingerprint(_port(energy=None)) == fingerprint(port_campaign)
+    assert fingerprint(_port(energy=EnergySchedule(mode="uniform"))) == fingerprint(port_campaign)
+    with pytest.raises(ValueError, match="unknown energy mode"):
+        _port(energy=EnergySchedule(mode="slow"))
 
 
 # ---------------------------------------------------------------------------

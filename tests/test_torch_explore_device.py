@@ -11,7 +11,8 @@ package's, the seed corpus included; violations dedup and replay;
 checkpoints resume host to device and device to host, and across the
 two packages in both directions; telemetry shows one host sync a
 generation; a traceable invariant is required and the violation
-store's overflow raises; ``mesh=`` waits for ROADMAP A10. A kvchaos
+store's overflow raises; ``mesh=`` checks the split and runs a world of
+one rank as the unsharded campaign. A kvchaos
 history hunt judged by the device screens equals the JAX package's
 host campaign under the screens' host checkers. Every value is an
 integer or a hash: equality is exact.
@@ -176,12 +177,27 @@ def test_viol_store_overflow_raises():
 
 
 def test_mesh_waits_for_parallel():
-    """The JAX package's two mesh cases: the port shards no campaign
-    across cards yet."""
-    with pytest.raises(NotImplementedError, match="A10"):
-        _dev(mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
-        _dev(mesh=object(), batch=12)
+    """The JAX package's two mesh cases: a batch that does not split over
+    the mesh's devices raises its error, and a world of one rank (gloo,
+    a ``file://`` store) runs the unsharded campaign, with its start
+    record's ``mesh_devices``. ``tests/test_torch_parallel.py`` holds
+    worlds of several ranks."""
+    import types
+
+    import torch
+
+    fake = types.SimpleNamespace(size=8, rank=0, device=torch.device("cpu"), group=None)
+    with pytest.raises(ValueError, match="does not split over 8 mesh devices"):
+        _dev(mesh=fake, batch=12)
+    from _torch_world import one_rank_world
+
+    from madsim_tpu_torch.parallel import make_mesh
+
+    with one_rank_world():
+        records = []
+        got = _dev(mesh=make_mesh(device="cpu"), telemetry=records.append)
+    assert fingerprint(got) == fingerprint(_dev())
+    assert records[0]["mesh_devices"] == 1
 
 
 def test_history_screens_hunt_equals_the_host_campaign():

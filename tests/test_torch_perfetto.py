@@ -4,9 +4,9 @@ document of the JAX capture of the same run, as JSON, for a causal ring
 (exact arrows, by parent seq) and for the same ring stripped of
 ``seq``, ``parent`` and ``emit_ns`` (the heuristic arrows); the
 same-timestamp fixture shows the heuristic mis-attributing the arrow
-the causal path gets right. Exact equality. The port's workloads carry
-no ``handler_names`` yet, so both documents are built without the
-workload's kind table (user kinds read ``user[k]``) under its name."""
+the causal path gets right. Exact equality. Both documents are built
+with each package's workload, so the user kinds carry the workloads'
+``handler_names``: the documents are equal whole, names included."""
 
 import _torch_threads  # noqa: F401
 import dataclasses
@@ -58,8 +58,8 @@ def test_documents_equal_the_reference(captures, stripped):
         if stripped:
             jev = [dataclasses.replace(e, **STRIP) for e in jev]
             tev = [dataclasses.replace(e, **STRIP) for e in tev]
-        got = tobs.to_perfetto(tev, name=twl.name, seed=seed)
-        want = jobs.to_perfetto(jev, name=jwl.name, seed=seed)
+        got = tobs.to_perfetto(tev, twl, seed=seed)
+        want = jobs.to_perfetto(jev, jwl, seed=seed)
         assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
         rows = [r for r in got["traceEvents"] if r.get("cat") == "dispatch"]
         assert len(rows) == len(tev)

@@ -72,7 +72,7 @@ def test_timeline_names_engine_kinds():
             break
     else:
         raise AssertionError("no seed in 0..15 dispatched its chaos kill")
-    assert "user[0](" in text and "halted=" in text
+    assert "init(" in text and "user[" not in text and "halted=" in text
     assert text.count("\n") == len(events)
 
 
