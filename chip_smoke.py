@@ -268,7 +268,12 @@ plain eager step:
 59. ``explore.run_device`` on raft at pool 64 (its new taps kernel) under
    the JAX package's device-test plan, 8 generations of 4,096, cap 600,
    16 coverage words; a second campaign with another root builds
-   nothing (``compile_wall_s`` 0.0 each generation); every generation's
+   nothing (``compile_wall_s`` 0.0 each generation) and, under
+   ``explore.device.strict_syncs``, waits for no card but at the
+   consume point; its first two generations, under
+   ``explore.device.counted_syncs``, wait once, counted by
+   ``torch.profiler`` (``obs.prof.count_syncs``: one event wait, no
+   pageable copy); every generation's
    parts (mutate, compile, sweep, judge, admit) by CUDA events; the
    mutator's first-maximum pick on the card.
    In each of 55-59 the first 64 children of a bred generation (their
@@ -286,16 +291,21 @@ plain eager step:
    steps) on both drivers, with the wall-split schema and one host sync
    a device generation (the device driver under
    ``explore.device.strict_syncs``, where any other wait for the card
-   raises); that hunt's ``campaign_perfetto`` has one span a
+   raises, and ``counted_syncs``, where the profiler counts each
+   generation's waits);
+   that hunt's ``campaign_perfetto`` has one span a
    generation, monotone counter tracks and compile instants;
 61. the farm soak's certificate 1 at its shape (raft 64, 1,024 a
    generation, 6 generations, 256 steps, 3 interleaved rounds, organic
    and with an emulated slow collector): ``farm.run_pipelined`` and
    ``run_device``, each checkpointing every generation and writing a
    flight log, are bit-identical (the JAX package's digest), their
-   checkpoint files byte-equal, one host sync a generation (both under
-   ``strict_syncs``: the checkpoint reads its generation's pinned host
-   copy); the ratios and the queue/idle split printed, not gated;
+   checkpoint files byte-equal, every timed round under
+   ``strict_syncs``; one more campaign of each under ``counted_syncs``
+   waits for the card once a generation by the profiler's count (the
+   checkpoint reads its generation's pinned host copy; the count's own
+   end waits for the card, so it is not timed);
+   the ratios and the queue/idle split printed, not gated;
 62. certificate 2: three tenants in one-generation quanta through
    ``farm.run_farm``: each equals its standalone campaign and the JAX
    package's, one build per program key, no eviction, tenant-tagged
@@ -315,8 +325,25 @@ plain eager step:
    ``shard_run_compacted`` with ``hist_screen`` on kvchaos-bug (1,024
    seeds, pool 192) equals ``make_run_compacted`` in every field; the
    four merges equal one device's; ``run_device(mesh=)`` equals phase
-   60's campaign;
-66. one JSON line describing each kernel, with its launches on every
+   60's campaign under ``strict_syncs``, its first two generations one
+   counted wait each;
+66. the determinism lint on the card: ``madsim_tpu_torch.lint``'s
+   ``lint_repo`` finds nothing and no unused pragma in the checkout;
+   ``lint.check_noninterference`` through the run kernel (``make_run``,
+   4 chunks, perturbation seeds 1 and 2) on five libraries at their
+   earlier phases' shapes, nothing cut: raft at pool 40 with metrics and
+   every tap (phase 40), raft-record at 40 (21), kvchaos-bug-nochaos at
+   192 with metrics, a 128-row ring and the causal axis under its crash
+   storm (47), kvchaos-record-army at 72 with every tap, the latency
+   tap, the causal axis and its retry policy (54), and
+   raftlog-durable-spread at 64 with the coverage taps (41.0). Before
+   each chunk the derived columns are overwritten with values drawn
+   within their contracts; the core columns (the retry books and the
+   storage columns among them) and the trace must equal the clean run's
+   on every seed, the chunked clean run the unchunked one, and every
+   chunk boundary must hold its contracts (``check_ranges``). The live
+   control: perturbing raft's ``seed``, a core column, is reported;
+67. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after) and its library's launch shape (the
    occupancy calculator's numbers and the registers of the kernels
@@ -342,6 +369,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -1173,6 +1201,34 @@ def path_launches(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, dict(KERNEL.counts)
+
+
+@contextmanager
+def profiler_counts():
+    """Collect every ``obs.prof.count_syncs`` count the block makes (the
+    device drivers count their generations under
+    ``explore.device.counted_syncs``): yields the list they are appended
+    to."""
+    from madsim_tpu_torch.obs import prof
+
+    counts, real = [], prof.count_syncs
+
+    @contextmanager
+    def spy():
+        with real() as sc:
+            counts.append(sc)
+            yield sc
+
+    prof.count_syncs = spy
+    try:
+        yield counts
+    finally:
+        prof.count_syncs = real
+
+
+def sync_text(counts: list) -> str:
+    """What the profiler counted, generation by generation."""
+    return "; ".join(f"{c.syncs} sync {c.pageable} pageable {c.names}" for c in counts)
 
 
 def run_drain(counts: dict, key: str) -> list:
@@ -3496,6 +3552,9 @@ EXPLORE_CONE_RUN = dict(generations=2, batch=256, root_seed=2024, max_steps=HUNT
 # test plan), 8 generations of 4,096, 600 steps, 16 coverage words
 DEVICE_KW = dict(pool_size=64, loss_p=0.02)
 DEVICE_RUN = dict(generations=8, batch=4096, root_seed=11, max_steps=600, cov_words=16)
+# the generations of a campaign whose waits for the card phases 59 and
+# 65 count (the profiler costs about a second a generation)
+SYNC_COUNTED = 2
 # what the JAX package gives on the CPU for the same campaigns
 # (tests/_torch_explore_pins.py; its 55-57 equal tools/explore_soak.py
 # 2048's counts, curves and traces): the uniform sweep's violations and
@@ -3943,25 +4002,37 @@ def explore_device_phase(device, results: list, paths: dict, extra: dict) -> Non
     runs = []
     for root in (DEVICE_RUN["root_seed"], DEVICE_RUN["root_seed"] + 1):
         records = []
+        # the second, warm campaign runs under the sync guard and counts
+        # its first SYNC_COUNTED generations' waits for the card (the
+        # profiler's end waits too: its wall is not the first's)
+        strict = root != DEVICE_RUN["root_seed"]
         t = time.perf_counter()
-        with RecordedSweeps(True) as sweeps:
+        with (nullcontext() if strict else RecordedSweeps(True)) as sweeps, \
+                profiler_counts() as syncs, \
+                (xdev.strict_syncs() if strict else nullcontext()), \
+                (xdev.counted_syncs(SYNC_COUNTED) if strict else nullcontext()):
             rep, counts = path_launches(lambda: explore.run_device(
                 wl, cfg, plan, invariant=inv, telemetry=records.append, device=device,
                 **dict(DEVICE_RUN, root_seed=root)))
         ms = (time.perf_counter() - t) * 1e3
-        runs.append((rep, counts, records, sweeps, ms))
-    (rep, counts, records, sweeps, ms), second = runs[0], runs[1]
+        runs.append((rep, counts, records, sweeps, ms, syncs))
+    (rep, counts, records, sweeps, ms, _s), second = runs[0], runs[1]
     paths.setdefault(key, {})["explore_device"] = run_drain(counts, key)
     if rep.host_syncs != DEVICE_RUN["generations"] or not rep.corpus:
-        raise AssertionError(f"59: {rep.host_syncs} host syncs, {len(rep.corpus)} entries")
+        raise AssertionError(f"59: {rep.host_syncs} consume points, {len(rep.corpus)} entries")
     cold = [r["compile_wall_s"] for r in second[2] if r["event"] == "generation"]
-    if any(cold) or second[0].host_syncs != DEVICE_RUN["generations"]:
-        raise AssertionError(f"59: the second campaign's compile_wall_s {cold}")
+    counted = [r["host_syncs"] for r in second[2] if r["event"] == "generation"]
+    want = [1] * SYNC_COUNTED + [None] * (DEVICE_RUN["generations"] - SYNC_COUNTED)
+    if any(cold) or counted != want or len(second[5]) != SYNC_COUNTED or \
+            second[0].host_syncs != DEVICE_RUN["generations"]:
+        raise AssertionError(f"59: the second campaign's compile_wall_s {cold}, counted "
+                             f"host syncs {counted} ({sync_text(second[5])})")
     log(f"[59] run_device on {key} {DEVICE_RUN}: launches {counts}; corpus "
         f"{len(rep.corpus)}, {rep.coverage_bits} bits, {len(rep.violations)} violations, "
-        f"curve {rep.curve}, {rep.host_syncs} host syncs, {ms:.1f} ms host clock; the second "
-        f"campaign (root {DEVICE_RUN['root_seed'] + 1}): compile_wall_s {cold}, "
-        f"{second[4]:.1f} ms host clock")
+        f"curve {rep.curve}, {rep.host_syncs} consume points, {ms:.1f} ms host clock; the "
+        f"second campaign (root {DEVICE_RUN['root_seed'] + 1}) under strict_syncs: "
+        f"compile_wall_s {cold}, host syncs a generation {counted} (counted: "
+        f"{sync_text(second[5])}), {second[4]:.1f} ms host clock")
     log(f"  walls (ms; parts mutate/compile/sweep/judge/admit by CUDA events): "
         f"{walls(records)}")
     log(f"  second campaign walls: {walls(second[2])}")
@@ -4135,8 +4206,13 @@ def flight_phase(device, paths: dict, extra: dict) -> dict:
         paths["raft"][f"flight_{tag}"] = run_drain(counts, "raft")
         path = tmp / f"{tag}.jsonl"
         # strict_syncs holds the device driver to its one sync a
-        # generation (the host driver has no device session)
-        with xdev.strict_syncs(), obs.FlightRecorder(str(path), heartbeat_s=0.0) as fr:
+        # generation, counted by the profiler under counted_syncs; the
+        # host driver has no device session: its waits are counted over
+        # the campaign
+        host = tag == "host"
+        with profiler_counts() as syncs, (prof.count_syncs() if host else xdev.strict_syncs()), \
+                (nullcontext() if host else xdev.counted_syncs()), \
+                obs.FlightRecorder(str(path), heartbeat_s=0.0) as fr:
             on = runner(wl, cfg, plan, invariant=inv["halt"], telemetry=fr, device=device,
                         **FLIGHT_HALT)
         recs = jsonl(path)
@@ -4148,14 +4224,18 @@ def flight_phase(device, paths: dict, extra: dict) -> dict:
         ok = (explore_digest(on) == explore_digest(off)
               and len(gens) == FLIGHT_HALT["generations"]
               and all(all(k in g for k in want) for g in gens)
-              and (tag == "host" or all(g["host_syncs"] == 1 for g in gens))
+              and (tag == "host" or ([g["host_syncs"] for g in gens] == [1] * len(gens)
+                                     and len(syncs) == len(gens)))
               and [r["seq"] for r in recs] == list(range(len(recs)))
               and hbs == list(range(1, len(gens) + 1)))
         if not ok:
             raise AssertionError(f"60: recorder on/off on the {tag} driver: {walls(recs)}")
         halt[tag] = off
-        log(f"  {tag} driver {FLIGHT_HALT}: recorder on == off, schema, one sync a "
-            f"generation, heartbeats {hbs}; walls (ms) {walls(recs)}")
+        counted = (f"the campaign's waits counted: {sync_text(syncs)}" if tag == "host" else
+                   f"counted host syncs a generation {[g['host_syncs'] for g in gens]} "
+                   f"({sync_text(syncs[:1])}, ...)")
+        log(f"  {tag} driver {FLIGHT_HALT}: recorder on == off, schema, heartbeats {hbs}; "
+            f"{counted}; walls (ms) {walls(recs)}")
     check_pins("60 halt hunt", campaign_pins(halt["device"], "corpus", "viol", "digest"),
                OBS_PINS["halt"])
     if explore_digest(halt["host"]) != explore_digest(halt["device"]):
@@ -4209,9 +4289,10 @@ def farm_pipeline_phase(device, paths: dict, extra: dict) -> None:
     pipelined and blocking campaigns, checkpointing every generation and
     recording to a JSONL flight log, 3 interleaved rounds, organic and
     loaded: bit-identical campaigns (the JAX package's digest), byte-equal
-    checkpoint files, one host sync a generation (gates: both drivers run
-    under ``strict_syncs``, where any other wait for the card raises);
-    the ratios and the queue/idle split printed."""
+    checkpoint files; every round under ``strict_syncs`` (any other
+    wait for the card raises); a counted round first, both drivers under
+    ``counted_syncs`` too (the profiler counts each generation's waits:
+    one); the ratios and the queue/idle split printed."""
     from madsim_tpu_torch import explore, farm, obs
     from madsim_tpu_torch.engine import EngineConfig
     from madsim_tpu_torch.explore import device as xdev
@@ -4226,15 +4307,32 @@ def farm_pipeline_phase(device, paths: dict, extra: dict) -> None:
     gen_wall = (time.perf_counter() - t) / FARM_RUN["generations"]
     drain = 0.6 * gen_wall
 
-    def campaign(runner, tag, r, delay):
+    def campaign(runner, tag, r, delay, counted=False):
         ck, jl = tmp / f"{tag}{r}.ckpt", tmp / f"{tag}{r}.jsonl"
         t = time.perf_counter()
-        with xdev.strict_syncs(), obs.FlightRecorder(str(jl), heartbeat_s=0.0,
-                                                      profile=False) as fr:
+        with xdev.strict_syncs(), (xdev.counted_syncs() if counted else nullcontext()), \
+                obs.FlightRecorder(str(jl), heartbeat_s=0.0, profile=False) as fr:
             sink = SlowSink(fr, delay) if delay else fr
             rep, counts = path_launches(lambda: runner(wl, cfg, plan, telemetry=sink,
                                                        checkpoint_path=str(ck), **kw))
         return rep, time.perf_counter() - t, ck.read_bytes(), jsonl(jl), counts
+
+    # the counted round: both drivers under counted_syncs, each
+    # generation's waits counted by the profiler (whose end waits for the
+    # card, so the round is not timed)
+    counted = {}
+    for tag, runner in (("blocking", explore.run_device), ("pipelined", farm.run_pipelined)):
+        with profiler_counts() as syncs:
+            rep_c, _t, ck_c, rec_c, _n = campaign(runner, f"count-{tag}", 0, 0.0, counted=True)
+        gens = [g["host_syncs"] for g in rec_c if g["event"] == "generation"]
+        counted[tag] = (rep_c, ck_c, gens, syncs)
+        if gens != [1] * FARM_RUN["generations"] or len(syncs) != len(gens):
+            raise AssertionError(f"61: {tag} counted host syncs {gens} ({sync_text(syncs)})")
+        log(f"[61] counted round, {tag}: host syncs a generation {gens} "
+            f"({sync_text(syncs[:1])}, ...)")
+    if (explore_digest(counted["blocking"][0]) != explore_digest(counted["pipelined"][0])
+            or counted["blocking"][1] != counted["pipelined"][1]):
+        raise AssertionError("61: the counted round's campaigns or checkpoints differ")
 
     ratios = {}
     for regime, delay in (("organic", 0.0), ("loaded", drain)):
@@ -4244,13 +4342,12 @@ def farm_pipeline_phase(device, paths: dict, extra: dict) -> None:
             rp, tp, cp, recp, counts_p = campaign(farm.run_pipelined, f"pipe-{regime}", r, delay)
             wb.append(tb)
             wp.append(tp)
-            syncs = all(len([g for g in recs if g["event"] == "generation"])
-                        == FARM_RUN["generations"] and all(
-                            g["host_syncs"] == 1 for g in recs if g["event"] == "generation")
-                        for recs in (recb, recp))
-            if explore_digest(rb) != explore_digest(rp) or cb != cp or not syncs:
+            gens = all(len([g for g in recs if g["event"] == "generation"])
+                       == FARM_RUN["generations"] == rep.host_syncs
+                       for recs, rep in ((recb, rb), (recp, rp)))
+            if explore_digest(rb) != explore_digest(rp) or cb != cp or not gens:
                 raise AssertionError(f"61: {regime} round {r}: pipelined != blocking "
-                                     f"(checkpoints equal {cb == cp}, syncs {syncs})")
+                                     f"(checkpoints equal {cb == cp}, records {gens})")
             check_pins("61", campaign_pins(rp, "corpus", "bits", "viol", "digest"),
                        FARM_PINS["blocking"])
             end = next(x for x in recp if x["event"] == "campaign_end")
@@ -4267,7 +4364,7 @@ def farm_pipeline_phase(device, paths: dict, extra: dict) -> None:
     log(f"  generation wall {gen_wall * 1e3:.1f} ms, loaded drain {drain * 1e3:.1f} ms a "
         f"generation; median ratios (printed, not gated): organic {ratios['organic']:.3f}x, "
         f"loaded {ratios['loaded']:.3f}x; every round bit-identical with byte-equal "
-        f"checkpoints and one host sync a generation; the JAX package's digest")
+        f"checkpoints; the JAX package's digest")
     for p in tmp.glob("*.ckpt"):
         p.unlink()
 
@@ -4445,6 +4542,7 @@ def parallel_phase(device, paths: dict, halt_ref) -> None:
 
     from madsim_tpu_torch import explore, parallel
     from madsim_tpu_torch.check import device as dc
+    from madsim_tpu_torch.explore import device as xdev
     from madsim_tpu_torch.engine import EngineConfig, make_init
     from madsim_tpu_torch.engine.compact import RESULT_FIELDS, SCREEN_FIELDS, make_run_compacted
     from madsim_tpu_torch.engine.fused import kernel_model
@@ -4486,22 +4584,115 @@ def parallel_phase(device, paths: dict, halt_ref) -> None:
                 raise AssertionError(f"65: {name} over the world differs from one device")
         wl_r, cfg_r = make_raft(), EngineConfig(**SOAK_RAFT_KW)
         records = []
-        rep, counts = path_launches(lambda: explore.run_device(
-            wl_r, cfg_r, soak_plan("flight-soak"), invariant=soak_invariants()["halt"],
-            mesh=mesh, telemetry=records.append, **FLIGHT_HALT))
+        with profiler_counts() as syncs, xdev.strict_syncs(), \
+                xdev.counted_syncs(SYNC_COUNTED):
+            rep, counts = path_launches(lambda: explore.run_device(
+                wl_r, cfg_r, soak_plan("flight-soak"), invariant=soak_invariants()["halt"],
+                mesh=mesh, telemetry=records.append, **FLIGHT_HALT))
         paths["raft"]["parallel_run_device"] = run_drain(counts, "raft")
+        gens = [r["host_syncs"] for r in records if r["event"] == "generation"]
+        want = [1] * SYNC_COUNTED + [None] * (FLIGHT_HALT["generations"] - SYNC_COUNTED)
         if (explore_digest(rep) != explore_digest(halt_ref) or records[0]["mesh_devices"] != 1
-                or rep.host_syncs != FLIGHT_HALT["generations"]):
-            raise AssertionError("65: run_device(mesh=) differs from run_device()")
+                or rep.host_syncs != FLIGHT_HALT["generations"]
+                or gens != want or len(syncs) != SYNC_COUNTED):
+            raise AssertionError(f"65: run_device(mesh=) differs from run_device(), or its "
+                                 f"counted host syncs {gens} ({sync_text(syncs)})")
         log(f"[65] a world of one card (NCCL, file:// store): shard_run_compacted with "
             f"hist_screen on {key} ({SHARD_SEEDS} seeds, {SHARD_STEPS} steps) equals "
             f"make_run_compacted in every field ({int((~sharded.hist_ok).sum())} flagged, "
             f"{int(sharded.hist_fold.sum())} records folded); the four merges equal one "
             f"device's; run_device(mesh=) {FLIGHT_HALT} equals phase 60's campaign "
-            f"(mesh_devices {records[0]['mesh_devices']})")
+            f"(mesh_devices {records[0]['mesh_devices']}), counted host syncs a generation "
+            f"{gens}")
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 66: the determinism lint on the card
+# ---------------------------------------------------------------------------
+
+# each library runs clean, then under each perturbation seed, in this
+# many equal chunks of its earlier phase's step cap
+NI_CHUNKS, NI_PERTURB = 4, (1, 2)
+
+
+def noninterference_cases() -> tuple:
+    """Phase 66's libraries at their earlier phases' shapes, nothing cut:
+    (phase, workload, config, seeds, steps, plan or None, build flags,
+    the model's certification horizon in ns)."""
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec
+    from madsim_tpu_torch.models import BENCH_SPECS, kvchaos, make_kvchaos, make_raftlog
+    from madsim_tpu_torch.models import raft as raft_mod
+    from madsim_tpu_torch.models import raftlog
+
+    raft, raft_cfg, raft_n, raft_cap = spec_of("raft", {})
+    rec, rec_cfg, rec_n, rec_cap = spec_of("raft", {"record": True})
+    _f, rlog_kw, rlog_n, rlog_cap = BENCH_SPECS["raftlog"]
+    army_plan = retry_plans()["kv-obs"]
+    return (
+        ("40", raft, raft_cfg, raft_n, raft_cap, None, dict(metrics=True, **OBS_TAPS),
+         raft_mod.ABSINT_HORIZON_NS),
+        ("21", rec, rec_cfg, rec_n, rec_cap, None, {}, raft_mod.ABSINT_HORIZON_NS),
+        ("47", make_kvchaos(writes=CAUSAL_KV_W, record=True, bug=True, chaos=False),
+         EngineConfig(**CAUSAL_KV_KW), CAUSAL_SEEDS, CAUSAL_STEPS, causal_plans()["kv"],
+         dict(metrics=True, timeline_cap=128, causal=True), kvchaos.ABSINT_HORIZON_NS),
+        ("54", retry_workloads()["obs"], EngineConfig(**RETRY_OBS_KW), RETRY_OBS_SEEDS,
+         RETRY_OBS_STEPS, army_plan,
+         dict(RETRY_OBS_TAPS, metrics=True, latency=LatencySpec(**RETRY_OBS_LAT),
+              retry=army_plan.retry_spec()), kvchaos.ABSINT_HORIZON_NS),
+        ("41.0", make_raftlog(durable=True, cov_spread=True), EngineConfig(**rlog_kw), rlog_n,
+         rlog_cap, None, COV_TAPS, raftlog.ABSINT_HORIZON_NS),
+    )
+
+
+def lint_phase(device, paths: dict, extra: dict) -> None:
+    """Phase 66: the port's lint on the card machine (no JAX there), and
+    non-interference held through the run kernel: each of five libraries
+    at its earlier phase's shape runs clean and under two perturbations
+    of its derived columns in 4 chunks, the core columns and the trace
+    equal on every seed, every chunk boundary within its contracts; the
+    live control perturbs raft's ``seed``, a core column."""
+    from madsim_tpu_torch.engine import make_init, make_run
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.lint import check_lanes, check_noninterference, lint_repo
+
+    t = time.perf_counter()
+    res, lanes = lint_repo(), check_lanes()
+    if not res.ok or lanes["findings"]:
+        raise AssertionError(f"66: lint findings {[str(f) for f in res.findings]}, lane "
+                             f"findings {lanes['findings']}")
+    log(f"[66] lint_repo: {res.n_files} files, no finding, {len(res.allowed)} pragmas all "
+        f"used; {lanes['sites']} draw sites over lanes {lanes['lanes']}, no lane finding "
+        f"({time.perf_counter() - t:.1f} s)")
+    for phase, wl, cfg, n, steps, plan, flags, horizon in noninterference_cases():
+        key = kernel_model(wl).key
+        seeds = np.arange(n, dtype=np.uint64)
+        st = make_init(wl, cfg, device=device, plan_slots=plan.slots if plan else 0, **flags)
+        st = st(seeds, plan.compile_batch(seeds, wl=wl)) if plan else st(seeds)
+        t = time.perf_counter()
+        rep, counts = path_launches(lambda: check_noninterference(
+            wl, cfg, run=make_run, seeds=st, n_steps=steps, chunks=NI_CHUNKS,
+            perturb_seeds=NI_PERTURB, horizon_ns=horizon, **flags))
+        ms = (time.perf_counter() - t) * 1e3
+        if not rep.ok or rep.n_seeds != n or rep.horizon_ns != horizon:
+            raise AssertionError(f"66 ({phase}) {key}: {rep.summary()}")
+        paths.setdefault(key, {})[f"noninterference_{phase}"] = run_drain(counts, key)
+        extra.setdefault(key, {})[f"noninterference_{phase}_ms"] = round(ms, 1)
+        log(f"  ({phase}) {key}: {rep.summary()}; {len(rep.derived)} columns "
+            f"{list(rep.derived)}; launches {counts}; {ms:.1f} ms host clock")
+    # the live control: raft's seed, a core column, perturbed the same way
+    phase, wl, cfg, n, steps, plan, flags, _h = noninterference_cases()[0]
+    st = make_init(wl, cfg, device=device, **flags)(np.arange(n, dtype=np.uint64))
+    rep = check_noninterference(wl, cfg, run=make_run, seeds=st, n_steps=steps,
+                                chunks=NI_CHUNKS, perturb_seeds=NI_PERTURB[:1],
+                                fields=("seed",), ranges=False, **flags)
+    if rep.ok or "seed" not in rep.diffs or "trace" not in rep.diffs:
+        raise AssertionError(f"66: perturbing raft's seed went unreported: {rep.diffs}")
+    log(f"  the control: raft's seed perturbed is reported: {sorted(rep.diffs)} differ "
+        f"(trace on {rep.diffs['trace']['seeds']} of {n} seeds after chunk "
+        f"{rep.diffs['trace']['chunk']})")
 
 
 def farm_phases(device, paths: dict, extra: dict, lap) -> None:
@@ -4672,6 +4863,8 @@ def main() -> int:
     explore_device_phase(device, results, paths, extra)
     lap("phase 59")
     farm_phases(device, paths, extra, lap)
+    lint_phase(device, paths, extra)
+    lap("phase 66")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
                     shapes.get((key, r["pool"])))

@@ -161,6 +161,14 @@ __all__ = [
     "PARENT_PLAN",
     "PARENT_ARMY",
     "ABSINT_STEP_MAX",
+    "ABSINT_HORIZON_NS",
+    "ABSINT_COUNTER_MAX",
+    "DERIVED_STATE_FIELDS",
+    "derived_fields",
+    "core_fields",
+    "ColumnContract",
+    "StateContract",
+    "column_contracts",
     "N_LAT_BUCKETS",
     "LAT_EDGES_NS",
     "lat_bucket",
@@ -182,6 +190,7 @@ __all__ = [
     "set_col",
     "set_cols",
     "resolve_device",
+    "host_to_device",
     "obs_widths",
     "check_obs_state",
     "lat_widths",
@@ -1030,6 +1039,14 @@ class Workload:
     # read only by timelines, Perfetto documents and ``obs.explain``: no
     # effect on execution
     handler_names: tuple | None = None
+    # the largest timer delay (ns) a handler passes to EmitBuilder.after,
+    # None when unknown: read only by column_contracts, which bounds the
+    # pool clock by it
+    delay_bound_ns: int | None = None
+    # per-column range declarations, one StateContract per state column
+    # (TOTAL over state_width when present): column_contracts narrows the
+    # node_state contract to their hull. None keeps the full int32 range
+    state_contracts: tuple | None = None
 
     def __post_init__(self):
         if self.handler_names is not None and len(self.handler_names) != len(self.handlers):
@@ -1067,6 +1084,24 @@ class Workload:
             if not 0 <= int(p) < lane("user").width:
                 raise ValueError(
                     f"draw_purposes purpose {p} is outside the user lane"
+                )
+        if self.state_contracts is not None:
+            cols = sorted(sc.col for sc in self.state_contracts)
+            if cols != list(range(self.state_width)):
+                raise ValueError(
+                    f"state_contracts must declare every state column "
+                    f"exactly once (expected cols 0..{self.state_width - 1}, "
+                    f"got {cols}) — a partial declaration would silently "
+                    f"weaken the node_state hull"
+                )
+            bad = [
+                sc.col for sc in self.state_contracts
+                if not (-(2 ** 31) <= sc.lo <= sc.hi <= 2 ** 31 - 1)
+            ]
+            if bad:
+                raise ValueError(
+                    f"state_contracts columns {bad} declare ranges that "
+                    f"are empty or exceed int32"
                 )
 
     def initial_state(self) -> np.ndarray:
@@ -1195,6 +1230,200 @@ _FIELDS = dataclasses.fields(SimState)
 STATE_FIELDS = tuple(f.name for f in _FIELDS)
 
 
+# ---------------------------------------------------------------------------
+# The derived-state manifest and the column range contracts, copied from
+# the JAX package (engine/core.py), without its time32 branch and its
+# pool-index columns (tile_min, tile_cnt), which the one lowering drops.
+# The derived columns may be written by the step but nothing computed
+# from them may reach a core column, a draw or the trace fold;
+# lint.check_noninterference holds that by perturbing them within their
+# contracts and requiring the core columns and the trace to stay equal.
+# ---------------------------------------------------------------------------
+
+# always derived, whatever the build flags; with the matching tap off
+# they are zero-size, trivially non-interfering
+DERIVED_STATE_FIELDS = (
+    "hist_count", "hist_drop", "hist_word", "hist_t",
+    "cov", "cov_last", "cov_hits",
+    "met",
+    "tl_count", "tl_drop", "tl_t", "tl_meta", "tl_args", "tl_pay",
+    "ev_emit", "tl_emit",
+    *CAUSAL_STATE_FIELDS,
+    *LATENCY_FIELDS,
+)
+
+
+def derived_fields(wl: Workload) -> tuple:
+    """SimState field names that are derived-only for this workload:
+    :data:`DERIVED_STATE_FIELDS`, and the storage columns unless
+    ``durable_sync`` is on (a kill then reads the disk image back into
+    ``node_state``, a legitimate feedback path)."""
+    out = DERIVED_STATE_FIELDS
+    if not wl.durable_sync:
+        out = out + STORAGE_FIELDS
+    return out
+
+
+def core_fields(wl: Workload) -> tuple:
+    """Complement of :func:`derived_fields` over the SimState fields."""
+    derived = set(derived_fields(wl))
+    return tuple(f for f in STATE_FIELDS if f not in derived)
+
+
+# Default certification horizon, the largest virtual clock the contracts
+# bound time columns by when the config sets no time_limit_ns: 2^42 ns,
+# some 73 sim-minutes; models declare their own (ABSINT_HORIZON_NS in
+# models/*.py).
+ABSINT_HORIZON_NS = 1 << 42
+# Certified bound on unbounded counters (drops, message counts, metrics).
+ABSINT_COUNTER_MAX = 1 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnContract:
+    """Declared value range of one SimState column at step boundaries."""
+
+    field: str
+    lo: int
+    hi: int
+    family: str | None = None  # "time" | "counter" | None (untracked)
+    note: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class StateContract:
+    """Declared range of one workload state column at step boundaries
+    (``Workload.state_contracts``); the model owes its truth."""
+
+    col: int
+    lo: int
+    hi: int
+    family: str | None = None  # "time" | "counter" | None (untracked)
+    note: str = ""
+
+
+def _dtype_full(dt) -> tuple:
+    info = np.iinfo(dt)
+    return int(info.min), int(info.max)
+
+
+def _node_state_contract(wl: Workload, i32: tuple) -> ColumnContract:
+    """node_state's contract: full int32 and untracked, or the hull of
+    the workload's ``state_contracts`` (tagged "time" if any column is)."""
+    if not wl.state_contracts:
+        return ColumnContract("node_state", *i32, None, "workload-defined words")
+    lo = min(sc.lo for sc in wl.state_contracts)
+    hi = max(sc.hi for sc in wl.state_contracts)
+    families = {sc.family for sc in wl.state_contracts if sc.family}
+    family = "time" if "time" in families else ("counter" if families else None)
+    return ColumnContract(
+        "node_state", lo, hi, family,
+        f"hull of {len(wl.state_contracts)} declared state columns",
+    )
+
+
+def column_contracts(wl: Workload, cfg: EngineConfig, *,
+                     horizon_ns: int | None = None) -> dict:
+    """The per-column range contracts of one (workload, config): field
+    name -> :class:`ColumnContract`, TOTAL over SimState (a column
+    missing here raises). ``horizon_ns`` bounds the time columns
+    (default: the config's ``time_limit_ns`` when set, else
+    :data:`ABSINT_HORIZON_NS`). The ranges are the values' own (the
+    JAX package's), whatever word the port stores them in: ``seed`` and
+    ``trace`` are uint64, ``step`` and the packed meta words uint32."""
+    if horizon_ns is None:
+        horizon_ns = cfg.time_limit_ns or ABSINT_HORIZON_NS
+    h = int(horizon_ns)
+    cnt = ABSINT_COUNTER_MAX
+    i32 = _dtype_full(np.int32)
+    u32 = _dtype_full(np.uint32)
+    u64 = _dtype_full(np.uint64)
+    # the largest offset one insertion puts on the pool clock: a handler
+    # timer, a slow-scaled latency draw or a clog-backoff reschedule
+    delay_hi = wl.delay_bound_ns if wl.delay_bound_ns is not None else h
+    offset_hi = max(
+        int(delay_hi),
+        int(cfg.lat_max_ns) * SLOW_MULT_MAX,
+        int(cfg.clog_backoff_max_ns) + 1_000,
+    )
+    hcap = wl.history.capacity if wl.history is not None else 0
+
+    def c(field, lo, hi, family=None, note=""):
+        return ColumnContract(field, int(lo), int(hi), family, note)
+
+    out = [
+        c("seed", *u64),
+        c("now", 0, h, "time"),
+        c("step", 0, ABSINT_STEP_MAX, "counter", "RNG step coordinate"),
+        c("halted", 0, 1),
+        c("halt_time", 0, h, "time"),
+        c("trace", *u64, None, "rolling hash, modular by design"),
+        c("overflow", 0, cnt, "counter"),
+        c("msg_count", 0, cnt, "counter"),
+        c("ev_time", 0, h + offset_hi, "time", "absolute ns"),
+        c("ev_valid", 0, 1),
+        c("ev_meta", *u32, None, "packed kind/node/src/retry bytes"),
+        c("ev_epoch", -1, cnt, "counter", "-1 = ANY-epoch sentinel"),
+        c("ev_args", *i32),
+        c("ev_pay", *i32),
+        c("alive", 0, 1),
+        c("paused", 0, 1),
+        c("epoch", 0, cnt, "counter"),
+        _node_state_contract(wl, i32),
+        c("clog", 0, 1),
+        c("slow", 0, SLOW_MULT_MAX, None, "link latency multiplier"),
+        c("dup", 0, 1),
+        c("skew", *i32, None, "per-node clock skew ns"),
+        c("disk", *i32),
+        c("wmask", 0, 1),
+        c("sync_loss", 0, 1),
+        c("sync_eio", 0, 1),
+        c("torn", 0, 1),
+        c("hist_count", 0, max(hcap, 0), "counter"),
+        c("hist_drop", 0, cnt, "counter"),
+        c("hist_word", *i32),
+        c("hist_t", 0, h, "time"),
+        c("cov", *u32, None, "bitmap words, modular folds"),
+        c("cov_last", -1, 255),
+        c("cov_hits", 0, 255),
+        c("met", 0, cnt, "counter"),
+        c("tl_count", 0, cnt, "counter"),
+        c("tl_drop", 0, cnt, "counter"),
+        c("tl_t", 0, h, "time"),
+        c("tl_meta", *u32),
+        c("tl_args", *i32),
+        c("tl_pay", *i32),
+        c("ev_emit", 0, h, "time"),
+        c("tl_emit", 0, h, "time"),
+        # the Lamport clocks grow by at most one a dispatch; parent seqs
+        # are clamped copies of `step` with the sentinel classes below 0
+        c("lam", 0, ABSINT_STEP_MAX, "counter", "per-node Lamport clock"),
+        c("ev_parent", PARENT_ARMY, ABSINT_STEP_MAX, "counter",
+          "emitting dispatch seq; -1/-2/-3 sentinel classes"),
+        c("ev_lam", 0, ABSINT_STEP_MAX, "counter",
+          "emitting dispatch's Lamport clock"),
+        c("tl_seq", 0, ABSINT_STEP_MAX, "counter", "dispatch seq per row"),
+        c("tl_parent", PARENT_ARMY, ABSINT_STEP_MAX, "counter",
+          "parent seq per row; sentinel classes below zero"),
+        c("tl_lam", 0, ABSINT_STEP_MAX, "counter"),
+        c("lat_inv", -1, h, "time", "-1 = never invoked"),
+        c("lat_resp", -1, h, "time", "-1 = incomplete"),
+        c("lat_hist", 0, cnt, "counter"),
+        c("lat_count", 0, cnt, "counter"),
+        c("lat_drop", 0, cnt, "counter"),
+        c("rt_done", 0, 1),
+        c("rt_attempt", 0, RETRY_ATTEMPT_MAX, "counter",
+          "delivered attempt id per op"),
+        c("rt_deadline", 0, h + offset_hi + 2 * _RETRY_BACKOFF_CAP, "time",
+          "absolute ns; armed response deadline per op"),
+    ]
+    contracts = {cc.field: cc for cc in out}
+    missing = [f for f in STATE_FIELDS if f not in contracts]
+    if missing:
+        raise AssertionError(f"column_contracts is missing SimState fields: {missing}")
+    return contracts
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card; raise rather than fall back to the CPU."""
     dev = torch.device("cuda" if device is None else device)
@@ -1204,6 +1433,16 @@ def resolve_device(device) -> torch.device:
             "plain step on the CPU"
         )
     return dev
+
+
+def host_to_device(t: torch.Tensor, dev) -> torch.Tensor:
+    """A host tensor on ``dev``. To the card it crosses from pinned
+    memory without a wait: built inside a campaign's generation loop (a
+    cold cache), a program must not wait for the card
+    (``explore.device.strict_syncs``)."""
+    if torch.device(dev).type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def _seeds_tensor(seeds, device) -> torch.Tensor:
@@ -1376,7 +1615,7 @@ def make_init(wl: Workload, cfg: EngineConfig, device=None, plan_slots: int = 0,
     lat_c = latency.ops if latency is not None else 0
     lat_p = latency.phases if latency is not None else 0
     dev = resolve_device(device)
-    base_state = torch.from_numpy(wl.initial_state()).to(dev)
+    base_state = host_to_device(torch.from_numpy(wl.initial_state()), dev)
     h = wl.history.capacity if wl.history is not None else 0
     d = n if wl.durable_sync else 0
     m = N_METRICS if metrics else 0

@@ -128,6 +128,7 @@ from .core import (
     check_lat_state,
     check_obs_state,
     check_retry_state,
+    host_to_device,
     lat_widths,
     make_run_plain,
     make_run_while_plain,
@@ -718,11 +719,12 @@ def build_libraries(specs=None) -> dict:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-        running.append((spec, cmd, proc, tmp, time.perf_counter()))
+        running.append((spec, cmd, proc, tmp, time.perf_counter()))  # lint: allow(wall-clock)
     failed = []
     for spec, cmd, proc, tmp, t0 in running:
         text, _ = proc.communicate()
         _out_dir, lib, log_path = _paths(spec)
+        # lint: allow(wall-clock)
         log = f"$ {' '.join(cmd)}\n{text}# {time.perf_counter() - t0:.1f} s\n"
         if proc.returncode != 0:
             failed.append(f"[{spec.key}]\n{log}")
@@ -1055,9 +1057,8 @@ def _tables(wl: Workload, dev) -> tuple:
     key = (str(torch.device(dev)), rows.shape, rows.tobytes(), vol.tobytes())
     got = _TABLES.get(key)
     if got is None:
-        got = _TABLES[key] = (
-            torch.from_numpy(rows).to(dev), torch.from_numpy(vol).to(dev)
-        )
+        got = _TABLES[key] = (host_to_device(torch.from_numpy(rows), dev),
+                              host_to_device(torch.from_numpy(vol), dev))
     return got
 
 

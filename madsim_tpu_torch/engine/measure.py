@@ -88,12 +88,12 @@ def _timed(fn, dev: torch.device):
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         ev0.record()
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # lint: allow(wall-clock)
     out = fn()
     if cuda:
         ev1.record()
         torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0  # lint: allow(wall-clock)
     return wall, (ev0.elapsed_time(ev1) / 1e3 if cuda else None), out
 
 

@@ -74,7 +74,7 @@ import numpy as np
 import torch
 
 from ..chaos.plan import FaultEvent, FaultPlan, LiteralPlan, stack_plan_rows
-from ..engine.core import PlanRows, resolve_device
+from ..engine.core import PlanRows, host_to_device, resolve_device
 from ..engine.rng import M32, PURPOSE_EXPLORE, threefry2x32
 from ..engine.search import _library_build_s, launch_cost, make_sweep
 from .coverage import popcount32, prefix_or
@@ -90,7 +90,7 @@ from .mutate import (
     mutation_table,
 )
 
-__all__ = ["gen_cache_stats", "run_device", "strict_syncs"]
+__all__ = ["counted_syncs", "gen_cache_stats", "run_device", "strict_syncs"]
 
 _I64 = torch.int64
 # the parts of a generation, timed into every telemetry record
@@ -458,7 +458,7 @@ class _Generation:
         self.select_top, self.require_halt = select_top, require_halt
         self.metrics, self.latency = metrics, latency
         self.dup = space.uses_dup()
-        tb = {k: torch.as_tensor(v).to(device=dev, dtype=_I64)
+        tb = {k: host_to_device(torch.as_tensor(v).to(_I64), dev)
               for k, v in mutation_table(space).items()}
         self.mutator = _make_child_mutator(tb, max_ops, inherit_threshold(inherit_seed_p))
         self.sweep = make_sweep(
@@ -469,8 +469,8 @@ class _Generation:
         self.k_ov = len(seed_corpus)
         if self.k_ov:
             ov = stack_plan_rows([_pad_literal(lp, space.slots) for lp in seed_corpus])
-            self.ov = {f: torch.from_numpy(np.asarray(getattr(ov, f))).to(
-                device=dev, dtype=_ROW_DTYPES[f]) for f in _ROW_KEYS}
+            self.ov = {f: host_to_device(torch.from_numpy(np.asarray(getattr(ov, f))).to(
+                _ROW_DTYPES[f]), dev) for f in _ROW_KEYS}
         self.jglob = self.lo + torch.arange(self.batch, device=dev)
 
     def keys(self, g: int, rk0, rk1):
@@ -639,6 +639,8 @@ class _Generation:
 _SUMMARY = ("count", "next_id", "vcount", "admitted", "cov_bits", "over")
 
 _STRICT = False
+# under counted_syncs: how many generations of each campaign to count
+_COUNT: int | None = None
 
 
 @contextmanager
@@ -647,10 +649,11 @@ def strict_syncs():
     each device campaign's generation loop, from its first dispatch to its
     last consume, runs under ``torch.cuda.set_sync_debug_mode("error")``
     with the consume point's event wait alone exempt, so any other wait
-    for the card (an ``.item()``, a pageable copy, a boolean-mask index,
-    a checkpoint read from the card) raises. The session's set-up and the
-    final report, which move data both ways, lie outside. Without a card
-    it changes nothing."""
+    for the card that torch detects (an ``.item()``, a pageable copy, a
+    boolean-mask index, a checkpoint read from the card) raises. Torch
+    does not detect every synchronising operation: :func:`counted_syncs`
+    counts them. The session's set-up and the final report, which move
+    data both ways, lie outside. Without a card it changes nothing."""
     global _STRICT
     prev, _STRICT = _STRICT, True
     try:
@@ -660,9 +663,72 @@ def strict_syncs():
         _STRICT = prev
 
 
+@contextmanager
+def counted_syncs(generations: int | None = None):
+    """Count a device campaign's waits for the card, generation by
+    generation. Inside, each counted generation of a campaign on the card
+    (its dispatch, its consume point and its checkpoint) runs under
+    ``obs.prof.count_syncs``: its telemetry record's ``host_syncs`` is the
+    counted number of waits, and anything but the consume point's one
+    event wait (one synchronisation, no pageable copy) raises. Every other
+    generation records ``host_syncs: None``: not counted. ``generations``
+    counts only the first that many generations of each campaign (default
+    every one). The profiler's own end waits for the card, so a counted
+    generation is not a pipelined one: count a campaign, do not time it.
+    It nests with :func:`strict_syncs`."""
+    global _COUNT
+    prev, _COUNT = _COUNT, (1 << 62) if generations is None else generations
+    try:
+        yield
+    finally:
+        _COUNT = prev
+
+
 def _sync_guard(on: bool) -> None:
     if _STRICT and torch.cuda.is_available():
         torch.cuda.set_sync_debug_mode("error" if on else "default")
+
+
+class _GenerationSyncs:
+    """The host syncs of one generation: counted by the profiler when
+    ``counting`` (:meth:`count` wraps the generation's dispatch, consume
+    point and checkpoint), else not counted (``host_syncs`` None)."""
+
+    def __init__(self, g: int, counting: bool):
+        self.g, self.counting = g, counting
+        self.counted = None
+
+    @contextmanager
+    def count(self):
+        if not self.counting:
+            yield
+            return
+        from ..obs.prof import count_syncs
+
+        with count_syncs() as sc:
+            try:
+                yield
+            finally:
+                _sync_guard(False)  # the profiler's own end waits for the card
+        _sync_guard(True)
+        self.counted = sc
+        if sc.syncs != 1 or sc.pageable:
+            raise RuntimeError(
+                f"counted_syncs: generation {self.g} waited for the card "
+                f"{sc.syncs} time(s) and made {sc.pageable} pageable copies "
+                f"({sc.names}); the consume point's one event wait is the only "
+                f"one allowed"
+            )
+
+    @property
+    def host_syncs(self) -> int | None:
+        return self.counted.total if self.counted is not None else None
+
+
+def _counted_total(counted: list) -> int | None:
+    """A campaign's counted waits for the card: the sum of its
+    generations' ``host_syncs`` if every one was counted, else None."""
+    return None if None in counted else sum(counted)
 
 
 class _HostCopy:
@@ -927,12 +993,13 @@ class _CampaignSession:
             fleet["lat_total_ops"] = int(totals["lat_total_ops"])
         return fleet
 
-    def consume(self, g: int, s, fleet: dict, walls: dict, copy: _HostCopy) -> None:
+    def consume(self, g: int, s, fleet: dict, walls: dict, copy: _HostCopy) -> dict:
         """Fold generation ``g``'s admission summary into the host
-        mirrors: curve/corpus-count/violation bookkeeping, the
-        generation telemetry record (``walls`` carries the driver's
-        wall split), the log line, and the per-generation checkpoint,
-        read from the generation's host ``copy`` alone."""
+        mirrors: curve/corpus-count/violation bookkeeping, the log line,
+        and the per-generation checkpoint, read from the generation's
+        host ``copy`` alone. Returns the generation telemetry record
+        (``walls`` carries the driver's wall split) for
+        :meth:`emit_generation`, which adds its ``host_syncs``."""
         if bool(s["over"]):
             raise RuntimeError(
                 f"device violation store overflowed (viol_cap={self.vcap}) "
@@ -952,15 +1019,30 @@ class _CampaignSession:
                 f"coverage bits (+{int(s['admitted'])} corpus entries, "
                 f"corpus {self.count}), {self.vcount_host} violations"
             )
-        self.emit({
-            "event": "generation", "generation": g, "sims": self.sims,
-            "cov_bits": self.curve[-1], "new_entries": int(s["admitted"]),
-            "corpus_size": self.count, "violations": self.vcount_host,
-            "new_violations": new_viol, **walls, "host_syncs": 1, **fleet,
-        })
         if self.checkpoint_path is not None and (self.mesh is None or self.mesh.rank == 0):
             # one writer: every rank holds the same campaign
             self.snapshot(g + 1, s, copy).save(self.checkpoint_path)
+        return {
+            "event": "generation", "generation": g, "sims": self.sims,
+            "cov_bits": self.curve[-1], "new_entries": int(s["admitted"]),
+            "corpus_size": self.count, "violations": self.vcount_host,
+            # host_syncs: filled by emit_generation, in the schema's place
+            "new_violations": new_viol, **walls, "host_syncs": None, **fleet,
+        }
+
+    def generation_syncs(self, g: int) -> _GenerationSyncs:
+        """Generation ``g``'s sync count: counted under
+        :func:`counted_syncs` if the campaign runs on the card and ``g``
+        is among the first generations it counts."""
+        counting = (_COUNT is not None and g - self.g_start < _COUNT
+                    and self.dev.type == "cuda")
+        return _GenerationSyncs(g, counting)
+
+    def emit_generation(self, record: dict, syncs: _GenerationSyncs) -> None:
+        """Emit a generation's record with its ``host_syncs``: the
+        counted number, or None where it was not counted."""
+        record["host_syncs"] = syncs.host_syncs
+        self.emit(record)
 
     # ---- materialization ------------------------------------------------
     def _entry_name(self, gen, parent, bslot, seed):
@@ -1103,7 +1185,7 @@ class _PartClock:
             ev.record()
             self.marks.append((part, ev))
         else:
-            self.marks.append((part, _time.perf_counter()))
+            self.marks.append((part, _time.perf_counter()))  # lint: allow(wall-clock)
 
     def parts_ms(self) -> dict:
         out = dict.fromkeys(PARTS, 0.0)
@@ -1188,7 +1270,9 @@ def run_device(
 
     The per-generation host sync transfers only the admission summary;
     telemetry records carry the dispatch/compile/sync wall split,
-    ``host_syncs: 1`` and ``parts_ms`` (the device ms of the
+    ``host_syncs`` (under :func:`counted_syncs` the profiler's count of
+    the generation's waits for the card, else None: not counted) and
+    ``parts_ms`` (the device ms of the
     generation's parts: mutate, compile, sweep, judge, admit; CUDA
     events on the card, read after the sync), so the claim is checkable
     from the artifact. ``compile_wall_s`` is the build share of that
@@ -1213,44 +1297,49 @@ def run_device(
     wall_dispatch = 0.0
     wall_sync = 0.0
     wall_compile = 0.0
-    host_syncs = 0
+    host_syncs = 0  # consume points, one a generation
+    counted = []  # the counted generations' host_syncs
 
     for g in range(sess.g_start, sess.g_start + generations):
-        t0 = _time.monotonic()  # lint: allow(wall-clock)
-        breed = g > 0 and sess.count > 0
-        runner = sess.runner(breed)
-        # the build share of this generation (0.0 on a warm cache), split
-        # out of dispatch so warm-vs-cold comparisons compare like with
-        # like; built before the part clock starts
-        runner.build()
-        clock = _PartClock(sess.dev)
-        before = sess.carry
-        sess.carry, summary, extras = runner(
-            before, g, sess.rk0, sess.rk1, mark=clock.mark
-        )
-        copy = sess.host_copy(before, sess.carry, summary, extras)
-        t1 = _time.monotonic()  # lint: allow(wall-clock)
-        compile_wall = runner.last_build_s
-        # THE host sync: the admission summary, the fleet totals and
-        # what a checkpoint reads — per-seed state stays on the device
-        copy.wait()
-        s = dict(zip(_SUMMARY, copy.summary.tolist()))
-        host_syncs += 1
-        fleet = sess.fleet(copy.totals)
-        t2 = _time.monotonic()  # lint: allow(wall-clock)
-        wall_dispatch += (t1 - t0) - compile_wall
-        wall_sync += t2 - t1
-        wall_compile += compile_wall
-        sess.consume(g, s, fleet, {
-            "dispatch_wall_s": round((t1 - t0) - compile_wall, 3),
-            "compile_wall_s": round(compile_wall, 3),
-            "sync_wall_s": round(t2 - t1, 3),
-            # the pipeline wall split, zero by construction on the
-            # blocking schedule (the driver never enqueues ahead)
-            "queue_wall_s": 0.0,
-            "idle_wall_s": 0.0,
-            "parts_ms": clock.parts_ms(),
-        }, copy)
+        syncs = sess.generation_syncs(g)
+        with syncs.count():
+            t0 = _time.monotonic()  # lint: allow(wall-clock)
+            breed = g > 0 and sess.count > 0
+            runner = sess.runner(breed)
+            # the build share of this generation (0.0 on a warm cache),
+            # split out of dispatch so warm-vs-cold comparisons compare
+            # like with like; built before the part clock starts
+            runner.build()
+            clock = _PartClock(sess.dev)
+            before = sess.carry
+            sess.carry, summary, extras = runner(
+                before, g, sess.rk0, sess.rk1, mark=clock.mark
+            )
+            copy = sess.host_copy(before, sess.carry, summary, extras)
+            t1 = _time.monotonic()  # lint: allow(wall-clock)
+            compile_wall = runner.last_build_s
+            # THE host sync: the admission summary, the fleet totals and
+            # what a checkpoint reads — per-seed state stays on the device
+            copy.wait()
+            host_syncs += 1
+            s = dict(zip(_SUMMARY, copy.summary.tolist()))
+            fleet = sess.fleet(copy.totals)
+            t2 = _time.monotonic()  # lint: allow(wall-clock)
+            wall_dispatch += (t1 - t0) - compile_wall
+            wall_sync += t2 - t1
+            wall_compile += compile_wall
+            record = sess.consume(g, s, fleet, {
+                "dispatch_wall_s": round((t1 - t0) - compile_wall, 3),
+                "compile_wall_s": round(compile_wall, 3),
+                "sync_wall_s": round(t2 - t1, 3),
+                # the pipeline wall split, zero by construction on the
+                # blocking schedule (the driver never enqueues ahead)
+                "queue_wall_s": 0.0,
+                "idle_wall_s": 0.0,
+                "parts_ms": clock.parts_ms(),
+            }, copy)
+        sess.emit_generation(record, syncs)
+        counted.append(syncs.host_syncs)
 
     sess.emit({
         "event": "campaign_end", "generations": sess.g_start + generations,
@@ -1263,7 +1352,7 @@ def run_device(
         "wall_compile_s": round(wall_compile, 3),
         "wall_queue_s": 0.0,
         "wall_idle_s": 0.0,
-        "host_syncs": host_syncs,
+        "host_syncs": _counted_total(counted),
     })
     return sess.report(
         wall_dispatch=wall_dispatch, wall_sync=wall_sync,

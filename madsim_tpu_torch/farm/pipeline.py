@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import time as _time
 
-from ..explore.device import _SUMMARY, _CampaignSession
+from ..explore.device import _SUMMARY, _CampaignSession, _counted_total
 from ..explore.driver import ExploreReport
 
 __all__ = ["run_pipelined"]
@@ -103,9 +103,12 @@ def run_pipelined(
     measured ``queue_wall_s``/``idle_wall_s`` split (the blocking driver
     writes zeros), ``dispatch_wall_s`` is their sum, and the
     ``campaign_end`` record adds ``respeculations`` (discarded
-    speculative dispatches). ``host_syncs`` is still exactly 1 per
-    generation, at the consume point; nothing in the dispatch path waits
-    for the card.
+    speculative dispatches). The schedule waits for the card once a
+    generation, at the consume point: under
+    ``explore.device.counted_syncs`` each generation's ``host_syncs`` is
+    the profiler's count of it (whose own end makes the schedule a
+    blocking one), else None; nothing in the dispatch path waits for the
+    card.
     """
     if depth < 1:
         raise ValueError("need pipeline depth >= 1")
@@ -128,7 +131,8 @@ def run_pipelined(
     wall_idle = 0.0
     wall_sync = 0.0
     wall_compile = 0.0
-    host_syncs = 0
+    host_syncs = 0  # consume points, one a generation
+    counted = []  # the counted generations' host_syncs
     respeculations = 0
     g_end = sess.g_start + generations
     g_next = sess.g_start
@@ -157,52 +161,58 @@ def run_pipelined(
         )
 
     while g_next < g_end or pending:
-        while g_next < g_end and len(pending) < depth:
-            # optimistic mode prediction: the corpus count never
-            # decreases, so a known-nonempty corpus means breed for
-            # certain; with unconsumed admissions in flight, speculate
-            # breed (a generation that admits NOTHING is the only way
-            # this is wrong)
-            breed = g_next > 0 and (sess.count > 0 or len(pending) > 0)
-            pending.append(_dispatch(g_next, breed))
-            g_next += 1
-        item = pending.pop(0)
-        g = item["g"]
-        # all generations < g are consumed, so sess.count is exactly the
-        # count the blocking driver would see before dispatching g
-        actual_breed = g > 0 and sess.count > 0
-        if actual_breed != item["breed"]:
-            # mispredicted speculation: the programs are pure functions
-            # of (carry, g, root key), so discard the speculative chain
-            # and recompute from the pre-g carry — wall clock lost,
-            # bit-identity kept
-            respeculations += 1 + len(pending)
-            pending.clear()
-            g_next = g + 1
-            sess.carry = item["carry_before"]
-            item = _dispatch(g, actual_breed)
-        t0 = _time.monotonic()  # lint: allow(wall-clock)
-        item["copy"].wait()  # THE consume-point sync
-        t1 = _time.monotonic()  # lint: allow(wall-clock)
-        s = dict(zip(_SUMMARY, item["copy"].summary.tolist()))
-        host_syncs += 1
-        fleet = sess.fleet(item["copy"].totals)
-        t2 = _time.monotonic()  # lint: allow(wall-clock)
-        idle = t1 - t0
-        sync = t2 - t1
-        wall_idle += idle
-        wall_sync += sync
-        # the per-generation checkpoint snapshots the campaign as of g
-        # from g's own host copy (sess.carry has already speculated
-        # ahead), so it overlaps the card running g+1 — the whole point
-        # of the schedule
-        sess.consume(g, s, fleet, {
-            "dispatch_wall_s": round(item["queue_s"] + idle, 3),
-            "compile_wall_s": round(item["build_s"], 3),
-            "sync_wall_s": round(sync, 3),
-            "queue_wall_s": round(item["queue_s"], 3),
-            "idle_wall_s": round(idle, 3),
-        }, item["copy"])
+        # the host syncs of the iteration that consumes the oldest
+        # generation in flight, its dispatches ahead included
+        syncs = sess.generation_syncs(pending[0]["g"] if pending else g_next)
+        with syncs.count():
+            while g_next < g_end and len(pending) < depth:
+                # optimistic mode prediction: the corpus count never
+                # decreases, so a known-nonempty corpus means breed for
+                # certain; with unconsumed admissions in flight, speculate
+                # breed (a generation that admits NOTHING is the only way
+                # this is wrong)
+                breed = g_next > 0 and (sess.count > 0 or len(pending) > 0)
+                pending.append(_dispatch(g_next, breed))
+                g_next += 1
+            item = pending.pop(0)
+            g = item["g"]
+            # all generations < g are consumed, so sess.count is exactly the
+            # count the blocking driver would see before dispatching g
+            actual_breed = g > 0 and sess.count > 0
+            if actual_breed != item["breed"]:
+                # mispredicted speculation: the programs are pure functions
+                # of (carry, g, root key), so discard the speculative chain
+                # and recompute from the pre-g carry — wall clock lost,
+                # bit-identity kept
+                respeculations += 1 + len(pending)
+                pending.clear()
+                g_next = g + 1
+                sess.carry = item["carry_before"]
+                item = _dispatch(g, actual_breed)
+            t0 = _time.monotonic()  # lint: allow(wall-clock)
+            item["copy"].wait()  # THE consume-point sync
+            host_syncs += 1
+            t1 = _time.monotonic()  # lint: allow(wall-clock)
+            s = dict(zip(_SUMMARY, item["copy"].summary.tolist()))
+            fleet = sess.fleet(item["copy"].totals)
+            t2 = _time.monotonic()  # lint: allow(wall-clock)
+            idle = t1 - t0
+            sync = t2 - t1
+            wall_idle += idle
+            wall_sync += sync
+            # the per-generation checkpoint snapshots the campaign as of g
+            # from g's own host copy (sess.carry has already speculated
+            # ahead), so it overlaps the card running g+1 — the whole point
+            # of the schedule
+            record = sess.consume(g, s, fleet, {
+                "dispatch_wall_s": round(item["queue_s"] + idle, 3),
+                "compile_wall_s": round(item["build_s"], 3),
+                "sync_wall_s": round(sync, 3),
+                "queue_wall_s": round(item["queue_s"], 3),
+                "idle_wall_s": round(idle, 3),
+            }, item["copy"])
+        sess.emit_generation(record, syncs)
+        counted.append(syncs.host_syncs)
 
     wall_dispatch = wall_queue + wall_idle
     sess.emit({
@@ -216,7 +226,7 @@ def run_pipelined(
         "wall_compile_s": round(wall_compile, 3),
         "wall_queue_s": round(wall_queue, 3),
         "wall_idle_s": round(wall_idle, 3),
-        "host_syncs": host_syncs,
+        "host_syncs": _counted_total(counted),
         "respeculations": respeculations,
     })
     return sess.report(

@@ -110,6 +110,8 @@ def make_broadcast(
         handlers=(on_init, on_msg, on_ack, on_retx),
         handler_names=("init", "msg", "ack", "retx"),
         max_emits=max(len(peers) + 3, 6),
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=max(retx_ns, 500_000_000),
         args_words=2,
         draw_purposes=(
             (_P_CHAOS_LINK, _P_CHAOS_LINK + 16, _P_CHAOS_AT, _P_CHAOS_LEN)

@@ -364,6 +364,8 @@ def make_kvchaos(
         ) + (("areq", "aprobe", "aresp") if army else ()),
         # on_init builds up to 6 rows; on_retx builds n_replicas+2
         max_emits=max(n_replicas + 2, 6),
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=max(retx_ns, client_retx_ns, 900_000_000),
         args_words=2,
         payload_words=2 if payload else 0,
         draw_purposes=((_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else ())
@@ -412,3 +414,26 @@ def client_army(
         op_base=op_base,
         retry=retry,
     )
+
+
+def lint_entries():
+    """The non-interference matrix's entry points (``lint.model_matrix``):
+    ``(tag, workload, engine-config kwargs)``, the JAX package's rows."""
+    kw = dict(pool_size=40, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    return [
+        ("kvchaos/plain", make_kvchaos(), kw),
+        ("kvchaos/record", make_kvchaos(record=True, payload=True), kw),
+        ("kvchaos/army", make_kvchaos(army=True), kw),
+    ]
+
+
+# The certification horizon of the column contracts: client-army load windows span sim-seconds;
+# 300 sim-seconds leaves an order of magnitude of slack (the JAX
+# package's value).
+ABSINT_HORIZON_NS = 300 * 1_000_000_000
+
+
+def absint_entries():
+    """The range checks' entry points: :func:`lint_entries` rows with the
+    horizon, ``(tag, workload, engine-config kwargs, horizon ns)``."""
+    return [(tag, wl, kw, ABSINT_HORIZON_NS) for tag, wl, kw in lint_entries()]

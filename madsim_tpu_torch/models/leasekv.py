@@ -42,7 +42,7 @@ import torch
 
 from ..check.history import OK_FAIL, OK_OK, OP_USER
 from ..engine.core import (
-    KIND_KILL, KIND_RESTART, HistorySpec, Workload, get_col, set_col,
+    KIND_KILL, KIND_RESTART, HistorySpec, StateContract, Workload, get_col, set_col,
     set_cols, user_kind,
 )
 from ..engine.rng import M32
@@ -337,6 +337,31 @@ def make_leasekv(
         f2 = lag | (1 << 17)
         return ((f1, True), (f2, True))
 
+    # per-column range contracts (the JAX package's): the hull each
+    # column is owed at step boundaries across every role that uses it;
+    # deadline columns are "time", everything else a bounded counter
+    def _sc(col):
+        lo, hi, fam = 0, 1, "counter"
+        ranges = []
+        if col < n_clients:  # server deadline_ms for lease col+1
+            ranges.append((0, HORIZON_MS + ttl_ms, "time"))
+        if col == c_wseq:
+            ranges.append((0, WSEQ_CAP, "counter"))
+        if col == c_fin_mask:
+            ranges.append((0, full_mask, "counter"))
+        if col == c_exp_cnt:
+            ranges.append((0, EVT_CAP, "counter"))
+        if col == 0:  # client granted; watcher last_wseq
+            ranges.append((0, max(1, WSEQ_CAP), "counter"))
+        if col == 1:  # client acked; watcher events
+            ranges.append((0, max(puts, EVT_CAP), "counter"))
+        if col == 2:  # client fin; watcher resyncs
+            ranges.append((0, EVT_CAP, "counter"))
+        for rlo, rhi, rfam in ranges:
+            lo, hi = min(lo, rlo), max(hi, rhi)
+            fam = "time" if rfam == "time" else fam
+        return StateContract(col, lo, hi, fam)
+
     return Workload(
         name=name,
         n_nodes=n,
@@ -350,6 +375,10 @@ def make_leasekv(
         # widest: the scan sends one watch event per lease + its timer;
         # on_init builds 3 client rows, the server's timer and 2 chaos rows
         max_emits=max(n_clients + 1, 6),
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=max(ka_ms * 1_000_000, scan_ms * 1_000_000, put_ms * 1_000_000,
+                           900_000_000),
+        state_contracts=tuple(_sc(c) for c in range(width)),
         args_words=2,
         draw_purposes=(_P_KILL_AT, _P_KILL_WHO, _P_REVIVE) if chaos else (),
         history=hist,
@@ -392,3 +421,26 @@ def client_army(
         t_max_ns=t_max_ns,
         op_base=op_base,
     )
+
+
+def lint_entries():
+    """The non-interference matrix's entry points (``lint.model_matrix``):
+    ``(tag, workload, engine-config kwargs)``, the JAX package's rows."""
+    kw = dict(pool_size=48, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    return [
+        ("leasekv/plain", make_leasekv(), kw),
+        ("leasekv/record", make_leasekv(record=True), kw),
+        ("leasekv/army", make_leasekv(army=True), kw),
+    ]
+
+
+# The certification horizon of the column contracts: lease TTLs and scan periods are sim-milliseconds;
+# 300 sim-seconds leaves an order of magnitude of slack (the JAX
+# package's value).
+ABSINT_HORIZON_NS = 300 * 1_000_000_000
+
+
+def absint_entries():
+    """The range checks' entry points: :func:`lint_entries` rows with the
+    horizon, ``(tag, workload, engine-config kwargs, horizon ns)``."""
+    return [(tag, wl, kw, ABSINT_HORIZON_NS) for tag, wl, kw in lint_entries()]

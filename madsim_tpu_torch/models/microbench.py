@@ -53,6 +53,8 @@ def make_microbench(
         handlers=(on_init, on_tick),
         handler_names=("init", "tick"),
         max_emits=2,
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=delay_max_ns,
         args_words=2,
         draw_purposes=(_P_DELAY, _P_VALUE),
         model_params=(

@@ -229,6 +229,8 @@ def make_paxos(
         # widest: on_propose (1 DECIDED redelivery + A prepares + 1
         # timer); on_accepted sends P DECIDEDs; on_init 1 timer + 2 chaos
         max_emits=max(a + 2, p + 1, 3),
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=max(timeout_max_ns, kill_max_ns + revive_max_ns),
         args_words=3,
         durable_cols=(A_PROM, A_BAL, A_VAL) if durable_acceptors else None,
         # decide records: at most one per chosen round and one first
@@ -251,3 +253,25 @@ def make_paxos(
             ("durable_acceptors", durable_acceptors),
         ),
     )
+
+
+def lint_entries():
+    """The non-interference matrix's entry points (``lint.model_matrix``):
+    ``(tag, workload, engine-config kwargs)``, the JAX package's rows."""
+    kw = dict(pool_size=48, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    return [
+        ("paxos/plain", make_paxos(), kw),
+        ("paxos/record", make_paxos(record=True), kw),
+    ]
+
+
+# The certification horizon of the column contracts: a ballot settles within sim-seconds;
+# 60 sim-seconds leaves an order of magnitude of slack (the JAX
+# package's value).
+ABSINT_HORIZON_NS = 60 * 1_000_000_000
+
+
+def absint_entries():
+    """The range checks' entry points: :func:`lint_entries` rows with the
+    horizon, ``(tag, workload, engine-config kwargs, horizon ns)``."""
+    return [(tag, wl, kw, ABSINT_HORIZON_NS) for tag, wl, kw in lint_entries()]

@@ -65,6 +65,8 @@ def make_pingpong(rounds: int = 10, n_clients: int = 2) -> Workload:
         handlers=(on_init, on_ping, on_pong, on_done),
         handler_names=("init", "ping", "pong", "done"),
         max_emits=2,
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=0,
         args_words=2,
         model_params=(("rounds", rounds), ("n_clients", n_clients)),
     )

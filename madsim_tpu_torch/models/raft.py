@@ -146,6 +146,8 @@ def make_raft(
         handlers=(on_init, on_timeout, on_reqvote, on_grant, on_heartbeat),
         handler_names=("init", "timeout", "reqvote", "grant", "heartbeat"),
         max_emits=n_nodes + 1,
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=timeout_max_ns,
         args_words=2,
         draw_purposes=(_P_TIMEOUT,),
         # the run halts at the first win, so concurrent in-flight wins
@@ -157,3 +159,25 @@ def make_raft(
             ("timeout_max_ns", timeout_max_ns),
         ),
     )
+
+
+def lint_entries():
+    """The non-interference matrix's entry points (``lint.model_matrix``):
+    ``(tag, workload, engine-config kwargs)``, the JAX package's rows."""
+    kw = dict(pool_size=40, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    return [
+        ("raft/plain", make_raft(), kw),
+        ("raft/record", make_raft(record=True), kw),
+    ]
+
+
+# The certification horizon of the column contracts: elections resolve within sim-seconds;
+# 60 sim-seconds leaves an order of magnitude of slack (the JAX
+# package's value).
+ABSINT_HORIZON_NS = 60 * 1_000_000_000
+
+
+def absint_entries():
+    """The range checks' entry points: :func:`lint_entries` rows with the
+    horizon, ``(tag, workload, engine-config kwargs, horizon ns)``."""
+    return [(tag, wl, kw, ABSINT_HORIZON_NS) for tag, wl, kw in lint_entries()]

@@ -405,6 +405,8 @@ def make_raftlog(
         # widest: on_timeout and on_grant, N rows plus two timers
         max_emits=n_nodes + 2,
         payload_words=w,
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=max(timeout_max_ns, propose_ns, retx_ns, 1_100_000_000),
         args_words=4,
         # the Figure-2 columns, under the sync discipline
         durable_cols=(
@@ -461,3 +463,27 @@ def client_army(
         t_max_ns=t_max_ns,
         op_base=op_base,
     )
+
+
+def lint_entries():
+    """The non-interference matrix's entry points (``lint.model_matrix``):
+    ``(tag, workload, engine-config kwargs)``, the JAX package's rows."""
+    kw = dict(pool_size=64, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    return [
+        ("raftlog/plain", make_raftlog(), kw),
+        ("raftlog/record", make_raftlog(record=True), kw),
+        ("raftlog/durable", make_raftlog(durable=True, record=True), kw),
+        ("raftlog/army", make_raftlog(army=True), kw),
+    ]
+
+
+# The certification horizon of the column contracts: chaos soaks replicate for sim-minutes;
+# 300 sim-seconds leaves an order of magnitude of slack (the JAX
+# package's value).
+ABSINT_HORIZON_NS = 300 * 1_000_000_000
+
+
+def absint_entries():
+    """The range checks' entry points: :func:`lint_entries` rows with the
+    horizon, ``(tag, workload, engine-config kwargs, horizon ns)``."""
+    return [(tag, wl, kw, ABSINT_HORIZON_NS) for tag, wl, kw in lint_entries()]

@@ -49,8 +49,8 @@ import torch
 
 from ..check.history import OK_OK, OP_USER, pack_shard_own
 from ..engine.core import (
-    KIND_KILL, KIND_RESTART, HistorySpec, Workload, get_col, retry_token_attempt,
-    retry_token_op, set_col, set_cols, user_kind,
+    KIND_KILL, KIND_RESTART, HistorySpec, StateContract, Workload, get_col,
+    retry_token_attempt, retry_token_op, set_col, set_cols, user_kind,
 )
 from ..engine.rng import M32
 
@@ -458,6 +458,22 @@ def make_shardkv(
         f2 = torch.clamp(owned.to(torch.int64), max=63) | (1 << 21)
         return ((f1, True), (f2, True))
 
+    # per-column range contracts (the JAX package's): versions and
+    # controller scalars share the low columns across roles, so each
+    # column declares the hull; everything here is a bounded counter
+    def _sc(col):
+        if col < S:  # shard versions
+            hi = VER_CAP
+        elif col < 2 * S:  # per-shard ownership epochs
+            hi = EPOCH_CAP
+        elif col == c_frozen:
+            hi = (1 << S) - 1
+        else:
+            hi = 1
+        if col <= _C_FIN:
+            hi = max(hi, VER_CAP)
+        return StateContract(col, 0, hi, "counter")
+
     return Workload(
         name=name,
         n_nodes=n,
@@ -472,6 +488,10 @@ def make_shardkv(
         # the two timers + 2 chaos rows
         max_emits=max(R + 1, 6),
         init_state=init,
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=max(put_ms * 1_000_000, mig_ms * 1_000_000, retx_ms * 1_000_000,
+                           900_000_000),
+        state_contracts=tuple(_sc(c) for c in range(width)),
         args_words=3,
         # disk-backed servers: every column survives a restart
         durable_cols=tuple(range(width)),
@@ -520,3 +540,26 @@ def client_army(
         op_base=op_base,
         retry=retry,
     )
+
+
+def lint_entries():
+    """The non-interference matrix's entry points (``lint.model_matrix``):
+    ``(tag, workload, engine-config kwargs)``, the JAX package's rows."""
+    kw = dict(pool_size=64, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
+    return [
+        ("shardkv/plain", make_shardkv(), kw),
+        ("shardkv/record", make_shardkv(record=True), kw),
+        ("shardkv/army", make_shardkv(army=True), kw),
+    ]
+
+
+# The certification horizon of the column contracts: migrations and write windows are sim-milliseconds;
+# 300 sim-seconds leaves an order of magnitude of slack (the JAX
+# package's value).
+ABSINT_HORIZON_NS = 300 * 1_000_000_000
+
+
+def absint_entries():
+    """The range checks' entry points: :func:`lint_entries` rows with the
+    horizon, ``(tag, workload, engine-config kwargs, horizon ns)``."""
+    return [(tag, wl, kw, ABSINT_HORIZON_NS) for tag, wl, kw in lint_entries()]

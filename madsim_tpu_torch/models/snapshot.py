@@ -124,6 +124,8 @@ def make_snapshot(
         handler_names=("init", "send", "transfer", "snap", "recvd"),
         # transfer: n paint rows (the self row never valid) + 1 notice
         max_emits=max(n + 1, 2),
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=max(send_max_ns, snap_max_ns),
         args_words=2,
         model_params=(
             ("n_nodes", n_nodes),

@@ -216,6 +216,8 @@ def make_twophase(
         # widest: on_retx (2P sends + 1 timer) and on_init (P prepares +
         # retx + hello + hretx + 3 chaos rows)
         max_emits=max(2 * n_parts + 1, n_parts + 6, 6),
+        # the largest timer a handler arms (the JAX package's bound)
+        delay_bound_ns=max(retx_ns, 250_000_000 + revive_max_ns),
         args_words=3,
         # one coordinator decide and one adoption per participant per
         # txn, and re-adoptions after a restart wipes a participant;

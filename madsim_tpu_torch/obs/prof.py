@@ -25,6 +25,11 @@ a measured quantity, with the JAX package's record schema:
   (``retraces()``). With no profiler active the only overhead is a None
   check per call.
 * :func:`device_memory` — the allocator's footprint on the card.
+* :func:`count_syncs` — the host's waits for the card inside a block,
+  counted by ``torch.profiler`` (the CUDA runtime's synchronisations and
+  the device-to-host copies into pageable memory): the measure behind
+  a campaign generation's ``host_syncs`` under
+  ``explore.device.counted_syncs``.
 
 Everything here is host-side bookkeeping over wall clocks, CUDA events
 and built libraries; nothing changes what a program computes.
@@ -34,6 +39,10 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
+import os
+import re
+import tempfile
 import time
 from contextlib import contextmanager
 
@@ -43,6 +52,8 @@ __all__ = [
     "AotProgram",
     "ProgramProfiler",
     "ProgramRecord",
+    "SyncCount",
+    "count_syncs",
     "current",
     "device_memory",
     "disable",
@@ -137,12 +148,43 @@ class ProgramProfiler:
     def __init__(self):
         self.programs: dict = {}
         self.events: list = []
+        # (name, key, start, end) CUDA event pairs of calls on the card,
+        # read once the card has passed them (:meth:`settle`)
+        self._pending: list = []
 
     def record(self, name: str, key: str) -> ProgramRecord:
+        self.settle()
+        return self._record(name, key)
+
+    def _record(self, name: str, key: str) -> ProgramRecord:
         rec = self.programs.get((name, key))
         if rec is None:
             rec = self.programs[(name, key)] = ProgramRecord(name, key)
         return rec
+
+    def note_pending(self, name, key, start, end) -> None:
+        """A call on the card, timed by the CUDA events ``start`` and
+        ``end`` recorded around it: counted now, its device seconds read
+        by :meth:`settle`, so the call itself never waits for the card."""
+        self._record(name, key).calls += 1
+        self._pending.append((name, key, start, end))
+
+    def settle(self) -> None:
+        """Fold the device seconds of every pending call into its
+        record. An event the card has not passed yet is waited for, with
+        torch's sync-debug mode off for the wait (a campaign reads the
+        records after its last consume point, when the card has passed
+        them all)."""
+        pending, self._pending = self._pending, []
+        for name, key, start, end in pending:
+            if not end.query():
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    end.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            self._record(name, key).execute_wall_s += start.elapsed_time(end) / 1e3
 
     def note_build(self, name, key, trace_s, lower_s, compile_s, cost):
         rec = self.record(name, key)
@@ -168,6 +210,7 @@ class ProgramProfiler:
     def retraces(self, prefix: str = "") -> dict:
         """(name, key) -> build count, optionally filtered by a name
         prefix — the retrace certificate reads this (== 1 per key)."""
+        self.settle()
         return {
             nk: rec.traces
             for nk, rec in sorted(self.programs.items())
@@ -175,10 +218,12 @@ class ProgramProfiler:
         }
 
     def to_dicts(self) -> list:
+        self.settle()
         return [rec.to_dict() for _, rec in sorted(self.programs.items())]
 
     def report(self) -> str:
         """Text table of every profiled program (the artifact form)."""
+        self.settle()
         lines = [
             f"{'program':<28} {'key':<13} {'tr':>3} {'calls':>5} "
             f"{'trace_s':>8} {'lower_s':>8} {'compile_s':>9} {'exec_s':>8} "
@@ -274,9 +319,9 @@ class AotProgram:
         self._keep = False
 
     def _build(self):
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint: allow(wall-clock)
         prog = self._fn()
-        t1 = time.perf_counter()
+        t1 = time.perf_counter()  # lint: allow(wall-clock)
         compile_s = self._library() if self._library is not None else 0.0
         self._prog = prog
         self.builds += 1
@@ -310,22 +355,23 @@ class AotProgram:
         p = _ACTIVE
         if p is None:
             return prog(*args, **kw)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint: allow(wall-clock)
         start = None
         if torch.cuda.is_available():
             start = torch.cuda.Event(enable_timing=True)
             start.record()
         out = prog(*args, **kw)
         if start is not None and _cuda_outputs(out):
-            # the completion barrier of a profiled call: the device time
-            # between two events around the program on its stream
+            # the device time between two events around the program on
+            # its stream, read when the profiler reports: a completion
+            # barrier here would be a second wait for the card in every
+            # profiled campaign generation
             end = torch.cuda.Event(enable_timing=True)
             end.record()
-            end.synchronize()
-            seconds = start.elapsed_time(end) / 1e3
+            p.note_pending(self.name, self.key, start, end)
         else:
-            seconds = time.perf_counter() - t0
-        p.note_execute(self.name, self.key, seconds)
+            # lint: allow(wall-clock)
+            p.note_execute(self.name, self.key, time.perf_counter() - t0)
         return out
 
     def call_async(self, *args, **kw):
@@ -341,8 +387,121 @@ class AotProgram:
         queue/idle split instead.
         """
         prog = self._program()
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint: allow(wall-clock)
         out = prog(*args, **kw)
         if _ACTIVE is not None:
+            # lint: allow(wall-clock)
             _ACTIVE.note_execute(self.name, self.key, time.perf_counter() - t0)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Counting the host's waits for the card.
+# ---------------------------------------------------------------------------
+
+# the CUDA runtime and driver calls that block the host until the card
+# (a stream, the device, an event) has caught up
+_SYNC_RE = re.compile(r"^cu(da)?(Stream|Device|Event|Ctx)Synchronize(_v\d+)?$")
+# a synchronous copy call (cudaMemcpy, cuMemcpyDtoH): it waits too
+_SYNC_COPY_RE = re.compile(r"^cu(da)?Memcpy(DtoH)?(_v\d+)?$")
+# the range count_syncs counts inside (the profiler's own exit waits
+# for the card after it)
+_MARK = "madsim::count_syncs"
+
+
+@dataclasses.dataclass
+class SyncCount:
+    """What :func:`count_syncs` counted inside its block."""
+
+    syncs: int = 0  # CUDA runtime synchronisations (stream, device, event)
+    # device-to-host copies into pageable memory, and synchronous copies
+    pageable: int = 0
+    names: dict = dataclasses.field(default_factory=dict)  # counted name -> n
+    measured: bool = False  # False without a card: nothing was counted
+
+    @property
+    def total(self) -> int:
+        return self.syncs + self.pageable
+
+
+def _is_pageable_dtoh(event: dict) -> bool:
+    """A device-to-host copy into pageable memory, by the copy's kind:
+    the activity's name or args name the direction and the host side."""
+    text = " ".join([event.get("name", "")] + [
+        f"{k}={v}" for k, v in (event.get("args") or {}).items()]).lower()
+    dtoh = "dtoh" in text or "device -> pageable" in text or "device_to_host" in text
+    return dtoh and "pageable" in text
+
+
+def _count_trace(trace: dict, out: SyncCount) -> None:
+    events = [e for e in trace.get("traceEvents", []) if isinstance(e, dict)]
+    marks = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("name") == _MARK and "ts" in e]
+    if not marks:
+        return
+
+    def inside(ts) -> bool:
+        return any(lo <= ts <= hi for lo, hi in marks)
+
+    calls = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        cat = str(e.get("cat", "")).lower()
+        if corr is not None and cat in ("cuda_runtime", "cuda_driver"):
+            calls[corr] = e.get("ts", 0)
+    names: dict = {}
+    for e in events:
+        name = e.get("name", "")
+        cat = str(e.get("cat", "")).lower()
+        if cat in ("cuda_runtime", "cuda_driver") and inside(e.get("ts", -1)):
+            if _SYNC_RE.match(name):
+                out.syncs += 1
+            elif _SYNC_COPY_RE.match(name):
+                out.pageable += 1
+            else:
+                continue
+            names[name] = names.get(name, 0) + 1
+        elif "memcpy" in cat or "memcpy" in name.lower():
+            if not _is_pageable_dtoh(e):
+                continue
+            corr = (e.get("args") or {}).get("correlation")
+            if corr in calls and not inside(calls[corr]):
+                continue
+            if corr not in calls and not inside(e.get("ts", -1)):
+                continue
+            out.pageable += 1
+            names[name] = names.get(name, 0) + 1
+    out.names = names
+
+
+@contextmanager
+def count_syncs():
+    """Count the host's waits for the card inside the block.
+
+    Yields a :class:`SyncCount`, filled when the block ends: ``syncs``,
+    the CUDA runtime's stream, device and event synchronisations made
+    inside it, and ``pageable``, its device-to-host copies into pageable
+    memory (matched by the copy activity's kind) and synchronous
+    ``cudaMemcpy`` calls; ``names`` says what was counted. A
+    non-blocking copy into pinned memory is not a wait. The block runs
+    under ``torch.profiler`` with CPU and CUDA activities; the
+    profiler's own synchronisation at its end lies outside the counted
+    range, but it does wait for the card, so a block that must not
+    wait cannot be timed under it. Without a card nothing is counted
+    (``measured`` False)."""
+    out = SyncCount()
+    if not torch.cuda.is_available():
+        yield out
+        return
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        with record_function(_MARK):
+            yield out
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        p.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            trace = json.load(f)
+    _count_trace(trace, out)
+    out.measured = True

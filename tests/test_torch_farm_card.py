@@ -7,11 +7,23 @@ skipped without a card. The file imports no JAX, so it runs on the card:
   under ``explore.device.strict_syncs`` (torch's sync-debug mode
   "error"): nothing but the consume point waits for the card. Each
   campaign and its checkpoint equal the blocking run's.
+* One generation of ``run_device``, of ``run_pipelined`` and of the
+  host driver ``explore.run``, each with a checkpoint and a flight
+  recorder, counted by ``obs.prof.count_syncs`` (``torch.profiler``):
+  on the two device drivers, under ``strict_syncs`` and
+  ``counted_syncs(generations=1)``, the first generation's count is one
+  wait (the consume point's event) and no pageable copy, and it is the
+  generation record's ``host_syncs``; the second generation is not
+  counted (``None``); the host driver reads its sweep's states back to
+  the host, so its count is reported, not held to one.
 * ``obs.prof.program_cost`` gives the raft library's launch shape at
   pool 64: the occupancy calculator's numbers and nvcc's registers, as
   ``chip_smoke.py``'s ``launch_shape`` and ``base_registers`` read them
   (``engine.fused.kernel_registers``).
 """
+
+import json
+from contextlib import contextmanager
 
 import numpy as np
 import pytest
@@ -78,6 +90,53 @@ def test_cuda_pipelined_dispatch_never_waits_for_the_card(driver, tmp_path):
     # the guard was on at every consume point
     assert waits == [2] * KW["generations"]
     assert _fp(rep) == _fp(ref) and ck.read_bytes() == ref_ck.read_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["blocking", "pipelined", "host"])
+def test_cuda_generation_host_syncs_are_counted(driver, tmp_path):
+    """The profiler's count of a generation with a checkpoint and a
+    flight recorder (its profiler on): the device drivers' records carry
+    it under ``counted_syncs``, one event wait and no pageable copy, for
+    the first generation alone under ``generations=1``."""
+    _needs_card()
+    from madsim_tpu_torch import explore
+
+    wl = make_raft()
+    kw = dict(KW, generations=1)
+    ck, log = tmp_path / "c.ckpt", tmp_path / "f.jsonl"
+    if driver == "host":
+        explore.run(wl, CFG, PLAN, device="cuda", **kw)  # builds
+        with prof.count_syncs() as sc, obs.FlightRecorder(str(log), heartbeat_s=0.0) as fr:
+            explore.run(wl, CFG, PLAN, telemetry=fr, checkpoint_path=str(ck), device="cuda",
+                        **kw)
+        print(f"host driver, one generation: {sc}")
+        assert sc.measured and sc.total >= 1
+        return
+    xdev.run_device(wl, CFG, PLAN, **kw)  # builds
+    kw = dict(KW, generations=2)
+    counted = []
+    real = prof.count_syncs
+
+    @contextmanager
+    def spy():
+        with real() as sc:
+            counted.append(sc)
+            yield sc
+
+    run = xdev.run_device if driver == "blocking" else farm.run_pipelined
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(prof, "count_syncs", spy)
+        with xdev.strict_syncs(), xdev.counted_syncs(generations=1), \
+                obs.FlightRecorder(str(log), heartbeat_s=0.0, profile=True) as fr:
+            rep = run(wl, CFG, PLAN, telemetry=fr, checkpoint_path=str(ck), **kw)
+    recs = [json.loads(line) for line in log.read_text().splitlines()]
+    gens = [r["host_syncs"] for r in recs if r["event"] == "generation"]
+    end = next(r for r in recs if r["event"] == "campaign_end")
+    print(f"{driver}: {counted}")
+    assert rep.host_syncs == kw["generations"] and len(counted) == 1
+    assert all(sc.measured and (sc.syncs, sc.pageable) == (1, 0) for sc in counted)
+    assert gens == [counted[0].total, None] == [1, None] and end["host_syncs"] is None
 
 
 @pytest.mark.cuda

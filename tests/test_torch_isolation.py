@@ -30,7 +30,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys, madsim_tpu_torch, madsim_tpu_torch.engine.fused, "
         "madsim_tpu_torch.models, madsim_tpu_torch.check.device, "
         "madsim_tpu_torch.chaos, madsim_tpu_torch.explore, madsim_tpu_torch.obs, "
-        "madsim_tpu_torch.farm, madsim_tpu_torch.parallel\n"
+        "madsim_tpu_torch.farm, madsim_tpu_torch.parallel, madsim_tpu_torch.lint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'madsim_tpu' or m.startswith('madsim_tpu.')]\n"
         "print(bad)\n"

@@ -126,5 +126,5 @@ def test_run_device_mesh_equals_unsharded(world):
     assert got.host_syncs == DEVICE_RUN["generations"] and got.corpus
     recs = world["device_records"]
     assert recs[0]["event"] == "campaign_start" and recs[0]["mesh_devices"] == WORLD
-    assert all(r["host_syncs"] == 1 for r in recs if r["event"] == "generation")
+    assert all(r["host_syncs"] is None for r in recs if r["event"] == "generation")
     assert world["device_uneven"] == "batch=25 does not split over 3 mesh devices"
