@@ -221,7 +221,9 @@ plain eager step:
    policied plan, 2,048 seeds, cap 3,000, each held as phases 4-15 (the
    three retry columns against the plain step on the card on the first
    256 seeds and a CPU sample) with its kernel ms beside the same plan's
-   without the policy, then searched with its history invariant: 0
+   without the policy, then searched with its history invariant
+   (shardkv's judged on the card by the device screens of its two
+   checkers, ``device_check``): 0
    violations, the re-sends, give-ups and traces of the JAX package's
    runs (``RETRY_PINS``, from ``tests/_torch_retry_pins.py 2048``);
 52. certificate 2: 512 seeds of the quiet plan against the gray one,
@@ -280,7 +282,8 @@ plain eager step:
    seeds and plan rows, the bitmap on) run through the kernel, every
    field against the plain step on the card, timed (55's and 56's, 64
    each, in one batch: the plain step's cost on the card is its step
-   count);
+   count; they are held for 1,000 steps, not the 4,000-step cap, and
+   ``EXPLORE_PINS`` hold the full-cap campaigns);
 60. the flight soak's certificates (``tools/flight_soak.py`` at its
    defaults: raft at pool 64 under its plan, batches of 4,096, 4
    generations, 64 steps, 32 coverage words): three ``run_device``
@@ -343,7 +346,42 @@ plain eager step:
    on every seed, the chunked clean run the unchunked one, and every
    chunk boundary must hold its contracts (``check_ranges``). The live
    control: perturbing raft's ``seed``, a core column, is reported;
-67. one JSON line describing each kernel, with its launches on every
+67. the store soak's certificate 4 (``tools/store_soak.py``) on the new
+   taps build of raftlog-nosync-record at pool 128: the missing-sync
+   hunt (``explore.run``, 8 x 256 from root 1031, 6,000 steps, 64
+   coverage words, the soak's history invariant), its first violation
+   replayed (committed-value loss), shrunk, the shrunk plan replayed by
+   ``search_seeds`` and told by ``obs.explain(max_events=24)``: every
+   count, curve, event, trace and the explain text's sha256 the JAX
+   package's (``HUNT_PINS``, from ``tests/_torch_hunt_pins.py``); the
+   first 64 children of generation 1 held against the plain step;
+68. the latency soak's certificates 4-5 (``tools/latency_soak.py``) on the
+   new taps build of kvchaos-army-nochaos at pool 160: a uniform sweep of
+   2,048 over the blip space calibrates the SLO at its worst window-p99
+   bucket and breaches it nowhere; the guided campaign (8 x 256, root
+   7, the latency tap, 64 coverage words) judged by ``slo_bounded``
+   breaches it; the first breach shrunk, replayed exactly and told by
+   ``obs.explain`` with a 4,096-row ring and the tap (the percentiles and
+   the verdict narrated): every pin the JAX package's; the first 64
+   children of generation 1 held against the plain step at the full
+   4,000-step cap (they halt within it);
+69. the lint's other three axes through the run kernel
+   (``lint.check_campaign``, ``check_noninterference(verdict=...)``), the
+   JAX package's flags: sharded-campaign on kvchaos-army-nochaos 160 over
+   the SLO-hunt space and sharded-causal on kvchaos-bug-nochaos 192 over
+   phase 55's crash storm, each 2 x 256 unsharded and on a one-card NCCL
+   world: generation 1's children through ``make_run`` (and
+   ``shard_over_seeds``) under perturbation, and the campaign's outcome
+   equal with every generation's non-guidance derived columns perturbed;
+   flight-campaign the same inside a ``FlightRecorder`` with its profiler
+   on, the reports equal to the recorder-off ones and each counted
+   generation one wait; device-check on raftlog-nosync-record 128
+   (election and recovery safety) and kvchaos-bug-nochaos 192 (stale
+   reads, read your writes) at 2,048 seeds: the history and the verdict
+   equal with every other derived column perturbed; every live control
+   (the met leak around the runner, the guidance, the history columns)
+   reported;
+70. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after) and its library's launch shape (the
    occupancy calculator's numbers and the registers of the kernels
@@ -422,6 +460,9 @@ BASE_SHAPES = {
     "paxos": {64: (48384, 4, 8576, 16)},
     "leasekv": {48: (30208, 7, 6528, 16)},
     "shardkv": {64: (69504, 3, 8576, 16)},
+    # the soaks' hunts' libraries, which have taps builds too
+    "raftlog-nosync-record": {128: (120448, 1, 17024, 12)},
+    "kvchaos-army-nochaos": {160: (71936, 3, 21248, 10)},
 }
 
 
@@ -3296,6 +3337,15 @@ def retry_invariants() -> dict:
     }
 
 
+def shardkv_screens() -> tuple:
+    """The device screens of retry_invariants()'s shardkv pair."""
+    from madsim_tpu_torch.check import device as dc
+    from madsim_tpu_torch.models import shardkv
+
+    return (dc.exactly_once(shardkv.OP_ARMY_PUT),
+            dc.shard_coverage(shardkv.OP_SHARD_OWN, shardkv.OP_SHARD_WRITE))
+
+
 def retry_counts(rep) -> tuple:
     """(failing, re-sends, give-ups, trace digest) of a search report."""
     from madsim_tpu_torch.engine import MET_RETRY, MET_RETRY_GIVEUP
@@ -3360,10 +3410,14 @@ def retry_clean_phase(device, results: list, paths: dict, extra: dict, card: str
         key = kernel_model(wl).key
         retry_kernel(device, idx, key, wl, cfg, plan, lat, RETRY_SEEDS, RETRY_STEPS,
                      RETRY_PLAIN_SEEDS, True, results, paths, extra, card)
+        # 51.2's histories (1,088 rows a seed) are judged on the card by the
+        # device screens of its two checkers (held equal to them in 33)
+        judge = (dict(device_check=shardkv_screens()) if pin == "sk"
+                 else dict(history_invariant=invs[pin]))
         t = time.perf_counter()
         rep, counts = path_launches(lambda: search_seeds(
             wl, cfg, None, n_seeds=RETRY_SEEDS, max_steps=RETRY_STEPS, plan=plan, latency=lat,
-            metrics=True, require_halt=False, history_invariant=invs[pin], device=device))
+            metrics=True, require_halt=False, device=device, **judge))
         search_ms = (time.perf_counter() - t) * 1e3
         paths[key][f"search_retry_{idx}"] = run_drain(counts, key)
         got = retry_counts(rep)
@@ -3372,7 +3426,7 @@ def retry_clean_phase(device, results: list, paths: dict, extra: dict, card: str
                                  f"{int(rep.overflowed.sum())} overflowed; the JAX package's "
                                  f"{RETRY_PINS[pin]}")
         extra[key][f"retry_search_ms_{idx}"] = search_ms
-        log(f"[{idx}] search_seeds with the history invariant, {RETRY_SEEDS} seeds: launches "
+        log(f"[{idx}] search_seeds with {'the device screens' if 'device_check' in judge else 'the history invariant'}, {RETRY_SEEDS} seeds: launches "
             f"{counts}; {got[0]} violations, {got[1]} re-sent attempts, {got[2]} give-ups, "
             f"traces {got[3]} (the JAX package's); {search_ms:.1f} ms (host clock)")
 
@@ -3533,6 +3587,10 @@ EXPLORE_KV_KW = dict(pool_size=192, loss_p=0.05)
 EXPLORE_RL_KW = dict(pool_size=128, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
 EXPLORE_RL_STEPS = 6000
 EXPLORE_HELD = 64
+# phases 55-56 hold their bred children to this many steps, not the
+# 4,000-step cap (the plain step on the card costs some 18 ms a step
+# there; EXPLORE_PINS hold the full-cap campaigns)
+EXPLORE_KV_HELD_STEPS = 1000
 EXPLORE_KV_RUN = dict(generations=8, batch=256, root_seed=7, max_steps=EXPLORE_KV_STEPS,
                       cov_words=EXPLORE_CW, max_ops=1, inherit_seed_p=0.9)
 EXPLORE_SMALL_RUN = dict(EXPLORE_KV_RUN, generations=3, batch=64)
@@ -3699,7 +3757,7 @@ def held_generation(device, idx: str, key: str, wl, cfg, sweeps, g: int, cap: in
     rows = PlanRows(**{f: np.concatenate([getattr(h[1], f) for h in heads])
                        for f in ("time", "kind", "args", "valid", "node")})
     log(f"[{idx}] {key}: the first {len(seeds)} children of generation {g} held against "
-        f"the plain step on the card, {taps}")
+        f"the plain step on the card for at most {cap} steps, {taps}")
     r = kernel_phase(device, key, wl, cfg, len(seeds), cap, 0, REPEATS, seeds=seeds,
                      rows=rows, dup_rows=dup_rows, all_halt=False, taps=taps)
     if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
@@ -3855,7 +3913,7 @@ def explore_determinism_phase(device, results: list, paths: dict, kv: dict) -> N
         f"{counts}, {s_ms:.1f} ms host clock), trace {res.trace:#x}: the JAX package's; the "
         f"shrunk plan replays")
     held_generation(device, "55-56", key, wl, cfg, (kv["sweeps"], sweeps), 1,
-                    EXPLORE_KV_STEPS, dict(cov_words=EXPLORE_CW), results, paths)
+                    EXPLORE_KV_HELD_STEPS, dict(cov_words=EXPLORE_CW), results, paths)
 
 
 def explore_hunt_phase(device, results: list, paths: dict, extra: dict) -> None:
@@ -4695,6 +4753,361 @@ def lint_phase(device, paths: dict, extra: dict) -> None:
         f"{rep.diffs['trace']['chunk']})")
 
 
+# ---------------------------------------------------------------------------
+# phases 67-68: the store and latency soaks' guided hunts
+# ---------------------------------------------------------------------------
+
+# tools/store_soak.py certificate 4 (raftlog durable, record, nosync at the
+# store config, STORE_PLAN) and tools/latency_soak.py certificates 4-5
+# (the latency soak's army workload at pool 160 over the hunt_gray blip
+# space), their shapes, nothing cut
+STORE_HUNT_RUN = dict(generations=8, batch=256, root_seed=1031, max_steps=STORE_STEPS,
+                      cov_words=64, select_top=24, max_ops=2, inherit_seed_p=0.85,
+                      require_halt=False)
+SLO_HUNT_RUN = dict(generations=8, batch=256, root_seed=7, max_steps=LAT_STEPS, cov_words=64)
+SLO_Q, SLO_RING = 0.99, 4096
+# what the JAX package gives on the CPU for the same calls, printed by
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/_torch_hunt_pins.py
+# (violations, coverage bits, both curves, the first find's generation,
+# id, seed and trace, the replays' (trace equal, violation kept), the
+# shrink, the uniform side's (budget, worst window-p99 bucket, bound,
+# breaches) and the sha256 of each explain text)
+HUNT_PINS = {'store': {'viol': 705,
+           'bits': 1098,
+           'curve': [885, 972, 1022, 1059, 1069, 1077, 1081, 1098],
+           'viol_curve': [1, 4, 27, 152, 276, 409, 554, 705],
+           'first': (0, 34, 10636629163940057250, '0x7032cca88c216057'),
+           'replay': (True, True),
+           'kind': 'committed-value-loss',
+           'shrink': {'events': [(232728095, 0, 4, 0, 0),
+                                 (418142506, 1, 4, 0, 0),
+                                 (168363485, 2, 0, 1, 0),
+                                 (427471745, 3, 0, 1, 0),
+                                 (168363485, 2, 0, 2, 0),
+                                 (427471745, 3, 0, 2, 0),
+                                 (168363485, 2, 1, 3, 0),
+                                 (427471745, 3, 1, 3, 0),
+                                 (168363485, 2, 1, 4, 0),
+                                 (427471745, 3, 1, 4, 0),
+                                 (168363485, 2, 2, 3, 0),
+                                 (427471745, 3, 2, 3, 0),
+                                 (168363485, 2, 2, 4, 0),
+                                 (427471745, 3, 2, 4, 0),
+                                 (69712644, 253, 0, 0, 0),
+                                 (381066598, 254, 0, 0, 0),
+                                 (132316564, 253, 1, 0, 0),
+                                 (425163044, 254, 1, 0, 0)],
+                      'original': 32,
+                      'rounds': 8,
+                      'tested': 116,
+                      'trace': '0xec11f9e5d9f51598'},
+           'shrunk_replay': (True, True),
+           'explain': 'c7d986da41d300a1c9404860979d01ecc1d33e7934dba737eb72696b59ead2a3'},
+ 'slo': {'uniform': (2048, 47, 225726413, 0),
+         'viol': 1262,
+         'bits': 176,
+         'curve': [156, 174, 174, 174, 174, 176, 176, 176],
+         'viol_curve': [0, 3, 48, 287, 529, 773, 1017, 1262],
+         'first': (1, 19, 2505859882325233988, '0xefb58ae5f2ca3821'),
+         'shrink': {'events': [(216806840, 22, 45, 0, 3),
+                               (92620344, 22, 46, 0, 3),
+                               (145287155, 22, 47, 0, 3),
+                               (123946823, 22, 51, 0, 3),
+                               (8856170, 22, 52, 0, 3),
+                               (236661001, 22, 54, 0, 3),
+                               (112008222, 22, 62, 0, 3),
+                               (236468391, 22, 63, 0, 3),
+                               (198496023, 244, 3, 3073, 0)],
+                    'original': 66,
+                    'rounds': 18,
+                    'tested': 308,
+                    'trace': '0x77f739d62e526967'},
+         'replay': (True, True),
+         'narrates': (True, True),
+         'explain': 'a07a4412417d402e004a8b6b790f13d6640421ef2f2691e7f1a2793d62f9f75e'}}
+
+
+def taps_block(wl, cfg, **taps) -> str:
+    """The taps kernel's shared bytes a block at ``taps`` (the base seed
+    state rounded to 16 plus the taps tail, ``obs_tail_bytes``), and how
+    many such blocks an SM's 228 KB of shared memory holds (1 KB a block
+    reserved; registers may allow fewer)."""
+    from madsim_tpu_torch.engine.fused import KERNEL, kernel_model
+
+    occ = KERNEL.occupancy(kernel_model(wl), cfg.pool_size)
+    seed = occ["run_smem_bytes"] // occ["seeds_per_block"]
+    tail = obs_tail_bytes(wl.n_nodes, cfg.pool_size, **taps)
+    block = occ["seeds_per_block"] * ((seed + 15) // 16 * 16 + tail)
+    return (f"{taps}: {tail} B of taps a seed, {block} B shared a block, "
+            f"at most {(228 * 1024) // (block + 1024)} blocks an SM by shared memory (without: "
+            f"{occ['run_smem_bytes']} B, {occ['run_blocks_per_sm']})")
+
+
+def hunt_campaign_pins(rep) -> dict:
+    """A campaign's violations, coverage bits, curves and first find, as
+    tests/_torch_hunt_pins.py pins them."""
+    e = rep.violations[0] if rep.violations else None
+    return dict(viol=len(rep.violations), bits=rep.coverage_bits, curve=list(rep.curve),
+                viol_curve=list(rep.viol_curve),
+                first=(e.generation, e.id, int(e.seed), f"{int(e.trace):#x}") if e else None)
+
+
+def sha256(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def slo_space():
+    """``(workload, config, spec, space)`` of the latency soak's hunt:
+    its army workload at pool 160 over the ``hunt_gray`` blip space."""
+    from madsim_tpu_torch.chaos import FaultPlan, GrayFailure
+
+    wl, cfg, spec, clean, _gray = latency_soak()
+    blip = GrayFailure(targets=(0, 1, 2, 3), n_links=1, mult_min=4, mult_max=12,
+                       t_min_ns=20_000_000, t_max_ns=600_000_000, dur_min_ns=50_000_000,
+                       dur_max_ns=80_000_000)
+    return wl, cfg, spec, FaultPlan((*clean.specs, blip), name="slo-hunt")
+
+
+def store_hunt_phase(device, results: list, paths: dict, extra: dict) -> None:
+    """Phase 67 (the store soak's certificate 4): the missing-sync hunt
+    on the new taps build of raftlog-nosync-record at pool 128, every pin
+    the JAX package's: the campaign, its first violation's replay and
+    kind, its shrink, the shrunk plan's replay and the explain text; the
+    first 64 children of generation 1 held against the plain step."""
+    from madsim_tpu_torch import explore, obs
+    from madsim_tpu_torch.chaos import shrink_plan
+    from madsim_tpu_torch.engine import EngineConfig, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_raftlog
+
+    wl = make_raftlog(record=True, chaos=False, durable=True, bug="nosync")
+    cfg, plan, key = EngineConfig(**STORE_KW), store_plans()["store"], kernel_model(wl).key
+    t = time.perf_counter()
+    with RecordedSweeps(False) as sweeps:
+        hunt, counts = path_launches(lambda: explore.run(
+            wl, cfg, plan, history_invariant=store_inv({}), device=device, **STORE_HUNT_RUN))
+    h_ms = (time.perf_counter() - t) * 1e3
+    paths.setdefault(key, {})["explore_run"] = run_drain(counts, key)
+    got = hunt_campaign_pins(hunt)
+    e = hunt.violations[0]
+    box = {}
+    r = explore.replay_entry(wl, cfg, e, history_invariant=store_inv(box),
+                             max_steps=STORE_STEPS, device=device)
+    got["replay"] = (int(r.traces[0]) == e.trace, not bool(r.ok[0]))
+    got["kind"] = ("committed-value-loss" if not bool(box["commit"][0]) else
+                   "double-vote" if not bool(box["elect"][0]) else "recovery-regression")
+    t = time.perf_counter()
+    res, s_counts = path_launches(lambda: shrink_plan(
+        wl, cfg, e.seed, e.plan, history_invariant=store_inv({}), max_steps=STORE_STEPS,
+        device=device))
+    s_s = time.perf_counter() - t
+    paths[key]["explore_shrink"] = run_drain(s_counts, key)
+    got["shrink"] = shrunk_pins(res)
+    rs = search_seeds(wl, cfg, None, seeds=np.asarray([e.seed], np.uint64),
+                      max_steps=STORE_STEPS, history_invariant=store_inv({}), plan=res.plan,
+                      require_halt=False, device=device)
+    got["shrunk_replay"] = (int(rs.traces[0]) == res.trace, not bool(rs.ok[0]))
+    text, x_counts = path_launches(lambda: obs.explain(
+        wl, cfg, e.seed, plan=res.plan, history_invariant=store_inv({}), max_steps=STORE_STEPS,
+        max_events=24, device=device))
+    paths[key]["explain"] = run_drain(x_counts, key)
+    got["explain"] = sha256(text)
+    check_pins("67", got, HUNT_PINS["store"])
+    extra.setdefault(key, {}).update(store_hunt_ms=h_ms, store_shrink_s=s_s)
+    log(f"[67] the missing-sync hunt on {key} {STORE_HUNT_RUN}: launches {counts}; "
+        f"{got['viol']} violations, {got['bits']} bits, curves {got['curve']} "
+        f"{got['viol_curve']} ({h_ms:.1f} ms host clock); first find {got['first']}, "
+        f"{got['kind']}, replays; shrink {res.original_events} -> {len(res.events)} events "
+        f"in {res.rounds} rounds, {res.tested} probes (launches {s_counts}, {s_s:.2f} s "
+        f"wall), trace {res.trace:#x}, the shrunk plan replays the violation; explain "
+        f"sha256 {got['explain'][:16]}: the JAX package's")
+    log(f"  the taps kernel at pool {cfg.pool_size}: "
+        f"{taps_block(wl, cfg, cov_words=STORE_HUNT_RUN['cov_words'])}; explain's "
+        f"{taps_block(wl, cfg, timeline_cap=1024)}")
+    held_generation(device, "67", key, wl, cfg, sweeps, 1, STORE_STEPS,
+                    dict(cov_words=STORE_HUNT_RUN["cov_words"]), results, paths)
+
+
+def slo_hunt_phase(device, results: list, paths: dict, extra: dict) -> None:
+    """Phase 68 (the latency soak's certificates 4-5): the uniform sweep
+    of 2,048 calibrates the SLO at its worst window-p99 bucket with no
+    breach; the guided campaign on the new taps build of
+    kvchaos-army-nochaos at pool 160 breaches it; its first breach
+    shrunk, replayed and told by explain with a 4,096-row ring, every
+    pin the JAX package's; the first 64 children of generation 1 held
+    against the plain step."""
+    from madsim_tpu_torch import explore, obs
+    from madsim_tpu_torch.chaos import shrink_plan
+    from madsim_tpu_torch.check import slo_bounded, slo_breaches
+    from madsim_tpu_torch.engine import lat_bucket_hi, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+
+    wl, cfg, spec, space = slo_space()
+    key = kernel_model(wl).key
+    budget = SLO_HUNT_RUN["generations"] * SLO_HUNT_RUN["batch"]
+    t = time.perf_counter()
+    uni, counts = path_launches(lambda: search_seeds(
+        wl, cfg, lambda v: np.ones(v["halted"].shape[0], bool), plan=space, n_seeds=budget,
+        max_steps=LAT_STEPS, require_halt=False, latency=spec, device=device))
+    u_ms = (time.perf_counter() - t) * 1e3
+    paths.setdefault(key, {})["slo_uniform"] = run_drain(counts, key)
+    hist = np.asarray(uni.lat_hist)
+    qb = np.where(hist.sum(axis=-1) >= SLO_MIN_OPS, obs.hist_quantile_bucket(hist, SLO_Q), -1)
+    worst = int(qb.max())
+    bound = int(lat_bucket_hi(worst))
+    slo = slo_bounded(bound, q=SLO_Q, min_ops=SLO_MIN_OPS)
+    got = dict(uniform=(budget, worst, bound, int(slo_breaches(
+        hist, bound, q=SLO_Q, min_ops=SLO_MIN_OPS).sum())))
+    t = time.perf_counter()
+    with RecordedSweeps(False) as sweeps:
+        rep, counts = path_launches(lambda: explore.run(
+            wl, cfg, space, invariant=slo, latency=spec, device=device, **SLO_HUNT_RUN))
+    g_ms = (time.perf_counter() - t) * 1e3
+    paths[key]["explore_run"] = run_drain(counts, key)
+    got.update(hunt_campaign_pins(rep))
+    e = rep.violations[0]
+    t = time.perf_counter()
+    res, s_counts = path_launches(lambda: shrink_plan(
+        wl, cfg, e.seed, e.plan, invariant=slo, max_steps=LAT_STEPS, latency=spec,
+        device=device))
+    s_s = time.perf_counter() - t
+    paths[key]["explore_shrink"] = run_drain(s_counts, key)
+    got["shrink"] = shrunk_pins(res)
+    import dataclasses
+
+    r = explore.replay_entry(wl, cfg, dataclasses.replace(e, plan=res.plan), invariant=slo,
+                             max_steps=LAT_STEPS, latency=spec, device=device)
+    got["replay"] = (int(r.traces[0]) == res.trace, not bool(r.ok[0]))
+    text, x_counts = path_launches(lambda: obs.explain(
+        wl, cfg, e.seed, plan=res.plan, invariant=slo, max_steps=LAT_STEPS,
+        timeline_cap=SLO_RING, latency=spec, device=device))
+    paths[key]["explain_ring"] = run_drain(x_counts, key)
+    got["narrates"] = ("--- latency:" in text and "p99<=" in text, "VIOLATED" in text)
+    got["explain"] = sha256(text)
+    check_pins("68", got, HUNT_PINS["slo"])
+    extra.setdefault(key, {}).update(slo_uniform_ms=u_ms, slo_hunt_ms=g_ms, slo_shrink_s=s_s)
+    log(f"[68] the SLO hunt on {key}: the uniform sweep of {budget} ({u_ms:.1f} ms host "
+        f"clock) reaches window-p99 bucket {worst}: SLO p99 <= {bound / 1e6:.2f} ms, "
+        f"{got['uniform'][3]} breaches; guided {SLO_HUNT_RUN}: launches {counts}, "
+        f"{got['viol']} breaches, {got['bits']} bits, curves {got['curve']} "
+        f"{got['viol_curve']} ({g_ms:.1f} ms host clock); first {got['first']}; shrink "
+        f"{res.original_events} -> {len(res.events)} events in {res.rounds} rounds, "
+        f"{res.tested} probes (launches {s_counts}, {s_s:.2f} s wall), trace {res.trace:#x}, "
+        f"replayed exactly with the breach; explain with a {SLO_RING}-row ring narrates "
+        f"{got['narrates']} (launches {x_counts}), sha256 {got['explain'][:16]}: the JAX "
+        f"package's")
+    log(f"  the taps kernel at pool {cfg.pool_size}: "
+        f"{taps_block(wl, cfg, cov_words=SLO_HUNT_RUN['cov_words'])}; explain's "
+        f"{taps_block(wl, cfg, timeline_cap=SLO_RING)}")
+    held_generation(device, "68", key, wl, cfg, sweeps, 1, LAT_STEPS,
+                    dict(cov_words=SLO_HUNT_RUN["cov_words"], latency=spec), results, paths)
+
+
+# ---------------------------------------------------------------------------
+# phase 69: the lint's campaign, flight and check axes through the kernel
+# ---------------------------------------------------------------------------
+
+# each campaign check: 2 generations of 256 (generation 1, bred, holds
+# the children), the explore soak's step caps
+AXES_RUN = dict(generations=2, batch=256, root_seed=7)
+AXES_CHECK_SEEDS = 2048
+
+
+def axes_phase(device, paths: dict, extra: dict) -> None:
+    """Phase 69: the JAX package's CAMPAIGN_AXES, FLIGHT_AXES and
+    CHECK_AXES rows as the port's dynamic checks, through the run kernel
+    (``make_run``) on the card, each with its live control reported:
+    sharded-campaign on kvchaos-army-nochaos 160 over the SLO-hunt space,
+    sharded-causal on kvchaos-bug-nochaos 192 over phase 55's crash storm,
+    each unsharded and on a one-card NCCL world; flight-campaign as the
+    first inside a FlightRecorder with its profiler on; device-check on
+    raftlog-nosync-record 128 (election and recovery safety) and on
+    kvchaos-bug-nochaos 192 (stale reads, read your writes)."""
+    import torch.distributed as dist
+
+    from madsim_tpu_torch import parallel
+    from madsim_tpu_torch.check import device as dc
+    from madsim_tpu_torch.engine import EngineConfig, make_init, make_run
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.lint import (CAMPAIGN_AXES, CHECK_AXES, FLIGHT_AXES, check_campaign,
+                                       check_noninterference, screens_verdict)
+    from madsim_tpu_torch.models import kvchaos, make_kvchaos, make_raftlog, raftlog
+
+    wl_a, cfg_a, _spec, space_a = slo_space()
+    bound = HUNT_PINS["slo"]["uniform"][2]
+
+    def slo_inv(v):
+        return ~dc.slo_breaches(v["lat_hist"], bound, q=SLO_Q, min_ops=2)
+
+    wl_k = make_kvchaos(writes=EXPLORE_KV_W, record=True, bug=True, chaos=False)
+    cfg_k = EngineConfig(**EXPLORE_KV_KW)
+    cases = (
+        ("sharded-campaign", wl_a, cfg_a, space_a, dict(invariant=slo_inv, reads=("lat_hist",)),
+         LAT_STEPS, CAMPAIGN_AXES["sharded-campaign"], kvchaos.ABSINT_HORIZON_NS),
+        ("sharded-causal", wl_k, cfg_k, kv_explore_plan(), dict(history_check=kv_screens()),
+         EXPLORE_KV_STEPS, CAMPAIGN_AXES["sharded-causal"], kvchaos.ABSINT_HORIZON_NS),
+        ("flight-campaign", wl_a, cfg_a, space_a, dict(invariant=slo_inv, reads=("lat_hist",)),
+         LAT_STEPS, FLIGHT_AXES["flight-campaign"], kvchaos.ABSINT_HORIZON_NS),
+    )
+    store = scratch_dir() / "axes_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh()
+        for axis, wl, cfg, space, judge, steps, flags, horizon in cases:
+            key = kernel_model(wl).key
+            for m in (None, mesh):
+                if axis == "flight-campaign" and m is None:
+                    continue
+                t = time.perf_counter()
+                rep, counts = path_launches(lambda: check_campaign(
+                    wl, cfg, space, max_steps=steps, run=make_run, mesh=m, horizon_ns=horizon,
+                    device=device, **judge, **AXES_RUN, **flags))
+                ms = (time.perf_counter() - t) * 1e3
+                tag = axis + ("" if m is None else "-mesh")
+                if not rep.ok:
+                    raise AssertionError(f"69 {tag} {key}: {rep.summary()}")
+                paths.setdefault(key, {})[f"axes_{tag}"] = run_drain(counts, key)
+                extra.setdefault(key, {})[f"axes_{tag}_ms"] = round(ms, 1)
+                log(f"[69] {tag} on {key} ({'the one-card NCCL world' if m else 'unsharded'}"
+                    f"): {rep.summary()}; controls {rep.controls}; campaign "
+                    f"{ {k: v for k, v in rep.parts['campaign'].items() if k != 'corpus_ids'} }; "
+                    f"launches {counts}; {ms:.1f} ms host clock")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    # device-check: the check axis on two record libraries with their screens
+    rl = make_raftlog(record=True, chaos=False, durable=True, bug="nosync")
+    checks = (
+        (rl, EngineConfig(**STORE_KW), store_plans()["store"], STORE_STEPS,
+         (dc.election_safety(raftlog.OP_COMMIT), dc.election_safety(raftlog.OP_ELECT),
+          dc.recovery_safety(raftlog.OP_SYNCED, raftlog.OP_RECOVER)),
+         raftlog.ABSINT_HORIZON_NS),
+        (wl_k, cfg_k, kv_explore_plan(), EXPLORE_KV_STEPS, kv_screens(),
+         kvchaos.ABSINT_HORIZON_NS),
+    )
+    seeds = np.arange(AXES_CHECK_SEEDS, dtype=np.uint64)
+    for wl, cfg, plan, steps, screens, horizon in checks:
+        key = kernel_model(wl).key
+        flags = CHECK_AXES["device-check"]
+        init_flags = {k: v for k, v in flags.items() if k != "check"}
+        st = make_init(wl, cfg, device=device, plan_slots=plan.slots, **init_flags)(
+            seeds, plan.compile_batch(seeds, wl=wl))
+        t = time.perf_counter()
+        rep, counts = path_launches(lambda: check_noninterference(
+            wl, cfg, run=make_run, seeds=st, n_steps=steps, horizon_ns=horizon,
+            verdict=screens_verdict(screens), **flags))
+        ms = (time.perf_counter() - t) * 1e3
+        if not rep.ok:
+            raise AssertionError(f"69 device-check {key}: {rep.summary()}")
+        paths.setdefault(key, {})["axes_device-check"] = run_drain(counts, key)
+        extra.setdefault(key, {})["axes_device-check_ms"] = round(ms, 1)
+        log(f"[69] device-check on {key} ({AXES_CHECK_SEEDS} seeds, {steps} steps, "
+            f"{plan.name}; screens {[s.kind for s in screens]}): {rep.summary()}; the control "
+            f"{rep.controls['verdict']}; launches {counts}; {ms:.1f} ms host clock")
+
+
 def farm_phases(device, paths: dict, extra: dict, lap) -> None:
     """Phases 60-65, each timed; their files are removed at the end."""
     import shutil
@@ -4865,6 +5278,12 @@ def main() -> int:
     farm_phases(device, paths, extra, lap)
     lint_phase(device, paths, extra)
     lap("phase 66")
+    store_hunt_phase(device, results, paths, extra)
+    lap("phase 67")
+    slo_hunt_phase(device, results, paths, extra)
+    lap("phase 68")
+    axes_phase(device, paths, extra)
+    lap("phase 69")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
                     shapes.get((key, r["pool"])))

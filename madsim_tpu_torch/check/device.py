@@ -639,13 +639,28 @@ def violation_cones(report, wl=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# the sketch's bucket edges, one copy per device: a device campaign's
+# judge calls the screen every generation, and a copy from pageable host
+# memory there would wait for the card
+_EDGES: dict = {}
+
+
+def _lat_edges(dev) -> torch.Tensor:
+    from ..engine.core import LAT_EDGES_NS, host_to_device
+
+    key = str(dev)
+    if key not in _EDGES:
+        _EDGES[key] = host_to_device(torch.from_numpy(LAT_EDGES_NS), dev)
+    return _EDGES[key]
+
+
 def slo_breaches(lat_hist, bound_ns: int, q: float = 0.99, min_ops: int = 16):
     """``check.slo.slo_breaches`` as torch ops on the sketches' device:
     (S, P, B) per-seed latency sketches -> (S,) bool, True where some
     window provably breaches (its quantile bucket's lower edge exceeds
     the bound), with the rank convention of
     ``obs.hist_quantile_bucket``."""
-    from ..engine.core import LAT_EDGES_NS, N_LAT_BUCKETS
+    from ..engine.core import N_LAT_BUCKETS
 
     if not 0.0 < q < 1.0:
         raise ValueError(f"q must be in (0, 1), got {q}")
@@ -663,7 +678,7 @@ def slo_breaches(lat_hist, bound_ns: int, q: float = 0.99, min_ops: int = 16):
     # the first bucket whose cumulative count reaches the rank
     bucket = (cum < rank[..., None]).sum(-1)
     bucket = torch.where(total > 0, bucket, -1)
-    edges = torch.from_numpy(LAT_EDGES_NS).to(h.device)
+    edges = _lat_edges(h.device)
     bc = bucket.clamp(min=0)
     lo = torch.where(bc <= 0, 0, edges[(bc - 1).clamp(0, N_LAT_BUCKETS - 2)])
     breach = (total >= min_ops) & (bucket >= 0) & (lo > int(bound_ns))

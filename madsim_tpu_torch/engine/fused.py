@@ -487,11 +487,13 @@ MODELS = {
             "raftlog-nosync-record", "raftlog-nosync-record", "model_raftlog.cuh",
             "madsim::RaftLogModel<true, false, true, true>", _RAFTLOG_STORE_SHAPE, (128,),
             _RAFTLOG_WORDS, (*_RAFTLOG_STORE, ("bug", "nosync")), sync=True,
+            obs_pools=(128,),
         ),
         KernelModel(
             "kvchaos-army-nochaos", "kvchaos-army", "model_kvchaos.cuh",
             "madsim::KvChaosModel<false, false, false, false, true, 2, 3>",
-            (4, 4, 2, 0, 6, 15, (), 0), (160,), _KV_WORDS, _KV_ARMY_SOAK, lat=1,
+            (4, 4, 2, 0, 6, 15, (), 0), (160,), _KV_WORDS, _KV_ARMY_SOAK, obs_pools=(160,),
+            lat=1,
         ),
         KernelModel(
             "kvchaos-record-army", "kvchaos-record-army", "model_kvchaos.cuh",

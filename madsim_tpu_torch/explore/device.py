@@ -613,10 +613,12 @@ class _Generation:
         ])
         return cr2, summary
 
-    def __call__(self, cr, g: int, rk0, rk1, breed: bool, mark=None):
+    def __call__(self, cr, g: int, rk0, rk1, breed: bool, mark=None, hook=None):
         mark = mark or (lambda _part: None)
         kids = self.breed(cr, g, rk0, rk1, mark) if breed else self.uniform(g, rk0, rk1, mark)
         view = self.sweep(kids["seed"], PlanRows(**{f: kids[f] for f in _ROW_KEYS}))
+        if hook is not None:
+            view = hook(g, kids, view)
         mark("sweep")
         out = dict(kids, **self.judge(view))
         mark("judge")
@@ -1225,6 +1227,7 @@ def run_device(
     history_check=None,
     causal: bool = False,
     device=None,
+    sweep_hook=None,
 ) -> ExploreReport:
     """Run one exploration campaign with every generation device-resident.
 
@@ -1267,6 +1270,12 @@ def run_device(
       resumability is worth the extra transfer.
     * ``device`` is where the campaign runs: the card unless the caller
       asks for the CPU.
+    * ``sweep_hook`` (default None: the campaign as it is) is called as
+      ``sweep_hook(g, children, view)`` after each generation's sweep,
+      with this rank's children (seeds and plan rows) and the final
+      state's tensor view, and returns the view the judge and the
+      admission read: the seam of ``lint.check_campaign``, which records
+      a generation's children and perturbs derived columns there.
 
     The per-generation host sync transfers only the admission summary;
     telemetry records carry the dispatch/compile/sync wall split,
@@ -1313,7 +1322,7 @@ def run_device(
             clock = _PartClock(sess.dev)
             before = sess.carry
             sess.carry, summary, extras = runner(
-                before, g, sess.rk0, sess.rk1, mark=clock.mark
+                before, g, sess.rk0, sess.rk1, mark=clock.mark, hook=sweep_hook
             )
             copy = sess.host_copy(before, sess.carry, summary, extras)
             t1 = _time.monotonic()  # lint: allow(wall-clock)

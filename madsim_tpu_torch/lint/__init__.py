@@ -17,6 +17,13 @@ the trajectory. Three checks hold that on the port:
   host build, with the core columns and the trace required to stay
   equal (the JAX package proves the same statically on jaxprs, which
   the port does not have).
+* the JAX package's other axes as dynamic checks with live controls:
+  :data:`CHECK_AXES` (``check_noninterference(verdict=...)``: a device
+  verdict reads the history columns and nothing else derived),
+  :data:`CAMPAIGN_AXES` and :data:`FLIGHT_AXES` (:func:`check_campaign`:
+  a campaign's children through its runner, unsharded and sharded, and
+  its outcome under perturbed final views, with and without the flight
+  recorder).
 * :func:`check_lanes` and :func:`check_ranges` — every draw site of the
   port resolved to its registered threefry lane with the right owner,
   and a state held to its column contracts at chunk boundaries.
@@ -37,12 +44,17 @@ from .absint import (  # noqa: F401
 )
 from .noninterference import (  # noqa: F401
     BUILD_AXES,
+    CAMPAIGN_AXES,
+    CHECK_AXES,
+    FLIGHT_AXES,
     NonInterferenceReport,
+    check_campaign,
     check_matrix,
     check_noninterference,
     model_matrix,
     perturb_derived,
     plant_met_leak,
+    screens_verdict,
 )
 from .rules import (  # noqa: F401
     DEFAULT_PATHS,
@@ -65,12 +77,17 @@ __all__ = [
     "check_ranges",
     "scan_draw_sites",
     "BUILD_AXES",
+    "CAMPAIGN_AXES",
+    "CHECK_AXES",
+    "FLIGHT_AXES",
     "NonInterferenceReport",
+    "check_campaign",
     "check_matrix",
     "check_noninterference",
     "model_matrix",
     "perturb_derived",
     "plant_met_leak",
+    "screens_verdict",
     "DEFAULT_PATHS",
     "RULES",
     "Finding",

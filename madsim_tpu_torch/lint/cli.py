@@ -7,12 +7,21 @@ does over the JAX package. The JAX package's ``--jaxpr`` and
 torch step and a CUDA kernel outside any graph), so its two smokes are
 dynamic and source-level instead:
 
-* ``--noninterference`` perturbs the derived columns of raft/record
-  (every tap), kvchaos/army (the latency tap) and raftlog/durable (the
-  storage columns core) within their contracts through the plain step
-  on the CPU, each model's contracts at its certification horizon
-  (``absint_entries()``), and requires the core columns and the trace
-  to stay equal (``lint.noninterference.check_matrix``);
+* ``--noninterference`` perturbs derived columns within their contracts
+  before every chunk of a run, each model's contracts at its
+  certification horizon (``absint_entries()``), and requires the core
+  columns and the trace to stay equal. It runs on the card unless
+  ``--device cpu`` asks for the CPU, and raises without a card. On the
+  card it goes through the run kernel (``engine.make_run``) on libraries
+  that have the build (:data:`CARD_SMOKE`: raft 40 with metrics and every
+  tap, raft-record 40, kvchaos-bug-nochaos 192 with metrics, a ring and
+  the causal axis under a crash storm, raftlog-durable-spread 64 with
+  the coverage taps, kvchaos-army-nochaos 160 with every tap and the
+  latency tap under its client army); a cell whose library lacks the
+  build raises. On the CPU it runs :data:`SMOKE` through the plain step:
+  raft/record (every tap), kvchaos/army (the latency tap) and
+  raftlog/durable (the storage columns core)
+  (``lint.noninterference.check_matrix``);
 * ``--lanes`` scans every draw site of the port and resolves it to its
   registered threefry lane, checks each lane's owner, the models'
   ``draw_purposes`` and the run kernel's purpose constants
@@ -35,15 +44,85 @@ SMOKE_SEEDS = 16
 SMOKE_STEPS = 120
 
 
-def smoke_reports() -> list:
-    """The ``--noninterference`` smoke's reports, on the CPU, each model
-    at its certification horizon."""
+# on the card: seeds a cell, and the cells (tag, steps, build flags):
+# libraries with the build, at their card phases' configs and step caps
+CARD_SEEDS = 1024
+
+
+def card_smoke() -> list:
+    """The card cells of the ``--noninterference`` smoke: ``(tag,
+    workload, config, plan or None, steps, build flags, horizon ns)``,
+    each a library the run kernel is built for at its pool, with the
+    taps where the library has the ``OBS`` build."""
+    from ..chaos import CrashStorm, FaultPlan, GrayFailure
+    from ..engine.core import EngineConfig, LatencySpec
+    from ..models import kvchaos, raft, raftlog
+
+    b2 = dict(clog_backoff_max_ns=2_000_000_000)
+    raft_cfg = EngineConfig(pool_size=40, loss_p=0.02, **b2)
+    taps = dict(cov_words=64, cov_hitcount=True, timeline_cap=256)
+    crash = FaultPlan((CrashStorm(targets=(1, 2, 3, 4), n=2, t_min_ns=20_000_000,
+                                  t_max_ns=400_000_000, down_min_ns=50_000_000,
+                                  down_max_ns=250_000_000),), name="kv-nemesis")
+    army = kvchaos.client_army(n_ops=64, t_min_ns=5_000_000, t_max_ns=500_000_000,
+                               n_replicas=2)
+    gray = FaultPlan((army, GrayFailure(targets=(0, 3), n_links=1, mult_min=8, mult_max=16,
+                                        t_min_ns=20_000_000, t_max_ns=250_000_000,
+                                        dur_min_ns=250_000_000, dur_max_ns=450_000_000)),
+                     name="army-gray")
+    return [
+        ("raft/taps", raft.make_raft(), raft_cfg, None, 600, dict(metrics=True, **taps),
+         raft.ABSINT_HORIZON_NS),
+        ("raft/record", raft.make_raft(record=True), raft_cfg, None, 600, {},
+         raft.ABSINT_HORIZON_NS),
+        ("kvchaos/bug-causal", kvchaos.make_kvchaos(writes=10, record=True, bug=True,
+                                                    chaos=False),
+         EngineConfig(pool_size=192, loss_p=0.05), crash, 4000,
+         dict(metrics=True, timeline_cap=128, causal=True), kvchaos.ABSINT_HORIZON_NS),
+        ("raftlog/durable-spread", raftlog.make_raftlog(durable=True, cov_spread=True),
+         EngineConfig(pool_size=64, loss_p=0.02, **b2), None, 4000,
+         dict(cov_words=64, cov_hitcount=True), raftlog.ABSINT_HORIZON_NS),
+        ("kvchaos/army-slo", kvchaos.make_kvchaos(writes=20, n_replicas=2, chaos=False,
+                                                  army=True, army_probes=3),
+         EngineConfig(pool_size=160, time_limit_ns=700_000_000), gray, 4000,
+         dict(metrics=True, latency=LatencySpec(ops=64, phases=2, phase_ns=1 << 28), **taps),
+         kvchaos.ABSINT_HORIZON_NS),
+    ]
+
+
+def smoke_reports(device=None) -> list:
+    """The ``--noninterference`` smoke's reports, each model at its
+    certification horizon: on the card (the default; raises without
+    one) through the run kernel over :func:`card_smoke`, on the CPU
+    (``device="cpu"``) through the plain step over :data:`SMOKE`."""
     import numpy as np
 
-    from .noninterference import check_matrix
+    from ..engine.core import make_init, make_run, resolve_device
+    from ..engine.fused import kernel_model
+    from .noninterference import check_matrix, check_noninterference
 
-    return check_matrix(SMOKE, seeds=np.arange(SMOKE_SEEDS, dtype=np.uint64),
-                        n_steps=SMOKE_STEPS, device="cpu")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return check_matrix(SMOKE, seeds=np.arange(SMOKE_SEEDS, dtype=np.uint64),
+                            n_steps=SMOKE_STEPS, device=dev)
+    reports = []
+    seeds = np.arange(CARD_SEEDS, dtype=np.uint64)
+    for tag, wl, cfg, plan, steps, flags, horizon in card_smoke():
+        spec = kernel_model(wl)
+        want_obs = any(flags.get(k) for k in ("cov_words", "timeline_cap", "causal"))
+        if cfg.pool_size not in spec.pools or (want_obs and
+                                               cfg.pool_size not in spec.obs_pools):
+            raise NotImplementedError(
+                f"lint --noninterference: {tag} needs the {spec.key} library at pool "
+                f"{cfg.pool_size}" + (" with the taps" if want_obs else "")
+                + "; it has no such build (ROADMAP queue B1)")
+        init = make_init(wl, cfg, device=dev, plan_slots=plan.slots if plan else 0, **flags)
+        st = init(seeds, plan.compile_batch(seeds, wl=wl)) if plan else init(seeds)
+        rep = check_noninterference(wl, cfg, run=make_run, seeds=st, n_steps=steps,
+                                    horizon_ns=horizon, **flags)
+        rep.flags["axis"] = tag
+        reports.append(rep)
+    return reports
 
 
 def main(argv=None) -> int:
@@ -54,8 +133,12 @@ def main(argv=None) -> int:
     ap.add_argument("paths", nargs="*",
                     help="files/directories to lint (default: the port's package)")
     ap.add_argument("--noninterference", action="store_true",
-                    help="also run the perturbation smoke (raft/record, kvchaos/army, "
-                         "raftlog/durable through the plain step)")
+                    help="also run the perturbation smoke (through the run kernel on the "
+                         "card; --device cpu: raft/record, kvchaos/army, raftlog/durable "
+                         "through the plain step)")
+    ap.add_argument("--device", default=None,
+                    help="where --noninterference runs: the card by default (raises "
+                         "without one), or cpu")
     ap.add_argument("--lanes", action="store_true",
                     help="also run the lane registry check over every draw site")
     ap.add_argument("--format", choices=("text", "json"), default="text",
@@ -69,7 +152,7 @@ def main(argv=None) -> int:
     from .rules import lint_paths, lint_repo
 
     result = lint_paths(args.paths) if args.paths else lint_repo()
-    reports = smoke_reports() if args.noninterference else []
+    reports = smoke_reports(args.device) if args.noninterference else []
     lanes = None
     if args.lanes:
         from .absint import check_lanes

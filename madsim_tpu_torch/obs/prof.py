@@ -435,8 +435,12 @@ def _is_pageable_dtoh(event: dict) -> bool:
 
 def _count_trace(trace: dict, out: SyncCount) -> None:
     events = [e for e in trace.get("traceEvents", []) if isinstance(e, dict)]
+    # the block's range on the host: the card's annotation of it lasts
+    # until the card has run its work, past the host's end, and would
+    # take in the profiler's own closing synchronisation
     marks = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-             if e.get("name") == _MARK and "ts" in e]
+             if e.get("name") == _MARK and "ts" in e
+             and str(e.get("cat", "")).lower() != "gpu_user_annotation"]
     if not marks:
         return
 

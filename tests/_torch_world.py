@@ -4,7 +4,7 @@ own process, and a spawned gloo world of several ranks, each rank a
 process of this file that runs :func:`world_cases` and, on rank 0,
 pickles what it got for the test to compare with the unsharded runs.
 
-    python tests/_torch_world.py SIZE RANK STORE OUT
+    python tests/_torch_world.py SIZE RANK STORE OUT [CASES]
 """
 
 import contextlib
@@ -38,15 +38,17 @@ def one_rank_world():
             dist.destroy_process_group()
 
 
-def spawn_world(size: int, timeout: float = 300.0) -> dict:
-    """Run :func:`world_cases` on a spawned gloo world of ``size`` ranks;
-    rank 0's results. Raises with every rank's output if one fails."""
+def spawn_world(size: int, timeout: float = 300.0, cases: str = "world_cases") -> dict:
+    """Run ``cases`` (a function of this file taking the mesh:
+    :func:`world_cases` by default) on a spawned gloo world of ``size``
+    ranks; rank 0's results. Raises with every rank's output if one
+    fails."""
     with tempfile.TemporaryDirectory(prefix="madsim_world_") as tmp:
         store, out = f"{tmp}/store", f"{tmp}/out.pkl"
         env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'tests'}",
                    OMP_NUM_THREADS="1")
         procs = [
-            subprocess.Popen([sys.executable, __file__, str(size), str(r), store, out],
+            subprocess.Popen([sys.executable, __file__, str(size), str(r), store, out, cases],
                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
             for r in range(size)
@@ -148,18 +150,33 @@ def world_cases(mesh) -> dict:
     return out
 
 
+def lint_axes_cases(mesh) -> dict:
+    """The sharded-campaign row of ``lint.CAMPAIGN_AXES`` on ``mesh``:
+    ``lint.check_campaign`` of a small raft-record campaign (the case of
+    ``tests/test_torch_lint_axes.py``), its report as a dict."""
+    from madsim_tpu_torch.lint import CAMPAIGN_AXES, check_campaign
+
+    from _torch_lint_axes import RAFT_CASE, raft_case
+
+    wl, cfg, plan, judge = raft_case()
+    rep = check_campaign(wl, cfg, plan, mesh=mesh, **judge, **RAFT_CASE,
+                         **CAMPAIGN_AXES["sharded-campaign"])
+    return {"report": rep.to_dict()}
+
+
 def main() -> None:
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     size, rank, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    cases = globals()[sys.argv[5] if len(sys.argv) > 5 else "world_cases"]
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=size,
                             rank=rank)
     try:
         from madsim_tpu_torch.parallel import make_mesh
 
-        got = world_cases(make_mesh(device="cpu"))
+        got = cases(make_mesh(device="cpu"))
         dist.barrier()
     finally:
         dist.destroy_process_group()

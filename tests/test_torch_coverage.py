@@ -230,7 +230,8 @@ def test_the_hooks_are_the_reference_workloads():
         "raftlog-durable-spread": (64,), "kvchaos-record-army": (72,),
         "raftlog-record-army": (96,), "kvchaos-bug-nochaos-dup": (192,),
         "raftlog-record-w16-nochaos": (192,), "shardkv-noidem-army-nochaos": (96,),
-        "raftlog-record-nochaos": (128,)}
+        "raftlog-record-nochaos": (128,), "raftlog-nosync-record": (128,),
+        "kvchaos-army-nochaos": (160,)}
     raft = tm.make_raft()
     for pool, taps in ((128, dict(cov_words=2)), (40, {})):
         st = tcore.make_init(raft, tcore.EngineConfig(pool_size=pool), device="cpu", **taps)(
