@@ -381,7 +381,20 @@ plain eager step:
    equal with every other derived column perturbed; every live control
    (the met leak around the runner, the guidance, the history columns)
    reported;
-70. one JSON line describing each kernel, with its launches on every
+70. the dual-mode raft hunt: the crash plan ``CrashStorm(targets=(0, 1,
+   2, 3, 4), n=2)`` over seeds 1-512. (a) its rows compiled on the card
+   (``compile_batch(device=True)``) are, seed by seed, the events of the
+   port's ``Nemesis`` inside a port ``Runtime`` and numpy's ``compile``;
+   (b) ``search_seeds`` runs raft-record at pool 64, loss 0.02, under the
+   plan through the run kernel (one run and one drain launch) with
+   ``election_safety`` as the history invariant; (c) on the host, the
+   port's copy of the raft KV example (``tests/_torch_raft_kv.py``) runs
+   each seed for 2 simulated seconds at 2% loss under ``Nemesis(plan)``
+   with a ``Recorder`` spy on election wins: every seed elects, every
+   nemesis log is its seed's compiled events, and the verdicts equal
+   (b)'s, all true; the kernel's ms (median of 5) and the runtime's wall
+   seconds and simulated seconds per wall second printed;
+71. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after) and its library's launch shape (the
    occupancy calculator's numbers and the registers of the kernels
@@ -5128,6 +5141,98 @@ def farm_phases(device, paths: dict, extra: dict, lap) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the dual-mode raft hunt (phase 70): seeds 1..DUAL_SEEDS, the engine's
+# step cap, the runtime's simulated seconds a seed
+DUAL_SEEDS, DUAL_STEPS, DUAL_SECONDS = 512, 600, 2.0
+
+
+def dual_mode_phase(device, paths: dict, card: str) -> None:
+    """Phase 70: one crash plan, both execution modes. The batched run
+    is raft-record on the card; the runtime side is the port's raft KV
+    application on the host, one ``Runtime`` a seed, with no torch work
+    inside a simulation."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import _torch_raft_kv as app
+    from _torch_dual import election_verdict, nemesis_events, raft_cluster, rows_events
+
+    import madsim_tpu_torch as ms
+    from madsim_tpu_torch.chaos import CrashStorm, FaultPlan
+    from madsim_tpu_torch.check import election_safety
+    from madsim_tpu_torch.engine import EngineConfig, make_init, make_run_while, search_seeds
+    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.models import make_raft
+    from madsim_tpu_torch.models.raft import OP_ELECT
+
+    t_phase = time.perf_counter()
+    plan = FaultPlan((CrashStorm(targets=(0, 1, 2, 3, 4), n=2),), name="dual-crash")
+    seeds = np.arange(1, DUAL_SEEDS + 1, dtype=np.uint64)
+    # (a) the card's compile, numpy's and the nemesis's, seed by seed
+    rows = plan.compile_batch(torch.as_tensor(seeds.astype(np.int64), device=device),
+                              device=True)
+    host_rows = plan.compile_batch(seeds)
+    compiled = [rows_events(rows, s) for s in range(DUAL_SEEDS)]
+    for s, seed in enumerate(seeds.tolist()):
+        if compiled[s] != rows_events(host_rows, s):
+            raise AssertionError(f"70a: seed {seed}: the card's rows are not numpy's")
+        if compiled[s] != nemesis_events(ms, plan, seed):
+            raise AssertionError(f"70a: seed {seed}: the nemesis's events are not the rows")
+    n_events = sum(len(c) for c in compiled)
+    # (b) the batched run through the run kernel
+    wl, cfg = make_raft(record=True), EngineConfig(pool_size=64, loss_p=0.02)
+    key = kernel_model(wl).key
+    box = {}
+
+    def inv(h):
+        box["ok"] = election_safety(h, elect_op=OP_ELECT)
+        box["count"] = h.count
+        return box["ok"]
+
+    rep, counts = path_launches(lambda: search_seeds(
+        wl, cfg, None, n_seeds=DUAL_SEEDS, seed_base=1, max_steps=DUAL_STEPS,
+        history_invariant=inv, plan=plan, device=device))
+    paths.setdefault(key, {})["dual_mode_hunt"] = run_drain(counts, key)
+    if run_drain(counts, key) != [1, 1] or len(counts) != 2:
+        raise AssertionError(f"70b: launched {counts}")
+    if rep.unhalted_seeds.size or rep.overflowed.any():
+        raise AssertionError(f"70b: {rep.unhalted_seeds.size} unhalted, "
+                             f"{int(rep.overflowed.sum())} overflowed")
+    engine = [bool(v) for v in box["ok"]]
+    st = make_init(wl, cfg, device=device, plan_slots=plan.slots)(seeds, host_rows)
+    run = make_run_while(wl, cfg, DUAL_STEPS)
+    kernel_ms = time_ms(lambda: run(st), REPEATS, device)
+    # (c) the runtime side on the host
+    t = time.perf_counter()
+    runtime, elections = [], 0
+    for s, seed in enumerate(seeds.tolist()):
+        out = raft_cluster(ms, app, seed, plan, seconds=DUAL_SECONDS)
+        if len(out["elect"]) == 0:
+            raise AssertionError(f"70c: seed {seed} elected no leader")
+        if [e[1:] for e in out["log"]] != compiled[s]:
+            raise AssertionError(f"70c: seed {seed}: nemesis log {out['log']}, "
+                                 f"compiled {compiled[s]}")
+        elections += len(out["elect"])
+        runtime.append(election_verdict(ms, out["elect"]))
+    wall = time.perf_counter() - t
+    if runtime != engine or not all(engine):
+        bad = [int(seeds[i]) for i in range(DUAL_SEEDS) if runtime[i] != engine[i] or not engine[i]]
+        raise AssertionError(f"70c: verdicts differ or fail at seeds {bad[:10]}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[70] dual-mode raft hunt, {plan.name} ({plan.hash()}), seeds 1-{DUAL_SEEDS}: "
+        f"(a) {n_events} events, the card's rows = numpy's = the nemesis's on every seed; "
+        f"(b) raft-record pool 64, loss 0.02, {DUAL_STEPS}-step cap, launches "
+        f"{paths[key]['dual_mode_hunt']}, engine elections {int(np.asarray(box['count']).sum())}, "
+        f"0 unhalted, 0 overflowed; (c) runtime elections {elections}, every nemesis log its "
+        f"compiled events; verdicts equal, all {DUAL_SEEDS} true")
+    log(f"  70 kernel (make_run_while, raft-record 64, {DUAL_SEEDS} seeds under the plan) "
+        f"median {spread(kernel_ms)} ms ({card})")
+    log(f"  70 runtime side: {wall:.3f} s wall for {DUAL_SEEDS} seeds x {DUAL_SECONDS} s "
+        f"simulated, {DUAL_SEEDS * DUAL_SECONDS / wall:.2f} simulated s per wall s on the "
+        f"host ({card})")
+    log(f"  70 phase wall {phase_s:.2f} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5284,6 +5389,8 @@ def main() -> int:
     lap("phase 68")
     axes_phase(device, paths, extra)
     lap("phase 69")
+    dual_mode_phase(device, paths, card)
+    lap("phase 70")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
                     shapes.get((key, r["pool"])))

@@ -16,7 +16,14 @@
 A ``ClientArmy`` may carry a ``RetryPolicy``: the engine then runs its
 timeout and backoff re-sends (``FaultPlan.retry_spec()`` is the build
 parameter, which ``search_seeds`` and ``shrink_plan`` derive from the
-plan). Not here yet: the asyncio runtime's ``Nemesis``.
+plan).
+
+* **Nemesis** (``chaos/nemesis.py``): the same plan on the single-seed
+  runtime, compiled for the runtime's seed into the same event list and
+  applied at the same virtual times through ``Handle.kill``/``restart``/
+  ``pause``/``resume``, ``NetSim`` (clogs, slow links, duplication),
+  ``Handle.set_clock_skew`` and ``FsSim`` (disk faults), so that one
+  workload faces one fault trajectory in both execution modes.
 """
 
 from .plan import (  # noqa: F401
@@ -37,6 +44,7 @@ from .plan import (  # noqa: F401
     kind_name,
     stack_plan_rows,
 )
+from .nemesis import Nemesis  # noqa: F401
 from .shrink import ShrinkResult, shrink_plan  # noqa: F401
 
 __all__ = [
@@ -50,6 +58,7 @@ __all__ = [
     "FlappingPartition",
     "GrayFailure",
     "LiteralPlan",
+    "Nemesis",
     "Partition",
     "PauseStorm",
     "RetryPolicy",

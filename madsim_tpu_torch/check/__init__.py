@@ -22,9 +22,12 @@ package's ``madsim_tpu.check`` does:
 The first three modules are copies of the JAX package's, which the port
 does not import; ``device.py`` ports its jnp screens to torch. The SLO
 checks (``slo.py``: ``slo_breaches`` and ``slo_bounded``) judge the
-latency sketches on numpy, ``device.slo_breaches`` as torch ops. Its
-``violation_cones`` and asyncio ``Recorder`` are not ported yet
-(ROADMAP.md).
+latency sketches on numpy, ``device.slo_breaches`` as torch ops.
+
+``recorder.py`` (:class:`Recorder`) records an application on the
+single-seed runtime (real coroutines, RPC, fs) in the same (op, key,
+arg, client, ok, t) rows, stamped with the runtime's virtual clock, so
+that the same checkers judge both execution modes.
 """
 
 from . import device  # noqa: F401
@@ -47,6 +50,7 @@ from .history import (  # noqa: F401
     Op,
 )
 from .linearize import LinResult, check_kv, check_register  # noqa: F401
+from .recorder import Recorder  # noqa: F401
 from .vectorized import (  # noqa: F401
     collapse_retries,
     election_safety,
@@ -77,6 +81,7 @@ __all__ = [
     "HistoryScreen",
     "LinResult",
     "Op",
+    "Recorder",
     "check_kv",
     "check_register",
     "device",

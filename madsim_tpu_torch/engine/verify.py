@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime.rand import DeterminismError
 from .core import (
     CAUSAL_STATE_FIELDS,
     LATENCY_FIELDS,
@@ -62,10 +63,6 @@ LAYOUT_FIELDS = (
 )
 # check_layouts holds the first this many seeds against the CPU
 CPU_SEEDS = 256
-
-
-class DeterminismError(RuntimeError):
-    """Raised when two runs that must agree diverge."""
 
 
 def _np(x) -> np.ndarray:

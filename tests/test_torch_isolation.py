@@ -30,7 +30,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys, madsim_tpu_torch, madsim_tpu_torch.engine.fused, "
         "madsim_tpu_torch.models, madsim_tpu_torch.check.device, "
         "madsim_tpu_torch.chaos, madsim_tpu_torch.explore, madsim_tpu_torch.obs, "
-        "madsim_tpu_torch.farm, madsim_tpu_torch.parallel, madsim_tpu_torch.lint\n"
+        "madsim_tpu_torch.farm, madsim_tpu_torch.parallel, madsim_tpu_torch.lint, "
+        "madsim_tpu_torch.runtime, madsim_tpu_torch.net, madsim_tpu_torch.fs, "
+        "madsim_tpu_torch.chaos.nemesis, madsim_tpu_torch.check.recorder\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'madsim_tpu' or m.startswith('madsim_tpu.')]\n"
         "print(bad)\n"
@@ -98,3 +100,16 @@ def test_workload_tables_round_trip():
     assert ir2.dtype == ir.dtype and vo2.dtype == vo.dtype
     np.testing.assert_array_equal(ir2, ir)
     np.testing.assert_array_equal(vo2, vo)
+
+
+def test_the_single_seed_layers_import_no_torch():
+    """The runtime, the network and filesystem simulators and the
+    Recorder hold no tensors: none of their modules imports torch (the
+    Nemesis reaches the engine's kind table, as its JAX twin does)."""
+    pat = re.compile(r"^\s*(from|import)\s+(torch|numpy\.|\.\.?engine)", re.M)
+    pkg = ROOT / "madsim_tpu_torch"
+    files = (sorted((pkg / "runtime").glob("*.py")) + sorted((pkg / "net").glob("*.py"))
+             + [pkg / "fs.py", pkg / "check" / "recorder.py"])
+    assert len(files) == 14 + 11 + 2
+    for f in files:
+        assert not pat.search(f.read_text()), f

@@ -75,9 +75,14 @@ def test_the_port_lints_clean_with_every_pragma_used():
     res = trules.lint_repo()
     assert res.n_files > 50
     assert res.ok, "\n".join(str(f) for f in res.findings)
-    # the checked allowlist: the port's telemetry walls, all of them live
+    # the checked allowlist: the port's telemetry walls, all of them live,
+    # and the single-seed runtime's two sites, the JAX package's own: the
+    # builder's default seed from real entropy and as_completed's dedup
     walls = [f for f in res.allowed if f.rule == "wall-clock"]
-    assert len(walls) == len(res.allowed) >= 26
+    others = sorted((f.rule, f.path) for f in res.allowed if f.rule != "wall-clock")
+    assert others == [("ambient-entropy", "madsim_tpu_torch/runtime/builder.py"),
+                      ("id-hash-branch", "madsim_tpu_torch/runtime/aio.py")]
+    assert len(walls) == len(res.allowed) - 2 >= 26
     assert {Path(f.path).parts[0] for f in res.allowed} == {"madsim_tpu_torch"}
 
 
