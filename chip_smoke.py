@@ -88,8 +88,8 @@ plain eager step:
    under its pause-storm and gray-failure plan; kvchaos-bug and
    kvchaos-record without their own chaos (``writes=10``, pool 192, loss
    0.05, 8,192 seeds) under the crash storm, and kvchaos-record under a
-   plan mixing every fault spec with ``dup_rows`` (cap 2,000, where its
-   plain step and CPU sample stop: 3 seeds never halt); paxos-record under
+   plan mixing every fault spec with ``dup_rows`` (cap 1,000, where its
+   plain step and CPU sample stop: some seeds never halt); paxos-record under
    its proposer crash storm and twophase-record under crash and
    duplication, with ``dup_rows`` and without (the flag set and stored,
    no shadow row sent), all at pool 96 and 8,192 seeds. Each is
@@ -266,7 +266,8 @@ plain eager step:
    taps kernel at pool 96, 32 coverage words, the latency tap, 3 x 128,
    root 14) and the causal soak's cone hunt (raftlog-record-w16-nochaos,
    pool 192, cap 20,000, 2 x 256, root 2024) as campaigns, each
-   campaign's violations, digest and first find pinned;
+   campaign's violations, digest and first find pinned; the cone hunt's
+   bred children held against the plain step to 300 steps;
 59. ``explore.run_device`` on raft at pool 64 (its new taps kernel) under
    the JAX package's device-test plan, 8 generations of 4,096, cap 600,
    16 coverage words; a second campaign with another root builds
@@ -363,8 +364,8 @@ plain eager step:
    breaches it; the first breach shrunk, replayed exactly and told by
    ``obs.explain`` with a 4,096-row ring and the tap (the percentiles and
    the verdict narrated): every pin the JAX package's; the first 64
-   children of generation 1 held against the plain step at the full
-   4,000-step cap (they halt within it);
+   children of generation 1 held against the plain step to 300 steps
+   (they halt within some 630);
 69. the lint's other three axes through the run kernel
    (``lint.check_campaign``, ``check_noninterference(verdict=...)``), the
    JAX package's flags: sharded-campaign on kvchaos-army-nochaos 160 over
@@ -394,7 +395,21 @@ plain eager step:
    nemesis log is its seed's compiled events, and the verdicts equal
    (b)'s, all true; the kernel's ms (median of 5) and the runtime's wall
    seconds and simulated seconds per wall second printed;
-71. one JSON line describing each kernel, with its launches on every
+71. the etcd lease convergence (``tests/_torch_lease.py``): three
+   clients hold a 5 s lease each and renew it every second, client 1
+   stops at 2 s. (a) leasekv-record without its own chaos, with
+   ``ka_stop_ms``, at 4,096 seeds, pool 48, loss 0, 140 steps, through
+   the run kernel, held as in phases 4-15 (every field against the plain
+   step on the card, the first 64 seeds on the CPU, the drain kernel
+   alone, the kernel's ms over 5 runs): on every seed lease 1 expires,
+   leases 2 and 3 survive, the watcher's events name lease 1 only, and
+   ``lease_safety`` holds on the card; (b) the port's etcd server and
+   three lease clients on one port ``Runtime`` a seed, seeds 1-256: each
+   seed's expired and surviving leases equal its card verdict, and the
+   expiry seconds lie in the window the CPU test fixed against the JAX
+   package; the host's wall seconds and simulated seconds per wall
+   second printed;
+72. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after) and its library's launch shape (the
    occupancy calculator's numbers and the registers of the kernels
@@ -485,11 +500,13 @@ NEMESIS_SEEDS = 8192
 NEMESIS_KV_WRITES = 10
 NEMESIS_KV_KW = dict(pool_size=192, loss_p=0.05)
 NEMESIS_STEPS = 4000
-# the mixed plan's runs (36.4, 38.6) stop at this cap, not the soak's: 3
-# of their seeds never halt, so the plain step on the card and both CPU
-# samples run to the cap (109.6, 69.1 and 57.6 s at 4,000 steps on an
-# NVIDIA H100 80GB HBM3, 700.00 W, and its host: PERF.md)
-MIXED_STEPS = 2000
+# the mixed plan's runs (36.4, 38.6) stop at this cap, not the soak's:
+# some of their seeds never halt, so the plain step on the card and both
+# CPU samples run to the cap (109.6, 69.1 and 57.6 s at 4,000 steps, and
+# 49.6 s and 14.7 s of the first two at 2,000, on an NVIDIA H100 80GB
+# HBM3, 700.00 W, and its host: PERF.md); every fault kind has struck
+# well before 1,000 (38.6's counters)
+MIXED_STEPS = 1000
 # what the JAX package's run of tools/nemesis_soak.py 8192 on the CPU
 # gives: the lost-write catches of the model's own schedule and of the
 # plan; the first failing seed under the plan, its shrink (events kept
@@ -3604,6 +3621,10 @@ EXPLORE_HELD = 64
 # 4,000-step cap (the plain step on the card costs some 18 ms a step
 # there; EXPLORE_PINS hold the full-cap campaigns)
 EXPLORE_KV_HELD_STEPS = 1000
+# phase 58 holds the cone hunt's bred children to this many steps, not
+# to halt (some 1,100 steps, 35 ms a step of the plain step on the card;
+# EXPLORE_PINS hold the full-cap campaign)
+CONE_HELD_STEPS = 300
 EXPLORE_KV_RUN = dict(generations=8, batch=256, root_seed=7, max_steps=EXPLORE_KV_STEPS,
                       cov_words=EXPLORE_CW, max_ops=1, inherit_seed_p=0.9)
 EXPLORE_SMALL_RUN = dict(EXPLORE_KV_RUN, generations=3, batch=64)
@@ -4034,7 +4055,7 @@ def explore_soak_hunts_phase(device, results: list, paths: dict) -> None:
     check_pins("58 cone hunt", got, EXPLORE_PINS["cone"])
     log(f"[58] the cone hunt on {key} {EXPLORE_CONE_RUN}: launches {counts}; {got} (the JAX "
         f"package's; {ms:.1f} ms host clock)")
-    held_generation(device, "58", key, wl, cfg, sweeps, 1, HUNT_STEPS,
+    held_generation(device, "58", key, wl, cfg, sweeps, 1, CONE_HELD_STEPS,
                     dict(cov_words=EXPLORE_CW), results, paths)
 
 
@@ -4778,6 +4799,9 @@ STORE_HUNT_RUN = dict(generations=8, batch=256, root_seed=1031, max_steps=STORE_
                       cov_words=64, select_top=24, max_ops=2, inherit_seed_p=0.85,
                       require_halt=False)
 SLO_HUNT_RUN = dict(generations=8, batch=256, root_seed=7, max_steps=LAT_STEPS, cov_words=64)
+# phase 68 holds its bred children to this many steps, not to halt (some
+# 630 steps, 33 ms a step of the plain step on the card with the taps)
+SLO_HELD_STEPS = 300
 SLO_Q, SLO_RING = 0.99, 4096
 # what the JAX package gives on the CPU for the same calls, printed by
 #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/_torch_hunt_pins.py
@@ -5012,7 +5036,7 @@ def slo_hunt_phase(device, results: list, paths: dict, extra: dict) -> None:
     log(f"  the taps kernel at pool {cfg.pool_size}: "
         f"{taps_block(wl, cfg, cov_words=SLO_HUNT_RUN['cov_words'])}; explain's "
         f"{taps_block(wl, cfg, timeline_cap=SLO_RING)}")
-    held_generation(device, "68", key, wl, cfg, sweeps, 1, LAT_STEPS,
+    held_generation(device, "68", key, wl, cfg, sweeps, 1, SLO_HELD_STEPS,
                     dict(cov_words=SLO_HUNT_RUN["cov_words"], latency=spec), results, paths)
 
 
@@ -5233,6 +5257,80 @@ def dual_mode_phase(device, paths: dict, card: str) -> None:
     log(f"  70 phase wall {phase_s:.2f} s ({card})")
 
 
+# the etcd lease convergence (phase 71): the card's seeds and the host
+# side's seeds 1..LEASE_HOST_SEEDS (some 30 ms each on a CPU core)
+LEASE_SEEDS, LEASE_HOST_SEEDS = 4096, 256
+
+
+def lease_phase(device, results: list, paths: dict, card: str) -> None:
+    """Phase 71: one lease scenario, both execution modes. The batched
+    run is leasekv-record without its own chaos on the card; the host
+    side is the port's etcd server and three lease clients, one
+    ``Runtime`` a seed, with no torch work inside a simulation."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import _torch_lease as lease
+
+    import madsim_tpu_torch as ms
+    from madsim_tpu_torch.check.device import lease_safety
+    from madsim_tpu_torch.check.history import OK_FAIL, OK_OK
+    from madsim_tpu_torch.engine import EngineConfig
+    from madsim_tpu_torch.engine.fused import MODELS, kernel_model
+    from madsim_tpu_torch.models.leasekv import OP_EXPIRE, OP_PUT, OP_WATCH_EVT, make_leasekv
+
+    t_phase = time.perf_counter()
+    wl = make_leasekv(**lease.FACTORY_KW)
+    cfg = EngineConfig(pool_size=lease.POOL, loss_p=0.0)
+    key = kernel_model(wl).key
+    log(f"[71] etcd lease convergence: {key}, {lease.FACTORY_KW}, pool {lease.POOL}, loss 0, "
+        f"{LEASE_SEEDS} seeds, {lease.STEPS} steps")
+    box = {}
+
+    def verdicts(device, _wl, _cfg, _cap, _st, out, _med):
+        box["safe"] = screened((lease_safety(OP_PUT, OP_EXPIRE),), out)
+        box["card"] = lease.card_verdicts(out.hist_word.cpu().numpy(),
+                                          out.hist_count.cpu().numpy(), OP_EXPIRE,
+                                          OP_WATCH_EVT, OK_OK, OK_FAIL)
+
+    # (a) the card
+    r = kernel_phase(device, key, wl, cfg, LEASE_SEEDS, lease.STEPS, CPU_SAMPLE, REPEATS,
+                     extras=verdicts, all_halt=False)
+    if r["launches"] != 1 or r["drains"] != 1 or r["err"] != 0:
+        raise AssertionError(f"71a: launches {r['launches']}, {r['drains']}; error {r['err']}")
+    if not box["safe"].all():
+        raise AssertionError(f"71a: lease_safety fails on {int((~box['safe']).sum())} seeds")
+    card_v = box["card"]
+    bad = [s for s, v in enumerate(card_v)
+           if v[:2] != ([1], [2, 3]) or v[3] != [1]]
+    if bad:
+        raise AssertionError(f"71a: seeds {bad[:10]}: {[card_v[s] for s in bad[:3]]}")
+    results.append((key, f"make_run_fused/{key}", f"madsim_tpu_torch/csrc/{MODELS[key].header}",
+                    r))
+    paths[key] = {"lease_convergence": [r["launches"], r["drains"]]}
+    # (b) the host
+    t = time.perf_counter()
+    host_v = {seed: lease.host_verdict(lease.lease_cluster(ms, seed))
+              for seed in range(1, LEASE_HOST_SEEDS + 1)}
+    wall = time.perf_counter() - t
+    for seed, hv in host_v.items():
+        why = lease.check_seed(card_v[seed], hv)
+        if why is not None:
+            raise AssertionError(f"71b: seed {seed}: {why}")
+    secs = sorted({(tuple(v[2]), tuple(card_v[seed][2])) for seed, v in host_v.items()})
+    phase_s = time.perf_counter() - t_phase
+    log(f"  71 verdicts: card seeds 0-{LEASE_SEEDS - 1} all lease 1 expired, 2 and 3 alive, "
+        f"the watcher's events name lease 1 only, lease_safety true; host seeds "
+        f"1-{LEASE_HOST_SEEDS} equal to the card's; (host, card) expiry seconds {secs}; "
+        f"window host {lease.HOST_EXPIRY_S}, card minus host {lease.CARD_MINUS_HOST_S}")
+    log(f"  71 kernel ({key} {lease.POOL}, {LEASE_SEEDS} seeds, {lease.STEPS} steps) median "
+        f"{spread(r['ms_all'])} ms ({card})")
+    log(f"  71 host side: {wall:.3f} s wall for {LEASE_HOST_SEEDS} seeds x {lease.END_S} s "
+        f"simulated, {LEASE_HOST_SEEDS * lease.END_S / wall:.2f} simulated s per wall s "
+        f"({card})")
+    log(f"  71 phase wall {phase_s:.2f} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5391,6 +5489,8 @@ def main() -> int:
     lap("phase 69")
     dual_mode_phase(device, paths, card)
     lap("phase 70")
+    lease_phase(device, results, paths, card)
+    lap("phase 71")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
                     shapes.get((key, r["pool"])))

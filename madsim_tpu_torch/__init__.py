@@ -14,6 +14,16 @@ Layout:
 * ``net/`` — the simulated network (``NetSim``, ``Endpoint``, RPC and
   ``@service``, TCP, UDP, Unix sockets, asyncio streams).
 * ``fs.py`` — the simulated per-node filesystem (``FsSim``).
+* ``sync`` — the runtime's channels (oneshot, mpsc, watch, broadcast)
+  and primitives (``Mutex``, ``RwLock``, ``Semaphore``, ``Notify``,
+  ``Barrier``).
+* ``compat`` — the asyncio surface that dispatches per call between the
+  simulation and the real asyncio (``compat.asyncio``, ``install()``).
+* ``std`` — the real backend: wall-clock time, the OS filesystem, the
+  TCP ``Endpoint`` and the native transports (epoll, shared memory,
+  io_uring), built with g++ from ``native/``.
+* ``services`` — the etcd, gRPC and Kafka simulators, each a drop-in
+  that runs in a simulation or over real TCP (``services/_dual.py``).
 * ``engine`` — ``SimState``, ``make_init``, the plain eager step and
   the runners (``make_run``, ``make_run_while``, seed compaction, seed
   search, measurement, the determinism checks, checkpoints and the
@@ -94,6 +104,7 @@ from .runtime import (  # noqa: F401
 # simulators on every Runtime (reference runtime/mod.rs:62-64).
 from . import fs  # noqa: E402,F401
 from . import net  # noqa: E402,F401
+from . import sync  # noqa: E402,F401
 from .fs import FsSim  # noqa: F401
 from .net import Endpoint, NetSim, TcpListener, TcpStream, UdpSocket  # noqa: F401
 

@@ -11,14 +11,20 @@
 // the army=True variant: three more handlers open the watcher to a
 // chaos.ClientArmy, each op a PROBES-round session of read-only probes
 // against the server, its invoke and completion marked for the latency
-// tap (L = 1 marker row a call).
+// tap (L = 1 marker row a call). CHAOS = false is the variant without
+// the model's own kill and restart (chaos=False): on_init emits four
+// rows and draws nothing. Its library takes a sixth word, ka_stop_ms:
+// client 1 stalls its keepalives once its own clock passes that many
+// ms (a word past any clock, as engine/fused.py passes for None, never
+// stalls).
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD = false, bool BUG = false, bool ARMY = false, int PROBES = 1>
+template <bool RECORD = false, bool BUG = false, bool ARMY = false, int PROBES = 1,
+          bool CHAOS = true>
 struct LeaseKvModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
   static_assert(PROBES >= 1, "an op takes at least one probe round");
@@ -37,12 +43,14 @@ struct LeaseKvModel {
 
   struct Params {
     int32_t puts, ttl_ms;
-    int64_t ka_ns, scan_ns, put_ns;
+    int64_t ka_ns, scan_ns, put_ns, ka_stop_ms;
   };
-  // words: puts, ttl_ms, ka_ms, scan_ms, put_ms
+  // words: puts, ttl_ms, ka_ms, scan_ms, put_ms, and without CHAOS
+  // ka_stop_ms
   static Params params(const int64_t* w) {
     return Params{static_cast<int32_t>(w[0]), static_cast<int32_t>(w[1]),
-                  w[2] * 1000000, w[3] * 1000000, w[4] * 1000000};
+                  w[2] * 1000000, w[3] * 1000000, w[4] * 1000000,
+                  CHAOS ? INT64_MAX : w[5]};
   }
 
   static constexpr int32_t K_GRANT = FIRST_USER_KIND + 1;
@@ -125,7 +133,7 @@ struct LeaseKvModel {
         em[1].after(is_client, p.ka_ns, K_KA_T, c.node);
         em[2].after(is_client, p.put_ns, K_PUT_T, c.node);
         em[3].after(c.node == SERVER, p.scan_ns, K_SCAN, SERVER);
-        if (c.node == WATCHER) {  // the seed's chaos schedule
+        if (CHAOS && c.node == WATCHER) {  // the seed's chaos schedule
           const int32_t who = static_cast<int32_t>(c.user_int(1, 1 + C, P_KILL_WHO));
           const int64_t at = c.user_int(20000000, 300000000, P_KILL_AT);
           const int64_t revive = c.user_int(100000000, 600000000, P_REVIVE);
@@ -146,7 +154,9 @@ struct LeaseKvModel {
         break;
       }
       case 3: {  // on_ka_t, the keepalive timer at a client
-        em[0].to(st[0] > 0, SERVER, K_KEEPALIVE, c.node);
+        // client 1 stalls once its own clock passes ka_stop_ms
+        const bool stalled = !CHAOS && c.node == 1 && local_ms(c.now) >= p.ka_stop_ms;
+        em[0].to(st[0] > 0 && !stalled, SERVER, K_KEEPALIVE, c.node);
         em[1].after(true, p.ka_ns, K_KA_T, c.node);
         break;
       }

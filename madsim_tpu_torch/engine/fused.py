@@ -10,7 +10,8 @@ group of G lanes (``GROUP``). The engine step is generic
 is a model trait with its handlers as device code (``csrc/model_*.cuh``),
 listed in :data:`MODELS` by library key (the factories' default and
 record variants, and the ``chaos=False`` variants that fault plans
-drive, some built with the duplication rows of ``dup_rows``). Any
+drive, some built with the duplication rows of ``dup_rows``, and
+leasekv-record's whose client may stall its keepalives). Any
 other workload, or a registered one at another shape, raises
 ``NotImplementedError`` on a CUDA state.
 
@@ -297,6 +298,15 @@ _KV_ARMY_SOAK = (("n_replicas", 2), ("chaos", False), ("payload", False), ("reco
 _KV_ARMY_GOLDEN = (*_KV_FIXED, ("record", True), ("bug", False), ("army", True),
                    ("army_probes", 2))
 _LEASE_ARMY = (*_LEASE_FIXED, ("record", False), ("army", True), ("army_probes", 1))
+# leasekv-record without its own chaos, whose client 1 may stall its
+# keepalives: the etcd lease convergence (tests/test_leasekv.py's
+# dual-mode scenario) at the soak's pool; ka_stop_ms is a word, and
+# None passes NO_WORD
+_LEASE_NOCHAOS = (("n_clients", 3), ("chaos", False), ("record", True), ("bug", False),
+                  ("army", False))
+# a runtime word whose parameter is None: past any clock a trait compares
+# it with
+NO_WORD = (1 << 63) - 1
 _RAFTLOG_W16_SHAPE = (5, 24, 4, 16, 7, 8, (0, 1), 16)
 _RAFTLOG_W16 = (("n_nodes", 5), ("n_writes", 16), ("chaos", False), ("durable", False),
                 ("cov_spread", False))
@@ -513,6 +523,12 @@ MODELS = {
             (48,), _LEASE_WORDS, _LEASE_ARMY, lat=1,
         ),
         KernelModel(
+            "leasekv-record-nochaos", "leasekv-record", "model_leasekv.cuh",
+            "madsim::LeaseKvModel<true, false, false, 1, false>",
+            (5, 6, 2, 0, 6, 15, (), 3), (48,), (*_LEASE_WORDS, "ka_stop_ms"),
+            _LEASE_NOCHAOS,
+        ),
+        KernelModel(
             "shardkv-record-army-nochaos", "shardkv-record-army", "model_shardkv.cuh",
             "madsim::ShardKvModel<true, false, false, true, 1>",
             (14, 17, 3, 0, 6, 18, (), 1), (96,), _SHARD_WORDS, _SHARD_ARMY, lat=1,
@@ -667,7 +683,8 @@ def config_words(wl: Workload, cfg: EngineConfig) -> tuple:
     return (
         cfg.lat_min_ns, cfg.lat_max_ns, cfg.loss_u32, cfg.proc_min_ns,
         cfg.proc_max_ns, cfg.clog_backoff_min_ns, cfg.clog_backoff_max_ns,
-        cfg.time_limit_ns, _history_capacity(wl), *(int(p[w]) for w in spec.words),
+        cfg.time_limit_ns, _history_capacity(wl),
+        *(NO_WORD if p[w] is None else int(p[w]) for w in spec.words),
     )
 
 

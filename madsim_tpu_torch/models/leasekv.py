@@ -23,8 +23,10 @@ grant-after-expiry: a keepalive on an expired lease resurrects it with
 no grant record, so later puts are served through a lease the history
 says is dead.
 
-``ka_stop_ms`` (client 1 stalls its keepalives) and ``chaos=False`` run
-on the CPU; the kernel carries the default, record and bug variants.
+``ka_stop_ms`` (client 1 stalls its keepalives) needs ``chaos=False``
+on the card: the kernel carries the default, record, bug and army
+variants with the model's own chaos, and ``record=True, chaos=False``
+with any ``ka_stop_ms`` or none (the library leasekv-record-nochaos).
 ``army=True`` opens the watcher as an open-loop client surface
 (``client_army``): each op marks its invoke, runs ``army_probes``
 read-only probe rounds against the server and marks its completion.

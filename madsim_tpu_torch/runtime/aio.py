@@ -4,7 +4,7 @@ deterministically inside the simulator.
 The reference achieves "user code unchanged" by swapping tokio for the
 simulator at build time (``--cfg madsim``; madsim-tokio re-exports the
 sim, madsim-tokio/src/lib.rs:4-52). Python has no build-time cfg swap,
-and the JAX package's compat shim (``compat.asyncio``) still requires
+and the compat shim (:mod:`madsim_tpu_torch.compat.asyncio`) still requires
 changing an import. This module closes the remaining gap at the
 *event-loop seam* instead: while the executor polls a simulated task,
 asyncio's thread-local running-loop slot (``_set_running_loop`` — the
@@ -40,7 +40,7 @@ Semantics notes (parity choices, not accidents):
   scheduler is).
 * Out-of-simulation asyncio is untouched: the running-loop slot is set
   only around simulated-task polls, so the std backends' real loops
-  (the JAX package's std/net.py) are unaffected.
+  (std/net.py) are unaffected.
 """
 
 from __future__ import annotations

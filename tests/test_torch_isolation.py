@@ -32,7 +32,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "madsim_tpu_torch.chaos, madsim_tpu_torch.explore, madsim_tpu_torch.obs, "
         "madsim_tpu_torch.farm, madsim_tpu_torch.parallel, madsim_tpu_torch.lint, "
         "madsim_tpu_torch.runtime, madsim_tpu_torch.net, madsim_tpu_torch.fs, "
-        "madsim_tpu_torch.chaos.nemesis, madsim_tpu_torch.check.recorder\n"
+        "madsim_tpu_torch.chaos.nemesis, madsim_tpu_torch.check.recorder, "
+        "madsim_tpu_torch.sync, madsim_tpu_torch.compat, madsim_tpu_torch.std, "
+        "madsim_tpu_torch.std.fastpath, madsim_tpu_torch.std.uring, "
+        "madsim_tpu_torch.services, madsim_tpu_torch.services.grpc_codegen\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'madsim_tpu' or m.startswith('madsim_tpu.')]\n"
         "print(bad)\n"
@@ -103,13 +106,16 @@ def test_workload_tables_round_trip():
 
 
 def test_the_single_seed_layers_import_no_torch():
-    """The runtime, the network and filesystem simulators and the
-    Recorder hold no tensors: none of their modules imports torch (the
+    """The runtime, the network and filesystem simulators, the Recorder,
+    ``sync``, ``compat``, the real backend ``std`` and the service
+    simulators hold no tensors: none of their modules imports torch (the
     Nemesis reaches the engine's kind table, as its JAX twin does)."""
     pat = re.compile(r"^\s*(from|import)\s+(torch|numpy\.|\.\.?engine)", re.M)
     pkg = ROOT / "madsim_tpu_torch"
     files = (sorted((pkg / "runtime").glob("*.py")) + sorted((pkg / "net").glob("*.py"))
-             + [pkg / "fs.py", pkg / "check" / "recorder.py"])
-    assert len(files) == 14 + 11 + 2
+             + [pkg / "fs.py", pkg / "check" / "recorder.py", pkg / "sync.py"]
+             + sorted((pkg / "compat").glob("*.py")) + sorted((pkg / "std").glob("*.py"))
+             + sorted((pkg / "services").glob("*.py")))
+    assert len(files) == 14 + 11 + 3 + 2 + 8 + 7
     for f in files:
         assert not pat.search(f.read_text()), f

@@ -217,6 +217,11 @@ def test_registry_shapes_equal_the_factories():
     assert all(fused.kernel_model(w).key == key and fused.MODELS[key].lat == w.lat_markers == 1
                for key, w in army.items())
     made += army.values()
+    # the etcd lease convergence's library: chaos-free leasekv-record
+    # whose client 1 stalls its keepalives (ka_stop_ms, a runtime word)
+    stalled = SOAK_SPECS["leasekv"][0](chaos=False, record=True, ka_stop_ms=2000)
+    assert fused.kernel_model(stalled).key == "leasekv-record-nochaos"
+    made.append(stalled)
     assert sorted({w.name for w in made}) == sorted(
         {m.name for m in fused.MODELS.values()})
     for wl in made:

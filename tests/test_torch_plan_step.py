@@ -324,7 +324,8 @@ def test_the_registry_refuses_what_it_does_not_build():
                                           "raftlog-record-w16-nochaos",
                                           "kvchaos-record-army-r2-nochaos",
                                           "shardkv-noidem-army-nochaos",
-                                          "raftlog-record-nochaos"})
+                                          "raftlog-record-nochaos",
+                                          "leasekv-record-nochaos"})
     for key, spec in fused.MODELS.items():
         assert key.startswith(spec.name) or (key, spec.name) in (
             ("raft", "raft-election"), ("raft-record", "raft-election-record"),
