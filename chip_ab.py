@@ -1,6 +1,7 @@
 """Time ``chip_smoke.py`` of another checkout and of this one in one call.
 
-    python3 chip_ab.py OTHER_DIR [--pairs N KEYS] [--obs-pairs N] [CARD_TESTS ...]
+    python3 chip_ab.py OTHER_DIR [--no-smoke] [--pairs N KEYS] [--obs-pairs N] [--sass]
+                       [CARD_TESTS ...]
 
 Runs ``python3 chip_smoke.py`` from the root of ``OTHER_DIR`` (for
 example the parent commit unpacked by ``git archive`` into a directory
@@ -21,11 +22,16 @@ taps to the other's: each library without latency markers that both
 sides build must have the same registers for its run kernels without
 the taps and its drain kernel, and the same launch shape (shared bytes
 and blocks per SM) at every pool; the libraries with markers, which
-carry the client-retry timers, are printed where they differ. With test files after it, it then runs them with ``python3 -m pytest -m cuda --noconftest``
+carry the client-retry timers, are printed where they differ.
+``--no-smoke`` leaves out the two ``chip_smoke.py`` runs and that
+comparison. ``--sass`` builds every registered library on both sides
+and compares each one's machine code (``cuobjdump -sass``), every line
+but the kernels' names and the symbols instructions name, which carry
+the unit's anonymous namespace and the trait's template arguments. With test files after it, it then runs them with ``python3 -m pytest -m cuda --noconftest``
 (the card tests). The full outputs go to ``build/ab/other.log``,
 ``build/ab/this.log``, ``build/ab/pair_<side>_<i>.log`` and
 ``build/ab/card_tests.log``; the summary is the last lines. Exits
-non-zero if any of them failed.
+non-zero if any of them failed. Both sides' ``[time]`` lines close the summary.
 """
 
 from __future__ import annotations
@@ -188,32 +194,88 @@ def compare_base_kernels() -> int:
     return 1 if bad or not held else 0
 
 
+# each side's registered libraries, built (or found) by its own package
+BUILD_ALL = ("import sys; sys.path.insert(0, '.'); "
+             "from madsim_tpu_torch.engine.fused import MODELS, build_libraries; "
+             "r = build_libraries(list(MODELS.values())); "
+             "print('\\n'.join(f'LIB {k} {p}' for k, (p, _l) in r.items()))")
+# a kernel's name line in cuobjdump -sass, and the unit's path lines;
+# a symbol an instruction names
+SASS_NAME = re.compile(r"Function : |identifier|\.cu\b")
+SASS_SYMBOL = re.compile(r"`\([^)]*\)")
+
+
+def sass_lines(path: Path) -> list:
+    """A library's machine code, every line but the kernels' names and the
+    unit's path, with the symbols instructions name left out."""
+    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    return [SASS_SYMBOL.sub("`(symbol)", line) for line in text.splitlines()
+            if not SASS_NAME.search(line)]
+
+
+def compare_sass(other: Path) -> int:
+    """0 when every registered library that both sides build has the same
+    machine code but for its kernels' names."""
+    libs = {}
+    for side, root in (("other", other), ("this", ROOT)):
+        out = subprocess.run([sys.executable, "-c", BUILD_ALL], cwd=root, capture_output=True,
+                             text=True, check=True).stdout
+        libs[side] = {line.split()[1]: Path(line.split()[2]) for line in out.splitlines()
+                      if line.startswith("LIB ")}
+    both = sorted(set(libs["other"]) & set(libs["this"]))
+    bad = []
+    for key in both:
+        a, b = sass_lines(libs["other"][key]), sass_lines(libs["this"][key])
+        if a != b:
+            bad.append(key)
+        print(f"sass {key}: {'equal' if a == b else 'DIFFER'} ({len(b)} lines, "
+              f"{sum(1 for x, y in zip(a, b) if x != y)} differ)", flush=True)
+    print(f"sass: {len(both) - len(bad)} of {len(both)} libraries equal but for the "
+          f"kernels' names" + (f"; differ: {bad}" if bad else ""), flush=True)
+    return 1 if bad or not both else 0
+
+
 def main() -> int:
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     other, rest = Path(sys.argv[1]).resolve(), sys.argv[2:]
-    n_pairs, keys, n_obs = 0, "", 0
-    if rest[:1] == ["--pairs"]:
-        n_pairs, keys, rest = int(rest[1]), rest[2], rest[3:]
-    if rest[:1] == ["--obs-pairs"]:
-        n_obs, rest = int(rest[1]), rest[2:]
+    n_pairs, keys, n_obs, smoke, sass = 0, "", 0, True, False
+    while rest[:1] and rest[0].startswith("--"):
+        flag, rest = rest[0], rest[1:]
+        if flag == "--pairs":
+            n_pairs, keys, rest = int(rest[0]), rest[1], rest[2:]
+        elif flag == "--obs-pairs":
+            n_obs, rest = int(rest[0]), rest[1:]
+        elif flag == "--no-smoke":
+            smoke = False
+        elif flag == "--sass":
+            sass = True
+        else:
+            print(__doc__, file=sys.stderr)
+            return 2
     tests = rest
     OUT.mkdir(parents=True, exist_ok=True)
-    rcs = [run("other", [sys.executable, "chip_smoke.py"], other),
-           run("this", [sys.executable, "chip_smoke.py"], ROOT)]
-    rcs.append(compare_base_kernels())
+    rcs = []
+    if smoke:
+        rcs += [run("other", [sys.executable, "chip_smoke.py"], other),
+                run("this", [sys.executable, "chip_smoke.py"], ROOT)]
+        rcs.append(compare_base_kernels())
     if n_pairs:
         rcs += pairs(other, n_pairs, keys)
     if n_obs:
         rcs += obs_pairs(other, n_obs)
+    if sass:
+        rcs.append(compare_sass(other))
     if tests:
         rcs.append(run("card_tests", [sys.executable, "-m", "pytest", "-m", "cuda",
                                       "--noconftest", "-q", "-p", "no:cacheprovider", *tests],
                        ROOT))
-    for line in (OUT / "this.log").read_text().splitlines():
-        if line.startswith("[time]"):
-            print(line)
+    for side in ("other", "this") if smoke else ():
+        for line in (OUT / f"{side}.log").read_text().splitlines():
+            if line.startswith("[time]"):
+                print(f"{side} {line}")
     return 0 if not any(rcs) else 1
 
 

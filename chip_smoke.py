@@ -12,7 +12,8 @@ plain eager step:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. builds every model's kernel library from ``madsim_tpu_torch/csrc``
-   with nvcc, one process per model, all started together, and prints
+   with nvcc, one process per library (the registered ones and phase
+   72's), all started together, and prints
    each kernel's registers and stack frame, and per pool its lanes per
    seed (G), seeds per block, shared bytes per block and resident
    blocks per SM (the card's occupancy calculator);
@@ -178,7 +179,7 @@ plain eager step:
    ``make_run_compacted``, each digest equal to ``ARMY_GOLDENS`` (this
    script's copy of ``tests/_step_goldens.py``); each of the two
    libraries then held as phases 4-15 at 4,096 seeds under its
-   scenario;
+   scenario, to 300 steps;
 46. leasekv-army and shardkv-record-army-nochaos under their client
    armies (a crash storm, and the retry soak's gray failure without its
    policy) at 8,192 seeds with the tap, held as phases 4-15; then the
@@ -204,7 +205,8 @@ plain eager step:
    closed; then certificate 3's hunt shape on the new library
    raftlog-record-w16-nochaos (16 writes, pool 192, 2,048 seeds, cap
    20,000, an 8,192-row ring; G = 32), held as phases 4-15 on the first
-   128 seeds, searched with election safety on OP_COMMIT and OP_ELECT:
+   128 seeds to 300 steps, searched to 20,000 with election safety on
+   OP_COMMIT and OP_ELECT:
    the JAX package's 43 flagged seeds, and each of the first 8 seeds'
    cone cut at its conflicting COMMIT, the best (seed 137, 142 of 589
    rows) at or under 0.25 of its ring;
@@ -409,7 +411,20 @@ plain eager step:
    expiry seconds lie in the window the CPU test fixed against the JAX
    package; the host's wall seconds and simulated seconds per wall
    second printed;
-72. one JSON line describing each kernel, with its launches on every
+72. factory variants off the registry, each through a library derived
+   from its workload (``engine/fused.py`` ``FAMILIES``) and built in
+   phase 2 beside the registered ones: raft with 3 nodes (pool 40) and
+   7 (pool 96) at 65,536 seeds, broadcast with 4 nodes and no partition
+   (16,384), the kvchaos army at its defaults under a 16-op army with a
+   retry policy and the latency tap (pool 64, 4,096), paxos with 3
+   durable acceptors (96), shardkv with 3 groups of 5 (64), leasekv with
+   5 clients and client 1's keepalive stall under its own chaos (48),
+   raftlog durable and recording with its chaos (16,384), and raft with
+   every tap at pool 512 (65,536; 8 seeds a block, not 16). Each is one
+   ``make_run_while`` (one run and one drain launch, counted), its first
+   64 seeds held per field against the plain step on the CPU, the drain
+   kernel alone against its plain version, timed (median of 5);
+73. one JSON line describing each kernel, with its launches on every
    path above (each path driven with the counts set to 0 just before
    it and read just after) and its library's launch shape (the
    occupancy calculator's numbers and the registers of the kernels
@@ -1150,7 +1165,8 @@ def launch_shape(spec, pool: int, card: str = "") -> str:
                              f"BASE_SHAPES has {base}")
     if min(o["run_blocks_per_sm"], o["drain_blocks_per_sm"], o["met_blocks_per_sm"]) < 1:
         raise AssertionError(f"{spec.key} at pool {pool}: no block fits an SM: {o}")
-    return (f"G {o['group']}, {o['seeds_per_block']} seeds per block of 128 threads; "
+    return (f"G {o['group']}, {o['seeds_per_block']} seeds per block of "
+            f"{o['group'] * o['seeds_per_block']} threads; "
             f"run kernel {o['run_smem_bytes']} B shared per block, "
             f"{o['run_blocks_per_sm']} blocks per SM; drain kernel "
             f"{o['drain_smem_bytes']} B, {o['drain_blocks_per_sm']} blocks per SM; run kernel "
@@ -2264,7 +2280,7 @@ def obs_main_path_phase(device, results: list, paths: dict, extra: dict, card: s
     equal to phase 4's run, the kernel's ms beside phase 4's."""
     from madsim_tpu_torch.engine import OBS_FIELDS, STATE_FIELDS, make_init, make_run_while
     from madsim_tpu_torch.engine.convert import field_to_numpy
-    from madsim_tpu_torch.engine.fused import KERNEL, kernel_model
+    from madsim_tpu_torch.engine.fused import KERNEL, kernel_model, obs_bytes
 
     wl, cfg, n, cap = spec_of("raft", {})
     log(f"[40] raft with metrics and {OBS_TAPS}: {n} seeds, make_run_while cap {cap}")
@@ -2304,24 +2320,11 @@ def obs_main_path_phase(device, results: list, paths: dict, extra: dict, card: s
         st = make_init(wl, cfg, device=device, **taps)(seeds)
         run = make_run_while(wl, cfg, cap, **taps)
         ms = time_ms(lambda: run(st), REPEATS, device)
-        tail = obs_tail_bytes(wl.n_nodes, cfg.pool_size, **taps)
+        tail = obs_bytes(wl.n_nodes, cfg.pool_size, **taps)
         block = occ["seeds_per_block"] * ((seed_bytes + 15) // 16 * 16 + tail)
         extra["raft"][f"obs_{label}_ms"] = statistics.median(ms)
         log(f"  {taps}: kernel ms {spread(ms)}; {tail} B of taps a seed, {block} B shared "
             f"a block (without: {occ['run_smem_bytes']})")
-
-
-def obs_tail_bytes(n_nodes: int, pool: int, cov_words: int = 0, cov_hitcount: bool = False,
-                   timeline_cap: int = 0, causal: bool = False) -> int:
-    """A seed's shared bytes for the taps (csrc/engine_step.cuh
-    ``obs_layout``): with the ring the pool's emit times and its two
-    counters, with the causal axis the pool's parent seqs and clocks and
-    the nodes' clocks, with coverage the bitmap, the nodes' last kinds
-    and the hit counters; rounded up to 16."""
-    b = (pool * 8 + 8 if timeline_cap else 0) + (pool * 8 + n_nodes * 4 if causal else 0) + (
-        cov_words * 4 + n_nodes * 4 + (cov_words * 32 if cov_hitcount else 0)
-        if cov_words else 0)
-    return (b + 15) // 16 * 16
 
 
 def coverage_phase(device, results: list, paths: dict, extra: dict, repro: tuple) -> None:
@@ -2539,10 +2542,11 @@ GOLDEN_MET_SLOTS = 16
 GOLDEN_SKIP = ("lam", "ev_parent", "ev_lam", "tl_seq", "tl_parent", "tl_lam",
                "rt_done", "rt_attempt", "rt_deadline")
 # phase 45 holds each golden library at this many seeds (the plain step
-# on the card on the first GOLDEN_PLAIN_SEEDS) under its scenario
+# on the card on the first GOLDEN_PLAIN_SEEDS) under its scenario, for
+# at most GOLDEN_CAP steps (its digests take the goldens' own 240)
 GOLDEN_HELD_SEEDS = 4096
 GOLDEN_PLAIN_SEEDS = 512
-GOLDEN_CAP = 2000
+GOLDEN_CAP = 300
 
 
 def latency_soak():
@@ -2860,7 +2864,9 @@ ARROW_HELD_SEEDS = 1024
 # 192, loss 0.02, clog backoff at most 2 s, 20,000 steps, an 8,192-row
 # ring, 2,048 seeds of the fixed hunt plan (phase 58 runs the JAX tool's
 # campaign over it); the plain step on the card holds the first 128 seeds
-HUNT_SEEDS, HUNT_PLAIN_SEEDS, HUNT_CPU_SAMPLE = 2048, 128, 8
+# to HUNT_STEPS, every field and the search's flags, and no CPU sample
+# runs that deep
+HUNT_SEEDS, HUNT_PLAIN_SEEDS, HUNT_CPU_SAMPLE = 2048, 128, 0
 HUNT_KW = dict(pool_size=192, loss_p=0.02, clog_backoff_max_ns=2_000_000_000)
 HUNT_STEPS, HUNT_CAP, CONE_BAR = 20000, 8192, 0.25
 HUNT_CONES = 8  # flagged seeds whose cone is cut at a conflicting COMMIT
@@ -2938,7 +2944,7 @@ def causal_kv_phase(device, results: list, paths: dict, extra: dict, card: str) 
     from madsim_tpu_torch.engine import (
         CAUSAL_STATE_FIELDS, STATE_FIELDS, EngineConfig, make_init, make_run_while, search_seeds,
     )
-    from madsim_tpu_torch.engine.fused import kernel_model
+    from madsim_tpu_torch.engine.fused import kernel_model, obs_bytes
     from madsim_tpu_torch.models import make_kvchaos
     from madsim_tpu_torch.obs import fleet_reduce
 
@@ -2977,7 +2983,7 @@ def causal_kv_phase(device, results: list, paths: dict, extra: dict, card: str) 
     paths[key]["run_while_causal"] = [r["launches"], r["drains"]]
     extra.setdefault(key, {}).update(causal_off_ms=statistics.median(off["ms"]),
                                      causal_off_ms_all=off["ms"])
-    tail = {c: obs_tail_bytes(wl.n_nodes, cfg.pool_size, timeline_cap=128, causal=c)
+    tail = {c: obs_bytes(wl.n_nodes, cfg.pool_size, timeline_cap=128, causal=c)
             for c in (False, True)}
     extra[key].update(causal_tail_bytes=tail[True] - tail[False])
     log(f"  kernel median {r['ms']:.4f} ms with the axis, {statistics.median(off['ms']):.4f} "
@@ -3148,8 +3154,7 @@ def cones_phase(device, results: list, paths: dict, extra: dict, kv: dict) -> No
         device_check=screens, require_halt=False, device=device, **taps))
     search_ms = (time.perf_counter() - t) * 1e3
     paths[key]["search_cones"] = run_drain(counts, key)
-    ref = box[key]
-    plain = np.nonzero(~screened(screens, ref))[0]
+    plain = np.nonzero(~screened(screens, box[key]))[0]
     if (tuple(int(i) for i in rep.flagged_idx) != HUNT_FLAGGED
             or not np.array_equal(rep.flagged_idx[rep.flagged_idx < HUNT_PLAIN_SEEDS], plain)):
         raise AssertionError(f"49.2: flagged {rep.flagged_idx.tolist()}; the JAX package's "
@@ -4869,11 +4874,11 @@ def taps_block(wl, cfg, **taps) -> str:
     state rounded to 16 plus the taps tail, ``obs_tail_bytes``), and how
     many such blocks an SM's 228 KB of shared memory holds (1 KB a block
     reserved; registers may allow fewer)."""
-    from madsim_tpu_torch.engine.fused import KERNEL, kernel_model
+    from madsim_tpu_torch.engine.fused import KERNEL, kernel_model, obs_bytes
 
     occ = KERNEL.occupancy(kernel_model(wl), cfg.pool_size)
     seed = occ["run_smem_bytes"] // occ["seeds_per_block"]
-    tail = obs_tail_bytes(wl.n_nodes, cfg.pool_size, **taps)
+    tail = obs_bytes(wl.n_nodes, cfg.pool_size, **taps)
     block = occ["seeds_per_block"] * ((seed + 15) // 16 * 16 + tail)
     return (f"{taps}: {tail} B of taps a seed, {block} B shared a block, "
             f"at most {(228 * 1024) // (block + 1024)} blocks an SM by shared memory (without: "
@@ -5331,6 +5336,154 @@ def lease_phase(device, results: list, paths: dict, card: str) -> None:
     log(f"  71 phase wall {phase_s:.2f} s ({card})")
 
 
+# phase 72: factory variants off the registry, each through a library
+# derived from its workload (engine/fused.py FAMILIES) and built with
+# the registered ones in phase 2; the first VARIANT_SAMPLE seeds held
+# against the plain step on the CPU
+VARIANT_SAMPLE = 64
+VARIANT_LAT = dict(ops=16, phases=3, phase_ns=1 << 27)
+VARIANT_TAPS = dict(cov_words=64, cov_hitcount=True, timeline_cap=256)
+
+
+def variant_cases() -> list:
+    """Phase 72's variants: ``(index, factory call, workload, config,
+    seeds, make_run_while cap, plan, taps)``, each at the width of its
+    family's earlier phase (raft 4, broadcast 7, raftlog 10, paxos 13,
+    leasekv 14, shardkv 15, the kvchaos army at the retry soak's policy)."""
+    from madsim_tpu_torch.chaos import FaultPlan, RetryPolicy
+    from madsim_tpu_torch.engine import EngineConfig, LatencySpec
+    from madsim_tpu_torch.models import (
+        kvchaos, make_broadcast, make_kvchaos, make_leasekv, make_paxos, make_raft,
+        make_raftlog, make_shardkv,
+    )
+
+    clog = dict(clog_backoff_max_ns=2_000_000_000)
+    pol = RetryPolicy(timeout_ns=50_000_000, max_attempts=3, backoff_base_ns=10_000_000,
+                      backoff_mult=2.0, jitter=0.5)
+    army = FaultPlan((kvchaos.client_army(n_ops=VARIANT_LAT["ops"], t_min_ns=5_000_000,
+                                          t_max_ns=280_000_000, retry=pol),),
+                     name="kv-army-retry")
+    return [
+        ("72.1", "make_raft(n_nodes=3)", make_raft(n_nodes=3),
+         EngineConfig(pool_size=40, loss_p=0.02, **clog), 65536, 600, None, {}),
+        ("72.2", "make_raft(n_nodes=7)", make_raft(n_nodes=7),
+         EngineConfig(pool_size=96, loss_p=0.02, **clog), 65536, 600, None, {}),
+        ("72.3", "make_broadcast(n_nodes=4, partition=False)",
+         make_broadcast(n_nodes=4, partition=False),
+         EngineConfig(pool_size=40, loss_p=0.05, **clog), 16384, 500, None, {}),
+        ("72.4", "make_kvchaos(army=True)", make_kvchaos(army=True),
+         EngineConfig(pool_size=64, loss_p=0.02, **clog), 4096, 900, army,
+         dict(latency=LatencySpec(**VARIANT_LAT), retry=army.retry_spec())),
+        ("72.5", "make_paxos(n_acceptors=3, durable_acceptors=True)",
+         make_paxos(n_acceptors=3, durable_acceptors=True),
+         EngineConfig(pool_size=96, loss_p=0.02), 4096, 400, None, {}),
+        ("72.6", "make_shardkv(n_groups=3, group_size=5)",
+         make_shardkv(n_groups=3, group_size=5),
+         EngineConfig(pool_size=64, loss_p=0.02, **clog), 4096, 6000, None, {}),
+        ("72.7", "make_leasekv(n_clients=5, ka_stop_ms=2000)",
+         make_leasekv(n_clients=5, ka_stop_ms=2000),
+         EngineConfig(pool_size=48, loss_p=0.02, **clog), 4096, 4000, None, {}),
+        ("72.8", "make_raftlog(durable=True, record=True)",
+         make_raftlog(durable=True, record=True),
+         EngineConfig(pool_size=64, loss_p=0.02, **clog), 16384, 4000, None, {}),
+        ("72.9", "make_raft() with every tap", make_raft(),
+         EngineConfig(pool_size=512, loss_p=0.02, **clog), 65536, 600, None,
+         dict(VARIANT_TAPS)),
+    ]
+
+
+def lib_taps(taps: dict) -> dict:
+    """The taps that pick a library's instantiation (``fused.library_for``)."""
+    return {k: v for k, v in taps.items()
+            if k in ("cov_words", "cov_hitcount", "timeline_cap", "causal")}
+
+
+def variant_specs() -> list:
+    """The libraries phase 72 launches, for phase 2's one parallel build."""
+    from madsim_tpu_torch.engine.fused import library_for
+
+    return [library_for(wl, cfg.pool_size, **lib_taps(taps))
+            for _i, _c, wl, cfg, _n, _cap, _plan, taps in variant_cases()]
+
+
+def variants_phase(device, results: list, paths: dict, shapes: dict, builds: dict,
+                   card: str) -> None:
+    """Phase 72: each variant once through ``make_run_while`` on the card
+    (one run and one drain launch of its derived library, the counts set
+    to 0 just before and read just after), every field of the first
+    VARIANT_SAMPLE seeds against the plain step on the CPU (``plain_head``:
+    until they halt, then ``drain_plain``), the stop-at-halt counts
+    against the plain run's seed-steps, the drain kernel alone against
+    its plain version, the kernel's ms (median of 5) and the bound's
+    terms; into the kernels line with its launch shape."""
+    from madsim_tpu_torch.engine import make_init, make_run_while
+    from madsim_tpu_torch.engine.fused import KERNEL, halt_counts, library_for
+
+    t_phase = time.perf_counter()
+    for idx, call, wl, cfg, n, cap, plan, taps in variant_cases():
+        spec = library_for(wl, cfg.pool_size, **lib_taps(taps))
+        key, pool = spec.key, cfg.pool_size
+        seeds = np.arange(n, dtype=np.uint64)
+        init = make_init(wl, cfg, device=device, plan_slots=plan.slots if plan else 0, **taps)
+        st = init(seeds, plan.compile_batch(seeds, wl=wl)) if plan else init(seeds)
+        log(f"[{idx}] {call}: library {key} ({spec.cxx}, G {spec.group}, {spec.threads} "
+            f"threads a block), pool {pool}, loss {cfg.loss_p}, {n} seeds, make_run_while cap "
+            f"{cap}" + (f", plan {plan.name} ({plan.hash()})" if plan else "")
+            + (f", {taps}" if taps else ""))
+        log(f"  pool {pool}: {launch_shape(spec, pool, card)}")
+        run = make_run_while(wl, cfg, cap, **taps)
+        torch.cuda.synchronize()
+        KERNEL.reset()
+        out = run(st)
+        torch.cuda.synchronize()
+        launches, drains = KERNEL.counts.get(key, 0), KERNEL.counts.get(f"{key}/drain", 0)
+        if (launches, drains) != (1, 1) or set(KERNEL.counts) != {key, f"{key}/drain"}:
+            raise AssertionError(f"{idx}: launches {KERNEL.counts}, want {key} [1, 1]")
+        n_steps = int(out.step[0])
+        if not bool((out.step == n_steps).all()):
+            raise AssertionError(f"{idx}: seeds disagree on the step count")
+        n_over, n_run = int((out.overflow > 0).sum()), int((~out.halted).sum())
+        if n_over:
+            raise AssertionError(f"{idx}: pool overflow on {n_over} seeds")
+        sends = int((out.msg_count - st.msg_count).sum())
+        log(f"  main path: {key} run kernel launched {launches} time, drain kernel {drains}; "
+            f"{n - n_run} of {n} seeds halted within {n_steps} steps, none overflowed; "
+            f"{sends} messages sent")
+        k = VARIANT_SAMPLE
+        t = time.perf_counter()
+        want, seed_steps, drops = plain_head(wl, cfg, n_steps, head_of(st, k).to("cpu"),
+                                             taps=taps)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        assert_equal(head_of(out, k), want, f"first {k} seeds (kernel) vs plain on the CPU")
+        err = max_abs_err(head_of(out, k), want)
+        iters = halt_counts(wl, cfg, cap, st, latency=taps.get("latency"),
+                            retry=taps.get("retry"))
+        if int(iters[:k].sum()) != seed_steps:
+            raise AssertionError(f"{idx}: the stop-at-halt pass counts {int(iters[:k].sum())} "
+                                 f"seed-steps of the sample, the plain run {seed_steps}")
+        # the bound's work over every seed: the kernel's own seed-steps,
+        # those the plain step did not run counting no poll block
+        seed_steps, drops = int(iters.sum()), drops + int(iters[k:].sum())
+        drain_check(wl, cfg, cap, st, latency=taps.get("latency"), retry=taps.get("retry"))
+        ms = time_ms(lambda: run(st), REPEATS, device)
+        log(f"  drain kernel alone vs its plain version: step and ev_valid equal; kernel ms "
+            f"{spread(ms)} ({card}); plain ms on the CPU (host clock, {k} seeds) "
+            f"{plain_ms:.2f}")
+        r = dict(launches=launches, drains=drains, err=err, ms=statistics.median(ms), ms_all=ms,
+                 plain_ms=plain_ms, pool=pool,
+                 plain_ms_of=f"make_run_plain on the CPU, first {k} seeds (host clock)",
+                 **bound_terms(st, out, pool, seed_steps, drops, sends))
+        obs = bool(lib_taps(taps))
+        shapes[key, pool] = {**KERNEL.occupancy(spec, pool),
+                             "threads": spec.threads,
+                             "registers": base_registers(builds[key][1], pool)}
+        if obs:
+            shapes[key, pool]["taps_registers"] = base_registers(builds[key][1], pool, True)
+        results.append((key, f"make_run_fused/{key}", f"madsim_tpu_torch/csrc/{spec.header}", r))
+        paths[key] = {"run_while_variant": [launches, drains]}
+    log(f"  72 phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5357,20 +5510,24 @@ def main() -> int:
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t = time.perf_counter()
-    libs = build_libraries()
+    # the registered libraries and phase 72's derived ones, in one build
+    specs = {m.key: m for m in (*MODELS.values(), *variant_specs())}
+    libs = build_libraries(specs.values())
     shapes = {}
     log(f"[2] {len(libs)} run kernel libraries built in {time.perf_counter() - t:.1f} s "
-        f"(one nvcc per model, in parallel)")
+        f"(one nvcc per model, in parallel; {len(libs) - len(MODELS)} derived for phase 72)")
     for key, (path, build_log) in libs.items():
         log(f"  {key}: {path}")
         for line in build_log.splitlines():
             if "registers" in line or "bytes stack" in line or "Function properties" in line:
                 log(f"    {line.strip()}")
-        for pool in MODELS[key].pools:
-            log(f"    pool {pool}: {launch_shape(MODELS[key], pool, card)}")
-            shapes[key, pool] = {**KERNEL.occupancy(MODELS[key], pool),
+            if line.startswith("# ") and line.endswith(" s"):
+                log(f"    nvcc {line[2:]}")
+        for pool in specs[key].pools:
+            log(f"    pool {pool}: {launch_shape(specs[key], pool, card)}")
+            shapes[key, pool] = {**KERNEL.occupancy(specs[key], pool),
                                  "registers": base_registers(build_log, pool)}
-            if pool in MODELS[key].obs_pools:
+            if pool in specs[key].obs_pools:
                 shapes[key, pool]["taps_registers"] = base_registers(build_log, pool, True)
     lap("phases 1-2")
 
@@ -5491,6 +5648,8 @@ def main() -> int:
     lap("phase 70")
     lease_phase(device, results, paths, card)
     lap("phase 71")
+    variants_phase(device, results, paths, shapes, libs, card)
+    lap("phase 72")
     kernels = {"kernels": [
         kernel_line(name, src, r, clock, paths[key], extra.get(key, {}),
                     shapes.get((key, r["pool"])))

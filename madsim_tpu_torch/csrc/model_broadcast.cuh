@@ -1,15 +1,20 @@
-// 5-node reliable broadcast under a random link partition
+// Reliable broadcast under a random link partition
 // (madsim_tpu_torch/models/broadcast.py) as a model trait of the run
-// kernel (engine_step.cuh): four handlers, and an init that emits the
-// engine's CLOG/UNCLOG rows.
+// kernel (engine_step.cuh): N_ nodes (n_nodes, five by default), four
+// handlers, and an init that emits the engine's CLOG/UNCLOG rows.
+// PARTITION = false (partition=False) schedules no partition and draws
+// nothing. BroadcastModel is the factory's default variant.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-struct BroadcastModel {
-  static constexpr int N = 5, U = 4, A = 2, W = 0, K = 7, H = 4;
+template <int N_ = 5, bool PARTITION = true>
+struct BroadcastModelT {
+  static_assert(N_ >= 2 && N_ <= 32, "the ack mask holds every peer");
+  static constexpr int N = N_, U = 4, A = 2, W = 0, H = 4;
+  static constexpr int K = N + 2 > 6 ? N + 2 : 6;  // max(peers + 3, 6)
   static constexpr int R = 0;  // records nothing
   static constexpr int32_t n_peers = N - 1;
   static constexpr int32_t full_mask = (1 << n_peers) - 1;
@@ -33,7 +38,7 @@ struct BroadcastModel {
     for (int32_t q = 1; q < N; q++) em[q - 1].to(when, q, K_MSG, seq);
   }
 
-  static MADSIM_HD void handle(int32_t h, const Ctx<BroadcastModel>& c,
+  static MADSIM_HD void handle(int32_t h, const Ctx<BroadcastModelT>& c,
                                const Params& p, int32_t* ns,
                                Emit<A, W>* em, Rec*) {
     const int32_t* st = c.state;
@@ -43,15 +48,17 @@ struct BroadcastModel {
         bcast(em, 1, is_origin);
         em[n_peers].after(is_origin, p.retx_ns, K_RETX, ORIGIN, 1);
         if (is_origin) {
-          const int64_t a = c.user_int(1, N, P_CHAOS_LINK);
-          const int64_t b_raw = c.user_int(1, N - 1, P_CHAOS_LINK + 16);
-          const int64_t b = b_raw >= a ? b_raw + 1 : b_raw;
-          const int64_t at = c.user_int(0, 100000000, P_CHAOS_AT);
-          const int64_t len = c.user_int(50000000, 400000000, P_CHAOS_LEN);
-          em[n_peers + 1].after(true, at, KIND_CLOG, 0,
-                                static_cast<int32_t>(a), static_cast<int32_t>(b));
-          em[n_peers + 2].after(true, at + len, KIND_UNCLOG, 0,
-                                static_cast<int32_t>(a), static_cast<int32_t>(b));
+          if constexpr (PARTITION) {
+            const int64_t a = c.user_int(1, N, P_CHAOS_LINK);
+            const int64_t b_raw = c.user_int(1, N - 1, P_CHAOS_LINK + 16);
+            const int64_t b = b_raw >= a ? b_raw + 1 : b_raw;
+            const int64_t at = c.user_int(0, 100000000, P_CHAOS_AT);
+            const int64_t len = c.user_int(50000000, 400000000, P_CHAOS_LEN);
+            em[n_peers + 1].after(true, at, KIND_CLOG, 0,
+                                  static_cast<int32_t>(a), static_cast<int32_t>(b));
+            em[n_peers + 2].after(true, at + len, KIND_UNCLOG, 0,
+                                  static_cast<int32_t>(a), static_cast<int32_t>(b));
+          }
           ns[0] = 1;
         }
         break;
@@ -91,5 +98,7 @@ struct BroadcastModel {
     }
   }
 };
+
+using BroadcastModel = BroadcastModelT<>;
 
 }  // namespace madsim

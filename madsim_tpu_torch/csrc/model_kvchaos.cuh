@@ -1,7 +1,7 @@
 // Replicated KV under kill/restart chaos
 // (madsim_tpu_torch/models/kvchaos.py) as a model trait of the run
-// kernel (engine_step.cuh): primary, four replicas and a client, twelve
-// handlers. KvChaosModel<true> is the payload variant (kvchaos-payload):
+// kernel (engine_step.cuh): primary, NR_ replicas (n_replicas, four by
+// default) and a client, twelve handlers. KvChaosModel<true> is the payload variant (kvchaos-payload):
 // each WRITE carries two client-drawn value words in the event payload,
 // the primary stores and re-replicates them, replicas store them.
 // RECORD is the record variant (kvchaos-record): the client records its
@@ -24,11 +24,12 @@ template <bool PAYLOAD, bool RECORD = false, bool BUG = false, bool CHAOS = true
           bool ARMY = false, int NR_ = 4, int PROBES = 1>
 struct KvChaosModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
-  static_assert(NR_ >= 1 && NR_ <= 4, "max_emits is 6 for up to four replicas");
+  static_assert(NR_ >= 1 && NR_ <= 30, "the ack mask holds every replica");
   static_assert(PROBES >= 1, "an op takes at least one probe round");
   static constexpr int NR = NR_;  // replicas
   static constexpr int N = NR + 2, U = PAYLOAD ? 6 : 4, A = 2;
-  static constexpr int W = PAYLOAD ? 2 : 0, K = 6, H = ARMY ? 15 : 12;
+  // the retransmit's NR + 2 rows, or init's six
+  static constexpr int W = PAYLOAD ? 2 : 0, K = NR + 2 > 6 ? NR + 2 : 6, H = ARMY ? 15 : 12;
   static constexpr int R = RECORD ? 3 : 0;  // history records per call
   static constexpr int L = ARMY ? 1 : 0;    // latency markers per call
   static constexpr int32_t CLIENT = N - 1;

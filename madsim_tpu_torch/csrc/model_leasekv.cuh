@@ -1,6 +1,7 @@
 // Lease/watch KV service under chaos (madsim_tpu_torch/models/leasekv.py,
 // default variant) as a model trait of the run kernel (engine_step.cuh):
-// a lease server, three clients and a watcher, fifteen handlers. Lease
+// a lease server, C_ clients (n_clients, three by default) and a watcher,
+// fifteen handlers. Lease
 // deadlines are int32 milliseconds of the handling node's own clock:
 // Ctx::now, which is the engine clock plus the node's skew, as in the
 // plain step's HandlerCtx.now. RECORD is the record variant
@@ -13,10 +14,11 @@
 // against the server, its invoke and completion marked for the latency
 // tap (L = 1 marker row a call). CHAOS = false is the variant without
 // the model's own kill and restart (chaos=False): on_init emits four
-// rows and draws nothing. Its library takes a sixth word, ka_stop_ms:
-// client 1 stalls its keepalives once its own clock passes that many
-// ms (a word past any clock, as engine/fused.py passes for None, never
-// stalls).
+// rows and draws nothing. STALL (by default the variant without chaos)
+// takes a sixth word, ka_stop_ms: client 1 stalls its keepalives once
+// its own clock passes that many ms (a word past any clock, as
+// engine/fused.py passes for None, never stalls); with CHAOS too it is
+// the stall under the model's own kill and restart.
 #pragma once
 
 #include "engine_step.cuh"
@@ -24,12 +26,15 @@
 namespace madsim {
 
 template <bool RECORD = false, bool BUG = false, bool ARMY = false, int PROBES = 1,
-          bool CHAOS = true>
+          bool CHAOS = true, int C_ = 3, bool STALL = !CHAOS>
 struct LeaseKvModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
   static_assert(PROBES >= 1, "an op takes at least one probe round");
-  static constexpr int C = 3;  // clients; lease id = node id
-  static constexpr int N = C + 2, U = C + 3, A = 2, W = 0, K = 6, H = ARMY ? 18 : 15;
+  static_assert(C_ >= 1 && C_ <= 30, "the fin mask holds every client");
+  static constexpr int C = C_;  // clients; lease id = node id
+  // the scan's C + 1 rows, or init's six
+  static constexpr int N = C + 2, U = C + 3, A = 2, W = 0, K = C + 1 > 6 ? C + 1 : 6;
+  static constexpr int H = ARMY ? 18 : 15;
   static constexpr int R = RECORD ? C : 0;  // history records per call
   static constexpr int L = ARMY ? 1 : 0;    // latency markers per call
   // history op codes (check.lease_safety)
@@ -45,12 +50,12 @@ struct LeaseKvModel {
     int32_t puts, ttl_ms;
     int64_t ka_ns, scan_ns, put_ns, ka_stop_ms;
   };
-  // words: puts, ttl_ms, ka_ms, scan_ms, put_ms, and without CHAOS
+  // words: puts, ttl_ms, ka_ms, scan_ms, put_ms, and with STALL
   // ka_stop_ms
   static Params params(const int64_t* w) {
     return Params{static_cast<int32_t>(w[0]), static_cast<int32_t>(w[1]),
                   w[2] * 1000000, w[3] * 1000000, w[4] * 1000000,
-                  CHAOS ? INT64_MAX : w[5]};
+                  STALL ? w[5] : INT64_MAX};
   }
 
   static constexpr int32_t K_GRANT = FIRST_USER_KIND + 1;
@@ -155,7 +160,7 @@ struct LeaseKvModel {
       }
       case 3: {  // on_ka_t, the keepalive timer at a client
         // client 1 stalls once its own clock passes ka_stop_ms
-        const bool stalled = !CHAOS && c.node == 1 && local_ms(c.now) >= p.ka_stop_ms;
+        const bool stalled = STALL && c.node == 1 && local_ms(c.now) >= p.ka_stop_ms;
         em[0].to(st[0] > 0 && !stalled, SERVER, K_KEEPALIVE, c.node);
         em[1].after(true, p.ka_ns, K_KA_T, c.node);
         break;

@@ -1,22 +1,31 @@
 // Single-decree Paxos with dueling proposers and proposer-crash chaos
-// (madsim_tpu_torch/models/paxos.py, default variant) as a model trait of
-// the run kernel (engine_step.cuh): five acceptors and three proposers,
-// eight handlers, three args words. PROMISE, ACCEPTED and NACK go back to
+// (madsim_tpu_torch/models/paxos.py) as a model trait of the run kernel
+// (engine_step.cuh): NA_ acceptors and NP_ proposers (n_acceptors and
+// n_proposers, five and three by default), eight handlers, three args
+// words. PROMISE, ACCEPTED and NACK go back to
 // the event's sender (Ctx::src); a NACK fast-forwards the proposer's
 // round to floor(ballot / P) + 1. PaxosModel<true> is the record
 // variant (paxos-record): a decision reached or first adopted appends an
 // OP_DECIDE history record. CHAOS = false (chaos=False, for fault
-// plans) drops acceptor 0's kill and restart of a proposer.
+// plans) drops acceptor 0's kill and restart of a proposer. DURACC is
+// durable_acceptors=True: the kill aims at one of acceptors 1..NA-1, and
+// the acceptor columns surviving its restart are the workload's
+// volatile mask, a table of the kernel's (engine/fused.py _tables).
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD = false, bool CHAOS = true>
+template <bool RECORD = false, bool CHAOS = true, bool DURACC = false, int NA_ = 5,
+          int NP_ = 3>
 struct PaxosModel {
-  static constexpr int NA = 5, NP = 3;  // acceptors, proposers
-  static constexpr int N = NA + NP, U = 10, A = 3, W = 0, K = NA + 2, H = 8;
+  static_assert(NA_ >= 1 && NP_ >= 1, "a ballot needs an acceptor and a proposer");
+  static_assert(!DURACC || NA_ >= 2, "the kill aims at acceptors 1..NA-1");
+  static constexpr int NA = NA_, NP = NP_;  // acceptors, proposers
+  // on_propose's NA + 2 rows, on_accepted's NP + 1, init's 3
+  static constexpr int K0 = NA + 2 > NP + 1 ? NA + 2 : NP + 1;
+  static constexpr int N = NA + NP, U = 10, A = 3, W = 0, K = K0 > 3 ? K0 : 3, H = 8;
   static constexpr int R = RECORD ? 1 : 0;  // history records per call
   static constexpr int32_t OP_DECIDE = OP_USER;
   static constexpr int32_t majority = NA / 2 + 1;
@@ -66,7 +75,9 @@ struct PaxosModel {
         // acceptor 0's t=0 init schedules the seed's kill and restart of
         // one proposer (a reborn proposer re-runs on_init at now > 0)
         if (CHAOS && c.node == 0 && c.now == 0) {
-          const int32_t who = NA + static_cast<int32_t>(c.user_int(0, NP, P_KILL_WHO));
+          const int32_t who =
+              DURACC ? 1 + static_cast<int32_t>(c.user_int(0, NA - 1, P_KILL_WHO))
+                     : NA + static_cast<int32_t>(c.user_int(0, NP, P_KILL_WHO));
           const int64_t at = c.user_int(p.kill_min, p.kill_max, P_KILL_AT);
           const int64_t revive = c.user_int(p.revive_min, p.revive_max, P_REVIVE);
           em[1].after(true, at, KIND_KILL, 0, who);

@@ -1,16 +1,19 @@
-// 3-node ping-pong RPC (madsim_tpu_torch/models/pingpong.py) as a model
-// trait of the run kernel (engine_step.cuh): a server (node 0) and two
-// clients, four handlers.
+// Ping-pong RPC (madsim_tpu_torch/models/pingpong.py) as a model trait
+// of the run kernel (engine_step.cuh): a server (node 0) and NC clients
+// (n_clients, two by default), four handlers; PingpongModel is the
+// default variant.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-struct PingpongModel {
-  static constexpr int N = 3, U = 4, A = 2, W = 0, K = 2, H = 4;
+template <int NC = 2>
+struct PingpongModelT {
+  static_assert(NC >= 1, "a client pings");
+  static constexpr int N = 1 + NC, U = 4, A = 2, W = 0, K = 2, H = 4;
   static constexpr int R = 0;  // records nothing
-  static constexpr int32_t n_clients = N - 1;
+  static constexpr int32_t n_clients = NC;
 
   struct Params {
     int32_t rounds;
@@ -24,7 +27,7 @@ struct PingpongModel {
   static constexpr int32_t K_PONG = FIRST_USER_KIND + 2;
   static constexpr int32_t K_DONE = FIRST_USER_KIND + 3;
 
-  static MADSIM_HD void handle(int32_t h, const Ctx<PingpongModel>& c,
+  static MADSIM_HD void handle(int32_t h, const Ctx<PingpongModelT>& c,
                                const Params& p, int32_t* ns,
                                Emit<A, W>* em, Rec*) {
     const int32_t* st = c.state;
@@ -53,5 +56,7 @@ struct PingpongModel {
     }
   }
 };
+
+using PingpongModel = PingpongModelT<>;
 
 }  // namespace madsim

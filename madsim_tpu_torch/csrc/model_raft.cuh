@@ -1,16 +1,18 @@
 // Raft leader election (madsim_tpu_torch/models/raft.py) as a model
-// trait of the run kernel (engine_step.cuh): five nodes, five handlers.
-// RaftModel<true> is the record variant (raft-election-record): each
-// election win appends an OP_ELECT history record.
+// trait of the run kernel (engine_step.cuh): N_ nodes (n_nodes, five by
+// default), five handlers. RaftModel<true> is the record variant
+// (raft-election-record): each election win appends an OP_ELECT history
+// record.
 #pragma once
 
 #include "engine_step.cuh"
 
 namespace madsim {
 
-template <bool RECORD>
+template <bool RECORD, int N_ = 5>
 struct RaftModel {
-  static constexpr int N = 5;      // nodes
+  static_assert(N_ >= 1, "a cluster has a node");
+  static constexpr int N = N_;     // nodes
   static constexpr int U = 6;      // state row width
   static constexpr int A = 2;      // event args words
   static constexpr int W = 0;      // payload words

@@ -1,6 +1,7 @@
 // Raft log replication under leader-crash chaos
 // (madsim_tpu_torch/models/raftlog.py) as a model trait of the run
-// kernel (engine_step.cuh): five nodes, eight handlers, four args words,
+// kernel (engine_step.cuh): NS_ servers (n_nodes, five by default), eight
+// handlers, four args words,
 // and AppendEntries that carry the sender's whole log (four entries by
 // default) in the event payload. Entries pack as value | term << 8.
 // RaftLogModel<true> is the record variant (raftlog-record): an election
@@ -27,10 +28,11 @@
 namespace madsim {
 
 template <bool RECORD = false, bool CHAOS = true, bool DURABLE = false, bool NOSYNC = false,
-          bool SPREAD = false, bool ARMY = false, int NWRITES = 4>
+          bool SPREAD = false, bool ARMY = false, int NWRITES = 4, int NS_ = 5>
 struct RaftLogModel {
   static_assert(!NOSYNC || DURABLE, "the nosync mutant needs durable=True");
-  static constexpr int NS = 5;                // servers
+  static_assert(NS_ >= 1 && NS_ <= 31, "the ack mask holds every server");
+  static constexpr int NS = NS_;              // servers
   static constexpr int N = NS + (ARMY ? 1 : 0);  // nodes: the army's client last
   static constexpr int LOGW = NWRITES;  // log entries (n_writes)
   static constexpr int U = 8 + LOGW, A = 4, W = LOGW, K = NS + 2, H = ARMY ? 11 : 8;

@@ -1,8 +1,9 @@
 // Sharded KV with key-range migration under chaos
 // (madsim_tpu_torch/models/shardkv.py, default variant) as a model trait
-// of the run kernel (engine_step.cuh): a controller, a client and four
-// groups of three replicas (N = 14), eight shards (U = 2 * 8 + 1 = 17),
-// fifteen handlers. Every column is durable, so a RESTART keeps the
+// of the run kernel (engine_step.cuh): a controller, a client and G_
+// groups of GS_ replicas, NS_ shards (n_groups, group_size and n_shards;
+// by default four groups of three, N = 14, and eight shards, U = 2 * 8 +
+// 1 = 17), fifteen handlers. Every column is durable, so a RESTART keeps the
 // whole row; the restart's re-init runs on_init, which leaves the row
 // alone. Shard assignments pack 4 bits per shard into two words. RECORD
 // is the record variant (shardkv-record): committed writes and shard
@@ -24,14 +25,20 @@
 namespace madsim {
 
 template <bool RECORD = false, bool BUG = false, bool CHAOS = true, bool ARMY = false,
-          int PROBES = 1, bool NOIDEM = false>
+          int PROBES = 1, bool NOIDEM = false, int G_ = 4, int GS_ = 3, int NS_ = 8>
 struct ShardKvModel {
   static_assert(RECORD || !BUG, "the planted fault needs recording");
   static_assert(!NOIDEM || (RECORD && ARMY && !BUG),
                 "noidem lives in the recorded army apply, apart from the lost shard");
   static_assert(PROBES >= 1, "an op takes at least one probe round");
-  static constexpr int G = 4, GS = 3, NS = 8;  // groups, group size, shards
-  static constexpr int N = 2 + G * GS, U = 2 * NS + 1, A = 3, W = 0, K = 6;
+  static_assert(G_ >= 1 && G_ <= 15, "4-bit group ids");
+  static_assert(NS_ >= 1 && NS_ <= 8, "packed 4-bit assignment words");
+  static_assert(GS_ >= 1, "a group has its primary");
+  static constexpr int G = G_, GS = GS_, NS = NS_;  // groups, group size, shards
+  // the controller's scalars need columns 0..7; on_write's GS + 1 rows,
+  // or init's six
+  static constexpr int N = 2 + G * GS, U = 2 * NS + 1 > 8 ? 2 * NS + 1 : 8, A = 3, W = 0;
+  static constexpr int K = GS + 1 > 6 ? GS + 1 : 6;
   static constexpr int H = ARMY ? 18 : 15;
   static constexpr int R = RECORD ? 1 : 0;  // history records per call
   static constexpr int L = ARMY ? 1 : 0;    // latency markers per call

@@ -1,6 +1,7 @@
 // Lai-Yang distributed snapshot over a money-transfer workload
 // (madsim_tpu_torch/models/snapshot.py) as a model trait of the run
-// kernel (engine_step.cuh): five nodes, five handlers. A node turning
+// kernel (engine_step.cuh): N_ nodes (n_nodes, five by default), five
+// handlers; SnapshotModel is the default variant. A node turning
 // red paints every peer with a zero-amount red transfer; the paint rows
 // keep the self row, never valid, so that each row index keys the same
 // latency draw as the plain step's EmitBuilder.
@@ -10,8 +11,10 @@
 
 namespace madsim {
 
-struct SnapshotModel {
-  static constexpr int N = 5, U = 6, A = 2, W = 0, K = N + 1, H = 5;
+template <int N_ = 5>
+struct SnapshotModelT {
+  static_assert(N_ >= 2, "a transfer needs a peer");
+  static constexpr int N = N_, U = 6, A = 2, W = 0, K = N + 1, H = 5;
   static constexpr int R = 0;  // records nothing
 
   struct Params {
@@ -35,7 +38,7 @@ struct SnapshotModel {
   static constexpr uint32_t P_SEND = 0, P_DST = 1, P_AMT = 2, P_SNAP = 3;
 
   using Em = Emit<A, W>;
-  using C = Ctx<SnapshotModel>;
+  using C = Ctx<SnapshotModelT>;
 
   // the next transfer timer (user purpose 0), drawn only when valid
   static MADSIM_HDI void arm_send(Em& e, const C& c, const Params& p, bool when) {
@@ -108,5 +111,7 @@ struct SnapshotModel {
     }
   }
 };
+
+using SnapshotModel = SnapshotModelT<>;
 
 }  // namespace madsim

@@ -1,7 +1,7 @@
 // Two-phase commit under chaos (madsim_tpu_torch/models/twophase.py,
 // default variant) as a model trait of the run kernel (engine_step.cuh):
-// a coordinator and four participants, nine handlers, three args words
-// and up to ten emits. The retransmit handler fills the per-participant
+// a coordinator and P_ participants (n_parts, four by default), nine
+// handlers, three args words and max(2P + 1, P + 6) emits. The retransmit handler fills the per-participant
 // PREPARE rows 0..P-1 and DECISION rows P..2P-1 whatever the phase, so
 // each row index keys the same latency draw as the plain step's
 // EmitBuilder; the engine places the valid ones compactly. As in every
@@ -18,10 +18,13 @@
 
 namespace madsim {
 
-template <bool RECORD = false, bool CHAOS = true>
+template <bool RECORD = false, bool CHAOS = true, int P_ = 4>
 struct TwoPhaseModel {
-  static constexpr int P = 4;  // participants
-  static constexpr int N = 1 + P, U = 6, A = 3, W = 0, K = 2 * P + 2, H = 9;
+  static_assert(P_ >= 1 && P_ <= 30, "the vote and ack masks hold every participant");
+  static constexpr int P = P_;  // participants
+  // the retransmit's 2P + 1 rows, or init's P + 6 (the chaos rows last)
+  static constexpr int K = 2 * P + 1 > P + 6 ? 2 * P + 1 : P + 6;
+  static constexpr int N = 1 + P, U = 6, A = 3, W = 0, H = 9;
   static constexpr int R = RECORD ? 1 : 0;  // history records per call
   static constexpr int32_t OP_DECIDE = OP_USER;
   static constexpr int32_t COORD = 0;

@@ -4,7 +4,8 @@
 // Replaces madsim_tpu/engine/vmem.py:make_run_vmem, the JAX package's
 // one Pallas kernel, which keeps each block of seeds' SimState in VMEM
 // for all n_steps of vmap(make_step). Here a block of kThreads threads
-// runs kSeeds = kThreads / G seeds: it loads their state into shared
+// (MADSIM_THREADS, 128 unless the unit sets fewer) runs kSeeds =
+// kThreads / G seeds: it loads their state into shared
 // memory once, with all its threads and coalesced (engine_step.cuh
 // block_load), runs each seed on a group of G lanes until it halts or
 // its budget is spent, and stores the state once, into fresh output
@@ -60,7 +61,10 @@
 //   MADSIM_GROUP  G, the lanes per seed
 //   MADSIM_OBS_POOLS  the pools with the observability kernel (may be
 //                     empty)
-// and includes this file; nvcc builds it into one library per model.
+// and, for a library whose seeds are too large for 128 / G of them in a
+// block's shared memory, MADSIM_THREADS, the threads a block (whole
+// groups; engine/fused.py picks it from the seed's bytes), and includes
+// this file; nvcc builds it into one library per model.
 //
 // What bounds it: device memory sees one load and one store of the
 // state per run; per step a seed does a pool scan and a few threefry
@@ -89,14 +93,20 @@
     !defined(MADSIM_OBS_POOLS)
 #error "define MADSIM_MODEL, MADSIM_POOLS, MADSIM_GROUP and MADSIM_OBS_POOLS, then include run_kernel.cu"
 #endif
+#ifndef MADSIM_THREADS
+#define MADSIM_THREADS 128
+#endif
 
 namespace {
 
 using Model = MADSIM_MODEL;
 constexpr int kGroup = MADSIM_GROUP;
-constexpr int kThreads = 128;
+constexpr int kThreads = MADSIM_THREADS;
 constexpr int kSeeds = kThreads / kGroup;
-static_assert(kThreads % 32 == 0 && kThreads % kGroup == 0, "whole warps, whole groups");
+// whole groups, and whole warps unless one warp's groups do not fit
+static_assert(kThreads >= kGroup && kThreads <= 128 && kThreads % kGroup == 0 &&
+                  (kThreads % 32 == 0 || kThreads < 32),
+              "whole warps, whole groups");
 
 template <int E, bool MET>
 constexpr size_t run_smem() { return sizeof(madsim::Seed<Model, E, MET>) * kSeeds; }

@@ -2661,8 +2661,8 @@ def make_step(wl: Workload, cfg: EngineConfig, dup_rows: bool = False,
               cov_hitcount: bool = False, latency: "LatencySpec | None" = None,
               causal: bool = False, retry: "RetrySpec | None" = None):
     """One step: the plain step on a CPU state, the fused kernel with
-    ``n_steps=1`` on a CUDA state (raises for a workload, or a
-    ``dup_rows`` build, the kernel does not carry)."""
+    ``n_steps=1`` on a CUDA state (raises for a workload whose family has
+    no model trait in csrc/)."""
     from .fused import make_run_fused
 
     return make_run_fused(wl, cfg, 1, dup_rows=dup_rows, metrics=metrics,

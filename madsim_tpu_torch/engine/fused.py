@@ -4,22 +4,31 @@ Port of ``madsim_tpu/engine/vmem.py:make_run_vmem``, the JAX package's
 one Pallas kernel, which runs ``n_steps`` of ``vmap(make_step)`` with
 each block of seeds' state resident on chip. On the H100 the kernel is
 hand-written CUDA C++ for ``sm_90a``: a block holds 128 / G seeds'
-state in shared memory for the whole loop, and each seed runs on a
-group of G lanes (``GROUP``). The engine step is generic
-(``csrc/engine_step.cuh``, ``csrc/lanes.cuh``); each workload it carries
-is a model trait with its handlers as device code (``csrc/model_*.cuh``),
-listed in :data:`MODELS` by library key (the factories' default and
-record variants, and the ``chaos=False`` variants that fault plans
-drive, some built with the duplication rows of ``dup_rows``, and
-leasekv-record's whose client may stall its keepalives). Any
-other workload, or a registered one at another shape, raises
-``NotImplementedError`` on a CUDA state.
+state in shared memory for the whole loop (fewer where they would not
+fit, :func:`library_at`), and each seed runs on a group of G lanes
+(``GROUP``). The engine step is generic (``csrc/engine_step.cuh``,
+``csrc/lanes.cuh``); each model family is a trait with its handlers as
+device code (``csrc/model_*.cuh``), templated on the factory parameters
+that set its shape and variant. :data:`FAMILIES` derives, from any
+factory workload's name and ``model_params``, the trait's template
+arguments, its runtime words, its fixed parameters and the shape it
+compiles to (:func:`derive_model`); :data:`MODELS` names, by key and factory call,
+the libraries that ``chip_smoke.py`` prebuilds at their pools and the
+tests address by key, each built from its derivation, and
+:func:`kernel_model` returns a registered entry where one fits, else the
+derived library. One key names one translation unit. As the TPU kernel does, the run kernel carries every
+factory variant at every pool: the launch instantiates the state's pool
+(and taps) where the library has no build for it. A workload whose
+family has no trait in ``csrc/`` raises ``NotImplementedError`` on a
+CUDA state, naming ``make_run_plain``, the explicit way to run the eager
+step there; so does a pool where one seed's state cannot fit a block's
+shared memory.
 
-Each model's kernel is its own library, built with nvcc on first use
-into ``build/kernels/<hash>/`` at the root of the checkout (keyed by a
-hash of the sources, the generated unit and the flags) and loaded with
-ctypes. A CPU state runs the plain eager step instead
-(``core.make_run_plain``); a CUDA state never does.
+Each library is built with nvcc on first use into
+``build/kernels/<hash>/`` at the root of the checkout (keyed by a hash
+of the sources, the generated unit and the flags) and loaded with
+ctypes; a build or launch failure raises. A CPU state runs the plain
+eager step instead (``core.make_run_plain``); a CUDA state never does.
 
 The kernel reads its input state and writes fresh outputs allocated
 with ``torch.empty``; ``seed``, which it never writes, is shared with
@@ -43,11 +52,12 @@ its zero-size ``met`` with the input. The run's ``metrics=`` must agree
 with the row, or the wrapper raises.
 
 The coverage taps and the timeline ring are a third instantiation of
-the run kernel, built only at a library's ``obs_pools`` (the libraries
-and pools that ``chip_smoke.py`` and the card tests drive with them), so
-every other kernel is compiled as before. A state with a coverage or
-ring column (``has_obs``) launches it, and raises
-``NotImplementedError`` at any other library or pool. Its widths are
+the run kernel, built into a registered library only at its
+``obs_pools`` (the libraries and pools that ``chip_smoke.py`` and the
+card tests drive with them), so every other kernel is compiled as
+before; a state with a coverage or ring column (``has_obs``) launches
+it, and at any other library or pool the launch builds the library at
+that pool with it. Its widths are
 runtime words: the state's ``cov``, ``cov_hits`` and ``tl_t`` columns
 give the kernel ``cov_words``, the hit-count flag and ``timeline_cap``
 (config words 9-11, :func:`kernel_args`), which the run's arguments
@@ -59,8 +69,8 @@ the ``cov_spread`` library.
 
 Causal provenance rides the same instantiation as a runtime word
 (config word 15): a state from ``make_init(causal=True)`` (its ``lam``
-has a column per node, ``core.causal_on``) launches the taps kernel,
-and so raises at a library or pool without one. The kernel keeps
+has a column per node, ``core.causal_on``) launches the taps kernel.
+The kernel keeps
 ``lam`` and the pool's ``ev_parent`` and ``ev_lam`` in the seed's
 shared tail, writes the sidecars wherever placement fills a slot (ring
 or no ring), folds the Lamport clock on every dispatch to a node in
@@ -83,8 +93,8 @@ markers, and only those: a state from ``make_init(retry=...)`` carries
 the three retry columns, the run's ``RetrySpec`` rides the config words
 after the causal word (:func:`retry_words`, zeros without a policy), and
 the columns are fresh outputs with a policy and the input's zero-size
-ones without. A retry state on a library without markers, or at a shape
-or pool without a library, raises; it never runs the plain step.
+ones without. A retry state on a library without markers raises; it
+never runs the plain step.
 
 ``make_run_while`` semantics: the JAX loop runs every seed for the same
 ``T = min(cap, steps until every seed has halted)`` iterations, and a
@@ -139,6 +149,7 @@ from .core import (
 )
 
 __all__ = [
+    "FAMILIES",
     "KERNEL",
     "KERNEL_FIELDS",
     "MODELS",
@@ -149,16 +160,21 @@ __all__ = [
     "build_libraries",
     "build_library",
     "check_state",
+    "derive_model",
     "drain_plain",
     "fresh_outputs",
     "config_words",
     "halt_counts",
     "kernel_args",
     "kernel_model",
+    "library_at",
+    "library_for",
     "check_taps",
     "has_obs",
     "make_run_fused",
     "obs_words",
+    "seed_bytes",
+    "state_taps",
     "workload_shape",
 ]
 
@@ -170,6 +186,9 @@ ENGINE_SOURCES = (
 # lanes per seed for every model; a model may set its own in MODELS (the
 # measured choice: PERF.md, section 6)
 GROUP = 8
+# threads a block (MADSIM_THREADS in csrc/run_kernel.cu): 128 / G seeds,
+# unless a library's seeds are too large for that many (library_at)
+THREADS = 128
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 # a handler left without MADSIM_HD would build as a host function that
 # the device step cannot call: nvcc only warns, and the kernel would run
@@ -188,7 +207,8 @@ class KernelModel:
     ``shape`` is :func:`workload_shape` of the factory's workload at the
     compiled variant; ``words`` name the ``model_params`` passed to the
     kernel as runtime words (the model trait's ``Params`` order);
-    ``fixed`` are ``model_params`` the library is compiled for."""
+    ``fixed`` are ``model_params`` the library is compiled for;
+    ``threads`` is the block's (``MADSIM_THREADS``)."""
 
     key: str  # library name, libmadsim_<key>.so
     name: str  # Workload.name
@@ -203,6 +223,7 @@ class KernelModel:
     sync: bool = False  # the trait keeps the sync discipline (durable_sync)
     obs_pools: tuple = ()  # pools with the observability kernel (the taps)
     lat: int = 0  # latency-marker rows a call (the trait's L, Workload.lat_markers)
+    threads: int = THREADS  # threads a block: threads / group seeds
 
     def draws_source(self) -> str:
         """C++ naming the workload's declared user draw purposes
@@ -248,333 +269,227 @@ class KernelModel:
             f"#define MADSIM_POOLS {', '.join(str(p) for p in self.pools)}\n"
             f"#define MADSIM_GROUP {self.group}\n"
             f"#define MADSIM_OBS_POOLS {', '.join(str(p) for p in self.obs_pools)}\n"
-            f'#include "run_kernel.cu"\n'
+            + (f"#define MADSIM_THREADS {self.threads}\n" if self.threads != THREADS else "")
+            + '#include "run_kernel.cu"\n'
         )
 
 
-# (n_nodes, state_width, args_words, payload_words, max_emits,
-#  handlers, draw_purposes, history records a call) at each factory's
-# default variant and at its record (and bug) variants; pools: the
-# model's BENCH_SPECS or SOAK_SPECS pool, for raft also the pools of the
-# entry shape and the tests (and raft-record's of the nemesis soak), and
-# for kvchaos's record variants also the pool of the JAX package's
-# history-search tests. Then the chaos-plan libraries: the chaos=False
-# variants that fault plans drive (tools/nemesis_soak.py's certificates,
-# the port's plan tests), at the pools of those runs (96: the JAX tests'
-# kv_cfg and the soak's paxos and twophase; 192: the soak's kvchaos), two
-# of them also built with the duplication rows. A variant may share its
-# workload name with its chaos=True sibling: MODELS is keyed by library.
-_KV_FIXED = (("n_replicas", 4), ("chaos", True), ("payload", False))
-_LEASE_FIXED = (("n_clients", 3), ("chaos", True), ("ka_stop_ms", None))
-_SHARD_FIXED = (("n_groups", 4), ("group_size", 3), ("n_shards", 8), ("chaos", True))
+# Each family's libraries are derived from its workloads: FAMILIES gives,
+# for every model family with a trait in csrc/, its header and how a
+# workload's name and model_params set the trait's template arguments,
+# its runtime words, its fixed parameters and the shape the trait
+# compiles to. kernel_model() derives the library of any factory variant
+# through it; MODELS (below FAMILIES) names the libraries chip_smoke.py
+# prebuilds and the tests address by key.
 _KV_WORDS = ("writes", "retx_ns", "client_retx_ns")
 _LEASE_WORDS = ("puts", "ttl_ms", "ka_ms", "scan_ms", "put_ms")
 _SHARD_WORDS = ("writes", "n_migs", "put_ms", "mig_ms", "retx_ms")
 _RAFTLOG_WORDS = ("timeout_min_ns", "timeout_max_ns", "propose_ns", "retx_ns")
-_RAFTLOG_FIXED = (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", False),
-                  ("cov_spread", False))
-_RAFTLOG_STORE_SHAPE = (5, 12, 4, 4, 7, 8, (0, 1), 4)
-_RAFTLOG_STORE = (("n_nodes", 5), ("n_writes", 4), ("chaos", False), ("durable", True),
-                  ("cov_spread", False))
-_RAFTLOG_DURABLE = (("n_nodes", 5), ("n_writes", 4), ("chaos", True), ("durable", True))
-_RAFTLOG_NOCHAOS = (("n_nodes", 5), ("n_writes", 4), ("chaos", False), ("durable", False),
-                    ("cov_spread", False))
 _TWOPHASE_WORDS = ("txns", "no_pct", "retx_ns", "revive_min_ns", "revive_max_ns")
 _PAXOS_WORDS = ("start_min_ns", "start_max_ns", "timeout_min_ns",
                 "timeout_max_ns", "kill_min_ns", "kill_max_ns",
                 "revive_min_ns", "revive_max_ns")
-_PAXOS_FIXED = (("n_acceptors", 5), ("n_proposers", 3), ("chaos", True),
-                ("durable_acceptors", False))
-_KV_NOCHAOS = (("n_replicas", 4), ("chaos", False), ("payload", False))
-_KV_NOCHAOS_SHAPE = (6, 4, 2, 0, 6, 12, (), 3)
-_TP_NOCHAOS_SHAPE = (5, 6, 3, 0, 10, 9, (), 1)
-_TP_NOCHAOS = (("n_parts", 4), ("chaos", False))
-# the client-army libraries (make_*(army=True)), each with one latency
-# marker a call: the latency soak's kvchaos at pool 160, the step
-# goldens' kvchaos and raftlog army scenarios with the taps, leasekv
-# with its family's fixed words, and shardkv-record without its own chaos
-_KV_ARMY_SOAK = (("n_replicas", 2), ("chaos", False), ("payload", False), ("record", False),
-                 ("army", True), ("army_probes", 3))
-_KV_ARMY_GOLDEN = (*_KV_FIXED, ("record", True), ("bug", False), ("army", True),
-                   ("army_probes", 2))
-_LEASE_ARMY = (*_LEASE_FIXED, ("record", False), ("army", True), ("army_probes", 1))
-# leasekv-record without its own chaos, whose client 1 may stall its
-# keepalives: the etcd lease convergence (tests/test_leasekv.py's
-# dual-mode scenario) at the soak's pool; ka_stop_ms is a word, and
-# None passes NO_WORD
-_LEASE_NOCHAOS = (("n_clients", 3), ("chaos", False), ("record", True), ("bug", False),
-                  ("army", False))
 # a runtime word whose parameter is None: past any clock a trait compares
 # it with
 NO_WORD = (1 << 63) - 1
-_RAFTLOG_W16_SHAPE = (5, 24, 4, 16, 7, 8, (0, 1), 16)
-_RAFTLOG_W16 = (("n_nodes", 5), ("n_writes", 16), ("chaos", False), ("durable", False),
-                ("cov_spread", False))
-_SHARD_ARMY = (("n_groups", 4), ("group_size", 3), ("n_shards", 8), ("chaos", False),
-               ("record", True), ("bug", False), ("army", True), ("army_probes", 1))
-# the retry soak's (tools/retry_soak.py): kvchaos-record army with two
-# replicas and one probe, without its own chaos, and the noidem mutant of
-# its shardkv army
-_KV_ARMY_RETRY = (("n_replicas", 2), ("chaos", False), ("payload", False), ("record", True),
-                  ("bug", False), ("army", True), ("army_probes", 1))
-_SHARD_NOIDEM = (*_SHARD_ARMY[:5], ("bug", "noidem"), *_SHARD_ARMY[6:])
-MODELS = {
-    m.key: m
-    for m in (
-        KernelModel(
-            "raft", "raft-election", "model_raft.cuh", "madsim::RaftModel<false>",
-            (5, 6, 2, 0, 6, 5, (0,), 0), (40, 64, 128, 256),
-            ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),), obs_pools=(40, 64),
-        ),
-        KernelModel(
-            "raft-record", "raft-election-record", "model_raft.cuh",
-            "madsim::RaftModel<true>", (5, 6, 2, 0, 6, 5, (0,), 1), (40, 64),
-            ("timeout_min_ns", "timeout_max_ns"), (("n_nodes", 5),),
-        ),
-        KernelModel(
-            "microbench", "microbench", "model_microbench.cuh",
-            "madsim::MicrobenchModel", (1, 4, 2, 0, 2, 2, (0, 1), 0), (32,),
-            ("rounds", "delay_min_ns", "delay_max_ns"),
-        ),
-        KernelModel(
-            "pingpong", "pingpong", "model_pingpong.cuh",
-            "madsim::PingpongModel", (3, 4, 2, 0, 2, 4, (), 0), (32,),
-            ("rounds",), (("n_clients", 2),),
-        ),
-        KernelModel(
-            "broadcast", "broadcast", "model_broadcast.cuh",
-            "madsim::BroadcastModel", (5, 4, 2, 0, 7, 4, (1, 17, 2, 3), 0),
-            (40,), ("rounds", "retx_ns"),
-            (("n_nodes", 5), ("partition", True)),
-        ),
-        KernelModel(
-            "kvchaos", "kvchaos", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false>", (6, 4, 2, 0, 6, 12, (0, 1, 2), 0),
-            (40,), _KV_WORDS, _KV_FIXED,
-        ),
-        KernelModel(
-            "kvchaos-payload", "kvchaos-payload", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<true>",
-            (6, 6, 2, 2, 6, 12, (0, 1, 2, 8, 9), 0), (40,), _KV_WORDS,
-            (("n_replicas", 4), ("chaos", True), ("payload", True)),
-        ),
-        KernelModel(
-            "kvchaos-record", "kvchaos-record", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, true, false>",
-            (6, 4, 2, 0, 6, 12, (0, 1, 2), 3), (40, 192), _KV_WORDS,
-            (*_KV_FIXED, ("record", True), ("bug", False)),
-        ),
-        KernelModel(
-            "kvchaos-bug", "kvchaos-bug", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, true, true>",
-            (6, 4, 2, 0, 6, 12, (0, 1, 2), 3), (40, 192), _KV_WORDS,
-            (*_KV_FIXED, ("record", True), ("bug", True)),
-        ),
-        KernelModel(
-            "raftlog", "raftlog", "model_raftlog.cuh", "madsim::RaftLogModel<false>",
-            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 0), (64,),
-            _RAFTLOG_WORDS, _RAFTLOG_FIXED,
-        ),
-        KernelModel(
-            "raftlog-record", "raftlog-record", "model_raftlog.cuh",
-            "madsim::RaftLogModel<true>",
-            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 4), (64,),
-            _RAFTLOG_WORDS, _RAFTLOG_FIXED,
-        ),
-        KernelModel(
-            "snapshot", "snapshot", "model_snapshot.cuh",
-            "madsim::SnapshotModel", (5, 6, 2, 0, 6, 5, (), 0), (96,),
-            ("n_sends", "balance", "amount_max", "send_min_ns",
-             "send_max_ns", "snap_min_ns", "snap_max_ns"),
-            (("n_nodes", 5),),
-        ),
-        KernelModel(
-            "twophase", "twophase", "model_twophase.cuh",
-            "madsim::TwoPhaseModel<false>", (5, 6, 3, 0, 10, 9, (), 0), (64,),
-            _TWOPHASE_WORDS, (("n_parts", 4), ("chaos", True)),
-        ),
-        KernelModel(
-            "twophase-record", "twophase-record", "model_twophase.cuh",
-            "madsim::TwoPhaseModel<true>", (5, 6, 3, 0, 10, 9, (), 1), (64,),
-            _TWOPHASE_WORDS, (("n_parts", 4), ("chaos", True)),
-        ),
-        KernelModel(
-            "paxos", "paxos", "model_paxos.cuh", "madsim::PaxosModel<false>",
-            (8, 10, 3, 0, 7, 8, (0, 1, 2, 3, 4), 0), (64,),
-            _PAXOS_WORDS, _PAXOS_FIXED,
-        ),
-        KernelModel(
-            "paxos-record", "paxos-record", "model_paxos.cuh",
-            "madsim::PaxosModel<true>", (8, 10, 3, 0, 7, 8, (0, 1, 2, 3, 4), 1),
-            (64,), _PAXOS_WORDS, _PAXOS_FIXED,
-        ),
-        KernelModel(
-            "leasekv", "leasekv", "model_leasekv.cuh", "madsim::LeaseKvModel<false>",
-            (5, 6, 2, 0, 6, 15, (0, 1, 2), 0), (48,), _LEASE_WORDS, _LEASE_FIXED,
-            obs_pools=(48,),
-        ),
-        KernelModel(
-            "leasekv-record", "leasekv-record", "model_leasekv.cuh",
-            "madsim::LeaseKvModel<true, false>", (5, 6, 2, 0, 6, 15, (0, 1, 2), 3),
-            (48,), _LEASE_WORDS, (*_LEASE_FIXED, ("record", True), ("bug", False)),
-        ),
-        KernelModel(
-            "leasekv-bug", "leasekv-bug", "model_leasekv.cuh",
-            "madsim::LeaseKvModel<true, true>", (5, 6, 2, 0, 6, 15, (0, 1, 2), 3),
-            (48,), _LEASE_WORDS, (*_LEASE_FIXED, ("record", True), ("bug", True)),
-        ),
-        KernelModel(
-            "shardkv", "shardkv", "model_shardkv.cuh", "madsim::ShardKvModel<false>",
-            (14, 17, 3, 0, 6, 15, (0, 1, 2), 0), (64,), _SHARD_WORDS, _SHARD_FIXED,
-            obs_pools=(64,),
-        ),
-        KernelModel(
-            "shardkv-record", "shardkv-record", "model_shardkv.cuh",
-            "madsim::ShardKvModel<true, false>", (14, 17, 3, 0, 6, 15, (0, 1, 2), 1),
-            (64,), _SHARD_WORDS, (*_SHARD_FIXED, ("record", True), ("bug", False)),
-        ),
-        KernelModel(
-            "shardkv-bug", "shardkv-bug", "model_shardkv.cuh",
-            "madsim::ShardKvModel<true, true>", (14, 17, 3, 0, 6, 15, (0, 1, 2), 1),
-            (64,), _SHARD_WORDS, (*_SHARD_FIXED, ("record", True), ("bug", True)),
-        ),
-        KernelModel(
-            "kvchaos-record-nochaos", "kvchaos-record", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, true, false, false>", _KV_NOCHAOS_SHAPE,
-            (96, 192), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", False)),
-        ),
-        KernelModel(
-            "kvchaos-bug-nochaos", "kvchaos-bug", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, true, true, false>", _KV_NOCHAOS_SHAPE,
-            (96, 192), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", True)),
-            obs_pools=(192,),
-        ),
-        KernelModel(
-            "kvchaos-record-nochaos-dup", "kvchaos-record", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, true, false, false>", _KV_NOCHAOS_SHAPE,
-            (96, 192), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", False)),
-            dup=True,
-        ),
-        KernelModel(
-            "paxos-record-nochaos", "paxos-record", "model_paxos.cuh",
-            "madsim::PaxosModel<true, false>", (8, 10, 3, 0, 7, 8, (0, 1), 1), (96,),
-            _PAXOS_WORDS, (("n_acceptors", 5), ("n_proposers", 3), ("chaos", False),
-                           ("durable_acceptors", False)),
-        ),
-        KernelModel(
-            "twophase-record-nochaos", "twophase-record", "model_twophase.cuh",
-            "madsim::TwoPhaseModel<true, false>", _TP_NOCHAOS_SHAPE, (96,),
-            _TWOPHASE_WORDS, _TP_NOCHAOS,
-        ),
-        KernelModel(
-            "twophase-record-nochaos-dup", "twophase-record", "model_twophase.cuh",
-            "madsim::TwoPhaseModel<true, false>", _TP_NOCHAOS_SHAPE, (96,),
-            _TWOPHASE_WORDS, _TP_NOCHAOS, dup=True,
-        ),
-        # the storage libraries: raftlog durable=True with its own chaos
-        # (the raftlog bench pool and the store soak's), and the store
-        # soak's record variants without it, correct and nosync
-        KernelModel(
-            "raftlog-durable", "raftlog", "model_raftlog.cuh",
-            "madsim::RaftLogModel<false, true, true>",
-            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 0), (64, 128), _RAFTLOG_WORDS,
-            (*_RAFTLOG_DURABLE, ("cov_spread", False)), sync=True,
-        ),
-        # raftlog durable=True with cov_spread: its coverage features are
-        # the trait's (the coverage searches of the card's smoke run)
-        KernelModel(
-            "raftlog-durable-spread", "raftlog", "model_raftlog.cuh",
-            "madsim::RaftLogModel<false, true, true, false, true>",
-            (5, 12, 4, 4, 7, 8, (0, 1, 2, 3, 4), 0), (64,), _RAFTLOG_WORDS,
-            (*_RAFTLOG_DURABLE, ("cov_spread", True)), sync=True, obs_pools=(64,),
-        ),
-        KernelModel(
-            "raftlog-durable-record", "raftlog-record", "model_raftlog.cuh",
-            "madsim::RaftLogModel<true, false, true>", _RAFTLOG_STORE_SHAPE, (96, 128),
-            _RAFTLOG_WORDS, _RAFTLOG_STORE, sync=True,
-        ),
-        KernelModel(
-            "raftlog-nosync-record", "raftlog-nosync-record", "model_raftlog.cuh",
-            "madsim::RaftLogModel<true, false, true, true>", _RAFTLOG_STORE_SHAPE, (128,),
-            _RAFTLOG_WORDS, (*_RAFTLOG_STORE, ("bug", "nosync")), sync=True,
-            obs_pools=(128,),
-        ),
-        KernelModel(
-            "kvchaos-army-nochaos", "kvchaos-army", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, false, false, false, true, 2, 3>",
-            (4, 4, 2, 0, 6, 15, (), 0), (160,), _KV_WORDS, _KV_ARMY_SOAK, obs_pools=(160,),
-            lat=1,
-        ),
-        KernelModel(
-            "kvchaos-record-army", "kvchaos-record-army", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, true, false, true, true, 4, 2>",
-            (6, 4, 2, 0, 6, 15, (0, 1, 2), 3), (72,), _KV_WORDS, _KV_ARMY_GOLDEN,
-            obs_pools=(72,), lat=1,
-        ),
-        KernelModel(
-            "raftlog-record-army", "raftlog-record-army", "model_raftlog.cuh",
-            "madsim::RaftLogModel<true, true, false, false, false, true>",
-            (6, 12, 4, 4, 7, 11, (0, 1, 2, 3, 4), 4), (96,), _RAFTLOG_WORDS,
-            (*_RAFTLOG_FIXED, ("army", True)), obs_pools=(96,), lat=1,
-        ),
-        KernelModel(
-            "leasekv-army", "leasekv-army", "model_leasekv.cuh",
-            "madsim::LeaseKvModel<false, false, true, 1>", (5, 6, 2, 0, 6, 18, (0, 1, 2), 0),
-            (48,), _LEASE_WORDS, _LEASE_ARMY, lat=1,
-        ),
-        KernelModel(
-            "leasekv-record-nochaos", "leasekv-record", "model_leasekv.cuh",
-            "madsim::LeaseKvModel<true, false, false, 1, false>",
-            (5, 6, 2, 0, 6, 15, (), 3), (48,), (*_LEASE_WORDS, "ka_stop_ms"),
-            _LEASE_NOCHAOS,
-        ),
-        KernelModel(
-            "shardkv-record-army-nochaos", "shardkv-record-army", "model_shardkv.cuh",
-            "madsim::ShardKvModel<true, false, false, true, 1>",
-            (14, 17, 3, 0, 6, 18, (), 1), (96,), _SHARD_WORDS, _SHARD_ARMY, lat=1,
-        ),
-        # the causal soak's libraries (tools/causal_soak.py): kvchaos-bug
-        # without its own chaos with the duplication rows (the Duplicate
-        # and GrayFailure plan of its exact-arrow certificate), and the
-        # 16-write diskless raftlog-record of its cone hunt. That one's
-        # pool rows carry 16 payload words, some 21 KB of shared memory a
-        # seed with the causal tail, so a block holds 4 seeds of 32 lanes
-        KernelModel(
-            "kvchaos-bug-nochaos-dup", "kvchaos-bug", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, true, true, false>", _KV_NOCHAOS_SHAPE,
-            (192,), _KV_WORDS, (*_KV_NOCHAOS, ("record", True), ("bug", True)),
-            dup=True, obs_pools=(192,),
-        ),
-        KernelModel(
-            "raftlog-record-w16-nochaos", "raftlog-record", "model_raftlog.cuh",
-            "madsim::RaftLogModel<true, false, false, false, false, false, 16>",
-            _RAFTLOG_W16_SHAPE, (192,), _RAFTLOG_WORDS, _RAFTLOG_W16, group=32,
-            obs_pools=(192,),
-        ),
-        # the retry soak's libraries: every army library runs the retry
-        # timers (they compile into each trait with latency markers);
-        # these two carry the soak's kvchaos shape and its noidem hunt
-        KernelModel(
-            "kvchaos-record-army-r2-nochaos", "kvchaos-record-army", "model_kvchaos.cuh",
-            "madsim::KvChaosModel<false, true, false, false, true, 2, 1>",
-            (4, 4, 2, 0, 6, 15, (), 3), (96,), _KV_WORDS, _KV_ARMY_RETRY, lat=1,
-        ),
-        KernelModel(
-            "shardkv-noidem-army-nochaos", "shardkv-noidem-army", "model_shardkv.cuh",
-            "madsim::ShardKvModel<true, false, false, true, 1, true>",
-            (14, 17, 3, 0, 6, 18, (), 1), (96,), _SHARD_WORDS, _SHARD_NOIDEM, lat=1,
-            obs_pools=(96,),
-        ),
-        # the explore soak's diskless-raftlog hunt (tools/explore_soak.py):
-        # raftlog-record without its own chaos or a disk, driven by the
-        # hunt's crash storm and flapping partition with coverage on
-        KernelModel(
-            "raftlog-record-nochaos", "raftlog-record", "model_raftlog.cuh",
-            "madsim::RaftLogModel<true, false>", _RAFTLOG_STORE_SHAPE, (128,),
-            _RAFTLOG_WORDS, _RAFTLOG_NOCHAOS, obs_pools=(128,),
-        ),
-    )
+
+
+def _kv(nr=4, chaos=True, payload=False, record=False, bug=False, army=False, probes=1):
+    return (("n_replicas", nr), ("chaos", chaos), ("payload", payload), ("record", record),
+            ("bug", bug), ("army", army), ("army_probes", probes))
+
+
+def _raftlog(chaos=True, durable=False, bug=None, spread=False, army=False, w=4, n=5):
+    return (("n_nodes", n), ("n_writes", w), ("chaos", chaos), ("durable", durable),
+            ("bug", bug), ("cov_spread", spread), ("army", army))
+
+
+def _lease(chaos=True, record=False, bug=False, army=False, probes=1, c=3):
+    return (("n_clients", c), ("chaos", chaos), ("record", record), ("bug", bug),
+            ("army", army), ("army_probes", probes))
+
+
+def _shard(chaos=True, record=False, bug=False, army=False, probes=1, g=4, gs=3, ns=8):
+    return (("n_groups", g), ("group_size", gs), ("n_shards", ns), ("chaos", chaos),
+            ("record", record), ("bug", bug), ("army", army), ("army_probes", probes))
+
+
+def _targs(trait: str, args: tuple, alias: str | None = None) -> str:
+    """``madsim::<trait><...>`` with the template arguments ``args``
+    (``(value, default)`` pairs, default None where the trait has none)
+    in C++, the trailing ones at their defaults left out but the first;
+    ``alias`` names the instantiation whose arguments are all defaults,
+    where the header has one."""
+    vals = list(args)
+    while vals and vals[-1][1] is not None and vals[-1][0] == vals[-1][1]:
+        vals.pop()
+    if not vals and alias is not None:
+        return f"madsim::{alias}"
+    vals = vals or list(args[:1])
+    text = ", ".join(str(v).lower() if isinstance(v, bool) else str(int(v)) for v, _d in vals)
+    return f"madsim::{trait}<{text}>"
+
+
+def _tokens(*pairs) -> tuple:
+    """The key's tokens: each ``(token, on)`` whose ``on`` holds."""
+    return tuple(t for t, on in pairs if on)
+
+
+def _family_raft(wl, p, rec):
+    n = p["n_nodes"]
+    return dict(
+        cxx=_targs("RaftModel", ((rec, None), (n, 5))),
+        shape=(n, 6, 2, 0, n + 1, 5, 1 if rec else 0),
+        words=("timeout_min_ns", "timeout_max_ns"), fixed=(("n_nodes", n),),
+        tokens=_tokens((f"n{n}", n != 5)))
+
+
+def _family_microbench(wl, p, rec):
+    return dict(cxx="madsim::MicrobenchModel", shape=(1, 4, 2, 0, 2, 2, 0),
+                words=("rounds", "delay_min_ns", "delay_max_ns"), fixed=(), tokens=())
+
+
+def _family_pingpong(wl, p, rec):
+    c = p["n_clients"]
+    return dict(cxx=_targs("PingpongModelT", ((c, 2),), "PingpongModel"),
+                shape=(1 + c, 4, 2, 0, 2, 4, 0), words=("rounds",),
+                fixed=(("n_clients", c),), tokens=_tokens((f"c{c}", c != 2)))
+
+
+def _family_broadcast(wl, p, rec):
+    n, part = p["n_nodes"], bool(p["partition"])
+    return dict(cxx=_targs("BroadcastModelT", ((n, 5), (part, True)), "BroadcastModel"),
+                shape=(n, 4, 2, 0, max(n + 2, 6), 4, 0), words=("rounds", "retx_ns"),
+                fixed=(("n_nodes", n), ("partition", part)),
+                tokens=_tokens((f"n{n}", n != 5), ("nopartition", not part)))
+
+
+def _family_snapshot(wl, p, rec):
+    n = p["n_nodes"]
+    return dict(cxx=_targs("SnapshotModelT", ((n, 5),), "SnapshotModel"),
+                shape=(n, 6, 2, 0, n + 1, 5, 0),
+                words=("n_sends", "balance", "amount_max", "send_min_ns", "send_max_ns",
+                       "snap_min_ns", "snap_max_ns"),
+                fixed=(("n_nodes", n),), tokens=_tokens((f"n{n}", n != 5)))
+
+
+def _family_kvchaos(wl, p, rec):
+    nr, chaos, payload = p["n_replicas"], bool(p["chaos"]), bool(p["payload"])
+    bug, army = bool(p["bug"]), bool(p["army"])
+    probes = p["army_probes"] if army else 1
+    return dict(
+        cxx=_targs("KvChaosModel", ((payload, None), (rec, False), (bug, False), (chaos, True),
+                                    (army, False), (nr, 4), (probes, 1))),
+        shape=(nr + 2, 6 if payload else 4, 2, 2 if payload else 0, max(nr + 2, 6),
+               15 if army else 12, 3 if rec else 0),
+        words=_KV_WORDS,
+        fixed=_kv(nr, chaos, payload, p["record"], p["bug"], army, p["army_probes"]),
+        tokens=_tokens(("nochaos", not chaos), (f"r{nr}", nr != 4),
+                       (f"pr{probes}", probes != 1)),
+        lat=1 if army else 0)
+
+
+def _family_raftlog(wl, p, rec):
+    n, w, chaos, durable = p["n_nodes"], p["n_writes"], bool(p["chaos"]), bool(p["durable"])
+    nosync, spread, army = p["bug"] == "nosync", bool(p["cov_spread"]), bool(p["army"])
+    return dict(
+        cxx=_targs("RaftLogModel", ((rec, False), (chaos, True), (durable, False),
+                                    (nosync, False), (spread, False), (army, False),
+                                    (w, 4), (n, 5))),
+        shape=(n + (1 if army else 0), 8 + w, 4, w, n + 2, 11 if army else 8,
+               max(w, 1) if rec else 0),
+        words=_RAFTLOG_WORDS,
+        fixed=_raftlog(chaos, durable, p["bug"], spread, army, w, n), sync=durable,
+        lat=1 if army else 0,
+        tokens=_tokens(("nochaos", not chaos), ("durable", durable and not nosync),
+                       ("spread", spread), (f"w{w}", w != 4), (f"n{n}", n != 5)))
+
+
+def _family_twophase(wl, p, rec):
+    n, chaos = p["n_parts"], bool(p["chaos"])
+    return dict(cxx=_targs("TwoPhaseModel", ((rec, False), (chaos, True), (n, 4))),
+                shape=(1 + n, 6, 3, 0, max(2 * n + 1, n + 6, 6), 9, 1 if rec else 0),
+                words=_TWOPHASE_WORDS, fixed=(("n_parts", n), ("chaos", chaos)),
+                tokens=_tokens(("nochaos", not chaos), (f"p{n}", n != 4)))
+
+
+def _family_paxos(wl, p, rec):
+    na, np_, chaos = p["n_acceptors"], p["n_proposers"], bool(p["chaos"])
+    dur = bool(p["durable_acceptors"])
+    return dict(
+        cxx=_targs("PaxosModel", ((rec, False), (chaos, True), (dur, False), (na, 5),
+                                  (np_, 3))),
+        shape=(na + np_, 10, 3, 0, max(na + 2, np_ + 1, 3), 8, 1 if rec else 0),
+        words=_PAXOS_WORDS,
+        fixed=(("n_acceptors", na), ("n_proposers", np_), ("chaos", chaos),
+               ("durable_acceptors", dur)),
+        tokens=_tokens(("nochaos", not chaos), ("durable", dur), (f"a{na}", na != 5),
+                       (f"p{np_}", np_ != 3)))
+
+
+def _family_leasekv(wl, p, rec):
+    c, chaos, army = p["n_clients"], bool(p["chaos"]), bool(p["army"])
+    bug = bool(p["bug"])
+    probes = p["army_probes"] if army else 1
+    # the stall's word: in every library without chaos (None passes
+    # NO_WORD), and with chaos where a stall is set
+    stall = not chaos or p["ka_stop_ms"] is not None
+    return dict(
+        cxx=_targs("LeaseKvModel", ((rec, False), (bug, False), (army, False), (probes, 1),
+                                    (chaos, True), (c, 3), (stall, not chaos))),
+        shape=(c + 2, max(c + 3, 4), 2, 0, max(c + 1, 6), 18 if army else 15,
+               max(c, 1) if rec else 0),
+        words=(*_LEASE_WORDS, "ka_stop_ms") if stall else _LEASE_WORDS,
+        fixed=_lease(chaos, p["record"], p["bug"], army, p["army_probes"], c),
+        tokens=_tokens(("nochaos", not chaos), (f"c{c}", c != 3), (f"pr{probes}", probes != 1),
+                       ("stall", chaos and stall)),
+        lat=1 if army else 0)
+
+
+def _family_shardkv(wl, p, rec):
+    g, gs, ns, chaos = p["n_groups"], p["group_size"], p["n_shards"], bool(p["chaos"])
+    army, bug = bool(p["army"]), p["bug"]
+    probes = p["army_probes"] if army else 1
+    return dict(
+        cxx=_targs("ShardKvModel", ((rec, False), (bug is True, False), (chaos, True),
+                                    (army, False), (probes, 1), (bug == "noidem", False),
+                                    (g, 4), (gs, 3), (ns, 8))),
+        shape=(2 + g * gs, max(2 * ns + 1, 8), 3, 0, max(gs + 1, 6), 18 if army else 15,
+               1 if rec else 0),
+        words=_SHARD_WORDS,
+        fixed=_shard(chaos, p["record"], bug, army, p["army_probes"], g, gs, ns),
+        tokens=_tokens(("nochaos", not chaos), (f"pr{probes}", probes != 1),
+                       (f"g{g}", g != 4), (f"gs{gs}", gs != 3), (f"s{ns}", ns != 8)),
+        lat=1 if army else 0)
+
+
+# family -> (header, the derivation of a workload's library: its trait
+# with template arguments, compile-time shape (N, U, A, W, K, H, R),
+# runtime words, fixed parameters, key tokens and sync discipline), by
+# the workload's name: "raft-election*" is raft, any other the word
+# before its first "-"
+FAMILIES = {
+    "raft": ("model_raft.cuh", _family_raft),
+    "microbench": ("model_microbench.cuh", _family_microbench),
+    "pingpong": ("model_pingpong.cuh", _family_pingpong),
+    "broadcast": ("model_broadcast.cuh", _family_broadcast),
+    "snapshot": ("model_snapshot.cuh", _family_snapshot),
+    "kvchaos": ("model_kvchaos.cuh", _family_kvchaos),
+    "raftlog": ("model_raftlog.cuh", _family_raftlog),
+    "twophase": ("model_twophase.cuh", _family_twophase),
+    "paxos": ("model_paxos.cuh", _family_paxos),
+    "leasekv": ("model_leasekv.cuh", _family_leasekv),
+    "shardkv": ("model_shardkv.cuh", _family_shardkv),
 }
+
+
+def family_of(name: str):
+    """The model family of a workload name, or None."""
+    if name == "raft-election" or name.startswith("raft-election-"):
+        return "raft"
+    head = name.split("-")[0]
+    return head if head in FAMILIES and head != "raft" else None
+
 
 # the fields the kernel reads (and, but for seed, writes), in the
 # pointer order of Fields (csrc/engine_step.cuh); ev_pay is read and
@@ -635,42 +550,283 @@ def workload_shape(wl: Workload) -> tuple:
     )
 
 
+def derive_model(wl: Workload, dup_rows: bool = False) -> KernelModel:
+    """The library of ``wl`` derived through :data:`FAMILIES` (built with
+    the duplication rows when ``dup_rows``), with no pool: the launch
+    instantiates the state's (:func:`library_at`). Raise
+    ``NotImplementedError`` for a workload whose family has no trait in
+    csrc/, whose ``model_params`` lack the family's, or whose shape is not
+    its trait's."""
+    fam = family_of(wl.name)
+    if fam is None:
+        raise NotImplementedError(
+            f"the fused run kernel carries no model {wl.name!r}: its families are "
+            f"{sorted(FAMILIES)}, each a trait in csrc/ (another workload needs a "
+            f"trait and an entry in FAMILIES); run the eager plain step on "
+            f"a CUDA state explicitly with make_run_plain or make_run_while_plain"
+        )
+    header, derive = FAMILIES[fam]
+    p = dict(wl.model_params)
+    try:
+        d = derive(wl, p, wl.history is not None)
+    except KeyError as missing:
+        raise NotImplementedError(
+            f"workload {wl.name!r} has no model_params {missing}: the {fam} trait is "
+            f"derived from the factory's parameters (models.make_{fam})"
+        ) from None
+    got = workload_shape(wl)
+    lat, sync = d.get("lat", 0), d.get("sync", False)
+    want, have = d["shape"], (*got[:6], got[7])
+    if want != have or lat != wl.lat_markers or sync != wl.durable_sync:
+        raise NotImplementedError(
+            f"the fused run kernel's {fam} trait {d['cxx']} is compiled for {wl.name!r} "
+            f"with (N, U, A, W, K, H, R) = {want}, {lat} latency markers and sync "
+            f"discipline {sync}; the workload has {have}, {wl.lat_markers} and "
+            f"{wl.durable_sync}, with {p}"
+        )
+    base = "raft" + wl.name[len("raft-election"):] if fam == "raft" else wl.name
+    key = "-".join((base, *d["tokens"], *(("dup",) if dup_rows else ())))
+    if not re.fullmatch(r"[A-Za-z0-9-]+", key):
+        raise NotImplementedError(f"workload name {wl.name!r} makes no library key: {key!r}")
+    return KernelModel(key, wl.name, header, d["cxx"], got, (), d["words"], d["fixed"],
+                       dup=bool(dup_rows), sync=sync, lat=lat)
+
+
+# the registered libraries: (key, family, factory kwargs, pools, then
+# obs_pools, group and dup where not their defaults); each entry is its
+# factory workload's derivation, built at these pools. The factories'
+# default and record (and bug) variants at the model's BENCH_SPECS or
+# SOAK_SPECS pool (raft also at the pools of the entry shape and the
+# tests, raft-record at the nemesis soak's, kvchaos's record variants at
+# the JAX package's history-search pool); the chaos=False variants that
+# fault plans drive (tools/nemesis_soak.py's certificates, the port's
+# plan tests) at the pools of those runs (96: the JAX tests' kv_cfg and
+# the soak's paxos and twophase; 192: the soak's kvchaos), two of them
+# also with the duplication rows; then the storage, army, causal, retry
+# and explore soaks' libraries. A key is the library's own name, not
+# always its derived one (kvchaos-record-army has two probes).
+_R, _NC = dict(record=True), dict(chaos=False)
+_REGISTERED = (
+    ("raft", "raft", {}, (40, 64, 128, 256), (40, 64)),
+    ("raft-record", "raft", _R, (40, 64)),
+    ("microbench", "microbench", {}, (32,)),
+    ("pingpong", "pingpong", {}, (32,)),
+    ("broadcast", "broadcast", {}, (40,)),
+    ("kvchaos", "kvchaos", {}, (40,)),
+    ("kvchaos-payload", "kvchaos", dict(payload=True), (40,)),
+    ("kvchaos-record", "kvchaos", _R, (40, 192)),
+    ("kvchaos-bug", "kvchaos", dict(_R, bug=True), (40, 192)),
+    ("raftlog", "raftlog", {}, (64,)),
+    ("raftlog-record", "raftlog", _R, (64,)),
+    ("snapshot", "snapshot", {}, (96,)),
+    ("twophase", "twophase", {}, (64,)),
+    ("twophase-record", "twophase", _R, (64,)),
+    ("paxos", "paxos", {}, (64,)),
+    ("paxos-record", "paxos", _R, (64,)),
+    ("leasekv", "leasekv", {}, (48,), (48,)),
+    ("leasekv-record", "leasekv", _R, (48,)),
+    ("leasekv-bug", "leasekv", dict(_R, bug=True), (48,)),
+    ("shardkv", "shardkv", {}, (64,), (64,)),
+    ("shardkv-record", "shardkv", _R, (64,)),
+    ("shardkv-bug", "shardkv", dict(_R, bug=True), (64,)),
+    ("kvchaos-record-nochaos", "kvchaos", dict(_R, **_NC), (96, 192)),
+    ("kvchaos-bug-nochaos", "kvchaos", dict(_R, bug=True, **_NC), (96, 192), (192,)),
+    ("kvchaos-record-nochaos-dup", "kvchaos", dict(_R, **_NC), (96, 192), (), GROUP, True),
+    ("paxos-record-nochaos", "paxos", dict(_R, **_NC), (96,)),
+    ("twophase-record-nochaos", "twophase", dict(_R, **_NC), (96,)),
+    ("twophase-record-nochaos-dup", "twophase", dict(_R, **_NC), (96,), (), GROUP, True),
+    # the storage libraries: raftlog durable=True with its own chaos
+    # (the raftlog bench pool and the store soak's), with cov_spread (its
+    # coverage features are the trait's: the coverage searches of the
+    # card's smoke run), and the store soak's record variants without
+    # chaos, correct and nosync
+    ("raftlog-durable", "raftlog", dict(durable=True), (64, 128)),
+    ("raftlog-durable-spread", "raftlog", dict(durable=True, cov_spread=True), (64,), (64,)),
+    ("raftlog-durable-record", "raftlog", dict(_R, durable=True, **_NC), (96, 128)),
+    ("raftlog-nosync-record", "raftlog", dict(_R, durable=True, bug="nosync", **_NC), (128,),
+     (128,)),
+    # the client-army libraries, each with one latency marker a call: the
+    # latency soak's kvchaos at pool 160, the step goldens' kvchaos and
+    # raftlog army scenarios with the taps, leasekv, and shardkv-record
+    # without its own chaos
+    ("kvchaos-army-nochaos", "kvchaos",
+     dict(n_replicas=2, army=True, army_probes=3, **_NC), (160,), (160,)),
+    ("kvchaos-record-army", "kvchaos", dict(_R, army=True, army_probes=2), (72,), (72,)),
+    ("raftlog-record-army", "raftlog", dict(_R, army=True), (96,), (96,)),
+    ("leasekv-army", "leasekv", dict(army=True), (48,)),
+    # leasekv-record without its own chaos, whose client 1 may stall its
+    # keepalives (ka_stop_ms a word, None passing NO_WORD): the etcd lease
+    # convergence (tests/test_leasekv.py's dual-mode scenario)
+    ("leasekv-record-nochaos", "leasekv", dict(_R, **_NC), (48,)),
+    ("shardkv-record-army-nochaos", "shardkv", dict(_R, army=True, **_NC), (96,)),
+    # the causal soak's (tools/causal_soak.py): kvchaos-bug without chaos
+    # with the duplication rows (its exact-arrow certificate), and the
+    # 16-write diskless raftlog-record of its cone hunt, whose pool rows
+    # carry 16 payload words, some 21 KB a seed with the causal tail, so a
+    # block holds 4 seeds of 32 lanes
+    ("kvchaos-bug-nochaos-dup", "kvchaos", dict(_R, bug=True, **_NC), (192,), (192,), GROUP,
+     True),
+    ("raftlog-record-w16-nochaos", "raftlog", dict(_R, n_writes=16, **_NC), (192,), (192,),
+     32),
+    # the retry soak's (every army library runs the retry timers): its
+    # kvchaos shape and its noidem hunt
+    ("kvchaos-record-army-r2-nochaos", "kvchaos", dict(_R, n_replicas=2, army=True, **_NC),
+     (96,)),
+    ("shardkv-noidem-army-nochaos", "shardkv", dict(_R, bug="noidem", army=True, **_NC),
+     (96,), (96,)),
+    # the explore soak's diskless-raftlog hunt (tools/explore_soak.py),
+    # driven by its crash storm and flapping partition with coverage on
+    ("raftlog-record-nochaos", "raftlog", dict(_R, **_NC), (128,), (128,)),
+)
+_MODELS: dict | None = None
+
+
+def _registry() -> dict:
+    """:data:`MODELS`, derived on first use (the factories import the
+    engine, so not at import)."""
+    global _MODELS
+    if _MODELS is None:
+        from .. import models
+
+        def entry(key, fam, kw, pools, obs_pools=(), group=GROUP, dup=False):
+            wl = getattr(models, f"make_{fam}")(**kw)
+            return dataclasses.replace(derive_model(wl, dup), key=key, pools=pools,
+                                       obs_pools=obs_pools, group=group)
+
+        _MODELS = {e[0]: entry(*e) for e in _REGISTERED}
+    return _MODELS
+
+
+def __getattr__(name: str):
+    if name == "MODELS":
+        return _registry()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def kernel_model(wl: Workload, dup_rows: bool = False) -> KernelModel:
-    """The registered library that carries ``wl`` (built with the
-    duplication rows when ``dup_rows``); raise ``NotImplementedError``
-    for any other name, shape, variant or build."""
-    cands = [m for m in MODELS.values() if m.name == wl.name]
-    if not cands:
-        raise NotImplementedError(
-            f"the fused run kernel carries no model {wl.name!r}; its libraries "
-            f"are {sorted(MODELS)} (another workload needs a model trait in "
-            f"csrc/ and an entry in MODELS: ROADMAP queue B1)"
-        )
-    shape = workload_shape(wl)
-    params = dict(wl.model_params)
+    """The library that carries ``wl`` (with the duplication rows when
+    ``dup_rows``): the registered :data:`MODELS` entry of its derived
+    trait, words and shape where one fits, else the derived library
+    (:func:`derive_model`, raising for a workload without a trait). A
+    derived key that a registered library of another unit holds gains a
+    short hash of its own unit."""
+    spec = derive_model(wl, dup_rows)
+    registry = _registry()
+    for m in registry.values():
+        if (m.name == spec.name and m.cxx == spec.cxx and m.dup == spec.dup
+                and m.words == spec.words and m.shape == spec.shape):
+            return m
+    if spec.key in registry:
+        unit = hashlib.sha256(spec.unit_source().encode()).hexdigest()[:8]
+        spec = dataclasses.replace(spec, key=f"{spec.key}-u{unit}")
+    return spec
 
-    def carries(spec):
-        fixed = {k: params.get(k) for k, _v in spec.fixed}
-        return (shape == spec.shape and fixed == dict(spec.fixed)
-                and spec.sync == wl.durable_sync and spec.lat == wl.lat_markers)
 
-    fits = [m for m in cands if carries(m)]
-    for spec in fits:
-        if spec.dup == bool(dup_rows):
-            return spec
-    built = ", ".join(
-        f"{m.key} ({dict(m.fixed)}{', dup_rows' if m.dup else ''})" for m in cands)
-    if fits:
+# a block's opt-in shared memory on the H100 (227 KB), less 1 KB for
+# the kernels' static words
+SMEM_LIMIT = 227 * 1024 - 1024
+# a lane's pool slots fit one 64-bit mask (csrc/lanes.cuh): pool / G <= 64
+_MAX_SLOTS_A_LANE = 64
+
+
+def _align(n: int, a: int) -> int:
+    return (n + a - 1) // a * a
+
+
+def seed_bytes(spec: KernelModel, pool: int, metrics: bool = True) -> int:
+    """``sizeof(madsim::Seed<Model, pool, metrics>)`` (csrc/engine_step.cuh),
+    the shared bytes of one seed without the taps, from the library's
+    compile-time shape: the bases (history counters, storage, counters),
+    then the members in declaration order, each at its alignment."""
+    n, u, a, w, k, _h, draws, r = spec.shape
+    e = pool
+    size = (8 if r > 0 else 0) + (_align(5 * n * u + 3 * n, 4) if spec.sync else 0)
+    size += 4 * N_METRICS if metrics else 0
+    size = _align(size, 8) + 8 * e + 5 * 8
+    emit = _align(24 + 4 * a + 4 * max(w, 1), 8)
+    size += emit * (k + 1 + (1 if spec.lat > 0 else 0))
+    kt = k + 1 + (k if spec.dup else 0)
+    words = (2 * e + e * a + (e * w if w else 1) + (e + 31) // 32 + 2 * n + n * u + n * n
+             + u + 2 * kt + max(len(draws), 1) + 2)
+    size += 4 * words + 2 * n + n * n + 2
+    return _align(size, 8)
+
+
+def obs_bytes(n_nodes: int, pool: int, cov_words: int = 0, cov_hitcount: bool = False,
+              timeline_cap: int = 0, causal: bool = False) -> int:
+    """The taps' shared tail of one seed (``obs_layout``,
+    csrc/engine_step.cuh): 0 with every tap off."""
+    b = (8 * pool + 8 if timeline_cap else 0) + (8 * pool + 4 * n_nodes if causal else 0)
+    if cov_words:
+        b += 4 * cov_words + 4 * n_nodes + (32 * cov_words if cov_hitcount else 0)
+    return _align(b, 16)
+
+
+def seed_stride(spec: KernelModel, pool: int, taps: tuple = (0, False, 0, False)) -> int:
+    """The shared bytes a seed takes in the run kernel with metrics under
+    ``taps`` (cov_words, hit counts, ring capacity, causal): its Seed, and
+    with a tap on the 16-aligned Seed and the tail (``seed_stride``)."""
+    sb = seed_bytes(spec, pool)
+    ob = obs_bytes(spec.shape[0], pool, *taps)
+    return _align(sb, 16) + ob if ob else sb
+
+
+def library_at(spec: KernelModel, pool: int, taps: tuple = (0, False, 0, False)
+               ) -> KernelModel:
+    """The library that runs ``spec``'s kernel at ``pool`` under
+    ``taps`` (cov_words, hit counts, ring capacity, causal: any on
+    launches the taps instantiation): ``spec`` itself where it is built
+    at that pool (and taps pool) and its block of ``threads / group``
+    seeds fits :data:`SMEM_LIMIT`; otherwise ``spec`` built at that one
+    pool (with the taps instantiation only if the run needs it), with
+    more lanes a seed where the pool outgrows a lane's 64 slots, and
+    with fewer threads a block (whole warps, whole groups) where its
+    seeds would not fit. Raise ``NotImplementedError`` where one seed
+    cannot fit, naming its bytes."""
+    obs = bool(taps[0] or taps[2] or taps[3])
+    group = spec.group
+    while pool > _MAX_SLOTS_A_LANE * group and group < 32:
+        group *= 2
+    if pool > _MAX_SLOTS_A_LANE * group:
         raise NotImplementedError(
-            f"no library of {wl.name!r} at this variant is built "
-            f"{'with' if dup_rows else 'without'} the duplication rows "
-            f"(dup_rows={bool(dup_rows)}); built: {built}; the others are "
-            f"ROADMAP queue B1"
-        )
-    raise NotImplementedError(
-        f"the fused run kernel is compiled for {wl.name!r} as {built}; got "
-        f"shape {shape} with {params}: other variants are ROADMAP queue B1"
-    )
+            f"pool_size={pool} is more than {_MAX_SLOTS_A_LANE} slots for each of a "
+            f"seed's 32 lanes: the run kernel takes pools up to "
+            f"{_MAX_SLOTS_A_LANE * 32}")
+    stride = seed_stride(spec, pool, taps)
+    fit = SMEM_LIMIT // stride
+    built = pool in spec.pools and (not obs or pool in spec.obs_pools)
+    if built and group == spec.group and fit >= spec.threads // spec.group:
+        return spec
+    if fit < 1:
+        raise NotImplementedError(
+            f"one seed of {spec.key!r} at pool_size={pool} takes {stride} bytes of "
+            f"shared memory (its state and the taps' tail), more than the "
+            f"{SMEM_LIMIT} bytes a block may hold: the run kernel keeps a seed's "
+            f"whole state on chip, as the TPU kernel keeps a block's in VMEM")
+    threads = min(THREADS // group, fit) * group
+    if threads >= 32:
+        threads -= threads % 32
+    key = (f"{spec.key}-p{pool}" + ("-obs" if obs else "")
+           + (f"-g{group}" if group != spec.group else "")
+           + (f"-t{threads}" if threads != THREADS else ""))
+    return dataclasses.replace(spec, key=key, pools=(pool,), obs_pools=(pool,) if obs else (),
+                               group=group, threads=threads)
+
+
+def state_taps(state: SimState) -> tuple:
+    """``(cov_words, hit counts, ring capacity, causal)`` of ``state``'s
+    columns, the taps a run of it launches with."""
+    cw, hc, tc = obs_widths(state)
+    return (cw, bool(hc), tc, causal_on(state))
+
+
+def library_for(wl: Workload, pool: int, dup_rows: bool = False, cov_words: int = 0,
+                cov_hitcount: bool = False, timeline_cap: int = 0,
+                causal: bool = False) -> KernelModel:
+    """The library a run of ``wl`` at ``pool`` with these taps launches:
+    :func:`kernel_model`, then :func:`library_at`."""
+    return library_at(kernel_model(wl, dup_rows), pool,
+                      (cov_words, bool(cov_hitcount), timeline_cap, bool(causal)))
 
 
 def config_words(wl: Workload, cfg: EngineConfig) -> tuple:
@@ -723,7 +879,7 @@ def build_libraries(specs=None) -> dict:
 
     Returns ``{key: (path, log)}``; ``log`` is nvcc's output, with the
     ``--resource-usage`` lines (registers, stack frame per thread)."""
-    specs = MODELS.values() if specs is None else specs
+    specs = _registry().values() if specs is None else specs
     out, running = {}, []
     for spec in specs:
         out_dir, lib, log_path = _paths(spec)
@@ -802,10 +958,17 @@ class RunKernel:
         self.counts[name] = self.counts.get(name, 0) + 1
 
     def is_loaded(self, spec: KernelModel) -> bool:
-        return spec.key in self._libs
+        return self._libs.get(spec.key, (None,))[0] == spec.unit_source()
 
     def load(self, spec: KernelModel):
-        lib = self._libs.get(spec.key)
+        """The library of ``spec``, built and loaded on first use; one key
+        names one translation unit in a process, else this raises."""
+        unit = spec.unit_source()
+        held, lib = self._libs.get(spec.key, (None, None))
+        if held is not None and held != unit:
+            raise RuntimeError(
+                f"library key {spec.key!r} is loaded for another translation unit; a key "
+                f"names one unit:\n{held}\nnot\n{unit}")
         if lib is None:
             path, _log = build_library(spec)
             lib = ctypes.CDLL(str(path))
@@ -832,7 +995,7 @@ class RunKernel:
                     f"and drain pointers, shadow rows, sync, obs pools, latency "
                     f"markers) = {tuple(got)}; model {spec.key!r} needs {want}"
                 )
-            self._libs[spec.key] = lib
+            self._libs[spec.key] = (unit, lib)
         return lib
 
     def launch(self, spec: KernelModel, state: SimState, out: SimState, tables,
@@ -984,26 +1147,15 @@ def kernel_args(state: SimState, out: SimState, tables, iters, tmax, cfg_words,
 
 def check_state(spec: KernelModel, wl: Workload, state: SimState) -> None:
     """Raise unless every field is a contiguous CUDA tensor of the
-    port's dtype and of the workload's shape, with a pool size the
-    model's kernel was compiled for; only a record library takes a
-    state with history rows, only a sync library one with storage rows;
-    ``met`` has no slot or all ``N_METRICS``; with a coverage, ring or
-    causal column, the taps' columns are those of ``make_init`` at the
-    state's widths (without, the kernel never reads them)."""
+    port's dtype and of the workload's shape (any pool: the launch's
+    library instantiates it, :func:`library_at`); only a record library
+    takes a state with history rows, only a sync library one with
+    storage rows; ``met`` has no slot or all ``N_METRICS``; with a
+    coverage, ring or causal column, the taps' columns are those of
+    ``make_init`` at the state's widths (without, the kernel never reads
+    them)."""
     dev = state.device
     s, e = state.ev_valid.shape
-    if e not in spec.pools:
-        raise ValueError(
-            f"pool_size={e} has no {spec.key} kernel instantiation; "
-            f"supported: {spec.pools}"
-        )
-    if has_obs(state) and e not in spec.obs_pools:
-        built = {m.key: m.obs_pools for m in MODELS.values() if m.obs_pools}
-        raise NotImplementedError(
-            f"library {spec.key!r} has no kernel with the coverage taps, the "
-            f"timeline ring and the causal columns at pool_size={e}; built: "
-            f"{built}; the others are ROADMAP queue B1"
-        )
     hcap = _history_capacity(wl)
     if (spec.shape[7] > 0) != (hcap > 0):
         raise NotImplementedError(
@@ -1151,6 +1303,7 @@ def _first_pass(wl: Workload, cfg: EngineConfig, state: SimState,
     device word)."""
     spec = kernel_model(wl, dup_rows)
     check_state(spec, wl, state)
+    spec = library_at(spec, state.ev_valid.shape[1], state_taps(state))
     dev = state.device
     out = fresh_outputs(state, spec.lat > 0)
     s = state.seed.shape[0]

@@ -173,35 +173,40 @@ def _compiled_run(wl: Workload, cfg: EngineConfig, max_steps: int,
         init, build = _build_init_run(wl, cfg, max_steps, compact, dev, hist_screen,
                                       plan_slots, dup_rows, metrics, cov_words,
                                       cov_hitcount, timeline_cap, latency, causal, retry)
+        taps = dict(cov_words=cov_words, cov_hitcount=cov_hitcount,
+                    timeline_cap=timeline_cap, causal=causal)
         _RUN_CACHE[key] = (init, AotProgram(
             "engine.search.run", key, build,
-            library=lambda: _library_build_s(wl, dev, dup_rows),
-            cost=lambda: launch_cost(wl, cfg, dev, dup_rows),
+            library=lambda: _library_build_s(wl, dev, dup_rows, cfg.pool_size, taps),
+            cost=lambda: launch_cost(wl, cfg, dev, dup_rows, taps),
         ))
     return _RUN_CACHE[key]
 
 
-def launch_cost(wl: Workload, cfg: EngineConfig, dev, dup_rows: bool = False) -> dict:
+def launch_cost(wl: Workload, cfg: EngineConfig, dev, dup_rows: bool = False,
+                taps: dict | None = None) -> dict:
     """The launch shape of the workload's run kernel at the config's
-    pool (``obs.prof.program_cost``) on the card; {} on the CPU or at a
-    pool the library has no build for."""
+    pool under ``taps`` (``fused.library_for``'s keywords;
+    ``obs.prof.program_cost``) on the card; {} on the CPU."""
     if dev.type != "cuda":
         return {}
     from ..obs.prof import program_cost
-    from .fused import kernel_model
+    from .fused import library_for
 
-    spec = kernel_model(wl, dup_rows)
-    return program_cost(spec, cfg.pool_size) if cfg.pool_size in spec.pools else {}
+    return program_cost(library_for(wl, cfg.pool_size, dup_rows, **(taps or {})),
+                        cfg.pool_size)
 
 
-def _library_build_s(wl: Workload, dev, dup_rows: bool = False) -> float:
+def _library_build_s(wl: Workload, dev, dup_rows: bool = False, pool: int = 0,
+                     taps: dict | None = None) -> float:
     """The seconds spent building and loading the workload's kernel
-    library on its first use in this process, else 0.0."""
+    library at ``pool`` under ``taps`` on its first use in this process,
+    else 0.0."""
     if dev.type != "cuda":
         return 0.0
-    from .fused import KERNEL, kernel_model
+    from .fused import KERNEL, library_for
 
-    spec = kernel_model(wl, dup_rows)
+    spec = library_for(wl, pool, dup_rows, **(taps or {}))
     if KERNEL.is_loaded(spec):
         return 0.0
     t0 = time.perf_counter()  # lint: allow(wall-clock)

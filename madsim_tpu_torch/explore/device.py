@@ -901,6 +901,7 @@ class _CampaignSession:
             history_check, str(dev),
             (mesh.size, mesh.rank) if mesh is not None else None,
         )
+        taps = dict(cov_words=cov_words, cov_hitcount=bool(cov_hitcount), causal=bool(causal))
         self.prog_uniform, self.prog_breed = _gen_programs(
             key,
             lambda: _Generation(
@@ -912,8 +913,8 @@ class _CampaignSession:
                 history_check=history_check, causal=causal, retry=retry, dev=dev,
                 mesh=mesh,
             ),
-            lambda: _library_build_s(wl, dev, space.uses_dup()),
-            lambda: launch_cost(wl, cfg, dev, space.uses_dup()),
+            lambda: _library_build_s(wl, dev, space.uses_dup(), cfg.pool_size, taps),
+            lambda: launch_cost(wl, cfg, dev, space.uses_dup(), taps),
             (wl, invariant, latency, space),
         )
 

@@ -125,3 +125,18 @@ def chaos3_spec(tmp_dir) -> fused.KernelModel:
         "chaos3", "chaos3", str(header), "Chaos3Model",
         fused.workload_shape(chaos3_workload()), (CHAOS_CFG["pool_size"],),
     )
+
+
+def chaos3_family(tmp_dir) -> tuple:
+    """The chaos3 model trait written to ``tmp_dir`` as an entry of
+    ``fused.FAMILIES``: its header and the derivation of its one variant
+    (the trait's compile-time shape (N, U, A, W, K, H, R), no runtime
+    words)."""
+    header = tmp_dir / "model_chaos3.cuh"
+    header.write_text(CHAOS3_MODEL)
+
+    def derive(wl, p, rec):
+        return dict(cxx="Chaos3Model", shape=(3, 3, 2, 0, 12, 3, 0), words=(), fixed=(),
+                    tokens=())
+
+    return str(header), derive

@@ -21,27 +21,38 @@ HOST_UNIT = r"""
 #include <memory>
 #include "{header}"
 {draws}
-namespace {{
+{threads}namespace {{
 using Model = {cxx};
 constexpr int G = {group};
+#ifndef MADSIM_THREADS
+#define MADSIM_THREADS G
+#endif
+// seeds a block, as the card's kernels take them (one by default)
+constexpr int kSeeds = MADSIM_THREADS / G;
+int nb_of(int64_t n, int64_t first) {{
+  return n - first < kSeeds ? static_cast<int>(n - first) : kSeeds;
+}}
 template <int E, bool MET, bool OBS>
 void run_all(const madsim::RunArgs& a, const Model::Params& p) {{
-  // one seed's Seed and, with OBS, its observability tail
-  const size_t bytes = madsim::seed_stride<madsim::Seed<Model, E, MET>, Model::N, E>(a.cfg);
+  // a block's seeds' Seed and, with OBS, their observability tails
+  const size_t bytes =
+      madsim::seed_stride<madsim::Seed<Model, E, MET>, Model::N, E>(a.cfg) * kSeeds;
   std::unique_ptr<madsim::Vec16[]> mem(new madsim::Vec16[(bytes + 15) / 16]());
   const auto blk = madsim::make_block<Model, E, MET, OBS>(
       reinterpret_cast<unsigned char*>(mem.get()), a.cfg);
   int64_t most = 0;
-  for (int64_t i = 0; i < a.n_seeds; i++) {{
-    const int64_t m = madsim::run_block<Model, E, G, MET, OBS>(blk, a, p, i, 1, 0, 1);
+  for (int64_t i = 0; i < a.n_seeds; i += kSeeds) {{
+    const int64_t m = madsim::run_block<Model, E, G, MET, OBS>(blk, a, p, i,
+                                                               nb_of(a.n_seeds, i), 0, 1);
     most = m > most ? m : most;
   }}
   if (a.tmax != nullptr) *a.tmax = most;
 }}
 template <int E>
 void drain_all(const madsim::DrainArgs& d) {{
-  auto blk = std::make_unique<madsim::DrainSeed<E>>();
-  for (int64_t i = 0; i < d.n_seeds; i++) madsim::drain_block<E, G>(blk.get(), d, i, 1, 0, 1);
+  auto blk = std::make_unique<madsim::DrainSeed<E>[]>(kSeeds);
+  for (int64_t i = 0; i < d.n_seeds; i += kSeeds)
+    madsim::drain_block<E, G>(blk.get(), d, i, nb_of(d.n_seeds, i), 0, 1);
 }}
 }}  // namespace
 extern "C" int host_run(void* const* ptrs, const int64_t* cfg, int64_t n,
@@ -51,6 +62,12 @@ extern "C" int host_run(void* const* ptrs, const int64_t* cfg, int64_t n,
   const Model::Params p = Model::params(cfg + madsim::kEngineWords);
   switch (pool) {{
 {run_cases}
+    default: return -1;
+  }}
+}}
+extern "C" int64_t host_seed_bytes(int32_t pool, int32_t metrics) {{
+  switch (pool) {{
+{bytes_cases}
     default: return -1;
   }}
 }}
@@ -64,13 +81,16 @@ extern "C" int host_drain(void* const* ptrs, int64_t n, int32_t pool) {{
 """
 
 
-def build_host_kernel(tmp_dir, spec, pools, group=None, obs=False):
+def build_host_kernel(tmp_dir, spec, pools, group=None, obs=False, threads=None):
     """g++ build of ``spec``'s device code (engine_step.cuh, lanes.cuh
     and its model header, MADSIM_HD = plain C++) with host entry points
-    that run the kernel's blocks, one seed each, over CPU tensors, with
-    ``group`` lanes per seed (the model's own by default) and, with
-    ``obs``, the instantiation with the coverage taps and the timeline
-    ring; a ctypes library."""
+    that run the kernel's blocks over CPU tensors, with ``group`` lanes
+    per seed (the model's own by default) and, with ``obs``, the
+    instantiation with the coverage taps and the timeline ring; a ctypes
+    library. A block holds one seed, or with ``threads`` (the unit's
+    MADSIM_THREADS) ``threads / group`` seeds, side by side in one
+    buffer as in the card's shared memory. ``host_seed_bytes(pool,
+    metrics)`` is the size of one seed's ``Seed`` at each pool."""
     if shutil.which("g++") is None:
         pytest.skip("g++ unavailable")
     group = spec.group if group is None else group
@@ -83,10 +103,15 @@ def build_host_kernel(tmp_dir, spec, pools, group=None, obs=False):
         f"else {{ {case(e, 'false')}; }} return 0;" for e in pools
     )
     drain_cases = "\n".join(f"    case {e}: drain_all<{e}>(d); return 0;" for e in pools)
+    bytes_cases = "\n".join(
+        f"    case {e}: return static_cast<int64_t>(metrics ? sizeof(madsim::Seed<Model, {e}, "
+        f"true>) : sizeof(madsim::Seed<Model, {e}, false>));" for e in pools)
     src = tmp_dir / f"host_{spec.key}_g{group}.cpp"
     src.write_text(HOST_UNIT.format(header=spec.header, draws=spec.traits_source(),
                                     cxx=spec.cxx, group=group,
-                                    run_cases=run_cases, drain_cases=drain_cases))
+                                    threads=f"#define MADSIM_THREADS {threads}\n" if threads else "",
+                                    run_cases=run_cases, drain_cases=drain_cases,
+                                    bytes_cases=bytes_cases))
     lib = tmp_dir / f"libhost_{spec.key}_g{group}.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O2", "-Wall", "-Wextra", "-Werror", "-shared",
@@ -100,6 +125,8 @@ def build_host_kernel(tmp_dir, spec, pools, group=None, obs=False):
                            i32]
     h.host_drain.restype = ctypes.c_int
     h.host_drain.argtypes = [ctypes.POINTER(ptr), i64, i32]
+    h.host_seed_bytes.restype = i64
+    h.host_seed_bytes.argtypes = [i32, i32]
     return h
 
 

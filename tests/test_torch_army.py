@@ -201,9 +201,11 @@ def test_host_built_army_kernel_with_the_tap_matches_the_plain_step(tmp_path_fac
 
 
 def test_the_registry_refuses_other_army_shapes():
-    with pytest.raises(NotImplementedError, match="B1"):
-        fused.kernel_model(tmodels.make_kvchaos(n_replicas=3, army=True))
-    with pytest.raises(NotImplementedError, match="B1"):
-        fused.kernel_model(tmodels.make_raftlog(army=True))  # chaos on, no record
+    """Other army shapes derive their own libraries, with the markers."""
+    for wl, key in ((tmodels.make_kvchaos(n_replicas=3, army=True), "kvchaos-army-r3"),
+                    (tmodels.make_raftlog(army=True), "raftlog-army")):  # chaos on, no record
+        spec = fused.kernel_model(wl)
+        assert spec.key == key and spec.lat == wl.lat_markers == 1
+        assert spec.shape == fused.workload_shape(wl)
     # an army workload never matches a library without markers
     assert all(m.lat == 0 for m in fused.MODELS.values() if "army" not in m.key)

@@ -70,8 +70,14 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
     assert until_halted or want["clog"].any()
 
 
-@pytest.mark.parametrize("kw", [dict(partition=False), dict(n_nodes=4)],
+@pytest.mark.parametrize("kw,key", [(dict(partition=False), "broadcast-nopartition"),
+                                    (dict(n_nodes=4), "broadcast-n4")],
                          ids=["no_partition", "four_nodes"])
-def test_kernel_refuses_other_variants(kw):
-    with pytest.raises(NotImplementedError, match="compiled for 'broadcast'.*ROADMAP"):
-        fused.kernel_model(t_make(**kw))
+def test_kernel_refuses_other_variants(kw, key):
+    """Carried since the libraries are derived from the workload: the
+    variant's own library, its key stable and its compile-time shape the
+    workload's, where no registered library fits."""
+    wl = t_make(**kw)
+    spec = fused.kernel_model(wl)
+    assert spec.key == key and spec.key not in fused.MODELS
+    assert spec.shape == fused.workload_shape(wl) and spec == fused.derive_model(wl)

@@ -500,5 +500,8 @@ def test_a_causal_state_needs_a_library_with_the_taps():
         seeds_of(2))
     assert fused.has_obs(st) and not fused.has_obs(
         tcore.make_init(wl, tcore.EngineConfig(**RAFT_KW), device="cpu")(seeds_of(2)))
-    with pytest.raises(NotImplementedError, match="causal columns"):
+    # raft-record has no taps build at this pool: the launch builds one
+    with pytest.raises(ValueError, match="CUDA"):
         fused.check_state(fused.kernel_model(wl), wl, st)
+    lib = fused.library_at(fused.kernel_model(wl), st.ev_valid.shape[1], fused.state_taps(st))
+    assert lib.obs_pools == (st.ev_valid.shape[1],) and lib.key.endswith("-obs")

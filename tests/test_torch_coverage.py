@@ -222,9 +222,9 @@ def test_the_hooks_are_the_reference_workloads():
     spread = tm.make_raftlog(durable=True, cov_spread=True)
     assert fused.kernel_model(spread).key == "raftlog-durable-spread"
     assert fused.kernel_model(tm.make_raftlog(durable=True)).key == "raftlog-durable"
-    with pytest.raises(NotImplementedError, match="B1"):
-        fused.kernel_model(tm.make_raftlog(cov_spread=True))
-    # the kernel with the taps is built at the listed pools only
+    assert fused.kernel_model(tm.make_raftlog(cov_spread=True)).key == "raftlog-spread"
+    # the registered kernels with the taps are built at the listed pools;
+    # at any other pool the launch builds the library with them
     assert {k: m.obs_pools for k, m in fused.MODELS.items() if m.obs_pools} == {
         "raft": (40, 64), "leasekv": (48,), "shardkv": (64,), "kvchaos-bug-nochaos": (192,),
         "raftlog-durable-spread": (64,), "kvchaos-record-army": (72,),
@@ -233,12 +233,12 @@ def test_the_hooks_are_the_reference_workloads():
         "raftlog-record-nochaos": (128,), "raftlog-nosync-record": (128,),
         "kvchaos-army-nochaos": (160,)}
     raft = tm.make_raft()
-    for pool, taps in ((128, dict(cov_words=2)), (40, {})):
+    for pool, taps, key in ((128, dict(cov_words=2), "raft-p128-obs"), (40, {}, "raft")):
         st = tcore.make_init(raft, tcore.EngineConfig(pool_size=pool), device="cpu", **taps)(
             SEEDS[:2])
-        with pytest.raises((NotImplementedError, ValueError),
-                           match="coverage taps" if taps else "CUDA"):
+        with pytest.raises(ValueError, match="CUDA"):
             fused.check_state(fused.MODELS["raft"], raft, st)
+        assert fused.library_at(fused.MODELS["raft"], pool, fused.state_taps(st)).key == key
 
 
 # host case -> (plain case, library key)

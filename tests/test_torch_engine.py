@@ -185,7 +185,7 @@ def test_engine_kinds_match_reference_per_field(n_steps):
 
 def test_fused_wrapper_refuses_what_the_kernel_does_not_carry():
     _jwl, twl = _chaos_workloads()
-    with pytest.raises(NotImplementedError, match="carries no model 'chaos3'.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match="carries no model 'chaos3'.*make_run_plain"):
         fused.kernel_model(twl)
     raft = make_raft()
     spec = fused.kernel_model(raft)
@@ -196,13 +196,19 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_carry():
     cst = tcore.make_init(twl, tcore.EngineConfig(pool_size=40), device="cpu")(np.arange(2))
     with pytest.raises(ValueError, match="the workload.s is"):
         fused.check_state(spec, raft, cst)
-    with pytest.raises(ValueError, match="pool_size=24"):
+    # any pool: the launch builds the library at the state's pool, so
+    # a CPU state is refused only for its device
+    with pytest.raises(ValueError, match="CUDA"):
         fused.check_state(spec, raft, tcore.make_init(raft, tcore.EngineConfig(pool_size=24), device="cpu")(np.arange(2)))
+    assert fused.library_at(spec, 24).key == "raft-p24"
     with pytest.raises(ValueError, match="ev_meta"):
         fused.check_state(spec, raft, dataclasses.replace(st, ev_meta=st.ev_meta.to(torch.int32)))
-    # a registered name at another shape or variant is refused too
+    # a registered name at another variant derives its own library; at
+    # a shape that is not its trait's it is refused
+    four = fused.kernel_model(make_raft(n_nodes=4))
+    assert four.key == "raft-n4" and four.shape == fused.workload_shape(make_raft(n_nodes=4))
     with pytest.raises(NotImplementedError, match="compiled for 'raft-election'"):
-        fused.kernel_model(make_raft(n_nodes=4))
+        fused.kernel_model(dataclasses.replace(raft, state_width=7))
 
 
 @pytest.mark.parametrize("until_halted", [False, True], ids=["fixed", "while"])

@@ -27,7 +27,7 @@ from madsim_tpu_torch.models import (
     BENCH_SPECS, RECORD_VARIANTS, SOAK_SPECS, make_kvchaos, make_raft, make_raftlog,
 )
 
-from _torch_chaos3 import CHAOS3_MODEL, CHAOS_CFG, chaos3_spec, chaos3_workload
+from _torch_chaos3 import CHAOS3_MODEL, CHAOS_CFG, chaos3_family, chaos3_spec, chaos3_workload
 from _torch_host import build_host_kernel, host_drain, host_launch, host_run
 
 RAFT_POOLS = (40, 64, 128, 256)
@@ -356,26 +356,35 @@ def chaos3_model(tmp_path_factory):
     return chaos3_spec(tmp_path_factory.mktemp("chaos3"))
 
 
+@pytest.fixture(scope="module")
+def chaos3_entry(tmp_path_factory):
+    """chaos3 as a ``fused.FAMILIES`` entry, one header for the module:
+    a library key names one unit, header path included."""
+    return chaos3_family(tmp_path_factory.mktemp("chaos3-family"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("until_halted", [False, True], ids=["fixed", "while"])
-def test_cuda_engine_kinds_match_plain_step(chaos3_model, monkeypatch, until_halted):
+def test_cuda_engine_kinds_match_plain_step(chaos3_entry, monkeypatch, until_halted):
     """The engine kinds no ported model emits on the card (pause and
     resume, node clogs, the clog-backoff reschedule with its retries
-    byte) run through the real kernel: the chaos3 model trait, built by
-    nvcc from the registry's own translation unit, equals the plain step
-    per field."""
+    byte) run through the real kernel: the chaos3 model trait, a family
+    of its own here, derived and built by nvcc at the state's pool on
+    first use, equals the plain step per field."""
     _needs_card()
-    monkeypatch.setitem(fused.MODELS, chaos3_model.key, chaos3_model)
+    monkeypatch.setitem(fused.FAMILIES, "chaos3", chaos3_entry)
     wl, cfg = chaos3_workload(), tcore.EngineConfig(**CHAOS_CFG)
+    key = fused.library_for(wl, cfg.pool_size).key
+    assert key == f"chaos3-p{cfg.pool_size}"
     seeds = np.arange(1024, dtype=np.uint64) * np.uint64(0x9E3779B1)
     st = tcore.make_init(wl, cfg, device="cuda")(seeds)
     if until_halted:
         run, plain = tcore.make_run_while, tcore.make_run_while_plain
     else:
         run, plain = tcore.make_run, tcore.make_run_plain
-    before = _launches(chaos3_model.key)
+    before = _launches(key)
     got = state_to_numpy(run(wl, cfg, 150)(st))
-    assert _launches(chaos3_model.key) == (before[0] + 1, before[1] + int(until_halted))
+    assert _launches(key) == (before[0] + 1, before[1] + int(until_halted))
     want = state_to_numpy(plain(wl, cfg, 150)(st))
     for field in want:
         np.testing.assert_array_equal(got[field], want[field], err_msg=field)

@@ -115,8 +115,14 @@ def test_record_variants_match_reference_per_field(kw):
         t_make(bug=True)
 
 
-@pytest.mark.parametrize("kw", [dict(chaos=False), dict(n_replicas=3)],
+@pytest.mark.parametrize("kw,key", [(dict(chaos=False), "kvchaos-nochaos"),
+                                    (dict(n_replicas=3), "kvchaos-r3")],
                          ids=["no_chaos", "three_replicas"])
-def test_kernel_refuses_other_variants(kw):
-    with pytest.raises(NotImplementedError, match="compiled for 'kvchaos'.*ROADMAP"):
-        fused.kernel_model(t_make(**kw))
+def test_kernel_refuses_other_variants(kw, key):
+    """Carried since the libraries are derived from the workload: the
+    variant's own library, its key stable and its compile-time shape the
+    workload's, where no registered library fits."""
+    wl = t_make(**kw)
+    spec = fused.kernel_model(wl)
+    assert spec.key == key and spec.key not in fused.MODELS
+    assert spec.shape == fused.workload_shape(wl) and spec == fused.derive_model(wl)

@@ -61,14 +61,16 @@ def test_the_registry_carries_the_stalled_chaos_free_variant():
     free = t_make(chaos=False, record=True)
     assert fused.kernel_model(free).key == KEY
     assert fused.config_words(free, cfg)[-1] == fused.NO_WORD == 2**63 - 1
-    # the other leasekv libraries keep their words; a stall needs chaos=False
+    # the other leasekv libraries keep their five words; the stall under
+    # the model's own chaos derives a library that reads the sixth
     for key in ("leasekv", "leasekv-record", "leasekv-bug", "leasekv-army"):
         assert fused.MODELS[key].words == fused._LEASE_WORDS
-        assert dict(fused.MODELS[key].fixed)["ka_stop_ms"] is None
-    for kw in (dict(ka_stop_ms=2000), dict(ka_stop_ms=2000, record=True),
-               dict(chaos=False)):
-        with pytest.raises(NotImplementedError):
-            fused.kernel_model(t_make(**kw))
+        assert "ka_stop_ms" not in dict(fused.MODELS[key].fixed)
+    for kw, key in ((dict(ka_stop_ms=2000), "leasekv-stall"),
+                    (dict(ka_stop_ms=2000, record=True), "leasekv-record-stall"),
+                    (dict(chaos=False), "leasekv-nochaos")):
+        spec = fused.kernel_model(t_make(**kw))
+        assert spec.key == key and spec.words == (*fused._LEASE_WORDS, "ka_stop_ms")
 
 
 def test_the_scenario_matches_the_jax_engine_per_field():

@@ -144,9 +144,15 @@ def test_record_variants_match_reference_per_field(kw):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(chaos=False), dict(n_clients=2), dict(ka_stop_ms=200)],
+    "kw,key", [(dict(chaos=False), "leasekv-nochaos"), (dict(n_clients=2), "leasekv-c2"),
+               (dict(ka_stop_ms=200), "leasekv-stall")],
     ids=["no_chaos", "two_clients", "ka_stop"],
 )
-def test_kernel_refuses_other_variants(kw):
-    with pytest.raises(NotImplementedError, match="compiled for 'leasekv'.*ROADMAP"):
-        fused.kernel_model(t_make(**kw))
+def test_kernel_refuses_other_variants(kw, key):
+    """Carried since the libraries are derived from the workload: the
+    variant's own library, its key stable and its compile-time shape the
+    workload's, where no registered library fits."""
+    wl = t_make(**kw)
+    spec = fused.kernel_model(wl)
+    assert spec.key == key and spec.key not in fused.MODELS
+    assert spec.shape == fused.workload_shape(wl) and spec == fused.derive_model(wl)

@@ -71,5 +71,5 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
 
 def test_kernel_refuses_another_shape():
     wl = dataclasses.replace(t_make(), max_emits=3)
-    with pytest.raises(NotImplementedError, match="compiled for 'microbench'.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match="compiled for 'microbench'"):
         fused.kernel_model(wl)

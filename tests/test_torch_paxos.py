@@ -108,9 +108,15 @@ def test_record_run_matches_reference_per_field():
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(durable_acceptors=True), dict(chaos=False), dict(n_proposers=2)],
+    "kw,key", [(dict(durable_acceptors=True), "paxos-durable"),
+               (dict(chaos=False), "paxos-nochaos"), (dict(n_proposers=2), "paxos-p2")],
     ids=["durable_acceptors", "no_chaos", "two_proposers"],
 )
-def test_kernel_refuses_other_variants(kw):
-    with pytest.raises(NotImplementedError, match="compiled for 'paxos'.*ROADMAP"):
-        fused.kernel_model(t_make(**kw))
+def test_kernel_refuses_other_variants(kw, key):
+    """Carried since the libraries are derived from the workload: the
+    variant's own library, its key stable and its compile-time shape the
+    workload's, where no registered library fits."""
+    wl = t_make(**kw)
+    spec = fused.kernel_model(wl)
+    assert spec.key == key and spec.key not in fused.MODELS
+    assert spec.shape == fused.workload_shape(wl) and spec == fused.derive_model(wl)

@@ -307,15 +307,18 @@ def test_host_built_dup_lanes_with_user_purposes(tmp_path_factory):
 
 
 def test_the_registry_refuses_what_it_does_not_build():
-    """A dup run of a library built without the rows, and a plan
-    variant without a library, raise; neither runs the plain step."""
-    with pytest.raises(NotImplementedError, match="built with the duplication rows.*B1"):
-        fused.kernel_model(make_raft(), dup_rows=True)
-    with pytest.raises(NotImplementedError, match="B1"):
-        fused.kernel_model(make_paxos(record=True, chaos=False), dup_rows=True)
-    with pytest.raises(NotImplementedError, match="compiled for 'raftlog'.*B1"):
-        fused.kernel_model(__import__("madsim_tpu_torch.models", fromlist=["x"])
-                           .make_raftlog(chaos=False))
+    """A dup run of a library registered without the rows, and a plan
+    variant off the registry, derive their own libraries (neither runs
+    the plain step)."""
+    for wl, dup, key in (
+        (make_raft(), True, "raft-dup"),
+        (make_paxos(record=True, chaos=False), True, "paxos-record-nochaos-dup"),
+        (__import__("madsim_tpu_torch.models", fromlist=["x"]).make_raftlog(chaos=False),
+         False, "raftlog-nochaos"),
+    ):
+        spec = fused.kernel_model(wl, dup_rows=dup)
+        assert spec.key == key and spec.dup == dup and spec.key not in fused.MODELS
+        assert ("DupRows" in spec.unit_source()) == dup
     plan_libs = {k: m for k, m in fused.MODELS.items() if ("chaos", False) in m.fixed}
     assert sorted(plan_libs) == sorted(HOST_CASES.keys() - {"raft-record"}
                                        | {"kvchaos-record-nochaos", "raftlog-durable-record",

@@ -114,8 +114,14 @@ def test_record_run_matches_reference_per_field():
     assert t["hist_word"].shape == (16, 48, 5) and (t["hist_count"] >= 1).all()
 
 
-@pytest.mark.parametrize("kw", [dict(chaos=False), dict(n_writes=3)],
+@pytest.mark.parametrize("kw,key", [(dict(chaos=False), "raftlog-nochaos"),
+                                    (dict(n_writes=3), "raftlog-w3")],
                          ids=["no_chaos", "three_writes"])
-def test_kernel_refuses_other_variants(kw):
-    with pytest.raises(NotImplementedError, match="compiled for 'raftlog'.*ROADMAP"):
-        fused.kernel_model(t_make(**kw))
+def test_kernel_refuses_other_variants(kw, key):
+    """Carried since the libraries are derived from the workload: the
+    variant's own library, its key stable and its compile-time shape the
+    workload's, where no registered library fits."""
+    wl = t_make(**kw)
+    spec = fused.kernel_model(wl)
+    assert spec.key == key and spec.key not in fused.MODELS
+    assert spec.shape == fused.workload_shape(wl) and spec == fused.derive_model(wl)

@@ -113,8 +113,15 @@ def test_record_variants_match_reference_per_field(kw):
     assert t["hist_word"].shape == (16, 64, 5) and (t["hist_count"] > 0).all()
 
 
-@pytest.mark.parametrize("kw", [dict(chaos=False), dict(n_groups=3), dict(n_shards=6)],
+@pytest.mark.parametrize("kw,key", [(dict(chaos=False), "shardkv-nochaos"),
+                                    (dict(n_groups=3), "shardkv-g3"),
+                                    (dict(n_shards=6), "shardkv-s6")],
                          ids=["no_chaos", "three_groups", "six_shards"])
-def test_kernel_refuses_other_variants(kw):
-    with pytest.raises(NotImplementedError, match="compiled for 'shardkv'.*ROADMAP"):
-        fused.kernel_model(t_make(**kw))
+def test_kernel_refuses_other_variants(kw, key):
+    """Carried since the libraries are derived from the workload: the
+    variant's own library, its key stable and its compile-time shape the
+    workload's, where no registered library fits."""
+    wl = t_make(**kw)
+    spec = fused.kernel_model(wl)
+    assert spec.key == key and spec.key not in fused.MODELS
+    assert spec.shape == fused.workload_shape(wl) and spec == fused.derive_model(wl)

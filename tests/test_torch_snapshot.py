@@ -85,5 +85,10 @@ def test_host_built_kernel_matches_plain_step(host_lib, n_steps, until_halted):
 
 
 def test_kernel_refuses_other_variants():
-    with pytest.raises(NotImplementedError, match="compiled for 'snapshot'.*ROADMAP"):
-        fused.kernel_model(t_make(n_nodes=4))
+    """Carried since the libraries are derived from the workload: four
+    nodes derive their own library, its compile-time shape the
+    workload's."""
+    wl = t_make(n_nodes=4)
+    spec = fused.kernel_model(wl)
+    assert spec.key == "snapshot-n4" and spec.cxx == "madsim::SnapshotModelT<4>"
+    assert spec.shape == fused.workload_shape(wl)

@@ -102,8 +102,14 @@ def test_record_run_matches_reference_per_field():
     assert (t["hist_count"] >= TXNS * 5).all()
 
 
-@pytest.mark.parametrize("kw", [dict(chaos=False), dict(n_parts=3)],
+@pytest.mark.parametrize("kw,key", [(dict(chaos=False), "twophase-nochaos"),
+                                    (dict(n_parts=3), "twophase-p3")],
                          ids=["no_chaos", "three_parts"])
-def test_kernel_refuses_other_variants(kw):
-    with pytest.raises(NotImplementedError, match="compiled for 'twophase'.*ROADMAP"):
-        fused.kernel_model(t_make(**kw))
+def test_kernel_refuses_other_variants(kw, key):
+    """Carried since the libraries are derived from the workload: the
+    variant's own library, its key stable and its compile-time shape the
+    workload's, where no registered library fits."""
+    wl = t_make(**kw)
+    spec = fused.kernel_model(wl)
+    assert spec.key == key and spec.key not in fused.MODELS
+    assert spec.shape == fused.workload_shape(wl) and spec == fused.derive_model(wl)
